@@ -1,0 +1,8 @@
+"""Models of the port."""
+
+from .convert import load_flax_params
+from .generate import generate, prefill_cache, prefill_kv
+from .transformer import EncoderBlock, TransformerEncoder, TransformerLM
+
+__all__ = ["EncoderBlock", "TransformerEncoder", "TransformerLM", "generate",
+           "load_flax_params", "prefill_cache", "prefill_kv"]

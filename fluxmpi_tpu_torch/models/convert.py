@@ -1,0 +1,55 @@
+"""Load the JAX package's ``TransformerLM`` weights into the port.
+
+The port's modules keep flax's parameter names and layouts, so the
+conversion is a copy: the flax path ``encoder/block_0/attn/query/kernel``
+is the state-dict key ``encoder.block_0.attn.query.kernel``, with the same
+shape. Any missing, extra or mis-shaped leaf raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["load_flax_params"]
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict:
+    """``{"params": {...}}`` (or the inner dict) of array leaves →
+    ``{"a/b/c": numpy array}``."""
+    if prefix == "" and set(tree) == {"params"}:
+        tree = tree["params"]
+    flat = {}
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(val, Mapping):
+            flat.update(_flatten(val, path))
+        else:
+            flat[path] = np.asarray(val)
+    return flat
+
+
+def load_flax_params(model: torch.nn.Module, params: Mapping[str, Any]):
+    """Copy the JAX ``TransformerLM`` parameter tree ``params`` (numpy or
+    any array leaves, keyed by flax paths) into ``model`` in place; returns
+    ``model``."""
+    flat = {p.replace("/", "."): a for p, a in _flatten(params).items()}
+    own = dict(model.named_parameters())
+    missing = sorted(set(own) - set(flat))
+    extra = sorted(set(flat) - set(own))
+    if missing or extra:
+        raise ValueError(
+            f"parameter trees differ: missing {missing}, unexpected {extra}"
+        )
+    bad = [
+        f"{name}: {tuple(arr.shape)} vs {tuple(own[name].shape)}"
+        for name, arr in flat.items() if tuple(arr.shape) != tuple(own[name].shape)
+    ]
+    if bad:
+        raise ValueError("mis-shaped parameters: " + "; ".join(bad))
+    with torch.no_grad():
+        for name, arr in flat.items():
+            own[name].copy_(torch.from_numpy(np.array(arr, np.float32)))
+    return model

@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, loaded with :mod:`ctypes`. The
+build happens at first use, into ``ops/_build/`` (ignored by git), under a
+name that carries a hash of the source, so an edited kernel is rebuilt and
+an unchanged one is loaded as it is. Nothing is compiled when a module is
+imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["SOURCES", "build_all", "load"]
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# The C signature of every kernel entry: pointers and the stream as
+# c_void_p (a bare Python int would be cut to 32 bits), ints as c_int.
+SOURCES: dict[str, list] = {
+    "flash_fwd": [_P, _P, _P, _P, _P, _P, _P,  # q k v qseg kseg o lse
+                  _I, _I, _I, _I, _I, _I,      # b sq sk h hkv d
+                  _I, _I, _I, _I,              # causal has_window window dtype
+                  _P],                         # stream
+}
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+# nvcc's output for each library built by this process (ptxas -v lines).
+build_logs: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels are built "
+        "from csrc/ on a machine with the CUDA toolkit"
+    )
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def _command(name: str, out: Path) -> list[str]:
+    return [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-o", str(out), str(CSRC / f"{name}.cu"),
+    ]
+
+
+def build_all(names=None) -> dict[str, Path]:
+    """Compile every named source that has no library yet, one ``nvcc``
+    per source, all started together. Returns the library paths."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: _target(n) for n in names}
+    procs = {}
+    for n, out in targets.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(
+            _command(n, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        ))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        build_logs[n] = log
+        if proc.returncode != 0:
+            failed.append(f"{n}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, targets[n])
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all([name])[name]))
+            fn = getattr(lib, name)
+            fn.argtypes = SOURCES[name]
+            fn.restype = ctypes.c_int
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,90 @@
+"""The port stands alone: importing ``fluxmpi_tpu_torch`` loads no JAX,
+flax or ``fluxmpi_tpu`` module, its sources import none, its entry points
+refuse a missing CUDA device unless the caller asked for the CPU, and
+``chip_smoke.py`` fails (and prints no result) without a card or without
+the package beside it."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import fluxmpi_tpu_torch
+from fluxmpi_tpu_torch.models import TransformerLM
+from fluxmpi_tpu_torch.runtime import resolve_device
+from fluxmpi_tpu_torch.serving import BlockKVCache
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "fluxmpi_tpu_torch"
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "fluxmpi_tpu"}
+
+
+def _forbidden(name: str) -> bool:
+    # Exact root names: "fluxmpi_tpu_torch" shares the prefix and is fine.
+    return name.split(".")[0] in FORBIDDEN_ROOTS
+
+
+def test_import_loads_no_jax_flax_or_reference_package():
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import fluxmpi_tpu_torch, fluxmpi_tpu_torch.ops._build\n"
+        "print('\\n'.join(sorted(set(sys.modules) - before)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300, check=True)
+    loaded = out.stdout.split()
+    assert "fluxmpi_tpu_torch.serving.engine" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_sources_import_no_jax_flax_or_reference_package():
+    offenders = []
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            offenders += [f"{path.name}: {n}" for n in names if _forbidden(n)]
+    assert len(files) > 10 and offenders == []
+
+
+def test_entry_points_refuse_missing_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TransformerLM(vocab_size=11, max_len=8, num_layers=1, d_model=8,
+                      num_heads=2, d_ff=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BlockKVCache(num_layers=1, num_heads=1, head_dim=4, num_blocks=4,
+                     block_size=8, max_blocks_per_seq=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("mps")
+    assert fluxmpi_tpu_torch.resolve_device is resolve_device
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_card_or_package(tmp_path, alone):
+    script = ROOT / "chip_smoke.py"
+    cwd = ROOT
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")  # no card, even on a GPU host
+    out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
