@@ -4,25 +4,49 @@
     python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds every
-   CUDA kernel of the serving path from ``fluxmpi_tpu_torch/ops/csrc``.
-2. Kernel phase: holds ``flash_fwd`` against its plain PyTorch version
-   (``flash_attention_reference``) on the card in float32 and bfloat16, at
-   the serving path's prefill and decode shapes plus a GQA, a windowed and
-   a fully-masked-row case, and times the kernel, the plain version and
+   CUDA kernel of the port from ``fluxmpi_tpu_torch/ops/csrc`` (one
+   ``nvcc`` per source, all started together).
+2. Forward kernel phase: holds ``flash_fwd`` against its plain PyTorch
+   version (``flash_attention_reference``) on the card in float32 and
+   bfloat16, at the serving path's prefill and decode shapes, the training
+   shape, a GQA, a windowed, a fully-masked-row and a dropout case, and
+   times the kernel, the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
    the port never calls it) on the device by CUDA-graph replay, and the
    kernel's eager call as the serving loop makes it.
-3. Slice phase: serves 16 requests on a GPT-2-small-width ``TransformerLM``
-   (12 layers, d_model 768, 12 heads, d_ff 3072, vocab 50257, max_len 1024,
-   float32, TF32 off, weights from ``torch.Generator().manual_seed(0)``)
-   through ``InferenceEngine(slots=8, block_size=16, continuous=True)``,
-   checks every stream against the port's own ``generate()`` token for
-   token, and checks that the kernel's launch counter shows the prefills
-   and the decode steps went through it. It then serves the same requests
-   once more under ``torch.profiler`` (device activity only) and prints,
-   from that one traced run, the device's busy time against the run's wall
-   time (idle share), device time by kernel group, and how much longer the
-   traced run took than the untraced one.
+3. Backward kernel phase: holds ``flash_bwd_dq`` and ``flash_bwd_dkv``,
+   fed the forward kernel's ``lse`` and the torch ``dterm = rowsum(dO *
+   O) - dlse``, against ``flash_attention_bwd_reference`` (the backward
+   written as formulas) in float32 and bfloat16: the training shape, GQA
+   12 -> 4, window 128, packed segments with padding, rows with no key,
+   ``dlse != 0`` and dropout 0.1; checks that each of the three kernels'
+   dropout keep masks equals ``dropout_keep_reference`` bit for bit; and
+   times both kernels, dterm, the plain backward and the backward of
+   ``scaled_dot_product_attention`` (yardstick) at the training shape.
+4. Serving phase: serves 16 requests on a GPT-2-small-width
+   ``TransformerLM`` (12 layers, d_model 768, 12 heads, d_ff 3072, vocab
+   50257, max_len 1024, float32, TF32 off, weights from
+   ``torch.Generator().manual_seed(0)``) through
+   ``InferenceEngine(slots=8, block_size=16, continuous=True)``, checks
+   every stream against the port's own ``generate()`` token for token and
+   that the prefills and decode steps went through ``flash_fwd``; then
+   serves the same requests once more under ``torch.profiler`` (device
+   activity only): device busy time against wall time (idle share) and
+   device time by kernel group from that one traced run.
+5. Training phase: the user's data-parallel script at the same widths
+   (``attention="flash"``, dropout 0): ``init()`` (one worker, NCCL) ->
+   ``synchronize(model)`` -> the synthetic corpus of
+   ``examples/lm_pretrain.py`` (256 sequences of 1025 tokens, t -> 3t + 1
+   mod V) through ``ArrayDataset`` -> ``DistributedDataContainer`` ->
+   ``DistributedDataLoader(global_batch_size=8, shuffle=True)`` ->
+   ``make_train_step(mean per-token loss, optim.adamw(3e-4))`` ->
+   ``train_loop(steps=20, flush_every=10)``. Checks that each attention
+   kernel launched 12 times per update, that the loss is finite and its
+   mean over the last flush interval lower than over the first, and that
+   one update's gradients
+   through the kernels agree with the same update through the plain
+   versions leaf by leaf; then traces a few more updates (device busy,
+   wall, idle share, device time by kernel group).
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -44,6 +68,14 @@ TOL = {"float32": {"out": 2e-5, "lse": 1e-4},
        # bf16 output: one rounding of an f32 value of magnitude < 2 is at
        # most one bf16 ulp (2**-7); lse stays f32 on both sides.
        "bfloat16": {"out": 2e-2, "lse": 1e-4}}
+# Gradients, relative to the largest magnitude of the plain version's
+# output: f32 sums of up to 1024 products in different orders; bf16 adds
+# one rounding of the f32 result (2**-7 relative).
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2 ** -7 + 1e-4}
+# One update's gradients through the kernels against the plain versions,
+# per leaf max|diff| / max|g|: the attention differs only in f32
+# summation order, carried through 12 layers and 8192 tokens.
+TRAIN_GRAD_TOL = 1e-3
 
 GPT2_SMALL = dict(vocab_size=50257, max_len=1024, num_layers=12, d_model=768,
                   num_heads=12, d_ff=3072, ln_eps=1e-5)
@@ -107,21 +139,41 @@ def eager_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 def kernel_cases():
-    """(name, b, sq, sk, h, h_kv, d, causal, window, segments kind)."""
+    """(name, b, sq, sk, h, h_kv, d, causal, window, segments kind,
+    dropout rate)."""
     return [
-        ("prefill_128", 1, 128, 128, 12, 12, 64, True, None, None),
-        ("prefill_256", 1, 256, 256, 12, 12, 64, True, None, None),
-        ("decode_1024", 8, 1, 1024, 12, 12, 64, False, None, "prefix"),
-        ("gqa", 2, 192, 192, 12, 4, 64, True, None, None),
-        ("window", 2, 256, 256, 12, 12, 64, True, 48, None),
-        ("masked_row", 2, 128, 128, 12, 12, 64, True, None, "masked_row"),
+        ("prefill_128", 1, 128, 128, 12, 12, 64, True, None, None, 0.0),
+        ("prefill_256", 1, 256, 256, 12, 12, 64, True, None, None, 0.0),
+        ("decode_1024", 8, 1, 1024, 12, 12, 64, False, None, "prefix", 0.0),
+        ("train_1024", 8, 1024, 1024, 12, 12, 64, True, None, None, 0.0),
+        ("gqa", 2, 192, 192, 12, 4, 64, True, None, None, 0.0),
+        ("window", 2, 256, 256, 12, 12, 64, True, 48, None, 0.0),
+        ("masked_row", 2, 128, 128, 12, 12, 64, True, None, "masked_row", 0.0),
+        ("dropout", 2, 256, 256, 12, 12, 64, True, None, None, 0.1),
     ]
+
+
+def backward_cases():
+    """(name, b, sq, sk, h, h_kv, d, causal, window, segments kind,
+    dropout rate), plus whether the lse cotangent is nonzero."""
+    return [
+        (("train_1024", 8, 1024, 1024, 12, 12, 64, True, None, None, 0.0), False),
+        (("gqa", 2, 512, 512, 12, 4, 64, True, None, None, 0.0), False),
+        (("window_128", 2, 1024, 1024, 12, 12, 64, True, 128, None, 0.0), False),
+        (("packed", 2, 512, 512, 12, 12, 64, True, None, "packed", 0.0), False),
+        (("masked_row", 2, 128, 128, 12, 12, 64, True, None, "masked_row", 0.0), False),
+        (("dlse", 2, 256, 256, 12, 12, 64, True, None, None, 0.0), True),
+        (("dropout", 2, 256, 256, 12, 12, 64, True, None, None, 0.1), False),
+    ]
+
+
+DROPOUT_SEED = 1234
 
 
 def make_inputs(case, dtype, gen, device):
     import torch
 
-    name, b, sq, sk, h, hkv, d, causal, window, seg = case
+    name, b, sq, sk, h, hkv, d, causal, window, seg, rate = case
     q = torch.randn(b, sq, h, d, generator=gen)
     k = torch.randn(b, sk, hkv, d, generator=gen)
     v = torch.randn(b, sk, hkv, d, generator=gen)
@@ -139,6 +191,13 @@ def make_inputs(case, dtype, gen, device):
         qseg[0, 7] = 5          # a query row whose segment no key carries
         kseg = torch.ones(b, sk, dtype=torch.int32)
         kseg[1, :] = 0          # a batch row whose keys are all padding
+    elif seg == "packed":
+        # Three documents per row, then trailing padding in the last row.
+        qseg = torch.ones(b, sq, dtype=torch.int32)
+        qseg[:, sq // 3:] = 2
+        qseg[:, 2 * sq // 3:] = 3
+        qseg[-1, -sq // 5:] = 0
+        kseg = qseg.clone()
     to = dict(device=device)
     q, k, v = (t.to(dtype).to(**to) for t in (q, k, v))
     if qseg is not None:
@@ -146,13 +205,16 @@ def make_inputs(case, dtype, gen, device):
     return q, k, v, qseg, kseg
 
 
-def bound(case, dtype, qseg, kseg):
+def bound(case, dtype, qseg, kseg, products: int = 2, extra_rows: int = 0):
     """Least time for the work: each input byte read once, each output
     byte written once, counting only the K/V rows some query attends,
-    against 4 flops per attendable (q, k) pair per head and head dim."""
+    against 2 flops per multiply-add of ``products`` [pairs x d] products
+    over the attendable (q, k) pairs (2 for the forward: scores and P.V).
+    ``extra_rows`` counts further [b, sq, h, d] tensors moved (the
+    backward's dO and dQ) beside q and the output."""
     import torch
 
-    name, b, sq, sk, h, hkv, d, causal, window, seg = case
+    name, b, sq, sk, h, hkv, d, causal, window, seg, rate = case
     item = torch.empty((), dtype=dtype).element_size()
     qi = torch.arange(sq)[:, None]
     kj = torch.arange(sk)[None, :]
@@ -166,13 +228,13 @@ def bound(case, dtype, qseg, kseg):
         mask &= (qs[:, :, None] == ks[:, None, :]) & (ks[:, None, :] != 0)
     pairs = int(mask.sum()) * h
     live_keys = int(mask.any(dim=1).sum())
-    nbytes = (2 * b * sq * h * d * item        # q in, out
-              + 2 * live_keys * hkv * d * item  # live k, v
-              + b * h * sq * 4)                 # lse
+    nbytes = ((2 + extra_rows) * b * sq * h * d * item  # q, out (+ dO, ...)
+              + 2 * live_keys * hkv * d * item         # live k, v
+              + b * h * sq * 4)                         # lse
     if qseg is not None:
         nbytes += 4 * b * (sq + sk)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * pairs * d / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
+    t_ops = 2 * products * pairs * d / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -181,7 +243,7 @@ def sdpa_call(q, k, v, case, qseg, kseg):
     import torch
     import torch.nn.functional as F
 
-    name, b, sq, sk, h, hkv, d, causal, window, seg = case
+    name, b, sq, sk, h, hkv, d, causal, window, seg, rate = case
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     mask = None
     if window is not None or seg is not None:
@@ -204,6 +266,12 @@ def sdpa_call(q, k, v, case, qseg, kseg):
                                                   enable_gqa=gqa)
 
 
+def _timing_counts(case):
+    """CUDA-graph sizes: fewer captured calls for the ms-scale shapes."""
+    big = case[1] * case[2] * case[3] >= 4 * 1024 * 1024
+    return dict(n=4, reps=4) if big else dict(n=20, reps=10)
+
+
 def kernel_phase(device):
     import torch
 
@@ -214,11 +282,13 @@ def kernel_phase(device):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for case in kernel_cases():
-            name, b, sq, sk, h, hkv, d, causal, window, seg = case
+            name, b, sq, sk, h, hkv, d, causal, window, seg, rate = case
             q, k, v, qseg, kseg = make_inputs(case, dtype, gen, device)
-            out, lse = flash_fwd(q, k, v, qseg, kseg, causal=causal, window=window)
-            ref_out, ref_lse = flash_attention_reference(
-                q, k, v, causal=causal, window=window, q_seg=qseg, kv_seg=kseg)
+            opts = dict(causal=causal, window=window, dropout_rate=rate,
+                        seed=DROPOUT_SEED)
+            out, lse = flash_fwd(q, k, v, qseg, kseg, **opts)
+            ref_out, ref_lse = flash_attention_reference(q, k, v, q_seg=qseg,
+                                                         kv_seg=kseg, **opts)
             torch.cuda.synchronize()
             err_out = (out.float() - ref_out.float()).abs().max().item()
             err_lse = (lse - ref_lse).abs().max().item()
@@ -228,60 +298,203 @@ def kernel_phase(device):
                     and bool((lse[0, :, 7] == -1e30).all()) and bool((lse[1] == -1e30).all())
             tol = TOL[dname]
             ok = finite and err_out <= tol["out"] and err_lse <= tol["lse"]
-            kernel = lambda: flash_fwd(q, k, v, qseg, kseg, causal=causal, window=window)  # noqa: E731
-            ms = device_ms(kernel)
+            kernel = lambda: flash_fwd(q, k, v, qseg, kseg, **opts)  # noqa: E731
+            counts = _timing_counts(case)
+            ms = device_ms(kernel, **counts)
             call_ms = eager_ms(kernel)
             plain_ms = device_ms(lambda: flash_attention_reference(
-                q, k, v, causal=causal, window=window, q_seg=qseg, kv_seg=kseg))
-            library_ms = device_ms(sdpa_call(q, k, v, case, qseg, kseg))
+                q, k, v, q_seg=qseg, kv_seg=kseg, **opts), **counts)
+            # A dropping SDPA draws its own random mask: no yardstick there.
+            library_ms = None if rate else device_ms(
+                sdpa_call(q, k, v, case, qseg, kseg), **counts)
             bound_ms, bound_by = bound(case, dtype, qseg, kseg)
             row = dict(case=name, dtype=dname, shape=[b, sq, sk, h, hkv, d],
-                       causal=causal, window=window, segments=seg,
+                       causal=causal, window=window, segments=seg, dropout=rate,
                        err_out=err_out, err_lse=err_lse, tol_out=tol["out"],
                        tol_lse=tol["lse"], ok=ok, ms=ms, eager_ms=call_ms,
                        plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
             rows.append(row)
+            lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
             print(f"kernel flash_fwd {name:12s} {dname:8s} err_out={err_out:.3e} "
                   f"(tol {tol['out']:g}) err_lse={err_lse:.3e} (tol {tol['lse']:g}) "
                   f"ms={ms:.4f} eager_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms={library_ms:.4f} "
+                  f"library_ms={lib} "
                   f"bound_ms={bound_ms:.6f} ({bound_by}) {'ok' if ok else 'FAIL'}",
                   flush=True)
             if not ok:
                 failures.append(f"flash_fwd {name} {dname}")
+            del q, k, v, out, lse, ref_out, ref_lse
     return rows, failures
+
+
+def sdpa_backward_call(q, k, v, g, case):
+    """The backward of ``scaled_dot_product_attention`` at the same causal
+    shape (a yardstick only: the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    causal = case[7]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    gt = g.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+
+
+def dropout_mask_check(device):
+    """Each kernel's dropout keep mask, read off its output, against
+    ``dropout_keep_reference``: with q = 0 every live probability is equal
+    and nonzero, and identity matrices as V (forward), K (dQ) and dO (dV)
+    copy the dropped probabilities into the output, so an entry is nonzero
+    iff the kernel kept it. Returns {kernel: masks equal}."""
+    import torch
+
+    from fluxmpi_tpu_torch.ops.flash_attention import (dropout_keep_reference,
+                                                       flash_bwd_dkv, flash_bwd_dq,
+                                                       flash_fwd)
+
+    b, h, s, d, rate = 2, 12, 128, 128, 0.1
+    eye = torch.eye(s, device=device).expand(b, h, s, d).permute(0, 2, 1, 3).contiguous()
+    zeros = torch.zeros(b, s, h, d, device=device)
+    keep = dropout_keep_reference(
+        DROPOUT_SEED, torch.arange(b * h, device=device).reshape(b, h, 1, 1),
+        torch.arange(s, device=device).reshape(1, 1, s, 1),
+        torch.arange(s, device=device).reshape(1, 1, 1, s), 1 - rate)
+    opts = dict(dropout_rate=rate, seed=DROPOUT_SEED)
+    lse = torch.zeros(b, h, s, device=device)
+    dterm = torch.zeros(b, h, s, device=device)
+    ones = torch.zeros(b, s, h, d, device=device)
+    ones[..., 0] = 1.0
+    out, _ = flash_fwd(zeros, zeros, eye, **opts)
+    dq = flash_bwd_dq(zeros, eye, ones, None, None, ones, lse, dterm, **opts)
+    _, dv = flash_bwd_dkv(zeros, zeros, zeros, None, None, eye, lse, dterm, **opts)
+    torch.cuda.synchronize()
+    return {"flash_fwd": bool(torch.equal(out.permute(0, 2, 1, 3) != 0, keep)),
+            "flash_bwd_dq": bool(torch.equal(dq.permute(0, 2, 1, 3) != 0, keep)),
+            "flash_bwd_dkv": bool(torch.equal(dv.permute(0, 2, 3, 1) != 0, keep)),
+            "keep_fraction": keep.float().mean().item()}
+
+
+def backward_phase(device):
+    import torch
+
+    from fluxmpi_tpu_torch.ops.flash_attention import (flash_attention_bwd_reference,
+                                                       flash_bwd_dkv, flash_bwd_dq,
+                                                       flash_fwd)
+
+    gen = torch.Generator().manual_seed(2)
+    rows, failures = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for case, with_dlse in backward_cases():
+            name, b, sq, sk, h, hkv, d, causal, window, seg, rate = case
+            q, k, v, qseg, kseg = make_inputs(case, dtype, gen, device)
+            g = torch.randn(b, sq, h, d, generator=gen).to(dtype).to(device)
+            opts = dict(causal=causal, window=window, dropout_rate=rate,
+                        seed=DROPOUT_SEED)
+            out, lse = flash_fwd(q, k, v, qseg, kseg, **opts)
+            dlse = (torch.randn(b, h, sq, generator=gen).to(device) if with_dlse
+                    else torch.zeros(b, h, sq, device=device))
+
+            def dterm_fn():
+                return ((g.float() * out.float()).sum(-1).permute(0, 2, 1)
+                        - dlse).contiguous()
+
+            dterm = dterm_fn()
+            dq = flash_bwd_dq(q, k, v, qseg, kseg, g, lse, dterm, **opts)
+            dk, dv = flash_bwd_dkv(q, k, v, qseg, kseg, g, lse, dterm, **opts)
+            want = flash_attention_bwd_reference(q, k, v, g, lse, dterm, q_seg=qseg,
+                                                 kv_seg=kseg, **opts)
+            torch.cuda.synchronize()
+            errs, rels, ok = {}, {}, True
+            for label, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+                diff = (got.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                errs[label] = diff
+                rels[label] = diff / scale if scale else diff
+                ok = ok and bool(torch.isfinite(got.float()).all()) \
+                    and got.dtype == dtype and diff <= GRAD_TOL[dname] * scale + 1e-6
+            if seg == "masked_row":
+                ok = ok and bool((dq[0, 7] == 0).all()) and bool((dq[1] == 0).all())
+            counts = _timing_counts(case)
+            dq_ms = device_ms(lambda: flash_bwd_dq(q, k, v, qseg, kseg, g, lse, dterm,
+                                                   **opts), **counts)
+            dkv_ms = device_ms(lambda: flash_bwd_dkv(q, k, v, qseg, kseg, g, lse, dterm,
+                                                     **opts), **counts)
+            row = dict(case=name, dtype=dname, shape=[b, sq, sk, h, hkv, d],
+                       causal=causal, window=window, segments=seg, dropout=rate,
+                       dlse=with_dlse, err=errs, rel_err=rels,
+                       tol_rel=GRAD_TOL[dname], ok=ok, dq_ms=dq_ms, dkv_ms=dkv_ms)
+            row["dq_bound_ms"], row["dq_bound_by"] = bound(
+                case, dtype, qseg, kseg, products=3, extra_rows=1)
+            row["dkv_bound_ms"], row["dkv_bound_by"] = bound(
+                case, dtype, qseg, kseg, products=4, extra_rows=1)
+            if name == "train_1024":
+                row["dterm_ms"] = device_ms(dterm_fn, **counts)
+                row["plain_ms"] = device_ms(lambda: flash_attention_bwd_reference(
+                    q, k, v, g, lse, dterm, q_seg=qseg, kv_seg=kseg, **opts), **counts)
+                row["library_ms"] = eager_ms(sdpa_backward_call(q, k, v, g, case),
+                                             iters=10, warmup=2)
+                row["sum_ms"] = row["dterm_ms"] + dq_ms + dkv_ms
+            rows.append(row)
+            extra = ""
+            if "plain_ms" in row:
+                extra = (f" dterm_ms={row['dterm_ms']:.4f} sum_ms={row['sum_ms']:.4f} "
+                         f"plain_ms={row['plain_ms']:.4f} "
+                         f"library_ms(sdpa bwd)={row['library_ms']:.4f}")
+            print(f"kernel flash_bwd {name:12s} {dname:8s} "
+                  + " ".join(f"err_{kk}={vv:.3e}(rel {rels[kk]:.2e})" for kk, vv in errs.items())
+                  + f" (tol rel {GRAD_TOL[dname]:.2e}) dq_ms={dq_ms:.4f} "
+                  f"(bound {row['dq_bound_ms']:.4f} {row['dq_bound_by']}) "
+                  f"dkv_ms={dkv_ms:.4f} (bound {row['dkv_bound_ms']:.4f} "
+                  f"{row['dkv_bound_by']}){extra} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                failures.append(f"flash_bwd {name} {dname}")
+            del q, k, v, g, out, lse, dq, dk, dv, want
+    masks = dropout_mask_check(device)
+    print(f"kernel dropout keep masks equal dropout_keep_reference bit for bit: "
+          f"{masks}", flush=True)
+    for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if not masks[kname]:
+            failures.append(f"{kname}: dropout keep mask differs from the reference")
+    return rows, masks, failures
 
 
 def _kernel_group(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
-        return "attention (flash_fwd)"
-    if any(t in n for t in ("gemm", "gemv", "cutlass", "xmma", "matmul")):
+        return "attention forward (flash_fwd)"
+    if "flash_bwd_dq" in n:
+        return "attention backward dQ (flash_bwd_dq)"
+    if "flash_bwd_dkv" in n:
+        return "attention backward dK/dV (flash_bwd_dkv)"
+    if "nccl" in n:
+        return "collectives (NCCL)"
+    if any(t in n for t in ("gemm", "gemv", "cutlass", "xmma", "matmul", "sm90_")):
         return "matmul"
+    if "multi_tensor" in n or "foreach" in n:
+        return "optimizer (multi-tensor)"
     if any(t in n for t in ("index", "gather", "scatter")):
         return "index/gather/scatter (paged cache, embedding)"
     if "layer_norm" in n or "layernorm" in n:
         return "layer norm"
     if "reduce" in n or "argmax" in n:
-        return "reductions (argmax)"
-    if "copy" in n or "memcpy" in n or "memset" in n or "fill" in n:
+        return "reductions"
+    if "copy" in n or "memcpy" in n or "memset" in n or "fill" in n or "cat" in n:
         return "copies and fills"
     return "elementwise and other"
 
 
-def profile_phase(engine, specs, steps_before: int, untraced_ms: float):
-    """Serve the same requests again under ``torch.profiler`` (device
-    activity only). Busy time and wall time come from this one traced run;
-    the tracer's own host cost lengthens the wall, reported against the
-    untraced run's ``untraced_ms``. Returns the stats and the requests."""
+def traced(run):
+    """Run ``run()`` under ``torch.profiler`` (device activity only);
+    returns ``(run's result, device busy ms, wall ms, kernel count, device
+    ms by kernel group)``, busy and wall from this one traced run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        reqs = [engine.submit(p, n) for p, n in specs]
-        summary = engine.run()
+        result = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, groups = [], {}
@@ -303,20 +516,34 @@ def profile_phase(engine, specs, steps_before: int, untraced_ms: float):
             cur_e = max(cur_e, e_)
     if cur_e is not None:
         busy_us += cur_e - cur_s
-    busy_ms = busy_us / 1e3
+    groups = dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+    return result, busy_us / 1e3, wall_ms, len(spans), groups
+
+
+def profile_phase(engine, specs, steps_before: int, untraced_ms: float):
+    """Serve the same requests again under ``torch.profiler`` (device
+    activity only). Busy time and wall time come from this one traced run;
+    the tracer's own host cost lengthens the wall, reported against the
+    untraced run's ``untraced_ms``. Returns the stats and the requests."""
+
+    def serve():
+        reqs = [engine.submit(p, n) for p, n in specs]
+        return reqs, engine.run()
+
+    (reqs, summary), busy_ms, wall_ms, nk, groups = traced(serve)
     steps = summary["decode_steps"] - steps_before
     out = dict(wall_ms=wall_ms, untraced_wall_ms=untraced_ms,
-               device_busy_ms=busy_ms, kernels=len(spans), decode_steps=steps,
-               idle_share=(1 - busy_ms / wall_ms) if spans else None,
-               device_ms_by_group=dict(sorted(groups.items(), key=lambda kv: -kv[1])))
-    if not spans:
+               device_busy_ms=busy_ms, kernels=nk, decode_steps=steps,
+               idle_share=(1 - busy_ms / wall_ms) if nk else None,
+               device_ms_by_group=groups)
+    if not nk:
         print("profile: the trace holds no device time (not measured)", flush=True)
         return out, reqs
     print(f"profile: traced run: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
           f"wall (idle share {out['idle_share']:.3f}); the untraced run took "
-          f"{untraced_ms:.3f} ms; {len(spans)} kernels, {steps} decode steps",
+          f"{untraced_ms:.3f} ms; {nk} kernels, {steps} decode steps",
           flush=True)
-    for g, ms in out["device_ms_by_group"].items():
+    for g, ms in groups.items():
         print(f"profile:   {g:48s} {ms:9.3f} ms  {ms / busy_ms:6.1%} of busy", flush=True)
     return out, reqs
 
@@ -340,8 +567,9 @@ def slice_phase(device):
 
     # The model's forward through the kernel agrees with the dense attend.
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, vocab, (2, 40))).to(device)
-    flash_logits = model(toks)
-    naive_logits = model(toks, attention="naive")
+    with torch.no_grad():
+        flash_logits = model(toks)
+        naive_logits = model(toks, attention="naive")
     fwd_err = (flash_logits - naive_logits).abs().max().item()
     fwd_ok = bool(torch.isfinite(flash_logits).all()) and \
         flash_logits.shape == (2, 40, vocab) and fwd_err <= 1e-3
@@ -408,6 +636,180 @@ def slice_phase(device):
     return stats, failures
 
 
+class plain_attention:
+    """Route the attention wrappers to their plain versions (on the same
+    CUDA tensors) for the duration of the block, counting no launches:
+    the comparison run of the training phase."""
+
+    def __enter__(self):
+        import importlib
+
+        fa = importlib.import_module("fluxmpi_tpu_torch.ops.flash_attention")
+        self.fa = fa
+        self.saved = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+        ref, bwd = fa.flash_attention_reference, fa.flash_attention_bwd_reference
+
+        def fwd(q, k, v, q_seg=None, kv_seg=None, **opts):
+            return ref(q, k, v, q_seg=q_seg, kv_seg=kv_seg, **opts)
+
+        def dq(q, k, v, q_seg, kv_seg, g, lse, dterm, **opts):
+            return bwd(q, k, v, g, lse, dterm, q_seg=q_seg, kv_seg=kv_seg, **opts)[0]
+
+        def dkv(q, k, v, q_seg, kv_seg, g, lse, dterm, **opts):
+            return bwd(q, k, v, g, lse, dterm, q_seg=q_seg, kv_seg=kv_seg, **opts)[1:]
+
+        fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv = fwd, dq, dkv
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_fwd, self.fa.flash_bwd_dq, self.fa.flash_bwd_dkv = self.saved
+        return False
+
+
+def lm_corpus(vocab: int, n: int = 256, seq: int = 1024, seed: int = 0):
+    """``examples/lm_pretrain.py``'s synthetic corpus: n sequences of seq + 1
+    tokens following t -> 3t + 1 mod vocab, from ``default_rng(seed)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    seqs = [rng.integers(0, vocab, size=(n, 1))]
+    for _ in range(seq):
+        seqs.append((seqs[-1] * 3 + 1) % vocab)
+    return np.concatenate(seqs, axis=1).astype(np.int32)
+
+
+def train_phase(device, updates: int = 20, flush_every: int = 10,
+                traced_updates: int = 3):
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+
+    failures = []
+    dev = fm.init()
+    t0 = time.perf_counter()
+    model = TransformerLM(**GPT2_SMALL, attention="flash", dropout=0.0,
+                          dtype=torch.float32, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    fm.synchronize(model)
+    corpus = lm_corpus(GPT2_SMALL["vocab_size"], seq=GPT2_SMALL["max_len"])
+    loader = fm.DistributedDataLoader(
+        fm.DistributedDataContainer(fm.ArrayDataset((corpus[:, :-1], corpus[:, 1:]))),
+        global_batch_size=8, shuffle=True)
+    print(f"train: world {fm.total_workers()} on {dev} "
+          f"({torch.distributed.get_backend()}), corpus "
+          f"{corpus.shape}, {len(loader)} batches of {loader.local_batch_size} x "
+          f"{corpus.shape[1] - 1} tokens per epoch; set-up {time.perf_counter() - t0:.2f}s",
+          flush=True)
+
+    def loss_fn(params, model_state, batch):
+        x, y = batch
+        return model(x, targets=y).mean(), model_state
+
+    opt = optim.adamw(3e-4)
+    step = make_train_step(loss_fn, opt)
+    state = TrainState.create(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    state, summary = train_loop(step, state, loader, steps=updates,
+                                flush_every=flush_every)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kern.__name__: kern.launches for kern in kernels}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    tokens = summary["updates"] * 8 * (corpus.shape[1] - 1)
+    step_ms = summary["step_ms"]
+    # One batch's loss moves from update to update by more than ten
+    # updates lower it on this corpus, so the check reads each flush
+    # interval's mean loss (the newest update's is printed beside it).
+    first, last = summary["flushes"][0]["loss_mean"], summary["flushes"][-1]["loss_mean"]
+    first_upd, last_upd = summary["flushes"][0]["loss"], summary["flushes"][-1]["loss"]
+    stats = dict(updates=summary["updates"], tokens=tokens, wall_seconds=wall,
+                 tokens_per_sec=tokens / wall,
+                 median_update_ms=float(np.median(step_ms)) if step_ms else None,
+                 step_ms=step_ms, first_flush_loss_mean=first,
+                 last_flush_loss_mean=last, first_flush_loss=first_upd,
+                 last_flush_loss=last_upd,
+                 flushes=summary["flushes"], peak_memory_gb=peak_gb,
+                 launches=launches, epochs=summary["epochs"])
+    need = model.num_layers * summary["updates"]
+    print(f"train: {summary['updates']} updates, {tokens} tokens in {wall:.3f}s = "
+          f"{tokens / wall:.1f} tokens/s; median {stats['median_update_ms']:.2f} ms "
+          f"per update (device timeline, updates 2..{summary['updates']}); mean loss "
+          f"of the first flush interval {first:.4f} -> of the last {last:.4f} (the "
+          f"flushing update's: {first_upd:.4f} -> {last_upd:.4f}); peak memory "
+          f"{peak_gb:.2f} GB; launches {launches} (need {need} each)", flush=True)
+    if summary["updates"] != updates:
+        failures.append(f"train: {summary['updates']} updates, not {updates}")
+    if any(n != need for n in launches.values()):
+        failures.append(f"train: kernel launches {launches}, not {need} each")
+    if not (np.isfinite(first) and np.isfinite(last) and last < first):
+        failures.append(f"train: mean loss {first} -> {last} is not finite and falling")
+
+    # One update's gradients through the kernels against the same update
+    # through the plain versions, on the same batch.
+    x, y = next(iter(loader))
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+
+    def grads():
+        return torch.autograd.grad(loss_fn(None, None, (x, y))[0], params)
+
+    g_kernel = grads()
+    with plain_attention():
+        g_plain = grads()
+    torch.cuda.synchronize()
+    rel = {}
+    for name, a, b in zip(names, g_kernel, g_plain):
+        scale = b.abs().max().item()
+        rel[name] = (a - b).abs().max().item() / scale if scale else 0.0
+    # A key bias shifts every score of its query rows alike: its gradient is
+    # zero in exact arithmetic, so both sides hold rounding noise only.
+    checked = {n: r for n, r in rel.items() if not n.endswith("attn.key.bias")}
+    worst = max(checked, key=checked.get)
+    stats["grad_rel_err"] = rel
+    stats["grad_rel_err_max"] = checked[worst]
+    ok = all(np.isfinite(r) and r <= TRAIN_GRAD_TOL for r in checked.values())
+    print(f"train: gradients through the kernels vs the plain versions, per leaf "
+          f"max|diff|/max|g|: worst {checked[worst]:.3e} ({worst}) over "
+          f"{len(checked)} leaves (tol {TRAIN_GRAD_TOL:g}; the {len(rel) - len(checked)} "
+          f"key biases, zero in exact arithmetic, excluded) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("train: kernel gradients differ from the plain versions'")
+    del g_kernel, g_plain
+
+    # A traced window of a few more updates through the same loop.
+    (_, tsum), busy_ms, wall_ms, nk, groups = traced(
+        lambda: train_loop(step, state, loader, steps=traced_updates,
+                           flush_every=traced_updates))
+    prof = dict(updates=tsum["updates"], wall_ms=wall_ms, device_busy_ms=busy_ms,
+                kernels=nk, idle_share=(1 - busy_ms / wall_ms) if nk else None,
+                device_ms_by_group=groups)
+    stats["profile"] = prof
+    if not nk:
+        failures.append("train profile: the trace holds no device time")
+    else:
+        print(f"train profile: {tsum['updates']} traced updates: device busy "
+              f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall (idle share "
+              f"{prof['idle_share']:.3f}); {nk} kernels", flush=True)
+        for g, ms in groups.items():
+            print(f"train profile:   {g:48s} {ms:9.3f} ms  {ms / busy_ms:6.1%} of busy",
+                  flush=True)
+    del state, model, step
+    fm.shutdown()
+    return stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -438,25 +840,10 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    sys.stdout.flush()
 
-    rows, failures = kernel_phase(device)
-    stats, slice_failures = slice_phase(device)
-    failures += slice_failures
-
-    main_row = next(r for r in rows if r["case"] == "decode_1024" and r["dtype"] == "float32")
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "fluxmpi_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "fluxmpi_tpu/ops/flash_attention.py:185",
-        "launches": stats["launches"],
-        "max_abs_err": max(max(r["err_out"], r["err_lse"]) for r in rows),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "timed_case": "decode_1024 float32",
-        "cases": rows,
-    }]
-    print(json.dumps({"kernels": kernels, "slice": stats, "card": card}))
+    kernels, results, failures = run_phases(device)
+    print(json.dumps({"kernels": kernels, **results, "card": card}))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
@@ -464,6 +851,69 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_phases(device):
+    """All phases on ``device``; returns the kernels' rows, the serving and
+    training results, and the failures."""
+    import torch
+
+    rows, failures = kernel_phase(device)
+    bwd_rows, masks, bwd_failures = backward_phase(device)
+    failures += bwd_failures
+    stats, slice_failures = slice_phase(device)
+    failures += slice_failures
+    torch.cuda.empty_cache()
+    train, train_failures = train_phase(device)
+    failures += train_failures
+
+    fwd_row = next(r for r in rows if r["case"] == "decode_1024" and r["dtype"] == "float32")
+    fwd_train = next(r for r in rows if r["case"] == "train_1024" and r["dtype"] == "float32")
+    bwd_main = next(r for r in bwd_rows if r["case"] == "train_1024"
+                    and r["dtype"] == "float32")
+    kernels = [{
+        "name": "flash_fwd", "route": "cuda",
+        "source": "fluxmpi_tpu_torch/ops/csrc/flash_fwd.cu",
+        "replaces": "fluxmpi_tpu/ops/flash_attention.py:185",
+        "launches": stats["launches"] + train["launches"]["flash_fwd"],
+        "launches_by_path": {"serve": stats["launches"],
+                             "train": train["launches"]["flash_fwd"]},
+        "max_abs_err": max(max(r["err_out"], r["err_lse"]) for r in rows),
+        "ms": fwd_row["ms"], "plain_ms": fwd_row["plain_ms"],
+        "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
+        "library_ms": fwd_row["library_ms"],
+        "timed_case": "decode_1024 float32",
+        "train_case": {k: fwd_train[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "library_ms")},
+        "dropout_mask_equal": masks["flash_fwd"],
+        "cases": rows,
+    }]
+    for kname, key, errs in (("flash_bwd_dq", "dq", ("dq",)),
+                             ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"fluxmpi_tpu_torch/ops/csrc/{kname}.cu",
+            "replaces": ("fluxmpi_tpu/ops/flash_attention.py:306" if key == "dq"
+                         else "fluxmpi_tpu/ops/flash_attention.py:399"),
+            "launches": train["launches"][kname],
+            "max_abs_err": max(r["err"][e] for r in bwd_rows for e in errs),
+            "ms": bwd_main[f"{key}_ms"],
+            # The plain version computes dQ, dK and dV in one pass; the
+            # yardstick is the whole SDPA backward: both beside the sum
+            # dterm + dQ + dK/dV.
+            "plain_ms": bwd_main["plain_ms"],
+            "bound_ms": bwd_main[f"{key}_bound_ms"],
+            "bound_by": bwd_main[f"{key}_bound_by"],
+            "library_ms": bwd_main["library_ms"],
+            "dterm_ms": bwd_main["dterm_ms"],
+            "sum_dterm_dq_dkv_ms": bwd_main["sum_ms"],
+            "timed_case": "train_1024 float32",
+            "dropout_mask_equal": masks[kname],
+            "cases": [{k: r[k] for k in ("case", "dtype", "err", "rel_err", "ok",
+                                         f"{key}_ms", f"{key}_bound_ms")}
+                      for r in bwd_rows],
+        })
+    return kernels, {"slice": stats, "train": train}, failures
 
 
 if __name__ == "__main__":

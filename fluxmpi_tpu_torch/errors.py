@@ -1,9 +1,28 @@
 """Exceptions raised by the port (the subset of ``fluxmpi_tpu.errors``
-that serving raises)."""
+that the ported modules raise)."""
 
 from __future__ import annotations
 
-__all__ = ["RequestRejectedError"]
+__all__ = ["CollectiveError", "FluxMPINotInitializedError",
+           "RequestRejectedError"]
+
+
+class FluxMPINotInitializedError(RuntimeError):
+    """A rank/world query or a collective before
+    :func:`fluxmpi_tpu_torch.init`: the runtime must be brought up first."""
+
+    def __init__(self, message: str | None = None) -> None:
+        super().__init__(
+            message
+            or "fluxmpi_tpu_torch has not been initialized. Call "
+            "`fluxmpi_tpu_torch.init()` before querying `local_rank()` / "
+            "`total_workers()` or using collectives."
+        )
+
+
+class CollectiveError(RuntimeError):
+    """A collective that could not be run: an unsupported leaf, or a
+    failure inside ``torch.distributed``."""
 
 
 class RequestRejectedError(RuntimeError):

@@ -1,8 +1,10 @@
 """Models of the port."""
 
-from .convert import load_flax_params
+from .convert import load_flax_params, to_flax_params
 from .generate import generate, prefill_cache, prefill_kv
+from .mlp import MLP
 from .transformer import EncoderBlock, TransformerEncoder, TransformerLM
 
-__all__ = ["EncoderBlock", "TransformerEncoder", "TransformerLM", "generate",
-           "load_flax_params", "prefill_cache", "prefill_kv"]
+__all__ = ["EncoderBlock", "MLP", "TransformerEncoder", "TransformerLM",
+           "generate", "load_flax_params", "prefill_cache", "prefill_kv",
+           "to_flax_params"]

@@ -1,9 +1,13 @@
-"""Load the JAX package's ``TransformerLM`` weights into the port.
+"""Convert parameters between the JAX package and the port.
 
 The port's modules keep flax's parameter names and layouts, so the
-conversion is a copy: the flax path ``encoder/block_0/attn/query/kernel``
-is the state-dict key ``encoder.block_0.attn.query.kernel``, with the same
-shape. Any missing, extra or mis-shaped leaf raises.
+conversion is a copy both ways: the flax path
+``encoder/block_0/attn/query/kernel`` is the state-dict key
+``encoder.block_0.attn.query.kernel``, with the same shape.
+:func:`load_flax_params` copies a JAX parameter tree in (any missing,
+extra or mis-shaped leaf raises); :func:`to_flax_params` gives the port's
+parameters (or gradients keyed like them) back as numpy arrays keyed by
+flax path, so tests compare the two leaf by leaf.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_flax_params"]
+__all__ = ["load_flax_params", "to_flax_params"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict:
@@ -53,3 +57,15 @@ def load_flax_params(model: torch.nn.Module, params: Mapping[str, Any]):
         for name, arr in flat.items():
             own[name].copy_(torch.from_numpy(np.array(arr, np.float32)))
     return model
+
+
+def to_flax_params(tree) -> dict[str, np.ndarray]:
+    """``{"a/b/c": numpy array}`` for a module's parameters, or for any
+    mapping keyed by state-dict names (``"a.b.c"``), such as the gradients
+    a train step computes. Arrays are f32 copies on the host."""
+    if isinstance(tree, torch.nn.Module):
+        tree = dict(tree.named_parameters())
+    return {
+        name.replace(".", "/"): t.detach().float().cpu().numpy().copy()
+        for name, t in tree.items()
+    }

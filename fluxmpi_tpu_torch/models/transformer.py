@@ -12,11 +12,18 @@ causal forward and the cached decode step, through
 :func:`fluxmpi_tpu_torch.ops.flash_attention`; ``"auto"`` picks flash on
 CUDA and the dense attend on the CPU.
 
+Training: :meth:`TransformerLM.forward` with ``targets=`` returns the
+per-token cross-entropy through the chunked fused head
+(:func:`fluxmpi_tpu_torch.ops.unembed_cross_entropy`), differentiable in
+every parameter; with ``attention="flash"`` the attention forward and
+backward run in the CUDA kernels.
+
 Cached decoding: :meth:`TransformerLM.forward` with ``kv_cache=(k, v)``
 (``[layers, batch, max_len, heads, head_dim]`` each) feeds one token per
 row at that row's own position ``pos_offset`` (``[batch]``), writes the
 new K/V into the cache in place, and attends to positions
-``<= pos_offset`` of its row.
+``<= pos_offset`` of its row. Decoding is inference: it runs without
+autograd.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
+from ..ops.fused_ce import unembed_cross_entropy
 from ..runtime import resolve_device
 
 __all__ = ["EncoderBlock", "TransformerEncoder", "TransformerLM"]
@@ -199,7 +207,9 @@ class TransformerLM(nn.Module):
 
     Weights are drawn from the CPU ``generator`` (default: a fresh
     ``torch.Generator`` seeded with 0) and live on ``device``
-    (default CUDA; ``"cpu"`` only when asked)."""
+    (default CUDA; ``"cpu"`` only when asked). ``dropout`` is the
+    attention dropout rate of the JAX module; training with it is not
+    ported (see :meth:`forward`)."""
 
     # A batched causal forward over a prompt computes the same per-token
     # function as one-position decoding (the gate generate() and the
@@ -208,7 +218,8 @@ class TransformerLM(nn.Module):
 
     def __init__(self, vocab_size: int = 1024, max_len: int = 512,
                  num_layers: int = 4, d_model: int = 128, num_heads: int = 4,
-                 d_ff: int = 512, *, attention: str = "naive",
+                 d_ff: int = 512, *, dropout: float = 0.0,
+                 attention: str = "naive",
                  ln_eps: float = 1e-6, dtype: torch.dtype = torch.float32,
                  device=None,
                  generator: torch.Generator | None = None):
@@ -225,6 +236,7 @@ class TransformerLM(nn.Module):
         self.num_heads = num_heads
         self.head_dim = d_model // num_heads
         self.d_ff = d_ff
+        self.dropout = float(dropout)
         self.attention = attention
         self.ln_eps = ln_eps
         self.dtype = dtype
@@ -241,50 +253,88 @@ class TransformerLM(nn.Module):
     def attention_mode(self, override: str | None = None) -> str:
         return _resolve_attention_mode(override or self.attention, self.device)
 
-    @torch.no_grad()
-    def forward(self, tokens, *, pos_offset=None, kv_cache=None,
-                attention: str | None = None, return_kv: bool = False):
+    def forward(self, tokens, *, train: bool = True, targets=None,
+                loss_chunk: int = 8192, hidden: bool = False,
+                pos_offset=None, kv_cache=None, attention: str | None = None,
+                return_kv: bool = False):
         """Logits ``[b, s, vocab]`` (f32) for int tokens ``[b, s]``.
 
-        Without ``kv_cache``: the causal forward over positions ``0..s-1``.
-        With ``return_kv`` it also returns each layer's K/V stacked as
-        ``[layers, b, s, heads, head_dim]`` (what the decode cache banks).
+        Without ``kv_cache``: the causal forward over positions ``0..s-1``,
+        differentiable. With ``targets`` (int labels of ``tokens``' shape)
+        it returns the per-token cross-entropy losses ``[b, s]`` (f32)
+        through the chunked fused head instead, never materializing the
+        logits (``loss_chunk`` tiles the vocab). ``hidden=True`` returns
+        ``(hidden_states, embedding)``: the final-LN activations and the
+        tied ``[vocab, d_model]`` table. With ``return_kv`` it also returns
+        each layer's K/V stacked as ``[layers, b, s, heads, head_dim]``
+        (what the decode cache banks).
+
+        ``train=True`` with ``dropout > 0`` raises: the JAX LM trains with
+        attention dropout through flax's dense fallback and flax's random
+        stream (``flash_attention_fn(dropout_impl="dense")``), which no
+        port can reproduce.
 
         With ``kv_cache=(k, v)``: cached decoding, ``s == 1``; row ``i``'s
         token sits at position ``pos_offset[i]``, its K/V are written there
         in place, and it attends to cache positions ``<= pos_offset[i]``.
         ``attention`` overrides the model's switch for this call."""
+        if kv_cache is not None:
+            if targets is not None or hidden:
+                raise ValueError("targets/hidden are training paths; "
+                                 "kv_cache is inference")
+            with torch.no_grad():
+                return self._decode(tokens, pos_offset, kv_cache, attention)
+        if train and self.dropout > 0:
+            raise NotImplementedError(
+                "training TransformerLM with dropout > 0 is not ported: the "
+                "JAX LM then takes flax's dense attention fallback with "
+                "flax's random stream (flash_attention_fn dropout_impl="
+                "'dense'), which the port cannot reproduce; train with "
+                "dropout=0.0, or call with train=False")
+        if hidden and targets is not None:
+            raise ValueError("pass either targets or hidden, not both")
         mode = self.attention_mode(attention)
         tokens = torch.as_tensor(tokens, device=self.device).long()
         b, s = tokens.shape
+        if s > self.max_len:
+            raise ValueError(f"sequence length {s} exceeds max_len "
+                             f"{self.max_len}")
         x = self.embed.embedding[tokens].to(self.dtype)
-        segments = pos = None
-        if kv_cache is not None:
-            if s != 1:
-                raise ValueError(f"cached decoding feeds one token per row, "
-                                 f"got {s}")
-            pos = torch.as_tensor(pos_offset, device=self.device).long()
-            pos = pos.expand(b) if pos.ndim == 0 else pos
-            x = x + self.pos_embed[pos][:, None].to(self.dtype)
-            t_total = kv_cache[0].shape[2]
-            # The valid prefix as segment ids: the query is segment 1, cache
-            # positions past pos (stale or trash rows) are padding.
-            segments = (
-                torch.ones((b, 1), dtype=torch.int32, device=self.device),
-                (torch.arange(t_total, device=self.device)[None, :]
-                 <= pos[:, None]).to(torch.int32),
-            )
-        else:
-            if s > self.max_len:
-                raise ValueError(f"sequence length {s} exceeds max_len "
-                                 f"{self.max_len}")
-            x = x + self.pos_embed[:s][None].to(self.dtype)
-        h, ks, vs = self.encoder(x, mode=mode, dtype=self.dtype,
-                                 cache=kv_cache, pos=pos, segments=segments)
+        x = x + self.pos_embed[:s][None].to(self.dtype)
+        h, ks, vs = self.encoder(x, mode=mode, dtype=self.dtype)
+        if hidden:
+            return h, self.embed.embedding
+        if targets is not None:
+            targets = torch.as_tensor(targets, device=self.device)
+            return unembed_cross_entropy(h.to(self.dtype), self.embed.embedding,
+                                         targets, chunk=loss_chunk)
         logits = h @ self.embed.embedding.t()
         if return_kv:
             return logits, torch.stack(ks), torch.stack(vs)
         return logits
+
+    def _decode(self, tokens, pos_offset, kv_cache, attention):
+        mode = self.attention_mode(attention)
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        b, s = tokens.shape
+        if s != 1:
+            raise ValueError(f"cached decoding feeds one token per row, "
+                             f"got {s}")
+        x = self.embed.embedding[tokens].to(self.dtype)
+        pos = torch.as_tensor(pos_offset, device=self.device).long()
+        pos = pos.expand(b) if pos.ndim == 0 else pos
+        x = x + self.pos_embed[pos][:, None].to(self.dtype)
+        t_total = kv_cache[0].shape[2]
+        # The valid prefix as segment ids: the query is segment 1, cache
+        # positions past pos (stale or trash rows) are padding.
+        segments = (
+            torch.ones((b, 1), dtype=torch.int32, device=self.device),
+            (torch.arange(t_total, device=self.device)[None, :]
+             <= pos[:, None]).to(torch.int32),
+        )
+        h, _, _ = self.encoder(x, mode=mode, dtype=self.dtype, cache=kv_cache,
+                               pos=pos, segments=segments)
+        return h @ self.embed.embedding.t()
 
     def cache_shape(self, batch: int, total: int) -> tuple[int, ...]:
         return (self.num_layers, batch, total, self.num_heads, self.head_dim)

@@ -26,13 +26,25 @@ BUILD_DIR = _HERE / "_build"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
+# The mask, dropout and launch arguments every flash kernel entry ends with:
+# b sq sk h hkv d, causal has_window window, dropout seed threshold
+# keep_prob, dtype, stream.
+_FLASH_TAIL = [_I, _I, _I, _I, _I, _I,
+               _I, _I, _I,
+               _I, _U, _U, _F,
+               _I, _P]
 # The C signature of every kernel entry: pointers and the stream as
-# c_void_p (a bare Python int would be cut to 32 bits), ints as c_int.
+# c_void_p (a bare Python int would be cut to 32 bits), ints as c_int, the
+# dropout seed and threshold as c_uint, keep_prob as c_float.
 SOURCES: dict[str, list] = {
-    "flash_fwd": [_P, _P, _P, _P, _P, _P, _P,  # q k v qseg kseg o lse
-                  _I, _I, _I, _I, _I, _I,      # b sq sk h hkv d
-                  _I, _I, _I, _I,              # causal has_window window dtype
-                  _P],                         # stream
+    # q k v qseg kseg o lse
+    "flash_fwd": [_P] * 7 + _FLASH_TAIL,
+    # q k v qseg kseg dout lse dterm dq
+    "flash_bwd_dq": [_P] * 9 + _FLASH_TAIL,
+    # q k v qseg kseg dout lse dterm dk dv
+    "flash_bwd_dkv": [_P] * 10 + _FLASH_TAIL,
 }
 
 _lock = threading.Lock()
@@ -56,7 +68,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    # The shared headers are part of every source.
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

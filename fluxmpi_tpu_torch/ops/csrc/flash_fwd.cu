@@ -6,7 +6,11 @@
 // query row, f32 running max / sum / accumulator whatever the input type,
 // causal frontier, window band (band only when causal == 0), segment ids
 // (attend iff q_seg == kv_seg and kv_seg != 0), grouped-query heads. A row
-// with no attendable key writes O = 0 and lse = -1e30.
+// with no attendable key writes O = 0 and lse = -1e30. Attention dropout
+// (dropout != 0): the value accumulation sees keep ? p / keep_prob : 0,
+// while l sums the undropped p (dropout after normalization, as flax and
+// the TPU kernel do); the keep mask is the counter-based murmur3 hash of
+// flash_common.cuh, keyed by (seed, b*h + head, q_pos, k_pos).
 //
 // What bounds it on the card: serving decode (one query row against a
 // cache of up to max_len keys) reads every live K/V byte once and does
@@ -36,27 +40,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 constexpr int kBQ = 8;      // query rows per block
-constexpr int kBK = 32;     // keys per warp tile: lane j owns key j
+constexpr int kBK = kTileRows;  // keys per warp tile: lane j owns key j
 constexpr int kWarps = 4;   // warps split the key tiles round-robin
 constexpr int kMaxD = 128;
-constexpr int kMaxDevices = 64;
 constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Params {
   const void* q;     // [b, sq, h, d]
@@ -69,6 +61,10 @@ struct Params {
   int b, sq, sk, h, hkv, d;
   int causal, has_window, window;
   float scale;
+  int dropout;          // nonzero: apply the keep mask to the value path
+  uint32_t seed;        // dropout seed
+  uint32_t threshold;   // keep iff hash < threshold
+  float keep_prob;
 };
 
 // Per warp: a K tile [kBK][d + 1] (padded, so lanes reading their own
@@ -159,37 +155,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(Params p) {
       if (!__any_sync(kFull, live)) continue;
     }
     __syncwarp();  // this warp's previous tile is no longer read
-    // Stage the tile through registers: every load is unconditional (the
-    // key and column are clamped into the tensor, out-of-range values are
-    // zeroed afterwards), so a lane keeps ~32 loads in flight instead of
-    // waiting on each one.
-    constexpr int kStage = NCH == 1 ? 16 : NCH == 2 ? 8 : 4;
-    for (int j0 = 0; j0 < kBK; j0 += kStage) {
-      float kr[kStage][NCH], vr[kStage][NCH];
-#pragma unroll
-      for (int u = 0; u < kStage; ++u) {
-        const int key = min(k0 + j0 + u, p.sk - 1);
-        const size_t off = ((size_t)(bi * p.sk + key) * p.hkv + hk) * d;
-#pragma unroll
-        for (int c = 0; c < NCH; ++c) {
-          const int col = min(lane + 32 * c, d - 1);
-          kr[u][c] = to_f32(K[off + col]);
-          vr[u][c] = to_f32(V[off + col]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kStage; ++u) {
-        const bool in = j0 + u < kn;
-#pragma unroll
-        for (int c = 0; c < NCH; ++c) {
-          const int col = lane + 32 * c;
-          if (col < d) {
-            k_s[(j0 + u) * (d + 1) + col] = in ? kr[u][c] : 0.f;
-            v_s[(j0 + u) * d + col] = in ? vr[u][c] : 0.f;
-          }
-        }
-      }
-    }
+    stage_rows<T, NCH>(k_s, d + 1, v_s, d, K, V, bi, p.sk, p.hkv, hk, k0, d, lane);
     __syncwarp();
 
     // Scores: lane j holds s[r] = q_r . k_j for the block's rows.
@@ -225,7 +191,11 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(Params p) {
 #pragma unroll
       for (int c = 0; c < NCH; ++c) acc[r][c] *= alpha;
       m[r] = m_new;
-      s[r] = pr;  // s now holds this lane's probability for row r
+      float pv = pr;
+      if (p.dropout)
+        pv = dropout_keep(p.seed, (uint32_t)bh, (uint32_t)qp, (uint32_t)kp, p.threshold)
+                 ? pr / p.keep_prob : 0.f;
+      s[r] = pv;  // s now holds this lane's (dropped) probability for row r
     }
 
     // acc[r][:] += sum_j p_rj * v_j, p_rj broadcast from lane j.
@@ -297,20 +267,10 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(Params p) {
 
 template <typename T, int NCH>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  // The shared-memory limit is a per-device attribute of the function:
-  // raise it once on each device the kernel launches on.
   static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err =
+      raise_smem_limit(flash_fwd_kernel<T, NCH>, smem_bytes(kMaxD), configured);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(kMaxD));
-    if (err != cudaSuccess) return err;
-    configured[dev] = true;
-  }
   dim3 grid((p.sq + kBQ - 1) / kBQ, p.b * p.h);
   flash_fwd_kernel<T, NCH><<<grid, kWarps * 32, smem_bytes(p.d), stream>>>(p);
   return cudaGetLastError();
@@ -331,11 +291,13 @@ cudaError_t dispatch(const Params& p, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
 // launch (0 = success). Allocates nothing: O and lse come from the caller.
+// dropout != 0 applies the keep mask (seed, threshold) with 1/keep_prob.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* qseg, const void* kseg, void* o, void* lse,
                          int b, int sq, int sk, int h, int hkv, int d,
-                         int causal, int has_window, int window, int dtype,
-                         void* stream) {
+                         int causal, int has_window, int window,
+                         int dropout, unsigned int seed, unsigned int threshold,
+                         float keep_prob, int dtype, void* stream) {
   if (d < 1 || d > kMaxD || hkv < 1 || h % hkv != 0) return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0 || h == 0) return (int)cudaSuccess;
   Params p;
@@ -356,6 +318,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   p.has_window = has_window;
   p.window = window;
   p.scale = 1.0f / sqrtf((float)d);
+  p.dropout = dropout;
+  p.seed = seed;
+  p.threshold = threshold;
+  p.keep_prob = keep_prob;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? dispatch<float>(p, st)
                   : dtype == 1 ? dispatch<__nv_bfloat16>(p, st)

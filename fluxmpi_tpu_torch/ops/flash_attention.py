@@ -1,11 +1,12 @@
-"""Flash attention forward: a hand-written CUDA kernel and its plain
-PyTorch version.
+"""Flash attention, forward and backward: hand-written CUDA kernels and
+their plain PyTorch versions.
 
 Counterpart of :mod:`fluxmpi_tpu.ops.flash_attention`. Inputs are
 ``(batch, seq, heads, head_dim)``; the scale is ``1/sqrt(head_dim)``;
-scores, the running max and sum, and the accumulator are f32 whatever the
-input dtype; the output comes back in the input dtype and the per-row
-logsumexp ``lse`` as f32 ``[batch, heads, q_seq]``.
+scores, the running max and sum, the accumulators and every gradient sum
+are f32 whatever the input dtype; outputs and gradients come back in the
+inputs' dtypes and the per-row logsumexp ``lse`` as f32 ``[batch, heads,
+q_seq]``.
 
 Masking: ``causal`` (``q_pos >= k_pos``), a sliding ``window``
 (``q_pos - k_pos < window``; band only when ``causal=False``, reachable
@@ -14,11 +15,21 @@ attends iff ``q_seg == kv_seg`` and ``kv_seg != 0`` (id 0 is padding). A
 row with no attendable key outputs zeros and ``lse = -1e30``. Grouped-query
 attention: ``k``/``v`` may carry ``h_kv`` heads with ``h % h_kv == 0``.
 
-On a CUDA tensor the wrapper :func:`flash_fwd` launches the kernel of
-``csrc/flash_fwd.cu`` (or raises); on a CPU tensor the plain version
-:func:`flash_attention_reference` runs. There is no fallback between the
-two. The backward kernels and in-kernel dropout come with the training
-work: ``dropout_rate > 0`` raises.
+Dropout (``dropout_rate > 0`` with a ``dropout_seed``): the normalized
+probabilities on the value path are dropped and rescaled by
+``1/keep_prob``, the softmax sum is not; the keep mask is the JAX
+package's counter-based murmur3 hash of ``(seed, b*h + head, q_pos,
+k_pos)`` (:func:`dropout_keep_reference`), so the port and the TPU
+kernels drop the same entries.
+
+Differentiation is a :class:`torch.autograd.Function` over ``(out,
+lse)`` with the recompute-based two-pass backward of the JAX package:
+``dterm = rowsum(dO * O) - dlse`` in plain torch, then one kernel for dQ
+and one for dK/dV. On CUDA tensors the wrappers :func:`flash_fwd`,
+:func:`flash_bwd_dq` and :func:`flash_bwd_dkv` launch the kernels of
+``csrc/`` (or raise); on CPU tensors the plain versions
+:func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
+run. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -26,9 +37,14 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "dropout_keep_reference",
+    "dropout_threshold",
     "flash_attention",
-    "flash_attention_with_lse",
+    "flash_attention_bwd_reference",
     "flash_attention_reference",
+    "flash_attention_with_lse",
+    "flash_bwd_dkv",
+    "flash_bwd_dq",
     "flash_fwd",
     "padding_to_segment_ids",
 ]
@@ -112,19 +128,71 @@ def _is_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-def flash_attention_reference(q, k, v, *, causal=False, window=None,
-                              q_seg=None, kv_seg=None):
-    """The plain PyTorch version of the kernel: the same function,
-    materializing the ``[b, h, sq, sk]`` scores. Returns ``(out, lse)``."""
-    b, sq, h, d = q.shape
-    sk, h_kv = k.shape[1], k.shape[2]
-    if h_kv != h:
-        k = k.repeat_interleave(h // h_kv, dim=2)
-        v = v.repeat_interleave(h // h_kv, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (d ** -0.5)
-    mask = torch.ones((b, 1, sq, sk), dtype=torch.bool, device=q.device)
-    q_pos = torch.arange(sq, device=q.device)[:, None]
-    k_pos = torch.arange(sk, device=q.device)[None, :]
+def dropout_threshold(keep_prob: float) -> int:
+    """The uint32 keep threshold, in double precision on the host exactly
+    as the JAX package computes it: keep iff hash bits < threshold."""
+    return min(int(keep_prob * 4294967296.0), 4294967295)
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``x * c mod 2**32`` for int64 ``x`` in ``[0, 2**32)`` without
+    leaving int64: the product is split at 16 bits of ``x``."""
+    lo = (x & 0xFFFF) * c
+    hi = ((x >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _MASK32
+
+
+def _rotl32(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _MASK32
+
+
+def _hash_mix(h, k):
+    k = _mul32(k, 0xCC9E2D51)
+    k = _rotl32(k, 15)
+    k = _mul32(k, 0x1B873593)
+    h = h ^ k
+    h = _rotl32(h, 13)
+    return (_mul32(h, 5) + 0xE6546B64) & _MASK32
+
+
+def _hash_final(h):
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def dropout_keep_reference(seed, bh, q_pos, k_pos, keep_prob: float):
+    """The dropout keep mask (True = keep) of the JAX package's
+    ``_dropout_keep``: murmur3 rounds over ``(seed, bh, q_pos, k_pos)``
+    and the finalizer, in int64 arithmetic masked to 32 bits. ``bh``,
+    ``q_pos`` and ``k_pos`` are integer tensors (or ints) that
+    broadcast."""
+    as64 = lambda x: torch.as_tensor(x, dtype=torch.int64) & _MASK32  # noqa: E731
+    h = _hash_mix(as64(int(seed) & _MASK32), as64(bh))
+    h = _hash_mix(h, as64(q_pos))
+    h = _hash_mix(h, as64(k_pos))
+    return _hash_final(h) < dropout_threshold(keep_prob)
+
+
+def _keep_mask(b, h, sq, sk, seed, keep_prob, device):
+    """``[b, h, sq, sk]`` keep mask, the hash keyed by the folded query
+    row ``b_idx * h + head``."""
+    bh = torch.arange(b * h, device=device).reshape(b, h, 1, 1)
+    q_pos = torch.arange(sq, device=device).reshape(1, 1, sq, 1)
+    k_pos = torch.arange(sk, device=device).reshape(1, 1, 1, sk)
+    return dropout_keep_reference(seed, bh, q_pos, k_pos, keep_prob)
+
+
+def _pair_mask(b, sq, sk, causal, window, q_seg, kv_seg, device):
+    """``[b, 1, sq, sk]`` attendable pairs."""
+    mask = torch.ones((b, 1, sq, sk), dtype=torch.bool, device=device)
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(sk, device=device)[None, :]
     if causal:
         mask = mask & (q_pos >= k_pos)
     if window is not None:
@@ -132,33 +200,83 @@ def flash_attention_reference(q, k, v, *, causal=False, window=None,
     if q_seg is not None:
         seg = (q_seg[:, :, None] == kv_seg[:, None, :]) & (kv_seg[:, None, :] != 0)
         mask = mask & seg[:, None]
+    return mask
+
+
+def _expand_kv(x, h):
+    return x if x.shape[2] == h else x.repeat_interleave(h // x.shape[2], dim=2)
+
+
+def flash_attention_reference(q, k, v, *, causal=False, window=None,
+                              q_seg=None, kv_seg=None, dropout_rate=0.0,
+                              seed=0):
+    """The plain PyTorch version of the forward kernel: the same function,
+    materializing the ``[b, h, sq, sk]`` scores. Returns ``(out, lse)``."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    k, v = _expand_kv(k, h), _expand_kv(v, h)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (d ** -0.5)
+    mask = _pair_mask(b, sq, sk, causal, window, q_seg, kv_seg, q.device)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    if dropout_rate:
+        keep_prob = 1.0 - dropout_rate
+        keep = _keep_mask(b, h, sq, sk, seed, keep_prob, q.device)
+        p = torch.where(keep, p / keep_prob, torch.zeros_like(p))
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / l_safe.permute(0, 2, 1, 3)
     lse = (m + torch.log(l_safe))[..., 0]
     return out.to(q.dtype), lse
 
 
-def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal=False, window=None):
-    """Launch the CUDA kernel (``csrc/flash_fwd.cu``) on the current stream.
+def flash_attention_bwd_reference(q, k, v, dout, lse, dterm, *, causal=False,
+                                  window=None, q_seg=None, kv_seg=None,
+                                  dropout_rate=0.0, seed=0):
+    """The plain PyTorch version of the two backward kernels, written out
+    as formulas (not autograd of the forward): with ``p = exp(s - lse)``
+    on attendable pairs, ``dp = dO V^T`` (dropped and rescaled like the
+    forward's value path) and ``ds = p * (dp - dterm) / sqrt(d)``, returns
+    ``dQ = ds K``, ``dK = ds^T Q`` and ``dV = p_drop^T dO``, the last two
+    summed over each kv head's query-head group. ``lse`` and ``dterm`` are
+    f32 ``[b, h, sq]``."""
+    b, sq, h, d = q.shape
+    sk, h_kv = k.shape[1], k.shape[2]
+    scale = d ** -0.5
+    kf, vf = _expand_kv(k, h).float(), _expand_kv(v, h).float()
+    qf, gf = q.float(), dout.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    mask = _pair_mask(b, sq, sk, causal, window, q_seg, kv_seg, q.device)
+    # Select before exp: exp(s - lse) overflows on rows whose lse is -1e30.
+    p = torch.exp(torch.where(mask, s - lse[..., None], NEG_INF))
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    p_drop = p
+    if dropout_rate:
+        keep_prob = 1.0 - dropout_rate
+        keep = _keep_mask(b, h, sq, sk, seed, keep_prob, q.device)
+        p_drop = torch.where(keep, p / keep_prob, torch.zeros_like(p))
+        dp = torch.where(keep, dp / keep_prob, torch.zeros_like(dp))
+    ds = p * (dp - dterm[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_drop, gf)
+    if h_kv != h:
+        dk = dk.reshape(b, sk, h_kv, h // h_kv, d).sum(dim=3)
+        dv = dv.reshape(b, sk, h_kv, h // h_kv, d).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
-    Takes contiguous CUDA tensors ``q [b, sq, h, d]``, ``k``/``v
-    [b, sk, h_kv, d]`` of one dtype (float32 or bfloat16, ``d <= 128``) and
-    optional int32 ``q_seg [b, sq]`` / ``kv_seg [b, sk]``; raises on
-    anything else. Returns ``(out, lse)``. ``flash_fwd.launches`` counts the
-    launches.
-    """
-    tensors = [q, k, v] + ([q_seg, kv_seg] if q_seg is not None else [])
-    for t in tensors:
+
+def _check_kernel_inputs(name, tensors, q, k, v, q_seg, kv_seg):
+    if (q_seg is None) != (kv_seg is None):
+        raise ValueError("pass q_seg and kv_seg together, or neither")
+    for t in tensors + ([q_seg, kv_seg] if q_seg is not None else []):
         if not _is_cuda(t) or t.device != q.device:
-            raise ValueError("flash_fwd takes CUDA tensors on one device")
+            raise ValueError(f"{name} takes CUDA tensors on one device")
         if not t.is_contiguous():
-            raise ValueError("flash_fwd takes contiguous tensors")
+            raise ValueError(f"{name} takes contiguous tensors")
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_fwd supports float32 and bfloat16, not {q.dtype}")
+        raise TypeError(f"{name} supports float32 and bfloat16, not {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
     if q_seg is not None and (q_seg.dtype != torch.int32
@@ -166,73 +284,222 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal=False, window=None):
         raise TypeError("segment ids must be int32")
     _check_shapes(q, k, v)
     b, sq, h, d = q.shape
-    sk, h_kv = k.shape[1], k.shape[2]
+    if q_seg is not None and (tuple(q_seg.shape) != (b, sq)
+                              or tuple(kv_seg.shape) != (b, k.shape[1])):
+        raise ValueError("segment ids must be q_seg [b, sq] and kv_seg [b, sk]")
     if d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_fwd supports head_dim <= {MAX_HEAD_DIM}, got {d}")
+        raise ValueError(f"{name} supports head_dim <= {MAX_HEAD_DIM}, got {d}")
     if b * h > 65535:
         raise ValueError(f"batch * heads = {b * h} exceeds the grid limit 65535")
+
+
+def _mask_args(causal, window, dropout_rate, seed):
+    """The C entries' trailing mask and dropout arguments."""
+    keep_prob = 1.0 - float(dropout_rate)
+    return (int(bool(causal)), int(window is not None),
+            int(window) if window is not None else 0,
+            int(bool(dropout_rate)), int(seed) & _MASK32,
+            dropout_threshold(keep_prob) if dropout_rate else 0, keep_prob)
+
+
+def _launch(name, q, *args):
+    """Call the C entry ``name`` on q's device and current stream; raise on
+    a refused launch."""
     from ._build import load
 
-    lib = load("flash_fwd")
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = load(name)
     # The C entry launches on the calling thread's current device.
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            q_seg.data_ptr() if q_seg is not None else None,
-            kv_seg.data_ptr() if kv_seg is not None else None,
-            out.data_ptr(), lse.data_ptr(),
-            b, sq, sk, h, h_kv, d,
-            int(bool(causal)), int(window is not None),
-            int(window) if window is not None else 0,
-            _DTYPE_CODES[q.dtype], stream,
-        )
+        err = getattr(lib, name)(*args, _DTYPE_CODES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal=False, window=None,
+              dropout_rate=0.0, seed=0):
+    """Launch the forward kernel (``csrc/flash_fwd.cu``) on the current
+    stream.
+
+    Takes contiguous CUDA tensors ``q [b, sq, h, d]``, ``k``/``v
+    [b, sk, h_kv, d]`` of one dtype (float32 or bfloat16, ``d <= 128``) and
+    optional int32 ``q_seg [b, sq]`` / ``kv_seg [b, sk]``; raises on
+    anything else. Returns ``(out, lse)``. ``flash_fwd.launches`` counts the
+    launches.
+    """
+    _check_kernel_inputs("flash_fwd", [q, k, v], q, k, v, q_seg, kv_seg)
+    b, sq, h, d = q.shape
+    sk, h_kv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _launch("flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ptr(q_seg), _ptr(kv_seg), out.data_ptr(), lse.data_ptr(),
+            b, sq, sk, h, h_kv, d, *_mask_args(causal, window, dropout_rate, seed))
     flash_fwd.launches += 1
     return out, lse
 
 
+def _check_bwd_inputs(name, q, dout, lse, dterm):
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"{name}: dout must match q's shape and dtype")
+    b, sq, h, _ = q.shape
+    for t in (lse, dterm):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq):
+            raise ValueError(f"{name}: lse and dterm must be f32 [b, h, sq]")
+
+
+def flash_bwd_dq(q, k, v, q_seg, kv_seg, dout, lse, dterm, *, causal=False,
+                 window=None, dropout_rate=0.0, seed=0):
+    """Launch the dQ kernel (``csrc/flash_bwd_dq.cu``) on the current
+    stream. Tensors as for :func:`flash_fwd`, plus ``dout`` (q's shape and
+    dtype) and f32 ``lse``/``dterm [b, h, sq]``, all contiguous on one CUDA
+    device; raises on anything else. Returns ``dq`` in q's dtype.
+    ``flash_bwd_dq.launches`` counts the launches."""
+    _check_kernel_inputs("flash_bwd_dq", [q, k, v, dout, lse, dterm], q, k, v,
+                         q_seg, kv_seg)
+    _check_bwd_inputs("flash_bwd_dq", q, dout, lse, dterm)
+    b, sq, h, d = q.shape
+    sk, h_kv = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ptr(q_seg), _ptr(kv_seg), dout.data_ptr(), lse.data_ptr(),
+            dterm.data_ptr(), dq.data_ptr(),
+            b, sq, sk, h, h_kv, d, *_mask_args(causal, window, dropout_rate, seed))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, q_seg, kv_seg, dout, lse, dterm, *, causal=False,
+                  window=None, dropout_rate=0.0, seed=0):
+    """Launch the dK/dV kernel (``csrc/flash_bwd_dkv.cu``) on the current
+    stream. Arguments as for :func:`flash_bwd_dq`. Returns ``(dk, dv)`` in
+    k's and v's dtype, each summed over its kv head's query-head group.
+    ``flash_bwd_dkv.launches`` counts the launches."""
+    _check_kernel_inputs("flash_bwd_dkv", [q, k, v, dout, lse, dterm], q, k, v,
+                         q_seg, kv_seg)
+    _check_bwd_inputs("flash_bwd_dkv", q, dout, lse, dterm)
+    b, sq, h, d = q.shape
+    sk, h_kv = k.shape[1], k.shape[2]
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("flash_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ptr(q_seg), _ptr(kv_seg), dout.data_ptr(), lse.data_ptr(),
+            dterm.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, sq, sk, h, h_kv, d, *_mask_args(causal, window, dropout_rate, seed))
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
 flash_fwd.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
 
 
-def _attend(q, k, v, causal, window, segment_ids, dropout_rate):
-    if dropout_rate:
-        raise NotImplementedError(
-            "in-kernel attention dropout comes with the training kernels"
-        )
+def _on_cpu(q) -> bool:
+    if _is_cuda(q):
+        return False
+    if q.device.type == "cpu":
+        return True
+    raise ValueError(f"unsupported device {q.device}")
+
+
+class _Flash(torch.autograd.Function):
+    """``(out, lse)`` of attention with the recompute-based backward: the
+    counterpart of the JAX package's ``_flash`` custom VJP. The forward
+    saves ``(q, k, v, q_seg, kv_seg, seed, out, lse)``; the backward takes
+    ``(dO, dlse)``, honours the lse cotangent through ``dterm = rowsum(dO *
+    O) - dlse`` and launches the dQ and the dK/dV kernels (their plain
+    versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, seed, causal, window,
+                dropout_rate):
+        opts = dict(causal=causal, window=window, dropout_rate=dropout_rate,
+                    seed=seed)
+        if _on_cpu(q):
+            out, lse = flash_attention_reference(q, k, v, q_seg=q_seg,
+                                                 kv_seg=kv_seg, **opts)
+        else:
+            out, lse = flash_fwd(q, k, v, q_seg, kv_seg, **opts)
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
+        ctx.opts = opts
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(out)
+        dout = dout.to(q.dtype).contiguous()
+        # dterm = rowsum(dO * O) - dlse: plain torch, outside the kernels,
+        # as the JAX package computes it outside its Pallas kernels.
+        dterm = (dout.float() * out.float()).sum(dim=-1).permute(0, 2, 1)
+        if dlse is not None:
+            dterm = dterm - dlse.float()
+        dterm = dterm.contiguous()
+        if _on_cpu(q):
+            dq, dk, dv = flash_attention_bwd_reference(
+                q, k, v, dout, lse, dterm, q_seg=q_seg, kv_seg=kv_seg,
+                **ctx.opts)
+        else:
+            dq = flash_bwd_dq(q, k, v, q_seg, kv_seg, dout, lse, dterm,
+                              **ctx.opts)
+            dk, dv = flash_bwd_dkv(q, k, v, q_seg, kv_seg, dout, lse, dterm,
+                                   **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _check_dropout(dropout_rate, dropout_seed):
+    """Validate the dropout configuration; returns ``(rate, seed)``."""
+    rate = float(dropout_rate)
+    if rate == 0.0:
+        return 0.0, 0
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    if dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed (an int or "
+                         "an integer scalar tensor; vary it per step)")
+    return rate, int(torch.as_tensor(dropout_seed).item()) & _MASK32
+
+
+def _attend(q, k, v, causal, window, segment_ids, dropout_rate, dropout_seed):
+    rate, seed = _check_dropout(dropout_rate, dropout_seed)
     _check_shapes(q, k, v)
     qseg, kseg = _normalize_segments(
         segment_ids, q.shape[0], q.shape[1], k.shape[1], q.device
     )
-    if _is_cuda(q):
-        return flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                         qseg, kseg, causal=causal, window=window)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal, window=window,
-                                         q_seg=qseg, kv_seg=kseg)
-    raise ValueError(f"unsupported device {q.device}")
+    if not _on_cpu(q):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return _Flash.apply(q, k, v, qseg, kseg, seed, bool(causal), window, rate)
 
 
 def flash_attention(q, k, v, *, causal: bool = False, window: int | None = None,
-                    segment_ids=None, dropout_rate: float = 0.0):
+                    segment_ids=None, dropout_rate: float = 0.0,
+                    dropout_seed=None):
     """Attention over ``(batch, seq, heads, head_dim)`` without
-    materializing the scores on the card. ``segment_ids``: one int
-    ``[batch, seq]`` tensor, or a ``(q_seg, kv_seg)`` pair. ``window``
-    requires ``causal=True`` here."""
+    materializing the scores on the card; differentiable in ``q``, ``k``
+    and ``v``. ``segment_ids``: one int ``[batch, seq]`` tensor, or a
+    ``(q_seg, kv_seg)`` pair. ``window`` requires ``causal=True`` here.
+    ``dropout_rate > 0`` drops inside the kernels with the hash keyed by
+    ``dropout_seed``."""
     window = _check_window(window, causal)
-    out, _ = _attend(q, k, v, causal, window, segment_ids, dropout_rate)
+    out, _ = _attend(q, k, v, causal, window, segment_ids, dropout_rate,
+                     dropout_seed)
     return out
 
 
 def flash_attention_with_lse(q, k, v, *, causal: bool = False,
                              window: int | None = None, segment_ids=None,
-                             dropout_rate: float = 0.0):
+                             dropout_rate: float = 0.0, dropout_seed=None):
     """:func:`flash_attention` that also returns ``lse`` ``[b, h, sq]``
-    (f32; ``-1e30`` for rows with no attendable key). With
-    ``causal=False`` a ``window`` is a pure band, ``q_pos - k_pos <
+    (f32; ``-1e30`` for rows with no attendable key), differentiable in
+    both outputs (the lse cotangent folds into the backward's dS term).
+    With ``causal=False`` a ``window`` is a pure band, ``q_pos - k_pos <
     window``."""
     window = _check_window(window, causal, allow_band=True)
-    return _attend(q, k, v, causal, window, segment_ids, dropout_rate)
+    return _attend(q, k, v, causal, window, segment_ids, dropout_rate,
+                   dropout_seed)

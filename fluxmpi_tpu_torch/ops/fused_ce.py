@@ -1,0 +1,140 @@
+"""Chunked fused unembed + softmax cross-entropy.
+
+Counterpart of :func:`fluxmpi_tpu.ops.unembed_cross_entropy`: per-token
+``softmax_cross_entropy(h @ embedding^T, targets)`` without materializing
+the ``[tokens, vocab]`` logits. The forward walks the vocab in tiles of
+``chunk`` rows of the table, keeping a running max, sum and target logit
+per token (and the sum of the logits, for label smoothing); the backward
+rebuilds each tile's softmax from the saved per-token logsumexp, so the
+residuals are ``(h, embedding, targets, lse)`` and peak memory is
+O(tokens * chunk). A trailing partial tile is zero-padded and its dead
+columns masked to -inf (their softmax weight is exactly 0).
+
+The JAX package runs this as a ``lax.scan``, not a TPU kernel, so here the
+tiles are plain ``torch.matmul`` in the hidden states' dtype (f32 on the
+port's main path); the sums are f32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["unembed_cross_entropy", "unembed_cross_entropy_reference"]
+
+
+def _tiles(w, chunk: int):
+    """``w [V, d]`` zero-padded to whole ``chunk``-row tiles: ``[K, chunk,
+    d]``."""
+    vocab, d = w.shape
+    pad = (-vocab) % chunk
+    if pad:
+        w = torch.cat([w, w.new_zeros((pad, d))])
+    return w.reshape(-1, chunk, d)
+
+
+def _tile_logits(h2, w_c, off: int, vocab: int):
+    """``[N, chunk]`` f32 logits of one tile, -inf on the padded columns,
+    and the tile's column-validity mask ``[chunk]``."""
+    z = (h2 @ w_c.to(h2.dtype).t()).float()
+    valid = torch.arange(off, off + w_c.shape[0], device=z.device) < vocab
+    return z.masked_fill(~valid, float("-inf")), valid
+
+
+class _FusedCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h2, w, targets1, chunk, eps):
+        vocab = w.shape[0]
+        n = h2.shape[0]
+        dev = h2.device
+        m = torch.full((n,), float("-inf"), device=dev)
+        l = torch.zeros(n, device=dev)
+        t = torch.zeros(n, device=dev)
+        zsum = torch.zeros(n, device=dev) if eps else None
+        rows = torch.arange(n, device=dev)
+        for i, w_c in enumerate(_tiles(w.detach(), chunk)):
+            off = i * chunk
+            z, valid = _tile_logits(h2, w_c, off, vocab)
+            if eps:
+                zsum += torch.where(valid, z, 0.0).sum(dim=-1)
+            m_new = torch.maximum(m, z.amax(dim=-1))
+            l = l * torch.exp(m - m_new) + torch.exp(z - m_new[:, None]).sum(dim=-1)
+            m = m_new
+            local = targets1 - off
+            in_chunk = (local >= 0) & (local < chunk)
+            picked = z[rows, local.clamp(0, chunk - 1)]
+            t = torch.where(in_chunk, picked, t)
+        lse = m + torch.log(l)
+        # (1-eps)(lse - t) + eps(lse - mean_v z) = lse - (1-eps)t - eps*zsum/V
+        loss = lse - (1.0 - eps) * t
+        if eps:
+            loss = loss - eps * zsum / vocab
+        ctx.save_for_backward(h2, w, targets1, lse)
+        ctx.chunk, ctx.eps = chunk, eps
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, w, targets1, lse = ctx.saved_tensors
+        chunk, eps = ctx.chunk, ctx.eps
+        vocab, d = w.shape
+        n = h2.shape[0]
+        gf = g.float()
+        hf = h2.float()
+        dh = torch.zeros((n, d), dtype=torch.float32, device=h2.device)
+        tiles = _tiles(w.detach(), chunk)
+        dw = torch.empty((tiles.shape[0] * chunk, d), dtype=torch.float32,
+                         device=w.device)
+        rows = torch.arange(n, device=h2.device)
+        for i, w_c in enumerate(tiles):
+            off = i * chunk
+            z, valid = _tile_logits(h2, w_c, off, vocab)
+            # d loss / dz = p - [(1-eps) onehot + eps/V on valid columns]
+            dz = torch.exp(z - lse[:, None])  # exactly 0 on padded columns
+            local = targets1 - off
+            hit = (local >= 0) & (local < chunk)
+            dz[rows[hit], local[hit]] -= 1.0 - eps
+            if eps:
+                dz -= (eps / vocab) * valid
+            dz *= gf[:, None]
+            dh += dz @ w_c.float()
+            dw[off:off + chunk] = dz.t() @ hf
+        return dh.to(h2.dtype), dw[:vocab].to(w.dtype), None, None, None
+
+
+def unembed_cross_entropy(h, embedding, targets, *, chunk: int = 8192,
+                          label_smoothing: float = 0.0):
+    """Per-token cross-entropy of the weight-tied head, f32, shape
+    ``h.shape[:-1]``: ``h [..., d]`` hidden states (the matmuls run in this
+    dtype), ``embedding [vocab, d]`` the table (its gradient returns in its
+    own dtype), ``targets`` int labels of ``h.shape[:-1]``. ``chunk`` tiles
+    the vocab; ``label_smoothing`` ``eps`` in [0, 1) makes the target
+    ``(1 - eps) onehot + eps / vocab``."""
+    if tuple(h.shape[:-1]) != tuple(targets.shape):
+        raise ValueError(
+            f"targets shape {tuple(targets.shape)} must equal the hidden "
+            f"states' leading shape {tuple(h.shape[:-1])}"
+        )
+    vocab, d = embedding.shape
+    if h.shape[-1] != d:
+        raise ValueError(f"hidden dim {h.shape[-1]} != embedding dim {d}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if not 0.0 <= label_smoothing < 1.0:
+        raise ValueError(
+            f"label_smoothing must be in [0, 1), got {label_smoothing}"
+        )
+    lead = h.shape[:-1]
+    out = _FusedCE.apply(h.reshape(-1, d), embedding,
+                         targets.reshape(-1).long(), min(chunk, vocab),
+                         float(label_smoothing))
+    return out.reshape(lead)
+
+
+def unembed_cross_entropy_reference(h, embedding, targets, *,
+                                    label_smoothing: float = 0.0):
+    """The same loss through the full ``[tokens, vocab]`` logits."""
+    logits = (h @ embedding.to(h.dtype).t()).float()
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), targets.reshape(-1).long(),
+        reduction="none", label_smoothing=label_smoothing,
+    ).reshape(targets.shape)

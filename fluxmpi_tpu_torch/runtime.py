@@ -1,16 +1,45 @@
-"""Device resolution for the port's entry points.
+"""The runtime: device resolution, and bringing up the data-parallel world.
 
-The port runs on an NVIDIA GPU. Every entry point takes ``device=``; the
-default is the first CUDA device, and the CPU is used only when the
-caller names it. A machine without CUDA is an error unless the caller
-asked for ``"cpu"``: nothing falls back to the CPU quietly.
+Counterpart of :mod:`fluxmpi_tpu.runtime` (the reference's ``FluxMPI.Init``).
+The port runs on NVIDIA GPUs. Every entry point takes ``device=``; the
+default is a CUDA device, and the CPU is used only when the caller names
+it. A machine without CUDA is an error unless the caller asked for
+``"cpu"``: nothing falls back to the CPU quietly.
+
+:func:`init` brings up ``torch.distributed``: NCCL on CUDA, gloo on the
+CPU. One worker is one process driving one device (the reference's one
+rank per GPU), bound to ``cuda:(local_rank % device_count)``. The world
+comes from the arguments, else from the launcher's environment
+(``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT``, as ``torchrun``
+sets them), else it is a single process, which needs no launcher: its
+store listens on an ephemeral localhost port. A process group the caller
+already initialized is adopted as it is.
 """
 
 from __future__ import annotations
 
-import torch
+import datetime
+import os
+import warnings
 
-__all__ = ["resolve_device"]
+import torch
+import torch.distributed as dist
+
+from .errors import FluxMPINotInitializedError
+
+__all__ = [
+    "Initialized",
+    "device_count",
+    "init",
+    "is_initialized",
+    "local_rank",
+    "process_count",
+    "process_index",
+    "resolve_device",
+    "shutdown",
+    "total_workers",
+    "worker_device",
+]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -27,3 +56,178 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             f"device='cpu' to run the plain PyTorch path"
         )
     return torch.device("cuda", 0 if dev.index is None else dev.index)
+
+
+class _State:
+    initialized = False
+    owns_group = False
+    device: torch.device | None = None
+    rank = 0
+    world = 1
+    local_rank = 0
+
+
+_state = _State()
+
+# init() arguments of the JAX package whose machinery is not ported yet.
+_WAITING = ("devices", "mesh_shape", "parallel", "telemetry", "trace",
+            "watchdog", "preemption", "faults", "goodput", "anomaly",
+            "model_stats", "compileplane", "memory", "profile",
+            "compile_cache", "export", "serving", "request_log", "fleet",
+            "resize")
+
+
+def _env_int(name: str) -> int | None:
+    val = os.environ.get(name)
+    return None if val in (None, "") else int(val)
+
+
+def init(*, device: str | torch.device | None = None,
+         coordinator_address: str | None = None,
+         num_processes: int | None = None, process_id: int | None = None,
+         timeout: float = 600.0,
+         verbose: bool = False, **waiting) -> torch.device:
+    """Bring up the data-parallel world; returns this worker's device.
+    Idempotent: a second call returns the same device.
+
+    ``device``: ``None`` (CUDA, NCCL) or ``"cpu"`` (gloo); a CUDA machine
+    is required unless ``"cpu"`` is asked for. ``coordinator_address``
+    (``host:port``), ``num_processes`` and ``process_id`` name the world
+    explicitly (the JAX package's spelling); otherwise the launcher's
+    ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT`` are read, and
+    without them the world is this one process. The launcher's
+    ``LOCAL_RANK`` (else the rank) picks the CUDA device,
+    ``cuda:(local_rank % device_count)``. ``timeout`` bounds every
+    collective, in seconds. ``verbose`` prints the world from every rank
+    and warns when it has a single worker.
+
+    Not ported yet (each raises ``NotImplementedError`` when passed):
+    mesh shapes, ``parallel=``, and the telemetry, fault, preemption,
+    resize and compile-cache planes.
+    """
+    passed = sorted(k for k, v in waiting.items() if v is not None)
+    unknown = [k for k in passed if k not in _WAITING]
+    if unknown:
+        raise TypeError(f"init() got unexpected arguments {unknown}")
+    if passed:
+        raise NotImplementedError(
+            f"init({', '.join(passed)}=...) is not ported yet: the port has no "
+            f"device mesh, parallel plans or telemetry/fault/preemption/resize/"
+            f"compile-cache planes; it runs one process per device with "
+            f"torch.distributed"
+        )
+    if _state.initialized:
+        return _state.device
+    want = resolve_device(device)
+    cpu = want.type == "cpu"
+    adopt = dist.is_initialized()
+    if adopt:
+        rank, world = dist.get_rank(), dist.get_world_size()
+    else:
+        rank = process_id if process_id is not None else _env_int("RANK")
+        world = num_processes if num_processes is not None else _env_int("WORLD_SIZE")
+        if (rank is None) != (world is None):
+            raise ValueError("pass the process index and count together "
+                             "(process_id/num_processes, or RANK/WORLD_SIZE)")
+        rank, world = (0, 1) if rank is None else (int(rank), int(world))
+        if not 0 <= rank < world:
+            raise ValueError(f"process_id {rank} out of range for {world} processes")
+    lr = _env_int("LOCAL_RANK")
+    lr = rank if lr is None else lr
+    if cpu:
+        dev = want
+    else:
+        # Bind before the group comes up, so NCCL uses this device.
+        dev = torch.device("cuda", lr % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    if not adopt:
+        kwargs = dict(backend="gloo" if cpu else "nccl", rank=rank,
+                      world_size=world,
+                      timeout=datetime.timedelta(seconds=timeout))
+        if coordinator_address is not None:
+            kwargs["init_method"] = f"tcp://{coordinator_address}"
+        elif world > 1 or "MASTER_ADDR" in os.environ:
+            kwargs["init_method"] = "env://"
+        else:
+            # A single process needs no launcher: a store on an ephemeral
+            # localhost port, never a fixed one.
+            kwargs["store"] = dist.TCPStore("127.0.0.1", 0, 1, is_master=True,
+                                            timeout=kwargs["timeout"])
+        dist.init_process_group(**kwargs)
+    _state.initialized = True
+    _state.owns_group = not adopt
+    _state.device = dev
+    _state.rank, _state.world, _state.local_rank = rank, world, lr
+    if verbose:
+        if world == 1:
+            warnings.warn(
+                "Using fluxmpi_tpu_torch with only 1 worker. It might be faster "
+                "to run the code without the distributed wrappers.",
+                stacklevel=2,
+            )
+        from .logging import fluxmpi_println
+
+        fluxmpi_println(f"Initialized: {world} process(es), device {dev}, "
+                        f"backend {dist.get_backend()}")
+    return dev
+
+
+def is_initialized() -> bool:
+    """Has :func:`init` run (and :func:`shutdown` not since)?"""
+    return _state.initialized
+
+
+# Reference-spelling alias (``FluxMPI.Initialized``).
+Initialized = is_initialized
+
+
+def shutdown() -> None:
+    """Reset the runtime; destroys the process group if :func:`init`
+    created it (one the caller brought up stays)."""
+    if _state.initialized and _state.owns_group and dist.is_initialized():
+        dist.destroy_process_group()
+    _state.initialized = False
+    _state.owns_group = False
+    _state.device = None
+    _state.rank, _state.world, _state.local_rank = 0, 1, 0
+
+
+def _require_init() -> None:
+    if not _state.initialized:
+        raise FluxMPINotInitializedError()
+
+
+def local_rank() -> int:
+    """Rank of this worker (process) in the world."""
+    _require_init()
+    return _state.rank
+
+
+def total_workers() -> int:
+    """Number of data-parallel workers: one per process and device."""
+    _require_init()
+    return _state.world
+
+
+def process_index() -> int:
+    """Index of this process in the world."""
+    _require_init()
+    return _state.rank
+
+
+def process_count() -> int:
+    """Number of processes in the world."""
+    _require_init()
+    return _state.world
+
+
+def device_count() -> int:
+    """Global device count (one device per process)."""
+    _require_init()
+    return _state.world
+
+
+def worker_device() -> torch.device:
+    """The device :func:`init` bound this worker to."""
+    _require_init()
+    return _state.device

@@ -1,5 +1,8 @@
-"""The port's CUDA kernel on the card: ``flash_fwd`` against its plain
-PyTorch version, and the engine's flash streams against ``generate()``.
+"""The port's CUDA kernels on the card: ``flash_fwd``, ``flash_bwd_dq``
+and ``flash_bwd_dkv`` against their plain PyTorch versions (dropout keep
+masks bit for bit), autograd through the kernels, the engine's flash
+streams against ``generate()``, and, on a machine with two or more cards,
+one data-parallel step over NCCL against the single-process step.
 
 Marked ``cuda``: each test skips where CUDA is absent. On a machine with a
 card (this file imports no JAX, so the JAX-pinning conftest can be left
@@ -9,6 +12,12 @@ out)::
 """
 
 import importlib
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -97,3 +106,190 @@ def test_engine_flash_streams_equal_generate_on_card(device):
     for r in reqs:
         ref = generate(lm, r.prompt[None], r.max_new_tokens)[0, len(r.prompt):]
         assert r.tokens == ref.tolist()
+
+
+# Gradients: both sides start from the same inputs, lse and dterm, and sum
+# in f32 in different orders; errors are relative to the output's largest
+# magnitude. bf16: one rounding of the f32 result (2**-7 relative).
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7 + 1e-4}
+
+
+def _bwd_inputs(device, dtype, b, sq, sk, h, hkv, d, seg=None, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, g = (torch.randn(*s, generator=gen).to(dtype).to(device)
+                  for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d),
+                            (b, sq, h, d)))
+    qseg = kseg = None
+    if seg == "packed":
+        qseg = torch.ones(b, sq, dtype=torch.int32)
+        qseg[:, sq // 3:] = 2
+        qseg[:, 2 * sq // 3:] = 3
+        qseg[-1, -sq // 5:] = 0  # trailing padding
+        qseg[0, 5] = 9           # a query row whose segment no key carries
+        kseg = qseg.clone()
+        kseg[0, 5] = 1
+        qseg, kseg = qseg.to(device), kseg.to(device)
+    return q, k, v, g, qseg, kseg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(b=2, sq=130, sk=130, h=4, hkv=4, d=64, causal=True),
+    dict(b=2, sq=96, sk=96, h=6, hkv=2, d=40, causal=True, window=17),
+    dict(b=1, sq=64, sk=80, h=2, hkv=1, d=128, window=-3),
+    dict(b=2, sq=100, sk=100, h=4, hkv=2, d=64, causal=True, seg="packed"),
+    dict(b=2, sq=64, sk=64, h=4, hkv=4, d=32, causal=True, dropout_rate=0.1, seed=7),
+])
+def test_flash_bwd_kernels_match_plain_version(device, dtype, case):
+    c = dict(case)
+    dims = [c.pop(n) for n in ("b", "sq", "sk", "h", "hkv", "d")]
+    q, k, v, g, qseg, kseg = _bwd_inputs(device, dtype, *dims, seg=c.pop("seg", None))
+    out, lse = fa.flash_fwd(q, k, v, qseg, kseg, **c)
+    dlse = torch.randn(lse.shape, generator=torch.Generator().manual_seed(3)).to(device)
+    dterm = ((g.float() * out.float()).sum(-1).permute(0, 2, 1) - dlse).contiguous()
+    n_dq, n_dkv = fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches
+    dq = fa.flash_bwd_dq(q, k, v, qseg, kseg, g, lse, dterm, **c)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, qseg, kseg, g, lse, dterm, **c)
+    want = fa.flash_attention_bwd_reference(q, k, v, g, lse, dterm, q_seg=qseg,
+                                            kv_seg=kseg, **c)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (n_dq + 1, n_dkv + 1)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= GRAD_TOL[dtype] * ref.float().abs().max().item() + 1e-6
+
+
+def test_dropout_masks_equal_reference_bit_for_bit(device):
+    """Each kernel's keep mask read off its output: with q = 0 every live
+    probability is equal and nonzero, and identity matrices as V (forward),
+    K (dQ) and dO (dV) copy the dropped probabilities into the output, so
+    an entry is nonzero iff the kernel kept it."""
+    b, h, s, d, rate, seed = 2, 12, 128, 128, 0.1, 12345
+    eye = torch.eye(s, device=device).expand(b, h, s, d).permute(0, 2, 1, 3).contiguous()
+    zeros = torch.zeros(b, s, h, d, device=device)
+    keep = fa.dropout_keep_reference(
+        seed, torch.arange(b * h, device=device).reshape(b, h, 1, 1),
+        torch.arange(s, device=device).reshape(1, 1, s, 1),
+        torch.arange(s, device=device).reshape(1, 1, 1, s), 1 - rate)
+    assert 0.85 < keep.float().mean().item() < 0.95
+    opts = dict(dropout_rate=rate, seed=seed)
+    out, _ = fa.flash_fwd(zeros, zeros, eye, **opts)            # O[q, c=k] = p_drop
+    assert torch.equal(out.permute(0, 2, 1, 3) != 0, keep)
+    lse = torch.zeros(b, h, s, device=device)                   # p = exp(0) = 1
+    dterm = torch.zeros(b, h, s, device=device)
+    ones = torch.zeros(b, s, h, d, device=device)
+    ones[..., 0] = 1.0                                          # dp = dO . v = 1
+    dq = fa.flash_bwd_dq(zeros, eye, ones, None, None, ones, lse, dterm, **opts)
+    assert torch.equal(dq.permute(0, 2, 1, 3) != 0, keep)       # dQ[q, c=k] = ds
+    _, dv = fa.flash_bwd_dkv(zeros, zeros, zeros, None, None, eye, lse, dterm, **opts)
+    assert torch.equal(dv.permute(0, 2, 3, 1) != 0, keep)       # dV[k, c=q] = p_drop
+
+
+def test_autograd_runs_the_three_kernels(device):
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(2, 70, 4, 32, generator=gen).to(device).requires_grad_()
+               for _ in range(3))
+    before = [f.launches for f in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)]
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+    (out.square().sum() + lse.sum()).backward()
+    after = [f.launches for f in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    q2, k2, v2 = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    o2, l2 = fa.flash_attention_with_lse(q2, k2, v2, causal=True)
+    (o2.square().sum() + l2.sum()).backward()
+    for got, ref in ((q.grad, q2.grad), (k.grad, k2.grad), (v.grad, v2.grad)):
+        assert (got.cpu() - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+NCCL_WORKER = textwrap.dedent('''
+    import sys
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import MLP
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step
+
+    dev = fm.init()  # RANK, WORLD_SIZE, LOCAL_RANK, MASTER_* from the launcher
+    rank, world = fm.local_rank(), fm.total_workers()
+    res = {"device": dev.index, "world": world,
+           "allreduce": fm.allreduce(torch.full((3,), rank + 1.0, device=dev))}
+    model = fm.synchronize(MLP(device=dev, generator=torch.Generator().manual_seed(100 + rank)))
+    X = np.random.default_rng(0).uniform(-2, 2, (16 * world, 1)).astype(np.float32)
+    loader = fm.DistributedDataLoader(
+        fm.DistributedDataContainer(fm.ArrayDataset((X, X ** 2))),
+        global_batch_size=16 * world)
+    (xb, yb), = list(loader)
+
+    def loss_fn(p, ms, batch):
+        return ((model(batch[0]) - batch[1]) ** 2).mean(), ms
+
+    opt = optim.sgd(0.1, momentum=0.9)
+    state, res["loss"] = make_train_step(loss_fn, opt)(TrainState.create(model, opt), (xb, yb))
+    for name, p in model.named_parameters():
+        res["param/" + name] = p
+    np.savez(sys.argv[1], **{k: v.detach().cpu().numpy() if torch.is_tensor(v) else v
+                             for k, v in res.items()})
+    fm.shutdown()
+''')
+
+
+def test_nccl_data_parallel_step_matches_single_process(tmp_path):
+    """One worker per card over NCCL, brought up from the launcher's
+    environment as ``torchrun`` sets it: the ranks bind their own cards,
+    the collectives reduce across them, and one step on the shards equals
+    the single-process step on the global batch (f32 on the cards against
+    f32 on the CPU, a 16-wide MLP: atol 1e-5)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    world = torch.cuda.device_count()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = Path(__file__).resolve().parents[1]
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port),
+                   PYTHONPATH=str(root) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", NCCL_WORKER, str(tmp_path / f"rank{rank}.npz")],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+
+    X = np.random.default_rng(0).uniform(-2, 2, (16 * world, 1)).astype(np.float32)
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import MLP
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step
+
+    model = MLP(device="cpu", generator=torch.Generator().manual_seed(100))
+
+    def loss_fn(p, ms, batch):
+        return ((model(batch[0]) - batch[1]) ** 2).mean(), ms
+
+    opt = optim.sgd(0.1, momentum=0.9)
+    x, y = torch.from_numpy(X), torch.from_numpy(X ** 2)
+    _, loss = make_train_step(loss_fn, opt, grad_reduce=None)(
+        TrainState.create(model, opt), (x, y))
+    for rank in range(world):
+        r = np.load(tmp_path / f"rank{rank}.npz")
+        assert int(r["device"]) == rank and int(r["world"]) == world
+        np.testing.assert_array_equal(r["allreduce"], np.full(3, world * (world + 1) / 2))
+        np.testing.assert_allclose(float(r["loss"]), loss.item(), atol=1e-5, rtol=0)
+        for name, p in model.named_parameters():
+            np.testing.assert_allclose(r["param/" + name], p.detach().numpy(),
+                                       atol=1e-5, rtol=0, err_msg=name)

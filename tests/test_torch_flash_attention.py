@@ -160,7 +160,7 @@ def test_output_keeps_input_dtype_and_validation():
     assert lse.shape == (1, 2, 8)
     with pytest.raises(ValueError, match="requires causal=True"):
         tfa.flash_attention(q, q, q, window=4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="requires dropout_seed"):
         tfa.flash_attention(q, q, q, dropout_rate=0.1)
     with pytest.raises(ValueError, match="multiple of the kv head"):
         tfa.flash_attention(torch.zeros(1, 8, 3, 8), torch.zeros(1, 8, 2, 8),

@@ -1,6 +1,7 @@
 """The port stands alone: importing ``fluxmpi_tpu_torch`` loads no JAX,
-flax or ``fluxmpi_tpu`` module, its sources import none, its entry points
-refuse a missing CUDA device unless the caller asked for the CPU, and
+flax or ``fluxmpi_tpu`` module (every module of the port, the training
+slice's included), its sources import none, its entry points refuse a
+missing CUDA device unless the caller asked for the CPU, and
 ``chip_smoke.py`` fails (and prints no result) without a card or without
 the package beside it."""
 
@@ -11,6 +12,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -40,6 +42,12 @@ def test_import_loads_no_jax_flax_or_reference_package():
                          capture_output=True, text=True, timeout=300, check=True)
     loaded = out.stdout.split()
     assert "fluxmpi_tpu_torch.serving.engine" in loaded
+    ported = {f"fluxmpi_tpu_torch.{m}" for m in (
+        "comm", "data", "errors", "logging", "optim", "optimizer", "runtime",
+        "sync", "ops.flash_attention", "ops.fused_ce", "models.mlp",
+        "models.convert", "models.transformer", "parallel.train",
+        "parallel.loop")}
+    assert ported <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -74,6 +82,41 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("mps")
     assert fluxmpi_tpu_torch.resolve_device is resolve_device
+
+
+def test_training_entry_points_refuse_missing_cuda(monkeypatch):
+    from fluxmpi_tpu_torch.models import MLP
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert not fluxmpi_tpu_torch.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fluxmpi_tpu_torch.init()
+    assert not fluxmpi_tpu_torch.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MLP()
+    ds = fluxmpi_tpu_torch.ArrayDataset(np.zeros((8, 2), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fluxmpi_tpu_torch.DistributedDataLoader(ds, global_batch_size=4)
+    loader = fluxmpi_tpu_torch.DistributedDataLoader(ds, global_batch_size=4,
+                                                     device="cpu")
+    assert next(iter(loader)).device.type == "cpu"
+
+
+def test_waiting_options_raise_instead_of_being_ignored():
+    from fluxmpi_tpu_torch.parallel import make_eval_step, make_train_step, train_loop
+
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        fluxmpi_tpu_torch.init(device="cpu", mesh_shape={"dp": 2})
+    assert not fluxmpi_tpu_torch.is_initialized()
+    for kw in ("parallel", "metrics", "remat", "policy", "state_sharding"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            make_train_step(lambda p, s, b: (None, s), None, **{kw: True})
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        make_eval_step(lambda p, s, b: None, mesh=object())
+    for kw in (dict(checkpoint=object()), dict(save_every=5), dict(resume=True),
+               dict(metrics=True), dict(fuse="window")):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            train_loop(lambda s, b: (s, b), None, [], **kw)
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -43,7 +43,7 @@ def test_logits_match_jax(attention):
     jlm, params, tlm = _pair(attention)
     toks = _tokens(1, 2, 24)
     want = np.asarray(jlm.apply(params, jnp.asarray(toks), train=False))
-    got = tlm(torch.from_numpy(toks)).numpy()
+    got = tlm(torch.from_numpy(toks)).detach().numpy()
     assert got.shape == want.shape == (2, 24, CFG["vocab_size"])
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
@@ -86,7 +86,7 @@ def test_ln_eps_threads_through_every_layer_norm():
     assert eps == {1e-5}
     toks = _tokens(3, 1, 12)
     want = np.asarray(jlm.apply(params, jnp.asarray(toks), train=False))
-    np.testing.assert_allclose(tlm(torch.from_numpy(toks)).numpy(), want,
+    np.testing.assert_allclose(tlm(torch.from_numpy(toks)).detach().numpy(), want,
                                atol=ATOL, rtol=0)
 
 
