@@ -3,9 +3,15 @@
 
     python3 chip_smoke.py
 
-1. Prints the card (``nvidia-smi`` name and power limit) and builds every
+1. Prints the card (``nvidia-smi`` name and power limit), builds every
    CUDA kernel of the port from ``fluxmpi_tpu_torch/ops/csrc`` (one
-   ``nvcc`` per source, all started together).
+   ``nvcc`` per source, all started together), and counts each library's
+   tensor-core instructions (``HMMA``/``HGMMA`` in ``cuobjdump -sass``):
+   ``flash_fwd`` and ``flash_bwd_dq`` must have some. Every kernel's bound
+   is the larger of its bytes at 3.35 TB/s and its products at the tensor
+   cores' rate: 989 TFLOP/s for bf16, 495 / 3 TFLOP/s for f32 (three TF32
+   products per f32-accurate product); f32 rows also carry the bound at
+   67 TFLOP/s of f32 FMAs.
 2. Forward kernel phase: holds ``flash_fwd`` against its plain PyTorch
    version (``flash_attention_reference``) on the card in float32 and
    bfloat16, at the serving path's prefill and decode shapes, the training
@@ -62,8 +68,16 @@ import time
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"float32": 67e12,   # f32 outside the tensor cores
-              "bfloat16": 989e12}  # dense bf16 tensor-core rate
+# The least time for f32-accurate products: three TF32 tensor-core products
+# per f32 product (the kernels' split) at 495 TFLOP/s; bf16 at the dense
+# bf16 tensor-core rate.
+PEAK_FLOPS = {"float32": 495e12 / 3,
+              "bfloat16": 989e12}
+BOUND_BASIS = {"float32": "split-TF32 tensor cores, 495/3 TFLOP/s",
+               "bfloat16": "bf16 tensor cores, 989 TFLOP/s"}
+FMA_FLOPS = 67e12                # f32 FMAs outside the tensor cores, beside it
+# Kernels whose SASS must hold tensor-core instructions.
+MMA_KERNELS = ("flash_fwd", "flash_bwd_dq")
 TOL = {"float32": {"out": 2e-5, "lse": 1e-4},
        # bf16 output: one rounding of an f32 value of magnitude < 2 is at
        # most one bf16 ulp (2**-7); lse stays f32 on both sides.
@@ -87,6 +101,28 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def sass_mma_counts(paths) -> dict:
+    """Tensor-core instructions (``HMMA`` from mma.sync, ``HGMMA`` from
+    wgmma) in each built library's SASS, read by ``cuobjdump -sass``."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    counts = {}
+    for name, path in paths.items():
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        ops = []
+        for line in sass.splitlines():
+            tok = line.split()
+            if len(tok) > 2 and tok[0].startswith("/*") and tok[0].endswith("*/"):
+                ops.append(tok[2] if tok[1].startswith("@") else tok[1])
+        counts[name] = {op: sum(1 for o in ops if o.startswith(op + ".") or o == op)
+                        for op in ("HMMA", "HGMMA")}
+    return counts
 
 
 def device_ms(fn, n: int = 20, reps: int = 10) -> float:
@@ -205,11 +241,13 @@ def make_inputs(case, dtype, gen, device):
     return q, k, v, qseg, kseg
 
 
-def bound(case, dtype, qseg, kseg, products: int = 2, extra_rows: int = 0):
+def bound(case, dtype, qseg, kseg, products: int = 2, extra_rows: int = 0,
+          peak: float | None = None):
     """Least time for the work: each input byte read once, each output
     byte written once, counting only the K/V rows some query attends,
     against 2 flops per multiply-add of ``products`` [pairs x d] products
-    over the attendable (q, k) pairs (2 for the forward: scores and P.V).
+    over the attendable (q, k) pairs (2 for the forward: scores and P.V)
+    at ``peak`` (default: the type's rate in ``PEAK_FLOPS``).
     ``extra_rows`` counts further [b, sq, h, d] tensors moved (the
     backward's dO and dQ) beside q and the output."""
     import torch
@@ -234,7 +272,8 @@ def bound(case, dtype, qseg, kseg, products: int = 2, extra_rows: int = 0):
     if qseg is not None:
         nbytes += 4 * b * (sq + sk)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * products * pairs * d / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
+    peak = peak or PEAK_FLOPS[str(dtype).split(".")[1]]
+    t_ops = 2 * products * pairs * d / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -313,14 +352,18 @@ def kernel_phase(device):
                        err_out=err_out, err_lse=err_lse, tol_out=tol["out"],
                        tol_lse=tol["lse"], ok=ok, ms=ms, eager_ms=call_ms,
                        plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                       library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       bound_basis=BOUND_BASIS[dname])
+            if dtype == torch.float32:
+                row["fma_bound_ms"] = bound(case, dtype, qseg, kseg, peak=FMA_FLOPS)[0]
             rows.append(row)
             lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
             print(f"kernel flash_fwd {name:12s} {dname:8s} err_out={err_out:.3e} "
                   f"(tol {tol['out']:g}) err_lse={err_lse:.3e} (tol {tol['lse']:g}) "
                   f"ms={ms:.4f} eager_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
                   f"library_ms={lib} "
-                  f"bound_ms={bound_ms:.6f} ({bound_by}) {'ok' if ok else 'FAIL'}",
+                  f"bound_ms={bound_ms:.6f} ({bound_by}; {BOUND_BASIS[dname]}) "
+                  f"{'ok' if ok else 'FAIL'}",
                   flush=True)
             if not ok:
                 failures.append(f"flash_fwd {name} {dname}")
@@ -429,6 +472,12 @@ def backward_phase(device):
                 case, dtype, qseg, kseg, products=3, extra_rows=1)
             row["dkv_bound_ms"], row["dkv_bound_by"] = bound(
                 case, dtype, qseg, kseg, products=4, extra_rows=1)
+            row["bound_basis"] = BOUND_BASIS[dname]
+            if dtype == torch.float32:
+                row["dq_fma_bound_ms"] = bound(case, dtype, qseg, kseg, products=3,
+                                               extra_rows=1, peak=FMA_FLOPS)[0]
+                row["dkv_fma_bound_ms"] = bound(case, dtype, qseg, kseg, products=4,
+                                                extra_rows=1, peak=FMA_FLOPS)[0]
             if name == "train_1024":
                 row["dterm_ms"] = device_ms(dterm_fn, **counts)
                 row["plain_ms"] = device_ms(lambda: flash_attention_bwd_reference(
@@ -447,7 +496,8 @@ def backward_phase(device):
                   + f" (tol rel {GRAD_TOL[dname]:.2e}) dq_ms={dq_ms:.4f} "
                   f"(bound {row['dq_bound_ms']:.4f} {row['dq_bound_by']}) "
                   f"dkv_ms={dkv_ms:.4f} (bound {row['dkv_bound_ms']:.4f} "
-                  f"{row['dkv_bound_by']}){extra} {'ok' if ok else 'FAIL'}", flush=True)
+                  f"{row['dkv_bound_by']}; {BOUND_BASIS[dname]}){extra} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 failures.append(f"flash_bwd {name} {dname}")
             del q, k, v, g, out, lse, dq, dk, dv, want
@@ -834,15 +884,24 @@ def main() -> int:
     from fluxmpi_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build_all()
+    paths = _build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f}s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    sys.stdout.flush()
+    sass = sass_mma_counts(paths)
+    sass_failures = []
+    for name, counts in sass.items():
+        print(f"kernel {name}: tensor-core instructions in SASS (cuobjdump -sass): "
+              + " ".join(f"{op} {n}" for op, n in counts.items()), flush=True)
+        if name in MMA_KERNELS and not sum(counts.values()):
+            sass_failures.append(f"{name}: no tensor-core instruction in its SASS")
 
     kernels, results, failures = run_phases(device)
+    failures = sass_failures + failures
+    for kern in kernels:
+        kern["sass_tensor_core_instructions"] = sass.get(kern["name"])
     print(json.dumps({"kernels": kernels, **results, "card": card}))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
@@ -881,10 +940,12 @@ def run_phases(device):
         "max_abs_err": max(max(r["err_out"], r["err_lse"]) for r in rows),
         "ms": fwd_row["ms"], "plain_ms": fwd_row["plain_ms"],
         "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
+        "bound_basis": fwd_row["bound_basis"],
         "library_ms": fwd_row["library_ms"],
         "timed_case": "decode_1024 float32",
         "train_case": {k: fwd_train[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                  "bound_by", "library_ms")},
+                                                  "bound_by", "bound_basis",
+                                                  "fma_bound_ms", "library_ms")},
         "dropout_mask_equal": masks["flash_fwd"],
         "cases": rows,
     }]
@@ -904,6 +965,8 @@ def run_phases(device):
             "plain_ms": bwd_main["plain_ms"],
             "bound_ms": bwd_main[f"{key}_bound_ms"],
             "bound_by": bwd_main[f"{key}_bound_by"],
+            "bound_basis": bwd_main["bound_basis"],
+            "fma_bound_ms": bwd_main[f"{key}_fma_bound_ms"],
             "library_ms": bwd_main["library_ms"],
             "dterm_ms": bwd_main["dterm_ms"],
             "sum_dterm_dq_dkv_ms": bwd_main["sum_ms"],

@@ -16,30 +16,34 @@
 // any product: a row with no attendable key has lse = -1e30, where
 // exp(s - lse) overflows to inf and inf * 0 would be NaN.
 //
-// What bounds it on the card: at the training shapes (sq = sk = 1024,
-// d = 64) it does 3 products of live_pairs * d flops in f32, far above
-// the bytes it moves (Q, K, V, dO once): bound by operations. What the
-// design does about it, simply: the forward's layout. One block per
-// (b*h row, 8-query tile); its four warps split the key axis (warp w
-// walks the 32-key tiles w, w + 4, ..., lane j owns key 32t + j), each
-// warp keeps its own f32 dQ partial for the block's rows in registers,
-// and the four partials are summed in warp order at the end: dQ is
-// written once, with no atomics, and the same inputs give the same bits.
-// Tiles with no attendable pair are skipped before their K/V are read.
-// Not yet used: tensor cores (wgmma), TMA, register tiling of the score
-// products (later work, see ROADMAP.md).
+// What bounds it on the card: at the training shape (b 8, s 1024, h 12,
+// d 64, causal) its three products (Q K^T, dO V^T, dS K) are 19.3 GFLOP.
+// In f32 that is operations: three TF32 products per f32 product at 495
+// TFLOP/s, 0.117 ms, beside 0.038 ms for the 126 MB of Q, K, V, dO and
+// dQ. In bf16 the two bounds meet: 63 MB at 3.35 TB/s is 0.019 ms, the
+// products at 989 TFLOP/s 0.020 ms.
+//
+// What the design does about it: the forward's layout (flash_fwd.cu) with
+// all three products on the tensor cores (flash_mma.cuh: split TF32 for
+// f32, bf16 MMA with dS rounded to bf16 for bf16): four key streams,
+// blocks of G row groups of 16 query rows (heaviest causal blocks first),
+// one warp per (row group, stream), the G warps of a stream sharing a
+// cp.async ring of its next live K/V tiles. Each warp keeps its own f32
+// dQ partial for its rows in registers; the four partials are summed in
+// stream order at the end: dQ is written once, with no atomics, and the
+// same inputs give the same bits. Tiles with no attendable pair are
+// skipped before their K/V are read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kBQ = 8;      // query rows per block
-constexpr int kBK = kTileRows;  // keys per warp tile: lane j owns key j
-constexpr int kWarps = 4;   // warps split the key tiles round-robin
+constexpr int kStreams = 4;  // key-tile streams: tile t belongs to stream t % 4
 constexpr int kMaxD = 128;
 
 struct Params {
@@ -58,197 +62,212 @@ struct Params {
   int dropout;
   uint32_t seed, threshold;
   float keep_prob;
+  int vec;             // K/V rows are 16-byte aligned: cp.async copies
 };
 
-// Per warp: a K tile and a V tile, [kBK][d + 1] each (padded: lanes read
-// their own key's row, and K is also read by column); the same space
-// holds the warp's dQ partial for the final merge. Then the block's q and
-// dO rows [kBQ][d] each, and its rows' lse, dterm and segment ids.
-__host__ __device__ inline int warp_floats(int d) { return 2 * kBK * (d + 1); }
+// As in flash_fwd.cu, with four key streams: G row groups of 16 query
+// rows, G * 4 warps, warp (g, w) on row group g and key stream w, the G
+// warps of a stream sharing its ring. Shared memory: per stream a ring of
+// S slots, each a K and a V tile [BK][LD] (the same space holds its warps'
+// dQ partials for the final sum), then the block's q and dO tiles [16
+// G][LD], and its rows' lse, dterm and segment ids.
+template <typename T, int DP, int G, int S>
+struct Layout {
+  static constexpr int kBQ = kRows * G;
+  static constexpr int kThreads = 32 * kStreams * G;
+  static constexpr int kBK = TileShape<T>::kBK;
+  static constexpr int kLD = DP + TileShape<T>::kPad;
+  static constexpr int kTile = kBK * kLD;              // elements
+  static constexpr int kStreamElems = S * 2 * kTile;   // S stages x (K, V)
+  static constexpr int kPartFloats = kRows * DP;
+  static constexpr size_t kBytes =
+      sizeof(T) * (size_t)(kStreams * kStreamElems + 2 * kBQ * kLD) +
+      sizeof(float) * 3 * kBQ;
+  static_assert(sizeof(T) * kStreamElems >= sizeof(float) * G * kPartFloats,
+                "a stream's ring holds its warps' dQ partials");
+};
 
-size_t smem_bytes(int d) {
-  return sizeof(float) * (size_t)(kWarps * warp_floats(d) + 2 * kBQ * d + 2 * kBQ) +
-         sizeof(int) * kBQ;
-}
-
-template <typename T, int NCH>
-__global__ void __launch_bounds__(kWarps * 32) flash_bwd_dq_kernel(Params p) {
-  extern __shared__ float smem[];
+template <typename T, int DP, int G, int S>
+__global__ void __launch_bounds__(Layout<T, DP, G, S>::kThreads) flash_bwd_dq_kernel(Params p) {
+  using L = Layout<T, DP, G, S>;
+  constexpr int BK = L::kBK, LD = L::kLD, BQ = L::kBQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  T* q_s = ring + kStreams * L::kStreamElems;
+  T* do_s = q_s + BQ * LD;
+  float* lse_s = reinterpret_cast<float*>(do_s + BQ * LD);
+  float* dterm_s = lse_s + BQ;
+  int* qseg_s = reinterpret_cast<int*>(dterm_s + BQ);
   const int d = p.d;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  float* k_s = smem + warp * warp_floats(d);
-  float* v_s = k_s + kBK * (d + 1);
-  float* q_s = smem + kWarps * warp_floats(d);
-  float* do_s = q_s + kBQ * d;
-  float* lse_s = do_s + kBQ * d;
-  float* dterm_s = lse_s + kBQ;
-  int* qseg_s = reinterpret_cast<int*>(dterm_s + kBQ);
+  const int w = (tid >> 5) % kStreams;  // key stream
+  const int rg = (tid >> 5) / kStreams;  // row group
+  const int g = lane >> 2, t4 = lane & 3;
+  T* my_ring = ring + w * L::kStreamElems;
 
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest causal tiles first
   const int bh = blockIdx.y;
   const int bi = bh / p.h;
   const int hi = bh % p.h;
   const int hk = hi / (p.h / p.hkv);
-  const int nq = min(kBQ, p.sq - q0);
-  const int q_last = q0 + nq - 1;
+  const int nq = min(BQ, p.sq - q0);
+  const int r0 = q0 + rg * kRows;  // this warp's first query row
   const bool has_seg = p.qseg != nullptr;
-  const T* __restrict__ Q = static_cast<const T*>(p.q);
   const T* __restrict__ K = static_cast<const T*>(p.k);
   const T* __restrict__ V = static_cast<const T*>(p.v);
-  const T* __restrict__ DO = static_cast<const T*>(p.dout);
+  // The first key segment ids are on their way while q is staged.
+  KeyStream<S - 1> stream = key_stream<BK, S - 1>(p, w, kStreams, bi, lane);
 
-  for (int i = tid; i < kBQ * d; i += blockDim.x) {
-    const int r = i / d;
-    const int c = i - r * d;
-    float x = 0.f, g = 0.f;
-    if (r < nq) {
-      const size_t off = ((size_t)(bi * p.sq + q0 + r) * p.h + hi) * d + c;
-      x = to_f32(Q[off]);
-      g = to_f32(DO[off]);
-    }
-    q_s[i] = x;
-    do_s[i] = g;
-  }
-  if (tid < kBQ) {
-    const bool in = tid < nq;
-    lse_s[tid] = in ? p.lse[(size_t)bh * p.sq + q0 + tid] : 0.f;
-    dterm_s[tid] = in ? p.dterm[(size_t)bh * p.sq + q0 + tid] : 0.f;
-    if (has_seg) qseg_s[tid] = in ? p.qseg[bi * p.sq + q0 + tid] : 0;
+  stage_tile<T, BQ, DP, LD>(q_s, static_cast<const T*>(p.q), bi, p.sq, p.h, hi, q0, d,
+                            false, tid, L::kThreads);
+  stage_tile<T, BQ, DP, LD>(do_s, static_cast<const T*>(p.dout), bi, p.sq, p.h, hi, q0, d,
+                            false, tid, L::kThreads);
+  for (int r = tid; r < BQ; r += L::kThreads) {
+    const bool in = r < nq;
+    lse_s[r] = in ? p.lse[(size_t)bh * p.sq + q0 + r] : 0.f;
+    dterm_s[r] = in ? p.dterm[(size_t)bh * p.sq + q0 + r] : 0.f;
+    qseg_s[r] = has_seg && in ? p.qseg[bi * p.sq + q0 + r] : 0;
   }
   __syncthreads();
 
-  float acc[kBQ][NCH];
+  float acc[DP / 8][4];
 #pragma unroll
-  for (int r = 0; r < kBQ; ++r)
+  for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) acc[r][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const int row_g = rg * kRows + g;  // this thread's rows in the block: row_g, row_g + 8
+  const int qs[2] = {qseg_s[row_g], qseg_s[row_g + 8]};
+  const float lse_r[2] = {lse_s[row_g], lse_s[row_g + 8]};
+  const float dterm_r[2] = {dterm_s[row_g], dterm_s[row_g + 8]};
+  const T* my_q = q_s + rg * kRows * LD;
+  const T* my_do = do_s + rg * kRows * LD;
 
-  const int ntiles = (p.sk + kBK - 1) / kBK;
-  for (int t = warp; t < ntiles; t += kWarps) {
-    const int k0 = t * kBK;
-    const int kn = min(kBK, p.sk - k0);
-    // The forward's tile predicates (uniform over the warp).
-    if (p.causal && k0 > q_last) break;
-    if (p.has_window && !(q0 - (k0 + kn - 1) < p.window)) continue;
-    const int kp = k0 + lane;
-    const bool in_range = lane < kn;
-    int ks = 0;
-    if (has_seg) {
-      ks = in_range ? p.kseg[bi * p.sk + kp] : 0;
-      bool live = false;
-#pragma unroll
-      for (int r = 0; r < kBQ; ++r)
-        live |= r < nq && ks != 0 && ks == qseg_s[r];
-      if (!__any_sync(kFull, live)) continue;
-    }
-    __syncwarp();  // this warp's previous tile is no longer read
-    stage_rows<T, NCH>(k_s, d + 1, v_s, d + 1, K, V, bi, p.sk, p.hkv, hk, k0, d,
-                       lane);
-    __syncwarp();
+  const int stream_tid = rg * 32 + lane;
+  auto copy_tile = [&](int tt, int stage) {
+    T* k_s = my_ring + stage * 2 * L::kTile;
+    stage_tile<T, BK, DP, LD>(k_s, K, bi, p.sk, p.hkv, hk, tt * BK, d, p.vec, stream_tid,
+                              32 * G);
+    stage_tile<T, BK, DP, LD>(k_s + L::kTile, V, bi, p.sk, p.hkv, hk, tt * BK, d, p.vec,
+                              stream_tid, 32 * G);
+  };
 
-    // Lane j: s[r] = q_r . k_j and dp[r] = dO_r . v_j for the block's rows.
-    float s[kBQ], dp[kBQ];
+  // The stream's next S - 1 live tiles (-1: none), each copied into its
+  // ring slot as soon as it is known, and this lane's key segment ids in
+  // them.
+  int tq[S - 1], kq[S - 1];
 #pragma unroll
-    for (int r = 0; r < kBQ; ++r) s[r] = dp[r] = 0.f;
-    const float* krow = k_s + lane * (d + 1);
-    const float* vrow = v_s + lane * (d + 1);
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      const float kc = krow[c];
-      const float vc = vrow[c];
-#pragma unroll
-      for (int r = 0; r < kBQ; ++r) {
-        s[r] = fmaf(q_s[r * d + c], kc, s[r]);
-        dp[r] = fmaf(do_s[r * d + c], vc, dp[r]);
-      }
-    }
-
-    // ds[r] for this lane's key, 0 wherever the pair is masked.
-#pragma unroll
-    for (int r = 0; r < kBQ; ++r) {
-      const int qp = q0 + r;
-      bool live = in_range && r < nq;
-      if (p.causal) live = live && qp >= kp;
-      if (p.has_window) live = live && (qp - kp < p.window);
-      if (has_seg) live = live && ks != 0 && ks == qseg_s[r];
-      float ds = 0.f;
-      if (live) {
-        const float pr = expf(s[r] * p.scale - lse_s[r]);
-        float g = dp[r];
-        if (p.dropout)
-          g = dropout_keep(p.seed, (uint32_t)bh, (uint32_t)qp, (uint32_t)kp, p.threshold)
-                  ? g / p.keep_prob : 0.f;
-        ds = pr * (g - dterm_s[r]) * p.scale;
-      }
-      s[r] = ds;  // s now holds this lane's ds for row r
-    }
-
-    // acc[r][:] += sum_j ds_rj * k_j, ds_rj broadcast from lane j.
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float kj[NCH];
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        const int col = lane + 32 * c;
-        kj[c] = col < d ? k_s[j * (d + 1) + col] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kBQ; ++r) {
-        if (r >= nq) break;  // uniform over the block
-        const float g = __shfl_sync(kFull, s[r], j);
-#pragma unroll
-        for (int c = 0; c < NCH; ++c) acc[r][c] = fmaf(g, kj[c], acc[r][c]);
-      }
-    }
+  for (int i = 0; i < S - 1; ++i) {
+    tq[i] = next_live_tile<BK, BQ>(p, stream, kStreams, bi, q0, nq, qseg_s, lane, kq[i]);
+    if (tq[i] >= 0) copy_tile(tq[i], i);
+    cp_async_commit();
   }
+  int stage = 0;  // tq[0]'s slot
+  while (tq[0] >= 0) {
+    const int tt = tq[0];
+    const int ks = kq[0];
+#pragma unroll
+    for (int i = 0; i + 1 < S - 1; ++i) {
+      tq[i] = tq[i + 1];
+      kq[i] = kq[i + 1];
+    }
+    tq[S - 2] = next_live_tile<BK, BQ>(p, stream, kStreams, bi, q0, nq, qseg_s, lane, kq[S - 2]);
+    if (tq[S - 2] >= 0) copy_tile(tq[S - 2], stage == 0 ? S - 1 : stage - 1);
+    cp_async_commit();
+    cp_async_wait<S - 1>();
+    stream_sync(w, 32 * G);  // the current tile is in shared memory
 
-  // Sum the four warps' partials in warp order; each warp parks its
-  // [kBQ][d] partial in its own tile space.
-  __syncwarp();
-  float* part = k_s;
+    const int k0 = tt * BK;
+    const T* k_s = my_ring + stage * 2 * L::kTile;
+    // A tile past this row group's causal frontier adds nothing to it.
+    if (!p.causal || k0 <= r0 + kRows - 1) {
+      float s[BK / 8][4], dp[BK / 8][4];
+      score_product<DP, BK, LD>(s, my_q, k_s, lane);
+      score_product<DP, BK, LD>(dp, my_do, k_s + L::kTile, lane);
+
+      // ds for this thread's pairs, 0 wherever the pair is masked.
 #pragma unroll
-  for (int r = 0; r < kBQ; ++r) {
+      for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      const int col = lane + 32 * c;
-      if (col < d) part[r * d + col] = acc[r][c];
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t4 + (e & 1);
+          const int key_seg = has_seg ? __shfl_sync(kFull, ks, col) : 0;
+          const int qp = r0 + g + 8 * (e >> 1);
+          const int kp = k0 + col;
+          float ds = 0.f;
+          if (qp < q0 + nq && pair_live(p, qp, kp, qs[e >> 1], key_seg)) {
+            const float pr = expf(s[j][e] * p.scale - lse_r[e >> 1]);
+            float gr = dp[j][e];
+            if (p.dropout)
+              gr = dropout_keep(p.seed, (uint32_t)bh, (uint32_t)qp, (uint32_t)kp, p.threshold)
+                       ? gr / p.keep_prob : 0.f;
+            ds = pr * (gr - dterm_r[e >> 1]) * p.scale;
+          }
+          s[j][e] = ds;  // s now holds ds
+        }
+      }
+      value_product<DP, BK, LD>(acc, s, k_s, lane);
+    }
+
+    stream_sync(w, 32 * G);  // every warp is done with this stage before it refills
+    stage = stage + 1 == S ? 0 : stage + 1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every stream is done with its ring
+
+  // Sum the four streams' partials in stream order; warp (g, w) parks its
+  // [16][DP] partial in stream w's ring, slot g.
+  float* part = reinterpret_cast<float*>(my_ring) + rg * L::kPartFloats;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = g + 8 * (e >> 1);
+      part[r * DP + 8 * n + 2 * t4 + (e & 1)] = acc[n][e];
     }
   }
   __syncthreads();
 
   T* DQ = static_cast<T*>(p.dq);
-  for (int i = tid; i < nq * d; i += blockDim.x) {
+  for (int i = tid; i < nq * d; i += L::kThreads) {
     const int r = i / d;
     const int c = i - r * d;
-    float g = 0.f;
+    const int at = (r / kRows) * L::kPartFloats + (r % kRows) * DP + c;
+    float gsum = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) g += smem[w * warp_floats(d) + r * d + c];
-    DQ[((size_t)(bi * p.sq + q0 + r) * p.h + hi) * d + c] = from_f32<T>(g);
+    for (int sw = 0; sw < kStreams; ++sw)
+      gsum += reinterpret_cast<const float*>(ring + sw * L::kStreamElems)[at];
+    DQ[((size_t)(bi * p.sq + q0 + r) * p.h + hi) * d + c] = from_f32<T>(gsum);
   }
 }
 
-template <typename T, int NCH>
+template <typename T, int DP, int G, int S>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
+  using L = Layout<T, DP, G, S>;
   static bool configured[kMaxDevices] = {};
-  cudaError_t err =
-      raise_smem_limit(flash_bwd_dq_kernel<T, NCH>, smem_bytes(kMaxD), configured);
+  cudaError_t err = raise_smem_limit(flash_bwd_dq_kernel<T, DP, G, S>, L::kBytes, configured);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.sq + kBQ - 1) / kBQ, p.b * p.h);
-  flash_bwd_dq_kernel<T, NCH><<<grid, kWarps * 32, smem_bytes(p.d), stream>>>(p);
+  dim3 grid((p.sq + L::kBQ - 1) / L::kBQ, p.b * p.h);
+  flash_bwd_dq_kernel<T, DP, G, S><<<grid, L::kThreads, L::kBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
+// Block shape per launch: G row groups sharing each tile copy when the
+// grid still fills the card twice over, with S ring slots; else one row
+// group and two slots.
+template <typename T, int DP, int G, int S>
+cudaError_t launch_shape(const Params& p, cudaStream_t stream) {
+  const long blocks = (long)p.b * p.h * ((p.sq + kRows * G - 1) / (kRows * G));
+  return blocks >= 2 * 132 ? launch<T, DP, G, S>(p, stream) : launch<T, DP, 1, 2>(p, stream);
+}
+
+// d is padded with zero columns up to the MMA depth DP.
 template <typename T>
-cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  switch ((p.d + 31) / 32) {
-    case 1: return launch<T, 1>(p, stream);
-    case 2: return launch<T, 2>(p, stream);
-    case 3: return launch<T, 3>(p, stream);
-    case 4: return launch<T, 4>(p, stream);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch(Params p, cudaStream_t stream) {
+  p.vec = (p.d * sizeof(T)) % 16 == 0 && (uintptr_t)p.k % 16 == 0 && (uintptr_t)p.v % 16 == 0;
+  if (p.d <= 32) return launch_shape<T, 32, 4, 3>(p, stream);
+  if (p.d <= 64) return launch_shape<T, 64, 4, 3>(p, stream);
+  return launch_shape<T, 128, 2, 2>(p, stream);
 }
 
 }  // namespace
@@ -289,6 +308,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   p.seed = seed;
   p.threshold = threshold;
   p.keep_prob = keep_prob;
+  p.vec = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? dispatch<float>(p, st)
                   : dtype == 1 ? dispatch<__nv_bfloat16>(p, st)

@@ -12,41 +12,50 @@
 // the TPU kernel do); the keep mask is the counter-based murmur3 hash of
 // flash_common.cuh, keyed by (seed, b*h + head, q_pos, k_pos).
 //
-// What bounds it on the card: serving decode (one query row against a
-// cache of up to max_len keys) reads every live K/V byte once and does
-// 4 * live_keys * d flops per row, far below the ~295 flops per byte
-// where Hopper's tensor cores become the limit: decode is bound by K/V
-// bytes. Prefill at the engine's buckets (<= 256 rows) is a small
-// problem: b * h * ceil(sq / 8) blocks of short key loops.
+// What bounds it on the card: at the training shape (b 8, s 1024, h 12,
+// d 64, causal) the two products are 12.9 GFLOP. In f32 that is
+// operations: three TF32 products per f32 product (the split below) at
+// 495 TFLOP/s, 0.078 ms, beside 0.030 ms for the 101 MB of Q, K, V and O.
+// In bf16, bytes: 50 MB at 3.35 TB/s, 0.015 ms, beside 0.013 ms of
+// tensor-core time. Serving decode (one query row against up to max_len
+// cached keys) reads every live K/V byte once for 4 * live_keys * d
+// flops: bound by K/V bytes.
 //
-// What the design does about it: one block per (b*h row, 8-query tile).
-// Its four warps split the key axis: warp w walks the 32-key tiles
-// t = w, w + 4, w + 8, ... (lane j owns key 32t + j), each warp with its
-// own running max / sum / accumulator for the block's rows, and the four
-// partial states merge in a fixed order at the end. So even a single
-// decode row keeps four warps loading and computing, and a row's
-// arithmetic depends only on its live tiles, never on sk or on which
-// other rows share the block: decode through the paged engine
-// (sk = max_len), decode through generate() (sk = prompt + new) and the
-// same position inside a causal prefill give the same bits. Tiles with
-// no attendable pair (past the causal frontier, outside the window band,
-// or with no matching segment id, i.e. the dead tail of a decode cache)
-// are skipped before their K/V are read, so decode moves only live bytes.
-// Scores and probabilities stay in registers and shared memory; HBM sees
-// Q, K, V once and O, lse once. Not yet used: wgmma, TMA, vector loads,
-// prefetching the next tile (later work, see ROADMAP.md).
+// What the design does about it: both products run on the tensor cores
+// (mma.sync; flash_mma.cuh): bf16 MMA for bf16, split TF32 for f32, f32
+// accumulation. The key axis is cut into NS fixed streams (8, or 4 at d >
+// 64): stream w takes the key tiles t = w, w + NS, w + 2 NS, ... (BK keys
+// each: 16 in f32, 32 in bf16), with its own running max / sum /
+// accumulator per query row, and the partial states merge in stream order
+// at the end. A block holds G row groups of 16 query rows (heaviest causal
+// blocks first) and runs one warp per (row group, stream); the G warps of
+// a stream share a ring of S shared-memory slots that cp.async fills with
+// the stream's next live tiles while they compute on the current one.
+// Large grids take G = 2, so one K/V copy serves 32 rows; a decode row
+// takes G = 1, and its warps take the next tile's scores while they finish
+// the current one. So a single decode row keeps NS warps loading and
+// computing, and a row's bits depend only on its live keys, never on sq,
+// sk, G, S, the dead cache tail or which rows share its tile: an MMA row
+// sees only its own A row; a tile with no attendable pair for a row is an
+// exact no-op for it (p = 0, and the running max does not move, so the
+// rescale is exp(0) = 1); the tile width, stream and merge order depend on
+// the type and d only. Decode through the paged engine (sk = max_len),
+// decode through generate() (sk = prompt + new) and the same position
+// inside a causal prefill of any length give the same bits. Tiles with no
+// attendable pair (past the causal frontier, outside the window band, or
+// with no matching segment id, i.e. the dead tail of a decode cache) are
+// skipped before their K/V are read, so decode moves only live bytes. Not
+// yet used: wgmma with a TMA producer warp (ROADMAP.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr int kBQ = 8;      // query rows per block
-constexpr int kBK = kTileRows;  // keys per warp tile: lane j owns key j
-constexpr int kWarps = 4;   // warps split the key tiles round-robin
 constexpr int kMaxD = 128;
 constexpr float kNegInf = -1e30f;
 
@@ -65,198 +74,265 @@ struct Params {
   uint32_t seed;        // dropout seed
   uint32_t threshold;   // keep iff hash < threshold
   float keep_prob;
+  int vec;              // K/V rows are 16-byte aligned: cp.async copies
 };
 
-// Per warp: a K tile [kBK][d + 1] (padded, so lanes reading their own
-// key's column hit distinct banks) and a V tile [kBK][d]; the same space
-// holds the warp's partial state for the final merge. Then the q tile
-// [kBQ][d] and the q segment ids.
-__host__ __device__ inline int warp_floats(int d) { return kBK * (d + 1) + kBK * d; }
+// A block holds G row groups of 16 query rows and runs G * kStreams
+// warps: warp (g, w) computes row group g against key stream w, and the G
+// warps of a stream share its ring, so one copy of a K/V tile serves 16 G
+// rows.
+// Shared memory: per stream a ring of S slots, each a K and a V tile
+// [BK][LD] (the same space holds its warps' partial states for the final
+// merge), then the block's q tile [16 G][LD] and q segment ids.
+template <typename T, int DP, int G, int S>
+struct Layout {
+  // Key-tile streams: tile t belongs to stream t % kStreams. A function of
+  // d only, so every launch of one head width splits a row's keys alike.
+  static constexpr int kStreams = DP <= 64 ? 8 : 4;
+  static constexpr int kBQ = kRows * G;
+  static constexpr int kThreads = 32 * kStreams * G;
+  static constexpr int kBK = TileShape<T>::kBK;
+  static constexpr int kLD = DP + TileShape<T>::kPad;
+  static constexpr int kTile = kBK * kLD;              // elements
+  static constexpr int kStreamElems = S * 2 * kTile;   // S stages x (K, V)
+  static constexpr int kPartFloats = 2 * kRows + kRows * DP;  // m, l, acc
+  static constexpr size_t kBytes =
+      sizeof(T) * (size_t)(kStreams * kStreamElems + kBQ * kLD) + sizeof(int) * kBQ;
+  static_assert(sizeof(T) * kStreamElems >= sizeof(float) * G * kPartFloats,
+                "a stream's ring holds its warps' partial states");
+};
 
-size_t smem_bytes(int d) {
-  return sizeof(float) * (size_t)(kWarps * warp_floats(d) + kBQ * d) +
-         sizeof(int) * kBQ;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// NCH = ceil(d / 32): output columns each lane owns (lane + 32 * c).
-template <typename T, int NCH>
-__global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(Params p) {
-  extern __shared__ float smem[];
+template <typename T, int DP, int G, int S>
+__global__ void __launch_bounds__(Layout<T, DP, G, S>::kThreads) flash_fwd_kernel(Params p) {
+  using L = Layout<T, DP, G, S>;
+  constexpr int BK = L::kBK, LD = L::kLD, BQ = L::kBQ, kStreams = L::kStreams;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  T* q_s = ring + kStreams * L::kStreamElems;
+  int* qseg_s = reinterpret_cast<int*>(q_s + BQ * LD);
   const int d = p.d;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  float* k_s = smem + warp * warp_floats(d);
-  float* v_s = k_s + kBK * (d + 1);
-  float* q_s = smem + kWarps * warp_floats(d);
-  int* qseg_s = reinterpret_cast<int*>(q_s + kBQ * d);
+  const int w = (tid >> 5) % kStreams;  // key stream
+  const int rg = (tid >> 5) / kStreams;  // row group
+  const int g = lane >> 2, t4 = lane & 3;
+  T* my_ring = ring + w * L::kStreamElems;
+  const T* my_q = q_s + rg * kRows * LD;
 
-  const int q0 = blockIdx.x * kBQ;
+  // Causal blocks near the end of the sequence have the most key tiles:
+  // start them first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int bh = blockIdx.y;
   const int bi = bh / p.h;
   const int hi = bh % p.h;
   const int hk = hi / (p.h / p.hkv);
-  const int nq = min(kBQ, p.sq - q0);
-  const int q_last = q0 + nq - 1;
+  const int nq = min(BQ, p.sq - q0);
+  const int r0 = q0 + rg * kRows;  // this warp's first query row
   const bool has_seg = p.qseg != nullptr;
-  const T* __restrict__ Q = static_cast<const T*>(p.q);
   const T* __restrict__ K = static_cast<const T*>(p.k);
   const T* __restrict__ V = static_cast<const T*>(p.v);
+  // The first key segment ids are on their way while q is staged.
+  KeyStream<S - 1> stream = key_stream<BK, S - 1>(p, w, kStreams, bi, lane);
 
-  for (int i = tid; i < kBQ * d; i += blockDim.x) {
-    const int r = i / d;
-    const int c = i - r * d;
-    float x = 0.f;
-    if (r < nq) x = to_f32(Q[((size_t)(bi * p.sq + q0 + r) * p.h + hi) * d + c]);
-    q_s[i] = x;
-  }
-  if (has_seg && tid < kBQ) qseg_s[tid] = tid < nq ? p.qseg[bi * p.sq + q0 + tid] : 0;
+  // Rows past nq hold zero queries: their results are never written.
+  stage_tile<T, BQ, DP, LD>(q_s, static_cast<const T*>(p.q), bi, p.sq, p.h, hi, q0, d,
+                            false, tid, L::kThreads);
+  for (int r = tid; r < BQ; r += L::kThreads)
+    qseg_s[r] = has_seg && r < nq ? p.qseg[bi * p.sq + q0 + r] : 0;
   __syncthreads();
 
-  float m[kBQ], l[kBQ], acc[kBQ][NCH];
+  // This thread's rows g and g + 8 of its row group: running max, sum and
+  // output columns 8n + 2t4, 8n + 2t4 + 1.
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[DP / 8][4];
 #pragma unroll
-  for (int r = 0; r < kBQ; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
+  for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) acc[r][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const int qs[2] = {qseg_s[rg * kRows + g], qseg_s[rg * kRows + g + 8]};
+
+  const int stream_tid = rg * 32 + lane;
+  auto copy_tile = [&](int tt, int stage) {
+    T* k_s = my_ring + stage * 2 * L::kTile;
+    stage_tile<T, BK, DP, LD>(k_s, K, bi, p.sk, p.hkv, hk, tt * BK, d, p.vec, stream_tid,
+                              32 * G);
+    stage_tile<T, BK, DP, LD>(k_s + L::kTile, V, bi, p.sk, p.hkv, hk, tt * BK, d, p.vec,
+                              stream_tid, 32 * G);
+  };
+
+  // One online-softmax step over tile tt's scores s (this warp's rows g
+  // and g + 8), then acc += P V with the tile's V in v_s. Masked pairs are
+  // selected out before anything else sees their scores.
+  auto softmax_pv = [&](int tt, int ks, const T* v_s, float (&s)[BK / 8][4]) {
+    const int k0 = tt * BK;
+    unsigned live_bits = 0;
+    float rmax[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t4 + (e & 1);
+        const int key_seg = has_seg ? __shfl_sync(kFull, ks, col) : 0;
+        const bool live = pair_live(p, r0 + g + 8 * (e >> 1), k0 + col, qs[e >> 1], key_seg);
+        live_bits |= (unsigned)live << (4 * j + e);
+        s[j][e] = live ? s[j][e] * p.scale : kNegInf;
+        rmax[e >> 1] = fmaxf(rmax[e >> 1], s[j][e]);
+      }
+    }
+    float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rmax[i] = fmaxf(rmax[i], __shfl_xor_sync(kFull, rmax[i], 1));
+      rmax[i] = fmaxf(rmax[i], __shfl_xor_sync(kFull, rmax[i], 2));
+      const float m_new = fmaxf(m[i], rmax[i]);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool live = (live_bits >> (4 * j + e)) & 1u;
+        s[j][e] = live ? expf(s[j][e] - m[e >> 1]) : 0.f;
+        rsum[e >> 1] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rsum[i] += __shfl_xor_sync(kFull, rsum[i], 1);
+      rsum[i] += __shfl_xor_sync(kFull, rsum[i], 2);
+      l[i] = l[i] * alpha[i] + rsum[i];
+    }
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    if (p.dropout) {  // the value path sees the dropped probabilities
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qp = r0 + g + 8 * (e >> 1);
+          const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
+          s[j][e] = dropout_keep(p.seed, (uint32_t)bh, (uint32_t)qp, (uint32_t)kp, p.threshold)
+                        ? s[j][e] / p.keep_prob : 0.f;
+        }
+      }
+    }
+    value_product<DP, BK, LD>(acc, s, v_s, lane);
+  };
+
+  // The stream's next S - 1 live tiles (-1: none), each copied into its
+  // ring slot as soon as it is known, and this lane's key segment ids in
+  // them.
+  int tq[S - 1], kq[S - 1];
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    tq[i] = next_live_tile<BK, BQ>(p, stream, kStreams, bi, q0, nq, qseg_s, lane, kq[i]);
+    if (tq[i] >= 0) copy_tile(tq[i], i);
+    cp_async_commit();
   }
-
-  const int ntiles = (p.sk + kBK - 1) / kBK;
-  for (int t = warp; t < ntiles; t += kWarps) {
-    const int k0 = t * kBK;
-    const int kn = min(kBK, p.sk - k0);
-    // Tiles wholly past the causal frontier (and every later one) and
-    // tiles wholly outside the band are skipped (uniform over the warp).
-    if (p.causal && k0 > q_last) break;
-    if (p.has_window && !(q0 - (k0 + kn - 1) < p.window)) continue;
-    const int kp = k0 + lane;
-    const bool in_range = lane < kn;
-    int ks = 0;
-    if (has_seg) {
-      ks = in_range ? p.kseg[bi * p.sk + kp] : 0;
-      bool live = false;
+  // Before tile tq[0] is consumed, its slot's neighbour (stage - 1) is
+  // refilled with the stream's next live tile.
+  auto advance = [&](int stage) {
 #pragma unroll
-      for (int r = 0; r < kBQ; ++r)
-        live |= r < nq && ks != 0 && ks == qseg_s[r];
-      // No attendable pair in this tile: skip it before its K/V leave HBM.
-      if (!__any_sync(kFull, live)) continue;
+    for (int i = 0; i + 1 < S - 1; ++i) {
+      tq[i] = tq[i + 1];
+      kq[i] = kq[i + 1];
     }
-    __syncwarp();  // this warp's previous tile is no longer read
-    stage_rows<T, NCH>(k_s, d + 1, v_s, d, K, V, bi, p.sk, p.hkv, hk, k0, d, lane);
-    __syncwarp();
-
-    // Scores: lane j holds s[r] = q_r . k_j for the block's rows.
-    float s[kBQ];
+    tq[S - 2] = next_live_tile<BK, BQ>(p, stream, kStreams, bi, q0, nq, qseg_s, lane, kq[S - 2]);
+    if (tq[S - 2] >= 0) copy_tile(tq[S - 2], stage == 0 ? S - 1 : stage - 1);
+    cp_async_commit();
+  };
+  auto slot = [&](int stage) { return my_ring + stage * 2 * L::kTile; };
+  int stage = 0;  // tq[0]'s slot
+  if constexpr (G == 1 && S >= 3) {
+    // One row group (decode): every live tile is computed (the block's
+    // causal frontier is the group's), and the next tile's scores are
+    // taken while this tile's softmax step and P V run, so one warp keeps
+    // two independent chains in flight. The same arithmetic in the same
+    // order as below.
+    float s_cur[BK / 8][4];
+    cp_async_wait<S - 2>();
+    stream_sync(w, 32 * G);  // tq[0] is in shared memory
+    score_product<DP, BK, LD>(s_cur, my_q, slot(0), lane);
+    while (tq[0] >= 0) {
+      const int tt = tq[0];
+      const int ks = kq[0];
+      advance(stage);
+      cp_async_wait<S - 2>();
+      stream_sync(w, 32 * G);  // the next tile is in shared memory
+      const int next = stage + 1 == S ? 0 : stage + 1;
+      float s_next[BK / 8][4];  // unused past the last tile
+      score_product<DP, BK, LD>(s_next, my_q, slot(next), lane);
+      softmax_pv(tt, ks, slot(stage) + L::kTile, s_cur);
+      stream_sync(w, 32 * G);  // every warp is done with this stage before it refills
 #pragma unroll
-    for (int r = 0; r < kBQ; ++r) s[r] = 0.f;
-    const float* krow = k_s + lane * (d + 1);
-    if (nq == 1) {  // decode: one row (the same chain over c as below)
-#pragma unroll 8
-      for (int c = 0; c < d; ++c) s[0] = fmaf(q_s[c], krow[c], s[0]);
-    } else {        // rows past nq hold zero queries; their s is unused
-#pragma unroll 4
-      for (int c = 0; c < d; ++c) {
-        const float kc = krow[c];
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-        for (int r = 0; r < kBQ; ++r) s[r] = fmaf(q_s[r * d + c], kc, s[r]);
-      }
+        for (int e = 0; e < 4; ++e) s_cur[j][e] = s_next[j][e];
+      stage = next;
     }
-
-#pragma unroll
-    for (int r = 0; r < kBQ; ++r) {
-      if (r >= nq) break;  // uniform over the block
-      const int qp = q0 + r;
-      bool live = in_range;
-      if (p.causal) live = live && qp >= kp;
-      if (p.has_window) live = live && (qp - kp < p.window);
-      if (has_seg) live = live && ks != 0 && ks == qseg_s[r];
-      const float sr = live ? s[r] * p.scale : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(sr));
-      const float alpha = expf(m[r] - m_new);
-      const float pr = live ? expf(sr - m_new) : 0.f;
-      l[r] = l[r] * alpha + warp_sum(pr);
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) acc[r][c] *= alpha;
-      m[r] = m_new;
-      float pv = pr;
-      if (p.dropout)
-        pv = dropout_keep(p.seed, (uint32_t)bh, (uint32_t)qp, (uint32_t)kp, p.threshold)
-                 ? pr / p.keep_prob : 0.f;
-      s[r] = pv;  // s now holds this lane's (dropped) probability for row r
-    }
-
-    // acc[r][:] += sum_j p_rj * v_j, p_rj broadcast from lane j.
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float vj[NCH];
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        const int col = lane + 32 * c;
-        vj[c] = col < d ? v_s[j * d + col] : 0.f;
+  } else {
+    while (tq[0] >= 0) {
+      const int tt = tq[0];
+      const int ks = kq[0];
+      advance(stage);
+      cp_async_wait<S - 1>();
+      stream_sync(w, 32 * G);  // the current tile is in shared memory
+      // A tile past this row group's causal frontier is a no-op for it.
+      if (!p.causal || tt * BK <= r0 + kRows - 1) {
+        float s[BK / 8][4];
+        score_product<DP, BK, LD>(s, my_q, slot(stage), lane);
+        softmax_pv(tt, ks, slot(stage) + L::kTile, s);
       }
-#pragma unroll
-      for (int r = 0; r < kBQ; ++r) {
-        if (r >= nq) break;
-        const float pj = __shfl_sync(kFull, s[r], j);
-#pragma unroll
-        for (int c = 0; c < NCH; ++c) acc[r][c] = fmaf(pj, vj[c], acc[r][c]);
-      }
+      stream_sync(w, 32 * G);  // every warp is done with this stage before it refills
+      stage = stage + 1 == S ? 0 : stage + 1;
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // every stream is done with its ring
 
-  // Merge the four warps' partial states, in warp order. Each warp parks
-  // its state in its own tile space: [kBQ] m, [kBQ] l, [kBQ][d] acc.
-  __syncwarp();
-  float* part = k_s;
-  if (lane < kBQ) {
-#pragma unroll
-    for (int r = 0; r < kBQ; ++r)
-      if (r == lane) {
-        part[r] = m[r];
-        part[kBQ + r] = l[r];
-      }
+  // Merge the streams' partial states, in stream order. Warp (g, w)
+  // parks its state in stream w's ring, slot g: [16] m, [16] l, [16][DP]
+  // acc.
+  float* part = reinterpret_cast<float*>(my_ring) + rg * L::kPartFloats;
+  if (t4 == 0) {
+    part[g] = m[0];
+    part[g + 8] = m[1];
+    part[kRows + g] = l[0];
+    part[kRows + g + 8] = l[1];
   }
 #pragma unroll
-  for (int r = 0; r < kBQ; ++r) {
+  for (int n = 0; n < DP / 8; ++n) {
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) {
-      const int col = lane + 32 * c;
-      if (col < d) part[2 * kBQ + r * d + col] = acc[r][c];
+    for (int e = 0; e < 4; ++e) {
+      const int r = g + 8 * (e >> 1);
+      part[2 * kRows + r * DP + 8 * n + 2 * t4 + (e & 1)] = acc[n][e];
     }
   }
   __syncthreads();
 
   T* O = static_cast<T*>(p.o);
-  for (int i = tid; i < nq * d; i += blockDim.x) {
+  for (int i = tid; i < nq * d; i += L::kThreads) {
     const int r = i / d;
     const int c = i - r * d;
-    float mw[kWarps];
+    const int slot = (r / kRows) * L::kPartFloats;
+    const int rr = r % kRows;
+    float mw[kStreams];
     float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      mw[w] = smem[w * warp_floats(d) + r];
-      mx = fmaxf(mx, mw[w]);
+    for (int sw = 0; sw < kStreams; ++sw) {
+      mw[sw] = reinterpret_cast<const float*>(ring + sw * L::kStreamElems)[slot + rr];
+      mx = fmaxf(mx, mw[sw]);
     }
     float lsum = 0.f, o = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float* pw = smem + w * warp_floats(d);
-      const float f = expf(mw[w] - mx);
-      lsum += pw[kBQ + r] * f;
-      o += pw[2 * kBQ + r * d + c] * f;
+    for (int sw = 0; sw < kStreams; ++sw) {
+      const float* pw = reinterpret_cast<const float*>(ring + sw * L::kStreamElems) + slot;
+      const float f = expf(mw[sw] - mx);
+      lsum += pw[kRows + rr] * f;
+      o += pw[2 * kRows + rr * DP + c] * f;
     }
     const float l_safe = lsum == 0.f ? 1.f : lsum;
     const int qp = q0 + r;
@@ -265,26 +341,38 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_kernel(Params p) {
   }
 }
 
-template <typename T, int NCH>
+template <typename T, int DP, int G, int S>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
+  using L = Layout<T, DP, G, S>;
   static bool configured[kMaxDevices] = {};
-  cudaError_t err =
-      raise_smem_limit(flash_fwd_kernel<T, NCH>, smem_bytes(kMaxD), configured);
+  cudaError_t err = raise_smem_limit(flash_fwd_kernel<T, DP, G, S>, L::kBytes, configured);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.sq + kBQ - 1) / kBQ, p.b * p.h);
-  flash_fwd_kernel<T, NCH><<<grid, kWarps * 32, smem_bytes(p.d), stream>>>(p);
+  dim3 grid((p.sq + L::kBQ - 1) / L::kBQ, p.b * p.h);
+  flash_fwd_kernel<T, DP, G, S><<<grid, L::kThreads, L::kBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
+// Block shape per launch; a row's arithmetic is the same in every one.
+// Large grids (training, long prefills): G row groups share each tile
+// copy, S = 3 ring slots. A single row block (decode): one row group and
+// S = 3 slots, the ring that lets one warp take the next tile's scores
+// while it finishes the current one. Else (short prefills): one row
+// group, S = 2.
+template <typename T, int DP, int G, int SDecode>
+cudaError_t launch_shape(const Params& p, cudaStream_t stream) {
+  const long blocks = (long)p.b * p.h * ((p.sq + kRows * G - 1) / (kRows * G));
+  if (blocks >= 2 * 132) return launch<T, DP, G, 3>(p, stream);
+  if (p.sq <= kRows) return launch<T, DP, 1, SDecode>(p, stream);
+  return launch<T, DP, 1, 2>(p, stream);
+}
+
+// d is padded with zero columns up to the MMA depth DP.
 template <typename T>
-cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  switch ((p.d + 31) / 32) {
-    case 1: return launch<T, 1>(p, stream);
-    case 2: return launch<T, 2>(p, stream);
-    case 3: return launch<T, 3>(p, stream);
-    case 4: return launch<T, 4>(p, stream);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch(Params p, cudaStream_t stream) {
+  p.vec = (p.d * sizeof(T)) % 16 == 0 && (uintptr_t)p.k % 16 == 0 && (uintptr_t)p.v % 16 == 0;
+  if (p.d <= 32) return launch_shape<T, 32, 2, 3>(p, stream);
+  if (p.d <= 64) return launch_shape<T, 64, 2, 3>(p, stream);
+  return launch_shape<T, 128, 2, 3>(p, stream);
 }
 
 }  // namespace
@@ -322,6 +410,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   p.seed = seed;
   p.threshold = threshold;
   p.keep_prob = keep_prob;
+  p.vec = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? dispatch<float>(p, st)
                   : dtype == 1 ? dispatch<__nv_bfloat16>(p, st)

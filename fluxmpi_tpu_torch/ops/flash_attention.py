@@ -207,6 +207,12 @@ def _expand_kv(x, h):
     return x if x.shape[2] == h else x.repeat_interleave(h // x.shape[2], dim=2)
 
 
+def _acc_dtype(x):
+    """The plain versions' arithmetic type: f32 (f64 for f64 inputs, which
+    the tests use as the exact reference)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def flash_attention_reference(q, k, v, *, causal=False, window=None,
                               q_seg=None, kv_seg=None, dropout_rate=0.0,
                               seed=0):
@@ -214,8 +220,9 @@ def flash_attention_reference(q, k, v, *, causal=False, window=None,
     materializing the ``[b, h, sq, sk]`` scores. Returns ``(out, lse)``."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    acc = _acc_dtype(q)
     k, v = _expand_kv(k, h), _expand_kv(v, h)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (d ** -0.5)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * (d ** -0.5)
     mask = _pair_mask(b, sq, sk, causal, window, q_seg, kv_seg, q.device)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
@@ -226,7 +233,7 @@ def flash_attention_reference(q, k, v, *, causal=False, window=None,
         keep_prob = 1.0 - dropout_rate
         keep = _keep_mask(b, h, sq, sk, seed, keep_prob, q.device)
         p = torch.where(keep, p / keep_prob, torch.zeros_like(p))
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / l_safe.permute(0, 2, 1, 3)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(acc)) / l_safe.permute(0, 2, 1, 3)
     lse = (m + torch.log(l_safe))[..., 0]
     return out.to(q.dtype), lse
 
@@ -244,8 +251,9 @@ def flash_attention_bwd_reference(q, k, v, dout, lse, dterm, *, causal=False,
     b, sq, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
     scale = d ** -0.5
-    kf, vf = _expand_kv(k, h).float(), _expand_kv(v, h).float()
-    qf, gf = q.float(), dout.float()
+    acc = _acc_dtype(q)
+    kf, vf = _expand_kv(k, h).to(acc), _expand_kv(v, h).to(acc)
+    qf, gf = q.to(acc), dout.to(acc)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     mask = _pair_mask(b, sq, sk, causal, window, q_seg, kv_seg, q.device)
     # Select before exp: exp(s - lse) overflows on rows whose lse is -1e30.

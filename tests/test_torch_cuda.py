@@ -45,6 +45,10 @@ def device():
     dict(b=2, sq=1, sk=300, h=4, hkv=2, d=128, seg="prefix"),
     dict(b=2, sq=70, sk=90, h=6, hkv=3, d=40, causal=True, window=17),
     dict(b=2, sq=64, sk=64, h=2, hkv=2, d=32, window=-3),
+    dict(b=1, sq=50, sk=70, h=2, hkv=1, d=33, causal=True),
+    # Grids large enough for blocks of several row groups.
+    dict(b=2, sq=1024, sk=1024, h=12, hkv=4, d=64, causal=True),
+    dict(b=2, sq=768, sk=768, h=12, hkv=12, d=128, causal=True, window=100),
 ])
 def test_flash_fwd_matches_plain_version(device, dtype, case):
     c = dict(case)
@@ -69,23 +73,40 @@ def test_flash_fwd_matches_plain_version(device, dtype, case):
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
-def test_row_bits_independent_of_cache_length_and_prefill(device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_row_bits_independent_of_cache_length_and_prefill(device, dtype, d):
     """A decode row gives the same bits whatever the cache length past its
     prefix (garbage there included) and the same bits as that position
-    inside a causal prefill: the property that keeps engine streams equal
-    to generate()."""
-    b, h, d, s = 1, 12, 64, 200
+    inside a causal prefill, and a causal prefill's rows give the same bits
+    whatever its length: exact, shorter, or padded to a bucket with garbage
+    past the prompt. The property that keeps engine streams equal to
+    generate(). The long prefills run blocks of several row groups, the
+    short ones and the decode rows blocks of one."""
+    b, h, s, bucket = 2, 12, 700, 768
     gen = torch.Generator().manual_seed(1)
-    q, k, v = (torch.randn(b, s, h, d, generator=gen).to(device) for _ in range(3))
+    q, k, v = (torch.randn(b, s, h, d, generator=gen).to(dtype).to(device)
+               for _ in range(3))
     prefill, _ = fa.flash_fwd(q, k, v, causal=True)
+    padded = [torch.full((b, bucket, h, d), fill, dtype=dtype, device=device)
+              for fill in (3.0, 7e3, -7e3)]
+    for buf, x in zip(padded, (q, k, v)):
+        buf[:, :s] = x
+    rows, _ = fa.flash_fwd(*padded, causal=True)
+    assert torch.equal(rows[:, :s], prefill)
+    for n in (1, 17, 130):
+        rows, _ = fa.flash_fwd(q[:, :n].contiguous(), k[:, :n].contiguous(),
+                               v[:, :n].contiguous(), causal=True)
+        assert torch.equal(rows, prefill[:, :n]), n
     q_seg = torch.ones(b, 1, dtype=torch.int32, device=device)
-    for pos in (0, 31, 32, 63, 64, 127, 150, 199):
-        for total in (pos + 1, 256, 1024):
-            kc = torch.full((b, total, h, d), 7e3, device=device)
-            vc = torch.full((b, total, h, d), -7e3, device=device)
+    for pos in (0, 31, 32, 63, 64, 127, 150, 199, 511, 699):
+        for total in (pos + 1, max(pos + 1, 256), 1024):
+            kc = torch.full((b, total, h, d), 7e3, dtype=dtype, device=device)
+            vc = torch.full((b, total, h, d), -7e3, dtype=dtype, device=device)
             kc[:, : pos + 1] = k[:, : pos + 1]
             vc[:, : pos + 1] = v[:, : pos + 1]
             kv_seg = (torch.arange(total, device=device)[None] <= pos).to(torch.int32)
+            kv_seg = kv_seg.expand(b, total).contiguous()
             row, _ = fa.flash_fwd(q[:, pos:pos + 1].contiguous(), kc, vc, q_seg, kv_seg)
             assert torch.equal(row[:, 0], prefill[:, pos]), (pos, total)
 
@@ -139,6 +160,11 @@ def _bwd_inputs(device, dtype, b, sq, sk, h, hkv, d, seg=None, seed=0):
     dict(b=1, sq=64, sk=80, h=2, hkv=1, d=128, window=-3),
     dict(b=2, sq=100, sk=100, h=4, hkv=2, d=64, causal=True, seg="packed"),
     dict(b=2, sq=64, sk=64, h=4, hkv=4, d=32, causal=True, dropout_rate=0.1, seed=7),
+    dict(b=1, sq=50, sk=70, h=2, hkv=1, d=33, causal=True),
+    # Grids large enough for blocks of several row groups.
+    dict(b=2, sq=1024, sk=1024, h=12, hkv=12, d=64, causal=True),
+    dict(b=2, sq=704, sk=704, h=12, hkv=4, d=40, causal=True, seg="packed"),
+    dict(b=2, sq=768, sk=768, h=12, hkv=6, d=128, causal=True, dropout_rate=0.1, seed=3),
 ])
 def test_flash_bwd_kernels_match_plain_version(device, dtype, case):
     c = dict(case)
