@@ -7,7 +7,7 @@
    CUDA kernel of the port from ``fluxmpi_tpu_torch/ops/csrc`` (one
    ``nvcc`` per source, all started together), and counts each library's
    tensor-core instructions (``HMMA``/``HGMMA`` in ``cuobjdump -sass``):
-   ``flash_fwd`` and ``flash_bwd_dq`` must have some. Every kernel's bound
+   each of the three kernels must have some. Every kernel's bound
    is the larger of its bytes at 3.35 TB/s and its products at the tensor
    cores' rate: 989 TFLOP/s for bf16, 495 / 3 TFLOP/s for f32 (three TF32
    products per f32-accurate product); f32 rows also carry the bound at
@@ -28,7 +28,8 @@
    ``dlse != 0`` and dropout 0.1; checks that each of the three kernels'
    dropout keep masks equals ``dropout_keep_reference`` bit for bit; and
    times both kernels, dterm, the plain backward and the backward of
-   ``scaled_dot_product_attention`` (yardstick) at the training shape.
+   ``scaled_dot_product_attention`` (yardstick; CUDA-graph replay too, the
+   median of 5 replays, each printed) at the training shape.
 4. Serving phase: serves 16 requests on a GPT-2-small-width
    ``TransformerLM`` (12 layers, d_model 768, 12 heads, d_ff 3072, vocab
    50257, max_len 1024, float32, TF32 off, weights from
@@ -77,7 +78,7 @@ BOUND_BASIS = {"float32": "split-TF32 tensor cores, 495/3 TFLOP/s",
                "bfloat16": "bf16 tensor cores, 989 TFLOP/s"}
 FMA_FLOPS = 67e12                # f32 FMAs outside the tensor cores, beside it
 # Kernels whose SASS must hold tensor-core instructions.
-MMA_KERNELS = ("flash_fwd", "flash_bwd_dq")
+MMA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TOL = {"float32": {"out": 2e-5, "lse": 1e-4},
        # bf16 output: one rounding of an f32 value of magnitude < 2 is at
        # most one bf16 ulp (2**-7); lse stays f32 on both sides.
@@ -101,6 +102,30 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel instance in ``nvcc -Xptxas -v`` output: the
+    kernel, its type and template integers, its registers and its spills."""
+    import re
+
+    lines, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(flash_[a-z_]+_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)+)E", m.group(1))
+            name = m.group(1)
+            if k:
+                args = ["f32" if k.group(2) == "f" else "bf16"] + re.findall(r"Li(\d+)E", k.group(3))
+                name = f"{k.group(1)}<{','.join(args)}>"
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            lines.append(f"{name}: {m.group(1)} registers; {spill}")
+            name = None
+    return lines
 
 
 def sass_mma_counts(paths) -> dict:
@@ -384,6 +409,41 @@ def sdpa_backward_call(q, k, v, g, case):
     return lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
 
 
+def sdpa_backward_ms(q, k, v, g, case, n: int = 10, repeats: int = 5):
+    """Device time of one SDPA backward (the yardstick), as the kernels are
+    timed: the forward runs once on a side stream, ``n`` calls of
+    ``torch.autograd.grad`` on that stream are captured in a CUDA graph (the
+    backward runs on its forward's stream), and the graph is replayed
+    ``repeats`` times, each replay between CUDA events. Returns the median
+    ms per call and the repeats' ms."""
+    import statistics
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call = sdpa_backward_call(q, k, v, g, case)
+        call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(n):
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times), times
+
+
 def dropout_mask_check(device):
     """Each kernel's dropout keep mask, read off its output, against
     ``dropout_keep_reference``: with q = 0 every live probability is equal
@@ -482,15 +542,17 @@ def backward_phase(device):
                 row["dterm_ms"] = device_ms(dterm_fn, **counts)
                 row["plain_ms"] = device_ms(lambda: flash_attention_bwd_reference(
                     q, k, v, g, lse, dterm, q_seg=qseg, kv_seg=kseg, **opts), **counts)
-                row["library_ms"] = eager_ms(sdpa_backward_call(q, k, v, g, case),
-                                             iters=10, warmup=2)
+                row["library_ms"], row["library_ms_repeats"] = sdpa_backward_ms(
+                    q, k, v, g, case)
                 row["sum_ms"] = row["dterm_ms"] + dq_ms + dkv_ms
             rows.append(row)
             extra = ""
             if "plain_ms" in row:
                 extra = (f" dterm_ms={row['dterm_ms']:.4f} sum_ms={row['sum_ms']:.4f} "
                          f"plain_ms={row['plain_ms']:.4f} "
-                         f"library_ms(sdpa bwd)={row['library_ms']:.4f}")
+                         f"library_ms(sdpa bwd)={row['library_ms']:.4f} (median of "
+                         f"{len(row['library_ms_repeats'])} graph replays: "
+                         + " ".join(f"{t:.4f}" for t in row["library_ms_repeats"]) + ")")
             print(f"kernel flash_bwd {name:12s} {dname:8s} "
                   + " ".join(f"err_{kk}={vv:.3e}(rel {rels[kk]:.2e})" for kk, vv in errs.items())
                   + f" (tol rel {GRAD_TOL[dname]:.2e}) dq_ms={dq_ms:.4f} "
@@ -887,9 +949,8 @@ def main() -> int:
     paths = _build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f}s", flush=True)
     for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in ptxas_summary(log):
+            print(f"  {name}: {line}")
     sass = sass_mma_counts(paths)
     sass_failures = []
     for name, counts in sass.items():

@@ -1,10 +1,14 @@
-// Tensor-core building blocks of flash_fwd.cu and flash_bwd_dq.cu: the
-// key-tile shape per input type, asynchronous staging of K/V tiles into
-// shared memory (cp.async), the walk over a key stream's live tiles, the
-// split-TF32 product for f32 inputs, bf16 MMA, and the two warp-level
-// products both kernels run on a 16-row query tile:
-//   score_product: S[16][BK] = A[16][DP] . B[BK][DP]^T   (Q K^T, dO V^T)
-//   value_product: O[16][DP] += P[16][BK] . B[BK][DP]     (P V, dS K)
+// Tensor-core building blocks of flash_fwd.cu, flash_bwd_dq.cu and
+// flash_bwd_dkv.cu: the tile shape per input type, asynchronous staging of
+// tiles into shared memory (cp.async), the walk over a key stream's live
+// tiles, the split-TF32 product for f32 inputs, bf16 MMA, and the two
+// warp-level products the kernels run on a 16-row tile:
+//   score_product: S[16][BK] = A[16][DP] . B[BK][DP]^T   (Q K^T, dO V^T;
+//                  dK/dV pass: K Q^T, V dO^T)
+//   value_product: O[16][DP] += P[16][BK] . B[BK][DP]     (P V, dS K;
+//                  dK/dV pass: P^T dO, dS^T Q)
+// score_product_split_a is score_product with an A operand that stays
+// resident for a whole sweep, split to TF32 once (split_a_fragment).
 //
 // Register layouts are those of mma.sync m16n8k8 (tf32) and m16n8k16
 // (bf16): with g = lane / 4 and t = lane % 4, an accumulator tile [16][8]
@@ -62,6 +66,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// One 4-byte element (an f32 or an int); src_bytes 0 zero-fills.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(s), "l"(gmem), "r"(src_bytes) : "memory");
 }
 
 template <int N>
@@ -183,6 +194,54 @@ __device__ __forceinline__ void score_product(float (&s)[BK / 8][4], const float
   for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] += cross[j][e];
+}
+
+// Row and column of each of the four values of one lane's A fragment for
+// k step kk of a [16][DP] operand, in the register order of mma.sync: (g,
+// c), (g + 8, c), (g, c + 4), (g + 8, c + 4), c = 8 kk + t.
+__device__ __forceinline__ void a_fragment_at(int kk, int lane, int (&r)[4], int (&c)[4]) {
+  const int g = lane >> 2, c0 = 8 * kk + (lane & 3);
+  r[0] = g, r[1] = g + 8, r[2] = g, r[3] = g + 8;
+  c[0] = c0, c[1] = c0, c[2] = c0 + 4, c[3] = c0 + 4;
+}
+
+// The TF32 hi and lo parts of an A fragment's four values, as
+// score_product splits them.
+__device__ __forceinline__ void split_a_fragment(uint4& hi, uint4& lo, const float (&x)[4]) {
+  split_tf32(x[0], hi.x, lo.x);
+  split_tf32(x[1], hi.y, lo.y);
+  split_tf32(x[2], hi.z, lo.z);
+  split_tf32(x[3], hi.w, lo.w);
+}
+
+// score_product for an A operand split once: a_hi[kk * 32 + lane] and
+// a_lo[kk * 32 + lane] hold split_a_fragment's parts of the values at
+// a_fragment_at(kk, lane). The three TF32 products of each k step go into
+// one accumulator, small terms first (as value_product's), which keeps
+// fewer registers live than score_product's separate cross terms.
+template <int DP, int BK, int LD>
+__device__ __forceinline__ void score_product_split_a(float (&s)[BK / 8][4], const uint4* a_hi,
+                                                      const uint4* a_lo, const float* b_s,
+                                                      int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 8; ++kk) {
+    const int c = 8 * kk + t;
+    const uint4 h = a_hi[kk * 32 + lane], l = a_lo[kk * 32 + lane];
+    const uint32_t ah[4] = {h.x, h.y, h.z, h.w};
+    const uint32_t al[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      uint32_t bh[2], bl[2];
+      split_tf32(b_s[(8 * j + g) * LD + c], bh[0], bl[0]);
+      split_tf32(b_s[(8 * j + g) * LD + c + 4], bh[1], bl[1]);
+      mma_3xtf32(s[j], ah, al, bh, bl);
+    }
+  }
 }
 
 template <int DP, int BK, int LD>

@@ -165,6 +165,15 @@ def _bwd_inputs(device, dtype, b, sq, sk, h, hkv, d, seg=None, seed=0):
     dict(b=2, sq=1024, sk=1024, h=12, hkv=12, d=64, causal=True),
     dict(b=2, sq=704, sk=704, h=12, hkv=4, d=40, causal=True, seg="packed"),
     dict(b=2, sq=768, sk=768, h=12, hkv=6, d=128, causal=True, dropout_rate=0.1, seed=3),
+    # The dK/dV kernel's block shapes: grouped-query heads (group 6) at
+    # s >= 1024 in blocks of one and of four key-row groups, a band
+    # (window without causal), odd d with sk != sq (unaligned rows), and
+    # d = 32 with packed segments, each large enough for four row groups.
+    dict(b=1, sq=1024, sk=1024, h=12, hkv=2, d=64, causal=True, dropout_rate=0.1, seed=11),
+    dict(b=5, sq=1024, sk=1024, h=24, hkv=4, d=64, causal=True),
+    dict(b=2, sq=768, sk=768, h=12, hkv=12, d=64, window=100),
+    dict(b=2, sq=900, sk=1100, h=12, hkv=12, d=33, causal=True, window=300),
+    dict(b=2, sq=1024, sk=1024, h=12, hkv=12, d=32, causal=True, seg="packed"),
 ])
 def test_flash_bwd_kernels_match_plain_version(device, dtype, case):
     c = dict(case)
@@ -185,6 +194,22 @@ def test_flash_bwd_kernels_match_plain_version(device, dtype, case):
         assert torch.isfinite(got.float()).all()
         err = (got.float() - ref.float()).abs().max().item()
         assert err <= GRAD_TOL[dtype] * ref.float().abs().max().item() + 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv", [12, 2])
+def test_flash_bwd_dkv_is_deterministic(device, dtype, hkv):
+    """Each dK/dV row has one writer and its partials are summed in a fixed
+    order: launches on the same inputs give the same bits (h_kv = 12 runs
+    blocks of four key-row groups, the grouped h_kv = 2 blocks of one)."""
+    q, k, v, g, _, _ = _bwd_inputs(device, dtype, 2, 1024, 1024, 12, hkv, 64, seed=4)
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    dterm = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dk, dv = fa.flash_bwd_dkv(q, k, v, None, None, g, lse, dterm, causal=True)
+    for _ in range(3):
+        dk2, dv2 = fa.flash_bwd_dkv(q, k, v, None, None, g, lse, dterm, causal=True)
+        assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+    assert torch.isfinite(dk.float()).all() and dk.abs().max() > 0
 
 
 def test_dropout_masks_equal_reference_bit_for_bit(device):

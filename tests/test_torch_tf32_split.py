@@ -6,11 +6,12 @@ from zero (``cvt.rna.tf32.f32``: 10 mantissa bits).
 
 The emulation rounds with integer arithmetic on the f32 bits and runs the
 products as f32 matmuls (a product of two TF32 values is exact in f32, the
-sums are f32 as on the tensor cores). The causal forward and the dQ formula
-through the split are held to the port's plain versions in f64 within the
-card's f32 tolerances (2e-5 absolute on the output, 1e-4 of max|dQ| on
-dQ), and a single TF32 product is shown to be at least 10x worse and
-outside those tolerances: the reason for the split.
+sums are f32 as on the tensor cores). The causal forward, the dQ formula
+and the dK/dV formulas (in the dK/dV kernel's transposed order) through the
+split are held to the port's plain versions in f64 within the card's f32
+tolerances (2e-5 absolute on the output, 1e-4 of max|dQ|, max|dK| and
+max|dV| on the gradients), and a single TF32 product is shown to be at
+least 10x worse and outside those tolerances: the reason for the split.
 """
 
 import importlib
@@ -85,6 +86,23 @@ def dq_split(q, k, v, g, lse, dterm, terms):
     return matmul_split(ds, kt, terms).permute(0, 2, 1, 3)
 
 
+def dkv_split(q, k, v, g, lse, dterm, terms):
+    """The dK/dV kernel's formulas, transposed as the kernel runs them (key
+    rows are the MMA rows), with its four products through the TF32
+    emulation: S^T = K Q^T, dP^T = V dO^T, P^T = exp(S^T / sqrt(d) - lse),
+    dS^T = P^T * (dP^T - dterm) / sqrt(d), dV = P^T dO, dK = dS^T Q."""
+    d = q.shape[-1]
+    qt, kt, vt, gt = (x.float().permute(0, 2, 1, 3) for x in (q, k, v, g))
+    st = matmul_split(kt, qt.transpose(-1, -2), terms) * (d ** -0.5)
+    live = _causal(q.shape[1]).T  # [key, query]: query >= key
+    pt = torch.exp(torch.where(live, st - lse.float()[..., None, :], tfa.NEG_INF))
+    dpt = matmul_split(vt, gt.transpose(-1, -2), terms)
+    dst = pt * (dpt - dterm.float()[..., None, :]) * (d ** -0.5)
+    dv = matmul_split(pt, gt, terms)
+    dk = matmul_split(dst, qt, terms)
+    return dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
 CASES = [
     dict(seed=0, b=1, s=128, h=2, d=64),
     dict(seed=1, b=2, s=96, h=2, d=40),
@@ -130,6 +148,21 @@ def test_split_dq_within_f32_tolerance(case):
     assert err <= DQ_TOL * scale
     err_1 = (dq_split(q, k, v, g, lse, dterm, terms=1).double() - ref_dq).abs().max().item()
     assert err_1 >= 10 * err
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"s{c['s']}_d{c['d']}")
+def test_split_dkv_within_f32_tolerance(case):
+    q, k, v, g = _inputs(case["seed"], case["b"], case["s"], case["h"], case["d"])
+    out, lse = tfa.flash_attention_reference(q, k, v, causal=True)
+    dterm = (g * out).sum(-1).permute(0, 2, 1)
+    _, ref_dk, ref_dv = tfa.flash_attention_bwd_reference(q, k, v, g, lse, dterm, causal=True)
+    assert ref_dk.dtype == ref_dv.dtype == torch.float64
+    got = dkv_split(q, k, v, g, lse, dterm, terms=3)
+    got_1 = dkv_split(q, k, v, g, lse, dterm, terms=1)
+    for ref, split3, split1 in zip((ref_dk, ref_dv), got, got_1):
+        err = (split3.double() - ref).abs().max().item()
+        assert err <= DQ_TOL * ref.abs().max().item()
+        assert (split1.double() - ref).abs().max().item() >= 10 * err
 
 
 def test_single_tf32_product_misses_the_f32_tolerances():
