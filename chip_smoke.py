@@ -54,6 +54,20 @@
    through the kernels agree with the same update through the plain
    versions leaf by leaf; then traces a few more updates (device busy,
    wall, idle share, device time by kernel group).
+6. bf16 phase: the same widths with ``dtype=torch.bfloat16`` (f32
+   parameters and adamw moments, bf16 compute): 20 uninterrupted updates
+   (each kernel launched 12 times per update with bf16 inputs, the mean
+   loss falls), one update's gradients through the kernels against the
+   plain versions; the same run with ``save_every=5`` into an async
+   ``CheckpointManager(max_to_keep=2)`` in a temporary directory, killed by
+   the fault ``data.fetch@step=13`` (it must raise
+   ``FaultInjectedError``), then resumed by a fresh model, step, loader and
+   manager (``resumed_from`` 10, the reference's counters, every parameter
+   and moment bit-identical); the blocking and background seconds of a
+   save, the bytes and a restore; 3 traced updates; and 3 updates each
+   with ``remat=True`` and ``remat="dots"`` beside 3 without (every
+   parameter and moment and every loss bit-identical, 24 ``flash_fwd``
+   launches per update, the peak memory of each).
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -922,6 +936,320 @@ def train_phase(device, updates: int = 20, flush_every: int = 10,
     return stats, failures
 
 
+# bf16 training: one update's gradients through the kernels against the
+# plain versions, per leaf ||diff|| / ||g||. Both sides compute in bf16
+# and differ only in the attention's roundings: at most about one bf16
+# unit roundoff (2**-8) per attention a gradient crosses, forward and back.
+# scripts/bf16_grad_bound.py reads the ratio beside kernels made wrong on
+# purpose.
+BF16_TRAIN_GRAD_TOL = 2 ** -8 * 2 * GPT2_SMALL["num_layers"]
+
+
+class dtype_probe:
+    """Record the input dtype of every kernel launch (the wrappers'
+    ``_launch``) for the duration of the block; the wrappers count their
+    launches as always."""
+
+    def __enter__(self):
+        import importlib
+
+        fa = importlib.import_module("fluxmpi_tpu_torch.ops.flash_attention")
+        self.fa, self.saved = fa, fa._launch
+        self.dtypes = {name: set() for name in MMA_KERNELS}
+
+        def launch(name, q, *args):
+            self.dtypes[name].add(str(q.dtype).split(".")[-1])
+            return self.saved(name, q, *args)
+
+        fa._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.fa._launch = self.saved
+        return False
+
+
+def bf16_phase(device, f32_stats, updates: int = 20, save_every: int = 5,
+               crash_hit: int = 13, flush_every: int = 10,
+               remat_updates: int = 3, traced_updates: int = 3):
+    """bf16 compute with f32 masters at GPT-2-small widths: an
+    uninterrupted run, a run killed by an injected fetch fault, its resume
+    from the newest committed checkpoint (bit-identical to the
+    uninterrupted run), one update's gradients through the kernels against
+    the plain versions, remat against no remat, and a traced window."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import faults, optim
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+    from fluxmpi_tpu_torch.utils import CheckpointManager
+
+    failures = []
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    dev = fm.init()
+    corpus = lm_corpus(GPT2_SMALL["vocab_size"], seq=GPT2_SMALL["max_len"])
+    tokens_per_update = 8 * (corpus.shape[1] - 1)
+
+    def build(remat=False):
+        model = TransformerLM(**GPT2_SMALL, attention="flash", dropout=0.0,
+                              dtype=torch.bfloat16, device=dev,
+                              generator=torch.Generator().manual_seed(0))
+        fm.synchronize(model)
+        loader = fm.DistributedDataLoader(
+            fm.DistributedDataContainer(fm.ArrayDataset((corpus[:, :-1], corpus[:, 1:]))),
+            global_batch_size=8, shuffle=True)
+
+        def loss_fn(params, model_state, batch):
+            x, y = batch
+            return model(x, targets=y).mean(), model_state
+
+        opt = optim.adamw(3e-4)
+        step = make_train_step(loss_fn, opt, remat=remat)
+        return model, loader, step, TrainState.create(model, opt), loss_fn
+
+    def leaves(state):
+        out = {f"params/{k}": v for k, v in state.params.items()}
+        for m in ("mu", "nu"):
+            out.update({f"{m}/{k}": v for k, v in state.opt_state[m].items()})
+        return out
+
+    # 1. The uninterrupted reference run.
+    model, loader, step, state, loss_fn = build()
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        failures.append("train_bf16: the parameters are not f32 masters")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    with dtype_probe() as probe:
+        state, ref = train_loop(step, state, loader, steps=updates,
+                                flush_every=flush_every)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    first, last = ref["flushes"][0]["loss_mean"], ref["flushes"][-1]["loss_mean"]
+    tokens = ref["updates"] * tokens_per_update
+    median_ms = float(np.median(ref["step_ms"]))
+    stats = dict(updates=ref["updates"], tokens=tokens, wall_seconds=wall,
+                 tokens_per_sec=tokens / wall, median_update_ms=median_ms,
+                 step_ms=ref["step_ms"], first_flush_loss_mean=first,
+                 last_flush_loss_mean=last, flushes=ref["flushes"],
+                 peak_memory_gb=peak_gb, launches=launches,
+                 kernel_dtypes={k: sorted(v) for k, v in probe.dtypes.items()})
+    need = model.num_layers * updates
+    print(f"train_bf16: bf16 compute, f32 masters: {ref['updates']} updates, "
+          f"{tokens} tokens in {wall:.3f}s = {tokens / wall:.1f} tokens/s; median "
+          f"{median_ms:.2f} ms per update (f32 phase: {f32_stats['median_update_ms']:.2f} "
+          f"ms, {f32_stats['tokens_per_sec']:.1f} tokens/s); mean loss of the first "
+          f"flush interval {first:.4f} -> of the last {last:.4f}; peak memory "
+          f"{peak_gb:.2f} GB; launches {launches} (need {need} each), kernel input "
+          f"dtypes {stats['kernel_dtypes']}", flush=True)
+    if ref["updates"] != updates:
+        failures.append(f"train_bf16: {ref['updates']} updates, not {updates}")
+    if any(n != need for n in launches.values()):
+        failures.append(f"train_bf16: kernel launches {launches}, not {need} each")
+    if any(v != {"bfloat16"} for v in probe.dtypes.values()):
+        failures.append(f"train_bf16: kernel input dtypes {probe.dtypes}, not bfloat16")
+    if not (np.isfinite(first) and np.isfinite(last) and last < first):
+        failures.append(f"train_bf16: mean loss {first} -> {last} is not finite and falling")
+    want = {k: v.detach().clone() for k, v in leaves(state).items()}
+
+    # One update's gradients through the kernels against the plain versions,
+    # per leaf ||diff|| / ||g|| (a bias's gradient sums many tokens' terms
+    # that mostly cancel, so its largest element says little about them);
+    # the key biases, zero in exact arithmetic, against the largest norm.
+    x, y = next(iter(loader))
+    params = list(model.parameters())
+
+    def grads():
+        return torch.autograd.grad(loss_fn(None, None, (x, y))[0], params)
+
+    g_kernel = grads()
+    with plain_attention():
+        g_plain = grads()
+    top = max(b.norm().item() for b in g_plain)
+    rel = {}
+    for (name, _), a, b in zip(model.named_parameters(), g_kernel, g_plain):
+        scale = top if name.endswith("attn.key.bias") else b.norm().item()
+        rel[name] = (a - b).norm().item() / scale if scale else 0.0
+    worst = max(rel, key=rel.get)
+    ok = all(np.isfinite(r) and r <= BF16_TRAIN_GRAD_TOL for r in rel.values())
+    stats["grad_rel_err"], stats["grad_rel_err_max"] = rel, rel[worst]
+    print(f"train_bf16: gradients through the kernels vs the plain versions, per "
+          f"leaf ||diff||/||g||: worst {rel[worst]:.3e} ({worst}) over {len(rel)} "
+          f"leaves (tol {BF16_TRAIN_GRAD_TOL:g} = 2**-8 x 2 x "
+          f"{GPT2_SMALL['num_layers']} layers; key biases against the largest "
+          f"gradient norm) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("train_bf16: kernel gradients differ from the plain versions'")
+    del g_kernel, g_plain, model, loader, step, state, loss_fn
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckdir = os.path.join(tmp, "run")
+        # 2. The same run, killed by a fault at the 13th batch fetch.
+        model, loader, step, state, _ = build()
+        mgr = CheckpointManager(ckdir, max_to_keep=2, async_save=True)
+        crashed = False
+        try:
+            with faults.scope(f"data.fetch@step={crash_hit}"):
+                train_loop(step, state, loader, steps=updates, flush_every=flush_every,
+                           checkpoint=mgr, save_every=save_every)
+        except fm.FaultInjectedError as exc:
+            crashed = True
+            print(f"resume: the run stopped at {exc}", flush=True)
+        # The crashed run's writer finishes the save it was handed, as a
+        # process exiting through its handlers would.
+        mgr.close()
+        if not crashed:
+            failures.append("resume: the data.fetch fault did not stop the run")
+        banked = mgr.all_steps()
+        del model, loader, step, state, mgr
+        torch.cuda.empty_cache()
+
+        # 3. A fresh model, step, loader and manager resume it.
+        model, loader, step, state, _ = build()
+        mgr = CheckpointManager(ckdir, max_to_keep=2, async_save=True)
+        t0 = time.perf_counter()
+        state, res = train_loop(step, state, loader, steps=updates,
+                                flush_every=flush_every, checkpoint=mgr,
+                                save_every=save_every, resume=True)
+        torch.cuda.synchronize()
+        resume_wall = time.perf_counter() - t0
+        got = leaves(state)
+        same = [k for k in want if torch.equal(got[k], want[k])]
+        diff = {k: (got[k] - want[k]).abs().max().item() for k in want if k not in same}
+        counters_ok = all(res[k] == ref[k] for k in ("updates", "epochs", "examples"))
+        stats["resume"] = dict(
+            banked_before_resume=banked, resumed_from=res["resumed_from"],
+            updates=res["updates"], epochs=res["epochs"], examples=res["examples"],
+            reference=dict(updates=ref["updates"], epochs=ref["epochs"],
+                           examples=ref["examples"]),
+            leaves=len(want), bit_identical=len(same), differing=diff,
+            wall_seconds=resume_wall, committed_after=mgr.all_steps())
+        print(f"resume: committed steps before the resume {banked}; resumed_from "
+              f"{res['resumed_from']}; updates/epochs/examples {res['updates']}/"
+              f"{res['epochs']}/{res['examples']} (reference {ref['updates']}/"
+              f"{ref['epochs']}/{ref['examples']}); {len(same)} of {len(want)} "
+              f"parameters and adamw moments bit-identical to the uninterrupted run"
+              f"{'' if not diff else f'; worst differing {max(diff.values()):.3e}'}; "
+              f"committed after {mgr.all_steps()}", flush=True)
+        if res["resumed_from"] != 10:
+            failures.append(f"resume: resumed_from {res['resumed_from']}, not 10")
+        if not counters_ok:
+            failures.append("resume: the counters differ from the uninterrupted run's")
+        if diff:
+            failures.append(f"resume: {len(diff)} leaves differ from the uninterrupted run")
+
+        # A save and a restore of the full state, timed: the blocking part
+        # (host snapshot) and the background part (the commit on the writer).
+        probe_dir = os.path.join(tmp, "probe")
+        pm = CheckpointManager(probe_dir, async_save=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pm.save(updates, {"state": state})
+        blocking = time.perf_counter() - t0
+        pm.wait_until_finished()
+        background = pm.write_seconds[-1]
+        nbytes = os.path.getsize(os.path.join(pm._step_path(updates), "state.pt"))
+        t0 = time.perf_counter()
+        _, back = pm.restore({"state": state})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored_ok = all(torch.equal(a, b) for a, b in
+                          zip(leaves(back["state"]).values(), got.values()))
+        pm.close()
+        stats["checkpoint"] = dict(bytes=nbytes, save_blocking_seconds=blocking,
+                                   save_background_seconds=background,
+                                   restore_seconds=restore_s,
+                                   restored_bit_identical=restored_ok)
+        print(f"checkpoint: {nbytes} bytes (f32 parameters and two adamw moments); "
+              f"save: {blocking:.3f}s blocking (host snapshot), {background:.3f}s in "
+              f"the background writer; restore {restore_s:.3f}s; restored bytes "
+              f"{'equal' if restored_ok else 'DIFFER'}", flush=True)
+        if not restored_ok:
+            failures.append("checkpoint: the restored state differs from the saved one")
+        del back, mgr, pm
+
+    # 4. A traced window of a few more bf16 updates.
+    (_, tsum), busy_ms, wall_ms, nk, groups = traced(
+        lambda: train_loop(step, state, loader, steps=traced_updates,
+                           flush_every=traced_updates))
+    stats["profile"] = dict(updates=tsum["updates"], wall_ms=wall_ms,
+                            device_busy_ms=busy_ms, kernels=nk,
+                            idle_share=(1 - busy_ms / wall_ms) if nk else None,
+                            device_ms_by_group=groups)
+    if not nk:
+        failures.append("train_bf16 profile: the trace holds no device time")
+    else:
+        print(f"train_bf16 profile: {tsum['updates']} traced updates: device "
+              f"busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall (idle share "
+              f"{stats['profile']['idle_share']:.3f}); {nk} kernels", flush=True)
+        for g, ms in groups.items():
+            print(f"train_bf16 profile:   {g:48s} {ms:9.3f} ms  {ms / busy_ms:6.1%} of busy",
+                  flush=True)
+    del model, loader, step, state
+    torch.cuda.empty_cache()
+
+    # 5. remat=True and remat="dots" against no remat: the same updates,
+    # bit for bit (the recompute runs the same deterministic kernels on the
+    # same inputs), with the forward run again in the backward.
+    runs, bits = {}, {}
+    for remat in (False, True, "dots"):
+        model, loader, step, state, _ = build(remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for kern in kernels:
+            kern.launches = 0
+        _, summ = train_loop(step, state, loader, steps=remat_updates, flush_every=1)
+        torch.cuda.synchronize()
+        runs[remat] = dict(losses=[f["loss"] for f in summ["flushes"]],
+                           peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                           launches={k.__name__: k.launches for k in kernels})
+        got = leaves(state)
+        if remat is False:
+            base = {k: v.detach().clone() for k, v in got.items()}
+        else:
+            bits[remat] = sum(torch.equal(got[k], base[k]) for k in base)
+        del model, loader, step, state, got
+        torch.cuda.empty_cache()
+    n_leaves = len(base)
+    del base
+    plain = runs[False]
+    fwd_need = 2 * GPT2_SMALL["num_layers"] * remat_updates
+    stats["remat"] = dict(plain=plain, remat=runs[True], dots=runs["dots"],
+                          leaves=n_leaves)
+    for remat, name in ((True, "remat"), ("dots", "remat_dots")):
+        rem = runs[remat]
+        rem["identical_leaves"] = bits[remat]
+        same = bits[remat] == n_leaves and rem["losses"] == plain["losses"]
+        verdict = "equal" if rem["losses"] == plain["losses"] else "differ"
+        print(f"{name}: {remat_updates} updates with remat={remat!r} vs without: "
+              f"{bits[remat]}/{n_leaves} parameters and moments bit-identical, losses "
+              f"{rem['losses']} vs {plain['losses']} ({verdict}); flash_fwd launches "
+              f"{rem['launches']['flash_fwd']} (need {fwd_need}: "
+              f"{fwd_need // remat_updates} per update) vs "
+              f"{plain['launches']['flash_fwd']}; peak memory "
+              f"{rem['peak_memory_gb']:.2f} GB vs {plain['peak_memory_gb']:.2f} GB",
+              flush=True)
+        if not same:
+            failures.append(f"{name}: the parameters, moments or losses differ from "
+                            f"the run without remat")
+        if rem["launches"]["flash_fwd"] != fwd_need:
+            failures.append(f"{name}: flash_fwd launched {rem['launches']['flash_fwd']} "
+                            f"times, not {fwd_need}")
+    fm.shutdown()
+    return stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -986,6 +1314,9 @@ def run_phases(device):
     torch.cuda.empty_cache()
     train, train_failures = train_phase(device)
     failures += train_failures
+    torch.cuda.empty_cache()
+    bf16, bf16_failures = bf16_phase(device, train)
+    failures += bf16_failures
 
     fwd_row = next(r for r in rows if r["case"] == "decode_1024" and r["dtype"] == "float32")
     fwd_train = next(r for r in rows if r["case"] == "train_1024" and r["dtype"] == "float32")
@@ -995,9 +1326,17 @@ def run_phases(device):
         "name": "flash_fwd", "route": "cuda",
         "source": "fluxmpi_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "fluxmpi_tpu/ops/flash_attention.py:185",
-        "launches": stats["launches"] + train["launches"]["flash_fwd"],
+        "launches": (stats["launches"] + train["launches"]["flash_fwd"]
+                     + bf16["launches"]["flash_fwd"]
+                     + bf16["remat"]["remat"]["launches"]["flash_fwd"]
+                     + bf16["remat"]["dots"]["launches"]["flash_fwd"]),
         "launches_by_path": {"serve": stats["launches"],
-                             "train": train["launches"]["flash_fwd"]},
+                             "train": train["launches"]["flash_fwd"],
+                             "train_bf16": bf16["launches"]["flash_fwd"],
+                             "train_bf16_remat":
+                                 bf16["remat"]["remat"]["launches"]["flash_fwd"],
+                             "train_bf16_remat_dots":
+                                 bf16["remat"]["dots"]["launches"]["flash_fwd"]},
         "max_abs_err": max(max(r["err_out"], r["err_lse"]) for r in rows),
         "ms": fwd_row["ms"], "plain_ms": fwd_row["plain_ms"],
         "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
@@ -1017,7 +1356,15 @@ def run_phases(device):
             "source": f"fluxmpi_tpu_torch/ops/csrc/{kname}.cu",
             "replaces": ("fluxmpi_tpu/ops/flash_attention.py:306" if key == "dq"
                          else "fluxmpi_tpu/ops/flash_attention.py:399"),
-            "launches": train["launches"][kname],
+            "launches": (train["launches"][kname] + bf16["launches"][kname]
+                         + bf16["remat"]["remat"]["launches"][kname]
+                         + bf16["remat"]["dots"]["launches"][kname]),
+            "launches_by_path": {"train": train["launches"][kname],
+                                 "train_bf16": bf16["launches"][kname],
+                                 "train_bf16_remat":
+                                     bf16["remat"]["remat"]["launches"][kname],
+                                 "train_bf16_remat_dots":
+                                     bf16["remat"]["dots"]["launches"][kname]},
             "max_abs_err": max(r["err"][e] for r in bwd_rows for e in errs),
             "ms": bwd_main[f"{key}_ms"],
             # The plain version computes dQ, dK and dV in one pass; the
@@ -1037,7 +1384,7 @@ def run_phases(device):
                                          f"{key}_ms", f"{key}_bound_ms")}
                       for r in bwd_rows],
         })
-    return kernels, {"slice": stats, "train": train}, failures
+    return kernels, {"slice": stats, "train": train, "train_bf16": bf16}, failures
 
 
 if __name__ == "__main__":

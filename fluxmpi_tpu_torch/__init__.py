@@ -16,31 +16,49 @@ What is ported, in two slices:
   over ``torch.distributed``, the :mod:`~fluxmpi_tpu_torch.optim` rules)
   → :func:`~fluxmpi_tpu_torch.parallel.train_loop`, with the LM's
   attention forward and backward (dQ, dK/dV) in hand-written CUDA kernels
-  and its loss through the chunked fused head.
+  and its loss through the chunked fused head;
+- mixed-precision, fault-tolerant training: bf16 compute with f32 masters
+  (:mod:`~fluxmpi_tpu_torch.utils.precision`, ``make_train_step(policy=,
+  remat=)``), checkpoints with a crash-consistent commit protocol and
+  their manifests (:mod:`~fluxmpi_tpu_torch.utils.checkpoint`,
+  :mod:`~fluxmpi_tpu_torch.utils.manifest`), ``train_loop``'s periodic
+  saves, resume and preemption drain (:func:`preemption_requested` and
+  friends), and deterministic fault injection
+  (:mod:`~fluxmpi_tpu_torch.faults`).
 """
 
-from . import (comm, data, errors, logging, models, ops, optim, optimizer,
-               parallel, runtime, serving, sync)
+from . import (comm, data, errors, faults, logging, models, ops, optim,
+               optimizer, parallel, runtime, serving, sync, utils)
 from .comm import allreduce, barrier, bcast, reduce
 from .data import (ArrayDataset, DistributedDataContainer,
                    DistributedDataLoader, scan_batches)
-from .errors import CollectiveError, FluxMPINotInitializedError
+from .errors import (CheckpointDesyncError, CheckpointTimeoutError,
+                     CollectiveError, FaultInjectedError,
+                     FluxMPINotInitializedError)
 from .logging import fluxmpi_print, fluxmpi_println
 from .optimizer import DistributedOptimizer, allreduce_gradients
-from .runtime import (Initialized, device_count, init, is_initialized,
-                      local_rank, process_count, process_index, resolve_device,
-                      shutdown, total_workers)
+from .runtime import (Initialized, clear_preemption, device_count, init,
+                      install_preemption_handlers, is_initialized, local_rank,
+                      preemption_handlers_installed, preemption_requested,
+                      process_count, process_index, request_preemption,
+                      resolve_device, shutdown, total_workers,
+                      uninstall_preemption_handlers)
 from .sync import synchronize
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "ArrayDataset", "CollectiveError", "DistributedDataContainer",
-    "DistributedDataLoader", "DistributedOptimizer",
+    "ArrayDataset", "CheckpointDesyncError", "CheckpointTimeoutError",
+    "CollectiveError", "DistributedDataContainer", "DistributedDataLoader",
+    "DistributedOptimizer", "FaultInjectedError",
     "FluxMPINotInitializedError", "Initialized", "allreduce",
-    "allreduce_gradients", "barrier", "bcast", "comm", "data", "device_count",
-    "errors", "fluxmpi_print", "fluxmpi_println", "init", "is_initialized",
-    "local_rank", "logging", "models", "ops", "optim", "optimizer", "parallel",
-    "process_count", "process_index", "reduce", "resolve_device", "runtime",
-    "scan_batches", "serving", "shutdown", "synchronize", "total_workers",
+    "allreduce_gradients", "barrier", "bcast", "clear_preemption", "comm",
+    "data", "device_count", "errors", "faults", "fluxmpi_print",
+    "fluxmpi_println", "init", "install_preemption_handlers",
+    "is_initialized", "local_rank", "logging", "models", "ops", "optim",
+    "optimizer", "parallel", "preemption_handlers_installed",
+    "preemption_requested", "process_count", "process_index", "reduce",
+    "request_preemption", "resolve_device", "runtime", "scan_batches",
+    "serving", "shutdown", "synchronize", "total_workers",
+    "uninstall_preemption_handlers", "utils",
 ]

@@ -10,6 +10,9 @@ full-dataset permutation slice under ``global_shuffle``. Batches are
 assembled on the host with numpy, staged in pinned memory and copied to
 the device with ``non_blocking`` copies, ``prefetch`` batches ahead.
 
+Each batch crosses the fault site ``data.fetch`` once the host has
+assembled it (:mod:`fluxmpi_tpu_torch.faults`).
+
 Not ported yet (each raises ``NotImplementedError`` when asked for): the
 device-gather path, ``elastic_order``, ``transform=``, the elastic cursor
 remap on a changed world, and the C++ prefetcher.
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from . import runtime
+from . import faults, runtime
 
 __all__ = [
     "ArrayDataset",
@@ -313,9 +316,18 @@ class DistributedDataLoader:
 
         return pytree.tree_map(move, batch)
 
+    @property
+    def resume_cursor(self) -> int:
+        """The batch the next pass starts at (set by
+        :meth:`load_state_dict`; 0 once a pass has begun)."""
+        return self._resume_cursor
+
     def __iter__(self) -> Iterator[Any]:
         queue: deque = deque()
         for batch in self._host_batches():
+            if faults.ARMED:
+                # After the fetch, so hit N is batch N of the pass.
+                faults.check("data.fetch")
             queue.append(self._to_device(batch))
             if len(queue) > self.prefetch:
                 self._cursor += 1

@@ -3,8 +3,9 @@ that the ported modules raise)."""
 
 from __future__ import annotations
 
-__all__ = ["CollectiveError", "FluxMPINotInitializedError",
-           "RequestRejectedError"]
+__all__ = ["CheckpointDesyncError", "CheckpointTimeoutError",
+           "CollectiveError", "FaultInjectedError",
+           "FluxMPINotInitializedError", "RequestRejectedError"]
 
 
 class FluxMPINotInitializedError(RuntimeError):
@@ -33,3 +34,28 @@ class RequestRejectedError(RuntimeError):
     def __init__(self, reason: str | None):
         self.reject_reason = reason
         super().__init__(f"request rejected: {reason}")
+
+
+class FaultInjectedError(RuntimeError):
+    """Raised by :mod:`fluxmpi_tpu_torch.faults` when an armed fault
+    schedule fires at a named site: the synthetic analogue of a transient
+    I/O error or a killed fetch. Checkpoint write retries treat it like an
+    ``OSError``, so chaos tests exercise the production path."""
+
+    def __init__(self, site: str, hit: int, spec: str = "") -> None:
+        self.site = site
+        self.hit = hit
+        super().__init__(
+            f"fault injected at site {site!r} (hit {hit})"
+            + (f" by schedule entry {spec!r}" if spec else "")
+        )
+
+
+class CheckpointTimeoutError(RuntimeError):
+    """A wait on a background checkpoint save outlived the hard deadline
+    set by ``FLUXMPI_TPU_CKPT_TIMEOUT``."""
+
+
+class CheckpointDesyncError(RuntimeError):
+    """The workers disagree on the step being checkpointed: banking the
+    save would mix states from different steps, so it is aborted."""

@@ -99,8 +99,10 @@ class LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x, dtype):
-        y = F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias,
-                         self.eps)
+        # In f32 whatever the parameters' dtype (flax promotes the stats,
+        # scale and bias to f32), then cast.
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.scale.float(),
+                         self.bias.float(), self.eps)
         return y.to(dtype)
 
 

@@ -11,8 +11,10 @@ O(tokens * chunk). A trailing partial tile is zero-padded and its dead
 columns masked to -inf (their softmax weight is exactly 0).
 
 The JAX package runs this as a ``lax.scan``, not a TPU kernel, so here the
-tiles are plain ``torch.matmul`` in the hidden states' dtype (f32 on the
-port's main path); the sums are f32.
+tiles are plain matrix products: the logits take the table's tile in the
+hidden states' dtype and sum in f32, with an f32 result (bf16 hidden
+states give f32 logits, not bf16-rounded ones); the backward's products
+and the table's gradient are f32, returned in the table's own dtype.
 """
 
 from __future__ import annotations
@@ -32,10 +34,23 @@ def _tiles(w, chunk: int):
     return w.reshape(-1, chunk, d)
 
 
+def _mm_f32(a, b):
+    """``a @ b`` of two tensors of one dtype, summed in f32 and returned in
+    f32 without rounding to the inputs' dtype (the JAX package's
+    ``preferred_element_type=float32``)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    # bf16 and f16 products are exact in f32.
+    return a.float() @ b.float()
+
+
 def _tile_logits(h2, w_c, off: int, vocab: int):
-    """``[N, chunk]`` f32 logits of one tile, -inf on the padded columns,
+    """``[N, chunk]`` f32 logits of one tile (the tile cast to the hidden
+    states' dtype, products summed in f32), -inf on the padded columns,
     and the tile's column-validity mask ``[chunk]``."""
-    z = (h2 @ w_c.to(h2.dtype).t()).float()
+    z = _mm_f32(h2, w_c.to(h2.dtype).t())
     valid = torch.arange(off, off + w_c.shape[0], device=z.device) < vocab
     return z.masked_fill(~valid, float("-inf")), valid
 

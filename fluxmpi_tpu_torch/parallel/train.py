@@ -9,22 +9,26 @@ or ``None`` when a :func:`~fluxmpi_tpu_torch.DistributedOptimizer`
 reduces them), and the optimizer rule updates the parameters in place.
 PyTorch runs eagerly, so the step is a plain Python function; its
 kernels launch asynchronously and the returned loss stays on the device.
+``policy=`` casts the parameters to a compute dtype entering the loss
+(f32 masters, bf16 compute); ``remat=`` recomputes the forward during the
+backward.
 
 Not ported yet (each raises ``NotImplementedError`` when passed):
 ``parallel=``, ``mesh=``, ``axis_name=``, ``style=``, ``state_reduce=``,
-``donate=``,
-``state_sharding=``, ``batch_spec=``, ``remat=``, ``policy=``,
-``metrics=`` and ``model_stats=``.
+``donate=``, ``state_sharding=``, ``batch_spec=``, ``metrics=`` and
+``model_stats=``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
 from torch import nn
 from torch.utils import _pytree as pytree
+from torch.utils import checkpoint as _checkpoint
 
 from ..optim import GradientTransformation, apply_updates
 from ..optimizer import allreduce_gradients
@@ -32,8 +36,8 @@ from ..optimizer import allreduce_gradients
 __all__ = ["TrainState", "make_eval_step", "make_train_step"]
 
 _WAITING = ("parallel", "mesh", "axis_name", "style", "state_reduce",
-            "donate", "state_sharding", "batch_spec", "remat", "policy",
-            "metrics", "model_stats")
+            "donate", "state_sharding", "batch_spec", "metrics",
+            "model_stats")
 
 
 def _refuse_waiting(fn: str, waiting: dict) -> None:
@@ -82,6 +86,78 @@ def _split(batch: Any, k: int) -> list[Any]:
     return [pytree.tree_unflatten([p[i] for p in parts], spec) for i in range(k)]
 
 
+# The matrix products whose outputs remat="dots" keeps (the analogue of
+# jax.checkpoint_policies.checkpoint_dots); everything else recomputes.
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                      torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    policy = _checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOT_OPS else policy.PREFER_RECOMPUTE
+
+
+class _CastWatch:
+    """The graph nodes of the parameters that ``policy`` cast in the first
+    update's forward, until the step has checked that the loss reached
+    one of them."""
+
+    def __init__(self):
+        self.armed, self.nodes = True, set()
+
+    def check(self, loss: torch.Tensor) -> None:
+        """Raise unless ``loss`` was computed from a cast parameter (when
+        the policy cast any); disarm once it was."""
+        nodes, self.nodes = self.nodes, set()
+        todo, seen = [loss.grad_fn], set()
+        while nodes and todo:
+            fn = todo.pop()
+            if fn in nodes:
+                nodes = None
+            elif fn is not None and fn not in seen:
+                seen.add(fn)
+                todo.extend(f for f, _ in fn.next_functions)
+        if not nodes:
+            self.armed = False
+            return
+        raise ValueError(
+            "policy= has no effect: loss_fn computed its loss without the "
+            "cast parameters it was given (a closure over the module's own "
+            "tensors?); compute from them with torch.func.functional_call, "
+            "or give the model a compute dtype instead")
+
+
+def _with_policy_and_remat(loss_fn, policy, remat, watch):
+    """``loss_fn`` with the parameters cast by ``policy`` entering it
+    (their graph nodes noted in ``watch`` while it is armed), and its
+    forward recomputed during the backward under ``remat``."""
+    if policy is not None:
+        inner = loss_fn
+
+        def loss_fn(p, mstate, batch):  # noqa: F811 - deliberate rewrap
+            cast = policy.cast_to_compute(p)
+            if watch.armed:
+                watch.nodes.update(c.grad_fn for k, c in cast.items()
+                                   if c is not p[k] and c.grad_fn is not None)
+            return inner(cast, mstate, batch)
+
+    if remat:
+        if remat == "dots":
+            opts = dict(context_fn=functools.partial(
+                _checkpoint.create_selective_checkpoint_contexts, _save_dots))
+        elif remat is True:
+            opts = {}
+        else:
+            raise ValueError(f"remat must be False, True, or 'dots', got {remat!r}")
+        plain = loss_fn
+
+        def loss_fn(p, mstate, batch):  # noqa: F811 - deliberate rewrap
+            return _checkpoint.checkpoint(plain, p, mstate, batch,
+                                          use_reentrant=False, **opts)
+
+    return loss_fn
+
+
 def make_train_step(
     loss_fn: Callable[[dict, Any, Any], tuple[torch.Tensor, Any]],
     optimizer: GradientTransformation,
@@ -89,6 +165,8 @@ def make_train_step(
     grad_reduce: str | None = "mean",
     grad_accum_steps: int = 1,
     scan_steps: int = 1,
+    remat: bool | str = False,
+    policy: Any = None,
     **waiting,
 ) -> Callable[[TrainState, Any], tuple[TrainState, torch.Tensor]]:
     """Build ``step(state, batch) -> (state, loss)``.
@@ -103,8 +181,27 @@ def make_train_step(
     ``K`` batches stacked on a leading axis, runs ``K`` updates and returns
     the ``[K]`` losses. The parameters and optimizer state update in place;
     the returned loss is a detached tensor on the device (reading it
-    synchronizes)."""
+    synchronizes).
+
+    ``policy``: a :class:`~fluxmpi_tpu_torch.utils.Policy`; the parameters
+    enter ``loss_fn`` cast to its compute dtype while the state keeps its
+    f32 masters and optimizer state (the cast is differentiable, so the
+    gradients come back in the masters' dtype and the update runs in
+    f32). ``loss_fn`` must then compute from the ``params`` it is given
+    (e.g. ``torch.func.functional_call``): the first update raises
+    ``ValueError`` if its loss reached none of the cast parameters (a
+    closure over the module's own tensors would train in f32). A model
+    built with a compute ``dtype=`` needs no policy. ``remat=True``
+    recomputes the whole forward during the backward
+    (``torch.utils.checkpoint``, non-reentrant); ``remat="dots"`` keeps the
+    matrix products' outputs and recomputes the rest
+    (``create_selective_checkpoint_contexts``). Both wrap the whole loss,
+    so with eager PyTorch the backward's recompute holds every activation
+    at once again: they add a forward's work and do not lower the peak
+    memory (a checkpoint per block would)."""
     _refuse_waiting("make_train_step", waiting)
+    watch = _CastWatch()
+    loss_fn = _with_policy_and_remat(loss_fn, policy, remat, watch)
     if grad_reduce not in ("mean", "sum", None):
         raise ValueError("grad_reduce must be 'mean', 'sum', or None")
     if grad_accum_steps < 1:
@@ -118,6 +215,8 @@ def make_train_step(
         loss_sum, acc, mstate = None, None, ts.model_state
         for mb in _split(batch, grad_accum_steps) if grad_accum_steps > 1 else [batch]:
             loss, mstate = loss_fn(ts.params, mstate, mb)
+            if watch.armed:
+                watch.check(loss)
             g = torch.autograd.grad(loss, vals, allow_unused=True)
             g = [torch.zeros_like(v) if x is None else x for x, v in zip(g, vals)]
             if acc is None:
@@ -155,16 +254,19 @@ def make_train_step(
     return step
 
 
-def make_eval_step(metric_fn: Callable[[dict, Any, Any], Any], **waiting):
+def make_eval_step(metric_fn: Callable[[dict, Any, Any], Any], *,
+                   policy: Any = None, **waiting):
     """Build ``eval_step(state, batch) -> metrics``:
     ``metric_fn(params, model_state, batch)`` without autograd, on this
     worker's batch (reduce across workers with
     :func:`~fluxmpi_tpu_torch.allreduce` where a global value is
-    wanted)."""
+    wanted). ``policy`` casts the parameters to its compute dtype entering
+    ``metric_fn``, as in training."""
     _refuse_waiting("make_eval_step", waiting)
 
     def step(ts: TrainState, batch):
+        params = ts.params if policy is None else policy.cast_to_compute(ts.params)
         with torch.no_grad():
-            return metric_fn(ts.params, ts.model_state, batch)
+            return metric_fn(params, ts.model_state, batch)
 
     return step

@@ -20,7 +20,9 @@ from __future__ import annotations
 
 import datetime
 import os
+import signal
 import warnings
+from typing import Any, Sequence
 
 import torch
 import torch.distributed as dist
@@ -29,15 +31,21 @@ from .errors import FluxMPINotInitializedError
 
 __all__ = [
     "Initialized",
+    "clear_preemption",
     "device_count",
     "init",
+    "install_preemption_handlers",
     "is_initialized",
     "local_rank",
+    "preemption_handlers_installed",
+    "preemption_requested",
     "process_count",
     "process_index",
+    "request_preemption",
     "resolve_device",
     "shutdown",
     "total_workers",
+    "uninstall_preemption_handlers",
     "worker_device",
 ]
 
@@ -231,3 +239,84 @@ def worker_device() -> torch.device:
     """The device :func:`init` bound this worker to."""
     _require_init()
     return _state.device
+
+
+# ---------------------------------------------------------------------------
+# Preemption: a signal sets a flag that train_loop polls.
+#
+# A preemptible card is taken back with SIGTERM and a grace window. The
+# handler runs between bytecodes on the main thread, so it only sets a
+# flag (no locks, no I/O, no CUDA); train_loop polls the flag at dispatch
+# boundaries, drains, banks an emergency checkpoint and returns with
+# summary["preempted"] = True.
+# ---------------------------------------------------------------------------
+
+
+class _PreemptionState:
+    requested = False
+    signum: int | None = None
+
+
+_preemption = _PreemptionState()
+_prev_signal_handlers: dict[int, Any] = {}
+
+
+def preemption_requested() -> bool:
+    """Has a preemption signal (or :func:`request_preemption`) arrived?"""
+    return _preemption.requested
+
+
+def request_preemption(signum: int | None = None) -> None:
+    """Set the preemption flag, as the signal handler does."""
+    _preemption.requested = True
+    _preemption.signum = signum
+
+
+def clear_preemption() -> None:
+    """Reset the flag."""
+    _preemption.requested = False
+    _preemption.signum = None
+
+
+def _on_preemption_signal(signum: int, frame: Any) -> None:
+    _preemption.requested = True
+    _preemption.signum = signum
+
+
+def install_preemption_handlers(
+    signals: Sequence[int] = (signal.SIGTERM,),
+) -> None:
+    """Install the flag-setting handler for ``signals`` (default SIGTERM;
+    idempotent; the previous handlers are kept for
+    :func:`uninstall_preemption_handlers`). Only the main thread can
+    install one; elsewhere the install is skipped with a warning, and
+    :func:`request_preemption` still sets the flag."""
+    for sig in signals:
+        if sig in _prev_signal_handlers:
+            continue
+        try:
+            _prev_signal_handlers[sig] = signal.signal(sig, _on_preemption_signal)
+        except (ValueError, OSError) as exc:  # not the main thread
+            warnings.warn(
+                f"cannot install preemption handler for signal {sig}: "
+                f"{exc}; preemption polling still works via "
+                f"request_preemption()",
+                stacklevel=2,
+            )
+
+
+def preemption_handlers_installed() -> bool:
+    """Is the flag-setting signal handler installed?"""
+    return bool(_prev_signal_handlers)
+
+
+def uninstall_preemption_handlers() -> None:
+    """Restore the handlers that were there before the install, and clear
+    the flag."""
+    for sig, prev in list(_prev_signal_handlers.items()):
+        try:
+            signal.signal(sig, prev)
+        except (ValueError, OSError):
+            pass
+        del _prev_signal_handlers[sig]
+    clear_preemption()

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: ``flash_fwd``, ``flash_bwd_dq``
 and ``flash_bwd_dkv`` against their plain PyTorch versions (dropout keep
 masks bit for bit), autograd through the kernels, the engine's flash
-streams against ``generate()``, and, on a machine with two or more cards,
+streams against ``generate()``, a bf16-compute training update through
+the kernels against the plain versions, an async checkpoint save that the
+next in-place updates cannot change, and, on a machine with two or more cards,
 one data-parallel step over NCCL against the single-process step.
 
 Marked ``cuda``: each test skips where CUDA is absent. On a machine with a
@@ -252,6 +254,95 @@ def test_autograd_runs_the_three_kernels(device):
     (o2.square().sum() + l2.sum()).backward()
     for got, ref in ((q.grad, q2.grad), (k.grad, k2.grad), (v.grad, v2.grad)):
         assert (got.cpu() - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def _small_bf16_lm(device, seed=3):
+    from fluxmpi_tpu_torch.models import TransformerLM
+
+    return TransformerLM(vocab_size=211, max_len=128, num_layers=2, d_model=128,
+                         num_heads=2, d_ff=256, attention="flash",
+                         dtype=torch.bfloat16, device=device,
+                         generator=torch.Generator().manual_seed(seed))
+
+
+def test_bf16_training_update_through_the_kernels_matches_plain_versions(device):
+    """One bf16-compute update's gradients (f32 masters) through the three
+    kernels against the same update through their plain versions. Both
+    sides round in bf16 and differ only in the attention's roundings: at
+    most about 2**-8 per attention crossed forward and back (2 x 2 layers),
+    per leaf ||diff|| / ||g|| (a bias's gradient sums many tokens' terms
+    that mostly cancel, so one element's error says little of the leaf);
+    key biases (zero in exact arithmetic) against the model's largest
+    gradient norm. ``scripts/bf16_grad_bound.py`` reads this ratio beside
+    kernels made wrong on purpose."""
+    lm = _small_bf16_lm(device)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randint(0, 211, (4, 128), generator=gen).to(device)
+    y = torch.randint(0, 211, (4, 128), generator=gen).to(device)
+    params = list(lm.parameters())
+    before = [f.launches for f in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)]
+    g_kernel = torch.autograd.grad(lm(x, targets=y).mean(), params)
+    after = [f.launches for f in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)]
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
+    saved = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    ref, bwd = fa.flash_attention_reference, fa.flash_attention_bwd_reference
+    try:
+        fa.flash_fwd = lambda q, k, v, qs=None, ks=None, **o: ref(q, k, v, q_seg=qs,
+                                                                  kv_seg=ks, **o)
+        fa.flash_bwd_dq = lambda q, k, v, qs, ks, g, lse, dt, **o: bwd(
+            q, k, v, g, lse, dt, q_seg=qs, kv_seg=ks, **o)[0]
+        fa.flash_bwd_dkv = lambda q, k, v, qs, ks, g, lse, dt, **o: bwd(
+            q, k, v, g, lse, dt, q_seg=qs, kv_seg=ks, **o)[1:]
+        g_plain = torch.autograd.grad(lm(x, targets=y).mean(), params)
+    finally:
+        fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv = saved
+    tol = 2 ** -8 * 2 * 2
+    top = max(b.norm().item() for b in g_plain)
+    for (name, _), a, b in zip(lm.named_parameters(), g_kernel, g_plain):
+        assert a.dtype == torch.float32
+        scale = top if name.endswith("attn.key.bias") else b.norm().item()
+        assert (a - b).norm().item() <= tol * scale, name
+
+
+def test_async_save_while_updates_run_in_place_keeps_the_saved_bytes(device, tmp_path):
+    """An async save's snapshot is taken before the next updates, queued on
+    the same stream, change the parameters and moments in place: the
+    restored bytes equal a copy taken at the saved step."""
+    from fluxmpi_tpu_torch import faults, optim
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step
+    from fluxmpi_tpu_torch.utils import CheckpointManager
+
+    lm = _small_bf16_lm(device, seed=4)
+    gen = torch.Generator().manual_seed(1)
+    batches = [(torch.randint(0, 211, (4, 128), generator=gen).to(device),
+                torch.randint(0, 211, (4, 128), generator=gen).to(device))
+               for _ in range(4)]
+    opt = optim.adamw(1e-3)
+    step = make_train_step(lambda p, ms, b: (lm(b[0], targets=b[1]).mean(), ms), opt,
+                           grad_reduce=None)
+    state = TrainState.create(lm, opt)
+    state, _ = step(state, batches[0])
+
+    def leaves(st):
+        out = dict(st.params)
+        for m in ("mu", "nu"):
+            out.update({f"{m}/{k}": v for k, v in st.opt_state[m].items()})
+        return out
+
+    mgr = CheckpointManager(str(tmp_path / "run"))
+    with faults.scope("ckpt.async_write@step=1:delay=0.5"):
+        mgr.save(1, {"state": state})      # returns before the write
+        copy = {k: v.detach().clone() for k, v in leaves(state).items()}
+        for batch in batches[1:]:          # in place, while the writer waits
+            state, _ = step(state, batch)
+        mgr.wait_until_finished()
+    torch.cuda.synchronize()
+    assert all(not torch.equal(leaves(state)[k], copy[k]) for k in state.params)
+    _, back = mgr.restore({"state": state})
+    assert back["state"].step == 1
+    for k, v in leaves(back["state"]).items():
+        assert v.device == device and torch.equal(v, copy[k]), k
+    mgr.close()
 
 
 NCCL_WORKER = textwrap.dedent('''

@@ -46,7 +46,8 @@ def test_import_loads_no_jax_flax_or_reference_package():
         "comm", "data", "errors", "logging", "optim", "optimizer", "runtime",
         "sync", "ops.flash_attention", "ops.fused_ce", "models.mlp",
         "models.convert", "models.transformer", "parallel.train",
-        "parallel.loop")}
+        "parallel.loop", "faults", "utils.precision", "utils.manifest",
+        "utils.checkpoint")}
     assert ported <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -108,15 +109,20 @@ def test_waiting_options_raise_instead_of_being_ignored():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         fluxmpi_tpu_torch.init(device="cpu", mesh_shape={"dp": 2})
     assert not fluxmpi_tpu_torch.is_initialized()
-    for kw in ("parallel", "metrics", "remat", "policy", "state_sharding"):
+    for kw in ("parallel", "metrics", "state_sharding", "model_stats"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             make_train_step(lambda p, s, b: (None, s), None, **{kw: True})
     with pytest.raises(NotImplementedError, match="not ported yet"):
         make_eval_step(lambda p, s, b: None, mesh=object())
-    for kw in (dict(checkpoint=object()), dict(save_every=5), dict(resume=True),
-               dict(metrics=True), dict(fuse="window")):
+    for kw in (dict(metrics=True), dict(fuse="window")):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             train_loop(lambda s, b: (s, b), None, [], **kw)
+    # Ported in the mixed-precision, fault-tolerant slice: accepted now.
+    from fluxmpi_tpu_torch.utils import get_policy
+
+    make_train_step(lambda p, s, b: (None, s), None, remat=True,
+                    policy=get_policy("bf16"))
+    make_eval_step(lambda p, s, b: None, policy=get_policy("bf16"))
 
 
 @pytest.mark.parametrize("alone", [False, True])

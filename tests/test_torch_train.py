@@ -416,4 +416,6 @@ def test_train_loop_budgets_and_errors(port_world):
     with pytest.raises(NotImplementedError):
         train_loop(step, state, loader, fuse="window")
     with pytest.raises(NotImplementedError):
-        make_train_step(_mse(model), opt, remat=True)
+        make_train_step(_mse(model), opt, metrics=True)
+    with pytest.raises(ValueError, match="remat must be"):
+        make_train_step(_mse(model), opt, remat="everything")
