@@ -67,7 +67,22 @@
    save, the bytes and a restore; 3 traced updates; and 3 updates each
    with ``remat=True`` and ``remat="dots"`` beside 3 without (every
    parameter and moment and every loss bit-identical, 24 ``flash_fwd``
-   launches per update, the peak memory of each).
+   launches per update, the peak memory of each); ``flush_every=1``
+   divides the epoch, so these run as one-update CUDA-graph windows.
+7. Fused phase (``fused_phase``): the bf16 script with ``train_loop``'s
+   default ``fuse="auto"`` over the device-gather loader,
+   ``steps=32, flush_every=8``: 4 windows of 8 updates, the first eager,
+   the second captured as a CUDA graph, each later one a replay; gates:
+   ``fused_window`` 8, 4 dispatches, at least 3 replays, 12 launches of
+   each kernel per update (counted by the kernels' own device counters,
+   and equal to the wrappers' counts less the captures' plus the
+   replays'), every parameter, adamw moment, the count
+   and every flush's loss bit-identical to the same run with
+   ``fuse=False``; a ``fuse=False`` run killed by ``data.fetch@step=6``
+   with ``save_every=3`` resumes fused (one short realignment window) to
+   the same bits. Prints, for both paths, ms per update and tokens/s (from
+   a second, untraced run of 32 updates), the idle share of a traced
+   window, host launch calls per update, capture seconds and peak memory.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -646,6 +661,68 @@ def traced(run):
     return result, busy_us / 1e3, wall_ms, len(spans), groups
 
 
+# CUDA API calls (runtime and low-level) that launch work on the device.
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch",
+                 "cudaLaunchCooperativeKernel")
+
+
+def host_launches(run):
+    """Run ``run()`` under ``torch.profiler`` with host activity and count
+    the host's launch calls (``_LAUNCH_CALLS``: kernel launches and CUDA
+    graph launches; a graph launch is one call for all its kernels).
+    Returns ``(run's result, launch calls, device kernels)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = run()
+        torch.cuda.synchronize()
+    calls = kernels = 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += 1
+        elif evt.name in _LAUNCH_CALLS:
+            calls += 1
+    return result, calls, kernels
+
+
+def kernel_launches(run):
+    """Run ``run()`` and count the attention kernels' launches the device
+    ran, CUDA-graph replays included, from the kernels' own device counters
+    (``device_launches``; zeroed just before, read just after). Returns
+    ``(run's result, {kernel: count})``."""
+    from fluxmpi_tpu_torch.ops import device_launches
+
+    device_launches(reset=True)
+    result = run()
+    return result, device_launches()
+
+
+def graph_launches(step) -> dict:
+    """Per kernel, what the CUDA graphs of ``step``'s fused windows add to
+    the wrappers' counters to give the launches the device ran: each
+    capture raised the counters and launched nothing, each replay launched
+    the graph's kernels without the wrappers."""
+    out = {name: 0 for name in MMA_KERNELS}
+    for prog in getattr(step, "__fluxmpi_window_cache__", {}).values():
+        for name in out:
+            out[name] += (prog.replayed_launches.get(name, 0)
+                          - prog.capture_counted.get(name, 0))
+    return out
+
+
+def graph_stats(step) -> list:
+    """Each window program of ``step``: width, whether a graph was
+    captured, the launches captured per kernel, replays and capture
+    seconds."""
+    return [dict(width=p.width, captured=p.graph is not None,
+                 captured_launches=p.captured_launches, replays=p.replays,
+                 replayed_launches=dict(p.replayed_launches),
+                 capture_seconds=p.capture_seconds)
+            for p in getattr(step, "__fluxmpi_window_cache__", {}).values()]
+
+
 def profile_phase(engine, specs, steps_before: int, untraced_ms: float):
     """Serve the same requests again under ``torch.profiler`` (device
     activity only). Busy time and wall time come from this one traced run;
@@ -1209,11 +1286,19 @@ def bf16_phase(device, f32_stats, updates: int = 20, save_every: int = 5,
         torch.cuda.reset_peak_memory_stats(dev)
         for kern in kernels:
             kern.launches = 0
-        _, summ = train_loop(step, state, loader, steps=remat_updates, flush_every=1)
-        torch.cuda.synchronize()
+        # flush_every=1 divides the epoch: fuse="auto" runs one-update
+        # windows, the first eagerly, the later ones as replays of a CUDA
+        # graph captured under the checkpoint.
+        (_, summ), seen = kernel_launches(
+            lambda: train_loop(step, state, loader, steps=remat_updates, flush_every=1))
+        extra = graph_launches(step)
         runs[remat] = dict(losses=[f["loss"] for f in summ["flushes"]],
                            peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-                           launches={k.__name__: k.launches for k in kernels})
+                           launches=seen,
+                           accounted_launches={k.__name__: k.launches + extra[k.__name__]
+                                               for k in kernels},
+                           fused_window=summ["fused_window"],
+                           graphs=graph_stats(step))
         got = leaves(state)
         if remat is False:
             base = {k: v.detach().clone() for k, v in got.items()}
@@ -1235,10 +1320,12 @@ def bf16_phase(device, f32_stats, updates: int = 20, save_every: int = 5,
         print(f"{name}: {remat_updates} updates with remat={remat!r} vs without: "
               f"{bits[remat]}/{n_leaves} parameters and moments bit-identical, losses "
               f"{rem['losses']} vs {plain['losses']} ({verdict}); flash_fwd launches "
-              f"{rem['launches']['flash_fwd']} (need {fwd_need}: "
-              f"{fwd_need // remat_updates} per update) vs "
+              f"{rem['launches']['flash_fwd']} counted by the device (need {fwd_need}: "
+              f"{fwd_need // remat_updates} per update; the wrappers' counts with "
+              f"the graphs' {rem['accounted_launches']['flash_fwd']}) vs "
               f"{plain['launches']['flash_fwd']}; peak memory "
-              f"{rem['peak_memory_gb']:.2f} GB vs {plain['peak_memory_gb']:.2f} GB",
+              f"{rem['peak_memory_gb']:.2f} GB vs {plain['peak_memory_gb']:.2f} GB; "
+              f"fused window {rem['fused_window']}, graphs {rem['graphs']}",
               flush=True)
         if not same:
             failures.append(f"{name}: the parameters, moments or losses differ from "
@@ -1246,6 +1333,227 @@ def bf16_phase(device, f32_stats, updates: int = 20, save_every: int = 5,
         if rem["launches"]["flash_fwd"] != fwd_need:
             failures.append(f"{name}: flash_fwd launched {rem['launches']['flash_fwd']} "
                             f"times, not {fwd_need}")
+    for remat, run in runs.items():
+        if run["launches"] != run["accounted_launches"]:
+            failures.append(f"remat={remat!r}: the device's launches {run['launches']} "
+                            f"differ from the wrappers' counts with the graphs' "
+                            f"{run['accounted_launches']}")
+    fm.shutdown()
+    return stats, failures
+
+
+def fused_phase(device, bf16_stats, updates: int = 32, flush_every: int = 8,
+                crash_hit: int = 6, save_every: int = 3):
+    """One-program flush windows at GPT-2-small widths in bf16 compute with
+    f32 masters: the same script as the bf16 phase with ``train_loop``'s
+    default ``fuse="auto"`` over the device-gather loader and a
+    ``flush_every`` that divides the 32-batch epoch, so each window of 8
+    updates is one CUDA-graph replay (the first window runs eagerly and
+    warms up, the second is captured). Held bit for bit against the same
+    run with ``fuse=False``; a pipelined run killed by a fetch fault
+    resumes fused (one short realignment window) to the same bits. Both
+    paths are timed, traced and their host launches counted."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import faults, optim
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+    from fluxmpi_tpu_torch.utils import CheckpointManager
+
+    failures = []
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    dev = fm.init()
+    corpus = lm_corpus(GPT2_SMALL["vocab_size"], seq=GPT2_SMALL["max_len"])
+    tokens_per_update = 8 * (corpus.shape[1] - 1)
+
+    def build():
+        model = TransformerLM(**GPT2_SMALL, attention="flash", dropout=0.0,
+                              dtype=torch.bfloat16, device=dev,
+                              generator=torch.Generator().manual_seed(0))
+        fm.synchronize(model)
+        loader = fm.DistributedDataLoader(
+            fm.DistributedDataContainer(fm.ArrayDataset((corpus[:, :-1], corpus[:, 1:]))),
+            global_batch_size=8, shuffle=True)
+
+        def loss_fn(params, model_state, batch):
+            x, y = batch
+            return model(x, targets=y).mean(), model_state
+
+        opt = optim.adamw(3e-4)
+        return model, loader, make_train_step(loss_fn, opt), TrainState.create(model, opt)
+
+    def leaves(state):
+        out = {f"params/{k}": v for k, v in state.params.items()}
+        for m in ("mu", "nu"):
+            out.update({f"{m}/{k}": v for k, v in state.opt_state[m].items()})
+        out["count"] = state.opt_state["count"]
+        return out
+
+    def flushes(summary):
+        return [(f["updates"], f["loss"], f["loss_mean"], f["loss_max"])
+                for f in summary["flushes"]]
+
+    def drive(fuse):
+        """The main path (counts set to 0 just before, read just after; the
+        attention kernels' launches also read from their device counters),
+        a second, untraced run of as many updates for the times,
+        a traced window of ``flush_every`` more updates, and the host's
+        launch calls over one more window."""
+        model, loader, step, state = build()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for kern in kernels:
+            kern.launches = 0
+        (state, summ), launches = kernel_launches(
+            lambda: train_loop(step, state, loader, steps=updates,
+                               flush_every=flush_every, fuse=fuse))
+        counted = {k.__name__: k.launches for k in kernels}
+        extra = graph_launches(step)
+        accounted = {n: counted[n] + extra[n] for n in counted}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        bits = {k: v.detach().clone() for k, v in leaves(state).items()}
+        t0 = time.perf_counter()
+        state, timed = train_loop(step, state, loader, steps=updates,
+                                  flush_every=flush_every, fuse=fuse)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # step_ms holds one time per window on the fused path (every window
+        # of this run replays the graph) and one per update without it.
+        per_update = ([ms / flush_every for ms in timed["step_ms"]] if fuse
+                      else timed["step_ms"])
+        run = dict(fuse=fuse, updates=summ["updates"], dispatches=summ["dispatches"],
+                   fused_window=summ["fused_window"], wall_seconds=wall,
+                   tokens_per_sec=timed["updates"] * tokens_per_update / wall,
+                   median_update_ms=float(np.median(per_update)),
+                   step_ms=timed["step_ms"], flushes=summ["flushes"],
+                   peak_memory_gb=peak_gb, launches=launches,
+                   counted_launches=counted, accounted_launches=accounted,
+                   graphs=graph_stats(step))
+        run["steady_tokens_per_sec"] = tokens_per_update / run["median_update_ms"] * 1e3
+        (_, tsum), busy_ms, wall_ms, nk, groups = traced(
+            lambda: train_loop(step, state, loader, steps=flush_every,
+                               flush_every=flush_every, fuse=fuse))
+        run["profile"] = dict(updates=tsum["updates"], wall_ms=wall_ms,
+                              device_busy_ms=busy_ms, kernels=nk,
+                              idle_share=(1 - busy_ms / wall_ms) if nk else None,
+                              device_ms_by_group=groups)
+        (_, hsum), calls, nk2 = host_launches(
+            lambda: train_loop(step, state, loader, steps=flush_every,
+                               flush_every=flush_every, fuse=fuse))
+        run["host_launches_per_update"] = calls / hsum["updates"]
+        run["device_kernels_per_update"] = nk2 / hsum["updates"]
+        if fuse:
+            run["capture_seconds"] = sum(g["capture_seconds"] for g in graph_stats(step))
+        del model, loader, step, state
+        torch.cuda.empty_cache()
+        return run, summ, bits
+
+    pipe, pipe_sum, want = drive(False)
+    fused, fused_sum, got = drive("auto")
+    same = [k for k in want if torch.equal(got[k], want[k])]
+    flush_same = flushes(fused_sum) == flushes(pipe_sum)
+    need = GPT2_SMALL["num_layers"] * updates
+    replays = sum(g["replays"] for g in fused["graphs"])
+    stats = dict(pipelined=pipe, fused=fused, leaves=len(want), bit_identical=len(same),
+                 flushes_bit_identical=flush_same, launches_needed=need,
+                 replays=replays)
+    for run in (pipe, fused):
+        prof = run["profile"]
+        print(f"fused_phase [{'fused' if run['fuse'] else 'pipelined'}]: "
+              f"{run['updates']} updates in {run['dispatches']} dispatches "
+              f"(fused_window {run['fused_window']}), {run['wall_seconds']:.3f}s = "
+              f"{run['tokens_per_sec']:.1f} tokens/s (a second, untraced run of "
+              f"{updates}); median {run['median_update_ms']:.2f} ms per update = "
+              f"{run['steady_tokens_per_sec']:.1f} tokens/s; traced window of "
+              f"{prof['updates']}: device busy {prof['device_busy_ms']:.3f} ms of "
+              f"{prof['wall_ms']:.3f} ms wall (idle share "
+              f"{prof['idle_share'] if prof['idle_share'] is None else round(prof['idle_share'], 3)}); "
+              f"host launch calls per update {run['host_launches_per_update']:.2f} "
+              f"(device kernels per update {run['device_kernels_per_update']:.1f}); "
+              f"peak memory {run['peak_memory_gb']:.2f} GB; launches the device "
+              f"counted {run['launches']} (need {need} each; the wrappers' counts "
+              f"{run['counted_launches']}, with the graphs' captures taken off and "
+              f"replays added {run['accounted_launches']})"
+              + (f"; capture and instantiate {run['capture_seconds']:.3f}s; graphs "
+                 f"{run['graphs']}" if run["fuse"] else ""), flush=True)
+        if run["launches"] != {k.__name__: need for k in kernels}:
+            failures.append(f"fused_phase: launches {run['launches']}, not {need} each")
+        if run["accounted_launches"] != run["launches"]:
+            failures.append(f"fused_phase: the wrappers' counts with the graphs' "
+                            f"{run['accounted_launches']} differ from the device's "
+                            f"{run['launches']}")
+        if not run["profile"]["kernels"]:
+            failures.append("fused_phase: the trace holds no device time")
+    print(f"fused_phase: fused vs pipelined: {len(same)} of {len(want)} parameters, "
+          f"adamw moments and the count bit-identical; flush losses "
+          f"{'identical' if flush_same else 'DIFFER'} "
+          f"({[f[1] for f in flushes(fused_sum)]}); {replays} graph replays",
+          flush=True)
+    if (fused["fused_window"], fused["dispatches"]) != (flush_every, updates // flush_every):
+        failures.append(f"fused_phase: fused_window {fused['fused_window']}, dispatches "
+                        f"{fused['dispatches']}, not {flush_every} and "
+                        f"{updates // flush_every}")
+    if replays < updates // flush_every - 1:
+        failures.append(f"fused_phase: {replays} graph replays, fewer than "
+                        f"{updates // flush_every - 1}")
+    if len(same) != len(want) or not flush_same:
+        failures.append("fused_phase: the fused run differs from the pipelined run")
+
+    # A pipelined run killed by a fetch fault, resumed fused.
+    with tempfile.TemporaryDirectory() as tmp:
+        ckdir = os.path.join(tmp, "run")
+        model, loader, step, state = build()
+        mgr = CheckpointManager(ckdir, async_save=False)
+        crashed = False
+        try:
+            with faults.scope(f"data.fetch@step={crash_hit}"):
+                train_loop(step, state, loader, steps=updates, flush_every=flush_every,
+                           fuse=False, checkpoint=mgr, save_every=save_every)
+        except fm.FaultInjectedError:
+            crashed = True
+        banked = mgr.latest_step()
+        mgr.close()
+        del model, loader, step, state
+        torch.cuda.empty_cache()
+        model, loader, step, state = build()
+        mgr = CheckpointManager(ckdir, async_save=False)
+        state, res = train_loop(step, state, loader, steps=updates,
+                                flush_every=flush_every, checkpoint=mgr, resume=True)
+        torch.cuda.synchronize()
+        mgr.close()
+        back = leaves(state)
+        same_res = [k for k in want if torch.equal(back[k], want[k])]
+        widths = [g["width"] for g in graph_stats(step)]
+        stats["resume"] = dict(crashed=crashed, banked=banked,
+                               resumed_from=res["resumed_from"], updates=res["updates"],
+                               dispatches=res["dispatches"],
+                               fused_window=res["fused_window"], widths=widths,
+                               bit_identical=len(same_res), graphs=graph_stats(step))
+        print(f"fused_phase resume: the pipelined run stopped by data.fetch@step="
+              f"{crash_hit} ({'raised' if crashed else 'DID NOT RAISE'}) with step "
+              f"{banked} committed; resumed fused from {res['resumed_from']}: "
+              f"{res['updates']} updates in {res['dispatches']} windows (widths "
+              f"{widths}; fused_window {res['fused_window']}); {len(same_res)} of "
+              f"{len(want)} leaves bit-identical to the uninterrupted run", flush=True)
+        short = flush_every - banked % flush_every if banked else 0
+        if not crashed or res["resumed_from"] != banked or not banked:
+            failures.append("fused_phase resume: the kill or the resume did not happen")
+        if (res["fused_window"] != flush_every or res["updates"] != updates
+                or res["dispatches"] != 1 + (updates - banked - short) // flush_every
+                or short not in widths):
+            failures.append(f"fused_phase resume: windows {widths}, dispatches "
+                            f"{res['dispatches']}: not one short realignment window")
+        if len(same_res) != len(want):
+            failures.append("fused_phase resume: the resumed run differs from the "
+                            "uninterrupted run")
+        del model, loader, step, state
+    torch.cuda.empty_cache()
     fm.shutdown()
     return stats, failures
 
@@ -1317,6 +1625,9 @@ def run_phases(device):
     torch.cuda.empty_cache()
     bf16, bf16_failures = bf16_phase(device, train)
     failures += bf16_failures
+    torch.cuda.empty_cache()
+    fused, fused_failures = fused_phase(device, bf16)
+    failures += fused_failures
 
     fwd_row = next(r for r in rows if r["case"] == "decode_1024" and r["dtype"] == "float32")
     fwd_train = next(r for r in rows if r["case"] == "train_1024" and r["dtype"] == "float32")
@@ -1329,14 +1640,16 @@ def run_phases(device):
         "launches": (stats["launches"] + train["launches"]["flash_fwd"]
                      + bf16["launches"]["flash_fwd"]
                      + bf16["remat"]["remat"]["launches"]["flash_fwd"]
-                     + bf16["remat"]["dots"]["launches"]["flash_fwd"]),
+                     + bf16["remat"]["dots"]["launches"]["flash_fwd"]
+                     + fused["fused"]["launches"]["flash_fwd"]),
         "launches_by_path": {"serve": stats["launches"],
                              "train": train["launches"]["flash_fwd"],
                              "train_bf16": bf16["launches"]["flash_fwd"],
                              "train_bf16_remat":
                                  bf16["remat"]["remat"]["launches"]["flash_fwd"],
                              "train_bf16_remat_dots":
-                                 bf16["remat"]["dots"]["launches"]["flash_fwd"]},
+                                 bf16["remat"]["dots"]["launches"]["flash_fwd"],
+                             "train_bf16_fused": fused["fused"]["launches"]["flash_fwd"]},
         "max_abs_err": max(max(r["err_out"], r["err_lse"]) for r in rows),
         "ms": fwd_row["ms"], "plain_ms": fwd_row["plain_ms"],
         "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
@@ -1358,13 +1671,15 @@ def run_phases(device):
                          else "fluxmpi_tpu/ops/flash_attention.py:399"),
             "launches": (train["launches"][kname] + bf16["launches"][kname]
                          + bf16["remat"]["remat"]["launches"][kname]
-                         + bf16["remat"]["dots"]["launches"][kname]),
+                         + bf16["remat"]["dots"]["launches"][kname]
+                         + fused["fused"]["launches"][kname]),
             "launches_by_path": {"train": train["launches"][kname],
                                  "train_bf16": bf16["launches"][kname],
                                  "train_bf16_remat":
                                      bf16["remat"]["remat"]["launches"][kname],
                                  "train_bf16_remat_dots":
-                                     bf16["remat"]["dots"]["launches"][kname]},
+                                     bf16["remat"]["dots"]["launches"][kname],
+                                 "train_bf16_fused": fused["fused"]["launches"][kname]},
             "max_abs_err": max(r["err"][e] for r in bwd_rows for e in errs),
             "ms": bwd_main[f"{key}_ms"],
             # The plain version computes dQ, dK and dV in one pass; the
@@ -1384,7 +1699,8 @@ def run_phases(device):
                                          f"{key}_ms", f"{key}_bound_ms")}
                       for r in bwd_rows],
         })
-    return kernels, {"slice": stats, "train": train, "train_bf16": bf16}, failures
+    return kernels, {"slice": stats, "train": train, "train_bf16": bf16,
+                     "train_bf16_fused": fused}, failures
 
 
 if __name__ == "__main__":

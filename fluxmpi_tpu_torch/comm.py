@@ -22,7 +22,7 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
-from .errors import CollectiveError
+from .errors import CollectiveError, refuse_unported
 from .runtime import _require_init, _state
 
 __all__ = ["allreduce", "barrier", "bcast", "reduce"]
@@ -93,9 +93,11 @@ def fused(tree: Any, fn: Callable[[torch.Tensor], None]) -> Any:
     return pytree.tree_unflatten(out, spec)
 
 
-def allreduce(x: Any, op: str = "sum") -> Any:
+def allreduce(x: Any, op: str = "sum", *, donate: bool = False) -> Any:
     """Every worker gets the reduction (``sum``, ``prod``, ``min``,
-    ``max`` or ``mean``) of all workers' values."""
+    ``max`` or ``mean``) of all workers' values. ``donate=True`` is not
+    ported yet."""
+    refuse_unported("allreduce", {"donate": donate})
     _require_init()
     op = _canonical_op(op)
     world = _state.world
@@ -111,16 +113,21 @@ def allreduce(x: Any, op: str = "sum") -> Any:
     return fused(x, run)
 
 
-def bcast(x: Any, root: int = 0) -> Any:
-    """Every worker gets the ``root`` worker's value."""
+def bcast(x: Any, root: int = 0, *, donate: bool = False) -> Any:
+    """Every worker gets the ``root`` worker's value. ``donate=True`` is
+    not ported yet."""
+    refuse_unported("bcast", {"donate": donate})
     _require_init()
     root = _check_root(root)
     return fused(x, lambda flat: dist.broadcast(flat, src=root))
 
 
-def reduce(x: Any, op: str = "sum", root: int = 0) -> Any:
+def reduce(x: Any, op: str = "sum", root: int = 0, *,
+           donate: bool = False) -> Any:
     """The ``root`` worker gets the reduction of all workers' values;
-    every other worker gets its own input back."""
+    every other worker gets its own input back. ``donate=True`` is not
+    ported yet."""
+    refuse_unported("reduce", {"donate": donate})
     _require_init()
     op = _canonical_op(op)
     root = _check_root(root)
@@ -140,9 +147,10 @@ def reduce(x: Any, op: str = "sum", root: int = 0) -> Any:
     return out
 
 
-def barrier() -> None:
+def barrier(tag: str = "fluxmpi_barrier") -> None:
     """Block until every worker reaches this point (device work queued
-    before it included)."""
+    before it included). ``tag`` is not ported yet."""
+    refuse_unported("barrier", {"tag": tag != "fluxmpi_barrier"})
     _require_init()
     if _state.device.type == "cuda":
         torch.cuda.synchronize(_state.device)

@@ -6,21 +6,32 @@ contiguous ceil-partition shard (the remainder on the last rank), and the
 loader hands out per-worker batches of ``global_batch_size / world`` in
 the same order the JAX package's loader does, sample for sample: the same
 ``np.random.default_rng(seed + epoch)`` shuffles and the same
-full-dataset permutation slice under ``global_shuffle``. Batches are
-assembled on the host with numpy, staged in pinned memory and copied to
-the device with ``non_blocking`` copies, ``prefetch`` batches ahead.
+full-dataset permutation slice under ``global_shuffle``.
 
-Each batch crosses the fault site ``data.fetch`` once the host has
-assembled it (:mod:`fluxmpi_tpu_torch.faults`).
+Two paths assemble a batch. The device-gather path (``device_gather=
+"auto"``, the default, or ``True``) stages an array-backed dataset in
+device memory once (cached across epochs), copies each epoch's
+permutation once, and takes each batch as an index slice of the
+permutation and a gather per leaf on the device (:func:`_gather_batch`,
+the one copy of that math, which the fused training window runs too):
+no per-batch host work. Otherwise batches are assembled on the host with
+numpy, staged in pinned memory and copied to the device with
+``non_blocking`` copies, ``prefetch`` batches ahead. Both yield the same
+batches.
 
-Not ported yet (each raises ``NotImplementedError`` when asked for): the
-device-gather path, ``elastic_order``, ``transform=``, the elastic cursor
-remap on a changed world, and the C++ prefetcher.
+Each batch crosses the fault site ``data.fetch`` once it is assembled
+(:mod:`fluxmpi_tpu_torch.faults`).
+
+Not ported yet (each raises ``NotImplementedError`` when asked for):
+``elastic_order``, ``transform=``, the elastic cursor remap on a changed
+world, and the C++ prefetcher.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import warnings
 from collections import deque
 from typing import Any, Iterator, Sequence
 
@@ -36,6 +47,41 @@ __all__ = [
     "DistributedDataLoader",
     "scan_batches",
 ]
+
+
+# device_gather="auto" staging budget: the staged dataset costs its bytes
+# of device memory, so "auto" engages only below this.
+_DEVICE_GATHER_DEFAULT_MAX_BYTES = 256 * 1024 * 1024
+
+
+def _device_gather_budget() -> int:
+    """The ``FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES`` budget; a malformed
+    value falls back to the 256 MiB default with a warning."""
+    raw = os.environ.get("FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES")
+    if not raw:
+        return _DEVICE_GATHER_DEFAULT_MAX_BYTES
+    try:
+        return int(raw)
+    except ValueError:
+        warnings.warn(
+            f"FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES={raw!r} is not an "
+            f"integer byte count; falling back to the 256 MiB default",
+            stacklevel=2,
+        )
+        return _DEVICE_GATHER_DEFAULT_MAX_BYTES
+
+
+def _gather_batch(data: Any, perm: torch.Tensor, start: torch.Tensor,
+                  lbs: int) -> Any:
+    """One batch from the staged dataset: positions ``start .. start + lbs
+    - 1`` of the epoch permutation ``perm`` (int32, dataset rows), then a
+    take along the first axis of every leaf of ``data``. ``start`` is a
+    0-d int tensor on the device, so a CUDA graph that captured this
+    gathers wherever the host has set it. The one copy of the gather
+    math: the loader's device-gather iteration and the fused training
+    window both run it, so both consume the same batches."""
+    idx = perm[start + torch.arange(lbs, device=perm.device)]
+    return pytree.tree_map(lambda a: a.index_select(0, idx), data)
 
 
 def _world() -> tuple[int, int]:
@@ -140,6 +186,15 @@ class DistributedDataLoader:
     trailing incomplete batch. ``prefetch`` batches are kept ahead of the
     consumer with their host→device copies in flight. ``device``: default
     the runtime's worker device, else CUDA; ``"cpu"`` only when asked.
+
+    ``device_gather``: ``"auto"`` (default) gathers batches on the device
+    when the dataset is array-backed (an :class:`ArrayDataset`, optionally
+    inside a :class:`DistributedDataContainer`), the world has one worker
+    and the staged bytes fit ``FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES``
+    (default 256 MiB); ``True`` forces it (raises for a dataset that is
+    not array-backed; falls back to the host path in a world of several
+    workers); ``False`` keeps the host path. A ragged trailing batch
+    (``drop_last=False``) is always assembled on the host.
     """
 
     def __init__(self, data: Any, global_batch_size: int, *,
@@ -147,16 +202,15 @@ class DistributedDataLoader:
                  seed: int = 0, drop_last: bool = True, prefetch: int = 2,
                  device=None, device_gather: bool | str = "auto",
                  elastic_order: bool = False, transform: Any = None,
+                 transform_with_rng: bool | None = None,
                  mesh: Any = None, axis_name: Any = None):
-        if device_gather is True:
-            raise NotImplementedError(
-                "device_gather=True is not ported yet: batches are assembled "
-                "on the host and copied through pinned memory")
-        if device_gather not in (False, "auto"):
+        if device_gather not in (True, False, "auto"):
             raise ValueError(f"device_gather must be True, False, or 'auto', "
                              f"got {device_gather!r}")
         for name, val in (("elastic_order", elastic_order),
-                          ("transform", transform), ("mesh", mesh),
+                          ("transform", transform),
+                          ("transform_with_rng", transform_with_rng),
+                          ("mesh", mesh),
                           ("axis_name", axis_name)):
             if val:
                 raise NotImplementedError(f"{name}= is not ported yet")
@@ -183,6 +237,15 @@ class DistributedDataLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
+        if device_gather is True and self._array_backing() is None:
+            raise ValueError(
+                "device_gather=True requires an array-backed dataset "
+                "(ArrayDataset, optionally inside a "
+                "DistributedDataContainer)")
+        self.device_gather = device_gather
+        # (arrays object, staged tensors): the stage-once half of the
+        # device-gather path, keyed by identity.
+        self._gather_cache: tuple[Any, Any] | None = None
         if device is None and runtime.is_initialized():
             self.device = runtime.worker_device()
         else:
@@ -284,7 +347,59 @@ class DistributedDataLoader:
             offset = source.idxs.start
         return order, source, offset
 
-    def _host_batches(self) -> Iterator[Any]:
+    def _array_backing(self) -> tuple[Any, int] | None:
+        """``(arrays, offset)`` when this epoch's source is array-backed:
+        the array tree the epoch order indexes (shifted by ``offset``)."""
+        data = self.data
+        if self.global_shuffle:
+            # The order holds indices into the full dataset.
+            return (data.data.arrays, 0) if isinstance(data.data, ArrayDataset) else None
+        if isinstance(data, ArrayDataset):
+            return data.arrays, 0
+        if isinstance(data, DistributedDataContainer) and isinstance(
+                data.data, ArrayDataset):
+            return data.data.arrays, data.idxs.start
+        return None
+
+    def _use_device_gather(self, backing: tuple[Any, int] | None) -> bool:
+        """Whether this epoch gathers on the device (policy in the class
+        docstring)."""
+        if self.device_gather is False or backing is None:
+            return False
+        if self.world > 1:
+            # Each worker's batch is its own shard's: the device-gather
+            # path (and the fused window on it) is single-process, as in
+            # the JAX package.
+            return False
+        if self.device_gather == "auto":
+            nbytes = sum(np.asarray(leaf).nbytes
+                         for leaf in pytree.tree_leaves(backing[0]))
+            if nbytes > _device_gather_budget():
+                return False
+        return True
+
+    def _staged(self, arrays: Any) -> Any:
+        """``arrays`` in device memory, staged once and cached across
+        epochs (restaged for another dataset)."""
+        cached = self._gather_cache
+        if cached is not None and cached[0] is arrays:
+            return cached[1]
+        staged = pytree.tree_map(
+            lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device),
+            arrays)
+        self._gather_cache = (arrays, staged)
+        return staged
+
+    def _device_perm(self, order: np.ndarray, offset: int, n: int) -> torch.Tensor:
+        """The epoch order's first ``n`` entries as dataset rows (int32),
+        on the device in one copy."""
+        rows = np.asarray(order[:n], dtype=np.int32) + np.int32(offset)
+        return torch.from_numpy(rows).to(self.device)
+
+    def _begin_pass(self) -> tuple[np.ndarray, Any, int | None, int]:
+        """Resolve this epoch's order and advance the bookkeeping a pass
+        shares with :meth:`device_epoch`; returns ``(order, source,
+        offset, start)``."""
         order, source, offset = self._epoch_plan()
         epoch_now = self._epoch
         self._epoch += 1
@@ -292,7 +407,25 @@ class DistributedDataLoader:
         self._resume_cursor = 0
         self._iter_epoch = epoch_now
         self._cursor = start
+        return order, source, offset, start
+
+    def _batches(self) -> Iterator[Any]:
+        """This pass's batches: device-gathered (on the device already)
+        or host-assembled (numpy, moved by :meth:`_to_device`), tagged by
+        ``on_device``."""
+        order, source, offset, start = self._begin_pass()
         lbs = self.local_batch_size
+        backing = self._array_backing()
+        if backing is not None and self._use_device_gather(backing):
+            arrays, offset = backing
+            full = self._common_len // lbs
+            if full > start:
+                staged = self._staged(arrays)
+                perm = self._device_perm(order, offset, full * lbs)
+                for b in range(start, full):
+                    at = torch.full((), b * lbs, dtype=torch.int64, device=self.device)
+                    yield True, _gather_batch(staged, perm, at, lbs)
+            start = max(start, full)
         arrays = None
         if offset is not None:
             arrays = (source.arrays if isinstance(source, ArrayDataset)
@@ -301,9 +434,55 @@ class DistributedDataLoader:
             idxs = order[b * lbs:min((b + 1) * lbs, self._common_len)]
             if arrays is not None:
                 rows = idxs + offset
-                yield pytree.tree_map(lambda a: a[rows], arrays)
+                yield False, pytree.tree_map(lambda a: a[rows], arrays)
             else:
-                yield _stack_samples([source[int(i)] for i in idxs])
+                yield False, _stack_samples([source[int(i)] for i in idxs])
+
+    # -- fused-window pass (train_loop fuse="window") -------------------
+    #
+    # The fused-window loop runs a whole flush window (its gathers and
+    # its updates) as one program, so instead of iterating it asks the
+    # loader for the epoch's device-resident pieces and reports what it
+    # consumed. Same epoch order, same staged arrays, same
+    # state_dict/resume contract as iterating.
+
+    def fusible(self) -> bool:
+        """Can the fused-window loop run over this loader? The device-gather
+        path must be active (array-backed, one worker, within the staging
+        budget) and the epoch must be whole full batches (a ragged tail
+        would need the host path mid-window)."""
+        backing = self._array_backing()
+        if backing is None or not self._use_device_gather(backing):
+            return False
+        return len(self) * self.local_batch_size <= self._common_len
+
+    def device_epoch(self) -> tuple[Any, torch.Tensor, int]:
+        """Begin one fused-window pass: resolve this epoch's order (the
+        permutation iterating would use), stage the dataset (cached across
+        epochs) and copy the permutation to the device once. Returns
+        ``(staged, perm, start)``: the staged tree, the int32 permutation
+        of dataset rows, and the batch to start from (a pending mid-epoch
+        resume cursor, else 0). Advances the same epoch/cursor bookkeeping
+        as ``iter()``; the caller reports consumption with
+        :meth:`note_consumed`."""
+        if not self.fusible():
+            raise ValueError(
+                "device_epoch() needs the device-gather path: an "
+                "array-backed single-process dataset within "
+                "FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES, and a whole number "
+                "of full batches per epoch")
+        order, _, _, start = self._begin_pass()
+        arrays, offset = self._array_backing()
+        staged = self._staged(arrays)
+        perm = self._device_perm(order, offset, len(self) * self.local_batch_size)
+        return staged, perm, start
+
+    def note_consumed(self, n: int) -> None:
+        """Advance the consumption cursor by ``n`` batches: the fused
+        loop's counterpart of the per-yield increment of ``iter()``, so a
+        :meth:`state_dict` taken at a window boundary names exactly the
+        batches dispatched."""
+        self._cursor += int(n)
 
     def _to_device(self, batch: Any) -> Any:
         cuda = self.device.type == "cuda"
@@ -324,11 +503,11 @@ class DistributedDataLoader:
 
     def __iter__(self) -> Iterator[Any]:
         queue: deque = deque()
-        for batch in self._host_batches():
+        for on_device, batch in self._batches():
             if faults.ARMED:
                 # After the fetch, so hit N is batch N of the pass.
                 faults.check("data.fetch")
-            queue.append(self._to_device(batch))
+            queue.append(batch if on_device else self._to_device(batch))
             if len(queue) > self.prefetch:
                 self._cursor += 1
                 yield queue.popleft()

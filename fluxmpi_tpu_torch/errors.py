@@ -31,9 +31,20 @@ class RequestRejectedError(RuntimeError):
     drain, or a shutdown. ``reject_reason`` carries the engine's reason
     string."""
 
-    def __init__(self, reason: str | None):
-        self.reject_reason = reason
-        super().__init__(f"request rejected: {reason}")
+    def __init__(self, reject_reason: str | None) -> None:
+        self.reject_reason = reject_reason
+        super().__init__(f"request rejected ({reject_reason})")
+
+
+def refuse_unported(fn: str, passed: dict, why: str = "") -> None:
+    """Raise ``NotImplementedError`` naming the arguments in ``passed``
+    (name -> whether the caller set it) that ``fn`` takes in the JAX
+    package but the port does not implement yet."""
+    names = sorted(name for name, given in passed.items() if given)
+    if names:
+        raise NotImplementedError(
+            f"{fn}({', '.join(names)}=...) is not ported yet"
+            + (f": {why}" if why else ""))
 
 
 class FaultInjectedError(RuntimeError):

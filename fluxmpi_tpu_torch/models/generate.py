@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..errors import refuse_unported
+
 __all__ = ["generate", "prefill_kv", "prefill_cache"]
 
 
@@ -65,13 +67,29 @@ def prefill_cache(model, prompt, total: int):
 
 @torch.no_grad()
 def generate(model, prompt, max_new_tokens: int, *,
-             eos_token: int | None = None):
+             temperature: float = 0.0, top_k: int | None = None,
+             top_p: float | None = None, eos_token: int | None = None,
+             rng=None, prefill: str = "auto"):
     """Greedy continuation of ``prompt`` (int ``[b, plen]``, ``plen >= 1``).
 
     Positions ``0..plen-2`` fill the cache in one causal forward; the last
     prompt token starts the decode ticks. ``eos_token``: once a row emits
     it, every later position of that row is ``eos_token``. Returns int64
-    ``[b, plen + max_new_tokens]`` on the model's device."""
+    ``[b, plen + max_new_tokens]`` on the model's device.
+
+    Sampling (``temperature > 0``, ``top_k``, ``top_p``) is not ported
+    yet and raises ``NotImplementedError``; ``rng`` feeds only sampling.
+    ``prefill``: ``"auto"`` and ``"batched"`` run the batched prefill
+    above (the dense LM is token-exact with one-token decoding, so it is
+    what the JAX package's ``"auto"`` picks for it); ``"scan"`` is not
+    ported."""
+    refuse_unported("generate", {"temperature": temperature != 0.0,
+                                 "top_k": top_k is not None,
+                                 "top_p": top_p is not None,
+                                 "prefill": prefill == "scan"})
+    if prefill not in ("auto", "batched", "scan"):
+        raise ValueError(f"prefill must be 'auto', 'batched' or 'scan', "
+                         f"got {prefill!r}")
     prompt = torch.as_tensor(prompt, device=model.device).long()
     b, plen = prompt.shape
     total = _validate_lengths(model, plen, max_new_tokens)

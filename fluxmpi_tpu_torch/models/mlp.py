@@ -29,8 +29,8 @@ class MLP(nn.Module):
     are drawn from the CPU ``generator`` (default seeded with 0) on
     ``device`` (default CUDA; ``"cpu"`` only when asked)."""
 
-    def __init__(self, in_features: int = 1,
-                 features: Sequence[int] = (16, 16, 16, 1), *, device=None,
+    def __init__(self, features: Sequence[int] = (16, 16, 16, 1), *,
+                 in_features: int = 1, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.device = resolve_device(device)

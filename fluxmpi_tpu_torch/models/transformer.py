@@ -34,11 +34,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..errors import refuse_unported
 from ..ops.flash_attention import flash_attention
-from ..ops.fused_ce import unembed_cross_entropy
+from ..ops.fused_ce import _mm_f32, unembed_cross_entropy
 from ..runtime import resolve_device
 
-__all__ = ["EncoderBlock", "TransformerEncoder", "TransformerLM"]
+# EncoderBlock and TransformerEncoder are the LM's building blocks (they
+# take the LM's initializer); the JAX package's standalone encoder model is
+# not ported.
+__all__ = ["TransformerLM"]
 
 
 def _resolve_attention_mode(mode: str, device: torch.device) -> str:
@@ -221,11 +225,15 @@ class TransformerLM(nn.Module):
     def __init__(self, vocab_size: int = 1024, max_len: int = 512,
                  num_layers: int = 4, d_model: int = 128, num_heads: int = 4,
                  d_ff: int = 512, *, dropout: float = 0.0,
-                 attention: str = "naive",
-                 ln_eps: float = 1e-6, dtype: torch.dtype = torch.float32,
-                 device=None,
+                 dtype: torch.dtype = torch.float32, attention_fn=None,
+                 decode: bool = False, attention: str = "naive",
+                 ln_eps: float = 1e-6, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        refuse_unported("TransformerLM", {"attention_fn": attention_fn is not None,
+                                          "decode": bool(decode)},
+                        "pick the attention with attention=; cached decoding "
+                        "is forward(kv_cache=...)")
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} not divisible by num_heads "
                              f"{num_heads}")
@@ -259,7 +267,9 @@ class TransformerLM(nn.Module):
                 loss_chunk: int = 8192, hidden: bool = False,
                 pos_offset=None, kv_cache=None, attention: str | None = None,
                 return_kv: bool = False):
-        """Logits ``[b, s, vocab]`` (f32) for int tokens ``[b, s]``.
+        """Logits ``[b, s, vocab]`` for int tokens ``[b, s]``: f32, or bf16
+        in a bf16 model (bf16 operands, f32 accumulation, bf16 logits, as
+        flax's ``Embed.attend`` gives them).
 
         Without ``kv_cache``: the causal forward over positions ``0..s-1``,
         differentiable. With ``targets`` (int labels of ``tokens``' shape)
@@ -310,7 +320,7 @@ class TransformerLM(nn.Module):
             targets = torch.as_tensor(targets, device=self.device)
             return unembed_cross_entropy(h.to(self.dtype), self.embed.embedding,
                                          targets, chunk=loss_chunk)
-        logits = h @ self.embed.embedding.t()
+        logits = self._head(h)
         if return_kv:
             return logits, torch.stack(ks), torch.stack(vs)
         return logits
@@ -336,7 +346,18 @@ class TransformerLM(nn.Module):
         )
         h, _, _ = self.encoder(x, mode=mode, dtype=self.dtype, cache=kv_cache,
                                pos=pos, segments=segments)
-        return h @ self.embed.embedding.t()
+        return self._head(h)
+
+    def _head(self, h):
+        """The tied head's logits from the final-LN activations (f32)."""
+        table = self.embed.embedding
+        if self.dtype == torch.float32:
+            return h @ table.t()
+        # bf16 operands summed in f32, then one rounding of the logits to
+        # the model's dtype.
+        h2 = h.to(self.dtype).reshape(-1, h.shape[-1])
+        logits = _mm_f32(h2, table.to(self.dtype).t()).to(self.dtype)
+        return logits.reshape(*h.shape[:-1], -1)
 
     def cache_shape(self, batch: int, total: int) -> tuple[int, ...]:
         return (self.num_layers, batch, total, self.num_heads, self.head_dim)

@@ -18,7 +18,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load"]
+__all__ = ["SOURCES", "build_all", "load", "loaded"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -121,5 +121,13 @@ def load(name: str) -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = SOURCES[name]
             fn.restype = ctypes.c_int
+            lib.device_launches.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), _I]
+            lib.device_launches.restype = ctypes.c_int
             _loaded[name] = lib
         return lib
+
+
+def loaded(name: str) -> ctypes.CDLL | None:
+    """The library for ``csrc/<name>.cu`` if this process has loaded it."""
+    with _lock:
+        return _loaded.get(name)

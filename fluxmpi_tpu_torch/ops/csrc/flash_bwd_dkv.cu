@@ -30,7 +30,8 @@
 //
 // What the design does about it: the dQ kernel's layout (flash_bwd_dq.cu)
 // transposed, all four products on the tensor cores (flash_mma.cuh: split
-// TF32 for f32, bf16 MMA with P_drop^T and dS^T rounded to bf16 for bf16).
+// TF32 for f32, bf16 MMA for bf16 with P_drop^T and dS^T split into bf16
+// hi + lo).
 // A block owns G row groups of 16 key rows of one b*h_kv row (the MMA
 // rows); the lowest key blocks, which see the most causal queries, launch
 // first. Its K and V rows stay resident in shared memory for the whole
@@ -196,6 +197,7 @@ __device__ __forceinline__ int next_live_iter(const Params& p, const Sweep& sw,
 template <typename T, int DP, int BQ, int G, int NS, int S>
 __global__ void __launch_bounds__(Layout<T, DP, BQ, G, NS, S>::kThreads, 1)
     flash_bwd_dkv_kernel(Params p) {
+  count_launch();
   using L = Layout<T, DP, BQ, G, NS, S>;
   constexpr int LD = L::kLD, BKey = L::kBKey, kChunk = Shape<T>::kChunk;
   constexpr int W = S - 1;

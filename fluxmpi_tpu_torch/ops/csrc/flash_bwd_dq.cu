@@ -25,7 +25,7 @@
 //
 // What the design does about it: the forward's layout (flash_fwd.cu) with
 // all three products on the tensor cores (flash_mma.cuh: split TF32 for
-// f32, bf16 MMA with dS rounded to bf16 for bf16): four key streams,
+// f32, bf16 MMA for bf16 with dS split into bf16 hi + lo): four key streams,
 // blocks of G row groups of 16 query rows (heaviest causal blocks first),
 // one warp per (row group, stream), the G warps of a stream sharing a
 // cp.async ring of its next live K/V tiles. Each warp keeps its own f32
@@ -89,6 +89,7 @@ struct Layout {
 
 template <typename T, int DP, int G, int S>
 __global__ void __launch_bounds__(Layout<T, DP, G, S>::kThreads) flash_bwd_dq_kernel(Params p) {
+  count_launch();
   using L = Layout<T, DP, G, S>;
   constexpr int BK = L::kBK, LD = L::kLD, BQ = L::kBQ;
   extern __shared__ __align__(16) unsigned char smem_raw[];

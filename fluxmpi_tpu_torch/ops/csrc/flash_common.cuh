@@ -1,7 +1,8 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu): f32 conversion of the input types,
 // the warp's staging of 32-row tiles into shared memory, the per-device
-// shared-memory limit, and the attention-dropout keep mask.
+// shared-memory limit, the attention-dropout keep mask, and the device's
+// own count of the kernel's launches.
 //
 // The keep mask is the TPU kernels' counter-based hash
 // (fluxmpi_tpu/ops/flash_attention.py::_dropout_keep, _hash_mix,
@@ -115,6 +116,17 @@ __device__ __forceinline__ uint32_t hash_final(uint32_t h) {
   return h ^ (h >> 16);
 }
 
+// Launches the device ran, CUDA-graph replays included: the first thread
+// of block (0, 0, 0) of every launch adds one. Each kernel source builds
+// into a library of its own, so each library holds its own counter, read
+// and reset through its `device_launches` entry.
+__device__ unsigned long long g_device_launches;
+
+__device__ __forceinline__ void count_launch() {
+  if ((blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x) == 0)
+    atomicAdd(&g_device_launches, 1ull);
+}
+
 __device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t bh, uint32_t q_pos,
                                              uint32_t k_pos, uint32_t threshold) {
   const uint32_t h = hash_mix(hash_mix(hash_mix(seed, bh), q_pos), k_pos);
@@ -122,3 +134,14 @@ __device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t bh, uint32_
 }
 
 }  // namespace
+
+// Copy the current device's launch count into *out, then zero it if
+// `reset`. Synchronous: call it between launches, never inside a capture.
+extern "C" int device_launches(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_device_launches, sizeof(*out));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero = 0;
+    err = cudaMemcpyToSymbol(g_device_launches, &zero, sizeof(zero));
+  }
+  return (int)err;
+}

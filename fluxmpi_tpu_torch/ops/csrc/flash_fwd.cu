@@ -22,8 +22,8 @@
 // flops: bound by K/V bytes.
 //
 // What the design does about it: both products run on the tensor cores
-// (mma.sync; flash_mma.cuh): bf16 MMA for bf16, split TF32 for f32, f32
-// accumulation. The key axis is cut into NS fixed streams (8, or 4 at d >
+// (mma.sync; flash_mma.cuh): bf16 MMA for bf16 (P split into bf16 hi + lo
+// for P . V), split TF32 for f32, f32 accumulation. The key axis is cut into NS fixed streams (8, or 4 at d >
 // 64): stream w takes the key tiles t = w, w + NS, w + 2 NS, ... (BK keys
 // each: 16 in f32, 32 in bf16), with its own running max / sum /
 // accumulator per query row, and the partial states merge in stream order
@@ -104,6 +104,7 @@ struct Layout {
 
 template <typename T, int DP, int G, int S>
 __global__ void __launch_bounds__(Layout<T, DP, G, S>::kThreads) flash_fwd_kernel(Params p) {
+  count_launch();
   using L = Layout<T, DP, G, S>;
   constexpr int BK = L::kBK, LD = L::kLD, BQ = L::kBQ, kStreams = L::kStreams;
   extern __shared__ __align__(16) unsigned char smem_raw[];

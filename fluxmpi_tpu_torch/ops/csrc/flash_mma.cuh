@@ -26,7 +26,12 @@
 // the accumulator holds 2t and 2t + 1, so the k index of both operands is
 // permuted (A column t <-> key 2t, column t + 4 <-> key 2t + 1) and the B
 // rows are read in that order. bf16: two n8 accumulator tiles form one k16
-// A fragment (rounded to bf16), and B comes in by ldmatrix.trans.
+// A fragment, and B comes in by ldmatrix.trans. The A operand (P or dS, f32
+// in the accumulator) is split like the f32 path's: hi = bf16(x), lo =
+// bf16(x - hi), two bf16 MMAs into the same f32 accumulator, small term
+// first. P . B then carries about 16 of P's bits, where one bf16 product
+// keeps 8 (tests/test_torch_bf16_split.py emulates both on the CPU); the
+// B operand (V, K, dO or Q) is bf16 input and exact.
 
 #pragma once
 
@@ -151,6 +156,14 @@ __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The bf16 hi and lo parts of a pair (x0, x1), packed as pack_bf16 packs
+// them: hi = bf16(x), lo = bf16(x - hi), each rounded to nearest even.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
@@ -301,11 +314,11 @@ __device__ __forceinline__ void value_product(float (&o)[DP / 8][4], const float
   const int mi = lane >> 3, r = lane & 7;
 #pragma unroll
   for (int kb = 0; kb < BK / 16; ++kb) {
-    uint32_t a[4];
-    a[0] = pack_bf16(p[2 * kb][0], p[2 * kb][1]);
-    a[1] = pack_bf16(p[2 * kb][2], p[2 * kb][3]);
-    a[2] = pack_bf16(p[2 * kb + 1][0], p[2 * kb + 1][1]);
-    a[3] = pack_bf16(p[2 * kb + 1][2], p[2 * kb + 1][3]);
+    uint32_t ah[4], al[4];
+    split_bf16(p[2 * kb][0], p[2 * kb][1], ah[0], al[0]);
+    split_bf16(p[2 * kb][2], p[2 * kb][3], ah[1], al[1]);
+    split_bf16(p[2 * kb + 1][0], p[2 * kb + 1][1], ah[2], al[2]);
+    split_bf16(p[2 * kb + 1][2], p[2 * kb + 1][3], ah[3], al[3]);
     // Lanes 8i .. 8i + 7 address matrix i: keys 16kb + (i & 1) * 8 + r,
     // columns 8 (n + (i >> 1)) ..; registers 0, 1 feed n, 2, 3 feed n + 1.
     const __nv_bfloat16* row = b_s + (16 * kb + (mi & 1) * 8 + r) * LD + 8 * (mi >> 1);
@@ -313,8 +326,10 @@ __device__ __forceinline__ void value_product(float (&o)[DP / 8][4], const float
     for (int n = 0; n < DP / 8; n += 2) {
       uint32_t b[4];
       ldmatrix_x4_trans(b, row + 8 * n);
-      mma_bf16(o[n], a, b);
-      mma_bf16(o[n + 1], a, b + 2);
+      mma_bf16(o[n], al, b);
+      mma_bf16(o[n + 1], al, b + 2);
+      mma_bf16(o[n], ah, b);
+      mma_bf16(o[n + 1], ah, b + 2);
     }
   }
 }

@@ -29,7 +29,9 @@ and one for dK/dV. On CUDA tensors the wrappers :func:`flash_fwd`,
 :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` launch the kernels of
 ``csrc/`` (or raise); on CPU tensors the plain versions
 :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
-run. There is no fallback between the two.
+run. There is no fallback between the two. Each wrapper's ``launches``
+counts its calls that launched the kernel; :func:`device_launches` reads
+the launches the device itself ran, CUDA-graph replays included.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "device_launches",
     "dropout_keep_reference",
     "dropout_threshold",
     "flash_attention",
@@ -405,6 +408,34 @@ def flash_bwd_dkv(q, k, v, q_seg, kv_seg, dout, lse, dterm, *, causal=False,
 flash_fwd.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+
+
+def device_launches(device=None, *, reset: bool = False) -> dict[str, int]:
+    """Per kernel, the launches ``device`` (default: the current CUDA
+    device) ran since the count was last reset, counted by the kernels
+    themselves (``csrc/flash_common.cuh``): unlike the wrappers'
+    ``launches``, a CUDA-graph replay adds its captured launches and a
+    capture adds none. Synchronizes the device; a kernel whose library this
+    process has not loaded counts 0. ``reset=True`` zeroes the counts after
+    reading them. Not to be called while a stream is capturing."""
+    import ctypes
+
+    from ._build import loaded
+
+    device = torch.device("cuda", torch.cuda.current_device()) if device is None \
+        else torch.device(device)
+    out = {}
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            lib, count = loaded(name), ctypes.c_ulonglong(0)
+            if lib is not None:
+                err = lib.device_launches(ctypes.byref(count), int(reset))
+                if err != 0:
+                    raise RuntimeError(f"{name}: reading the device's launch "
+                                       f"count failed with CUDA error {err}")
+            out[name] = count.value
+    return out
 
 
 def _on_cpu(q) -> bool:

@@ -99,7 +99,6 @@ class _FusedCE(torch.autograd.Function):
         tiles = _tiles(w.detach(), chunk)
         dw = torch.empty((tiles.shape[0] * chunk, d), dtype=torch.float32,
                          device=w.device)
-        rows = torch.arange(n, device=h2.device)
         for i, w_c in enumerate(tiles):
             off = i * chunk
             z, valid = _tile_logits(h2, w_c, off, vocab)
@@ -107,7 +106,13 @@ class _FusedCE(torch.autograd.Function):
             dz = torch.exp(z - lse[:, None])  # exactly 0 on padded columns
             local = targets1 - off
             hit = (local >= 0) & (local < chunk)
-            dz[rows[hit], local[hit]] -= 1.0 - eps
+            # The target column loses 1 - eps on the rows whose target is in
+            # this tile; the others lose 0.0, which leaves them unchanged.
+            # No row selection by value, so no read back to the host (a CUDA
+            # graph can capture it).
+            col = local.clamp(0, chunk - 1)[:, None]
+            dz.scatter_(1, col, dz.gather(1, col)
+                        - torch.where(hit, 1.0 - eps, 0.0)[:, None])
             if eps:
                 dz -= (eps / vocab) * valid
             dz *= gf[:, None]

@@ -11,12 +11,17 @@ parameter tensors, the shape of an optax ``GradientTransformation``:
 
 The arithmetic follows optax step for step, so a parity test can hold
 the port to it: ``adam`` is ``scale_by_adam`` (bias-corrected moments, the
-corrections computed in f32 from the step count) then ``-lr``; ``adamw``
+corrections ``1 - b ** count`` computed in f32 from the step count) then
+``-lr``; ``adamw``
 adds ``weight_decay * param`` to the Adam direction before the ``-lr``
 scale (optax's ``add_decayed_weights``, not torch's decoupled
 ``lr * wd`` form); ``sgd`` is ``trace(decay=momentum)`` then ``-lr``.
 The per-tensor arithmetic runs as PyTorch's multi-tensor ``_foreach``
-ops, one launch per op for the whole parameter list.
+ops, one launch per op for the whole parameter list. The step count is an
+int32 tensor on the parameters' device (optax's ``count``), advanced in
+place, and the bias corrections are computed from it on the device: an
+update reads nothing back to the host, so a CUDA graph that captured it
+advances the count on every replay.
 """
 
 from __future__ import annotations
@@ -41,18 +46,18 @@ def apply_updates(params: dict, updates: dict) -> dict:
     return params
 
 
-def _f32_correction(decay: float, count: int) -> float:
-    """``1 - decay ** count`` computed in f32, as optax's bias correction
-    computes it."""
-    d = torch.tensor(decay, dtype=torch.float32)
-    return float(1 - d.pow(count))
+def _f32_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """``1 - decay ** count`` computed in f32 on the count's device, as
+    optax's bias correction computes it."""
+    return 1 - torch.pow(decay, count.float())
 
 
 def _adam(learning_rate: float, b1: float, b2: float, eps: float,
           weight_decay: float | None) -> GradientTransformation:
     def init(params):
+        device = next(iter(params.values())).device if params else None
         return {
-            "count": 0,
+            "count": torch.zeros((), dtype=torch.int32, device=device),
             "mu": {k: torch.zeros_like(p) for k, p in params.items()},
             "nu": {k: torch.zeros_like(p) for k, p in params.items()},
         }
@@ -62,9 +67,9 @@ def _adam(learning_rate: float, b1: float, b2: float, eps: float,
         g = [grads[k] for k in keys]
         mu = [state["mu"][k] for k in keys]
         nu = [state["nu"][k] for k in keys]
-        state["count"] += 1
-        c = state["count"]
         with torch.no_grad():
+            c = state["count"]
+            c.add_(1)
             # mu = b1 mu + (1 - b1) g;  nu = b2 nu + (1 - b2) g^2
             torch._foreach_mul_(mu, b1)
             torch._foreach_add_(mu, g, alpha=1.0 - b1)

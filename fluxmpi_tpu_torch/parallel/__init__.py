@@ -1,6 +1,7 @@
 """Data-parallel training: train/eval steps and the training loop."""
 
 from .loop import train_loop
-from .train import TrainState, make_eval_step, make_train_step
+from .train import TrainState, make_eval_step, make_train_step, make_window_program
 
-__all__ = ["TrainState", "make_eval_step", "make_train_step", "train_loop"]
+__all__ = ["TrainState", "make_eval_step", "make_train_step", "make_window_program",
+           "train_loop"]

@@ -11,6 +11,15 @@ every ``flush_every`` updates it drains to the newest step, reads that
 step's loss and the interval's mean loss, and records the interval's
 time per update.
 
+One-program flush windows (``fuse="auto"``, the default, or
+``"window"``): over a loader whose device-gather path is active, each
+flush window (its batch gathers and its updates) runs as one program from
+:func:`~fluxmpi_tpu_torch.parallel.train.make_window_program`, on the card
+one CUDA-graph replay: one host dispatch per window instead of thousands
+of kernel launches per update. A replay runs no Python: a ``loss_fn``
+with host-side state that changes between updates needs ``fuse=False``
+(see :func:`train_loop`).
+
 Fault tolerance: with a :class:`~fluxmpi_tpu_torch.utils.CheckpointManager`
 as ``checkpoint=``, the loop banks its state, counters and loader position
 every ``save_every`` updates, resumes from the newest committed step with
@@ -19,9 +28,7 @@ request_preemption`, or SIGTERM with the handler installed) drains, banks
 an emergency checkpoint and returns.
 
 Not ported yet (each raises ``NotImplementedError`` when asked for):
-``fuse="window"`` (one-program flush windows; ``"auto"`` takes the
-pipelined path) and ``metrics=``; the anomaly, goodput, resize and export
-planes.
+``metrics=``; the anomaly, goodput, resize and export planes.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import time
 from collections import deque
 from typing import Any, Iterable
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -37,6 +45,7 @@ from .. import runtime
 from ..comm import allreduce
 from ..data import DistributedDataLoader, scan_batches
 from ..utils.manifest import map_with_path, named_leaves
+from .train import _state_tensors, make_window_program
 
 __all__ = ["train_loop"]
 
@@ -55,6 +64,63 @@ def _epoch_len(batches: Any, scan_steps: int) -> int | None:
     if scan_steps > 1 and isinstance(batches, DistributedDataLoader):
         return n // scan_steps
     return n
+
+
+def _fused_window_width(step: Any, batches: Any, flush_every: int,
+                        steps: int | None, scan_k: int, forced: bool) -> int:
+    """The fused-window width for ``train_loop(fuse=...)``: the updates one
+    window program drives, or 0 when the fused path cannot drive this
+    (step, loader) pair. ``forced`` (``fuse="window"``) raises naming the
+    failing condition instead of falling back.
+
+    The width is ``flush_every`` clamped to the epoch length (an epoch
+    shorter than the flush interval fuses as one window per pass), and the
+    epoch must divide into whole windows."""
+
+    def fail(reason: str) -> int:
+        if forced:
+            raise ValueError(f'fuse="window" unavailable: {reason}')
+        return 0
+
+    if not isinstance(batches, DistributedDataLoader):
+        return fail("batches is not a DistributedDataLoader")
+    if getattr(step, "__fluxmpi_window_meta__", None) is None:
+        return fail("the step carries no fused-window metadata — build it "
+                    "with make_train_step")
+    if not batches.fusible():
+        return fail(
+            "the loader's device-gather path is not active (needs an "
+            "array-backed single-process dataset without transform=, "
+            "within FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES, whole full "
+            "batches per epoch)")
+    nb = len(batches)
+    if nb < 1:
+        return fail("the loader has no full batches")
+    width = min(flush_every, nb)
+    if nb % width:
+        return fail(
+            f"epoch of {nb} batches does not divide into flush_every="
+            f"{flush_every} windows (width {width}) — pick a flush_every "
+            f"that divides the epoch")
+    if not forced and steps is not None and steps % width:
+        # Windows round a steps budget up to whole windows; "auto" must not
+        # change how many updates `steps` means, so it keeps the pipelined
+        # path (fuse="window" opts into the rounding).
+        return 0
+    if not forced and scan_k > 1 and (
+            nb % scan_k or (steps is not None and steps % scan_k)):
+        # The pipelined path's scan_batches drops a ragged trailing scan
+        # group and rounds a steps budget up to whole groups, while the
+        # window sequences single updates over every batch: "auto" keeps
+        # what an epoch and a budget mean for a scan_steps step.
+        return 0
+    return width
+
+
+def _aval_key(tensors: Iterable[torch.Tensor]) -> tuple:
+    """(shape, dtype, device) of each tensor: the part of the window
+    program cache's key that makes a cached program safe to reuse."""
+    return tuple((tuple(t.shape), str(t.dtype), str(t.device)) for t in tensors)
 
 
 def _batch_examples(batch: Any, scan_steps: int) -> int:
@@ -140,14 +206,42 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     ``updates_per_sec``, ``examples_per_sec``, the final ``loss``,
     ``preempted``, ``resized_to``, ``resumed_from``, ``anomaly``,
     ``dispatches`` and ``fused_window`` (the JAX package's keys; the
-    planes behind ``resized_to``, ``anomaly`` and ``fused_window`` are not
-    ported and report None), and ``flushes``: for each flush its
-    ``updates``, ``loss`` (the newest update's), ``loss_mean`` (the mean
-    over the interval's updates, the JAX package's window mean) and
-    ``seconds_per_update`` over the interval; and ``step_ms``: for each
-    dispatch after the first, the time from the previous dispatch's
-    completion to its own, read from CUDA events on the device's timeline
-    (host clock on the CPU) without a per-step synchronization.
+    planes behind ``resized_to`` and ``anomaly`` are not ported and report
+    None), and ``flushes``: for each flush its ``updates``, ``loss`` (the
+    newest update's), ``loss_mean`` (the interval's losses summed in update
+    order in f32, over their count: the JAX package's window mean, the same
+    bits on both paths), ``loss_max`` and ``seconds_per_update`` over the
+    interval; and ``step_ms``: for each dispatch after the first (a window
+    on the fused path), the time from the previous dispatch's completion to
+    its own, read from CUDA events on the device's timeline (host clock on
+    the CPU) without a per-step synchronization.
+
+    ``fuse``: ``"auto"`` (default) engages one-program flush windows when
+    the loader's device-gather path is active (array-backed, one worker,
+    within ``FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES``) and the epoch divides
+    into ``flush_every``-update windows (``flush_every`` clamped to the
+    epoch): each window's gathers and updates run as one program (on the
+    card a CUDA graph: the first window of each width runs eagerly, the
+    later ones replay it), one dispatch per window. ``"window"`` forces it
+    (raises naming the failing condition); ``False``/``None`` keeps the
+    pipelined path. Under the fused path every window boundary is a flush
+    boundary (metrics, saves and preemption move to window granularity), a
+    ``scan_steps`` step is subsumed (the window sequences single updates),
+    and a ``steps`` budget rounds up to whole windows, so ``"auto"`` keeps
+    the pipelined path when ``steps`` is not a multiple of the window, or
+    when a ``scan_steps`` step meets an epoch or budget its scan would
+    have rounded. A resume whose cursor lands inside a window runs one
+    shorter first window, and the windows are aligned from then on. The
+    summary then has ``fused_window`` (the width), ``dispatches`` (one per
+    window) and ``window_cache`` (the window program cache's hits and
+    misses in this run). On the card a replay reruns the captured device
+    work and no Python: the step's host-side state (in ``loss_fn``: a
+    Python counter or schedule, numpy or Python randomness, a CPU
+    generator, a CUDA generator other than the default one) changes only
+    in the eager first window and at the capture, and its capture-time
+    values are fixed in the graph; reading a device value on the host
+    raises at the capture. Such a step needs ``fuse=False``, which keeps
+    eager semantics (on the CPU a window runs eagerly either way).
     """
     if in_flight < 0:
         raise ValueError(f"in_flight must be >= 0, got {in_flight}")
@@ -164,10 +258,6 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     if fuse not in ("auto", "window", False, None):
         raise ValueError(f'fuse must be "auto", "window", False, or None; '
                          f"got {fuse!r}")
-    if fuse == "window":
-        raise NotImplementedError(
-            'fuse="window" (one-program flush windows) is not ported yet; '
-            '"auto" takes the pipelined path')
     if metrics is not None and metrics is not False:
         raise NotImplementedError("train_loop(metrics=...) is not ported yet")
     if steps is None and epochs is None:
@@ -176,6 +266,15 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     if k < 1:
         raise ValueError(f"scan_steps must be >= 1, got {k}")
 
+    fused_w = 0
+    if fuse not in (False, None):
+        fused_w = _fused_window_width(step, batches, flush_every, steps, k,
+                                      forced=fuse == "window")
+    orig_k = k
+    if fused_w:
+        # The window sequences single updates itself: the step's scan tag
+        # is bypassed, and budgets and cursors count batches.
+        k = 1
     is_loader = isinstance(batches, DistributedDataLoader)
     per_epoch = _epoch_len(batches, k)
     window: deque = deque()
@@ -250,6 +349,23 @@ def train_loop(step: Any, state: Any, batches: Any, *,
                 # that pass); what remains is the dispatches already done.
                 batches.load_state_dict({key: int(val) for key, val
                                          in restored["loader"].items()})
+                if fused_w and fuse == "auto" and steps is not None:
+                    # The windows after a short realignment window must
+                    # land on the steps budget, or "auto" keeps the
+                    # pipelined path (the step's own scan quantum again).
+                    pos0 = batches.resume_cursor
+                    short_first = (fused_w - pos0 % fused_w) % fused_w
+                    if (steps - updates - short_first) % fused_w:
+                        fused_w = 0
+                        k = orig_k
+                        per_epoch = _epoch_len(batches, k)
+                if k > 1 and batches.resume_cursor % k:
+                    # A fused run's save can sit inside a scan group:
+                    # re-seat at the group boundary so the groups keep the
+                    # uninterrupted run's phase.
+                    seat = batches.state_dict()
+                    seat["cursor"] = (batches.resume_cursor // k) * k
+                    batches.load_state_dict(seat)
                 resume_offset = batches.resume_cursor // k
             resumed_from = ckpt_step
     last_saved = updates
@@ -277,13 +393,24 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         if interval_updates == 0:
             return
         drain_to_newest()
-        loss = float(torch.as_tensor(pytree.tree_leaves(last_out)[0])
-                     .detach().float().mean())
-        # The interval's mean loss, summed on the device: one read per flush.
-        mean = float(torch.cat(interval_losses).mean())
+        if fused_w:
+            # The window program's f32 metric carry: one read per flush.
+            loss, total, peak = torch.stack([last_out["loss"], last_out["loss_sum"],
+                                             last_out["loss_max"]]).tolist()
+        else:
+            loss = float(torch.as_tensor(pytree.tree_leaves(last_out)[0])
+                         .detach().float().mean())
+            # The interval's losses, read once and summed in update order
+            # in f32, as the window program sums them.
+            vals = torch.cat(interval_losses).cpu().numpy()
+            total = np.float32(0.0)
+            for v in vals:
+                total = np.float32(total + v)
+            total, peak = float(total), float(vals.max())
         interval_losses.clear()
         now = time.perf_counter()
-        flushes.append({"updates": updates, "loss": loss, "loss_mean": mean,
+        flushes.append({"updates": updates, "loss": loss,
+                        "loss_mean": total / interval_updates, "loss_max": peak,
                         "seconds_per_update": (now - t_flush) / interval_updates})
         interval_updates = 0
         t_flush = now
@@ -293,12 +420,12 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         checkpoint.save(updates, payload(state, pass_counted))
         last_saved = updates
 
-    def after_dispatch() -> bool:
+    def after_dispatch(at_flush: bool = False) -> bool:
         """Flush, check the budget, bank the boundary, then poll the
         preemption flag (its emergency save then has nothing left to
         write). Returns whether the loop stops here."""
         nonlocal preempted
-        at_flush = interval_updates >= flush_every
+        at_flush = at_flush or interval_updates >= flush_every
         if at_flush:
             flush()
         stop = steps is not None and updates >= steps
@@ -312,6 +439,25 @@ def train_loop(step: Any, state: Any, batches: Any, *,
             preempted = stop = True
         return stop
 
+    window_cache = {"hits": 0, "misses": 0}
+    lbs_fused = batches.local_batch_size if fused_w else 0
+
+    def window_program(width: int, avals: tuple) -> Any:
+        """The window program for ``width`` updates, cached on the step
+        across train_loop runs, keyed by width, batch size and the state's
+        and dataset's shapes and dtypes."""
+        cache = getattr(step, "__fluxmpi_window_cache__", None)
+        if cache is None:
+            cache = step.__fluxmpi_window_cache__ = {}
+        key = (width, lbs_fused) + avals
+        prog = cache.get(key)
+        if prog is None:
+            prog = cache[key] = make_window_program(step, width=width, lbs=lbs_fused)
+            window_cache["misses"] += 1
+        else:
+            window_cache["hits"] += 1
+        return prog
+
     done = False
     while not done:
         if epochs is not None and epochs_done >= epochs:
@@ -322,6 +468,39 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         dispatched_this_epoch = offset
         yielded_this_pass = 0
         exhausted = False
+        if fused_w:
+            # One-program flush windows: the loader hands over the staged
+            # dataset, this epoch's permutation and the resume start; the
+            # host then dispatches one program per window.
+            staged, perm, pos = batches.device_epoch()
+            nb = per_epoch
+            avals = (_aval_key(_state_tensors(state)),
+                     _aval_key(pytree.tree_leaves(staged)), _aval_key([perm]))
+            while pos < nb:
+                # A resume cursor inside a window realigns with ONE shorter
+                # first window; the flush grid then matches the
+                # uninterrupted run's.
+                width = fused_w - pos % fused_w if pos % fused_w else fused_w
+                program = window_program(width, avals)
+                state, out = program(state, staged, perm, pos * lbs_fused)
+                window.append(_Marker(perm.device))
+                if len(window) > in_flight:
+                    retire(window.popleft())
+                last_out = out
+                dispatches += 1
+                batches.note_consumed(width)
+                pos += width
+                updates += width
+                examples += width * lbs_fused
+                interval_updates += width
+                # Every window boundary is a flush boundary: metrics, the
+                # budget, saves and preemption quantize to windows.
+                if after_dispatch(at_flush=True):
+                    done = True
+                    break
+            if pos >= nb:
+                epochs_done += 1
+            continue
         for batch in _epoch_iter(batches, k):
             state, out = step(state, batch)
             window.append(_Marker(_loss_device(out)))
@@ -374,8 +553,10 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         "resumed_from": resumed_from,
         "anomaly": None,
         "dispatches": dispatches,
-        "fused_window": None,
+        "fused_window": fused_w or None,
         "flushes": flushes,
         "step_ms": step_ms,
     }
+    if fused_w:
+        summary["window_cache"] = window_cache
     return state, summary

@@ -13,6 +13,11 @@ kernels launch asynchronously and the returned loss stays on the device.
 (f32 masters, bf16 compute); ``remat=`` recomputes the forward during the
 backward.
 
+:func:`make_window_program` fuses a flush window (``width`` updates, the
+batch gathers included) into one program: on the card a CUDA graph,
+captured once and replayed once per window; on the CPU the same window
+run eagerly. ``train_loop(fuse="auto"|"window")`` drives it.
+
 Not ported yet (each raises ``NotImplementedError`` when passed):
 ``parallel=``, ``mesh=``, ``axis_name=``, ``style=``, ``state_reduce=``,
 ``donate=``, ``state_sharding=``, ``batch_spec=``, ``metrics=`` and
@@ -23,6 +28,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
+from collections import Counter
 from typing import Any, Callable
 
 import torch
@@ -30,10 +37,13 @@ from torch import nn
 from torch.utils import _pytree as pytree
 from torch.utils import checkpoint as _checkpoint
 
+from ..data import _gather_batch
+from ..errors import refuse_unported
 from ..optim import GradientTransformation, apply_updates
 from ..optimizer import allreduce_gradients
 
-__all__ = ["TrainState", "make_eval_step", "make_train_step"]
+__all__ = ["TrainState", "make_eval_step", "make_train_step",
+           "make_window_program"]
 
 _WAITING = ("parallel", "mesh", "axis_name", "style", "state_reduce",
             "donate", "state_sharding", "batch_spec", "metrics",
@@ -44,13 +54,10 @@ def _refuse_waiting(fn: str, waiting: dict) -> None:
     unknown = [k for k in waiting if k not in _WAITING]
     if unknown:
         raise TypeError(f"{fn}() got unexpected arguments {unknown}")
-    passed = sorted(k for k, v in waiting.items()
-                    if v is not None and v is not False)
-    if passed:
-        raise NotImplementedError(
-            f"{fn}({', '.join(passed)}=...) is not ported yet: the port's "
-            f"step is one worker's forward, backward and gradient all-reduce "
-            f"over torch.distributed")
+    refuse_unported(fn, {k: v is not None and v is not False
+                         for k, v in waiting.items()},
+                    "the port's step is one worker's forward, backward and "
+                    "gradient all-reduce over torch.distributed")
 
 
 @dataclasses.dataclass
@@ -198,7 +205,16 @@ def make_train_step(
     (``create_selective_checkpoint_contexts``). Both wrap the whole loss,
     so with eager PyTorch the backward's recompute holds every activation
     at once again: they add a forward's work and do not lower the peak
-    memory (a checkpoint per block would)."""
+    memory (a checkpoint per block would).
+
+    The step carries its single-update body for ``train_loop``'s fused
+    windows (``fuse="auto"``, the default), which on the card capture
+    ``width`` updates as one CUDA graph and replay it: ``loss_fn`` must
+    then hold no host-side state that changes between updates (a Python
+    counter or schedule, numpy or Python randomness, a CPU generator or a
+    CUDA generator other than the default one), whose capture-time values
+    the graph would keep; pass ``fuse=False`` to ``train_loop`` for such a
+    ``loss_fn``."""
     _refuse_waiting("make_train_step", waiting)
     watch = _CastWatch()
     loss_fn = _with_policy_and_remat(loss_fn, policy, remat, watch)
@@ -251,7 +267,170 @@ def make_train_step(
             return ts, torch.stack(losses)
 
     step.scan_steps = scan_steps  # read by train_loop
+    # What make_window_program needs to fuse this step's math into a flush
+    # window: the single-update body (the window sequences updates itself,
+    # so a scan_steps wrapper is irrelevant there) and the aux it carries
+    # (the loss only: metrics= and model_stats= are not ported).
+    step.__fluxmpi_window_meta__ = {"single": single, "aux": ("loss",)}
     return step
+
+
+def _state_tensors(ts: TrainState) -> list[torch.Tensor]:
+    return [t for t in pytree.tree_leaves((ts.params, ts.opt_state, ts.model_state))
+            if torch.is_tensor(t)]
+
+
+def _launch_counts() -> dict[str, int]:
+    """The attention kernels' launch counters (one increment per launch
+    their wrappers make, captured launches included)."""
+    from ..ops.flash_attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+
+    return {f.__name__: f.launches for f in (flash_fwd, flash_bwd_dq, flash_bwd_dkv)}
+
+
+class WindowProgram:
+    """``(state, data, perm, start) -> (state, metrics)``: ``width``
+    updates of a step's single-update body, update ``i`` on the batch
+    :func:`~fluxmpi_tpu_torch.data._gather_batch` takes at sample offset
+    ``start + i * lbs`` of the epoch permutation ``perm`` from the staged
+    dataset ``data``. ``metrics`` holds f32 scalars: ``loss`` (the last
+    update's, the value the pipelined flush reports), ``loss_sum`` and
+    ``loss_max`` over the window (the sum in update order, in f32).
+
+    On the CPU each call runs the window eagerly. On the card the first
+    call runs it eagerly as real updates on the program's capture stream
+    (cuBLAS, the allocator, autograd and the kernels' first-use build warm
+    up there); the second call captures the window as one CUDA graph
+    (``capture_seconds``: capture and instantiation), and every call from
+    then on is one replay: the host copies the permutation and the start
+    offset into the graph's static buffers and replays, and the state
+    advances in place. The graph is recaptured when the state's or the
+    dataset's tensors are other tensors than it was captured against (a
+    fresh ``TrainState``, a restaged dataset). A capture or replay that
+    fails raises; nothing falls back to eager windows.
+
+    Launch accounting per attention kernel: ``captured_launches`` are the
+    launches inside the current graph. The wrappers' counters rise while a
+    graph is captured, which launches nothing; ``capture_counted`` sums
+    those rises over every capture. A replay launches the graph's kernels
+    without the wrappers; ``replayed_launches`` adds the replayed graph's
+    ``captured_launches`` on every replay. So the device ran the wrappers'
+    counts ``- capture_counted + replayed_launches``."""
+
+    def __init__(self, single: Callable, width: int, lbs: int):
+        self.single = single
+        self.width = width
+        self.lbs = lbs
+        self.replays = 0
+        self.captured_launches: dict[str, int] = {}
+        self.capture_counted: Counter = Counter()
+        self.replayed_launches: Counter = Counter()
+        self.capture_seconds = 0.0
+        self.graph = None
+        self._warm = False
+        self._stream = None
+        self._bound: tuple = ()
+
+    def _run(self, ts: TrainState, data: Any, perm: torch.Tensor,
+             start: torch.Tensor):
+        loss_sum = torch.zeros((), dtype=torch.float32, device=perm.device)
+        loss_max = torch.full((), float("-inf"), dtype=torch.float32,
+                              device=perm.device)
+        for i in range(self.width):
+            batch = _gather_batch(data, perm, start + i * self.lbs, self.lbs)
+            ts, loss = self.single(ts, batch)
+            loss = loss.detach().float().reshape(())
+            loss_sum = loss_sum + loss
+            loss_max = torch.maximum(loss_max, loss)
+        return ts, {"loss": loss, "loss_sum": loss_sum, "loss_max": loss_max}
+
+    def __call__(self, ts: TrainState, data: Any, perm: torch.Tensor,
+                 start: int):
+        dev = perm.device
+        if dev.type != "cuda":
+            at = torch.full((), int(start), dtype=torch.int64, device=dev)
+            return self._run(ts, data, perm, at)
+        if not self._warm:
+            self._stream = torch.cuda.Stream(dev)
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(self._stream):
+                at = torch.full((), int(start), dtype=torch.int64, device=dev)
+                ts, metrics = self._run(ts, data, perm, at)
+            torch.cuda.current_stream(dev).wait_stream(self._stream)
+            self._warm = True
+            return ts, metrics
+        bound = tuple(t.data_ptr() for t in
+                      _state_tensors(ts) + pytree.tree_leaves(data))
+        if self.graph is None or bound != self._bound:
+            self._capture(ts, data, perm)
+            self._bound = bound
+        self._perm.copy_(perm)
+        self._start.fill_(int(start))
+        self.graph.replay()
+        self.replays += 1
+        self.replayed_launches.update(self.captured_launches)
+        ts.step += self.width
+        out = self._out.clone()
+        return ts, {"loss": out[0], "loss_sum": out[1], "loss_max": out[2]}
+
+    def _capture(self, ts: TrainState, data: Any, perm: torch.Tensor) -> None:
+        dev = perm.device
+        self._perm = torch.empty_like(perm)
+        self._start = torch.zeros((), dtype=torch.int64, device=dev)
+        step0, mstate0 = ts.step, ts.model_state
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            # thread_local: a checkpoint writer or NCCL's watchdog may use
+            # CUDA on their own threads while this one captures.
+            with torch.cuda.graph(graph, stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                ts, metrics = self._run(ts, data, self._perm, self._start)
+                # The carried model state returns to the tensors the graph
+                # reads, so each replay starts from the last one's.
+                for src, dst in zip(pytree.tree_leaves(ts.model_state),
+                                    pytree.tree_leaves(mstate0)):
+                    if torch.is_tensor(dst):
+                        dst.copy_(src)
+                self._out = torch.stack([metrics["loss"], metrics["loss_sum"],
+                                         metrics["loss_max"]])
+        except Exception as exc:
+            raise RuntimeError(
+                f"capturing the {self.width}-update window as a CUDA graph "
+                f"failed ({exc}); the step must run without reading device "
+                f"values on the host") from exc
+        finally:
+            ts.step, ts.model_state = step0, mstate0
+        self.capture_seconds += time.perf_counter() - t0
+        after = _launch_counts()
+        self.captured_launches = {k: after[k] - before[k] for k in after}
+        self.capture_counted.update(self.captured_launches)
+        self.graph = graph
+
+
+def make_window_program(step: Any, *, width: int, lbs: int) -> WindowProgram:
+    """Fuse a whole flush window into ONE program: ``width`` sequential
+    updates of ``step``'s single-update body, each batch gathered from the
+    staged dataset inside it, with the interval metrics (last, sum and max
+    loss) carried along. Returns a :class:`WindowProgram`, ``(state, data,
+    perm, start) -> (state, metrics)``: ``data`` and ``perm`` as
+    :meth:`~fluxmpi_tpu_torch.DistributedDataLoader.device_epoch` gives
+    them, ``start`` the first sample offset (batch cursor x ``lbs``).
+
+    ``step`` must come from :func:`make_train_step`, which attaches the
+    single-update body (``__fluxmpi_window_meta__``); the gather is
+    :func:`~fluxmpi_tpu_torch.data._gather_batch`, the loader's own, so
+    the fused and the pipelined paths consume identical batches.
+    ``train_loop(fuse="window")`` builds and caches these per width."""
+    meta = getattr(step, "__fluxmpi_window_meta__", None)
+    if meta is None:
+        raise ValueError(
+            "make_window_program needs a step built by make_train_step — "
+            "foreign steps carry no fused-window metadata")
+    if width < 1:
+        raise ValueError(f"width must be >= 1, got {width}")
+    return WindowProgram(meta["single"], width, lbs)
 
 
 def make_eval_step(metric_fn: Callable[[dict, Any, Any], Any], *,

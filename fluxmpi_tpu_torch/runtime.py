@@ -27,7 +27,7 @@ from typing import Any, Sequence
 import torch
 import torch.distributed as dist
 
-from .errors import FluxMPINotInitializedError
+from .errors import FluxMPINotInitializedError, refuse_unported
 
 __all__ = [
     "Initialized",
@@ -78,7 +78,7 @@ class _State:
 _state = _State()
 
 # init() arguments of the JAX package whose machinery is not ported yet.
-_WAITING = ("devices", "mesh_shape", "parallel", "telemetry", "trace",
+_WAITING = ("devices", "mesh_shape", "parallel", "distributed", "telemetry", "trace",
             "watchdog", "preemption", "faults", "goodput", "anomaly",
             "model_stats", "compileplane", "memory", "profile",
             "compile_cache", "export", "serving", "request_log", "fleet",
@@ -117,13 +117,10 @@ def init(*, device: str | torch.device | None = None,
     unknown = [k for k in passed if k not in _WAITING]
     if unknown:
         raise TypeError(f"init() got unexpected arguments {unknown}")
-    if passed:
-        raise NotImplementedError(
-            f"init({', '.join(passed)}=...) is not ported yet: the port has no "
-            f"device mesh, parallel plans or telemetry/fault/preemption/resize/"
-            f"compile-cache planes; it runs one process per device with "
-            f"torch.distributed"
-        )
+    refuse_unported("init", {k: True for k in passed},
+                    "the port has no device mesh, parallel plans or "
+                    "telemetry/fault/preemption/resize/compile-cache planes; it "
+                    "runs one process per device with torch.distributed")
     if _state.initialized:
         return _state.device
     want = resolve_device(device)
@@ -244,7 +241,8 @@ def worker_device() -> torch.device:
 # ---------------------------------------------------------------------------
 # Preemption: a signal sets a flag that train_loop polls.
 #
-# A preemptible card is taken back with SIGTERM and a grace window. The
+# A preemptible card is taken back with SIGTERM and a grace window (an
+# operator's Ctrl-C is SIGINT, handled alike). The
 # handler runs between bytecodes on the main thread, so it only sets a
 # flag (no locks, no I/O, no CUDA); train_loop polls the flag at dispatch
 # boundaries, drains, banks an emergency checkpoint and returns with
@@ -284,13 +282,13 @@ def _on_preemption_signal(signum: int, frame: Any) -> None:
 
 
 def install_preemption_handlers(
-    signals: Sequence[int] = (signal.SIGTERM,),
+    signals: Sequence[int] = (signal.SIGTERM, signal.SIGINT),
 ) -> None:
-    """Install the flag-setting handler for ``signals`` (default SIGTERM;
-    idempotent; the previous handlers are kept for
-    :func:`uninstall_preemption_handlers`). Only the main thread can
-    install one; elsewhere the install is skipped with a warning, and
-    :func:`request_preemption` still sets the flag."""
+    """Install the flag-setting handler for ``signals`` (default SIGTERM
+    and SIGINT, so Ctrl-C drains and banks too; idempotent; the previous
+    handlers are kept for :func:`uninstall_preemption_handlers`). Only the
+    main thread can install one; elsewhere the install is skipped with a
+    warning, and :func:`request_preemption` still sets the flag."""
     for sig in signals:
         if sig in _prev_signal_handlers:
             continue

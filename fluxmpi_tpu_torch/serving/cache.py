@@ -41,7 +41,7 @@ class BlockKVCache:
 
     def __init__(self, *, num_layers: int, num_heads: int, head_dim: int,
                  num_blocks: int, block_size: int, max_blocks_per_seq: int,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype | None = None, device=None):
         if num_blocks < 2:
             raise ValueError(
                 f"num_blocks must be >= 2 (block 0 is the reserved trash "
@@ -59,7 +59,7 @@ class BlockKVCache:
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self.max_blocks_per_seq = int(max_blocks_per_seq)
-        self.dtype = dtype
+        self.dtype = torch.float32 if dtype is None else dtype
         self.device = resolve_device(device)
         # LIFO: the most recently freed block is handed out next.
         self._free: list[int] = list(range(self.num_blocks - 1, 0, -1))

@@ -36,7 +36,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..errors import RequestRejectedError
+from ..errors import RequestRejectedError, refuse_unported
 from .cache import TRASH_BLOCK, BlockKVCache, blocks_for_tokens
 
 __all__ = ["InferenceEngine", "ServingRequest"]
@@ -59,7 +59,9 @@ class ServingRequest:
 
     def __init__(self, prompt, max_new_tokens: int, *,
                  eos_token: int | None = None,
-                 on_token: Callable[[int], None] | None = None):
+                 on_token: Callable[[int], None] | None = None,
+                 clock: Callable[[], float] = time.perf_counter):
+        refuse_unported("ServingRequest", {"clock": clock is not time.perf_counter})
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.id = next(_request_ids)
@@ -152,30 +154,47 @@ class InferenceEngine:
     Args:
       model: a :class:`~fluxmpi_tpu_torch.models.TransformerLM`; the engine
         runs on the model's device.
-      slots: decode batch width.
-      block_size: cache positions per pool block.
+      slots: decode batch width (default 8).
+      block_size: cache positions per pool block (default 16).
       num_blocks: pool blocks including the trash block (default
         ``1 + slots * max_len / block_size``: no oversubscription).
       max_queue: queued requests past which :meth:`submit` rejects with
-        reason ``"queue_full"``.
+        reason ``"queue_full"`` (default 64).
       continuous: True = join between any two iterations; False = static
         batching (a new group only once every slot has drained).
 
     Sequences are capped at the model's ``max_len`` rounded down to a
     block multiple. Construction refuses pools that cannot fit the
-    device's free memory. The summary keeps the JAX engine's keys;
+    device's free memory. Not ported yet (``NotImplementedError`` when
+    set): ``max_len``, the SLO arguments, ``registry``, ``clock``,
+    ``flush_every``, ``check_memory`` and ``attention``. (The JAX engine
+    also takes the flax ``params``; a torch model holds its own.) The
+    summary keeps the JAX engine's keys;
     ``preempted`` and ``slo_violations`` stay ``False`` and 0 until the
     port has preemption and SLO accounting.
     """
 
-    def __init__(self, model, *, slots: int = 8, block_size: int = 16,
-                 num_blocks: int | None = None, max_queue: int = 64,
-                 continuous: bool = True):
+    def __init__(self, model, *, slots: int | None = None,
+                 block_size: int | None = None, num_blocks: int | None = None,
+                 max_queue: int | None = None, max_len: int | None = None,
+                 continuous: bool = True, slo_ttft_s: float | None = None,
+                 slo_token_s: float | None = None, registry: Any = None,
+                 clock: Callable[[], float] = time.perf_counter,
+                 flush_every: int = 16, check_memory: bool = True,
+                 attention: str | None = None):
+        refuse_unported("InferenceEngine", {
+            "max_len": max_len is not None,
+            "slo_ttft_s": slo_ttft_s is not None,
+            "slo_token_s": slo_token_s is not None,
+            "registry": registry is not None,
+            "clock": clock is not time.perf_counter,
+            "flush_every": flush_every != 16, "check_memory": check_memory is not True,
+            "attention": attention is not None})
         self.model = model
         self.device = model.device
-        self.slots = int(slots)
-        self.block_size = int(block_size)
-        self.max_queue = int(max_queue)
+        self.slots = 8 if slots is None else int(slots)
+        self.block_size = 16 if block_size is None else int(block_size)
+        self.max_queue = 64 if max_queue is None else int(max_queue)
         if self.slots < 1:
             raise ValueError(f"slots must be >= 1, got {self.slots}")
         if self.block_size < 1:

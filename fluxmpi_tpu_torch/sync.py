@@ -36,10 +36,10 @@ def _sync_tree(tree: Any, root: int) -> Any:
     return pytree.tree_unflatten(out, spec)
 
 
-def synchronize(obj: Any, *, root_rank: int = 0) -> Any:
+def synchronize(tree: Any, *, root_rank: int = 0) -> Any:
     """Every worker returns the ``root_rank`` worker's values.
 
-    ``obj`` is an ``nn.Module`` (its parameters and buffers are
+    ``tree`` is an ``nn.Module`` (its parameters and buffers are
     overwritten in place; the module is returned), a
     ``torch.optim.Optimizer`` (its state is loaded from the root's), or a
     state dict, an optimizer's state dict or any nested dict/list/tuple of
@@ -48,14 +48,14 @@ def synchronize(obj: Any, *, root_rank: int = 0) -> Any:
     dtype."""
     _require_init()
     root = _check_root(root_rank)
-    if isinstance(obj, nn.Module):
-        state = obj.state_dict(keep_vars=True)
+    if isinstance(tree, nn.Module):
+        state = tree.state_dict(keep_vars=True)
         synced = _sync_tree({k: v.detach() for k, v in state.items()}, root)
         with torch.no_grad():
             for name, t in state.items():
                 t.copy_(synced[name])
-        return obj
-    if isinstance(obj, torch.optim.Optimizer):
-        obj.load_state_dict(_sync_tree(obj.state_dict(), root))
-        return obj
-    return _sync_tree(obj, root)
+        return tree
+    if isinstance(tree, torch.optim.Optimizer):
+        tree.load_state_dict(_sync_tree(tree.state_dict(), root))
+        return tree
+    return _sync_tree(tree, root)

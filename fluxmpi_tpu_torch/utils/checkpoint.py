@@ -64,7 +64,8 @@ import torch
 import torch.distributed as dist
 
 from .. import comm, faults, runtime
-from ..errors import CheckpointDesyncError, CheckpointTimeoutError, FaultInjectedError
+from ..errors import (CheckpointDesyncError, CheckpointTimeoutError, FaultInjectedError,
+                      refuse_unported)
 from . import manifest as _manifest
 
 __all__ = ["CheckpointManager", "restore_checkpoint", "save_checkpoint"]
@@ -356,13 +357,20 @@ def _bcast_status(exc: BaseException | None, root: int) -> None:
 
 
 def restore_checkpoint(path: str, like: Any, *, root_rank: int = 0,
+                       allow_layout_change: bool = False, rule: Any = None,
+                       parallel: Any = None,
                        manifest: Any = _MANIFEST_UNREAD) -> Any:
     """Read the checkpoint at ``path`` on ``root_rank`` and return it laid
     out like ``like`` (same structure; tensors on its leaves' devices and
     dtypes, numbers as numbers) on every worker. ``like`` is not changed.
     A leaf missing from the checkpoint or of another shape raises
     ``ValueError``. ``manifest``: a manifest the caller already read
-    (``None`` for "absent"), to skip a second read."""
+    (``None`` for "absent"), to skip a second read. The elastic path's
+    ``allow_layout_change``, ``rule`` and ``parallel`` are not ported yet
+    (``NotImplementedError``)."""
+    refuse_unported("restore_checkpoint", {
+        "allow_layout_change": bool(allow_layout_change),
+        "rule": rule is not None, "parallel": parallel is not None})
     if faults.ARMED:
         faults.check("ckpt.read")
     path = os.path.abspath(path)

@@ -3,8 +3,11 @@ and ``flash_bwd_dkv`` against their plain PyTorch versions (dropout keep
 masks bit for bit), autograd through the kernels, the engine's flash
 streams against ``generate()``, a bf16-compute training update through
 the kernels against the plain versions, an async checkpoint save that the
-next in-place updates cannot change, and, on a machine with two or more cards,
-one data-parallel step over NCCL against the single-process step.
+next in-place updates cannot change, a fused training window captured as
+one CUDA graph against the pipelined run bit for bit (with and without
+remat) and with a loss_fn whose host-side state the graph fixes at
+capture, and, on a machine with two or more cards, one data-parallel step
+over NCCL against the single-process step.
 
 Marked ``cuda``: each test skips where CUDA is absent. On a machine with a
 card (this file imports no JAX, so the JAX-pinning conftest can be left
@@ -214,6 +217,36 @@ def test_flash_bwd_dkv_is_deterministic(device, dtype, hkv):
     assert torch.isfinite(dk.float()).all() and dk.abs().max() > 0
 
 
+def test_bf16_kernels_add_nothing_to_the_output_rounding(device):
+    """The bf16 kernels form P.V, dS.K, P^T.dO and dS^T.Q from f32 P and dS
+    split into a bf16 hi and lo part, as the JAX package forms them from
+    f32 ``p`` and ``ds``. At the training shape each bf16 output's error
+    against the plain version in f32 on the same (bf16) inputs,
+    ||got - ref||, is the bf16 rounding of the output itself,
+    ||bf16(ref) - ref||, within 1/16 of it. The two add in quadrature, so
+    this holds the kernel's error before the rounding under 0.36 of the
+    rounding's (~3e-4 of ||ref||): far above f32 and split-bf16 operands
+    (~1e-5), far below a single bf16 product of the rounded P or dS (its
+    ratio is ~1.4: a numpy emulation at s = 1024, d = 64 gives 1.34-1.46
+    for all four products, and exactly 1 for the split)."""
+    b, s, h, d = 8, 1024, 12, 64
+    gen = torch.Generator().manual_seed(2)
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen).to(torch.bfloat16).to(device)
+                  for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    dterm = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, None, None, g, lse, dterm, causal=True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, None, None, g, lse, dterm, causal=True)
+    f = [t.float() for t in (q, k, v, g)]
+    want = (fa.flash_attention_reference(*f[:3], causal=True)[0],
+            *fa.flash_attention_bwd_reference(*f, lse, dterm, causal=True))
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), (out, dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16 and ref.dtype == torch.float32
+        rounding = (ref.to(torch.bfloat16).float() - ref).norm().item()
+        err = (got.float() - ref).norm().item()
+        assert 0 < err <= (1 + 2 ** -4) * rounding, (name, err / rounding)
+
+
 def test_dropout_masks_equal_reference_bit_for_bit(device):
     """Each kernel's keep mask read off its output: with q = 0 every live
     probability is equal and nonzero, and identity matrices as V (forward),
@@ -343,6 +376,143 @@ def test_async_save_while_updates_run_in_place_keeps_the_saved_bytes(device, tmp
     for k, v in leaves(back["state"]).items():
         assert v.device == device and torch.equal(v, copy[k]), k
     mgr.close()
+
+
+@pytest.mark.parametrize("remat", [False, True, "dots"])
+def test_fused_window_graph_is_bit_identical_to_eager(device, remat):
+    """train_loop(fuse="window") on the card: the first window of the width
+    runs eagerly, the second captures the window (gathers, forward and
+    backward through the three kernels, the NCCL gradient all-reduce of a
+    world of one, adamw) as one CUDA graph, and every window replays it.
+    Every parameter, moment, count and flush loss equals the pipelined
+    run's bit for bit; the kernels' launches are the eager window's plus
+    the replays' (the counters' rise during capture launched nothing), and
+    the device's own counts agree on both paths."""
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+
+    gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, 211, (32, 129), generator=gen).numpy()
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    fm.init()
+    try:
+        def run(fuse):
+            lm = _small_bf16_lm(device, seed=6)
+            opt = optim.adamw(1e-3)
+            step = make_train_step(
+                lambda p, ms, b: (lm(b[0], targets=b[1]).mean(), ms), opt,
+                remat=remat)
+            loader = fm.DistributedDataLoader(
+                fm.ArrayDataset((tokens[:, :-1], tokens[:, 1:])), 4, shuffle=True)
+            before = [f.launches for f in kernels]
+            fa.device_launches(device, reset=True)
+            state, summary = train_loop(step, TrainState.create(lm, opt), loader,
+                                        epochs=2, flush_every=4, fuse=fuse)
+            on_device = list(fa.device_launches(device).values())
+            counted = [f.launches - b for f, b in zip(kernels, before)]
+            return state, summary, counted, step, on_device
+
+        ref, s_ref, n_ref, _, dev_ref = run(False)
+        got, s_got, n_got, step, dev_got = run("window")
+    finally:
+        fm.shutdown()
+    assert (s_got["fused_window"], s_got["dispatches"], s_ref["dispatches"]) == (4, 4, 16)
+    (prog,) = step.__fluxmpi_window_cache__.values()
+    assert prog.graph is not None and prog.replays == 3
+    per_update = 2 * (2 if remat else 1)  # two layers; remat runs the forward twice
+    assert prog.captured_launches == {"flash_fwd": 4 * per_update,
+                                      "flash_bwd_dq": 8, "flash_bwd_dkv": 8}
+    assert n_ref == [16 * per_update, 32, 32]
+    # The counters rose by one captured copy, which launched nothing; the
+    # graph launched its copy on each of the 3 replays.
+    assert prog.capture_counted == prog.captured_launches
+    assert prog.replayed_launches == {k: 3 * n for k, n in prog.captured_launches.items()}
+    launched = [n - prog.capture_counted[f.__name__] + prog.replayed_launches[f.__name__]
+                for n, f in zip(n_got, kernels)]
+    assert launched == n_ref
+    assert dev_ref == dev_got == n_ref
+    assert got.step == ref.step == 16
+    flush = lambda s: [(f["updates"], f["loss"], f["loss_mean"], f["loss_max"])  # noqa: E731
+                       for f in s["flushes"]]
+    assert flush(s_got) == flush(s_ref) and len(s_ref["flushes"]) == 4
+    for name in ref.params:
+        assert torch.equal(got.params[name], ref.params[name]), name
+        for m in ("mu", "nu"):
+            assert torch.equal(got.opt_state[m][name], ref.opt_state[m][name]), (m, name)
+    assert torch.equal(got.opt_state["count"], ref.opt_state["count"])
+
+
+def test_fused_window_graph_carries_the_model_state(device):
+    """A step whose loss_fn returns a new model state (a tensor updated from
+    the batch): the replayed windows carry it from window to window as the
+    eager updates do."""
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import MLP
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+
+    x = np.random.default_rng(0).uniform(-2, 2, (64, 1)).astype(np.float32)
+
+    def run(fuse):
+        model = MLP(features=(16, 1), device=device)
+
+        def loss_fn(p, ms, b):
+            return ((model(b[0]) - b[1]) ** 2).mean(), ms + b[0].sum()
+
+        opt = optim.adam(1e-3)
+        state = TrainState.create(model, opt,
+                                  model_state=torch.zeros((), device=device))
+        loader = fm.DistributedDataLoader(fm.ArrayDataset((x, x ** 2)), 8,
+                                          shuffle=True, device=device)
+        return train_loop(make_train_step(loss_fn, opt, grad_reduce=None), state,
+                          loader, epochs=3, flush_every=4, fuse=fuse)
+
+    ref, _ = run(False)
+    got, summary = run("window")
+    assert (summary["fused_window"], summary["dispatches"]) == (4, 6)
+    assert torch.equal(got.model_state, ref.model_state)
+    for name in ref.params:
+        assert torch.equal(got.params[name], ref.params[name]), name
+
+
+def test_fused_window_graph_fixes_host_state_at_capture(device):
+    """A loss_fn with host-side state (a Python counter scaling the loss)
+    under fuse="window": the counter advances in the eager first window
+    and at the capture only, and every replay reuses the capture's last
+    scale, so the run leaves the pipelined one (where the counter advances
+    at every update). fuse=False keeps the eager semantics."""
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import MLP
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+
+    x = np.random.default_rng(0).uniform(-2, 2, (64, 1)).astype(np.float32)
+
+    def run(fuse):
+        model = MLP(features=(16, 1), device=device,
+                    generator=torch.Generator().manual_seed(0))
+        calls = [0]
+
+        def loss_fn(p, ms, b):
+            calls[0] += 1
+            return ((model(b[0]) - b[1]) ** 2).mean() * (1.0 + 0.5 * calls[0]), ms
+
+        opt = optim.adam(1e-3)
+        loader = fm.DistributedDataLoader(fm.ArrayDataset((x, x ** 2)), 8,
+                                          shuffle=True, device=device)
+        state, summary = train_loop(make_train_step(loss_fn, opt, grad_reduce=None),
+                                    TrainState.create(model, opt), loader,
+                                    epochs=2, flush_every=4, fuse=fuse)
+        return state, summary, calls[0]
+
+    ref, s_ref, n_ref = run(False)
+    got, s_got, n_got = run("window")
+    assert (s_got["dispatches"], s_ref["dispatches"]) == (4, 16)
+    assert n_ref == 16 and n_got == 2 * 4  # the eager window and the capture
+    # The first window is eager in both runs; the replays differ.
+    assert s_got["flushes"][0]["loss"] == s_ref["flushes"][0]["loss"]
+    assert not all(torch.equal(got.params[k], ref.params[k]) for k in ref.params)
 
 
 NCCL_WORKER = textwrap.dedent('''

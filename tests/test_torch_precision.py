@@ -209,6 +209,44 @@ def _assert_grads_close(got, want):
 
 
 @pytest.mark.parametrize("attention", ["naive", "flash"])
+def test_bf16_lm_logits_are_bf16_and_match_jax(attention):
+    """The head of a bf16 LM gives bf16 logits, as flax's ``Embed.attend``
+    does (bf16 operands, f32 sums, one rounding of the result).
+
+    On the same final-LN activations the port's head and the JAX head
+    differ only by f32 summation order before the one rounding: at most
+    one bf16 ulp of each logit (``U |logit|``, since bf16 keeps 8
+    significant bits: half an ulp is at most ``2**-9`` relative, so one
+    ulp is at most ``U``). The whole model: the forward's bound (6 bf16
+    products per layer and the embedding) plus the head's three
+    roundings (two operands, the logits), ``U (6 L + 4) max|logit|``.
+    Tokens are not compared: argmax ties flip even within JAX."""
+    jlm, params, tlm = _lm_pair(attention)
+    x = _corpus()[:, :-1]
+    want = np.asarray(jlm.apply(params, jnp.asarray(x), train=False))
+    assert want.dtype == jnp.bfloat16
+    with torch.no_grad():
+        got = tlm(torch.from_numpy(x), train=False)
+        h, table = tlm(torch.from_numpy(x), train=False, hidden=True)
+        head = tlm(torch.from_numpy(x[:, :1]), pos_offset=torch.zeros(4),
+                   kv_cache=tuple(torch.zeros(tlm.cache_shape(4, 4), dtype=torch.bfloat16)
+                                  for _ in range(2)))
+    assert got.dtype == head.dtype == torch.bfloat16
+    scale = np.abs(want.astype(np.float32)).max()
+    err = np.abs(got.float().numpy() - want.astype(np.float32)).max()
+    assert err <= U * (6 * L + 4) * scale, (err, scale)
+    # The head alone, on the same activations.
+    jhead = np.asarray(jnp.dot(jnp.asarray(h.numpy()).astype(jnp.bfloat16),
+                               jnp.asarray(table.detach().numpy()).astype(jnp.bfloat16).T)
+                       ).astype(np.float32)
+    with torch.no_grad():
+        mine = tlm._head(h).float().numpy()
+    assert np.all(np.abs(mine - jhead) <= U * np.abs(jhead) + 1e-6)
+    print(f"{attention}: logits max|diff| {err:.4e} of max|logit| {scale:.3f}; "
+          f"head alone {np.abs(mine - jhead).max():.3e}")
+
+
+@pytest.mark.parametrize("attention", ["naive", "flash"])
 def test_bf16_lm_loss_and_every_gradient_match_jax(attention):
     jlm, params, tlm = _lm_pair(attention)
     corpus = _corpus()

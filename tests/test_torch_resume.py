@@ -272,6 +272,29 @@ def test_preemption_handler_sets_the_flag_on_sigterm():
     assert signal.getsignal(signal.SIGTERM) is signal.SIG_DFL
 
 
+def test_preemption_handler_sets_the_flag_on_sigint():
+    """Ctrl-C drains and banks as SIGTERM does: the default signals are the
+    JAX package's (SIGTERM, SIGINT)."""
+    import inspect
+    import os
+    import signal
+
+    from fluxmpi_tpu import runtime as jruntime
+
+    default = inspect.signature(tfm.install_preemption_handlers).parameters["signals"].default
+    assert default == inspect.signature(
+        jruntime.install_preemption_handlers).parameters["signals"].default
+    before = signal.getsignal(signal.SIGINT)
+    tfm.install_preemption_handlers()
+    try:
+        os.kill(os.getpid(), signal.SIGINT)
+        assert tfm.preemption_requested()
+    finally:
+        tfm.uninstall_preemption_handlers()
+    assert not tfm.preemption_requested()
+    assert signal.getsignal(signal.SIGINT) is before
+
+
 def test_train_loop_checkpoint_arguments_are_checked(port_world, jax_params):
     run = _Run(jax_params)
     with pytest.raises(ValueError, match="requires a checkpoint"):

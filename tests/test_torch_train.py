@@ -284,10 +284,18 @@ def test_loader_drop_last_and_scan_batches():
 
 def test_loader_waiting_options_raise():
     ds = tfm.ArrayDataset(np.zeros(8))
-    for kw in (dict(device_gather=True), dict(elastic_order=True),
-               dict(transform=lambda b: b)):
+    for kw in (dict(elastic_order=True), dict(transform=lambda b: b),
+               dict(transform_with_rng=True)):
         with pytest.raises(NotImplementedError):
             tfm.DistributedDataLoader(ds, 4, device="cpu", **kw)
+    # device_gather=True is ported: the JAX package's errors and batches.
+    with pytest.raises(ValueError, match="array-backed"):
+        tfm.DistributedDataLoader(_ListDataset(np.zeros((8, 2)), np.zeros(8)), 4,
+                                  device="cpu", device_gather=True)
+    with pytest.raises(ValueError, match="device_gather must be"):
+        tfm.DistributedDataLoader(ds, 4, device="cpu", device_gather="always")
+    forced = tfm.DistributedDataLoader(ds, 4, device="cpu", device_gather=True)
+    assert forced.fusible() and len(list(forced)) == 2
     with pytest.raises(ValueError, match="needs the full-dataset view"):
         tfm.DistributedDataLoader(ds, 4, global_shuffle=True, device="cpu")
 
@@ -413,8 +421,13 @@ def test_train_loop_budgets_and_errors(port_world):
     assert s["updates"] == 4 and s["dispatches"] == 2  # whole dispatches
     with pytest.raises(ValueError, match="ran dry"):
         train_loop(step, state, iter([(x, y)]), steps=3)
-    with pytest.raises(NotImplementedError):
-        train_loop(step, state, loader, fuse="window")
+    # One-program flush windows are ported: the 4-batch epoch is one
+    # window (flush_every clamped), and a forced window over a plain
+    # iterable raises the JAX package's reason.
+    state, s = train_loop(step, state, loader, fuse="window")
+    assert (s["updates"], s["fused_window"], s["dispatches"]) == (4, 4, 1)
+    with pytest.raises(ValueError, match="not a DistributedDataLoader"):
+        train_loop(step, state, iter([(x, y)]), steps=3, fuse="window")
     with pytest.raises(NotImplementedError):
         make_train_step(_mse(model), opt, metrics=True)
     with pytest.raises(ValueError, match="remat must be"):
