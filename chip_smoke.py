@@ -83,6 +83,31 @@
    the same bits. Prints, for both paths, ms per update and tokens/s (from
    a second, untraced run of 32 updates), the idle share of a traced
    window, host launch calls per update, capture seconds and peak memory.
+8. Vision phase (``vision_phase``; no hand-written kernel on its path:
+   convolutions are cuDNN's, BatchNorm is plain PyTorch ops): ResNet-50
+   (``num_classes=1000``, bf16 compute, f32 parameters and statistics) on
+   1024 synthetic 224x224x3 uint8 images in the device-gather loader,
+   batch 128, ``sgd(0.1, momentum=0.9)``, ``train_loop(steps=32,
+   flush_every=8)`` with ``fuse="auto"`` beside ``fuse=False``: every
+   parameter, momentum buffer, BatchNorm statistic and flush loss
+   bit-identical, every statistic moved, the losses finite and the last
+   flush's mean below the first's; the card against the CPU path in f32
+   with TF32 off on a batch of 4: the whole model at the seeded initial
+   weights (logits, loss, every gradient and statistic within 1e-3 per
+   leaf) and every convolution, BatchNorm and the head alone at the
+   trained weights against f64 (within 2e-4); ms per update,
+   images/s, the idle share of a traced window, device time by kernel
+   group and of the 15 kernels that take most of it, by name, host launch
+   calls per update, capture seconds and peak memory
+   for both paths. Then the CNN at ``bench.py``'s ``_bench_cnn`` shape
+   (batch 256 of 32x32x3, f32, 20 updates: images/s, ms per update, the
+   loss falling); the DEQ at ``examples/deq_regression.py``'s widths with
+   each solver (its implicit gradient on the card against the CPU's within
+   1e-4, 50 updates in one-update CUDA-graph windows halving the loss);
+   and at world 1 over NCCL ``synchronize(FluxModelWrapper(...))``, a
+   ``FlatParamVector`` synchronized in one broadcast, ``iallreduce`` and
+   ``ibcast`` with ``Request.wait`` against the blocking calls,
+   ``donate=True``, ``barrier(tag=)`` and the ``host_*`` collectives.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -92,6 +117,7 @@ package is missing, or any phase fails.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -120,6 +146,12 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 2 ** -7 + 1e-4}
 # per leaf max|diff| / max|g|: the attention differs only in f32
 # summation order, carried through 12 layers and 8192 tokens.
 TRAIN_GRAD_TOL = 1e-3
+# One ResNet-50 layer alone in f32 against f64, max|diff| / max|ref| over
+# its output and gradients: sums of up to 50176 products (the stem's
+# weight gradient at batch 4); cuDNN's f32 algorithms on an H100 stand at
+# most 7.1e-5 from f64 there and TF32 at 9.3e-4 or more
+# (scripts/resnet_f32_probe.py).
+LAYER_TOL = 2e-4
 
 GPT2_SMALL = dict(vocab_size=50257, max_len=1024, num_layers=12, d_model=768,
                   num_heads=12, d_ff=3072, ln_eps=1e-5)
@@ -626,10 +658,40 @@ def _kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
-def traced(run):
+def _vision_group(name: str) -> str:
+    """The vision phase's kernel groups, by PyTorch's and cuDNN's kernel
+    names: the model computes in bf16 and BatchNorm in f32, so f32
+    elementwise kernels are BatchNorm's and bf16 ones relu's and the
+    residual adds'."""
+    n = name.lower()
+    if any(t in n for t in ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd",
+                            "cudnn", "xmma", "sm90_", "gemm", "cutlass")):
+        return "convolutions (cuDNN) and matmuls"
+    if "multi_tensor" in n or "foreach" in n:
+        return "optimizer (multi-tensor)"
+    if "nccl" in n:
+        return "collectives (NCCL)"
+    if "pool" in n:
+        return "max pool"
+    if "copy" in n:
+        return "casts (bf16 <-> f32) and layout copies"
+    if "reduce_kernel" in n:
+        return "reductions (BatchNorm statistics, scale and bias gradients)"
+    if "elementwise" in n and ("bfloat16" in n or "elementwise_kernel<8," in n):
+        # (a vector of 8 holds 16 bytes of a 2-byte type: bf16 here)
+        return "bf16 elementwise (relu, residual adds)"
+    if "elementwise" in n:
+        return "f32 elementwise (BatchNorm arithmetic)"
+    if any(t in n for t in ("memset", "fill", "cat", "index", "pad")):
+        return "fills, pads and gathers"
+    return "other"
+
+
+def traced(run, group=_kernel_group):
     """Run ``run()`` under ``torch.profiler`` (device activity only);
     returns ``(run's result, device busy ms, wall ms, kernel count, device
-    ms by kernel group)``, busy and wall from this one traced run."""
+    ms by kernel group)``, busy and wall from this one traced run, kernels
+    grouped by ``group(name)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -644,7 +706,7 @@ def traced(run):
             continue
         start, end = evt.time_range.start, evt.time_range.end
         spans.append((start, end))
-        g = _kernel_group(evt.name)
+        g = group(evt.name)
         groups[g] = groups.get(g, 0.0) + (end - start) / 1e3
     spans.sort()
     busy_us, cur_s, cur_e = 0.0, None, None
@@ -1558,6 +1620,509 @@ def fused_phase(device, bf16_stats, updates: int = 32, flush_every: int = 8,
     return stats, failures
 
 
+# Vision phase: ResNet-50 at ImageNet width (the reference's headline
+# workload), the Conv+BN CNN, the DEQ, and the adapter path with the rest of
+# the collectives.
+RESNET_BATCH = 128
+# Eight batches per epoch, so flush_every=8 windows are whole epochs and
+# the fused and pipelined paths flush at the same updates.
+RESNET_IMAGES = 1024
+RESNET_HW = 224
+RESNET_CLASSES = 10  # labels used of the 1000 the head predicts
+
+
+def image_corpus(n: int, hw: int, classes: int, seed: int = 0):
+    """``n`` uint8 NHWC images of ``hw`` x ``hw`` x 3 and their labels
+    (``classes`` of them, int64), from ``default_rng(seed)``: each image is
+    its class's template plus noise, so the loss can fall in a few
+    updates."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, classes, n)
+    templates = rng.integers(0, 128, (classes, hw, hw, 3), dtype=np.uint8)
+    noise = rng.integers(0, 128, (n, hw, hw, 3), dtype=np.uint8)
+    return (templates[labels] + noise).astype(np.uint8), labels.astype(np.int64)
+
+
+def _bn_loss(model):
+    """Cross-entropy of a BatchNorm classifier, its new statistics beside
+    (``bench.py``'s ``_bn_loss``)."""
+    import torch.nn.functional as F
+
+    def loss_fn(params, model_state, batch):
+        x, y = batch
+        logits, new = model(x, model_state, train=True)
+        return F.cross_entropy(logits.float(), y), new
+
+    return loss_fn
+
+
+def _max_rel(got: dict, want: dict) -> tuple:
+    """The largest ``max|got - want| / max|want|`` over the leaves, and
+    its leaf."""
+    worst = (0.0, None)
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        err = float((got[k].cpu() - w).abs().max()) / (scale if scale else 1.0)
+        worst = max(worst, (err, k), key=lambda t: t[0])
+    return worst
+
+
+def resnet_run(dev, corpus, fuse, updates: int, flush_every: int):
+    """ResNet-50 in bf16 compute with f32 parameters (``bench.py``'s
+    ``_bench_resnet50``): the main path (``train_loop(steps=updates)``), a
+    second run of as many updates for the times, a traced window and the
+    host's launch calls over another. Returns the run's numbers, the first
+    run's summary and its state's leaves."""
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import ResNet50
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, device=dev,
+                     generator=torch.Generator().manual_seed(0))
+    fm.synchronize(model)
+    loader = fm.DistributedDataLoader(
+        fm.DistributedDataContainer(fm.ArrayDataset(corpus)),
+        global_batch_size=RESNET_BATCH, shuffle=True, device=dev)
+    opt = optim.sgd(0.1, momentum=0.9)
+    step = make_train_step(_bn_loss(model), opt)
+    state = TrainState.create(model, opt, model_state=model.init_batch_stats())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, summ = train_loop(step, state, loader, steps=updates, flush_every=flush_every,
+                             fuse=fuse)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    leaves = {f"params/{k}": v.detach().clone() for k, v in state.params.items()}
+    leaves.update({f"momentum/{k}": v.clone() for k, v in state.opt_state["trace"].items()})
+    leaves.update({f"batch_stats/{k}": v.clone() for k, v in state.model_state.items()})
+    t0 = time.perf_counter()
+    state, timed = train_loop(step, state, loader, steps=updates, flush_every=flush_every,
+                              fuse=fuse)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    width = summ["fused_window"] or 1
+    per_update = [ms / width for ms in timed["step_ms"]]
+    run = dict(fuse=fuse, updates=summ["updates"], dispatches=summ["dispatches"],
+               fused_window=summ["fused_window"], wall_seconds=wall,
+               images_per_sec=timed["updates"] * RESNET_BATCH / wall,
+               median_update_ms=float(np.median(per_update)), step_ms=timed["step_ms"],
+               peak_memory_gb=peak_gb, graphs=graph_stats(step))
+    run["steady_images_per_sec"] = RESNET_BATCH / run["median_update_ms"] * 1e3
+    (_, tsum), busy_ms, wall_ms, nk, by_name = traced(
+        lambda: train_loop(step, state, loader, steps=width, flush_every=flush_every,
+                           fuse=fuse), group=lambda name: name)
+    groups = {}
+    for name, ms in by_name.items():
+        groups[_vision_group(name)] = groups.get(_vision_group(name), 0.0) + ms
+    n = tsum["updates"]
+    run["profile"] = dict(updates=n, wall_ms=wall_ms, device_busy_ms=busy_ms,
+                          kernels=nk, idle_share=(1 - busy_ms / wall_ms) if nk else None,
+                          device_ms_by_group_per_update={
+                              g: ms / n for g, ms in sorted(groups.items(),
+                                                            key=lambda kv: -kv[1])},
+                          top_kernels_ms_per_update=[
+                              (name, ms / n) for name, ms in list(by_name.items())[:15]])
+    (_, hsum), calls, nk2 = host_launches(
+        lambda: train_loop(step, state, loader, steps=width, flush_every=flush_every,
+                           fuse=fuse))
+    run["host_launches_per_update"] = calls / hsum["updates"]
+    run["device_kernels_per_update"] = nk2 / hsum["updates"]
+    if fuse:
+        run["capture_seconds"] = sum(g["capture_seconds"] for g in graph_stats(step))
+    params = {k: v.detach().float().clone() for k, v in state.params.items()}
+    mstate = {k: v.clone() for k, v in state.model_state.items()}
+    del model, loader, step, state
+    torch.cuda.empty_cache()
+    return run, summ, leaves, (params, mstate)
+
+
+def _resnet_grads(where, dtype, params, mstate, x, y) -> dict:
+    """ResNet-50 (``dtype`` compute and parameters) with ``params`` and the
+    statistics ``mstate``, one training forward and backward on ``where``:
+    the logits, the loss, every gradient and the new statistics, on the
+    host."""
+    import torch
+
+    from fluxmpi_tpu_torch.models import ResNet50
+
+    model = ResNet50(num_classes=1000, dtype=dtype, device=where).to(dtype)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(params[k])
+    ms = {k: v.to(where, dtype) for k, v in mstate.items()}
+    logits, new = model(x.to(where), ms, train=True)
+    loss = torch.nn.functional.cross_entropy(logits.float(), y.to(where))
+    names = [k for k, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+    res = {f"grad/{k}": g.detach().cpu().double() for k, g in zip(names, grads)}
+    res.update({f"stats/{k}": v.cpu().double() for k, v in new.items()})
+    res["logits"] = logits.detach().cpu().double()
+    res["loss"] = loss.detach().cpu().double().reshape(1)
+    return res
+
+
+def resnet_layers(where, dtype, params, mstate, x, y, feed=None):
+    """ResNet-50's layers one at a time: every ``Conv``, ``BatchNorm`` and
+    the head, each fed its own input and its output's gradient from one
+    reference pass, so that no layer's error reaches another. With
+    ``feed=None``, runs that pass (a training forward and backward of the
+    whole model with ``params`` and the statistics ``mstate`` on ``x, y``)
+    and returns the feed; else returns, per layer, its output and the
+    gradients of its input and its parameters, ``dtype`` on ``where``, on
+    the host in f64."""
+    import torch
+    import torch.nn.functional as F
+
+    from fluxmpi_tpu_torch.models import ResNet50
+    from fluxmpi_tpu_torch.models._layers import BatchNorm, Conv, StatsContext
+    from fluxmpi_tpu_torch.models.transformer import Dense
+
+    model = ResNet50(num_classes=1000, dtype=dtype, device=where).to(dtype)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(params[k])
+    layers = {n: m for n, m in model.named_modules() if isinstance(m, (Conv, BatchNorm, Dense))}
+    if feed is None:
+        feed, handles = {}, []
+
+        def hook(name):
+            def capture(mod, args, out):
+                feed[name] = [args, None]
+                out.register_hook(lambda g: feed[name].__setitem__(1, g.detach()))
+            return capture
+
+        handles = [m.register_forward_hook(hook(n)) for n, m in layers.items()]
+        logits, _ = model(x.to(where), {k: v.to(where, dtype) for k, v in mstate.items()},
+                          train=True)
+        F.cross_entropy(logits.float(), y.to(where)).backward()
+        for h in handles:
+            h.remove()
+        return {n: ([a.detach() if isinstance(a, torch.Tensor) else a for a in args], dy)
+                for n, (args, dy) in feed.items()}
+    ctx = StatsContext({k: v.to(where, dtype) for k, v in mstate.items()}, True)
+    out = {}
+    for n, m in layers.items():
+        args, dy = feed[n]
+        xin = args[0].to(where, dtype).requires_grad_()
+        rest = [ctx if isinstance(a, StatsContext) else a for a in args[1:]]
+        yout = m(xin, *rest)
+        names = ["in"] + [k for k, _ in m.named_parameters()]
+        grads = torch.autograd.grad(yout, [xin, *m.parameters()], dy.to(where, yout.dtype))
+        out[f"{n}/out"] = yout.detach().cpu().double()
+        out.update({f"{n}/d_{k}": g.cpu().double() for k, g in zip(names, grads)})
+    return out
+
+
+def resnet_card_vs_cpu(dev, trained, corpus):
+    """f32 ResNet-50 with TF32 off on a batch of 4 of the corpus at 224 x
+    224, the card (cuDNN) against the CPU path, gated twice. Returns each
+    gate's worst ``max|diff| / max|ref|`` and where.
+
+    - The whole model at the seeded initial weights: the logits, the loss,
+      every gradient and the new statistics against the CPU's f32, per leaf
+      within ``TRAIN_GRAD_TOL``. There each block's last BatchNorm scale is
+      zero, so the gradients of the convolutions and BatchNorms inside the
+      blocks are zero on both sides: this gate holds the stem, the
+      projections, the last BatchNorms, the pooling and the head.
+    - Every layer alone at the weights the bf16 run trained
+      (:func:`resnet_layers`): each convolution, BatchNorm and the head fed
+      its input and its output's gradient from an f64 pass of the CPU path;
+      its output and the gradients of its input and parameters in f32 on
+      the card against the same layer in f64, within ``LAYER_TOL``: every
+      convolution's forward, data and weight gradient at the main path's
+      shapes, layout and pads, with live weights.
+
+    The whole model with live weights is not held to f32 end to end: a
+    pre-activation within f32's rounding of 0 flips relu's mask, and with
+    it a share of a gradient leaf, on the CPU as on the card
+    (``scripts/resnet_f32_probe.py``)."""
+    import torch
+
+    from fluxmpi_tpu_torch.models import ResNet50
+
+    x = torch.from_numpy(corpus[0][:4])
+    y = torch.from_numpy(corpus[1][:4])
+    init = ResNet50(num_classes=1000, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    params = {k: p.detach() for k, p in init.named_parameters()}
+    stats = init.init_batch_stats()
+    cpu = torch.device("cpu")
+    whole = _max_rel(_resnet_grads(dev, torch.float32, params, stats, x, y),
+                     _resnet_grads(cpu, torch.float32, params, stats, x, y))
+    params, stats = trained
+    params = {k: v.cpu() for k, v in params.items()}
+    stats = {k: v.cpu() for k, v in stats.items()}
+    feed = resnet_layers(cpu, torch.float64, params, stats, x, y)
+    exact = resnet_layers(cpu, torch.float64, params, stats, x, y, feed)
+    card = resnet_layers(dev, torch.float32, params, stats, x, y, feed)
+    return whole, _max_rel(card, exact) + (len(exact),)
+
+
+def cnn_run(dev, updates: int = 20, flush_every: int = 10, batch: int = 256):
+    """The Conv+BN CNN at ``bench.py``'s ``_bench_cnn`` shape (batch 256 of
+    32 x 32 x 3, f32, ``sgd(0.1, momentum=0.9)``) through ``train_loop``."""
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import CNN
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+
+    corpus = image_corpus(batch * flush_every, 32, 10, seed=1)
+    model = CNN(num_classes=10, device=dev, generator=torch.Generator().manual_seed(0))
+    fm.synchronize(model)
+    loader = fm.DistributedDataLoader(
+        fm.DistributedDataContainer(fm.ArrayDataset(corpus)), global_batch_size=batch,
+        shuffle=True, device=dev)
+    opt = optim.sgd(0.1, momentum=0.9)
+    step = make_train_step(_bn_loss(model), opt)
+    state = TrainState.create(model, opt, model_state=model.init_batch_stats())
+    state, summ = train_loop(step, state, loader, steps=updates, flush_every=flush_every)
+    t0 = time.perf_counter()
+    state, timed = train_loop(step, state, loader, steps=updates, flush_every=flush_every)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    width = timed["fused_window"] or 1
+    per_update = [ms / width for ms in timed["step_ms"]]
+    losses = [f["loss_mean"] for f in summ["flushes"] + timed["flushes"]]
+    return dict(updates=summ["updates"] + timed["updates"], timed_updates=timed["updates"],
+                fused_window=summ["fused_window"],
+                images_per_sec=timed["updates"] * batch / wall,
+                median_update_ms=float(np.median(per_update)), flush_loss_means=losses)
+
+
+def deq_run(dev, steps: int = 50):
+    """``examples/deq_regression.py`` (``DEQ(hidden=32, out=1)``, 128
+    samples of 3 features, ``adam(5e-3)``) with each solver: one loss and
+    implicit gradient on the card against the CPU path's, then ``steps``
+    updates through ``train_loop`` (one-update CUDA-graph windows). The
+    comparison solves to ``tol=1e-6`` (the example's 1e-4 could stop the
+    two paths an iteration apart); training keeps the example's settings."""
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import DEQ
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(128, 3)).astype(np.float32)
+    y = np.tanh(x.sum(axis=1, keepdims=True)).astype(np.float32)
+    out = {}
+    for solver in ("damped", "anderson", "broyden"):
+        grads = []
+        for where in (dev, torch.device("cpu")):
+            model = DEQ(hidden=32, out=1, solver=solver, tol=1e-6, max_iter=100,
+                        in_features=3, device=where)
+            loss = ((model(torch.from_numpy(x).to(where))
+                     - torch.from_numpy(y).to(where)) ** 2).mean()
+            g = torch.autograd.grad(loss, list(model.parameters()))
+            grads.append({"loss": loss.detach().cpu().reshape(1), **{
+                k: t.cpu() for (k, _), t in zip(model.named_parameters(), g)}})
+        err, leaf = _max_rel(*grads)
+        model = DEQ(hidden=32, out=1, solver=solver, in_features=3, device=dev)
+        fm.synchronize(model)
+
+        def loss_fn(params, ms, batch, model=model):
+            return ((model(batch[0]) - batch[1]) ** 2).mean(), ms
+
+        opt = optim.adam(5e-3)
+        step = make_train_step(loss_fn, opt)
+        loader = fm.DistributedDataLoader(fm.ArrayDataset((x, y)), global_batch_size=128,
+                                          device=dev)
+        t0 = time.perf_counter()
+        _, summ = train_loop(step, TrainState.create(model, opt), loader, steps=steps,
+                             flush_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        first, last = summ["flushes"][0]["loss"], summ["flushes"][-1]["loss"]
+        out[solver] = dict(card_vs_cpu=err, worst_leaf=leaf, first_loss=first,
+                           last_loss=last, updates=summ["updates"],
+                           fused_window=summ["fused_window"],
+                           ms_per_update=wall * 1e3 / summ["updates"],
+                           graphs=len(graph_stats(step)))
+    return out
+
+
+def adapter_checks(dev):
+    """The adapter path and the new collectives at world 1 over NCCL:
+    ``synchronize(FluxModelWrapper(...))``, ``synchronize`` of a
+    ``FlatParamVector`` in one collective (counted), ``iallreduce`` and
+    ``ibcast`` with ``Request.wait`` against the blocking calls,
+    ``donate=True``, ``barrier(tag=)`` and the ``host_*`` collectives."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch.models import MLP
+
+    class Holder:
+        def __init__(self):
+            self.w = torch.arange(6.0, device=dev).reshape(2, 3)
+            self.model = MLP((8, 1), device=dev)
+            self.inner = type("Inner", (), {})()
+            self.inner.b = torch.ones(4, device=dev, dtype=torch.bfloat16)
+
+    obj = Holder()
+    before = {k: v.clone() for k, v in obj.model.state_dict().items()}
+    wrapped = fm.synchronize(fm.FluxModelWrapper(obj))
+    checks = {"wrapper": wrapped.model is obj and torch.equal(obj.w.cpu(), torch.arange(
+        6.0).reshape(2, 3)) and obj.inner.b.device == dev and all(
+        torch.equal(v, before[k]) for k, v in obj.model.state_dict().items())}
+    fpv = fm.FlatParamVector.from_tree({"w": torch.randn(3, 4, device=dev),
+                                        "n": torch.arange(3, device=dev)})
+    real, count = dist.broadcast, [0]
+
+    def counted(*a, **k):
+        count[0] += 1
+        return real(*a, **k)
+
+    dist.broadcast = counted
+    try:
+        synced = fm.synchronize(fpv)
+    finally:
+        dist.broadcast = real
+    checks["flat_param_vector_one_collective"] = count[0] == 1 and torch.equal(
+        synced.to_tree()["w"], fpv.to_tree()["w"]) and synced.to_tree()["n"].dtype == torch.int64
+    tree = {"f": torch.randn(5, device=dev), "i": torch.arange(3, device=dev)}
+    val, req = fm.iallreduce(tree, "mean")
+    got = req.wait()
+    checks["iallreduce"] = all(torch.equal(got[k], fm.allreduce(tree, "mean")[k])
+                               and got[k] is val[k] for k in tree)
+    checks["ibcast"] = all(torch.equal(w[k], tree[k])
+                           for w in fm.Request.wait_all([fm.ibcast(tree)[1]]) for k in tree)
+    t = torch.ones(4, device=dev)
+    checks["donate"] = fm.allreduce(t, donate=True) is t and fm.bcast(t, donate=True) is t
+    fm.barrier(tag="vision_phase")
+    h = np.arange(4, dtype=np.int32)
+    checks["host"] = (np.array_equal(fm.host_allreduce(h), h)
+                      and np.array_equal(fm.host_allgather(h), h[None])
+                      and np.array_equal(fm.host_bcast(h), h)
+                      and fm.local_device_count() == torch.cuda.device_count())
+    return checks
+
+
+def vision_phase(device, updates: int = 32, flush_every: int = 8):
+    """ResNet-50 at 224 x 224 in bf16 compute (batch 128, ``sgd(0.1,
+    momentum=0.9)``, 1024 synthetic images in the device-gather loader)
+    through ``train_loop(fuse="auto")`` beside ``fuse=False``, held bit for
+    bit; the card against the CPU path in f32; the CNN; the DEQ; the
+    adapters and collectives."""
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+
+    failures = []
+    dev = fm.init()
+    t0 = time.perf_counter()
+    corpus = image_corpus(RESNET_IMAGES, RESNET_HW, RESNET_CLASSES)
+    print(f"vision: {RESNET_IMAGES} images of {RESNET_HW}x{RESNET_HW}x3 uint8 "
+          f"({corpus[0].nbytes / 1e6:.1f} MB), {RESNET_CLASSES} classes, made in {time.perf_counter() - t0:.2f}s", flush=True)
+    pipe, pipe_sum, want, _ = resnet_run(dev, corpus, False, updates, flush_every)
+    fused, fused_sum, got, (params, mstate) = resnet_run(dev, corpus, "auto", updates,
+                                                         flush_every)
+    same = [k for k in want if torch.equal(got[k], want[k])]
+    flush = lambda s: [(f["updates"], f["loss"], f["loss_mean"], f["loss_max"])  # noqa: E731
+                       for f in s["flushes"]]
+    flush_same = flush(fused_sum) == flush(pipe_sum)
+    moved = sum(not torch.equal(v, torch.zeros_like(v) if k.endswith(".mean")
+                                else torch.ones_like(v))
+                for k, v in got.items() if k.startswith("batch_stats/"))
+    n_stats = sum(k.startswith("batch_stats/") for k in got)
+    losses = [f["loss_mean"] for f in fused_sum["flushes"]]
+    for run in (pipe, fused):
+        prof = run["profile"]
+        idle = prof["idle_share"]
+        print(f"vision resnet50 [{'fused' if run['fuse'] else 'pipelined'}]: "
+              f"{run['updates']} updates in {run['dispatches']} dispatches (fused_window "
+              f"{run['fused_window']}); a second run of {updates}: {run['wall_seconds']:.3f}s "
+              f"= {run['images_per_sec']:.1f} images/s; median {run['median_update_ms']:.2f} "
+              f"ms per update = {run['steady_images_per_sec']:.1f} images/s; traced window "
+              f"of {prof['updates']}: device busy {prof['device_busy_ms']:.3f} ms of "
+              f"{prof['wall_ms']:.3f} ms wall (idle share "
+              f"{idle if idle is None else round(idle, 4)}"
+              f"); host launch calls per update {run['host_launches_per_update']:.2f} "
+              f"(device kernels per update {run['device_kernels_per_update']:.1f}); peak "
+              f"memory {run['peak_memory_gb']:.2f} GB"
+              + (f"; capture and instantiate {run['capture_seconds']:.3f}s" if run["fuse"]
+                 else ""), flush=True)
+        for g, ms in prof["device_ms_by_group_per_update"].items():
+            print(f"vision resnet50 [{'fused' if run['fuse'] else 'pipelined'}]:   {g:48s} "
+                  f"{ms:9.3f} ms per update", flush=True)
+        for name, ms in prof["top_kernels_ms_per_update"]:
+            print(f"vision resnet50 [{'fused' if run['fuse'] else 'pipelined'}]:     kernel "
+                  f"{ms:9.3f} ms per update  {name[:200]}", flush=True)
+        if not prof["kernels"]:
+            failures.append("vision: the ResNet-50 trace holds no device time")
+    print(f"vision resnet50: fused vs pipelined: {len(same)} of {len(want)} parameters, "
+          f"momentum buffers and BatchNorm statistics bit-identical; flush losses "
+          f"{'identical' if flush_same else 'DIFFER'}; {moved} of {n_stats} statistics moved "
+          f"from their init; flush mean losses {losses}", flush=True)
+    if len(same) != len(want) or not flush_same:
+        failures.append("vision: ResNet-50 fused differs from fuse=False")
+    if moved != n_stats:
+        failures.append(f"vision: {n_stats - moved} BatchNorm statistics did not move")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        failures.append(f"vision: ResNet-50 flush mean losses {losses} not finite and falling")
+    if not fused["fused_window"] or sum(g["replays"] for g in fused["graphs"]) < 1:
+        failures.append("vision: ResNet-50 fuse='auto' replayed no CUDA graph")
+    t0 = time.perf_counter()
+    (err, leaf), (lerr, lname, n_layer) = resnet_card_vs_cpu(dev, (params, mstate), corpus)
+    print(f"vision resnet50 card vs CPU (f32, TF32 off, batch 4 at {RESNET_HW}x{RESNET_HW}): "
+          f"the whole model at the seeded initial weights (logits, loss, every gradient and "
+          f"statistic) against the CPU's f32: worst max|diff|/max|ref| {err:.3e} at {leaf} "
+          f"(gate {TRAIN_GRAD_TOL:g}); every layer alone at the trained weights ({n_layer} "
+          f"outputs and gradients of the convolutions, BatchNorms and head) against f64 on "
+          f"the CPU: worst {lerr:.3e} at {lname} (gate {LAYER_TOL:g}); "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    if not err <= TRAIN_GRAD_TOL:
+        failures.append(f"vision: ResNet-50 card vs CPU {err:.3e} at {leaf}")
+    if not lerr <= LAYER_TOL:
+        failures.append(f"vision: ResNet-50 layer on the card vs f64 {lerr:.3e} at {lname}")
+    del params, mstate
+    torch.cuda.empty_cache()
+
+    cnn = cnn_run(dev)
+    print(f"vision cnn (batch 256 of 32x32x3, f32): {cnn['images_per_sec']:.1f} images/s "
+          f"over {cnn['timed_updates']} updates, median {cnn['median_update_ms']:.3f} ms per "
+          f"update "
+          f"(fused_window {cnn['fused_window']}); flush mean losses "
+          f"{[round(v, 4) for v in cnn['flush_loss_means']]}", flush=True)
+    if not (all(map(math.isfinite, cnn["flush_loss_means"]))
+            and cnn["flush_loss_means"][-1] < cnn["flush_loss_means"][0]):
+        failures.append("vision: CNN loss not finite and falling")
+    deq = deq_run(dev)
+    for solver, r in deq.items():
+        print(f"vision deq [{solver}]: card vs CPU loss and implicit gradients "
+              f"{r['card_vs_cpu']:.3e} ({r['worst_leaf']}); {r['updates']} updates "
+              f"(fused_window {r['fused_window']}, {r['graphs']} window program) "
+              f"{r['ms_per_update']:.2f} ms each with the capture; loss "
+              f"{r['first_loss']:.5f} -> {r['last_loss']:.5f}", flush=True)
+        if not r["card_vs_cpu"] <= 1e-4:
+            failures.append(f"vision: DEQ {solver} card vs CPU {r['card_vs_cpu']:.3e}")
+        if not r["last_loss"] < 0.5 * r["first_loss"]:
+            failures.append(f"vision: DEQ {solver} loss {r['first_loss']} -> {r['last_loss']}")
+    checks = adapter_checks(dev)
+    print(f"vision adapters and collectives (world 1, NCCL): {checks}", flush=True)
+    failures += [f"vision: {k} check failed" for k, ok in checks.items() if not ok]
+    fm.shutdown()
+    return dict(resnet50=dict(pipelined=pipe, fused=fused, leaves=len(want),
+                              bit_identical=len(same), flushes_bit_identical=flush_same,
+                              stats_moved=moved, flush_loss_means=losses,
+                              card_vs_cpu=err, card_vs_cpu_leaf=leaf,
+                              layers_vs_f64=lerr, layers_vs_f64_worst=lname),
+                cnn=cnn, deq=deq, adapters=checks), failures
+
+
 def main() -> int:
     import torch
 
@@ -1628,6 +2193,9 @@ def run_phases(device):
     torch.cuda.empty_cache()
     fused, fused_failures = fused_phase(device, bf16)
     failures += fused_failures
+    torch.cuda.empty_cache()
+    vision, vision_failures = vision_phase(device)
+    failures += vision_failures
 
     fwd_row = next(r for r in rows if r["case"] == "decode_1024" and r["dtype"] == "float32")
     fwd_train = next(r for r in rows if r["case"] == "train_1024" and r["dtype"] == "float32")
@@ -1700,7 +2268,7 @@ def run_phases(device):
                       for r in bwd_rows],
         })
     return kernels, {"slice": stats, "train": train, "train_bf16": bf16,
-                     "train_bf16_fused": fused}, failures
+                     "train_bf16_fused": fused, "vision": vision}, failures
 
 
 if __name__ == "__main__":

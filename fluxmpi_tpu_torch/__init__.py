@@ -5,7 +5,7 @@ The port imports ``torch`` and numpy only, never JAX or the JAX package.
 Entry points run on a CUDA device unless the caller passes
 ``device="cpu"``, where the kernels' plain PyTorch versions run.
 
-What is ported, in two slices:
+What is ported, slice by slice:
 
 - serving: :class:`~fluxmpi_tpu_torch.models.TransformerLM` through
   :class:`~fluxmpi_tpu_torch.serving.InferenceEngine`, with attention in
@@ -24,41 +24,60 @@ What is ported, in two slices:
   :mod:`~fluxmpi_tpu_torch.utils.manifest`), ``train_loop``'s periodic
   saves, resume and preemption drain (:func:`preemption_requested` and
   friends), and deterministic fault injection
-  (:mod:`~fluxmpi_tpu_torch.faults`).
+  (:mod:`~fluxmpi_tpu_torch.faults`);
+- one-program flush windows: ``train_loop(fuse="auto")`` runs each flush
+  window over the device-gather loader as one CUDA graph
+  (:func:`~fluxmpi_tpu_torch.parallel.make_window_program`);
+- the reference's vision configs data-parallel: the Conv+BN
+  :class:`~fluxmpi_tpu_torch.models.CNN` (sync-BN with ``axis_name``),
+  :class:`~fluxmpi_tpu_torch.models.ResNet` (ResNet-18/34/50/101) and the
+  :class:`~fluxmpi_tpu_torch.models.DEQ` with implicit gradients
+  (:func:`~fluxmpi_tpu_torch.models.fixed_point_solve`), their BatchNorm
+  statistics averaged by the step (``state_reduce="mean"``), with the rest
+  of the FluxMPI surface: :func:`iallreduce` / :func:`ibcast` and their
+  :class:`Request`, the ``host_*`` collectives, :func:`cpu` /
+  :func:`device`, ``donate=``, :class:`FluxModelWrapper`,
+  :class:`FlatParamVector`, :func:`local_device_count` and
+  :mod:`~fluxmpi_tpu_torch.config`.
 """
 
-from . import (comm, data, errors, faults, logging, models, ops, optim,
+from . import (comm, config, data, errors, faults, logging, models, ops, optim,
                optimizer, parallel, runtime, serving, sync, utils)
-from .comm import allreduce, barrier, bcast, reduce
+from .comm import (Request, allreduce, barrier, bcast, cpu, device,
+                   host_allgather, host_allreduce, host_bcast, iallreduce,
+                   ibcast, reduce)
 from .data import (ArrayDataset, DistributedDataContainer,
                    DistributedDataLoader, scan_batches)
 from .errors import (CheckpointDesyncError, CheckpointTimeoutError,
                      CollectiveError, FaultInjectedError,
-                     FluxMPINotInitializedError)
+                     FluxMPINotInitializedError, TopologyMismatchError)
 from .logging import fluxmpi_print, fluxmpi_println
 from .optimizer import DistributedOptimizer, allreduce_gradients
 from .runtime import (Initialized, clear_preemption, device_count, init,
-                      install_preemption_handlers, is_initialized, local_rank,
+                      install_preemption_handlers, is_initialized,
+                      local_device_count, local_rank,
                       preemption_handlers_installed, preemption_requested,
                       process_count, process_index, request_preemption,
                       resolve_device, shutdown, total_workers,
                       uninstall_preemption_handlers)
-from .sync import synchronize
+from .sync import FlatParamVector, FluxModelWrapper, synchronize
 
 __version__ = "0.1.0"
 
 __all__ = [
     "ArrayDataset", "CheckpointDesyncError", "CheckpointTimeoutError",
     "CollectiveError", "DistributedDataContainer", "DistributedDataLoader",
-    "DistributedOptimizer", "FaultInjectedError",
-    "FluxMPINotInitializedError", "Initialized", "allreduce",
-    "allreduce_gradients", "barrier", "bcast", "clear_preemption", "comm",
-    "data", "device_count", "errors", "faults", "fluxmpi_print",
-    "fluxmpi_println", "init", "install_preemption_handlers",
-    "is_initialized", "local_rank", "logging", "models", "ops", "optim",
-    "optimizer", "parallel", "preemption_handlers_installed",
-    "preemption_requested", "process_count", "process_index", "reduce",
-    "request_preemption", "resolve_device", "runtime", "scan_batches",
-    "serving", "shutdown", "synchronize", "total_workers",
-    "uninstall_preemption_handlers", "utils",
+    "DistributedOptimizer", "FaultInjectedError", "FlatParamVector",
+    "FluxMPINotInitializedError", "FluxModelWrapper", "Initialized",
+    "Request", "TopologyMismatchError", "allreduce", "allreduce_gradients",
+    "barrier", "bcast", "clear_preemption", "comm", "config", "cpu", "data",
+    "device", "device_count", "errors", "faults", "fluxmpi_print",
+    "fluxmpi_println", "host_allgather", "host_allreduce", "host_bcast",
+    "iallreduce", "ibcast", "init", "install_preemption_handlers",
+    "is_initialized", "local_device_count", "local_rank", "logging",
+    "models", "ops", "optim", "optimizer", "parallel",
+    "preemption_handlers_installed", "preemption_requested",
+    "process_count", "process_index", "reduce", "request_preemption",
+    "resolve_device", "runtime", "scan_batches", "serving", "shutdown",
+    "synchronize", "total_workers", "uninstall_preemption_handlers", "utils",
 ]

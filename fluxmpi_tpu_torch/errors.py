@@ -5,7 +5,8 @@ from __future__ import annotations
 
 __all__ = ["CheckpointDesyncError", "CheckpointTimeoutError",
            "CollectiveError", "FaultInjectedError",
-           "FluxMPINotInitializedError", "RequestRejectedError"]
+           "FluxMPINotInitializedError", "RequestRejectedError",
+           "TopologyMismatchError"]
 
 
 class FluxMPINotInitializedError(RuntimeError):
@@ -70,3 +71,11 @@ class CheckpointTimeoutError(RuntimeError):
 class CheckpointDesyncError(RuntimeError):
     """The workers disagree on the step being checkpointed: banking the
     save would mix states from different steps, so it is aborted."""
+
+
+class TopologyMismatchError(ValueError):
+    """Raised when an elastic restore cannot lay a checkpointed leaf out
+    over the current world: a partition axis named by the saved (or
+    supplied) partition spec is absent, or the leaf dimension it shards
+    is not divisible by the new axis size. The message names the leaf
+    path, the offending dimension or axis, and both topologies."""

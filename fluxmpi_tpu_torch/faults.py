@@ -19,11 +19,16 @@ site                  where it fires in the port
 ``ckpt.snapshot``     the host copy a checkpoint save takes on the caller's
                       thread
 ``ckpt.async_write``  each background-writer save
+``comm.*``            each collective of :mod:`~fluxmpi_tpu_torch.comm`
+                      (``allreduce``, ``bcast``, ``reduce``, ``barrier``,
+                      ``host_allreduce``, ``host_allgather``,
+                      ``host_bcast``; ``iallreduce`` and ``ibcast`` hit
+                      ``comm.allreduce`` and ``comm.bcast``), before it runs
 ====================  =====================================================
 
 The other names of :data:`KNOWN_SITES` are the JAX package's sites
-(collectives, elastic resize, serving); the port does not weave them yet,
-and a schedule naming them never fires.
+(elastic resize, serving); the port does not weave them yet, and a
+schedule naming them never fires.
 
 A firing site raises :class:`~fluxmpi_tpu_torch.errors.FaultInjectedError`,
 or, for a ``delay=`` entry, sleeps that many seconds and continues.

@@ -1,9 +1,15 @@
 """Models of the port."""
 
-from .convert import load_flax_params, to_flax_params
+from .cnn import CNN
+from .convert import (load_flax_params, load_flax_variables, to_flax_params,
+                      to_flax_variables)
+from .deq import DEQ, fixed_point_solve
 from .generate import generate, prefill_cache, prefill_kv
 from .mlp import MLP
+from .resnet import ResNet, ResNet18, ResNet34, ResNet50, ResNet101
 from .transformer import TransformerLM
 
-__all__ = ["MLP", "TransformerLM", "generate", "load_flax_params", "prefill_cache", "prefill_kv",
-           "to_flax_params"]
+__all__ = ["CNN", "DEQ", "MLP", "ResNet", "ResNet101", "ResNet18", "ResNet34",
+           "ResNet50", "TransformerLM", "fixed_point_solve", "generate",
+           "load_flax_params", "load_flax_variables", "prefill_cache", "prefill_kv",
+           "to_flax_params", "to_flax_variables"]

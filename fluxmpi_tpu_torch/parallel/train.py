@@ -6,7 +6,10 @@ training loop): each worker runs forward and backward on its local shard
 of the batch, the gradients are all-reduced across the workers in one
 flat collective per dtype (``grad_reduce="mean"`` by default, ``"sum"``,
 or ``None`` when a :func:`~fluxmpi_tpu_torch.DistributedOptimizer`
-reduces them), and the optimizer rule updates the parameters in place.
+reduces them), the floating leaves of the new model state (BatchNorm's
+running statistics) are averaged across the workers
+(``state_reduce="mean"`` by default, or kept per worker with
+``"local"``), and the optimizer rule updates the parameters in place.
 PyTorch runs eagerly, so the step is a plain Python function; its
 kernels launch asynchronously and the returned loss stays on the device.
 ``policy=`` casts the parameters to a compute dtype entering the loss
@@ -19,9 +22,8 @@ captured once and replayed once per window; on the CPU the same window
 run eagerly. ``train_loop(fuse="auto"|"window")`` drives it.
 
 Not ported yet (each raises ``NotImplementedError`` when passed):
-``parallel=``, ``mesh=``, ``axis_name=``, ``style=``, ``state_reduce=``,
-``donate=``, ``state_sharding=``, ``batch_spec=``, ``metrics=`` and
-``model_stats=``.
+``parallel=``, ``mesh=``, ``axis_name=``, ``style=``, ``donate=``,
+``state_sharding=``, ``batch_spec=``, ``metrics=`` and ``model_stats=``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from torch import nn
 from torch.utils import _pytree as pytree
 from torch.utils import checkpoint as _checkpoint
 
+from .. import runtime
 from ..data import _gather_batch
 from ..errors import refuse_unported
 from ..optim import GradientTransformation, apply_updates
@@ -45,9 +48,8 @@ from ..optimizer import allreduce_gradients
 __all__ = ["TrainState", "make_eval_step", "make_train_step",
            "make_window_program"]
 
-_WAITING = ("parallel", "mesh", "axis_name", "style", "state_reduce",
-            "donate", "state_sharding", "batch_spec", "metrics",
-            "model_stats")
+_WAITING = ("parallel", "mesh", "axis_name", "style", "donate",
+            "state_sharding", "batch_spec", "metrics", "model_stats")
 
 
 def _refuse_waiting(fn: str, waiting: dict) -> None:
@@ -170,6 +172,7 @@ def make_train_step(
     optimizer: GradientTransformation,
     *,
     grad_reduce: str | None = "mean",
+    state_reduce: str = "mean",
     grad_accum_steps: int = 1,
     scan_steps: int = 1,
     remat: bool | str = False,
@@ -180,9 +183,15 @@ def make_train_step(
 
     ``loss_fn(params, model_state, batch) -> (loss, new_model_state)``
     computes this worker's scalar loss on its local batch (stateless
-    models return ``None``; the new model state stays each worker's own).
+    models return ``None``).
     ``grad_reduce``: ``"mean"`` averages the gradients and the loss over
     the workers, ``"sum"`` sums them, ``None`` leaves them local.
+    ``state_reduce``: ``"mean"`` averages every floating leaf of the new
+    model state over the workers (BatchNorm's running statistics; integer
+    leaves are kept), in one flat collective per dtype, as the JAX
+    package's ``style="shard_map"`` step does; ``"local"`` keeps each
+    worker's own. Before :func:`~fluxmpi_tpu_torch.init` there is one
+    worker and nothing to average.
     ``grad_accum_steps=k`` splits each batch into ``k`` micro-batches and
     averages their gradients before the one update. ``scan_steps=K`` takes
     ``K`` batches stacked on a leading axis, runs ``K`` updates and returns
@@ -220,6 +229,8 @@ def make_train_step(
     loss_fn = _with_policy_and_remat(loss_fn, policy, remat, watch)
     if grad_reduce not in ("mean", "sum", None):
         raise ValueError("grad_reduce must be 'mean', 'sum', or None")
+    if state_reduce not in ("mean", "local"):
+        raise ValueError("state_reduce must be 'mean' or 'local'")
     if grad_accum_steps < 1:
         raise ValueError("grad_accum_steps must be >= 1")
     if scan_steps < 1:
@@ -250,6 +261,8 @@ def make_train_step(
         if grad_reduce is not None:
             # The loss rides in the gradients' flat f32 collective.
             grads, loss = allreduce_gradients((grads, loss), reduce_op=grad_reduce)
+        if state_reduce == "mean" and mstate is not None and runtime.is_initialized():
+            mstate = _mean_floating(mstate)
         updates, ts.opt_state = optimizer.update(grads, ts.opt_state, ts.params)
         apply_updates(ts.params, updates)
         ts.model_state = mstate
@@ -273,6 +286,19 @@ def make_train_step(
     # (the loss only: metrics= and model_stats= are not ported).
     step.__fluxmpi_window_meta__ = {"single": single, "aux": ("loss",)}
     return step
+
+
+def _mean_floating(tree: Any) -> Any:
+    """``tree`` with its floating tensor leaves averaged over the workers
+    (one flat collective per dtype); other leaves as they are."""
+    leaves, spec = pytree.tree_flatten(tree)
+    idx = [i for i, x in enumerate(leaves)
+           if torch.is_tensor(x) and x.is_floating_point()]
+    if idx:
+        reduced = allreduce_gradients([leaves[i].detach() for i in idx], reduce_op="mean")
+        for i, r in zip(idx, reduced):
+            leaves[i] = r
+    return pytree.tree_unflatten(leaves, spec)
 
 
 def _state_tensors(ts: TrainState) -> list[torch.Tensor]:

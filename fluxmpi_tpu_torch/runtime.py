@@ -36,6 +36,7 @@ __all__ = [
     "init",
     "install_preemption_handlers",
     "is_initialized",
+    "local_device_count",
     "local_rank",
     "preemption_handlers_installed",
     "preemption_requested",
@@ -73,6 +74,9 @@ class _State:
     rank = 0
     world = 1
     local_rank = 0
+    # The gloo group the host_* collectives run over: None at world 1,
+    # the default group on the CPU, a gloo group beside NCCL on the card.
+    host_group: Any = None
 
 
 _state = _State()
@@ -159,7 +163,16 @@ def init(*, device: str | torch.device | None = None,
             kwargs["store"] = dist.TCPStore("127.0.0.1", 0, 1, is_master=True,
                                             timeout=kwargs["timeout"])
         dist.init_process_group(**kwargs)
+    if world == 1:
+        host_group = None
+    elif dist.get_backend() == "gloo":
+        host_group = dist.group.WORLD
+    else:
+        # Every rank creates it here, in the same order: new_group is
+        # collective.
+        host_group = dist.new_group(backend="gloo")
     _state.initialized = True
+    _state.host_group = host_group
     _state.owns_group = not adopt
     _state.device = dev
     _state.rank, _state.world, _state.local_rank = rank, world, lr
@@ -194,6 +207,7 @@ def shutdown() -> None:
     _state.initialized = False
     _state.owns_group = False
     _state.device = None
+    _state.host_group = None
     _state.rank, _state.world, _state.local_rank = 0, 1, 0
 
 
@@ -230,6 +244,13 @@ def device_count() -> int:
     """Global device count (one device per process)."""
     _require_init()
     return _state.world
+
+
+def local_device_count() -> int:
+    """Devices addressable by this process: the CUDA devices it sees, or 1
+    on the CPU backend."""
+    _require_init()
+    return torch.cuda.device_count() if _state.device.type == "cuda" else 1
 
 
 def worker_device() -> torch.device:

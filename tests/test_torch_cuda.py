@@ -6,8 +6,10 @@ the kernels against the plain versions, an async checkpoint save that the
 next in-place updates cannot change, a fused training window captured as
 one CUDA graph against the pipelined run bit for bit (with and without
 remat) and with a loss_fn whose host-side state the graph fixes at
-capture, and, on a machine with two or more cards, one data-parallel step
-over NCCL against the single-process step.
+capture, BatchNorm's statistics carried by a captured window (with the
+step's statistics all-reduce and a sync-BN model at world 1 over NCCL), a
+ResNet on the card against the CPU, and, on a machine with two or more
+cards, one data-parallel step over NCCL against the single-process step.
 
 Marked ``cuda``: each test skips where CUDA is absent. On a machine with a
 card (this file imports no JAX, so the JAX-pinning conftest can be left
@@ -515,6 +517,100 @@ def test_fused_window_graph_fixes_host_state_at_capture(device):
     assert not all(torch.equal(got.params[k], ref.params[k]) for k in ref.params)
 
 
+def _bn_run(device, fuse, axis_name=None, epochs=3):
+    """A small Conv+BN CNN through ``train_loop`` on the card (NCCL world
+    1, so the step's ``state_reduce="mean"`` all-reduces the statistics)."""
+    import torch.nn.functional as F
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import CNN
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(64, 16, 16, 3)).astype(np.float32)
+    y = rng.integers(0, 4, 64)
+    model = CNN(4, (8, 16), axis_name=axis_name, device=device)
+
+    def loss_fn(p, ms, b):
+        logits, new = model(b[0], ms, train=True)
+        return F.cross_entropy(logits, b[1]), new
+
+    opt = optim.sgd(0.1, momentum=0.9)
+    loader = fm.DistributedDataLoader(fm.ArrayDataset((x, y)), 8, shuffle=True,
+                                      device=device)
+    state = TrainState.create(model, opt, model_state=model.init_batch_stats())
+    return train_loop(make_train_step(loss_fn, opt), state, loader, epochs=epochs,
+                      flush_every=4, fuse=fuse)
+
+
+def test_fused_window_graph_carries_the_batchnorm_state(device):
+    """BatchNorm's running statistics, averaged over the world by the step
+    (C.5) and carried from window to window by the captured graph, equal
+    the eager updates' bit for bit; so does ``CNN(axis_name=...)``, whose
+    sync-BN all-reduce (``torch.distributed.nn``) runs inside the graph at
+    world 1 over NCCL and changes no bit against the plain model."""
+    import fluxmpi_tpu_torch as fm
+
+    fm.init()
+    try:
+        ref, _ = _bn_run(device, False)
+        got, summary = _bn_run(device, "window")
+        sync, _ = _bn_run(device, "window", axis_name="dp")
+    finally:
+        fm.shutdown()
+    assert (summary["fused_window"], summary["dispatches"]) == (4, 6)
+    assert set(got.model_state) == {"bn_0.mean", "bn_0.var", "bn_1.mean", "bn_1.var"}
+    for other in (got, sync):
+        for k, v in ref.model_state.items():
+            assert torch.equal(other.model_state[k], v), k
+        for k, v in ref.params.items():
+            assert torch.equal(other.params[k], v), k
+    assert not torch.equal(ref.model_state["bn_0.var"], torch.ones_like(
+        ref.model_state["bn_0.var"]))
+
+
+def test_resnet_on_card_matches_cpu(device):
+    """ResNet-50's structure (bottlenecks, the projections, the stride-2
+    convs and the stem with flax's asymmetric padding) at ``num_filters`` 8
+    on 64 x 64, batch 4, f32 with TF32 off: the logits, the loss,
+    every gradient and the new statistics on the card (cuDNN) against the
+    CPU, per leaf ``max|diff| / max|ref| <= 1e-4``."""
+    import torch.nn.functional as F
+
+    from fluxmpi_tpu_torch.models import ResNet
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(4, 64, 64, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 4))
+    out = []
+    try:
+        for where in (device, torch.device("cpu")):
+            model = ResNet((3, 4, 6, 3), num_classes=10, num_filters=8, device=where,
+                           generator=torch.Generator().manual_seed(1))
+            with torch.no_grad():  # off the zero-initialised scales
+                for k, p in model.named_parameters():
+                    p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator()
+                                             .manual_seed(len(k))).to(where))
+            logits, new = model(x.to(where), model.init_batch_stats(), train=True)
+            loss = F.cross_entropy(logits, y.to(where))
+            names = [k for k, _ in model.named_parameters()]
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            res = {k: g.cpu() for k, g in zip(names, grads)}
+            res.update({k: v.cpu() for k, v in new.items()})
+            res["logits"], res["loss"] = logits.detach().cpu(), loss.detach().cpu()
+            out.append(res)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    card, cpu = out
+    assert set(card) == set(cpu) and len(cpu) == 161 + 106 + 2
+    for k, ref in cpu.items():
+        err = (card[k] - ref).abs().max() / ref.abs().max().clamp_min(1e-30)
+        assert err <= 1e-4, (k, float(err))
+
+
 NCCL_WORKER = textwrap.dedent('''
     import sys
     import numpy as np
@@ -543,6 +639,31 @@ NCCL_WORKER = textwrap.dedent('''
     state, res["loss"] = make_train_step(loss_fn, opt)(TrainState.create(model, opt), (xb, yb))
     for name, p in model.named_parameters():
         res["param/" + name] = p
+
+    # Sync-BN and the statistics' all-reduce across the cards: this rank's
+    # share of a batch of 4 per card (f32, TF32 off).
+    import torch.nn.functional as F
+    from fluxmpi_tpu_torch.models import CNN
+
+    torch.backends.cudnn.allow_tf32 = False
+    images = np.random.default_rng(1).normal(size=(4 * world, 8, 8, 3)).astype(np.float32)
+    labels = np.arange(4 * world) % 4
+    cnn = fm.synchronize(CNN(4, (4, 8), axis_name="dp", device=dev,
+                             generator=torch.Generator().manual_seed(100 + rank)))
+
+    def bn_loss(p, ms, batch):
+        logits, new = cnn(batch[0], ms, train=True)
+        return F.cross_entropy(logits, batch[1]), new
+
+    share = slice(4 * rank, 4 * rank + 4)
+    opt = optim.sgd(0.1)
+    state, res["bn_loss"] = make_train_step(bn_loss, opt)(
+        TrainState.create(cnn, opt, model_state=cnn.init_batch_stats()),
+        (torch.from_numpy(images[share]).to(dev), torch.from_numpy(labels[share]).to(dev)))
+    for name, p in cnn.named_parameters():
+        res["bn_param/" + name] = p
+    for name, v in state.model_state.items():
+        res["bn_stats/" + name] = v
     np.savez(sys.argv[1], **{k: v.detach().cpu().numpy() if torch.is_tensor(v) else v
                              for k, v in res.items()})
     fm.shutdown()
@@ -554,7 +675,10 @@ def test_nccl_data_parallel_step_matches_single_process(tmp_path):
     environment as ``torchrun`` sets it: the ranks bind their own cards,
     the collectives reduce across them, and one step on the shards equals
     the single-process step on the global batch (f32 on the cards against
-    f32 on the CPU, a 16-wide MLP: atol 1e-5)."""
+    f32 on the CPU, a 16-wide MLP: atol 1e-5); so does one step of a
+    Conv+BN CNN with sync-BN (``axis_name``) and the step's statistics
+    all-reduce (its loss, parameters and running statistics; TF32 off,
+    atol 1e-5)."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         pytest.skip("needs two or more NVIDIA GPUs")
     world = torch.cuda.device_count()
@@ -604,4 +728,29 @@ def test_nccl_data_parallel_step_matches_single_process(tmp_path):
         np.testing.assert_allclose(float(r["loss"]), loss.item(), atol=1e-5, rtol=0)
         for name, p in model.named_parameters():
             np.testing.assert_allclose(r["param/" + name], p.detach().numpy(),
+                                       atol=1e-5, rtol=0, err_msg=name)
+
+    # Sync-BN over the cards = one process on the whole batch (no axis).
+    import torch.nn.functional as F
+    from fluxmpi_tpu_torch.models import CNN
+
+    images = np.random.default_rng(1).normal(size=(4 * world, 8, 8, 3)).astype(np.float32)
+    labels = torch.from_numpy(np.arange(4 * world) % 4)
+    cnn = CNN(4, (4, 8), device="cpu", generator=torch.Generator().manual_seed(100))
+
+    def bn_loss(p, ms, batch):
+        logits, new = cnn(batch[0], ms, train=True)
+        return F.cross_entropy(logits, batch[1]), new
+
+    state, bn_loss_ref = make_train_step(bn_loss, optim.sgd(0.1), grad_reduce=None)(
+        TrainState.create(cnn, optim.sgd(0.1), model_state=cnn.init_batch_stats()),
+        (torch.from_numpy(images), labels))
+    for rank in range(world):
+        r = np.load(tmp_path / f"rank{rank}.npz")
+        np.testing.assert_allclose(float(r["bn_loss"]), bn_loss_ref.item(), atol=1e-5, rtol=0)
+        for name, p in cnn.named_parameters():
+            np.testing.assert_allclose(r["bn_param/" + name], p.detach().numpy(),
+                                       atol=1e-5, rtol=0, err_msg=name)
+        for name, v in state.model_state.items():
+            np.testing.assert_allclose(r["bn_stats/" + name], v.numpy(),
                                        atol=1e-5, rtol=0, err_msg=name)

@@ -47,7 +47,8 @@ def test_import_loads_no_jax_flax_or_reference_package():
         "sync", "ops.flash_attention", "ops.fused_ce", "models.mlp",
         "models.convert", "models.transformer", "parallel.train",
         "parallel.loop", "faults", "utils.precision", "utils.manifest",
-        "utils.checkpoint")}
+        "utils.checkpoint", "config", "models.cnn", "models.resnet", "models.deq",
+        "models._layers")}
     assert ported <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -11,23 +11,27 @@ and the port adds no parameter of its own. The allow-list holds only:
 - the port's deliberate extras: ``device=`` (torch places tensors on a
   device, JAX on a mesh) and ``generator=`` (torch draws weights from a
   generator, flax from a PRNG key), ``init(timeout=)``, the
-  ``torch.distributed`` process group's timeout, and ``MLP(in_features=)``
-  (a torch module is built with its shapes; flax infers the input width
-  at the first call);
+  ``torch.distributed`` process group's timeout, and ``in_features=`` of
+  ``MLP``, ``CNN``, ``ResNet`` (and its blocks) and ``DEQ`` (a torch module
+  is built with its shapes; flax infers the input width at the first
+  call);
 - the TPU-only arguments ``block_q``, ``block_k``, ``interpret``,
-  ``mesh`` and ``axis_name`` (the port has no Pallas tiling and no device
-  mesh);
+  ``mesh`` and ``axis_name`` where the port does not take them (the port
+  has no Pallas tiling and no device mesh; its sync-BN models take
+  ``axis_name``, which is then compared);
 - the arguments that the port takes through ``**waiting`` and still
   refuses with ``NotImplementedError``, each named in ``REFUSED`` (and
   shown to raise). Arguments that the port spells as parameters but
   refuses when set are named in ``REFUSED_WHEN_SET`` and shown to raise
   too;
-- flax's own module fields (``parent``, ``name``) and the flax ``params``
+- flax's own module fields (``parent``, ``name``; also through a
+  ``functools.partial`` such as ``ResNet50``) and the flax ``params``
   beside a ``model``: a torch module holds its own weights.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib
 import inspect
 import time
@@ -36,8 +40,9 @@ import pytest
 
 flax_linen = pytest.importorskip("flax.linen")
 
-MODULES = ["", ".comm", ".data", ".errors", ".faults", ".logging", ".optimizer",
-           ".runtime", ".sync", ".models", ".models.generate", ".models.transformer",
+MODULES = ["", ".comm", ".config", ".data", ".errors", ".faults", ".logging",
+           ".optimizer", ".runtime", ".sync", ".models", ".models.cnn", ".models.deq",
+           ".models.generate", ".models.resnet", ".models.transformer",
            ".ops", ".ops.flash_attention", ".ops.fused_ce", ".parallel",
            ".parallel.loop", ".parallel.train", ".serving", ".serving.cache",
            ".serving.engine", ".utils", ".utils.checkpoint", ".utils.manifest",
@@ -47,7 +52,10 @@ EXTRAS = {"device", "generator"}
 TPU_ONLY = {"block_q", "block_k", "interpret", "mesh", "axis_name"}
 FLAX_FIELDS = {"parent", "name"}
 # Port-only parameters beyond EXTRAS, by callable.
-PORT_ONLY = {"init": {"timeout"}, "MLP": {"in_features"}}
+PORT_ONLY = {"init": {"timeout"},
+             **{name: {"in_features"} for name in (
+                 "MLP", "CNN", "DEQ", "ResNet", "ResNet18", "ResNet34", "ResNet50",
+                 "ResNet101", "BottleneckBlock", "BasicBlock")}}
 # Arguments the port takes through **waiting and refuses, by callable.
 REFUSED = {
     "init": {"devices", "mesh_shape", "parallel", "distributed", "telemetry",
@@ -55,7 +63,7 @@ REFUSED = {
              "model_stats", "compileplane", "memory", "profile",
              "compile_cache", "export", "serving", "request_log", "fleet",
              "resize"},
-    "make_train_step": {"parallel", "style", "state_reduce", "donate",
+    "make_train_step": {"parallel", "style", "donate",
                         "state_sharding", "batch_spec", "metrics",
                         "model_stats"},
     "make_eval_step": {"parallel", "state_sharding", "batch_spec"},
@@ -63,10 +71,6 @@ REFUSED = {
 # Parameters the port spells as the JAX package does but refuses with
 # NotImplementedError when set: (module, callable) -> {argument: a value}.
 REFUSED_WHEN_SET = {
-    (".comm", "allreduce"): {"donate": True},
-    (".comm", "bcast"): {"donate": True},
-    (".comm", "reduce"): {"donate": True},
-    (".comm", "barrier"): {"tag": "step"},
     (".serving.engine", "ServingRequest"): {"clock": time.monotonic},
     (".serving.engine", "InferenceEngine"): {
         "max_len": 64, "slo_ttft_s": 1.0, "slo_token_s": 0.1, "registry": object(),
@@ -78,8 +82,7 @@ REFUSED_WHEN_SET = {
                                        "prefill": "scan"},
 }
 # The smallest positional arguments each of them takes.
-_REFUSED_ARGS = {"allreduce": ([0.0],), "bcast": ([0.0],), "reduce": ([0.0],),
-                 "barrier": (), "ServingRequest": ([1], 1), "InferenceEngine": (None,),
+_REFUSED_ARGS = {"ServingRequest": ([1], 1), "InferenceEngine": (None,),
                  "TransformerLM": (), "generate": (None, [[1]], 1)}
 LITERALS = (type(None), bool, int, float, str)
 
@@ -115,7 +118,17 @@ def test_the_comparison_covers_the_ported_surface():
                      "DistributedDataLoader", "make_train_step", "train_loop",
                      "RequestRejectedError", "InferenceEngine", "generate",
                      "restore_checkpoint", "CheckpointManager",
-                     "flash_attention", "TransformerLM"):
+                     "flash_attention", "TransformerLM",
+                     # Slice 5: the rest of the FluxMPI surface and the
+                     # vision models.
+                     "Request", "iallreduce", "ibcast", "host_allreduce",
+                     "host_allgather", "host_bcast", "cpu", "device",
+                     "local_device_count", "TopologyMismatchError",
+                     "FluxModelWrapper", "FlatParamVector", "load_preference",
+                     "set_preference", "delete_preference",
+                     "disable_device_collectives", "env_int", "CNN", "ResNet",
+                     "ResNet18", "ResNet34", "ResNet50", "ResNet101",
+                     "BottleneckBlock", "BasicBlock", "DEQ", "fixed_point_solve"):
         assert expected in names, expected
     assert len(PAIRS) >= 60
 
@@ -127,8 +140,11 @@ def _mismatches(name, port, ref):
         return []
     pp, rp = dict(sp.parameters), dict(sr.parameters)
     var_kw = any(p.kind is p.VAR_KEYWORD for p in pp.values())
-    skip = set(TPU_ONLY)
-    if inspect.isclass(ref) and issubclass(ref, flax_linen.Module):
+    # A TPU-only argument that the port does take (axis_name of the
+    # sync-BN models) is compared like any other.
+    skip = {n for n in TPU_ONLY if n not in pp}
+    base = ref.func if isinstance(ref, functools.partial) else ref
+    if inspect.isclass(base) and issubclass(base, flax_linen.Module):
         skip |= FLAX_FIELDS
     rnames = list(rp)
     if rnames[:2] == ["model", "params"]:
