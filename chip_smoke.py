@@ -25,11 +25,12 @@
    O) - dlse``, against ``flash_attention_bwd_reference`` (the backward
    written as formulas) in float32 and bfloat16: the training shape, GQA
    12 -> 4, window 128, packed segments with padding, rows with no key,
-   ``dlse != 0`` and dropout 0.1; checks that each of the three kernels'
-   dropout keep masks equals ``dropout_keep_reference`` bit for bit; and
-   times both kernels, dterm, the plain backward and the backward of
-   ``scaled_dot_product_attention`` (yardstick; CUDA-graph replay too, the
-   median of 5 replays, each printed) at the training shape.
+   ``dlse != 0``, dropout 0.1 and the two zoo shapes; checks that each of
+   the three kernels' dropout keep masks equals ``dropout_keep_reference``
+   bit for bit; and times both kernels, dterm, the plain backward and the
+   backward of ``scaled_dot_product_attention`` (yardstick; CUDA-graph
+   replay too, the median of 5 replays, each printed) at the training
+   shape and the zoo shapes.
 4. Serving phase: serves 16 requests on a GPT-2-small-width
    ``TransformerLM`` (12 layers, d_model 768, 12 heads, d_ff 3072, vocab
    50257, max_len 1024, float32, TF32 off, weights from
@@ -108,6 +109,31 @@
    ``FlatParamVector`` synchronized in one broadcast, ``iallreduce`` and
    ``ibcast`` with ``Request.wait`` against the blocking calls,
    ``donate=True``, ``barrier(tag=)`` and the ``host_*`` collectives.
+9. Zoo phase (``zoo_phase``): ViT-B/16 (patch 16 on 224x224x3, 12 layers,
+   d_model 768, 12 heads, d_ff 3072, 1000 classes, 86,567,656 parameters;
+   bf16 compute, ``adamw(1e-3)``, 1024 synthetic uint8 images, batch 128)
+   and the DDPM UNet of ``bench.py``'s ``_bench_unet`` (side 32, base 128,
+   mults (1, 2, 2, 4), attention at 8, groups 8, 4 heads; bf16,
+   ``adam(1e-4)``, ``ddpm_loss`` over ``cosine_beta_schedule(1000)`` with a
+   CUDA generator, 512 synthetic images in [-1, 1], batch 64), both with
+   ``attention_fn=flash_attention_fn()``, through ``train_loop(steps=32,
+   flush_every=8)`` with ``fuse="auto"`` beside ``fuse=False``: every
+   parameter, adam moment, count and flush loss bit-identical (so every
+   replayed DDPM window drew what the eager updates drew), 12 (ViT) and 6
+   (UNet) launches of each kernel per update by the kernels' device
+   counters and the wrappers' accounting, the last flush's mean loss below
+   the first's; one update's gradients through the kernels against the
+   plain versions (bf16 per leaf ||diff||/||g|| <= 2^-8 x 2 x the
+   attention layers; f32 at batch 8 per leaf max|diff|/max|g| <= 1e-3; the
+   UNet at its seeded weights + 0.1 N(0, 1), every attention kernel's
+   gradient nonzero); ViT in f32 on the card against the CPU at batch 4
+   (1e-3 per leaf); a ``TransformerEncoder`` at ViT-B's widths with a flax
+   padding mask through ``flash_attention_fn`` against the dense masked
+   attend; and the UNet's ``ema_init(decay=0.95)`` over 8 more ``step()``
+   calls, then ``ddim_sample(num_steps=20)`` of 8 images from the EMA
+   weights (finite, within the clip). Times, idle share, host launch calls,
+   capture seconds, peak memory, device time by group and the 15 costliest
+   kernels for each model and path.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -272,7 +298,20 @@ def kernel_cases():
         ("window", 2, 256, 256, 12, 12, 64, True, 48, None, 0.0),
         ("masked_row", 2, 128, 128, 12, 12, 64, True, None, "masked_row", 0.0),
         ("dropout", 2, 256, 256, 12, 12, 64, True, None, None, 0.1),
+        # The zoo's shapes (slice 6), non-causal: ViT-B/16's 197 tokens (a
+        # tail in every tile), the UNet's five attentions at 8x8 and its
+        # middle one at head dim 128.
+        ("vit_197", 128, 197, 197, 12, 12, 64, False, None, None, 0.0),
+        ("unet_64", 64, 64, 64, 4, 4, 64, False, None, None, 0.0),
+        ("unet_mid_d128", 64, 16, 16, 4, 4, 128, False, None, None, 0.0),
     ]
+
+
+# The zoo's cases, each with its own row in the kernel table.
+ZOO_TABLE_CASES = ("vit_197", "unet_64", "unet_mid_d128")
+# The cases whose row in the kernel table carries the plain version's and
+# the library's times beside the kernel's.
+TABLE_CASES = ("train_1024", *ZOO_TABLE_CASES)
 
 
 def backward_cases():
@@ -286,6 +325,9 @@ def backward_cases():
         (("masked_row", 2, 128, 128, 12, 12, 64, True, None, "masked_row", 0.0), False),
         (("dlse", 2, 256, 256, 12, 12, 64, True, None, None, 0.0), True),
         (("dropout", 2, 256, 256, 12, 12, 64, True, None, None, 0.1), False),
+        (("vit_197", 128, 197, 197, 12, 12, 64, False, None, None, 0.0), False),
+        (("unet_64", 64, 64, 64, 4, 4, 64, False, None, None, 0.0), False),
+        (("unet_mid_d128", 64, 16, 16, 4, 4, 128, False, None, None, 0.0), False),
     ]
 
 
@@ -599,7 +641,7 @@ def backward_phase(device):
                                                extra_rows=1, peak=FMA_FLOPS)[0]
                 row["dkv_fma_bound_ms"] = bound(case, dtype, qseg, kseg, products=4,
                                                 extra_rows=1, peak=FMA_FLOPS)[0]
-            if name == "train_1024":
+            if name in TABLE_CASES:
                 row["dterm_ms"] = device_ms(dterm_fn, **counts)
                 row["plain_ms"] = device_ms(lambda: flash_attention_bwd_reference(
                     q, k, v, g, lse, dterm, q_seg=qseg, kv_seg=kseg, **opts), **counts)
@@ -2123,6 +2165,546 @@ def vision_phase(device, updates: int = 32, flush_every: int = 8):
                 cnn=cnn, deq=deq, adapters=checks), failures
 
 
+# Zoo phase (slice 6): ViT-B/16 and the DDPM UNet through the flash
+# kernels' non-causal path (flash_attention_fn), the standalone encoder's
+# mask path, the EMA and DDIM sampling.
+VIT_B16 = dict(num_classes=1000, patch=16, num_layers=12, d_model=768, num_heads=12,
+               d_ff=3072)
+VIT_BATCH = 128
+VIT_IMAGES = 1024   # eight batches per epoch: flush_every=8 windows are epochs
+VIT_HW = 224
+# bench.py's _bench_unet accelerator configuration.
+UNET_BENCH = dict(out_channels=3, base_channels=128, channel_mults=(1, 2, 2, 4),
+                  blocks_per_stage=2, attn_resolutions=(8,), num_heads=4, groups=8)
+UNET_HW = 32
+UNET_BATCH = 64
+UNET_IMAGES = 512
+UNET_STEPS = 1000
+# Attention layers each update crosses (launches of each kernel per update).
+ZOO_ATTN = {"vit": VIT_B16["num_layers"], "unet": 6}
+
+
+def _zoo_group(name: str) -> str:
+    """Kernel groups of the zoo phase: the three attention kernels, layer
+    norm, then the vision groups (GroupNorm's arithmetic is f32
+    elementwise and reductions there)."""
+    n = name.lower()
+    for kern in MMA_KERNELS:
+        if kern in n:
+            return _kernel_group(kern)
+    if "layer_norm" in n or "layernorm" in n:
+        return "layer norm"
+    if "nvjet" in n:  # cuBLAS's Hopper matmul kernels
+        return "convolutions (cuDNN) and matmuls"
+    g = _vision_group(name)
+    return {"f32 elementwise (BatchNorm arithmetic)": "f32 elementwise (GroupNorm, DDPM, "
+            "softmax-free arithmetic)",
+            "reductions (BatchNorm statistics, scale and bias gradients)":
+            "reductions (norm statistics, bias gradients)",
+            "bf16 elementwise (relu, residual adds)": "bf16 elementwise (gelu, silu, "
+            "residual adds)"}.get(g, g)
+
+
+def unet_images(n: int, hw: int, seed: int = 0):
+    """``n`` f32 NHWC images in [-1, 1] from ``default_rng(seed)``: smooth
+    random fields (a coarse grid upsampled) plus a little noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(-1, 1, (n, hw // 8, hw // 8, 3))
+    fine = np.repeat(np.repeat(coarse, 8, axis=1), 8, axis=2)
+    return np.clip(fine + 0.1 * rng.normal(size=fine.shape), -1, 1).astype(np.float32)
+
+
+def _vit_loss(model):
+    import torch
+    import torch.nn.functional as F
+
+    def loss_fn(params, model_state, batch):
+        x, y = batch
+        return F.cross_entropy(model(x.to(torch.float32) / 255.0), y), model_state
+
+    return loss_fn
+
+
+def zoo_build(kind: str, dev, dtype, data):
+    """The user's script for ``kind`` ("vit" or "unet"): the model (weights
+    from ``manual_seed(0)``) with ``attention_fn=flash_attention_fn()``,
+    the device-gather loader over ``data``, the step and its state.
+    Returns ``(model, loader, step, state, loss_fn, draws)``: ``draws`` is
+    the CUDA generator of the UNet's ``ddpm_loss`` (None for ViT)."""
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import UNet, ViT, cosine_beta_schedule, ddpm_loss
+    from fluxmpi_tpu_torch.ops import flash_attention_fn
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step
+
+    gen = torch.Generator().manual_seed(0)
+    draws = None
+    if kind == "vit":
+        model = ViT(**VIT_B16, dtype=dtype, attention_fn=flash_attention_fn(),
+                    image_size=VIT_HW, device=dev, generator=gen)
+        batch, opt, loss_fn = VIT_BATCH, optim.adamw(1e-3), _vit_loss(model)
+    else:
+        model = UNet(**UNET_BENCH, dtype=dtype, attention_fn=flash_attention_fn(),
+                     image_size=UNET_HW, device=dev, generator=gen)
+        betas = cosine_beta_schedule(UNET_STEPS, device=dev)
+        draws = torch.Generator(device=dev).manual_seed(42)
+
+        def loss_fn(params, model_state, b):
+            return ddpm_loss(model, params, b[0], draws, betas), model_state
+
+        batch, opt = UNET_BATCH, optim.adam(1e-4)
+    fm.synchronize(model)
+    loader = fm.DistributedDataLoader(fm.DistributedDataContainer(fm.ArrayDataset(data)),
+                                      global_batch_size=batch, shuffle=True, device=dev)
+    step = make_train_step(loss_fn, opt)
+    return model, loader, step, TrainState.create(model, opt), loss_fn, draws
+
+
+def zoo_run(kind, dev, data, fuse, updates: int, flush_every: int):
+    """The main path of ``kind`` in bf16 compute (counts of the wrappers
+    and the kernels' device counters set to 0 just before, read just
+    after), a second run of as many updates for the times, a traced window
+    by kernel name and the host's launch calls over another. Returns the
+    numbers, the first run's summary, its state's leaves, and the model,
+    loader, step and state for what follows."""
+    import numpy as np
+    import torch
+
+    from fluxmpi_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.parallel import train_loop
+
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    batch = VIT_BATCH if kind == "vit" else UNET_BATCH
+    model, loader, step, state, _, _ = zoo_build(kind, dev, torch.bfloat16, data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for kern in kernels:
+        kern.launches = 0
+    (state, summ), launches = kernel_launches(
+        lambda: train_loop(step, state, loader, steps=updates, flush_every=flush_every,
+                           fuse=fuse))
+    counted = {k.__name__: k.launches for k in kernels}
+    extra = graph_launches(step)
+    accounted = {n: counted[n] + extra[n] for n in counted}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    leaves = {f"params/{k}": v.detach().clone() for k, v in state.params.items()}
+    for m in ("mu", "nu"):
+        leaves.update({f"{m}/{k}": v.clone() for k, v in state.opt_state[m].items()})
+    leaves["count"] = state.opt_state["count"].clone()
+    t0 = time.perf_counter()
+    state, timed = train_loop(step, state, loader, steps=updates, flush_every=flush_every,
+                              fuse=fuse)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    width = summ["fused_window"] or 1
+    per_update = [ms / width for ms in timed["step_ms"]]
+    run = dict(fuse=fuse, updates=summ["updates"], dispatches=summ["dispatches"],
+               fused_window=summ["fused_window"], wall_seconds=wall,
+               images_per_sec=timed["updates"] * batch / wall,
+               median_update_ms=float(np.median(per_update)), step_ms=timed["step_ms"],
+               peak_memory_gb=peak_gb, launches=launches, counted_launches=counted,
+               accounted_launches=accounted, graphs=graph_stats(step),
+               flushes=summ["flushes"])
+    run["steady_images_per_sec"] = batch / run["median_update_ms"] * 1e3
+    (_, tsum), busy_ms, wall_ms, nk, by_name = traced(
+        lambda: train_loop(step, state, loader, steps=width, flush_every=flush_every,
+                           fuse=fuse), group=lambda name: name)
+    groups = {}
+    for name, ms in by_name.items():
+        groups[_zoo_group(name)] = groups.get(_zoo_group(name), 0.0) + ms
+    n = tsum["updates"]
+    run["profile"] = dict(updates=n, wall_ms=wall_ms, device_busy_ms=busy_ms, kernels=nk,
+                          idle_share=(1 - busy_ms / wall_ms) if nk else None,
+                          device_ms_by_group_per_update={
+                              g: ms / n for g, ms in sorted(groups.items(),
+                                                            key=lambda kv: -kv[1])},
+                          top_kernels_ms_per_update=[
+                              (name, ms / n) for name, ms in list(by_name.items())[:15]])
+    (_, hsum), calls, nk2 = host_launches(
+        lambda: train_loop(step, state, loader, steps=width, flush_every=flush_every,
+                           fuse=fuse))
+    run["host_launches_per_update"] = calls / hsum["updates"]
+    run["device_kernels_per_update"] = nk2 / hsum["updates"]
+    if fuse:
+        run["capture_seconds"] = sum(g["capture_seconds"] for g in graph_stats(step))
+    return run, summ, leaves, (model, loader, step, state)
+
+
+def _grads(model, loss_fn, batch, fresh=None):
+    """The gradients of one loss on ``batch`` (``fresh()`` resets the
+    loss's random draws first), keyed by parameter name."""
+    import torch
+
+    if fresh is not None:
+        fresh()
+    names = [n for n, _ in model.named_parameters()]
+    loss = loss_fn(dict(model.named_parameters()), None, batch)[0]
+    return dict(zip(names, torch.autograd.grad(loss, [p for _, p in model.named_parameters()])))
+
+
+def zoo_grad_model(kind, dev, dtype, data):
+    """``kind``'s model in ``dtype`` compute for the gradient gates, with
+    its loss, a ``fresh()`` that resets the loss's random draws (None for
+    ViT) and the loader's first batch. The UNet runs at its seeded weights
+    + 0.1·N(0, 1) from a fixed generator: seeded, its zero-initialised
+    attention ``out`` kernels, ``conv2`` and ``conv_out`` zero every
+    attention cotangent."""
+    import torch
+
+    model, loader, _, _, loss_fn, draws = zoo_build(kind, dev, dtype, data)
+    if kind == "unet":
+        pert = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(0.1 * torch.randn(p.shape, generator=pert).to(dev))
+    start = draws.get_state() if draws is not None else None
+    fresh = (lambda: draws.set_state(start)) if draws is not None else None
+    return model, loss_fn, fresh, next(iter(loader))
+
+
+def leaf_max_rel(got: dict, want: dict) -> dict:
+    """Per leaf ``max|diff| / max|want|``; a key bias (zero in exact
+    arithmetic: the softmax's row sums cancel its gradient, so both sides
+    hold rounding) against the largest ``max|want|`` of any leaf."""
+    top = max(g.abs().max().item() for g in want.values())
+    return {k: (got[k].double() - g.double()).abs().max().item()
+            / (top if k.endswith("attn.key.bias") else (g.abs().max().item() or 1.0))
+            for k, g in want.items()}
+
+
+def zoo_grad_gates(kind, dev, data):
+    """One update's gradients through the kernels against the same update
+    through the plain versions, per leaf, three gates:
+
+    - bf16 at the main path's batch: ||diff|| / ||g|| <= 2**-8 x 2 x the
+      attention layers on every leaf the bf16 computation resolves, that is
+      whose plain bf16 gradient stands within that tolerance of the same
+      update's f32 gradient (plain versions, same weights and batch);
+    - f32 (TF32 off) at the main path's batch, every leaf:
+      ``leaf_max_rel`` <= TRAIN_GRAD_TOL. This one also holds the leaves
+      bf16 does not resolve (their bf16 gradient is mostly rounding: the
+      key biases and, where the tokens share a large common part, the
+      query and key projections, whose gradients the softmax's row sums
+      cancel down to the tokens' spread), and it sees a 1% error in dK,
+      which the bf16 gate does not (``scripts/zoo_grad_probe.py``);
+    - f32 at batch 8: max|diff| / max|g| <= TRAIN_GRAD_TOL (key biases
+      excluded).
+
+    The UNet runs at perturbed weights (``zoo_grad_model``). Returns the
+    gates' worst ratios and leaves, the unresolved leaves' count and how
+    far their plain bf16 gradient (key biases aside) stands from f32
+    (least and largest, over ||g||), and the attention parameters whose
+    gradient is zero."""
+    import torch
+
+    def pair(model, loss_fn, fresh, batch):
+        g_kernel = _grads(model, loss_fn, batch, fresh)
+        with plain_attention():
+            g_plain = _grads(model, loss_fn, batch, fresh)
+        return g_kernel, g_plain
+
+    out = {}
+    model, loss_fn, fresh, batch = zoo_grad_model(kind, dev, torch.bfloat16, data)
+    g_kernel, g_plain = pair(model, loss_fn, fresh, batch)
+    zero_attn = [f"{k} (bf16)" for k, g in g_kernel.items()
+                 if ".attn." in k and k.endswith("kernel") and not g.abs().max() > 0]
+    del model
+    model32, loss32, fresh32, _ = zoo_grad_model(kind, dev, torch.float32, data)
+    g_kernel32, g_f32 = pair(model32, loss32, fresh32, batch)
+    tol = 2 ** -8 * 2 * ZOO_ATTN[kind]
+    gate, spread = {}, {}
+    for k, gp in g_plain.items():
+        ref = g_f32[k].double()
+        dp = (gp.double() - ref).norm().item()
+        if dp <= tol * ref.norm().item():
+            gate[k] = (g_kernel[k].double() - gp.double()).norm().item() / (
+                gp.double().norm().item() or 1.0)
+        else:
+            spread[k] = dp / (ref.norm().item() or 1.0)
+    worst = max(gate, key=gate.get)
+    out["bfloat16"] = (gate[worst], worst, len(gate))
+    rel = leaf_max_rel(g_kernel32, g_f32)
+    worst = max(rel, key=rel.get)
+    out["float32_main"] = (rel[worst], worst, len(rel))
+    named = [v for k, v in spread.items() if not k.endswith("attn.key.bias")]
+    out["bfloat16_unresolved"] = (len(spread), min(named) if named else None,
+                                  max(named) if named else None)
+    del g_kernel, g_plain, g_kernel32, g_f32
+    batch8 = tuple(t[:8] for t in batch)
+    g_kernel, g_plain = pair(model32, loss32, fresh32, batch8)
+    torch.cuda.synchronize()
+    rel = {k: (g_kernel[k] - g).abs().max().item() / (g.abs().max().item() or 1.0)
+           for k, g in g_plain.items() if not k.endswith("attn.key.bias")}
+    worst = max(rel, key=rel.get)
+    out["float32"] = (rel[worst], worst, len(rel))
+    zero_attn += [f"{k} (f32)" for k, g in g_kernel.items()
+                  if ".attn." in k and k.endswith("kernel") and not g.abs().max() > 0]
+    del model32, g_kernel, g_plain
+    torch.cuda.empty_cache()
+    return out, zero_attn
+
+
+def vit_card_vs_cpu(dev, corpus):
+    """ViT-B/16 in f32 with TF32 off at the seeded weights, batch 4: the
+    logits, the loss and every gradient on the card (the kernels) against
+    the CPU path (the plain versions), per leaf max|diff| / max|ref| (the
+    key biases against the largest gradient); the worst and its leaf."""
+    import torch
+
+    from fluxmpi_tpu_torch.models import ViT
+    from fluxmpi_tpu_torch.ops import flash_attention_fn
+
+    x = torch.from_numpy(corpus[0][:4])
+    y = torch.from_numpy(corpus[1][:4])
+    res = []
+    for where in (dev, torch.device("cpu")):
+        model = ViT(**VIT_B16, attention_fn=flash_attention_fn(), image_size=VIT_HW,
+                    device=where, generator=torch.Generator().manual_seed(0))
+        logits = model(x.to(where).float() / 255.0)
+        loss = torch.nn.functional.cross_entropy(logits, y.to(where))
+        names = [k for k, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        r = {f"grad/{k}": g.detach().cpu().double() for k, g in zip(names, grads)}
+        r["logits"] = logits.detach().cpu().double()
+        r["loss"] = loss.detach().cpu().double().reshape(1)
+        res.append(r)
+        del model, logits, grads
+    card, cpu = res
+    # A key bias's gradient is zero in exact arithmetic (the softmax's row
+    # sums cancel it): both sides hold rounding there, held against the
+    # largest gradient; the other leaves against their own.
+    top = max(v.abs().max().item() for k, v in cpu.items() if k.startswith("grad/"))
+    worst = (0.0, None)
+    for k, want in cpu.items():
+        scale = top if k.endswith("attn.key.bias") else (want.abs().max().item() or 1.0)
+        err = (card[k] - want).abs().max().item() / scale
+        worst = max(worst, (err, k), key=lambda t: t[0])
+    return worst
+
+
+def encoder_mask_check(dev, batch: int = 8, seq: int = 197):
+    """A ``TransformerEncoder`` at ViT-B's widths (f32, TF32 off) with a
+    flax padding mask, trailing pads of a different length per row,
+    through ``flash_attention_fn`` against the same weights' dense masked
+    attend: the output's real rows and the gradients of a loss over them,
+    per leaf max|diff| / max|ref| (key biases against the largest). A pad
+    row's query attends nothing: the kernels output 0 there, flax's dense
+    attend an average of every value; no real row reads a pad row."""
+    import torch
+
+    from fluxmpi_tpu_torch.models import TransformerEncoder
+    from fluxmpi_tpu_torch.ops import flash_attention_fn
+
+    widths = dict(num_layers=VIT_B16["num_layers"], d_model=VIT_B16["d_model"],
+                  num_heads=VIT_B16["num_heads"], d_ff=VIT_B16["d_ff"])
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(batch, seq, widths["d_model"], generator=gen).to(dev)
+    w = torch.randn(batch, seq, widths["d_model"], generator=gen).to(dev)
+    lengths = torch.tensor([seq - 13 * i for i in range(batch)], device=dev)
+    valid = torch.arange(seq, device=dev)[None] < lengths[:, None]
+    mask = valid[:, None, :, None] & valid[:, None, None, :]
+    w = w * valid[:, :, None]
+    res = {}
+    for label, kw in (("flash", dict(attention_fn=flash_attention_fn())), ("dense", {})):
+        enc = TransformerEncoder(**widths, **kw, device=dev,
+                                 generator=torch.Generator().manual_seed(0))
+        out = enc(x, mask=mask)
+        names = [k for k, _ in enc.named_parameters()]
+        grads = torch.autograd.grad((out * w).sum(), list(enc.parameters()))
+        res[label] = {"out": (out * valid[:, :, None]).detach(),
+                      **{k: g for k, g in zip(names, grads)}}
+    top = max(g.abs().max().item() for k, g in res["dense"].items() if k != "out")
+    rel = {k: (res["flash"][k] - g).abs().max().item()
+           / (top if k.endswith("attn.key.bias") else (g.abs().max().item() or 1.0))
+           for k, g in res["dense"].items()}
+    worst = max(rel, key=rel.get)
+    return rel["out"], rel[worst], worst, len(rel)
+
+
+def zoo_phase(device, updates: int = 32, flush_every: int = 8):
+    """ViT-B/16 (bf16 compute, batch 128 of 224 x 224, adamw(1e-3), 1024
+    synthetic uint8 images) and the DDPM UNet of ``bench.py``'s
+    ``_bench_unet`` (bf16, batch 64 of 32 x 32 in [-1, 1], adam(1e-4),
+    ``ddpm_loss`` over ``cosine_beta_schedule(1000)``), each with
+    ``attention_fn=flash_attention_fn()``, through ``train_loop(fuse="auto")``
+    beside ``fuse=False``, held bit for bit, with the launch, loss and
+    gradient gates; ViT on the card against the CPU in f32; the encoder's
+    mask path; then the UNet's EMA over 8 more updates and DDIM samples
+    from the EMA weights."""
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch.models import cosine_beta_schedule, ddim_sample
+    from fluxmpi_tpu_torch.utils import ema_init, ema_params, ema_update
+
+    failures, stats = [], {}
+    dev = fm.init()
+    t0 = time.perf_counter()
+    data = {"vit": image_corpus(VIT_IMAGES, VIT_HW, RESNET_CLASSES),
+            "unet": (unet_images(UNET_IMAGES, UNET_HW),)}
+    print(f"zoo: {VIT_IMAGES} ViT images of {VIT_HW}x{VIT_HW}x3 uint8, {UNET_IMAGES} UNet "
+          f"images of {UNET_HW}x{UNET_HW}x3 f32 in [-1, 1]; made in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    flush = lambda s: [(f["updates"], f["loss"], f["loss_mean"], f["loss_max"])  # noqa: E731
+                       for f in s["flushes"]]
+    kept = None
+    for kind in ("vit", "unet"):
+        pipe, pipe_sum, want, rest = zoo_run(kind, dev, data[kind], False, updates,
+                                             flush_every)
+        del rest
+        torch.cuda.empty_cache()
+        fused, fused_sum, got, rest = zoo_run(kind, dev, data[kind], "auto", updates,
+                                              flush_every)
+        if kind == "unet":
+            kept = rest
+        else:
+            n_params = sum(p.numel() for p in rest[0].parameters())
+            del rest
+        torch.cuda.empty_cache()
+        same = [k for k in want if torch.equal(got[k], want[k])]
+        flush_same = flush(fused_sum) == flush(pipe_sum)
+        losses = [f["loss_mean"] for f in fused_sum["flushes"]]
+        need = ZOO_ATTN[kind] * updates
+        replays = sum(g["replays"] for g in fused["graphs"])
+        for run in (pipe, fused):
+            prof, tag = run["profile"], f"zoo {kind} [{'fused' if run['fuse'] else 'pipelined'}]"
+            idle = prof["idle_share"]
+            print(f"{tag}: {run['updates']} updates in {run['dispatches']} dispatches "
+                  f"(fused_window {run['fused_window']}); a second run of {updates}: "
+                  f"{run['wall_seconds']:.3f}s = {run['images_per_sec']:.1f} images/s; median "
+                  f"{run['median_update_ms']:.2f} ms per update = "
+                  f"{run['steady_images_per_sec']:.1f} images/s; traced window of "
+                  f"{prof['updates']}: device busy {prof['device_busy_ms']:.3f} ms of "
+                  f"{prof['wall_ms']:.3f} ms wall (idle share "
+                  f"{idle if idle is None else round(idle, 4)}); host launch calls per update "
+                  f"{run['host_launches_per_update']:.2f} (device kernels per update "
+                  f"{run['device_kernels_per_update']:.1f}); peak memory "
+                  f"{run['peak_memory_gb']:.2f} GB; launches the device counted "
+                  f"{run['launches']} (need {need} each; the wrappers' with the graphs' "
+                  f"{run['accounted_launches']})"
+                  + (f"; capture and instantiate {run['capture_seconds']:.3f}s"
+                     if run["fuse"] else ""), flush=True)
+            for g, ms in prof["device_ms_by_group_per_update"].items():
+                print(f"{tag}:   {g:52s} {ms:9.3f} ms per update", flush=True)
+            for name, ms in prof["top_kernels_ms_per_update"]:
+                print(f"{tag}:     kernel {ms:9.3f} ms per update  {name[:200]}", flush=True)
+            if run["launches"] != {k: need for k in MMA_KERNELS}:
+                failures.append(f"zoo {kind}: launches {run['launches']}, not {need} each")
+            if run["accounted_launches"] != run["launches"]:
+                failures.append(f"zoo {kind}: the wrappers' counts with the graphs' "
+                                f"{run['accounted_launches']} differ from the device's "
+                                f"{run['launches']}")
+            if not prof["kernels"]:
+                failures.append(f"zoo {kind}: the trace holds no device time")
+        print(f"zoo {kind}: fused vs pipelined: {len(same)} of {len(want)} parameters, "
+              f"moments and the count bit-identical; flush losses "
+              f"{'identical' if flush_same else 'DIFFER'}; {replays} graph replays; flush "
+              f"mean losses {losses}", flush=True)
+        if len(same) != len(want) or not flush_same:
+            failures.append(f"zoo {kind}: the fused run differs from fuse=False")
+        if not fused["fused_window"] or replays < updates // flush_every - 1:
+            failures.append(f"zoo {kind}: fuse='auto' replayed {replays} CUDA graphs")
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            failures.append(f"zoo {kind}: flush mean losses {losses} not finite and falling")
+        t0 = time.perf_counter()
+        gates, zero_attn = zoo_grad_gates(kind, dev, data[kind])
+        bf16_tol = 2 ** -8 * 2 * ZOO_ATTN[kind]
+        (b_err, b_leaf, b_n), (f_err, f_leaf, f_n) = gates["bfloat16"], gates["float32"]
+        m_err, m_leaf, m_n = gates["float32_main"]
+        u_n, lo, hi = gates["bfloat16_unresolved"]
+        spread = ("all key biases" if lo is None else f"their plain bf16 gradients, key "
+                  f"biases aside, stand {lo:.3f}-{hi:.3f} of ||g|| from f32")
+        batch = VIT_BATCH if kind == "vit" else UNET_BATCH
+        print(f"zoo {kind}: gradients through the kernels vs the plain versions"
+              + (" at the seeded weights + 0.1 N(0, 1)" if kind == "unet" else "")
+              + f": bf16 (batch {batch}) per leaf ||diff||/||g|| worst {b_err:.3e} "
+              f"({b_leaf}) over {b_n} leaves (tol {bf16_tol:g} = 2**-8 x 2 x "
+              f"{ZOO_ATTN[kind]}) of the leaves whose plain bf16 gradient stands within "
+              f"that of the f32 one (not the {u_n} others: {spread}); f32 (batch {batch}, TF32 "
+              f"off) per leaf max|diff|/max|g| (key biases against the largest) worst "
+              f"{m_err:.3e} ({m_leaf}) over {m_n} leaves (tol {TRAIN_GRAD_TOL:g}); f32 "
+              f"(batch 8) per "
+              f"leaf max|diff|/max|g| worst {f_err:.3e} ({f_leaf}) over {f_n} leaves (tol "
+              f"{TRAIN_GRAD_TOL:g}); attention kernels with a zero gradient: "
+              f"{zero_attn or 'none'}; {time.perf_counter() - t0:.1f}s", flush=True)
+        if not b_err <= bf16_tol:
+            failures.append(f"zoo {kind}: bf16 kernel gradients {b_err:.3e} at {b_leaf}")
+        if not m_err <= TRAIN_GRAD_TOL:
+            failures.append(f"zoo {kind}: f32 kernel gradients at batch {batch} "
+                            f"{m_err:.3e} at {m_leaf}")
+        if not f_err <= TRAIN_GRAD_TOL:
+            failures.append(f"zoo {kind}: f32 kernel gradients {f_err:.3e} at {f_leaf}")
+        if zero_attn:
+            failures.append(f"zoo {kind}: zero attention gradients {zero_attn}")
+        stats[kind] = dict(pipelined=pipe, fused=fused, leaves=len(want), bit_identical=len(same),
+                           flushes_bit_identical=flush_same, flush_loss_means=losses,
+                           replays=replays, launches_needed=need, grad_bf16=gates["bfloat16"],
+                           grad_bf16_unresolved=gates["bfloat16_unresolved"],
+                           grad_f32_main=gates["float32_main"],
+                           grad_f32=gates["float32"])
+        if kind == "vit":
+            stats[kind]["parameters"] = n_params
+            t0 = time.perf_counter()
+            err, leaf = vit_card_vs_cpu(dev, data["vit"])
+            print(f"zoo vit: ViT-B/16 ({n_params} parameters) card vs CPU (f32, TF32 off, "
+                  f"batch 4 at the seeded weights): logits, loss and every gradient, worst "
+                  f"max|diff|/max|ref| {err:.3e} at {leaf} (gate {TRAIN_GRAD_TOL:g}); "
+                  f"{time.perf_counter() - t0:.1f}s", flush=True)
+            stats[kind].update(card_vs_cpu=err, card_vs_cpu_leaf=leaf)
+            if not err <= TRAIN_GRAD_TOL:
+                failures.append(f"zoo vit: card vs CPU {err:.3e} at {leaf}")
+            if n_params != 86567656:
+                failures.append(f"zoo vit: {n_params} parameters, not ViT-B/16's 86567656")
+            out_err, g_err, g_leaf, n_leaves = encoder_mask_check(dev)
+            print(f"zoo encoder mask path (ViT-B widths, f32, batch 8 x 197, trailing pads "
+                  f"0-91 per row, flash_attention_fn vs the dense masked attend): real rows' "
+                  f"output max|diff|/max|ref| {out_err:.3e}, gradients worst {g_err:.3e} "
+                  f"({g_leaf}) over {n_leaves - 1} leaves (tol {TRAIN_GRAD_TOL:g})",
+                  flush=True)
+            stats["encoder_mask"] = dict(out_rel_err=out_err, grad_rel_err=g_err,
+                                         grad_worst=g_leaf)
+            if not (out_err <= TRAIN_GRAD_TOL and g_err <= TRAIN_GRAD_TOL):
+                failures.append(f"zoo encoder mask path: {out_err:.3e} / {g_err:.3e}")
+        torch.cuda.empty_cache()
+
+    # The UNet's EMA over 8 more updates, then DDIM samples from it.
+    model, loader, step, state = kept
+    ema = ema_init(state.params, decay=0.95)
+    n = 0
+    while n < 8:
+        for batch in loader:
+            if n == 8:
+                break
+            state, _ = step(state, batch)
+            ema = ema_update(ema, state.params)
+            n += 1
+    betas = cosine_beta_schedule(UNET_STEPS, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = ddim_sample(model, ema_params(ema), torch.Generator(device=dev).manual_seed(1),
+                          shape=(8, UNET_HW, UNET_HW, 3), betas=betas, num_steps=20)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    finite = bool(torch.isfinite(samples).all())
+    peak = samples.abs().max().item()
+    print(f"zoo unet: ema_init(decay=0.95), {int(ema.count)} ema_update calls after as many "
+          f"step() updates; ddim_sample(num_steps=20) of 8 images from the EMA weights in "
+          f"{sample_s:.3f}s: finite {finite}, max|x| {peak:.6f} (clip 1 + 1e-5), mean|x| "
+          f"{samples.abs().mean().item():.4f}", flush=True)
+    stats["unet"].update(ema_updates=int(ema.count), ddim_seconds=sample_s,
+                         sample_max_abs=peak, samples_finite=finite)
+    if not (finite and peak <= 1.0 + 1e-5 and samples.shape == (8, UNET_HW, UNET_HW, 3)):
+        failures.append(f"zoo unet: DDIM samples finite={finite}, max|x| {peak}")
+    del model, loader, step, state, kept, ema, samples
+    torch.cuda.empty_cache()
+    fm.shutdown()
+    return stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -2196,6 +2778,16 @@ def run_phases(device):
     torch.cuda.empty_cache()
     vision, vision_failures = vision_phase(device)
     failures += vision_failures
+    torch.cuda.empty_cache()
+    zoo, zoo_failures = zoo_phase(device)
+    failures += zoo_failures
+    zoo_paths = {f"zoo_{kind}{'' if run == 'fused' else '_pipelined'}":
+                 zoo[kind][run]["launches"] for kind in ("vit", "unet")
+                 for run in ("pipelined", "fused")}
+
+    def zoo_rows(rows, keys):
+        return {f"{r['case']} {r['dtype']}": {k: r.get(k) for k in keys}
+                for r in rows if r["case"] in ZOO_TABLE_CASES}
 
     fwd_row = next(r for r in rows if r["case"] == "decode_1024" and r["dtype"] == "float32")
     fwd_train = next(r for r in rows if r["case"] == "train_1024" and r["dtype"] == "float32")
@@ -2209,7 +2801,8 @@ def run_phases(device):
                      + bf16["launches"]["flash_fwd"]
                      + bf16["remat"]["remat"]["launches"]["flash_fwd"]
                      + bf16["remat"]["dots"]["launches"]["flash_fwd"]
-                     + fused["fused"]["launches"]["flash_fwd"]),
+                     + fused["fused"]["launches"]["flash_fwd"]
+                     + sum(n["flash_fwd"] for n in zoo_paths.values())),
         "launches_by_path": {"serve": stats["launches"],
                              "train": train["launches"]["flash_fwd"],
                              "train_bf16": bf16["launches"]["flash_fwd"],
@@ -2217,7 +2810,8 @@ def run_phases(device):
                                  bf16["remat"]["remat"]["launches"]["flash_fwd"],
                              "train_bf16_remat_dots":
                                  bf16["remat"]["dots"]["launches"]["flash_fwd"],
-                             "train_bf16_fused": fused["fused"]["launches"]["flash_fwd"]},
+                             "train_bf16_fused": fused["fused"]["launches"]["flash_fwd"],
+                             **{p: n["flash_fwd"] for p, n in zoo_paths.items()}},
         "max_abs_err": max(max(r["err_out"], r["err_lse"]) for r in rows),
         "ms": fwd_row["ms"], "plain_ms": fwd_row["plain_ms"],
         "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
@@ -2228,6 +2822,8 @@ def run_phases(device):
                                                   "bound_by", "bound_basis",
                                                   "fma_bound_ms", "library_ms")},
         "dropout_mask_equal": masks["flash_fwd"],
+        "zoo_cases": zoo_rows(rows, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                     "err_out", "err_lse")),
         "cases": rows,
     }]
     for kname, key, errs in (("flash_bwd_dq", "dq", ("dq",)),
@@ -2240,14 +2836,16 @@ def run_phases(device):
             "launches": (train["launches"][kname] + bf16["launches"][kname]
                          + bf16["remat"]["remat"]["launches"][kname]
                          + bf16["remat"]["dots"]["launches"][kname]
-                         + fused["fused"]["launches"][kname]),
+                         + fused["fused"]["launches"][kname]
+                         + sum(n[kname] for n in zoo_paths.values())),
             "launches_by_path": {"train": train["launches"][kname],
                                  "train_bf16": bf16["launches"][kname],
                                  "train_bf16_remat":
                                      bf16["remat"]["remat"]["launches"][kname],
                                  "train_bf16_remat_dots":
                                      bf16["remat"]["dots"]["launches"][kname],
-                                 "train_bf16_fused": fused["fused"]["launches"][kname]},
+                                 "train_bf16_fused": fused["fused"]["launches"][kname],
+                                 **{p: n[kname] for p, n in zoo_paths.items()}},
             "max_abs_err": max(r["err"][e] for r in bwd_rows for e in errs),
             "ms": bwd_main[f"{key}_ms"],
             # The plain version computes dQ, dK and dV in one pass; the
@@ -2263,12 +2861,15 @@ def run_phases(device):
             "sum_dterm_dq_dkv_ms": bwd_main["sum_ms"],
             "timed_case": "train_1024 float32",
             "dropout_mask_equal": masks[kname],
+            "zoo_cases": zoo_rows(bwd_rows, (f"{key}_ms", "plain_ms", f"{key}_bound_ms",
+                                             f"{key}_bound_by", "library_ms", "dterm_ms",
+                                             "rel_err")),
             "cases": [{k: r[k] for k in ("case", "dtype", "err", "rel_err", "ok",
                                          f"{key}_ms", f"{key}_bound_ms")}
                       for r in bwd_rows],
         })
     return kernels, {"slice": stats, "train": train, "train_bf16": bf16,
-                     "train_bf16_fused": fused, "vision": vision}, failures
+                     "train_bf16_fused": fused, "vision": vision, "zoo": zoo}, failures
 
 
 if __name__ == "__main__":

@@ -7,9 +7,12 @@ from .deq import DEQ, fixed_point_solve
 from .generate import generate, prefill_cache, prefill_kv
 from .mlp import MLP
 from .resnet import ResNet, ResNet18, ResNet34, ResNet50, ResNet101
-from .transformer import TransformerLM
+from .transformer import EncoderBlock, TransformerEncoder, TransformerLM
+from .unet import UNet, cosine_beta_schedule, ddim_sample, ddpm_loss
+from .vit import ViT
 
-__all__ = ["CNN", "DEQ", "MLP", "ResNet", "ResNet101", "ResNet18", "ResNet34",
-           "ResNet50", "TransformerLM", "fixed_point_solve", "generate",
-           "load_flax_params", "load_flax_variables", "prefill_cache", "prefill_kv",
-           "to_flax_params", "to_flax_variables"]
+__all__ = ["CNN", "DEQ", "EncoderBlock", "MLP", "ResNet", "ResNet101", "ResNet18",
+           "ResNet34", "ResNet50", "TransformerEncoder", "TransformerLM", "UNet",
+           "ViT", "cosine_beta_schedule", "ddim_sample", "ddpm_loss",
+           "fixed_point_solve", "generate", "load_flax_params", "load_flax_variables",
+           "prefill_cache", "prefill_kv", "to_flax_params", "to_flax_variables"]

@@ -46,8 +46,9 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict:
 
 
 def load_flax_params(model: torch.nn.Module, params: Mapping[str, Any]):
-    """Copy the JAX ``TransformerLM`` parameter tree ``params`` (numpy or
-    any array leaves, keyed by flax paths) into ``model`` in place; returns
+    """Copy a JAX model's parameter tree ``params`` (numpy or any array
+    leaves, keyed by flax paths: ``TransformerLM``, ``TransformerEncoder``,
+    ``ViT``, ``UNet``, ...) into the port's ``model`` in place; returns
     ``model``."""
     flat = {p.replace("/", "."): a for p, a in _flatten(params).items()}
     own = dict(model.named_parameters())

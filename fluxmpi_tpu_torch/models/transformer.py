@@ -29,20 +29,20 @@ autograd.
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..errors import refuse_unported
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention, flash_attention_fn
 from ..ops.fused_ce import _mm_f32, unembed_cross_entropy
 from ..runtime import resolve_device
+from ._layers import (Dense, LayerNorm, MultiHeadDotProductAttention, _Init,
+                      dot_product_attention)
 
-# EncoderBlock and TransformerEncoder are the LM's building blocks (they
-# take the LM's initializer); the JAX package's standalone encoder model is
-# not ported.
-__all__ = ["TransformerLM"]
+__all__ = ["EncoderBlock", "TransformerEncoder", "TransformerLM"]
 
 
 def _resolve_attention_mode(mode: str, device: torch.device) -> str:
@@ -55,153 +55,147 @@ def _resolve_attention_mode(mode: str, device: torch.device) -> str:
     return mode
 
 
-class _Init:
-    """Explicit-generator initializers (flax's defaults in kind: normal
-    kernels scaled by ``1/sqrt(fan_in)``, zero biases, unit LN scales).
-    Draws on the CPU generator and copies to the device, so one seed gives
-    the same weights on every device."""
-
-    def __init__(self, device, generator):
-        self.device = device
-        self.generator = generator
-
-    def normal(self, shape, std):
-        t = torch.empty(shape, dtype=torch.float32)
-        t.normal_(0.0, std, generator=self.generator)
-        return nn.Parameter(t.to(self.device))
-
-    def fill(self, shape, value):
-        return nn.Parameter(
-            torch.full(shape, value, dtype=torch.float32, device=self.device)
-        )
+def _refuse_decode(name: str, decode: bool) -> None:
+    refuse_unported(name, {"decode": bool(decode)},
+                    "cached decoding is TransformerLM.forward(kv_cache=...)")
 
 
-class Dense(nn.Module):
-    """``y = x @ kernel + bias`` with ``kernel`` of shape ``[in, *out]`` or
-    ``[*in, out]``; ``in_dims`` counts the trailing input axes contracted."""
+class EncoderBlock(nn.Module):
+    """Pre-LN block: ``x + attn(ln1(x))``, then ``x + ff2(gelu(ff1(ln2(x))))``
+    (:class:`fluxmpi_tpu.models.transformer.EncoderBlock`, the same fields).
 
-    def __init__(self, kernel_shape, bias_shape, init: _Init, fan_in: int,
-                 in_dims: int = 1):
+    The attention: ``attention="flash"`` (or ``"auto"`` on CUDA) is
+    :func:`~fluxmpi_tpu_torch.ops.flash_attention_fn` with
+    ``causal=attention_causal`` (an ``attention_fn`` beside it raises);
+    else ``attention_fn`` if given; else flax's dense attend, which
+    ``attention_causal`` does not touch (as in JAX, only the mask makes it
+    causal). ``make_ff()`` is the hook for another feed-forward sublayer
+    (called as ``ff(h, train=train)``). ``decode=True`` is refused: the
+    port decodes through :meth:`TransformerLM.forward`'s ``kv_cache=``.
+    Weights from the CPU ``generator`` (default seeded with 0) on
+    ``device`` (default CUDA)."""
+
+    def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout: float,
+                 dtype: torch.dtype, attention_fn: Callable | None = None,
+                 decode: bool = False, attention: str = "naive",
+                 attention_causal: bool = False, ln_eps: float = 1e-6, *,
+                 device=None, generator: torch.Generator | None = None):
         super().__init__()
-        self.kernel = init.normal(kernel_shape, 1.0 / math.sqrt(fan_in))
-        self.bias = init.fill(bias_shape, 0.0)
-        self.in_dims = in_dims
+        _refuse_decode("EncoderBlock", decode)
+        self.device = resolve_device(device)
+        self.mode = _resolve_attention_mode(attention, self.device)
+        if self.mode == "flash" and attention_fn is not None:
+            raise ValueError("attention='flash' conflicts with an explicit "
+                             "attention_fn — pass one or the other")
+        if attention_fn is not None:
+            self.mode = "fn"
+        self.d_model, self.num_heads, self.d_ff = d_model, num_heads, d_ff
+        self.dropout = float(dropout)
+        self.dtype = dtype
+        self.attention_fn = attention_fn
+        self.attention_causal = bool(attention_causal)
+        init = _Init(self.device, generator or torch.Generator().manual_seed(0))
+        self.ln1 = LayerNorm(d_model, ln_eps, init)
+        self.attn = MultiHeadDotProductAttention(num_heads, d_model, init=init,
+                                                 dtype=dtype, dropout_rate=self.dropout)
+        self.ln2 = LayerNorm(d_model, ln_eps, init)
+        self.ff = self.make_ff()
+        if self.ff is None:
+            self.ff1 = Dense((d_model, d_ff), (d_ff,), init, d_model)
+            self.ff2 = Dense((d_ff, d_model), (d_model,), init, d_ff)
 
-    def forward(self, x, dtype):
-        lead = x.shape[: x.ndim - self.in_dims]
-        n_in = math.prod(self.kernel.shape[: self.in_dims])
-        w = self.kernel.to(dtype).reshape(n_in, -1)
-        y = x.to(dtype).reshape(-1, n_in) @ w + self.bias.to(dtype).reshape(-1)
-        return y.reshape(*lead, *self.kernel.shape[self.in_dims:])
+    def make_ff(self) -> nn.Module | None:
+        """Hook: a module for the feed-forward sublayer, or ``None`` for
+        the dense MLP."""
+        return None
 
+    def forward(self, x, *, train: bool = True, mask=None):
+        return self.run(x, train=train, mask=mask)[0]
 
-class LayerNorm(nn.Module):
-    def __init__(self, d: int, eps: float, init: _Init):
-        super().__init__()
-        self.scale = init.fill((d,), 1.0)
-        self.bias = init.fill((d,), 0.0)
-        self.eps = eps
-
-    def forward(self, x, dtype):
-        # In f32 whatever the parameters' dtype (flax promotes the stats,
-        # scale and bias to f32), then cast.
-        y = F.layer_norm(x.float(), (x.shape[-1],), self.scale.float(),
-                         self.bias.float(), self.eps)
-        return y.to(dtype)
-
-
-class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, num_heads: int, init: _Init):
-        super().__init__()
-        hd = d_model // num_heads
-        self.num_heads = num_heads
-        for name in ("query", "key", "value"):
-            self.add_module(name, Dense((d_model, num_heads, hd),
-                                        (num_heads, hd), init, d_model))
-        self.out = Dense((num_heads, hd, d_model), (d_model,), init, d_model,
-                         in_dims=2)
-
-    def forward(self, x, *, mode, dtype, cache=None, pos=None, segments=None):
-        """Causal self-attention over ``x [b, s, d]``; or, with ``cache``
-        (this layer's ``(k, v)`` ``[b, T, h, hd]``), one decode position per
-        row at ``pos [b]`` attending where ``segments = (q_seg [b, 1],
-        kv_seg [b, T])`` allow. Returns ``(y, k, v)`` with the new K/V."""
-        q = self.query(x, dtype)
-        k = self.key(x, dtype)
-        v = self.value(x, dtype)
+    def run(self, x, *, train=True, mask=None, mode=None, cache=None, pos=None,
+            segments=None):
+        """The block with the attention ``mode`` (default the block's own:
+        ``"flash"``, ``"fn"`` for its ``attention_fn``, ``"naive"``).
+        With ``cache`` (this layer's ``(k, v)`` ``[b, T, h, hd]``), one
+        decode position per row at ``pos [b]``, written into the cache in
+        place, attending where ``segments = (q_seg [b, 1], kv_seg [b, T])``
+        allow. Returns ``(y, k, v)`` with the new K/V."""
+        mode = mode or self.mode
+        q, k, v = self.attn.project(self.ln1(x, self.dtype))
         if cache is not None:
             kc, vc = cache
             rows = torch.arange(x.shape[0], device=x.device)
             kc[rows, pos] = k[:, 0].to(kc.dtype)
             vc[rows, pos] = v[:, 0].to(vc.dtype)
-            k_all, v_all = kc, vc
+            if mode == "flash":
+                o = flash_attention(q, kc, vc, segment_ids=segments)
+            else:  # the row's valid cache prefix
+                o = dot_product_attention(q, kc, vc, mask=(segments[1] != 0)[:, None, None, :])
+        elif mode == "flash":
+            o = flash_attention_fn(causal=self.attention_causal)(q, k, v, mask=mask)
         else:
-            k_all, v_all = k, v
-        if mode == "flash":
-            o = flash_attention(q, k_all, v_all, causal=cache is None,
-                                segment_ids=segments)
-        else:
-            o = _dense_attention(q, k_all, v_all,
-                                 None if segments is None else segments[1])
-        return self.out(o, dtype), k, v
-
-
-def _dense_attention(q, k, v, kv_seg=None):
-    """flax's ``dot_product_attention`` under a causal mask (``kv_seg is
-    None``) or a per-row valid-key mask (decode)."""
-    dtype = q.dtype
-    q = q / math.sqrt(q.shape[-1])
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k.to(dtype))
-    if kv_seg is None:
-        sq, sk = q.shape[1], k.shape[1]
-        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril()
-    else:
-        mask = (kv_seg != 0)[:, None, None, :]
-    s = torch.where(mask, s, torch.finfo(dtype).min)
-    w = torch.softmax(s, dim=-1).to(dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", w, v.to(dtype))
-
-
-class EncoderBlock(nn.Module):
-    def __init__(self, d_model, num_heads, d_ff, *, ln_eps, init: _Init):
-        super().__init__()
-        self.ln1 = LayerNorm(d_model, ln_eps, init)
-        self.attn = MultiHeadAttention(d_model, num_heads, init)
-        self.ln2 = LayerNorm(d_model, ln_eps, init)
-        self.ff1 = Dense((d_model, d_ff), (d_ff,), init, d_model)
-        self.ff2 = Dense((d_ff, d_model), (d_model,), init, d_ff)
-
-    def forward(self, x, *, mode, dtype, cache=None, pos=None, segments=None):
-        h, k, v = self.attn(self.ln1(x, dtype), mode=mode, dtype=dtype,
-                            cache=cache, pos=pos, segments=segments)
-        x = x + h
-        h = self.ff1(self.ln2(x, dtype), dtype)
-        h = F.gelu(h, approximate="tanh")  # flax nn.gelu is the tanh form
-        return x + self.ff2(h, dtype), k, v
+            fn = self.attention_fn if mode == "fn" else dot_product_attention
+            o = self.attn.attend(fn, q, k, v, mask=mask, deterministic=not train)
+        x = x + self.attn.out(o, self.dtype)
+        h = self.ln2(x, self.dtype)
+        if self.ff is not None:
+            return x + self.ff(h, train=train), k, v
+        h = F.gelu(self.ff1(h, self.dtype), approximate="tanh")  # flax nn.gelu: tanh
+        return x + self.ff2(h, self.dtype), k, v
 
 
 class TransformerEncoder(nn.Module):
-    """Pre-LN encoder stack over embedded inputs ``[b, s, d_model]``."""
+    """Pre-LN encoder stack over embedded inputs ``[b, s, d_model]``
+    (:class:`fluxmpi_tpu.models.transformer.TransformerEncoder`, the same
+    fields): ``forward(x, *, train=True, mask=None)`` casts ``x`` to
+    ``dtype``, runs the blocks (``mask``: a flax boolean mask broadcastable
+    to ``[b, heads, s, s]``) and returns the final LayerNorm in f32.
+    ``make_block(i)`` is the hook for another block type. Weights from the
+    CPU ``generator`` (default seeded with 0) on ``device`` (default
+    CUDA)."""
 
-    def __init__(self, num_layers, d_model, num_heads, d_ff, *, ln_eps,
-                 init: _Init):
+    def __init__(self, num_layers: int = 4, d_model: int = 128, num_heads: int = 4,
+                 d_ff: int = 512, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32,
+                 attention_fn: Callable | None = None, decode: bool = False,
+                 attention: str = "naive", attention_causal: bool = False,
+                 ln_eps: float = 1e-6, *, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
-        self.num_layers = num_layers
+        _refuse_decode("TransformerEncoder", decode)
+        self.device = resolve_device(device)
+        self.num_layers, self.d_model, self.num_heads = num_layers, d_model, num_heads
+        self.d_ff, self.dropout, self.dtype = d_ff, float(dropout), dtype
+        self.attention_fn, self.attention = attention_fn, attention
+        self.attention_causal, self.ln_eps = bool(attention_causal), ln_eps
+        # One generator draws every block's weights in turn (held only
+        # while the blocks are built).
+        self._generator = generator or torch.Generator().manual_seed(0)
         for i in range(num_layers):
-            self.add_module(f"block_{i}", EncoderBlock(
-                d_model, num_heads, d_ff, ln_eps=ln_eps, init=init))
-        self.ln_out = LayerNorm(d_model, ln_eps, init)
+            self.add_module(f"block_{i}", self.make_block(i))
+        self.ln_out = LayerNorm(d_model, ln_eps, _Init(self.device, self._generator))
+        del self._generator
 
-    def forward(self, x, *, mode, dtype, cache=None, pos=None, segments=None):
-        """Returns ``(hidden, ks, vs)``: the final-LN output (f32) and each
-        layer's new K/V."""
+    def make_block(self, i: int) -> nn.Module:
+        """Hook: build encoder block ``i``."""
+        return EncoderBlock(self.d_model, self.num_heads, self.d_ff, self.dropout,
+                            self.dtype, self.attention_fn, False, self.attention,
+                            self.attention_causal, self.ln_eps, device=self.device,
+                            generator=self._generator)
+
+    def forward(self, x, *, train: bool = True, mask=None):
+        return self.run(x.to(self.dtype), train=train, mask=mask)[0]
+
+    def run(self, x, *, train=True, mask=None, mode=None, cache=None, pos=None,
+            segments=None):
+        """The stack (arguments as :meth:`EncoderBlock.run`, ``cache`` the
+        ``(k, v)`` of every layer). Returns ``(hidden, ks, vs)``: the
+        final-LN output (f32) and each layer's new K/V."""
         ks, vs = [], []
         for i in range(self.num_layers):
-            layer_cache = None
-            if cache is not None:
-                layer_cache = (cache[0][i], cache[1][i])
-            x, k, v = getattr(self, f"block_{i}")(
-                x, mode=mode, dtype=dtype, cache=layer_cache, pos=pos,
+            layer_cache = None if cache is None else (cache[0][i], cache[1][i])
+            x, k, v = getattr(self, f"block_{i}").run(
+                x, train=train, mask=mask, mode=mode, cache=layer_cache, pos=pos,
                 segments=segments)
             ks.append(k)
             vs.append(v)
@@ -215,7 +209,11 @@ class TransformerLM(nn.Module):
     ``torch.Generator`` seeded with 0) and live on ``device``
     (default CUDA; ``"cpu"`` only when asked). ``dropout`` is the
     attention dropout rate of the JAX module; training with it is not
-    ported (see :meth:`forward`)."""
+    ported (see :meth:`forward`). ``attention_fn`` (e.g.
+    :func:`~fluxmpi_tpu_torch.ops.flash_attention_fn` with ``causal=True``)
+    takes the training forward's attention under flax's causal mask, as in
+    JAX; cached decoding bypasses it, and ``attention="flash"`` beside it
+    raises."""
 
     # A batched causal forward over a prompt computes the same per-token
     # function as one-position decoding (the gate generate() and the
@@ -230,10 +228,7 @@ class TransformerLM(nn.Module):
                  ln_eps: float = 1e-6, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        refuse_unported("TransformerLM", {"attention_fn": attention_fn is not None,
-                                          "decode": bool(decode)},
-                        "pick the attention with attention=; cached decoding "
-                        "is forward(kv_cache=...)")
+        _refuse_decode("TransformerLM", decode)
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} not divisible by num_heads "
                              f"{num_heads}")
@@ -248,6 +243,7 @@ class TransformerLM(nn.Module):
         self.d_ff = d_ff
         self.dropout = float(dropout)
         self.attention = attention
+        self.attention_fn = attention_fn
         self.ln_eps = ln_eps
         self.dtype = dtype
         if generator is None:
@@ -257,8 +253,12 @@ class TransformerLM(nn.Module):
         self.embed.embedding = init.normal((vocab_size, d_model),
                                            1.0 / math.sqrt(d_model))
         self.pos_embed = init.normal((max_len, d_model), 0.02)
-        self.encoder = TransformerEncoder(num_layers, d_model, num_heads,
-                                          d_ff, ln_eps=ln_eps, init=init)
+        # The LM applies its own causal mask in training, so the flash
+        # kernels fold causality in (attention_causal=True).
+        self.encoder = TransformerEncoder(
+            num_layers, d_model, num_heads, d_ff, self.dropout, dtype, attention_fn,
+            attention=attention, attention_causal=True, ln_eps=ln_eps,
+            device=self.device, generator=generator)
 
     def attention_mode(self, override: str | None = None) -> str:
         return _resolve_attention_mode(override or self.attention, self.device)
@@ -281,10 +281,11 @@ class TransformerLM(nn.Module):
         each layer's K/V stacked as ``[layers, b, s, heads, head_dim]``
         (what the decode cache banks).
 
-        ``train=True`` with ``dropout > 0`` raises: the JAX LM trains with
-        attention dropout through flax's dense fallback and flax's random
-        stream (``flash_attention_fn(dropout_impl="dense")``), which no
-        port can reproduce.
+        ``train=True`` with ``dropout > 0`` raises: the JAX LM then drops
+        attention weights in flax's dense attend with flax's random stream,
+        which no port can reproduce (with ``attention="flash"`` flax passes
+        its ``flash_attention_fn`` the mask alone, so it trains without
+        attention dropout; the port refuses both).
 
         With ``kv_cache=(k, v)``: cached decoding, ``s == 1``; row ``i``'s
         token sits at position ``pos_offset[i]``, its K/V are written there
@@ -313,7 +314,15 @@ class TransformerLM(nn.Module):
                              f"{self.max_len}")
         x = self.embed.embedding[tokens].to(self.dtype)
         x = x + self.pos_embed[:s][None].to(self.dtype)
-        h, ks, vs = self.encoder(x, mode=mode, dtype=self.dtype)
+        mask = None
+        if mode == "naive":
+            # flax's nn.make_causal_mask(tokens); the flash kernels take
+            # causality from attention_causal instead.
+            mask = torch.ones((s, s), dtype=torch.bool, device=self.device).tril()
+            mask = mask.expand(b, 1, s, s)
+            if self.attention_fn is not None:
+                mode = "fn"
+        h, ks, vs = self.encoder.run(x, train=train, mask=mask, mode=mode)
         if hidden:
             return h, self.embed.embedding
         if targets is not None:
@@ -344,8 +353,8 @@ class TransformerLM(nn.Module):
             (torch.arange(t_total, device=self.device)[None, :]
              <= pos[:, None]).to(torch.int32),
         )
-        h, _, _ = self.encoder(x, mode=mode, dtype=self.dtype, cache=kv_cache,
-                               pos=pos, segments=segments)
+        h, _, _ = self.encoder.run(x, train=False, mode=mode, cache=kv_cache,
+                                   pos=pos, segments=segments)
         return self._head(h)
 
     def _head(self, h):

@@ -5,6 +5,7 @@ from .flash_attention import (
     dropout_keep_reference,
     flash_attention,
     flash_attention_bwd_reference,
+    flash_attention_fn,
     flash_attention_reference,
     flash_attention_with_lse,
     flash_bwd_dkv,
@@ -15,7 +16,8 @@ from .flash_attention import (
 from .fused_ce import unembed_cross_entropy, unembed_cross_entropy_reference
 
 __all__ = ["device_launches", "dropout_keep_reference", "flash_attention",
-           "flash_attention_bwd_reference", "flash_attention_reference",
+           "flash_attention_bwd_reference", "flash_attention_fn",
+           "flash_attention_reference",
            "flash_attention_with_lse", "flash_bwd_dkv", "flash_bwd_dq",
            "flash_fwd", "padding_to_segment_ids", "unembed_cross_entropy",
            "unembed_cross_entropy_reference"]

@@ -22,6 +22,11 @@ package's counter-based murmur3 hash of ``(seed, b*h + head, q_pos,
 k_pos)`` (:func:`dropout_keep_reference`), so the port and the TPU
 kernels drop the same entries.
 
+:func:`flash_attention_fn` is the ``attention_fn`` drop-in for the
+models' multi-head attention (flax's call: ``fn(query, key, value,
+bias=None, mask=None, **kwargs)``): it turns a flax boolean mask into
+segment ids on the device and checks that they rebuild it.
+
 Differentiation is a :class:`torch.autograd.Function` over ``(out,
 lse)`` with the recompute-based two-pass backward of the JAX package:
 ``dterm = rowsum(dO * O) - dlse`` in plain torch, then one kernel for dQ
@@ -44,6 +49,7 @@ __all__ = [
     "dropout_threshold",
     "flash_attention",
     "flash_attention_bwd_reference",
+    "flash_attention_fn",
     "flash_attention_reference",
     "flash_attention_with_lse",
     "flash_bwd_dkv",
@@ -542,3 +548,167 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = False,
     window = _check_window(window, causal, allow_band=True)
     return _attend(q, k, v, causal, window, segment_ids, dropout_rate,
                    dropout_seed)
+
+
+def _segments_from_attention_mask(mask, b: int, sq: int, sk: int, causal: bool):
+    """Segment ids ``(q_seg [b, sq], kv_seg [b, sk])`` (int32) recovered
+    from a flax attention mask broadcastable to ``[b, heads, sq, sk]``, by
+    the JAX package's rule (``_segments_from_attention_mask``): exact for
+    trailing padding and contiguous packed documents, and for either under
+    ``causal`` (document boundaries from the subdiagonal). O(b·s) device
+    reductions over the caller's mask, no host read; masks they do not
+    represent are caught by :func:`_mask_fidelity`."""
+    m = torch.as_tensor(mask)
+    if m.dtype != torch.bool:
+        m = m > 0
+    if m.ndim != 4:
+        raise ValueError(f"attention mask must be rank 4 [batch, heads, q, kv]; "
+                         f"got shape {tuple(m.shape)}")
+    kv_valid = m.any(dim=2).any(dim=1).expand(b, sk)
+    q_valid = m.any(dim=3).any(dim=1).expand(b, sq)
+
+    def ids(change):  # 1 + running count of boundaries, [b, n]
+        first = torch.zeros((b, 1), dtype=torch.int32, device=m.device)
+        return 1 + torch.cumsum(torch.cat([first, change.to(torch.int32)], dim=1),
+                                dim=1, dtype=torch.int32)
+
+    if causal and sq == sk:
+        # Token j+1 continues token j's document iff it attends it.
+        cont = torch.diagonal(m[:, :, 1:, :-1], dim1=2, dim2=3).any(dim=1)
+        seg = ids(~cont.expand(b, sq - 1))
+        zero = torch.zeros((), dtype=torch.int32, device=m.device)
+        return torch.where(q_valid, seg, zero), torch.where(kv_valid, seg, zero)
+    col = (m[:, :, :, 1:] != m[:, :, :, :-1]).any(dim=2).any(dim=1).expand(b, sk - 1)
+    row = (m[:, :, 1:, :] != m[:, :, :-1, :]).any(dim=3).any(dim=1).expand(b, sq - 1)
+    zero = torch.zeros((), dtype=torch.int32, device=m.device)
+    return torch.where(q_valid, ids(row), zero), torch.where(kv_valid, ids(col), zero)
+
+
+_FIDELITY_CHUNK = 512
+
+
+def _mask_fidelity(mask, q_seg, kv_seg, causal: bool):
+    """``[b]`` bools: whether the segment ids rebuild ``mask`` exactly (the
+    JAX package's ``_mask_fidelity``), compared in chunks of query rows so
+    that no second ``[b, sq, sk]`` buffer is made. A mask that varies
+    across heads fails: segment ids are per batch row. Under ``causal``
+    (and ``sq == sk``) both sides are taken with the causal mask, as the
+    kernels apply it."""
+    m = torch.as_tensor(mask)
+    if m.dtype != torch.bool:
+        m = m > 0
+    b, sq, sk = q_seg.shape[0], q_seg.shape[1], kv_seg.shape[1]
+    causal_sq = causal and sq == sk
+    ok = torch.ones((b,), dtype=torch.bool, device=q_seg.device)
+    kv_live = kv_seg[:, None, :] != 0
+    for q0 in range(0, sq, _FIDELITY_CHUNK):
+        q1 = min(q0 + _FIDELITY_CHUNK, sq)
+        mc_h = m[:, :, q0:q1]
+        mc = mc_h[:, 0]
+        if m.shape[1] > 1:
+            ok = ok & (mc_h == mc_h[:, :1]).flatten(1).all(dim=1)
+        rebuilt = (q_seg[:, q0:q1, None] == kv_seg[:, None, :]) & kv_live
+        if causal_sq:
+            pos = (torch.arange(q0, q1, device=m.device)[:, None]
+                   >= torch.arange(sk, device=m.device)[None, :])[None]
+            rebuilt, mc = rebuilt & pos, mc & pos
+        ok = ok & (rebuilt == mc).flatten(1).all(dim=1)
+    return ok
+
+
+def _capturing(device) -> bool:
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def _draw_dropout_seed(dropout_rng) -> int:
+    """A uint32 dropout seed drawn from the ``torch.Generator``
+    ``dropout_rng`` (read on the host)."""
+    bits = torch.randint(0, 2 ** 32, (), generator=dropout_rng, dtype=torch.int64,
+                         device=dropout_rng.device)
+    return int(bits.item())
+
+
+def flash_attention_fn(causal: bool = False, *, window: int | None = None,
+                       mask_check: bool = True, dropout_impl: str = "dense"):
+    """An ``attention_fn`` drop-in for the models' multi-head attention
+    (:class:`~fluxmpi_tpu_torch.models._layers.MultiHeadDotProductAttention`,
+    e.g. ``TransformerEncoder(attention_fn=flash_attention_fn())``):
+    ``fn(query, key, value, bias=None, mask=None, **kwargs)`` over ``(b, s,
+    h, d)`` tensors, through :func:`flash_attention`, the output in the
+    query's dtype.
+
+    A flax boolean ``mask`` (``[b | 1, h | 1, sq, sk]``) becomes segment ids
+    (:func:`_segments_from_attention_mask`, composed with ``causal``):
+    trailing padding, contiguous packed documents, and either with causal.
+    A query row with no key left outputs zeros (flax's dense attend
+    averages every value there). A mask the ids do not rebuild raises
+    ``ValueError`` at the call; while a CUDA graph is being captured the
+    check cannot be read on the host, so ``mask_check=True`` NaN-poisons
+    the offending batch rows instead (``mask_check=False`` skips it there).
+    ``bias`` raises: the scores never materialize.
+
+    Dropout (``dropout_rate > 0`` with ``deterministic=False``):
+    ``dropout_impl="kernel"`` draws a uint32 seed from ``dropout_rng`` (a
+    ``torch.Generator``) and drops inside the kernels with the reference's
+    hash; it refuses CUDA-graph capture, which would bake one seed into
+    every replay. ``dropout_impl="dense"`` (JAX's flax-exact fallback)
+    raises ``NotImplementedError``: flax's random stream cannot be
+    reproduced. Under the models' attention modules flax's keyword filter
+    passes ``mask`` alone to this function, so they never drop here."""
+    if dropout_impl not in ("dense", "kernel"):
+        raise ValueError("dropout_impl must be 'dense' or 'kernel'")
+
+    def fn(query, key, value, bias=None, mask=None, **kwargs):
+        if bias is not None:
+            raise ValueError("flash_attention_fn cannot honor a dense attention bias "
+                             "(the score matrix never materializes)")
+        _check_window(window, causal)
+        dropout_rate = float(kwargs.get("dropout_rate", 0.0))
+        dropout_seed = None
+        if dropout_rate and not kwargs.get("deterministic", True):
+            dropout_rng = kwargs.get("dropout_rng")
+            if dropout_rng is None:
+                raise ValueError("dropout_rate > 0 with deterministic=False requires "
+                                 "a dropout_rng (a torch.Generator)")
+            if dropout_impl == "dense":
+                raise NotImplementedError(
+                    "flash_attention_fn(dropout_impl='dense') is not ported: JAX "
+                    "then takes flax's dense attention with flax's random stream "
+                    "(dropout_rng), which the port cannot reproduce; pass "
+                    "dropout_impl='kernel', or dropout_rate=0.0")
+            if _capturing(query.device):
+                raise NotImplementedError(
+                    "flash_attention_fn(dropout_impl='kernel') under CUDA-graph "
+                    "capture: the kernels take their dropout seed as a host "
+                    "integer, so every replay would drop the same entries; run "
+                    "this step with train_loop(fuse=False)")
+            dropout_seed = _draw_dropout_seed(dropout_rng)
+        else:
+            dropout_rate = 0.0
+        segment_ids = fidelity = None
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=query.device)
+            segment_ids = _segments_from_attention_mask(
+                mask, query.shape[0], query.shape[1], key.shape[1], causal)
+            if not _capturing(query.device):
+                ok = _mask_fidelity(mask, *segment_ids, causal)
+                if not bool(ok.all()):
+                    rows = torch.nonzero(~ok).flatten().tolist()
+                    raise ValueError(
+                        f"attention mask is not representable by segment ids for "
+                        f"batch rows {rows} (non-contiguous sparsity, a head-varying "
+                        f"pattern, or a causal mask passed with causal={causal}); "
+                        f"use segment_ids= on flash_attention, or a dense "
+                        f"attention_fn")
+            elif mask_check:
+                fidelity = _mask_fidelity(mask, *segment_ids, causal)
+        out = flash_attention(query, key, value, causal=causal, window=window,
+                              segment_ids=segment_ids, dropout_rate=dropout_rate,
+                              dropout_seed=dropout_seed).to(query.dtype)
+        if fidelity is not None:
+            out = torch.where(fidelity[:, None, None, None], out,
+                              torch.full((), float("nan"), dtype=out.dtype,
+                                         device=out.device))
+        return out
+
+    return fn

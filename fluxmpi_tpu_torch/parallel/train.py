@@ -220,10 +220,12 @@ def make_train_step(
     windows (``fuse="auto"``, the default), which on the card capture
     ``width`` updates as one CUDA graph and replay it: ``loss_fn`` must
     then hold no host-side state that changes between updates (a Python
-    counter or schedule, numpy or Python randomness, a CPU generator or a
-    CUDA generator other than the default one), whose capture-time values
-    the graph would keep; pass ``fuse=False`` to ``train_loop`` for such a
-    ``loss_fn``."""
+    counter or schedule, numpy or Python randomness, a CPU generator),
+    whose capture-time values the graph would keep; pass ``fuse=False`` to
+    ``train_loop`` for such a ``loss_fn``. Draws from the default CUDA
+    generator, or from a CUDA generator the loss notes with
+    :func:`~fluxmpi_tpu_torch.runtime.note_graph_generator` (as
+    ``ddpm_loss`` does), advance on every replay."""
     _refuse_waiting("make_train_step", waiting)
     watch = _CastWatch()
     loss_fn = _with_policy_and_remat(loss_fn, policy, remat, watch)
@@ -356,6 +358,7 @@ class WindowProgram:
         self._warm = False
         self._stream = None
         self._bound: tuple = ()
+        self._generators: list = []
 
     def _run(self, ts: TrainState, data: Any, perm: torch.Tensor,
              start: torch.Tensor):
@@ -379,9 +382,11 @@ class WindowProgram:
         if not self._warm:
             self._stream = torch.cuda.Stream(dev)
             self._stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(self._stream):
+            with torch.cuda.stream(self._stream), \
+                    runtime.watch_graph_generators() as drawn:
                 at = torch.full((), int(start), dtype=torch.int64, device=dev)
                 ts, metrics = self._run(ts, data, perm, at)
+            self._generators = drawn
             torch.cuda.current_stream(dev).wait_stream(self._stream)
             self._warm = True
             return ts, metrics
@@ -406,6 +411,16 @@ class WindowProgram:
         step0, mstate0 = ts.step, ts.model_state
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
+        # The CUDA generators the eager window drew from: registered, each
+        # replay advances them as the eager updates did (the default
+        # generator is registered by the capture itself).
+        for gen in self._generators:
+            if not hasattr(graph, "register_generator_state"):
+                raise RuntimeError(
+                    "this torch cannot register a CUDA generator with a CUDA "
+                    "graph, so every replay would repeat the captured draws; "
+                    "run this step with train_loop(fuse=False)")
+            graph.register_generator_state(gen)
         t0 = time.perf_counter()
         try:
             # thread_local: a checkpoint writer or NCCL's watchdog may use

@@ -18,6 +18,7 @@ already initialized is adopted as it is.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import signal
@@ -38,6 +39,7 @@ __all__ = [
     "is_initialized",
     "local_device_count",
     "local_rank",
+    "note_graph_generator",
     "preemption_handlers_installed",
     "preemption_requested",
     "process_count",
@@ -47,6 +49,7 @@ __all__ = [
     "shutdown",
     "total_workers",
     "uninstall_preemption_handlers",
+    "watch_graph_generators",
     "worker_device",
 ]
 
@@ -339,3 +342,33 @@ def uninstall_preemption_handlers() -> None:
             pass
         del _prev_signal_handlers[sig]
     clear_preemption()
+
+
+# The CUDA generators a step drew from while a window program watched it
+# (None: nobody watches).
+_graph_generators: list | None = None
+
+
+def note_graph_generator(generator: torch.Generator) -> None:
+    """Record that the running step draws from the CUDA ``generator``. A
+    window program that captures the step as a CUDA graph registers every
+    generator noted in its eager first window with the graph, so that each
+    replay draws afresh, as the eager updates do. The default CUDA
+    generator needs no note; ``fluxmpi_tpu_torch.models.ddpm_loss`` notes
+    its ``rng``."""
+    watch = _graph_generators
+    if (watch is not None and generator.device.type == "cuda"
+            and all(g is not generator for g in watch)):
+        watch.append(generator)
+
+
+@contextlib.contextmanager
+def watch_graph_generators():
+    """Collect the generators :func:`note_graph_generator` records inside
+    the block; yields the list."""
+    global _graph_generators
+    outer, _graph_generators = _graph_generators, []
+    try:
+        yield _graph_generators
+    finally:
+        _graph_generators = outer

@@ -8,8 +8,11 @@ one CUDA graph against the pipelined run bit for bit (with and without
 remat) and with a loss_fn whose host-side state the graph fixes at
 capture, BatchNorm's statistics carried by a captured window (with the
 step's statistics all-reduce and a sync-BN model at world 1 over NCCL), a
-ResNet on the card against the CPU, and, on a machine with two or more
-cards, one data-parallel step over NCCL against the single-process step.
+ResNet on the card against the CPU, the kernels at the zoo's shapes (ViT's
+197 tokens, the UNet's head dim 128), ``flash_attention_fn``'s mask inside
+a captured graph, a DDPM window whose CUDA generator draws afresh on every
+replay, and, on a machine with two or more cards, one data-parallel step
+over NCCL against the single-process step.
 
 Marked ``cuda``: each test skips where CUDA is absent. On a machine with a
 card (this file imports no JAX, so the JAX-pinning conftest can be left
@@ -609,6 +612,143 @@ def test_resnet_on_card_matches_cpu(device):
     for k, ref in cpu.items():
         err = (card[k] - ref).abs().max() / ref.abs().max().clamp_min(1e-30)
         assert err <= 1e-4, (k, float(err))
+
+
+# The zoo's attention shapes (slice 6), non-causal: ViT-B/16's 197 tokens,
+# a tail in every query and key tile; the UNet's attentions over an 8x8
+# grid at head dim 64, and its middle one at head dim 128 over a 4x4 grid.
+ZOO_CASES = {"vit_197": dict(b=128, sq=197, sk=197, h=12, hkv=12, d=64),
+             "unet_64": dict(b=64, sq=64, sk=64, h=4, hkv=4, d=64),
+             "unet_mid_d128": dict(b=64, sq=16, sk=16, h=4, hkv=4, d=128)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(ZOO_CASES))
+def test_zoo_shapes_kernels_match_plain_version(device, dtype, case):
+    """The three kernels at the zoo's shapes against their plain versions,
+    forward (output and lse) and backward (dQ, dK, dV), with the
+    tolerances of the tests above."""
+    dims = [ZOO_CASES[case][n] for n in ("b", "sq", "sk", "h", "hkv", "d")]
+    q, k, v, g, _, _ = _bwd_inputs(device, dtype, *dims, seed=4)
+    out, lse = fa.flash_fwd(q, k, v)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v)
+    dterm = ((g.float() * out.float()).sum(-1).permute(0, 2, 1)).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, None, None, g, lse, dterm)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, None, None, g, lse, dterm)
+    want = fa.flash_attention_bwd_reference(q, k, v, g, lse, dterm)
+    torch.cuda.synchronize()
+    assert (out.float() - ref_out.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and torch.isfinite(got.float()).all()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= GRAD_TOL[dtype] * ref.float().abs().max().item() + 1e-6
+
+
+def _padding_mask(device, b, s, lengths):
+    valid = torch.arange(s, device=device)[None] < torch.as_tensor(lengths, device=device)[:, None]
+    return valid[:, None, :, None] & valid[:, None, None, :]
+
+
+def test_flash_attention_fn_mask_inside_a_captured_graph(device):
+    """``flash_attention_fn`` with a flax padding mask captures into a CUDA
+    graph (segment ids and the fidelity check on the device, no host
+    read), and the replay equals the eager call; an unrepresentable mask
+    under capture NaN-poisons its batch rows and leaves the others; kernel
+    dropout refuses capture, whose replays would all drop alike."""
+    fn = fa.flash_attention_fn()
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn(3, 40, 4, 64, generator=gen).to(device) for _ in range(3))
+    mask = _padding_mask(device, 3, 40, [40, 23, 7])
+    bad = mask.clone()
+    bad[1, 0, 4, 9] = False  # a hole: no segment ids rebuild it
+    eager = fn(q, k, v, mask=mask)
+    with pytest.raises(ValueError, match="batch rows \\[1\\]"):
+        fn(q, k, v, mask=bad)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(q, k, v, mask=mask)
+    torch.cuda.current_stream().wait_stream(side)
+    graph, poisoned = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(q, k, v, mask=mask)
+    with torch.cuda.graph(poisoned):
+        out_bad = fn(q, k, v, mask=bad)
+    graph.replay()
+    poisoned.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert torch.isnan(out_bad[1]).all() and not torch.isnan(out_bad[[0, 2]]).any()
+    kernel_drop = fa.flash_attention_fn(dropout_impl="kernel")
+    drop = dict(dropout_rate=0.1, deterministic=False,
+                dropout_rng=torch.Generator(device=device).manual_seed(0))
+    kernel_drop(q, k, v, **drop)  # eager: draws a seed and drops
+    with pytest.raises(NotImplementedError, match="replay"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            kernel_drop(q, k, v, **drop)
+
+
+def test_ddpm_windows_draw_fresh_timesteps_bit_for_bit(device):
+    """A small UNet through ``ddpm_loss`` with a CUDA generator in
+    ``train_loop(fuse="window")``: the generator is registered with the
+    captured graph, so every replay draws new timesteps and noise, the
+    very draws of ``fuse=False``: every parameter, adam moment and flush
+    loss bit-identical over 32 updates, and the updates' timesteps (kept by
+    the loss in a device ring the graph replays) equal and differing from
+    update to update."""
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import UNet, cosine_beta_schedule, ddpm_loss
+    from fluxmpi_tpu_torch.models import unet as tunet
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+
+    x = np.random.default_rng(0).uniform(-1, 1, (64, 8, 8, 3)).astype(np.float32)
+    draws = tunet._ddpm_draws
+
+    def run(fuse):
+        model = UNet(base_channels=8, channel_mults=(1, 2), attn_resolutions=(4,), groups=4,
+                     attention_fn=fa.flash_attention_fn(), image_size=8, device=device)
+        betas = cosine_beta_schedule(1000, device=device)
+        gen = torch.Generator(device=device).manual_seed(42)
+        seen = torch.zeros(32, 8, dtype=torch.int64, device=device)
+        count = torch.zeros((), dtype=torch.int64, device=device)
+
+        def keep(*a):
+            t, eps = draws(*a)
+            seen.index_copy_(0, count.reshape(1) % 32, t[None])
+            count.add_(1)
+            return t, eps
+
+        tunet._ddpm_draws = keep
+        try:
+            opt = optim.adam(1e-3)
+            step = make_train_step(lambda p, ms, b: (ddpm_loss(model, p, b[0], gen, betas), ms),
+                                   opt)
+            loader = fm.DistributedDataLoader(fm.ArrayDataset((x,)), 8, shuffle=True,
+                                              device=device)
+            state, summary = train_loop(step, TrainState.create(model, opt), loader,
+                                        steps=32, flush_every=8, fuse=fuse)
+        finally:
+            tunet._ddpm_draws = draws
+        return state, summary, seen.cpu(), step
+
+    fm.init()
+    try:
+        ref, s_ref, t_ref, _ = run(False)
+        got, s_got, t_got, step = run("window")
+    finally:
+        fm.shutdown()
+    (prog,) = step.__fluxmpi_window_cache__.values()
+    assert prog.graph is not None and prog.replays == 3 and len(prog._generators) == 1
+    assert torch.equal(t_got, t_ref)
+    assert len({tuple(r.tolist()) for r in t_ref}) == 32
+    flush = lambda s: [(f["updates"], f["loss"], f["loss_mean"]) for f in s["flushes"]]  # noqa: E731
+    assert flush(s_got) == flush(s_ref)
+    for name in ref.params:
+        assert torch.equal(got.params[name], ref.params[name]), name
+        for m in ("mu", "nu"):
+            assert torch.equal(got.opt_state[m][name], ref.opt_state[m][name]), (m, name)
 
 
 NCCL_WORKER = textwrap.dedent('''

@@ -48,7 +48,7 @@ def test_import_loads_no_jax_flax_or_reference_package():
         "models.convert", "models.transformer", "parallel.train",
         "parallel.loop", "faults", "utils.precision", "utils.manifest",
         "utils.checkpoint", "config", "models.cnn", "models.resnet", "models.deq",
-        "models._layers")}
+        "models._layers", "models.vit", "models.unet", "utils.ema")}
     assert ported <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -102,6 +102,29 @@ def test_training_entry_points_refuse_missing_cuda(monkeypatch):
     loader = fluxmpi_tpu_torch.DistributedDataLoader(ds, global_batch_size=4,
                                                      device="cpu")
     assert next(iter(loader)).device.type == "cpu"
+
+
+def test_zoo_entry_points_refuse_missing_cuda(monkeypatch):
+    """The slice-6 models and the schedule default to the card, and refuse
+    its absence unless the caller names the CPU."""
+    from fluxmpi_tpu_torch.models import (EncoderBlock, TransformerEncoder, UNet, ViT,
+                                          cosine_beta_schedule)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = dict(
+        ViT=lambda **kw: ViT(num_classes=2, patch=4, num_layers=1, d_model=8, num_heads=2,
+                             d_ff=8, image_size=8, **kw),
+        UNet=lambda **kw: UNet(base_channels=8, channel_mults=(1,), groups=4,
+                               image_size=8, **kw),
+        TransformerEncoder=lambda **kw: TransformerEncoder(1, 8, 2, 8, **kw),
+        EncoderBlock=lambda **kw: EncoderBlock(8, 2, 8, 0.0, torch.float32, **kw),
+        cosine_beta_schedule=lambda **kw: cosine_beta_schedule(10, **kw))
+    for name, make in small.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+        out = make(device="cpu")
+        where = out.device if torch.is_tensor(out) else next(out.parameters()).device
+        assert where.type == "cpu", name
 
 
 def test_waiting_options_raise_instead_of_being_ignored():

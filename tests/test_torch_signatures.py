@@ -12,8 +12,10 @@ and the port adds no parameter of its own. The allow-list holds only:
   device, JAX on a mesh) and ``generator=`` (torch draws weights from a
   generator, flax from a PRNG key), ``init(timeout=)``, the
   ``torch.distributed`` process group's timeout, and ``in_features=`` of
-  ``MLP``, ``CNN``, ``ResNet`` (and its blocks) and ``DEQ`` (a torch module
-  is built with its shapes; flax infers the input width at the first
+  ``MLP``, ``CNN``, ``ResNet`` (and its blocks), ``DEQ``, ``ViT`` and
+  ``UNet``, and ``image_size=`` of ``ViT`` and ``UNet`` (a torch module is
+  built with its shapes; flax infers the input width, the position
+  table's length and where the UNet's attention blocks sit at the first
   call);
 - the TPU-only arguments ``block_q``, ``block_k``, ``interpret``,
   ``mesh`` and ``axis_name`` where the port does not take them (the port
@@ -26,7 +28,10 @@ and the port adds no parameter of its own. The allow-list holds only:
   too;
 - flax's own module fields (``parent``, ``name``; also through a
   ``functools.partial`` such as ``ResNet50``) and the flax ``params``
-  beside a ``model``: a torch module holds its own weights.
+  beside a ``model`` where the port leaves it out: a torch module holds
+  its own weights (where the port takes it, as ``ddpm_loss`` and
+  ``ddim_sample`` do to run a model with other weights such as the EMA's,
+  it is compared).
 """
 
 from __future__ import annotations
@@ -43,10 +48,14 @@ flax_linen = pytest.importorskip("flax.linen")
 MODULES = ["", ".comm", ".config", ".data", ".errors", ".faults", ".logging",
            ".optimizer", ".runtime", ".sync", ".models", ".models.cnn", ".models.deq",
            ".models.generate", ".models.resnet", ".models.transformer",
+           ".models.unet", ".models.vit",
            ".ops", ".ops.flash_attention", ".ops.fused_ce", ".parallel",
            ".parallel.loop", ".parallel.train", ".serving", ".serving.cache",
-           ".serving.engine", ".utils", ".utils.checkpoint", ".utils.manifest",
-           ".utils.precision"]
+           ".serving.engine", ".utils", ".utils.checkpoint", ".utils.ema",
+           ".utils.manifest", ".utils.precision"]
+# Public callables the JAX module defines but leaves out of its __all__,
+# compared all the same: (module, name).
+UNLISTED = [(".models.transformer", "EncoderBlock")]
 
 EXTRAS = {"device", "generator"}
 TPU_ONLY = {"block_q", "block_k", "interpret", "mesh", "axis_name"}
@@ -55,7 +64,8 @@ FLAX_FIELDS = {"parent", "name"}
 PORT_ONLY = {"init": {"timeout"},
              **{name: {"in_features"} for name in (
                  "MLP", "CNN", "DEQ", "ResNet", "ResNet18", "ResNet34", "ResNet50",
-                 "ResNet101", "BottleneckBlock", "BasicBlock")}}
+                 "ResNet101", "BottleneckBlock", "BasicBlock")},
+             **{name: {"in_features", "image_size"} for name in ("ViT", "UNet")}}
 # Arguments the port takes through **waiting and refuses, by callable.
 REFUSED = {
     "init": {"devices", "mesh_shape", "parallel", "distributed", "telemetry",
@@ -76,14 +86,16 @@ REFUSED_WHEN_SET = {
         "max_len": 64, "slo_ttft_s": 1.0, "slo_token_s": 0.1, "registry": object(),
         "clock": time.monotonic, "flush_every": 4, "check_memory": False,
         "attention": "flash"},
-    (".models.transformer", "TransformerLM"): {"attention_fn": object(),
-                                               "decode": True},
+    (".models.transformer", "TransformerLM"): {"decode": True},
+    (".models.transformer", "TransformerEncoder"): {"decode": True},
+    (".models.transformer", "EncoderBlock"): {"decode": True},
     (".models.generate", "generate"): {"temperature": 0.7, "top_k": 4, "top_p": 0.9,
                                        "prefill": "scan"},
 }
 # The smallest positional arguments each of them takes.
 _REFUSED_ARGS = {"ServingRequest": ([1], 1), "InferenceEngine": (None,),
-                 "TransformerLM": (), "generate": (None, [[1]], 1)}
+                 "TransformerLM": (), "TransformerEncoder": (),
+                 "EncoderBlock": (32, 4, 64, 0.0, None), "generate": (None, [[1]], 1)}
 LITERALS = (type(None), bool, int, float, str)
 
 
@@ -107,6 +119,10 @@ def _pairs():
                 continue
             seen.add((id(p), id(r)))
             yield f"{suffix or '.'}:{name}", name, p, r
+    for suffix, name in UNLISTED:
+        p = getattr(importlib.import_module("fluxmpi_tpu_torch" + suffix), name)
+        r = getattr(importlib.import_module("fluxmpi_tpu" + suffix), name)
+        yield f"{suffix}:{name}", name, p, r
 
 
 PAIRS = list(_pairs())
@@ -128,7 +144,12 @@ def test_the_comparison_covers_the_ported_surface():
                      "set_preference", "delete_preference",
                      "disable_device_collectives", "env_int", "CNN", "ResNet",
                      "ResNet18", "ResNet34", "ResNet50", "ResNet101",
-                     "BottleneckBlock", "BasicBlock", "DEQ", "fixed_point_solve"):
+                     "BottleneckBlock", "BasicBlock", "DEQ", "fixed_point_solve",
+                     # Slice 6: the zoo's ViT and UNet through the flash
+                     # kernels' attention_fn hook, and the EMA.
+                     "TransformerEncoder", "EncoderBlock", "flash_attention_fn", "ViT",
+                     "UNet", "cosine_beta_schedule", "ddpm_loss", "ddim_sample",
+                     "EMAState", "ema_init", "ema_update", "ema_params"):
         assert expected in names, expected
     assert len(PAIRS) >= 60
 
@@ -147,7 +168,7 @@ def _mismatches(name, port, ref):
     if inspect.isclass(base) and issubclass(base, flax_linen.Module):
         skip |= FLAX_FIELDS
     rnames = list(rp)
-    if rnames[:2] == ["model", "params"]:
+    if rnames[:2] == ["model", "params"] and "params" not in pp:
         skip.add("params")
     out = []
     positional = (inspect.Parameter.POSITIONAL_ONLY,

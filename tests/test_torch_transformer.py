@@ -91,8 +91,8 @@ def test_ln_eps_threads_through_every_layer_norm():
 
 
 def test_gelu_is_flax_tanh_form():
-    block = tt.EncoderBlock(8, 2, 16, ln_eps=1e-6,
-                            init=tt._Init(torch.device("cpu"), torch.Generator()))
+    block = tt.EncoderBlock(8, 2, 16, 0.0, torch.float32, ln_eps=1e-6, device="cpu",
+                            generator=torch.Generator())
     with torch.no_grad():
         for m in (block.ln1, block.ln2):
             m.scale.fill_(1.0)
@@ -104,7 +104,7 @@ def test_gelu_is_flax_tanh_form():
     # gelu(ln2(x)) to x: read the activation off the residual.
     h = torch.linspace(-3.0, 3.0, 8).reshape(1, 1, 8)
     with torch.no_grad():
-        y, _, _ = block(h, mode="naive", dtype=torch.float32)
+        y = block(h, train=False)
     ln = torch.nn.functional.layer_norm(h, (8,), eps=1e-6)
     act = (y - h).numpy()
     flax_act = np.asarray(fnn.gelu(jnp.asarray(ln.numpy())))
