@@ -84,7 +84,22 @@
    the same bits. Prints, for both paths, ms per update and tokens/s (from
    a second, untraced run of 32 updates), the idle share of a traced
    window, host launch calls per update, capture seconds and peak memory.
-8. Vision phase (``vision_phase``; no hand-written kernel on its path:
+8. Telemetry phase (``telemetry_phase``): the fused bf16 run once with
+   every plane off and once under ``init(telemetry=<jsonl>, trace=<path>,
+   goodput=True, memory=True, watchdog=...)`` with a ``TrainingMonitor``
+   as ``metrics=``; gates: the JSONL and the trace export pass
+   ``scripts/check_metrics_schema.py`` and ``scripts/goodput_report.py``
+   reads the stream (subprocesses); ``train.steps`` 32,
+   ``train.window.size`` 8, ``train.window.dispatches`` the loop's
+   dispatches; every parameter and moment bit-identical to the planes-off
+   run; ``goodput.mfu`` in (0, 1] and within 5% of counted FLOPs per update
+   x updates / (the loop's seconds x 989.4e12); ``memory.peak_bytes_in_use``
+   within 1% of ``torch.cuda.max_memory_allocated()``; at most one more host
+   launch call per update than planes off; 12 launches of each kernel per
+   update. Then the watchdog fires on a ``data.fetch`` delay and on the
+   main thread waiting in ``torch.cuda.synchronize()`` behind a spinning
+   kernel, each dump valid and naming the stalled call.
+9. Vision phase (``vision_phase``; no hand-written kernel on its path:
    convolutions are cuDNN's, BatchNorm is plain PyTorch ops): ResNet-50
    (``num_classes=1000``, bf16 compute, f32 parameters and statistics) on
    1024 synthetic 224x224x3 uint8 images in the device-gather loader,
@@ -109,7 +124,7 @@
    ``FlatParamVector`` synchronized in one broadcast, ``iallreduce`` and
    ``ibcast`` with ``Request.wait`` against the blocking calls,
    ``donate=True``, ``barrier(tag=)`` and the ``host_*`` collectives.
-9. Zoo phase (``zoo_phase``): ViT-B/16 (patch 16 on 224x224x3, 12 layers,
+10. Zoo phase (``zoo_phase``): ViT-B/16 (patch 16 on 224x224x3, 12 layers,
    d_model 768, 12 heads, d_ff 3072, 1000 classes, 86,567,656 parameters;
    bf16 compute, ``adamw(1e-3)``, 1024 synthetic uint8 images, batch 128)
    and the DDPM UNet of ``bench.py``'s ``_bench_unet`` (side 32, base 128,
@@ -1662,6 +1677,302 @@ def fused_phase(device, bf16_stats, updates: int = 32, flush_every: int = 8,
     return stats, failures
 
 
+# Telemetry phase: the fused bf16 run of fused_phase with every ported
+# plane on (JSONL metrics, the span trace, goodput with live MFU, the
+# memory plane, the watchdog) beside the same run with every plane off.
+H100_PEAK_BF16 = 989.4e12  # NVIDIA H100 SXM data sheet, dense bf16
+
+
+def telemetry_phase(device, updates: int = 32, flush_every: int = 8,
+                    stall_deadline: float = 2.0):
+    """GPT-2-small widths in bf16 compute with f32 masters, ``fuse="auto"``,
+    ``steps=32, flush_every=8`` (four CUDA-graph windows), run twice from
+    the same seed: once with every plane off, once under ``init(telemetry=
+    <jsonl>, trace=<path>, goodput=True, memory=True, watchdog=<600 s>)``
+    with ``make_train_step(metrics=TrainingMonitor(interval=1))`` (one JSONL
+    line per flush). Gates: the JSONL and the trace export pass
+    ``scripts/check_metrics_schema.py`` and ``scripts/goodput_report.py``
+    reads the stream (both run as subprocesses); ``train.steps`` 32,
+    ``train.window.size`` 8 and ``train.window.dispatches`` equal to the
+    loop's ``dispatches``; every parameter and adamw moment bit-identical
+    to the planes-off run; ``goodput.mfu`` in (0, 1] and within 5% of
+    FLOPs per update x updates / (the loop's seconds x 989.4e12);
+    ``memory.peak_bytes_in_use`` within 1% of
+    ``torch.cuda.max_memory_allocated()``; host launch calls per update in
+    replayed windows at most 1 above the planes-off run; each kernel
+    launched 12 times per update. Prints ms per update (median over the
+    windows of a second run of 32 updates) with the planes on beside off.
+    Then the watchdog (deadline ``stall_deadline`` s) against two stalls:
+    a pipelined run whose third batch is delayed by a ``data.fetch``
+    ``delay=`` fault past the deadline, and the main thread waiting in
+    ``torch.cuda.synchronize()`` on a kernel that spins on the card past
+    the deadline; each dump must validate and name the stalled stack."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import faults, optim, telemetry
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+
+    failures = []
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    root = Path(__file__).resolve().parent
+    corpus = lm_corpus(GPT2_SMALL["vocab_size"], seq=GPT2_SMALL["max_len"])
+    tokens_per_update = 8 * (corpus.shape[1] - 1)
+    need = GPT2_SMALL["num_layers"] * updates
+
+    def build(dev, metrics=None, fuse_ok=True):
+        model = TransformerLM(**GPT2_SMALL, attention="flash", dropout=0.0,
+                              dtype=torch.bfloat16, device=dev,
+                              generator=torch.Generator().manual_seed(0))
+        fm.synchronize(model)
+        loader = fm.DistributedDataLoader(
+            fm.DistributedDataContainer(fm.ArrayDataset((corpus[:, :-1], corpus[:, 1:]))),
+            global_batch_size=8, shuffle=True, device_gather=fuse_ok)
+
+        def loss_fn(params, model_state, batch):
+            x, y = batch
+            return model(x, targets=y).mean(), model_state
+
+        opt = optim.adamw(3e-4)
+        step = make_train_step(loss_fn, opt, metrics=metrics)
+        return model, loader, step, TrainState.create(model, opt)
+
+    def leaves(state):
+        out = {f"params/{k}": v for k, v in state.params.items()}
+        for m in ("mu", "nu"):
+            out.update({f"{m}/{k}": v for k, v in state.opt_state[m].items()})
+        return out
+
+    def drive(dev, metrics):
+        model, loader, step, state = build(dev, metrics)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for kern in kernels:
+            kern.launches = 0
+        (state, summ), launches = kernel_launches(
+            lambda: train_loop(step, state, loader, steps=updates,
+                               flush_every=flush_every))
+        counted = {k.__name__: k.launches for k in kernels}
+        extra = graph_launches(step)
+        peak = torch.cuda.max_memory_allocated(dev)
+        bits = {k: v.detach().clone() for k, v in leaves(state).items()}
+        state, timed = train_loop(step, state, loader, steps=updates,
+                                  flush_every=flush_every)
+        (_, hsum), calls, _ = host_launches(
+            lambda: train_loop(step, state, loader, steps=flush_every,
+                               flush_every=flush_every))
+        run = dict(updates=summ["updates"], dispatches=summ["dispatches"],
+                   fused_window=summ["fused_window"], seconds=summ["seconds"],
+                   parameters=sum(p.numel() for p in model.parameters()),
+                   median_update_ms=float(np.median(
+                       [ms / flush_every for ms in timed["step_ms"]])),
+                   launches=launches,
+                   accounted_launches={n: counted[n] + extra[n] for n in counted},
+                   host_launches_per_update=calls / hsum["updates"],
+                   peak_memory_bytes=peak, goodput=summ.get("goodput"))
+        del model, loader, step, state
+        torch.cuda.empty_cache()
+        return run, bits
+
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl = os.path.join(tmp, "metrics.jsonl")
+        trace = os.path.join(tmp, "trace.{process}.json")
+        dev = fm.init()
+        off, want = drive(dev, None)
+        prev = telemetry.set_registry(telemetry.MetricsRegistry())
+        wd = telemetry.Watchdog(deadline=600.0, dump_dir=tmp)
+        try:
+            fm.init(telemetry=jsonl, trace=trace, goodput=True, memory=True, watchdog=wd)
+            mon = telemetry.TrainingMonitor(interval=1)
+            model, loader, step, state = build(dev, mon)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            for kern in kernels:
+                kern.launches = 0
+            (state, summ), launches = kernel_launches(
+                lambda: train_loop(step, state, loader, steps=updates,
+                                   flush_every=flush_every))
+            max_alloc = torch.cuda.max_memory_allocated(dev)
+            counted = {k.__name__: k.launches for k in kernels}
+            extra = graph_launches(step)
+            got = {k: v.detach().clone() for k, v in leaves(state).items()}
+            # What a user's script does next: the loss averaged over the
+            # world and a barrier, two eager collectives on the trace.
+            fm.allreduce(torch.tensor(summ["loss"], device=dev), op="mean")
+            fm.barrier()
+            with open(jsonl) as f:
+                lines = [json.loads(x) for x in f.read().splitlines()]
+            n_lines = len(lines)
+            state, timed = train_loop(step, state, loader, steps=updates,
+                                      flush_every=flush_every)
+            (_, hsum), calls, _ = host_launches(
+                lambda: train_loop(step, state, loader, steps=flush_every,
+                                   flush_every=flush_every))
+            # The loader's host time per batch (data.batch_fetch_seconds)
+            # on the pipelined path, device-gathered and host-gathered.
+            fetch = {}
+            for gather in (True, False):
+                fetch_reg = telemetry.MetricsRegistry()
+                keep = telemetry.set_registry(fetch_reg)
+                try:
+                    _, fl, fstep, fstate = build(dev, fuse_ok=gather)
+                    train_loop(fstep, fstate, fl, steps=flush_every,
+                               flush_every=flush_every, fuse=False)
+                    torch.cuda.synchronize()
+                finally:
+                    telemetry.set_registry(keep)
+                hist = fetch_reg.histogram("data.batch_fetch_seconds")
+                fetch["device_gather" if gather else "host_gather"] = dict(
+                    count=hist.count, mean_ms=hist.mean * 1e3, max_ms=hist.max * 1e3)
+                del fl, fstep, fstate
+            on = dict(updates=summ["updates"], dispatches=summ["dispatches"],
+                      fused_window=summ["fused_window"], seconds=summ["seconds"],
+                      median_update_ms=float(np.median(
+                          [ms / flush_every for ms in timed["step_ms"]])),
+                      launches=launches,
+                      accounted_launches={n: counted[n] + extra[n] for n in counted},
+                      host_launches_per_update=calls / hsum["updates"],
+                      peak_memory_bytes=max_alloc, goodput=summ["goodput"],
+                      batch_fetch=fetch)
+            del model, loader, step, state
+            torch.cuda.empty_cache()
+        finally:
+            telemetry.shutdown()  # writes the last line and the trace export
+            telemetry.set_registry(prev)
+        trace_path = trace.format(process=0)
+        check = subprocess.run(
+            [sys.executable, str(root / "scripts" / "check_metrics_schema.py"), jsonl,
+             trace_path], capture_output=True, text=True, timeout=300)
+        report = subprocess.run(
+            [sys.executable, str(root / "scripts" / "goodput_report.py"), jsonl, "--json"],
+            capture_output=True, text=True, timeout=300)
+
+        def metric(rec, name, **labels):
+            for m in rec["metrics"]:
+                if m["name"] == name and m["labels"] == labels:
+                    return m.get("value")
+            return None
+
+        last = lines[-1] if lines else {"metrics": []}
+        with open(trace_path) as f:
+            spans = sorted({e["name"] for e in json.load(f)["traceEvents"]
+                            if e["ph"] != "M"})
+        rep = on["goodput"]
+        fpu = rep["flops_per_update"] or 0.0
+        mfu_formula = fpu * on["updates"] / (on["seconds"] * H100_PEAK_BF16)
+        mem_peak = metric(last, "memory.peak_bytes_in_use", device=str(dev.index))
+        same = [k for k in want if torch.equal(got[k], want[k])]
+        stats = dict(
+            planes_off=off, planes_on=on, jsonl_lines=n_lines, spans=spans,
+            checker_rc=check.returncode, goodput_report_rc=report.returncode,
+            goodput_report=(json.loads(report.stdout) if report.returncode == 0
+                            else report.stderr[-2000:]),
+            train_steps=metric(last, "train.steps"),
+            window_size=metric(last, "train.window.size"),
+            window_dispatches=metric(last, "train.window.dispatches"),
+            flops_per_update=fpu,
+            flops_6n_tokens=6 * off["parameters"] * tokens_per_update,
+            mfu=rep["mfu"], mfu_productive=rep["mfu_productive"],
+            mfu_formula=mfu_formula, memory_peak_gauge=mem_peak,
+            max_memory_allocated=on["peak_memory_bytes"],
+            leaves=len(want), bit_identical=len(same))
+        print(f"telemetry_phase: planes off {off['median_update_ms']:.2f} ms per update, "
+              f"on {on['median_update_ms']:.2f} ms (median over the windows of a second "
+              f"run of {updates}); host launch calls per update off "
+              f"{off['host_launches_per_update']:.3f}, on "
+              f"{on['host_launches_per_update']:.3f}; {len(same)} of {len(want)} leaves "
+              f"bit-identical; JSONL {n_lines} lines after the main run, checker rc "
+              f"{check.returncode}, goodput_report rc {report.returncode}; train.steps "
+              f"{stats['train_steps']}, window size {stats['window_size']}, dispatches "
+              f"{stats['window_dispatches']} (loop {on['dispatches']}); FLOPs per update "
+              f"{fpu:.4g} (6*N*tokens {stats['flops_6n_tokens']:.4g}); goodput.mfu "
+              f"{rep['mfu']} (productive {rep['mfu_productive']}; formula "
+              f"{mfu_formula:.4f}); goodput buckets {rep['buckets']}; memory peak gauge "
+              f"{mem_peak} vs max_memory_allocated {on['peak_memory_bytes']}; spans "
+              f"{spans}; launches {on['launches']}; data.batch_fetch_seconds "
+              f"(pipelined, {flush_every} updates) {on['batch_fetch']}", flush=True)
+        if check.returncode != 0:
+            failures.append(f"telemetry_phase: checker: {(check.stdout + check.stderr)[-800:]}")
+        if report.returncode != 0:
+            failures.append(f"telemetry_phase: goodput_report: {report.stderr[-800:]}")
+        if (stats["train_steps"], stats["window_size"]) != (updates, flush_every) or \
+                stats["window_dispatches"] != on["dispatches"]:
+            failures.append(f"telemetry_phase: train.steps {stats['train_steps']}, "
+                            f"window size {stats['window_size']}, dispatches "
+                            f"{stats['window_dispatches']} vs {on['dispatches']}")
+        if len(same) != len(want):
+            failures.append(f"telemetry_phase: {len(want) - len(same)} leaves differ "
+                            f"from the planes-off run")
+        if not (rep["mfu"] and 0 < rep["mfu"] <= 1) or \
+                abs(rep["mfu"] - mfu_formula) > 0.05 * mfu_formula:
+            failures.append(f"telemetry_phase: goodput.mfu {rep['mfu']} vs {mfu_formula}")
+        if mem_peak is None or abs(mem_peak - on["peak_memory_bytes"]) > \
+                0.01 * on["peak_memory_bytes"]:
+            failures.append(f"telemetry_phase: memory peak gauge {mem_peak} vs "
+                            f"{on['peak_memory_bytes']}")
+        if on["host_launches_per_update"] > off["host_launches_per_update"] + 1:
+            failures.append("telemetry_phase: the planes add more than one host launch "
+                            "call per update")
+        for run, name in ((off, "off"), (on, "on")):
+            if run["launches"] != {k.__name__: need for k in kernels} or \
+                    run["accounted_launches"] != run["launches"]:
+                failures.append(f"telemetry_phase [{name}]: launches {run['launches']} "
+                                f"(wrappers {run['accounted_launches']}), not {need} each")
+
+        # The watchdog against two stalls on the card. Each dump overwrites
+        # the last (one file per process), so each is read at once.
+        def inspect(kind, want_fn, path, seconds):
+            ok, tail = False, None
+            if path:
+                with open(path) as f:
+                    dump = json.load(f)
+                main = [t for t in dump["threads"] if t["name"] == "MainThread"]
+                funcs = [fr["function"] for t in main for fr in t["stack"]]
+                tail = funcs[-4:]
+                chk = subprocess.run(
+                    [sys.executable, str(root / "scripts" / "check_metrics_schema.py"),
+                     path], capture_output=True, text=True, timeout=300)
+                ok = dump["reason"] == "stall" and want_fn in funcs and chk.returncode == 0
+            stats[f"watchdog_{kind}"] = dict(dumped=bool(path), stack_tail=tail,
+                                             valid=ok, wait_seconds=seconds)
+            print(f"telemetry_phase watchdog [{kind}]: stalled {seconds:.2f}s against a "
+                  f"{stall_deadline:g}s deadline; dump {'written' if path else 'MISSING'}"
+                  f", main thread at {tail}", flush=True)
+            if not ok:
+                failures.append(f"telemetry_phase: the watchdog did not dump a valid "
+                                f"{kind} stall naming {want_fn}")
+
+        model, loader, step, state = build(dev, fuse_ok=False)
+        wd = telemetry.arm_watchdog(deadline=stall_deadline,
+                                    poll_interval=stall_deadline / 8, dump_dir=tmp)
+        try:
+            t0 = time.perf_counter()
+            with faults.scope(f"data.fetch@step=3:delay={3 * stall_deadline:g}"):
+                train_loop(step, state, loader, steps=4, flush_every=2, fuse=False)
+            inspect("fetch", "check", wd.last_dump_path, time.perf_counter() - t0)
+            wd.last_dump_path = None
+            # A kernel that spins ~3 deadlines at the card's 1.98 GHz boost
+            # clock (longer at a lower clock), and the host waiting for it.
+            t0 = time.perf_counter()
+            torch.cuda._sleep(int(3 * stall_deadline * 1.98e9))
+            torch.cuda.synchronize(dev)
+            inspect("synchronize", "synchronize", wd.last_dump_path,
+                    time.perf_counter() - t0)
+        finally:
+            telemetry.disarm_watchdog()
+        del model, loader, step, state
+        torch.cuda.empty_cache()
+    fm.shutdown()
+    return stats, failures
+
+
 # Vision phase: ResNet-50 at ImageNet width (the reference's headline
 # workload), the Conv+BN CNN, the DEQ, and the adapter path with the rest of
 # the collectives.
@@ -2776,6 +3087,9 @@ def run_phases(device):
     fused, fused_failures = fused_phase(device, bf16)
     failures += fused_failures
     torch.cuda.empty_cache()
+    telem, telem_failures = telemetry_phase(device)
+    failures += telem_failures
+    torch.cuda.empty_cache()
     vision, vision_failures = vision_phase(device)
     failures += vision_failures
     torch.cuda.empty_cache()
@@ -2802,6 +3116,7 @@ def run_phases(device):
                      + bf16["remat"]["remat"]["launches"]["flash_fwd"]
                      + bf16["remat"]["dots"]["launches"]["flash_fwd"]
                      + fused["fused"]["launches"]["flash_fwd"]
+                     + telem["planes_on"]["launches"]["flash_fwd"]
                      + sum(n["flash_fwd"] for n in zoo_paths.values())),
         "launches_by_path": {"serve": stats["launches"],
                              "train": train["launches"]["flash_fwd"],
@@ -2811,6 +3126,8 @@ def run_phases(device):
                              "train_bf16_remat_dots":
                                  bf16["remat"]["dots"]["launches"]["flash_fwd"],
                              "train_bf16_fused": fused["fused"]["launches"]["flash_fwd"],
+                             "train_bf16_telemetry":
+                                 telem["planes_on"]["launches"]["flash_fwd"],
                              **{p: n["flash_fwd"] for p, n in zoo_paths.items()}},
         "max_abs_err": max(max(r["err_out"], r["err_lse"]) for r in rows),
         "ms": fwd_row["ms"], "plain_ms": fwd_row["plain_ms"],
@@ -2837,6 +3154,7 @@ def run_phases(device):
                          + bf16["remat"]["remat"]["launches"][kname]
                          + bf16["remat"]["dots"]["launches"][kname]
                          + fused["fused"]["launches"][kname]
+                         + telem["planes_on"]["launches"][kname]
                          + sum(n[kname] for n in zoo_paths.values())),
             "launches_by_path": {"train": train["launches"][kname],
                                  "train_bf16": bf16["launches"][kname],
@@ -2845,6 +3163,8 @@ def run_phases(device):
                                  "train_bf16_remat_dots":
                                      bf16["remat"]["dots"]["launches"][kname],
                                  "train_bf16_fused": fused["fused"]["launches"][kname],
+                                 "train_bf16_telemetry":
+                                     telem["planes_on"]["launches"][kname],
                                  **{p: n[kname] for p, n in zoo_paths.items()}},
             "max_abs_err": max(r["err"][e] for r in bwd_rows for e in errs),
             "ms": bwd_main[f"{key}_ms"],
@@ -2869,7 +3189,8 @@ def run_phases(device):
                       for r in bwd_rows],
         })
     return kernels, {"slice": stats, "train": train, "train_bf16": bf16,
-                     "train_bf16_fused": fused, "vision": vision, "zoo": zoo}, failures
+                     "train_bf16_fused": fused, "train_bf16_telemetry": telem,
+                     "vision": vision, "zoo": zoo}, failures
 
 
 if __name__ == "__main__":

@@ -38,11 +38,16 @@ What is ported, slice by slice:
   :class:`Request`, the ``host_*`` collectives, :func:`cpu` /
   :func:`device`, ``donate=``, :class:`FluxModelWrapper`,
   :class:`FlatParamVector`, :func:`local_device_count` and
-  :mod:`~fluxmpi_tpu_torch.config`.
+  :mod:`~fluxmpi_tpu_torch.config`;
+- the telemetry planes' core: :mod:`~fluxmpi_tpu_torch.telemetry` (the
+  metrics registry and sinks, span tracing, the flight recorder and the
+  watchdog, goodput with live MFU, the memory plane), wired through
+  ``init(telemetry=, trace=, watchdog=, goodput=, memory=)`` and
+  ``make_train_step(metrics=)`` / ``train_loop(metrics=)``.
 """
 
 from . import (comm, config, data, errors, faults, logging, models, ops, optim,
-               optimizer, parallel, runtime, serving, sync, utils)
+               optimizer, parallel, runtime, serving, sync, telemetry, utils)
 from .comm import (Request, allreduce, barrier, bcast, cpu, device,
                    host_allgather, host_allreduce, host_bcast, iallreduce,
                    ibcast, reduce)
@@ -79,5 +84,6 @@ __all__ = [
     "preemption_handlers_installed", "preemption_requested",
     "process_count", "process_index", "reduce", "request_preemption",
     "resolve_device", "runtime", "scan_batches", "serving", "shutdown",
-    "synchronize", "total_workers", "uninstall_preemption_handlers", "utils",
+    "synchronize", "telemetry", "total_workers", "uninstall_preemption_handlers",
+    "utils",
 ]

@@ -20,11 +20,27 @@ host and the worker's device.
 
 Each collective checks its fault site (``comm.allreduce``, ``comm.bcast``,
 ``comm.reduce``, ``comm.barrier``, ``comm.host_*``) before it runs.
+
+Each also records, as the JAX package's do: ``comm.calls``,
+``comm.bytes`` (this worker's payload) and ``comm.block_seconds`` (the
+host's time inside the call) by ``op`` and ``path`` (``device`` for the
+collectives over the worker's device, ``host`` for ``barrier`` and the
+``host_*`` collectives) into the default telemetry registry, a
+flight-recorder entry (begun before the call, completed after it, so a
+rank hung in a collective names it), and a ``comm.<op>`` trace event.
+:func:`iallreduce` and :func:`ibcast` begin their entry at the launch
+and record under ``allreduce`` / ``bcast`` at ``wait()``, timing the
+wait. With the registry, the flight recorder and the tracer all off,
+a collective reads no clock and touches none of them. The gradient
+all-reduce inside a train step is not an eager collective and records
+nothing.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable
+
+import time
 
 import numpy as np
 import torch
@@ -34,6 +50,9 @@ from torch.utils import _pytree as pytree
 from . import faults
 from .errors import CollectiveError
 from .runtime import _require_init, _state, resolve_device
+from .telemetry import get_registry as _telemetry_registry
+from .telemetry import tracing as _tracing
+from .telemetry.flight_recorder import get_flight_recorder as _flight_recorder
 
 __all__ = ["Request", "allreduce", "barrier", "bcast", "cpu", "device",
            "host_allgather", "host_allreduce", "host_bcast", "iallreduce",
@@ -175,6 +194,103 @@ def _collective(x: Any, fn: Callable[[torch.Tensor], None], donate: bool) -> Any
     return fused(x, fn)
 
 
+# ---------------------------------------------------------------------------
+# Instrumentation (the JAX package's comm.py, the same names and labels).
+# One `_instrumentation_on()` check gates everything; when on, the three
+# labeled handles per (op, path) are resolved once and cached, keyed on
+# the registry's identity and version.
+# ---------------------------------------------------------------------------
+
+# (op, path) -> (registry, registry.version, calls, bytes, block_seconds).
+_handles: dict[tuple[str, str], tuple[Any, int, Any, Any, Any]] = {}
+
+
+def _instrumentation_on() -> bool:
+    """The single fast-guard for the collective hot path."""
+    return (
+        _telemetry_registry().enabled
+        or _flight_recorder().enabled
+        or _tracing.get_tracer().enabled
+    )
+
+
+def _begin_op(op_name: str, path: str, nbytes: int) -> Any:
+    try:
+        return _flight_recorder().begin(op_name, path, nbytes)
+    except Exception:  # instrumentation must never take down a collective
+        return None
+
+
+def _abort_op(flight: Any) -> None:
+    """Finalize a flight entry whose collective RAISED: an exception is
+    not a hang."""
+    if flight is None:
+        return
+    try:
+        _flight_recorder().abort(flight)
+    except Exception:
+        pass
+
+
+def _record_op(op_name: str, path: str, nbytes: int, t0: float,
+               flight: Any = None) -> None:
+    try:
+        t1 = time.perf_counter()
+        if flight is not None:
+            _flight_recorder().complete(flight)
+        _tracing.add_complete_event(
+            "comm." + op_name, t0, t1, path=path, nbytes=int(nbytes)
+        )
+        reg = _telemetry_registry()
+        if not reg.enabled:
+            return
+        key = (op_name, path)
+        cached = _handles.get(key)
+        if cached is None or cached[0] is not reg or cached[1] != reg.version:
+            cached = (
+                reg,
+                reg.version,
+                reg.counter("comm.calls", op=op_name, path=path),
+                reg.counter("comm.bytes", op=op_name, path=path),
+                reg.histogram("comm.block_seconds", op=op_name, path=path),
+            )
+            _handles[key] = cached
+        _, _, calls, nbytes_total, block = cached
+        calls.inc()
+        nbytes_total.inc(float(nbytes))
+        block.observe(t1 - t0)
+    except Exception:  # instrumentation must never take down a collective
+        pass
+
+
+def _tree_nbytes(x: Any) -> int:
+    total = 0
+    for leaf in pytree.tree_leaves(x):
+        if isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+        else:
+            total += int(np.asarray(leaf).nbytes)
+    return total
+
+
+def _instrumented(op_name: str, path: str, nbytes: Any, call: Callable[[], Any]) -> Any:
+    """Run ``call()`` as the eager collective ``op_name``: with the
+    instrumentation on, inside a flight entry and timed (``nbytes`` is a
+    number, or a zero-argument callable evaluated only then)."""
+    if not _instrumentation_on():
+        return call()
+    t0 = time.perf_counter()
+    n = nbytes() if callable(nbytes) else nbytes
+    flight = _begin_op(op_name, path, n)
+    try:
+        out = call()
+    except BaseException:
+        _abort_op(flight)
+        raise
+    _record_op(op_name, path, n, t0, flight)
+    return out
+
+
 def _mean_fix(flat: torch.Tensor, world: int) -> None:
     if flat.is_floating_point():
         flat.div_(world)
@@ -198,7 +314,8 @@ def allreduce(x: Any, op: str = "sum", *, donate: bool = False) -> Any:
         if op == "mean":
             _mean_fix(flat, world)
 
-    return _collective(x, run, donate)
+    return _instrumented("allreduce", "device", lambda: _tree_nbytes(x),
+                         lambda: _collective(x, run, donate))
 
 
 def bcast(x: Any, root: int = 0, *, donate: bool = False) -> Any:
@@ -208,7 +325,9 @@ def bcast(x: Any, root: int = 0, *, donate: bool = False) -> Any:
     root = _check_root(root)
     if faults.ARMED:
         faults.check("comm.bcast")
-    return _collective(x, lambda flat: dist.broadcast(flat, src=root), donate)
+    return _instrumented(
+        "bcast", "device", lambda: _tree_nbytes(x),
+        lambda: _collective(x, lambda flat: dist.broadcast(flat, src=root), donate))
 
 
 def reduce(x: Any, op: str = "sum", root: int = 0, *,
@@ -235,7 +354,8 @@ def reduce(x: Any, op: str = "sum", root: int = 0, *,
         elif op == "mean":
             _mean_fix(flat, world)
 
-    return _collective(x, run, donate)
+    return _instrumented("reduce", "device", lambda: _tree_nbytes(x),
+                         lambda: _collective(x, run, donate))
 
 
 class Request:
@@ -248,17 +368,28 @@ class Request:
     def __init__(self, value: Any) -> None:
         self._value = value
         self._pending: tuple | None = None
+        # (op, nbytes, flight entry) when the launch was instrumented.
+        self._record: tuple | None = None
 
     def wait(self) -> Any:
         if self._pending is not None:
             packed, works, post = self._pending
-            for work in works:
-                work.wait()
+            record, self._record = self._record, None
+            t0 = time.perf_counter() if record is not None else 0.0
+            try:
+                for work in works:
+                    work.wait()
+            except BaseException:
+                if record is not None:
+                    _abort_op(record[2])
+                raise
             if post is not None:
                 for flat in packed.flats:
                     post(flat)
             packed.finish()
             self._pending = None
+            if record is not None:
+                _record_op(record[0], "device", record[1], t0, record[2])
         return self._value
 
     @staticmethod
@@ -266,15 +397,26 @@ class Request:
         return [r.wait() for r in requests]
 
 
-def _start(x: Any, fn: Callable[[torch.Tensor], Any],
+def _start(op_name: str, x: Any, fn: Callable[[torch.Tensor], Any],
            post: Callable | None = None) -> tuple[Any, Request]:
     """Start ``fn(flat)`` (an ``async_op=True`` collective) on each flat
-    buffer of ``x``; returns the result tree and its request."""
+    buffer of ``x``; returns the result tree and its request, which
+    records the collective as ``op_name`` at ``wait()``."""
+    record = None
+    if _instrumentation_on():
+        nbytes = _tree_nbytes(x)
+        record = (op_name, nbytes, _begin_op(op_name, "device", nbytes))
     packed = _Packed(x, _state.device)
-    works = [_run(flat, fn) for flat in packed.flats]
+    try:
+        works = [_run(flat, fn) for flat in packed.flats]
+    except BaseException:
+        if record is not None:
+            _abort_op(record[2])
+        raise
     value = pytree.tree_unflatten(packed.out, packed.spec)
     req = Request(value)
     req._pending = (packed, works, post)
+    req._record = record
     return value, req
 
 
@@ -288,7 +430,8 @@ def iallreduce(x: Any, op: str = "sum") -> tuple[Any, Request]:
         faults.check("comm.allreduce")
     world = _state.world
     post = (lambda flat: _mean_fix(flat, world)) if op == "mean" else None
-    return _start(x, lambda flat: dist.all_reduce(flat, op=_REDUCE_OPS[op], async_op=True),
+    return _start("allreduce", x,
+                  lambda flat: dist.all_reduce(flat, op=_REDUCE_OPS[op], async_op=True),
                   post)
 
 
@@ -298,7 +441,8 @@ def ibcast(x: Any, root: int = 0) -> tuple[Any, Request]:
     root = _check_root(root)
     if faults.ARMED:
         faults.check("comm.bcast")
-    return _start(x, lambda flat: dist.broadcast(flat, src=root, async_op=True))
+    return _start("bcast", x,
+                  lambda flat: dist.broadcast(flat, src=root, async_op=True))
 
 
 def barrier(tag: str = "fluxmpi_barrier") -> None:
@@ -307,9 +451,13 @@ def barrier(tag: str = "fluxmpi_barrier") -> None:
     _require_init()
     if faults.ARMED:
         faults.check("comm.barrier")
-    if _state.device.type == "cuda":
-        torch.cuda.synchronize(_state.device)
-    dist.barrier()
+
+    def run():
+        if _state.device.type == "cuda":
+            torch.cuda.synchronize(_state.device)
+        dist.barrier()
+
+    _instrumented("barrier", "host", 0, run)
 
 
 def _host_gathered(h: np.ndarray) -> np.ndarray:
@@ -334,10 +482,14 @@ def host_allreduce(x: Any, op: str = "sum") -> np.ndarray:
         faults.check("comm.host_allreduce")
     op = _canonical_op(op)
     h = np.asarray(x)
-    if _state.world == 1:
-        return h
-    out = _NUMPY_OPS[op](_host_gathered(h), axis=0)
-    return np.asarray(out if op == "mean" else out.astype(h.dtype, copy=False))
+
+    def run():
+        if _state.world == 1:
+            return h
+        out = _NUMPY_OPS[op](_host_gathered(h), axis=0)
+        return np.asarray(out if op == "mean" else out.astype(h.dtype, copy=False))
+
+    return _instrumented("host_allreduce", "host", h.nbytes, run)
 
 
 def host_allgather(x: Any) -> np.ndarray:
@@ -348,9 +500,9 @@ def host_allgather(x: Any) -> np.ndarray:
     if faults.ARMED:
         faults.check("comm.host_allgather")
     h = np.asarray(x)
-    if _state.world == 1:
-        return h[None]
-    return _host_gathered(h)
+    return _instrumented(
+        "host_allgather", "host", h.nbytes,
+        lambda: h[None] if _state.world == 1 else _host_gathered(h))
 
 
 def host_bcast(x: Any, root: int = 0) -> np.ndarray:
@@ -361,11 +513,15 @@ def host_bcast(x: Any, root: int = 0) -> np.ndarray:
         faults.check("comm.host_bcast")
     root = _check_root(root)
     h = np.asarray(x)
-    if _state.world == 1:
-        return h
-    t = torch.from_numpy(np.array(h, copy=True))
-    try:
-        dist.broadcast(t, src=root, group=_state.host_group)
-    except RuntimeError as exc:
-        raise CollectiveError(f"host collective failed: {exc}") from exc
-    return t.numpy()
+
+    def run():
+        if _state.world == 1:
+            return h
+        t = torch.from_numpy(np.array(h, copy=True))
+        try:
+            dist.broadcast(t, src=root, group=_state.host_group)
+        except RuntimeError as exc:
+            raise CollectiveError(f"host collective failed: {exc}") from exc
+        return t.numpy()
+
+    return _instrumented("host_bcast", "host", h.nbytes, run)

@@ -20,7 +20,10 @@ numpy, staged in pinned memory and copied to the device with
 batches.
 
 Each batch crosses the fault site ``data.fetch`` once it is assembled
-(:mod:`fluxmpi_tpu_torch.faults`).
+(:mod:`fluxmpi_tpu_torch.faults`), is a watchdog progress tick, and, with
+telemetry on, is timed into ``data.batch_fetch_seconds`` and a
+``data.fetch`` trace event (``data.prefetch_depth`` holds the queue
+behind each yield), as in the JAX package.
 
 Not ported yet (each raises ``NotImplementedError`` when asked for):
 ``elastic_order``, ``transform=``, the elastic cursor remap on a changed
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import math
 import os
+import time
 import warnings
 from collections import deque
 from typing import Any, Iterator, Sequence
@@ -40,6 +44,9 @@ import torch
 from torch.utils import _pytree as pytree
 
 from . import faults, runtime
+from .telemetry import get_registry as _telemetry_registry
+from .telemetry import tracing as _tracing
+from .telemetry.watchdog import notify_progress
 
 __all__ = [
     "ArrayDataset",
@@ -502,16 +509,44 @@ class DistributedDataLoader:
         return self._resume_cursor
 
     def __iter__(self) -> Iterator[Any]:
+        # Telemetry, resolved once per pass: each batch's fetch (assembly,
+        # the fault site and the copy's launch) is timed into
+        # data.batch_fetch_seconds and a data.fetch trace event, keyed by
+        # its position in the epoch; the queue depth behind each yield
+        # lands in data.prefetch_depth. With the registry and the tracer
+        # off, no clock is read. Every batch is a watchdog tick either way.
+        reg = _telemetry_registry()
+        timed = reg.enabled or _tracing.get_tracer().enabled
+        hist = reg.histogram("data.batch_fetch_seconds") if reg.enabled else None
+        depth = reg.gauge("data.prefetch_depth") if reg.enabled else None
+        b = self._resume_cursor  # read before the pass consumes it
+        source = self._batches()
         queue: deque = deque()
-        for on_device, batch in self._batches():
+        while True:
+            t0 = time.perf_counter() if timed else 0.0
+            try:
+                on_device, batch = next(source)
+            except StopIteration:
+                break
             if faults.ARMED:
                 # After the fetch, so hit N is batch N of the pass.
                 faults.check("data.fetch")
             queue.append(batch if on_device else self._to_device(batch))
+            if timed:
+                t1 = time.perf_counter()
+                if hist is not None:
+                    hist.observe(t1 - t0)
+                _tracing.add_complete_event("data.fetch", t0, t1, batch=b)
+            notify_progress()
+            b += 1
             if len(queue) > self.prefetch:
+                if depth is not None:
+                    depth.set(len(queue) - 1)
                 self._cursor += 1
                 yield queue.popleft()
         while queue:
+            if depth is not None:
+                depth.set(len(queue) - 1)
             self._cursor += 1
             yield queue.popleft()
 

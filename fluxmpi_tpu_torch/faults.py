@@ -51,6 +51,9 @@ or, for a ``delay=`` entry, sleeps that many seconds and continues.
 schedule and the same execution give the same injections. :func:`clear`
 resets schedule and counters. Call sites guard on :data:`ARMED`, one
 attribute read, so with nothing armed a site costs nothing else.
+
+Each injection is counted in ``fault.injected{site}`` in the default
+telemetry registry and lands as a ``fault.injected`` trace instant.
 """
 
 from __future__ import annotations
@@ -65,6 +68,8 @@ import numpy as np
 
 from . import runtime as _runtime
 from .errors import FaultInjectedError
+from .telemetry import get_registry as _telemetry_registry
+from .telemetry import tracing as _tracing
 
 __all__ = [
     "ARMED",
@@ -355,6 +360,18 @@ def configure(spec: Any = None) -> list[FaultSpec]:
     return active()
 
 
+def _record(site: str, hit: int, spec: FaultSpec) -> None:
+    try:
+        reg = _telemetry_registry()
+        if reg.enabled:
+            reg.counter("fault.injected", site=site).inc()
+        _tracing.get_tracer().instant(
+            "fault.injected", site=site, hit=hit, spec=str(spec)
+        )
+    except Exception:  # instrumentation must never mask the injection
+        pass
+
+
 def check(site: str) -> None:
     """Count a hit at ``site`` and, when a spec fires, raise
     :class:`FaultInjectedError` (or stall, for a ``delay=`` spec). Call
@@ -368,6 +385,7 @@ def check(site: str) -> None:
         if spec.should_fire(hit):
             spec.injected += 1
             sched.injected += 1
+            _record(site, hit, spec)
             if spec.delay is not None:
                 time.sleep(spec.delay)
                 continue  # a stall is not a crash: later specs still run

@@ -43,6 +43,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.flops import attention_flops, kernel_flops
+
 __all__ = [
     "device_launches",
     "dropout_keep_reference",
@@ -465,11 +467,12 @@ class _Flash(torch.autograd.Function):
                 dropout_rate):
         opts = dict(causal=causal, window=window, dropout_rate=dropout_rate,
                     seed=seed)
-        if _on_cpu(q):
-            out, lse = flash_attention_reference(q, k, v, q_seg=q_seg,
-                                                 kv_seg=kv_seg, **opts)
-        else:
-            out, lse = flash_fwd(q, k, v, q_seg, kv_seg, **opts)
+        with kernel_flops("flash_fwd", attention_flops(q, k)["flash_fwd"]):
+            if _on_cpu(q):
+                out, lse = flash_attention_reference(q, k, v, q_seg=q_seg,
+                                                     kv_seg=kv_seg, **opts)
+            else:
+                out, lse = flash_fwd(q, k, v, q_seg, kv_seg, **opts)
         ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
         ctx.opts = opts
         return out, lse
@@ -486,15 +489,20 @@ class _Flash(torch.autograd.Function):
         if dlse is not None:
             dterm = dterm - dlse.float()
         dterm = dterm.contiguous()
+        cost = attention_flops(q, k)
         if _on_cpu(q):
-            dq, dk, dv = flash_attention_bwd_reference(
-                q, k, v, dout, lse, dterm, q_seg=q_seg, kv_seg=kv_seg,
-                **ctx.opts)
+            with kernel_flops("flash_bwd_dq", cost["flash_bwd_dq"]), \
+                    kernel_flops("flash_bwd_dkv", cost["flash_bwd_dkv"]):
+                dq, dk, dv = flash_attention_bwd_reference(
+                    q, k, v, dout, lse, dterm, q_seg=q_seg, kv_seg=kv_seg,
+                    **ctx.opts)
         else:
-            dq = flash_bwd_dq(q, k, v, q_seg, kv_seg, dout, lse, dterm,
-                              **ctx.opts)
-            dk, dv = flash_bwd_dkv(q, k, v, q_seg, kv_seg, dout, lse, dterm,
-                                   **ctx.opts)
+            with kernel_flops("flash_bwd_dq", cost["flash_bwd_dq"]):
+                dq = flash_bwd_dq(q, k, v, q_seg, kv_seg, dout, lse, dterm,
+                                  **ctx.opts)
+            with kernel_flops("flash_bwd_dkv", cost["flash_bwd_dkv"]):
+                dk, dv = flash_bwd_dkv(q, k, v, q_seg, kv_seg, dout, lse,
+                                       dterm, **ctx.opts)
         return dq, dk, dv, None, None, None, None, None, None
 
 

@@ -27,13 +27,24 @@ every ``save_every`` updates, resumes from the newest committed step with
 request_preemption`, or SIGTERM with the handler installed) drains, banks
 an emergency checkpoint and returns.
 
-Not ported yet (each raises ``NotImplementedError`` when asked for):
-``metrics=``; the anomaly, goodput, resize and export planes.
+Telemetry, as in the JAX package: ``metrics=`` (or the spec the step was
+built with) records ``train.*`` at flush boundaries from the interval's
+wall time, never per update; the goodput plane books the run's wall time
+into its buckets and live MFU (FLOPs counted once, at the first
+dispatch); every dispatch is a watchdog tick; a
+``torch.cuda.OutOfMemoryError`` escaping the dispatch loop writes the OOM
+bundle before it is re-raised. With every plane off the loop reads no
+tracker clock and records nothing.
+
+Not ported yet: the anomaly, model-stats, compile, resize, export and
+fleet planes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
+import warnings
 from collections import deque
 from typing import Any, Iterable
 
@@ -44,10 +55,63 @@ from torch.utils import _pytree as pytree
 from .. import runtime
 from ..comm import allreduce
 from ..data import DistributedDataLoader, scan_batches
+from ..telemetry import goodput as _goodput
+from ..telemetry import tracing as _tracing
+from ..telemetry.watchdog import notify_progress
 from ..utils.manifest import map_with_path, named_leaves
-from .train import _state_tensors, make_window_program
+from .train import (_live_registry, _resolve_metrics, _state_tensors,
+                    make_window_program)
 
 __all__ = ["train_loop"]
+
+
+def _stall_timed(it: Any, gp: Any) -> Iterable[Any]:
+    """Wrap an epoch iterator so the host's wait for each batch lands in
+    the goodput ``data_stall`` bucket (enabled tracker only; the off path
+    iterates the source directly)."""
+    clock = gp._clock
+    while True:
+        t0 = clock()
+        try:
+            batch = next(it)
+        except StopIteration:
+            return
+        gp.add("data_stall", clock() - t0)
+        yield batch
+
+
+def _maybe_oom_forensics(exc: BaseException, registry: Any) -> None:
+    """On a device out-of-memory error escaping the dispatch loop, write
+    the OOM bundle (live-tensor census, the allocator's stats, the peak
+    watermark, the watchdog's dump sections) before the caller re-raises.
+    Any other exception passes through untouched."""
+    from ..telemetry import memory as _memory
+
+    if not _memory.is_oom_error(exc):
+        return
+    try:
+        path = _memory.write_oom_bundle(exc, registry=registry)
+        warnings.warn(
+            f"device out of memory: OOM forensics bundle written to {path} "
+            f"(live-tensor census + memory watermark)", stacklevel=3)
+    except Exception as bundle_exc:  # forensics must never mask the OOM
+        warnings.warn(f"OOM forensics bundle write failed: {bundle_exc!r}",
+                      stacklevel=3)
+
+
+def _first_dispatch(run: Any, gp: Any, updates: int) -> Any:
+    """Run the first dispatch of a pipelined run under the goodput
+    ``compile`` segment, counting its FLOPs (``updates`` updates) for live
+    MFU when the tracker has none yet."""
+    with gp.segment("compile"):
+        if gp._flops_per_update is not None:
+            return run()
+        from ..utils.flops import count_flops
+
+        with count_flops() as count:
+            out = run()
+    gp.set_flops_per_update(count.total / updates)
+    return out
 
 
 def _epoch_iter(batches: Any, scan_steps: int) -> Iterable[Any]:
@@ -207,7 +271,8 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     ``preempted``, ``resized_to``, ``resumed_from``, ``anomaly``,
     ``dispatches`` and ``fused_window`` (the JAX package's keys; the
     planes behind ``resized_to`` and ``anomaly`` are not ported and report
-    None), and ``flushes``: for each flush its ``updates``, ``loss`` (the
+    None), ``goodput`` (the tracker's report) when the goodput plane is
+    on, and ``flushes``: for each flush its ``updates``, ``loss`` (the
     newest update's), ``loss_mean`` (the interval's losses summed in update
     order in f32, over their count: the JAX package's window mean, the same
     bits on both paths), ``loss_max`` and ``seconds_per_update`` over the
@@ -242,6 +307,24 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     values are fixed in the graph; reading a device value on the host
     raises at the capture. Such a step needs ``fuse=False``, which keeps
     eager semantics (on the CPU a window runs eagerly either way).
+
+    ``metrics``: the spec of :func:`~fluxmpi_tpu_torch.parallel.
+    make_train_step` (``True``, a registry, a monitor or a callable; by
+    default the one the step was built with). The loop drives the step's
+    uninstrumented core and records at each flush, from the interval's
+    wall time (no per-update wait): ``train.step_seconds`` (per update),
+    ``train.loss`` and ``train.grad_norm`` (the newest update's),
+    ``train.examples_per_sec``, ``train.steps`` and ``train.examples``;
+    on the fused path also ``train.window.size`` and
+    ``train.window.dispatches``; ``train.resumes`` after a resume. A
+    monitor observes the interval's time per update; a hook gets the
+    record (with ``loss_window_mean`` / ``loss_window_max`` when fused).
+    With the goodput plane on, the run's wall time lands in its buckets:
+    ``compile`` (the first dispatch; on the fused path each window
+    program's eager first window and its capture), ``step``,
+    ``data_stall``, ``resume``, ``checkpoint_*`` and
+    ``preemption_drain``; its ``goodput.*`` gauges are recorded at every
+    flush.
     """
     if in_flight < 0:
         raise ValueError(f"in_flight must be >= 0, got {in_flight}")
@@ -258,13 +341,29 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     if fuse not in ("auto", "window", False, None):
         raise ValueError(f'fuse must be "auto", "window", False, or None; '
                          f"got {fuse!r}")
-    if metrics is not None and metrics is not False:
-        raise NotImplementedError("train_loop(metrics=...) is not ported yet")
     if steps is None and epochs is None:
         epochs = 1
     k = scan_steps if scan_steps is not None else getattr(step, "scan_steps", 1)
     if k < 1:
         raise ValueError(f"scan_steps must be >= 1, got {k}")
+
+    # An instrumented step waits per call: the loop drives its core and
+    # honours its spec at flush boundaries instead.
+    hot = getattr(step, "__fluxmpi_compiled__", step)
+    if metrics is None:
+        metrics = getattr(step, "__fluxmpi_metrics__", None)
+    record_metrics = metrics is not None and metrics is not False
+    reg = monitor = hook = None
+    if record_metrics:
+        reg, monitor, hook = _resolve_metrics(metrics)
+    # The goodput plane, resolved once per run: off, the hot loop below
+    # branches on one local bool.
+    gp = _goodput.get_goodput_tracker()
+    gp_on = gp.enabled
+    if gp_on:
+        # One tracker window per run, anchored before the resume.
+        gp.reset_run()
+        gp.start_run()
 
     fused_w = 0
     if fuse not in (False, None):
@@ -280,7 +379,7 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     window: deque = deque()
     flushes: list[dict[str, Any]] = []
     updates = examples = dispatches = epochs_done = 0
-    interval_updates = 0
+    interval_updates = interval_examples = interval_windows = 0
     last_out = None
     t_start = t_flush = time.perf_counter()
     # Several workers agree on a preemption at flush boundaries, and only
@@ -324,6 +423,10 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     resumed_from = None
     resume_offset = 0  # dispatches already done in a resumed partial epoch
     if resume:
+      # Resume bring-up is restart badput: the whole block lands in the
+      # goodput "resume" bucket (the nested checkpoint_restore segment
+      # counts once: the outermost wins).
+      with gp.segment("resume") if gp_on else contextlib.nullcontext():
         try:
             ckpt_step, restored = checkpoint.restore(payload(state))
         except FileNotFoundError:
@@ -368,6 +471,10 @@ def train_loop(step: Any, state: Any, batches: Any, *,
                     batches.load_state_dict(seat)
                 resume_offset = batches.resume_cursor // k
             resumed_from = ckpt_step
+            if record_metrics:
+                registry = _live_registry(reg)
+                if registry is not None:
+                    registry.counter("train.resumes").inc()
     last_saved = updates
     preempted = False
 
@@ -389,17 +496,30 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     interval_losses: list[torch.Tensor] = []
 
     def flush() -> None:
-        nonlocal interval_updates, t_flush
+        nonlocal interval_updates, interval_examples, interval_windows, t_flush
         if interval_updates == 0:
             return
-        drain_to_newest()
+        if gp_on:
+            # The drain is honest device compute: productive goodput.
+            with gp.segment("step"):
+                drain_to_newest()
+        else:
+            drain_to_newest()
+        grad_norm = None
         if fused_w:
             # The window program's f32 metric carry: one read per flush.
-            loss, total, peak = torch.stack([last_out["loss"], last_out["loss_sum"],
-                                             last_out["loss_max"]]).tolist()
+            carry = last_out["loss"], last_out["loss_sum"], last_out["loss_max"]
+            if "grad_norm" in last_out:
+                carry += (last_out["grad_norm"],)
+            vals = torch.stack(carry).tolist()
+            loss, total, peak = vals[:3]
+            if len(vals) > 3:
+                grad_norm = vals[3]
         else:
-            loss = float(torch.as_tensor(pytree.tree_leaves(last_out)[0])
-                         .detach().float().mean())
+            leaves = pytree.tree_leaves(last_out)
+            loss = float(torch.as_tensor(leaves[0]).detach().float().mean())
+            if len(leaves) > 1:
+                grad_norm = float(leaves[1].detach().float().mean())
             # The interval's losses, read once and summed in update order
             # in f32, as the window program sums them.
             vals = torch.cat(interval_losses).cpu().numpy()
@@ -409,11 +529,51 @@ def train_loop(step: Any, state: Any, batches: Any, *,
             total, peak = float(total), float(vals.max())
         interval_losses.clear()
         now = time.perf_counter()
+        elapsed = now - t_flush
+        per_update = elapsed / interval_updates
         flushes.append({"updates": updates, "loss": loss,
                         "loss_mean": total / interval_updates, "loss_max": peak,
-                        "seconds_per_update": (now - t_flush) / interval_updates})
-        interval_updates = 0
-        t_flush = now
+                        "seconds_per_update": per_update})
+        notify_progress(interval_updates)
+        if record_metrics:
+            record: dict[str, Any] = {
+                "step_seconds": per_update,
+                "steps": interval_updates,
+                "examples": interval_examples,
+                "examples_per_sec": (interval_examples / elapsed
+                                     if elapsed > 0 else 0.0),
+                "loss": loss,
+            }
+            if grad_norm is not None:
+                record["grad_norm"] = grad_norm
+            if fused_w:
+                record["loss_window_mean"] = total / interval_updates
+                record["loss_window_max"] = peak
+            registry = _live_registry(reg)
+            if registry is not None:
+                registry.histogram("train.step_seconds").observe(per_update)
+                registry.gauge("train.loss").set(loss)
+                if grad_norm is not None:
+                    registry.gauge("train.grad_norm").set(grad_norm)
+                registry.gauge("train.examples_per_sec").set(
+                    record["examples_per_sec"])
+                registry.counter("train.steps").inc(interval_updates)
+                registry.counter("train.examples").inc(interval_examples)
+                if fused_w:
+                    # The fused path's host-cost contract: windows
+                    # dispatched and the width each one fused.
+                    registry.gauge("train.window.size").set(float(fused_w))
+                    registry.counter("train.window.dispatches").inc(
+                        interval_windows)
+            if monitor is not None:
+                monitor.observe_step(per_update)
+            if hook is not None:
+                hook(record)
+        if gp_on:
+            # goodput.* gauges ride the same flush line as train.*.
+            gp.record(_live_registry(reg) if record_metrics else None)
+        interval_updates = interval_examples = interval_windows = 0
+        t_flush = time.perf_counter()
 
     def save(pass_counted: bool = False) -> None:
         nonlocal last_saved
@@ -459,7 +619,9 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         return prog
 
     done = False
-    while not done:
+    first_dispatch = True
+    try:
+      while not done:
         if epochs is not None and epochs_done >= epochs:
             break
         if steps is not None and updates >= steps:
@@ -472,7 +634,12 @@ def train_loop(step: Any, state: Any, batches: Any, *,
             # One-program flush windows: the loader hands over the staged
             # dataset, this epoch's permutation and the resume start; the
             # host then dispatches one program per window.
-            staged, perm, pos = batches.device_epoch()
+            if gp_on:
+                t0 = gp._clock()
+                staged, perm, pos = batches.device_epoch()
+                gp.add("data_stall", gp._clock() - t0)
+            else:
+                staged, perm, pos = batches.device_epoch()
             nb = per_epoch
             avals = (_aval_key(_state_tensors(state)),
                      _aval_key(pytree.tree_leaves(staged)), _aval_key([perm]))
@@ -482,17 +649,49 @@ def train_loop(step: Any, state: Any, batches: Any, *,
                 # uninterrupted run's.
                 width = fused_w - pos % fused_w if pos % fused_w else fused_w
                 program = window_program(width, avals)
-                state, out = program(state, staged, perm, pos * lbs_fused)
+                if gp_on:
+                    # Host-side, around the whole call: nothing of this
+                    # runs inside a capture. A program's eager first
+                    # window and its capture are its compile work; the
+                    # replays are steps. Its FLOPs are counted once, on
+                    # an eager call (a replay runs no operator the
+                    # counter could see), and kept on the program for
+                    # later runs.
+                    count = gp._flops_per_update is None and program.flops is None
+                    t0 = gp._clock()
+                    if count:
+                        from ..utils.flops import count_flops
+
+                        with count_flops() as counted:
+                            state, out = program(state, staged, perm, pos * lbs_fused)
+                        program.flops = counted.total or None
+                    else:
+                        state, out = program(state, staged, perm, pos * lbs_fused)
+                    dt = gp._clock() - t0
+                    built = min(program.last_compile_seconds, dt)
+                    if built > 0:
+                        gp.add("compile", built)
+                    gp.add("step", dt - built)
+                    if gp._flops_per_update is None and program.flops:
+                        gp.set_flops_per_update(program.flops / width)
+                    gp.note_updates(width)
+                else:
+                    state, out = program(state, staged, perm, pos * lbs_fused)
                 window.append(_Marker(perm.device))
                 if len(window) > in_flight:
                     retire(window.popleft())
                 last_out = out
                 dispatches += 1
+                # Watchdog liveness: the fused path never iterates the
+                # loader, so it ticks per window instead.
+                notify_progress()
                 batches.note_consumed(width)
                 pos += width
                 updates += width
                 examples += width * lbs_fused
                 interval_updates += width
+                interval_examples += width * lbs_fused
+                interval_windows += 1
                 # Every window boundary is a flush boundary: metrics, the
                 # budget, saves and preemption quantize to windows.
                 if after_dispatch(at_flush=True):
@@ -501,18 +700,40 @@ def train_loop(step: Any, state: Any, batches: Any, *,
             if pos >= nb:
                 epochs_done += 1
             continue
-        for batch in _epoch_iter(batches, k):
-            state, out = step(state, batch)
-            window.append(_Marker(_loss_device(out)))
-            if len(window) > in_flight:
-                retire(window.popleft())
+        source = _epoch_iter(batches, k)
+        if gp_on:
+            source = _stall_timed(iter(source), gp)
+        for batch in source:
+            if gp_on:
+                def run():
+                    return hot(state, batch)
+                if first_dispatch:
+                    state, out = _first_dispatch(run, gp, k)
+                    window.append(_Marker(_loss_device(out)))
+                    if len(window) > in_flight:
+                        retire(window.popleft())
+                else:
+                    with gp.segment("step"):
+                        state, out = run()
+                        window.append(_Marker(_loss_device(out)))
+                        if len(window) > in_flight:
+                            retire(window.popleft())
+                gp.note_updates(k)
+            else:
+                state, out = hot(state, batch)
+                window.append(_Marker(_loss_device(out)))
+                if len(window) > in_flight:
+                    retire(window.popleft())
+            first_dispatch = False
             last_out = out
             interval_losses.append(
                 torch.as_tensor(pytree.tree_leaves(out)[0]).detach().float().reshape(-1))
+            n = _batch_examples(batch, k)
             dispatches += 1
             updates += k
-            examples += _batch_examples(batch, k)
+            examples += n
             interval_updates += k
+            interval_examples += n
             dispatched_this_epoch += 1
             yielded_this_pass += 1
             if after_dispatch():
@@ -532,8 +753,17 @@ def train_loop(step: Any, state: Any, batches: Any, *,
                 f"(updates={updates}, steps={steps}, epochs={epochs}); "
                 "pass a re-iterable loader for multi-epoch runs"
             )
-    drain_to_newest()
-    flush()
+      if gp_on and window:
+        with gp.segment("preemption_drain" if preempted else "step"):
+            drain_to_newest()
+      else:
+        drain_to_newest()
+      flush()
+    except Exception as exc:
+        _maybe_oom_forensics(exc, _live_registry(reg) if record_metrics else None)
+        raise
+    if preempted:
+        _tracing.instant("train.preemption", step=int(updates))
     if preempted and checkpoint is not None and updates > last_saved:
         save(pass_counted=True)
     if checkpoint is not None:
@@ -559,4 +789,7 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     }
     if fused_w:
         summary["window_cache"] = window_cache
+    if gp_on:
+        gp.record(_live_registry(reg) if record_metrics else None)
+        summary["goodput"] = gp.report()
     return state, summary

@@ -21,15 +21,25 @@ batch gathers included) into one program: on the card a CUDA graph,
 captured once and replayed once per window; on the CPU the same window
 run eagerly. ``train_loop(fuse="auto"|"window")`` drives it.
 
+``metrics=`` instruments the step as the JAX package's does: the step
+carries the global norm of the reduced gradients out beside the loss, and
+each call is a ``train.step`` span, timed by
+:func:`~fluxmpi_tpu_torch.utils.profiling.step_timer` (the clock stops
+once the outputs are complete on the card), a watchdog tick and a record
+into the registry, monitor or hook. ``train_loop`` runs the
+uninstrumented core instead and records the same names at its flush
+boundaries.
+
 Not ported yet (each raises ``NotImplementedError`` when passed):
 ``parallel=``, ``mesh=``, ``axis_name=``, ``style=``, ``donate=``,
-``state_sharding=``, ``batch_spec=``, ``metrics=`` and ``model_stats=``.
+``state_sharding=``, ``batch_spec=`` and ``model_stats=``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import time
 from collections import Counter
 from typing import Any, Callable
@@ -49,7 +59,11 @@ __all__ = ["TrainState", "make_eval_step", "make_train_step",
            "make_window_program"]
 
 _WAITING = ("parallel", "mesh", "axis_name", "style", "donate",
-            "state_sharding", "batch_spec", "metrics", "model_stats")
+            "state_sharding", "batch_spec", "model_stats")
+
+# metrics=True: record into whatever the default registry is at record
+# time (set_registry may swap it after the step is built).
+_DEFAULT_REGISTRY = object()
 
 
 def _refuse_waiting(fn: str, waiting: dict) -> None:
@@ -167,6 +181,94 @@ def _with_policy_and_remat(loss_fn, policy, remat, watch):
     return loss_fn
 
 
+def _resolve_metrics(metrics: Any) -> tuple[Any, Any, Any]:
+    """Normalize a ``metrics=`` spec to (registry, monitor, hook)."""
+    from ..telemetry import MetricsRegistry, TrainingMonitor
+
+    if metrics is True:
+        return _DEFAULT_REGISTRY, None, None
+    if isinstance(metrics, TrainingMonitor):
+        return metrics.registry, metrics, None
+    if isinstance(metrics, MetricsRegistry):
+        return metrics, None, None
+    if callable(metrics):
+        return None, None, metrics
+    raise ValueError(
+        "metrics must be True, a MetricsRegistry, a TrainingMonitor, or a "
+        f"callable hook; got {metrics!r}"
+    )
+
+
+def _live_registry(reg: Any) -> Any:
+    from ..telemetry import get_registry
+
+    return get_registry() if reg is _DEFAULT_REGISTRY else reg
+
+
+def _global_norm(grads: dict) -> torch.Tensor:
+    """``optax.global_norm``: the 2-norm of all the gradients as one
+    vector, in f32."""
+    vals = [g.float() for g in grads.values()]
+    if not vals:
+        return torch.zeros(())
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(vals)))
+
+
+def _instrument_step(core: Callable, metrics: Any, scan_steps: int) -> Callable:
+    """Wrap ``core(state, batch) -> (state, (loss, grad_norm))`` into the
+    public ``(state, loss)`` signature, recording telemetry per call: a
+    ``train.step`` span, a :func:`~fluxmpi_tpu_torch.utils.profiling.
+    step_timer` that waits for the loss and the norm before it stops the
+    clock, a watchdog tick, and ``train.step_seconds``, ``train.loss``,
+    ``train.grad_norm``, ``train.examples_per_sec``, ``train.steps`` and
+    ``train.examples`` into the registry (or the monitor's, which also
+    observes the step; or the hook, which gets the record)."""
+    from ..telemetry import tracing as _tracing
+    from ..telemetry.watchdog import notify_progress
+    from ..utils.profiling import step_timer
+
+    reg, monitor, hook = _resolve_metrics(metrics)
+
+    def step(state, batch):
+        holder: dict[str, float] = {}
+        with _tracing.span("train.step"):
+            with step_timer(holder) as t:
+                new_state, (loss, gnorm) = core(state, batch)
+                t.watch((loss, gnorm))
+        notify_progress()
+        seconds = holder["seconds"]
+        leaves = pytree.tree_leaves(batch)
+        examples = 0
+        if leaves and getattr(leaves[0], "ndim", 0):
+            examples = int(leaves[0].shape[0])
+            if scan_steps > 1:  # leading axis is scan time, not data
+                examples *= int(leaves[0].shape[1])
+        record = {
+            "step_seconds": seconds,
+            "loss": float(loss.float().mean()),
+            "grad_norm": float(gnorm.float().mean()),
+            "examples": examples,
+            "examples_per_sec": examples / seconds if seconds > 0 else 0.0,
+            "steps": scan_steps,
+        }
+        registry = _live_registry(reg)
+        if registry is not None:
+            registry.histogram("train.step_seconds").observe(seconds)
+            registry.gauge("train.loss").set(record["loss"])
+            registry.gauge("train.grad_norm").set(record["grad_norm"])
+            registry.gauge("train.examples_per_sec").set(
+                record["examples_per_sec"])
+            registry.counter("train.steps").inc(scan_steps)
+            registry.counter("train.examples").inc(examples)
+        if monitor is not None:
+            monitor.observe_step(seconds)
+        if hook is not None:
+            hook(record)
+        return new_state, loss
+
+    return step
+
+
 def make_train_step(
     loss_fn: Callable[[dict, Any, Any], tuple[torch.Tensor, Any]],
     optimizer: GradientTransformation,
@@ -177,6 +279,7 @@ def make_train_step(
     scan_steps: int = 1,
     remat: bool | str = False,
     policy: Any = None,
+    metrics: Any = None,
     **waiting,
 ) -> Callable[[TrainState, Any], tuple[TrainState, torch.Tensor]]:
     """Build ``step(state, batch) -> (state, loss)``.
@@ -225,8 +328,25 @@ def make_train_step(
     ``train_loop`` for such a ``loss_fn``. Draws from the default CUDA
     generator, or from a CUDA generator the loss notes with
     :func:`~fluxmpi_tpu_torch.runtime.note_graph_generator` (as
-    ``ddpm_loss`` does), advance on every replay."""
+    ``ddpm_loss`` does), advance on every replay.
+
+    ``metrics``: ``None``/``False`` (off), ``True`` (the default
+    registry), a :class:`~fluxmpi_tpu_torch.telemetry.MetricsRegistry`, a
+    :class:`~fluxmpi_tpu_torch.telemetry.TrainingMonitor` (its registry,
+    and its periodic collect), or a callable that gets a dict per step.
+    The step then also computes the global norm of the reduced gradients
+    (``optax.global_norm`` of what the optimizer consumes) and records,
+    per call, ``train.step_seconds`` (the clock waits for the step's
+    outputs on the card), ``train.loss``, ``train.grad_norm``,
+    ``train.examples_per_sec`` and the cumulative ``train.steps`` /
+    ``train.examples``; the wait serializes the host with the card, so
+    drive an instrumented step through ``train_loop``, which records at
+    flush boundaries without it. The parameters it computes are the
+    uninstrumented step's, bit for bit."""
     _refuse_waiting("make_train_step", waiting)
+    instrument = metrics is not None and metrics is not False
+    if instrument:
+        _resolve_metrics(metrics)  # reject bad specs at build, not step 1
     watch = _CastWatch()
     loss_fn = _with_policy_and_remat(loss_fn, policy, remat, watch)
     if grad_reduce not in ("mean", "sum", None):
@@ -259,34 +379,51 @@ def make_train_step(
         return dict(zip(keys, acc)), loss_sum, mstate
 
     def single(ts: TrainState, batch):
+        """One update: ``(state, loss, grad_norm)``, the norm None unless
+        the step is instrumented."""
         grads, loss, mstate = grads_of(ts, batch)
         if grad_reduce is not None:
             # The loss rides in the gradients' flat f32 collective.
             grads, loss = allreduce_gradients((grads, loss), reduce_op=grad_reduce)
+        gnorm = _global_norm(grads) if instrument else None
         if state_reduce == "mean" and mstate is not None and runtime.is_initialized():
             mstate = _mean_floating(mstate)
         updates, ts.opt_state = optimizer.update(grads, ts.opt_state, ts.params)
         apply_updates(ts.params, updates)
         ts.model_state = mstate
         ts.step += 1
-        return ts, loss
+        return ts, loss, gnorm
+
+    def aux(loss, gnorm):
+        return (loss, gnorm) if instrument else loss
 
     if scan_steps == 1:
-        step = single
+        def core(ts: TrainState, batch):
+            ts, loss, gnorm = single(ts, batch)
+            return ts, aux(loss, gnorm)
     else:
-        def step(ts: TrainState, batches):
-            losses = []
+        def core(ts: TrainState, batches):
+            losses, norms = [], []
             for i in range(scan_steps):
-                ts, loss = single(ts, pytree.tree_map(lambda x: x[i], batches))
+                ts, loss, gnorm = single(ts, pytree.tree_map(lambda x: x[i], batches))
                 losses.append(loss)
-            return ts, torch.stack(losses)
+                norms.append(gnorm)
+            return ts, aux(torch.stack(losses),
+                           torch.stack(norms) if instrument else None)
 
+    step = _instrument_step(core, metrics, scan_steps) if instrument else core
     step.scan_steps = scan_steps  # read by train_loop
+    if instrument:
+        # train_loop drives the uninstrumented core (a per-step wait is
+        # what it exists to avoid) and honours the spec at its flushes.
+        step.__fluxmpi_compiled__ = core
+        step.__fluxmpi_metrics__ = metrics
     # What make_window_program needs to fuse this step's math into a flush
     # window: the single-update body (the window sequences updates itself,
-    # so a scan_steps wrapper is irrelevant there) and the aux it carries
-    # (the loss only: metrics= and model_stats= are not ported).
-    step.__fluxmpi_window_meta__ = {"single": single, "aux": ("loss",)}
+    # so a scan_steps wrapper is irrelevant there) and the aux it carries.
+    step.__fluxmpi_window_meta__ = {
+        "single": single,
+        "aux": ("loss", "grad_norm") if instrument else ("loss",)}
     return step
 
 
@@ -323,7 +460,9 @@ class WindowProgram:
     ``start + i * lbs`` of the epoch permutation ``perm`` from the staged
     dataset ``data``. ``metrics`` holds f32 scalars: ``loss`` (the last
     update's, the value the pipelined flush reports), ``loss_sum`` and
-    ``loss_max`` over the window (the sum in update order, in f32).
+    ``loss_max`` over the window (the sum in update order, in f32), and,
+    for an instrumented step, ``grad_norm`` (the last update's; on the
+    card a device output the graph writes).
 
     On the CPU each call runs the window eagerly. On the card the first
     call runs it eagerly as real updates on the program's capture stream
@@ -345,15 +484,25 @@ class WindowProgram:
     ``captured_launches`` on every replay. So the device ran the wrappers'
     counts ``- capture_counted + replayed_launches``."""
 
-    def __init__(self, single: Callable, width: int, lbs: int):
+    def __init__(self, single: Callable, width: int, lbs: int,
+                 aux: tuple = ("loss",)):
         self.single = single
         self.width = width
+        # The metric names, in the order of the captured output's rows.
+        self.names = ("loss", "loss_sum", "loss_max") + tuple(aux[1:])
         self.lbs = lbs
         self.replays = 0
         self.captured_launches: dict[str, int] = {}
         self.capture_counted: Counter = Counter()
         self.replayed_launches: Counter = Counter()
         self.capture_seconds = 0.0
+        # The seconds of the last call that were the program's compile
+        # work: all of an eager first window (warm-up), the capture and
+        # instantiation of a capturing call, none of a replay.
+        self.last_compile_seconds = 0.0
+        # FLOPs of one call (all ``width`` updates), counted by train_loop
+        # on an eager call when the goodput plane asks for them.
+        self.flops: float | None = None
         self.graph = None
         self._warm = False
         self._stream = None
@@ -365,18 +514,24 @@ class WindowProgram:
         loss_sum = torch.zeros((), dtype=torch.float32, device=perm.device)
         loss_max = torch.full((), float("-inf"), dtype=torch.float32,
                               device=perm.device)
+        gnorm = None
         for i in range(self.width):
             batch = _gather_batch(data, perm, start + i * self.lbs, self.lbs)
-            ts, loss = self.single(ts, batch)
+            ts, loss, gnorm = self.single(ts, batch)
             loss = loss.detach().float().reshape(())
             loss_sum = loss_sum + loss
             loss_max = torch.maximum(loss_max, loss)
-        return ts, {"loss": loss, "loss_sum": loss_sum, "loss_max": loss_max}
+        metrics = {"loss": loss, "loss_sum": loss_sum, "loss_max": loss_max}
+        if gnorm is not None:
+            metrics["grad_norm"] = gnorm.detach().float().reshape(())
+        return ts, metrics
 
     def __call__(self, ts: TrainState, data: Any, perm: torch.Tensor,
                  start: int):
         dev = perm.device
+        self.last_compile_seconds = 0.0 if self._warm else math.inf
         if dev.type != "cuda":
+            self._warm = True
             at = torch.full((), int(start), dtype=torch.int64, device=dev)
             return self._run(ts, data, perm, at)
         if not self._warm:
@@ -393,8 +548,10 @@ class WindowProgram:
         bound = tuple(t.data_ptr() for t in
                       _state_tensors(ts) + pytree.tree_leaves(data))
         if self.graph is None or bound != self._bound:
+            before = self.capture_seconds
             self._capture(ts, data, perm)
             self._bound = bound
+            self.last_compile_seconds = self.capture_seconds - before
         self._perm.copy_(perm)
         self._start.fill_(int(start))
         self.graph.replay()
@@ -402,7 +559,7 @@ class WindowProgram:
         self.replayed_launches.update(self.captured_launches)
         ts.step += self.width
         out = self._out.clone()
-        return ts, {"loss": out[0], "loss_sum": out[1], "loss_max": out[2]}
+        return ts, dict(zip(self.names, out))
 
     def _capture(self, ts: TrainState, data: Any, perm: torch.Tensor) -> None:
         dev = perm.device
@@ -434,8 +591,7 @@ class WindowProgram:
                                     pytree.tree_leaves(mstate0)):
                     if torch.is_tensor(dst):
                         dst.copy_(src)
-                self._out = torch.stack([metrics["loss"], metrics["loss_sum"],
-                                         metrics["loss_max"]])
+                self._out = torch.stack([metrics[k] for k in self.names])
         except Exception as exc:
             raise RuntimeError(
                 f"capturing the {self.width}-update window as a CUDA graph "
@@ -471,7 +627,7 @@ def make_window_program(step: Any, *, width: int, lbs: int) -> WindowProgram:
             "foreign steps carry no fused-window metadata")
     if width < 1:
         raise ValueError(f"width must be >= 1, got {width}")
-    return WindowProgram(meta["single"], width, lbs)
+    return WindowProgram(meta["single"], width, lbs, meta["aux"])
 
 
 def make_eval_step(metric_fn: Callable[[dict, Any, Any], Any], *,

@@ -85,9 +85,8 @@ class _State:
 _state = _State()
 
 # init() arguments of the JAX package whose machinery is not ported yet.
-_WAITING = ("devices", "mesh_shape", "parallel", "distributed", "telemetry", "trace",
-            "watchdog", "preemption", "faults", "goodput", "anomaly",
-            "model_stats", "compileplane", "memory", "profile",
+_WAITING = ("devices", "mesh_shape", "parallel", "distributed", "preemption",
+            "faults", "anomaly", "model_stats", "compileplane", "profile",
             "compile_cache", "export", "serving", "request_log", "fleet",
             "resize")
 
@@ -97,11 +96,30 @@ def _env_int(name: str) -> int | None:
     return None if val in (None, "") else int(val)
 
 
+def _configure_planes(telemetry: Any, trace: Any, watchdog: Any,
+                      goodput: Any, memory: Any) -> None:
+    """Wire the telemetry planes in the JAX package's order (each from its
+    argument, else its environment variable)."""
+    from . import telemetry as _telemetry
+    from .telemetry import goodput as _goodput
+    from .telemetry import memory as _memory
+    from .telemetry import tracing as _tracing
+    from .telemetry import watchdog as _watchdog
+
+    _telemetry.configure(telemetry)
+    _tracing.configure(trace)
+    _watchdog.configure(watchdog)
+    _goodput.configure(goodput)
+    _memory.configure(memory)
+
+
 def init(*, device: str | torch.device | None = None,
          coordinator_address: str | None = None,
          num_processes: int | None = None, process_id: int | None = None,
          timeout: float = 600.0,
-         verbose: bool = False, **waiting) -> torch.device:
+         verbose: bool = False, telemetry: Any = None, trace: Any = None,
+         watchdog: Any = None, goodput: Any = None, memory: Any = None,
+         **waiting) -> torch.device:
     """Bring up the data-parallel world; returns this worker's device.
     Idempotent: a second call returns the same device.
 
@@ -116,19 +134,38 @@ def init(*, device: str | torch.device | None = None,
     collective, in seconds. ``verbose`` prints the world from every rank
     and warns when it has a single worker.
 
+    The telemetry planes, as in the JAX package (each ``None`` defers to
+    its environment variable; a repeated ``init`` re-wires them):
+    ``telemetry`` — a JSONL path, ``"console"``/``True``, a
+    :class:`~fluxmpi_tpu_torch.telemetry.Sink` or a
+    :class:`~fluxmpi_tpu_torch.telemetry.MetricsRegistry`
+    (``FLUXMPI_TPU_TELEMETRY``); ``trace`` — ``True`` or an export path
+    (``{process}`` is formatted with the rank) written at
+    :func:`shutdown` (``FLUXMPI_TPU_TRACE``); ``watchdog`` — a stall
+    deadline in seconds or ``True`` for 300 s, dumps in
+    ``FLUXMPI_TPU_WATCHDOG_DIR`` (``FLUXMPI_TPU_WATCHDOG``); ``goodput``
+    — ``True`` for the wall-time buckets and live MFU
+    (``FLUXMPI_TPU_GOODPUT``); ``memory`` — ``True`` for the ``memory.*``
+    gauges (``FLUXMPI_TPU_MEMORY``).
+
     Not ported yet (each raises ``NotImplementedError`` when passed):
-    mesh shapes, ``parallel=``, and the telemetry, fault, preemption,
-    resize and compile-cache planes.
+    device lists and mesh shapes, ``parallel=``, ``distributed=``, the
+    preemption and fault specs, the compile cache, and the anomaly,
+    model-stats, compile, profile, export, serving, request-log, fleet
+    and resize planes.
     """
     passed = sorted(k for k, v in waiting.items() if v is not None)
     unknown = [k for k in passed if k not in _WAITING]
     if unknown:
         raise TypeError(f"init() got unexpected arguments {unknown}")
     refuse_unported("init", {k: True for k in passed},
-                    "the port has no device mesh, parallel plans or "
-                    "telemetry/fault/preemption/resize/compile-cache planes; it "
-                    "runs one process per device with torch.distributed")
+                    "the port has no device mesh or parallel plans, and its "
+                    "anomaly, model-stats, compile, profile, export, serving, "
+                    "request-log, fleet, resize, fault-spec, preemption-spec "
+                    "and compile-cache planes are not ported; it runs one "
+                    "process per device with torch.distributed")
     if _state.initialized:
+        _configure_planes(telemetry, trace, watchdog, goodput, memory)
         return _state.device
     want = resolve_device(device)
     cpu = want.type == "cpu"
@@ -179,6 +216,7 @@ def init(*, device: str | torch.device | None = None,
     _state.owns_group = not adopt
     _state.device = dev
     _state.rank, _state.world, _state.local_rank = rank, world, lr
+    _configure_planes(telemetry, trace, watchdog, goodput, memory)
     if verbose:
         if world == 1:
             warnings.warn(
@@ -203,8 +241,17 @@ Initialized = is_initialized
 
 
 def shutdown() -> None:
-    """Reset the runtime; destroys the process group if :func:`init`
-    created it (one the caller brought up stays)."""
+    """Reset the runtime: tear down the telemetry planes first (the
+    watchdog disarmed, the trace ring exported to its configured path
+    while the rank is still known, the sinks flushed and detached), then
+    destroy the process group if :func:`init` created it (one the caller
+    brought up stays)."""
+    try:
+        from .telemetry import shutdown as _telemetry_shutdown
+
+        _telemetry_shutdown()
+    except Exception:
+        pass
     if _state.initialized and _state.owns_group and dist.is_initialized():
         dist.destroy_process_group()
     _state.initialized = False

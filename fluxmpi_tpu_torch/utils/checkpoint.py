@@ -43,8 +43,15 @@ no CUDA tensor.
 save; ``FLUXMPI_TPU_CKPT_ASYNC=0`` makes a manager's saves synchronous by
 default; ``FLUXMPI_TPU_CKPT_LOCAL_DIR`` names its local fast tier.
 
-Not ported yet: the sharded layout, elastic restore, and the goodput and
-status-board hooks.
+**Telemetry.** Saves and restores on the training thread book their wall
+time into the goodput ``checkpoint_save`` / ``checkpoint_restore``
+buckets; the background writer's time goes to the tracker's off-driver
+``checkpoint_async_write`` ledger. ``checkpoint.retries``,
+``checkpoint.async_saves``, ``checkpoint.async_superseded`` and
+``checkpoint.promotions`` count in the default registry.
+
+Not ported yet: the sharded layout, elastic restore, and the
+status-board hook.
 """
 
 from __future__ import annotations
@@ -66,6 +73,8 @@ import torch.distributed as dist
 from .. import comm, faults, runtime
 from ..errors import (CheckpointDesyncError, CheckpointTimeoutError, FaultInjectedError,
                       refuse_unported)
+from ..telemetry import get_registry as _telemetry_registry
+from ..telemetry import goodput as _goodput
 from . import manifest as _manifest
 
 __all__ = ["CheckpointManager", "restore_checkpoint", "save_checkpoint"]
@@ -127,6 +136,25 @@ def _wait_with_diagnostic(fut: Future, what: str,
                           f"still waiting", stacklevel=2)
 
 
+def _count(name: str) -> None:
+    """Count one checkpoint event (``checkpoint.retries``,
+    ``checkpoint.async_saves``, ...) in the default telemetry registry."""
+    try:
+        registry = _telemetry_registry()
+        if registry.enabled:
+            registry.counter(name).inc()
+    except Exception:  # instrumentation must never fail a checkpoint
+        pass
+
+
+def _note_background_save(seconds: float) -> None:
+    """Book a background writer's wall time with the goodput tracker's
+    off-driver ledger (``checkpoint_async_write``)."""
+    tracker = _goodput.get_goodput_tracker()
+    if tracker.enabled:
+        tracker.note_background("checkpoint_async_write", seconds)
+
+
 def _with_write_retries(fn, what: str) -> None:
     """Run a write attempt, retrying transient failures (``OSError`` and
     :class:`FaultInjectedError`, so chaos tests drive this loop) with
@@ -142,6 +170,7 @@ def _with_write_retries(fn, what: str) -> None:
         except (OSError, FaultInjectedError) as exc:
             if attempt >= retries:
                 raise
+            _count("checkpoint.retries")
             warnings.warn(
                 f"{what} attempt {attempt + 1} failed transiently ({exc!r}); "
                 f"retrying in {min(delay, _BACKOFF_CAP_S):.2f}s "
@@ -293,10 +322,11 @@ def save_checkpoint(path: str, state: Any, *, force: bool = True,
     consistently. Every worker calls it; the lead worker writes.
     ``force=False`` refuses to overwrite an existing checkpoint
     (``FileExistsError``). ``step`` is recorded in the manifest."""
-    path = os.path.abspath(path)
-    _refuse_overwrite(path, force)
-    if _is_lead():
-        _commit(path, _snapshot(state), step=step)
+    with _goodput.segment("checkpoint_save"):
+        path = os.path.abspath(path)
+        _refuse_overwrite(path, force)
+        if _is_lead():
+            _commit(path, _snapshot(state), step=step)
 
 
 def _place(path: str, like: Any, value: torch.Tensor) -> Any:
@@ -371,6 +401,11 @@ def restore_checkpoint(path: str, like: Any, *, root_rank: int = 0,
     refuse_unported("restore_checkpoint", {
         "allow_layout_change": bool(allow_layout_change),
         "rule": rule is not None, "parallel": parallel is not None})
+    with _goodput.segment("checkpoint_restore"):
+        return _restore(path, like, root_rank, manifest)
+
+
+def _restore(path: str, like: Any, root_rank: int, manifest: Any) -> Any:
     if faults.ARMED:
         faults.check("ckpt.read")
     path = os.path.abspath(path)
@@ -579,33 +614,37 @@ class CheckpointManager:
         background failure is raised first. Raises
         :class:`~fluxmpi_tpu_torch.errors.CheckpointDesyncError` when the
         workers disagree on ``step``, before any bytes move."""
-        self._raise_async_error()
-        self._check_step_agreement(step)
-        if not _is_lead():
-            return
-        use_async = self._async if async_ is None else bool(async_)
-        if not use_async:
-            self.wait_until_finished()
-            self._save_and_retain(step, _snapshot(state), force)
-            return
-        snap = _snapshot(state)
-        with self._lock:
-            if self._executor is None:
-                self._executor = ThreadPoolExecutor(max_workers=1,
-                                                    thread_name_prefix="ckpt")
-            if self._inflight is not None:
-                if self._queued is not None:
-                    self.superseded += 1
-                self._queued = (step, snap, force)
-            else:
-                self._inflight = self._executor.submit(self._async_writer,
-                                                       step, snap, force)
+        with _goodput.segment("checkpoint_save"):
+            self._raise_async_error()
+            self._check_step_agreement(step)
+            if not _is_lead():
+                return
+            use_async = self._async if async_ is None else bool(async_)
+            if not use_async:
+                self.wait_until_finished()
+                self._save_and_retain(step, _snapshot(state), force)
+                return
+            snap = _snapshot(state)
+            with self._lock:
+                if self._executor is None:
+                    self._executor = ThreadPoolExecutor(
+                        max_workers=1, thread_name_prefix="ckpt")
+                if self._inflight is not None:
+                    if self._queued is not None:
+                        self.superseded += 1
+                        _count("checkpoint.async_superseded")
+                    self._queued = (step, snap, force)
+                else:
+                    self._inflight = self._executor.submit(self._async_writer,
+                                                           step, snap, force)
+                _count("checkpoint.async_saves")
 
     def _async_writer(self, step: int, snap: _Snapshot, force: bool) -> None:
         """Commit the snapshot, then the queued request until none is left.
         Never raises: a failure is stored for the caller's next call (and
         drops the queued request)."""
         while True:
+            t0 = time.perf_counter()
             try:
                 if faults.ARMED:
                     faults.check("ckpt.async_write")
@@ -616,6 +655,8 @@ class CheckpointManager:
                     self._queued = None
                     self._inflight = None
                 return
+            finally:
+                _note_background_save(time.perf_counter() - t0)
             with self._lock:
                 if self._queued is None:
                     self._inflight = None
@@ -659,6 +700,7 @@ class CheckpointManager:
         if os.path.exists(src_manifest):
             shutil.copyfile(src_manifest, _manifest.manifest_path(dst))
         _write_layout_marker(dst, _read_layout_marker(src) or _LAYOUT)
+        _count("checkpoint.promotions")
 
     def wait_until_finished(self) -> None:
         """Block until the in-flight write (and the queued one) has

@@ -48,8 +48,36 @@ def test_import_loads_no_jax_flax_or_reference_package():
         "models.convert", "models.transformer", "parallel.train",
         "parallel.loop", "faults", "utils.precision", "utils.manifest",
         "utils.checkpoint", "config", "models.cnn", "models.resnet", "models.deq",
-        "models._layers", "models.vit", "models.unet", "utils.ema")}
+        "models._layers", "models.vit", "models.unet", "utils.ema",
+        "telemetry", "telemetry.schema", "telemetry.registry", "telemetry.sinks",
+        "telemetry.tracing", "telemetry.flight_recorder", "telemetry.watchdog",
+        "telemetry.memory", "telemetry.monitor", "telemetry.goodput",
+        "utils.flops")}
     assert ported <= set(loaded)
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_importing_telemetry_initializes_neither_cuda_nor_a_group():
+    """The JAX package's import-safe contract: importing the telemetry
+    package (and its profiling helpers) touches no device and brings up
+    no process group; every module of it imports no JAX."""
+    code = (
+        "import sys, torch, torch.distributed as dist\n"
+        "before = set(sys.modules)\n"
+        "import fluxmpi_tpu_torch.telemetry as t\n"
+        "import fluxmpi_tpu_torch.utils.profiling, fluxmpi_tpu_torch.utils.flops\n"
+        "t.get_registry().counter('x').inc()\n"
+        "t.tracing.configure(True); t.instant('x')\n"
+        "t.get_flight_recorder().dump(); t.memory.record_hbm()\n"
+        "t.get_goodput_tracker().report()\n"
+        "print(torch.cuda.is_initialized(), dist.is_initialized())\n"
+        "print('\\n'.join(sorted(set(sys.modules) - before)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300, check=True)
+    first, *loaded = out.stdout.split("\n")
+    assert first == "False False"
+    assert "fluxmpi_tpu_torch.telemetry.watchdog" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -133,13 +161,14 @@ def test_waiting_options_raise_instead_of_being_ignored():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         fluxmpi_tpu_torch.init(device="cpu", mesh_shape={"dp": 2})
     assert not fluxmpi_tpu_torch.is_initialized()
-    for kw in ("parallel", "metrics", "state_sharding", "model_stats"):
+    for kw in ("parallel", "state_sharding", "model_stats"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             make_train_step(lambda p, s, b: (None, s), None, **{kw: True})
     with pytest.raises(NotImplementedError, match="not ported yet"):
         make_eval_step(lambda p, s, b: None, mesh=object())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_loop(lambda s, b: (s, b), None, [], metrics=True)
+    # Ported in the telemetry slice: metrics= on the step and the loop.
+    make_train_step(lambda p, s, b: (None, s), None, metrics=True)
+    assert train_loop(lambda s, b: (s, b), None, [], metrics=True)[1]["updates"] == 0
     # Ported since: fuse="window" gives the JAX package's reasons.
     with pytest.raises(ValueError, match="not a DistributedDataLoader"):
         train_loop(lambda s, b: (s, b), None, [], fuse="window")

@@ -428,7 +428,8 @@ def test_train_loop_budgets_and_errors(port_world):
     assert (s["updates"], s["fused_window"], s["dispatches"]) == (4, 4, 1)
     with pytest.raises(ValueError, match="not a DistributedDataLoader"):
         train_loop(step, state, iter([(x, y)]), steps=3, fuse="window")
-    with pytest.raises(NotImplementedError):
-        make_train_step(_mse(model), opt, metrics=True)
+    # metrics= is ported: a spec it cannot record into raises at build.
+    with pytest.raises(ValueError, match="metrics must be"):
+        make_train_step(_mse(model), opt, metrics="loud")
     with pytest.raises(ValueError, match="remat must be"):
         make_train_step(_mse(model), opt, remat="everything")
