@@ -41,6 +41,18 @@
    serves the same requests once more under ``torch.profiler`` (device
    activity only): device busy time against wall time (idle share) and
    device time by kernel group from that one traced run.
+   Serving plane phase (``serving_plane_phase``): GPT-2 small from an
+   HF-layout state dict through ``lm_from_gpt2``, served through
+   ``init(serving=..., request_log=..., telemetry=...)`` by a background
+   ``InferenceEngine`` with SLOs in float32 and bfloat16 (f32 streams equal
+   ``generate()`` token for token; bf16 streams bit-identical across
+   admission orders and, where they differ from ``generate()``, first
+   differing at a near-tie within delta = 4 x the largest |bf16 - f32|
+   logit), a preemption drain, a ``serving.decode`` fault on the
+   background thread, the request log and the registry's JSONL through
+   ``scripts/check_metrics_schema.py`` and ``scripts/serving_report.py``,
+   sampled/scan/``top_k=1`` ``generate`` and ``beam_search`` on the card;
+   ``flash_fwd`` launches counted on every path.
 5. Training phase: the user's data-parallel script at the same widths
    (``attention="flash"``, dropout 0): ``init()`` (one worker, NCCL) ->
    ``synchronize(model)`` -> the synthetic corpus of
@@ -955,6 +967,507 @@ def slice_phase(device):
     if [r.tokens for r in traced] != [r.tokens for r in reqs]:
         failures.append("profile: the traced run's streams differ from the first run's")
     engine.close()
+    return stats, failures
+
+
+# GPT-2 small as HuggingFace's GPT2Config spells it (the stock config:
+# gelu_new, pdrops 0.1, tied head), for serving_plane_phase.
+GPT2_HF_CONFIG = dict(vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12,
+                      n_head=12, n_inner=None, layer_norm_epsilon=1e-5,
+                      activation_function="gelu_new", resid_pdrop=0.1,
+                      embd_pdrop=0.1, attn_pdrop=0.1)
+SERVE_REQUESTS = 24
+# Latency objectives (seconds): the slice phase's TTFT p50 on the card
+# (16 requests, two waves of 8 slots) replaces SLO_TTFT_S when run_phases
+# has it, so the first of the three waves of 24 requests meets it and the
+# queued ones break it.
+SLO_TTFT_S = 0.3
+SLO_TOKEN_S = 0.05
+
+
+def gpt2_state_dict(cfg: dict, seed: int = 0) -> dict:
+    """GPT-2 weights under HF's key names and layouts (``Conv1D`` kernels
+    ``[in, out]``): every matrix and embedding N(0, 0.02) from
+    ``torch.Generator().manual_seed(seed)``, biases 0, LayerNorm scales 1,
+    ``lm_head`` tied to ``wte``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    d, v = cfg["n_embd"], cfg["vocab_size"]
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g) * 0.02
+
+    sd = {"transformer.wte.weight": normal(v, d),
+          "transformer.wpe.weight": normal(cfg["n_positions"], d),
+          "transformer.ln_f.weight": torch.ones(d), "transformer.ln_f.bias": torch.zeros(d)}
+    for i in range(cfg["n_layer"]):
+        h = f"transformer.h.{i}"
+        sd.update({
+            f"{h}.ln_1.weight": torch.ones(d), f"{h}.ln_1.bias": torch.zeros(d),
+            f"{h}.attn.c_attn.weight": normal(d, 3 * d),
+            f"{h}.attn.c_attn.bias": torch.zeros(3 * d),
+            f"{h}.attn.c_proj.weight": normal(d, d), f"{h}.attn.c_proj.bias": torch.zeros(d),
+            f"{h}.ln_2.weight": torch.ones(d), f"{h}.ln_2.bias": torch.zeros(d),
+            f"{h}.mlp.c_fc.weight": normal(d, 4 * d), f"{h}.mlp.c_fc.bias": torch.zeros(4 * d),
+            f"{h}.mlp.c_proj.weight": normal(4 * d, d), f"{h}.mlp.c_proj.bias": torch.zeros(d),
+        })
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    return sd
+
+
+def replay_scores(model, prompt, tokens, *, temperature: float = 0.0, top_k=None,
+                  top_p=None, seed: int = 0):
+    """The scores ``generate(prefill="batched")`` takes the argmax of at
+    each generated position, replayed with its run's ``tokens`` ``[b,
+    new]`` fed back: the logits (greedy), or the filtered, scaled logits
+    plus the Gumbel noise a generator seeded with ``seed`` on the model's
+    device draws (sampling). The same calls as ``generate``, so the argmax
+    of each row is ``generate``'s token. Returns float32 ``[new, b,
+    vocab]``."""
+    import torch
+
+    from fluxmpi_tpu_torch.models.generate import _filter_logits, _gumbel, prefill_cache
+
+    dev = model.device
+    prompt = torch.as_tensor(prompt, device=dev).long()
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    b, plen = prompt.shape
+    new = tokens.shape[1]
+    rng = None
+    with torch.no_grad():
+        cache, _ = prefill_cache(model, prompt[:, : plen - 1], plen + new)
+        if temperature > 0:
+            rng = torch.Generator(device=dev).manual_seed(seed)
+            for _ in range(plen - 1):
+                _gumbel(b, model.vocab_size, rng, dev)
+        tok = prompt[:, plen - 1:]
+        out = []
+        for j in range(new):
+            pos = torch.full((b,), plen - 1 + j, dtype=torch.long, device=dev)
+            logits = model(tok, pos_offset=pos, kv_cache=cache)[:, -1]
+            if rng is None:
+                out.append(logits.float())
+            else:
+                out.append(_filter_logits(logits, temperature, top_k, top_p)
+                           + _gumbel(b, model.vocab_size, rng, dev))
+            tok = tokens[:, j:j + 1]
+    return torch.stack(out)
+
+
+def first_gaps(ref, got, scores) -> list:
+    """For each row of ``ref`` and ``got`` (``[b, new]`` token arrays of two
+    runs; ``scores`` the ``[new, b, vocab]`` that ``ref``'s run took the
+    argmax of, from :func:`replay_scores`): ``None`` where the rows are
+    equal, else ``(position, gap)`` at their first difference, ``gap`` =
+    ``scores[ref token] - scores[got token]`` (0 for an exact tie). Raises
+    if the replay's argmax is not ``ref``'s token up to there."""
+    import numpy as np
+
+    out = []
+    for row in range(len(ref)):
+        diff = np.flatnonzero(np.asarray(ref[row]) != np.asarray(got[row]))
+        upto = int(diff[0]) if diff.size else len(ref[row]) - 1
+        arg = scores[: upto + 1, row].argmax(-1).cpu().numpy()
+        if not np.array_equal(arg, np.asarray(ref[row][: upto + 1])):
+            raise RuntimeError(f"replay of row {row} disagrees with its run")
+        if not diff.size:
+            out.append(None)
+            continue
+        s = scores[upto, row]
+        out.append((upto, float(s[int(ref[row][upto])] - s[int(got[row][upto])])))
+    return out
+
+
+def serving_plane_phase(device, slo_ttft_s: float = SLO_TTFT_S):
+    """Serving through the plane at GPT-2-small width, from an HF-layout
+    checkpoint: ``lm_from_gpt2`` of a ``SimpleNamespace`` config and state
+    dict (:func:`gpt2_state_dict`; the stock pdrops 0.1, which inference
+    ignores) on the CPU, its ``variables`` loaded into
+    ``TransformerLM(attention="flash")`` on the card in float32 and in
+    bfloat16 (f32 parameters, bf16 compute). Gates:
+
+    - the card's f32 logits (flash) against the CPU conversion's (naive
+      attention) on 2 x 40 tokens within 1e-3;
+    - under ``init(serving={"slots": 8, "block_size": 16},
+      request_log=<tmp>, telemetry=<tmp jsonl>)``, an engine with
+      ``slo_ttft_s`` and ``slo_token_s=SLO_TOKEN_S`` serves 24 requests
+      (prompts 8-200 tokens from ``default_rng(0)``, 16 new tokens, 64 for every 8th)
+      from ``start()``; two are consumed with ``stream()`` on this thread,
+      all awaited, then ``stop()``; in f32 and bf16. Every request
+      finishes, ``serve_error`` is None, some requests break an SLO and
+      some do not, ``flash_fwd`` launched at least layers x (prefills +
+      decode steps) times; f32 streams equal ``generate()`` token for
+      token; bf16 streams are bit-identical when the same requests are
+      served inline with static batching and in a shuffled submit order,
+      and where one differs from ``generate()`` its first difference is
+      a near-tie: ``generate()``'s logit for the engine's token within
+      delta of its top logit, delta = 4 x the largest |bf16 - f32| logit
+      of the two models on the 24 prompts;
+    - an inline ``run()`` of 12 requests whose first raises
+      ``request_preemption()`` at its third token: ``preempted``, the 8
+      active requests finish with the background run's tokens, the 4
+      queued are rejected ``"preempted"``;
+    - ``serving.decode`` armed to raise on a background run: the error is
+      banked in ``serve_error``, every pending request is rejected with
+      reason ``"error"``, ``close()`` drops the pools;
+    - ``scripts/check_metrics_schema.py`` accepts the registry's JSONL and
+      the request log, every request of the phase has a log line, and
+      ``scripts/serving_report.py --json`` counts as many finished and
+      rejected requests as ``serving.requests_completed`` and the
+      ``serving.admission_rejects`` sum;
+    - ``generate`` in f32 and bf16 on 2 x 40 tokens, 32 new: two sampled
+      calls (``temperature=0.8, top_k=50, top_p=0.95``, a CUDA generator)
+      with equal seeds are equal; scan equals batched, greedy and sampled;
+      ``top_k=1`` equals greedy (bf16: equal, or the first difference a
+      near-tie as above, delta / temperature on the sampled scores);
+    - ``beam_search`` (f32): beam 4 gives finite scores, beam 1 equals
+      greedy.
+
+    ``flash_fwd``'s launches are counted on every path (zeroed before,
+    read after each). Returns the stats and the failures."""
+    import os
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import faults, runtime, telemetry
+    from fluxmpi_tpu_torch.errors import FaultInjectedError
+    from fluxmpi_tpu_torch.models import (TransformerLM, beam_search, generate,
+                                          lm_from_gpt2, load_flax_params)
+    from fluxmpi_tpu_torch.ops.flash_attention import flash_fwd
+    from fluxmpi_tpu_torch.serving import InferenceEngine
+
+    failures = []
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    cfg = GPT2_HF_CONFIG
+    layers, vocab = cfg["n_layer"], cfg["vocab_size"]
+    sd = gpt2_state_dict(cfg)
+    hf = SimpleNamespace(config=SimpleNamespace(**cfg), state_dict=lambda: sd)
+    cpu_model, variables = lm_from_gpt2(hf, device="cpu")
+    fields = dict(vocab_size=vocab, max_len=cpu_model.max_len, num_layers=layers,
+                  d_model=cpu_model.d_model, num_heads=cpu_model.num_heads,
+                  d_ff=cpu_model.d_ff, dropout=cpu_model.dropout, ln_eps=cpu_model.ln_eps)
+    models = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        models[name] = load_flax_params(
+            TransformerLM(**fields, attention="flash", dtype=dtype, device=device), variables)
+    print(f"serving_plane: lm_from_gpt2 of GPT2Config {cfg} (N(0, 0.02) weights, "
+          f"seed 0), dropout {cpu_model.dropout}, loaded into f32 and bf16 "
+          f"TransformerLM(attention='flash') on the card in "
+          f"{time.perf_counter() - t_phase:.2f}s", flush=True)
+
+    toks = np.random.default_rng(1).integers(0, vocab, (2, 40))
+    with torch.no_grad():
+        card = models["f32"](torch.from_numpy(toks).to(device), train=False).cpu()
+        ref = cpu_model(torch.from_numpy(toks), train=False)
+    conv_err = float((card - ref).abs().max())
+    ok = bool(torch.isfinite(card).all()) and conv_err <= 1e-3
+    print(f"serving_plane: card f32 flash logits vs the CPU conversion (naive) "
+          f"max_abs_err={conv_err:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("serving_plane: converted logits")
+    del cpu_model, ref, card
+
+    rng = np.random.default_rng(0)
+    specs = []
+    for i in range(SERVE_REQUESTS):
+        plen = int(rng.integers(8, 201))
+        specs.append((rng.integers(0, vocab, plen).astype(np.int32),
+                      64 if i % 8 == 7 else 16))
+    lengths = tuple(len(p) for p, _ in specs)
+    err = 0.0
+    with torch.no_grad():
+        for p, _ in specs:
+            x = torch.from_numpy(p).to(device)[None]
+            err = max(err, float((models["bf16"](x, train=False).float()
+                                  - models["f32"](x, train=False)).abs().max()))
+    delta = 4 * err
+    print(f"serving_plane: largest |bf16 - f32| logit on the {len(specs)} prompts "
+          f"{err:.4e}; delta = 4x = {delta:.4e}", flush=True)
+
+    launches = {}
+    stats = dict(card=card_line(), converted_logit_err=conv_err, bf16_logit_err=err,
+                 delta=delta)
+    all_ids = []  # every request the phase submits: each must be logged
+
+    def counted(path, fn):
+        flash_fwd.launches = 0
+        out = fn()
+        launches[path] = flash_fwd.launches
+        return out
+
+    def serve_background(name):
+        model = models[name]
+        eng = InferenceEngine(model, slo_ttft_s=slo_ttft_s, slo_token_s=SLO_TOKEN_S)
+        eng.warmup(prompt_lengths=lengths)
+        torch.cuda.synchronize()
+
+        def drive():
+            t0 = time.perf_counter()
+            eng.start()
+            reqs = [eng.submit(p, n) for p, n in specs]
+            streamed = {i: list(reqs[i].stream(timeout=600)) for i in (0, 7)}
+            done = all(r.wait(timeout=600) for r in reqs)
+            wall = time.perf_counter() - t0
+            return reqs, streamed, done, wall, eng.stop()
+
+        reqs, streamed, done, wall, stopped = counted(f"serve_plane_{name}", drive)
+        all_ids.extend(r.id for r in reqs)
+        summary = eng.run()  # run() inline after stop(): the totals, a flush
+        n = launches[f"serve_plane_{name}"]
+        need = layers * (eng.prefills + summary["decode_steps"])
+        ttft = np.array([r.ttft_s for r in reqs if r.ttft_s is not None])
+        per_tok = np.array([r.per_token_s for r in reqs if r.per_token_s is not None])
+        run = dict(slots=eng.slots, block_size=eng.block_size, wall_seconds=wall,
+                   tokens=summary["tokens"], tokens_per_sec=summary["tokens"] / wall,
+                   completed=summary["completed"], decode_steps=summary["decode_steps"],
+                   prefills=eng.prefills, slo_violations=summary["slo_violations"],
+                   slo_ok=sum(1 for r in reqs if r.status == "finished" and not (
+                       r.ttft_s > slo_ttft_s or (r.per_token_s or 0) > SLO_TOKEN_S)),
+                   ttft_p50_ms=float(np.median(ttft) * 1e3),
+                   ttft_max_ms=float(ttft.max() * 1e3),
+                   per_token_p50_ms=float(np.median(per_tok) * 1e3),
+                   launches=n, need=need, serve_error=repr(eng.serve_error))
+        print(f"serving_plane {name}: {run['completed']}/{len(specs)} served from the "
+              f"background thread ({eng.slots} slots, block {eng.block_size}), "
+              f"{run['tokens']} tokens in {wall:.3f}s = {run['tokens_per_sec']:.1f} "
+              f"tokens/s; TTFT p50 {run['ttft_p50_ms']:.1f} ms max "
+              f"{run['ttft_max_ms']:.1f} ms; per-token p50 {run['per_token_p50_ms']:.2f} "
+              f"ms; SLO violations {run['slo_violations']} ({run['slo_ok']} requests "
+              f"within both, TTFT {slo_ttft_s * 1e3:.1f} ms, per token "
+              f"{SLO_TOKEN_S * 1e3:.0f} ms); decode_steps={run['decode_steps']} prefills="
+              f"{run['prefills']}; flash_fwd launches={n} (need >= {need}); "
+              f"serve_error={eng.serve_error!r}", flush=True)
+        if not (done and stopped and eng.serve_error is None
+                and all(r.status == "finished" for r in reqs)):
+            failures.append(f"serving_plane {name}: background run did not finish "
+                            f"cleanly (serve_error={eng.serve_error!r})")
+        if any(streamed[i] != reqs[i].tokens for i in streamed):
+            failures.append(f"serving_plane {name}: stream() differs from the tokens")
+        if n < need or n == 0:
+            failures.append(f"serving_plane {name}: flash_fwd launched {n} < {need}")
+        if not (0 < run["slo_violations"] and 0 < run["slo_ok"]):
+            failures.append(f"serving_plane {name}: SLOs broken by none or by all")
+        eng.close()
+        return run, [list(r.tokens) for r in reqs]
+
+    def serve_inline(name, order, continuous):
+        eng = InferenceEngine(models[name], continuous=continuous)
+        reqs = {i: eng.submit(*specs[i]) for i in order}
+        summary = counted(f"serve_plane_{name}_{'cont' if continuous else 'static'}",
+                          eng.run)
+        eng.close()
+        all_ids.extend(r.id for r in reqs.values())
+        if summary["completed"] != len(specs):
+            failures.append(f"serving_plane {name}: an inline run left requests")
+        return [list(reqs[i].tokens) for i in range(len(specs))]
+
+    def references(name):
+        return counted(f"generate_refs_{name}", lambda: [
+            generate(models[name], p[None], n)[0, len(p):].tolist() for p, n in specs])
+
+    prev = telemetry.set_registry(telemetry.MetricsRegistry())
+    tmp = tempfile.mkdtemp()
+    log_spec = os.path.join(tmp, "requests.{process}.jsonl")
+    jsonl = os.path.join(tmp, "metrics.jsonl")
+    try:
+        fm.init(serving={"slots": 8, "block_size": 16}, request_log=log_spec,
+                telemetry=jsonl)
+        runs, streams = {}, {}
+        for name in ("f32", "bf16"):
+            runs[name], streams[name] = serve_background(name)
+        stats["runs"] = runs
+
+        f32_ref = references("f32")
+        same = sum(a == b for a, b in zip(streams["f32"], f32_ref))
+        print(f"serving_plane f32: {same}/{len(specs)} streams equal generate() token "
+              f"for token", flush=True)
+        if same != len(specs):
+            failures.append(f"serving_plane f32: {len(specs) - same} streams differ "
+                            f"from generate()")
+
+        static = serve_inline("bf16", range(len(specs)), continuous=False)
+        shuffled = serve_inline("bf16", np.random.default_rng(5).permutation(len(specs)),
+                                continuous=True)
+        orders = (static == streams["bf16"], shuffled == streams["bf16"])
+        print(f"serving_plane bf16: streams bit-identical to the background run with "
+              f"static batching {orders[0]}, in a shuffled submit order {orders[1]}",
+              flush=True)
+        if not all(orders):
+            failures.append("serving_plane bf16: streams depend on admission order")
+        bf16_ref = references("bf16")
+        gaps = []
+        for i, ((p, n), got, want) in enumerate(zip(specs, streams["bf16"], bf16_ref)):
+            if got == want:
+                continue
+            scores = replay_scores(models["bf16"], p[None], [want])
+            pos, gap = first_gaps([want], [got], scores)[0]
+            gaps.append(dict(request=i, position=pos, gap=gap))
+        bad = [g for g in gaps if g["gap"] > delta]
+        stats["bf16_vs_generate"] = dict(differ=len(gaps), gaps=gaps)
+        print(f"serving_plane bf16: {len(specs) - len(gaps)}/{len(specs)} streams equal "
+              f"generate(); {len(gaps)} differ, each at a first difference where "
+              f"generate()'s top logit leads the engine's token by: "
+              + (", ".join(f"req {g['request']} pos {g['position']} gap {g['gap']:.4e}"
+                           for g in gaps) or "-")
+              + f" (delta {delta:.4e}) {'ok' if not bad else 'FAIL'}", flush=True)
+        if bad:
+            failures.append(f"serving_plane bf16: {len(bad)} streams differ from "
+                            f"generate() by more than delta")
+
+        # Preemption drain, inline.
+        eng = InferenceEngine(models["f32"])
+        seen = []
+
+        def preempt(tok):
+            seen.append(tok)
+            if len(seen) == 3:
+                runtime.request_preemption()
+
+        pre = [eng.submit(p, n, on_token=preempt if i == 0 else None)
+               for i, (p, n) in enumerate(specs[:12])]
+        try:
+            summ = counted("serve_plane_preempted", eng.run)
+        finally:
+            runtime.clear_preemption()
+        eng.close()
+        finished = [i for i, r in enumerate(pre) if r.status == "finished"]
+        rejected = [r.reject_reason for r in pre if r.status == "rejected"]
+        exact = all(pre[i].tokens == streams["f32"][i] for i in finished)
+        ok = (summ["preempted"] and summ["drained"] == 8 and len(finished) == 8
+              and rejected == ["preempted"] * 4 and exact)
+        stats["preemption"] = dict(summary=summ, finished=len(finished), rejected=rejected)
+        print(f"serving_plane preemption: preempted={summ['preempted']} drained="
+              f"{summ['drained']} finished {len(finished)} (tokens equal the background "
+              f"run {exact}), rejected {rejected} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append("serving_plane: preemption drain")
+        all_ids += [r.id for r in pre]
+
+        # A fault in the decode tick of a background run.
+        eng = InferenceEngine(models["f32"])
+        with faults.scope("serving.decode@step=3"):
+            eng.start()
+            bad_reqs = [eng.submit(p, n) for p, n in specs[:4]]
+            waited = all(r.wait(timeout=300) for r in bad_reqs)
+        eng.stop()
+        banked = eng.serve_error
+        eng.close()
+        ok = (waited and isinstance(banked, FaultInjectedError)
+              and all(r.reject_reason == "error" for r in bad_reqs)
+              and eng.cache._k_pool is None and eng.cache._v_pool is None)
+        stats["fault"] = dict(serve_error=repr(banked),
+                              reasons=[r.reject_reason for r in bad_reqs])
+        print(f"serving_plane fault: serve_error={banked!r}, reasons "
+              f"{[r.reject_reason for r in bad_reqs]}, pools dropped by close() "
+              f"{eng.cache._k_pool is None} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append("serving_plane: fault in the decode tick")
+        all_ids += [r.id for r in bad_reqs]
+    finally:
+        runtime.clear_preemption()
+        reg = telemetry.get_registry()
+        fm.shutdown()  # closes the request log, flushes the registry's JSONL
+        telemetry.set_registry(prev)
+    counters = {}
+    for m in reg.snapshot():
+        if m["type"] == "counter" and m["name"].startswith("serving."):
+            counters[m["name"]] = counters.get(m["name"], 0) + m["value"]
+    log_path = log_spec.format(process=0)
+    with open(log_path) as f:
+        logged = {json.loads(line)["request_id"] for line in f}
+    missing = [i for i in all_ids if i not in logged]
+    check = subprocess.run([sys.executable, str(root / "scripts" / "check_metrics_schema.py"),
+                            jsonl, log_path], capture_output=True, text=True, timeout=300)
+    report = subprocess.run([sys.executable, str(root / "scripts" / "serving_report.py"),
+                             "--json", log_path], capture_output=True, text=True, timeout=300)
+    try:
+        rep = json.loads(report.stdout)
+    except ValueError:
+        rep = {}
+    ok = (check.returncode == 0 and report.returncode == 0 and not missing
+          and rep.get("finished") == counters.get("serving.requests_completed")
+          and rep.get("rejected") == counters.get("serving.admission_rejects"))
+    stats["readers"] = dict(logged=len(logged), report={k: rep.get(k) for k in (
+        "requests", "finished", "rejected", "reject_reasons", "slo_ok")}, counters=counters)
+    print(f"serving_plane readers: check_metrics_schema rc={check.returncode}, "
+          f"serving_report rc={report.returncode}: {stats['readers']['report']}; "
+          f"serving.requests_completed={counters.get('serving.requests_completed')} "
+          f"serving.admission_rejects={counters.get('serving.admission_rejects')}; "
+          f"{len(logged)} requests logged, {len(missing)} of the checked ones missing "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("serving_plane: the stdlib readers disagree with the registry "
+                        f"({check.stdout[-500:]}{check.stderr[-500:]}{report.stderr[-500:]})")
+
+    # generate and beam_search on the card.
+    prompt = torch.from_numpy(toks).to(device)
+    samp = dict(temperature=0.8, top_k=50, top_p=0.95)
+    gen_stats = {}
+    for name, model in models.items():
+        def gen(path, seed=None, **kw):
+            rng = None if seed is None else torch.Generator(device=device).manual_seed(seed)
+            out = counted(f"generate_{name}_{path}", lambda: generate(model, prompt, 32,
+                                                                      rng=rng, **kw))
+            if launches[f"generate_{name}_{path}"] < layers * 32:
+                failures.append(f"serving_plane generate {name} {path}: flash_fwd "
+                                f"launched {launches[f'generate_{name}_{path}']} times")
+            return out[:, 40:].tolist()
+
+        greedy = gen("greedy")
+        sampled = gen("sampled", 0, **samp)
+        checks = {
+            "sampled twice": (sampled, gen("sampled_again", 0, **samp), None),
+            "scan = batched, greedy": (greedy, gen("scan", prefill="scan"), {}),
+            "scan = batched, sampled": (sampled,
+                                        gen("sampled_scan", 0, prefill="scan", **samp),
+                                        dict(seed=0, **samp)),
+            "top_k=1 = greedy": (greedy, gen("top_k1", 1, temperature=0.8, top_k=1), {}),
+        }
+        results = {}
+        for what, (ref_t, got_t, replay) in checks.items():
+            if ref_t == got_t:
+                results[what] = "equal"
+                continue
+            if name == "f32" or replay is None:
+                results[what] = "DIFFER"
+                failures.append(f"serving_plane generate {name}: {what} differ")
+                continue
+            scores = replay_scores(model, prompt, ref_t, **replay)
+            limit = delta / replay.get("temperature", 1.0)
+            found = [g for g in first_gaps(ref_t, got_t, scores) if g is not None]
+            results[what] = [dict(position=p, gap=g) for p, g in found]
+            if any(g > limit for _, g in found):
+                failures.append(f"serving_plane generate {name}: {what} differ by more "
+                                f"than delta")
+        gen_stats[name] = results
+        print(f"serving_plane generate {name} (2 x 40 tokens, 32 new): {results}",
+              flush=True)
+    beam4, scores4 = counted("beam_search_f32_beam4",
+                             lambda: beam_search(models["f32"], prompt, 32, beam_size=4))
+    beam1, _ = beam_search(models["f32"], prompt, 32, beam_size=1)
+    greedy = generate(models["f32"], prompt, 32)
+    ok = (bool(torch.isfinite(scores4).all()) and torch.equal(beam1, greedy)
+          and beam4.shape == greedy.shape
+          and launches["beam_search_f32_beam4"] >= layers * 32)
+    gen_stats["beam_search"] = dict(scores=scores4.tolist(),
+                                    beam1_equals_greedy=torch.equal(beam1, greedy))
+    print(f"serving_plane beam_search f32: beam 4 scores {scores4.tolist()}, beam 1 "
+          f"equals greedy {torch.equal(beam1, greedy)}, flash_fwd launches "
+          f"{launches['beam_search_f32_beam4']} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("serving_plane: beam_search")
+    stats["generate"] = gen_stats
+    stats["launches"] = launches
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"serving_plane: flash_fwd launches by path {launches}; phase "
+          f"{stats['seconds']:.1f}s; {stats['card']}", flush=True)
+    del models
     return stats, failures
 
 
@@ -3078,6 +3591,9 @@ def run_phases(device):
     stats, slice_failures = slice_phase(device)
     failures += slice_failures
     torch.cuda.empty_cache()
+    plane, plane_failures = serving_plane_phase(device, stats["ttft_p50_ms"] / 1e3)
+    failures += plane_failures
+    torch.cuda.empty_cache()
     train, train_failures = train_phase(device)
     failures += train_failures
     torch.cuda.empty_cache()
@@ -3117,8 +3633,9 @@ def run_phases(device):
                      + bf16["remat"]["dots"]["launches"]["flash_fwd"]
                      + fused["fused"]["launches"]["flash_fwd"]
                      + telem["planes_on"]["launches"]["flash_fwd"]
-                     + sum(n["flash_fwd"] for n in zoo_paths.values())),
-        "launches_by_path": {"serve": stats["launches"],
+                     + sum(n["flash_fwd"] for n in zoo_paths.values())
+                     + sum(plane["launches"].values())),
+        "launches_by_path": {"serve": stats["launches"], **plane["launches"],
                              "train": train["launches"]["flash_fwd"],
                              "train_bf16": bf16["launches"]["flash_fwd"],
                              "train_bf16_remat":
@@ -3188,7 +3705,8 @@ def run_phases(device):
                                          f"{key}_ms", f"{key}_bound_ms")}
                       for r in bwd_rows],
         })
-    return kernels, {"slice": stats, "train": train, "train_bf16": bf16,
+    return kernels, {"slice": stats, "serving_plane": plane, "train": train,
+                     "train_bf16": bf16,
                      "train_bf16_fused": fused, "train_bf16_telemetry": telem,
                      "vision": vision, "zoo": zoo}, failures
 

@@ -4,7 +4,8 @@ from .cnn import CNN
 from .convert import (load_flax_params, load_flax_variables, to_flax_params,
                       to_flax_variables)
 from .deq import DEQ, fixed_point_solve
-from .generate import generate, prefill_cache, prefill_kv
+from .generate import beam_search, generate, prefill_cache, prefill_kv
+from .hf_gpt2 import lm_from_gpt2
 from .mlp import MLP
 from .resnet import ResNet, ResNet18, ResNet34, ResNet50, ResNet101
 from .transformer import EncoderBlock, TransformerEncoder, TransformerLM
@@ -13,6 +14,7 @@ from .vit import ViT
 
 __all__ = ["CNN", "DEQ", "EncoderBlock", "MLP", "ResNet", "ResNet101", "ResNet18",
            "ResNet34", "ResNet50", "TransformerEncoder", "TransformerLM", "UNet",
-           "ViT", "cosine_beta_schedule", "ddim_sample", "ddpm_loss",
-           "fixed_point_solve", "generate", "load_flax_params", "load_flax_variables",
+           "ViT", "beam_search", "cosine_beta_schedule", "ddim_sample", "ddpm_loss",
+           "fixed_point_solve", "generate", "lm_from_gpt2", "load_flax_params",
+           "load_flax_variables",
            "prefill_cache", "prefill_kv", "to_flax_params", "to_flax_variables"]

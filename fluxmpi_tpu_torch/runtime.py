@@ -87,8 +87,7 @@ _state = _State()
 # init() arguments of the JAX package whose machinery is not ported yet.
 _WAITING = ("devices", "mesh_shape", "parallel", "distributed", "preemption",
             "faults", "anomaly", "model_stats", "compileplane", "profile",
-            "compile_cache", "export", "serving", "request_log", "fleet",
-            "resize")
+            "compile_cache", "export", "fleet", "resize")
 
 
 def _env_int(name: str) -> int | None:
@@ -97,10 +96,14 @@ def _env_int(name: str) -> int | None:
 
 
 def _configure_planes(telemetry: Any, trace: Any, watchdog: Any,
-                      goodput: Any, memory: Any) -> None:
-    """Wire the telemetry planes in the JAX package's order (each from its
-    argument, else its environment variable)."""
+                      goodput: Any, memory: Any, serving: Any,
+                      request_log: Any) -> None:
+    """Wire the telemetry, serving and request-log planes in the JAX
+    package's order (each from its argument, else its environment
+    variable)."""
+    from . import serving as _serving
     from . import telemetry as _telemetry
+    from .serving import observe as _serving_observe
     from .telemetry import goodput as _goodput
     from .telemetry import memory as _memory
     from .telemetry import tracing as _tracing
@@ -111,6 +114,8 @@ def _configure_planes(telemetry: Any, trace: Any, watchdog: Any,
     _watchdog.configure(watchdog)
     _goodput.configure(goodput)
     _memory.configure(memory)
+    _serving.configure(serving)
+    _serving_observe.configure(request_log)
 
 
 def init(*, device: str | torch.device | None = None,
@@ -119,6 +124,7 @@ def init(*, device: str | torch.device | None = None,
          timeout: float = 600.0,
          verbose: bool = False, telemetry: Any = None, trace: Any = None,
          watchdog: Any = None, goodput: Any = None, memory: Any = None,
+         serving: Any = None, request_log: Any = None,
          **waiting) -> torch.device:
     """Bring up the data-parallel world; returns this worker's device.
     Idempotent: a second call returns the same device.
@@ -146,13 +152,17 @@ def init(*, device: str | torch.device | None = None,
     ``FLUXMPI_TPU_WATCHDOG_DIR`` (``FLUXMPI_TPU_WATCHDOG``); ``goodput``
     — ``True`` for the wall-time buckets and live MFU
     (``FLUXMPI_TPU_GOODPUT``); ``memory`` — ``True`` for the ``memory.*``
-    gauges (``FLUXMPI_TPU_MEMORY``).
+    gauges (``FLUXMPI_TPU_MEMORY``). The serving planes:
+    ``serving`` — engine defaults, ``True``, a dict or a
+    :class:`~fluxmpi_tpu_torch.serving.ServingConfig` (``False`` resets the
+    plane; ``FLUXMPI_TPU_SERVING``); ``request_log`` — ``True`` or a JSONL
+    path for the per-request records (``{process}`` formatted; ``False``
+    uninstalls; ``FLUXMPI_TPU_REQUEST_LOG``).
 
     Not ported yet (each raises ``NotImplementedError`` when passed):
     device lists and mesh shapes, ``parallel=``, ``distributed=``, the
     preemption and fault specs, the compile cache, and the anomaly,
-    model-stats, compile, profile, export, serving, request-log, fleet
-    and resize planes.
+    model-stats, compile, profile, export, fleet and resize planes.
     """
     passed = sorted(k for k, v in waiting.items() if v is not None)
     unknown = [k for k in passed if k not in _WAITING]
@@ -160,12 +170,13 @@ def init(*, device: str | torch.device | None = None,
         raise TypeError(f"init() got unexpected arguments {unknown}")
     refuse_unported("init", {k: True for k in passed},
                     "the port has no device mesh or parallel plans, and its "
-                    "anomaly, model-stats, compile, profile, export, serving, "
-                    "request-log, fleet, resize, fault-spec, preemption-spec "
+                    "anomaly, model-stats, compile, profile, export, fleet, "
+                    "resize, fault-spec, preemption-spec "
                     "and compile-cache planes are not ported; it runs one "
                     "process per device with torch.distributed")
     if _state.initialized:
-        _configure_planes(telemetry, trace, watchdog, goodput, memory)
+        _configure_planes(telemetry, trace, watchdog, goodput, memory, serving,
+                          request_log)
         return _state.device
     want = resolve_device(device)
     cpu = want.type == "cpu"
@@ -216,7 +227,8 @@ def init(*, device: str | torch.device | None = None,
     _state.owns_group = not adopt
     _state.device = dev
     _state.rank, _state.world, _state.local_rank = rank, world, lr
-    _configure_planes(telemetry, trace, watchdog, goodput, memory)
+    _configure_planes(telemetry, trace, watchdog, goodput, memory, serving,
+                      request_log)
     if verbose:
         if world == 1:
             warnings.warn(

@@ -10,6 +10,11 @@ table row: logical position ``p`` lives at
 Block 0 is the trash block: it is never allocated, unused table entries
 point at it, and padded prefill positions and idle decode slots write
 into it. Attention masks everything read from it.
+
+:meth:`BlockKVCache.fits_device` checks the pools' bytes against the
+memory plane's ``bytes_limit`` (what is in use plus the pools must fit)
+before any device allocation, so an engine that would exhaust the card
+refuses at construction, not at its first admission.
 """
 
 from __future__ import annotations
@@ -82,9 +87,29 @@ class BlockKVCache:
         return (self.num_blocks - 1) * self.block_size
 
     @property
+    def free_tokens(self) -> int:
+        return len(self._free) * self.block_size
+
+    @property
     def high_watermark_blocks(self) -> int:
-        """Pool-lifetime peak of :attr:`used_blocks`."""
+        """Pool-lifetime peak of :attr:`used_blocks` (updated at every
+        allocation)."""
         return self._high_watermark
+
+    @property
+    def fragmentation(self) -> float:
+        """Free-list scatter in [0, 1]: ``1 - (longest contiguous free run
+        / free blocks)``; 0.0 when the free space is one run (or empty).
+        Allocation ignores block ids, so this never blocks an admission;
+        it measures how shuffled churn has left the pool."""
+        if not self._free:
+            return 0.0
+        ids = sorted(self._free)
+        longest = run = 1
+        for a, b in zip(ids, ids[1:]):
+            run = run + 1 if b == a + 1 else 1
+            longest = max(longest, run)
+        return 1.0 - longest / len(ids)
 
     def blocks_for(self, tokens: int) -> int:
         return blocks_for_tokens(tokens, self.block_size)
@@ -163,14 +188,22 @@ class BlockKVCache:
         self._k_pool = None
         self._v_pool = None
 
-    def fits_device(self) -> tuple[bool, str]:
-        """Whether both pools fit the device's free memory; the CPU has no
-        device memory to check."""
-        if self.device.type != "cuda":
+    def fits_device(self, device=None) -> tuple[bool, str]:
+        """Would both pools fit beside what the device already holds?
+        ``in_use + pool_bytes <= bytes_limit`` from the memory plane's
+        :func:`~fluxmpi_tpu_torch.telemetry.memory.device_memory_stats`
+        (default device: the pools'). Returns ``(fits, detail)``; a device
+        without memory stats (the CPU) reports ``(True, "no device memory
+        stats")``."""
+        from ..telemetry import memory
+
+        stats = memory.device_memory_stats(self.device if device is None else device)
+        limit = stats.get("bytes_limit")
+        if not limit:
             return True, "no device memory stats"
-        free, total = torch.cuda.mem_get_info(self.device)
-        need = self.pool_bytes
-        return need <= free, (
-            f"pool {need / 2**20:.1f} MiB vs free {free / 2**20:.1f} MiB "
-            f"of {total / 2**20:.1f} MiB"
+        in_use = stats.get("bytes_in_use", 0.0)
+        need = float(self.pool_bytes)
+        return in_use + need <= limit, (
+            f"pool {need / 2**20:.1f} MiB + in-use {in_use / 2**20:.1f} "
+            f"MiB vs limit {limit / 2**20:.1f} MiB"
         )

@@ -197,13 +197,28 @@ def configure(spec: Any = None) -> MetricsRegistry:
 
 
 def shutdown() -> None:
-    """Tear down the planes in failure-safe order: disarm the watchdog,
+    """Tear down the planes in failure-safe order: reset the serving plane
+    first (engine stopped, pending requests rejected, KV pools dropped: it
+    posts into every surface below), then the request-observability plane
+    (request log closed, burn windows cleared), disarm the watchdog,
     export the trace ring (when a path was configured), then reset the
     tracer and the flight recorder's ring, reset the goodput window and
     the memory plane (state left armed would leak into the next init
     cycle), then flush and detach every sink on the default registry
     (instruments survive — a re-configured registry keeps its cumulative
     counters)."""
+    try:
+        from ..serving import shutdown as _serving_shutdown
+
+        _serving_shutdown()
+    except Exception:
+        pass
+    try:
+        from ..serving import observe as _serving_observe
+
+        _serving_observe.shutdown()
+    except Exception:
+        pass
     try:
         disarm_watchdog()
     except Exception:

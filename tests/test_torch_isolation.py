@@ -1,5 +1,5 @@
 """The port stands alone: importing ``fluxmpi_tpu_torch`` loads no JAX,
-flax or ``fluxmpi_tpu`` module (every module of the port, the training
+flax, ``transformers`` or ``fluxmpi_tpu`` module (every module of the port, the training
 slice's included), its sources import none, its entry points refuse a
 missing CUDA device unless the caller asked for the CPU, and
 ``chip_smoke.py`` fails (and prints no result) without a card or without
@@ -23,7 +23,7 @@ from fluxmpi_tpu_torch.serving import BlockKVCache
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "fluxmpi_tpu_torch"
-FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "fluxmpi_tpu"}
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "transformers", "fluxmpi_tpu"}
 
 
 def _forbidden(name: str) -> bool:
@@ -52,7 +52,8 @@ def test_import_loads_no_jax_flax_or_reference_package():
         "telemetry", "telemetry.schema", "telemetry.registry", "telemetry.sinks",
         "telemetry.tracing", "telemetry.flight_recorder", "telemetry.watchdog",
         "telemetry.memory", "telemetry.monitor", "telemetry.goodput",
-        "utils.flops")}
+        "utils.flops", "serving.cache", "serving.observe", "models.generate",
+        "models.hf_gpt2")}
     assert ported <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -108,6 +109,14 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda:0")
+    from types import SimpleNamespace
+
+    from fluxmpi_tpu_torch.models import lm_from_gpt2
+
+    cfg = SimpleNamespace(vocab_size=11, n_positions=8, n_embd=8, n_layer=1, n_head=2,
+                          layer_norm_epsilon=1e-5)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm_from_gpt2(SimpleNamespace(config=cfg, state_dict=dict))
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("mps")

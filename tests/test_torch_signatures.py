@@ -51,7 +51,7 @@ MODULES = ["", ".comm", ".config", ".data", ".errors", ".faults", ".logging",
            ".models.unet", ".models.vit",
            ".ops", ".ops.flash_attention", ".ops.fused_ce", ".parallel",
            ".parallel.loop", ".parallel.train", ".serving", ".serving.cache",
-           ".serving.engine", ".utils", ".utils.checkpoint", ".utils.ema",
+           ".serving.engine", ".serving.observe", ".models.hf_gpt2", ".utils", ".utils.checkpoint", ".utils.ema",
            ".utils.manifest", ".utils.precision", ".utils.profiling", ".utils.flops",
            ".telemetry", ".telemetry.registry", ".telemetry.sinks",
            ".telemetry.tracing", ".telemetry.flight_recorder", ".telemetry.watchdog",
@@ -74,8 +74,7 @@ PORT_ONLY = {"init": {"timeout"},
 REFUSED = {
     "init": {"devices", "mesh_shape", "parallel", "distributed", "preemption",
              "faults", "anomaly", "model_stats", "compileplane", "profile",
-             "compile_cache", "export", "serving", "request_log", "fleet",
-             "resize"},
+             "compile_cache", "export", "fleet", "resize"},
     "make_train_step": {"parallel", "style", "donate",
                         "state_sharding", "batch_spec", "model_stats"},
     "make_eval_step": {"parallel", "state_sharding", "batch_spec"},
@@ -83,21 +82,13 @@ REFUSED = {
 # Parameters the port spells as the JAX package does but refuses with
 # NotImplementedError when set: (module, callable) -> {argument: a value}.
 REFUSED_WHEN_SET = {
-    (".serving.engine", "ServingRequest"): {"clock": time.monotonic},
-    (".serving.engine", "InferenceEngine"): {
-        "max_len": 64, "slo_ttft_s": 1.0, "slo_token_s": 0.1, "registry": object(),
-        "clock": time.monotonic, "flush_every": 4, "check_memory": False,
-        "attention": "flash"},
     (".models.transformer", "TransformerLM"): {"decode": True},
     (".models.transformer", "TransformerEncoder"): {"decode": True},
     (".models.transformer", "EncoderBlock"): {"decode": True},
-    (".models.generate", "generate"): {"temperature": 0.7, "top_k": 4, "top_p": 0.9,
-                                       "prefill": "scan"},
 }
 # The smallest positional arguments each of them takes.
-_REFUSED_ARGS = {"ServingRequest": ([1], 1), "InferenceEngine": (None,),
-                 "TransformerLM": (), "TransformerEncoder": (),
-                 "EncoderBlock": (32, 4, 64, 0.0, None), "generate": (None, [[1]], 1)}
+_REFUSED_ARGS = {"TransformerLM": (), "TransformerEncoder": (),
+                 "EncoderBlock": (32, 4, 64, 0.0, None)}
 LITERALS = (type(None), bool, int, float, str)
 
 
@@ -162,7 +153,12 @@ def test_the_comparison_covers_the_ported_surface():
                      "census", "is_oom_error", "write_oom_bundle",
                      "TrainingMonitor", "GoodputTracker", "segment", "configure",
                      "shutdown", "step_timer", "chip_peak_flops", "mfu",
-                     "validate_record", "validate_watchdog_dump"):
+                     "validate_record", "validate_watchdog_dump",
+                     # Slice 8: the rest of serving.
+                     "ServingConfig", "configure", "enabled", "get_engine",
+                     "set_engine", "ServingRequest", "RequestLog", "SLOBurnTracker",
+                     "RequestObserver", "get_request_observer",
+                     "set_request_observer", "beam_search", "lm_from_gpt2"):
         assert expected in names, expected
     assert len(PAIRS) >= 120
 
@@ -266,3 +262,162 @@ def test_parameters_refused_when_set(where, name, arg):
     assert arg in inspect.signature(ref).parameters
     with pytest.raises(NotImplementedError, match=arg):
         fn(*_REFUSED_ARGS[name], **{arg: REFUSED_WHEN_SET[(where, name)][arg]})
+
+
+def _tiny_lm():
+    import torch
+
+    from fluxmpi_tpu_torch.models import TransformerLM
+
+    return TransformerLM(vocab_size=31, max_len=32, num_layers=1, d_model=16,
+                         num_heads=2, d_ff=32, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+
+
+def _served(lm=None, n=4, **kw):
+    """One request of ``n`` new tokens through an engine built with
+    ``kw``; returns the engine's summary, the request and the engine."""
+    from fluxmpi_tpu_torch.serving import InferenceEngine
+
+    eng = InferenceEngine(lm or _tiny_lm(), slots=1, block_size=8, **kw)
+    req = eng.submit([3, 1, 4, 1, 5], n)
+    summary = eng.run()
+    eng.close()
+    return summary, req, eng
+
+
+def _ported_max_len():
+    summary, req, eng = _served(max_len=20)
+    assert eng.max_len == 16 and req.status == "finished"
+    with pytest.raises(ValueError, match="max_len 16"):
+        eng.submit([1] * 10, 7)
+
+
+def _ported_slo(kind):
+    summary, req, _ = _served(**{f"slo_{kind}_s": 0.0})  # an objective none meets
+    assert summary["slo_violations"] == 1 and req.status == "finished"
+
+
+def _ported_registry():
+    from fluxmpi_tpu_torch.telemetry import MetricsRegistry
+
+    reg = MetricsRegistry()
+    summary, _, _ = _served(registry=reg)
+    counts = {m["name"]: m["value"] for m in reg.snapshot() if m["type"] == "counter"}
+    assert counts["serving.requests_completed"] == 1
+    assert counts["serving.tokens_generated"] == summary["tokens"] == 4
+
+
+def _ported_clock():
+    ticks = iter(range(100))
+    _, req, _ = _served(clock=lambda: float(next(ticks)))
+    assert (req.submitted_t, req.admitted_t, req.ttft_s) == (0.0, 2.0, 3.0)
+
+
+def _ported_request_clock():
+    from fluxmpi_tpu_torch.serving import ServingRequest
+
+    req = ServingRequest([1], 1, clock=time.monotonic)
+    assert abs(req.submitted_t - time.monotonic()) < 60
+
+
+def _ported_flush_every():
+    from fluxmpi_tpu_torch.serving import InferenceEngine
+    from fluxmpi_tpu_torch.telemetry import MetricsRegistry
+
+    reg = MetricsRegistry()
+    eng = InferenceEngine(_tiny_lm(), slots=1, block_size=8, registry=reg, flush_every=4)
+    eng.submit([3, 1, 4], 9)
+    for _ in range(3):  # the admission's update holds its iteration's tick
+        eng.step()
+    steps = [m["value"] for m in reg.snapshot() if m["name"] == "serving.decode_steps"]
+    eng.step()  # the 4th tick
+    assert steps == [1] and [m["value"] for m in reg.snapshot()
+                             if m["name"] == "serving.decode_steps"] == [4]
+    eng.close()
+
+
+def _ported_check_memory():
+    from fluxmpi_tpu_torch.telemetry import memory
+
+    real = memory.device_memory_stats
+    memory.device_memory_stats = lambda d: {"bytes_limit": 1.0, "bytes_in_use": 0.0}
+    try:
+        with pytest.raises(RuntimeError, match="device memory"):
+            _served()
+        assert _served(check_memory=False)[1].status == "finished"
+    finally:
+        memory.device_memory_stats = real
+
+
+def _ported_attention():
+    from fluxmpi_tpu_torch.models import transformer
+
+    calls = []
+    real = transformer.flash_attention
+    transformer.flash_attention = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        _, naive, _ = _served()
+        _, flash, eng = _served(attention="flash")
+    finally:
+        transformer.flash_attention = real
+    assert eng.attention == "flash" and len(calls) == 3  # 1 layer, 3 decode ticks
+    assert flash.tokens == naive.tokens
+
+
+def _ported_generate(**kw):
+    import torch
+
+    from fluxmpi_tpu_torch.models import generate
+
+    lm = _tiny_lm()
+    prompt = [[3, 1, 4, 1, 5]] * 64
+    greedy = generate(lm, prompt, 1)[:, -1]
+    if kw.get("prefill") == "scan":
+        assert torch.equal(generate(lm, prompt, 6, prefill="scan"),
+                           generate(lm, prompt, 6, prefill="batched"))
+        return
+    drawn = generate(lm, prompt, 1, rng=torch.Generator().manual_seed(0),
+                     **{"temperature": 1.0, **kw})[:, -1]
+    logits = lm(torch.tensor(prompt[:1]), train=False)[0, -1]
+    assert len(set(drawn.tolist())) > 1 and greedy[0] in drawn
+    if "top_k" in kw:
+        assert set(drawn.tolist()) <= set(torch.topk(logits, kw["top_k"]).indices.tolist())
+    if "top_p" in kw:  # the nucleus of a peaked softmax: fewer tokens
+        wide = generate(lm, prompt, 1, temperature=1.0,
+                        rng=torch.Generator().manual_seed(0))[:, -1]
+        assert set(drawn.tolist()) < set(wide.tolist())
+
+
+# Arguments the JAX package takes that the port refused until the serving
+# slice ported them, each with a check of what it does now.
+PORTED_IN_SERVING_SLICE = {
+    (".serving.engine", "ServingRequest", "clock"): _ported_request_clock,
+    (".serving.engine", "InferenceEngine", "max_len"): _ported_max_len,
+    (".serving.engine", "InferenceEngine", "slo_ttft_s"): lambda: _ported_slo("ttft"),
+    (".serving.engine", "InferenceEngine", "slo_token_s"): lambda: _ported_slo("token"),
+    (".serving.engine", "InferenceEngine", "registry"): _ported_registry,
+    (".serving.engine", "InferenceEngine", "clock"): _ported_clock,
+    (".serving.engine", "InferenceEngine", "flush_every"): _ported_flush_every,
+    (".serving.engine", "InferenceEngine", "check_memory"): _ported_check_memory,
+    (".serving.engine", "InferenceEngine", "attention"): _ported_attention,
+    (".models.generate", "generate", "temperature"): lambda: _ported_generate(),
+    (".models.generate", "generate", "top_k"): lambda: _ported_generate(top_k=3),
+    (".models.generate", "generate", "top_p"): lambda: _ported_generate(top_p=0.5),
+    (".models.generate", "generate", "prefill"): lambda: _ported_generate(prefill="scan"),
+}
+
+
+@pytest.mark.parametrize("where,name,arg", list(PORTED_IN_SERVING_SLICE),
+                         ids=[f"{w}-{n}-{a}" for w, n, a in PORTED_IN_SERVING_SLICE])
+def test_serving_slice_arguments_take_effect(where, name, arg):
+    """Each argument the serving slice ported is a parameter of both
+    packages' callables with the same default, and setting it does what
+    the JAX package's does (no ``NotImplementedError``)."""
+    fn = getattr(importlib.import_module("fluxmpi_tpu_torch" + where), name)
+    ref = getattr(importlib.import_module("fluxmpi_tpu" + where), name)
+    mine, theirs = inspect.signature(fn).parameters, inspect.signature(ref).parameters
+    assert arg in mine and arg in theirs
+    if isinstance(theirs[arg].default, LITERALS):
+        assert mine[arg].default == theirs[arg].default
+    PORTED_IN_SERVING_SLICE[(where, name, arg)]()

@@ -1020,6 +1020,21 @@ def test_init_wires_the_planes_and_shutdown_tears_them_down(tmp_path, monkeypatc
                                    "export", "fleet", "serving", "request_log"])
 def test_planes_not_ported_yet_still_raise(plane):
     was_up = tfm.is_initialized()
+    if plane in ("serving", "request_log"):
+        # Ported in the serving slice: accepted, wired, and reset by False.
+        from fluxmpi_tpu_torch import serving
+        from fluxmpi_tpu_torch.serving import observe
+
+        tfm.init(device="cpu", **{plane: True})
+        try:
+            assert serving.enabled() if plane == "serving" else (
+                observe.get_request_observer() is not None)
+            tfm.init(**{plane: False})
+            assert not serving.enabled() and observe.get_request_observer() is None
+        finally:
+            if not was_up:
+                tfm.shutdown()
+        return
     with pytest.raises(NotImplementedError, match=plane) as info:
         tfm.init(device="cpu", **{plane: True})
     assert "telemetry/" not in str(info.value)
