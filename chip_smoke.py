@@ -331,9 +331,15 @@ def kernel_cases():
         ("vit_197", 128, 197, 197, 12, 12, 64, False, None, None, 0.0),
         ("unet_64", 64, 64, 64, 4, 4, 64, False, None, None, 0.0),
         ("unet_mid_d128", 64, 16, 16, 4, 4, 128, False, None, None, 0.0),
+        # Kernel dropout (the seed read from device memory) at the training
+        # shape and ViT-B/16's.
+        ("train_1024_dropout", 8, 1024, 1024, 12, 12, 64, True, None, None, 0.1),
+        ("vit_197_dropout", 128, 197, 197, 12, 12, 64, False, None, None, 0.1),
     ]
 
 
+# The dropout cases, timed beside their dropout-free shapes.
+DROPOUT_TABLE_CASES = ("train_1024_dropout", "vit_197_dropout")
 # The zoo's cases, each with its own row in the kernel table.
 ZOO_TABLE_CASES = ("vit_197", "unet_64", "unet_mid_d128")
 # The cases whose row in the kernel table carries the plain version's and
@@ -355,10 +361,20 @@ def backward_cases():
         (("vit_197", 128, 197, 197, 12, 12, 64, False, None, None, 0.0), False),
         (("unet_64", 64, 64, 64, 4, 4, 64, False, None, None, 0.0), False),
         (("unet_mid_d128", 64, 16, 16, 4, 4, 128, False, None, None, 0.0), False),
+        (("train_1024_dropout", 8, 1024, 1024, 12, 12, 64, True, None, None, 0.1), False),
+        (("vit_197_dropout", 128, 197, 197, 12, 12, 64, False, None, None, 0.1), False),
     ]
 
 
 DROPOUT_SEED = 1234
+
+
+def device_seed(device):
+    """``DROPOUT_SEED`` as the kernels read it (an int32 on the card), made
+    once outside the timed graphs, as the training path hands it over."""
+    import torch
+
+    return torch.tensor([DROPOUT_SEED], dtype=torch.int32, device=device)
 
 
 def make_inputs(case, dtype, gen, device):
@@ -479,7 +495,7 @@ def kernel_phase(device):
             name, b, sq, sk, h, hkv, d, causal, window, seg, rate = case
             q, k, v, qseg, kseg = make_inputs(case, dtype, gen, device)
             opts = dict(causal=causal, window=window, dropout_rate=rate,
-                        seed=DROPOUT_SEED)
+                        seed=device_seed(device))
             out, lse = flash_fwd(q, k, v, qseg, kseg, **opts)
             ref_out, ref_lse = flash_attention_reference(q, k, v, q_seg=qseg,
                                                          kv_seg=kseg, **opts)
@@ -579,7 +595,10 @@ def dropout_mask_check(device):
     ``dropout_keep_reference``: with q = 0 every live probability is equal
     and nonzero, and identity matrices as V (forward), K (dQ) and dO (dV)
     copy the dropped probabilities into the output, so an entry is nonzero
-    iff the kernel kept it. Returns {kernel: masks equal}."""
+    iff the kernel kept it. The seed goes through the wrappers once as an
+    int and once as a tensor on the card (the kernels read it from device
+    memory either way); both must give the reference's mask. Returns
+    {kernel: masks equal}."""
     import torch
 
     from fluxmpi_tpu_torch.ops.flash_attention import (dropout_keep_reference,
@@ -593,19 +612,22 @@ def dropout_mask_check(device):
         DROPOUT_SEED, torch.arange(b * h, device=device).reshape(b, h, 1, 1),
         torch.arange(s, device=device).reshape(1, 1, s, 1),
         torch.arange(s, device=device).reshape(1, 1, 1, s), 1 - rate)
-    opts = dict(dropout_rate=rate, seed=DROPOUT_SEED)
     lse = torch.zeros(b, h, s, device=device)
     dterm = torch.zeros(b, h, s, device=device)
     ones = torch.zeros(b, s, h, d, device=device)
     ones[..., 0] = 1.0
-    out, _ = flash_fwd(zeros, zeros, eye, **opts)
-    dq = flash_bwd_dq(zeros, eye, ones, None, None, ones, lse, dterm, **opts)
-    _, dv = flash_bwd_dkv(zeros, zeros, zeros, None, None, eye, lse, dterm, **opts)
-    torch.cuda.synchronize()
-    return {"flash_fwd": bool(torch.equal(out.permute(0, 2, 1, 3) != 0, keep)),
-            "flash_bwd_dq": bool(torch.equal(dq.permute(0, 2, 1, 3) != 0, keep)),
-            "flash_bwd_dkv": bool(torch.equal(dv.permute(0, 2, 3, 1) != 0, keep)),
-            "keep_fraction": keep.float().mean().item()}
+    equal = {"flash_fwd": True, "flash_bwd_dq": True, "flash_bwd_dkv": True}
+    for seed in (DROPOUT_SEED, torch.tensor(DROPOUT_SEED, device=device)):
+        opts = dict(dropout_rate=rate, seed=seed)
+        out, _ = flash_fwd(zeros, zeros, eye, **opts)
+        dq = flash_bwd_dq(zeros, eye, ones, None, None, ones, lse, dterm, **opts)
+        _, dv = flash_bwd_dkv(zeros, zeros, zeros, None, None, eye, lse, dterm, **opts)
+        torch.cuda.synchronize()
+        for name, got in (("flash_fwd", out.permute(0, 2, 1, 3)),
+                          ("flash_bwd_dq", dq.permute(0, 2, 1, 3)),
+                          ("flash_bwd_dkv", dv.permute(0, 2, 3, 1))):
+            equal[name] = equal[name] and bool(torch.equal(got != 0, keep))
+    return {**equal, "keep_fraction": keep.float().mean().item()}
 
 
 def backward_phase(device):
@@ -624,7 +646,7 @@ def backward_phase(device):
             q, k, v, qseg, kseg = make_inputs(case, dtype, gen, device)
             g = torch.randn(b, sq, h, d, generator=gen).to(dtype).to(device)
             opts = dict(causal=causal, window=window, dropout_rate=rate,
-                        seed=DROPOUT_SEED)
+                        seed=device_seed(device))
             out, lse = flash_fwd(q, k, v, qseg, kseg, **opts)
             dlse = (torch.randn(b, h, sq, generator=gen).to(device) if with_dlse
                     else torch.zeros(b, h, sq, device=device))
@@ -668,21 +690,24 @@ def backward_phase(device):
                                                extra_rows=1, peak=FMA_FLOPS)[0]
                 row["dkv_fma_bound_ms"] = bound(case, dtype, qseg, kseg, products=4,
                                                 extra_rows=1, peak=FMA_FLOPS)[0]
-            if name in TABLE_CASES:
+            if name in TABLE_CASES or name in DROPOUT_TABLE_CASES:
                 row["dterm_ms"] = device_ms(dterm_fn, **counts)
                 row["plain_ms"] = device_ms(lambda: flash_attention_bwd_reference(
                     q, k, v, g, lse, dterm, q_seg=qseg, kv_seg=kseg, **opts), **counts)
-                row["library_ms"], row["library_ms_repeats"] = sdpa_backward_ms(
-                    q, k, v, g, case)
+                # A dropping SDPA draws its own random mask: no yardstick there.
+                row["library_ms"], row["library_ms_repeats"] = (None, []) if rate else \
+                    sdpa_backward_ms(q, k, v, g, case)
                 row["sum_ms"] = row["dterm_ms"] + dq_ms + dkv_ms
             rows.append(row)
             extra = ""
             if "plain_ms" in row:
                 extra = (f" dterm_ms={row['dterm_ms']:.4f} sum_ms={row['sum_ms']:.4f} "
-                         f"plain_ms={row['plain_ms']:.4f} "
-                         f"library_ms(sdpa bwd)={row['library_ms']:.4f} (median of "
-                         f"{len(row['library_ms_repeats'])} graph replays: "
-                         + " ".join(f"{t:.4f}" for t in row["library_ms_repeats"]) + ")")
+                         f"plain_ms={row['plain_ms']:.4f} library_ms(sdpa bwd)="
+                         + ("n/a" if row["library_ms"] is None else
+                            f"{row['library_ms']:.4f} (median of "
+                            f"{len(row['library_ms_repeats'])} graph replays: "
+                            + " ".join(f"{t:.4f}" for t in row["library_ms_repeats"])
+                            + ")"))
             print(f"kernel flash_bwd {name:12s} {dname:8s} "
                   + " ".join(f"err_{kk}={vv:.3e}(rel {rels[kk]:.2e})" for kk, vv in errs.items())
                   + f" (tol rel {GRAD_TOL[dname]:.2e}) dq_ms={dq_ms:.4f} "
@@ -3529,6 +3554,501 @@ def zoo_phase(device, updates: int = 32, flush_every: int = 8):
     return stats, failures
 
 
+# Fine-tuning phase (slice 9): stock GPT-2 small as serving_plane_phase
+# builds it (HF's GPT2Config, pdrops 0.1, so dropout 0.1), bf16 compute
+# with f32 masters, batch 8 x 1024, adamw(3e-4), world 1 over NCCL.
+FINETUNE_BATCH = 8
+FINETUNE_ROWS = 512        # the transformed host dataset: rows of
+FINETUNE_ROW_TOKENS = 1088  # lm_corpus tokens, cropped to 1025 per row
+
+
+def _tree_digest(tree) -> str:
+    """SHA-256 over a tree's tensor leaves (name order), bytes as stored:
+    two trees with the same digest are bit-identical."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name in sorted(tree):
+        t = tree[name].detach().contiguous().cpu()
+        h.update(name.encode())
+        h.update(str(t.dtype).encode())
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_staging_ops(params, grads):
+    """``synchronize`` on ``params``, then ``allreduce``, ``bcast``,
+    ``reduce`` and ``iallreduce`` on ``grads``: per op the seconds (host
+    wall, the card synchronized on both sides) and the result's digest."""
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+
+    def iallreduce(tree):
+        value, request = fm.iallreduce(tree)
+        request.wait()
+        return value
+
+    out = {}
+    for name, fn, tree in (("synchronize", fm.synchronize, params),
+                           ("allreduce", fm.allreduce, grads), ("bcast", fm.bcast, grads),
+                           ("reduce", fm.reduce, grads), ("iallreduce", iallreduce, grads)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn(tree)
+        torch.cuda.synchronize()
+        out[name] = dict(seconds=time.perf_counter() - t0, digest=_tree_digest(result))
+        del result
+    return out
+
+
+def staging_child(workdir: str) -> int:
+    """The host-staging side of ``finetune_phase``, in its own process
+    started with ``FLUXMPI_TPU_DISABLE_DEVICE_COLLECTIVES=1``: the parent's
+    parameters and gradients (``workdir/trees.pt``) through the staged
+    collectives at world 1; the digests, times, flight-recorder paths and
+    ``comm.calls`` rows go to ``workdir/child.json``."""
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import config, telemetry
+
+    reg = telemetry.MetricsRegistry()
+    telemetry.set_registry(reg)
+    dev = fm.init()
+    trees = torch.load(Path(workdir) / "trees.pt")
+    params = {k: v.to(dev) for k, v in trees["params"].items()}
+    grads = {k: v.to(dev) for k, v in trees["grads"].items()}
+    del trees
+    results = run_staging_ops(params, grads)
+    flight = telemetry.get_flight_recorder().dump()["entries"]
+    calls = {f"{m['labels']['op']}/{m['labels']['path']}": m["value"]
+             for m in reg.snapshot() if m["name"] == "comm.calls"}
+    (Path(workdir) / "child.json").write_text(json.dumps(dict(
+        staging=bool(config.DEVICE_COLLECTIVES_DISABLED), device=str(dev),
+        results=results, flight=[(e["op"], e["path"]) for e in flight],
+        comm_calls=calls)))
+    fm.shutdown()
+    return 0
+
+
+def finetune_phase(device, flash_updates: int = 8, kernel_updates: int = 32,
+                   flush_every: int = 8, host_updates: int = 20, crash_hit: int = 13,
+                   save_every: int = 5):
+    """Fine-tuning stock GPT-2 small on the card, four runs: (1) the flash
+    LM at dropout 0.1, pipelined, bit for bit against dropout 0.0 (flax's
+    keyword filter hands the kernels no rate); (2) an ``attention_fn`` that
+    drops inside the kernels with a seed drawn on the card, in CUDA-graph
+    windows (``fuse="auto"``) beside ``fuse=False``; (3) a transformed
+    host dataset through the C++ prefetcher, killed by
+    ``FLUXMPI_TPU_FAULTS`` at a batch fetch and resumed; (4) the
+    host-staging collectives in a child process against NCCL."""
+    import os
+    import subprocess
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import data as fm_data
+    from fluxmpi_tpu_torch import faults, optim, runtime
+    from fluxmpi_tpu_torch.io import NativePrefetcher, native_available
+    from fluxmpi_tpu_torch.models import TransformerLM, load_flax_params, lm_from_gpt2
+    from fluxmpi_tpu_torch.ops import flash_attention, flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+    from fluxmpi_tpu_torch.utils import CheckpointManager
+
+    failures = []
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    t_phase = time.perf_counter()
+    cfg = GPT2_HF_CONFIG
+    sd = gpt2_state_dict(cfg)
+    cpu_model, variables = lm_from_gpt2(
+        SimpleNamespace(config=SimpleNamespace(**cfg), state_dict=lambda: sd), device="cpu")
+    rate = cpu_model.dropout
+    fields = dict(vocab_size=cfg["vocab_size"], max_len=cpu_model.max_len,
+                  num_layers=cpu_model.num_layers, d_model=cpu_model.d_model,
+                  num_heads=cpu_model.num_heads, d_ff=cpu_model.d_ff,
+                  ln_eps=cpu_model.ln_eps)
+    layers, seq = cpu_model.num_layers, cpu_model.max_len
+    del cpu_model, sd
+    dev = fm.init()
+    corpus = lm_corpus(cfg["vocab_size"], seq=seq)
+    stats = dict(dropout=rate)
+    print(f"finetune: lm_from_gpt2 of GPT2Config (dropout {rate}), bf16 compute with "
+          f"f32 masters, batch {FINETUNE_BATCH} x {seq}, adamw(3e-4), world "
+          f"{fm.total_workers()} over {torch.distributed.get_backend()}; set-up "
+          f"{time.perf_counter() - t_phase:.2f}s", flush=True)
+
+    # The attention_fn of run 2: flax passes it the dropout keywords its
+    # signature names; it draws a uint32 seed on the card from dropout_rng
+    # (no host read) and drops inside the kernels. The last seed drawn is
+    # copied to `seen`, which the flush hook reads outside the graph.
+    seen = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def kernel_dropout(query, key, value, mask=None, dropout_rng=None,
+                       dropout_rate=0.0, deterministic=True):
+        if deterministic or not dropout_rate:
+            return flash_attention(query, key, value, causal=True)
+        runtime.note_graph_generator(dropout_rng)
+        seed = torch.randint(0, 2 ** 32, (), generator=dropout_rng, dtype=torch.int64,
+                             device=query.device)
+        seen.copy_(seed)
+        return flash_attention(query, key, value, causal=True, dropout_rate=dropout_rate,
+                               dropout_seed=seed)
+
+    def build(dropout, attention_fn=None):
+        model = load_flax_params(TransformerLM(
+            **fields, dropout=dropout, attention="naive" if attention_fn else "flash",
+            attention_fn=attention_fn, dtype=torch.bfloat16, device=dev), variables)
+        fm.synchronize(model)
+        gen = torch.Generator(device=dev).manual_seed(7)
+
+        def loss_fn(params, model_state, batch):
+            x, y = batch
+            return model(x, targets=y, dropout_rng=gen).mean(), model_state
+
+        opt = optim.adamw(3e-4)
+        return (model, gen, loss_fn, make_train_step(loss_fn, opt),
+                TrainState.create(model, opt))
+
+    def corpus_loader():
+        return fm.DistributedDataLoader(
+            fm.DistributedDataContainer(fm.ArrayDataset((corpus[:, :-1], corpus[:, 1:]))),
+            global_batch_size=FINETUNE_BATCH, shuffle=True)
+
+    def leaves(state):
+        out = {f"params/{k}": v for k, v in state.params.items()}
+        for m in ("mu", "nu"):
+            out.update({f"{m}/{k}": v for k, v in state.opt_state[m].items()})
+        out["count"] = state.opt_state["count"]
+        return {k: v.detach().clone() for k, v in out.items()}
+
+    def flushes(summary):
+        return [(f["updates"], f["loss"], f["loss_mean"], f["loss_max"])
+                for f in summary["flushes"]]
+
+    def same_bits(a, b):
+        return sum(torch.equal(a[k], b[k]) for k in a), len(a)
+
+    # 1. The flash LM at dropout 0.1 against dropout 0.0, pipelined.
+    runs = {}
+    for label, dropout in (("dropout", rate), ("no_dropout", 0.0)):
+        model, gen, loss_fn, step, state = build(dropout)
+        loader = corpus_loader()
+        for kern in kernels:
+            kern.launches = 0
+        (state, summ), launches = kernel_launches(
+            lambda: train_loop(step, state, loader, steps=flash_updates,
+                               flush_every=flash_updates // 2, fuse=False))
+        runs[label] = dict(bits=leaves(state), flushes=flushes(summ), launches=launches)
+        del model, gen, loss_fn, step, state, loader
+        torch.cuda.empty_cache()
+    n_same, n_all = same_bits(runs["dropout"]["bits"], runs["no_dropout"]["bits"])
+    need = layers * flash_updates
+    flash_ok = (n_same == n_all and runs["dropout"]["flushes"] == runs["no_dropout"]["flushes"]
+                and runs["dropout"]["launches"] == {k.__name__: need for k in kernels})
+    stats["flash_dropout"] = dict(updates=flash_updates, bit_identical=n_same, leaves=n_all,
+                                  flushes=runs["dropout"]["flushes"],
+                                  launches=runs["dropout"]["launches"])
+    print(f"finetune [flash, dropout {rate} vs 0.0]: {flash_updates} pipelined updates; "
+          f"{n_same} of {n_all} parameters, adamw moments and the count bit-identical; "
+          f"flush losses {[f[1] for f in runs['dropout']['flushes']]} vs "
+          f"{[f[1] for f in runs['no_dropout']['flushes']]}; launches "
+          f"{runs['dropout']['launches']} (need {need} each) "
+          f"{'ok' if flash_ok else 'FAIL'}", flush=True)
+    if not flash_ok:
+        failures.append("finetune: the flash LM at dropout 0.1 differs from dropout 0.0")
+    del runs
+
+    # 2. Kernel dropout: fuse="auto" (CUDA-graph windows) beside fuse=False.
+    def kernel_run(fuse):
+        model, gen, loss_fn, step, state = build(rate, kernel_dropout)
+        loader = corpus_loader()
+        seeds = []
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        (state, summ), launches = kernel_launches(
+            lambda: train_loop(step, state, loader, steps=kernel_updates,
+                               flush_every=flush_every, fuse=fuse,
+                               metrics=lambda record: seeds.append(int(seen.item()))))
+        wall = time.perf_counter() - t0
+        counted = {k.__name__: k.launches for k in kernels}
+        extra = graph_launches(step)
+        run = dict(fuse=fuse, bits=leaves(state), flushes=flushes(summ),
+                   updates=summ["updates"], dispatches=summ["dispatches"],
+                   fused_window=summ["fused_window"], seeds=seeds, launches=launches,
+                   accounted={n: counted[n] + extra[n] for n in counted},
+                   graphs=graph_stats(step), wall_seconds=wall)
+        # A second run of as many updates (every window replays) for the time.
+        state, timed = train_loop(step, state, loader, steps=kernel_updates,
+                                  flush_every=flush_every, fuse=fuse)
+        torch.cuda.synchronize()
+        run["median_update_ms"] = float(np.median(
+            [ms / flush_every for ms in timed["step_ms"]] if fuse else timed["step_ms"]))
+        return run, (model, gen, loss_fn, loader)
+
+    pipe, _ = kernel_run(False)
+    torch.cuda.empty_cache()
+    fused, (model, gen, loss_fn, loader) = kernel_run("auto")
+    n_same, n_all = same_bits(fused["bits"], pipe["bits"])
+    need = layers * kernel_updates
+    replays = sum(g["replays"] for g in fused["graphs"])
+    windows = kernel_updates // flush_every
+    first_loss, last_loss = fused["flushes"][0][2], fused["flushes"][-1][2]
+    # One update's gradients through the kernels against the plain versions,
+    # both at the seeds the generator draws from the same state.
+    x, y = next(iter(loader))
+    params = list(model.parameters())
+
+    def grads():
+        gen.manual_seed(11)
+        return torch.autograd.grad(loss_fn(None, None, (x, y))[0], params)
+
+    g_kernel = grads()
+    with plain_attention():
+        g_plain = grads()
+    top = max(b.norm().item() for b in g_plain)
+    rel = {}
+    for (name, _), a, b in zip(model.named_parameters(), g_kernel, g_plain):
+        scale = top if name.endswith("attn.key.bias") else b.norm().item()
+        rel[name] = (a - b).norm().item() / scale if scale else 0.0
+    worst = max(rel, key=rel.get)
+    grad_ok = all(np.isfinite(r) and r <= BF16_TRAIN_GRAD_TOL for r in rel.values())
+    del model, gen, loss_fn, loader, g_kernel, g_plain, params
+    torch.cuda.empty_cache()
+    replay_seeds = fused["seeds"][1:]
+    checks = {
+        "every window after the first replays": (
+            fused["fused_window"] == flush_every and fused["dispatches"] == windows
+            and replays == windows - 1),
+        "fused bit-identical to fuse=False": (n_same == n_all
+                                              and fused["flushes"] == pipe["flushes"]),
+        "launches per update": all(
+            r["launches"] == {k.__name__: need for k in kernels}
+            and r["accounted"] == r["launches"] for r in (pipe, fused)),
+        "replays drew fresh seeds": len(set(replay_seeds)) >= 2,
+        "loss falls": bool(np.isfinite(first_loss) and last_loss < first_loss),
+        "gradients vs plain": grad_ok,
+    }
+    stats["kernel_dropout"] = dict(
+        updates=kernel_updates, flush_every=flush_every, bit_identical=n_same, leaves=n_all,
+        replays=replays, seeds_fused=fused["seeds"], seeds_pipelined=pipe["seeds"],
+        launches=fused["launches"], launches_pipelined=pipe["launches"],
+        accounted=fused["accounted"], graphs=fused["graphs"],
+        median_update_ms_fused=fused["median_update_ms"],
+        median_update_ms_pipelined=pipe["median_update_ms"],
+        first_flush_loss_mean=first_loss, last_flush_loss_mean=last_loss,
+        grad_rel_err_max=rel[worst], grad_rel_err_worst=worst, checks=checks)
+    print(f"finetune [kernel dropout {rate}, attention_fn]: {kernel_updates} updates, "
+          f"flush_every {flush_every}: fused {fused['dispatches']} windows, {replays} graph "
+          f"replays; {n_same} of {n_all} leaves bit-identical to fuse=False; seeds after "
+          f"each window {fused['seeds']} (pipelined {pipe['seeds']}); device launches "
+          f"{fused['launches']} (need {need} each; the wrappers' with the graphs' "
+          f"{fused['accounted']}); pipelined {pipe['launches']}; mean loss first flush "
+          f"{first_loss:.4f} -> last {last_loss:.4f}; median ms per update fused "
+          f"{fused['median_update_ms']:.2f} vs pipelined {pipe['median_update_ms']:.2f}; "
+          f"gradients vs the plain versions worst {rel[worst]:.3e} ({worst}; tol "
+          f"{BF16_TRAIN_GRAD_TOL:g}); " + ", ".join(
+              f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()), flush=True)
+    failures += [f"finetune kernel dropout: {k}" for k, v in checks.items() if not v]
+    del pipe, fused
+
+    # 3. A transformed dataset on the host path through the C++ prefetcher.
+    rows = lm_corpus(cfg["vocab_size"], n=FINETUNE_ROWS, seq=FINETUNE_ROW_TOKENS - 1,
+                     seed=3)
+    calls = [0]
+
+    def crop(batch, rng):
+        """Crop each row at a random offset to seq + 1 tokens; inputs from
+        the first leaf, targets (shifted by one) from the second."""
+        calls[0] += 1
+        a, b = batch
+        off = rng.integers(0, a.shape[1] - seq, size=a.shape[0])
+        idx = off[:, None] + np.arange(seq)[None]
+        return np.take_along_axis(a, idx, 1), np.take_along_axis(b, idx + 1, 1)
+
+    def host_loader():
+        return fm.DistributedDataLoader(fm.ArrayDataset((rows, rows)),
+                                        global_batch_size=FINETUNE_BATCH, shuffle=True,
+                                        transform=crop)
+
+    native = native_available()
+    model, gen, loss_fn, step, state = build(rate)
+    loader = host_loader()
+    served0, calls[0] = NativePrefetcher.served, 0
+    for kern in kernels:
+        kern.launches = 0
+    (state, ref), launches = kernel_launches(
+        lambda: train_loop(step, state, loader, steps=host_updates, flush_every=save_every))
+    served = NativePrefetcher.served - served0
+    want = leaves(state)
+    host_calls = calls[0]
+    (_, tsum), busy_ms, wall_ms, nk, _ = traced(
+        lambda: train_loop(step, state, loader, steps=save_every, flush_every=save_every))
+    idle = (1 - busy_ms / wall_ms) if nk else None
+    del model, gen, loss_fn, step, state, loader
+    torch.cuda.empty_cache()
+
+    class NumpyPrefetcher:
+        """The numpy path in the prefetcher's place: ``array[rows]``."""
+
+        def __init__(self, array, order, batch_rows):
+            self.array, self.order, self.n = array, order, batch_rows
+
+        def __iter__(self):
+            for i in range(len(self.order) // self.n):
+                yield self.array[self.order[i * self.n:(i + 1) * self.n]]
+
+    def host_ms(prefetcher):
+        fm_data.NativePrefetcher = prefetcher
+        try:
+            loader = host_loader()
+            t0 = time.perf_counter()
+            n = 0
+            for _ in loader:
+                n += 1
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+        finally:
+            fm_data.NativePrefetcher = NativePrefetcher
+
+    per_batch = {"native": [], "numpy": []}
+    for kind in ("native", "numpy", "numpy", "native"):
+        per_batch[kind].append(host_ms(NativePrefetcher if kind == "native"
+                                       else NumpyPrefetcher))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckdir = os.path.join(tmp, "run")
+        fm.shutdown()
+        os.environ["FLUXMPI_TPU_FAULTS"] = f"data.fetch@step={crash_hit}"
+        try:
+            fm.init()
+            armed = [str(s) for s in faults.active()]
+            model, gen, loss_fn, step, state = build(rate)
+            loader = host_loader()
+            mgr = CheckpointManager(ckdir, async_save=False)
+            crashed = False
+            try:
+                train_loop(step, state, loader, steps=host_updates, flush_every=save_every,
+                           checkpoint=mgr, save_every=save_every)
+            except fm.FaultInjectedError:
+                crashed = True
+            banked = mgr.latest_step()
+            mgr.close()
+        finally:
+            del os.environ["FLUXMPI_TPU_FAULTS"]
+        del model, gen, loss_fn, step, state, loader
+        torch.cuda.empty_cache()
+        fm.shutdown()
+        cleared = not faults.active()
+        fm.init()
+        model, gen, loss_fn, step, state = build(rate)
+        loader = host_loader()
+        mgr = CheckpointManager(ckdir, async_save=False)
+        state, res = train_loop(step, state, loader, steps=host_updates,
+                                flush_every=save_every, checkpoint=mgr, save_every=save_every,
+                                resume=True)
+        torch.cuda.synchronize()
+        mgr.close()
+        back = leaves(state)
+        del model, gen, loss_fn, step, state, loader
+    torch.cuda.empty_cache()
+    n_same, n_all = same_bits(back, want)
+    need = layers * host_updates
+    checks = {
+        "native prefetcher built": native,
+        "the prefetcher served every host batch": served == 2 * host_calls > 0,
+        "host path (not fused)": ref["fused_window"] is None,
+        "launches": launches == {k.__name__: need for k in kernels},
+        "C.9: init armed FLUXMPI_TPU_FAULTS, shutdown cleared it": bool(armed) and cleared,
+        "killed and resumed": crashed and bool(banked) and res["resumed_from"] == banked,
+        "resume bit-identical": n_same == n_all
+                                and flushes(res) == flushes(ref)[-len(res["flushes"]):],
+    }
+    stats["host_transform"] = dict(
+        updates=host_updates, served=served, transform_calls=host_calls,
+        launches=launches, armed=armed, banked=banked, resumed_from=res["resumed_from"],
+        bit_identical=n_same, leaves=n_all, host_ms_per_batch=per_batch,
+        traced_updates=tsum["updates"], idle_share=idle, device_busy_ms=busy_ms,
+        wall_ms=wall_ms, checks=checks)
+    print(f"finetune [host path, transform, C++ prefetcher]: {host_updates} pipelined "
+          f"updates over {FINETUNE_ROWS} rows of {FINETUNE_ROW_TOKENS} tokens cropped to "
+          f"{seq + 1}; native_available {native}; the prefetcher served {served} leaf "
+          f"batches for {host_calls} transformed batches; launches {launches} (need "
+          f"{need} each); armed {armed} by init from FLUXMPI_TPU_FAULTS, killed at "
+          f"fetch {crash_hit} ({'raised' if crashed else 'DID NOT RAISE'}) with step "
+          f"{banked} committed, resumed from {res['resumed_from']}: {n_same} of {n_all} "
+          f"leaves bit-identical to the uninterrupted run; host ms per batch (an "
+          f"epoch through the loader, transform and copy included) native "
+          f"{per_batch['native']} vs numpy {per_batch['numpy']}; traced "
+          f"{tsum['updates']} updates: busy {busy_ms:.3f} of {wall_ms:.3f} ms (idle share "
+          f"{idle if idle is None else round(idle, 4)}); " + ", ".join(
+              f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()), flush=True)
+    failures += [f"finetune host path: {k}" for k, v in checks.items() if not v]
+
+    # 4. Host staging in a child process against NCCL here.
+    model, gen, loss_fn, step, state = build(rate)
+    x, y = next(iter(corpus_loader()))
+    params = dict(model.named_parameters())
+    g = torch.autograd.grad(loss_fn(None, None, (x, y))[0], list(params.values()))
+    grads = {name: t.detach().float() for name, t in zip(params, g)}
+    params = {k: v.detach() for k, v in params.items()}
+    values = sum(t.numel() for t in grads.values())
+    del g, step, state, loss_fn, gen
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"params": {k: v.cpu() for k, v in params.items()},
+                    "grads": {k: v.cpu() for k, v in grads.items()}},
+                   Path(tmp) / "trees.pt")
+        nccl = run_staging_ops(params, grads)
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--staging-child", tmp],
+            env=dict(os.environ, FLUXMPI_TPU_DISABLE_DEVICE_COLLECTIVES="1"),
+            capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        report = (json.loads((Path(tmp) / "child.json").read_text())
+                  if child.returncode == 0 else None)
+    del model, params, grads
+    torch.cuda.empty_cache()
+    if report is None:
+        failures.append(f"finetune staging: the child exited {child.returncode}")
+        print(f"finetune [host staging]: child FAILED ({child.returncode}):\n"
+              f"{child.stdout[-4000:]}\n{child.stderr[-4000:]}", flush=True)
+    else:
+        staged = report["results"]
+        paths = {op: sorted({p for o, p in report["flight"] if o == op})
+                 for op in ("allreduce", "bcast", "reduce")}
+        checks = {
+            "the child staged": report["staging"],
+            "bit-identical to NCCL": all(staged[op]["digest"] == nccl[op]["digest"]
+                                         for op in nccl),
+            "flight recorder path host": all(p == ["host"] for p in paths.values()),
+            "comm.calls path host": report["comm_calls"] == {
+                "allreduce/host": 2, "bcast/host": 1, "reduce/host": 1},
+        }
+        stats["host_staging"] = dict(values=values, nccl=nccl, staged=staged,
+                                     flight_paths=paths, comm_calls=report["comm_calls"],
+                                     child_seconds=child_s, checks=checks)
+        print(f"finetune [host staging]: {values} gradient values "
+              f"({values * 4 / 1e6:.1f} MB f32); seconds per op, NCCL vs staged "
+              f"(FLUXMPI_TPU_DISABLE_DEVICE_COLLECTIVES=1 child, {child_s:.1f}s in all): "
+              + ", ".join(f"{op} {nccl[op]['seconds']:.4f} vs {staged[op]['seconds']:.4f}"
+                          for op in nccl)
+              + f"; flight paths {paths}; comm.calls {report['comm_calls']}; "
+              + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items())
+              + f"; {card_line()}", flush=True)
+        failures += [f"finetune staging: {k}" for k, v in checks.items() if not v]
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"finetune: phase {stats['seconds']:.1f}s", flush=True)
+    fm.shutdown()
+    return stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -3611,6 +4131,14 @@ def run_phases(device):
     torch.cuda.empty_cache()
     zoo, zoo_failures = zoo_phase(device)
     failures += zoo_failures
+    torch.cuda.empty_cache()
+    tune, tune_failures = finetune_phase(device)
+    failures += tune_failures
+    tune_paths = {"finetune_flash_dropout": tune["flash_dropout"]["launches"],
+                  "finetune_kernel_dropout_fused": tune["kernel_dropout"]["launches"],
+                  "finetune_kernel_dropout_pipelined":
+                      tune["kernel_dropout"]["launches_pipelined"],
+                  "finetune_host_transform": tune["host_transform"]["launches"]}
     zoo_paths = {f"zoo_{kind}{'' if run == 'fused' else '_pipelined'}":
                  zoo[kind][run]["launches"] for kind in ("vit", "unet")
                  for run in ("pipelined", "fused")}
@@ -3618,6 +4146,10 @@ def run_phases(device):
     def zoo_rows(rows, keys):
         return {f"{r['case']} {r['dtype']}": {k: r.get(k) for k in keys}
                 for r in rows if r["case"] in ZOO_TABLE_CASES}
+
+    def dropout_rows(rows, keys):
+        return {f"{r['case']} {r['dtype']}": {k: r.get(k) for k in keys}
+                for r in rows if r["case"] in DROPOUT_TABLE_CASES}
 
     fwd_row = next(r for r in rows if r["case"] == "decode_1024" and r["dtype"] == "float32")
     fwd_train = next(r for r in rows if r["case"] == "train_1024" and r["dtype"] == "float32")
@@ -3634,6 +4166,7 @@ def run_phases(device):
                      + fused["fused"]["launches"]["flash_fwd"]
                      + telem["planes_on"]["launches"]["flash_fwd"]
                      + sum(n["flash_fwd"] for n in zoo_paths.values())
+                     + sum(n["flash_fwd"] for n in tune_paths.values())
                      + sum(plane["launches"].values())),
         "launches_by_path": {"serve": stats["launches"], **plane["launches"],
                              "train": train["launches"]["flash_fwd"],
@@ -3645,7 +4178,8 @@ def run_phases(device):
                              "train_bf16_fused": fused["fused"]["launches"]["flash_fwd"],
                              "train_bf16_telemetry":
                                  telem["planes_on"]["launches"]["flash_fwd"],
-                             **{p: n["flash_fwd"] for p, n in zoo_paths.items()}},
+                             **{p: n["flash_fwd"] for p, n in zoo_paths.items()},
+                             **{p: n["flash_fwd"] for p, n in tune_paths.items()}},
         "max_abs_err": max(max(r["err_out"], r["err_lse"]) for r in rows),
         "ms": fwd_row["ms"], "plain_ms": fwd_row["plain_ms"],
         "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
@@ -3658,6 +4192,8 @@ def run_phases(device):
         "dropout_mask_equal": masks["flash_fwd"],
         "zoo_cases": zoo_rows(rows, ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                      "err_out", "err_lse")),
+        "dropout_cases": dropout_rows(rows, ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "err_out", "err_lse")),
         "cases": rows,
     }]
     for kname, key, errs in (("flash_bwd_dq", "dq", ("dq",)),
@@ -3672,7 +4208,8 @@ def run_phases(device):
                          + bf16["remat"]["dots"]["launches"][kname]
                          + fused["fused"]["launches"][kname]
                          + telem["planes_on"]["launches"][kname]
-                         + sum(n[kname] for n in zoo_paths.values())),
+                         + sum(n[kname] for n in zoo_paths.values())
+                         + sum(n[kname] for n in tune_paths.values())),
             "launches_by_path": {"train": train["launches"][kname],
                                  "train_bf16": bf16["launches"][kname],
                                  "train_bf16_remat":
@@ -3682,7 +4219,8 @@ def run_phases(device):
                                  "train_bf16_fused": fused["fused"]["launches"][kname],
                                  "train_bf16_telemetry":
                                      telem["planes_on"]["launches"][kname],
-                                 **{p: n[kname] for p, n in zoo_paths.items()}},
+                                 **{p: n[kname] for p, n in zoo_paths.items()},
+                                 **{p: n[kname] for p, n in tune_paths.items()}},
             "max_abs_err": max(r["err"][e] for r in bwd_rows for e in errs),
             "ms": bwd_main[f"{key}_ms"],
             # The plain version computes dQ, dK and dV in one pass; the
@@ -3701,6 +4239,9 @@ def run_phases(device):
             "zoo_cases": zoo_rows(bwd_rows, (f"{key}_ms", "plain_ms", f"{key}_bound_ms",
                                              f"{key}_bound_by", "library_ms", "dterm_ms",
                                              "rel_err")),
+            "dropout_cases": dropout_rows(bwd_rows, (f"{key}_ms", "plain_ms",
+                                                     f"{key}_bound_ms", "dterm_ms",
+                                                     "rel_err")),
             "cases": [{k: r[k] for k in ("case", "dtype", "err", "rel_err", "ok",
                                          f"{key}_ms", f"{key}_bound_ms")}
                       for r in bwd_rows],
@@ -3708,8 +4249,11 @@ def run_phases(device):
     return kernels, {"slice": stats, "serving_plane": plane, "train": train,
                      "train_bf16": bf16,
                      "train_bf16_fused": fused, "train_bf16_telemetry": telem,
-                     "vision": vision, "zoo": zoo}, failures
+                     "vision": vision, "zoo": zoo, "finetune": tune}, failures
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--staging-child"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(staging_child(sys.argv[2]))
     sys.exit(main())

@@ -18,14 +18,28 @@ CPU, a gloo group beside NCCL on the card), so they never touch the card.
 :func:`cpu` and :func:`device` move tensors and numpy arrays between the
 host and the worker's device.
 
+Host staging (the reference's CPU-staging fallback for CUDA-unaware MPI):
+with ``config.DEVICE_COLLECTIVES_DISABLED`` set (the
+``disable_device_collectives`` preference, or
+``FLUXMPI_TPU_DISABLE_DEVICE_COLLECTIVES=1`` before import),
+:func:`allreduce`, :func:`bcast`, :func:`reduce`, :func:`iallreduce` and
+:func:`~fluxmpi_tpu_torch.synchronize` copy each flat buffer to host
+memory (pinned on the card), run the collective over the runtime's gloo
+group and copy the result back to the caller's device and dtype; the same
+values as the device path, recorded under path ``host``. ``donate=True``
+then warns that it has no effect, and :func:`iallreduce` completes before
+it returns.
+
 Each collective checks its fault site (``comm.allreduce``, ``comm.bcast``,
-``comm.reduce``, ``comm.barrier``, ``comm.host_*``) before it runs.
+``comm.reduce``, ``comm.barrier``, ``comm.host_*``) before it runs, and
+before any staging.
 
 Each also records, as the JAX package's do: ``comm.calls``,
 ``comm.bytes`` (this worker's payload) and ``comm.block_seconds`` (the
 host's time inside the call) by ``op`` and ``path`` (``device`` for the
-collectives over the worker's device, ``host`` for ``barrier`` and the
-``host_*`` collectives) into the default telemetry registry, a
+collectives over the worker's device, ``host`` for the staged ones,
+``barrier`` and the ``host_*`` collectives) into the default telemetry
+registry, a
 flight-recorder entry (begun before the call, completed after it, so a
 rank hung in a collective names it), and a ``comm.<op>`` trace event.
 :func:`iallreduce` and :func:`ibcast` begin their entry at the launch
@@ -41,13 +55,14 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import time
+import warnings
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
-from . import faults
+from . import config, faults
 from .errors import CollectiveError
 from .runtime import _require_init, _state, resolve_device
 from .telemetry import get_registry as _telemetry_registry
@@ -171,12 +186,53 @@ def fused(tree: Any, fn: Callable[[torch.Tensor], None]) -> Any:
     return packed.finish()
 
 
-def _collective(x: Any, fn: Callable[[torch.Tensor], None], donate: bool) -> Any:
-    """Run the in-place collective ``fn(flat)`` over ``x``: on one
-    flat buffer per dtype (a new result tree), or, with ``donate=True``,
-    on each leaf in place (one collective per leaf, no copy; ``x`` itself
-    is returned, its leaves contiguous tensors on the worker's device)."""
+def _staging() -> bool:
+    """Do the eager collectives stage through host memory?"""
+    return bool(config.DEVICE_COLLECTIVES_DISABLED)
+
+
+def _host_buffer(flat: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``flat``: pinned when it comes from the card."""
+    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=flat.is_cuda)
+    host.copy_(flat)
+    return host
+
+
+def staged(tree: Any, fn: Callable[..., None]) -> Any:
+    """:func:`fused` through host memory: each flat buffer is copied to a
+    (pinned) host buffer, ``fn(host, group=...)`` runs over the runtime's
+    gloo group there, and the result is copied back; returns the tree of
+    results, each leaf on its own device and dtype."""
+    packed = _Packed(tree, _state.device)
+    for flat in packed.flats:
+        host = _host_buffer(flat)
+        _run(host, lambda h: fn(h, group=_state.host_group))
+        flat.copy_(host)
+    return packed.finish()
+
+
+def eager(tree: Any, fn: Callable[..., None]) -> Any:
+    """``fn(flat, group=None)`` over ``tree``'s flat buffers on the
+    worker's device group, or through host memory under host staging
+    (:func:`staged`)."""
+    return staged(tree, fn) if _staging() else fused(tree, fn)
+
+
+def _collective(x: Any, fn: Callable[..., None], donate: bool) -> Any:
+    """Run the in-place collective ``fn(flat, group=None)`` over ``x``: on
+    one flat buffer per dtype (a new result tree), or, with
+    ``donate=True``, on each leaf in place (one collective per leaf, no
+    copy; ``x`` itself is returned, its leaves contiguous tensors on the
+    worker's device). Under host staging the buffers go through host
+    memory and ``donate=True`` warns that it has no effect."""
     dev = _state.device
+    if _staging():
+        if donate:
+            warnings.warn(
+                "donate=True has no effect with device collectives disabled: "
+                "the host-staging path copies through host memory (no "
+                "in-place reuse)", stacklevel=5)
+        return staged(x, fn)
     if donate:
         leaves = pytree.tree_leaves(x)
         for leaf in leaves:
@@ -298,6 +354,10 @@ def _mean_fix(flat: torch.Tensor, world: int) -> None:
         flat.floor_divide_(world)
 
 
+def _path() -> str:
+    return "host" if _staging() else "device"
+
+
 def allreduce(x: Any, op: str = "sum", *, donate: bool = False) -> Any:
     """Every worker gets the reduction (``sum``, ``prod``, ``min``,
     ``max`` or ``mean``) of all workers' values. ``donate=True`` reduces
@@ -309,12 +369,12 @@ def allreduce(x: Any, op: str = "sum", *, donate: bool = False) -> Any:
         faults.check("comm.allreduce")
     world = _state.world
 
-    def run(flat):
-        dist.all_reduce(flat, op=_REDUCE_OPS[op])
+    def run(flat, group=None):
+        dist.all_reduce(flat, op=_REDUCE_OPS[op], group=group)
         if op == "mean":
             _mean_fix(flat, world)
 
-    return _instrumented("allreduce", "device", lambda: _tree_nbytes(x),
+    return _instrumented("allreduce", _path(), lambda: _tree_nbytes(x),
                          lambda: _collective(x, run, donate))
 
 
@@ -326,8 +386,10 @@ def bcast(x: Any, root: int = 0, *, donate: bool = False) -> Any:
     if faults.ARMED:
         faults.check("comm.bcast")
     return _instrumented(
-        "bcast", "device", lambda: _tree_nbytes(x),
-        lambda: _collective(x, lambda flat: dist.broadcast(flat, src=root), donate))
+        "bcast", _path(), lambda: _tree_nbytes(x),
+        lambda: _collective(
+            x, lambda flat, group=None: dist.broadcast(flat, src=root, group=group),
+            donate))
 
 
 def reduce(x: Any, op: str = "sum", root: int = 0, *,
@@ -343,18 +405,18 @@ def reduce(x: Any, op: str = "sum", root: int = 0, *,
         faults.check("comm.reduce")
     world, rank = _state.world, _state.rank
 
-    def run(flat):
+    def run(flat, group=None):
         # An all-reduce whose result only the root keeps: a rooted reduce
         # may use the other workers' buffers as scratch, which their
         # donated inputs forbid.
         own = None if rank == root else flat.clone()
-        dist.all_reduce(flat, op=_REDUCE_OPS[op])
+        dist.all_reduce(flat, op=_REDUCE_OPS[op], group=group)
         if own is not None:
             flat.copy_(own)
         elif op == "mean":
             _mean_fix(flat, world)
 
-    return _instrumented("reduce", "device", lambda: _tree_nbytes(x),
+    return _instrumented("reduce", _path(), lambda: _tree_nbytes(x),
                          lambda: _collective(x, run, donate))
 
 
@@ -423,7 +485,12 @@ def _start(op_name: str, x: Any, fn: Callable[[torch.Tensor], Any],
 def iallreduce(x: Any, op: str = "sum") -> tuple[Any, Request]:
     """Non-blocking all-reduce: returns ``(value, request)`` at once; the
     value holds the reduction once ``request.wait()`` returns (the
-    reference's ``Iallreduce!``)."""
+    reference's ``Iallreduce!``). Under host staging it is the blocking
+    staged :func:`allreduce`, complete when it returns (as the JAX
+    package's ``iallreduce`` is its ``allreduce``)."""
+    if _staging():
+        out = allreduce(x, op)
+        return out, Request(out)
     _require_init()
     op = _canonical_op(op)
     if faults.ARMED:

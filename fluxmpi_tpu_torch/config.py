@@ -7,11 +7,14 @@ names, so that one user's preferences read alike in both packages.
 Preferences are stored in a JSON file next to the consuming project
 (``./LocalPreferences.json``), under the ``"fluxmpi_tpu"`` namespace,
 overridable via ``FLUXMPI_TPU_PREFS`` and per-key env vars
-``FLUXMPI_TPU_<KEY>``. The port reads and writes every key, but its
-collectives do not act on ``disable_device_collectives``: they always run
-over the worker's device group (NCCL on the card), as the JAX package's
-host-staging path is not ported. The axis-name keys name the
-data-parallel axis, which the port's one-axis world only spells.
+``FLUXMPI_TPU_<KEY>``. ``disable_device_collectives`` (read once at import
+into :data:`DEVICE_COLLECTIVES_DISABLED`; also
+``FLUXMPI_TPU_DISABLE_DEVICE_COLLECTIVES=1``) makes the eager collectives
+and ``synchronize`` stage through host memory over a gloo group instead of
+running over the worker's device group (the reference's CPU-staging
+fallback for CUDA-unaware MPI; :mod:`fluxmpi_tpu_torch.comm`). The
+axis-name keys name the data-parallel axis, which the port's one-axis
+world only spells.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ _DEPRECATED_ENV = "FLUXMPI_DISABLE_CUDAMPI_SUPPORT"
 
 _DEFAULTS: dict[str, Any] = {
     # Force eager collectives to stage via the host (the reference's
-    # CPU-staging path; read by the JAX package, recorded by the port).
+    # CPU-staging path).
     "disable_device_collectives": False,
     # Donate parameter/optimizer buffers in compiled train steps.
     "donate_buffers": True,
@@ -118,12 +121,12 @@ def delete_preference(key: str) -> None:
 
 def disable_device_collectives() -> None:
     """Persist the opt-out of device collectives
-    (``FluxMPI.disable_cudampi_support()``) for the JAX package's next
-    session; the port's collectives stay on the device group."""
+    (``FluxMPI.disable_cudampi_support()``): the next session's eager
+    collectives stage through host memory."""
     set_preference("disable_device_collectives", True)
     warnings.warn(
-        "Device collectives disabled for future fluxmpi_tpu sessions; "
-        "fluxmpi_tpu_torch's collectives do not stage through the host.",
+        "Device collectives disabled for future sessions; restart Python "
+        "for the host-staging path to take effect.",
         stacklevel=2,
     )
 
@@ -164,8 +167,8 @@ def _warn_deprecated_env() -> None:
     if _DEPRECATED_ENV in os.environ:
         warnings.warn(
             f"`{_DEPRECATED_ENV}` is ignored. Use "
-            "`fluxmpi_tpu_torch.config.disable_device_collectives()` to record "
-            "the opt-out of device collectives.",
+            "`fluxmpi_tpu_torch.config.disable_device_collectives()` to stage "
+            "the collectives through host memory.",
             stacklevel=2,
         )
 

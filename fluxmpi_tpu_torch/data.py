@@ -14,10 +14,20 @@ device memory once (cached across epochs), copies each epoch's
 permutation once, and takes each batch as an index slice of the
 permutation and a gather per leaf on the device (:func:`_gather_batch`,
 the one copy of that math, which the fused training window runs too):
-no per-batch host work. Otherwise batches are assembled on the host with
-numpy, staged in pinned memory and copied to the device with
-``non_blocking`` copies, ``prefetch`` batches ahead. Both yield the same
-batches.
+no per-batch host work. Otherwise batches are assembled on the host: an
+array-backed dataset's whole batches by the C++ prefetcher
+(:class:`fluxmpi_tpu_torch.io.NativePrefetcher`, one per array leaf,
+building the next batches on its own threads; the ragged tail by
+:func:`fluxmpi_tpu_torch.io.gather_rows`), any other dataset's sample by
+sample with numpy; then staged in pinned memory and copied to the device
+with ``non_blocking`` copies, ``prefetch`` batches ahead. Every path
+yields the same batches.
+
+``transform=`` runs a host-side hook on every assembled host batch:
+``transform(batch)`` or ``transform(batch, rng)``, the ``rng``
+``np.random.default_rng([seed, epoch, b, rank])`` keyed by the absolute
+batch index ``b`` of the epoch, so a resumed pass draws what the
+uninterrupted one drew. A transformed dataset keeps the host path.
 
 Each batch crosses the fault site ``data.fetch`` once it is assembled
 (:mod:`fluxmpi_tpu_torch.faults`), is a watchdog progress tick, and, with
@@ -26,12 +36,12 @@ telemetry on, is timed into ``data.batch_fetch_seconds`` and a
 behind each yield), as in the JAX package.
 
 Not ported yet (each raises ``NotImplementedError`` when asked for):
-``elastic_order``, ``transform=``, the elastic cursor remap on a changed
-world, and the C++ prefetcher.
+``elastic_order`` and the elastic cursor remap on a changed world.
 """
 
 from __future__ import annotations
 
+import inspect
 import math
 import os
 import time
@@ -44,6 +54,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from . import faults, runtime
+from .io import NativePrefetcher, gather_rows
 from .telemetry import get_registry as _telemetry_registry
 from .telemetry import tracing as _tracing
 from .telemetry.watchdog import notify_progress
@@ -171,6 +182,48 @@ class DistributedDataContainer:
             yield self[i]
 
 
+def _transform_arity(transform: Any, with_rng: bool | None) -> int:
+    """0 without a transform; else 2 when it takes ``(batch, rng)``, 1 when
+    ``(batch)``: the explicit flag, then the callable's own
+    ``transform_with_rng`` attribute, then its signature (two or more
+    required positional parameters)."""
+    if transform is None:
+        if with_rng is not None:
+            raise ValueError("transform_with_rng given without transform")
+        return 0
+    if not callable(transform):
+        raise ValueError("transform must be callable")
+    if with_rng is None:
+        with_rng = getattr(transform, "transform_with_rng", None)
+    if with_rng is not None:
+        return 2 if with_rng else 1
+    try:
+        params = inspect.signature(transform).parameters.values()
+        # Only required positional parameters decide the call shape:
+        # f(batch, eps=1e-6) or f(batch, *, training=False) takes no rng.
+        required = sum(1 for p in params
+                       if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
+                       and p.default is p.empty)
+    except (TypeError, ValueError):  # builtins, C callables
+        warnings.warn(
+            "transform signature is not inspectable; assuming "
+            "transform(batch) without an rng. Pass "
+            "transform_with_rng= (or set a transform_with_rng "
+            "attribute on the callable) to declare its call "
+            "shape explicitly.",
+            stacklevel=3,
+        )
+        required = 1
+    return 2 if required >= 2 else 1
+
+
+def _lead_dims(tree: Any) -> dict[str, int | None]:
+    """Each leaf's leading dimension by its path (None for a 0-d leaf)."""
+    pairs, _ = pytree.tree_flatten_with_path(tree)
+    return {pytree.keystr(path): (np.shape(x)[0] if np.ndim(x) else None)
+            for path, x in pairs}
+
+
 def _stack_samples(samples: Sequence[Any]) -> Any:
     leaves = [pytree.tree_flatten(s)[0] for s in samples]
     spec = pytree.tree_flatten(samples[0])[1]
@@ -202,6 +255,18 @@ class DistributedDataLoader:
     not array-backed; falls back to the host path in a world of several
     workers); ``False`` keeps the host path. A ragged trailing batch
     (``drop_last=False``) is always assembled on the host.
+
+    ``transform``: an optional host-side hook applied to each assembled
+    local batch (a tree of numpy arrays) before it moves to the device:
+    ``transform(batch)``, or ``transform(batch, rng)`` with ``rng =
+    np.random.default_rng([seed, epoch, b, rank])`` for batch ``b`` of the
+    epoch (absolute, so a resumed pass reproduces the uninterrupted one).
+    It must keep every leaf's leading (batch) dimension. A transform keeps
+    the host path: ``device_gather="auto"`` then does not engage, and
+    ``device_gather=True`` beside it raises. ``transform_with_rng``
+    declares the call shape (``True``: two arguments); by default a
+    ``transform_with_rng`` attribute on the callable decides, then the
+    signature (two or more required positional parameters take the rng).
     """
 
     def __init__(self, data: Any, global_batch_size: int, *,
@@ -215,8 +280,6 @@ class DistributedDataLoader:
             raise ValueError(f"device_gather must be True, False, or 'auto', "
                              f"got {device_gather!r}")
         for name, val in (("elastic_order", elastic_order),
-                          ("transform", transform),
-                          ("transform_with_rng", transform_with_rng),
                           ("mesh", mesh),
                           ("axis_name", axis_name)):
             if val:
@@ -244,12 +307,19 @@ class DistributedDataLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
+        if device_gather is True and transform is not None:
+            raise ValueError(
+                "device_gather=True is incompatible with transform= "
+                "(transforms run on host numpy batches); use "
+                "device_gather=False or 'auto'")
         if device_gather is True and self._array_backing() is None:
             raise ValueError(
                 "device_gather=True requires an array-backed dataset "
                 "(ArrayDataset, optionally inside a "
                 "DistributedDataContainer)")
         self.device_gather = device_gather
+        self.transform = transform
+        self._transform_arity = _transform_arity(transform, transform_with_rng)
         # (arrays object, staged tensors): the stage-once half of the
         # device-gather path, keyed by identity.
         self._gather_cache: tuple[Any, Any] | None = None
@@ -373,6 +443,8 @@ class DistributedDataLoader:
         docstring)."""
         if self.device_gather is False or backing is None:
             return False
+        if self.transform is not None:
+            return False
         if self.world > 1:
             # Each worker's batch is its own shard's: the device-gather
             # path (and the fused window on it) is single-process, as in
@@ -416,16 +488,35 @@ class DistributedDataLoader:
         self._cursor = start
         return order, source, offset, start
 
+    def _transformed(self, batch: Any, epoch: int, b: int) -> Any:
+        """``batch`` (batch ``b`` of ``epoch``) through the transform, its
+        leaves' leading dimensions checked."""
+        if self.transform is None:
+            return batch
+        before = _lead_dims(batch)
+        if self._transform_arity == 2:
+            rng = np.random.default_rng([self.seed, epoch, b, _world()[0]])
+            out = self.transform(batch, rng)
+        else:
+            out = self.transform(batch)
+        after = _lead_dims(out)
+        if before != after:
+            raise ValueError(
+                "transform must preserve every leaf's leading (batch) "
+                f"dimension; got {after} from {before}")
+        return out
+
     def _batches(self) -> Iterator[Any]:
         """This pass's batches: device-gathered (on the device already)
-        or host-assembled (numpy, moved by :meth:`_to_device`), tagged by
-        ``on_device``."""
+        or host-assembled (numpy, transformed, moved by
+        :meth:`_to_device`), tagged by ``on_device``."""
         order, source, offset, start = self._begin_pass()
+        epoch = self._iter_epoch
         lbs = self.local_batch_size
+        full = self._common_len // lbs
         backing = self._array_backing()
         if backing is not None and self._use_device_gather(backing):
             arrays, offset = backing
-            full = self._common_len // lbs
             if full > start:
                 staged = self._staged(arrays)
                 perm = self._device_perm(order, offset, full * lbs)
@@ -433,17 +524,29 @@ class DistributedDataLoader:
                     at = torch.full((), b * lbs, dtype=torch.int64, device=self.device)
                     yield True, _gather_batch(staged, perm, at, lbs)
             start = max(start, full)
-        arrays = None
         if offset is not None:
+            # Array-backed host path: one C++ prefetcher per leaf serves
+            # the whole batches; the ragged tail (drop_last=False) is one
+            # direct gather, so the epoch yields len(self) batches.
             arrays = (source.arrays if isinstance(source, ArrayDataset)
                       else source.data.arrays)
+            leaves, spec = pytree.tree_flatten(arrays)
+            if full > start:
+                rows = order[start * lbs:full * lbs] + offset
+                prefetchers = [iter(NativePrefetcher(leaf, rows, lbs)) for leaf in leaves]
+                for b, parts in enumerate(zip(*prefetchers), start):
+                    yield False, self._transformed(
+                        pytree.tree_unflatten(list(parts), spec), epoch, b)
+            if len(self) > full and start <= full:
+                rows = order[full * lbs:self._common_len] + offset
+                yield False, self._transformed(
+                    pytree.tree_unflatten([gather_rows(leaf, rows) for leaf in leaves],
+                                          spec), epoch, full)
+            return
         for b in range(start, len(self)):
             idxs = order[b * lbs:min((b + 1) * lbs, self._common_len)]
-            if arrays is not None:
-                rows = idxs + offset
-                yield False, pytree.tree_map(lambda a: a[rows], arrays)
-            else:
-                yield False, _stack_samples([source[int(i)] for i in idxs])
+            yield False, self._transformed(
+                _stack_samples([source[int(i)] for i in idxs]), epoch, b)
 
     # -- fused-window pass (train_loop fuse="window") -------------------
     #
@@ -495,7 +598,7 @@ class DistributedDataLoader:
         cuda = self.device.type == "cuda"
 
         def move(a):
-            t = torch.from_numpy(np.ascontiguousarray(a))
+            t = torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
             if cuda:
                 return t.pin_memory().to(self.device, non_blocking=True)
             return t

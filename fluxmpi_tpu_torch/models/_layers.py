@@ -346,14 +346,20 @@ def dot_product_attention(query, key, value, mask=None, *, dropout_rng=None,
     ``softmax(q / sqrt(d) . k^T)`` in ``dtype`` (default the query's),
     where ``mask`` (broadcastable to ``[b, h, sq, sk]``, True = attend) is
     False the score is the dtype's lowest finite value, then the weights
-    (rounded to ``dtype``) times the values. Dropout (``dropout_rate > 0`` and not ``deterministic``) draws
-    from flax's random stream, which the port cannot reproduce: it raises
-    ``NotImplementedError``."""
-    if dropout_rate > 0.0 and not deterministic:
-        raise NotImplementedError(
-            "attention dropout in flax's dense dot_product_attention draws its "
-            "keep mask from flax's random stream (dropout_rng), which the port "
-            "cannot reproduce; train with dropout=0.0, or call with train=False")
+    (rounded to ``dtype``) times the values.
+
+    Dropout (``dropout_rate > 0`` and not ``deterministic``), as flax's
+    ``dot_product_attention_weights`` with its default
+    ``broadcast_dropout=True``: one Bernoulli(``1 - dropout_rate``) keep
+    mask of shape ``[sq, sk]``, shared by every batch row and head, drawn
+    from the ``torch.Generator`` ``dropout_rng`` (on the weights' device;
+    required, as flax requires a ``"dropout"`` rng), and the weights times
+    ``keep / keep_prob`` in ``dtype``. flax draws its mask from its own
+    random stream, which the port cannot reproduce: the two agree in law
+    (the keep rate, the scaling, the shared shape), not bit for bit. A CUDA
+    generator is noted for CUDA-graph windows
+    (:func:`~fluxmpi_tpu_torch.runtime.note_graph_generator`), so each
+    replay draws a fresh mask."""
     dtype = dtype or query.dtype
     q = query.to(dtype) / math.sqrt(query.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q, key.to(dtype))
@@ -361,6 +367,17 @@ def dot_product_attention(query, key, value, mask=None, *, dropout_rng=None,
         s = torch.where(torch.as_tensor(mask, device=s.device).to(torch.bool), s,
                         torch.finfo(dtype).min)
     w = torch.softmax(s, dim=-1).to(dtype)
+    if dropout_rate > 0.0 and not deterministic:
+        if dropout_rng is None:
+            raise ValueError("dropout_rate > 0 with deterministic=False needs a "
+                             "dropout_rng (a torch.Generator on the weights' "
+                             "device), as flax needs a 'dropout' rng")
+        from ..runtime import note_graph_generator
+
+        note_graph_generator(dropout_rng)
+        keep_prob = 1.0 - dropout_rate
+        keep = torch.rand(w.shape[-2:], generator=dropout_rng, device=w.device) < keep_prob
+        w = w * (keep.to(dtype) / torch.tensor(keep_prob, dtype=dtype, device=w.device))
     return torch.einsum("bhqk,bkhd->bqhd", w, value.to(dtype))
 
 

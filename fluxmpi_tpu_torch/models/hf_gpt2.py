@@ -43,7 +43,8 @@ def lm_from_gpt2(hf_model, *, device=None) -> tuple[TransformerLM, dict]:
     ``resid_pdrop`` carried into its ``dropout`` field (0.1 on stock GPT-2;
     ``TransformerLM`` has one rate, so an ``embd_pdrop``/``attn_pdrop``
     that differs from it converts with a ``UserWarning``). Inference
-    (``train=False``, ``generate``, the serving engine) ignores the rate.
+    (``train=False``, ``generate``, the serving engine) ignores the rate;
+    fine-tuning passes ``TransformerLM.forward(dropout_rng=)``.
     ``variables`` is the flax-layout tree (numpy float32 leaves) that
     :func:`~fluxmpi_tpu_torch.models.load_flax_params` takes, so
     ``model, variables = lm_from_gpt2(hf)`` reads as in the JAX package.

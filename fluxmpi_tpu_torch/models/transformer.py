@@ -109,17 +109,25 @@ class EncoderBlock(nn.Module):
         the dense MLP."""
         return None
 
-    def forward(self, x, *, train: bool = True, mask=None):
-        return self.run(x, train=train, mask=mask)[0]
+    def forward(self, x, *, train: bool = True, mask=None, dropout_rng=None):
+        return self.run(x, train=train, mask=mask, dropout_rng=dropout_rng)[0]
 
     def run(self, x, *, train=True, mask=None, mode=None, cache=None, pos=None,
-            segments=None):
+            segments=None, dropout_rng=None):
         """The block with the attention ``mode`` (default the block's own:
         ``"flash"``, ``"fn"`` for its ``attention_fn``, ``"naive"``).
         With ``cache`` (this layer's ``(k, v)`` ``[b, T, h, hd]``), one
         decode position per row at ``pos [b]``, written into the cache in
         place, attending where ``segments = (q_seg [b, 1], kv_seg [b, T])``
-        allow. Returns ``(y, k, v)`` with the new K/V."""
+        allow. Returns ``(y, k, v)`` with the new K/V.
+
+        Attention dropout in training (``dropout > 0``, ``train=True``)
+        draws from the ``torch.Generator`` ``dropout_rng`` (flax's
+        ``rngs={"dropout": key}``): the dense attend drops its weights
+        (:func:`~fluxmpi_tpu_torch.models._layers.dot_product_attention`),
+        an ``attention_fn`` gets ``dropout_rng``/``dropout_rate``/
+        ``deterministic`` when its signature names them, and ``"flash"``
+        gets the mask alone (flax's keyword filter), so it never drops."""
         mode = mode or self.mode
         q, k, v = self.attn.project(self.ln1(x, self.dtype))
         if cache is not None:
@@ -135,7 +143,8 @@ class EncoderBlock(nn.Module):
             o = flash_attention_fn(causal=self.attention_causal)(q, k, v, mask=mask)
         else:
             fn = self.attention_fn if mode == "fn" else dot_product_attention
-            o = self.attn.attend(fn, q, k, v, mask=mask, deterministic=not train)
+            o = self.attn.attend(fn, q, k, v, mask=mask, deterministic=not train,
+                                 dropout_rng=dropout_rng)
         x = x + self.attn.out(o, self.dtype)
         h = self.ln2(x, self.dtype)
         if self.ff is not None:
@@ -147,9 +156,11 @@ class EncoderBlock(nn.Module):
 class TransformerEncoder(nn.Module):
     """Pre-LN encoder stack over embedded inputs ``[b, s, d_model]``
     (:class:`fluxmpi_tpu.models.transformer.TransformerEncoder`, the same
-    fields): ``forward(x, *, train=True, mask=None)`` casts ``x`` to
-    ``dtype``, runs the blocks (``mask``: a flax boolean mask broadcastable
-    to ``[b, heads, s, s]``) and returns the final LayerNorm in f32.
+    fields): ``forward(x, *, train=True, mask=None, dropout_rng=None)``
+    casts ``x`` to ``dtype``, runs the blocks (``mask``: a flax boolean mask
+    broadcastable to ``[b, heads, s, s]``; ``dropout_rng`` as
+    :meth:`EncoderBlock.run` takes it) and returns the final LayerNorm in
+    f32.
     ``make_block(i)`` is the hook for another block type. Weights from the
     CPU ``generator`` (default seeded with 0) on ``device`` (default
     CUDA)."""
@@ -183,11 +194,12 @@ class TransformerEncoder(nn.Module):
                             self.attention_causal, self.ln_eps, device=self.device,
                             generator=self._generator)
 
-    def forward(self, x, *, train: bool = True, mask=None):
-        return self.run(x.to(self.dtype), train=train, mask=mask)[0]
+    def forward(self, x, *, train: bool = True, mask=None, dropout_rng=None):
+        return self.run(x.to(self.dtype), train=train, mask=mask,
+                        dropout_rng=dropout_rng)[0]
 
     def run(self, x, *, train=True, mask=None, mode=None, cache=None, pos=None,
-            segments=None):
+            segments=None, dropout_rng=None):
         """The stack (arguments as :meth:`EncoderBlock.run`, ``cache`` the
         ``(k, v)`` of every layer). Returns ``(hidden, ks, vs)``: the
         final-LN output (f32) and each layer's new K/V."""
@@ -196,7 +208,7 @@ class TransformerEncoder(nn.Module):
             layer_cache = None if cache is None else (cache[0][i], cache[1][i])
             x, k, v = getattr(self, f"block_{i}").run(
                 x, train=train, mask=mask, mode=mode, cache=layer_cache, pos=pos,
-                segments=segments)
+                segments=segments, dropout_rng=dropout_rng)
             ks.append(k)
             vs.append(v)
         return self.ln_out(x, torch.float32), ks, vs
@@ -208,8 +220,8 @@ class TransformerLM(nn.Module):
     Weights are drawn from the CPU ``generator`` (default: a fresh
     ``torch.Generator`` seeded with 0) and live on ``device``
     (default CUDA; ``"cpu"`` only when asked). ``dropout`` is the
-    attention dropout rate of the JAX module; training with it is not
-    ported (see :meth:`forward`). ``attention_fn`` (e.g.
+    attention dropout rate of the JAX module; training with it takes a
+    ``dropout_rng`` (see :meth:`forward`). ``attention_fn`` (e.g.
     :func:`~fluxmpi_tpu_torch.ops.flash_attention_fn` with ``causal=True``)
     takes the training forward's attention under flax's causal mask, as in
     JAX; cached decoding bypasses it, and ``attention="flash"`` beside it
@@ -266,7 +278,7 @@ class TransformerLM(nn.Module):
     def forward(self, tokens, *, train: bool = True, targets=None,
                 loss_chunk: int = 8192, hidden: bool = False,
                 pos_offset=None, kv_cache=None, attention: str | None = None,
-                return_kv: bool = False):
+                return_kv: bool = False, dropout_rng=None):
         """Logits ``[b, s, vocab]`` for int tokens ``[b, s]``: f32, or bf16
         in a bf16 model (bf16 operands, f32 accumulation, bf16 logits, as
         flax's ``Embed.attend`` gives them).
@@ -281,11 +293,19 @@ class TransformerLM(nn.Module):
         each layer's K/V stacked as ``[layers, b, s, heads, head_dim]``
         (what the decode cache banks).
 
-        ``train=True`` with ``dropout > 0`` raises: the JAX LM then drops
-        attention weights in flax's dense attend with flax's random stream,
-        which no port can reproduce (with ``attention="flash"`` flax passes
-        its ``flash_attention_fn`` the mask alone, so it trains without
-        attention dropout; the port refuses both).
+        ``train=True`` with ``dropout > 0`` needs ``dropout_rng``, a
+        ``torch.Generator`` on the model's device (the JAX LM's
+        ``rngs={"dropout": key}``; without it a ``ValueError``, as flax
+        raises without the rng), and drops as the JAX LM does:
+        ``attention="naive"`` in flax's dense attend (one ``[s, s]`` keep
+        mask per layer shared across batch and heads; equal to JAX in law,
+        not bit for bit, since flax's random stream cannot be reproduced);
+        ``attention="flash"`` not at all, because flax's keyword filter
+        hands ``flash_attention_fn`` no rate (the loss and gradients equal
+        a ``dropout=0.0`` model's); an ``attention_fn`` whose signature
+        names ``dropout_rng``, ``dropout_rate`` and ``deterministic`` gets
+        them, and may drop in the kernels
+        (``flash_attention(dropout_rate=, dropout_seed=)``).
 
         With ``kv_cache=(k, v)``: cached decoding, ``s == 1``; row ``i``'s
         token sits at position ``pos_offset[i]``, its K/V are written there
@@ -297,13 +317,11 @@ class TransformerLM(nn.Module):
                                  "kv_cache is inference")
             with torch.no_grad():
                 return self._decode(tokens, pos_offset, kv_cache, attention)
-        if train and self.dropout > 0:
-            raise NotImplementedError(
-                "training TransformerLM with dropout > 0 is not ported: the "
-                "JAX LM then takes flax's dense attention fallback with "
-                "flax's random stream (flash_attention_fn dropout_impl="
-                "'dense'), which the port cannot reproduce; train with "
-                "dropout=0.0, or call with train=False")
+        if train and self.dropout > 0 and dropout_rng is None:
+            raise ValueError(
+                "training TransformerLM with dropout > 0 needs dropout_rng (a "
+                "torch.Generator on the model's device), as the JAX LM needs "
+                "rngs={'dropout': key}; or call with train=False")
         if hidden and targets is not None:
             raise ValueError("pass either targets or hidden, not both")
         mode = self.attention_mode(attention)
@@ -322,7 +340,8 @@ class TransformerLM(nn.Module):
             mask = mask.expand(b, 1, s, s)
             if self.attention_fn is not None:
                 mode = "fn"
-        h, ks, vs = self.encoder.run(x, train=train, mask=mask, mode=mode)
+        h, ks, vs = self.encoder.run(x, train=train, mask=mask, mode=mode,
+                                     dropout_rng=dropout_rng)
         if hidden:
             return h, self.embed.embedding
         if targets is not None:

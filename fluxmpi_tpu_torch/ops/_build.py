@@ -33,11 +33,12 @@ _F = ctypes.c_float
 # keep_prob, dtype, stream.
 _FLASH_TAIL = [_I, _I, _I, _I, _I, _I,
                _I, _I, _I,
-               _I, _U, _U, _F,
+               _I, _P, _U, _F,
                _I, _P]
-# The C signature of every kernel entry: pointers and the stream as
-# c_void_p (a bare Python int would be cut to 32 bits), ints as c_int, the
-# dropout seed and threshold as c_uint, keep_prob as c_float.
+# The C signature of every kernel entry: pointers (the dropout seed's
+# device address among them) and the stream as c_void_p (a bare Python int
+# would be cut to 32 bits), ints as c_int, the dropout threshold as
+# c_uint, keep_prob as c_float.
 SOURCES: dict[str, list] = {
     # q k v qseg kseg o lse
     "flash_fwd": [_P] * 7 + _FLASH_TAIL,

@@ -103,7 +103,8 @@ struct Params {
   int causal, has_window, window;
   float scale;
   int dropout;
-  uint32_t seed, threshold;
+  const uint32_t* seed;  // dropout seed: one uint32 in device memory
+  uint32_t threshold;
   float keep_prob;
   int vec;             // Q, K, V and dO rows are 16-byte aligned: cp.async copies
 };
@@ -198,6 +199,8 @@ template <typename T, int DP, int BQ, int G, int NS, int S>
 __global__ void __launch_bounds__(Layout<T, DP, BQ, G, NS, S>::kThreads, 1)
     flash_bwd_dkv_kernel(Params p) {
   count_launch();
+  // The dropout seed, read once per block before the key loop.
+  const uint32_t seed = p.dropout ? __ldg(p.seed) : 0u;
   using L = Layout<T, DP, BQ, G, NS, S>;
   constexpr int LD = L::kLD, BKey = L::kBKey, kChunk = Shape<T>::kChunk;
   constexpr int W = S - 1;
@@ -398,7 +401,7 @@ __global__ void __launch_bounds__(Layout<T, DP, BQ, G, NS, S>::kThreads, 1)
               float gr = dp[j][e];
               pd = pr;
               if (p.dropout) {
-                const bool keep = dropout_keep(p.seed, (uint32_t)bh_q, (uint32_t)qp,
+                const bool keep = dropout_keep(seed, (uint32_t)bh_q, (uint32_t)qp,
                                                (uint32_t)kp, p.threshold);
                 pd = keep ? pr / p.keep_prob : 0.f;
                 gr = keep ? gr / p.keep_prob : 0.f;
@@ -493,9 +496,10 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* lse, const void* dterm, void* dk, void* dv,
                              int b, int sq, int sk, int h, int hkv, int d,
                              int causal, int has_window, int window,
-                             int dropout, unsigned int seed, unsigned int threshold,
+                             int dropout, const void* seed, unsigned int threshold,
                              float keep_prob, int dtype, void* stream) {
-  if (d < 1 || d > kMaxD || hkv < 1 || h % hkv != 0) return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > kMaxD || hkv < 1 || h % hkv != 0 || (dropout && !seed))
+    return (int)cudaErrorInvalidValue;
   if (b == 0 || sk == 0 || hkv == 0) return (int)cudaSuccess;
   Params p;
   p.q = q;
@@ -519,7 +523,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   p.window = window;
   p.scale = 1.0f / sqrtf((float)d);
   p.dropout = dropout;
-  p.seed = seed;
+  p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_prob = keep_prob;
   p.vec = 0;

@@ -60,7 +60,8 @@ struct Params {
   int causal, has_window, window;
   float scale;
   int dropout;
-  uint32_t seed, threshold;
+  const uint32_t* seed;  // dropout seed: one uint32 in device memory
+  uint32_t threshold;
   float keep_prob;
   int vec;             // K/V rows are 16-byte aligned: cp.async copies
 };
@@ -90,6 +91,8 @@ struct Layout {
 template <typename T, int DP, int G, int S>
 __global__ void __launch_bounds__(Layout<T, DP, G, S>::kThreads) flash_bwd_dq_kernel(Params p) {
   count_launch();
+  // The dropout seed, read once per block before the key loop.
+  const uint32_t seed = p.dropout ? __ldg(p.seed) : 0u;
   using L = Layout<T, DP, G, S>;
   constexpr int BK = L::kBK, LD = L::kLD, BQ = L::kBQ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -200,7 +203,7 @@ __global__ void __launch_bounds__(Layout<T, DP, G, S>::kThreads) flash_bwd_dq_ke
             const float pr = expf(s[j][e] * p.scale - lse_r[e >> 1]);
             float gr = dp[j][e];
             if (p.dropout)
-              gr = dropout_keep(p.seed, (uint32_t)bh, (uint32_t)qp, (uint32_t)kp, p.threshold)
+              gr = dropout_keep(seed, (uint32_t)bh, (uint32_t)qp, (uint32_t)kp, p.threshold)
                        ? gr / p.keep_prob : 0.f;
             ds = pr * (gr - dterm_r[e >> 1]) * p.scale;
           }
@@ -281,9 +284,10 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* lse, const void* dterm, void* dq,
                             int b, int sq, int sk, int h, int hkv, int d,
                             int causal, int has_window, int window,
-                            int dropout, unsigned int seed, unsigned int threshold,
+                            int dropout, const void* seed, unsigned int threshold,
                             float keep_prob, int dtype, void* stream) {
-  if (d < 1 || d > kMaxD || hkv < 1 || h % hkv != 0) return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > kMaxD || hkv < 1 || h % hkv != 0 || (dropout && !seed))
+    return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0 || h == 0) return (int)cudaSuccess;
   Params p;
   p.q = q;
@@ -306,7 +310,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   p.window = window;
   p.scale = 1.0f / sqrtf((float)d);
   p.dropout = dropout;
-  p.seed = seed;
+  p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_prob = keep_prob;
   p.vec = 0;

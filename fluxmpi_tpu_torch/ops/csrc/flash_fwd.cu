@@ -71,7 +71,7 @@ struct Params {
   int causal, has_window, window;
   float scale;
   int dropout;          // nonzero: apply the keep mask to the value path
-  uint32_t seed;        // dropout seed
+  const uint32_t* seed;  // dropout seed: one uint32 in device memory
   uint32_t threshold;   // keep iff hash < threshold
   float keep_prob;
   int vec;              // K/V rows are 16-byte aligned: cp.async copies
@@ -105,6 +105,8 @@ struct Layout {
 template <typename T, int DP, int G, int S>
 __global__ void __launch_bounds__(Layout<T, DP, G, S>::kThreads) flash_fwd_kernel(Params p) {
   count_launch();
+  // The dropout seed, read once per block before the key loop.
+  const uint32_t seed = p.dropout ? __ldg(p.seed) : 0u;
   using L = Layout<T, DP, G, S>;
   constexpr int BK = L::kBK, LD = L::kLD, BQ = L::kBQ, kStreams = L::kStreams;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -215,7 +217,7 @@ __global__ void __launch_bounds__(Layout<T, DP, G, S>::kThreads) flash_fwd_kerne
         for (int e = 0; e < 4; ++e) {
           const int qp = r0 + g + 8 * (e >> 1);
           const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
-          s[j][e] = dropout_keep(p.seed, (uint32_t)bh, (uint32_t)qp, (uint32_t)kp, p.threshold)
+          s[j][e] = dropout_keep(seed, (uint32_t)bh, (uint32_t)qp, (uint32_t)kp, p.threshold)
                         ? s[j][e] / p.keep_prob : 0.f;
         }
       }
@@ -380,14 +382,16 @@ cudaError_t dispatch(Params p, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
 // launch (0 = success). Allocates nothing: O and lse come from the caller.
-// dropout != 0 applies the keep mask (seed, threshold) with 1/keep_prob.
+// dropout != 0 applies the keep mask (the uint32 seed that `seed` points to
+// in device memory, threshold) with 1/keep_prob.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* qseg, const void* kseg, void* o, void* lse,
                          int b, int sq, int sk, int h, int hkv, int d,
                          int causal, int has_window, int window,
-                         int dropout, unsigned int seed, unsigned int threshold,
+                         int dropout, const void* seed, unsigned int threshold,
                          float keep_prob, int dtype, void* stream) {
-  if (d < 1 || d > kMaxD || hkv < 1 || h % hkv != 0) return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > kMaxD || hkv < 1 || h % hkv != 0 || (dropout && !seed))
+    return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0 || h == 0) return (int)cudaSuccess;
   Params p;
   p.q = q;
@@ -408,7 +412,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   p.window = window;
   p.scale = 1.0f / sqrtf((float)d);
   p.dropout = dropout;
-  p.seed = seed;
+  p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_prob = keep_prob;
   p.vec = 0;

@@ -20,7 +20,11 @@ probabilities on the value path are dropped and rescaled by
 ``1/keep_prob``, the softmax sum is not; the keep mask is the JAX
 package's counter-based murmur3 hash of ``(seed, b*h + head, q_pos,
 k_pos)`` (:func:`dropout_keep_reference`), so the port and the TPU
-kernels drop the same entries.
+kernels drop the same entries. The seed is an ``int`` or a one-element
+integer tensor holding a uint32; the kernels read it from device memory
+(as the JAX kernels read a ``[1, 128]`` uint32 operand), so a seed drawn on
+the card needs no host read and a CUDA graph that captured the call drops
+afresh whenever the seed's buffer changes.
 
 :func:`flash_attention_fn` is the ``attention_fn`` drop-in for the
 models' multi-head attention (flax's call: ``fn(query, key, value,
@@ -180,11 +184,14 @@ def _hash_final(h):
 def dropout_keep_reference(seed, bh, q_pos, k_pos, keep_prob: float):
     """The dropout keep mask (True = keep) of the JAX package's
     ``_dropout_keep``: murmur3 rounds over ``(seed, bh, q_pos, k_pos)``
-    and the finalizer, in int64 arithmetic masked to 32 bits. ``bh``,
-    ``q_pos`` and ``k_pos`` are integer tensors (or ints) that
-    broadcast."""
+    and the finalizer, in int64 arithmetic masked to 32 bits. ``seed`` is
+    an int or a one-element integer tensor (its low 32 bits; read on its
+    device); ``bh``, ``q_pos`` and ``k_pos`` are integer tensors (or ints)
+    that broadcast."""
     as64 = lambda x: torch.as_tensor(x, dtype=torch.int64) & _MASK32  # noqa: E731
-    h = _hash_mix(as64(int(seed) & _MASK32), as64(bh))
+    seed = (seed.to(torch.int64).reshape(()) if torch.is_tensor(seed)
+            else int(seed))
+    h = _hash_mix(as64(seed), as64(bh))
     h = _hash_mix(h, as64(q_pos))
     h = _hash_mix(h, as64(k_pos))
     return _hash_final(h) < dropout_threshold(keep_prob)
@@ -312,13 +319,35 @@ def _check_kernel_inputs(name, tensors, q, k, v, q_seg, kv_seg):
         raise ValueError(f"batch * heads = {b * h} exceeds the grid limit 65535")
 
 
+def _seed_tensor(seed, device) -> torch.Tensor:
+    """The dropout seed as the kernels read it: one int32 holding the
+    uint32's bits, on ``device``. An ``int`` is filled in there (a fill,
+    not a host copy, so a CUDA graph may capture it); a tensor (one
+    element, any integer dtype) is converted on its own device, with no
+    host read, so a seed drawn on the card stays there."""
+    if not torch.is_tensor(seed):
+        bits = int(seed) & _MASK32
+        return torch.full((1,), bits - (1 << 32) if bits >= 1 << 31 else bits,
+                          dtype=torch.int32, device=device)
+    s = seed.reshape(1)
+    if s.dtype != torch.int32:
+        s = s.to(torch.int64) & _MASK32
+        s = torch.where(s >= 1 << 31, s - (1 << 32), s).to(torch.int32)
+    return s.to(device)
+
+
 def _mask_args(causal, window, dropout_rate, seed):
-    """The C entries' trailing mask and dropout arguments."""
+    """The C entries' trailing mask and dropout arguments; ``seed`` is the
+    int32 tensor of :func:`_seed_tensor` (its device address is passed)."""
     keep_prob = 1.0 - float(dropout_rate)
     return (int(bool(causal)), int(window is not None),
             int(window) if window is not None else 0,
-            int(bool(dropout_rate)), int(seed) & _MASK32,
+            int(bool(dropout_rate)), _ptr(seed) if dropout_rate else None,
             dropout_threshold(keep_prob) if dropout_rate else 0, keep_prob)
+
+
+def _kernel_seed(dropout_rate, seed, q):
+    return _seed_tensor(seed, q.device) if dropout_rate else None
 
 
 def _launch(name, q, *args):
@@ -347,8 +376,9 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal=False, window=None,
     Takes contiguous CUDA tensors ``q [b, sq, h, d]``, ``k``/``v
     [b, sk, h_kv, d]`` of one dtype (float32 or bfloat16, ``d <= 128``) and
     optional int32 ``q_seg [b, sq]`` / ``kv_seg [b, sk]``; raises on
-    anything else. Returns ``(out, lse)``. ``flash_fwd.launches`` counts the
-    launches.
+    anything else. ``seed`` (read only with ``dropout_rate``): an int, or a
+    one-element integer tensor that the kernel reads on the card. Returns
+    ``(out, lse)``. ``flash_fwd.launches`` counts the launches.
     """
     _check_kernel_inputs("flash_fwd", [q, k, v], q, k, v, q_seg, kv_seg)
     b, sq, h, d = q.shape
@@ -357,7 +387,8 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal=False, window=None,
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(q_seg), _ptr(kv_seg), out.data_ptr(), lse.data_ptr(),
-            b, sq, sk, h, h_kv, d, *_mask_args(causal, window, dropout_rate, seed))
+            b, sq, sk, h, h_kv, d,
+            *_mask_args(causal, window, dropout_rate, _kernel_seed(dropout_rate, seed, q)))
     flash_fwd.launches += 1
     return out, lse
 
@@ -387,7 +418,8 @@ def flash_bwd_dq(q, k, v, q_seg, kv_seg, dout, lse, dterm, *, causal=False,
     _launch("flash_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(q_seg), _ptr(kv_seg), dout.data_ptr(), lse.data_ptr(),
             dterm.data_ptr(), dq.data_ptr(),
-            b, sq, sk, h, h_kv, d, *_mask_args(causal, window, dropout_rate, seed))
+            b, sq, sk, h, h_kv, d,
+            *_mask_args(causal, window, dropout_rate, _kernel_seed(dropout_rate, seed, q)))
     flash_bwd_dq.launches += 1
     return dq
 
@@ -408,7 +440,8 @@ def flash_bwd_dkv(q, k, v, q_seg, kv_seg, dout, lse, dterm, *, causal=False,
     _launch("flash_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(q_seg), _ptr(kv_seg), dout.data_ptr(), lse.data_ptr(),
             dterm.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, sq, sk, h, h_kv, d, *_mask_args(causal, window, dropout_rate, seed))
+            b, sq, sk, h, h_kv, d,
+            *_mask_args(causal, window, dropout_rate, _kernel_seed(dropout_rate, seed, q)))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -457,7 +490,9 @@ def _on_cpu(q) -> bool:
 class _Flash(torch.autograd.Function):
     """``(out, lse)`` of attention with the recompute-based backward: the
     counterpart of the JAX package's ``_flash`` custom VJP. The forward
-    saves ``(q, k, v, q_seg, kv_seg, seed, out, lse)``; the backward takes
+    saves ``(q, k, v, q_seg, kv_seg, seed, out, lse)`` (``seed`` the
+    dropout seed's tensor, as the reference keeps it in its residuals, so
+    the backward reads the forward's draw); the backward takes
     ``(dO, dlse)``, honours the lse cotangent through ``dterm = rowsum(dO *
     O) - dlse`` and launches the dQ and the dK/dV kernels (their plain
     versions on CPU tensors)."""
@@ -465,21 +500,21 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, q_seg, kv_seg, seed, causal, window,
                 dropout_rate):
-        opts = dict(causal=causal, window=window, dropout_rate=dropout_rate,
-                    seed=seed)
+        opts = dict(causal=causal, window=window, dropout_rate=dropout_rate)
         with kernel_flops("flash_fwd", attention_flops(q, k)["flash_fwd"]):
             if _on_cpu(q):
                 out, lse = flash_attention_reference(q, k, v, q_seg=q_seg,
-                                                     kv_seg=kv_seg, **opts)
+                                                     kv_seg=kv_seg, seed=seed, **opts)
             else:
-                out, lse = flash_fwd(q, k, v, q_seg, kv_seg, **opts)
-        ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
+                out, lse = flash_fwd(q, k, v, q_seg, kv_seg, seed=seed, **opts)
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg, seed, out, lse)
         ctx.opts = opts
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
-        q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
+        q, k, v, q_seg, kv_seg, seed, out, lse = ctx.saved_tensors
+        opts = dict(ctx.opts, seed=seed)
         if dout is None:
             dout = torch.zeros_like(out)
         dout = dout.to(q.dtype).contiguous()
@@ -495,32 +530,40 @@ class _Flash(torch.autograd.Function):
                     kernel_flops("flash_bwd_dkv", cost["flash_bwd_dkv"]):
                 dq, dk, dv = flash_attention_bwd_reference(
                     q, k, v, dout, lse, dterm, q_seg=q_seg, kv_seg=kv_seg,
-                    **ctx.opts)
+                    **opts)
         else:
             with kernel_flops("flash_bwd_dq", cost["flash_bwd_dq"]):
                 dq = flash_bwd_dq(q, k, v, q_seg, kv_seg, dout, lse, dterm,
-                                  **ctx.opts)
+                                  **opts)
             with kernel_flops("flash_bwd_dkv", cost["flash_bwd_dkv"]):
                 dk, dv = flash_bwd_dkv(q, k, v, q_seg, kv_seg, dout, lse,
-                                       dterm, **ctx.opts)
+                                       dterm, **opts)
         return dq, dk, dv, None, None, None, None, None, None
 
 
-def _check_dropout(dropout_rate, dropout_seed):
-    """Validate the dropout configuration; returns ``(rate, seed)``."""
+def _check_dropout(dropout_rate, dropout_seed, device):
+    """Validate the dropout configuration; returns ``(rate, seed)`` with
+    ``seed`` the int32 tensor of :func:`_seed_tensor` on ``device`` (None
+    without dropout). A tensor seed is never read on the host."""
     rate = float(dropout_rate)
     if rate == 0.0:
-        return 0.0, 0
+        return 0.0, None
     if not 0.0 < rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
     if dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed (an int or "
                          "an integer scalar tensor; vary it per step)")
-    return rate, int(torch.as_tensor(dropout_seed).item()) & _MASK32
+    if torch.is_tensor(dropout_seed) and (
+            dropout_seed.numel() != 1 or dropout_seed.is_floating_point()
+            or dropout_seed.is_complex() or dropout_seed.dtype == torch.bool):
+        raise ValueError("dropout_seed must be an int or a one-element integer "
+                         f"tensor, got a {dropout_seed.dtype} tensor of shape "
+                         f"{tuple(dropout_seed.shape)}")
+    return rate, _seed_tensor(dropout_seed, device)
 
 
 def _attend(q, k, v, causal, window, segment_ids, dropout_rate, dropout_seed):
-    rate, seed = _check_dropout(dropout_rate, dropout_seed)
+    rate, seed = _check_dropout(dropout_rate, dropout_seed, q.device)
     _check_shapes(q, k, v)
     qseg, kseg = _normalize_segments(
         segment_ids, q.shape[0], q.shape[1], k.shape[1], q.device
@@ -538,7 +581,9 @@ def flash_attention(q, k, v, *, causal: bool = False, window: int | None = None,
     and ``v``. ``segment_ids``: one int ``[batch, seq]`` tensor, or a
     ``(q_seg, kv_seg)`` pair. ``window`` requires ``causal=True`` here.
     ``dropout_rate > 0`` drops inside the kernels with the hash keyed by
-    ``dropout_seed``."""
+    ``dropout_seed``: an int, or a one-element integer tensor (a uint32
+    value) that the kernels read on the device, so it may be drawn on the
+    card, and the call captured into a CUDA graph, with no host read."""
     window = _check_window(window, causal)
     out, _ = _attend(q, k, v, causal, window, segment_ids, dropout_rate,
                      dropout_seed)
@@ -628,12 +673,17 @@ def _capturing(device) -> bool:
     return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
-def _draw_dropout_seed(dropout_rng) -> int:
-    """A uint32 dropout seed drawn from the ``torch.Generator``
-    ``dropout_rng`` (read on the host)."""
-    bits = torch.randint(0, 2 ** 32, (), generator=dropout_rng, dtype=torch.int64,
+def _draw_dropout_seed(dropout_rng) -> torch.Tensor:
+    """A uint32 dropout seed (a 0-d int64 tensor) drawn from the
+    ``torch.Generator`` ``dropout_rng`` on the generator's device, with no
+    host read. The generator is noted for CUDA-graph windows
+    (:func:`~fluxmpi_tpu_torch.runtime.note_graph_generator`), so every
+    replay of a captured window draws afresh."""
+    from .. import runtime
+
+    runtime.note_graph_generator(dropout_rng)
+    return torch.randint(0, 2 ** 32, (), generator=dropout_rng, dtype=torch.int64,
                          device=dropout_rng.device)
-    return int(bits.item())
 
 
 def flash_attention_fn(causal: bool = False, *, window: int | None = None,
@@ -657,12 +707,14 @@ def flash_attention_fn(causal: bool = False, *, window: int | None = None,
 
     Dropout (``dropout_rate > 0`` with ``deterministic=False``):
     ``dropout_impl="kernel"`` draws a uint32 seed from ``dropout_rng`` (a
-    ``torch.Generator``) and drops inside the kernels with the reference's
-    hash; it refuses CUDA-graph capture, which would bake one seed into
-    every replay. ``dropout_impl="dense"`` (JAX's flax-exact fallback)
-    raises ``NotImplementedError``: flax's random stream cannot be
-    reproduced. Under the models' attention modules flax's keyword filter
-    passes ``mask`` alone to this function, so they never drop here."""
+    ``torch.Generator`` on the query's device) on that device and drops
+    inside the kernels with the reference's hash; no host read, so it runs
+    under CUDA-graph capture, and a window captured by ``train_loop`` draws
+    a fresh seed on every replay. ``dropout_impl="dense"`` (JAX's
+    flax-exact fallback) raises ``NotImplementedError``: flax's random
+    stream cannot be reproduced. Under the models' attention modules flax's
+    keyword filter passes ``mask`` alone to this function, so they never
+    drop here."""
     if dropout_impl not in ("dense", "kernel"):
         raise ValueError("dropout_impl must be 'dense' or 'kernel'")
 
@@ -684,12 +736,6 @@ def flash_attention_fn(causal: bool = False, *, window: int | None = None,
                     "then takes flax's dense attention with flax's random stream "
                     "(dropout_rng), which the port cannot reproduce; pass "
                     "dropout_impl='kernel', or dropout_rate=0.0")
-            if _capturing(query.device):
-                raise NotImplementedError(
-                    "flash_attention_fn(dropout_impl='kernel') under CUDA-graph "
-                    "capture: the kernels take their dropout seed as a host "
-                    "integer, so every replay would drop the same entries; run "
-                    "this step with train_loop(fuse=False)")
             dropout_seed = _draw_dropout_seed(dropout_rng)
         else:
             dropout_rate = 0.0

@@ -321,7 +321,8 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     record (with ``loss_window_mean`` / ``loss_window_max`` when fused).
     With the goodput plane on, the run's wall time lands in its buckets:
     ``compile`` (the first dispatch; on the fused path each window
-    program's eager first window and its capture), ``step``,
+    program's CUDA-graph capture and instantiation, while every window's
+    updates, the eager first one's included, are steps), ``step``,
     ``data_stall``, ``resume``, ``checkpoint_*`` and
     ``preemption_drain``; its ``goodput.*`` gauges are recorded at every
     flush.
@@ -651,9 +652,11 @@ def train_loop(step: Any, state: Any, batches: Any, *,
                 program = window_program(width, avals)
                 if gp_on:
                     # Host-side, around the whole call: nothing of this
-                    # runs inside a capture. A program's eager first
-                    # window and its capture are its compile work; the
-                    # replays are steps. Its FLOPs are counted once, on
+                    # runs inside a capture. A program's capture and
+                    # instantiation are its compile work; every window's
+                    # updates, the eager first one's included, are steps
+                    # (as the JAX loop books its AOT compile and its
+                    # dispatches). Its FLOPs are counted once, on
                     # an eager call (a replay runs no operator the
                     # counter could see), and kept on the program for
                     # later runs.

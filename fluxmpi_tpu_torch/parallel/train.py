@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 import time
 from collections import Counter
 from typing import Any, Callable
@@ -497,8 +496,8 @@ class WindowProgram:
         self.replayed_launches: Counter = Counter()
         self.capture_seconds = 0.0
         # The seconds of the last call that were the program's compile
-        # work: all of an eager first window (warm-up), the capture and
-        # instantiation of a capturing call, none of a replay.
+        # work: the capture and instantiation of a capturing call; none of
+        # an eager window (its updates are real steps) or a replay.
         self.last_compile_seconds = 0.0
         # FLOPs of one call (all ``width`` updates), counted by train_loop
         # on an eager call when the goodput plane asks for them.
@@ -529,7 +528,7 @@ class WindowProgram:
     def __call__(self, ts: TrainState, data: Any, perm: torch.Tensor,
                  start: int):
         dev = perm.device
-        self.last_compile_seconds = 0.0 if self._warm else math.inf
+        self.last_compile_seconds = 0.0
         if dev.type != "cuda":
             self._warm = True
             at = torch.full((), int(start), dtype=torch.int64, device=dev)

@@ -28,6 +28,7 @@ from typing import Any, Sequence
 import torch
 import torch.distributed as dist
 
+from . import config
 from .errors import FluxMPINotInitializedError, refuse_unported
 
 __all__ = [
@@ -77,17 +78,25 @@ class _State:
     rank = 0
     world = 1
     local_rank = 0
-    # The gloo group the host_* collectives run over: None at world 1,
-    # the default group on the CPU, a gloo group beside NCCL on the card.
+    # The gloo group the host_* and the host-staged collectives run over:
+    # None at world 1 without host staging, the default group on the CPU,
+    # a gloo group beside NCCL on the card.
     host_group: Any = None
 
 
 _state = _State()
 
 # init() arguments of the JAX package whose machinery is not ported yet.
-_WAITING = ("devices", "mesh_shape", "parallel", "distributed", "preemption",
-            "faults", "anomaly", "model_stats", "compileplane", "profile",
-            "compile_cache", "export", "fleet", "resize")
+_WAITING = ("devices", "mesh_shape", "parallel", "distributed", "anomaly",
+            "model_stats", "compileplane", "profile", "compile_cache", "export",
+            "fleet", "resize")
+
+_PREEMPTION_ENV = "FLUXMPI_TPU_PREEMPTION"
+_SIGNALS_BY_NAME = {
+    "term": (signal.SIGTERM,),
+    "int": (signal.SIGINT,),
+    "both": (signal.SIGTERM, signal.SIGINT),
+}
 
 
 def _env_int(name: str) -> int | None:
@@ -95,12 +104,35 @@ def _env_int(name: str) -> int | None:
     return None if val in (None, "") else int(val)
 
 
+def _configure_preemption(spec: Any = None) -> None:
+    """Wire preemption handling from one value: ``None`` reads
+    ``FLUXMPI_TPU_PREEMPTION`` (no-op when unset); ``True``/``"1"``/
+    ``"both"`` installs SIGTERM+SIGINT; ``"term"``/``"int"`` installs just
+    that signal; ``False``/``"0"`` uninstalls."""
+    if spec is None:
+        spec = os.environ.get(_PREEMPTION_ENV)
+        if spec is None or spec == "":
+            return
+    if spec is False or spec == "0":
+        uninstall_preemption_handlers()
+        return
+    if spec is True or spec == "1":
+        spec = "both"
+    if not isinstance(spec, str) or spec not in _SIGNALS_BY_NAME:
+        raise ValueError(
+            f"preemption spec must be a bool or one of "
+            f"{sorted(_SIGNALS_BY_NAME)}; got {spec!r}"
+        )
+    install_preemption_handlers(_SIGNALS_BY_NAME[spec])
+
+
 def _configure_planes(telemetry: Any, trace: Any, watchdog: Any,
-                      goodput: Any, memory: Any, serving: Any,
-                      request_log: Any) -> None:
-    """Wire the telemetry, serving and request-log planes in the JAX
-    package's order (each from its argument, else its environment
-    variable)."""
+                      preemption: Any, faults: Any, goodput: Any, memory: Any,
+                      serving: Any, request_log: Any) -> None:
+    """Wire the telemetry, fault-tolerance, serving and request-log planes
+    in the JAX package's order (each from its argument, else its
+    environment variable)."""
+    from . import faults as _faults
     from . import serving as _serving
     from . import telemetry as _telemetry
     from .serving import observe as _serving_observe
@@ -112,6 +144,8 @@ def _configure_planes(telemetry: Any, trace: Any, watchdog: Any,
     _telemetry.configure(telemetry)
     _tracing.configure(trace)
     _watchdog.configure(watchdog)
+    _configure_preemption(preemption)
+    _faults.configure(faults)
     _goodput.configure(goodput)
     _memory.configure(memory)
     _serving.configure(serving)
@@ -123,7 +157,8 @@ def init(*, device: str | torch.device | None = None,
          num_processes: int | None = None, process_id: int | None = None,
          timeout: float = 600.0,
          verbose: bool = False, telemetry: Any = None, trace: Any = None,
-         watchdog: Any = None, goodput: Any = None, memory: Any = None,
+         watchdog: Any = None, preemption: Any = None, faults: Any = None,
+         goodput: Any = None, memory: Any = None,
          serving: Any = None, request_log: Any = None,
          **waiting) -> torch.device:
     """Bring up the data-parallel world; returns this worker's device.
@@ -152,7 +187,12 @@ def init(*, device: str | torch.device | None = None,
     ``FLUXMPI_TPU_WATCHDOG_DIR`` (``FLUXMPI_TPU_WATCHDOG``); ``goodput``
     — ``True`` for the wall-time buckets and live MFU
     (``FLUXMPI_TPU_GOODPUT``); ``memory`` — ``True`` for the ``memory.*``
-    gauges (``FLUXMPI_TPU_MEMORY``). The serving planes:
+    gauges (``FLUXMPI_TPU_MEMORY``). The fault-tolerance planes:
+    ``preemption`` — ``True``/``"both"``, ``"term"`` or ``"int"`` installs
+    the flag-setting signal handlers, ``False`` uninstalls them
+    (``FLUXMPI_TPU_PREEMPTION``); ``faults`` — a fault schedule
+    (:func:`fluxmpi_tpu_torch.faults.configure`; ``FLUXMPI_TPU_FAULTS``).
+    The serving planes:
     ``serving`` — engine defaults, ``True``, a dict or a
     :class:`~fluxmpi_tpu_torch.serving.ServingConfig` (``False`` resets the
     plane; ``FLUXMPI_TPU_SERVING``); ``request_log`` — ``True`` or a JSONL
@@ -161,8 +201,8 @@ def init(*, device: str | torch.device | None = None,
 
     Not ported yet (each raises ``NotImplementedError`` when passed):
     device lists and mesh shapes, ``parallel=``, ``distributed=``, the
-    preemption and fault specs, the compile cache, and the anomaly,
-    model-stats, compile, profile, export, fleet and resize planes.
+    compile cache, and the anomaly, model-stats, compile, profile, export,
+    fleet and resize planes.
     """
     passed = sorted(k for k, v in waiting.items() if v is not None)
     unknown = [k for k in passed if k not in _WAITING]
@@ -171,12 +211,11 @@ def init(*, device: str | torch.device | None = None,
     refuse_unported("init", {k: True for k in passed},
                     "the port has no device mesh or parallel plans, and its "
                     "anomaly, model-stats, compile, profile, export, fleet, "
-                    "resize, fault-spec, preemption-spec "
-                    "and compile-cache planes are not ported; it runs one "
+                    "resize and compile-cache planes are not ported; it runs one "
                     "process per device with torch.distributed")
     if _state.initialized:
-        _configure_planes(telemetry, trace, watchdog, goodput, memory, serving,
-                          request_log)
+        _configure_planes(telemetry, trace, watchdog, preemption, faults, goodput,
+                          memory, serving, request_log)
         return _state.device
     want = resolve_device(device)
     cpu = want.type == "cpu"
@@ -214,7 +253,7 @@ def init(*, device: str | torch.device | None = None,
             kwargs["store"] = dist.TCPStore("127.0.0.1", 0, 1, is_master=True,
                                             timeout=kwargs["timeout"])
         dist.init_process_group(**kwargs)
-    if world == 1:
+    if world == 1 and not config.DEVICE_COLLECTIVES_DISABLED:
         host_group = None
     elif dist.get_backend() == "gloo":
         host_group = dist.group.WORLD
@@ -227,8 +266,8 @@ def init(*, device: str | torch.device | None = None,
     _state.owns_group = not adopt
     _state.device = dev
     _state.rank, _state.world, _state.local_rank = rank, world, lr
-    _configure_planes(telemetry, trace, watchdog, goodput, memory, serving,
-                      request_log)
+    _configure_planes(telemetry, trace, watchdog, preemption, faults, goodput,
+                      memory, serving, request_log)
     if verbose:
         if world == 1:
             warnings.warn(
@@ -256,6 +295,9 @@ def shutdown() -> None:
     """Reset the runtime: tear down the telemetry planes first (the
     watchdog disarmed, the trace ring exported to its configured path
     while the rank is still known, the sinks flushed and detached), then
+    the fault-tolerance planes (the fault schedule cleared, the preemption
+    handlers uninstalled and the flag cleared: left armed, the next run
+    would inject faults or "preempt" at its first dispatch boundary), then
     destroy the process group if :func:`init` created it (one the caller
     brought up stays)."""
     try:
@@ -264,6 +306,10 @@ def shutdown() -> None:
         _telemetry_shutdown()
     except Exception:
         pass
+    from . import faults as _faults
+
+    _faults.clear()
+    uninstall_preemption_handlers()
     if _state.initialized and _state.owns_group and dist.is_initialized():
         dist.destroy_process_group()
     _state.initialized = False

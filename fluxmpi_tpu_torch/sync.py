@@ -23,8 +23,8 @@ import torch.distributed as dist
 from torch import nn
 from torch.utils import _pytree as pytree
 
-from .comm import _check_root, fused
-from .runtime import _require_init
+from .comm import _check_root, _staging, eager
+from .runtime import _require_init, _state
 
 __all__ = ["FlatParamVector", "FluxModelWrapper", "synchronize"]
 
@@ -34,11 +34,13 @@ def _sync_tree(tree: Any, root: int) -> Any:
     is_tensor = [isinstance(x, torch.Tensor) for x in leaves]
     tensors = [x for x, t in zip(leaves, is_tensor) if t]
     others = [x for x, t in zip(leaves, is_tensor) if not t]
-    synced = fused(tensors, lambda flat: dist.broadcast(flat, src=root)) if tensors else []
+    synced = eager(tensors, lambda flat, group=None: dist.broadcast(
+        flat, src=root, group=group)) if tensors else []
     if others:
         # Scalars and other objects (an optimizer's step counts and
         # hyperparameters) travel in one object broadcast.
-        dist.broadcast_object_list(others, src=root)
+        dist.broadcast_object_list(
+            others, src=root, group=_state.host_group if _staging() else None)
     it_t, it_o = iter(synced), iter(others)
     out = [next(it_t) if t else next(it_o) for t in is_tensor]
     return pytree.tree_unflatten(out, spec)
@@ -53,7 +55,8 @@ def synchronize(tree: Any, *, root_rank: int = 0) -> Any:
     state dict, an optimizer's state dict or any nested dict/list/tuple of
     tensors (a new tree is returned; non-tensor leaves are taken from the
     root as they are). Tensor leaves are fused into one flat broadcast per
-    dtype."""
+    dtype, staged through host memory when device collectives are disabled
+    (:mod:`fluxmpi_tpu_torch.comm`)."""
     _require_init()
     root = _check_root(root_rank)
     if isinstance(tree, FluxModelWrapper):

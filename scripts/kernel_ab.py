@@ -20,10 +20,17 @@ plain|| / ||bf16(plain) - plain|| with the plain version in float32 on
 the same inputs, which is 1 when the kernel adds nothing to the output's
 own rounding) and timed by CUDA-graph replay (``chip_smoke.device_ms``), the
 sources in turn, then in reverse order, for ``--rounds`` rounds (default
-2: A B B A), so that a drift of the card's clock falls on both. Prints the
-card, ptxas's register and spill lines per source, and one JSON line per
-source, kernel and type with each round's time. Exits non-zero if a
-library fails to build or a kernel exceeds ``chip_smoke.py``'s tolerances.
+2: A B B A), so that a drift of the card's clock falls on both. Each
+source's outputs are also taken with dropout (rate 0.1, seed
+``DROPOUT_SEED``) and compared, with and without dropout, bit for bit with
+the first source's (``equal_to_first``). Sources from before the kernels
+read their dropout seed from device memory (their C entries take it as
+an ``unsigned int``) are called through a shim that passes the seed's
+value. Prints the card, ptxas's register and spill lines per source, and
+one JSON line per source, kernel and type with each round's time. Exits
+non-zero if a library fails to build, a kernel exceeds ``chip_smoke.py``'s
+tolerances, or, with ``--expect-equal``, an output differs from the first
+source's.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import importlib
 import json
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -41,6 +49,35 @@ sys.path.insert(0, str(ROOT))
 
 SHAPE = (8, 1024, 12, 64)  # b, s, h, d
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+DROPOUT_RATE, DROPOUT_SEED = 0.1, 0xC0FFEE11
+# Position of the dropout seed among a C entry's arguments, from the end:
+# ... dropout, seed, threshold, keep_prob, dtype, stream.
+_SEED_FROM_END = 5
+
+
+def _host_seed_abi(src, name) -> bool:
+    """Does ``src``'s entry take the dropout seed as a host integer?"""
+    return "unsigned int seed" in (Path(src) / f"{name}.cu").read_text()
+
+
+def _host_seed_shim(lib, name):
+    """``lib`` with its entry ``name`` taking the wrappers' arguments: the
+    seed's device address is swapped for ``DROPOUT_SEED``'s value."""
+    import ctypes as c
+
+    from fluxmpi_tpu_torch.ops import _build
+
+    raw = getattr(lib, name)
+    argtypes = list(_build.SOURCES[name])
+    argtypes[-_SEED_FROM_END] = c.c_uint
+    raw.argtypes = argtypes
+
+    def entry(*args):
+        args = list(args)
+        args[-_SEED_FROM_END] = DROPOUT_SEED if args[-_SEED_FROM_END - 1] else 0
+        return raw(*args)
+
+    return types.SimpleNamespace(**{name: entry, "device_launches": lib.device_launches})
 
 
 def build(sources):
@@ -70,6 +107,9 @@ def build(sources):
         lib = ctypes.CDLL(str(out))
         getattr(lib, name).argtypes = _build.SOURCES[name]
         getattr(lib, name).restype = ctypes.c_int
+        lib.device_launches.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+        if _host_seed_abi(src, name):
+            lib = _host_seed_shim(lib, name)
         libs.setdefault(src, {})[name] = lib
     return libs, failed
 
@@ -97,6 +137,8 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("sources", nargs="+")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--expect-equal", action="store_true",
+                    help="fail when an output differs from the first source's")
     args = ap.parse_args(argv)
     fa = importlib.import_module("fluxmpi_tpu_torch.ops.flash_attention")
     if not torch.cuda.is_available():
@@ -145,8 +187,19 @@ def main(argv) -> int:
                 "flash_bwd_dkv": lambda lse=lse, dterm=dterm: fa.flash_bwd_dkv(
                     q, k, v, None, None, g, lse, dterm, causal=True),
             }
+            drop = dict(causal=True, dropout_rate=DROPOUT_RATE, seed=DROPOUT_SEED)
+            d_out, d_lse = fa.flash_fwd(q, k, v, **drop)
+            d_dterm = (g.float() * d_out.float()).sum(-1).permute(0, 2, 1).contiguous()
+            outputs = (out, lse, dq, dk, dv, d_out, d_lse,
+                       fa.flash_bwd_dq(q, k, v, None, None, g, d_lse, d_dterm, **drop),
+                       *fa.flash_bwd_dkv(q, k, v, None, None, g, d_lse, d_dterm, **drop))
+            first = rows.get(args.sources[0])
+            equal = first is None or all(
+                torch.equal(a, b) for a, b in zip(outputs, first["outputs"]))
+            if args.expect_equal and not equal:
+                failed.append(f"{src} {dname}: outputs differ from {args.sources[0]}'s")
             rows[src] = dict(err=err, ok=ok, calls=calls, ms={n: [] for n in KERNELS},
-                             keep=(out, lse, dterm))
+                             keep=(out, lse, dterm), outputs=outputs, equal=equal)
         order = list(args.sources)
         for _ in range(args.rounds):
             for src in order:
@@ -158,7 +211,8 @@ def main(argv) -> int:
         for src in args.sources:
             r = rows[src]
             print(json.dumps({"source": src, "dtype": dname, "err": r["err"],
-                              "ok": r["ok"], "ms": r["ms"]}), flush=True)
+                              "ok": r["ok"], "equal_to_first": r["equal"],
+                              "ms": r["ms"]}), flush=True)
         for name in KERNELS:
             _build._loaded.pop(name, None)
         del q, k, v, g, ref_out, ref_lse, rows

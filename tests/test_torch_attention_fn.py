@@ -167,7 +167,8 @@ def test_under_capture_unrepresentable_masks_poison_their_rows(monkeypatch):
     """While a CUDA graph is being captured no device value may be read on
     the host: the fidelity check then NaN-poisons the batch rows whose
     mask the segment ids do not rebuild (the JAX package's traced-mask
-    rule), keeps the others, and kernel dropout is refused."""
+    rule), keeps the others, and kernel dropout draws its seed on the
+    generator's device with no host read, as outside a capture."""
     monkeypatch.setattr(tfa, "_capturing", lambda device: True)
     mask, _ = _unrepresentable()["sparse"]
     mask = mask & _padding([16, 16, 10])
@@ -180,10 +181,17 @@ def test_under_capture_unrepresentable_masks_poison_their_rows(monkeypatch):
     torch.testing.assert_close(out[[0, 2]], ref[[0, 2]], rtol=0, atol=0)
     unchecked = flash_attention_fn(mask_check=False)(q, k, v, mask=torch.from_numpy(mask))
     assert not torch.isnan(unchecked).any()
-    with pytest.raises(NotImplementedError, match="capture"):
-        flash_attention_fn(dropout_impl="kernel")(
-            q, k, v, dropout_rate=0.1, deterministic=False,
-            dropout_rng=torch.Generator().manual_seed(0))
+    monkeypatch.setattr(torch.Tensor, "item", _no_host_read)
+    got = flash_attention_fn(dropout_impl="kernel")(
+        q, k, v, dropout_rate=0.1, deterministic=False,
+        dropout_rng=torch.Generator().manual_seed(0))
+    monkeypatch.undo()
+    seed = tfa._draw_dropout_seed(torch.Generator().manual_seed(0))
+    assert torch.equal(got, port_flash(q, k, v, dropout_rate=0.1, dropout_seed=seed))
+
+
+def _no_host_read(self):
+    raise AssertionError("a device value was read on the host")
 
 
 def test_fidelity_check_runs_in_query_chunks():

@@ -11,7 +11,9 @@ step's statistics all-reduce and a sync-BN model at world 1 over NCCL), a
 ResNet on the card against the CPU, the kernels at the zoo's shapes (ViT's
 197 tokens, the UNet's head dim 128), ``flash_attention_fn``'s mask inside
 a captured graph, a DDPM window whose CUDA generator draws afresh on every
-replay, and, on a machine with two or more cards, one data-parallel step
+replay, the dropout seed read from device memory (a tensor seed against
+the int seed, fresh masks in every replay of a captured graph), and, on a
+machine with two or more cards, one data-parallel step
 over NCCL against the single-process step.
 
 Marked ``cuda``: each test skips where CUDA is absent. On a machine with a
@@ -276,6 +278,76 @@ def test_dropout_masks_equal_reference_bit_for_bit(device):
     assert torch.equal(dq.permute(0, 2, 1, 3) != 0, keep)       # dQ[q, c=k] = ds
     _, dv = fa.flash_bwd_dkv(zeros, zeros, zeros, None, None, eye, lse, dterm, **opts)
     assert torch.equal(dv.permute(0, 2, 3, 1) != 0, keep)       # dV[k, c=q] = p_drop
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_read_a_device_seed_as_the_int_seed(device, dtype):
+    """The kernels read the dropout seed from device memory: a seed tensor
+    on the card (a uint32 value above 2**31 included, as an int64 and as
+    the int32 bit pattern) gives the outputs of the same int seed, bit for
+    bit, in all three kernels."""
+    gen = torch.Generator().manual_seed(8)
+    b, s, h, hkv, d = 2, 192, 6, 3, 64
+    q, g = (torch.randn(b, s, h, d, generator=gen).to(dtype).to(device) for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, d, generator=gen).to(dtype).to(device) for _ in range(2))
+    seed = 0xF00DBEEF
+
+    def run(seed):
+        opts = dict(causal=True, dropout_rate=0.15, seed=seed)
+        out, lse = fa.flash_fwd(q, k, v, **opts)
+        dterm = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+        dq = fa.flash_bwd_dq(q, k, v, None, None, g, lse, dterm, **opts)
+        return (out, lse, dq, *fa.flash_bwd_dkv(q, k, v, None, None, g, lse, dterm, **opts))
+
+    want = run(seed)
+    for as_tensor in (torch.tensor(seed, device=device),
+                      torch.tensor([seed - 2 ** 32], dtype=torch.int32, device=device)):
+        got = run(as_tensor)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not torch.equal(run(seed + 1)[0], want[0])
+
+
+def test_captured_dropout_draws_a_fresh_mask_on_every_replay(device):
+    """``flash_attention`` with a seed drawn on the card from a registered
+    CUDA generator, captured once as a CUDA graph: two replays drop two
+    different masks, and each replay's output and gradients equal an eager
+    call at the seed that replay drew."""
+    gen = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(2, 128, 4, 64, generator=gen).to(device).requires_grad_()
+               for _ in range(3))
+    rng = torch.Generator(device=device).manual_seed(3)
+    seed = torch.zeros((), dtype=torch.int64, device=device)
+
+    def call():
+        drawn = torch.randint(0, 2 ** 32, (), generator=rng, dtype=torch.int64,
+                              device=device)
+        seed.copy_(drawn)
+        out = fa.flash_attention(q, k, v, causal=True, dropout_rate=0.2,
+                                 dropout_seed=drawn)
+        return (out, *torch.autograd.grad(out.square().sum(), (q, k, v)))
+
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        call()  # warm-up on the capture stream
+    torch.cuda.current_stream(device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(rng)
+    with torch.cuda.graph(graph, stream=stream):
+        static = call()
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        drawn = int(seed.item())
+        got = [t.clone() for t in static]
+        out = fa.flash_attention(q, k, v, causal=True, dropout_rate=0.2,
+                                 dropout_seed=drawn)
+        want = (out, *torch.autograd.grad(out.square().sum(), (q, k, v)))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        replays.append((drawn, got[0]))
+    assert replays[0][0] != replays[1][0]
+    assert not torch.equal(replays[0][1], replays[1][1])
 
 
 def test_autograd_runs_the_three_kernels(device):
@@ -655,7 +727,8 @@ def test_flash_attention_fn_mask_inside_a_captured_graph(device):
     graph (segment ids and the fidelity check on the device, no host
     read), and the replay equals the eager call; an unrepresentable mask
     under capture NaN-poisons its batch rows and leaves the others; kernel
-    dropout refuses capture, whose replays would all drop alike."""
+    dropout captures too (its seed drawn on the card from a generator
+    registered with the graph), and two replays drop differently."""
     fn = fa.flash_attention_fn()
     gen = torch.Generator().manual_seed(6)
     q, k, v = (torch.randn(3, 40, 4, 64, generator=gen).to(device) for _ in range(3))
@@ -681,12 +754,20 @@ def test_flash_attention_fn_mask_inside_a_captured_graph(device):
     assert torch.equal(out, eager)
     assert torch.isnan(out_bad[1]).all() and not torch.isnan(out_bad[[0, 2]]).any()
     kernel_drop = fa.flash_attention_fn(dropout_impl="kernel")
-    drop = dict(dropout_rate=0.1, deterministic=False,
-                dropout_rng=torch.Generator(device=device).manual_seed(0))
-    kernel_drop(q, k, v, **drop)  # eager: draws a seed and drops
-    with pytest.raises(NotImplementedError, match="replay"):
-        with torch.cuda.graph(torch.cuda.CUDAGraph()):
-            kernel_drop(q, k, v, **drop)
+    rng = torch.Generator(device=device).manual_seed(0)
+    drop = dict(dropout_rate=0.1, deterministic=False, dropout_rng=rng)
+    assert not torch.equal(kernel_drop(q, k, v, mask=mask, **drop), eager)  # eager
+    dropped = torch.cuda.CUDAGraph()
+    dropped.register_generator_state(rng)
+    with torch.cuda.graph(dropped):
+        out_drop = kernel_drop(q, k, v, mask=mask, **drop)
+    replays = []
+    for _ in range(2):
+        dropped.replay()
+        torch.cuda.synchronize()
+        replays.append(out_drop.clone())
+    assert not torch.equal(replays[0], replays[1])
+    assert all(torch.isfinite(r).all() and not torch.equal(r, eager) for r in replays)
 
 
 def test_ddpm_windows_draw_fresh_timesteps_bit_for_bit(device):

@@ -12,6 +12,7 @@ and the CUDA wrappers' guard under a fake CUDA device (nothing reroutes to
 the plain versions)."""
 
 import contextlib
+import ctypes
 import importlib
 
 import numpy as np
@@ -195,6 +196,8 @@ def test_dropout_needs_a_seed_and_a_rate_below_one():
 class _FakeLib:
     def __init__(self):
         self.calls = []
+        # The uint32 at each call's dropout seed address, read at the call.
+        self.seeds = []
 
     def __getattr__(self, name):
         if not name.startswith("flash_"):
@@ -202,6 +205,8 @@ class _FakeLib:
 
         def entry(*args):
             self.calls.append((name, args))
+            self.seeds.append(ctypes.c_uint32.from_address(args[-5]).value
+                              if args[-6] else None)
             return 0
 
         return entry
@@ -245,12 +250,17 @@ def test_backward_launches_both_kernels_and_counts(fake_cuda):
     assert [name for name, _ in fake_cuda.calls] == ["flash_fwd", "flash_bwd_dq",
                                                      "flash_bwd_dkv"]
     # The C entries' trailing arguments: b sq sk h hkv d, causal has_window
-    # window, dropout seed threshold keep_prob, dtype, stream.
+    # window, dropout, the seed's device address, threshold, keep_prob,
+    # dtype, stream. The three kernels read one seed buffer (the forward's,
+    # saved for the backward), holding the seed's low 32 bits.
     for name, args in fake_cuda.calls:
         assert args[-15:-9] == (2, 8, 8, 4, 2, 32)
         assert args[-9:-6] == (1, 1, 5)
-        assert args[-6:-2] == (1, 3, tfa.dropout_threshold(0.9), pytest.approx(0.9))
+        assert args[-6] == 1 and args[-4:-2] == (tfa.dropout_threshold(0.9),
+                                                 pytest.approx(0.9))
         assert args[-2:] == (0, 0)
+    assert len({args[-5] for _, args in fake_cuda.calls}) == 1
+    assert fake_cuda.seeds == [3, 3, 3]
     assert q.grad.shape == q.shape and k.grad.shape == k.shape
 
 

@@ -53,7 +53,7 @@ def test_import_loads_no_jax_flax_or_reference_package():
         "telemetry.tracing", "telemetry.flight_recorder", "telemetry.watchdog",
         "telemetry.memory", "telemetry.monitor", "telemetry.goodput",
         "utils.flops", "serving.cache", "serving.observe", "models.generate",
-        "models.hf_gpt2")}
+        "models.hf_gpt2", "io", "io.native")}
     assert ported <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -95,6 +95,19 @@ def test_sources_import_no_jax_flax_or_reference_package():
                 names = [node.module or ""]
             offenders += [f"{path.name}: {n}" for n in names if _forbidden(n)]
     assert len(files) > 10 and offenders == []
+
+
+def test_the_native_loader_is_the_ports_own_copy():
+    """The port builds its own copy of the C++ prefetcher's source, into a
+    path of its own: the JAX package's library and the port's never share
+    a file."""
+    from fluxmpi_tpu.io import native as jnative
+    from fluxmpi_tpu_torch.io import native
+
+    assert native._SRC.parent == PKG / "io"
+    assert native._SRC.read_text() != ""
+    assert native._lib_path().parent == PKG / "io" / "_build"
+    assert str(native._lib_path()) != jnative._lib_path()
 
 
 def test_entry_points_refuse_missing_cuda(monkeypatch):

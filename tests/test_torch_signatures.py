@@ -72,9 +72,9 @@ PORT_ONLY = {"init": {"timeout"},
              **{name: {"in_features", "image_size"} for name in ("ViT", "UNet")}}
 # Arguments the port takes through **waiting and refuses, by callable.
 REFUSED = {
-    "init": {"devices", "mesh_shape", "parallel", "distributed", "preemption",
-             "faults", "anomaly", "model_stats", "compileplane", "profile",
-             "compile_cache", "export", "fleet", "resize"},
+    "init": {"devices", "mesh_shape", "parallel", "distributed", "anomaly",
+             "model_stats", "compileplane", "profile", "compile_cache", "export",
+             "fleet", "resize"},
     "make_train_step": {"parallel", "style", "donate",
                         "state_sharding", "batch_spec", "model_stats"},
     "make_eval_step": {"parallel", "state_sharding", "batch_spec"},

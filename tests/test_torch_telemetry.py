@@ -608,7 +608,16 @@ def test_end_to_end_stream_matches_the_jax_package(world, port_world, lm_params,
     load = lambda p: [json.loads(x) for x in (tmp_path / p).read_text().splitlines()]
     J, T = load("jax.jsonl"), load("port.jsonl")
     assert len(J) == len(T) == 3  # two flushes and the shutdown line
-    assert _keys(J) == _keys(T)
+    # The fused path books a window program's build as compile: JAX's AOT
+    # compile; on the card the port's CUDA-graph capture, on the CPU
+    # nothing (the windows run eagerly), so there the port has no compile
+    # bucket and every update is a step.
+    build = ({("goodput.bucket_seconds", (("bucket", "compile"),))} if fuse else set())
+    assert _keys(J) - build == _keys(T)
+    if fuse:
+        assert build <= _keys(J)
+        assert jsum["goodput"]["buckets"]["compile"] == pytest.approx(
+            jsum["window_compile_seconds"], rel=0.05, abs=0.05)
     for a, b in zip(J, T):
         for name in ("train.steps", "train.examples", "train.window.size",
                      "train.window.dispatches", "goodput.updates"):
@@ -626,7 +635,8 @@ def test_end_to_end_stream_matches_the_jax_package(world, port_world, lm_params,
               if e["ph"] != "M"} for f in ("jax_trace.json", "port_trace.json")]
     assert spans[0] == spans[1] and "comm.barrier" in spans[1]
     rep = tsum["goodput"]
-    assert set(rep["buckets"]) == set(jsum["goodput"]["buckets"])
+    assert set(rep["buckets"]) == set(jsum["goodput"]["buckets"]) - (
+        {"compile"} if fuse else set())
     assert sum(rep["buckets"].values()) == pytest.approx(rep["wall_seconds"], rel=0.01)
     assert rep["updates"] == 8 and rep["flops_per_update"] > 0
     assert rep["mfu"] is None  # the CPU has no peak in the table
@@ -653,9 +663,12 @@ def test_training_is_bit_identical_with_every_plane_on_and_off(port_world, lm_pa
 
 def test_goodput_books_a_window_programs_build_once_and_keeps_its_flops(
         port_world, lm_params):
-    """The fused path: a window program's eager first call is compile work
-    and its FLOPs are counted there; a later run reusing the cached
-    program books its windows as steps and still reports the FLOPs."""
+    """The fused path: a window program's build (a CUDA-graph capture on
+    the card; none on the CPU, where windows run eagerly) is compile work,
+    and every window's updates, the first eager one's included, are steps,
+    as the JAX loop books its AOT compile and its dispatches. Its FLOPs are
+    counted on the first call; a later run reusing the cached program
+    still reports them."""
     _, params = lm_params
     corpus = _corpus()
     loader = tfm.DistributedDataLoader(
@@ -678,8 +691,81 @@ def test_goodput_books_a_window_programs_build_once_and_keeps_its_flops(
     assert program.flops > 0
     assert reports[0]["flops_per_update"] == reports[1]["flops_per_update"] == \
         program.flops / 4
-    assert reports[0]["buckets"]["compile"] > 0
-    assert "compile" not in reports[1]["buckets"] and reports[1]["updates"] == 8
+    for rep in reports:
+        assert "compile" not in rep["buckets"] and rep["updates"] == 8
+        assert rep["buckets"]["step"] > 0
+
+
+WINDOW_DELAY = 0.25
+
+
+class _SlowProgram:
+    """A compiled JAX window program whose every call first sleeps
+    ``WINDOW_DELAY`` seconds (its other attributes, the cost analysis
+    included, are the program's)."""
+
+    def __init__(self, prog):
+        self._prog = prog
+
+    def __call__(self, *args):
+        import time
+
+        time.sleep(WINDOW_DELAY)
+        return self._prog(*args)
+
+    def __getattr__(self, name):
+        return getattr(self._prog, name)
+
+
+class _SlowLowering:
+    """``make_window_program``'s result, whose ``lower(...).compile()``
+    gives a :class:`_SlowProgram`."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def lower(self, *args):
+        lowered = self._fn.lower(*args)
+        return type("Lowered", (), {"compile": lambda _: _SlowProgram(lowered.compile())})()
+
+
+def test_c10_fused_goodput_books_the_build_as_compile_and_every_window_as_step(
+        world, port_world, lm_params, tmp_path, monkeypatch):
+    """C.10: the fused loop books a window program's build as ``compile``
+    and every window's updates, the first window's included, as ``step``.
+    The tiny LM, 8 updates in two windows of 4, goodput on, through both
+    packages, each window program's call slowed by ``WINDOW_DELAY`` s (the
+    compiled JAX program's, the port's window body): the step bucket holds
+    at least both windows' delay in both packages; compile holds the JAX
+    package's AOT compile (``window_compile_seconds``) and, on the CPU,
+    nothing in the port (its windows run eagerly, nothing is built; on the
+    card it holds the capture)."""
+    import time
+
+    from fluxmpi_tpu.parallel import train as jtrain
+    from fluxmpi_tpu_torch.parallel import train as ttrain
+
+    real_make = jtrain.make_window_program
+    monkeypatch.setattr(jtrain, "make_window_program",
+                        lambda *a, **k: _SlowLowering(real_make(*a, **k)))
+    real_run = ttrain.WindowProgram._run
+
+    def slow_run(self, *args):
+        time.sleep(WINDOW_DELAY)
+        return real_run(self, *args)
+
+    monkeypatch.setattr(ttrain.WindowProgram, "_run", slow_run)
+    jsum = _jax_run(lm_params, tmp_path, "window")
+    _, tsum = _port_run(lm_params, tmp_path, "window")
+    jrep, trep = jsum["goodput"], tsum["goodput"]
+    for rep in (jrep, trep):
+        assert rep["updates"] == 8
+        assert rep["buckets"]["step"] >= 2 * WINDOW_DELAY
+    assert jsum["window_cache"]["misses"] == 1 and tsum["window_cache"]["misses"] == 1
+    assert jrep["buckets"]["compile"] == pytest.approx(jsum["window_compile_seconds"],
+                                                       rel=0.05, abs=0.05)
+    assert jrep["buckets"]["compile"] < WINDOW_DELAY + jsum["window_compile_seconds"]
+    assert "compile" not in trep["buckets"]
 
 
 def test_train_loop_fully_off_plane_costs_nothing(port_world, lm_params):

@@ -123,11 +123,17 @@ def test_lm_per_token_losses_hidden_and_logits_agree():
 
 
 def test_lm_dropout_training_raises_and_names_the_reason():
+    """Training with dropout needs a dropout generator (flax needs a
+    ``"dropout"`` rng) and says so; with one, the flash LM trains as a
+    ``dropout=0.0`` model does (flax hands its attention_fn no rate)."""
     lm = TransformerLM(**CFG, dropout=0.1, attention="flash", device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="dense attention fallback"):
+    with pytest.raises(ValueError, match="dropout_rng"):
         lm(toks, targets=toks)
     assert lm(toks, train=False).shape == (1, 4, 97)  # inference is unaffected
+    plain = TransformerLM(**CFG, dropout=0.0, attention="flash", device="cpu")
+    got = lm(toks, targets=toks, dropout_rng=torch.Generator().manual_seed(0))
+    assert torch.equal(got, plain(toks, targets=toks))
 
 
 def test_to_flax_params_round_trips_through_load_flax_params():
@@ -284,10 +290,14 @@ def test_loader_drop_last_and_scan_batches():
 
 def test_loader_waiting_options_raise():
     ds = tfm.ArrayDataset(np.zeros(8))
-    for kw in (dict(elastic_order=True), dict(transform=lambda b: b),
-               dict(transform_with_rng=True)):
-        with pytest.raises(NotImplementedError):
-            tfm.DistributedDataLoader(ds, 4, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        tfm.DistributedDataLoader(ds, 4, device="cpu", elastic_order=True)
+    # transform= is ported: applied on the host path, with the JAX
+    # package's errors.
+    with pytest.raises(ValueError, match="without transform"):
+        tfm.DistributedDataLoader(ds, 4, device="cpu", transform_with_rng=True)
+    loader = tfm.DistributedDataLoader(ds, 4, device="cpu", transform=lambda b: b + 1)
+    assert [b.tolist() for b in loader] == [[1.0] * 4] * 2
     # device_gather=True is ported: the JAX package's errors and batches.
     with pytest.raises(ValueError, match="array-backed"):
         tfm.DistributedDataLoader(_ListDataset(np.zeros((8, 2)), np.zeros(8)), 4,
