@@ -161,6 +161,20 @@
    weights (finite, within the clip). Times, idle share, host launch calls,
    capture seconds, peak memory, device time by group and the 15 costliest
    kernels for each model and path.
+11. Fine-tune phase (``finetune_phase``): stock GPT-2 small at dropout 0.1
+   (see the function).
+12. Health phase (``health_phase``): the fused bf16 run of ``fused_phase``
+   with the anomaly detector, compile monitor, model stats, exporter,
+   fleet collector, goodput and auto-profiler on beside every plane off
+   (bit for bit, launches by the device counters, ms and host launch
+   calls per update, ``goodput.mfu_productive`` against the steady
+   state); a live scrape of ``/metrics``, ``/status`` and ``/healthz``
+   through the schema, ``scripts/fluxmpi_top.py`` and
+   ``scripts/fleet_report.py``; a later window of another width firing
+   ``steady_state_retrace`` (``window_compile_seconds`` equal to its
+   capture seconds, one auto-profiler trace); ``nan_grad`` halting on one
+   layer's poisoned gradient and naming it; serving's ``slo_burn`` under an
+   SLO no request meets, its board read by ``scripts/fluxmpi_top.py``.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -4049,6 +4063,414 @@ def finetune_phase(device, flash_updates: int = 8, kernel_updates: int = 32,
     return stats, failures
 
 
+# Health phase: the run-health and live-export planes on the fused bf16 LM
+# and on the serving plane.
+HEALTH_POISON_LAYER = "encoder.block_5.ff1.kernel"
+
+
+def _http_get(port: int, path: str):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read()
+
+
+def health_phase(device, updates: int = 32, flush_every: int = 8,
+                 retrace_width: int = 4):
+    """The run-health and live-export planes at GPT-2-small width on one
+    card, on ``fused_phase``'s model and corpus (bf16 compute, f32 masters,
+    batch 8 x 1024, ``steps=32, flush_every=8``: four CUDA-graph windows):
+
+    1. Planes on against off: the run with every plane off, then under
+       ``init(anomaly=, model_stats=3, compileplane=, export=<127.0.0.1
+       port 0>, goodput=True, profile=)`` and ``init(fleet=<a
+       FleetCollector scraping that exporter every second, banking its
+       snapshots>)``. Gates: every parameter and adamw moment bit-identical;
+       12 launches of each kernel per update by the kernels' device counters,
+       equal to the wrappers' accounting. Prints ms per update (median over
+       the windows of a second run) and host launch calls per update, on
+       and off, and ``goodput.mfu_productive`` against the steady state's
+       MFU (FLOPs per update over the median update time at 989.4 TFLOP/s).
+    2. A live scrape: a thread reads ``/metrics``, ``/status`` and
+       ``/healthz`` while the planes-on run trains. Gates: every series
+       demangles into ``schema.KNOWN_METRIC_NAMES``; ``/status`` validates;
+       ``/healthz`` answers 200; ``scripts/fluxmpi_top.py --once`` renders
+       the exporter and ``scripts/fleet_report.py`` the snapshot bank.
+    3. A retrace: with the compile monitor spanning the loop's runs (its
+       warmup does not reopen per run), a later run at another width
+       (``flush_every=4``) captures a new window program: ``steady_state_
+       retrace`` fires naming ``train_loop.window``, the run's
+       ``window_compile_seconds`` equals that program's capture seconds,
+       and the auto-profiler, triggered by the rule, leaves one Chrome
+       trace.
+    4. NaN provenance: a second short run (``flush_every=1``) whose
+       ``encoder.block_5.ff1.kernel`` gradient is multiplied by a device
+       flag the flush hook turns to NaN after window 1: ``nan_grad`` halts
+       the loop at the next flush with ``summary["anomaly"] ==
+       "nan_grad"``, the event names ``params/encoder/block_5``, and the
+       diagnostics bundle is written and valid.
+    5. Serving: GPT-2 small in f32 (seeded weights) through
+       ``InferenceEngine(attention="flash")`` with ``init(request_log=
+       True)`` under a TTFT objective no request can meet: ``slo_burn``
+       fires, ``flash_fwd`` launched, and ``/status``'s serving board reads
+       through ``scripts/fluxmpi_top.py``."""
+    import os
+    import tempfile
+    import threading
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim, telemetry
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+    from fluxmpi_tpu_torch.serving import InferenceEngine
+    from fluxmpi_tpu_torch.telemetry import schema
+    from fluxmpi_tpu_torch.telemetry.compileplane import CompileMonitor
+    from fluxmpi_tpu_torch.telemetry.export import exposed_base_name
+    from fluxmpi_tpu_torch.utils.profiling import AutoProfiler, get_auto_profiler
+
+    failures = []
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    corpus = lm_corpus(GPT2_SMALL["vocab_size"], seq=GPT2_SMALL["max_len"])
+    need = GPT2_SMALL["num_layers"] * updates
+    dev = fm.init()
+
+    class SpanningMonitor(CompileMonitor):
+        """A compile monitor over a process that runs the loop several
+        times: a new run's first windows are not a new warmup."""
+
+        def reset_run(self):
+            self.retraces = []
+
+    def build(flag=None, model_stats=None):
+        model = TransformerLM(**GPT2_SMALL, attention="flash", dropout=0.0,
+                              dtype=torch.bfloat16, device=dev,
+                              generator=torch.Generator().manual_seed(0))
+        fm.synchronize(model)
+        if flag is not None:
+            model.get_parameter(HEALTH_POISON_LAYER).register_hook(lambda g: g * flag)
+        loader = fm.DistributedDataLoader(
+            fm.DistributedDataContainer(fm.ArrayDataset((corpus[:, :-1], corpus[:, 1:]))),
+            global_batch_size=8, shuffle=True)
+
+        def loss_fn(params, model_state, batch):
+            x, y = batch
+            return model(x, targets=y).mean(), model_state
+
+        opt = optim.adamw(3e-4)
+        return model, loader, make_train_step(loss_fn, opt, model_stats=model_stats), \
+            TrainState.create(model, opt)
+
+    def leaves(state):
+        out = {f"params/{k}": v for k, v in state.params.items()}
+        for m in ("mu", "nu"):
+            out.update({f"{m}/{k}": v for k, v in state.opt_state[m].items()})
+        out["count"] = state.opt_state["count"]
+        return out
+
+    def drive(during=None, model_stats=None):
+        """The main path (counts zeroed just before, read just after), a
+        second run of as many updates for the times, and the host's launch
+        calls over one more window."""
+        model, loader, step, state = build(model_stats=model_stats)
+        torch.cuda.synchronize()
+        for kern in kernels:
+            kern.launches = 0
+        (state, summ), launches = kernel_launches(
+            lambda: train_loop(step, state, loader, steps=updates,
+                               flush_every=flush_every))
+        counted = {k.__name__: k.launches for k in kernels}
+        extra = graph_launches(step)
+        bits = {k: v.detach().clone() for k, v in leaves(state).items()}
+        if during is not None:
+            during()
+        state, timed = train_loop(step, state, loader, steps=updates,
+                                  flush_every=flush_every)
+        (_, hsum), calls, _ = host_launches(
+            lambda: train_loop(step, state, loader, steps=flush_every,
+                               flush_every=flush_every))
+        # The main run's wall less its later windows (CUDA events from one
+        # window's completion to the next's; the second's holds its
+        # capture): the eager first window with its one-time warm-up.
+        first_s = summ["seconds"] - sum(summ["step_ms"]) / 1e3
+        run = dict(updates=summ["updates"], dispatches=summ["dispatches"],
+                   fused_window=summ["fused_window"], anomaly=summ["anomaly"],
+                   window_compile_seconds=summ.get("window_compile_seconds"),
+                   seconds=summ["seconds"], first_window_seconds=first_s,
+                   median_update_ms=float(np.median(
+                       [ms / flush_every for ms in timed["step_ms"]])),
+                   launches=launches,
+                   accounted_launches={n: counted[n] + extra[n] for n in counted},
+                   host_launches_per_update=calls / hsum["updates"],
+                   goodput=summ.get("goodput"), graphs=graph_stats(step))
+        return run, bits, (model, loader, step, state)
+
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        off, want, held = drive()
+        del held
+        torch.cuda.empty_cache()
+
+        # Planes on. The exporter's port is known once it is bound: the
+        # fleet collector that scrapes it comes in a second init call.
+        exporter = telemetry.Exporter(0, "127.0.0.1", deadline=600.0)
+        monitor = SpanningMonitor()
+        # The step-time and data-stall rules judge host timings that the
+        # traced and profiled runs of this phase distort; they are off here
+        # so that the one auto-profiler capture is the retrace's.
+        detector = telemetry.AnomalyDetector(
+            dump_dir=os.path.join(tmp, "anomaly"),
+            policies={"step_time_regression": "off", "data_stall": "off"})
+        profile_dir = os.path.join(tmp, "profile")
+        bank = os.path.join(tmp, "fleet.jsonl")
+        prev_reg = telemetry.set_registry(telemetry.MetricsRegistry())
+        scraped = {"metrics": [], "status": [], "healthz": []}
+        stop = threading.Event()
+
+        def scrape():
+            while not stop.wait(0.25):
+                for ep in scraped:
+                    try:
+                        scraped[ep].append(_http_get(exporter.port, f"/{ep}"))
+                    except Exception as exc:  # noqa: BLE001 - recorded, gated below
+                        scraped[ep].append((None, repr(exc).encode()))
+
+        scraper = threading.Thread(target=scrape, daemon=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                fm.init(anomaly=detector, model_stats=3, compileplane=monitor,
+                        export=exporter, goodput=True,
+                        profile=AutoProfiler(profile_dir, seconds=1.0))
+            collector = telemetry.FleetCollector([f"127.0.0.1:{exporter.port}"],
+                                                 interval=1.0, log=bank)
+            fm.init(fleet=collector)
+            scraper.start()
+            on, got, held = drive(during=stop.set)
+            scraper.join(10)
+            model, loader, step, state = held
+            same = [k for k in want if torch.equal(got[k], want[k])]
+            # The same planes with the step built without the model stats:
+            # what the stats' reductions inside each graph cost. Its own
+            # compile monitor: its programs' captures are its warmup.
+            fm.init(compileplane=SpanningMonitor())
+            nostats, got_ns, held_ns = drive(model_stats=False)
+            del held_ns
+            torch.cuda.empty_cache()
+            same_ns = [k for k in want if torch.equal(got_ns[k], want[k])]
+            rep = on["goodput"] or {}
+            fpu = rep.get("flops_per_update") or 0.0
+            steady_mfu = fpu / (on["median_update_ms"] / 1e3 * H100_PEAK_BF16)
+            stats.update(planes_off=off, planes_on=on, planes_on_no_model_stats=nostats,
+                         leaves=len(want), bit_identical=len(same),
+                         bit_identical_no_model_stats=len(same_ns), flops_per_update=fpu,
+                         mfu=rep.get("mfu"), mfu_productive=rep.get("mfu_productive"),
+                         mfu_steady=steady_mfu, goodput_buckets=rep.get("buckets"))
+            print(f"health_phase: planes off {off['median_update_ms']:.3f} ms per update, "
+                  f"on {on['median_update_ms']:.3f} ms, on without the model stats "
+                  f"{nostats['median_update_ms']:.3f} ms (median over the windows of a "
+                  f"second run of {updates}); host launch calls per update off "
+                  f"{off['host_launches_per_update']:.3f}, on "
+                  f"{on['host_launches_per_update']:.3f}, on without the model stats "
+                  f"{nostats['host_launches_per_update']:.3f}; {len(same)} of "
+                  f"{len(want)} leaves bit-identical ({len(same_ns)} without the model "
+                  f"stats); launches off {off['launches']} (wrappers "
+                  f"{off['accounted_launches']}), on {on['launches']} (wrappers "
+                  f"{on['accounted_launches']}), need {need} each; goodput.mfu "
+                  f"{rep.get('mfu')}, mfu_productive {rep.get('mfu_productive')} against "
+                  f"the steady state's {steady_mfu:.4f} (FLOPs per update {fpu:.4g} over "
+                  f"{on['median_update_ms']:.3f} ms at {H100_PEAK_BF16:.4g}); buckets "
+                  f"{rep.get('buckets')}; the main runs' eager first window with its "
+                  f"warm-up {off['first_window_seconds']:.3f}s off, "
+                  f"{on['first_window_seconds']:.3f}s on (of {off['seconds']:.3f}s, "
+                  f"{on['seconds']:.3f}s); {card_line()}", flush=True)
+            if len(same) != len(want) or len(same_ns) != len(want):
+                failures.append(f"health_phase: {len(want) - len(same)} leaves differ "
+                                f"with the planes on ({len(want) - len(same_ns)} "
+                                f"without the model stats)")
+            for run, name in ((off, "off"), (on, "on")):
+                if run["launches"] != {k.__name__: need for k in kernels} or \
+                        run["accounted_launches"] != run["launches"]:
+                    failures.append(f"health_phase [{name}]: launches {run['launches']} "
+                                    f"(wrappers {run['accounted_launches']}), not {need}")
+            if on["anomaly"] is not None or not on["goodput"]:
+                failures.append(f"health_phase: planes-on run anomaly {on['anomaly']}, "
+                                f"goodput {bool(on['goodput'])}")
+
+            # The live scrape.
+            ok_metrics = [b for c, b in scraped["metrics"] if c == 200]
+            ok_status = [b for c, b in scraped["status"] if c == 200]
+            health_codes = sorted({c for c, _ in scraped["healthz"]}, key=str)
+            names, bad_names, bad_status = set(), set(), []
+            for body in ok_metrics:
+                for line in body.decode().splitlines():
+                    if line and not line.startswith("#"):
+                        name = exposed_base_name(line.split("{")[0].split(" ")[0])
+                        (names if name in schema.KNOWN_METRIC_NAMES else bad_names).add(name)
+            for body in ok_status:
+                bad_status += schema.validate_status_record(json.loads(body))
+            collector.collect_once()
+            top = subprocess.run([sys.executable, str(root / "scripts" / "fluxmpi_top.py"),
+                                  f"http://127.0.0.1:{exporter.port}", "--once"],
+                                 capture_output=True, text=True, timeout=120)
+            report = subprocess.run([sys.executable,
+                                     str(root / "scripts" / "fleet_report.py"), bank,
+                                     "--json"], capture_output=True, text=True, timeout=120)
+            fleet_rep = json.loads(report.stdout) if report.returncode == 0 else None
+            last = json.loads(ok_status[-1]) if ok_status else {}
+            stats["scrape"] = dict(
+                metrics=len(ok_metrics), status=len(ok_status), healthz=health_codes,
+                series_names=len(names), unknown=sorted(bad_names),
+                status_errors=bad_status[:5], top_rc=top.returncode,
+                fleet_report_rc=report.returncode, fleet_report=fleet_rep,
+                model_board=last.get("model"), train_board=last.get("train"))
+            print(f"health_phase scrape: {len(ok_metrics)} /metrics, {len(ok_status)} "
+                  f"/status, /healthz codes {health_codes} during the run; "
+                  f"{len(names)} metric names, unknown {sorted(bad_names)}; status "
+                  f"errors {bad_status[:3]}; model board {last.get('model')}; "
+                  f"fluxmpi_top rc {top.returncode}, fleet_report rc {report.returncode} "
+                  f"({fleet_rep})", flush=True)
+            if not ok_metrics or not ok_status or bad_names or bad_status \
+                    or health_codes != [200]:
+                failures.append(f"health_phase: live scrape ({len(ok_metrics)} metrics, "
+                                f"{len(ok_status)} status, healthz {health_codes}, "
+                                f"unknown {sorted(bad_names)}, {bad_status[:3]})")
+            if top.returncode != 0 or "MODEL" not in top.stdout:
+                failures.append(f"health_phase: fluxmpi_top: {top.stderr[-800:]}")
+            if report.returncode != 0 or not fleet_rep or not fleet_rep.get("snapshots"):
+                failures.append(f"health_phase: fleet_report: {report.stderr[-800:]}")
+
+            # A retrace: a later run at another width captures a new program.
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                state, rsum = train_loop(step, state, loader, steps=2 * retrace_width,
+                                         flush_every=retrace_width)
+            get_auto_profiler().wait(60)
+            progs = [g for g in graph_stats(step) if g["width"] == retrace_width]
+            monitor = telemetry.get_compile_monitor()
+            retraces = [e for e in detector.triggered
+                        if e["rule"] == "steady_state_retrace"]
+            traces = sorted(os.listdir(profile_dir)) if os.path.isdir(profile_dir) else []
+            captured = progs[0]["capture_seconds"] if progs else None
+            stats["retrace"] = dict(events=retraces, window_compile_seconds=rsum.get(
+                "window_compile_seconds"), capture_seconds=captured, traces=traces,
+                retraces_logged=monitor.retraces)
+            print(f"health_phase retrace: a {retrace_width}-update window after the "
+                  f"warmup: events {retraces}; window_compile_seconds "
+                  f"{rsum.get('window_compile_seconds')} vs capture seconds {captured}; "
+                  f"auto-profiler traces {traces}", flush=True)
+            if not retraces or retraces[-1].get("function") != "train_loop.window":
+                failures.append("health_phase: no steady_state_retrace naming "
+                                "train_loop.window")
+            if captured is None or rsum.get("window_compile_seconds") != captured:
+                failures.append("health_phase: window_compile_seconds differs from the "
+                                "capture seconds")
+            if len(traces) != 1:
+                failures.append(f"health_phase: {len(traces)} auto-profiler traces, not 1")
+            del model, loader, step, state, held
+            torch.cuda.empty_cache()
+
+            # NaN provenance: one layer's gradient turns NaN after window 1. A
+            # fresh compile monitor: this run's capture is its warmup, not a
+            # retrace whose bundle would replace the NaN's.
+            fm.init(compileplane=CompileMonitor())
+            flag = torch.ones((), device=dev)
+            model, loader, step, state = build(flag)
+
+            def poison(record):
+                flag.fill_(float("nan"))
+
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                _, nsum = train_loop(step, state, loader, steps=4, flush_every=1,
+                                     metrics=poison)
+            nan_events = [e for e in detector.triggered if e["rule"] == "nan_grad"]
+            bundle_path = os.path.join(tmp, "anomaly", "fluxmpi_anomaly.0.json")
+            bundle = None
+            if os.path.exists(bundle_path):
+                with open(bundle_path) as f:
+                    bundle = json.load(f)
+            bundle_errors = (schema.validate_watchdog_dump(bundle) if bundle is not None
+                             else ["missing"])
+            layer = nan_events[-1].get("layer") if nan_events else None
+            # The poisoned parameter's group at depth 3: params/encoder/block_k.
+            named = "/".join(["params"] + HEALTH_POISON_LAYER.split(".")[:2])
+            stats["nan"] = dict(anomaly=nsum["anomaly"], updates=nsum["updates"],
+                                dispatches=nsum["dispatches"], layer=layer,
+                                bundle_anomaly=(bundle or {}).get("anomaly"),
+                                bundle_errors=bundle_errors[:3])
+            print(f"health_phase NaN provenance: {HEALTH_POISON_LAYER}'s gradient x NaN "
+                  f"from window 2: summary anomaly {nsum['anomaly']!r} after "
+                  f"{nsum['updates']} updates in {nsum['dispatches']} windows; event "
+                  f"layer {layer!r}; bundle {(bundle or {}).get('anomaly')} errors "
+                  f"{bundle_errors[:3]}", flush=True)
+            if nsum["anomaly"] != "nan_grad" or layer != named:
+                failures.append(f"health_phase: NaN run anomaly {nsum['anomaly']!r}, "
+                                f"layer {layer!r}")
+            if bundle_errors or (bundle or {}).get("anomaly", {}).get("layer") != named:
+                failures.append(f"health_phase: anomaly bundle {bundle_errors[:3]}")
+            del model, loader, step, state
+            torch.cuda.empty_cache()
+
+            # Serving under an SLO it cannot meet.
+            fm.init(request_log=True)
+            lm = TransformerLM(**GPT2_SMALL, attention="flash", device=dev,
+                               generator=torch.Generator().manual_seed(0))
+            eng = InferenceEngine(lm, slots=8, block_size=16, slo_ttft_s=1e-9,
+                                  attention="flash")
+            rng = np.random.default_rng(0)
+            before = len(detector.triggered)
+            flash_fwd.launches = 0
+            for _ in range(8):
+                eng.submit(rng.integers(0, GPT2_SMALL["vocab_size"], 48).tolist(), 8)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                ssum = eng.run()
+            serve_launches = flash_fwd.launches
+            burn = [e for e in detector.triggered[before:] if e["rule"] == "slo_burn"]
+            code, body = _http_get(exporter.port, "/status")
+            board = json.loads(body).get("serving") if code == 200 else None
+            stop_top = subprocess.run(
+                [sys.executable, str(root / "scripts" / "fluxmpi_top.py"),
+                 f"http://127.0.0.1:{exporter.port}", "--once"],
+                capture_output=True, text=True, timeout=120)
+            eng.close()
+            stats["serving"] = dict(summary=ssum, slo_burn_events=len(burn),
+                                    flash_fwd_launches=serve_launches, board=board,
+                                    top_rc=stop_top.returncode)
+            print(f"health_phase serving: {ssum['completed']} requests, "
+                  f"{ssum['slo_violations']} SLO violations, slo_burn events {len(burn)} "
+                  f"({burn[:1]}); flash_fwd launches {serve_launches}; serving board "
+                  f"phase {(board or {}).get('phase')}, burn {(board or {}).get('burn_rate')}; "
+                  f"fluxmpi_top rc {stop_top.returncode}", flush=True)
+            if not burn or serve_launches <= 0:
+                failures.append(f"health_phase: serving slo_burn events {len(burn)}, "
+                                f"flash_fwd launches {serve_launches}")
+            if (board or {}).get("phase") != "finished" or stop_top.returncode != 0 \
+                    or "SERVING" not in stop_top.stdout:
+                failures.append(f"health_phase: serving board {board}, fluxmpi_top "
+                                f"{stop_top.stderr[-400:]}")
+            del eng, lm
+        finally:
+            stop.set()
+            fm.shutdown()
+            telemetry.set_registry(prev_reg)
+    torch.cuda.empty_cache()
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"health_phase: phase {stats['seconds']:.1f}s", flush=True)
+    return stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -4134,6 +4556,11 @@ def run_phases(device):
     torch.cuda.empty_cache()
     tune, tune_failures = finetune_phase(device)
     failures += tune_failures
+    torch.cuda.empty_cache()
+    health, health_failures = health_phase(device)
+    failures += health_failures
+    health_paths = {f"health_planes_{name}": health[f"planes_{name}"]["launches"]
+                    for name in ("off", "on") if f"planes_{name}" in health}
     tune_paths = {"finetune_flash_dropout": tune["flash_dropout"]["launches"],
                   "finetune_kernel_dropout_fused": tune["kernel_dropout"]["launches"],
                   "finetune_kernel_dropout_pipelined":
@@ -4167,6 +4594,8 @@ def run_phases(device):
                      + telem["planes_on"]["launches"]["flash_fwd"]
                      + sum(n["flash_fwd"] for n in zoo_paths.values())
                      + sum(n["flash_fwd"] for n in tune_paths.values())
+                     + sum(n["flash_fwd"] for n in health_paths.values())
+                     + health.get("serving", {}).get("flash_fwd_launches", 0)
                      + sum(plane["launches"].values())),
         "launches_by_path": {"serve": stats["launches"], **plane["launches"],
                              "train": train["launches"]["flash_fwd"],
@@ -4179,7 +4608,10 @@ def run_phases(device):
                              "train_bf16_telemetry":
                                  telem["planes_on"]["launches"]["flash_fwd"],
                              **{p: n["flash_fwd"] for p, n in zoo_paths.items()},
-                             **{p: n["flash_fwd"] for p, n in tune_paths.items()}},
+                             **{p: n["flash_fwd"] for p, n in tune_paths.items()},
+                             **{p: n["flash_fwd"] for p, n in health_paths.items()},
+                             "health_serving": health.get("serving", {}).get(
+                                 "flash_fwd_launches", 0)},
         "max_abs_err": max(max(r["err_out"], r["err_lse"]) for r in rows),
         "ms": fwd_row["ms"], "plain_ms": fwd_row["plain_ms"],
         "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
@@ -4209,7 +4641,8 @@ def run_phases(device):
                          + fused["fused"]["launches"][kname]
                          + telem["planes_on"]["launches"][kname]
                          + sum(n[kname] for n in zoo_paths.values())
-                         + sum(n[kname] for n in tune_paths.values())),
+                         + sum(n[kname] for n in tune_paths.values())
+                         + sum(n[kname] for n in health_paths.values())),
             "launches_by_path": {"train": train["launches"][kname],
                                  "train_bf16": bf16["launches"][kname],
                                  "train_bf16_remat":
@@ -4220,7 +4653,8 @@ def run_phases(device):
                                  "train_bf16_telemetry":
                                      telem["planes_on"]["launches"][kname],
                                  **{p: n[kname] for p, n in zoo_paths.items()},
-                                 **{p: n[kname] for p, n in tune_paths.items()}},
+                                 **{p: n[kname] for p, n in tune_paths.items()},
+                                 **{p: n[kname] for p, n in health_paths.items()}},
             "max_abs_err": max(r["err"][e] for r in bwd_rows for e in errs),
             "ms": bwd_main[f"{key}_ms"],
             # The plain version computes dQ, dK and dV in one pass; the
@@ -4249,7 +4683,8 @@ def run_phases(device):
     return kernels, {"slice": stats, "serving_plane": plane, "train": train,
                      "train_bf16": bf16,
                      "train_bf16_fused": fused, "train_bf16_telemetry": telem,
-                     "vision": vision, "zoo": zoo, "finetune": tune}, failures
+                     "vision": vision, "zoo": zoo, "finetune": tune,
+                     "health": health}, failures
 
 
 if __name__ == "__main__":

@@ -6,6 +6,14 @@ build happens at first use, into ``ops/_build/`` (ignored by git), under a
 name that carries a hash of the source, so an edited kernel is rebuilt and
 an unchanged one is loaded as it is. Nothing is compiled when a module is
 imported.
+
+:func:`set_build_dir` points the build at another directory: the
+persistent store of compiled kernels that ``init(compile_cache=)`` and
+``FLUXMPI_TPU_COMPILE_CACHE`` name (the counterpart of the JAX package's
+persistent XLA compilation cache), so repeat runs and every process that
+shares the directory skip the build. Each ``nvcc`` is timed and reported
+to the compile plane (:mod:`fluxmpi_tpu_torch.telemetry.compileplane`) as
+a compile event.
 """
 
 from __future__ import annotations
@@ -16,9 +24,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "loaded"]
+__all__ = ["SOURCES", "build_all", "load", "loaded", "set_build_dir"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -68,6 +77,15 @@ def _nvcc() -> str:
     )
 
 
+def set_build_dir(path: str | os.PathLike | None) -> Path:
+    """Build and look up the kernels' libraries under ``path`` (``None``:
+    the package's own ``ops/_build/``); returns the directory in use.
+    Libraries this process has already loaded stay loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).expanduser().resolve() if path is not None else _HERE / "_build"
+    return BUILD_DIR
+
+
 def _target(name: str) -> Path:
     # The shared headers are part of every source.
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
@@ -92,6 +110,7 @@ def build_all(names=None) -> dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {n: _target(n) for n in names}
     procs = {}
+    t0 = time.perf_counter()
     for n, out in targets.items():
         if out.exists():
             continue
@@ -104,6 +123,11 @@ def build_all(names=None) -> dict[str, Path]:
     for n, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
         build_logs[n] = log
+        # One compile event per nvcc, timed from the common start (the
+        # builds run together).
+        from ..telemetry import compileplane
+
+        compileplane.note_duration(compileplane.BUILD_EVENT, time.perf_counter() - t0)
         if proc.returncode != 0:
             failed.append(f"{n}: nvcc exited {proc.returncode}\n{log}")
             continue

@@ -33,11 +33,15 @@ wall time, never per update; the goodput plane books the run's wall time
 into its buckets and live MFU (FLOPs counted once, at the first
 dispatch); every dispatch is a watchdog tick; a
 ``torch.cuda.OutOfMemoryError`` escaping the dispatch loop writes the OOM
-bundle before it is re-raised. With every plane off the loop reads no
-tracker clock and records nothing.
+bundle before it is re-raised. At each flush the run-health and
+live-export planes read what the flush drained: the anomaly detector
+judges the interval (a ``"halt"`` rule stops the run at that flush), the
+compile monitor attributes builds and CUDA-graph captures, the model-stats
+plane emits the per-layer stats the step carried, and the exporter's
+``/status`` boards (train, model, fleet) are updated. With every plane off
+the loop reads no tracker clock and records nothing.
 
-Not ported yet: the anomaly, model-stats, compile, resize, export and
-fleet planes.
+Not ported yet: the resize plane.
 """
 
 from __future__ import annotations
@@ -55,7 +59,12 @@ from torch.utils import _pytree as pytree
 from .. import runtime
 from ..comm import allreduce
 from ..data import DistributedDataLoader, scan_batches
+from ..telemetry import anomaly as _anomaly
+from ..telemetry import compileplane as _compileplane
+from ..telemetry import export as _export
+from ..telemetry import fleet as _fleet
 from ..telemetry import goodput as _goodput
+from ..telemetry import modelstats as _modelstats
 from ..telemetry import tracing as _tracing
 from ..telemetry.watchdog import notify_progress
 from ..utils.manifest import map_with_path, named_leaves
@@ -270,9 +279,10 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     ``updates_per_sec``, ``examples_per_sec``, the final ``loss``,
     ``preempted``, ``resized_to``, ``resumed_from``, ``anomaly``,
     ``dispatches`` and ``fused_window`` (the JAX package's keys; the
-    planes behind ``resized_to`` and ``anomaly`` are not ported and report
-    None), ``goodput`` (the tracker's report) when the goodput plane is
-    on, and ``flushes``: for each flush its ``updates``, ``loss`` (the
+    resize plane behind ``resized_to`` is not ported and reports None;
+    ``anomaly`` names the rule whose ``"halt"`` policy stopped the run),
+    ``goodput`` (the tracker's report) when the goodput plane is on, and
+    ``flushes``: for each flush its ``updates``, ``loss`` (the
     newest update's), ``loss_mean`` (the interval's losses summed in update
     order in f32, over their count: the JAX package's window mean, the same
     bits on both paths), ``loss_max`` and ``seconds_per_update`` over the
@@ -326,6 +336,24 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     ``data_stall``, ``resume``, ``checkpoint_*`` and
     ``preemption_drain``; its ``goodput.*`` gauges are recorded at every
     flush.
+
+    The run-health and live-export planes (each resolved once per run,
+    off by default): the anomaly detector (``init(anomaly=)``) judges each
+    flush's loss, gradient norm, time per update, loader wait, retraces and
+    per-layer stats; an event whose policy is ``"halt"`` stops the run at
+    that flush, after the drain, without banking the suspect state, and
+    ``summary["anomaly"]`` names its rule. The compile monitor
+    (``init(compileplane=)``) attributes the window programs' captures to
+    ``train_loop.window``; on the fused path its warmup boundary is the
+    first flush whose window ran a built program (on the card a program's
+    first window runs eagerly and its second captures), so a capture after
+    it is a ``steady_state_retrace``. The model-stats plane
+    (``init(model_stats=)``, built into the step by ``make_train_step``)
+    emits the ``model.*`` gauges from the stats the flush copies to the
+    host. The exporter (``init(export=)``) gets the run's ``/status``
+    boards at the start, at every flush and at the end; with the fleet
+    plane armed (``init(fleet=)``) also this process's attribution
+    ingredients.
     """
     if in_flight < 0:
         raise ValueError(f"in_flight must be >= 0, got {in_flight}")
@@ -365,6 +393,30 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         # One tracker window per run, anchored before the resume.
         gp.reset_run()
         gp.start_run()
+    # The run-health, device and live-export planes, resolved once per run
+    # (off, each is one module attribute read here and a local bool below).
+    detector = _anomaly.get_anomaly_detector()
+    det_on = detector is not None and detector.enabled
+    cp = _compileplane.get_compile_monitor()
+    cp_on = cp is not None and cp.enabled
+    exporter = _export.get_exporter()
+    exp_on = exporter is not None and exporter.enabled
+    # The model stats are built into the step (make_train_step(
+    # model_stats=)); the loop consumes them at flushes when the plane is
+    # installed and the step carries them.
+    ms = _modelstats.get_model_stats()
+    ms_meta = getattr(hot, "__fluxmpi_model_stats_meta__", None)
+    ms_on = ms is not None and ms.enabled and ms_meta is not None
+    # The fleet plane rides the exporter: no exporter, nothing to scrape.
+    fl_on = exp_on and _fleet.enabled()
+    if det_on:
+        # The anomaly-triggered auto-profiler budgets captures per run.
+        from ..utils.profiling import get_auto_profiler
+
+        auto_profiler = get_auto_profiler()
+        if auto_profiler is not None:
+            auto_profiler.reset()
+    halt_rule: str | None = None
 
     fused_w = 0
     if fuse not in (False, None):
@@ -375,6 +427,15 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         # The window sequences single updates itself: the step's scan tag
         # is bypassed, and budgets and cursors count batches.
         k = 1
+    if cp_on:
+        # Retrace attribution: the pipelined step is an eager callable (no
+        # jit cache, untracked), the fused windows' captures are noted as
+        # train_loop.window's builds. One run window per train_loop: a
+        # second loop's first builds are its own warmup.
+        cp.track("train_loop.step", hot)
+        if fused_w:
+            cp.track_aot("train_loop.window")
+        cp.reset_run()
     is_loader = isinstance(batches, DistributedDataLoader)
     per_epoch = _epoch_len(batches, k)
     window: deque = deque()
@@ -478,6 +539,13 @@ def train_loop(step: Any, state: Any, batches: Any, *,
                     registry.counter("train.resumes").inc()
     last_saved = updates
     preempted = False
+    if exp_on:
+        # Run config and resume position, once the resume has settled them.
+        exporter.note_status(
+            phase="running", updates=updates, examples=examples,
+            epochs=epochs_done, steps_budget=steps, epochs_budget=epochs,
+            flush_every=flush_every, scan_steps=k, fused_window=fused_w or None,
+            resumed_from=resumed_from, preempted=False, anomaly=None)
 
     step_ms: list[float] = []
     prev: list[_Marker] = []
@@ -495,9 +563,14 @@ def train_loop(step: Any, state: Any, batches: Any, *,
             retire(window.popleft())
 
     interval_losses: list[torch.Tensor] = []
+    stall_base = gp.bucket_seconds("data_stall") if gp_on else 0.0
+    # Whether the newest window ran a built program (the compile plane's
+    # fused warmup boundary; the pipelined path's first flush is its).
+    window_built = True
 
     def flush() -> None:
         nonlocal interval_updates, interval_examples, interval_windows, t_flush
+        nonlocal stall_base, halt_rule
         if interval_updates == 0:
             return
         if gp_on:
@@ -507,6 +580,7 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         else:
             drain_to_newest()
         grad_norm = None
+        stats_host = None
         if fused_w:
             # The window program's f32 metric carry: one read per flush.
             carry = last_out["loss"], last_out["loss_sum"], last_out["loss_max"]
@@ -516,11 +590,17 @@ def train_loop(step: Any, state: Any, batches: Any, *,
             loss, total, peak = vals[:3]
             if len(vals) > 3:
                 grad_norm = vals[3]
+            if ms_on and "model_stats" in last_out:
+                stats_host = (last_out["model_stats"], last_out.get("noise"))
         else:
             leaves = pytree.tree_leaves(last_out)
             loss = float(torch.as_tensor(leaves[0]).detach().float().mean())
             if len(leaves) > 1:
                 grad_norm = float(leaves[1].detach().float().mean())
+            if ms_on:
+                # The aux is (loss, grad_norm, (table, noise)): the newest
+                # update's stats.
+                stats_host = last_out[2]
             # The interval's losses, read once and summed in update order
             # in f32, as the window program sums them.
             vals = torch.cat(interval_losses).cpu().numpy()
@@ -570,11 +650,76 @@ def train_loop(step: Any, state: Any, batches: Any, *,
                 monitor.observe_step(per_update)
             if hook is not None:
                 hook(record)
+        fetch_per_update = None
         if gp_on:
+            stall = gp.bucket_seconds("data_stall")
+            fetch_per_update = (stall - stall_base) / interval_updates
+            stall_base = stall
             # goodput.* gauges ride the same flush line as train.*.
             gp.record(_live_registry(reg) if record_metrics else None)
+        plane_reg = _live_registry(reg) if record_metrics else None
+        retraces = retraced = None
+        if cp_on and (cp.steady or window_built):
+            # The first observation is the warmup boundary; compile events
+            # after it are steady-state retraces, named.
+            info = cp.observe_flush(plane_reg, goodput_tracker=gp if gp_on else None)
+            if info["steady"] and info["events"]:
+                retraces = info["events"]
+                retraced = ",".join(info["functions"])
+        msum = None
+        if ms_on and stats_host is not None:
+            msum = ms.observe_flush(
+                _modelstats.stats_tree(ms_meta["plans"][0].names, *stats_host),
+                step=updates, registry=plane_reg,
+                batch_examples=interval_examples / interval_updates,
+                workers=ms_meta["workers"])
+        if det_on:
+            events = detector.observe(
+                loss=loss, grad_norm=grad_norm, step_seconds=per_update,
+                fetch_seconds=fetch_per_update, retraces=retraces,
+                retraced=retraced,
+                layer_grad_norms=msum["layers"] if msum else None,
+                nonfinite_layer=msum["nonfinite_layer"] if msum else None,
+                step=updates)
+            for ev in events:
+                if ev["action"] == "halt" and halt_rule is None:
+                    halt_rule = ev["rule"]
+        if exp_on:
+            _post_flush(loss, grad_norm, per_update,
+                        interval_examples / elapsed if elapsed > 0 else 0.0, msum)
         interval_updates = interval_examples = interval_windows = 0
         t_flush = time.perf_counter()
+
+    def _post_flush(loss, grad_norm, per_update, examples_per_sec, msum) -> None:
+        """The flush's numbers on the exporter's ``/status`` boards."""
+        exporter.note_status(updates=updates, examples=examples, epochs=epochs_done,
+                             loss=loss, grad_norm=grad_norm, step_seconds=per_update,
+                             examples_per_sec=examples_per_sec, dispatches=dispatches)
+        if fl_on:
+            # The FLEET board: cumulative attribution ingredients the
+            # collector differences per scrape interval.
+            from ..telemetry import get_registry
+            from ..telemetry.flight_recorder import get_flight_recorder
+
+            fr = get_flight_recorder()
+            comm_total = sum(float(m.get("sum", 0.0)) for m in get_registry().snapshot()
+                             if m.get("name") == "comm.block_seconds")
+            fields: dict[str, Any] = {
+                "updates": updates, "flight_seq": float(fr.sequence),
+                "flight_completed": float(fr.completed_count),
+                "comm_block_seconds": comm_total}
+            if gp_on:
+                rep = gp.report()
+                fields["wall_seconds"] = rep["wall_seconds"]
+                for bucket in ("step", "data_stall", "host_idle"):
+                    fields[f"{bucket}_seconds"] = rep["buckets"].get(bucket, 0.0)
+            exporter.note_fleet(**fields)
+        if msum is not None:
+            # The MODEL board: noise scale, top-k layers, NaN provenance.
+            exporter.note_model(
+                step=updates, noise_scale=msum["noise_scale"],
+                nonfinite_layer=msum["nonfinite_layer"],
+                top=[{"layer": layer, "grad_norm": g} for layer, g in msum["top"]])
 
     def save(pass_counted: bool = False) -> None:
         nonlocal last_saved
@@ -587,10 +732,14 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         write). Returns whether the loop stops here."""
         nonlocal preempted
         at_flush = at_flush or interval_updates >= flush_every
+        # A "halt" anomaly stops the run at the flush that judged it,
+        # without banking the suspect state: the last periodic save holds
+        # the last known-good boundary.
         if at_flush:
             flush()
-        stop = steps is not None and updates >= steps
-        if save_every is not None and updates - last_saved >= save_every:
+        stop = halt_rule is not None or (steps is not None and updates >= steps)
+        if (save_every is not None and halt_rule is None
+                and updates - last_saved >= save_every):
             save()
         if multi:
             if coordinate and at_flush and bool(int(allreduce(
@@ -601,6 +750,7 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         return stop
 
     window_cache = {"hits": 0, "misses": 0}
+    window_compile_seconds = 0.0
     lbs_fused = batches.local_batch_size if fused_w else 0
 
     def window_program(width: int, avals: tuple) -> Any:
@@ -680,6 +830,14 @@ def train_loop(step: Any, state: Any, batches: Any, *,
                     gp.note_updates(width)
                 else:
                     state, out = program(state, staged, perm, pos * lbs_fused)
+                if program.last_compile_seconds > 0:
+                    # This window captured its program: the run's build
+                    # seconds, attributed to train_loop.window.
+                    window_compile_seconds += program.last_compile_seconds
+                    if cp_on:
+                        cp.note_aot_compile("train_loop.window",
+                                            program.last_compile_seconds)
+                window_built = program.built
                 window.append(_Marker(perm.device))
                 if len(window) > in_flight:
                     retire(window.popleft())
@@ -767,7 +925,8 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         raise
     if preempted:
         _tracing.instant("train.preemption", step=int(updates))
-    if preempted and checkpoint is not None and updates > last_saved:
+    if (preempted and checkpoint is not None and updates > last_saved
+            and halt_rule is None):
         save(pass_counted=True)
     if checkpoint is not None:
         checkpoint.wait_until_finished()
@@ -784,15 +943,23 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         "preempted": preempted,
         "resized_to": None,
         "resumed_from": resumed_from,
-        "anomaly": None,
+        "anomaly": halt_rule,
         "dispatches": dispatches,
         "fused_window": fused_w or None,
         "flushes": flushes,
         "step_ms": step_ms,
     }
     if fused_w:
+        summary["window_compile_seconds"] = window_compile_seconds
         summary["window_cache"] = window_cache
     if gp_on:
         gp.record(_live_registry(reg) if record_metrics else None)
         summary["goodput"] = gp.report()
+    if exp_on:
+        # Terminal status: /status keeps answering after the loop exits.
+        exporter.note_status(
+            phase=("preempted" if preempted
+                   else ("halted" if halt_rule else "finished")),
+            updates=updates, examples=examples, epochs=epochs_done, loss=loss,
+            preempted=preempted, anomaly=halt_rule, dispatches=dispatches)
     return state, summary

@@ -28,11 +28,12 @@ each call is a ``train.step`` span, timed by
 once the outputs are complete on the card), a watchdog tick and a record
 into the registry, monitor or hook. ``train_loop`` runs the
 uninstrumented core instead and records the same names at its flush
-boundaries.
+boundaries. ``model_stats=`` builds the model-internals plane's per-layer
+stats into the step (:mod:`~fluxmpi_tpu_torch.telemetry.modelstats`).
 
 Not ported yet (each raises ``NotImplementedError`` when passed):
 ``parallel=``, ``mesh=``, ``axis_name=``, ``style=``, ``donate=``,
-``state_sharding=``, ``batch_spec=`` and ``model_stats=``.
+``state_sharding=`` and ``batch_spec=``.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ __all__ = ["TrainState", "make_eval_step", "make_train_step",
            "make_window_program"]
 
 _WAITING = ("parallel", "mesh", "axis_name", "style", "donate",
-            "state_sharding", "batch_spec", "model_stats")
+            "state_sharding", "batch_spec")
 
 # metrics=True: record into whatever the default registry is at record
 # time (set_registry may swap it after the step is built).
@@ -213,26 +214,38 @@ def _global_norm(grads: dict) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(vals)))
 
 
-def _instrument_step(core: Callable, metrics: Any, scan_steps: int) -> Callable:
-    """Wrap ``core(state, batch) -> (state, (loss, grad_norm))`` into the
-    public ``(state, loss)`` signature, recording telemetry per call: a
-    ``train.step`` span, a :func:`~fluxmpi_tpu_torch.utils.profiling.
-    step_timer` that waits for the loss and the norm before it stops the
-    clock, a watchdog tick, and ``train.step_seconds``, ``train.loss``,
-    ``train.grad_norm``, ``train.examples_per_sec``, ``train.steps`` and
-    ``train.examples`` into the registry (or the monitor's, which also
-    observes the step; or the hook, which gets the record)."""
+def _instrument_step(core: Callable, metrics: Any, scan_steps: int, *,
+                     stats_plans: list | None = None, stats_workers: int = 1) -> Callable:
+    """Wrap ``core(state, batch) -> (state, (loss, grad_norm[,
+    model_stats]))`` into the public ``(state, loss)`` signature,
+    recording telemetry per call: a ``train.step`` span, a
+    :func:`~fluxmpi_tpu_torch.utils.profiling.step_timer` that waits for
+    the loss and the norm before it stops the clock, a watchdog tick, and
+    ``train.step_seconds``, ``train.loss``, ``train.grad_norm``,
+    ``train.examples_per_sec``, ``train.steps`` and ``train.examples``
+    into the registry (or the monitor's, which also observes the step; or
+    the hook, which gets the record). With the model stats built in
+    (``stats_plans``: the step's stats plan, made at its first update), the
+    per-layer stats are copied to the host and
+    emitted per call (``train_loop`` consumes them per flush instead); a
+    ``metrics`` of ``None``/``False`` then records nothing else (the
+    stats-only wrapper)."""
+    from ..telemetry import modelstats as _modelstats
     from ..telemetry import tracing as _tracing
     from ..telemetry.watchdog import notify_progress
     from ..utils.profiling import step_timer
 
-    reg, monitor, hook = _resolve_metrics(metrics)
+    record_metrics = metrics is not None and metrics is not False
+    reg = monitor = hook = None
+    if record_metrics:
+        reg, monitor, hook = _resolve_metrics(metrics)
 
     def step(state, batch):
         holder: dict[str, float] = {}
         with _tracing.span("train.step"):
             with step_timer(holder) as t:
-                new_state, (loss, gnorm) = core(state, batch)
+                new_state, aux = core(state, batch)
+                loss, gnorm = aux[0], aux[1]
                 t.watch((loss, gnorm))
         notify_progress()
         seconds = holder["seconds"]
@@ -242,6 +255,16 @@ def _instrument_step(core: Callable, metrics: Any, scan_steps: int) -> Callable:
             examples = int(leaves[0].shape[0])
             if scan_steps > 1:  # leading axis is scan time, not data
                 examples *= int(leaves[0].shape[1])
+        if stats_plans is not None:
+            ms = _modelstats.get_model_stats()
+            if ms is not None and ms.enabled:
+                ms.observe_flush(
+                    _modelstats.stats_tree(stats_plans[0].names, *aux[2]),
+                    registry=_live_registry(reg) if record_metrics else None,
+                    batch_examples=examples / scan_steps if scan_steps else None,
+                    workers=stats_workers)
+        if not record_metrics:
+            return new_state, loss
         record = {
             "step_seconds": seconds,
             "loss": float(loss.float().mean()),
@@ -279,6 +302,7 @@ def make_train_step(
     remat: bool | str = False,
     policy: Any = None,
     metrics: Any = None,
+    model_stats: Any = None,
     **waiting,
 ) -> Callable[[TrainState, Any], tuple[TrainState, torch.Tensor]]:
     """Build ``step(state, batch) -> (state, loss)``.
@@ -341,11 +365,39 @@ def make_train_step(
     ``train.examples``; the wait serializes the host with the card, so
     drive an instrumented step through ``train_loop``, which records at
     flush boundaries without it. The parameters it computes are the
-    uninstrumented step's, bit for bit."""
+    uninstrumented step's, bit for bit.
+
+    ``model_stats``: build the model-internals plane's per-layer stats
+    into the step (``None``, the default, follows the installed
+    :class:`~fluxmpi_tpu_torch.telemetry.ModelStats` plane —
+    ``init(model_stats=True)`` / ``FLUXMPI_TPU_MODEL_STATS=1``;
+    ``True``/``False`` force it, an int sets the grouping depth):
+    per-layer gradient, parameter and update norms and nonfinite-gradient
+    counts (NaN provenance), grouped by the JAX package's leaf paths at
+    that depth, plus — with a ``grad_reduce`` — the workers' mean
+    pre-all-reduce gradient sq-norm and the reduced gradient's sq-norm
+    that the gradient-noise-scale estimate (B_simple) needs (one more
+    one-element all-reduce per update). Computed from the tensors the
+    step already holds, before the parameters update; the update is
+    untouched (a run with it on is bit-identical to one with it off). The
+    step then also carries the global gradient norm. Consumed at
+    ``train_loop`` flush boundaries (one host copy per flush; in a fused
+    window only the window's last update computes them, inside its CUDA
+    graph) or per call when the step is driven directly."""
     _refuse_waiting("make_train_step", waiting)
     instrument = metrics is not None and metrics is not False
     if instrument:
         _resolve_metrics(metrics)  # reject bad specs at build, not step 1
+    # The model-internals plane, resolved at build time: off, the step
+    # computes nothing extra.
+    from ..telemetry import modelstats as _modelstats
+
+    stats_depth = _modelstats.resolve_step_spec(model_stats)
+    stats_on = stats_depth is not None
+    noise_on = stats_on and grad_reduce in ("mean", "sum")
+    stats_workers = runtime.total_workers() if runtime.is_initialized() else 1
+    plans: list = []  # the StatsPlan, made from the first update's params
+    carry_norm = instrument or stats_on
     watch = _CastWatch()
     loss_fn = _with_policy_and_remat(loss_fn, policy, remat, watch)
     if grad_reduce not in ("mean", "sum", None):
@@ -377,52 +429,92 @@ def make_train_step(
             loss_sum = loss_sum / grad_accum_steps
         return dict(zip(keys, acc)), loss_sum, mstate
 
-    def single(ts: TrainState, batch):
-        """One update: ``(state, loss, grad_norm)``, the norm None unless
-        the step is instrumented."""
+    def single(ts: TrainState, batch, want_stats: bool | None = None):
+        """One update: ``(state, loss, grad_norm, model_stats)``, the norm
+        None unless the step carries it, the stats None unless the step
+        has them and ``want_stats`` (default: the step's own setting)
+        asks: ``(table, noise)``, the
+        :func:`~fluxmpi_tpu_torch.telemetry.modelstats.stats_tensor` of
+        this update and its ``[2]`` noise ingredients (or None)."""
+        want = stats_on if want_stats is None else (stats_on and want_stats)
         grads, loss, mstate = grads_of(ts, batch)
+        local_sq = _global_norm(grads).square() if want and noise_on else None
         if grad_reduce is not None:
             # The loss rides in the gradients' flat f32 collective.
             grads, loss = allreduce_gradients((grads, loss), reduce_op=grad_reduce)
-        gnorm = _global_norm(grads) if instrument else None
+        gnorm = _global_norm(grads) if carry_norm else None
         if state_reduce == "mean" and mstate is not None and runtime.is_initialized():
             mstate = _mean_floating(mstate)
         updates, ts.opt_state = optimizer.update(grads, ts.opt_state, ts.params)
+        stats = None
+        if want:
+            # Read before the parameters update in place (the μP ratio's
+            # denominator is the pre-update norm).
+            if not plans:
+                plans.append(_modelstats.StatsPlan(ts.params, stats_depth))
+            table = _modelstats.stats_tensor(plans[0], grads, ts.params, updates)
+            noise = None
+            if noise_on:
+                # Each worker's pre-all-reduce sq-norm, averaged over the
+                # workers, and the reduced gradient's; a summed gradient
+                # is workers x the mean, so its sq-norm is rescaled.
+                (local_mean,) = allreduce_gradients([local_sq.reshape(1)],
+                                                    reduce_op="mean")
+                global_sq = gnorm.square()
+                if grad_reduce == "sum":
+                    global_sq = global_sq / float(stats_workers) ** 2
+                noise = torch.stack([local_mean.reshape(()), global_sq])
+            stats = (table, noise)
         apply_updates(ts.params, updates)
         ts.model_state = mstate
         ts.step += 1
-        return ts, loss, gnorm
+        return ts, loss, gnorm, stats
 
-    def aux(loss, gnorm):
-        return (loss, gnorm) if instrument else loss
+    def aux(loss, gnorm, stats):
+        if not carry_norm:
+            return loss
+        return (loss, gnorm, stats) if stats_on else (loss, gnorm)
 
     if scan_steps == 1:
         def core(ts: TrainState, batch):
-            ts, loss, gnorm = single(ts, batch)
-            return ts, aux(loss, gnorm)
+            ts, loss, gnorm, stats = single(ts, batch)
+            return ts, aux(loss, gnorm, stats)
     else:
         def core(ts: TrainState, batches):
             losses, norms = [], []
             for i in range(scan_steps):
-                ts, loss, gnorm = single(ts, pytree.tree_map(lambda x: x[i], batches))
+                # The stats describe the newest update, as a flush reads.
+                ts, loss, gnorm, stats = single(
+                    ts, pytree.tree_map(lambda x: x[i], batches),
+                    want_stats=i == scan_steps - 1)
                 losses.append(loss)
                 norms.append(gnorm)
             return ts, aux(torch.stack(losses),
-                           torch.stack(norms) if instrument else None)
+                           torch.stack(norms) if carry_norm else None, stats)
 
-    step = _instrument_step(core, metrics, scan_steps) if instrument else core
-    step.scan_steps = scan_steps  # read by train_loop
-    if instrument:
+    if carry_norm:
+        step = _instrument_step(core, metrics if instrument else False, scan_steps,
+                                stats_plans=plans if stats_on else None,
+                                stats_workers=stats_workers)
         # train_loop drives the uninstrumented core (a per-step wait is
         # what it exists to avoid) and honours the spec at its flushes.
         step.__fluxmpi_compiled__ = core
-        step.__fluxmpi_metrics__ = metrics
+        step.__fluxmpi_metrics__ = metrics if instrument else None
+    else:
+        step = core
+    step.scan_steps = scan_steps  # read by train_loop
+    aux_names = ("loss", "grad_norm") if carry_norm else ("loss",)
+    if stats_on:
+        aux_names += ("model_stats",)
+        # What train_loop needs to turn the flushed stats into the plane's
+        # tree: the plan the first update makes (its group names) and the
+        # worker count the noise scale divides by.
+        core.__fluxmpi_model_stats_meta__ = {
+            "depth": stats_depth, "workers": stats_workers, "plans": plans}
     # What make_window_program needs to fuse this step's math into a flush
     # window: the single-update body (the window sequences updates itself,
     # so a scan_steps wrapper is irrelevant there) and the aux it carries.
-    step.__fluxmpi_window_meta__ = {
-        "single": single,
-        "aux": ("loss", "grad_norm") if instrument else ("loss",)}
+    step.__fluxmpi_window_meta__ = {"single": single, "aux": aux_names}
     return step
 
 
@@ -461,7 +553,10 @@ class WindowProgram:
     update's, the value the pipelined flush reports), ``loss_sum`` and
     ``loss_max`` over the window (the sum in update order, in f32), and,
     for an instrumented step, ``grad_norm`` (the last update's; on the
-    card a device output the graph writes).
+    card a device output the graph writes); for a step with the model
+    stats built in, also ``model_stats`` (the last update's
+    ``[groups, 4]`` table) and ``noise`` (its ``[2]`` noise ingredients,
+    where the step has them), computed by the last update only.
 
     On the CPU each call runs the window eagerly. On the card the first
     call runs it eagerly as real updates on the program's capture stream
@@ -481,14 +576,22 @@ class WindowProgram:
     those rises over every capture. A replay launches the graph's kernels
     without the wrappers; ``replayed_launches`` adds the replayed graph's
     ``captured_launches`` on every replay. So the device ran the wrappers'
-    counts ``- capture_counted + replayed_launches``."""
+    counts ``- capture_counted + replayed_launches``.
+
+    ``built``: whether the program has finished building (on the card: its
+    graph is captured; on the CPU: it has run once), which ``train_loop``
+    reads for the compile plane's warmup boundary. Every capture is
+    reported to the compile plane as a compile event."""
 
     def __init__(self, single: Callable, width: int, lbs: int,
                  aux: tuple = ("loss",)):
         self.single = single
         self.width = width
-        # The metric names, in the order of the captured output's rows.
-        self.names = ("loss", "loss_sum", "loss_max") + tuple(aux[1:])
+        # The scalar metric names, in the order of the captured output's
+        # rows; the model stats are outputs of their own.
+        self.names = ("loss", "loss_sum", "loss_max") + tuple(
+            a for a in aux[1:] if a != "model_stats")
+        self.stats = "model_stats" in aux
         self.lbs = lbs
         self.replays = 0
         self.captured_launches: dict[str, int] = {}
@@ -504,6 +607,7 @@ class WindowProgram:
         self.flops: float | None = None
         self.graph = None
         self._warm = False
+        self._cpu = False
         self._stream = None
         self._bound: tuple = ()
         self._generators: list = []
@@ -513,24 +617,35 @@ class WindowProgram:
         loss_sum = torch.zeros((), dtype=torch.float32, device=perm.device)
         loss_max = torch.full((), float("-inf"), dtype=torch.float32,
                               device=perm.device)
-        gnorm = None
+        gnorm = stats = None
         for i in range(self.width):
             batch = _gather_batch(data, perm, start + i * self.lbs, self.lbs)
-            ts, loss, gnorm = self.single(ts, batch)
+            # The model stats describe the window's last update, as the
+            # pipelined flush reads them.
+            ts, loss, gnorm, stats = self.single(ts, batch,
+                                                 want_stats=i == self.width - 1)
             loss = loss.detach().float().reshape(())
             loss_sum = loss_sum + loss
             loss_max = torch.maximum(loss_max, loss)
         metrics = {"loss": loss, "loss_sum": loss_sum, "loss_max": loss_max}
         if gnorm is not None:
             metrics["grad_norm"] = gnorm.detach().float().reshape(())
+        if stats is not None:
+            metrics["model_stats"] = stats[0]
+            if stats[1] is not None:
+                metrics["noise"] = stats[1]
         return ts, metrics
+
+    @property
+    def built(self) -> bool:
+        return self.graph is not None or (self._cpu and self._warm)
 
     def __call__(self, ts: TrainState, data: Any, perm: torch.Tensor,
                  start: int):
         dev = perm.device
         self.last_compile_seconds = 0.0
         if dev.type != "cuda":
-            self._warm = True
+            self._warm = self._cpu = True
             at = torch.full((), int(start), dtype=torch.int64, device=dev)
             return self._run(ts, data, perm, at)
         if not self._warm:
@@ -557,8 +672,10 @@ class WindowProgram:
         self.replays += 1
         self.replayed_launches.update(self.captured_launches)
         ts.step += self.width
-        out = self._out.clone()
-        return ts, dict(zip(self.names, out))
+        metrics = dict(zip(self.names, self._out.clone()))
+        for name, buf in self._extra.items():
+            metrics[name] = buf.clone()
+        return ts, metrics
 
     def _capture(self, ts: TrainState, data: Any, perm: torch.Tensor) -> None:
         dev = perm.device
@@ -577,28 +694,37 @@ class WindowProgram:
                     "graph, so every replay would repeat the captured draws; "
                     "run this step with train_loop(fuse=False)")
             graph.register_generator_state(gen)
-        t0 = time.perf_counter()
-        try:
-            # thread_local: a checkpoint writer or NCCL's watchdog may use
-            # CUDA on their own threads while this one captures.
-            with torch.cuda.graph(graph, stream=self._stream,
-                                  capture_error_mode="thread_local"):
-                ts, metrics = self._run(ts, data, self._perm, self._start)
-                # The carried model state returns to the tensors the graph
-                # reads, so each replay starts from the last one's.
-                for src, dst in zip(pytree.tree_leaves(ts.model_state),
-                                    pytree.tree_leaves(mstate0)):
-                    if torch.is_tensor(dst):
-                        dst.copy_(src)
-                self._out = torch.stack([metrics[k] for k in self.names])
-        except Exception as exc:
-            raise RuntimeError(
-                f"capturing the {self.width}-update window as a CUDA graph "
-                f"failed ({exc}); the step must run without reading device "
-                f"values on the host") from exc
-        finally:
-            ts.step, ts.model_state = step0, mstate0
-        self.capture_seconds += time.perf_counter() - t0
+        from ..telemetry import compileplane
+        from ..utils.profiling import capture_lock
+
+        # No profiler starts or stops while the graph is captured.
+        with capture_lock:
+            t0 = time.perf_counter()
+            try:
+                # thread_local: a checkpoint writer or NCCL's watchdog may
+                # use CUDA on their own threads while this one captures.
+                with torch.cuda.graph(graph, stream=self._stream,
+                                      capture_error_mode="thread_local"):
+                    ts, metrics = self._run(ts, data, self._perm, self._start)
+                    # The carried model state returns to the tensors the
+                    # graph reads, so each replay starts from the last one's.
+                    for src, dst in zip(pytree.tree_leaves(ts.model_state),
+                                        pytree.tree_leaves(mstate0)):
+                        if torch.is_tensor(dst):
+                            dst.copy_(src)
+                    self._out = torch.stack([metrics[k] for k in self.names])
+                    self._extra = {k: metrics[k] for k in ("model_stats", "noise")
+                                   if k in metrics}
+            except Exception as exc:
+                raise RuntimeError(
+                    f"capturing the {self.width}-update window as a CUDA graph "
+                    f"failed ({exc}); the step must run without reading device "
+                    f"values on the host") from exc
+            finally:
+                ts.step, ts.model_state = step0, mstate0
+            seconds = time.perf_counter() - t0
+        self.capture_seconds += seconds
+        compileplane.note_duration(compileplane.CAPTURE_EVENT, seconds)
         after = _launch_counts()
         self.captured_launches = {k: after[k] - before[k] for k in after}
         self.capture_counted.update(self.captured_launches)

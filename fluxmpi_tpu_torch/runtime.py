@@ -35,6 +35,7 @@ __all__ = [
     "Initialized",
     "clear_preemption",
     "device_count",
+    "enable_compile_cache",
     "init",
     "install_preemption_handlers",
     "is_initialized",
@@ -87,9 +88,7 @@ class _State:
 _state = _State()
 
 # init() arguments of the JAX package whose machinery is not ported yet.
-_WAITING = ("devices", "mesh_shape", "parallel", "distributed", "anomaly",
-            "model_stats", "compileplane", "profile", "compile_cache", "export",
-            "fleet", "resize")
+_WAITING = ("devices", "mesh_shape", "parallel", "distributed", "resize")
 
 _PREEMPTION_ENV = "FLUXMPI_TPU_PREEMPTION"
 _SIGNALS_BY_NAME = {
@@ -126,20 +125,93 @@ def _configure_preemption(spec: Any = None) -> None:
     install_preemption_handlers(_SIGNALS_BY_NAME[spec])
 
 
+# ---------------------------------------------------------------------------
+# Persistent store of compiled kernels: the counterpart of the JAX
+# package's persistent XLA compilation cache. Repeat runs, and every
+# process that shares the directory, load the kernels' libraries instead
+# of running nvcc again.
+# ---------------------------------------------------------------------------
+
+_COMPILE_CACHE_ENV = "FLUXMPI_TPU_COMPILE_CACHE"
+
+
+def enable_compile_cache(cache_dir: str | None = None) -> bool:
+    """Build and load the CUDA kernels' libraries under ``cache_dir``
+    (default ``FLUXMPI_TPU_COMPILE_CACHE``, else the package's own
+    ``ops/_build/``), so repeat runs skip ``nvcc``. Returns True when
+    enabled.
+
+    On the card only: a run on the CPU builds no kernel, so there it is a
+    no-op (with a warning when the cache was explicitly requested), as
+    the JAX package's cache is off the TPU."""
+    from .ops import _build
+
+    explicit = cache_dir is not None or bool(os.environ.get(_COMPILE_CACHE_ENV))
+    if cache_dir is None:
+        cache_dir = os.environ.get(_COMPILE_CACHE_ENV) or None
+    on_card = (_state.device.type == "cuda" if _state.initialized
+               else torch.cuda.is_available())
+    if not on_card:
+        if explicit:
+            warnings.warn(
+                "persistent compile cache skipped: this run is on the CPU, "
+                "which builds no CUDA kernel; the cache holds the kernels' "
+                "libraries for the card",
+                stacklevel=2,
+            )
+        return False
+    _build.set_build_dir(cache_dir)
+    return True
+
+
+def _configure_compile_cache(spec: Any = None) -> None:
+    """Wire the persistent compile cache from a one-value spec (mirror of
+    ``telemetry.configure``): ``None`` reads ``FLUXMPI_TPU_COMPILE_CACHE``
+    (no-op when unset); a path string enables the cache there;
+    ``True``/``"1"`` enables the default location; ``False``/``"0"`` is a
+    no-op (libraries already loaded stay loaded)."""
+    if spec is None:
+        spec = os.environ.get(_COMPILE_CACHE_ENV)
+        if spec is None or spec == "":
+            return
+    if spec is False or spec == "0":
+        return
+    if spec is True or spec == "1":
+        enable_compile_cache()
+        return
+    if isinstance(spec, str):
+        enable_compile_cache(spec)
+        return
+    raise ValueError(
+        f"compile_cache spec must be a bool, '0'/'1', or a directory "
+        f"path; got {spec!r}"
+    )
+
+
 def _configure_planes(telemetry: Any, trace: Any, watchdog: Any,
-                      preemption: Any, faults: Any, goodput: Any, memory: Any,
-                      serving: Any, request_log: Any) -> None:
-    """Wire the telemetry, fault-tolerance, serving and request-log planes
-    in the JAX package's order (each from its argument, else its
-    environment variable)."""
+                      preemption: Any, faults: Any, goodput: Any, anomaly: Any,
+                      model_stats: Any, compileplane: Any, memory: Any,
+                      profile: Any, compile_cache: Any, export: Any,
+                      serving: Any, request_log: Any, fleet: Any) -> None:
+    """Wire the telemetry, fault-tolerance, run-health, device, export,
+    serving and fleet planes in the JAX package's order (each from its
+    argument, else its environment variable). The fleet plane comes after
+    the exporter: its collector's default target is this process's own
+    exporter."""
     from . import faults as _faults
     from . import serving as _serving
     from . import telemetry as _telemetry
     from .serving import observe as _serving_observe
+    from .telemetry import anomaly as _anomaly
+    from .telemetry import compileplane as _compileplane
+    from .telemetry import export as _export
+    from .telemetry import fleet as _fleet
     from .telemetry import goodput as _goodput
     from .telemetry import memory as _memory
+    from .telemetry import modelstats as _modelstats
     from .telemetry import tracing as _tracing
     from .telemetry import watchdog as _watchdog
+    from .utils import profiling as _profiling
 
     _telemetry.configure(telemetry)
     _tracing.configure(trace)
@@ -147,9 +219,16 @@ def _configure_planes(telemetry: Any, trace: Any, watchdog: Any,
     _configure_preemption(preemption)
     _faults.configure(faults)
     _goodput.configure(goodput)
+    _anomaly.configure(anomaly)
+    _modelstats.configure(model_stats)
+    _compileplane.configure(compileplane)
     _memory.configure(memory)
+    _profiling.configure_auto_profiler(profile)
+    _configure_compile_cache(compile_cache)
+    _export.configure(export)
     _serving.configure(serving)
     _serving_observe.configure(request_log)
+    _fleet.configure(fleet)
 
 
 def init(*, device: str | torch.device | None = None,
@@ -158,8 +237,10 @@ def init(*, device: str | torch.device | None = None,
          timeout: float = 600.0,
          verbose: bool = False, telemetry: Any = None, trace: Any = None,
          watchdog: Any = None, preemption: Any = None, faults: Any = None,
-         goodput: Any = None, memory: Any = None,
-         serving: Any = None, request_log: Any = None,
+         goodput: Any = None, anomaly: Any = None, model_stats: Any = None,
+         compileplane: Any = None, memory: Any = None, profile: Any = None,
+         compile_cache: Any = None, export: Any = None,
+         serving: Any = None, request_log: Any = None, fleet: Any = None,
          **waiting) -> torch.device:
     """Bring up the data-parallel world; returns this worker's device.
     Idempotent: a second call returns the same device.
@@ -198,11 +279,29 @@ def init(*, device: str | torch.device | None = None,
     plane; ``FLUXMPI_TPU_SERVING``); ``request_log`` — ``True`` or a JSONL
     path for the per-request records (``{process}`` formatted; ``False``
     uninstalls; ``FLUXMPI_TPU_REQUEST_LOG``).
+    The run-health, device and live-export planes: ``anomaly`` — ``True``
+    (NaN rules halt, the rest warn), ``"warn"`` or an
+    :class:`~fluxmpi_tpu_torch.telemetry.AnomalyDetector`, bundles in
+    ``FLUXMPI_TPU_ANOMALY_DIR`` (``FLUXMPI_TPU_ANOMALY``); ``model_stats``
+    — ``True``, a grouping depth or a
+    :class:`~fluxmpi_tpu_torch.telemetry.ModelStats`
+    (``FLUXMPI_TPU_MODEL_STATS``, ``_DEPTH``, ``_TOPK``); ``compileplane``
+    — ``True`` for the compile monitor (``FLUXMPI_TPU_COMPILEPLANE``);
+    ``profile`` — a directory for anomaly-triggered ``torch.profiler``
+    captures (``FLUXMPI_TPU_PROFILE_DIR``, ``_SECONDS``, ``_LIMIT``);
+    ``compile_cache`` — ``True`` or a directory for the kernels' built
+    libraries (:func:`enable_compile_cache`; ``FLUXMPI_TPU_COMPILE_CACHE``);
+    ``export`` — ``True``, a port or an
+    :class:`~fluxmpi_tpu_torch.telemetry.Exporter` for ``/metrics``,
+    ``/status`` and ``/healthz`` (``FLUXMPI_TPU_EXPORT_PORT``, ``_ADDR``);
+    ``fleet`` — ``True``, a snapshot-bank path or a
+    :class:`~fluxmpi_tpu_torch.telemetry.FleetCollector`
+    (``FLUXMPI_TPU_FLEET``, ``_HOSTS``, ``_INTERVAL``). ``False`` turns
+    each one off.
 
     Not ported yet (each raises ``NotImplementedError`` when passed):
-    device lists and mesh shapes, ``parallel=``, ``distributed=``, the
-    compile cache, and the anomaly, model-stats, compile, profile, export,
-    fleet and resize planes.
+    device lists and mesh shapes, ``parallel=``, ``distributed=`` and the
+    resize plane.
     """
     passed = sorted(k for k, v in waiting.items() if v is not None)
     unknown = [k for k in passed if k not in _WAITING]
@@ -210,12 +309,13 @@ def init(*, device: str | torch.device | None = None,
         raise TypeError(f"init() got unexpected arguments {unknown}")
     refuse_unported("init", {k: True for k in passed},
                     "the port has no device mesh or parallel plans, and its "
-                    "anomaly, model-stats, compile, profile, export, fleet, "
-                    "resize and compile-cache planes are not ported; it runs one "
-                    "process per device with torch.distributed")
+                    "resize plane is not ported; it runs one process per "
+                    "device with torch.distributed")
+    planes = (telemetry, trace, watchdog, preemption, faults, goodput, anomaly,
+              model_stats, compileplane, memory, profile, compile_cache, export,
+              serving, request_log, fleet)
     if _state.initialized:
-        _configure_planes(telemetry, trace, watchdog, preemption, faults, goodput,
-                          memory, serving, request_log)
+        _configure_planes(*planes)
         return _state.device
     want = resolve_device(device)
     cpu = want.type == "cpu"
@@ -266,8 +366,7 @@ def init(*, device: str | torch.device | None = None,
     _state.owns_group = not adopt
     _state.device = dev
     _state.rank, _state.world, _state.local_rank = rank, world, lr
-    _configure_planes(telemetry, trace, watchdog, preemption, faults, goodput,
-                      memory, serving, request_log)
+    _configure_planes(*planes)
     if verbose:
         if world == 1:
             warnings.warn(

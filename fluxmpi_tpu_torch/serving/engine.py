@@ -29,8 +29,13 @@ The loop is host-driven: one forward and one small device-to-host token
 copy per iteration, with admission, delivery, eviction and the
 preemption poll between iterations. :meth:`InferenceEngine.run` drives it
 inline; :meth:`InferenceEngine.start` on a background thread. The
-registry and the request observer are resolved once per run: with both
-off, an iteration reads two booleans. The ``serving.admit`` and
+registry, the request observer and the live exporter are resolved once per
+run: with all off, an iteration reads a few booleans. At each flush the
+engine posts its board to the exporter's ``/status`` ``serving`` section
+and feeds the request observer's multi-window SLO burn rate to the anomaly
+detector's ``slo_burn`` rule. The decode step and each prefill bucket are
+tracked by the compile monitor (eager callables: untracked, so only the
+kernel builds they set off count). The ``serving.admit`` and
 ``serving.decode`` fault sites sit in :meth:`InferenceEngine.submit` and
 the decode tick.
 
@@ -478,8 +483,18 @@ class InferenceEngine:
         self._counted_steps = 0
         self._counted_tokens = 0
         self._counted_records = 0
+        self._buckets: set[int] = set()
+        mon = self._compile_monitor()
+        if mon is not None:
+            mon.track("serving.decode_step", self._decode_step)
         self._resolve_run()
         set_engine(self)
+
+    @staticmethod
+    def _compile_monitor():
+        from ..telemetry.compileplane import get_compile_monitor
+
+        return get_compile_monitor()
 
     def _bucket(self, plen: int) -> int:
         """Prompt lengths round up to a block multiple."""
@@ -495,6 +510,11 @@ class InferenceEngine:
         block); returns the first generated token."""
         dev = self.device
         bs = self.block_size
+        if tokens.shape[0] not in self._buckets:
+            self._buckets.add(tokens.shape[0])
+            mon = self._compile_monitor()
+            if mon is not None:
+                mon.track(f"serving.prefill_{tokens.shape[0]}", self._prefill_step)
         toks = torch.from_numpy(tokens).to(dev).long()[None]
         logits, k, v = self.model(toks, train=False, return_kv=True,
                                   attention=self.attention)
@@ -787,40 +807,81 @@ class InferenceEngine:
             # not hide a co-resident training loop's stall.
             notify_progress(1)
         if admitted or (ticked and self._decode_steps % self.flush_every == 0):
-            self._observe()
+            self._observe(phase="running")
         return bool(admitted) or ticked
 
-    def _observe(self) -> None:
-        """Refresh the gauges and add the counters' deltas (resolved once
-        per run: nothing on the fully-off path)."""
-        if not self._record:
-            return
-        reg = self._reg
-        reg.gauge("serving.queue_depth").set(self.queue_depth)
-        reg.gauge("serving.active_sequences").set(self.active_count)
-        reg.gauge("serving.kv_blocks_in_use").set(self.cache.used_blocks)
-        reg.gauge("serving.kv_blocks_free").set(self.cache.free_blocks)
-        reg.gauge("serving.kv_high_watermark_blocks").set(
-            self.cache.high_watermark_blocks)
-        reg.gauge("serving.kv_fragmentation").set(self.cache.fragmentation)
-        reg.counter("serving.decode_steps").inc(self._decode_steps - self._counted_steps)
-        reg.counter("serving.tokens_generated").inc(self._tokens - self._counted_tokens)
-        self._counted_steps = self._decode_steps
-        self._counted_tokens = self._tokens
+    def _observe(self, phase: str) -> None:
+        """Refresh the gauges, add the counters' deltas, feed the anomaly
+        plane and post the exporter's board (resolved once per run:
+        nothing on the fully-off path)."""
         obs = self._observer
+        if self._record:
+            reg = self._reg
+            reg.gauge("serving.queue_depth").set(self.queue_depth)
+            reg.gauge("serving.active_sequences").set(self.active_count)
+            reg.gauge("serving.kv_blocks_in_use").set(self.cache.used_blocks)
+            reg.gauge("serving.kv_blocks_free").set(self.cache.free_blocks)
+            reg.gauge("serving.kv_high_watermark_blocks").set(
+                self.cache.high_watermark_blocks)
+            reg.gauge("serving.kv_fragmentation").set(self.cache.fragmentation)
+            reg.counter("serving.decode_steps").inc(
+                self._decode_steps - self._counted_steps)
+            reg.counter("serving.tokens_generated").inc(
+                self._tokens - self._counted_tokens)
+            self._counted_steps = self._decode_steps
+            self._counted_tokens = self._tokens
+            if obs is not None:
+                for w, rate in obs.burn.burn_rates().items():
+                    reg.gauge("serving.slo_burn_rate", window=f"{w:g}").set(rate)
+                reg.counter("serving.requests_logged").inc(
+                    obs.records - self._counted_records)
+                self._counted_records = obs.records
         if obs is not None:
-            for w, rate in obs.burn.burn_rates().items():
-                reg.gauge("serving.slo_burn_rate", window=f"{w:g}").set(rate)
-            reg.counter("serving.requests_logged").inc(obs.records - self._counted_records)
-            self._counted_records = obs.records
+            # The multi-window alert rate (both windows burning) feeds the
+            # anomaly plane; the slo_burn rule owns the threshold and the
+            # policy.
+            rate = obs.burn.alert_rate()
+            if rate is not None:
+                from ..telemetry.anomaly import get_anomaly_detector
+
+                det = get_anomaly_detector()
+                if det is not None and det.enabled:
+                    det.observe(slo_burn=rate, step=self._decode_steps)
+        if self._exporter is not None:
+            total = self.cache.num_blocks - 1
+            board: dict[str, Any] = dict(
+                phase=phase,
+                continuous=self.continuous,
+                slots=self.slots,
+                active=self.active_count,
+                queued=self.queue_depth,
+                completed=self._completed,
+                rejected=self._rejected,
+                drained=self._drained,
+                decode_steps=self._decode_steps,
+                tokens=self._tokens,
+                kv_blocks_in_use=self.cache.used_blocks,
+                kv_blocks_total=total,
+                kv_util=(self.cache.used_blocks / total) if total else 0.0,
+                kv_high_watermark=self.cache.high_watermark_blocks,
+                kv_fragmentation=self.cache.fragmentation,
+                slo_violations=self._slo_violations,
+            )
+            if obs is not None:
+                board.update(obs.board())
+            self._exporter.note_serving(**board)
 
     def _resolve_run(self) -> None:
         """Resolve, once per run, every observability surface the loop
         touches. The ``_counted_*`` baselines live for the engine's
         lifetime, so ticks between the last update and a switch from
         start() to run() still reach the registry at the next one."""
+        from ..telemetry.export import get_exporter
+
         self._reg = self._live_registry()
         self._record = bool(getattr(self._reg, "enabled", True))
+        exp = get_exporter()
+        self._exporter = exp if (exp is not None and exp.enabled) else None
         obs = _observe_mod.get_request_observer()
         self._observer = obs if (obs is not None and obs.enabled) else None
 
@@ -847,7 +908,7 @@ class InferenceEngine:
         self._resolve_run()
         t0 = self._clock()
         tokens0 = self._tokens
-        self._observe()
+        self._observe(phase="running")
         while True:
             worked = self._iteration()
             if not worked and self.active_count == 0 and (
@@ -857,7 +918,7 @@ class InferenceEngine:
 
     def _finish_run(self, t0: float, tokens0: int) -> dict[str, Any]:
         wall = self._clock() - t0
-        self._observe()
+        self._observe(phase="preempted" if self._preempted else "finished")
         if self._record and self._reg.sinks:
             self._reg.flush()
         return {

@@ -22,20 +22,32 @@ unchanged).
   watchdog` — a stall detector that dumps every thread's stack and the
   flight ring.
 - **Run health**: :mod:`~fluxmpi_tpu_torch.telemetry.goodput` — wall
-  time by bucket and live MFU.
+  time by bucket and live MFU; :mod:`~fluxmpi_tpu_torch.telemetry.anomaly`
+  — :class:`AnomalyDetector`, NaN / loss-spike / step-time / data-stall /
+  retrace / per-layer / SLO-burn / straggler rules with warn/halt
+  policies, ``anomaly.*`` instants and a diagnostics bundle.
+- **Model internals**: :mod:`~fluxmpi_tpu_torch.telemetry.modelstats` —
+  per-layer gradient/parameter/update norms, NaN provenance and the
+  gradient noise scale, computed in the step.
+- **Device**: :mod:`~fluxmpi_tpu_torch.telemetry.compileplane` — kernel
+  builds and CUDA-graph captures as compile events, attributed to the
+  tracked programs (``steady_state_retrace``); anomaly-triggered
+  ``torch.profiler`` captures (:mod:`fluxmpi_tpu_torch.utils.profiling`).
 - **Memory**: :mod:`~fluxmpi_tpu_torch.telemetry.memory` — the CUDA
   allocator's ``memory.*`` gauges, a live-tensor census and the OOM
   bundle.
+- **Live export**: :mod:`~fluxmpi_tpu_torch.telemetry.export` —
+  :class:`Exporter`, Prometheus ``/metrics``, ``/status`` and
+  ``/healthz``; :mod:`~fluxmpi_tpu_torch.telemetry.fleet` —
+  :class:`FleetCollector`, the cross-host collector and its straggler
+  attribution.
 
 Recording is on by default for metrics and the flight recorder (an
 update is a few dict/deque operations); spans, the watchdog, goodput and
-the memory plane are opt-in. Emission is opt-in through
+the other planes are opt-in. Emission is opt-in through
 :func:`configure`, ``fluxmpi_tpu_torch.init(telemetry=...)`` or
 ``FLUXMPI_TPU_TELEMETRY``. Importing this package initializes neither
 CUDA nor a process group.
-
-Not ported yet: the anomaly, model-stats, compile, export and fleet
-planes.
 """
 
 from __future__ import annotations
@@ -99,7 +111,37 @@ from .goodput import (  # noqa: F401
     get_goodput_tracker,
     set_goodput_tracker,
 )
+from . import anomaly  # noqa: F401
+from .anomaly import (  # noqa: F401
+    AnomalyDetector,
+    get_anomaly_detector,
+    set_anomaly_detector,
+)
+from . import modelstats  # noqa: F401
+from .modelstats import (  # noqa: F401
+    ModelStats,
+    get_model_stats,
+    set_model_stats,
+)
+from . import compileplane  # noqa: F401
+from .compileplane import (  # noqa: F401
+    CompileMonitor,
+    get_compile_monitor,
+    set_compile_monitor,
+)
 from . import memory  # noqa: F401
+from . import export  # noqa: F401
+from .export import (  # noqa: F401
+    Exporter,
+    get_exporter,
+    set_exporter,
+)
+from . import fleet  # noqa: F401
+from .fleet import (  # noqa: F401
+    FleetCollector,
+    get_fleet_collector,
+    set_fleet_collector,
+)
 
 __all__ = [
     "Counter",
@@ -140,6 +182,21 @@ __all__ = [
     "GoodputTracker",
     "get_goodput_tracker",
     "set_goodput_tracker",
+    "AnomalyDetector",
+    "get_anomaly_detector",
+    "set_anomaly_detector",
+    "ModelStats",
+    "get_model_stats",
+    "set_model_stats",
+    "CompileMonitor",
+    "get_compile_monitor",
+    "set_compile_monitor",
+    "Exporter",
+    "get_exporter",
+    "set_exporter",
+    "FleetCollector",
+    "get_fleet_collector",
+    "set_fleet_collector",
     "configure",
     "shutdown",
 ]
@@ -200,13 +257,16 @@ def shutdown() -> None:
     """Tear down the planes in failure-safe order: reset the serving plane
     first (engine stopped, pending requests rejected, KV pools dropped: it
     posts into every surface below), then the request-observability plane
-    (request log closed, burn windows cleared), disarm the watchdog,
-    export the trace ring (when a path was configured), then reset the
-    tracer and the flight recorder's ring, reset the goodput window and
-    the memory plane (state left armed would leak into the next init
-    cycle), then flush and detach every sink on the default registry
-    (instruments survive — a re-configured registry keeps its cumulative
-    counters)."""
+    (request log closed, burn windows cleared), stop the fleet collector
+    (its thread scrapes the exporters), stop the live exporter (socket
+    closed, serving thread joined: the port is free at once), disarm the
+    watchdog, export the trace ring (when a path was configured), then
+    reset the tracer and the flight recorder's ring, reset the run-health
+    planes (goodput window, anomaly detector), the model-internals plane
+    and the device planes (compile monitor, memory plane, auto-profiler:
+    state left armed would leak into the next init cycle), then flush and
+    detach every sink on the default registry (instruments survive — a
+    re-configured registry keeps its cumulative counters)."""
     try:
         from ..serving import shutdown as _serving_shutdown
 
@@ -217,6 +277,14 @@ def shutdown() -> None:
         from ..serving import observe as _serving_observe
 
         _serving_observe.shutdown()
+    except Exception:
+        pass
+    try:
+        fleet.shutdown()
+    except Exception:
+        pass
+    try:
+        export.shutdown()
     except Exception:
         pass
     try:
@@ -241,7 +309,25 @@ def shutdown() -> None:
     except Exception:
         pass
     try:
+        anomaly.shutdown()
+    except Exception:
+        pass
+    try:
+        modelstats.shutdown()
+    except Exception:
+        pass
+    try:
+        compileplane.shutdown()
+    except Exception:
+        pass
+    try:
         memory.shutdown()
+    except Exception:
+        pass
+    try:
+        from ..utils.profiling import shutdown_auto_profiler
+
+        shutdown_auto_profiler()
     except Exception:
         pass
     get_registry().close()

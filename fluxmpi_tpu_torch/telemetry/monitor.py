@@ -166,11 +166,29 @@ class TrainingMonitor:
                 if wall > 0
                 else 0.0
             )
+        # The fleet plane rides the SAME gather (env/init-driven like
+        # the other riders, hence SPMD-consistent): each host's
+        # cumulative collective block time and flight-recorder launch
+        # sequence travel next to its step time, and the cross-host
+        # skew ingredients (max − min) cost zero extra collectives.
+        from . import fleet as _fleet
+
+        local_comm: float | None = None
+        local_seq: float | None = None
+        if _fleet.enabled():
+            total = 0.0
+            for m in self.registry.snapshot():
+                if m.get("name") == "comm.block_seconds":
+                    total += float(m.get("sum", 0.0))
+            local_comm = total
+            from .flight_recorder import get_flight_recorder
+
+            local_seq = float(get_flight_recorder().sequence)
         from .. import runtime
 
         nproc = runtime.process_count() if runtime.is_initialized() else 1
         if self.cross_host and nproc > 1:
-            # ONE gather of the (1- to 3-wide) vector, statistics
+            # ONE gather of the (1- to 5-wide) vector, statistics
             # locally — per-statistic host_allreduce calls would
             # multiply the blocking collective cost paid every interval.
             from ..comm import host_allgather
@@ -180,6 +198,9 @@ class TrainingMonitor:
                 payload.append(local_goodput)
             if local_hbm_peak is not None:
                 payload.append(local_hbm_peak)
+            if local_comm is not None:
+                payload.append(local_comm)
+                payload.append(local_seq)
             gathered = np.asarray(host_allgather(np.float32(payload)))
             cols = gathered.reshape(nproc, -1)
             means = cols[:, 0]
@@ -203,12 +224,20 @@ class TrainingMonitor:
                     float(peaks.max()),
                     float(peaks.mean()),
                 )
+            if local_comm is not None:
+                comms = cols[:, col]
+                seqs = cols[:, col + 1]
+                comm_skew = float(comms.max() - comms.min())
+                seq_lag = float(seqs.max() - seqs.min())
         else:
             mn = mx = mean = local_mean
             if local_goodput is not None:
                 gp_mn = gp_mx = gp_mean = local_goodput
             if local_hbm_peak is not None:
                 hbm_mn = hbm_mx = hbm_mean = local_hbm_peak
+            if local_comm is not None:
+                comm_skew = 0.0
+                seq_lag = 0.0
         straggler = mean > 0 and mx > self.straggler_threshold * mean
         reg = self.registry
         reg.gauge("monitor.step_seconds_local_mean").set(local_mean)
@@ -240,6 +269,22 @@ class TrainingMonitor:
                 hbm_peak_bytes_min=hbm_mn,
                 hbm_peak_bytes_max=hbm_mx,
                 hbm_peak_bytes_mean=hbm_mean,
+            )
+        if local_comm is not None:
+            # The fleet plane's per-flush skew gauges: worst/mean
+            # step-time ratio (1.0 = perfectly even), the cross-host
+            # spread of cumulative collective block time (how unevenly
+            # the fleet waits — the straggler's victims accumulate the
+            # seconds), and the flight-recorder launch-sequence lag
+            # (>0 sustained = desync forming).
+            step_skew = mx / mean if mean > 0 else 1.0
+            reg.gauge("fleet.step_time_skew").set(step_skew)
+            reg.gauge("fleet.collective_skew_seconds").set(comm_skew)
+            reg.gauge("fleet.flight_seq_lag").set(seq_lag)
+            summary.update(
+                step_time_skew=step_skew,
+                collective_skew_seconds=comm_skew,
+                flight_seq_lag=seq_lag,
             )
         return summary
 

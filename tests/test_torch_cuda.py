@@ -12,7 +12,10 @@ ResNet on the card against the CPU, the kernels at the zoo's shapes (ViT's
 197 tokens, the UNet's head dim 128), ``flash_attention_fn``'s mask inside
 a captured graph, a DDPM window whose CUDA generator draws afresh on every
 replay, the dropout seed read from device memory (a tensor seed against
-the int seed, fresh masks in every replay of a captured graph), and, on a
+the int seed, fresh masks in every replay of a captured graph), the
+model stats computed inside a captured window (the same stats as the
+pipelined run's, every parameter bit for bit, a capture as a compile
+event), a ``torch.profiler`` capture beside a captured window, and, on a
 machine with two or more cards, one data-parallel step
 over NCCL against the single-process step.
 
@@ -590,6 +593,64 @@ def test_fused_window_graph_fixes_host_state_at_capture(device):
     # The first window is eager in both runs; the replays differ.
     assert s_got["flushes"][0]["loss"] == s_ref["flushes"][0]["loss"]
     assert not all(torch.equal(got.params[k], ref.params[k]) for k in ref.params)
+
+
+def test_model_stats_inside_a_captured_window(device, tmp_path):
+    """``make_train_step(model_stats=3)`` in CUDA-graph windows: the stats the
+    graph writes equal the pipelined run's (norms within 1e-5 relative,
+    counts exact; both compute them from the same tensors, the window at its
+    last update), every parameter and moment equals the run without stats
+    bit for bit, each capture reaches the compile monitor as a compile
+    event attributed to ``train_loop.window``, and an auto-profiler capture
+    started beside the replays writes its trace and leaves no profiler
+    running."""
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim, telemetry
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+    from fluxmpi_tpu_torch.utils.profiling import AutoProfiler
+
+    gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, 211, (32, 129), generator=gen).numpy()
+    fm.init()
+    try:
+        def run(fuse, stats):
+            lm = _small_bf16_lm(device, seed=6)
+            opt = optim.adamw(1e-3)
+            step = make_train_step(lambda p, ms, b: (lm(b[0], targets=b[1]).mean(), ms),
+                                   opt, model_stats=3 if stats else False)
+            loader = fm.DistributedDataLoader(
+                fm.ArrayDataset((tokens[:, :-1], tokens[:, 1:])), 4, shuffle=True)
+            reg = telemetry.MetricsRegistry()
+            state, summary = train_loop(step, TrainState.create(lm, opt), loader,
+                                        epochs=2, flush_every=4, fuse=fuse, metrics=reg)
+            recs = {(m["name"], m["labels"].get("layer")): m["value"]
+                    for m in reg.snapshot() if m["name"].startswith("model.")}
+            return state, summary, recs
+
+        fm.init(model_stats=3)
+        mon = telemetry.CompileMonitor()
+        fm.init(compileplane=mon)
+        ap = AutoProfiler(str(tmp_path), seconds=0.5)
+        ref, _, want = run(False, True)
+        assert ap.maybe_capture("test", force=True) == str(tmp_path)
+        got, summary, recs = run("window", True)
+        ap.wait(60)
+        plain, _, _ = run("window", False)
+    finally:
+        fm.shutdown()
+    assert summary["fused_window"] == 4 and summary["window_compile_seconds"] > 0
+    assert set(recs) == set(want) and len(want) > 8
+    for key, value in want.items():
+        if key[0] == "model.nonfinite":
+            assert recs[key] == value == 0.0
+        else:
+            assert recs[key] == pytest.approx(value, rel=1e-5), key
+    for name in got.params:
+        assert torch.equal(got.params[name], plain.params[name]), name
+        assert torch.equal(got.opt_state["mu"][name], plain.opt_state["mu"][name]), name
+    assert mon.events >= 1 and mon.compile_seconds("compile") > 0
+    assert len([f for f in os.listdir(tmp_path) if f.endswith(".pt.trace.json")]) == 1
+    assert not torch.autograd.profiler._is_profiler_enabled
 
 
 def _bn_run(device, fuse, axis_name=None, epochs=3):

@@ -53,7 +53,9 @@ def test_import_loads_no_jax_flax_or_reference_package():
         "telemetry.tracing", "telemetry.flight_recorder", "telemetry.watchdog",
         "telemetry.memory", "telemetry.monitor", "telemetry.goodput",
         "utils.flops", "serving.cache", "serving.observe", "models.generate",
-        "models.hf_gpt2", "io", "io.native")}
+        "models.hf_gpt2", "io", "io.native", "telemetry.anomaly",
+        "telemetry.compileplane", "telemetry.modelstats", "telemetry.export",
+        "telemetry.fleet", "utils.profiling")}
     assert ported <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -183,9 +185,12 @@ def test_waiting_options_raise_instead_of_being_ignored():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         fluxmpi_tpu_torch.init(device="cpu", mesh_shape={"dp": 2})
     assert not fluxmpi_tpu_torch.is_initialized()
-    for kw in ("parallel", "state_sharding", "model_stats"):
+    for kw in ("parallel", "state_sharding", "batch_spec"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             make_train_step(lambda p, s, b: (None, s), None, **{kw: True})
+    # Ported in the run-health slice: the model stats built into the step.
+    step = make_train_step(lambda p, s, b: (None, s), None, model_stats=True)
+    assert step.__fluxmpi_window_meta__["aux"] == ("loss", "grad_norm", "model_stats")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         make_eval_step(lambda p, s, b: None, mesh=object())
     # Ported in the telemetry slice: metrics= on the step and the loop.

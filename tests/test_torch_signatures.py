@@ -56,7 +56,8 @@ MODULES = ["", ".comm", ".config", ".data", ".errors", ".faults", ".logging",
            ".telemetry", ".telemetry.registry", ".telemetry.sinks",
            ".telemetry.tracing", ".telemetry.flight_recorder", ".telemetry.watchdog",
            ".telemetry.memory", ".telemetry.monitor", ".telemetry.goodput",
-           ".telemetry.schema"]
+           ".telemetry.schema", ".telemetry.anomaly", ".telemetry.compileplane",
+           ".telemetry.modelstats", ".telemetry.export", ".telemetry.fleet"]
 # Public callables the JAX module defines but leaves out of its __all__,
 # compared all the same: (module, name).
 UNLISTED = [(".models.transformer", "EncoderBlock")]
@@ -72,11 +73,9 @@ PORT_ONLY = {"init": {"timeout"},
              **{name: {"in_features", "image_size"} for name in ("ViT", "UNet")}}
 # Arguments the port takes through **waiting and refuses, by callable.
 REFUSED = {
-    "init": {"devices", "mesh_shape", "parallel", "distributed", "anomaly",
-             "model_stats", "compileplane", "profile", "compile_cache", "export",
-             "fleet", "resize"},
+    "init": {"devices", "mesh_shape", "parallel", "distributed", "resize"},
     "make_train_step": {"parallel", "style", "donate",
-                        "state_sharding", "batch_spec", "model_stats"},
+                        "state_sharding", "batch_spec"},
     "make_eval_step": {"parallel", "state_sharding", "batch_spec"},
 }
 # Parameters the port spells as the JAX package does but refuses with
@@ -158,7 +157,16 @@ def test_the_comparison_covers_the_ported_surface():
                      "ServingConfig", "configure", "enabled", "get_engine",
                      "set_engine", "ServingRequest", "RequestLog", "SLOBurnTracker",
                      "RequestObserver", "get_request_observer",
-                     "set_request_observer", "beam_search", "lm_from_gpt2"):
+                     "set_request_observer", "beam_search", "lm_from_gpt2",
+                     # Slice 10: the run-health and live-export planes.
+                     "AnomalyDetector", "get_anomaly_detector",
+                     "set_anomaly_detector", "CompileMonitor",
+                     "get_compile_monitor", "ModelStats", "group_paths",
+                     "compute_stats", "stats_zeros", "noise_scale",
+                     "resolve_step_spec", "Exporter", "render_prometheus",
+                     "mangle_name", "demangle_name", "FleetCollector",
+                     "profile_trace", "AutoProfiler", "maybe_auto_capture",
+                     "configure_auto_profiler", "enable_compile_cache"):
         assert expected in names, expected
     assert len(PAIRS) >= 120
 

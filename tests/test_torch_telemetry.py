@@ -1102,26 +1102,60 @@ def test_init_wires_the_planes_and_shutdown_tears_them_down(tmp_path, monkeypatc
             tfm.shutdown()
 
 
-@pytest.mark.parametrize("plane", ["anomaly", "model_stats", "compileplane", "profile",
-                                   "export", "fleet", "serving", "request_log"])
-def test_planes_not_ported_yet_still_raise(plane):
-    was_up = tfm.is_initialized()
-    if plane in ("serving", "request_log"):
-        # Ported in the serving slice: accepted, wired, and reset by False.
-        from fluxmpi_tpu_torch import serving
-        from fluxmpi_tpu_torch.serving import observe
+def _plane_specs(tmp_path):
+    """Per plane of ``init``: the value that turns it on, a check that it
+    is on, and a check that ``False`` turned it off again."""
+    from fluxmpi_tpu_torch import serving
+    from fluxmpi_tpu_torch.ops import _build
+    from fluxmpi_tpu_torch.serving import observe
+    from fluxmpi_tpu_torch.telemetry import (anomaly, compileplane, export, fleet,
+                                             modelstats)
+    from fluxmpi_tpu_torch.utils import profiling
 
-        tfm.init(device="cpu", **{plane: True})
-        try:
-            assert serving.enabled() if plane == "serving" else (
-                observe.get_request_observer() is not None)
-            tfm.init(**{plane: False})
-            assert not serving.enabled() and observe.get_request_observer() is None
-        finally:
-            if not was_up:
-                tfm.shutdown()
-        return
-    with pytest.raises(NotImplementedError, match=plane) as info:
-        tfm.init(device="cpu", **{plane: True})
-    assert "telemetry/" not in str(info.value)
-    assert tfm.is_initialized() == was_up
+    build_dir = _build.BUILD_DIR
+    return {
+        "serving": (True, serving.enabled, lambda: not serving.enabled()),
+        "request_log": (True, lambda: observe.get_request_observer() is not None,
+                        lambda: observe.get_request_observer() is None),
+        "anomaly": (True, lambda: anomaly.get_anomaly_detector().policies["nan_grad"]
+                    == "halt", lambda: anomaly.get_anomaly_detector() is None),
+        "model_stats": (3, lambda: modelstats.get_model_stats().depth == 3,
+                        lambda: modelstats.get_model_stats() is None),
+        "compileplane": (True, lambda: compileplane.get_compile_monitor() is not None,
+                         lambda: compileplane.get_compile_monitor() is None),
+        "profile": (str(tmp_path), lambda: profiling.get_auto_profiler().logdir
+                    == str(tmp_path), lambda: profiling.get_auto_profiler() is None),
+        "export": (ttel.Exporter(0, "127.0.0.1"),
+                   lambda: export.get_exporter().running and export.get_exporter().port > 0,
+                   lambda: export.get_exporter() is None),
+        "fleet": (ttel.FleetCollector(["127.0.0.1:9"], interval=60.0),
+                  lambda: fleet.enabled() and fleet.get_fleet_collector().running,
+                  lambda: not fleet.enabled() and fleet.get_fleet_collector() is None),
+        # The kernels' build cache: the CPU builds no kernel, so the
+        # request warns and leaves the build directory as it is.
+        "compile_cache": (str(tmp_path), lambda: _build.BUILD_DIR == build_dir,
+                          lambda: _build.BUILD_DIR == build_dir),
+    }
+
+
+@pytest.mark.parametrize("plane", ["anomaly", "model_stats", "compileplane", "profile",
+                                   "export", "fleet", "serving", "request_log",
+                                   "compile_cache"])
+def test_planes_not_ported_yet_still_raise(plane, tmp_path):
+    """Every plane of ``init`` is ported now (the serving slice ported
+    ``serving``/``request_log``, the run-health slice the rest): each is
+    accepted, wired, and reset by ``False``."""
+    was_up = tfm.is_initialized()
+    on, is_on, is_off = _plane_specs(tmp_path)[plane]
+    try:
+        if plane == "compile_cache":
+            with pytest.warns(UserWarning, match="compile cache skipped"):
+                tfm.init(device="cpu", **{plane: on})
+        else:
+            tfm.init(device="cpu", **{plane: on})
+        assert is_on()
+        tfm.init(**{plane: False})
+        assert is_off()
+    finally:
+        if not was_up:
+            tfm.shutdown()

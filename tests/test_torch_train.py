@@ -349,7 +349,7 @@ def test_three_updates_track_jax_loss_and_parameters(world, port_world, attentio
                                   tloader, steps=3, flush_every=1)
 
     assert tsummary["updates"] == jsummary["updates"] == 3 and tstate.step == 3
-    assert set(jsummary) - {"window_compile_seconds", "window_cache"} <= set(tsummary)
+    assert set(jsummary) <= set(tsummary)
     assert [f["updates"] for f in tsummary["flushes"]] == [1, 2, 3]
     np.testing.assert_allclose(tsummary["loss"], jsummary["loss"], atol=ATOL, rtol=0)
     got, want = to_flax_params(tlm), _flat(jax.device_get(jstate.params))
