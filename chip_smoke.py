@@ -176,6 +176,26 @@
    layer's poisoned gradient and naming it; serving's ``slo_burn`` under an
    SLO no request meets, its board read by ``scripts/fluxmpi_top.py``.
 
+13. Parallel phase (``parallel_phase``): ``init(parallel=ParallelConfig())``
+   (the plan of one device over NCCL; its ``describe()`` printed) and
+   ``MoETransformerLM`` at Switch-Base-8 widths (d_model 768, d_ff 3072,
+   12 heads, 12 layers, 8 experts, top-1, capacity factor 1.25; GPT-2's
+   vocabulary 50257 and max_len 1024; ``attention="flash"``; f32 masters,
+   bf16 compute through ``policy=get_policy("bf16")``, adamw, batch 8 x
+   1024 synthetic tokens): 8 updates with no plan, under
+   ``make_train_step(parallel=plan)`` (``style="auto"``) and under
+   ``style="shard_map"``, every loss, parameter and adamw moment
+   bit-identical; the ``"auto"`` step through ``train_loop(fuse="auto")``
+   and ``fuse=False`` (12 updates, windows of 4: captured and replayed)
+   bit for bit; 12 launches of each kernel per update by the kernels'
+   device counters and the wrappers' accounting; ms per update, tokens/s,
+   peak memory, and device time by group from one traced update
+   (attention kernels, expert matmuls, router and dispatch/combine
+   einsums, the other matmuls, the rest by kernel group; matmuls told
+   apart by their operands' shapes) with the 15 costliest kernels; then
+   greedy ``generate`` of 16 tokens, ``prefill="auto"`` (the scan for MoE)
+   equal to ``prefill="scan"``.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
 package is missing, or any phase fails.
@@ -2632,7 +2652,8 @@ def resnet_run(dev, corpus, fuse, updates: int, flush_every: int):
                               g: ms / n for g, ms in sorted(groups.items(),
                                                             key=lambda kv: -kv[1])},
                           top_kernels_ms_per_update=[
-                              (name, ms / n) for name, ms in list(by_name.items())[:15]])
+                              (name, ms / n) for name, ms in list(by_name.items())[:15]],
+                          kernel_names=sorted(by_name))
     (_, hsum), calls, nk2 = host_launches(
         lambda: train_loop(step, state, loader, steps=width, flush_every=flush_every,
                            fuse=fuse))
@@ -2974,6 +2995,21 @@ def vision_phase(device, updates: int = 32, flush_every: int = 8):
           f"from their init; flush mean losses {losses}", flush=True)
     if len(same) != len(want) or not flush_same:
         failures.append("vision: ResNet-50 fused differs from fuse=False")
+        differ = sorted(((float((got[k].float() - want[k].float()).abs().max()), k)
+                         for k in want if k not in same), reverse=True)
+        print(f"vision resnet50: the {len(differ)} leaves that differ, largest "
+              f"max|fused - pipelined| first: {differ[:12]}; flush losses fused "
+              f"{flush(fused_sum)} pipelined {flush(pipe_sum)}", flush=True)
+        a, b = (set(r["profile"]["kernel_names"]) for r in (pipe, fused))
+        print(f"vision resnet50: kernels only in the pipelined traced window "
+              f"{sorted(a - b)}; only in the fused one {sorted(b - a)}", flush=True)
+        # Which side moved: a second fuse=False run against the first.
+        _, again_sum, again, _ = resnet_run(dev, corpus, False, updates, flush_every)
+        print(f"vision resnet50: a second fuse=False run: "
+              f"{sum(torch.equal(again[k], want[k]) for k in want)} of {len(want)} leaves "
+              f"bit-identical to the first, flush losses "
+              f"{'identical' if flush(again_sum) == flush(pipe_sum) else 'DIFFER'}; to the "
+              f"fused run {sum(torch.equal(again[k], got[k]) for k in got)}", flush=True)
     if moved != n_stats:
         failures.append(f"vision: {n_stats - moved} BatchNorm statistics did not move")
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
@@ -4471,6 +4507,272 @@ def health_phase(device, updates: int = 32, flush_every: int = 8,
     return stats, failures
 
 
+# Parallel phase: the plan of one device and the MoE LM at Switch-Base-8
+# widths (Fedus et al. 2021, google/switch-base-8: d_model 768, d_ff 3072,
+# 12 heads, 12 layers per stack, 8 experts), one decoder-only stack over
+# GPT-2's vocabulary, every block MoE as the reference's class builds it.
+SWITCH_BASE_8 = dict(vocab_size=50257, max_len=1024, num_layers=12, d_model=768,
+                     num_heads=12, d_ff=3072, num_experts=8, capacity_factor=1.25,
+                     top_k=1)
+PARALLEL_SEQS = 64  # eight batches of 8 per epoch
+
+
+def _moe_groups(prof, capacity: int, experts: int, d_ff: int) -> tuple[dict, dict]:
+    """Device ms of one traced MoE update by group: the attention kernels
+    by name; the matmul ops by their operands' shapes (the expert matmuls
+    carry ``d_ff``, the dispatch and combine einsums ``experts *
+    capacity``, the router a 2-D operand ``experts`` wide; the other
+    matmuls apart); the rest, the remainder of all kernel time, split by
+    ``_kernel_group`` of the kernels' names. Also the 15 costliest kernels
+    by name."""
+    import torch
+
+    total = attention = 0.0
+    by_name: dict = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = (evt.time_range.end - evt.time_range.start) / 1e3
+        total += ms
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
+        if "flash_" in evt.name:
+            attention += ms
+    mm = {"expert matmuls": 0.0, "router and dispatch/combine einsums": 0.0,
+          "other matmuls (attention projections, the fused head)": 0.0}
+    ec = experts * capacity
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU or evt.name not in (
+                "aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm"):
+            continue
+        shapes = [tuple(s) for s in (evt.input_shapes or []) if s]
+        ms = getattr(evt, "device_time_total", 0.0) / 1e3
+        if any(d_ff in s for s in shapes):
+            mm["expert matmuls"] += ms
+        elif any(ec in s for s in shapes) or any(
+                len(s) == 2 and s[-1] == experts for s in shapes):
+            mm["router and dispatch/combine einsums"] += ms
+        else:
+            mm["other matmuls (attention projections, the fused head)"] += ms
+    rest: dict = {}
+    for name, ms in by_name.items():
+        group = _kernel_group(name)
+        if "flash_" in name or group == "matmul":
+            continue
+        rest[group] = rest.get(group, 0.0) + ms
+    groups = {"attention kernels (flash_fwd, flash_bwd_dq, flash_bwd_dkv)": attention,
+              **mm,
+              "the rest": total - attention - sum(mm.values()),
+              "total": total}
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:15])
+    return groups, {"rest_by_kernel_group": dict(sorted(rest.items(), key=lambda kv: -kv[1])),
+                    "top_kernels": top}
+
+
+def parallel_phase(device, updates: int = 8, fused_updates: int = 12,
+                   flush_every: int = 4, new_tokens: int = 16):
+    """The parallel layouts' path on one card (module docstring, item 13).
+    Returns its stats and failures."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import MoETransformerLM, generate
+    from fluxmpi_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.parallel import (ParallelConfig, TrainState, make_train_step,
+                                            train_loop)
+    from fluxmpi_tpu_torch.utils import get_policy
+
+    failures = []
+    card = card_line()
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    if fm.is_initialized():
+        fm.shutdown()
+    dev = fm.init()
+    cfg = SWITCH_BASE_8
+    corpus = lm_corpus(cfg["vocab_size"], n=PARALLEL_SEQS, seq=cfg["max_len"])
+    tokens_per_update = 8 * cfg["max_len"]
+    t0 = time.perf_counter()
+    model = MoETransformerLM(**cfg, attention="flash", dtype=torch.bfloat16, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    n_params = sum(v.numel() for v in start.values())
+    policy = get_policy("bf16")
+    print(f"parallel: MoETransformerLM at Switch-Base-8 widths, {n_params} parameters "
+          f"(f32 masters, bf16 compute by policy), built in "
+          f"{time.perf_counter() - t0:.2f}s; {card}", flush=True)
+
+    def loss_fn(params, model_state, batch):
+        x, y = batch
+        out = torch.func.functional_call(model, params, (x,), {"targets": y})
+        return out.mean(), model_state
+
+    def leaves(state):
+        out = {f"params/{k}": v for k, v in state.params.items()}
+        for m in ("mu", "nu"):
+            out.update({f"{m}/{k}": v for k, v in state.opt_state[m].items()})
+        out["count"] = state.opt_state["count"]
+        return out
+
+    def run(name, steps, flush, fuse, **step_kw):
+        """A fresh state from the same weights through ``train_loop``;
+        the counts set to 0 just before and read just after."""
+        with torch.no_grad():
+            for k, v in model.named_parameters():
+                v.copy_(start[k])
+        opt = optim.adamw(3e-4)
+        loader = fm.DistributedDataLoader(
+            fm.DistributedDataContainer(fm.ArrayDataset((corpus[:, :-1], corpus[:, 1:]))),
+            global_batch_size=8, shuffle=True)
+        step = make_train_step(loss_fn, opt, policy=policy, **step_kw)
+        state = TrainState.create(model, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for kern in kernels:
+            kern.launches = 0
+        t1 = time.perf_counter()
+        (state, summ), launches = kernel_launches(
+            lambda: train_loop(step, state, loader, steps=steps, flush_every=flush,
+                               fuse=fuse))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counted = {k.__name__: k.launches for k in kernels}
+        extra = graph_launches(step)
+        accounted = {n: counted[n] + extra[n] for n in counted}
+        need = cfg["num_layers"] * steps
+        if launches != {k.__name__: need for k in kernels}:
+            failures.append(f"parallel_phase {name}: launches {launches}, not {need} each")
+        if accounted != launches:
+            failures.append(f"parallel_phase {name}: the wrappers' counts {accounted} "
+                            f"differ from the device's {launches}")
+        flush_losses = [f["loss"] for f in summ["flushes"]]
+        if not all(math.isfinite(x) for x in flush_losses):
+            failures.append(f"parallel_phase {name}: a loss is not finite")
+        out = dict(name=name, summary=summ, launches=launches, accounted=accounted,
+                   wall_seconds=wall, peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                   losses=flush_losses, graphs=graph_stats(step), step=step,
+                   bits={k: v.detach().clone() for k, v in leaves(state).items()})
+        paths[f"parallel_{name.replace('=', '_').replace(' ', '_')}"] = launches
+        print(f"parallel {name}: {summ['updates']} updates, losses {flush_losses}, "
+              f"{wall:.3f}s, peak memory {out['peak_memory_gb']:.2f} GB, launches "
+              f"{launches} (wrappers with the graphs: {accounted})", flush=True)
+        return out
+
+    def same(a, b):
+        return (a["losses"] == b["losses"]
+                and all(torch.equal(a["bits"][k], b["bits"][k]) for k in a["bits"]))
+
+    stats = dict(card=card, parameters=n_params, config=dict(cfg), batch=[8, cfg["max_len"]])
+    paths = stats["launches_by_path"] = {}
+    plain = run("no plan", updates, 1, False)
+    plain_bits = plain.pop("bits")
+    fm.shutdown()
+    dev = fm.init(parallel=ParallelConfig())
+    plan = fm.global_plan()
+    stats["plan"] = plan.describe()
+    print(f"parallel: init(parallel=ParallelConfig()) on {dev}: "
+          f"{json.dumps(stats['plan'])}", flush=True)
+    auto = run("style=auto", updates, 1, False, parallel=plan)
+    shard = run("style=shard_map", updates, 1, False, style="shard_map")
+    plain["bits"] = plain_bits
+    three = same(plain, auto) and same(plain, shard)
+    stats["three_ways_bit_identical"] = three
+    print(f"parallel: no plan, style='auto' and style='shard_map': "
+          f"{'bit-identical' if three else 'DIFFER'} ({len(plain_bits)} leaves, "
+          f"{updates} losses)", flush=True)
+    if not three:
+        failures.append("parallel_phase: the three steps differ")
+    del plain, auto, shard, plain_bits
+    torch.cuda.empty_cache()
+
+    fused = run("style=auto fused", fused_updates, flush_every, "auto", parallel=plan)
+    pipe = run("style=auto pipelined", fused_updates, flush_every, False, parallel=plan)
+    fused_same = same(fused, pipe)
+    captured = sum(g["captured"] for g in fused["graphs"])
+    replays = sum(g["replays"] for g in fused["graphs"])
+    print(f"parallel: fused vs fuse=False: {'bit-identical' if fused_same else 'DIFFER'}; "
+          f"window graphs captured {captured}, replays {replays} "
+          f"({fused['summary']['dispatches']} dispatches, fused_window "
+          f"{fused['summary']['fused_window']})", flush=True)
+    if not fused_same:
+        failures.append("parallel_phase: the fused run differs from fuse=False")
+    if not captured or not replays:
+        failures.append("parallel_phase: no window was captured and replayed")
+    # ms per update: the replayed windows (each of flush_every updates) and
+    # the pipelined updates of the last window.
+    per_update = [ms / flush_every for ms in fused["summary"]["step_ms"][1:]]
+    stats["fused"] = dict(median_update_ms=float(np.median(per_update)),
+                          tokens_per_sec=tokens_per_update / float(np.median(per_update)) * 1e3,
+                          peak_memory_gb=fused["peak_memory_gb"], graphs=fused["graphs"],
+                          launches=fused["launches"], bit_identical=fused_same)
+    pipe_ms = float(np.median(pipe["summary"]["step_ms"][-flush_every:]))
+    stats["pipelined"] = dict(median_update_ms=pipe_ms,
+                              tokens_per_sec=tokens_per_update / pipe_ms * 1e3,
+                              peak_memory_gb=pipe["peak_memory_gb"],
+                              launches=pipe["launches"])
+    step = pipe["step"]
+    del fused, pipe
+    torch.cuda.empty_cache()
+
+    # One traced update of the pipelined step, by group.
+    opt = optim.adamw(3e-4)
+    state = TrainState.create(model, opt)
+    x = torch.from_numpy(corpus[:8, :-1]).to(dev)
+    y = torch.from_numpy(corpus[:8, 1:]).to(dev)
+    step(state, (x, y))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step(state, (x, y))
+        torch.cuda.synchronize()
+    capacity = max(1, int(-(-cfg["max_len"] * cfg["capacity_factor"] * cfg["top_k"]
+                             // cfg["num_experts"])))
+    groups, detail = _moe_groups(prof, capacity, cfg["num_experts"], cfg["d_ff"])
+    stats["device_ms_by_group"] = groups
+    stats["device_ms_detail"] = detail
+    if not groups["total"]:
+        failures.append("parallel_phase: the trace holds no device time")
+    for g, ms in groups.items():
+        share = ms / groups["total"] if groups["total"] else float("nan")
+        print(f"parallel profile: {g:60s} {ms:9.3f} ms  {share:6.1%}", flush=True)
+    for g, ms in detail["rest_by_kernel_group"].items():
+        print(f"parallel profile:   the rest, {g:49s} {ms:9.3f} ms", flush=True)
+    for name, ms in detail["top_kernels"].items():
+        print(f"parallel profile:   kernel {name[:90]:90s} {ms:9.3f} ms", flush=True)
+    print(f"parallel: {card}: fused {stats['fused']['median_update_ms']:.3f} ms per "
+          f"update = {stats['fused']['tokens_per_sec']:.1f} tokens/s, pipelined "
+          f"{pipe_ms:.3f} ms = {stats['pipelined']['tokens_per_sec']:.1f} tokens/s, "
+          f"peak memory {stats['fused']['peak_memory_gb']:.2f} GB", flush=True)
+    del state, opt
+    torch.cuda.empty_cache()
+
+    # Greedy generate: the "auto" prefill is the scan for MoE.
+    prompt = torch.from_numpy(corpus[:2, :16].astype(np.int64)).to(dev)
+    flash_fwd.launches = 0
+    with torch.no_grad():
+        toks, launches = kernel_launches(lambda: generate(model, prompt, new_tokens))
+        counted = flash_fwd.launches
+        scan = generate(model, prompt, new_tokens, prefill="scan")
+    torch.cuda.synchronize()
+    gen_same = torch.equal(toks, scan)
+    stats["generate"] = dict(tokens=toks.tolist(), scan_equal=gen_same,
+                             flash_fwd_launches=launches["flash_fwd"], counted=counted)
+    print(f"parallel generate: {new_tokens} greedy tokens, 'auto' "
+          f"{'equals' if gen_same else 'DIFFERS FROM'} 'scan'; flash_fwd launches "
+          f"{launches['flash_fwd']} (wrappers {counted})", flush=True)
+    if not gen_same:
+        failures.append("parallel_phase: generate's auto prefill differs from scan")
+    if launches["flash_fwd"] != counted or not counted:
+        failures.append("parallel_phase: generate's flash_fwd launches disagree")
+    paths["parallel_generate"] = {"flash_fwd": launches["flash_fwd"], "flash_bwd_dq": 0,
+                                  "flash_bwd_dkv": 0}
+    del model, start
+    torch.cuda.empty_cache()
+    fm.shutdown()
+    return stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -4522,43 +4824,63 @@ def main() -> int:
     return 0
 
 
+def settle(before: str) -> None:
+    """Between phases: free what the last one left (its CUDA graphs'
+    private pools go with the objects that hold them, reference cycles
+    included), empty the allocator's cache, and print what stays on the
+    card before ``before`` runs."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"memory before {before}: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved, {free / 1e9:.3f} of "
+          f"{total / 1e9:.3f} GB free on the card", flush=True)
+
+
 def run_phases(device):
     """All phases on ``device``; returns the kernels' rows, the serving and
     training results, and the failures."""
-    import torch
-
     rows, failures = kernel_phase(device)
     bwd_rows, masks, bwd_failures = backward_phase(device)
     failures += bwd_failures
+    settle("slice_phase")
     stats, slice_failures = slice_phase(device)
     failures += slice_failures
-    torch.cuda.empty_cache()
+    settle("serving_plane_phase")
     plane, plane_failures = serving_plane_phase(device, stats["ttft_p50_ms"] / 1e3)
     failures += plane_failures
-    torch.cuda.empty_cache()
+    settle("train_phase")
     train, train_failures = train_phase(device)
     failures += train_failures
-    torch.cuda.empty_cache()
+    settle("bf16_phase")
     bf16, bf16_failures = bf16_phase(device, train)
     failures += bf16_failures
-    torch.cuda.empty_cache()
+    settle("fused_phase")
     fused, fused_failures = fused_phase(device, bf16)
     failures += fused_failures
-    torch.cuda.empty_cache()
+    settle("telemetry_phase")
     telem, telem_failures = telemetry_phase(device)
     failures += telem_failures
-    torch.cuda.empty_cache()
+    settle("vision_phase")
     vision, vision_failures = vision_phase(device)
     failures += vision_failures
-    torch.cuda.empty_cache()
+    settle("zoo_phase")
     zoo, zoo_failures = zoo_phase(device)
     failures += zoo_failures
-    torch.cuda.empty_cache()
+    settle("finetune_phase")
     tune, tune_failures = finetune_phase(device)
     failures += tune_failures
-    torch.cuda.empty_cache()
+    settle("health_phase")
     health, health_failures = health_phase(device)
     failures += health_failures
+    settle("parallel_phase")
+    par, par_failures = parallel_phase(device)
+    failures += par_failures
+    par_paths = par.get("launches_by_path", {})
     health_paths = {f"health_planes_{name}": health[f"planes_{name}"]["launches"]
                     for name in ("off", "on") if f"planes_{name}" in health}
     tune_paths = {"finetune_flash_dropout": tune["flash_dropout"]["launches"],
@@ -4595,6 +4917,7 @@ def run_phases(device):
                      + sum(n["flash_fwd"] for n in zoo_paths.values())
                      + sum(n["flash_fwd"] for n in tune_paths.values())
                      + sum(n["flash_fwd"] for n in health_paths.values())
+                     + sum(n["flash_fwd"] for n in par_paths.values())
                      + health.get("serving", {}).get("flash_fwd_launches", 0)
                      + sum(plane["launches"].values())),
         "launches_by_path": {"serve": stats["launches"], **plane["launches"],
@@ -4610,6 +4933,7 @@ def run_phases(device):
                              **{p: n["flash_fwd"] for p, n in zoo_paths.items()},
                              **{p: n["flash_fwd"] for p, n in tune_paths.items()},
                              **{p: n["flash_fwd"] for p, n in health_paths.items()},
+                             **{p: n["flash_fwd"] for p, n in par_paths.items()},
                              "health_serving": health.get("serving", {}).get(
                                  "flash_fwd_launches", 0)},
         "max_abs_err": max(max(r["err_out"], r["err_lse"]) for r in rows),
@@ -4642,7 +4966,8 @@ def run_phases(device):
                          + telem["planes_on"]["launches"][kname]
                          + sum(n[kname] for n in zoo_paths.values())
                          + sum(n[kname] for n in tune_paths.values())
-                         + sum(n[kname] for n in health_paths.values())),
+                         + sum(n[kname] for n in health_paths.values())
+                         + sum(n[kname] for n in par_paths.values())),
             "launches_by_path": {"train": train["launches"][kname],
                                  "train_bf16": bf16["launches"][kname],
                                  "train_bf16_remat":
@@ -4654,7 +4979,8 @@ def run_phases(device):
                                      telem["planes_on"]["launches"][kname],
                                  **{p: n[kname] for p, n in zoo_paths.items()},
                                  **{p: n[kname] for p, n in tune_paths.items()},
-                                 **{p: n[kname] for p, n in health_paths.items()}},
+                                 **{p: n[kname] for p, n in health_paths.items()},
+                                 **{p: n[kname] for p, n in par_paths.items()}},
             "max_abs_err": max(r["err"][e] for r in bwd_rows for e in errs),
             "ms": bwd_main[f"{key}_ms"],
             # The plain version computes dQ, dK and dV in one pass; the
@@ -4684,7 +5010,7 @@ def run_phases(device):
                      "train_bf16": bf16,
                      "train_bf16_fused": fused, "train_bf16_telemetry": telem,
                      "vision": vision, "zoo": zoo, "finetune": tune,
-                     "health": health}, failures
+                     "health": health, "parallel": par}, failures
 
 
 if __name__ == "__main__":

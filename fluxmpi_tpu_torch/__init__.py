@@ -43,7 +43,14 @@ What is ported, slice by slice:
   metrics registry and sinks, span tracing, the flight recorder and the
   watchdog, goodput with live MFU, the memory plane), wired through
   ``init(telemetry=, trace=, watchdog=, goodput=, memory=)`` and
-  ``make_train_step(metrics=)`` / ``train_loop(metrics=)``.
+  ``make_train_step(metrics=)`` / ``train_loop(metrics=)``;
+- the parallel layouts: :class:`ParallelConfig` resolved into one mesh and
+  one partition rule (:mod:`~fluxmpi_tpu_torch.parallel.plan`,
+  :mod:`~fluxmpi_tpu_torch.parallel.sharding`), ``init(parallel=)`` with
+  :func:`global_mesh` / :func:`global_plan`, ``make_train_step(parallel=,
+  style=)``, the loader's ``mesh=``, the in-step collectives, the
+  vocab-parallel fused cross-entropy and the MoE models with expert
+  parallelism (:mod:`~fluxmpi_tpu_torch.models.moe`).
 """
 
 from . import (comm, config, data, errors, faults, logging, models, ops, optim,
@@ -58,7 +65,9 @@ from .errors import (CheckpointDesyncError, CheckpointTimeoutError,
                      FluxMPINotInitializedError, TopologyMismatchError)
 from .logging import fluxmpi_print, fluxmpi_println
 from .optimizer import DistributedOptimizer, allreduce_gradients
-from .runtime import (Initialized, clear_preemption, device_count, init,
+from .parallel.plan import ParallelConfig, match_partition_rules
+from .runtime import (Initialized, clear_preemption, device_count, dp_axis_name,
+                      global_mesh, global_plan, init,
                       install_preemption_handlers, is_initialized,
                       local_device_count, local_rank,
                       preemption_handlers_installed, preemption_requested,
@@ -74,12 +83,14 @@ __all__ = [
     "CollectiveError", "DistributedDataContainer", "DistributedDataLoader",
     "DistributedOptimizer", "FaultInjectedError", "FlatParamVector",
     "FluxMPINotInitializedError", "FluxModelWrapper", "Initialized",
+    "ParallelConfig",
     "Request", "TopologyMismatchError", "allreduce", "allreduce_gradients",
     "barrier", "bcast", "clear_preemption", "comm", "config", "cpu", "data",
-    "device", "device_count", "errors", "faults", "fluxmpi_print",
-    "fluxmpi_println", "host_allgather", "host_allreduce", "host_bcast",
+    "device", "device_count", "dp_axis_name", "errors", "faults", "fluxmpi_print",
+    "fluxmpi_println", "global_mesh", "global_plan", "host_allgather", "host_allreduce", "host_bcast",
     "iallreduce", "ibcast", "init", "install_preemption_handlers",
     "is_initialized", "local_device_count", "local_rank", "logging",
+    "match_partition_rules",
     "models", "ops", "optim", "optimizer", "parallel",
     "preemption_handlers_installed", "preemption_requested",
     "process_count", "process_index", "reduce", "request_preemption",

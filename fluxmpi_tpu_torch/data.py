@@ -35,8 +35,20 @@ telemetry on, is timed into ``data.batch_fetch_seconds`` and a
 ``data.fetch`` trace event (``data.prefetch_depth`` holds the queue
 behind each yield), as in the JAX package.
 
+Over a mesh (``mesh=``, ``axis_name=``, or a plan installed by
+``init(parallel=)``) in a world of several workers, the loader reads the
+global batch: every worker walks the same epoch order of the whole
+dataset (a :class:`DistributedDataContainer` contributes its full
+dataset), batch ``b`` is rows ``b * global_batch_size`` onward, and the
+worker at data-axis block ``k`` of ``D`` (the batch axes: one mesh axis
+or the product of a tuple, first outermost) takes its ``k``-th slice of
+``global_batch_size / D`` rows, the rows the JAX package's addressable
+shard at the same mesh coordinate holds. Workers that share a data block
+(over ``tp``, say) read the same rows.
+
 Not ported yet (each raises ``NotImplementedError`` when asked for):
-``elastic_order`` and the elastic cursor remap on a changed world.
+``elastic_order`` and the elastic cursor remap on a changed world
+(ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -53,7 +65,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from . import faults, runtime
+from . import config, faults, runtime
 from .io import NativePrefetcher, gather_rows
 from .telemetry import get_registry as _telemetry_registry
 from .telemetry import tracing as _tracing
@@ -279,28 +291,62 @@ class DistributedDataLoader:
         if device_gather not in (True, False, "auto"):
             raise ValueError(f"device_gather must be True, False, or 'auto', "
                              f"got {device_gather!r}")
-        for name, val in (("elastic_order", elastic_order),
-                          ("mesh", mesh),
-                          ("axis_name", axis_name)):
-            if val:
-                raise NotImplementedError(f"{name}= is not ported yet")
+        if elastic_order:
+            raise NotImplementedError(
+                "elastic_order= is not ported yet (ROADMAP A.5)")
         if global_shuffle and not isinstance(data, DistributedDataContainer):
             raise ValueError(
                 "global_shuffle reshuffles the sample→worker assignment, "
                 "which needs the full-dataset view of a "
                 "DistributedDataContainer; wrap the dataset in one"
             )
-        _, world = _world()
+        rank, world = _world()
         if global_batch_size % world != 0:
             raise ValueError(
                 f"global_batch_size {global_batch_size} must divide evenly "
                 f"across {world} workers"
             )
+        explicit = mesh is not None or axis_name is not None
+        plan = runtime.global_plan()
+        if axis_name is None:
+            # The plan's data axes are the default only when this loader
+            # rides a mesh carrying them.
+            if plan is not None and plan.covers(mesh):
+                axes = plan.data_axes
+                axis_name = axes[0] if len(axes) == 1 else axes
+            else:
+                axis_name = config.DP_AXIS_NAME
+        elif isinstance(axis_name, (list, tuple)):
+            axis_name = axis_name[0] if len(axis_name) == 1 else tuple(axis_name)
+        self.mesh = mesh
+        self.axis_name = axis_name
+        mesh_for_check = mesh
+        if mesh_for_check is None and runtime.is_initialized():
+            mesh_for_check = runtime.global_mesh()
+        # (block, blocks): this worker's slice of every global batch, when
+        # the loader reads the global batch over a mesh.
+        self._mesh_view: tuple[int, int] | None = None
+        if mesh_for_check is not None:
+            names = (axis_name,) if isinstance(axis_name, str) else axis_name
+            axis_size = math.prod(mesh_for_check.shape.get(a, 1) for a in names)
+            if global_batch_size % axis_size != 0:
+                raise ValueError(
+                    f"global_batch_size {global_batch_size} must be divisible "
+                    f"by the '{axis_name}' mesh axis size {axis_size} so every "
+                    f"device gets an equal slice"
+                )
+            if world > 1 and (explicit or plan is not None):
+                present = tuple(a for a in names if a in mesh_for_check.shape)
+                block = (mesh_for_check.block_index(rank, present)[0]
+                         if present else 0)
+                self._mesh_view = (block, axis_size)
         if prefetch < 0:
             raise ValueError(f"prefetch must be >= 0, got {prefetch}")
         self.data = data
         self.global_batch_size = global_batch_size
         self.local_batch_size = global_batch_size // world
+        if self._mesh_view is not None:
+            self.local_batch_size = global_batch_size // self._mesh_view[1]
         self.world = world
         self.shuffle = shuffle or global_shuffle
         self.global_shuffle = global_shuffle
@@ -334,7 +380,14 @@ class DistributedDataLoader:
         # Shard sizes can differ (ceil partition, remainder on the last
         # rank); every worker serves the common (minimum) length so all
         # yield the same number of batches.
-        if isinstance(data, DistributedDataContainer):
+        if self._mesh_view is not None:
+            total = len(self._view_source())
+            if not drop_last and total % global_batch_size:
+                raise ValueError(
+                    f"drop_last=False over a mesh needs whole global batches: "
+                    f"{total} samples is not a multiple of {global_batch_size}")
+            self._common_len = (total // global_batch_size) * self.local_batch_size
+        elif isinstance(data, DistributedDataContainer):
             self._common_len = data.min_shard_size()
         elif world > 1:
             from .comm import allreduce
@@ -398,11 +451,32 @@ class DistributedDataLoader:
         self._cursor = cursor
         self._resume_cursor = cursor
 
+    def _view_source(self) -> Any:
+        """The whole dataset the mesh view reads."""
+        data = self.data
+        return data.data if isinstance(data, DistributedDataContainer) else data
+
     def _epoch_plan(self) -> tuple[np.ndarray, Any, int | None]:
         """This epoch's order: ``(order, source, offset)`` where ``order``
         indexes ``source``; ``offset`` is the index shift into an
         array-backed dataset's arrays (None when the source is not
         array-backed)."""
+        if self._mesh_view is not None:
+            block, blocks = self._mesh_view
+            source = self._view_source()
+            total = len(source)
+            rng = np.random.default_rng(self.seed + self._epoch)
+            if self.global_shuffle:
+                full = rng.permutation(total)
+            else:
+                full = np.arange(total)
+                if self.shuffle:
+                    rng.shuffle(full)
+            gbs, lbs = self.global_batch_size, self.local_batch_size
+            n = total // gbs
+            order = full[:n * gbs].reshape(n, blocks, lbs)[:, block, :].reshape(-1)
+            offset = 0 if isinstance(source, ArrayDataset) else None
+            return order, source, offset
         if self.global_shuffle:
             cont = self.data
             rng = np.random.default_rng(self.seed + self._epoch)
@@ -428,6 +502,9 @@ class DistributedDataLoader:
         """``(arrays, offset)`` when this epoch's source is array-backed:
         the array tree the epoch order indexes (shifted by ``offset``)."""
         data = self.data
+        if self._mesh_view is not None:
+            source = self._view_source()
+            return (source.arrays, 0) if isinstance(source, ArrayDataset) else None
         if self.global_shuffle:
             # The order holds indices into the full dataset.
             return (data.data.arrays, 0) if isinstance(data.data, ArrayDataset) else None
@@ -495,7 +572,8 @@ class DistributedDataLoader:
             return batch
         before = _lead_dims(batch)
         if self._transform_arity == 2:
-            rng = np.random.default_rng([self.seed, epoch, b, _world()[0]])
+            who = self._mesh_view[0] if self._mesh_view is not None else _world()[0]
+            rng = np.random.default_rng([self.seed, epoch, b, who])
             out = self.transform(batch, rng)
         else:
             out = self.transform(batch)

@@ -69,8 +69,12 @@ class EncoderBlock(nn.Module):
     ``causal=attention_causal`` (an ``attention_fn`` beside it raises);
     else ``attention_fn`` if given; else flax's dense attend, which
     ``attention_causal`` does not touch (as in JAX, only the mask makes it
-    causal). ``make_ff()`` is the hook for another feed-forward sublayer
-    (called as ``ff(h, train=train)``). ``decode=True`` is refused: the
+    causal). ``make_ff()`` is the hook for another feed-forward sublayer,
+    registered under its ``flax_name`` (flax's module name, default
+    ``"ff"``) and called as ``ff(h, train=train)``, or with
+    ``losses=`` (its sub-dict of the sowed-losses collection, see
+    :meth:`TransformerLM.forward`) when the caller collects them.
+    ``decode=True`` is refused: the
     port decodes through :meth:`TransformerLM.forward`'s ``kv_cache=``.
     Weights from the CPU ``generator`` (default seeded with 0) on
     ``device`` (default CUDA)."""
@@ -99,21 +103,30 @@ class EncoderBlock(nn.Module):
         self.attn = MultiHeadDotProductAttention(num_heads, d_model, init=init,
                                                  dtype=dtype, dropout_rate=self.dropout)
         self.ln2 = LayerNorm(d_model, ln_eps, init)
-        self.ff = self.make_ff()
-        if self.ff is None:
+        self._init = init
+        ff = self.make_ff()
+        del self._init
+        self.ff_name = None
+        if ff is None:
             self.ff1 = Dense((d_model, d_ff), (d_ff,), init, d_model)
             self.ff2 = Dense((d_ff, d_model), (d_model,), init, d_ff)
+        else:
+            self.ff_name = getattr(ff, "flax_name", "ff")
+            self.add_module(self.ff_name, ff)
 
     def make_ff(self) -> nn.Module | None:
         """Hook: a module for the feed-forward sublayer, or ``None`` for
-        the dense MLP."""
+        the dense MLP (its weights may draw from ``self._init``, the
+        block's initializer, while it is built)."""
         return None
 
-    def forward(self, x, *, train: bool = True, mask=None, dropout_rng=None):
-        return self.run(x, train=train, mask=mask, dropout_rng=dropout_rng)[0]
+    def forward(self, x, *, train: bool = True, mask=None, dropout_rng=None,
+                losses=None):
+        return self.run(x, train=train, mask=mask, dropout_rng=dropout_rng,
+                        losses=losses)[0]
 
     def run(self, x, *, train=True, mask=None, mode=None, cache=None, pos=None,
-            segments=None, dropout_rng=None):
+            segments=None, dropout_rng=None, losses=None):
         """The block with the attention ``mode`` (default the block's own:
         ``"flash"``, ``"fn"`` for its ``attention_fn``, ``"naive"``).
         With ``cache`` (this layer's ``(k, v)`` ``[b, T, h, hd]``), one
@@ -147,8 +160,12 @@ class EncoderBlock(nn.Module):
                                  dropout_rng=dropout_rng)
         x = x + self.attn.out(o, self.dtype)
         h = self.ln2(x, self.dtype)
-        if self.ff is not None:
-            return x + self.ff(h, train=train), k, v
+        if self.ff_name is not None:
+            ff = getattr(self, self.ff_name)
+            if losses is None:
+                return x + ff(h, train=train), k, v
+            return x + ff(h, train=train,
+                          losses=losses.setdefault(self.ff_name, {})), k, v
         h = F.gelu(self.ff1(h, self.dtype), approximate="tanh")  # flax nn.gelu: tanh
         return x + self.ff2(h, self.dtype), k, v
 
@@ -194,21 +211,24 @@ class TransformerEncoder(nn.Module):
                             self.attention_causal, self.ln_eps, device=self.device,
                             generator=self._generator)
 
-    def forward(self, x, *, train: bool = True, mask=None, dropout_rng=None):
+    def forward(self, x, *, train: bool = True, mask=None, dropout_rng=None,
+                losses=None):
         return self.run(x.to(self.dtype), train=train, mask=mask,
-                        dropout_rng=dropout_rng)[0]
+                        dropout_rng=dropout_rng, losses=losses)[0]
 
     def run(self, x, *, train=True, mask=None, mode=None, cache=None, pos=None,
-            segments=None, dropout_rng=None):
+            segments=None, dropout_rng=None, losses=None):
         """The stack (arguments as :meth:`EncoderBlock.run`, ``cache`` the
-        ``(k, v)`` of every layer). Returns ``(hidden, ks, vs)``: the
+        ``(k, v)`` of every layer, ``losses`` the stack's sub-dict of the
+        sowed-losses collection). Returns ``(hidden, ks, vs)``: the
         final-LN output (f32) and each layer's new K/V."""
         ks, vs = [], []
         for i in range(self.num_layers):
             layer_cache = None if cache is None else (cache[0][i], cache[1][i])
             x, k, v = getattr(self, f"block_{i}").run(
                 x, train=train, mask=mask, mode=mode, cache=layer_cache, pos=pos,
-                segments=segments, dropout_rng=dropout_rng)
+                segments=segments, dropout_rng=dropout_rng,
+                losses=None if losses is None else losses.setdefault(f"block_{i}", {}))
             ks.append(k)
             vs.append(v)
         return self.ln_out(x, torch.float32), ks, vs
@@ -265,12 +285,20 @@ class TransformerLM(nn.Module):
         self.embed.embedding = init.normal((vocab_size, d_model),
                                            1.0 / math.sqrt(d_model))
         self.pos_embed = init.normal((max_len, d_model), 0.02)
+        self._generator = generator
+        self.encoder = self.make_encoder()
+        del self._generator
+
+    def make_encoder(self) -> nn.Module:
+        """Hook: build the encoder stack (subclasses swap the block type;
+        weights from ``self._generator`` while the LM is built)."""
         # The LM applies its own causal mask in training, so the flash
         # kernels fold causality in (attention_causal=True).
-        self.encoder = TransformerEncoder(
-            num_layers, d_model, num_heads, d_ff, self.dropout, dtype, attention_fn,
-            attention=attention, attention_causal=True, ln_eps=ln_eps,
-            device=self.device, generator=generator)
+        return TransformerEncoder(
+            self.num_layers, self.d_model, self.num_heads, self.d_ff, self.dropout,
+            self.dtype, self.attention_fn, attention=self.attention,
+            attention_causal=True, ln_eps=self.ln_eps, device=self.device,
+            generator=self._generator)
 
     def attention_mode(self, override: str | None = None) -> str:
         return _resolve_attention_mode(override or self.attention, self.device)
@@ -278,7 +306,7 @@ class TransformerLM(nn.Module):
     def forward(self, tokens, *, train: bool = True, targets=None,
                 loss_chunk: int = 8192, hidden: bool = False,
                 pos_offset=None, kv_cache=None, attention: str | None = None,
-                return_kv: bool = False, dropout_rng=None):
+                return_kv: bool = False, dropout_rng=None, losses=None):
         """Logits ``[b, s, vocab]`` for int tokens ``[b, s]``: f32, or bf16
         in a bf16 model (bf16 operands, f32 accumulation, bf16 logits, as
         flax's ``Embed.attend`` gives them).
@@ -310,7 +338,13 @@ class TransformerLM(nn.Module):
         With ``kv_cache=(k, v)``: cached decoding, ``s == 1``; row ``i``'s
         token sits at position ``pos_offset[i]``, its K/V are written there
         in place, and it attends to cache positions ``<= pos_offset[i]``.
-        ``attention`` overrides the model's switch for this call."""
+        ``attention`` overrides the model's switch for this call.
+
+        ``losses``: a dict that collects what the layers sow (flax's
+        ``mutable=["losses"]``), nested as flax nests the collection:
+        ``losses["encoder"]["block_0"]["moe"]["moe_aux_loss"] = (x,)``
+        (the MoE models; see
+        :func:`~fluxmpi_tpu_torch.models.collect_moe_losses`)."""
         if kv_cache is not None:
             if targets is not None or hidden:
                 raise ValueError("targets/hidden are training paths; "
@@ -340,8 +374,9 @@ class TransformerLM(nn.Module):
             mask = mask.expand(b, 1, s, s)
             if self.attention_fn is not None:
                 mode = "fn"
-        h, ks, vs = self.encoder.run(x, train=train, mask=mask, mode=mode,
-                                     dropout_rng=dropout_rng)
+        h, ks, vs = self.encoder.run(
+            x, train=train, mask=mask, mode=mode, dropout_rng=dropout_rng,
+            losses=None if losses is None else losses.setdefault("encoder", {}))
         if hidden:
             return h, self.embed.embedding
         if targets is not None:

@@ -367,6 +367,11 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         raise ValueError("save_every requires a checkpoint= manager")
     if resume and checkpoint is None:
         raise ValueError("resume=True requires a checkpoint= manager")
+    layout = getattr(step, "__fluxmpi_layout__", None)
+    if checkpoint is not None and layout is not None and layout.shards:
+        raise NotImplementedError(
+            "train_loop(checkpoint=) over a state whose parameters the plan "
+            "shards is not ported yet: sharded checkpoints are ROADMAP A.5")
     if fuse not in ("auto", "window", False, None):
         raise ValueError(f'fuse must be "auto", "window", False, or None; '
                          f"got {fuse!r}")

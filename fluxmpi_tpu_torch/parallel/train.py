@@ -31,9 +31,27 @@ uninstrumented core instead and records the same names at its flush
 boundaries. ``model_stats=`` builds the model-internals plane's per-layer
 stats into the step (:mod:`~fluxmpi_tpu_torch.telemetry.modelstats`).
 
-Not ported yet (each raises ``NotImplementedError`` when passed):
-``parallel=``, ``mesh=``, ``axis_name=``, ``style=``, ``donate=``,
-``state_sharding=`` and ``batch_spec=``.
+Layouts (``parallel=``, ``style=``, ``state_sharding=``): with a plan
+(:class:`~fluxmpi_tpu_torch.parallel.ParallelConfig`, or one installed by
+``init(parallel=)``) the default ``style="auto"`` step keeps each
+worker's block of every leaf the plan shards (what
+:meth:`~fluxmpi_tpu_torch.parallel.plan.ResolvedPlan.shard_state` placed;
+the same shapes as the JAX package's addressable shards) and inserts the
+collectives itself: before the forward it all-gathers every parameter
+sharded over the ``fsdp``/``tp`` axes (the ZeRO-3 gather), and after the
+backward it sums each gradient over the workers that hold the same block
+and keeps this worker's block, so the update runs on the blocks alone.
+Each worker's ``loss_fn`` sees its own rows of the global batch (the
+loader's ``mesh=`` rows), and the step's loss and gradients are those of
+the mean over the global batch, as JAX's partitioned step computes them.
+The ``ep`` axis is not gathered: the MoE layers built with ``mesh=`` run
+their local experts and exchange tokens with an all-to-all
+(:mod:`~fluxmpi_tpu_torch.models.moe`). Tensor parallelism therefore
+shards the state at rest but computes on gathered weights (ROADMAP A.4's
+open item: the column/row-parallel forward). ``style="shard_map"`` is the
+explicit per-worker step, its gradients reduced over the ``axis_name``
+axis of the mesh. ``donate=False`` copies the state before the update,
+so the caller's stays valid.
 """
 
 from __future__ import annotations
@@ -49,31 +67,20 @@ from torch import nn
 from torch.utils import _pytree as pytree
 from torch.utils import checkpoint as _checkpoint
 
-from .. import runtime
+from .. import config, runtime
 from ..data import _gather_batch
-from ..errors import refuse_unported
 from ..optim import GradientTransformation, apply_updates
 from ..optimizer import allreduce_gradients
 
 __all__ = ["TrainState", "make_eval_step", "make_train_step",
            "make_window_program"]
 
-_WAITING = ("parallel", "mesh", "axis_name", "style", "donate",
-            "state_sharding", "batch_spec")
+# Step arguments of the JAX package not ported yet: none left.
+_WAITING: tuple = ()
 
 # metrics=True: record into whatever the default registry is at record
 # time (set_registry may swap it after the step is built).
 _DEFAULT_REGISTRY = object()
-
-
-def _refuse_waiting(fn: str, waiting: dict) -> None:
-    unknown = [k for k in waiting if k not in _WAITING]
-    if unknown:
-        raise TypeError(f"{fn}() got unexpected arguments {unknown}")
-    refuse_unported(fn, {k: v is not None and v is not False
-                         for k, v in waiting.items()},
-                    "the port's step is one worker's forward, backward and "
-                    "gradient all-reduce over torch.distributed")
 
 
 @dataclasses.dataclass
@@ -291,19 +298,222 @@ def _instrument_step(core: Callable, metrics: Any, scan_steps: int, *,
     return step
 
 
+def _spec_axes(spec: Any) -> list[tuple[int, tuple[str, ...]]]:
+    """``[(dim, axis names)]`` of the partitioned dims of ``spec``."""
+    out = []
+    for d, names in enumerate(spec or ()):
+        if names is None:
+            continue
+        out.append((d, (names,) if isinstance(names, str) else tuple(names)))
+    return out
+
+
+class _Layout:
+    """A parameter layout over a mesh, as the ``style="auto"`` step runs
+    it: which parameters are sharded over which axes (``specs``, by
+    state-dict name), and which axes the model consumes itself
+    (``native``: the ``ep`` axis, whose expert blocks the MoE layers run
+    locally). The rest are gathered before the forward."""
+
+    def __init__(self, mesh: Any, specs: dict, native: set):
+        self.mesh = mesh
+        self.world = mesh.size
+        self.native = set(native)
+        self.plans: dict[str, tuple] = {}
+        for name, spec in specs.items():
+            dims = _spec_axes(spec)
+            gathered, local = [], []
+            for d, names in dims:
+                kinds = {n in self.native for n in names}
+                if len(kinds) > 1:
+                    raise NotImplementedError(
+                        f"{name}: dim {d} is sharded over {names}, which mixes "
+                        f"an expert axis with others")
+                (local if kinds == {True} else gathered).append((d, names))
+            self.plans[name] = (gathered, local)
+
+    @property
+    def shards(self) -> bool:
+        return any(g or lo for g, lo in self.plans.values())
+
+    def gather(self, params: dict) -> dict:
+        """The parameters the loss sees: each gathered to its full shape
+        over its non-native sharded axes (a leaf that requires grad), the
+        rest as they are."""
+        import torch.distributed as dist
+
+        out = {}
+        for k, p in params.items():
+            gathered = self.plans.get(k, ([], []))[0]
+            if not gathered or not self.world > 1:
+                out[k] = p
+                continue
+            axes = tuple(n for _, names in gathered for n in names)
+            group = self.mesh.group(axes)
+            ranks = dist.get_process_group_ranks(group)
+            parts = [torch.empty_like(p) for _ in ranks]
+            dist.all_gather(parts, p.detach().contiguous(), group=group)
+            shape = list(p.shape)
+            for d, names in gathered:
+                shape[d] *= self.mesh.group_size(names)
+            full = p.new_empty(shape)
+            for r, part in zip(ranks, parts):
+                index = [slice(None)] * p.ndim
+                for d, names in gathered:
+                    i, _ = self.mesh.block_index(r, names)
+                    index[d] = slice(i * p.shape[d], (i + 1) * p.shape[d])
+                full[tuple(index)] = part
+            out[k] = full.requires_grad_(p.requires_grad)
+        return out
+
+    def reduce(self, grads: dict, loss: torch.Tensor) -> tuple[dict, torch.Tensor]:
+        """The gradients of the global mean loss, each this worker's block:
+        summed over the workers that hold the same block of the
+        parameter, divided by the world, then cut to the block; and the
+        loss averaged over the world."""
+        from ..comm import fused
+        import torch.distributed as dist
+
+        if not self.world > 1:
+            return grads, loss
+        world = self.world
+        buckets: dict[tuple, list[str]] = {}
+        for k in grads:
+            local = self.plans.get(k, ([], []))[1]
+            keep = {n for _, names in local for n in names}
+            axes = tuple(a for a in self.mesh.axis_names if a not in keep)
+            buckets.setdefault(axes, []).append(k)
+        out = dict(grads)
+        for axes in sorted(buckets):
+            keys = buckets[axes]
+            group = self.mesh.group(axes)
+            vals = [grads[k] for k in keys]
+            if axes == tuple(self.mesh.axis_names):
+                vals.append(loss.detach().float().reshape(1))
+
+            def run(flat, group=group):
+                if group is not None:
+                    dist.all_reduce(flat, group=group)
+                flat.div_(world)
+
+            red = fused(vals, run)
+            if axes == tuple(self.mesh.axis_names):
+                loss = red.pop().reshape(()).to(loss.dtype)
+            out.update(zip(keys, red))
+        me = self.mesh.my_rank()
+        for k, g in out.items():
+            for d, names in self.plans.get(k, ([], []))[0]:
+                i, n = self.mesh.block_index(me, names)
+                size = g.shape[d] // n
+                g = g.narrow(d, i * size, size)
+            out[k] = g.contiguous()
+        return out, loss
+
+    def global_norm(self, grads: dict) -> torch.Tensor:
+        """The 2-norm of the whole gradient, each block counted once."""
+        import torch.distributed as dist
+
+        if not self.world > 1:
+            return _global_norm(grads)
+        total = None
+        for k, g in grads.items():
+            spec_axes = [n for d, names in sum(self.plans.get(k, ([], [])), [])
+                         for n in names]
+            copies = self.world // self.mesh.group_size(spec_axes)
+            term = g.float().square().sum() / copies
+            total = term if total is None else total + term
+        total = total.reshape(1).clone()
+        dist.all_reduce(total)
+        return total.reshape(()).sqrt()
+
+
+def _plan_defaults(parallel: Any, mesh: Any, axis_name: str | None,
+                   batch_spec: Any, state_sharding: Any, caller: str):
+    """A step factory's layout defaults from ``parallel=`` (explicit
+    arguments win): the plan's mesh, dp axis name, batch spec and banked
+    state sharding."""
+    from .plan import resolve_parallel
+
+    plan = resolve_parallel(parallel)
+    mesh = mesh or plan.mesh
+    if axis_name is None:
+        axis_name = plan.dp_axis_name
+    if batch_spec is None:
+        batch_spec = plan.batch_spec
+    if state_sharding is None:
+        state_sharding = plan.state_sharding
+        if state_sharding is None and plan.shards_parameters:
+            raise ValueError(
+                f"this ParallelConfig shards parameters (fsdp/tp axes or "
+                f"a rules table) but no layout is banked — call "
+                f"plan.shard_state(state) before {caller}(parallel=plan) "
+                f"so the compiled program pins the same layout the state "
+                f"was placed with"
+            )
+    return plan, mesh, axis_name, batch_spec, state_sharding
+
+
+def _installed_plan_defaults(mesh: Any, axis_name: str | None, batch_spec: Any):
+    """The installed plan's batch layout and data axis for a step built
+    without ``parallel=``, when its mesh carries the plan's data axes; an
+    explicit ``axis_name`` or ``batch_spec`` opts out."""
+    if axis_name is not None or batch_spec is not None:
+        return None, mesh, axis_name, batch_spec
+    plan = runtime.global_plan()
+    if plan is None or not plan.covers(mesh):
+        return None, mesh, axis_name, batch_spec
+    return plan, mesh, plan.dp_axis_name, plan.batch_spec
+
+
+def _make_layout(plan: Any, mesh: Any, state_sharding: Any) -> _Layout:
+    """The step's :class:`_Layout` from the banked or given shardings."""
+    for kind in ("sp", "pp"):
+        if plan is not None and plan.axis_name(kind) is not None:
+            raise NotImplementedError(
+                f"a step over a plan with {kind}={plan.sizes[kind]} is not "
+                f"ported yet: sequence and pipeline parallelism are ROADMAP A.6")
+    specs = {}
+    params = getattr(state_sharding, "params", None) or {}
+    for k, sh in params.items():
+        specs[k] = sh.spec
+    ep = plan.axis_name("ep") if plan is not None else None
+    if ep is None and config.EP_AXIS_NAME in mesh.shape:
+        ep = config.EP_AXIS_NAME
+    return _Layout(mesh, specs, {ep} if ep else set())
+
+
+def _copy_state(ts: "TrainState") -> "TrainState":
+    """A new TrainState whose tensors are copies of ``ts``'s."""
+
+    def copy(t):
+        if not torch.is_tensor(t):
+            return t
+        return t.detach().clone().requires_grad_(t.requires_grad)
+
+    return TrainState(step=ts.step, params={k: copy(v) for k, v in ts.params.items()},
+                      opt_state=pytree.tree_map(copy, ts.opt_state),
+                      model_state=pytree.tree_map(copy, ts.model_state))
+
+
 def make_train_step(
     loss_fn: Callable[[dict, Any, Any], tuple[torch.Tensor, Any]],
     optimizer: GradientTransformation,
     *,
+    parallel: Any = None,
+    mesh: Any = None,
+    axis_name: str | None = None,
+    style: str = "auto",
     grad_reduce: str | None = "mean",
     state_reduce: str = "mean",
+    donate: bool | None = None,
+    state_sharding: Any = None,
+    batch_spec: Any = None,
+    remat: bool | str = False,
     grad_accum_steps: int = 1,
     scan_steps: int = 1,
-    remat: bool | str = False,
     policy: Any = None,
     metrics: Any = None,
     model_stats: Any = None,
-    **waiting,
 ) -> Callable[[TrainState, Any], tuple[TrainState, torch.Tensor]]:
     """Build ``step(state, batch) -> (state, loss)``.
 
@@ -367,6 +577,29 @@ def make_train_step(
     flush boundaries without it. The parameters it computes are the
     uninstrumented step's, bit for bit.
 
+    ``parallel``: a :class:`~fluxmpi_tpu_torch.parallel.ParallelConfig`
+    or resolved plan (or ``"auto"``: the installed plan); the step takes
+    its mesh, data axis, batch spec and the state sharding that
+    :meth:`~fluxmpi_tpu_torch.parallel.plan.ResolvedPlan.shard_state`
+    banked (a plan that shards parameters raises without one), and runs
+    the layout as the module docstring says; ``style="auto"`` only.
+    Without ``parallel=``, ``style="auto"`` follows a plan installed by
+    ``init(parallel=)``. ``mesh``/``axis_name``: the mesh and data axis
+    (default the plan's, else the runtime's and ``dp``).
+    ``state_sharding``: the tree of
+    :class:`~fluxmpi_tpu_torch.parallel.sharding.NamedSharding` the state
+    was placed with. ``batch_spec``: the batch layout the loader's rows
+    follow (default the plan's). ``style="shard_map"``: the per-worker
+    step over ``axis_name`` (its gradients and loss reduced over that
+    axis's workers; no ``grad_accum_steps``/``scan_steps``). ``donate``:
+    ``True``/``None`` (the ``donate_buffers`` preference) updates the
+    state in place; ``False`` copies it first, so the caller's stays
+    valid. ``grad_reduce`` applies to the step without a plan and to
+    ``"shard_map"``; under a plan the reduction is the layout's (the
+    global mean). A plan with ``sp`` or ``pp`` raises
+    ``NotImplementedError`` (ROADMAP A.6); the model stats with a layout
+    that shards parameters too.
+
     ``model_stats``: build the model-internals plane's per-layer stats
     into the step (``None``, the default, follows the installed
     :class:`~fluxmpi_tpu_torch.telemetry.ModelStats` plane —
@@ -384,7 +617,61 @@ def make_train_step(
     ``train_loop`` flush boundaries (one host copy per flush; in a fused
     window only the window's last update computes them, inside its CUDA
     graph) or per call when the step is driven directly."""
-    _refuse_waiting("make_train_step", waiting)
+    plan = None
+    if isinstance(parallel, str):
+        if parallel != "auto":
+            raise ValueError(
+                f'parallel= accepts a ParallelConfig, a ResolvedPlan, or '
+                f'the string "auto", got {parallel!r}'
+            )
+        parallel = runtime.global_plan()
+        if parallel is None:
+            raise ValueError(
+                'make_train_step(parallel="auto") found no installed '
+                "plan — run the layout search first: "
+                "fluxmpi_tpu.parallel.autotune.autotune(loss_fn, "
+                "optimizer, params, sample_batch) under "
+                'init(parallel="auto") installs its winner as the '
+                "global plan (a banked winner is reused without trials)"
+            )
+    if parallel is not None:
+        if style != "auto":
+            raise ValueError(
+                "parallel= requires style='auto' (the plan's layouts are "
+                "partitioner-driven; shard_map takes explicit axis_name=)"
+            )
+        plan, mesh, axis_name, batch_spec, state_sharding = _plan_defaults(
+            parallel, mesh, axis_name, batch_spec, state_sharding, "make_train_step")
+    elif style == "auto":
+        plan, mesh, axis_name, batch_spec = _installed_plan_defaults(
+            mesh, axis_name, batch_spec)
+    if style not in ("auto", "shard_map"):
+        raise ValueError("style must be 'auto' or 'shard_map'")
+    if donate is None:
+        donate = bool(config.load_preference("donate_buffers"))
+    if grad_accum_steps > 1 and style != "auto":
+        raise ValueError("grad_accum_steps requires style='auto'")
+    if scan_steps > 1 and style != "auto":
+        raise ValueError("scan_steps requires style='auto'")
+    if style == "shard_map" and (state_sharding is not None or batch_spec is not None):
+        raise ValueError(
+            "state_sharding/batch_spec require style='auto' (shard_map style "
+            "replicates state per the reference's layout)"
+        )
+    name = axis_name or config.DP_AXIS_NAME
+    if mesh is None and runtime.is_initialized():
+        mesh = runtime.global_mesh()
+    layout = None
+    if style == "auto" and (plan is not None or state_sharding is not None):
+        layout = _make_layout(plan, mesh, state_sharding)
+    # shard_map over an axis narrower than the world reduces over its group.
+    axis_group = None
+    if style == "shard_map" and mesh is not None:
+        if name not in mesh.shape:
+            raise ValueError(f"unbound axis name {name!r}: the mesh has axes "
+                             f"{tuple(mesh.axis_names)}")
+        if mesh.shape[name] != mesh.size:
+            axis_group = (mesh.group((name,)), mesh.shape[name])
     instrument = metrics is not None and metrics is not False
     if instrument:
         _resolve_metrics(metrics)  # reject bad specs at build, not step 1
@@ -394,8 +681,16 @@ def make_train_step(
 
     stats_depth = _modelstats.resolve_step_spec(model_stats)
     stats_on = stats_depth is not None
-    noise_on = stats_on and grad_reduce in ("mean", "sum")
+    if stats_on and layout is not None and layout.shards:
+        raise NotImplementedError(
+            "model_stats with a layout that shards parameters is not ported "
+            "yet: the per-layer norms would need a sum over each leaf's blocks")
+    noise_on = stats_on and grad_reduce in ("mean", "sum") and layout is None
     stats_workers = runtime.total_workers() if runtime.is_initialized() else 1
+    if plan is not None:
+        stats_workers = plan.data_parallel_size
+    elif axis_group is not None:
+        stats_workers = axis_group[1]
     plans: list = []  # the StatsPlan, made from the first update's params
     carry_norm = instrument or stats_on
     watch = _CastWatch()
@@ -409,15 +704,25 @@ def make_train_step(
     if scan_steps < 1:
         raise ValueError("scan_steps must be >= 1")
 
+    unused_checked = []
+
     def grads_of(ts: TrainState, batch):
         keys = list(ts.params)
-        vals = [ts.params[k] for k in keys]
+        params = ts.params if layout is None else layout.gather(ts.params)
+        vals = [params[k] for k in keys]
         loss_sum, acc, mstate = None, None, ts.model_state
         for mb in _split(batch, grad_accum_steps) if grad_accum_steps > 1 else [batch]:
-            loss, mstate = loss_fn(ts.params, mstate, mb)
+            loss, mstate = loss_fn(params, mstate, mb)
             if watch.armed:
                 watch.check(loss)
             g = torch.autograd.grad(loss, vals, allow_unused=True)
+            if layout is not None and not unused_checked:
+                unused_checked.append(True)
+                if all(x is None for x in g):
+                    raise ValueError(
+                        "loss_fn computed its loss without the params it was "
+                        "given; under a layout they are the gathered blocks, "
+                        "so compute from them (torch.func.functional_call)")
             g = [torch.zeros_like(v) if x is None else x for x, v in zip(g, vals)]
             if acc is None:
                 acc, loss_sum = g, loss.detach()
@@ -439,12 +744,16 @@ def make_train_step(
         want = stats_on if want_stats is None else (stats_on and want_stats)
         grads, loss, mstate = grads_of(ts, batch)
         local_sq = _global_norm(grads).square() if want and noise_on else None
-        if grad_reduce is not None:
-            # The loss rides in the gradients' flat f32 collective.
-            grads, loss = allreduce_gradients((grads, loss), reduce_op=grad_reduce)
-        gnorm = _global_norm(grads) if carry_norm else None
+        if layout is not None:
+            grads, loss = layout.reduce(grads, loss)
+            gnorm = layout.global_norm(grads) if carry_norm else None
+        else:
+            if grad_reduce is not None:
+                # The loss rides in the gradients' flat f32 collective.
+                grads, loss = _reduce((grads, loss), grad_reduce, axis_group)
+            gnorm = _global_norm(grads) if carry_norm else None
         if state_reduce == "mean" and mstate is not None and runtime.is_initialized():
-            mstate = _mean_floating(mstate)
+            mstate = _mean_floating(mstate, axis_group)
         updates, ts.opt_state = optimizer.update(grads, ts.opt_state, ts.params)
         stats = None
         if want:
@@ -477,10 +786,14 @@ def make_train_step(
 
     if scan_steps == 1:
         def core(ts: TrainState, batch):
+            if not donate:
+                ts = _copy_state(ts)
             ts, loss, gnorm, stats = single(ts, batch)
             return ts, aux(loss, gnorm, stats)
     else:
         def core(ts: TrainState, batches):
+            if not donate:
+                ts = _copy_state(ts)
             losses, norms = [], []
             for i in range(scan_steps):
                 # The stats describe the newest update, as a flush reads.
@@ -503,6 +816,10 @@ def make_train_step(
     else:
         step = core
     step.scan_steps = scan_steps  # read by train_loop
+    # The layout the step runs (read by train_loop's checkpoint guard) and
+    # the batch layout its rows follow.
+    step.__fluxmpi_layout__ = layout
+    step.batch_spec = batch_spec
     aux_names = ("loss", "grad_norm") if carry_norm else ("loss",)
     if stats_on:
         aux_names += ("model_stats",)
@@ -518,14 +835,34 @@ def make_train_step(
     return step
 
 
-def _mean_floating(tree: Any) -> Any:
+def _reduce(tree: Any, op: str, axis_group: Any = None) -> Any:
+    """``tree`` reduced (``"mean"``/``"sum"``) over the world, or over
+    ``axis_group`` (``(group, size)``) in one flat collective per dtype."""
+    if axis_group is None:
+        return allreduce_gradients(tree, reduce_op=op)
+    import torch.distributed as dist
+
+    from ..comm import fused
+
+    group, size = axis_group
+
+    def run(flat):
+        dist.all_reduce(flat, group=group)
+        if op == "mean":
+            flat.div_(size)
+
+    return fused(tree, run)
+
+
+def _mean_floating(tree: Any, axis_group: Any = None) -> Any:
     """``tree`` with its floating tensor leaves averaged over the workers
-    (one flat collective per dtype); other leaves as they are."""
+    (or over ``axis_group``; one flat collective per dtype); other leaves
+    as they are."""
     leaves, spec = pytree.tree_flatten(tree)
     idx = [i for i, x in enumerate(leaves)
            if torch.is_tensor(x) and x.is_floating_point()]
     if idx:
-        reduced = allreduce_gradients([leaves[i].detach() for i in idx], reduce_op="mean")
+        reduced = _reduce([leaves[i].detach() for i in idx], "mean", axis_group)
         for i, r in zip(idx, reduced):
             leaves[i] = r
     return pytree.tree_unflatten(leaves, spec)
@@ -756,17 +1093,37 @@ def make_window_program(step: Any, *, width: int, lbs: int) -> WindowProgram:
 
 
 def make_eval_step(metric_fn: Callable[[dict, Any, Any], Any], *,
-                   policy: Any = None, **waiting):
+                   parallel: Any = None, mesh: Any = None,
+                   axis_name: str | None = None, state_sharding: Any = None,
+                   batch_spec: Any = None, policy: Any = None):
     """Build ``eval_step(state, batch) -> metrics``:
     ``metric_fn(params, model_state, batch)`` without autograd, on this
     worker's batch (reduce across workers with
     :func:`~fluxmpi_tpu_torch.allreduce` where a global value is
-    wanted). ``policy`` casts the parameters to its compute dtype entering
-    ``metric_fn``, as in training."""
-    _refuse_waiting("make_eval_step", waiting)
+    wanted). ``parallel``/``state_sharding``/``batch_spec`` as in
+    :func:`make_train_step`: a state laid out by a plan evaluates in its
+    training layout (its sharded parameters gathered first). ``policy``
+    casts the parameters to its compute dtype entering ``metric_fn``, as
+    in training."""
+    plan = None
+    if parallel is not None:
+        plan, mesh, axis_name, batch_spec, state_sharding = _plan_defaults(
+            parallel, mesh, axis_name, batch_spec, state_sharding, "make_eval_step")
+    else:
+        plan, mesh, axis_name, batch_spec = _installed_plan_defaults(
+            mesh, axis_name, batch_spec)
+    if mesh is None and runtime.is_initialized():
+        mesh = runtime.global_mesh()
+    layout = None
+    if plan is not None or state_sharding is not None:
+        layout = _make_layout(plan, mesh, state_sharding)
 
     def step(ts: TrainState, batch):
-        params = ts.params if policy is None else policy.cast_to_compute(ts.params)
+        params = ts.params
+        if layout is not None:
+            with torch.no_grad():
+                params = layout.gather(params)
+        params = params if policy is None else policy.cast_to_compute(params)
         with torch.no_grad():
             return metric_fn(params, ts.model_state, batch)
 

@@ -35,7 +35,10 @@ __all__ = [
     "Initialized",
     "clear_preemption",
     "device_count",
+    "dp_axis_name",
     "enable_compile_cache",
+    "global_mesh",
+    "global_plan",
     "init",
     "install_preemption_handlers",
     "is_initialized",
@@ -83,12 +86,15 @@ class _State:
     # None at world 1 without host staging, the default group on the CPU,
     # a gloo group beside NCCL on the card.
     host_group: Any = None
+    # The global mesh (parallel.sharding.Mesh) and the installed plan.
+    mesh: Any = None
+    plan: Any = None
 
 
 _state = _State()
 
 # init() arguments of the JAX package whose machinery is not ported yet.
-_WAITING = ("devices", "mesh_shape", "parallel", "distributed", "resize")
+_WAITING = ("resize",)
 
 _PREEMPTION_ENV = "FLUXMPI_TPU_PREEMPTION"
 _SIGNALS_BY_NAME = {
@@ -231,7 +237,10 @@ def _configure_planes(telemetry: Any, trace: Any, watchdog: Any,
     _fleet.configure(fleet)
 
 
-def init(*, device: str | torch.device | None = None,
+def init(*, devices: Sequence[int] | int | None = None,
+         mesh_shape: dict[str, int] | None = None, parallel: Any = None,
+         distributed: bool | None = None,
+         device: str | torch.device | None = None,
          coordinator_address: str | None = None,
          num_processes: int | None = None, process_id: int | None = None,
          timeout: float = 600.0,
@@ -299,39 +308,94 @@ def init(*, device: str | torch.device | None = None,
     (``FLUXMPI_TPU_FLEET``, ``_HOSTS``, ``_INTERVAL``). ``False`` turns
     each one off.
 
-    Not ported yet (each raises ``NotImplementedError`` when passed):
-    device lists and mesh shapes, ``parallel=``, ``distributed=`` and the
-    resize plane.
+    The layout (the JAX package's): ``parallel`` — a
+    :class:`~fluxmpi_tpu_torch.parallel.ParallelConfig` or a resolved plan;
+    the global mesh (:func:`global_mesh`) is the plan's mesh and the plan
+    is installed as :func:`global_plan` (read by
+    ``make_train_step(parallel=)``, the loader's batch axes and the
+    ``/status`` PARALLEL board); ``mesh_shape`` — an ordered ``{axis:
+    size}`` for an ad-hoc mesh (one size may be ``-1``), exclusive with
+    ``parallel``; default a 1-D ``dp`` mesh over every worker;
+    ``devices`` — the worker ranks (or their count) the mesh covers,
+    default the whole world. The mesh is plain data over the workers
+    (one process per device): unlike the JAX package, ``init`` returns
+    this worker's device, not the mesh. ``distributed`` — ``True``
+    joins the launcher's world (``RANK``/``WORLD_SIZE``/``MASTER_*``, or
+    the explicit coordinator) and raises without one, ``False`` ignores
+    the launcher's environment and runs this process alone, ``None``
+    (default) joins when the environment names a world.
+
+    Not ported yet (raise ``NotImplementedError``): ``parallel="auto"``
+    and ``FLUXMPI_TPU_PARALLEL=auto`` (the layout autotuner,
+    :mod:`fluxmpi_tpu.parallel.autotune`), and ``resize=`` (ROADMAP A.5).
     """
     passed = sorted(k for k, v in waiting.items() if v is not None)
     unknown = [k for k in passed if k not in _WAITING]
     if unknown:
         raise TypeError(f"init() got unexpected arguments {unknown}")
     refuse_unported("init", {k: True for k in passed},
-                    "the port has no device mesh or parallel plans, and its "
-                    "resize plane is not ported; it runs one process per "
-                    "device with torch.distributed")
+                    "the resize plane is ROADMAP A.5")
+    if isinstance(parallel, str):
+        if parallel != "auto":
+            raise ValueError(
+                f'parallel= accepts a ParallelConfig, a ResolvedPlan, or '
+                f'the string "auto", got {parallel!r}'
+            )
+        _refuse_auto()
+    elif parallel is None and mesh_shape is None:
+        env_parallel = os.environ.get("FLUXMPI_TPU_PARALLEL", "").strip()
+        if env_parallel == "auto":
+            _refuse_auto()
+        elif env_parallel:
+            warnings.warn(
+                f'ignoring FLUXMPI_TPU_PARALLEL={env_parallel!r} — the '
+                f'only supported value is "auto" (pass a ParallelConfig '
+                f'to init(parallel=) for an explicit layout)',
+                stacklevel=2,
+            )
+    if parallel is not None and mesh_shape is not None:
+        raise ValueError(
+            "pass either parallel= (the declarative plan) or mesh_shape= "
+            "(an ad-hoc mesh), not both"
+        )
     planes = (telemetry, trace, watchdog, preemption, faults, goodput, anomaly,
               model_stats, compileplane, memory, profile, compile_cache, export,
               serving, request_log, fleet)
     if _state.initialized:
+        if parallel is not None and not _same_plan(parallel, _state.plan):
+            # The mesh and plan are frozen at the first init.
+            warnings.warn(
+                "fluxmpi_tpu is already initialized; init(parallel=) "
+                "cannot rebuild the global mesh on an idempotent replay "
+                "— the existing mesh/plan stays. Call shutdown() first "
+                "to re-init under a different ParallelConfig.",
+                stacklevel=2,
+            )
         _configure_planes(*planes)
         return _state.device
     want = resolve_device(device)
     cpu = want.type == "cpu"
     adopt = dist.is_initialized()
+    launcher = distributed is not False
     if adopt:
         rank, world = dist.get_rank(), dist.get_world_size()
     else:
-        rank = process_id if process_id is not None else _env_int("RANK")
-        world = num_processes if num_processes is not None else _env_int("WORLD_SIZE")
+        rank = process_id if process_id is not None else (
+            _env_int("RANK") if launcher else None)
+        world = num_processes if num_processes is not None else (
+            _env_int("WORLD_SIZE") if launcher else None)
+        if distributed and world is None and coordinator_address is None:
+            raise RuntimeError(
+                "init(distributed=True) found no world to join: set the "
+                "launcher's RANK/WORLD_SIZE/MASTER_ADDR/MASTER_PORT, or pass "
+                "coordinator_address/num_processes/process_id")
         if (rank is None) != (world is None):
             raise ValueError("pass the process index and count together "
                              "(process_id/num_processes, or RANK/WORLD_SIZE)")
         rank, world = (0, 1) if rank is None else (int(rank), int(world))
         if not 0 <= rank < world:
             raise ValueError(f"process_id {rank} out of range for {world} processes")
-    lr = _env_int("LOCAL_RANK")
+    lr = _env_int("LOCAL_RANK") if launcher else None
     lr = rank if lr is None else lr
     if cpu:
         dev = want
@@ -345,7 +409,7 @@ def init(*, device: str | torch.device | None = None,
                       timeout=datetime.timedelta(seconds=timeout))
         if coordinator_address is not None:
             kwargs["init_method"] = f"tcp://{coordinator_address}"
-        elif world > 1 or "MASTER_ADDR" in os.environ:
+        elif world > 1 or (launcher and "MASTER_ADDR" in os.environ):
             kwargs["init_method"] = "env://"
         else:
             # A single process needs no launcher: a store on an ephemeral
@@ -366,7 +430,18 @@ def init(*, device: str | torch.device | None = None,
     _state.owns_group = not adopt
     _state.device = dev
     _state.rank, _state.world, _state.local_rank = rank, world, lr
+    try:
+        _state.mesh, _state.plan = _build_mesh(devices, mesh_shape, parallel, world)
+    except Exception:
+        shutdown()
+        raise
     _configure_planes(*planes)
+    if _state.plan is not None:
+        # The PARALLEL board: the mesh on /status and the parallel.*
+        # gauges the moment the plan is installed.
+        from .parallel.plan import post_board
+
+        post_board(_state.plan)
     if verbose:
         if world == 1:
             warnings.warn(
@@ -377,8 +452,127 @@ def init(*, device: str | torch.device | None = None,
         from .logging import fluxmpi_println
 
         fluxmpi_println(f"Initialized: {world} process(es), device {dev}, "
-                        f"backend {dist.get_backend()}")
+                        f"mesh axes {_state.mesh.shape}, backend "
+                        f"{dist.get_backend()}")
     return dev
+
+
+def _refuse_auto() -> None:
+    raise NotImplementedError(
+        'init(parallel="auto") is not ported yet: the layout autotuner '
+        "(fluxmpi_tpu.parallel.autotune.autotune) is the next slice; pass "
+        "a ParallelConfig")
+
+
+def _build_mesh(devices: Any, mesh_shape: Any, parallel: Any,
+                world: int) -> tuple[Any, Any]:
+    """The global mesh and the installed plan (None for a mesh from
+    ``mesh_shape=`` or the default)."""
+    import numpy as np
+
+    from .parallel.plan import ParallelConfig, ResolvedPlan
+    from .parallel.sharding import Mesh
+
+    if devices is None:
+        devs = list(range(world))
+    elif isinstance(devices, int):
+        devs = list(range(devices))
+    else:
+        devs = [int(d) for d in devices]
+    if parallel is not None:
+        if isinstance(parallel, ResolvedPlan):
+            plan_devs = sorted(int(d) for d in parallel.mesh.devices.flat)
+            if devices is not None and plan_devs != sorted(devs):
+                from .errors import TopologyMismatchError
+
+                raise TopologyMismatchError(
+                    f"init(devices=) names {len(devs)} device(s) but "
+                    f"the pre-resolved plan's mesh covers device ids "
+                    f"{plan_devs} — resolve the ParallelConfig "
+                    f"against those devices, or pass the config itself"
+                )
+            return parallel.mesh, parallel
+        if isinstance(parallel, ParallelConfig):
+            plan = parallel.resolve(devs)
+            return plan.mesh, plan
+        raise ValueError(f"parallel= must be a ParallelConfig or ResolvedPlan, "
+                         f"got {parallel!r}")
+    if mesh_shape is None:
+        mesh_shape = {config.DP_AXIS_NAME: len(devs)}
+    axis_names = tuple(mesh_shape.keys())
+    sizes = list(mesh_shape.values())
+    if sizes.count(-1) > 1:
+        raise ValueError("at most one mesh axis may have inferred size -1")
+    if -1 in sizes:
+        known = int(np.prod([s for s in sizes if s != -1]))
+        if len(devs) % known != 0:
+            raise ValueError(f"cannot infer mesh axis: {len(devs)} devices not "
+                             f"divisible by {known}")
+        sizes[sizes.index(-1)] = len(devs) // known
+    if int(np.prod(sizes)) != len(devs):
+        raise ValueError(f"mesh_shape {dict(zip(axis_names, sizes))} does not "
+                         f"cover {len(devs)} devices")
+    return Mesh(np.asarray(devs).reshape(sizes), axis_names), None
+
+
+def _same_rule_config(a: Any, b: Any) -> bool:
+    """Do two ParallelConfigs declare the same partition-rule behaviour?"""
+    try:
+        same_rules = a.rules is b.rules or a.rules == b.rules
+    except Exception:
+        same_rules = False
+    return (bool(same_rules) and a.strict == b.strict
+            and a.fsdp_min_size == b.fsdp_min_size)
+
+
+def _same_plan(parallel: Any, installed: Any) -> bool:
+    """Is the ``parallel=`` of a repeated ``init`` the installed layout
+    (the plan, its config, an equivalent re-resolved plan, or a config
+    with the same sizes, names and rule behaviour)?"""
+    if installed is None:
+        return False
+    if parallel is installed or parallel is installed.config:
+        return True
+    sizes = getattr(parallel, "sizes", None)
+    names = getattr(parallel, "axis_names", None)
+    if not (isinstance(sizes, dict) and isinstance(names, dict)):
+        return False
+    cfg = installed.config
+    other = getattr(parallel, "config", None)
+    if other is not None:
+        return (sizes == installed.sizes and names == installed.axis_names
+                and _same_rule_config(other, cfg))
+    if not _same_rule_config(parallel, cfg):
+        return False
+    if sizes == cfg.sizes and names == cfg.axis_names:
+        return True
+    try:
+        resolved = parallel.resolve([int(d) for d in installed.mesh.devices.flat])
+    except Exception:
+        return False
+    return (resolved.sizes == installed.sizes
+            and resolved.axis_names == installed.axis_names)
+
+
+def global_mesh() -> Any:
+    """The mesh :func:`init` built (a
+    :class:`~fluxmpi_tpu_torch.parallel.sharding.Mesh`)."""
+    _require_init()
+    return _state.mesh
+
+
+def global_plan() -> Any:
+    """The :class:`~fluxmpi_tpu_torch.parallel.plan.ResolvedPlan`
+    installed by ``init(parallel=)``, or None."""
+    return _state.plan
+
+
+def dp_axis_name() -> str:
+    """Name of the data-parallel mesh axis (the installed plan's, else
+    the preference)."""
+    if _state.plan is not None:
+        return _state.plan.dp_axis_name
+    return config.DP_AXIS_NAME
 
 
 def is_initialized() -> bool:
@@ -416,6 +610,7 @@ def shutdown() -> None:
     _state.device = None
     _state.host_group = None
     _state.rank, _state.world, _state.local_rank = 0, 1, 0
+    _state.mesh = _state.plan = None
 
 
 def _require_init() -> None:

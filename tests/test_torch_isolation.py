@@ -55,7 +55,8 @@ def test_import_loads_no_jax_flax_or_reference_package():
         "utils.flops", "serving.cache", "serving.observe", "models.generate",
         "models.hf_gpt2", "io", "io.native", "telemetry.anomaly",
         "telemetry.compileplane", "telemetry.modelstats", "telemetry.export",
-        "telemetry.fleet", "utils.profiling")}
+        "telemetry.fleet", "utils.profiling", "parallel.plan", "parallel.sharding",
+        "parallel.collectives", "_collective_ops", "models.moe")}
     assert ported <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -182,17 +183,24 @@ def test_zoo_entry_points_refuse_missing_cuda(monkeypatch):
 def test_waiting_options_raise_instead_of_being_ignored():
     from fluxmpi_tpu_torch.parallel import make_eval_step, make_train_step, train_loop
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # Ported in the layout slice: meshes, plans and the step's layout
+    # arguments, with the JAX package's errors.
+    with pytest.raises(ValueError, match="does not cover 1 devices"):
         fluxmpi_tpu_torch.init(device="cpu", mesh_shape={"dp": 2})
     assert not fluxmpi_tpu_torch.is_initialized()
-    for kw in ("parallel", "state_sharding", "batch_spec"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            make_train_step(lambda p, s, b: (None, s), None, **{kw: True})
+    with pytest.raises(ValueError, match="must be a ParallelConfig"):
+        make_train_step(lambda p, s, b: (None, s), None, parallel=True)
+    with pytest.raises(ValueError, match="require style='auto'"):
+        make_train_step(lambda p, s, b: (None, s), None, style="shard_map",
+                        batch_spec=("dp",))
+    with pytest.raises(ValueError, match="style must be"):
+        make_train_step(lambda p, s, b: (None, s), None, style="pjit")
     # Ported in the run-health slice: the model stats built into the step.
     step = make_train_step(lambda p, s, b: (None, s), None, model_stats=True)
     assert step.__fluxmpi_window_meta__["aux"] == ("loss", "grad_norm", "model_stats")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_eval_step(lambda p, s, b: None, mesh=object())
+    from fluxmpi_tpu_torch.parallel.sharding import Mesh
+
+    make_eval_step(lambda p, s, b: None, mesh=Mesh([0], ("dp",)))
     # Ported in the telemetry slice: metrics= on the step and the loop.
     make_train_step(lambda p, s, b: (None, s), None, metrics=True)
     assert train_loop(lambda s, b: (s, b), None, [], metrics=True)[1]["updates"] == 0

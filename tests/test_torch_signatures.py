@@ -13,14 +13,17 @@ and the port adds no parameter of its own. The allow-list holds only:
   generator, flax from a PRNG key), ``init(timeout=)``, the
   ``torch.distributed`` process group's timeout, and ``in_features=`` of
   ``MLP``, ``CNN``, ``ResNet`` (and its blocks), ``DEQ``, ``ViT`` and
-  ``UNet``, and ``image_size=`` of ``ViT`` and ``UNet`` (a torch module is
-  built with its shapes; flax infers the input width, the position
-  table's length and where the UNet's attention blocks sit at the first
-  call);
-- the TPU-only arguments ``block_q``, ``block_k``, ``interpret``,
-  ``mesh`` and ``axis_name`` where the port does not take them (the port
-  has no Pallas tiling and no device mesh; its sync-BN models take
-  ``axis_name``, which is then compared);
+  ``UNet``, ``image_size=`` of ``ViT`` and ``UNet``, and ``d_model=`` of
+  ``MoEMLP`` (a torch module is built with its shapes; flax infers the
+  input width, the position table's length and where the UNet's attention
+  blocks sit at the first call);
+- the TPU-only arguments ``block_q``, ``block_k`` and ``interpret`` where
+  the port does not take them (the port has no Pallas tiling);
+- ``mesh`` and ``axis_name`` only where ``MESH_NOT_TAKEN`` names the
+  callable: the eager collectives, which run over the whole world, and the
+  checkpoint's ``mesh`` (sharded checkpoints are ROADMAP A.5). Everywhere
+  else the port takes them (the layouts, the steps, the loader, the
+  in-step collectives, the sync-BN models) and they are compared;
 - the arguments that the port takes through ``**waiting`` and still
   refuses with ``NotImplementedError``, each named in ``REFUSED`` (and
   shown to raise). Arguments that the port spells as parameters but
@@ -47,10 +50,11 @@ flax_linen = pytest.importorskip("flax.linen")
 
 MODULES = ["", ".comm", ".config", ".data", ".errors", ".faults", ".logging",
            ".optimizer", ".runtime", ".sync", ".models", ".models.cnn", ".models.deq",
-           ".models.generate", ".models.resnet", ".models.transformer",
+           ".models.generate", ".models.moe", ".models.resnet", ".models.transformer",
            ".models.unet", ".models.vit",
            ".ops", ".ops.flash_attention", ".ops.fused_ce", ".parallel",
-           ".parallel.loop", ".parallel.train", ".serving", ".serving.cache",
+           ".parallel.collectives", ".parallel.loop", ".parallel.plan",
+           ".parallel.sharding", ".parallel.train", ".serving", ".serving.cache",
            ".serving.engine", ".serving.observe", ".models.hf_gpt2", ".utils", ".utils.checkpoint", ".utils.ema",
            ".utils.manifest", ".utils.precision", ".utils.profiling", ".utils.flops",
            ".telemetry", ".telemetry.registry", ".telemetry.sinks",
@@ -63,20 +67,30 @@ MODULES = ["", ".comm", ".config", ".data", ".errors", ".faults", ".logging",
 UNLISTED = [(".models.transformer", "EncoderBlock")]
 
 EXTRAS = {"device", "generator"}
-TPU_ONLY = {"block_q", "block_k", "interpret", "mesh", "axis_name"}
+TPU_ONLY = {"block_q", "block_k", "interpret"}
+# Callables whose JAX signature takes mesh=/axis_name= and the port's does
+# not yet.
+MESH_NOT_TAKEN = {
+    **{name: {"mesh", "axis_name"} for name in (
+        "allreduce", "bcast", "iallreduce", "ibcast", "reduce")},
+    "allreduce_gradients": {"axis_name"},
+    "DistributedOptimizer": {"axis_name"},
+    "build_manifest": {"mesh"},
+    "restore_checkpoint": {"mesh"},
+}
 FLAX_FIELDS = {"parent", "name"}
 # Port-only parameters beyond EXTRAS, by callable.
 PORT_ONLY = {"init": {"timeout"},
              **{name: {"in_features"} for name in (
                  "MLP", "CNN", "DEQ", "ResNet", "ResNet18", "ResNet34", "ResNet50",
                  "ResNet101", "BottleneckBlock", "BasicBlock")},
-             **{name: {"in_features", "image_size"} for name in ("ViT", "UNet")}}
+             **{name: {"in_features", "image_size"} for name in ("ViT", "UNet")},
+             "MoEMLP": {"d_model"}}
 # Arguments the port takes through **waiting and refuses, by callable.
 REFUSED = {
-    "init": {"devices", "mesh_shape", "parallel", "distributed", "resize"},
-    "make_train_step": {"parallel", "style", "donate",
-                        "state_sharding", "batch_spec"},
-    "make_eval_step": {"parallel", "state_sharding", "batch_spec"},
+    "init": {"resize"},
+    "make_train_step": set(),
+    "make_eval_step": set(),
 }
 # Parameters the port spells as the JAX package does but refuses with
 # NotImplementedError when set: (module, callable) -> {argument: a value}.
@@ -180,7 +194,7 @@ def _mismatches(name, port, ref):
     var_kw = any(p.kind is p.VAR_KEYWORD for p in pp.values())
     # A TPU-only argument that the port does take (axis_name of the
     # sync-BN models) is compared like any other.
-    skip = {n for n in TPU_ONLY if n not in pp}
+    skip = {n for n in TPU_ONLY | MESH_NOT_TAKEN.get(name, set()) if n not in pp}
     base = ref.func if isinstance(ref, functools.partial) else ref
     if inspect.isclass(base) and issubclass(base, flax_linen.Module):
         skip |= FLAX_FIELDS
@@ -222,6 +236,21 @@ def _mismatches(name, port, ref):
 @pytest.mark.parametrize("where,name,port,ref", PAIRS, ids=[w for w, *_ in PAIRS])
 def test_signature_matches_the_jax_package(where, name, port, ref):
     assert _mismatches(name, port, ref) == []
+
+
+def test_mesh_arguments_left_out_only_where_listed():
+    """``MESH_NOT_TAKEN`` is exactly the set of callables whose JAX
+    signature has ``mesh``/``axis_name`` and the port's lacks them."""
+    missing = {}
+    for _, name, port, ref in PAIRS:
+        try:
+            pp, rp = (inspect.signature(f).parameters for f in (port, ref))
+        except (TypeError, ValueError):
+            continue
+        left = {n for n in ("mesh", "axis_name") if n in rp and n not in pp}
+        if left:
+            missing[name] = left
+    assert missing == MESH_NOT_TAKEN
 
 
 def test_refused_arguments_raise_not_implemented():
