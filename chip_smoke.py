@@ -195,6 +195,21 @@
    apart by their operands' shapes) with the 15 costliest kernels; then
    greedy ``generate`` of 16 tokens, ``prefill="auto"`` (the scan for MoE)
    equal to ``prefill="scan"``.
+14. Autotune phase (``autotune_phase``): a GPT-2-small-width
+   ``TransformerLM`` (f32, ``attention="flash"``, adamw, a sample batch of
+   8 x 1024 synthetic tokens): 12 updates with no plan (``init()``), then
+   ``shutdown()`` and ``init(parallel="auto")``; ``autotune`` at world 1
+   (one candidate; its memory floor beside the card's ``bytes_limit``; one
+   trial of one CUDA-graph capture and no re-capture; the record valid
+   under the port's validator); a second ``autotune`` answered by the
+   bank with the trial replaced by one that raises; a ``bytes_limit``
+   below the floor raising "every candidate layout exceeds";
+   ``make_train_step(parallel="auto")`` through ``train_loop(fuse="auto")``
+   and ``fuse=False`` (12 updates, windows of 4), bit for bit against each
+   other and against the run with no plan, 12 launches of each kernel per
+   update by the device counters; a checkpoint save writing
+   ``<path>.autotune.json`` and the manifest's fingerprint; ms per update,
+   the trial's examples/s and the search's seconds.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -205,6 +220,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -4773,6 +4789,196 @@ def parallel_phase(device, updates: int = 8, fused_updates: int = 12,
     return stats, failures
 
 
+def autotune_phase(device, updates: int = 12, flush_every: int = 4):
+    """The layout autotuner on one card (module docstring, item 14).
+    Returns its stats and failures."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    import fluxmpi_tpu_torch.parallel.autotune  # noqa: F401
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+    from fluxmpi_tpu_torch.telemetry.memory import device_memory_stats
+    from fluxmpi_tpu_torch.telemetry.schema import validate_autotune_record
+    from fluxmpi_tpu_torch.utils import manifest
+    from fluxmpi_tpu_torch.utils.checkpoint import save_checkpoint
+
+    at = sys.modules["fluxmpi_tpu_torch.parallel.autotune"]
+    failures = []
+    card = card_line()
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    cfg = GPT2_SMALL
+    corpus = lm_corpus(cfg["vocab_size"], n=32, seq=cfg["max_len"]).astype(np.int64)
+    # The search's sample batch; the runs take 4 batches per epoch (windows
+    # of 4).
+    sample = (corpus[:8, :-1], corpus[:8, 1:])
+    tokens_per_update = 8 * cfg["max_len"]
+    if fm.is_initialized():
+        fm.shutdown()
+    dev = fm.init()
+    model = TransformerLM(**cfg, attention="flash", device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+
+    def loss_fn(params, model_state, batch):
+        x, y = batch
+        out = torch.func.functional_call(model, params, (x,), {"targets": y})
+        return out.mean(), model_state
+
+    def leaves(state):
+        out = {f"params/{k}": v for k, v in state.params.items()}
+        for m in ("mu", "nu"):
+            out.update({f"{m}/{k}": v for k, v in state.opt_state[m].items()})
+        out["count"] = state.opt_state["count"]
+        return out
+
+    def run(name, fuse, **step_kw):
+        """12 updates from the start weights through ``train_loop``, the
+        counts set to 0 just before and read just after."""
+        with torch.no_grad():
+            for k, v in model.named_parameters():
+                v.copy_(start[k])
+        opt = optim.adamw(3e-4)
+        loader = fm.DistributedDataLoader(
+            fm.ArrayDataset((corpus[:, :-1], corpus[:, 1:])), global_batch_size=8)
+        step = make_train_step(loss_fn, opt, **step_kw)
+        # A world of one: the winner (dp=1) shards nothing.
+        state = TrainState.create(model, opt)
+        torch.cuda.synchronize()
+        for kern in kernels:
+            kern.launches = 0
+        t1 = time.perf_counter()
+        (state, summ), launches = kernel_launches(
+            lambda: train_loop(step, state, loader, steps=updates,
+                               flush_every=flush_every, fuse=fuse))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counted = {k.__name__: k.launches for k in kernels}
+        extra = graph_launches(step)
+        accounted = {n: counted[n] + extra[n] for n in counted}
+        need = cfg["num_layers"] * updates
+        if launches != {k.__name__: need for k in kernels}:
+            failures.append(f"autotune_phase {name}: launches {launches}, not {need} each")
+        if accounted != launches:
+            failures.append(f"autotune_phase {name}: the wrappers' counts {accounted} "
+                            f"differ from the device's {launches}")
+        losses = [f["loss"] for f in summ["flushes"]]
+        if not all(math.isfinite(x) for x in losses):
+            failures.append(f"autotune_phase {name}: a loss is not finite")
+        paths[f"autotune_{name.replace(' ', '_').replace('=', '_')}"] = launches
+        print(f"autotune {name}: {summ['updates']} updates, losses {losses}, {wall:.3f}s, "
+              f"launches {launches} (wrappers with the graphs: {accounted})", flush=True)
+        return dict(summary=summ, losses=losses, graphs=graph_stats(step), wall=wall,
+                    state=state, bits={k: v.detach().clone()
+                                       for k, v in leaves(state).items()})
+
+    def same(a, b):
+        return (a["losses"] == b["losses"]
+                and all(torch.equal(a["bits"][k], b["bits"][k]) for k in a["bits"]))
+
+    stats = dict(card=card, config=dict(cfg), batch=[8, cfg["max_len"]])
+    paths = stats["launches_by_path"] = {}
+    plain = run("no plan", False)
+    plain.pop("state")
+    fm.shutdown()
+
+    dev = fm.init(parallel="auto", compileplane=True)
+    if not fm.runtime.auto_parallel() or fm.global_plan() is not None:
+        failures.append("autotune_phase: init(parallel='auto') did not arm the autotuner")
+    limit = device_memory_stats(dev).get("bytes_limit")
+    opt = optim.adamw(3e-4)
+    at.clear_bank()
+    t0 = time.perf_counter()
+    res = at.autotune(loss_fn, opt, model, sample)
+    search_s = time.perf_counter() - t0
+    rec = res.record
+    (cand,) = rec["candidates"] if len(rec["candidates"]) == 1 else (None,)
+    trial = (cand or {}).get("trial") or {}
+    errors = validate_autotune_record(rec)
+    stats["search"] = dict(seconds=search_s, record=rec, bytes_limit=limit,
+                           validator_errors=errors)
+    print(f"autotune: {len(rec['candidates'])} candidate(s), memory floor "
+          f"{(cand or {}).get('mem_bytes_per_device')} bytes against the card's bytes_limit "
+          f"{limit:.0f}; score {(cand or {}).get('score')}; trial {json.dumps(trial)}; "
+          f"search {search_s:.3f}s; record valid: {not errors}", flush=True)
+    if cand is None:
+        failures.append(f"autotune_phase: {len(rec['candidates'])} candidates, not 1")
+    if rec["trials"] != 1 or trial.get("captures") != 1 or trial.get("steady_compiles") != 0:
+        failures.append(f"autotune_phase: the trial is not one capture with no "
+                        f"re-capture: {trial}")
+    if errors:
+        failures.append(f"autotune_phase: the record is invalid: {errors}")
+    if fm.global_plan() is not res.plan:
+        failures.append("autotune_phase: the winner is not the installed plan")
+
+    real = at._run_trial
+
+    def boom(*a, **k):
+        raise AssertionError("a trial ran on a bank hit")
+
+    at._run_trial = boom
+    try:
+        hit = at.autotune(loss_fn, opt, model, sample)
+    finally:
+        at._run_trial = real
+    print(f"autotune: second search from the bank: {hit.from_bank}", flush=True)
+    if not hit.from_bank or hit.record["winner"] != rec["winner"]:
+        failures.append("autotune_phase: the second search was not answered by the bank")
+    floor = cand["mem_bytes_per_device"] if cand else 1
+    try:
+        at.autotune(loss_fn, opt, model, sample, bytes_limit=floor - 1, force=True)
+        failures.append("autotune_phase: a budget below the floor did not raise")
+    except RuntimeError as exc:
+        print(f"autotune: bytes_limit {floor - 1}: {exc}", flush=True)
+        if "every candidate layout exceeds" not in str(exc):
+            failures.append(f"autotune_phase: the budget error is not JAX's: {exc}")
+
+    fused = run("auto fused", "auto", parallel="auto")
+    pipe = run("auto pipelined", False, parallel="auto")
+    captured = sum(g["captured"] for g in fused["graphs"])
+    all_same = same(fused, pipe) and same(fused, plain)
+    print(f"autotune: parallel='auto' fused vs fuse=False vs no plan: "
+          f"{'bit-identical' if all_same else 'DIFFER'}; window graphs captured "
+          f"{captured}", flush=True)
+    if not all_same:
+        failures.append("autotune_phase: the autotuned runs differ from each other or "
+                        "from the run with no plan")
+    if not captured:
+        failures.append("autotune_phase: no window was captured")
+    per_update = [ms / flush_every for ms in fused["summary"]["step_ms"][1:]]
+    stats["fused"] = dict(median_update_ms=float(np.median(per_update)),
+                          tokens_per_sec=tokens_per_update / float(np.median(per_update)) * 1e3,
+                          bit_identical=all_same)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt")
+        save_checkpoint(path, fused["state"])
+        side = path + ".autotune.json"
+        sidecar = os.path.exists(side)
+        side_ok = False
+        if sidecar:
+            with open(side) as f:
+                side_ok = not validate_autotune_record(json.load(f))
+        man = manifest.read_manifest(path) or {}
+        fp = (man.get("parallel") or {}).get("autotune_fingerprint")
+    stats["checkpoint"] = dict(sidecar=sidecar, sidecar_valid=side_ok, manifest_fingerprint=fp)
+    print(f"autotune: checkpoint sidecar written {sidecar} (valid {side_ok}), manifest "
+          f"fingerprint {fp} (record {rec['model_fingerprint']})", flush=True)
+    if not side_ok or fp != rec["model_fingerprint"]:
+        failures.append("autotune_phase: the checkpoint lacks the sidecar or the fingerprint")
+    print(f"autotune: {card}: fused {stats['fused']['median_update_ms']:.3f} ms per update "
+          f"= {stats['fused']['tokens_per_sec']:.1f} tokens/s; trial "
+          f"{trial.get('examples_per_sec')} examples/s; search {search_s:.3f}s", flush=True)
+    del fused, pipe, plain, model, start
+    at.clear_bank()
+    fm.shutdown()
+    return stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -4880,7 +5086,11 @@ def run_phases(device):
     settle("parallel_phase")
     par, par_failures = parallel_phase(device)
     failures += par_failures
-    par_paths = par.get("launches_by_path", {})
+    settle("autotune_phase")
+    tune_auto, auto_failures = autotune_phase(device)
+    failures += auto_failures
+    par_paths = {**par.get("launches_by_path", {}),
+                 **tune_auto.get("launches_by_path", {})}
     health_paths = {f"health_planes_{name}": health[f"planes_{name}"]["launches"]
                     for name in ("off", "on") if f"planes_{name}" in health}
     tune_paths = {"finetune_flash_dropout": tune["flash_dropout"]["launches"],
@@ -5010,7 +5220,7 @@ def run_phases(device):
                      "train_bf16": bf16,
                      "train_bf16_fused": fused, "train_bf16_telemetry": telem,
                      "vision": vision, "zoo": zoo, "finetune": tune,
-                     "health": health, "parallel": par}, failures
+                     "health": health, "parallel": par, "autotune": tune_auto}, failures
 
 
 if __name__ == "__main__":

@@ -115,11 +115,68 @@ def _canonical_op(op: str) -> str:
         ) from None
 
 
-def _check_root(root: int) -> int:
-    world = _state.world
+def _check_root(root: int, world: int | None = None) -> int:
+    world = _state.world if world is None else world
     if not isinstance(root, (int, np.integer)) or not 0 <= root < world:
         raise ValueError(f"root {root!r} out of range for {world} worker(s)")
     return int(root)
+
+
+class _Axis:
+    """The mesh axis an eager collective runs over, as this worker sees
+    it: its ``size``, this worker's ``index`` along it, the ``members``
+    (their world ranks, by index), and the process groups: ``group`` on
+    the worker's device, ``host_group`` over gloo for host staging."""
+
+    def __init__(self, mesh: Any, name: str):
+        self.size = int(mesh.shape[name])
+        coords = mesh.coords(mesh.my_rank())
+        self.index = coords[name]
+        self.members = [
+            int(mesh.devices[tuple(i if a == name else coords[a] for a in mesh.axis_names)])
+            for i in range(self.size)]
+        self.group = mesh.group((name,)) if self.size > 1 else None
+        self.host_group = (mesh.host_group((name,))
+                           if self.size > 1 and _staging() else None)
+
+
+# ``mesh=WORLD``: the whole world whatever the global mesh, for the
+# package's own agreements (a preemption, a dataset's common length, a
+# checkpoint's step), which every worker must reach together.
+WORLD = object()
+
+
+def _axis(mesh: Any, axis_name: str | None) -> "_Axis | None":
+    """The axis a collective reduces over (the JAX package's choice:
+    ``axis_name``, else the mesh's ``dp`` axis, else its first; ``mesh``
+    defaults to the global mesh), or None when that axis spans the whole
+    world (the world's own groups then carry it) or ``mesh`` is
+    :data:`WORLD`."""
+    if mesh is WORLD:
+        return None
+    if mesh is None:
+        if not _state.initialized:
+            return None
+        mesh = _state.mesh
+    if axis_name is not None and axis_name not in mesh.shape:
+        raise ValueError(f"axis {axis_name!r} not in mesh axes {mesh.axis_names}")
+    name = axis_name or (config.DP_AXIS_NAME if config.DP_AXIS_NAME in mesh.shape
+                         else mesh.axis_names[0])
+    if mesh.shape[name] == _state.world:
+        return None
+    return _Axis(mesh, name)
+
+
+def _all_reduce(flat: torch.Tensor, op: str, axis: "_Axis | None", group: Any = None,
+                **kwargs: Any) -> Any:
+    """``dist.all_reduce`` over the axis (``group`` when the caller staged
+    through the host), or over the world; a one-member axis keeps
+    ``flat``."""
+    if axis is not None:
+        if axis.size == 1:
+            return None
+        group = group if group is not None else axis.group
+    return dist.all_reduce(flat, op=_REDUCE_OPS[op], group=group, **kwargs)
 
 
 def _as_tensor(leaf: Any) -> torch.Tensor:
@@ -198,15 +255,16 @@ def _host_buffer(flat: torch.Tensor) -> torch.Tensor:
     return host
 
 
-def staged(tree: Any, fn: Callable[..., None]) -> Any:
+def staged(tree: Any, fn: Callable[..., None], group: Any = None) -> Any:
     """:func:`fused` through host memory: each flat buffer is copied to a
     (pinned) host buffer, ``fn(host, group=...)`` runs over the runtime's
-    gloo group there, and the result is copied back; returns the tree of
-    results, each leaf on its own device and dtype."""
+    gloo group (or ``group``) there, and the result is copied back;
+    returns the tree of results, each leaf on its own device and dtype."""
+    group = _state.host_group if group is None else group
     packed = _Packed(tree, _state.device)
     for flat in packed.flats:
         host = _host_buffer(flat)
-        _run(host, lambda h: fn(h, group=_state.host_group))
+        _run(host, lambda h: fn(h, group=group))
         flat.copy_(host)
     return packed.finish()
 
@@ -218,13 +276,15 @@ def eager(tree: Any, fn: Callable[..., None]) -> Any:
     return staged(tree, fn) if _staging() else fused(tree, fn)
 
 
-def _collective(x: Any, fn: Callable[..., None], donate: bool) -> Any:
+def _collective(x: Any, fn: Callable[..., None], donate: bool,
+                axis: "_Axis | None" = None) -> Any:
     """Run the in-place collective ``fn(flat, group=None)`` over ``x``: on
     one flat buffer per dtype (a new result tree), or, with
     ``donate=True``, on each leaf in place (one collective per leaf, no
     copy; ``x`` itself is returned, its leaves contiguous tensors on the
     worker's device). Under host staging the buffers go through host
-    memory and ``donate=True`` warns that it has no effect."""
+    memory (over ``axis``'s gloo group when one is given) and
+    ``donate=True`` warns that it has no effect."""
     dev = _state.device
     if _staging():
         if donate:
@@ -232,7 +292,7 @@ def _collective(x: Any, fn: Callable[..., None], donate: bool) -> Any:
                 "donate=True has no effect with device collectives disabled: "
                 "the host-staging path copies through host memory (no "
                 "in-place reuse)", stacklevel=5)
-        return staged(x, fn)
+        return staged(x, fn, axis.host_group if axis is not None else None)
     if donate:
         leaves = pytree.tree_leaves(x)
         for leaf in leaves:
@@ -358,66 +418,90 @@ def _path() -> str:
     return "host" if _staging() else "device"
 
 
-def allreduce(x: Any, op: str = "sum", *, donate: bool = False) -> Any:
+def allreduce(x: Any, op: str = "sum", *, mesh: Any = None,
+              axis_name: str | None = None, donate: bool = False) -> Any:
     """Every worker gets the reduction (``sum``, ``prod``, ``min``,
     ``max`` or ``mean``) of all workers' values. ``donate=True`` reduces
     each leaf (a contiguous tensor on the worker's device) in place and
-    returns ``x`` itself."""
+    returns ``x`` itself. ``mesh``/``axis_name``: reduce over one axis of
+    a mesh (default the global mesh's ``dp`` axis, else its first): the
+    workers that differ only along that axis; every other coordinate of
+    the mesh gets its own result, as the JAX package's collective over a
+    mesh axis gives."""
     _require_init()
     op = _canonical_op(op)
     if faults.ARMED:
         faults.check("comm.allreduce")
-    world = _state.world
+    axis = _axis(mesh, axis_name)
+    size = _state.world if axis is None else axis.size
 
     def run(flat, group=None):
-        dist.all_reduce(flat, op=_REDUCE_OPS[op], group=group)
+        _all_reduce(flat, op, axis, group)
         if op == "mean":
-            _mean_fix(flat, world)
+            _mean_fix(flat, size)
 
     return _instrumented("allreduce", _path(), lambda: _tree_nbytes(x),
-                         lambda: _collective(x, run, donate))
+                         lambda: _collective(x, run, donate, axis))
 
 
-def bcast(x: Any, root: int = 0, *, donate: bool = False) -> Any:
-    """Every worker gets the ``root`` worker's value. ``donate=True``
-    broadcasts into each leaf in place and returns ``x`` itself."""
+def _broadcast(flat: torch.Tensor, root: int, axis: "_Axis | None", group: Any = None,
+               **kwargs: Any) -> Any:
+    """``dist.broadcast`` from member ``root`` of the axis (or of the
+    world)."""
+    if axis is None:
+        return dist.broadcast(flat, src=root, group=group, **kwargs)
+    if axis.size == 1:
+        return None
+    return dist.broadcast(flat, src=axis.members[root],
+                          group=group if group is not None else axis.group, **kwargs)
+
+
+def bcast(x: Any, root: int = 0, *, mesh: Any = None, axis_name: str | None = None,
+          donate: bool = False) -> Any:
+    """Every worker gets the ``root`` worker's value (``root`` indexes the
+    axis's workers under ``mesh``/``axis_name``, as in :func:`allreduce`).
+    ``donate=True`` broadcasts into each leaf in place and returns ``x``
+    itself."""
     _require_init()
-    root = _check_root(root)
+    axis = _axis(mesh, axis_name)
+    root = _check_root(root, None if axis is None else axis.size)
     if faults.ARMED:
         faults.check("comm.bcast")
     return _instrumented(
         "bcast", _path(), lambda: _tree_nbytes(x),
         lambda: _collective(
-            x, lambda flat, group=None: dist.broadcast(flat, src=root, group=group),
-            donate))
+            x, lambda flat, group=None: _broadcast(flat, root, axis, group),
+            donate, axis))
 
 
-def reduce(x: Any, op: str = "sum", root: int = 0, *,
-           donate: bool = False) -> Any:
+def reduce(x: Any, op: str = "sum", root: int = 0, *, mesh: Any = None,
+           axis_name: str | None = None, donate: bool = False) -> Any:
     """The ``root`` worker gets the reduction of all workers' values;
-    every other worker gets its own input back. ``donate=True`` reduces
-    into the root's leaves in place and returns ``x`` itself on every
-    worker (the others' values unchanged)."""
+    every other worker gets its own input back (over one mesh axis with
+    ``mesh``/``axis_name``, as in :func:`allreduce`). ``donate=True``
+    reduces into the root's leaves in place and returns ``x`` itself on
+    every worker (the others' values unchanged)."""
     _require_init()
     op = _canonical_op(op)
-    root = _check_root(root)
+    axis = _axis(mesh, axis_name)
+    size, me = (_state.world, _state.rank) if axis is None else (axis.size, axis.index)
+    root = _check_root(root, size)
     if faults.ARMED:
         faults.check("comm.reduce")
-    world, rank = _state.world, _state.rank
 
     def run(flat, group=None):
         # An all-reduce whose result only the root keeps: a rooted reduce
         # may use the other workers' buffers as scratch, which their
         # donated inputs forbid.
-        own = None if rank == root else flat.clone()
-        dist.all_reduce(flat, op=_REDUCE_OPS[op], group=group)
+        own = None if me == root else flat.clone()
+        _all_reduce(flat, op, axis, group)
         if own is not None:
             flat.copy_(own)
         elif op == "mean":
-            _mean_fix(flat, world)
+            _mean_fix(flat, size)
 
     return _instrumented("reduce", _path(), lambda: _tree_nbytes(x),
-                         lambda: _collective(x, run, donate))
+                         lambda: _collective(x, run, donate, axis))
 
 
 class Request:
@@ -470,7 +554,7 @@ def _start(op_name: str, x: Any, fn: Callable[[torch.Tensor], Any],
         record = (op_name, nbytes, _begin_op(op_name, "device", nbytes))
     packed = _Packed(x, _state.device)
     try:
-        works = [_run(flat, fn) for flat in packed.flats]
+        works = [w for w in (_run(flat, fn) for flat in packed.flats) if w is not None]
     except BaseException:
         if record is not None:
             _abort_op(record[2])
@@ -482,34 +566,39 @@ def _start(op_name: str, x: Any, fn: Callable[[torch.Tensor], Any],
     return value, req
 
 
-def iallreduce(x: Any, op: str = "sum") -> tuple[Any, Request]:
+def iallreduce(x: Any, op: str = "sum", *, mesh: Any = None,
+               axis_name: str | None = None) -> tuple[Any, Request]:
     """Non-blocking all-reduce: returns ``(value, request)`` at once; the
     value holds the reduction once ``request.wait()`` returns (the
-    reference's ``Iallreduce!``). Under host staging it is the blocking
-    staged :func:`allreduce`, complete when it returns (as the JAX
-    package's ``iallreduce`` is its ``allreduce``)."""
+    reference's ``Iallreduce!``; ``mesh``/``axis_name`` as in
+    :func:`allreduce`). Under host staging it is the blocking staged
+    :func:`allreduce`, complete when it returns (as the JAX package's
+    ``iallreduce`` is its ``allreduce``)."""
     if _staging():
-        out = allreduce(x, op)
+        out = allreduce(x, op, mesh=mesh, axis_name=axis_name)
         return out, Request(out)
     _require_init()
     op = _canonical_op(op)
     if faults.ARMED:
         faults.check("comm.allreduce")
-    world = _state.world
-    post = (lambda flat: _mean_fix(flat, world)) if op == "mean" else None
+    axis = _axis(mesh, axis_name)
+    size = _state.world if axis is None else axis.size
+    post = (lambda flat: _mean_fix(flat, size)) if op == "mean" else None
     return _start("allreduce", x,
-                  lambda flat: dist.all_reduce(flat, op=_REDUCE_OPS[op], async_op=True),
-                  post)
+                  lambda flat: _all_reduce(flat, op, axis, async_op=True), post)
 
 
-def ibcast(x: Any, root: int = 0) -> tuple[Any, Request]:
-    """Non-blocking broadcast from ``root`` (the reference's ``Ibcast!``)."""
+def ibcast(x: Any, root: int = 0, *, mesh: Any = None,
+           axis_name: str | None = None) -> tuple[Any, Request]:
+    """Non-blocking broadcast from ``root`` (the reference's ``Ibcast!``;
+    ``mesh``/``axis_name`` as in :func:`bcast`)."""
     _require_init()
-    root = _check_root(root)
+    axis = _axis(mesh, axis_name)
+    root = _check_root(root, None if axis is None else axis.size)
     if faults.ARMED:
         faults.check("comm.bcast")
     return _start("bcast", x,
-                  lambda flat: dist.broadcast(flat, src=root, async_op=True))
+                  lambda flat: _broadcast(flat, root, axis, async_op=True))
 
 
 def barrier(tag: str = "fluxmpi_barrier") -> None:

@@ -390,9 +390,10 @@ class DistributedDataLoader:
         elif isinstance(data, DistributedDataContainer):
             self._common_len = data.min_shard_size()
         elif world > 1:
-            from .comm import allreduce
+            from .comm import WORLD, allreduce
 
-            self._common_len = int(allreduce(torch.tensor(len(data)), op="min"))
+            self._common_len = int(allreduce(torch.tensor(len(data)), op="min",
+                                             mesh=WORLD))
         else:
             self._common_len = len(data)
 

@@ -234,7 +234,12 @@ int64_t fm_prefetch_next(void* handle, uint8_t* dst) {
 
 void fm_prefetch_destroy(void* handle) {
   auto* p = static_cast<Prefetcher*>(handle);
-  p->stop.store(true);
+  {
+    // Set under the mutex: a producer between its predicate check and its
+    // wait would otherwise miss this wake-up and the join below would hang.
+    std::lock_guard<std::mutex> lock(p->mu);
+    p->stop.store(true);
+  }
   p->cv_can_produce.notify_all();
   p->cv_can_consume.notify_all();
   if (p->producer.joinable()) p->producer.join();

@@ -102,11 +102,16 @@ class Dense(nn.Module):
         self.bias = init.fill(bias_shape, 0.0)
         self.in_dims = in_dims
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, bias: bool = True):
+        """``x @ kernel + bias`` in ``dtype`` (without the bias when
+        ``bias=False``: a row-parallel block's partial sum, the bias added
+        once after the sum over the tp group)."""
         lead = x.shape[: x.ndim - self.in_dims]
         n_in = math.prod(self.kernel.shape[: self.in_dims])
         w = self.kernel.to(dtype).reshape(n_in, -1)
-        y = x.to(dtype).reshape(-1, n_in) @ w + self.bias.to(dtype).reshape(-1)
+        y = x.to(dtype).reshape(-1, n_in) @ w
+        if bias:
+            y = y + self.bias.to(dtype).reshape(-1)
         return y.reshape(*lead, *self.kernel.shape[self.in_dims:])
 
 

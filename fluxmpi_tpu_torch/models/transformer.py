@@ -18,6 +18,13 @@ per-token cross-entropy through the chunked fused head
 every parameter; with ``attention="flash"`` the attention forward and
 backward run in the CUDA kernels.
 
+Tensor parallelism: inside a layout step over a plan with ``tp > 1``
+(:mod:`fluxmpi_tpu_torch._tensor_parallel`), a block whose Q/K/V/out or
+ff1/ff2 weights arrive as this worker's blocks computes on its own heads
+and columns and sums the row-parallel products over the tp group, and an
+LM whose table arrives as its vocab rows looks tokens up in them and
+takes the vocab-parallel cross-entropy.
+
 Cached decoding: :meth:`TransformerLM.forward` with ``kv_cache=(k, v)``
 (``[layers, batch, max_len, heads, head_dim]`` each) feeds one token per
 row at that row's own position ``pos_offset`` (``[batch]``), writes the
@@ -35,9 +42,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import _tensor_parallel as _tp
 from ..errors import refuse_unported
 from ..ops.flash_attention import flash_attention, flash_attention_fn
-from ..ops.fused_ce import _mm_f32, unembed_cross_entropy
+from ..ops.fused_ce import _FusedCETP, _mm_f32, unembed_cross_entropy
 from ..runtime import resolve_device
 from ._layers import (Dense, LayerNorm, MultiHeadDotProductAttention, _Init,
                       dot_product_attention)
@@ -142,7 +150,20 @@ class EncoderBlock(nn.Module):
         ``deterministic`` when its signature names them, and ``"flash"``
         gets the mask alone (flax's keyword filter), so it never drops."""
         mode = mode or self.mode
-        q, k, v = self.attn.project(self.ln1(x, self.dtype))
+        tp = _tp.current()
+        attn = self.attn
+        if tp is not None:
+            tp.claim([(attn.query.kernel, 1), (attn.query.bias, 0), (attn.key.kernel, 1),
+                      (attn.key.bias, 0), (attn.value.kernel, 1), (attn.value.bias, 0),
+                      (attn.out.kernel, 0)])
+        h = self.ln1(x, self.dtype)
+        # This worker's heads of a tensor-parallel layout: column-parallel
+        # Q/K/V, the row-parallel out projection summed over the tp group.
+        heads_split = attn.query.kernel.shape[1] != self.num_heads
+        if heads_split:
+            tp = _tp.require("the attention's query kernel")
+            h = tp.enter(h)
+        q, k, v = attn.project(h)
         if cache is not None:
             kc, vc = cache
             rows = torch.arange(x.shape[0], device=x.device)
@@ -158,7 +179,11 @@ class EncoderBlock(nn.Module):
             fn = self.attention_fn if mode == "fn" else dot_product_attention
             o = self.attn.attend(fn, q, k, v, mask=mask, deterministic=not train,
                                  dropout_rng=dropout_rng)
-        x = x + self.attn.out(o, self.dtype)
+        if heads_split:
+            x = x + (tp.reduce(attn.out(o, self.dtype, bias=False))
+                     + attn.out.bias.to(self.dtype))
+        else:
+            x = x + attn.out(o, self.dtype)
         h = self.ln2(x, self.dtype)
         if self.ff_name is not None:
             ff = getattr(self, self.ff_name)
@@ -166,6 +191,14 @@ class EncoderBlock(nn.Module):
                 return x + ff(h, train=train), k, v
             return x + ff(h, train=train,
                           losses=losses.setdefault(self.ff_name, {})), k, v
+        if tp is not None:
+            tp.claim([(self.ff1.kernel, 1), (self.ff1.bias, 0), (self.ff2.kernel, 0)])
+        if self.ff1.kernel.shape[1] != self.d_ff:
+            # Column-parallel ff1, row-parallel ff2 summed over the tp group.
+            tp = _tp.require("ff1's kernel")
+            h = F.gelu(self.ff1(tp.enter(h), self.dtype), approximate="tanh")
+            return x + (tp.reduce(self.ff2(h, self.dtype, bias=False))
+                        + self.ff2.bias.to(self.dtype)), k, v
         h = F.gelu(self.ff1(h, self.dtype), approximate="tanh")  # flax nn.gelu: tanh
         return x + self.ff2(h, self.dtype), k, v
 
@@ -364,7 +397,24 @@ class TransformerLM(nn.Module):
         if s > self.max_len:
             raise ValueError(f"sequence length {s} exceeds max_len "
                              f"{self.max_len}")
-        x = self.embed.embedding[tokens].to(self.dtype)
+        table = self.embed.embedding
+        tp = _tp.current()
+        vocab_split = table.shape[0] != self.vocab_size
+        if vocab_split:
+            # This worker's rows of a vocab-parallel table: a masked lookup
+            # summed over the tp group, and the vocab-parallel head.
+            tp = _tp.require("the embedding table")
+            if targets is None:
+                raise ValueError(
+                    "a vocab-parallel embedding block computes the training "
+                    "loss (targets=) only; logits and hidden=True need the "
+                    "whole table")
+            local = tokens - tp.index * table.shape[0]
+            inside = (local >= 0) & (local < table.shape[0])
+            rows = table[local.clamp(0, table.shape[0] - 1)] * inside[..., None]
+            x = tp.reduce(rows).to(self.dtype)
+        else:
+            x = table[tokens].to(self.dtype)
         x = x + self.pos_embed[:s][None].to(self.dtype)
         mask = None
         if mode == "naive":
@@ -381,8 +431,16 @@ class TransformerLM(nn.Module):
             return h, self.embed.embedding
         if targets is not None:
             targets = torch.as_tensor(targets, device=self.device)
-            return unembed_cross_entropy(h.to(self.dtype), self.embed.embedding,
-                                         targets, chunk=loss_chunk)
+            if tp is not None:
+                tp.claim([(table, 0)])
+            if vocab_split:
+                d = table.shape[1]
+                return _FusedCETP.apply(
+                    h.to(self.dtype).reshape(-1, d), table, targets.reshape(-1).long(),
+                    min(loss_chunk, table.shape[0]), 0.0, tp.group, tp.size, tp.index,
+                    None, False).reshape(targets.shape)
+            return unembed_cross_entropy(h.to(self.dtype), table, targets,
+                                         chunk=loss_chunk)
         logits = self._head(h)
         if return_kv:
             return logits, torch.stack(ks), torch.stack(vs)

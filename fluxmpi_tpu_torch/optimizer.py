@@ -13,30 +13,33 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
-from .comm import fused
+from .comm import _all_reduce, _axis, fused
 from .optim import GradientTransformation
 from .runtime import _require_init, _state
 
 __all__ = ["DistributedOptimizer", "allreduce_gradients"]
 
 
-def allreduce_gradients(grads: Any, *, reduce_op: str = "sum") -> Any:
+def allreduce_gradients(grads: Any, *, axis_name: str | None = None,
+                        reduce_op: str = "sum") -> Any:
     """All-reduce a gradient tree (a dict, list or tuple of tensors)
     across the workers and return the reduced tree; or, given an
     ``nn.Module``, reduce its parameters' ``.grad`` in place and return
-    the module."""
+    the module. ``axis_name``: reduce over that axis of the global mesh
+    only (the workers that differ only along it), as the JAX package's
+    ``psum`` over a bound axis; default the whole world."""
     if reduce_op not in ("sum", "mean"):
         raise ValueError("reduce_op must be 'sum' or 'mean'")
     _require_init()
-    world = _state.world
+    axis = _axis(None, axis_name) if axis_name is not None else None
+    size = _state.world if axis is None else axis.size
 
     def run(flat):
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        _all_reduce(flat, "sum", axis)
         if reduce_op == "mean":
-            flat.div_(world)
+            flat.div_(size)
 
     if isinstance(grads, nn.Module):
         params = [p for p in grads.parameters() if p.grad is not None]
@@ -53,10 +56,12 @@ class DistributedOptimizerState(NamedTuple):
 
 
 def DistributedOptimizer(optimizer: GradientTransformation, *,
+                         axis_name: str | None = None,
                          reduce_op: str = "sum") -> GradientTransformation:
     """Wrap an :mod:`fluxmpi_tpu_torch.optim` rule so that its incoming
     gradients are all-reduced across the workers (summed unless
-    ``reduce_op="mean"``) before the inner update. Use it with
+    ``reduce_op="mean"``; over one mesh axis with ``axis_name``, as
+    :func:`allreduce_gradients`) before the inner update. Use it with
     ``make_train_step(grad_reduce=None)`` so gradients are not reduced
     twice."""
     if reduce_op not in ("sum", "mean"):
@@ -66,7 +71,7 @@ def DistributedOptimizer(optimizer: GradientTransformation, *,
         return DistributedOptimizerState(inner=optimizer.init(params))
 
     def update(grads, state, params=None):
-        grads = allreduce_gradients(grads, reduce_op=reduce_op)
+        grads = allreduce_gradients(grads, axis_name=axis_name, reduce_op=reduce_op)
         updates, inner = optimizer.update(grads, state.inner, params)
         return updates, DistributedOptimizerState(inner=inner)
 

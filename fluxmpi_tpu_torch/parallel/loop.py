@@ -57,7 +57,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .. import runtime
-from ..comm import allreduce
+from ..comm import WORLD, allreduce
 from ..data import DistributedDataLoader, scan_batches
 from ..telemetry import anomaly as _anomaly
 from ..telemetry import compileplane as _compileplane
@@ -453,7 +453,8 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     # when it can matter (a checkpoint to bank, or a handler on any worker).
     multi = runtime.is_initialized() and runtime.process_count() > 1
     coordinate = multi and (checkpoint is not None or bool(int(allreduce(
-        torch.tensor(int(runtime.preemption_handlers_installed())), op="max"))))
+        torch.tensor(int(runtime.preemption_handlers_installed())), op="max",
+        mesh=WORLD))))
 
     def payload(st: Any, pass_counted: bool = False) -> dict[str, Any]:
         # The JAX package's payload: the state, the cumulative counters and
@@ -748,7 +749,8 @@ def train_loop(step: Any, state: Any, batches: Any, *,
             save()
         if multi:
             if coordinate and at_flush and bool(int(allreduce(
-                    torch.tensor(int(runtime.preemption_requested())), op="max"))):
+                    torch.tensor(int(runtime.preemption_requested())), op="max",
+                    mesh=WORLD))):
                 preempted = stop = True
         elif runtime.preemption_requested():
             preempted = stop = True
@@ -805,6 +807,7 @@ def train_loop(step: Any, state: Any, batches: Any, *,
                 # uninterrupted run's.
                 width = fused_w - pos % fused_w if pos % fused_w else fused_w
                 program = window_program(width, avals)
+                recaptured = program.recaptures
                 if gp_on:
                     # Host-side, around the whole call: nothing of this
                     # runs inside a capture. A program's capture and
@@ -835,6 +838,9 @@ def train_loop(step: Any, state: Any, batches: Any, *,
                     gp.note_updates(width)
                 else:
                     state, out = program(state, staged, perm, pos * lbs_fused)
+                # A cached program that had to capture again (its state's
+                # tensors moved) built anew: a miss, not a hit.
+                window_cache["misses"] += program.recaptures - recaptured
                 if program.last_compile_seconds > 0:
                     # This window captured its program: the run's build
                     # seconds, attributed to train_loop.window.

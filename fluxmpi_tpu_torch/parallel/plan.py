@@ -230,6 +230,8 @@ class ResolvedPlan:
         self._spec_cache: dict[tuple, tuple[dict, dict[str, int]]] = {}
         self.spec_cache_hits = 0
         self.spec_cache_misses = 0
+        # Set on the layout autotuner's winner: the bank key of its record.
+        self.autotune_fingerprint: str | None = None
 
     # -- axis queries ---------------------------------------------------
 

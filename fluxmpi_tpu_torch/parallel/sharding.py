@@ -186,21 +186,45 @@ class Mesh:
         elif len(axes) == 1:
             group = self.device_mesh.get_group(axes[0])
         else:
-            self._check_world()
-            me = self.my_rank()
-            others = [a for a in self.axis_names if a not in axes]
-            dims = {a: i for i, a in enumerate(self.axis_names)}
-            group = None
-            for fixed in itertools.product(*(range(self.shape[a]) for a in others)):
-                index = [slice(None)] * len(self.axis_names)
-                for a, i in zip(others, fixed):
-                    index[dims[a]] = i
-                ranks = sorted(int(r) for r in self.devices[tuple(index)].flat)
-                g = dist.new_group(ranks)
-                if me in ranks:
-                    group = g
+            group = self._new_groups(axes)
         self._groups[key] = group
         return group
+
+    def _new_groups(self, axes: tuple, **kwargs: Any) -> Any:
+        """One ``dist.new_group`` (``kwargs`` its options) per slice of
+        the mesh along ``axes``, every worker making all of them in the
+        same order; returns this worker's."""
+        import torch.distributed as dist
+
+        self._check_world()
+        me = self.my_rank()
+        others = [a for a in self.axis_names if a not in axes]
+        dims = {a: i for i, a in enumerate(self.axis_names)}
+        group = None
+        for fixed in itertools.product(*(range(self.shape[a]) for a in others)):
+            index = [slice(None)] * len(self.axis_names)
+            for a, i in zip(others, fixed):
+                index[dims[a]] = i
+            ranks = sorted(int(r) for r in self.devices[tuple(index)].flat)
+            g = dist.new_group(ranks, **kwargs)
+            if me in ranks:
+                group = g
+        return group
+
+    def host_group(self, axes: Sequence[str]) -> Any:
+        """:meth:`group` over gloo, for collectives staged through host
+        memory: the same group in a gloo world; beside NCCL, gloo groups
+        of the same workers (made collectively on first use, as
+        :meth:`group`)."""
+        import torch.distributed as dist
+
+        if dist.get_backend() == "gloo":
+            return self.group(axes)
+        axes = tuple(a for a in self.axis_names if a in set(axes))
+        key = ("host",) + axes
+        if key not in self._groups:
+            self._groups[key] = self._new_groups(axes, backend="gloo")
+        return self._groups[key]
 
     def group_size(self, axes: Sequence[str]) -> int:
         return math.prod(self.shape[a] for a in self.axis_names if a in set(axes))

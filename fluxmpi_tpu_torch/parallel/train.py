@@ -38,17 +38,21 @@ worker's block of every leaf the plan shards (what
 :meth:`~fluxmpi_tpu_torch.parallel.plan.ResolvedPlan.shard_state` placed;
 the same shapes as the JAX package's addressable shards) and inserts the
 collectives itself: before the forward it all-gathers every parameter
-sharded over the ``fsdp``/``tp`` axes (the ZeRO-3 gather), and after the
+sharded over the ``fsdp`` axis (the ZeRO-3 gather), and after the
 backward it sums each gradient over the workers that hold the same block
 and keeps this worker's block, so the update runs on the blocks alone.
+The leaves sharded over ``tp`` stay blocks: the transformer layers
+compute on this worker's heads, columns and vocab rows and sum the
+row-parallel products over the tp group
+(:mod:`~fluxmpi_tpu_torch._tensor_parallel`); the step's first update
+gathers them too while the layers note which leaves they take, and a
+leaf no layer takes stays gathered.
 Each worker's ``loss_fn`` sees its own rows of the global batch (the
 loader's ``mesh=`` rows), and the step's loss and gradients are those of
 the mean over the global batch, as JAX's partitioned step computes them.
 The ``ep`` axis is not gathered: the MoE layers built with ``mesh=`` run
 their local experts and exchange tokens with an all-to-all
-(:mod:`~fluxmpi_tpu_torch.models.moe`). Tensor parallelism therefore
-shards the state at rest but computes on gathered weights (ROADMAP A.4's
-open item: the column/row-parallel forward). ``style="shard_map"`` is the
+(:mod:`~fluxmpi_tpu_torch.models.moe`). ``style="shard_map"`` is the
 explicit per-worker step, its gradients reduced over the ``axis_name``
 axis of the mesh. ``donate=False`` copies the state before the update,
 so the caller's stays valid.
@@ -67,7 +71,7 @@ from torch import nn
 from torch.utils import _pytree as pytree
 from torch.utils import checkpoint as _checkpoint
 
-from .. import config, runtime
+from .. import _tensor_parallel, config, runtime
 from ..data import _gather_batch
 from ..optim import GradientTransformation, apply_updates
 from ..optimizer import allreduce_gradients
@@ -166,6 +170,9 @@ def _with_policy_and_remat(loss_fn, policy, remat, watch):
 
         def loss_fn(p, mstate, batch):  # noqa: F811 - deliberate rewrap
             cast = policy.cast_to_compute(p)
+            tp = _tensor_parallel.current()
+            if tp is not None:
+                tp.note(cast)
             if watch.armed:
                 watch.nodes.update(c.grad_fn for k, c in cast.items()
                                    if c is not p[k] and c.grad_fn is not None)
@@ -313,9 +320,12 @@ class _Layout:
     it: which parameters are sharded over which axes (``specs``, by
     state-dict name), and which axes the model consumes itself
     (``native``: the ``ep`` axis, whose expert blocks the MoE layers run
-    locally). The rest are gathered before the forward."""
+    locally). The rest are gathered before the forward, but for the
+    leaves that the transformer layers take as tensor-parallel blocks
+    (``tp_blocks``: decided in the first update, see
+    :mod:`fluxmpi_tpu_torch._tensor_parallel`)."""
 
-    def __init__(self, mesh: Any, specs: dict, native: set):
+    def __init__(self, mesh: Any, specs: dict, native: set, tp_axis: str | None = None):
         self.mesh = mesh
         self.world = mesh.size
         self.native = set(native)
@@ -331,10 +341,62 @@ class _Layout:
                         f"an expert axis with others")
                 (local if kinds == {True} else gathered).append((d, names))
             self.plans[name] = (gathered, local)
+        self.tp_axis = tp_axis if mesh.shape.get(tp_axis, 1) > 1 else None
+        self.tp_blocks: set[str] | None = None if self.tp_axis else set()
+        self._tp = None
+        self._owned: dict[tuple, list] = {}
 
     @property
     def shards(self) -> bool:
         return any(g or lo for g, lo in self.plans.values())
+
+    def dims(self, name: str) -> tuple[list, list]:
+        """``(gathered, local)`` sharded dims of leaf ``name`` as the
+        step runs it."""
+        gathered, local = self.plans.get(name, ([], []))
+        if self.tp_blocks and name in self.tp_blocks:
+            return [], local + gathered
+        return gathered, local
+
+    def tp_context(self) -> Any:
+        """The tensor-parallel context of one update's loss (None without
+        a tp axis): a new one collecting the layers' claims until the
+        blocks are decided, then one kept for every update."""
+        if self.tp_axis is None:
+            return None
+        if self.tp_blocks is None:
+            return _tensor_parallel.TensorParallel(self.mesh, self.tp_axis, {})
+        if self._tp is None:
+            self._tp = _tensor_parallel.TensorParallel(self.mesh, self.tp_axis)
+        return self._tp
+
+    def settle(self, tp: Any) -> None:
+        """After the first update: every claimed group whose leaves are
+        all sharded over the tp axis alone, each along the dim its layer
+        splits, is handed over as blocks from then on."""
+        if tp is None or self.tp_blocks is not None:
+            return
+
+        def tp_only(name, dim):
+            return self.plans.get(name) == ([(dim, (self.tp_axis,))], [])
+
+        self.tp_blocks = {n for group in tp.claims
+                          if all(tp_only(n, d) for n, d in group) for n, _ in group}
+
+    def owned(self, keys: list) -> list:
+        """For each leaf of ``keys``: does this worker count its block once
+        in a sum over the world (it sits at index 0 of every axis the leaf
+        is not sharded over)? Worked out once per key list."""
+        if self._owned.get(tuple(keys)) is None:
+            coords = self.mesh.coords(self.mesh.my_rank())
+
+            def owns(name):
+                spec_axes = {n for _, names in sum(self.plans.get(name, ([], [])), [])
+                             for n in names}
+                return all(i == 0 for a, i in coords.items() if a not in spec_axes)
+
+            self._owned[tuple(keys)] = [owns(k) for k in keys]
+        return self._owned[tuple(keys)]
 
     def gather(self, params: dict) -> dict:
         """The parameters the loss sees: each gathered to its full shape
@@ -344,7 +406,7 @@ class _Layout:
 
         out = {}
         for k, p in params.items():
-            gathered = self.plans.get(k, ([], []))[0]
+            gathered = self.dims(k)[0]
             if not gathered or not self.world > 1:
                 out[k] = p
                 continue
@@ -369,40 +431,45 @@ class _Layout:
     def reduce(self, grads: dict, loss: torch.Tensor) -> tuple[dict, torch.Tensor]:
         """The gradients of the global mean loss, each this worker's block:
         summed over the workers that hold the same block of the
-        parameter, divided by the world, then cut to the block; and the
-        loss averaged over the world."""
+        parameter, divided by the world (by the data workers for a
+        tensor-parallel block, whose gradient each tp worker computes
+        once), then cut to the block; and the loss averaged over the
+        world."""
         from ..comm import fused
         import torch.distributed as dist
 
         if not self.world > 1:
             return grads, loss
         world = self.world
-        buckets: dict[tuple, list[str]] = {}
+        every = tuple(self.mesh.axis_names)
+        buckets: dict[tuple, list[str]] = {(every, world): []}
         for k in grads:
-            local = self.plans.get(k, ([], []))[1]
-            keep = {n for _, names in local for n in names}
-            axes = tuple(a for a in self.mesh.axis_names if a not in keep)
-            buckets.setdefault(axes, []).append(k)
+            keep = {n for _, names in self.dims(k)[1] for n in names}
+            axes = tuple(a for a in every if a not in keep)
+            div = world
+            if self.tp_blocks and k in self.tp_blocks:
+                div = world // self.mesh.shape[self.tp_axis]
+            buckets.setdefault((axes, div), []).append(k)
         out = dict(grads)
-        for axes in sorted(buckets):
-            keys = buckets[axes]
+        for axes, div in sorted(buckets):
+            keys = buckets[(axes, div)]
             group = self.mesh.group(axes)
             vals = [grads[k] for k in keys]
-            if axes == tuple(self.mesh.axis_names):
+            if (axes, div) == (every, world):
                 vals.append(loss.detach().float().reshape(1))
 
-            def run(flat, group=group):
+            def run(flat, group=group, div=div):
                 if group is not None:
                     dist.all_reduce(flat, group=group)
-                flat.div_(world)
+                flat.div_(div)
 
             red = fused(vals, run)
-            if axes == tuple(self.mesh.axis_names):
+            if (axes, div) == (every, world):
                 loss = red.pop().reshape(()).to(loss.dtype)
             out.update(zip(keys, red))
         me = self.mesh.my_rank()
         for k, g in out.items():
-            for d, names in self.plans.get(k, ([], []))[0]:
+            for d, names in self.dims(k)[0]:
                 i, n = self.mesh.block_index(me, names)
                 size = g.shape[d] // n
                 g = g.narrow(d, i * size, size)
@@ -479,7 +546,8 @@ def _make_layout(plan: Any, mesh: Any, state_sharding: Any) -> _Layout:
     ep = plan.axis_name("ep") if plan is not None else None
     if ep is None and config.EP_AXIS_NAME in mesh.shape:
         ep = config.EP_AXIS_NAME
-    return _Layout(mesh, specs, {ep} if ep else set())
+    tp = plan.axis_name("tp") if plan is not None else config.TP_AXIS_NAME
+    return _Layout(mesh, specs, {ep} if ep else set(), tp)
 
 
 def _copy_state(ts: "TrainState") -> "TrainState":
@@ -597,8 +665,7 @@ def make_train_step(
     valid. ``grad_reduce`` applies to the step without a plan and to
     ``"shard_map"``; under a plan the reduction is the layout's (the
     global mean). A plan with ``sp`` or ``pp`` raises
-    ``NotImplementedError`` (ROADMAP A.6); the model stats with a layout
-    that shards parameters too.
+    ``NotImplementedError`` (ROADMAP A.6).
 
     ``model_stats``: build the model-internals plane's per-layer stats
     into the step (``None``, the default, follows the installed
@@ -616,7 +683,11 @@ def make_train_step(
     step then also carries the global gradient norm. Consumed at
     ``train_loop`` flush boundaries (one host copy per flush; in a fused
     window only the window's last update computes them, inside its CUDA
-    graph) or per call when the step is driven directly."""
+    graph) or per call when the step is driven directly. Under a layout
+    that shards parameters the norms sum each leaf's blocks over the
+    workers that hold them, each block once (one all-reduce per update),
+    and there is no noise scale, as the JAX package's partitioned step
+    has none."""
     plan = None
     if isinstance(parallel, str):
         if parallel != "auto":
@@ -681,10 +752,6 @@ def make_train_step(
 
     stats_depth = _modelstats.resolve_step_spec(model_stats)
     stats_on = stats_depth is not None
-    if stats_on and layout is not None and layout.shards:
-        raise NotImplementedError(
-            "model_stats with a layout that shards parameters is not ported "
-            "yet: the per-layer norms would need a sum over each leaf's blocks")
     noise_on = stats_on and grad_reduce in ("mean", "sum") and layout is None
     stats_workers = runtime.total_workers() if runtime.is_initialized() else 1
     if plan is not None:
@@ -710,12 +777,16 @@ def make_train_step(
         keys = list(ts.params)
         params = ts.params if layout is None else layout.gather(ts.params)
         vals = [params[k] for k in keys]
+        tp = layout.tp_context() if layout is not None else None
+        if tp is not None:
+            tp.note(params)
         loss_sum, acc, mstate = None, None, ts.model_state
         for mb in _split(batch, grad_accum_steps) if grad_accum_steps > 1 else [batch]:
-            loss, mstate = loss_fn(params, mstate, mb)
-            if watch.armed:
-                watch.check(loss)
-            g = torch.autograd.grad(loss, vals, allow_unused=True)
+            with _tensor_parallel.active(tp):
+                loss, mstate = loss_fn(params, mstate, mb)
+                if watch.armed:
+                    watch.check(loss)
+                g = torch.autograd.grad(loss, vals, allow_unused=True)
             if layout is not None and not unused_checked:
                 unused_checked.append(True)
                 if all(x is None for x in g):
@@ -732,7 +803,7 @@ def make_train_step(
         if grad_accum_steps > 1:
             torch._foreach_div_(acc, float(grad_accum_steps))
             loss_sum = loss_sum / grad_accum_steps
-        return dict(zip(keys, acc)), loss_sum, mstate
+        return dict(zip(keys, acc)), loss_sum, mstate, tp
 
     def single(ts: TrainState, batch, want_stats: bool | None = None):
         """One update: ``(state, loss, grad_norm, model_stats)``, the norm
@@ -742,10 +813,12 @@ def make_train_step(
         :func:`~fluxmpi_tpu_torch.telemetry.modelstats.stats_tensor` of
         this update and its ``[2]`` noise ingredients (or None)."""
         want = stats_on if want_stats is None else (stats_on and want_stats)
-        grads, loss, mstate = grads_of(ts, batch)
+        grads, loss, mstate, tp = grads_of(ts, batch)
         local_sq = _global_norm(grads).square() if want and noise_on else None
         if layout is not None:
             grads, loss = layout.reduce(grads, loss)
+            # The first update's claims decide the blocks of the next.
+            layout.settle(tp)
             gnorm = layout.global_norm(grads) if carry_norm else None
         else:
             if grad_reduce is not None:
@@ -761,7 +834,11 @@ def make_train_step(
             # denominator is the pre-update norm).
             if not plans:
                 plans.append(_modelstats.StatsPlan(ts.params, stats_depth))
-            table = _modelstats.stats_tensor(plans[0], grads, ts.params, updates)
+            owned = None
+            if layout is not None and layout.shards:
+                owned = layout.owned(plans[0].keys)
+            table = _modelstats.stats_tensor(plans[0], grads, ts.params, updates,
+                                             owned=owned)
             noise = None
             if noise_on:
                 # Each worker's pre-all-reduce sq-norm, averaged over the
@@ -904,8 +981,9 @@ class WindowProgram:
     offset into the graph's static buffers and replays, and the state
     advances in place. The graph is recaptured when the state's or the
     dataset's tensors are other tensors than it was captured against (a
-    fresh ``TrainState``, a restaged dataset). A capture or replay that
-    fails raises; nothing falls back to eager windows.
+    fresh ``TrainState``, a restaged dataset; ``recaptures`` counts them,
+    ``captures`` every capture). A capture or replay that fails raises;
+    nothing falls back to eager windows.
 
     Launch accounting per attention kernel: ``captured_launches`` are the
     launches inside the current graph. The wrappers' counters rise while a
@@ -935,6 +1013,11 @@ class WindowProgram:
         self.capture_counted: Counter = Counter()
         self.replayed_launches: Counter = Counter()
         self.capture_seconds = 0.0
+        # Captures of this program, and those that replaced a graph because
+        # the state's or the dataset's tensors moved (train_loop counts each
+        # as a window-cache miss: a new build in what should be a replay).
+        self.captures = 0
+        self.recaptures = 0
         # The seconds of the last call that were the program's compile
         # work: the capture and instantiation of a capturing call; none of
         # an eager window (its updates are real steps) or a replay.
@@ -999,6 +1082,7 @@ class WindowProgram:
         bound = tuple(t.data_ptr() for t in
                       _state_tensors(ts) + pytree.tree_leaves(data))
         if self.graph is None or bound != self._bound:
+            self.recaptures += self.graph is not None
             before = self.capture_seconds
             self._capture(ts, data, perm)
             self._bound = bound
@@ -1061,6 +1145,7 @@ class WindowProgram:
                 ts.step, ts.model_state = step0, mstate0
             seconds = time.perf_counter() - t0
         self.capture_seconds += seconds
+        self.captures += 1
         compileplane.note_duration(compileplane.CAPTURE_EVENT, seconds)
         after = _launch_counts()
         self.captured_launches = {k: after[k] - before[k] for k in after}

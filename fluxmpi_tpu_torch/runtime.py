@@ -33,6 +33,7 @@ from .errors import FluxMPINotInitializedError, refuse_unported
 
 __all__ = [
     "Initialized",
+    "auto_parallel",
     "clear_preemption",
     "device_count",
     "dp_axis_name",
@@ -89,6 +90,9 @@ class _State:
     # The global mesh (parallel.sharding.Mesh) and the installed plan.
     mesh: Any = None
     plan: Any = None
+    # init(parallel="auto") armed the layout autotuner: the mesh starts as
+    # the 1-D dp default and autotune() installs its winner over it.
+    auto_parallel: bool = False
 
 
 _state = _State()
@@ -325,9 +329,14 @@ def init(*, devices: Sequence[int] | int | None = None,
     the launcher's environment and runs this process alone, ``None``
     (default) joins when the environment names a world.
 
-    Not ported yet (raise ``NotImplementedError``): ``parallel="auto"``
-    and ``FLUXMPI_TPU_PARALLEL=auto`` (the layout autotuner,
-    :mod:`fluxmpi_tpu.parallel.autotune`), and ``resize=`` (ROADMAP A.5).
+    ``parallel="auto"`` (or ``FLUXMPI_TPU_PARALLEL=auto`` with no
+    explicit layout) arms the layout autotuner (:func:`auto_parallel`):
+    the mesh comes up as the 1-D dp default and
+    :func:`~fluxmpi_tpu_torch.parallel.autotune.autotune` installs its
+    winning plan and mesh over it.
+
+    Not ported yet (raises ``NotImplementedError``): ``resize=`` (ROADMAP
+    A.5).
     """
     passed = sorted(k for k, v in waiting.items() if v is not None)
     unknown = [k for k in passed if k not in _WAITING]
@@ -335,17 +344,23 @@ def init(*, devices: Sequence[int] | int | None = None,
         raise TypeError(f"init() got unexpected arguments {unknown}")
     refuse_unported("init", {k: True for k in passed},
                     "the resize plane is ROADMAP A.5")
+    # parallel="auto" (or FLUXMPI_TPU_PARALLEL=auto with no explicit
+    # layout): arm auto mode. The mesh comes up as the 1-D dp default;
+    # fluxmpi_tpu_torch.parallel.autotune.autotune(...) later installs its
+    # winner over it (init cannot run trials: it does not know the model).
+    auto_requested = False
     if isinstance(parallel, str):
         if parallel != "auto":
             raise ValueError(
                 f'parallel= accepts a ParallelConfig, a ResolvedPlan, or '
                 f'the string "auto", got {parallel!r}'
             )
-        _refuse_auto()
+        auto_requested = True
+        parallel = None
     elif parallel is None and mesh_shape is None:
         env_parallel = os.environ.get("FLUXMPI_TPU_PARALLEL", "").strip()
         if env_parallel == "auto":
-            _refuse_auto()
+            auto_requested = True
         elif env_parallel:
             warnings.warn(
                 f'ignoring FLUXMPI_TPU_PARALLEL={env_parallel!r} — the '
@@ -372,6 +387,8 @@ def init(*, devices: Sequence[int] | int | None = None,
                 stacklevel=2,
             )
         _configure_planes(*planes)
+        if auto_requested:
+            _state.auto_parallel = True
         return _state.device
     want = resolve_device(device)
     cpu = want.type == "cpu"
@@ -435,6 +452,7 @@ def init(*, devices: Sequence[int] | int | None = None,
     except Exception:
         shutdown()
         raise
+    _state.auto_parallel = auto_requested
     _configure_planes(*planes)
     if _state.plan is not None:
         # The PARALLEL board: the mesh on /status and the parallel.*
@@ -455,13 +473,6 @@ def init(*, devices: Sequence[int] | int | None = None,
                         f"mesh axes {_state.mesh.shape}, backend "
                         f"{dist.get_backend()}")
     return dev
-
-
-def _refuse_auto() -> None:
-    raise NotImplementedError(
-        'init(parallel="auto") is not ported yet: the layout autotuner '
-        "(fluxmpi_tpu.parallel.autotune.autotune) is the next slice; pass "
-        "a ParallelConfig")
 
 
 def _build_mesh(devices: Any, mesh_shape: Any, parallel: Any,
@@ -567,6 +578,29 @@ def global_plan() -> Any:
     return _state.plan
 
 
+def auto_parallel() -> bool:
+    """Was the runtime armed with ``init(parallel="auto")`` (or
+    ``FLUXMPI_TPU_PARALLEL=auto``)? While True and no autotuned plan is
+    installed yet, :func:`global_plan` is still None — the layout
+    autotuner fills it in."""
+    return _state.initialized and _state.auto_parallel
+
+
+def _install_autotuned_plan(plan: Any) -> bool:
+    """Install the layout autotuner's winning plan as the global plan
+    (and its mesh as the global mesh), and post the PARALLEL board. Only
+    under an armed auto mode on an initialized runtime — a hand-pinned
+    init keeps its layout. Returns True when installed."""
+    if not _state.initialized or not _state.auto_parallel:
+        return False
+    from .parallel.plan import post_board
+
+    _state.mesh = plan.mesh
+    _state.plan = plan
+    post_board(plan)
+    return True
+
+
 def dp_axis_name() -> str:
     """Name of the data-parallel mesh axis (the installed plan's, else
     the preference)."""
@@ -611,6 +645,7 @@ def shutdown() -> None:
     _state.host_group = None
     _state.rank, _state.world, _state.local_rank = 0, 1, 0
     _state.mesh = _state.plan = None
+    _state.auto_parallel = False
 
 
 def _require_init() -> None:

@@ -151,6 +151,18 @@ class StatsPlan:
             t = self._numel[device] = torch.tensor(self._sizes, device=device)
         return t
 
+    def mask(self, owned: list, device: Any) -> Any:
+        """``owned`` as an f32 ``0/1`` tensor on ``device``, made once (as
+        :meth:`numel`)."""
+        import torch
+
+        key = (device, tuple(owned))
+        t = self._numel.get(key)
+        if t is None:
+            t = self._numel[key] = torch.tensor(owned, dtype=torch.float32,
+                                                device=device)
+        return t
+
 
 def _sq_norms(tensors: list) -> Any:
     """Each tensor's sum of squares, accumulated in f32, as one [n]
@@ -161,19 +173,24 @@ def _sq_norms(tensors: list) -> Any:
     return torch.stack(torch._foreach_norm(vals)).square()
 
 
-def stats_tensor(plan: StatsPlan, grads: dict, params: dict, updates: dict) -> Any:
+def stats_tensor(plan: StatsPlan, grads: dict, params: dict, updates: dict,
+                 owned: list | None = None) -> Any:
     """The stats as one ``[groups, 4]`` f32 tensor, rows in
     ``plan.names`` order, columns ``grad_norm``, ``param_norm``,
     ``update_norm``, ``nonfinite`` (the form a captured graph writes into
     its static output). ``params`` are the PRE-update parameters; nothing
-    is recorded for autograd."""
+    is recorded for autograd. ``owned`` (one bool per ``plan.keys``): the
+    tensors are this worker's blocks of a layout, and each leaf's sums of
+    squares and nonfinite counts add over the world from the workers that
+    own a block (one all-reduce), so every block counts once."""
     import torch
 
     with torch.no_grad():
-        return _stats_tensor(plan, grads, params, updates)
+        return _stats_tensor(plan, grads, params, updates, owned)
 
 
-def _stats_tensor(plan: StatsPlan, grads: dict, params: dict, updates: dict) -> Any:
+def _stats_tensor(plan: StatsPlan, grads: dict, params: dict, updates: dict,
+                  owned: list | None = None) -> Any:
     import torch
 
     g = [grads[k] for k in plan.keys]
@@ -182,6 +199,12 @@ def _stats_tensor(plan: StatsPlan, grads: dict, params: dict, updates: dict) -> 
     usq = _sq_norms([updates[k] for k in plan.keys])
     finite = torch.stack([torch.isfinite(x).sum() for x in g])
     bad = (plan.numel(finite.device) - finite).float()
+    if owned is not None:
+        import torch.distributed as dist
+
+        rows = torch.stack([gsq, psq, usq, bad]) * plan.mask(owned, finite.device)
+        dist.all_reduce(rows)
+        gsq, psq, usq, bad = rows.unbind(0)
     cols = []
     for a, b in plan.slices:
         cols.append(torch.stack([gsq[a:b].sum().sqrt(), psq[a:b].sum().sqrt(),

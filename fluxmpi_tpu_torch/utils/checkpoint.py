@@ -303,6 +303,14 @@ def _commit(path: str, snap: _Snapshot, *, step: int | None) -> None:
     except (OSError, ValueError) as exc:
         warnings.warn(f"could not write the manifest beside {path} ({exc!r}); "
                       f"committing the checkpoint without it", stacklevel=2)
+    # Under the layout autotuner's winning plan its banked record rides
+    # beside the manifest (<path>.autotune.json), best-effort like it.
+    try:
+        from ..parallel.autotune import write_bank_sidecar
+
+        write_bank_sidecar(path)
+    except Exception:
+        pass
     if faults.ARMED:
         faults.check("ckpt.commit")
     _write_layout_marker(path, _LAYOUT)
@@ -444,7 +452,8 @@ def _gather_steps(step: int) -> tuple[int, int] | None:
     all-reduce on the caller's thread."""
     if _world()[1] == 1:
         return None
-    both = comm.allreduce(torch.tensor([-step, step], dtype=torch.int64), op="max")
+    both = comm.allreduce(torch.tensor([-step, step], dtype=torch.int64), op="max",
+                          mesh=comm.WORLD)
     return -int(both[0]), int(both[1])
 
 

@@ -12,6 +12,11 @@ same kernels, the grid times the kernel body's matrix products, with no
 tile skipped (a causal kernel skips tiles; the count does not, so the
 MFU never treats attention as cheaper than the JAX package does).
 
+The layout autotuner's static score reads :func:`update_cost`, the port's
+counterpart of the JAX package's ``executable_cost`` plus
+``pallas_kernel_cost``: the port has no compiler cost analysis, so it is a
+model of its own (see its docstring), not XLA's.
+
 Nothing here imports CUDA state at module scope.
 """
 
@@ -26,6 +31,7 @@ __all__ = [
     "count_flops",
     "kernel_flops",
     "mfu",
+    "update_cost",
 ]
 
 # Peak dense bf16 FLOP/s per card by device-name substring; first match
@@ -142,3 +148,61 @@ def attention_flops(q: Any, k: Any) -> dict[str, float]:
     unit = 2.0 * b * h * sq * int(k.shape[1]) * d
     return {"flash_fwd": 2 * unit, "flash_bwd_dq": 3 * unit,
             "flash_bwd_dkv": 4 * unit}
+
+
+def _ring(nbytes: float, members: int) -> float:
+    """Bytes a worker sends in a ring all-reduce of ``nbytes`` over
+    ``members`` workers."""
+    return 2.0 * (members - 1) / members * nbytes if members > 1 else 0.0
+
+
+def update_cost(plan: Any, *, flops: float, state_bytes: float,
+                leaves: dict[str, tuple[float, Any, Any]], tokens: float) -> dict[str, float]:
+    """Per-device ``{"flops", "bytes_accessed"}`` of one full update (the
+    forward, the backward, the gradient reduction and the optimizer)
+    under ``plan``, as the port's ``style="auto"`` step runs it. The
+    port's own model, not the XLA cost analysis the JAX package reads, and
+    computed from shapes alone: it runs no collective and launches nothing.
+
+    - FLOPs: ``flops``, the update's count on the whole global batch
+      (:func:`count_flops` of a forward and backward, the attention
+      kernels' own count included), divided evenly over the plan's
+      devices: ``dp`` and ``fsdp`` split the batch, ``tp`` the heads,
+      columns and vocab rows of the transformer layers.
+    - Bytes: ``state_bytes``, the parameters, gradients and optimizer
+      state the update reads and writes on one device (the autotuner's
+      ``layout_bytes``), plus what the layout moves per device: each
+      fsdp-sharded leaf's all-gather before the forward, each gradient's
+      all-reduce (ring bytes: the whole leaf over the world for a
+      gathered leaf, a tensor-parallel block over the data workers), and,
+      under ``tp``, four all-reduces of the ``[tokens, d_model]``
+      activations per transformer block (the attention's and the MLP's
+      sums in the forward, the gradients of their inputs in the
+      backward), ``tokens`` being one worker's tokens per update.
+
+    ``leaves``: ``{path: (bytes of the whole leaf, PartitionSpec, shape)}``
+    of the parameters; each ``attn/out/kernel`` leaf is one transformer
+    block, and its last dimension is ``d_model``."""
+    mesh = plan.mesh
+    world = mesh.size
+    tp_axis = plan.axis_name("tp")
+    tp = mesh.shape.get(tp_axis, 1) if tp_axis else 1
+    moved = 0.0
+    d_model = 0
+    blocks = 0
+    for path, (nbytes, spec, shape) in leaves.items():
+        axes = [n for names in (spec or ()) if names is not None
+                for n in ((names,) if isinstance(names, str) else names)]
+        if path.endswith("attn/out/kernel"):
+            blocks += 1
+            d_model = int(shape[-1])
+        if axes and set(axes) <= {tp_axis}:
+            moved += _ring(nbytes / tp, world // tp)
+            continue
+        if axes:
+            span = mesh.group_size(axes)
+            moved += (span - 1) / span * nbytes
+        moved += _ring(nbytes, world)
+    if tp > 1 and blocks:
+        moved += 4 * blocks * _ring(4.0 * tokens * d_model, tp)
+    return {"flops": float(flops) / world, "bytes_accessed": float(state_bytes) + moved}

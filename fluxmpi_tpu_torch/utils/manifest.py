@@ -206,8 +206,24 @@ def build_manifest(state: Any, *, layout: str = "replicated",
         "leaves": leaves,
         "loader": loader,
         "counters": counters,
-        "parallel": None,
+        "parallel": _parallel_section(),
     }
+
+
+def _parallel_section() -> dict[str, Any] | None:
+    """The installed plan's axes and mesh axis names (None without one),
+    and, when the layout autotuner picked it, its bank key
+    (``autotune_fingerprint``: the ``<ckpt>.autotune.json`` sidecar's
+    record vouches for the layout)."""
+    plan = runtime.global_plan()
+    if plan is None:
+        return None
+    desc = plan.describe()
+    out = {"axes": desc["axes"], "axis_names": desc["axis_names"]}
+    fp = getattr(plan, "autotune_fingerprint", None)
+    if fp:
+        out["autotune_fingerprint"] = str(fp)
+    return out
 
 
 def write_manifest(path: str, manifest: dict[str, Any]) -> None:

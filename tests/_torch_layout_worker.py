@@ -4,6 +4,7 @@ RANK WORLD STORE OUT DATA``. Reads the flax weights and the global batches
 from ``DATA`` (an npz the test writes), runs every layout case of its world
 and writes this rank's results to ``OUT`` (an npz keyed ``case/name``)."""
 
+import functools
 import sys
 
 import numpy as np
@@ -19,8 +20,9 @@ dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
 import fluxmpi_tpu_torch as fm  # noqa: E402
 from fluxmpi_tpu_torch import optim  # noqa: E402
 from fluxmpi_tpu_torch.data import ArrayDataset, DistributedDataLoader  # noqa: E402
-from fluxmpi_tpu_torch.models import (MoETransformerLM, expert_parallel_rules,  # noqa: E402
-                                      load_flax_params)
+from fluxmpi_tpu_torch.models import (MoETransformerLM, TransformerLM,  # noqa: E402
+                                      expert_parallel_rules, load_flax_params)
+from fluxmpi_tpu_torch.models import transformer as _transformer  # noqa: E402
 from fluxmpi_tpu_torch.ops import tp_unembed_cross_entropy  # noqa: E402
 from fluxmpi_tpu_torch.parallel import (ParallelConfig, TrainState,  # noqa: E402
                                         make_eval_step, make_train_step, pallreduce, pbroadcast, pmean_tree, psum_tree,
@@ -31,6 +33,7 @@ D = dict(np.load(data_path))
 LM = dict(vocab_size=32, max_len=16, num_layers=2, d_model=16, num_heads=2, d_ff=32,
           num_experts=4)
 params = {k[len("params/"):]: v for k, v in D.items() if k.startswith("params/")}
+lm_params = {k[len("lmparams/"):]: v for k, v in D.items() if k.startswith("lmparams/")}
 tokens, targets = D["tokens"], D["targets"]
 res = {}
 LR = 1e-3
@@ -48,6 +51,43 @@ def lm(mesh=None):
     return load_flax_params(model, params)
 
 
+def dense_lm():
+    kw = {k: v for k, v in LM.items() if k != "num_experts"}
+    return load_flax_params(TransformerLM(**kw, device="cpu"), lm_params)
+
+
+# What the tensor-parallel cases observe from the second update on: the
+# heads each attention sees, the all-gathers the step makes, and the
+# gradients the optimizer gets (a Megatron "f" left out would leave the
+# replicated LayerNorms' and biases' gradients short by the tp factor).
+SEEN = {"heads": [], "gathers": 0, "grads": []}
+_attend = _transformer.dot_product_attention
+_all_gather = dist.all_gather
+
+
+@functools.wraps(_attend)  # the attend filters its keywords by this signature
+def _seen_attend(q, k, v, *args, **kw):
+    SEEN["heads"].append(q.shape[2])
+    return _attend(q, k, v, *args, **kw)
+
+
+def _seen_gather(*args, **kw):
+    SEEN["gathers"] += 1
+    return _all_gather(*args, **kw)
+
+
+_transformer.dot_product_attention = _seen_attend
+dist.all_gather = _seen_gather
+
+
+def recording(opt):
+    def update(grads, state, params=None):
+        SEEN["grads"].append({k: g.detach().clone() for k, g in grads.items()})
+        return opt.update(grads, state, params)
+
+    return optim.GradientTransformation(opt.init, update)
+
+
 def loss_fn(model):
     def fn(p, mstate, batch):
         out = torch.func.functional_call(model, p, (batch["x"],),
@@ -59,25 +99,38 @@ def loss_fn(model):
 
 CASES = {2: {"fsdp": dict(fsdp=2, fsdp_min_size=64)},
          4: {"dp_tp": dict(dp=2, tp=2), "fsdp_tp": dict(fsdp=2, tp=2, fsdp_min_size=64),
-             "dp_ep": dict(dp=2, ep=2)}}
+             "dp_ep": dict(dp=2, ep=2), "lm_dp_tp": dict(dp=2, tp=2),
+             "lm_fsdp_tp": dict(fsdp=2, tp=2, fsdp_min_size=64)}}
 for case, kw in CASES[world].items():
     if "ep" in kw:
         kw = dict(kw, rules=expert_parallel_rules())
     plan = ParallelConfig(**kw).resolve()
-    model = lm(plan.mesh if "ep" in kw else None)
-    opt = optim.adamw(LR)
+    model = dense_lm() if case.startswith("lm_") else lm(plan.mesh if "ep" in kw else None)
+    opt = recording(optim.adamw(LR))
     state, shardings = plan.shard_state(TrainState.create(model, opt))
     res[f"{case}/rule_hits"] = np.array(sorted(plan.rule_hits.items()), dtype=object).astype(str)
-    step = make_train_step(loss_fn(model), opt, parallel=plan)
+    # The model stats built in (depth 2): the core returns them per update.
+    step = make_train_step(loss_fn(model), opt, parallel=plan, model_stats=2)
+    core = step.__fluxmpi_compiled__
     loader = DistributedDataLoader(ArrayDataset({"x": tokens, "y": targets}), 8,
                                    mesh=plan.mesh, axis_name=plan.data_axes,
                                    device="cpu")
     losses = []
-    for _, batch in zip(range(3), loader):
-        state, loss = step(state, batch)
+    for i, batch in zip(range(3), loader):
+        if i == 1:
+            SEEN.update(heads=[], gathers=0, grads=[])
+        state, (loss, _, (table, noise)) = core(state, batch)
         losses.append(float(loss))
+        if i == 1:
+            res[f"{case}/stats"] = table.numpy()
+            res[f"{case}/stats_noise"] = np.array(noise is None)
+    res[f"{case}/stats_names"] = np.array(core.__fluxmpi_model_stats_meta__["plans"][0].names)
     res[f"{case}/losses"] = np.array(losses)
     put(f"{case}/param", state.params)
+    put(f"{case}/grad", SEEN["grads"][0])
+    res[f"{case}/heads"] = np.array(sorted(set(SEEN["heads"])))
+    res[f"{case}/gathers"] = np.array(SEEN["gathers"])
+    res[f"{case}/tp_blocks"] = np.array(sorted(step.__fluxmpi_layout__.tp_blocks), dtype=str)
     # The eval step evaluates the blocks in their training layout.
     evaluate = make_eval_step(lambda p, ms, b: loss_fn(model)(p, ms, b)[0], parallel=plan)
     res[f"{case}/eval"] = fm.allreduce(evaluate(state, batch), "mean").numpy()
@@ -160,4 +213,7 @@ else:
 
 np.savez(out, **res)
 fm.shutdown()
+# No rank tears its group down while a peer's last collective is in flight
+# with it.
+dist.barrier()
 dist.destroy_process_group()

@@ -15,9 +15,10 @@ replay, the dropout seed read from device memory (a tensor seed against
 the int seed, fresh masks in every replay of a captured graph), the
 model stats computed inside a captured window (the same stats as the
 pipelined run's, every parameter bit for bit, a capture as a compile
-event), a ``torch.profiler`` capture beside a captured window, and, on a
-machine with two or more cards, one data-parallel step
-over NCCL against the single-process step.
+event), a ``torch.profiler`` capture beside a captured window, on a
+machine with two or more cards one data-parallel step over NCCL against
+the single-process step, and on four cards the layout autotuner's search
+over dp x fsdp x tp with its winner trained against pure dp.
 
 Marked ``cuda``: each test skips where CUDA is absent. On a machine with a
 card (this file imports no JAX, so the JAX-pinning conftest can be left
@@ -1036,3 +1037,163 @@ def test_nccl_data_parallel_step_matches_single_process(tmp_path):
         for name, v in state.model_state.items():
             np.testing.assert_allclose(r["bn_stats/" + name], v.numpy(),
                                        atol=1e-5, rtol=0, err_msg=name)
+
+
+AUTOTUNE_WORKER = textwrap.dedent('''
+    import json
+    import sys
+
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    import fluxmpi_tpu_torch.parallel.autotune  # noqa: F401
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.parallel import (ParallelConfig, TrainState, make_train_step,
+                                            train_loop)
+
+    at = sys.modules["fluxmpi_tpu_torch.parallel.autotune"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = fm.init(parallel="auto")  # RANK, WORLD_SIZE, LOCAL_RANK, MASTER_* from the launcher
+    world = fm.total_workers()
+    # GPT-2 small's widths with its padded vocabulary (50304 divides by 4).
+    cfg = dict(vocab_size=50304, max_len=1024, num_layers=12, d_model=768,
+               num_heads=12, d_ff=3072, ln_eps=1e-5)
+    model = TransformerLM(**cfg, attention="flash", device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    tokens = np.random.default_rng(0).integers(0, cfg["vocab_size"], (64, 1025))
+    sample = (tokens[:32, :-1], tokens[:32, 1:])
+
+    def loss_fn(p, ms, batch):
+        out = torch.func.functional_call(model, p, (batch[0],), {"targets": batch[1]})
+        return out.mean(), ms
+
+    res = at.autotune(loss_fn, optim.adamw(3e-4), model, sample, trials=16, force=True)
+    real = at._run_trial
+
+    def boom(*a, **k):
+        raise AssertionError("a trial ran on a bank hit")
+
+    at._run_trial = boom
+    hit = at.autotune(loss_fn, optim.adamw(3e-4), model, sample, trials=16)
+    at._run_trial = real
+
+    def train(plan):
+        with torch.no_grad():
+            for k, v in model.named_parameters():
+                v.copy_(start[k])
+        opt = optim.adamw(3e-4)
+        state = TrainState.create(model, opt)
+        if plan.shards_parameters:
+            state, _ = plan.shard_state(state)
+        step = make_train_step(loss_fn, opt, parallel=plan)
+        axes = plan.data_axes
+        loader = fm.DistributedDataLoader(
+            fm.ArrayDataset((tokens[:, :-1], tokens[:, 1:])), 32, mesh=plan.mesh,
+            axis_name=axes[0] if len(axes) == 1 else list(axes))
+        _, summary = train_loop(step, state, loader, steps=8, flush_every=1, fuse=False)
+        return [f["loss"] for f in summary["flushes"]]
+
+    winner = fm.global_plan()
+    out = dict(record=res.record, bank_hit=hit.from_bank,
+               winner_installed=winner is hit.plan, auto=train(winner),
+               dp=train(ParallelConfig(dp=world).resolve()),
+               card=torch.cuda.get_device_name(dev))
+
+    # tp over every card, whatever won: the kernels' heads per update (the
+    # first update gathers, the next run on this card's heads) and their
+    # launches by the device counters.
+    import importlib
+
+    from fluxmpi_tpu_torch.ops import device_launches
+
+    fa = importlib.import_module("fluxmpi_tpu_torch.ops.flash_attention")
+    heads = []
+    kernel = fa.flash_fwd
+
+    def seen(q, *a, **k):
+        heads.append(q.shape[2])
+        return kernel(q, *a, **k)
+
+    seen.launches = 0
+    fa.flash_fwd = seen
+    device_launches(reset=True)
+    out["tp"] = train(ParallelConfig(tp=world).resolve())
+    out["tp_launches"] = device_launches()
+    fa.flash_fwd = kernel
+    out["tp_heads"] = heads
+    with open(sys.argv[1], "w") as f:
+        json.dump(out, f)
+    fm.shutdown()
+''')
+
+
+def test_nccl_autotune_searches_four_cards_and_trains_the_winner(tmp_path):
+    """The layout search on four cards over NCCL, one worker per card:
+    GPT-2 small's widths (vocabulary 50304, f32, TF32 off,
+    ``attention="flash"``, adamw, a global batch of 32 x 1024): every
+    dp x fsdp x tp factorization of 4 is a candidate and scored, every
+    candidate is trialed (the budget covers them), every rank ends with the
+    same winner, the second search is answered by the bank, and the winner
+    trains 8 updates through ``make_train_step(parallel="auto")`` with the
+    losses of the same updates under ``ParallelConfig(dp=4)`` within 2e-5;
+    so does ``ParallelConfig(tp=4)``, whose attention runs 3 of the 12
+    heads on each card from its second update on (12 launches of each
+    kernel per update by the device counters). Prints the candidate table
+    (memory, score, examples/s per trial)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    world = 4
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = Path(__file__).resolve().parents[1]
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port),
+                   PYTHONPATH=str(root) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", AUTOTUNE_WORKER, str(tmp_path / f"rank{rank}.json")],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    import json
+
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(world)]
+    rec = ranks[0]["record"]
+    axes = [tuple(c["axes"][a] for a in ("dp", "fsdp", "tp")) for c in rec["candidates"]]
+    assert axes == [(4, 1, 1), (2, 2, 1), (2, 1, 2), (1, 4, 1), (1, 2, 2), (1, 1, 4)]
+    print(f"\nautotune on {world} x {ranks[0]['card']}: winner {rec['winner']['axes']}")
+    for c in rec["candidates"]:
+        trial = c["trial"] or {}
+        print(f"  {c['axes']}: {c['mem_bytes_per_device']} bytes/device, flops "
+              f"{c['flops']}, bytes {c['bytes_accessed']}, score {c['score']}, "
+              f"{trial.get('examples_per_sec')} examples/s "
+              f"({trial.get('updates')} updates, {trial.get('seconds')} s)")
+        assert c["score"] is not None and c["pruned"] is None
+        assert trial["examples_per_sec"] > 0 and trial["steady_compiles"] == 0
+    for res in ranks:
+        assert res["record"]["winner"] == rec["winner"]
+        assert res["bank_hit"] and res["winner_installed"]
+        assert res["auto"] == ranks[0]["auto"] and len(res["auto"]) == 8
+        np.testing.assert_allclose(res["auto"], res["dp"], atol=2e-5, rtol=0)
+        # Under tp=4 each card's attention runs 3 of the 12 heads from the
+        # second update on, 12 launches of each kernel per update.
+        np.testing.assert_allclose(res["tp"], res["dp"], atol=2e-5, rtol=0)
+        assert res["tp_heads"] == [12] * 12 + [3] * 84
+        assert res["tp_launches"] == {k: 96 for k in ("flash_fwd", "flash_bwd_dq",
+                                                      "flash_bwd_dkv")}

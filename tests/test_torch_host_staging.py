@@ -118,6 +118,9 @@ WORKER = textwrap.dedent('''
              donate_warned=donate_warned, donate_new=donated is not tree,
              fault_fired=fault_fired, staged_before_fault=len(staging_calls))
     fm.shutdown()
+    # No rank tears its group down while a peer's last collective is in
+    # flight with it.
+    dist.barrier()
     dist.destroy_process_group()
 ''')
 

@@ -17,7 +17,8 @@ port against the JAX package, on the CPU.
   batches, resumed mid-epoch too, against the reference's rule computed
   with numpy, and rank 0's against the JAX loader over the same shard.
 - ``gather_rows`` and ``NativePrefetcher`` against the JAX package's and
-  numpy's, and their bounds checks.
+  numpy's, and their bounds checks; 20000 prefetchers made, drained and
+  destroyed in a child process without a hang (ROADMAP C.14).
 Exact equality throughout: the same integers and the same f32 draws.
 """
 
@@ -307,11 +308,45 @@ def test_gather_rows_and_the_prefetcher_equal_jax_and_numpy(dtype, row):
     served = NativePrefetcher.served
     port = list(NativePrefetcher(a, order, 8))
     assert NativePrefetcher.served - served == 6
-    ref = list(jnative.NativePrefetcher(a, order, 8))
+    # The reference's destroy sets its stop flag outside the mutex and can
+    # lose the producer's wake-up right after the last batch (ROADMAP
+    # C.14, repaired in the port's copy): its generator stays open here, so
+    # its destroy runs at exit, long after the producer has gone to sleep.
+    it = iter(jnative.NativePrefetcher(a, order, 8))
+    _OPEN_REFERENCE_PREFETCHERS.append(it)
+    ref = [next(it) for _ in range(6)]
     assert len(port) == len(ref) == 6
     for b, (p, r) in enumerate(zip(port, ref)):
         np.testing.assert_array_equal(p, a[order[b * 8:(b + 1) * 8]])
         np.testing.assert_array_equal(p, r)
+
+
+# The JAX package's prefetchers of the test above, left open (see there).
+_OPEN_REFERENCE_PREFETCHERS: list = []
+
+DESTROY_STRESS = textwrap.dedent('''
+    import numpy as np
+    from fluxmpi_tpu_torch.io import NativePrefetcher
+
+    a = np.arange(48, dtype=np.float32).reshape(48, 1)
+    order = np.arange(48)
+    for _ in range(20000):
+        assert len(list(NativePrefetcher(a, order, 8, threads=1))) == 6
+''')
+
+
+def test_prefetcher_destroy_never_loses_its_wakeup():
+    """C.14: a prefetcher destroyed just after its producer built the last
+    batch must not hang (the stop flag is set under the mutex the producer
+    waits with). The reference's copy hangs within a few thousand cycles;
+    20000 cycles of the port's run in a child process with a timeout, so a
+    hang fails the test instead of the run."""
+    assert native_available()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1])
+               + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", DESTROY_STRESS], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_native_bounds_checks():

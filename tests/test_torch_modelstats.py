@@ -303,6 +303,11 @@ WORKER = textwrap.dedent('''
         res[f"{reduce}/noise"] = noise.numpy()
         res[f"{reduce}/table"] = table.numpy()
     np.savez(out, **res)
+    fm.shutdown()
+    # No rank tears its group down while a peer's last collective is in
+    # flight with it.
+    dist.barrier()
+    dist.destroy_process_group()
 ''')
 
 

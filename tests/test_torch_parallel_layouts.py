@@ -7,11 +7,18 @@ the same global batches:
 - ``MoETransformerLM`` trained 3 updates under ``make_train_step(parallel=)``
   (``style="auto"``) with ``ParallelConfig(fsdp=2)`` (2 ranks), ``(dp=2,
   tp=2)``, ``(fsdp=2, tp=2)`` and ``(dp=2, ep=2)`` with
-  ``expert_parallel_rules`` (4 ranks), and ``style="shard_map"`` (2 ranks):
-  every update's loss, every parameter block after the third, whose
-  shape must equal the JAX package's addressable shard on the same mesh
-  coordinate, and ``make_eval_step(parallel=)``'s metric (the workers'
-  mean) against JAX's;
+  ``expert_parallel_rules`` (4 ranks), the dense ``TransformerLM`` under
+  ``(dp=2, tp=2)`` and ``(fsdp=2, tp=2)`` (4 ranks), and
+  ``style="shard_map"`` (2 ranks): every update's loss, every parameter
+  block after the third, whose shape must equal the JAX package's
+  addressable shard on the same mesh coordinate, and
+  ``make_eval_step(parallel=)``'s metric (the workers' mean) against
+  JAX's;
+- under tp, the layers' split compute from the second update on: the
+  heads each attention sees, the step's all-gathers (the fsdp leaves'
+  only), the leaves handed over as blocks, and every gradient of the
+  second update against JAX's; the model stats built into each plan's
+  step against the JAX package's stats of the same update;
 - ``shard_tree``'s blocks against JAX's addressable shards;
 - ``psum_tree``, ``pmean_tree``, ``pallreduce`` (``prod``, ``max``) and
   ``pbroadcast`` with their gradients against JAX's ``shard_map``;
@@ -43,6 +50,7 @@ from jax.sharding import Mesh, NamedSharding
 from jax.sharding import PartitionSpec as JP
 
 import fluxmpi_tpu as jfm
+from fluxmpi_tpu.models import TransformerLM as JaxLM
 from fluxmpi_tpu.models.moe import MoETransformerLM as JaxMoELM
 from fluxmpi_tpu.models.moe import expert_parallel_rules as jax_ep_rules
 from fluxmpi_tpu.parallel import ParallelConfig as JaxParallelConfig
@@ -60,7 +68,10 @@ LM = dict(vocab_size=32, max_len=16, num_layers=2, d_model=16, num_heads=2, d_ff
 CASES = {"fsdp": (2, dict(fsdp=2, fsdp_min_size=64)),
          "dp_tp": (4, dict(dp=2, tp=2)),
          "fsdp_tp": (4, dict(fsdp=2, tp=2, fsdp_min_size=64)),
-         "dp_ep": (4, dict(dp=2, ep=2))}
+         "dp_ep": (4, dict(dp=2, ep=2)),
+         "lm_dp_tp": (4, dict(dp=2, tp=2)),
+         "lm_fsdp_tp": (4, dict(fsdp=2, tp=2, fsdp_min_size=64))}
+TP_CASES = sorted(c for c, (_, kw) in CASES.items() if "tp" in kw)
 
 torch.set_num_threads(1)
 
@@ -82,6 +93,14 @@ def data(tmp_path_factory):
     params = JaxMoELM(**LM).init(jax.random.PRNGKey(0), jnp.zeros((2, 8), jnp.int32),
                                  train=False)["params"]
     params = jax.tree_util.tree_map(np.asarray, params)
+    lm = {k: v for k, v in LM.items() if k != "num_experts"}
+    lm_params = JaxLM(**lm).init(jax.random.PRNGKey(1), jnp.zeros((2, 8), jnp.int32),
+                                 train=False)["params"]
+    # Off their init (zero biases, unit scales): every gradient is live.
+    lm_rng = np.random.default_rng(1)
+    lm_params = jax.tree_util.tree_map(
+        lambda x: np.asarray(x) + 0.1 * lm_rng.normal(size=x.shape).astype(np.float32),
+        lm_params)
     d = dict(tokens=rng.integers(0, 32, (40, 8)).astype(np.int32),
              targets=rng.integers(0, 32, (40, 8)).astype(np.int32),
              coll_x=rng.normal(size=(4, 3)).astype(np.float32),
@@ -89,11 +108,13 @@ def data(tmp_path_factory):
              ce_W=(rng.normal(size=(32, 16)) * 0.3).astype(np.float32),
              ce_t=rng.integers(0, 32, (2, 8)).astype(np.int64))
     path = tmp_path_factory.mktemp("layouts") / "data.npz"
-    np.savez(path, **d, **{f"params/{k}": v for k, v in _flat(params).items()})
-    return dict(d, params=params, path=path)
+    np.savez(path, **d, **{f"params/{k}": v for k, v in _flat(params).items()},
+             **{f"lmparams/{k}": v for k, v in _flat(lm_params).items()})
+    return dict(d, params=params, lm_params=lm_params, path=path)
 
 
-def _run_world(tmp, world, data_path):
+def _start_world(tmp, world, data_path):
+    """Start the ranks of one world; ``_run_world`` joins them."""
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT) + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     env.pop("CUDA_VISIBLE_DEVICES", None)
@@ -105,6 +126,10 @@ def _run_world(tmp, world, data_path):
             [sys.executable, str(WORKER), str(rank), str(world), str(tmp / "store"),
              str(tmp / f"rank{rank}.npz"), str(data_path)],
             cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
+    return tmp, world, procs, logs
+
+
+def _run_world(tmp, world, procs, logs):
     try:
         for p in procs:
             p.wait(timeout=JOIN_TIMEOUT)
@@ -126,16 +151,21 @@ def _run_world(tmp, world, data_path):
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory, data):
     """Each rank's results in the 2-rank and the 4-rank world."""
-    return {n: _run_world(tmp_path_factory.mktemp(f"world{n}"), n, data["path"])
-            for n in (2, 4)}
+    # Both worlds run at once.
+    started = {n: _start_world(tmp_path_factory.mktemp(f"world{n}"), n, data["path"])
+               for n in (2, 4)}
+    return {n: _run_world(*started[n]) for n in (2, 4)}
 
 
-def _jax_train(data, kw, n, style="auto"):
-    """3 updates of the JAX MoE LM: ``(losses, params tree, eval metric)``
-    (the metric None for the shard_map step)."""
+def _jax_train(data, kw, n, style="auto", dense=False, grads=None, stats=None):
+    """3 updates of the JAX MoE LM (``dense``: the TransformerLM):
+    ``(losses, params tree, eval metric)`` (the metric None for the
+    shard_map step). ``grads``, a dict, gets the gradient of the second
+    update's loss, each leaf laid out as its parameter; ``stats``, a dict,
+    the JAX package's model stats of that update at depth 2."""
     devs = jax.devices()[:n]
     opt = optax.adamw(LR)
-    variables = {"params": data["params"]}
+    variables = {"params": data["lm_params" if dense else "params"]}
     if style == "shard_map":
         plan, model = None, JaxMoELM(**LM)
         mesh = Mesh(np.asarray(devs), ("dp",))
@@ -143,7 +173,10 @@ def _jax_train(data, kw, n, style="auto"):
         if "ep" in kw:
             kw = dict(kw, rules=jax_ep_rules())
         plan = JaxParallelConfig(**kw).resolve(devs)
-        model = JaxMoELM(**LM, mesh=plan.mesh if "ep" in kw else None)
+        if dense:
+            model = JaxLM(**{k: v for k, v in LM.items() if k != "num_experts"})
+        else:
+            model = JaxMoELM(**LM, mesh=plan.mesh if "ep" in kw else None)
 
     def loss_fn(p, ms, batch):
         return jnp.mean(model.apply(p, batch["x"], train=False, targets=batch["y"])), ms
@@ -158,12 +191,41 @@ def _jax_train(data, kw, n, style="auto"):
     losses = []
     for b in range(3):
         batch = {"x": data["tokens"][8 * b:8 * b + 8], "y": data["targets"][8 * b:8 * b + 8]}
+        if b == 1 and (grads is not None or stats is not None):
+            from fluxmpi_tpu.telemetry.modelstats import compute_stats
+
+            def grads_and_stats(params, opt_state):
+                g = jax.grad(lambda p: loss_fn(p, None, batch)[0])(params)
+                upd, _ = opt.update(g, opt_state, params)
+                return g, compute_stats(g, params, upd, depth=2)["layers"]
+
+            g, layer_stats = jax.jit(grads_and_stats)(state.params, state.opt_state)
+            if grads is not None:
+                grads.update(jax.tree_util.tree_map(
+                    lambda x, p: jax.device_put(x, p.sharding), g, state.params)["params"])
+            if stats is not None:
+                stats.update(layer_stats)
         state, loss = step(state, batch)
         losses.append(float(loss))
     if plan is None:
         return np.array(losses), state.params["params"], None
     evaluate = jax_make_eval_step(lambda p, ms, b: loss_fn(p, ms, b)[0], parallel=plan)
     return np.array(losses), state.params["params"], float(evaluate(state, batch))
+
+
+_JAX_CASES: dict = {}
+
+
+def _jax_case(data, case):
+    """JAX's run of plan case ``case``, once per module: ``(losses, params,
+    eval metric, second update's gradients, its model stats)``."""
+    if case not in _JAX_CASES:
+        n, kw = CASES[case]
+        grads, stats = {}, {}
+        out = _jax_train(data, kw, n, dense=case.startswith("lm_"), grads=grads,
+                         stats=stats)
+        _JAX_CASES[case] = out + (grads, stats)
+    return _JAX_CASES[case]
 
 
 def _check_params(ranks, prefix, jparams):
@@ -182,7 +244,7 @@ def test_plan_trains_like_jax(world, worlds, data, case):
     """3 updates under a plan: the loss of each update and every parameter
     block (shape and values) equal JAX's on the same mesh coordinate."""
     n, kw = CASES[case]
-    jlosses, jparams, jeval = _jax_train(data, kw, n)
+    jlosses, jparams, jeval, _, _ = _jax_case(data, case)
     ranks = worlds[n]
     for res in ranks:
         np.testing.assert_allclose(res[f"{case}/losses"], jlosses, atol=ATOL, rtol=0)
@@ -190,10 +252,59 @@ def test_plan_trains_like_jax(world, worlds, data, case):
     _check_params(ranks, f"{case}/param", jparams)
     if "tp" in kw or "fsdp" in kw:
         # Something is sharded: some rank's block is smaller than the leaf.
-        full = {k.replace("/", "."): v.shape for k, v in _flat(data["params"]).items()}
+        tree = data["lm_params" if case.startswith("lm_") else "params"]
+        full = {k.replace("/", "."): v.shape for k, v in _flat(tree).items()}
         assert any(ranks[0][f"{case}/param/{k}"].shape != s for k, s in full.items())
     if case == "dp_ep":
         assert ranks[0][f"{case}/param/encoder.block_0.moe.w1"].shape[0] == 2
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_model_stats_over_the_layout_equal_jax(world, worlds, data, case):
+    """The model stats built into the step under each plan (depth 2, the
+    second update): every group's gradient, parameter and update norms sum
+    each leaf's blocks once over the workers that hold them, and equal the
+    JAX package's stats of the same update on every rank; no noise scale
+    under a layout, as JAX's partitioned step has none."""
+    n, _ = CASES[case]
+    want = _jax_case(data, case)[4]
+    for res in worlds[n]:
+        names = res[f"{case}/stats_names"].tolist()
+        assert names == sorted(want)
+        assert bool(res[f"{case}/stats_noise"])
+        for name, row in zip(names, res[f"{case}/stats"]):
+            ref = [float(want[name][k]) for k in
+                   ("grad_norm", "param_norm", "update_norm", "nonfinite")]
+            np.testing.assert_allclose(row, ref, rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("case", TP_CASES)
+def test_tp_layers_compute_on_their_blocks(world, worlds, data, case):
+    """Under tp, from the second update on: every leaf the tp rules shard
+    is handed to the layers as this worker's block (none is all-gathered:
+    the step's only all-gathers are the fsdp leaves'), each attention sees
+    ``heads / tp`` heads, and the gradient of every leaf, the replicated
+    LayerNorms and row-parallel biases included, equals JAX's gradient of
+    the same update within 2e-5."""
+    n, kw = CASES[case]
+    dense = case.startswith("lm_")
+    jgrads = _jax_case(data, case)[3]
+    # The plan's rule hits count the state's leaves: each parameter and
+    # its two adamw moments.
+    hits = {k: int(v) // 3 for k, v in worlds[n][0][f"{case}/rule_hits"].tolist()}
+    for r, res in enumerate(worlds[n]):
+        assert res[f"{case}/heads"].tolist() == [LM["num_heads"] // kw["tp"]]
+        assert len(res[f"{case}/tp_blocks"]) == hits["tp"]
+        assert int(res[f"{case}/gathers"]) == 2 * hits.get("fsdp", 0)
+        for name, arr in _flat(jgrads).items():
+            got = res[f"{case}/grad/{name.replace('/', '.')}"]
+            ref = _shard(arr, r)
+            assert got.shape == ref.shape, (r, name)
+            np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0, err_msg=f"{r} {name}")
+    if dense:
+        blocks = set(worlds[n][0][f"{case}/tp_blocks"].tolist())
+        assert {"encoder.block_0.ff1.kernel", "encoder.block_0.ff2.kernel",
+                "encoder.block_0.attn.out.kernel", "embed.embedding"} <= blocks
 
 
 def test_shard_map_step_trains_like_jax(world, worlds, data):

@@ -238,8 +238,9 @@ def test_post_board_gauges_and_status(world):
 
 def test_init_installs_the_plan():
     """``init(parallel=)`` installs the plan and its mesh; a repeated
-    ``init`` with another plan warns and keeps the first; ``"auto"``,
-    ``FLUXMPI_TPU_PARALLEL=auto`` and ``resize=`` stay refused."""
+    ``init`` with another plan warns and keeps the first; ``"auto"`` arms
+    the layout autotuner with no plan installed yet; ``resize=`` stays
+    refused."""
     cfg = tfm.ParallelConfig()
     try:
         assert tfm.init(device="cpu", parallel=cfg).type == "cpu"
@@ -255,8 +256,11 @@ def test_init_installs_the_plan():
     finally:
         tfm.shutdown()
     assert tfm.global_plan() is None
-    with pytest.raises(NotImplementedError, match="autotune"):
+    try:
         tfm.init(device="cpu", parallel="auto")
+        assert tfm.runtime.auto_parallel() and tfm.global_plan() is None
+    finally:
+        tfm.shutdown()
     with pytest.raises(ValueError, match="not both"):
         tfm.init(device="cpu", parallel=cfg, mesh_shape={"dp": 1})
     try:

@@ -20,10 +20,10 @@ and the port adds no parameter of its own. The allow-list holds only:
 - the TPU-only arguments ``block_q``, ``block_k`` and ``interpret`` where
   the port does not take them (the port has no Pallas tiling);
 - ``mesh`` and ``axis_name`` only where ``MESH_NOT_TAKEN`` names the
-  callable: the eager collectives, which run over the whole world, and the
-  checkpoint's ``mesh`` (sharded checkpoints are ROADMAP A.5). Everywhere
-  else the port takes them (the layouts, the steps, the loader, the
-  in-step collectives, the sync-BN models) and they are compared;
+  callable: the checkpoint's ``mesh`` (sharded checkpoints are ROADMAP
+  A.5). Everywhere else the port takes them (the layouts, the steps, the
+  loader, the in-step and the eager collectives, the gradient all-reduce,
+  the sync-BN models) and they are compared;
 - the arguments that the port takes through ``**waiting`` and still
   refuses with ``NotImplementedError``, each named in ``REFUSED`` (and
   shown to raise). Arguments that the port spells as parameters but
@@ -53,7 +53,7 @@ MODULES = ["", ".comm", ".config", ".data", ".errors", ".faults", ".logging",
            ".models.generate", ".models.moe", ".models.resnet", ".models.transformer",
            ".models.unet", ".models.vit",
            ".ops", ".ops.flash_attention", ".ops.fused_ce", ".parallel",
-           ".parallel.collectives", ".parallel.loop", ".parallel.plan",
+           ".parallel.autotune", ".parallel.collectives", ".parallel.loop", ".parallel.plan",
            ".parallel.sharding", ".parallel.train", ".serving", ".serving.cache",
            ".serving.engine", ".serving.observe", ".models.hf_gpt2", ".utils", ".utils.checkpoint", ".utils.ema",
            ".utils.manifest", ".utils.precision", ".utils.profiling", ".utils.flops",
@@ -71,10 +71,6 @@ TPU_ONLY = {"block_q", "block_k", "interpret"}
 # Callables whose JAX signature takes mesh=/axis_name= and the port's does
 # not yet.
 MESH_NOT_TAKEN = {
-    **{name: {"mesh", "axis_name"} for name in (
-        "allreduce", "bcast", "iallreduce", "ibcast", "reduce")},
-    "allreduce_gradients": {"axis_name"},
-    "DistributedOptimizer": {"axis_name"},
     "build_manifest": {"mesh"},
     "restore_checkpoint": {"mesh"},
 }
