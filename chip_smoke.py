@@ -210,6 +210,27 @@
    update by the device counters; a checkpoint save writing
    ``<path>.autotune.json`` and the manifest's fingerprint; ms per update,
    the trial's examples/s and the search's seconds.
+15. Elastic phase (``elastic_phase``): GPT-2-small widths (bf16 compute,
+   f32 masters, adamw 3e-4, ``attention="flash"``), ``lm_corpus(n=256)``
+   in the device-gather loader with an id column whose rows each update
+   logs into a device buffer (a graph replay runs no Python). (1) An
+   uninterrupted fused epoch at global batch 8 (``flush_every=4``); a
+   ``fuse=False`` run with ``save_every=4`` killed by
+   ``data.fetch@step=13`` (newest committed step 12); its resume at
+   global batch 16 (cursor 6, 10 updates in windows of 2): the ids the
+   steps consumed equal the uninterrupted order exactly,
+   ``resumed_from`` 12, ``train.resumes{topology_changed="true"}`` 1,
+   finite losses. (2) ``init(resize=<bank>)`` and ``request_resize(1)``:
+   the fused run drains at its first flush, saves and stamps; the resumed
+   run's final parameters, moments and step are bit for bit the
+   uninterrupted run's; one record, valid under the port's validator and
+   ``scripts/check_metrics_schema.py``, its phase seconds printed; the
+   stamp gone. (3) Four CPU gloo children (``--shard-child``) commit the
+   f32 state sharded by ``fsdp_rule``; the card restores it with
+   ``parallel=ParallelConfig(dp=1)`` and a meta ``like``: every leaf bit
+   for bit the state built on the card, and 4 fused updates from each bit
+   for bit; each child's bytes and the restore's seconds printed. Launches
+   by the device counters for every run.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -4979,6 +5000,378 @@ def autotune_phase(device, updates: int = 12, flush_every: int = 4):
     return stats, failures
 
 
+SHARD_WORKERS = 4  # the CPU gloo world that writes the sharded checkpoint
+
+
+def _tiny_state_moments(state):
+    """Give a fresh TrainState non-trivial adamw moments and count (the
+    same in the card process and the sharding children): mu = p / 2,
+    nu = p * p, count 1."""
+    import torch
+
+    with torch.no_grad():
+        for k, p in state.params.items():
+            state.opt_state["mu"][k].copy_(p * 0.5)
+            state.opt_state["nu"][k].copy_(p * p)
+        state.opt_state["count"].fill_(1)
+    state.step = 1
+    return state
+
+
+def shard_child(workdir: str, rank: int, world: int) -> int:
+    """One CPU worker of ``elastic_phase``'s sharded save, in its own
+    process: the f32 GPT-2-small TrainState from seed 0 (the moments of
+    :func:`_tiny_state_moments`), laid out by ``fsdp_rule`` over a
+    ``world``-worker mesh and committed as step 1 through a
+    ``CheckpointManager`` in ``workdir/ckpt``; its bytes written and
+    seconds go to ``workdir/child<rank>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // world))
+    dist.init_process_group("gloo", store=dist.FileStore(str(Path(workdir) / "store"), world),
+                            rank=rank, world_size=world)
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.parallel import TrainState
+    from fluxmpi_tpu_torch.parallel.sharding import Mesh, fsdp_rule, shard_tree
+    from fluxmpi_tpu_torch.utils import CheckpointManager
+
+    fm.init(device="cpu")
+    t0 = time.perf_counter()
+    model = TransformerLM(**GPT2_SMALL, attention="flash", device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+    state = _tiny_state_moments(TrainState.create(model, optim.adamw(3e-4)))
+    mesh = Mesh(np.arange(world), ("dp",))
+    placed, _ = shard_tree(state, mesh, fsdp_rule(mesh))
+    del state, model
+    built = time.perf_counter() - t0
+    mgr = CheckpointManager(str(Path(workdir) / "ckpt"), async_save=False)
+    t1 = time.perf_counter()
+    mgr.save(1, placed)
+    saved = time.perf_counter() - t1
+    mgr.close()
+    shard = Path(workdir) / "ckpt" / "step_00000001" / f"shard_{rank}.pt"
+    (Path(workdir) / f"child{rank}.json").write_text(json.dumps(dict(
+        bytes=shard.stat().st_size, build_seconds=built, save_seconds=saved)))
+    fm.shutdown()
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def elastic_phase(device, flush_every: int = 4, resume_flush: int = 2):
+    """Sharded checkpoints, elastic resume and the live resize on one card
+    (module docstring, item 15). Returns its stats and failures."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import faults, optim
+    from fluxmpi_tpu_torch.errors import FaultInjectedError
+    from fluxmpi_tpu_torch.fleet import resize
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.parallel import (ParallelConfig, TrainState, make_train_step,
+                                            train_loop)
+    from fluxmpi_tpu_torch.telemetry import MetricsRegistry
+    from fluxmpi_tpu_torch.telemetry.schema import validate_resize_record
+    from fluxmpi_tpu_torch.utils import CheckpointManager
+
+    failures = []
+    card = card_line()
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    cfg = GPT2_SMALL
+    corpus = lm_corpus(cfg["vocab_size"], n=256, seq=cfg["max_len"])
+    ids = np.arange(len(corpus), dtype=np.int32)
+    stats = dict(card=card, config=dict(cfg))
+    paths = stats["launches_by_path"] = {}
+    if fm.is_initialized():
+        fm.shutdown()
+    dev = fm.init()
+
+    def build(gbs, dtype=torch.bfloat16, prefetch=2, model=None):
+        """A fresh model (seed 0), its TrainState, the device-gather loader
+        over (tokens, targets, ids) and a step whose loss logs the ids each
+        update consumed into a device buffer (a CUDA-graph replay runs no
+        Python, so the log is device work the graph holds)."""
+        if model is None:
+            model = TransformerLM(**cfg, attention="flash", dropout=0.0, dtype=dtype,
+                                  device=dev, generator=torch.Generator().manual_seed(0))
+        log = torch.full((2 * len(corpus),), -1, dtype=torch.int32, device=dev)
+        pos = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def loss_fn(params, model_state, batch):
+            x, y, rows = batch
+            n = rows.shape[0]
+            log.index_copy_(0, pos + torch.arange(n, device=dev), rows)
+            pos.add_(n)
+            out = torch.func.functional_call(model, params, (x,), {"targets": y})
+            return out.mean(), model_state
+
+        opt = optim.adamw(3e-4)
+        loader = fm.DistributedDataLoader(
+            fm.DistributedDataContainer(fm.ArrayDataset((corpus[:, :-1], corpus[:, 1:], ids))),
+            global_batch_size=gbs, shuffle=True, prefetch=prefetch)
+        state = TrainState.create({k: v.detach().clone().requires_grad_()
+                                   for k, v in model.named_parameters()}, opt)
+        return dict(model=model, state=state, loader=loader, log=log, pos=pos,
+                    step=make_train_step(loss_fn, opt))
+
+    def leaves(state):
+        out = {f"params/{k}": v for k, v in state.params.items()}
+        for m in ("mu", "nu"):
+            out.update({f"{m}/{k}": v for k, v in state.opt_state[m].items()})
+        out["count"] = state.opt_state["count"]
+        return out
+
+    def drive(name, run, step, updates, fused):
+        """``run()`` on the main path: the counts set to 0 just before and
+        read just after, by the wrappers (with the graphs' replays) and by
+        the kernels' device counters; ``updates`` launches of each per
+        layer."""
+        torch.cuda.synchronize()
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        out, launches = kernel_launches(run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted = {k.__name__: k.launches for k in kernels}
+        extra = graph_launches(step) if fused else {n: 0 for n in counted}
+        accounted = {n: counted[n] + extra[n] for n in counted}
+        need = cfg["num_layers"] * updates
+        if launches != {k.__name__: need for k in kernels}:
+            failures.append(f"elastic_phase {name}: launches {launches}, not {need} each")
+        if accounted != launches:
+            failures.append(f"elastic_phase {name}: the wrappers' counts {accounted} differ "
+                            f"from the device's {launches}")
+        paths[f"elastic_{name}"] = launches
+        print(f"elastic {name}: {updates} updates in {wall:.3f}s, launches {launches}",
+              flush=True)
+        return out
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- 1. Elastic resume across batch geometry: 8 -> 16 -------------
+        ref = build(8)
+        ref_state, ref_sum = drive("reference", lambda: train_loop(
+            ref["step"], ref["state"], ref["loader"], epochs=1, flush_every=flush_every),
+            ref["step"], 32, True)
+        reference = ref["log"][:int(ref["pos"])].tolist()
+        ref_bits = {k: v.detach().clone() for k, v in leaves(ref_state).items()}
+        ref_step = ref_state.step
+        del ref, ref_state
+
+        killed = build(8, prefetch=0)
+        mgr = CheckpointManager(os.path.join(tmp, "elastic"), max_to_keep=1)
+
+        def crash():
+            with faults.scope("data.fetch@step=13"):
+                try:
+                    train_loop(killed["step"], killed["state"], killed["loader"], epochs=1,
+                               flush_every=flush_every, save_every=4, checkpoint=mgr,
+                               fuse=False)
+                except FaultInjectedError:
+                    return "killed"
+            return "finished"
+
+        outcome = drive("killed_8", crash, killed["step"], 12, False)
+        mgr.close()
+        prefix = killed["log"][:int(killed["pos"])].tolist()
+        latest = mgr.latest_step()
+        del killed
+        resumed = build(16)
+        reg = MetricsRegistry()
+        t0 = time.perf_counter()
+        _, res_sum = drive("resumed_16", lambda: train_loop(
+            resumed["step"], resumed["state"], resumed["loader"], epochs=1,
+            flush_every=resume_flush, checkpoint=CheckpointManager(
+                os.path.join(tmp, "elastic"), max_to_keep=1), resume=True, metrics=reg),
+            resumed["step"], 10, True)
+        resume_s = time.perf_counter() - t0
+        tail = resumed["log"][:int(resumed["pos"])].tolist()
+        labeled = reg.counter("train.resumes", topology_changed="true").value
+        losses = [f["loss"] for f in res_sum["flushes"]]
+        exact = prefix + tail == reference and len(reference) == 256
+        stats["elastic"] = dict(outcome=outcome, latest=latest,
+                                resumed_from=res_sum["resumed_from"],
+                                fused_window=res_sum["fused_window"],
+                                prefix=len(prefix), tail=len(tail), sample_exact=exact,
+                                resumes_topology_changed=labeled, losses=losses,
+                                resume_seconds=resume_s)
+        print(f"elastic: killed {outcome} at latest step {latest}, {len(prefix)} ids; "
+              f"resumed at global batch 16 from {res_sum['resumed_from']} with "
+              f"{res_sum['updates'] - 12} more updates (windows of "
+              f"{res_sum['fused_window']}), {len(tail)} ids; prefix + tail == the "
+              f"uninterrupted batch-8 order: {exact}; train.resumes{{topology_changed}} "
+              f"{labeled}; losses {losses}; {resume_s:.3f}s", flush=True)
+        if outcome != "killed" or latest != 12 or res_sum["resumed_from"] != 12:
+            failures.append(f"elastic_phase: the kill and resume are not at step 12 "
+                            f"({outcome}, latest {latest}, resumed_from "
+                            f"{res_sum['resumed_from']})")
+        if not exact:
+            failures.append("elastic_phase: the consumed ids differ from the "
+                            "uninterrupted epoch's order")
+        if labeled != 1:
+            failures.append(f"elastic_phase: train.resumes{{topology_changed}} is {labeled}")
+        if not losses or not all(math.isfinite(x) for x in losses):
+            failures.append("elastic_phase: a resumed loss is not finite")
+        del resumed
+
+        # -- 2. The live resize round trip (fused) -----------------------
+        fm.shutdown()
+        bank = os.path.join(tmp, "resize_bank.jsonl")
+        dev = fm.init(resize=bank)
+        rz_dir = os.path.join(tmp, "resize")
+        first = build(8)
+        resize.request_resize(1, reason="elastic_phase")
+        mgr = CheckpointManager(rz_dir, max_to_keep=1)
+        _, drained = drive("resize_drain", lambda: train_loop(
+            first["step"], first["state"], first["loader"], epochs=1,
+            flush_every=flush_every, checkpoint=mgr), first["step"], flush_every, True)
+        mgr.close()
+        stamped = resize.read_handoff(rz_dir) is not None
+        del first
+        second = build(8)
+        mgr = CheckpointManager(rz_dir, max_to_keep=1)
+        state, after = drive("resize_resume", lambda: train_loop(
+            second["step"], second["state"], second["loader"], epochs=1,
+            flush_every=flush_every, checkpoint=mgr, resume=True), second["step"],
+            32 - flush_every, True)
+        mgr.close()
+        bits = {k: v.detach() for k, v in leaves(state).items()}
+        same = (state.step == ref_step
+                and all(torch.equal(bits[k], ref_bits[k]) for k in ref_bits))
+        with open(bank) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        errors = [validate_resize_record(r) for r in records]
+        check = subprocess.run([sys.executable, str(Path(__file__).resolve().parent / "scripts"
+                                                    / "check_metrics_schema.py"), bank],
+                               capture_output=True, text=True)
+        gone = resize.read_handoff(rz_dir) is None
+        phases = records[0]["phases"] if records else {}
+        stats["resize"] = dict(drained_at=drained["updates"], resized_to=drained["resized_to"],
+                               stamp_written=stamped, stamp_removed=gone,
+                               resumed_from=after["resumed_from"], updates=after["updates"],
+                               bit_identical=same, records=len(records),
+                               validator_errors=errors, schema_check_rc=check.returncode,
+                               phase_seconds=phases)
+        print(f"resize: drained at update {drained['updates']} to "
+              f"{drained['resized_to']} worker(s), stamp written {stamped}; resumed from "
+              f"{after['resumed_from']} to {after['updates']} updates; final state bit for "
+              f"bit the uninterrupted run's: {same}; {len(records)} record(s), valid "
+              f"{errors == [[]]}, check_metrics_schema rc={check.returncode}; phase "
+              f"seconds {json.dumps(phases)}; stamp removed {gone}", flush=True)
+        if drained["resized_to"] != 1 or drained["updates"] != flush_every or not stamped:
+            failures.append(f"elastic_phase: the resize did not drain at the first flush "
+                            f"({drained['updates']}, {drained['resized_to']}, {stamped})")
+        if not same or after["updates"] != 32:
+            failures.append("elastic_phase: the resized run differs from the uninterrupted "
+                            "one")
+        if len(records) != 1 or errors != [[]] or check.returncode:
+            failures.append(f"elastic_phase: the resize bank is not one valid record "
+                            f"({len(records)}, {errors}, rc {check.returncode}: "
+                            f"{check.stderr[-300:]})")
+        if not gone:
+            failures.append("elastic_phase: the handoff stamp is still there")
+        del second, state, bits, ref_bits
+        fm.shutdown()
+        dev = fm.init()
+        settle("elastic_phase's sharded restore")
+
+        # -- 3. A sharded checkpoint written by 4 CPU workers, on the card
+        work = os.path.join(tmp, "shards")
+        os.makedirs(work)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+        env.pop("FLUXMPI_TPU_RESIZE", None)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--shard-child", work, str(r), str(SHARD_WORKERS)],
+                                  env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for r in range(SHARD_WORKERS)]
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=300)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0])
+        children_s = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            failures.append(f"elastic_phase: a sharding child failed: {outs[-1][-2000:]}")
+            fm.shutdown()
+            return stats, failures
+        kids = [json.loads(Path(work, f"child{r}.json").read_text())
+                for r in range(SHARD_WORKERS)]
+        unsharded = build(8, dtype=torch.float32)
+        _tiny_state_moments(unsharded["state"])
+        # Structure, global shapes and dtypes only: meta tensors.
+        like = TrainState(step=0, params={k: torch.empty(v.shape, dtype=v.dtype,
+                                                         device="meta")
+                                          for k, v in unsharded["state"].params.items()},
+                          opt_state={"count": torch.empty((), dtype=torch.int32,
+                                                          device="meta"),
+                                     **{m: {k: torch.empty(v.shape, dtype=v.dtype,
+                                                           device="meta")
+                                            for k, v in unsharded["state"].params.items()}
+                                        for m in ("mu", "nu")}})
+        mgr = CheckpointManager(os.path.join(work, "ckpt"), async_save=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_no, restored = mgr.restore(like, parallel=ParallelConfig(dp=1))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        want = leaves(unsharded["state"])
+        got = leaves(restored)
+        on_card = all(v.device.type == "cuda" for v in got.values())
+        leaves_same = (restored.step == unsharded["state"].step
+                       and all(torch.equal(got[k], want[k]) for k in want))
+        twin = build(8, dtype=torch.float32, model=unsharded["model"])
+        for v in restored.params.values():
+            v.requires_grad_()  # the step differentiates the parameters
+        twin["state"] = restored
+        a_state, _ = drive("sharded_unsharded", lambda: train_loop(
+            unsharded["step"], unsharded["state"], unsharded["loader"], steps=4,
+            flush_every=2), unsharded["step"], 4, True)
+        b_state, _ = drive("sharded_restored", lambda: train_loop(
+            twin["step"], twin["state"], twin["loader"], steps=4, flush_every=2),
+            twin["step"], 4, True)
+        a, b = leaves(a_state), leaves(b_state)
+        updates_same = all(torch.equal(a[k], b[k]) for k in a)
+        total = sum(v.numel() * v.element_size() for v in want.values())
+        stats["sharded"] = dict(workers=SHARD_WORKERS, step=step_no,
+                                child_bytes=[k["bytes"] for k in kids],
+                                child_save_seconds=[k["save_seconds"] for k in kids],
+                                children_seconds=children_s, state_bytes=total,
+                                restore_seconds=restore_s, on_card=on_card,
+                                leaves_bit_identical=leaves_same,
+                                updates_bit_identical=updates_same)
+        print(f"sharded: {SHARD_WORKERS} CPU workers wrote step {step_no} (bytes "
+              f"{[k['bytes'] for k in kids]} of a {total}-byte state; save seconds "
+              f"{[round(k['save_seconds'], 3) for k in kids]}; {children_s:.3f}s with start-up); "
+              f"restored on the card with parallel=ParallelConfig(dp=1) and a meta like in "
+              f"{restore_s:.3f}s, on the card {on_card}: every leaf bit for bit "
+              f"{leaves_same}; 4 updates from it "
+              f"bit for bit the unsharded state's {updates_same}", flush=True)
+        if not leaves_same:
+            failures.append("elastic_phase: the 4 -> 1 restore differs from the unsharded "
+                            "state")
+        if not on_card:
+            failures.append("elastic_phase: the 4 -> 1 restore did not land on the card")
+        if not updates_same:
+            failures.append("elastic_phase: the updates from the restored state differ")
+        del unsharded, twin, restored, a_state, b_state
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"elastic: {card}: phase {stats['seconds']:.3f}s", flush=True)
+    fm.shutdown()
+    return stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -5089,8 +5482,12 @@ def run_phases(device):
     settle("autotune_phase")
     tune_auto, auto_failures = autotune_phase(device)
     failures += auto_failures
+    settle("elastic_phase")
+    elastic, elastic_failures = elastic_phase(device)
+    failures += elastic_failures
     par_paths = {**par.get("launches_by_path", {}),
-                 **tune_auto.get("launches_by_path", {})}
+                 **tune_auto.get("launches_by_path", {}),
+                 **elastic.get("launches_by_path", {})}
     health_paths = {f"health_planes_{name}": health[f"planes_{name}"]["launches"]
                     for name in ("off", "on") if f"planes_{name}" in health}
     tune_paths = {"finetune_flash_dropout": tune["flash_dropout"]["launches"],
@@ -5220,11 +5617,15 @@ def run_phases(device):
                      "train_bf16": bf16,
                      "train_bf16_fused": fused, "train_bf16_telemetry": telem,
                      "vision": vision, "zoo": zoo, "finetune": tune,
-                     "health": health, "parallel": par, "autotune": tune_auto}, failures
+                     "health": health, "parallel": par, "autotune": tune_auto,
+                     "elastic": elastic}, failures
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--staging-child"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(staging_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--shard-child"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(shard_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))
     sys.exit(main())

@@ -46,9 +46,13 @@ or the product of a tuple, first outermost) takes its ``k``-th slice of
 shard at the same mesh coordinate holds. Workers that share a data block
 (over ``tp``, say) read the same rows.
 
-Not ported yet (each raises ``NotImplementedError`` when asked for):
-``elastic_order`` and the elastic cursor remap on a changed world
-(ROADMAP A.5).
+``elastic_order=True`` makes the order batch-major across workers in a
+world of several (the same view without a mesh: worker ``r`` of ``W``
+takes slice ``r`` of every global batch), so which samples batch ``b``
+holds does not depend on the worker count; a state saved under another
+batch geometry (:meth:`DistributedDataLoader.geometry`) remaps its cursor
+through the global sample offset it denotes
+(:meth:`DistributedDataLoader.load_state_dict`), the elastic resume.
 """
 
 from __future__ import annotations
@@ -291,16 +295,29 @@ class DistributedDataLoader:
         if device_gather not in (True, False, "auto"):
             raise ValueError(f"device_gather must be True, False, or 'auto', "
                              f"got {device_gather!r}")
-        if elastic_order:
-            raise NotImplementedError(
-                "elastic_order= is not ported yet (ROADMAP A.5)")
+        rank, world = _world()
+        self.elastic_order = bool(elastic_order)
+        if self.elastic_order and world > 1:
+            if not isinstance(data, DistributedDataContainer) or (
+                    data.world != world or data.rank != rank):
+                raise ValueError(
+                    "elastic_order needs the full-dataset view of a "
+                    "default-sharded DistributedDataContainer (rank/world "
+                    "matching the process world): the batch-major sample "
+                    "assignment is computed from the whole dataset"
+                )
+            if not drop_last:
+                raise ValueError(
+                    "elastic_order requires drop_last=True: the trailing "
+                    "total %% global_batch_size samples round down so the "
+                    "epoch is a whole number of topology-invariant batches"
+                )
         if global_shuffle and not isinstance(data, DistributedDataContainer):
             raise ValueError(
                 "global_shuffle reshuffles the sample→worker assignment, "
                 "which needs the full-dataset view of a "
                 "DistributedDataContainer; wrap the dataset in one"
             )
-        rank, world = _world()
         if global_batch_size % world != 0:
             raise ValueError(
                 f"global_batch_size {global_batch_size} must divide evenly "
@@ -340,6 +357,10 @@ class DistributedDataLoader:
                 block = (mesh_for_check.block_index(rank, present)[0]
                          if present else 0)
                 self._mesh_view = (block, axis_size)
+        if self._mesh_view is None and self.elastic_order and world > 1:
+            # Batch-major: worker r of W takes slice r of every global
+            # batch of the full-dataset order.
+            self._mesh_view = (rank, world)
         if prefetch < 0:
             raise ValueError(f"prefetch must be >= 0, got {prefetch}")
         self.data = data
@@ -420,13 +441,25 @@ class DistributedDataLoader:
         """The batch geometry a cursor's meaning depends on."""
         return {"process_count": self.world,
                 "global_batch_size": self.global_batch_size,
-                "num_batches": len(self), "elastic_order": 0}
+                "num_batches": len(self), "elastic_order": int(self.elastic_order)}
 
     def load_state_dict(self, state: dict[str, Any]) -> None:
         """Restore a :meth:`state_dict`: the next ``iter()`` replays
         ``epoch``'s order from batch ``cursor`` (a cursor at the end of the
-        epoch resumes at the next one). A state saved under another batch
-        geometry needs the elastic cursor remap, which is not ported yet."""
+        epoch resumes at the next one).
+
+        Elastic resume: when ``state`` also carries the saving loader's
+        :meth:`geometry` and it differs from this loader's (another worker
+        count or global batch size), the cursor is remapped through the
+        global sample offset it denotes (``cursor * saved
+        global_batch_size`` samples of the epoch consumed), rounding down
+        to the last whole batch of the new width; the samples of a partial
+        batch that are seen again are counted in a warning (none are
+        skipped). The remap is sample-exact when the order is batch-major
+        on both sides: one worker, a mesh view, or ``elastic_order=True``
+        (a warning names the caveat otherwise). A ``state`` without
+        geometry (saved before elastic resume) must fit this geometry, or
+        the error names the probable topology change."""
         seed = int(state.get("seed", self.seed))
         if seed != self.seed:
             raise ValueError(
@@ -434,23 +467,86 @@ class DistributedDataLoader:
                 f"loader uses seed {self.seed}: the resumed sample order "
                 f"would silently diverge from the interrupted run"
             )
-        geom = self.geometry()
-        changed = [k for k in geom if k in state and int(state[k]) != geom[k]]
-        if changed:
-            raise NotImplementedError(
-                f"the loader state was saved under another batch geometry "
-                f"({', '.join(changed)}); the elastic cursor remap is not "
-                f"ported yet")
         epoch, cursor = int(state["epoch"]), int(state["cursor"])
-        if cursor < 0 or cursor > len(self):
+        geom = self.geometry()
+        saved_geom = {key: int(state[key]) for key in geom if key in state}
+        have_geom = all(key in saved_geom for key in
+                        ("process_count", "global_batch_size", "num_batches"))
+        if have_geom and any(saved_geom[k] != geom[k] for k in saved_geom):
+            cursor = self._remap_cursor(cursor, saved_geom)
+        elif cursor < 0 or cursor > len(self):
+            hint = (
+                " — the state carries no batch geometry (a pre-elastic "
+                "checkpoint), so it can only resume on the topology that "
+                f"saved it; this loader spans {geom['process_count']} "
+                f"process(es) at global batch {geom['global_batch_size']}, "
+                "and a cursor that does not fit usually means the saving "
+                "run had a different process count or batch size"
+                if not have_geom else "")
             raise ValueError(f"cursor {cursor} out of range for a "
-                             f"{len(self)}-batch epoch")
+                             f"{len(self)}-batch epoch{hint}")
         if cursor >= len(self):
             epoch, cursor = epoch + 1, 0
         self._epoch = epoch
         self._iter_epoch = epoch
         self._cursor = cursor
         self._resume_cursor = cursor
+
+    def _remap_cursor(self, cursor: int, saved: dict[str, int]) -> int:
+        """N→M cursor remap: the banked cursor meant ``cursor * saved_gbs``
+        samples of the epoch consumed; this loader's cursor is that offset
+        rounded down to the last whole new-width batch."""
+        old_gbs = saved["global_batch_size"]
+        old_len = saved["num_batches"]
+        if cursor < 0 or cursor > old_len:
+            raise ValueError(
+                f"cursor {cursor} out of range for the saved "
+                f"{old_len}-batch epoch (saved geometry: "
+                f"{saved['process_count']} process(es), global batch "
+                f"{old_gbs})")
+        if cursor >= old_len:
+            # The saved pass was complete (the banked epoch count has it):
+            # it stays complete under the new width.
+            return len(self)
+        offset = cursor * old_gbs
+        new_gbs = self.global_batch_size
+        new_cursor = offset // new_gbs
+        reseen = 0
+        if new_cursor >= len(self):
+            warnings.warn(
+                f"elastic resume remapped the loader cursor {cursor} "
+                f"(global batch {old_gbs}) past the new geometry's "
+                f"whole-batch coverage ({len(self)} × {new_gbs}): the "
+                f"interrupted epoch's remaining "
+                f"{old_len * old_gbs - offset} sample(s) fall into the "
+                f"new width's ragged tail and are dropped — resuming at "
+                f"the next epoch", stacklevel=3)
+            new_cursor = len(self)
+        else:
+            reseen = offset - new_cursor * new_gbs
+        # Sample-exactness needs a batch-major sample→batch assignment on
+        # both sides.
+        saved_batch_major = saved["process_count"] == 1 or bool(
+            saved.get("elastic_order", 0))
+        here_batch_major = self.world == 1 or self._mesh_view is not None
+        if not (saved_batch_major and here_batch_major):
+            warnings.warn(
+                "elastic cursor remap with a multi-process side not "
+                "built with elastic_order=True: fixed contiguous shards "
+                "reassign samples to workers when the world resizes, so "
+                "the resumed epoch is sample-exact only in expectation — "
+                "construct multi-process loaders with elastic_order=True "
+                "for the exact contract", stacklevel=3)
+        if reseen:
+            warnings.warn(
+                f"elastic resume remapped the loader cursor {cursor} "
+                f"(global batch {old_gbs}, {saved['process_count']} "
+                f"process(es)) to {new_cursor} (global batch {new_gbs}, "
+                f"{self.world} process(es)); the offset lands "
+                f"mid-batch, so {reseen} already-consumed sample(s) are "
+                f"re-seen (rounded down to the last whole batch — none "
+                f"skipped)", stacklevel=3)
+        return new_cursor
 
     def _view_source(self) -> Any:
         """The whole dataset the mesh view reads."""

@@ -19,6 +19,13 @@ site                  where it fires in the port
 ``ckpt.snapshot``     the host copy a checkpoint save takes on the caller's
                       thread
 ``ckpt.async_write``  each background-writer save
+``elastic.restore``   an elastic restore (``restore_checkpoint(mesh=,
+                      rule=)`` or ``parallel=``), before any bytes move
+``resize.drain``      a live resize agreed at a flush boundary
+                      (:mod:`fluxmpi_tpu_torch.fleet.resize`; a
+                      ``delay=`` entry books as drain badput)
+``resize.reshard``    the resumed world of a live resize, before its
+                      restore's bytes move
 ``comm.*``            each collective of :mod:`~fluxmpi_tpu_torch.comm`
                       (``allreduce``, ``bcast``, ``reduce``, ``barrier``,
                       ``host_allreduce``, ``host_allgather``,
@@ -26,9 +33,8 @@ site                  where it fires in the port
                       ``comm.allreduce`` and ``comm.bcast``), before it runs
 ====================  =====================================================
 
-The other names of :data:`KNOWN_SITES` are the JAX package's sites
-(elastic resize, serving); the port does not weave them yet, and a
-schedule naming them never fires.
+The other names of :data:`KNOWN_SITES` are the JAX package's serving
+sites, woven into :mod:`fluxmpi_tpu_torch.serving`.
 
 A firing site raises :class:`~fluxmpi_tpu_torch.errors.FaultInjectedError`,
 or, for a ``delay=`` entry, sleeps that many seconds and continues.

@@ -52,14 +52,22 @@ def _f32_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
     return 1 - torch.pow(decay, count.float())
 
 
+def _zeros_like(p: torch.Tensor) -> torch.Tensor:
+    """A zero moment of ``p``: a placed block's moment keeps its layout tag,
+    so a sharded checkpoint records it as the block it is."""
+    from .parallel.sharding import sharding_of, with_sharding
+
+    return with_sharding(torch.zeros_like(p), sharding_of(p))
+
+
 def _adam(learning_rate: float, b1: float, b2: float, eps: float,
           weight_decay: float | None) -> GradientTransformation:
     def init(params):
         device = next(iter(params.values())).device if params else None
         return {
             "count": torch.zeros((), dtype=torch.int32, device=device),
-            "mu": {k: torch.zeros_like(p) for k, p in params.items()},
-            "nu": {k: torch.zeros_like(p) for k, p in params.items()},
+            "mu": {k: _zeros_like(p) for k, p in params.items()},
+            "nu": {k: _zeros_like(p) for k, p in params.items()},
         }
 
     def update(grads, state, params=None):
@@ -112,7 +120,7 @@ def sgd(learning_rate: float,
     def init(params):
         if not momentum:
             return {}
-        return {"trace": {k: torch.zeros_like(p) for k, p in params.items()}}
+        return {"trace": {k: _zeros_like(p) for k, p in params.items()}}
 
     def update(grads, state, params=None):
         keys = list(grads)

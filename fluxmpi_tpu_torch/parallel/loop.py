@@ -21,11 +21,16 @@ with host-side state that changes between updates needs ``fuse=False``
 (see :func:`train_loop`).
 
 Fault tolerance: with a :class:`~fluxmpi_tpu_torch.utils.CheckpointManager`
-as ``checkpoint=``, the loop banks its state, counters and loader position
-every ``save_every`` updates, resumes from the newest committed step with
-``resume=True``, and on preemption (:func:`~fluxmpi_tpu_torch.runtime.
+as ``checkpoint=``, the loop banks its state (each worker its blocks of a
+sharded one), counters and loader position every ``save_every`` updates,
+resumes from the newest committed step with ``resume=True`` (on another
+topology too: the restore reshards into the step's layout and the loader
+remaps its cursor), and on preemption (:func:`~fluxmpi_tpu_torch.runtime.
 request_preemption`, or SIGTERM with the handler installed) drains, banks
-an emergency checkpoint and returns.
+an emergency checkpoint and returns. With the resize plane armed
+(:mod:`fluxmpi_tpu_torch.fleet.resize`) a requested resize drains the
+same way, banks a timed final save and the handoff stamp, and the resumed
+world completes the resize record.
 
 Telemetry, as in the JAX package: ``metrics=`` (or the spec the step was
 built with) records ``train.*`` at flush boundaries from the interval's
@@ -40,8 +45,6 @@ compile monitor attributes builds and CUDA-graph captures, the model-stats
 plane emits the per-layer stats the step carried, and the exporter's
 ``/status`` boards (train, model, fleet) are updated. With every plane off
 the loop reads no tracker clock and records nothing.
-
-Not ported yet: the resize plane.
 """
 
 from __future__ import annotations
@@ -66,7 +69,10 @@ from ..telemetry import fleet as _fleet
 from ..telemetry import goodput as _goodput
 from ..telemetry import modelstats as _modelstats
 from ..telemetry import tracing as _tracing
+from ..fleet import resize as _resize
 from ..telemetry.watchdog import notify_progress
+from ..utils import checkpoint as _ckpt
+from ..utils import manifest as _manifest_util
 from ..utils.manifest import map_with_path, named_leaves
 from .train import (_live_registry, _resolve_metrics, _state_tensors,
                     make_window_program)
@@ -234,6 +240,28 @@ class _Marker:
         return (self.host - prev.host) * 1e3
 
 
+def _untagged_block(state: Any, layout: Any) -> str | None:
+    """The first parameter the step's layout shards whose parameter or
+    optimizer moment (a tensor under that parameter's key in the state's
+    parameters or optimizer state) carries no layout tag, else None."""
+    from .sharding import sharding_of
+
+    sharded = {k for k, (gathered, local) in layout.plans.items() if gathered or local}
+
+    def walk(x: Any, key: Any) -> str | None:
+        if isinstance(x, dict):
+            items = x.items()
+        elif isinstance(x, (list, tuple)):
+            items = ((key, v) for v in x)
+        else:
+            return key if (torch.is_tensor(x) and key in sharded
+                           and sharding_of(x) is None) else None
+        return next((hit for k, v in items if (hit := walk(v, k)) is not None), None)
+
+    return walk([getattr(state, "params", None), getattr(state, "opt_state", None)],
+                None)
+
+
 def train_loop(step: Any, state: Any, batches: Any, *,
                steps: int | None = None, epochs: int | None = None,
                scan_steps: int | None = None, in_flight: int = 2,
@@ -264,7 +292,13 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     step first (its tensors are copied into ``state`` in place; an empty
     directory starts fresh, so the same command restarts a run);
     ``steps``/``epochs`` are total budgets, so a run resumed at update 60
-    with ``steps=100`` runs 40 more.
+    with ``steps=100`` runs 40 more. The resume reads the step's manifest
+    once: a checkpoint from another topology (worker count, mesh, global
+    batch) restores into the step's layout, the loader remaps its cursor
+    through the global sample offset (sample-exact under a batch-major
+    order), a remapped cursor inside a scan group re-seats at the group
+    boundary, and ``train.resumes{topology_changed="true"}`` counts it
+    beside ``train.resumes``.
 
     Preemption: the flag of :func:`~fluxmpi_tpu_torch.runtime.
     request_preemption` (set by SIGTERM once
@@ -275,11 +309,22 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     checkpoint (with ``checkpoint``) and returns with
     ``summary["preempted"]`` True.
 
+    Live resize: with the resize plane armed (``init(resize=)``) and a
+    ``checkpoint`` attached, each flush boundary polls the coordinator (in
+    a world of several workers one host max-reduce of the requested
+    target, so a request on any worker stops every one at the same
+    update); an agreed request (site ``resize.drain``) drains, banks a
+    final checkpoint (timed, the wait for an in-flight async save
+    included), writes the handoff stamp beside the steps and returns with
+    ``summary["resized_to"]``; a SIGTERM with a target requested is a
+    resize. A ``resume=True`` that finds a stamp is the reshard phase
+    (site ``resize.reshard``): the restore is timed and the
+    ``fluxmpi_tpu.resize/v1`` record completed and banked.
+
     The summary has ``updates``, ``epochs``, ``examples``, ``seconds``,
     ``updates_per_sec``, ``examples_per_sec``, the final ``loss``,
     ``preempted``, ``resized_to``, ``resumed_from``, ``anomaly``,
-    ``dispatches`` and ``fused_window`` (the JAX package's keys; the
-    resize plane behind ``resized_to`` is not ported and reports None;
+    ``dispatches`` and ``fused_window`` (the JAX package's keys;
     ``anomaly`` names the rule whose ``"halt"`` policy stopped the run),
     ``goodput`` (the tracker's report) when the goodput plane is on, and
     ``flushes``: for each flush its ``updates``, ``loss`` (the
@@ -369,9 +414,15 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         raise ValueError("resume=True requires a checkpoint= manager")
     layout = getattr(step, "__fluxmpi_layout__", None)
     if checkpoint is not None and layout is not None and layout.shards:
-        raise NotImplementedError(
-            "train_loop(checkpoint=) over a state whose parameters the plan "
-            "shards is not ported yet: sharded checkpoints are ROADMAP A.5")
+        untagged = _untagged_block(state, layout)
+        if untagged is not None:
+            raise ValueError(
+                f"train_loop(checkpoint=) under a layout that shards "
+                f"{untagged!r}: a tensor of the state for that parameter (the "
+                f"parameter or an optimizer moment) carries no layout tag, so "
+                f"a sharded save would record its block as the whole leaf — "
+                f"place the state with plan.shard_state/shard_tree, or build "
+                f"the moments from the placed parameters")
     if fuse not in ("auto", "window", False, None):
         raise ValueError(f'fuse must be "auto", "window", False, or None; '
                          f"got {fuse!r}")
@@ -414,6 +465,11 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     ms_on = ms is not None and ms.enabled and ms_meta is not None
     # The fleet plane rides the exporter: no exporter, nothing to scrape.
     fl_on = exp_on and _fleet.enabled()
+    # The live-resize plane: polled at flush boundaries while armed and a
+    # checkpoint manager is attached (nothing to hand off otherwise).
+    rz = _resize.get_resize_coordinator()
+    rz_on = rz.enabled and checkpoint is not None
+    resize_to: int | None = None
     if det_on:
         # The anomaly-triggered auto-profiler budgets captures per run.
         from ..utils.profiling import get_auto_profiler
@@ -451,12 +507,14 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     t_start = t_flush = time.perf_counter()
     # Several workers agree on a preemption at flush boundaries, and only
     # when it can matter (a checkpoint to bank, or a handler on any worker).
-    multi = runtime.is_initialized() and runtime.process_count() > 1
+    workers = runtime.process_count() if runtime.is_initialized() else 1
+    multi = workers > 1
     coordinate = multi and (checkpoint is not None or bool(int(allreduce(
         torch.tensor(int(runtime.preemption_handlers_installed())), op="max",
         mesh=WORLD))))
 
-    def payload(st: Any, pass_counted: bool = False) -> dict[str, Any]:
+    def payload(st: Any, pass_counted: bool = False,
+                legacy_loader: bool = False) -> dict[str, Any]:
         # The JAX package's payload: the state, the cumulative counters and
         # the loader's (epoch, cursor) with its geometry, ints as int64.
         # The epoch count is canonical: it includes the current pass when
@@ -484,8 +542,14 @@ def train_loop(step: Any, state: Any, batches: Any, *,
                       ("epochs", epochs_banked))},
         }
         if loader_state is not None:
-            out["loader"] = {key: torch.tensor(val, dtype=torch.int64) for key, val
-                             in {**loader_state, **batches.geometry()}.items()}
+            if not legacy_loader:
+                # The batch geometry the cursor's meaning depends on, so a
+                # resume under another geometry can remap it (legacy: the
+                # template of a checkpoint saved before manifests, whose
+                # loader section has no geometry).
+                loader_state = {**loader_state, **batches.geometry()}
+            out["loader"] = {key: torch.tensor(val, dtype=torch.int64)
+                             for key, val in loader_state.items()}
         return out
 
     resumed_from = None
@@ -495,10 +559,36 @@ def train_loop(step: Any, state: Any, batches: Any, *,
       # goodput "resume" bucket (the nested checkpoint_restore segment
       # counts once: the outermost wins).
       with gp.segment("resume") if gp_on else contextlib.nullcontext():
+        # The manifest, read once and passed through (None: looked, and
+        # absent): whether the checkpoint comes from another world, and
+        # whether it predates manifests (the legacy payload template).
+        manifest = None
+        restore_kwargs: dict[str, Any] = {}
+        read_manifest = getattr(checkpoint, "read_manifest", None)
+        if read_manifest is not None:
+            manifest = read_manifest()
+            restore_kwargs["manifest"] = manifest
+        # A pending handoff stamp makes this resume the reshard phase of a
+        # live resize: its fault site fires, the restore is timed.
+        ckpt_dir = getattr(checkpoint, "directory", None)
+        resize_stamp = (rz.maybe_begin_reshard(ckpt_dir)
+                        if rz_on and ckpt_dir is not None else None)
+        t_reshard0 = time.perf_counter()
         try:
-            ckpt_step, restored = checkpoint.restore(payload(state))
+            ckpt_step, restored = checkpoint.restore(payload(state), **restore_kwargs)
         except FileNotFoundError:
             restored = None  # nothing committed yet: a fresh start
+        except _ckpt.MissingLeafError:
+            # The reader ignores leaves the template does not ask for, so
+            # the full template goes first: a checkpoint whose sidecar was
+            # lost still banks the loader's geometry, and the legacy
+            # template would drop it and resume a changed geometry at the
+            # wrong sample. Only a checkpoint from before manifests lacks
+            # those leaves.
+            if manifest is not None:
+                raise
+            ckpt_step, restored = checkpoint.restore(
+                payload(state, legacy_loader=True), **restore_kwargs)
         if restored is not None:
             # Tensors are copied in place (the model's parameters are the
             # state's tensors); numbers are taken from the checkpoint.
@@ -514,6 +604,16 @@ def train_loop(step: Any, state: Any, batches: Any, *,
             updates = int(restored["loop"]["updates"])
             examples = int(restored["loop"]["examples"])
             epochs_done = int(restored["loop"]["epochs"])
+            topology_changed = False
+            if manifest is not None:
+                topology_changed = _manifest_util.topology_changed(
+                    manifest, mesh=getattr(batches, "mesh", None))
+                saved_geom = manifest.get("loader") or {}
+                if is_loader and saved_geom:
+                    geom = batches.geometry()
+                    topology_changed = topology_changed or any(
+                        key in saved_geom and int(saved_geom[key]) != geom[key]
+                        for key in ("process_count", "global_batch_size"))
             if is_loader and "loader" in restored:
                 # load_state_dict turns a cursor at the end of an epoch
                 # into the next epoch's start (the banked epoch count has
@@ -539,10 +639,18 @@ def train_loop(step: Any, state: Any, batches: Any, *,
                     batches.load_state_dict(seat)
                 resume_offset = batches.resume_cursor // k
             resumed_from = ckpt_step
+            if resize_stamp is not None:
+                rz.complete(ckpt_dir, resize_stamp,
+                            reshard_seconds=time.perf_counter() - t_reshard0,
+                            to_processes=workers)
             if record_metrics:
                 registry = _live_registry(reg)
                 if registry is not None:
+                    # Every resume, and the subset that changed topology.
                     registry.counter("train.resumes").inc()
+                    if topology_changed:
+                        registry.counter("train.resumes",
+                                         topology_changed="true").inc()
     last_saved = updates
     preempted = False
     if exp_on:
@@ -736,7 +844,7 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         """Flush, check the budget, bank the boundary, then poll the
         preemption flag (its emergency save then has nothing left to
         write). Returns whether the loop stops here."""
-        nonlocal preempted
+        nonlocal preempted, resize_to
         at_flush = at_flush or interval_updates >= flush_every
         # A "halt" anomaly stops the run at the flush that judged it,
         # without banking the suspect state: the last periodic save holds
@@ -754,6 +862,17 @@ def train_loop(step: Any, state: Any, batches: Any, *,
                 preempted = stop = True
         elif runtime.preemption_requested():
             preempted = stop = True
+        if rz_on and at_flush and resize_to is None:
+            # As the preemption poll: every worker reaches this flush at
+            # the same update, and a max-reduce of the requested target (0:
+            # none) agrees one resize for the world.
+            target = rz.requested_target()
+            if multi:
+                target = int(allreduce(torch.tensor(target), op="max", mesh=WORLD))
+            if target:
+                resize_to = target
+                rz.begin(target, from_processes=workers)
+                stop = True
         return stop
 
     window_cache = {"hits": 0, "misses": 0}
@@ -934,11 +1053,25 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     except Exception as exc:
         _maybe_oom_forensics(exc, _live_registry(reg) if record_metrics else None)
         raise
+    if resize_to is not None:
+        # The drain ended with the flush above.
+        rz.note_drained()
     if preempted:
         _tracing.instant("train.preemption", step=int(updates))
     if (preempted and checkpoint is not None and updates > last_saved
-            and halt_rule is None):
+            and halt_rule is None and resize_to is None):
         save(pass_counted=True)
+    if resize_to is not None:
+        # The resize's final save, timed to its commit (the wait for an
+        # in-flight async save included), then this world's half of the
+        # record beside the checkpoint.
+        t_save = time.perf_counter()
+        if updates > last_saved and halt_rule is None:
+            save(pass_counted=True)
+        checkpoint.wait_until_finished()
+        rz.note_phase("save", time.perf_counter() - t_save)
+        rz.write_handoff(getattr(checkpoint, "directory", "."), step=last_saved,
+                         from_processes=workers, to_processes=resize_to)
     if checkpoint is not None:
         checkpoint.wait_until_finished()
     seconds = time.perf_counter() - t_start
@@ -952,7 +1085,7 @@ def train_loop(step: Any, state: Any, batches: Any, *,
         "examples_per_sec": examples / seconds if seconds > 0 else 0.0,
         "loss": loss,
         "preempted": preempted,
-        "resized_to": None,
+        "resized_to": resize_to,
         "resumed_from": resumed_from,
         "anomaly": halt_rule,
         "dispatches": dispatches,
@@ -969,7 +1102,8 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     if exp_on:
         # Terminal status: /status keeps answering after the loop exits.
         exporter.note_status(
-            phase=("preempted" if preempted
+            phase=("resizing" if resize_to is not None
+                   else "preempted" if preempted
                    else ("halted" if halt_rule else "finished")),
             updates=updates, examples=examples, epochs=epochs_done, loss=loss,
             preempted=preempted, anomaly=halt_rule, dispatches=dispatches)

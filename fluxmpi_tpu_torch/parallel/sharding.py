@@ -23,6 +23,7 @@ axes) and its ``torch.distributed`` ``DeviceMesh`` come up on first use.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import math
 import re
@@ -45,6 +46,7 @@ __all__ = [
     "fsdp_rule",
     "rule_from_table",
     "shard_tree",
+    "sharding_of",
     "transformer_tp_rules",
     "tree_partition_specs",
     "validated_spec_strict",
@@ -249,6 +251,45 @@ class NamedSharding:
                 out[d] //= self.mesh.group_size(_axis_group(names))
         return tuple(out)
 
+    @property
+    def is_sharded(self) -> bool:
+        """Does some dimension split over more than one worker (JAX's
+        ``not is_fully_replicated`` over a mesh of several devices)?"""
+        return any(names is not None and names is not P.UNCONSTRAINED
+                   and self.mesh.group_size(_axis_group(names)) > 1
+                   for names in self.spec)
+
+    def global_shape(self, block_shape: Sequence[int]) -> tuple[int, ...]:
+        """The global shape of a leaf whose blocks have ``block_shape``."""
+        out = list(block_shape)
+        for d, names in enumerate(self.spec):
+            if names is not None and names is not P.UNCONSTRAINED:
+                out[d] *= self.mesh.group_size(_axis_group(names))
+        return tuple(out)
+
+    def block_start(self, global_shape: Sequence[int],
+                    rank: int | None = None) -> tuple[int, ...]:
+        """The global start offsets of worker ``rank``'s (default this
+        worker's) block of a leaf of ``global_shape``."""
+        rank = self.mesh.my_rank() if rank is None else rank
+        start = [0] * len(global_shape)
+        for d, names in enumerate(self.spec):
+            if names is None or names is P.UNCONSTRAINED:
+                continue
+            index, count = self.mesh.block_index(rank, names)
+            start[d] = index * (global_shape[d] // count)
+        return tuple(start)
+
+    def owns_block(self, rank: int | None = None) -> bool:
+        """Is worker ``rank`` the one that writes its block to a sharded
+        checkpoint: the first of the workers holding the same block (index
+        0 on every mesh axis the spec does not split over)?"""
+        rank = self.mesh.my_rank() if rank is None else rank
+        used = {n for names in self.spec
+                if names is not None and names is not P.UNCONSTRAINED
+                for n in _axis_group(names)}
+        return all(i == 0 for a, i in self.mesh.coords(rank).items() if a not in used)
+
     def local_block(self, x: torch.Tensor, rank: int | None = None) -> torch.Tensor:
         """Worker ``rank``'s (default this worker's) block of the full
         tensor ``x``, as a contiguous copy."""
@@ -260,6 +301,27 @@ class NamedSharding:
             size = x.shape[d] // count
             x = x.narrow(d, index * size, size)
         return x.contiguous().clone()
+
+
+# The attribute a placed tensor carries its NamedSharding in: the port's
+# spelling of a jax.Array's ``.sharding``. The step updates its state in
+# place, so the tag stays with the tensor for the run.
+_SHARDING_ATTR = "_fluxmpi_sharding"
+
+
+def sharding_of(x: Any) -> NamedSharding | None:
+    """The :class:`NamedSharding` of a tensor that :func:`shard_tree`,
+    :meth:`~fluxmpi_tpu_torch.parallel.plan.ResolvedPlan.shard_state` or a
+    checkpoint restore placed (its block's layout over the mesh), else
+    None."""
+    return getattr(x, _SHARDING_ATTR, None) if torch.is_tensor(x) else None
+
+
+def with_sharding(x: torch.Tensor, sharding: NamedSharding | None) -> torch.Tensor:
+    """Tag ``x`` as a block laid out by ``sharding``; returns ``x``."""
+    if sharding is not None:
+        setattr(x, _SHARDING_ATTR, sharding)
+    return x
 
 
 def combine_rules(*rules: Rule) -> Rule:
@@ -432,14 +494,43 @@ def map_leaves(fn: Callable[[str, Any], Any], tree: Any) -> Any:
     return map_with_path(fn, tree)
 
 
-_FIELD_ORDER = {"step": 0, "params": 1, "opt_state": 2, "model_state": 3}
+def _jax_keys(tree: Any, path: tuple = (), key: tuple = (),
+              out: dict | None = None) -> dict:
+    """``{path: sort key}`` of ``tree``'s leaves, the keys ordering them as
+    JAX flattens the same tree: dict keys sorted, sequences and dataclass
+    fields in order, a ``TrainState``'s fields in declaration order with
+    optax's state in its fields' order (the paths are
+    :func:`~fluxmpi_tpu_torch.utils.manifest.map_with_path`'s)."""
+    from ..utils.manifest import _is_train_state
 
-
-def _jax_order(path: str) -> tuple:
-    """The position of ``path`` in JAX's flattening order: a
-    ``TrainState``'s fields in declaration order, dict keys sorted."""
-    parts = path.split("/")
-    return (_FIELD_ORDER.get(parts[0], 0), parts)
+    out = {} if out is None else out
+    if tree is None:
+        return out
+    if _is_train_state(tree):
+        _jax_keys(tree.step, path + ("step",), key + (0,), out)
+        _jax_keys(tree.params, path + ("params", "params"), key + (1,), out)
+        opt = tree.opt_state
+        if isinstance(opt, dict):
+            for i, (k, v) in enumerate(opt.items()):
+                sub = path + ("opt_state", "0", k) + (("params",) if isinstance(v, dict)
+                                                      else ())
+                _jax_keys(v, sub, key + (2, i), out)
+        else:
+            _jax_keys(opt, path + ("opt_state",), key + (2,), out)
+        _jax_keys(tree.model_state, path + ("model_state",), key + (3,), out)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            parts = tuple(str(k).split("."))
+            _jax_keys(v, path + parts, key + (parts,), out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _jax_keys(v, path + (str(i),), key + (i,), out)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for i, f in enumerate(f for f in dataclasses.fields(tree) if f.init):
+            _jax_keys(getattr(tree, f.name), path + (f.name,), key + (i,), out)
+    else:
+        out["/".join(path)] = key
+    return out
 
 
 def leaf_paths(tree: Any, fn: Callable[[str, Any], Any]) -> dict:
@@ -448,7 +539,8 @@ def leaf_paths(tree: Any, fn: Callable[[str, Any], Any]) -> dict:
     JAX's)."""
     leaves: dict = {}
     map_leaves(lambda p, x: leaves.__setitem__(p, x), tree)
-    return {p: fn(p, leaves[p]) for p in sorted(leaves, key=_jax_order)}
+    order = _jax_keys(tree)
+    return {p: fn(p, leaves[p]) for p in sorted(leaves, key=order.__getitem__)}
 
 
 def tree_partition_specs(tree: Any, mesh: Mesh, rule: Rule) -> Any:
@@ -480,8 +572,9 @@ def place(tree: Any, specs: dict, mesh: Mesh) -> tuple[Any, Any]:
             out = sh.local_block(leaf.detach())
         else:
             out = leaf.detach().clone()
-        # A parameter stays a leaf the step differentiates.
-        return out.requires_grad_(leaf.requires_grad)
+        # A parameter stays a leaf the step differentiates; the block
+        # carries its layout (what a checkpoint of it records).
+        return with_sharding(out.requires_grad_(leaf.requires_grad), sh)
 
     return map_leaves(block, tree), map_leaves(lambda p, x: shardings[p], tree)
 

@@ -551,12 +551,15 @@ def _make_layout(plan: Any, mesh: Any, state_sharding: Any) -> _Layout:
 
 
 def _copy_state(ts: "TrainState") -> "TrainState":
-    """A new TrainState whose tensors are copies of ``ts``'s."""
+    """A new TrainState whose tensors are copies of ``ts``'s (a block
+    keeps its layout tag)."""
+    from .sharding import sharding_of, with_sharding
 
     def copy(t):
         if not torch.is_tensor(t):
             return t
-        return t.detach().clone().requires_grad_(t.requires_grad)
+        return with_sharding(t.detach().clone().requires_grad_(t.requires_grad),
+                             sharding_of(t))
 
     return TrainState(step=ts.step, params={k: copy(v) for k, v in ts.params.items()},
                       opt_state=pytree.tree_map(copy, ts.opt_state),

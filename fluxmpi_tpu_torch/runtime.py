@@ -93,12 +93,14 @@ class _State:
     # init(parallel="auto") armed the layout autotuner: the mesh starts as
     # the 1-D dp default and autotune() installs its winner over it.
     auto_parallel: bool = False
+    # The gloo group of the checkpoint barriers (checkpoint_group()).
+    ckpt_group: Any = None
 
 
 _state = _State()
 
-# init() arguments of the JAX package whose machinery is not ported yet.
-_WAITING = ("resize",)
+# init() arguments of the JAX package whose machinery is not ported yet: none left.
+_WAITING: tuple = ()
 
 _PREEMPTION_ENV = "FLUXMPI_TPU_PREEMPTION"
 _SIGNALS_BY_NAME = {
@@ -202,15 +204,17 @@ def _configure_planes(telemetry: Any, trace: Any, watchdog: Any,
                       preemption: Any, faults: Any, goodput: Any, anomaly: Any,
                       model_stats: Any, compileplane: Any, memory: Any,
                       profile: Any, compile_cache: Any, export: Any,
-                      serving: Any, request_log: Any, fleet: Any) -> None:
+                      serving: Any, request_log: Any, fleet: Any,
+                      resize: Any) -> None:
     """Wire the telemetry, fault-tolerance, run-health, device, export,
-    serving and fleet planes in the JAX package's order (each from its
-    argument, else its environment variable). The fleet plane comes after
-    the exporter: its collector's default target is this process's own
-    exporter."""
+    serving, fleet and resize planes in the JAX package's order (each from
+    its argument, else its environment variable). The fleet plane comes
+    after the exporter: its collector's default target is this process's
+    own exporter."""
     from . import faults as _faults
     from . import serving as _serving
     from . import telemetry as _telemetry
+    from .fleet import resize as _resize
     from .serving import observe as _serving_observe
     from .telemetry import anomaly as _anomaly
     from .telemetry import compileplane as _compileplane
@@ -239,6 +243,7 @@ def _configure_planes(telemetry: Any, trace: Any, watchdog: Any,
     _serving.configure(serving)
     _serving_observe.configure(request_log)
     _fleet.configure(fleet)
+    _resize.configure(resize)
 
 
 def init(*, devices: Sequence[int] | int | None = None,
@@ -254,7 +259,7 @@ def init(*, devices: Sequence[int] | int | None = None,
          compileplane: Any = None, memory: Any = None, profile: Any = None,
          compile_cache: Any = None, export: Any = None,
          serving: Any = None, request_log: Any = None, fleet: Any = None,
-         **waiting) -> torch.device:
+         resize: Any = None, **waiting) -> torch.device:
     """Bring up the data-parallel world; returns this worker's device.
     Idempotent: a second call returns the same device.
 
@@ -335,15 +340,19 @@ def init(*, devices: Sequence[int] | int | None = None,
     :func:`~fluxmpi_tpu_torch.parallel.autotune.autotune` installs its
     winning plan and mesh over it.
 
-    Not ported yet (raises ``NotImplementedError``): ``resize=`` (ROADMAP
-    A.5).
+    The live-resize plane (:mod:`fluxmpi_tpu_torch.fleet.resize`):
+    ``resize`` — ``True``/``"1"`` arms it, a path also banks one
+    ``fluxmpi_tpu.resize/v1`` record per completed resize there, or a
+    :class:`~fluxmpi_tpu_torch.fleet.resize.ResizeCoordinator`
+    (``FLUXMPI_TPU_RESIZE``; ``False`` disarms). Armed, with
+    ``train_loop(checkpoint=)`` attached, ``request_resize(M)`` drains the
+    world at a flush boundary and hands off to a relaunch with M workers.
     """
     passed = sorted(k for k, v in waiting.items() if v is not None)
     unknown = [k for k in passed if k not in _WAITING]
     if unknown:
         raise TypeError(f"init() got unexpected arguments {unknown}")
-    refuse_unported("init", {k: True for k in passed},
-                    "the resize plane is ROADMAP A.5")
+    refuse_unported("init", {k: True for k in passed})
     # parallel="auto" (or FLUXMPI_TPU_PARALLEL=auto with no explicit
     # layout): arm auto mode. The mesh comes up as the 1-D dp default;
     # fluxmpi_tpu_torch.parallel.autotune.autotune(...) later installs its
@@ -375,7 +384,7 @@ def init(*, devices: Sequence[int] | int | None = None,
         )
     planes = (telemetry, trace, watchdog, preemption, faults, goodput, anomaly,
               model_stats, compileplane, memory, profile, compile_cache, export,
-              serving, request_log, fleet)
+              serving, request_log, fleet, resize)
     if _state.initialized:
         if parallel is not None and not _same_plan(parallel, _state.plan):
             # The mesh and plan are frozen at the first init.
@@ -622,9 +631,10 @@ def shutdown() -> None:
     """Reset the runtime: tear down the telemetry planes first (the
     watchdog disarmed, the trace ring exported to its configured path
     while the rank is still known, the sinks flushed and detached), then
-    the fault-tolerance planes (the fault schedule cleared, the preemption
-    handlers uninstalled and the flag cleared: left armed, the next run
-    would inject faults or "preempt" at its first dispatch boundary), then
+    the fault-tolerance planes (the fault schedule cleared, the resize
+    plane disarmed with its request dropped, the preemption handlers
+    uninstalled and the flag cleared: left armed, the next run would inject
+    faults, resize or "preempt" at its first boundary), then
     destroy the process group if :func:`init` created it (one the caller
     brought up stays)."""
     try:
@@ -634,11 +644,22 @@ def shutdown() -> None:
     except Exception:
         pass
     from . import faults as _faults
+    from .fleet import resize as _resize
 
     _faults.clear()
+    # A resize request left armed would drain the next run at its first
+    # flush boundary.
+    _resize.shutdown()
     uninstall_preemption_handlers()
-    if _state.initialized and _state.owns_group and dist.is_initialized():
-        dist.destroy_process_group()
+    if _state.initialized and dist.is_initialized():
+        if _state.owns_group:
+            dist.destroy_process_group()  # every group made over it too
+        else:
+            # The caller's default group stays up: the gloo groups made
+            # over it go, or each init/shutdown cycle leaks their sockets.
+            for group in (_state.ckpt_group, _state.host_group):
+                if group is not None and group is not dist.group.WORLD:
+                    dist.destroy_process_group(group)
     _state.initialized = False
     _state.owns_group = False
     _state.device = None
@@ -646,6 +667,20 @@ def shutdown() -> None:
     _state.rank, _state.world, _state.local_rank = 0, 1, 0
     _state.mesh = _state.plan = None
     _state.auto_parallel = False
+    _state.ckpt_group = None
+
+
+def checkpoint_group() -> Any:
+    """The gloo process group a sharded checkpoint's barriers run over
+    (every worker, its own group: a background save's barriers never
+    interleave with the training thread's collectives). Made on the first
+    call, which every worker makes at the same point on its training
+    thread (:class:`~fluxmpi_tpu_torch.utils.CheckpointManager` and the
+    save and restore entry points do): group creation is collective."""
+    _require_init()
+    if _state.ckpt_group is None:
+        _state.ckpt_group = dist.new_group(backend="gloo")
+    return _state.ckpt_group
 
 
 def _require_init() -> None:

@@ -1,4 +1,4 @@
-"""Checkpoint manifests: the sidecar every save writes beside its step.
+"""Checkpoint manifests: the topology sidecar every save writes.
 
 Counterpart of :mod:`fluxmpi_tpu.utils.manifest`, in the same
 ``fluxmpi_tpu.manifest/v1`` schema, so the JAX package's validator and
@@ -6,16 +6,26 @@ the repository's scripts read the port's manifests as they are. A
 manifest records, for ``<path>.manifest.json`` beside the checkpoint:
 
 - every leaf's path (the flax-style path of :func:`named_leaves`), global
-  shape and dtype, with a ``null`` partition spec (the port's state is
-  replicated on every worker);
-- the world size in place of the mesh (``{"axes": {"dp": world}}``) and
-  the process count;
+  shape and dtype, and its partition spec in the JAX encoding (``null``,
+  or per dimension ``null``, an axis name or a list of axes): the spec of
+  the block layout a placed tensor carries
+  (:func:`~fluxmpi_tpu_torch.parallel.sharding.sharding_of`), ``[]`` for a
+  Python number of a tree laid out over a mesh (every worker holds it),
+  ``null`` for a leaf with no layout;
+- the mesh's axis sizes (the tree's own mesh, else the runtime's) and the
+  process count;
 - for a ``train_loop`` payload, the loop counters and the loader's
   position and batch geometry.
 
-The schema checks are the port's own copy of the JAX package's
-``validate_manifest``. The sharded template, ``decode_spec`` and
-``topology_changed`` wait for sharded state and elastic resume.
+Restore builds its target layout from it: :func:`sharded_template` lays
+every leaf of a ``like`` tree (meta tensors are the spelling of
+"structure and global shapes only") out over the current mesh, from an
+explicit rule or from the banked specs re-validated strictly, so a leaf
+the new mesh cannot express raises
+:class:`~fluxmpi_tpu_torch.errors.TopologyMismatchError` naming it.
+:func:`topology_changed` tells a resume whether the world changed. The
+schema checks are the port's own copy of the JAX package's
+``validate_manifest``.
 """
 
 from __future__ import annotations
@@ -36,10 +46,14 @@ __all__ = [
     "MANIFEST_SCHEMA",
     "build_manifest",
     "check_manifest_shapes",
+    "decode_spec",
     "manifest_path",
     "map_with_path",
+    "mesh_axes",
     "named_leaves",
     "read_manifest",
+    "sharded_template",
+    "topology_changed",
     "validate_manifest",
     "write_manifest",
 ]
@@ -136,6 +150,16 @@ def leaf_tensor(x: Any) -> torch.Tensor | None:
     return None
 
 
+def global_shape(leaf: Any) -> tuple[int, ...]:
+    """A leaf's global shape: a placed block's leaf shape (its layout's),
+    else its own."""
+    from ..parallel.sharding import sharding_of
+
+    shape = tuple(int(d) for d in leaf_tensor(leaf).shape)
+    sh = sharding_of(leaf)
+    return shape if sh is None else sh.global_shape(shape)
+
+
 def named_leaves(tree: Any) -> list[tuple[str, Any]]:
     """``[(path, leaf)]`` of :func:`map_with_path`, in walk order."""
     out: list[tuple[str, Any]] = []
@@ -174,19 +198,84 @@ def _int_section(tree: Any, section: str) -> dict[str, int] | None:
     return out
 
 
+def _encode_spec(spec: Any) -> list | None:
+    """PartitionSpec → JSON (per dimension: null, an axis, or a list of
+    axes); None for "no layout opinion"."""
+    if spec is None:
+        return None
+    out: list = []
+    for names in tuple(spec):
+        if names is None or isinstance(names, str):
+            out.append(names)
+        else:
+            out.append([str(n) for n in names])
+    return out
+
+
+def decode_spec(encoded: list | None) -> Any:
+    """JSON spec entry → :class:`~fluxmpi_tpu_torch.parallel.sharding.
+    PartitionSpec` (``None`` decodes to fully replicated)."""
+    from ..parallel.sharding import P
+
+    if encoded is None:
+        return P()
+    return P(*(n if n is None or isinstance(n, str) else tuple(n) for n in encoded))
+
+
+def mesh_axes(mesh: Any) -> dict[str, int] | None:
+    """Mesh → ordered ``{axis: size}`` (None passes through)."""
+    if mesh is None:
+        return None
+    return {str(name): int(size) for name, size in mesh.shape.items()}
+
+
+def _tree_mesh(tree: Any) -> Any:
+    """The mesh the tree's placed blocks name, else the runtime's global
+    mesh, else None (before ``init``)."""
+    from ..parallel.sharding import sharding_of
+
+    for _, leaf in named_leaves(tree):
+        sh = sharding_of(leaf)
+        if sh is not None:
+            return sh.mesh
+    return runtime.global_mesh() if runtime.is_initialized() else None
+
+
+def _placed(tree: Any) -> bool:
+    from ..parallel.sharding import sharding_of
+
+    return any(sharding_of(leaf) is not None for _, leaf in named_leaves(tree))
+
+
+def _leaf_spec(leaf: Any, placed: bool) -> list | None:
+    """The encoded spec of one leaf (module docstring)."""
+    from ..parallel.sharding import sharding_of
+
+    sh = sharding_of(leaf)
+    if sh is not None:
+        return _encode_spec(sh.spec)
+    if placed and isinstance(leaf, (bool, int, float)):
+        return []
+    return None
+
+
 def build_manifest(state: Any, *, layout: str = "replicated",
-                   step: int | None = None) -> dict[str, Any]:
+                   step: int | None = None, mesh: Any = None) -> dict[str, Any]:
     """Describe ``state`` (the tree about to be checkpointed) as a
-    ``fluxmpi_tpu.manifest/v1`` record; ``step`` is the manager's step
-    number when saved through one."""
+    ``fluxmpi_tpu.manifest/v1`` record. ``layout`` is the save layout
+    (``"replicated"``/``"sharded"``, what the commit marker records);
+    ``step`` the manager's step number when saved through one; ``mesh``
+    the mesh to record (default the tree's, else the runtime's)."""
+    placed = _placed(state)
     leaves = []
     for path, leaf in named_leaves(state):
         t = leaf_tensor(leaf)
         if t is None:
             continue
-        leaves.append({"path": path, "shape": [int(d) for d in t.shape],
-                       "dtype": _dtype_name(t), "spec": None})
+        leaves.append({"path": path, "shape": list(global_shape(leaf)),
+                       "dtype": _dtype_name(t), "spec": _leaf_spec(leaf, placed)})
     world = runtime.process_count() if runtime.is_initialized() else 1
+    manifest_mesh = mesh if mesh is not None else _tree_mesh(state)
     counters = _int_section(state, "loop")
     if counters is not None and sorted(counters) != sorted(_MANIFEST_COUNTER_KEYS):
         counters = None
@@ -202,21 +291,23 @@ def build_manifest(state: Any, *, layout: str = "replicated",
         "step": int(step) if step is not None else None,
         "layout": layout,
         "process_count": world,
-        "mesh": {"axes": {"dp": world}},
+        "mesh": ({"axes": mesh_axes(manifest_mesh)} if manifest_mesh is not None
+                 else None),
         "leaves": leaves,
         "loader": loader,
         "counters": counters,
-        "parallel": _parallel_section(),
+        "parallel": _parallel_section(manifest_mesh),
     }
 
 
-def _parallel_section() -> dict[str, Any] | None:
-    """The installed plan's axes and mesh axis names (None without one),
-    and, when the layout autotuner picked it, its bank key
-    (``autotune_fingerprint``: the ``<ckpt>.autotune.json`` sidecar's
-    record vouches for the layout)."""
+def _parallel_section(manifest_mesh: Any) -> dict[str, Any] | None:
+    """The installed plan's axes and mesh axis names (None without one,
+    or when the recorded mesh is not the plan's), and, when the layout
+    autotuner picked it, its bank key (``autotune_fingerprint``: the
+    ``<ckpt>.autotune.json`` sidecar's record vouches for the layout)."""
     plan = runtime.global_plan()
-    if plan is None:
+    if plan is None or (manifest_mesh is not None
+                        and mesh_axes(plan.mesh) != mesh_axes(manifest_mesh)):
         return None
     desc = plan.describe()
     out = {"axes": desc["axes"], "axis_names": desc["axis_names"]}
@@ -275,12 +366,76 @@ def check_manifest_shapes(manifest: dict[str, Any], like: Any) -> None:
         if t is None or entry is None:
             continue
         shape = tuple(entry["shape"])
-        if tuple(t.shape) != shape:
+        if global_shape(leaf) != shape:
             raise ValueError(
                 f"checkpoint leaf {path!r} shape {shape} (from the manifest) "
-                f"does not match expected {tuple(t.shape)} — wrong checkpoint "
-                f"for this model/optimizer"
+                f"does not match expected {global_shape(leaf)} — wrong "
+                f"checkpoint for this model/optimizer"
             )
+
+
+def sharded_template(like: Any, manifest: dict[str, Any] | None, mesh: Any,
+                     rule: Any = None) -> Any:
+    """The elastic restore template: ``like``'s structure with every
+    tensor leaf replaced by a meta tensor of its global shape and dtype
+    that carries its target :class:`~fluxmpi_tpu_torch.parallel.sharding.
+    NamedSharding` over ``mesh`` (Python numbers stay as they are).
+
+    Layout source, per leaf: an explicit ``rule`` wins; otherwise the
+    spec the manifest banked, re-validated against the new mesh (same
+    axis names, new sizes). Validation is strict: an axis the new mesh
+    lacks, or a dimension its size no longer divides, raises
+    :class:`~fluxmpi_tpu_torch.errors.TopologyMismatchError` naming the
+    leaf, the first in the JAX package's leaf order (never a silent
+    fall-back to replicated)."""
+    from ..parallel.sharding import (NamedSharding, P, leaf_paths,
+                                     validated_spec_strict, with_sharding)
+
+    by_path = ({leaf["path"]: leaf for leaf in manifest.get("leaves", [])}
+               if manifest is not None else {})
+
+    def leaf_template(path: str, leaf: Any) -> Any:
+        if torch.is_tensor(leaf):
+            shape = global_shape(leaf)
+        elif isinstance(leaf, (bool, int, float)):
+            shape = ()
+        else:
+            return leaf
+        entry = by_path.get(path)
+        if rule is not None:
+            spec = rule(path, shape)
+        elif entry is not None:
+            spec = decode_spec(entry.get("spec"))
+        else:
+            spec = P()
+        spec = validated_spec_strict(spec, shape, mesh, path=path)
+        if not torch.is_tensor(leaf):
+            return leaf
+        return with_sharding(torch.empty(shape, dtype=leaf.dtype, device="meta"),
+                             NamedSharding(mesh, spec))
+
+    templates = leaf_paths(like, leaf_template)
+    return map_with_path(lambda p, x: templates.get(p, x), like)
+
+
+def topology_changed(manifest: dict[str, Any] | None, mesh: Any = None) -> bool:
+    """Did the world change since this manifest was written? True when
+    the process count or the mesh axis sizes differ from the current ones
+    (``mesh`` defaults to the runtime's global mesh); False when they
+    match or the manifest predates topology recording."""
+    if manifest is None:
+        return False
+    world = runtime.process_count() if runtime.is_initialized() else 1
+    if int(manifest.get("process_count", 0)) != world:
+        return True
+    saved_mesh = manifest.get("mesh")
+    if saved_mesh is None:
+        return False
+    if mesh is None:
+        if not runtime.is_initialized():
+            return False
+        mesh = runtime.global_mesh()
+    return dict(saved_mesh.get("axes") or {}) != mesh_axes(mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 WORLD STORE OUT TMP``. Runs the eager collectives over a 2x2 mesh, then
 the layout autotuner under ``init(parallel="auto")`` (real trials, the
 bank, a stubbed pick, the file bank, a topology change, the checkpoint
-sidecar and the sharded-save refusal), and writes this rank's results to
+sidecar, and a sharded save and its restore under a winner that shards),
+and writes this rank's results to
 ``OUT`` (JSON)."""
 
 import json
@@ -200,7 +201,7 @@ fb["back"] = at.autotune(loss_fn, optim.adamw(1e-3), model, batch, bank=bank,
 res["file_bank"] = fb
 
 # -- The checkpoint sidecar and the manifest under a winner that does not
-# shard; the sharded-save refusal under one that does.
+# shard; a sharded save, its sidecar and its restore under one that does.
 at._run_trial = fake(lambda a: float(a["dp"]))
 r = at.autotune(loss_fn, optim.adamw(1e-3), model, batch, force=True, **KW)
 ckpt = os.path.join(tmp, "ckpt")
@@ -219,13 +220,25 @@ plan = fm.global_plan()
 state = fresh_state(plan, opt)
 step = make_train_step(loss_fn, opt, parallel="auto")
 sharded = os.path.join(tmp, "sharded")
-try:
-    train_loop(step, state, loader_for(plan, batch), epochs=1, flush_every=1,
-               checkpoint=CheckpointManager(sharded), save_every=1)
-    side["sharded_error"] = ""
-except NotImplementedError as exc:
-    side["sharded_error"] = str(exc)
-side["sharded_written"] = os.path.exists(sharded) and bool(os.listdir(sharded))
+mgr = CheckpointManager(sharded)
+state, summary = train_loop(step, state, loader_for(plan, batch), epochs=1,
+                            flush_every=1, checkpoint=mgr, save_every=1)
+last = mgr.latest_step()
+side["sharded_axes"] = plan.sizes
+side["sharded_steps"] = [last, summary["updates"]]
+side["sharded_files"] = sorted(os.listdir(os.path.join(sharded, f"step_{last:08d}")))
+side["sharded_layout"] = manifest.read_manifest(os.path.join(sharded, f"step_{last:08d}"))["layout"]
+if rank == 0:
+    with open(os.path.join(sharded, f"step_{last:08d}.autotune.json")) as f:
+        side["sharded_record"] = json.load(f)
+# The restore into a fresh placement of the winner's layout.
+back, again = train_loop(step, fresh_state(plan, opt), loader_for(plan, batch), epochs=1,
+                         flush_every=1, checkpoint=CheckpointManager(sharded), resume=True)
+side["sharded_resumed"] = [again["resumed_from"], again["updates"]]
+side["sharded_equal"] = all(torch.equal(back.params[k], state.params[k])
+                            for k in state.params) and all(
+    torch.equal(back.opt_state[m][k], state.opt_state[m][k])
+    for m in ("mu", "nu") for k in state.params)
 res["sidecar"] = side
 at._run_trial = real_trial
 at.clear_bank()

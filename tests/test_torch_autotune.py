@@ -31,7 +31,8 @@ compiles, the same winner on every rank, installed, then trained through
 trial, the deterministic stub pick on every rank against JAX's, the file
 bank shared through rank 0, the topology re-tune (2 workers against 4),
 the sidecar and the manifest's fingerprint under a winner that does not
-shard, ``train_loop(checkpoint=)`` refusing a sharding winner, and the
+shard, ``train_loop(checkpoint=)`` saving and resuming a sharding winner's
+state (one file per worker, the sidecar beside it), and the
 eager collectives over ``dp`` and ``fsdp`` of a 2x2 mesh against JAX's.
 """
 
@@ -599,8 +600,9 @@ def test_world_sidecar_manifest_and_sharded_refusal(world4):
     """Under a winner that does not shard, a checkpoint save writes
     ``<path>.autotune.json`` (valid in both packages) and the manifest's
     ``parallel.autotune_fingerprint``; under a sharding winner,
-    ``train_loop(checkpoint=)`` raises naming ROADMAP A.5 and writes
-    nothing."""
+    ``train_loop(checkpoint=)`` commits sharded steps, one file per
+    worker, with the sidecar, and a resume into a fresh placement of the
+    winner's layout restores every block and moment bit for bit."""
     from fluxmpi_tpu.telemetry.schema import validate_autotune_record as jvalidate
     from fluxmpi_tpu_torch.telemetry.schema import validate_autotune_record
 
@@ -610,9 +612,18 @@ def test_world_sidecar_manifest_and_sharded_refusal(world4):
     assert rec["winner"]["axes"] == {"dp": 4, "fsdp": 1, "tp": 1}
     assert side["manifest_fp"] == rec["model_fingerprint"]
     assert side["manifest_axes"] == {"dp": 4}
+    srec = side["sharded_record"]
+    assert validate_autotune_record(srec) == [] == jvalidate(srec)
+    assert srec["winner"]["axes"]["fsdp"] > 1
     for res in world4:
-        assert "ROADMAP A.5" in res["sidecar"]["sharded_error"]
-        assert res["sidecar"]["sharded_written"] is False
+        s = res["sidecar"]
+        assert s["sharded_axes"].get("fsdp", 1) > 1
+        last, updates = s["sharded_steps"]
+        assert last == updates >= 1
+        assert s["sharded_files"] == [f"shard_{r}.pt" for r in range(4)]
+        assert s["sharded_layout"] == "sharded"
+        assert s["sharded_resumed"] == [last, updates]
+        assert s["sharded_equal"] is True
 
 
 def test_world_eager_collectives_over_a_mesh_axis_equal_jax(world4):

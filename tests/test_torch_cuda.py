@@ -1197,3 +1197,165 @@ def test_nccl_autotune_searches_four_cards_and_trains_the_winner(tmp_path):
         assert res["tp_heads"] == [12] * 12 + [3] * 84
         assert res["tp_launches"] == {k: 96 for k in ("flash_fwd", "flash_bwd_dq",
                                                       "flash_bwd_dkv")}
+
+
+RESIZE_WORKER = textwrap.dedent(r'''
+    import json
+    import math
+    import os
+    import sys
+    import time
+
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.fleet import resize
+    from fluxmpi_tpu_torch.utils.manifest import global_shape
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.parallel import (ParallelConfig, TrainState, make_train_step,
+                                            train_loop)
+    from fluxmpi_tpu_torch.utils import CheckpointManager
+
+    out, ckpt_dir, bank, phase = sys.argv[1:5]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = int(os.environ["WORLD_SIZE"])
+    dev = fm.init(parallel=ParallelConfig(fsdp=world),
+                  resize=bank if phase != "ref" else None)
+    rank = fm.local_rank()
+    plan = fm.global_plan()
+    cfg = dict(vocab_size=50304, max_len=1024, num_layers=12, d_model=768,
+               num_heads=12, d_ff=3072, ln_eps=1e-5)
+    model = TransformerLM(**cfg, attention="flash", device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    tokens = np.random.default_rng(0).integers(0, cfg["vocab_size"], (128, 1025))
+    ids = np.arange(128, dtype=np.int32)
+    consumed = []
+    calls = [0]
+
+    def loss_fn(p, ms, batch):
+        x, y, rows = batch
+        consumed.append(rows.tolist())  # the ids this update consumed
+        calls[0] += 1
+        if phase == "drain" and rank == 0 and calls[0] == 3:
+            resize.request_resize(2, reason="four-to-two")
+        out = torch.func.functional_call(model, p, (x,), {"targets": y})
+        return out.mean(), ms
+
+    opt = optim.adamw(3e-4)
+    state, _ = plan.shard_state(TrainState.create(model, opt))
+    step = make_train_step(loss_fn, opt, parallel=plan)
+    loader = fm.DistributedDataLoader(
+        fm.DistributedDataContainer(fm.ArrayDataset((tokens[:, :-1], tokens[:, 1:], ids))),
+        16, elastic_order=True, shuffle=True, seed=7)
+    res = dict(card=torch.cuda.get_device_name(dev))
+    kw = {}
+    if phase != "ref":
+        mgr = CheckpointManager(ckpt_dir, max_to_keep=1)
+        blocking = []
+        save = mgr.save
+
+        def timed_save(*a, **k):
+            t0 = time.perf_counter()
+            save(*a, **k)
+            blocking.append(time.perf_counter() - t0)
+
+        mgr.save = timed_save
+        kw = dict(checkpoint=mgr, save_every=100, resume=phase == "resume")
+    state, summary = train_loop(step, state, loader, epochs=1, flush_every=2, fuse=False,
+                                **kw)
+    res.update(updates=summary["updates"], resized_to=summary["resized_to"],
+               resumed_from=summary["resumed_from"], loss=summary["loss"],
+               consumed=consumed)
+    if phase != "ref":
+        mgr.close()
+        res.update(blocking_seconds=blocking, background_seconds=mgr.write_seconds,
+                   phase_seconds=resize.get_resize_coordinator().phase_seconds(),
+                   state_bytes=sum(math.prod(global_shape(t)) * t.element_size()
+                                   for t in [*state.params.values(),
+                                             *state.opt_state["mu"].values(),
+                                             *state.opt_state["nu"].values()]))
+    with open(out, "w") as f:
+        json.dump(res, f)
+    fm.shutdown()
+''')
+
+
+def _launch_world(tmp_path, script, world, args, tag):
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = Path(__file__).resolve().parents[1]
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port),
+                   PYTHONPATH=str(root) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", script, str(tmp_path / f"{tag}{rank}.json"), *args],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    import json
+
+    return [json.loads((tmp_path / f"{tag}{r}.json").read_text()) for r in range(world)]
+
+
+def test_nccl_resize_four_to_two_is_sample_exact(tmp_path):
+    """A live resize from four cards to two over NCCL: GPT-2 small's widths
+    (vocabulary 50304, f32, TF32 off, ``attention="flash"``, adamw) under
+    ``ParallelConfig(fsdp=4)``, the ``elastic_order`` loader at a global
+    batch of 16 x 1024 over 128 sequences, ``flush_every=2``. A request on
+    rank 0 drains the four-card world at a flush boundary (update 4); each
+    worker writes its ``shard_<rank>.pt``, about a quarter of the state's
+    bytes; a two-card world under ``ParallelConfig(fsdp=2)`` resumes from
+    the manifest's specs and finishes the epoch. The ids both worlds
+    consumed are the uninterrupted four-card run's (as a multiset, and
+    batch by batch), the final loss is its within ``rtol=5e-3``, and one
+    valid record from 4 to 2 workers is banked. Prints the save's blocking
+    and background seconds and the record's phase seconds."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    import json
+
+    from fluxmpi_tpu_torch.telemetry.schema import validate_resize_record
+
+    ckpt, bank = str(tmp_path / "ckpt"), str(tmp_path / "bank.jsonl")
+    ref = _launch_world(tmp_path, RESIZE_WORKER, 4, [ckpt + "_ref", bank, "ref"], "ref")
+    four = _launch_world(tmp_path, RESIZE_WORKER, 4, [ckpt, bank, "drain"], "drain")
+    sizes = [os.path.getsize(os.path.join(ckpt, f"step_{4:08d}", f"shard_{r}.pt"))
+             for r in range(4)]
+    two = _launch_world(tmp_path, RESIZE_WORKER, 2, [ckpt, bank, "resume"], "resume")
+    total = four[0]["state_bytes"]
+    print(f"\nresize 4 -> 2 on {ref[0]['card']}: shard bytes {sizes} of a {total}-byte "
+          f"state; blocking save seconds {[r['blocking_seconds'] for r in four]}; "
+          f"background {[r['background_seconds'] for r in four]}; drain-world phases "
+          f"{four[0]['phase_seconds']}; resumed-world phases {two[0]['phase_seconds']}; "
+          f"final loss {two[0]['loss']} vs uninterrupted {ref[0]['loss']}")
+    assert all(r["updates"] == 8 and r["resized_to"] is None for r in ref)
+    assert all(r["updates"] == 4 and r["resized_to"] == 2 for r in four)
+    assert all(r["resumed_from"] == 4 and r["updates"] == 8 for r in two)
+    assert all(0.2 < s / total < 0.35 for s in sizes), (sizes, total)
+    want = [sum((r["consumed"][u] for r in ref), []) for u in range(8)]
+    got = ([sum((r["consumed"][u] for r in four), []) for u in range(4)]
+           + [sum((r["consumed"][u] for r in two), []) for u in range(4)])
+    assert sorted(i for b in got for i in b) == sorted(i for b in want for i in b)
+    assert [sorted(b) for b in got] == [sorted(b) for b in want]
+    np.testing.assert_allclose(two[0]["loss"], ref[0]["loss"], rtol=5e-3)
+    with open(bank) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    assert len(records) == 1 and validate_resize_record(records[0]) == []
+    assert (records[0]["from_processes"], records[0]["to_processes"]) == (4, 2)
+    print(f"record: {json.dumps(records[0])}")

@@ -56,7 +56,8 @@ def test_import_loads_no_jax_flax_or_reference_package():
         "models.hf_gpt2", "io", "io.native", "telemetry.anomaly",
         "telemetry.compileplane", "telemetry.modelstats", "telemetry.export",
         "telemetry.fleet", "utils.profiling", "parallel.plan", "parallel.sharding",
-        "parallel.collectives", "_collective_ops", "models.moe")}
+        "parallel.collectives", "_collective_ops", "models.moe", "fleet",
+        "fleet.resize")}
     assert ported <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 

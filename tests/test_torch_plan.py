@@ -268,6 +268,13 @@ def test_init_installs_the_plan():
         assert tfm.global_plan() is None and tfm.global_mesh().shape == {"dp": 1}
     finally:
         tfm.shutdown()
-    with pytest.raises(NotImplementedError, match="resize"):
+    # init(resize=) is ported: it arms the live-resize plane, and shutdown
+    # disarms it.
+    from fluxmpi_tpu_torch.fleet import resize
+
+    try:
         tfm.init(device="cpu", resize=True)
-    assert not tfm.is_initialized()
+        assert resize.enabled()
+    finally:
+        tfm.shutdown()
+    assert not tfm.is_initialized() and not resize.enabled()

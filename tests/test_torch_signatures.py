@@ -20,10 +20,11 @@ and the port adds no parameter of its own. The allow-list holds only:
 - the TPU-only arguments ``block_q``, ``block_k`` and ``interpret`` where
   the port does not take them (the port has no Pallas tiling);
 - ``mesh`` and ``axis_name`` only where ``MESH_NOT_TAKEN`` names the
-  callable: the checkpoint's ``mesh`` (sharded checkpoints are ROADMAP
-  A.5). Everywhere else the port takes them (the layouts, the steps, the
+  callable (none left since the checkpoints' ``mesh``, ROADMAP A.5, was
+  ported). The port takes them everywhere (the layouts, the steps, the
   loader, the in-step and the eager collectives, the gradient all-reduce,
-  the sync-BN models) and they are compared;
+  the sync-BN models, the manifest and the elastic restore) and they are
+  compared;
 - the arguments that the port takes through ``**waiting`` and still
   refuses with ``NotImplementedError``, each named in ``REFUSED`` (and
   shown to raise). Arguments that the port spells as parameters but
@@ -69,11 +70,8 @@ UNLISTED = [(".models.transformer", "EncoderBlock")]
 EXTRAS = {"device", "generator"}
 TPU_ONLY = {"block_q", "block_k", "interpret"}
 # Callables whose JAX signature takes mesh=/axis_name= and the port's does
-# not yet.
-MESH_NOT_TAKEN = {
-    "build_manifest": {"mesh"},
-    "restore_checkpoint": {"mesh"},
-}
+# not yet: none.
+MESH_NOT_TAKEN: dict = {}
 FLAX_FIELDS = {"parent", "name"}
 # Port-only parameters beyond EXTRAS, by callable.
 PORT_ONLY = {"init": {"timeout"},
@@ -84,7 +82,7 @@ PORT_ONLY = {"init": {"timeout"},
              "MoEMLP": {"d_model"}}
 # Arguments the port takes through **waiting and refuses, by callable.
 REFUSED = {
-    "init": {"resize"},
+    "init": set(),
     "make_train_step": set(),
     "make_eval_step": set(),
 }

@@ -290,8 +290,13 @@ def test_loader_drop_last_and_scan_batches():
 
 def test_loader_waiting_options_raise():
     ds = tfm.ArrayDataset(np.zeros(8))
-    with pytest.raises(NotImplementedError):
-        tfm.DistributedDataLoader(ds, 4, device="cpu", elastic_order=True)
+    # elastic_order= is ported: in a world of one worker the order is
+    # batch-major already, so it changes no batch; the geometry records it
+    # (its two-worker validation errors: tests/test_torch_elastic.py).
+    elastic = tfm.DistributedDataLoader(tfm.ArrayDataset(np.arange(8.0)), 4,
+                                        device="cpu", elastic_order=True)
+    assert elastic.geometry()["elastic_order"] == 1
+    assert [b.tolist() for b in elastic] == [[0.0, 1.0, 2.0, 3.0], [4.0, 5.0, 6.0, 7.0]]
     # transform= is ported: applied on the host path, with the JAX
     # package's errors.
     with pytest.raises(ValueError, match="without transform"):
