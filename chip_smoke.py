@@ -231,6 +231,25 @@
    for bit the state built on the card, and 4 fused updates from each bit
    for bit; each child's bytes and the restore's seconds printed. Launches
    by the device counters for every run.
+16. Sequence phase (``sequence_phase``): the port's sequence- and
+   pipeline-parallel schedules (``parallel/ring.py``, ``pipeline.py``) on
+   one card. (1) GPT-2-small attention widths (b 2, a sequence of 8192,
+   12 heads of 64), f32 and bf16: the ring schedules run for each of
+   n = 8 positions of 1024 with the resident blocks handed over in memory
+   (contiguous causal; zigzag; contiguous causal with ``window`` 1536,
+   whose tick 1 is a band of 512, tick 2 a band of -512 and tick 3 dead,
+   no rotation): the merged output, the lse and the q/k/v gradients
+   against one whole-sequence ``flash_attention_with_lse`` call, and each
+   kernel's launches against the schedule's attends (36, 136 and 21).
+   (2) The kernels' band-only mode (``causal=False``, ``window`` 512, 0
+   and -512, b 2, s 1024) against their plain versions on the card,
+   forward and both backward kernels. (3) The 12 blocks of
+   ``TransformerLM(attention="flash")`` in bf16 as 12 chunks of one
+   pipeline worker (``init(mesh_shape={"pp": 1})``, ``interleave=12``),
+   8 microbatches of a batch of 16 x 1024, ``remat_stages`` off and on:
+   the output and every gradient (but the key biases', which the softmax
+   cancels to rounding noise) against the plain stacked run, the launches
+   by the device counters (96 per kernel, 192 forward with remat).
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -5371,6 +5390,312 @@ def elastic_phase(device, flush_every: int = 4, resume_flush: int = 2):
     fm.shutdown()
     return stats, failures
 
+SEQ_RING = dict(batch=2, seq=8192, heads=12, head_dim=64, positions=8, window=1536)
+SEQ_BAND_WINDOWS = (512, 0, -512)
+SEQ_PIPE = dict(batch=16, microbatches=8)
+# f32: per tensor max|diff| / max|ref| of the ring against one
+# whole-sequence call (the merge reorders f32 sums).
+SEQ_F32_TOL = 1e-3
+
+
+def _bf16_limit(depth: int) -> float:
+    """PERF.md section 2's bf16 rule, ||diff|| / ||ref|| <= 2**-8 x 2 x
+    depth, with ``depth`` the bf16 roundings a value passes through: the
+    attention layers of a stack, or the block results a ring merges into
+    one row."""
+    return 2 ** -8 * 2 * depth
+
+
+def _rel_max(got, ref) -> float:
+    got, ref = got.detach().float(), ref.detach().float()
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def _rel_norm(got, ref) -> float:
+    got, ref = got.detach().float(), ref.detach().float()
+    return float((got - ref).norm()) / max(float(ref.norm()), 1e-30)
+
+
+def sequence_ring(q, k, v, n: int, schedule: str, window=None):
+    """The port's ring schedule (``parallel/ring.py`` ``_ring_flash`` or
+    ``_zigzag``) for every one of ``n`` positions on this card, each
+    rotation handing over the next position's resident block in memory.
+    Returns the global ``(out, lse [b, S, h], rotations)`` in the input's
+    order."""
+    import torch
+
+    from fluxmpi_tpu_torch.parallel.ring import _ring_flash, _zigzag, zigzag_indices
+
+    inv = None
+    if schedule == "zigzag":
+        idx = torch.as_tensor(zigzag_indices(q.shape[1], n), device=q.device)
+        inv = torch.argsort(idx)
+        q, k, v = (t[:, idx] for t in (q, k, v))
+    qs, ks, vs = (t.chunk(n, 1) for t in (q, k, v))
+    outs, lses, rotations = [], [], 0
+    for i in range(n):
+        tick = [0]
+
+        def rotate(blocks, i=i, tick=tick):
+            tick[0] += 1
+            j = (i - tick[0]) % n
+            return (ks[j], vs[j])
+
+        if schedule == "zigzag":
+            o, lse = _zigzag(qs[i], ks[i], vs[i], n=n, idx=i, qseg=None, kseg=None,
+                             use_flash=True, rotate=rotate)
+        else:
+            o, lse = _ring_flash(qs[i], ks[i], vs[i], causal=True, n=n, idx=i,
+                                 qseg=None, kseg=None, window=window, rotate=rotate)
+        outs.append(o.to(q.dtype))
+        lses.append(lse)
+        rotations += tick[0]
+    out, lse = torch.cat(outs, 1), torch.cat(lses, 1)
+    if inv is not None:
+        out, lse = out[:, inv], lse[:, inv]
+    return out, lse, rotations
+
+
+def _ring_attends(schedule: str, n: int, sq: int, window=None) -> int:
+    """The block attends (= launches of each kernel) of one schedule over
+    all ``n`` positions."""
+    if schedule == "zigzag":
+        return n * (3 + 2 * (n - 1))
+    if window is None:
+        return n * (n + 1) // 2
+    total = n
+    for s in range(1, n):
+        if window - s * sq <= 1 - sq:
+            break
+        total += n - s
+    return total
+
+
+def sequence_phase(device):
+    """Sequence- and pipeline-parallel schedules on one card (module
+    docstring, item 16). Returns its stats and failures."""
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.ops.flash_attention import (flash_attention_bwd_reference,
+                                                       flash_attention_reference,
+                                                       flash_attention_with_lse)
+    from fluxmpi_tpu_torch.parallel import make_pipeline_fn, stack_stage_params
+    from fluxmpi_tpu_torch.parallel.sharding import Mesh
+
+    failures = []
+    card = card_line()
+    t_phase = time.perf_counter()
+    stats = dict(card=card, ring=dict(SEQ_RING), pipeline=dict(SEQ_PIPE))
+    paths = stats["launches_by_path"] = {}
+    wrappers = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    gen = torch.Generator(device=device).manual_seed(16)
+    b, S, h, d, n = (SEQ_RING[k] for k in ("batch", "seq", "heads", "head_dim",
+                                           "positions"))
+    sq = S // n
+
+    # (1) The ring schedules against one whole-sequence call.
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        base = [torch.randn((b, S, h, d), generator=gen, device=device).to(dtype)
+                for _ in range(3)]
+        cot = torch.randn((b, S, h, d), generator=gen, device=device)
+        for schedule, window in (("contiguous", None), ("zigzag", None),
+                                 ("contiguous", SEQ_RING["window"])):
+            label = f"ring_{schedule}" + (f"_window{window}" if window else "")
+            q, k, v = (t.clone().requires_grad_() for t in base)
+            ref_out, ref_lse = flash_attention_with_lse(q, k, v, causal=True, window=window)
+            ref = torch.autograd.grad((ref_out.float() * cot).sum(), [q, k, v])
+            torch.cuda.synchronize()
+            q, k, v = (t.clone().requires_grad_() for t in base)
+            before = {f.__name__: f.launches for f in wrappers}
+
+            def run():
+                out, lse, rot = sequence_ring(q, k, v, n, schedule, window)
+                grads = torch.autograd.grad((out.float() * cot).sum(), [q, k, v])
+                return out, lse, rot, grads
+
+            t0 = time.perf_counter()
+            (out, lse, rot, grads), dev_counts = kernel_launches(run)
+            seconds = time.perf_counter() - t0
+            wrapped = {f.__name__: f.launches - before[f.__name__] for f in wrappers}
+            want = _ring_attends(schedule, n, sq, window)
+            # The most block results merged into one row: position n-1's n
+            # blocks; zigzag position 0's hi chunk, 2 + 2(n-1) of them; the
+            # window's 3 ticks.
+            depth = {"contiguous": n, "zigzag": 2 * n}[schedule] if window is None else 3
+            errs = {"out": _rel_max(out, ref_out),
+                    "lse": _rel_max(lse, ref_lse.movedim(1, -1)),
+                    **{f"d{x}": _rel_max(g, r) for x, g, r in zip("qkv", grads, ref)}}
+            norms = {"out": _rel_norm(out, ref_out),
+                     **{f"d{x}": _rel_norm(g, r) for x, g, r in zip("qkv", grads, ref)}}
+            if dtype == torch.float32:
+                limit, ok = SEQ_F32_TOL, all(e <= SEQ_F32_TOL for e in errs.values())
+            else:
+                limit = _bf16_limit(depth)
+                ok = errs["lse"] <= SEQ_F32_TOL and all(e <= limit for e in norms.values())
+            counts_ok = all(dev_counts[name] == want and wrapped[name] == want
+                            for name in MMA_KERNELS)
+            rot_want = {"contiguous": n * (n - 1), "zigzag": n * (n - 1)}[schedule] \
+                if window is None else 2 * n
+            print(f"sequence {label} {dname}: b {b} S {S} h {h} d {d}, {n} positions of "
+                  f"{sq}; max|diff|/max|ref| "
+                  + " ".join(f"{k_} {e:.3e}" for k_, e in errs.items())
+                  + "; ||diff||/||ref|| " + " ".join(f"{k_} {e:.3e}" for k_, e in norms.items())
+                  + f" (limit {limit:.3e}{' per tensor max' if dtype == torch.float32 else ' norm, depth ' + str(depth)}); "
+                  f"launches by the device counters {dev_counts} and the wrappers {wrapped} "
+                  f"(schedule: {want} each); rotations {rot} (need {rot_want}); "
+                  f"fwd+bwd {seconds:.3f} s with Python; {card}", flush=True)
+            stats[f"{label}_{dname}"] = dict(errs=errs, norms=norms, limit=limit,
+                                             launches=dev_counts, wrappers=wrapped,
+                                             attends=want, rotations=rot, seconds=seconds)
+            paths[f"sequence_{label}_{dname}"] = dev_counts
+            if not ok:
+                failures.append(f"sequence {label} {dname}: errors {errs} norms {norms} "
+                                f"over {limit}")
+            if not counts_ok:
+                failures.append(f"sequence {label} {dname}: launches {dev_counts} / "
+                                f"{wrapped}, the schedule's {want}")
+            if rot != rot_want:
+                failures.append(f"sequence {label} {dname}: {rot} rotations, need {rot_want}")
+            del q, k, v, out, lse, grads, ref_out, ref_lse, ref
+
+    # (2) The band-only mask regime against the plain versions.
+    band = stats["band_only"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        q, k, v, dout = (torch.randn((b, sq, h, d), generator=gen, device=device).to(dtype)
+                         for _ in range(4))
+        for w in SEQ_BAND_WINDOWS:
+            out, lse = flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                 causal=False, window=w)
+            ref_out, ref_lse = flash_attention_reference(q, k, v, causal=False, window=w)
+            dterm = (dout.float() * ref_out.float()).sum(-1).permute(0, 2, 1).contiguous()
+            dq = flash_bwd_dq(q, k, v, None, None, dout, ref_lse, dterm, causal=False,
+                              window=w)
+            dk, dv = flash_bwd_dkv(q, k, v, None, None, dout, ref_lse, dterm,
+                                   causal=False, window=w)
+            rq, rk, rv = flash_attention_bwd_reference(q, k, v, dout, ref_lse, dterm,
+                                                       causal=False, window=w)
+            torch.cuda.synchronize()
+            live = int((torch.arange(sq, device=device)[:, None]
+                        - torch.arange(sq, device=device)[None, :] < w).sum())
+            err_out = float((out.float() - ref_out.float()).abs().max())
+            err_lse = float((lse - ref_lse).abs().max())
+            gerr = {x: _rel_max(g, r) for x, g, r in (("dq", dq, rq), ("dk", dk, rk),
+                                                       ("dv", dv, rv))}
+            ok = (err_out <= TOL[dname]["out"] and err_lse <= TOL[dname]["lse"]
+                  and all(e <= GRAD_TOL[dname] for e in gerr.values()))
+            print(f"band-only window {w} {dname} (causal=False, b {b} s {sq} h {h} d {d}, "
+                  f"{live} of {sq * sq} pairs live): flash_fwd max|diff| out {err_out:.3e} "
+                  f"lse {err_lse:.3e} (limits {TOL[dname]['out']}, {TOL[dname]['lse']}); "
+                  f"flash_bwd_dq/flash_bwd_dkv max|diff|/max|ref| "
+                  + " ".join(f"{x} {e:.3e}" for x, e in gerr.items())
+                  + f" (limit {GRAD_TOL[dname]:.3e}); {'ok' if ok else 'FAILED'}", flush=True)
+            band[f"{w} {dname}"] = dict(err_out=err_out, err_lse=err_lse, grads=gerr,
+                                        live_pairs=live, ok=ok)
+            if not ok:
+                failures.append(f"band-only window {w} {dname}: out {err_out}, lse "
+                                f"{err_lse}, grads {gerr}")
+    stats["band_max_abs_err"] = max(max(r["err_out"], r["err_lse"]) for r in band.values())
+
+    # (3) GPT-2 small's 12 blocks as 12 chunks of one pipeline worker.
+    if fm.is_initialized():
+        fm.shutdown()
+    dev = fm.init(mesh_shape={"pp": 1})
+    cfg = GPT2_SMALL
+    model = TransformerLM(**cfg, attention="flash", dtype=torch.bfloat16, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    blocks = [getattr(model.encoder, f"block_{i}") for i in range(cfg["num_layers"])]
+    template = blocks[0]
+    stacked0 = stack_stage_params(
+        [{k_: p.detach() for k_, p in blk.named_parameters()} for blk in blocks],
+        n_stages=1, interleave=cfg["num_layers"])
+    pb, m = SEQ_PIPE["batch"], SEQ_PIPE["microbatches"]
+    x0 = torch.randn((pb, cfg["max_len"], cfg["d_model"]), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    cot = torch.randn(x0.shape, generator=gen, device=dev)
+
+    def stage(p, x):
+        return torch.func.functional_call(template, p, (x,))
+
+    def grads_of(y, stacked, x):
+        names = sorted(stacked)
+        gs = torch.autograd.grad((y.float() * cot).sum(), [stacked[k_] for k_ in names] + [x])
+        return dict(zip(names, gs[:-1])), gs[-1]
+
+    stacked = {k_: t.clone().requires_grad_() for k_, t in stacked0.items()}
+    x = x0.clone().requires_grad_()
+    hcur = x
+    for i in range(cfg["num_layers"]):
+        hcur = stage({k_: t[i] for k_, t in stacked.items()}, hcur)
+    plain_y = hcur.detach()
+    plain_g, plain_gx = grads_of(hcur, stacked, x)
+    del hcur
+    limit = _bf16_limit(cfg["num_layers"])
+    mesh = Mesh(np.arange(1), ("pp",))
+    for remat in (False, True):
+        stacked = {k_: t.clone().requires_grad_() for k_, t in stacked0.items()}
+        x = x0.clone().requires_grad_()
+        pipe = make_pipeline_fn(stage, mesh, n_microbatches=m, axis_name="pp",
+                                remat_stages=remat, interleave=cfg["num_layers"])
+        before = {f.__name__: f.launches for f in wrappers}
+
+        def run():
+            y = pipe(stacked, x)
+            return y, *grads_of(y, stacked, x)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (y, g, gx), dev_counts = kernel_launches(run)
+        seconds = time.perf_counter() - t0
+        wrapped = {f.__name__: f.launches - before[f.__name__] for f in wrappers}
+        # Once more, warm: the first call's time may hold one-time costs.
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        again = time.perf_counter() - t0
+        calls = cfg["num_layers"] * m
+        want = {"flash_fwd": calls * (2 if remat else 1), "flash_bwd_dq": calls,
+                "flash_bwd_dkv": calls}
+        norms = {"y": _rel_norm(y, plain_y), "x": _rel_norm(gx, plain_gx)}
+        # The key biases are left out: a key bias adds one constant to a
+        # row's scores, which the softmax cancels, so their gradients are
+        # rounding noise (printed).
+        leaf = {k_: _rel_norm(g[k_], plain_g[k_]) for k_ in g
+                if not k_.endswith("attn.key.bias")}
+        key_bias = _rel_norm(g["attn.key.bias"], plain_g["attn.key.bias"])
+        worst = max(leaf, key=leaf.get)
+        ok = all(e <= limit for e in (*norms.values(), *leaf.values()))
+        counts_ok = dev_counts == want and wrapped == want
+        label = f"pipeline{'_remat' if remat else ''}"
+        print(f"sequence {label}: GPT-2 small's {cfg['num_layers']} blocks (bf16, flash) as "
+              f"{cfg['num_layers']} chunks of 1 pp worker, {m} microbatches of a batch of "
+              f"{pb} x {cfg['max_len']}; against the plain stacked run ||diff||/||ref|| "
+              f"y {norms['y']:.3e} dx {norms['x']:.3e}, worst leaf {worst} {leaf[worst]:.3e} "
+              f"(attn.key.bias, rounding noise, {key_bias:.3e}) "
+              f"(limit {limit:.3e}: bf16 rule, {cfg['num_layers']} layers); launches by the "
+              f"device counters {dev_counts}, wrappers {wrapped} (need {want}); fwd+bwd "
+              f"{seconds:.3f} s, again {again:.3f} s; {card}", flush=True)
+        stats[label] = dict(norms=norms, worst_leaf=[worst, leaf[worst]], limit=limit,
+                            launches=dev_counts, wrappers=wrapped, seconds=seconds,
+                            seconds_again=again)
+        paths[f"sequence_{label}"] = dev_counts
+        if not ok:
+            failures.append(f"sequence {label}: {norms}, worst leaf {worst} {leaf[worst]} "
+                            f"over {limit}")
+        if not counts_ok:
+            failures.append(f"sequence {label}: launches {dev_counts} / {wrapped}, need {want}")
+        del y, g, gx, stacked, x
+    fm.shutdown()
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"sequence phase: {stats['seconds']:.2f} s", flush=True)
+    return stats, failures
+
+
 
 def main() -> int:
     import torch
@@ -5485,9 +5810,13 @@ def run_phases(device):
     settle("elastic_phase")
     elastic, elastic_failures = elastic_phase(device)
     failures += elastic_failures
+    settle("sequence_phase")
+    seq, seq_failures = sequence_phase(device)
+    failures += seq_failures
     par_paths = {**par.get("launches_by_path", {}),
                  **tune_auto.get("launches_by_path", {}),
-                 **elastic.get("launches_by_path", {})}
+                 **elastic.get("launches_by_path", {}),
+                 **seq.get("launches_by_path", {})}
     health_paths = {f"health_planes_{name}": health[f"planes_{name}"]["launches"]
                     for name in ("off", "on") if f"planes_{name}" in health}
     tune_paths = {"finetune_flash_dropout": tune["flash_dropout"]["launches"],
@@ -5543,7 +5872,9 @@ def run_phases(device):
                              **{p: n["flash_fwd"] for p, n in par_paths.items()},
                              "health_serving": health.get("serving", {}).get(
                                  "flash_fwd_launches", 0)},
-        "max_abs_err": max(max(r["err_out"], r["err_lse"]) for r in rows),
+        "max_abs_err": max(max(max(r["err_out"], r["err_lse"]) for r in rows),
+                           seq["band_max_abs_err"]),
+        "band_only_cases": seq["band_only"],
         "ms": fwd_row["ms"], "plain_ms": fwd_row["plain_ms"],
         "bound_ms": fwd_row["bound_ms"], "bound_by": fwd_row["bound_by"],
         "bound_basis": fwd_row["bound_basis"],
@@ -5589,6 +5920,8 @@ def run_phases(device):
                                  **{p: n[kname] for p, n in health_paths.items()},
                                  **{p: n[kname] for p, n in par_paths.items()}},
             "max_abs_err": max(r["err"][e] for r in bwd_rows for e in errs),
+            "band_only_rel_err": {c: {e: r["grads"][e] for e in errs}
+                                  for c, r in seq["band_only"].items()},
             "ms": bwd_main[f"{key}_ms"],
             # The plain version computes dQ, dK and dV in one pass; the
             # yardstick is the whole SDPA backward: both beside the sum
@@ -5618,7 +5951,7 @@ def run_phases(device):
                      "train_bf16_fused": fused, "train_bf16_telemetry": telem,
                      "vision": vision, "zoo": zoo, "finetune": tune,
                      "health": health, "parallel": par, "autotune": tune_auto,
-                     "elastic": elastic}, failures
+                     "elastic": elastic, "sequence": seq}, failures
 
 
 if __name__ == "__main__":

@@ -24,21 +24,31 @@ as the JAX package's partitioner splits the same layout:
 A layer computes split when its weights arrive with their block shapes.
 The step decides which leaves it hands over as blocks: in its first update
 it gathers every sharded leaf (the whole-weight compute every loss can
-run) and the layers note, through :meth:`TensorParallel.claim`, the leaves
-they would consume as blocks; from the second update on those leaves are
-handed over as blocks and the rest stay gathered. A loss that computes on
-the parameters with its own code keeps the gathered weights.
+run), the layers note, through :meth:`TensorParallel.claim`, the leaves
+they would consume as blocks, and :meth:`TensorParallel.watch` notes every
+leaf that anything else in the loss reads (code outside the layers'
+:func:`owned` regions: a penalty on the weights, a custom head). From the
+second update on a claimed group is handed over as blocks only when no
+leaf of it has such a reader; the rest stay gathered, so every expression
+of the loss sees the whole leaf, as in the JAX package's partitioned step.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Any, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.overrides import TorchFunctionMode
 
-__all__ = ["TensorParallel", "current", "require"]
+__all__ = ["TensorParallel", "current", "owned", "owning", "require"]
+
+# Functions that read a tensor's metadata, not its values.
+_METADATA = {"size", "dim", "numel", "is_floating_point", "is_complex", "element_size",
+             "data_ptr", "stride", "is_contiguous", "storage_offset", "__len__",
+             "__get__"}
 
 _local = threading.local()
 
@@ -87,6 +97,8 @@ class TensorParallel:
         self.group = mesh.group((axis,))
         self.names = names
         self.claims: list[list[tuple[str, int]]] = []
+        self.outside: set[str] = set()
+        self.depth = 0
 
     def note(self, params: dict) -> None:
         """Name the tensors of ``params`` (a dict keyed by state-dict name,
@@ -106,6 +118,12 @@ class TensorParallel:
         if None not in names:
             self.claims.append([(n, d) for n, (_, d) in zip(names, weights)])
 
+    def watch(self) -> TorchFunctionMode:
+        """A mode that, while the step collects claims, notes in
+        ``outside`` the name of every handed tensor that a function reads
+        outside the layers' :func:`owned` regions."""
+        return _ReadWatch(self)
+
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """The input of a column-parallel product (identity; its gradient
         is summed over the tp group)."""
@@ -115,6 +133,51 @@ class TensorParallel:
         """The sum over the tp group of a row-parallel product's partial
         results (its gradient passes through)."""
         return _Reduce.apply(x, self.group)
+
+
+class _ReadWatch(TorchFunctionMode):
+    def __init__(self, tp: TensorParallel):
+        super().__init__()
+        self.tp = tp
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        tp = self.tp
+        if tp.depth == 0 and tp.names and getattr(func, "__name__", "") not in _METADATA:
+            for a in torch.utils._pytree.tree_leaves((args, kwargs)):
+                if torch.is_tensor(a):
+                    name = tp.names.get(id(a))
+                    if name is not None:
+                        tp.outside.add(name)
+        return func(*args, **kwargs)
+
+
+class owned:
+    """``with owned():`` marks code that handles the tensor-parallel blocks
+    itself (the transformer layers, the step's own casts): its reads of
+    the parameters are not a loss's own reads."""
+
+    def __enter__(self):
+        self.tp = current()
+        if self.tp is not None:
+            self.tp.depth += 1
+        return self
+
+    def __exit__(self, *exc):
+        if self.tp is not None:
+            self.tp.depth -= 1
+        return False
+
+
+def owning(method):
+    """Decorate a layer method that handles the blocks itself: its body
+    runs in an :class:`owned` region."""
+    @functools.wraps(method)
+    def wrapped(*args, **kwargs):
+        with owned():
+            return method(*args, **kwargs)
+
+    return wrapped
 
 
 def current() -> TensorParallel | None:

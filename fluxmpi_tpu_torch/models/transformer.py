@@ -25,6 +25,15 @@ and columns and sums the row-parallel products over the tp group, and an
 LM whose table arrives as its vocab rows looks tokens up in them and
 takes the vocab-parallel cross-entropy.
 
+Sequence parallelism: inside a layout step over a plan with ``sp > 1``
+(:mod:`fluxmpi_tpu_torch._sequence_parallel`), the LM's tokens are this
+worker's block of each sequence: the positions are global, and each
+block's attention is a ring over the sp axis
+(:func:`~fluxmpi_tpu_torch.parallel.ring.ring_attention`, through the
+flash kernels under ``attention="flash"``), or its ``attention_fn``, which
+must itself be sequence-parallel (``ring_attention_fn``,
+``ulysses_attention_fn``).
+
 Cached decoding: :meth:`TransformerLM.forward` with ``kv_cache=(k, v)``
 (``[layers, batch, max_len, heads, head_dim]`` each) feeds one token per
 row at that row's own position ``pos_offset`` (``[batch]``), writes the
@@ -42,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import _sequence_parallel as _sp
 from .. import _tensor_parallel as _tp
 from ..errors import refuse_unported
 from ..ops.flash_attention import flash_attention, flash_attention_fn
@@ -122,6 +132,36 @@ class EncoderBlock(nn.Module):
             self.ff_name = getattr(ff, "flax_name", "ff")
             self.add_module(self.ff_name, ff)
 
+    def _sequence_parallel_attend(self, seq, mode, q, k, v, mask, train, dropout_rng):
+        """The attention of this worker's sequence block under a
+        sequence-parallel step: a ring over the step's sp axis (``"flash"``
+        through the kernels, ``"naive"`` dense), or the block's
+        ``attention_fn``, which must itself be sequence-parallel."""
+        if mode == "fn":
+            before = seq.entered
+            o = self.attn.attend(self.attention_fn, q, k, v, mask=mask,
+                                 deterministic=not train, dropout_rng=dropout_rng)
+            if seq.entered == before:
+                raise ValueError(
+                    f"under a plan with sp the attention runs on this worker's "
+                    f"sequence block, but this block's attention_fn is not "
+                    f"sequence-parallel over '{seq.sp}' (use ring_attention_fn "
+                    f"or ulysses_attention_fn)")
+            return o
+        if mask is not None:
+            raise ValueError(
+                "under a plan with sp the attention mask comes from the ring's "
+                "global positions; an explicit mask is not sequence-parallel")
+        if mode == "naive" and train and self.dropout > 0 and dropout_rng is not None:
+            raise NotImplementedError(
+                "attention dropout on the dense path under a plan with sp is not "
+                "ported: JAX drops with flax's random stream over the global "
+                "attention, which a ring cannot draw (ROADMAP A.6, left open)")
+        from ..parallel.ring import ring_attention
+
+        return ring_attention(q, k, v, axis_name=seq.sp, causal=self.attention_causal,
+                              use_flash=mode == "flash")
+
     def make_ff(self) -> nn.Module | None:
         """Hook: a module for the feed-forward sublayer, or ``None`` for
         the dense MLP (its weights may draw from ``self._init``, the
@@ -133,6 +173,7 @@ class EncoderBlock(nn.Module):
         return self.run(x, train=train, mask=mask, dropout_rng=dropout_rng,
                         losses=losses)[0]
 
+    @_tp.owning
     def run(self, x, *, train=True, mask=None, mode=None, cache=None, pos=None,
             segments=None, dropout_rng=None, losses=None):
         """The block with the attention ``mode`` (default the block's own:
@@ -173,6 +214,8 @@ class EncoderBlock(nn.Module):
                 o = flash_attention(q, kc, vc, segment_ids=segments)
             else:  # the row's valid cache prefix
                 o = dot_product_attention(q, kc, vc, mask=(segments[1] != 0)[:, None, None, :])
+        elif (seq := _sp.current()) is not None and seq.sp is not None:
+            o = self._sequence_parallel_attend(seq, mode, q, k, v, mask, train, dropout_rng)
         elif mode == "flash":
             o = flash_attention_fn(causal=self.attention_causal)(q, k, v, mask=mask)
         else:
@@ -186,6 +229,14 @@ class EncoderBlock(nn.Module):
             x = x + attn.out(o, self.dtype)
         h = self.ln2(x, self.dtype)
         if self.ff_name is not None:
+            if (seq := _sp.current()) is not None and seq.sp is not None:
+                # A sublayer such as the MoE's routes each sequence as one
+                # group, which a sequence block is not.
+                raise NotImplementedError(
+                    f"the feed-forward sublayer {self.ff_name!r} under a plan with "
+                    f"sp is not ported: it may compute across the sequence (the "
+                    f"MoE layers route each sequence as one group), and this "
+                    f"worker holds a block of it (ROADMAP A.6, left open)")
             ff = getattr(self, self.ff_name)
             if losses is None:
                 return x + ff(h, train=train), k, v
@@ -336,6 +387,7 @@ class TransformerLM(nn.Module):
     def attention_mode(self, override: str | None = None) -> str:
         return _resolve_attention_mode(override or self.attention, self.device)
 
+    @_tp.owning
     def forward(self, tokens, *, train: bool = True, targets=None,
                 loss_chunk: int = 8192, hidden: bool = False,
                 pos_offset=None, kv_cache=None, attention: str | None = None,
@@ -415,6 +467,23 @@ class TransformerLM(nn.Module):
             x = tp.reduce(rows).to(self.dtype)
         else:
             x = table[tokens].to(self.dtype)
+        seq = _sp.current()
+        if seq is not None and seq.sp is not None:
+            # This worker's block of a sequence sharded over sp: global
+            # positions, and the blocks' attention is the ring's.
+            axis = seq.axis(seq.sp)
+            if s * axis.size > self.max_len:
+                raise ValueError(f"sequence length {s * axis.size} exceeds max_len "
+                                 f"{self.max_len}")
+            start = axis.index * s
+            x = x + self.pos_embed[start:start + s][None].to(self.dtype)
+            if mode == "naive" and self.attention_fn is not None:
+                mode = "fn"
+            h, ks, vs = self.encoder.run(
+                x, train=train, mode=mode, dropout_rng=dropout_rng,
+                losses=None if losses is None else losses.setdefault("encoder", {}))
+            return self._outputs(h, hidden, targets, tp, vocab_split, loss_chunk,
+                                 return_kv, ks, vs)
         x = x + self.pos_embed[:s][None].to(self.dtype)
         mask = None
         if mode == "naive":
@@ -427,6 +496,12 @@ class TransformerLM(nn.Module):
         h, ks, vs = self.encoder.run(
             x, train=train, mask=mask, mode=mode, dropout_rng=dropout_rng,
             losses=None if losses is None else losses.setdefault("encoder", {}))
+        return self._outputs(h, hidden, targets, tp, vocab_split, loss_chunk,
+                             return_kv, ks, vs)
+
+    def _outputs(self, h, hidden, targets, tp, vocab_split, loss_chunk, return_kv, ks, vs):
+        """The training forward's result from the final-LN activations."""
+        table = self.embed.embedding
         if hidden:
             return h, self.embed.embedding
         if targets is not None:

@@ -114,9 +114,9 @@ class ParallelConfig:
     optimizer state sharded, largest divisible dim of each leaf of at
     least ``fsdp_min_size``; its workers are data workers too); ``tp``:
     Megatron tensor-parallel size (the built-in transformer table);
-    ``pp``, ``sp``: pipeline and sequence-parallel sizes (they resolve and
-    describe; a step over them is ROADMAP A.6); ``ep``: expert-parallel
-    size. Exactly one size may be ``-1``; all at 1 means ``dp=-1``.
+    ``pp``, ``sp``: pipeline and sequence-parallel sizes (the sequence dim
+    of the batch spec over ``sp``; the stacked stages over ``pp`` by a
+    ``pipeline_rules`` table); ``ep``: expert-parallel size. Exactly one size may be ``-1``; all at 1 means ``dp=-1``.
     ``rules``: a ``(regex, PartitionSpec)`` table or a rule, layered
     first. ``strict``: an unmatched non-scalar leaf raises.
     ``axis_names``: ``{plan axis: mesh axis name}`` overrides."""

@@ -52,7 +52,20 @@ loader's ``mesh=`` rows), and the step's loss and gradients are those of
 the mean over the global batch, as JAX's partitioned step computes them.
 The ``ep`` axis is not gathered: the MoE layers built with ``mesh=`` run
 their local experts and exchange tokens with an all-to-all
-(:mod:`~fluxmpi_tpu_torch.models.moe`). ``style="shard_map"`` is the
+(:mod:`~fluxmpi_tpu_torch.models.moe`). Under ``sp`` each worker's
+``loss_fn`` sees its sequence block of the batch (the dims ``batch_spec``
+shards over ``sp``) inside a sequence-parallel context
+(:mod:`~fluxmpi_tpu_torch._sequence_parallel`): the port's transformer
+layers take global positions and run their attention as a ring over the
+axis (an ``attention_fn`` such as ``ulysses_attention_fn`` runs as
+given), and a loss that entered no sequence-parallel attention raises;
+the loss and gradients are reduced over ``sp`` as well. The ``pp`` axis
+is not gathered either: the stacked stages (``pipeline_rules``) stay this
+worker's block, the loss calls ``make_pipeline_fn`` (or
+``pipeline_apply``) over the axis, every ``pp`` worker computes the same
+loss, and a stage block's gradient is summed over the workers holding
+it. A plan with ``sp`` and ``tp``, ``ep`` or ``pp``, or with ``pp`` and
+``tp`` or ``ep``, raises ``NotImplementedError``. ``style="shard_map"`` is the
 explicit per-worker step, its gradients reduced over the ``axis_name``
 axis of the mesh. ``donate=False`` copies the state before the update,
 so the caller's stays valid.
@@ -71,7 +84,7 @@ from torch import nn
 from torch.utils import _pytree as pytree
 from torch.utils import checkpoint as _checkpoint
 
-from .. import _tensor_parallel, config, runtime
+from .. import _sequence_parallel, _tensor_parallel, config, runtime
 from ..data import _gather_batch
 from ..optim import GradientTransformation, apply_updates
 from ..optimizer import allreduce_gradients
@@ -169,7 +182,8 @@ def _with_policy_and_remat(loss_fn, policy, remat, watch):
         inner = loss_fn
 
         def loss_fn(p, mstate, batch):  # noqa: F811 - deliberate rewrap
-            cast = policy.cast_to_compute(p)
+            with _tensor_parallel.owned():
+                cast = policy.cast_to_compute(p)
             tp = _tensor_parallel.current()
             if tp is not None:
                 tp.note(cast)
@@ -325,8 +339,11 @@ class _Layout:
     (``tp_blocks``: decided in the first update, see
     :mod:`fluxmpi_tpu_torch._tensor_parallel`)."""
 
-    def __init__(self, mesh: Any, specs: dict, native: set, tp_axis: str | None = None):
+    def __init__(self, mesh: Any, specs: dict, native: set, tp_axis: str | None = None,
+                 sp_axis: str | None = None, pp_axis: str | None = None):
         self.mesh = mesh
+        self.sp_axis = sp_axis if mesh.shape.get(sp_axis, 1) > 1 else None
+        self.pp_axis = pp_axis if mesh.shape.get(pp_axis, 1) > 1 else None
         self.world = mesh.size
         self.native = set(native)
         self.plans: dict[str, tuple] = {}
@@ -349,6 +366,39 @@ class _Layout:
     @property
     def shards(self) -> bool:
         return any(g or lo for g, lo in self.plans.values())
+
+    def axes_context(self) -> Any:
+        """The sequence-parallel context of one update's loss (None
+        without an sp or pp axis): the mesh, which binds both axes, and
+        the sp axis, over which the transformer layers run their
+        attention as a ring."""
+        if self.sp_axis is None and self.pp_axis is None:
+            return None
+        return _sequence_parallel.SequenceParallel(self.mesh, self.sp_axis)
+
+    def local_batch(self, batch: Any, batch_spec: Any) -> Any:
+        """This worker's sequence block of each batch leaf, along the dims
+        ``batch_spec`` shards over the sp axis (the loader's rows are the
+        same on workers that differ only in sp)."""
+        if self.sp_axis is None:
+            return batch
+        dims = [d for d, names in _spec_axes(batch_spec) if self.sp_axis in names]
+        n = self.mesh.shape[self.sp_axis]
+        i = self.mesh.coords(self.mesh.my_rank())[self.sp_axis]
+
+        def cut(x):
+            if not torch.is_tensor(x):
+                return x
+            for d in dims:
+                if d < x.ndim:
+                    if x.shape[d] % n:
+                        raise ValueError(
+                            f"batch dim {d} of length {x.shape[d]} is sharded over "
+                            f"'{self.sp_axis}' of size {n}, which does not divide it")
+                    x = x.narrow(d, i * (x.shape[d] // n), x.shape[d] // n)
+            return x
+
+        return pytree.tree_map(cut, batch)
 
     def dims(self, name: str) -> tuple[list, list]:
         """``(gathered, local)`` sharded dims of leaf ``name`` as the
@@ -373,15 +423,28 @@ class _Layout:
     def settle(self, tp: Any) -> None:
         """After the first update: every claimed group whose leaves are
         all sharded over the tp axis alone, each along the dim its layer
-        splits, is handed over as blocks from then on."""
+        splits, and none of them read by the loss outside the layers
+        (``tp.outside``; nor claimed in a group with such a leaf), is
+        handed over as blocks from then on."""
         if tp is None or self.tp_blocks is not None:
             return
 
         def tp_only(name, dim):
             return self.plans.get(name) == ([(dim, (self.tp_axis,))], [])
 
-        self.tp_blocks = {n for group in tp.claims
-                          if all(tp_only(n, d) for n, d in group) for n, _ in group}
+        kept = set(tp.outside)
+        for group in tp.claims:
+            if not all(tp_only(n, d) for n, d in group):
+                kept.update(n for n, _ in group)
+        grown = True
+        while grown:  # a group with a kept leaf is kept whole
+            grown = False
+            for group in tp.claims:
+                names = {n for n, _ in group}
+                if names & kept and not names <= kept:
+                    kept |= names
+                    grown = True
+        self.tp_blocks = {n for group in tp.claims for n, _ in group} - kept
 
     def owned(self, keys: list) -> list:
         """For each leaf of ``keys``: does this worker count its block once
@@ -449,6 +512,10 @@ class _Layout:
             div = world
             if self.tp_blocks and k in self.tp_blocks:
                 div = world // self.mesh.shape[self.tp_axis]
+            elif self.pp_axis in keep:
+                # Every pp worker computes the same loss, and the stage
+                # blocks' gradients each once (make_pipeline_fn).
+                div = world // self.mesh.shape[self.pp_axis]
             buckets.setdefault((axes, div), []).append(k)
         out = dict(grads)
         for axes, div in sorted(buckets):
@@ -532,13 +599,21 @@ def _installed_plan_defaults(mesh: Any, axis_name: str | None, batch_spec: Any):
     return plan, mesh, plan.dp_axis_name, plan.batch_spec
 
 
+# Plan axes a step over sp or pp is not composed with yet.
+_NOT_COMPOSED = {"sp": ("tp", "ep", "pp"), "pp": ("tp", "ep")}
+
+
 def _make_layout(plan: Any, mesh: Any, state_sharding: Any) -> _Layout:
     """The step's :class:`_Layout` from the banked or given shardings."""
-    for kind in ("sp", "pp"):
-        if plan is not None and plan.axis_name(kind) is not None:
-            raise NotImplementedError(
-                f"a step over a plan with {kind}={plan.sizes[kind]} is not "
-                f"ported yet: sequence and pipeline parallelism are ROADMAP A.6")
+    for kind, others in _NOT_COMPOSED.items():
+        if plan is None or plan.axis_name(kind) is None:
+            continue
+        for other in others:
+            if plan.axis_name(other) is not None:
+                raise NotImplementedError(
+                    f"a step over a plan with {kind}={plan.sizes[kind]} and "
+                    f"{other}={plan.sizes[other]} is not ported: the port runs "
+                    f"{kind} with dp and fsdp only (ROADMAP A.6, left open)")
     specs = {}
     params = getattr(state_sharding, "params", None) or {}
     for k, sh in params.items():
@@ -547,7 +622,9 @@ def _make_layout(plan: Any, mesh: Any, state_sharding: Any) -> _Layout:
     if ep is None and config.EP_AXIS_NAME in mesh.shape:
         ep = config.EP_AXIS_NAME
     tp = plan.axis_name("tp") if plan is not None else config.TP_AXIS_NAME
-    return _Layout(mesh, specs, {ep} if ep else set(), tp)
+    sp = plan.axis_name("sp") if plan is not None else None
+    pp = plan.axis_name("pp") if plan is not None else None
+    return _Layout(mesh, specs, {a for a in (ep, pp) if a}, tp, sp, pp)
 
 
 def _copy_state(ts: "TrainState") -> "TrainState":
@@ -667,8 +744,9 @@ def make_train_step(
     state in place; ``False`` copies it first, so the caller's stays
     valid. ``grad_reduce`` applies to the step without a plan and to
     ``"shard_map"``; under a plan the reduction is the layout's (the
-    global mean). A plan with ``sp`` or ``pp`` raises
-    ``NotImplementedError`` (ROADMAP A.6).
+    global mean). Under ``sp`` and ``pp`` the step runs as the module
+    docstring says; their compositions with ``tp`` and ``ep`` (and of
+    ``sp`` with ``pp``) raise ``NotImplementedError``.
 
     ``model_stats``: build the model-internals plane's per-layer stats
     into the step (``None``, the default, follows the installed
@@ -783,10 +861,17 @@ def make_train_step(
         tp = layout.tp_context() if layout is not None else None
         if tp is not None:
             tp.note(params)
+        axes = layout.axes_context() if layout is not None else None
+        if axes is not None:
+            batch = layout.local_batch(batch, batch_spec)
         loss_sum, acc, mstate = None, None, ts.model_state
         for mb in _split(batch, grad_accum_steps) if grad_accum_steps > 1 else [batch]:
-            with _tensor_parallel.active(tp):
-                loss, mstate = loss_fn(params, mstate, mb)
+            with _tensor_parallel.active(tp), _sequence_parallel.active(axes):
+                if tp is not None and tp.names is not None:
+                    with tp.watch():
+                        loss, mstate = loss_fn(params, mstate, mb)
+                else:
+                    loss, mstate = loss_fn(params, mstate, mb)
                 if watch.armed:
                     watch.check(loss)
                 g = torch.autograd.grad(loss, vals, allow_unused=True)
@@ -797,6 +882,15 @@ def make_train_step(
                         "loss_fn computed its loss without the params it was "
                         "given; under a layout they are the gathered blocks, "
                         "so compute from them (torch.func.functional_call)")
+                if layout.sp_axis is not None and not axes.entered:
+                    raise ValueError(
+                        f"under a plan with sp={layout.mesh.shape[layout.sp_axis]} "
+                        f"loss_fn gets this worker's sequence block of the batch, "
+                        f"but no sequence-parallel attention ran over "
+                        f"'{layout.sp_axis}' (the port's TransformerLM and "
+                        f"EncoderBlock, ring_attention, zigzag_ring_attention or "
+                        f"ulysses_attention): its result would be a block's, "
+                        f"not the sequence's")
             g = [torch.zeros_like(v) if x is None else x for x, v in zip(g, vals)]
             if acc is None:
                 acc, loss_sum = g, loss.detach()
@@ -1208,11 +1302,15 @@ def make_eval_step(metric_fn: Callable[[dict, Any, Any], Any], *,
 
     def step(ts: TrainState, batch):
         params = ts.params
+        axes = None
         if layout is not None:
             with torch.no_grad():
                 params = layout.gather(params)
+            axes = layout.axes_context()
+            if axes is not None:
+                batch = layout.local_batch(batch, batch_spec)
         params = params if policy is None else policy.cast_to_compute(params)
-        with torch.no_grad():
+        with torch.no_grad(), _sequence_parallel.active(axes):
             return metric_fn(params, ts.model_state, batch)
 
     return step

@@ -1359,3 +1359,293 @@ def test_nccl_resize_four_to_two_is_sample_exact(tmp_path):
     assert len(records) == 1 and validate_resize_record(records[0]) == []
     assert (records[0]["from_processes"], records[0]["to_processes"]) == (4, 2)
     print(f"record: {json.dumps(records[0])}")
+
+
+SEQ_WORKER = textwrap.dedent(r'''
+    import json
+    import sys
+    import time
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.ops import device_launches, flash_attention
+    from fluxmpi_tpu_torch.ops.fused_ce import unembed_cross_entropy
+    from fluxmpi_tpu_torch.parallel import (ParallelConfig, TrainState, make_pipeline_fn,
+                                            make_ring_attention, make_train_step,
+                                            stack_stage_params, ulysses_attention_fn)
+    from fluxmpi_tpu_torch.parallel.sharding import Mesh, P
+
+    out = sys.argv[1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = fm.init(timeout=1800.0)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    GPT2 = dict(vocab_size=50257, num_layers=12, d_model=768, num_heads=12, d_ff=3072,
+                ln_eps=1e-5)
+    UPDATES = 4
+    res = dict(card=torch.cuda.get_device_name(dev), world=world, cases={})
+    limit = 2 ** -8 * 2 * GPT2["num_layers"]  # PERF.md section 2's bf16 rule
+
+    def rows(batch, seq, seed=0):
+        t = np.random.default_rng(seed).integers(0, GPT2["vocab_size"],
+                                                 (UPDATES * batch, seq + 1))
+        return torch.from_numpy(t).to(dev)
+
+    def local(plan, t, u, batch):
+        """This worker's rows of update u's global batch (its data shard;
+        the step cuts its sequence block under sp)."""
+        b = t[u * batch:(u + 1) * batch]
+        if plan is None:
+            return b
+        i, n = plan.mesh.block_index(rank, plan.data_axes)
+        return b.chunk(n)[i]
+
+    def train(params, loss_fn, plan, t, batch):
+        """UPDATES sgd(0.1) updates; (losses, final params on the host,
+        device launches per kernel, ms per update after the first)."""
+        opt = optim.sgd(0.1)
+        state = TrainState.create(params, opt)
+        if plan is not None and plan.shards_parameters:
+            state, _ = plan.shard_state(state)
+        step = (make_train_step(loss_fn, opt, parallel=plan) if plan is not None
+                else make_train_step(loss_fn, opt, grad_reduce=None))
+        losses, times = [], []
+        device_launches(reset=True)
+        for u in range(UPDATES):
+            b = local(plan, t, u, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, {"x": b[:, :-1], "y": b[:, 1:]})
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+        launches = device_launches()
+        host = {k: v.detach().float().cpu().clone() for k, v in state.params.items()}
+        return losses, host, launches, 1e3 * float(np.median(times[1:]))
+
+    def lm_loss(model):
+        def fn(p, ms, batch):
+            return torch.func.functional_call(model, p, (batch["x"],),
+                                              {"targets": batch["y"]}).mean(), ms
+        return fn
+
+    def compare(name, got, ref, init):
+        """Per leaf ||theta - theta_ref|| / ||theta_ref - theta_0||: the
+        update against the one-card run's. The attention key biases are
+        left out: a key bias adds one constant to a row's scores, which
+        the softmax cancels, so their gradients are rounding noise."""
+        worst = max(((float((got[k] - ref[k]).norm())
+                      / max(float((ref[k] - init[k]).norm()), 1e-30)), k) for k in ref
+                    if not k.endswith("attn.key.bias"))
+        res["cases"][name]["worst_leaf"] = [worst[1], worst[0]]
+        return worst[0]
+
+    # 1. The LM under sp (and dp x sp) at max_len 8192, batch 4 x 8192.
+    long_tokens = rows(4, 8192)
+    lm_cases = {"sp4_ring": (dict(sp=4), None),
+                "sp4_ulysses": (dict(sp=4), "ulysses"),
+                "dp2_sp2_ring": (dict(dp=2, sp=2), None)}
+    lm_out = {}
+    for name, (kw, fn) in lm_cases.items():
+        model = TransformerLM(**GPT2, max_len=8192, dtype=torch.bfloat16, device=dev,
+                              attention="naive" if fn else "flash",
+                              attention_fn=ulysses_attention_fn(causal=True, use_flash=True)
+                              if fn else None, generator=torch.Generator().manual_seed(0))
+        plan = ParallelConfig(**kw).resolve()
+        losses, params, launches, ms = train(dict(model.named_parameters()),
+                                             lm_loss(model), plan, long_tokens, 4)
+        res["cases"][name] = dict(losses=losses, launches=launches, ms_per_update=ms)
+        lm_out[name] = params
+        del model
+        torch.cuda.empty_cache()
+
+    # 2. The zigzag ring at GPT-2 small's attention widths against one
+    #    whole-sequence call.
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((4, 8192, 12, 64), generator=g, device=dev)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    cot = torch.randn((4, 8192, 12, 64), generator=g, device=dev)
+    zz = make_ring_attention(Mesh(np.arange(world), ("sp",)), axis_name="sp", causal=True,
+                             use_flash=True, schedule="zigzag")
+    device_launches(reset=True)
+    o = zz(q, k, v)
+    grads = torch.autograd.grad((o.float() * cot).sum(), [q, k, v])
+    zz_launches = device_launches()
+    ref_o = flash_attention(q, k, v, causal=True)
+    ref = torch.autograd.grad((ref_o.float() * cot).sum(), [q, k, v])
+    def rel(a, b):
+        a, b = a.detach().float(), b.detach().float()
+        return float((a - b).norm() / b.norm())
+
+    res["cases"]["zigzag_attention"] = dict(
+        launches=zz_launches, limit=2 ** -8 * 2 * 2 * world,
+        errs={"out": rel(o, ref_o), **{f"d{x}": rel(a, b) for x, a, b in zip("qkv", grads, ref)}})
+    del q, k, v, o, grads, ref_o, ref
+    torch.cuda.empty_cache()
+
+    # 3. The 12 blocks as 4 stages of 3 (GPipe) and as 12 chunks
+    #    (interleave=3), 8 microbatches of a batch of 16 x 1024.
+    pp_tokens = rows(16, 1024, seed=1)
+    base = TransformerLM(**GPT2, max_len=1024, attention="flash", dtype=torch.bfloat16,
+                         device=dev, generator=torch.Generator().manual_seed(0))
+    blocks = [getattr(base.encoder, f"block_{i}") for i in range(12)]
+    names = [k_ for k_, _ in blocks[0].named_parameters()]
+    template = blocks[0]
+
+    def stage_fn(p, x):
+        for j in range(len(p) // len(names)):
+            x = torch.func.functional_call(template, {k_: p[f"{j}.{k_}"] for k_ in names}, (x,))
+        return x
+
+    def pp_params(chunks):
+        own = {k_: t.detach().clone().requires_grad_() for k_, t in base.named_parameters()
+               if not k_.startswith("encoder.block_")}
+        return {**own, **{f"stages.{k_}": t.clone().requires_grad_()
+                          for k_, t in chunks.items()}}
+
+    def pp_loss(pipe):
+        def fn(p, ms, batch):
+            s = batch["x"].shape[1]
+            x = (p["embed.embedding"][batch["x"]] + p["pos_embed"][:s]).to(torch.bfloat16)
+            y = pipe({k_[7:]: t for k_, t in p.items() if k_.startswith("stages.")}, x)
+            h = torch.func.functional_call(base.encoder.ln_out,
+                                           {"scale": p["encoder.ln_out.scale"],
+                                            "bias": p["encoder.ln_out.bias"]},
+                                           (y, torch.float32))
+            return unembed_cross_entropy(h.to(torch.bfloat16), p["embed.embedding"],
+                                         batch["y"]).mean(), ms
+        return fn
+
+    def per_block(stacked, layout):
+        """{f"encoder.block_{i}.{k}": leaf} from a stacked tree."""
+        out = {}
+        for key, t in stacked.items():
+            j, k_ = key.split(".", 1)
+            for gi in range(t.shape[0]):
+                i = layout(gi, int(j))
+                out[f"encoder.block_{i}.{k_}"] = t[gi]
+        return out
+
+    rule = lambda path, shape: (P("pp", *([None] * (len(shape) - 1)))  # noqa: E731
+                                if "stages" in path else P())
+    plan = ParallelConfig(pp=world, rules=rule).resolve()
+    gpipe = stack_stage_params([{f"{j}.{k_}": dict(blocks[3 * s + j].named_parameters())[k_]
+                                 .detach() for j in range(3) for k_ in names}
+                                for s in range(4)])
+    inter = stack_stage_params([{f"0.{k_}": dict(blocks[c].named_parameters())[k_].detach()
+                                 for k_ in names} for c in range(12)],
+                               n_stages=4, interleave=3)
+    layouts = {"pp4_gpipe": (gpipe, 1, lambda gi, j: 3 * gi + j),
+               "pp4_interleave3": (inter, 3, lambda gi, j: (gi % 3) * 4 + gi // 3)}
+    pp_out = {}
+    for name, (stacked, v, layout) in layouts.items():
+        pipe = make_pipeline_fn(stage_fn, plan.mesh, n_microbatches=8, axis_name="pp",
+                                interleave=v)
+        losses, params, launches, ms = train(pp_params(stacked), pp_loss(pipe), plan,
+                                             pp_tokens, 16)
+        res["cases"][name] = dict(losses=losses, launches=launches, ms_per_update=ms)
+        full = {}
+        for k_, t in params.items():  # each stage block gathered to every worker
+            if k_.startswith("stages."):
+                parts = [torch.empty_like(t, device=dev) for _ in range(world)]
+                dist.all_gather(parts, t.to(dev))
+                full[k_[7:]] = torch.cat(parts).cpu()
+        params = {k_: t for k_, t in params.items() if not k_.startswith("stages.")}
+        params.update(per_block(full, layout))
+        pp_out[name] = params
+    dist.barrier()
+
+    # 4. The same runs with no plan on this one card (rank 0).
+    if rank == 0:
+        model = TransformerLM(**GPT2, max_len=8192, attention="flash", dtype=torch.bfloat16,
+                              device=dev, generator=torch.Generator().manual_seed(0))
+        init = {k_: t.detach().float().cpu().clone() for k_, t in model.named_parameters()}
+        losses, ref_params, _, ms = train(dict(model.named_parameters()), lm_loss(model),
+                                          None, long_tokens, 4)
+        res["cases"]["lm_one_card"] = dict(losses=losses, ms_per_update=ms)
+        for name in lm_cases:
+            res["cases"][name]["rel"] = compare(name, lm_out[name], ref_params, init)
+        del model
+        torch.cuda.empty_cache()
+
+        def seq_fn(chunks):
+            def pipe(p, x):
+                for i in range(12):
+                    x = stage_fn({f"0.{k_}": p[f"{i}.{k_}"] for k_ in names}, x)
+                return x
+            return pipe
+
+        natural = {f"{i}.{k_}": t.detach()
+                   for i in range(12) for k_, t in blocks[i].named_parameters()}
+        init = {k_: t.detach().float().cpu().clone() for k_, t in base.named_parameters()}
+        losses, ref_params, _, ms = train(pp_params(natural), pp_loss(seq_fn(natural)), None,
+                                          pp_tokens, 16)
+        ref_params = {(f"encoder.block_{k_.split('.')[1]}.{k_.split('.', 2)[2]}"
+                       if k_.startswith("stages.") else k_): t for k_, t in ref_params.items()}
+        res["cases"]["pp_one_card"] = dict(losses=losses, ms_per_update=ms)
+        for name in layouts:
+            res["cases"][name]["rel"] = compare(name, pp_out[name], ref_params, init)
+    res["limit"] = limit
+    with open(out, "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    fm.shutdown()
+''')
+
+
+def test_nccl_sequence_and_pipeline_parallel_train_like_one_card(tmp_path):
+    """Sequence and pipeline parallelism on four cards over NCCL, one
+    worker per card, GPT-2 small's widths in bf16 (TF32 off), 4 updates of
+    ``sgd(0.1)`` each, held to the same run with no plan on one card:
+
+    - the LM at ``max_len=8192``, batch 4 x 8192, under ``sp=4`` (the flash
+      ring: each card's 2048 tokens, 12 x (i+1) forward attends per
+      update on card i), under ``sp=4`` with ``ulysses_attention_fn`` (3 of
+      the 12 heads per card), and under ``dp=2, sp=2``;
+    - the zigzag ring (``make_ring_attention(schedule="zigzag")``, b 4,
+      8192 tokens, 12 heads of 64) against one whole-sequence call;
+    - the 12 blocks as 4 stages of 3 (GPipe) and as 12 chunks
+      (``interleave=3``), 8 microbatches of a batch of 16 x 1024, the
+      embedding, final LayerNorm and tied head outside the pipeline.
+
+    Limits (PERF.md section 2's bf16 rule, 2**-8 x 2 x the rounding
+    depth): each loss within 2**-7 of the one-card loss relatively, every
+    leaf's update (theta - theta_0) within 2**-8 x 2 x 12 layers of the
+    one-card update's norm (but the attention key biases, whose gradients
+    the softmax cancels to rounding noise), the zigzag output and
+    gradients within 2**-8 x 2 x 2n (the blocks a zigzag row merges).
+    Prints each run's losses, ms per update and launches."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    import json
+
+    ranks = _launch_world(tmp_path, SEQ_WORKER, 4, [], "seq")
+    res = ranks[0]
+    cases, limit = res["cases"], res["limit"]
+    print(f"\nsequence/pipeline parallel on 4 x {res['card']}:")
+    for name, case in cases.items():
+        print(f"  {name}: {json.dumps(case)}")
+    one = cases["lm_one_card"]["losses"]
+    for name in ("sp4_ring", "sp4_ulysses", "dp2_sp2_ring"):
+        np.testing.assert_allclose(cases[name]["losses"], one, rtol=limit / 12, atol=0,
+                                   err_msg=name)
+        assert cases[name]["rel"] <= limit, (name, cases[name]["worst_leaf"])
+    # Card i of the contiguous ring attends i + 1 blocks per layer.
+    for r, res_r in enumerate(ranks):
+        assert res_r["cases"]["sp4_ring"]["launches"]["flash_fwd"] == 4 * 12 * (r + 1)
+        assert res_r["cases"]["sp4_ulysses"]["launches"]["flash_fwd"] == 4 * 12
+    z = cases["zigzag_attention"]
+    assert all(e <= z["limit"] for e in z["errs"].values()), z
+    assert z["launches"]["flash_fwd"] == 3 + 2 * 3  # per card: tick 0's 3, then 2 a tick
+    pp_one = cases["pp_one_card"]["losses"]
+    for name in ("pp4_gpipe", "pp4_interleave3"):
+        np.testing.assert_allclose(cases[name]["losses"], pp_one, rtol=limit / 12, atol=0,
+                                   err_msg=name)
+        assert cases[name]["rel"] <= limit, (name, cases[name]["worst_leaf"])
+        # Every card runs its stage's blocks on each of the 8 microbatches.
+        for res_r in ranks:
+            assert res_r["cases"][name]["launches"]["flash_fwd"] == 4 * 3 * 8

@@ -57,7 +57,8 @@ def test_import_loads_no_jax_flax_or_reference_package():
         "telemetry.compileplane", "telemetry.modelstats", "telemetry.export",
         "telemetry.fleet", "utils.profiling", "parallel.plan", "parallel.sharding",
         "parallel.collectives", "_collective_ops", "models.moe", "fleet",
-        "fleet.resize")}
+        "fleet.resize", "parallel.ring", "parallel.ulysses", "parallel.pipeline",
+        "_sequence_parallel", "_tensor_parallel")}
     assert ported <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 

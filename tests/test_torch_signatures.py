@@ -55,6 +55,7 @@ MODULES = ["", ".comm", ".config", ".data", ".errors", ".faults", ".logging",
            ".models.unet", ".models.vit",
            ".ops", ".ops.flash_attention", ".ops.fused_ce", ".parallel",
            ".parallel.autotune", ".parallel.collectives", ".parallel.loop", ".parallel.plan",
+           ".parallel.pipeline", ".parallel.ring", ".parallel.ulysses",
            ".parallel.sharding", ".parallel.train", ".serving", ".serving.cache",
            ".serving.engine", ".serving.observe", ".models.hf_gpt2", ".utils", ".utils.checkpoint", ".utils.ema",
            ".utils.manifest", ".utils.precision", ".utils.profiling", ".utils.flops",
@@ -174,7 +175,13 @@ def test_the_comparison_covers_the_ported_surface():
                      "resolve_step_spec", "Exporter", "render_prometheus",
                      "mangle_name", "demangle_name", "FleetCollector",
                      "profile_trace", "AutoProfiler", "maybe_auto_capture",
-                     "configure_auto_profiler", "enable_compile_cache"):
+                     "configure_auto_profiler", "enable_compile_cache",
+                     # Slice 14: sequence and pipeline parallelism.
+                     "ring_attention", "zigzag_ring_attention", "zigzag_indices",
+                     "make_ring_attention", "ring_attention_fn", "ulysses_attention",
+                     "ulysses_attention_fn", "make_ulysses_attention", "pipeline_apply",
+                     "make_pipeline_fn", "stack_stage_params", "pipeline_rules",
+                     "pipeline_tick_count"):
         assert expected in names, expected
     assert len(PAIRS) >= 120
 
