@@ -250,6 +250,15 @@
    the output and every gradient (but the key biases', which the softmax
    cancels to rounding noise) against the plain stacked run, the launches
    by the device counters (96 per kernel, 192 forward with remat).
+17. Examples phase (``examples_phase``): the single-process scripts of
+   ``examples_torch/`` (``quickstart``, ``cifar_cnn``, ``deq_regression``,
+   ``vit_classification``, ``adapter_sync``, ``ddpm_toy``,
+   ``lm_pretrain``) run in this process on the card at their own sizes,
+   each held to its success sentinel; ``lm_pretrain`` trains through all
+   three kernels and generates through the forward kernel's decode rows,
+   its launches read by the kernels' device counters around the run (and
+   around its ``generate`` alone) and held equal to the wrappers' counts;
+   then ``python scripts/fluxlint_torch.py`` must exit 0.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -5697,6 +5706,107 @@ def sequence_phase(device):
 
 
 
+# The single-process examples the examples phase runs, their sentinels.
+EXAMPLES = (("quickstart.py", "QUICKSTART_OK"), ("cifar_cnn.py", "CIFAR_CNN_OK"),
+            ("deq_regression.py", "DEQ_OK"), ("vit_classification.py", "VIT_EXAMPLE_OK"),
+            ("adapter_sync.py", "ADAPTER_SYNC_OK"), ("ddpm_toy.py", "DDPM_TOY_OK"),
+            ("lm_pretrain.py", "LM_PRETRAIN_OK"))
+
+
+def examples_phase(device):
+    """The single-process examples on the card and the port's lint (module
+    docstring, item 17). Returns its stats and failures."""
+    import contextlib
+    import io
+    import runpy
+    import subprocess
+
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    import fluxmpi_tpu_torch.models as models
+    from fluxmpi_tpu_torch.ops import device_launches, flash_bwd_dkv, flash_bwd_dq, flash_fwd
+
+    del device  # each example picks the card itself (init(device=None))
+    root = Path(__file__).resolve().parent
+    failures = []
+    card = card_line()
+    t_phase = time.perf_counter()
+    wrappers = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    stats = dict(card=card, examples={})
+    decode = {}
+    real_generate = models.generate
+
+    def counted_generate(*args, **kwargs):
+        # The example's KV-cache generation alone, by the device counters.
+        torch.cuda.synchronize()
+        before = device_launches()
+        out = real_generate(*args, **kwargs)
+        torch.cuda.synchronize()
+        after = device_launches()
+        decode.update({k: after[k] - before[k] for k in after})
+        return out
+
+    for name, sentinel in EXAMPLES:
+        argv = sys.argv
+        sys.argv = [str(root / "examples_torch" / name)]
+        models.generate = counted_generate
+        before = {f.__name__: f.launches for f in wrappers}
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        error = None
+
+        def run():
+            with contextlib.redirect_stdout(out):
+                runpy.run_path(sys.argv[0], run_name="__main__")
+            torch.cuda.synchronize()
+
+        try:
+            _, dev_counts = kernel_launches(run)
+        except BaseException as exc:  # noqa: BLE001 - recorded as a failure below
+            error, dev_counts = f"{type(exc).__name__}: {exc}", device_launches()
+        finally:
+            sys.argv = argv
+            models.generate = real_generate
+            fm.shutdown()
+        seconds = time.perf_counter() - t0
+        wrapped = {f.__name__: f.launches - before[f.__name__] for f in wrappers}
+        text = out.getvalue()
+        for line in text.splitlines()[-3:]:
+            print(f"  {name}: {line}", flush=True)
+        ok = error is None and sentinel in text
+        row = dict(seconds=seconds, sentinel=sentinel in text, launches=dev_counts,
+                   wrappers=wrapped, error=error)
+        print(f"examples {name}: {'ok' if ok else 'FAILED'} in {seconds:.2f} s; launches by "
+              f"the device counters {dev_counts}, wrappers {wrapped}"
+              + (f"; {error}" if error else "") + f"; {card}", flush=True)
+        if not ok:
+            failures.append(f"examples {name}: {error or 'no ' + sentinel}")
+        if name == "lm_pretrain.py":
+            row["generate_launches"] = dict(decode)
+            print(f"examples lm_pretrain.py generate (prefill and decode rows): launches "
+                  f"{decode}", flush=True)
+            if not (all(dev_counts[k] > 0 for k in MMA_KERNELS) and dev_counts == wrapped
+                    and decode.get("flash_fwd", 0) > 0):
+                failures.append(f"examples lm_pretrain.py: launches {dev_counts}, wrappers "
+                                f"{wrapped}, generate {decode}: every kernel must run, "
+                                f"counted alike, the decode rows included")
+        stats["examples"][name] = row
+
+    t0 = time.perf_counter()
+    lint = subprocess.run([sys.executable, str(root / "scripts" / "fluxlint_torch.py")],
+                          capture_output=True, text=True, cwd=root, timeout=300)
+    stats["fluxlint"] = dict(rc=lint.returncode, seconds=time.perf_counter() - t0,
+                             summary=lint.stdout.strip().splitlines()[-1:])
+    print(f"examples fluxlint_torch: rc {lint.returncode} "
+          f"({stats['fluxlint']['seconds']:.2f} s): {lint.stdout.strip()[-300:]}", flush=True)
+    if lint.returncode != 0:
+        failures.append(f"fluxlint_torch: rc {lint.returncode}: {lint.stdout[-500:]}")
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"examples phase: {stats['seconds']:.2f} s", flush=True)
+    return stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -5813,10 +5923,15 @@ def run_phases(device):
     settle("sequence_phase")
     seq, seq_failures = sequence_phase(device)
     failures += seq_failures
+    settle("examples_phase")
+    ex, ex_failures = examples_phase(device)
+    failures += ex_failures
     par_paths = {**par.get("launches_by_path", {}),
                  **tune_auto.get("launches_by_path", {}),
                  **elastic.get("launches_by_path", {}),
-                 **seq.get("launches_by_path", {})}
+                 **seq.get("launches_by_path", {}),
+                 **{f"example_{n[:-3]}": r["launches"] for n, r in ex["examples"].items()
+                    if r["launches"] and any(r["launches"].values())}}
     health_paths = {f"health_planes_{name}": health[f"planes_{name}"]["launches"]
                     for name in ("off", "on") if f"planes_{name}" in health}
     tune_paths = {"finetune_flash_dropout": tune["flash_dropout"]["launches"],
@@ -5951,7 +6066,7 @@ def run_phases(device):
                      "train_bf16_fused": fused, "train_bf16_telemetry": telem,
                      "vision": vision, "zoo": zoo, "finetune": tune,
                      "health": health, "parallel": par, "autotune": tune_auto,
-                     "elastic": elastic, "sequence": seq}, failures
+                     "elastic": elastic, "sequence": seq, "examples": ex}, failures
 
 
 if __name__ == "__main__":

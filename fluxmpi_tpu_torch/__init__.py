@@ -57,7 +57,7 @@ from . import (comm, config, data, errors, faults, logging, models, ops, optim,
                optimizer, parallel, runtime, serving, sync, telemetry, utils)
 from .comm import (Request, allreduce, barrier, bcast, cpu, device,
                    host_allgather, host_allreduce, host_bcast, iallreduce,
-                   ibcast, reduce)
+                   ibcast, reduce, shard_ranks, unshard_ranks)
 from .data import (ArrayDataset, DistributedDataContainer,
                    DistributedDataLoader, scan_batches)
 from .errors import (CheckpointDesyncError, CheckpointTimeoutError,
@@ -94,7 +94,7 @@ __all__ = [
     "models", "ops", "optim", "optimizer", "parallel",
     "preemption_handlers_installed", "preemption_requested",
     "process_count", "process_index", "reduce", "request_preemption",
-    "resolve_device", "runtime", "scan_batches", "serving", "shutdown",
+    "resolve_device", "runtime", "scan_batches", "serving", "shard_ranks", "shutdown",
     "synchronize", "telemetry", "total_workers", "uninstall_preemption_handlers",
-    "utils",
+    "unshard_ranks", "utils",
 ]

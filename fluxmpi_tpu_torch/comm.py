@@ -71,7 +71,7 @@ from .telemetry.flight_recorder import get_flight_recorder as _flight_recorder
 
 __all__ = ["Request", "allreduce", "barrier", "bcast", "cpu", "device",
            "host_allgather", "host_allreduce", "host_bcast", "iallreduce",
-           "ibcast", "reduce"]
+           "ibcast", "reduce", "shard_ranks", "unshard_ranks"]
 
 _OP_ALIASES = {
     "+": "sum", "sum": "sum", "add": "sum",
@@ -138,6 +138,91 @@ class _Axis:
         self.group = mesh.group((name,)) if self.size > 1 else None
         self.host_group = (mesh.host_group((name,))
                            if self.size > 1 and _staging() else None)
+
+
+def _axis_and_size(mesh: Any, axis_name: str | None) -> tuple[str, int]:
+    """The axis ``axis_name`` of ``mesh`` (which must have it), else its
+    ``dp`` axis, else its first, and the axis's size."""
+    if axis_name is not None:
+        if axis_name not in mesh.shape:
+            raise ValueError(f"axis {axis_name!r} not in mesh axes {mesh.axis_names}")
+        return axis_name, mesh.shape[axis_name]
+    name = config.DP_AXIS_NAME if config.DP_AXIS_NAME in mesh.shape else mesh.axis_names[0]
+    return name, mesh.shape[name]
+
+
+def shard_ranks(x: Any, mesh: Any = None, axis_name: str | None = None) -> torch.Tensor:
+    """This worker's slice of a value stacked over the workers of a mesh
+    axis (leading axis = the axis size; the axis as :func:`allreduce`
+    picks it), on the worker's device: a ``[1, ...]`` tensor tagged with
+    its layout, the block of the JAX package's laid-out array at this
+    worker's coordinate. An input already laid out so is returned as
+    it is."""
+    from .parallel.sharding import NamedSharding, P, sharding_of, with_sharding
+
+    _require_init()
+    mesh = mesh or _state.mesh
+    name, size = _axis_and_size(mesh, axis_name)
+    sh = sharding_of(x)
+    if (sh is not None and sh.mesh is mesh and tuple(sh.spec)[:1] == (name,)
+            and not any(tuple(sh.spec)[1:])):
+        return x
+    x = torch.as_tensor(x)
+    if x.ndim == 0 or x.shape[0] != size:
+        raise ValueError(
+            f"per-worker value must have leading axis == world size {size}, "
+            f"got shape {tuple(x.shape)}")
+    sharding = NamedSharding(mesh, P(name, *([None] * (x.ndim - 1))))
+    return with_sharding(sharding.local_block(x).to(_state.device), sharding)
+
+
+def unshard_ranks(x: Any) -> np.ndarray:
+    """Every worker's block of ``x`` gathered back to a host numpy array of
+    the global shape (the stacked value of :func:`shard_ranks`); a value
+    with no layout is whole already."""
+    from .parallel.sharding import sharding_of
+
+    sh = sharding_of(x)
+    if sh is None:
+        return np.asarray(cpu(x))
+    axes = [n for names in sh.spec if names is not None
+            for n in ((names,) if isinstance(names, str) else names)]
+    group = sh.mesh.group(axes)
+    full = torch.empty(sh.global_shape(x.shape), dtype=x.dtype)
+    ranks = dist.get_process_group_ranks(group) if group is not None else [sh.mesh.my_rank()]
+    parts = [torch.empty_like(x) for _ in ranks]
+    if group is not None:
+        dist.all_gather(parts, x.detach().contiguous(), group=group)
+    else:
+        parts = [x.detach()]
+    for r, part in zip(ranks, parts):
+        start = sh.block_start(full.shape, r)
+        index = tuple(slice(s, s + n) for s, n in zip(start, part.shape))
+        full[index] = part.cpu()
+    return full.numpy()
+
+
+def _laid_out(x: Any, mesh: Any, axis_name: str | None) -> tuple[Any, str | None]:
+    """``(mesh, axis_name)`` of a collective: an input that
+    :func:`shard_ranks` laid out runs over its own axis unless the caller
+    names one (the JAX package takes such an input as it is laid out)."""
+    from .parallel.sharding import sharding_of
+
+    sh = sharding_of(x)
+    lead = tuple(sh.spec)[:1] if sh is not None else ()
+    if mesh is None and axis_name is None and lead and isinstance(lead[0], str):
+        return sh.mesh, lead[0]
+    return mesh, axis_name
+
+
+def _keep_layout(x: Any, out: Any) -> Any:
+    """``out`` tagged with ``x``'s layout (a laid-out input's result is
+    laid out the same way)."""
+    from .parallel.sharding import sharding_of, with_sharding
+
+    if torch.is_tensor(out) and out is not x:
+        with_sharding(out, sharding_of(x))
+    return out
 
 
 # ``mesh=WORLD``: the whole world whatever the global mesh, for the
@@ -432,7 +517,7 @@ def allreduce(x: Any, op: str = "sum", *, mesh: Any = None,
     op = _canonical_op(op)
     if faults.ARMED:
         faults.check("comm.allreduce")
-    axis = _axis(mesh, axis_name)
+    axis = _axis(*_laid_out(x, mesh, axis_name))
     size = _state.world if axis is None else axis.size
 
     def run(flat, group=None):
@@ -440,8 +525,8 @@ def allreduce(x: Any, op: str = "sum", *, mesh: Any = None,
         if op == "mean":
             _mean_fix(flat, size)
 
-    return _instrumented("allreduce", _path(), lambda: _tree_nbytes(x),
-                         lambda: _collective(x, run, donate, axis))
+    return _keep_layout(x, _instrumented("allreduce", _path(), lambda: _tree_nbytes(x),
+                                         lambda: _collective(x, run, donate, axis)))
 
 
 def _broadcast(flat: torch.Tensor, root: int, axis: "_Axis | None", group: Any = None,
@@ -463,15 +548,15 @@ def bcast(x: Any, root: int = 0, *, mesh: Any = None, axis_name: str | None = No
     ``donate=True`` broadcasts into each leaf in place and returns ``x``
     itself."""
     _require_init()
-    axis = _axis(mesh, axis_name)
+    axis = _axis(*_laid_out(x, mesh, axis_name))
     root = _check_root(root, None if axis is None else axis.size)
     if faults.ARMED:
         faults.check("comm.bcast")
-    return _instrumented(
+    return _keep_layout(x, _instrumented(
         "bcast", _path(), lambda: _tree_nbytes(x),
         lambda: _collective(
             x, lambda flat, group=None: _broadcast(flat, root, axis, group),
-            donate, axis))
+            donate, axis)))
 
 
 def reduce(x: Any, op: str = "sum", root: int = 0, *, mesh: Any = None,
@@ -549,14 +634,15 @@ def _start(op_name: str, x: Any, fn: Callable[[torch.Tensor], Any],
     buffer of ``x``; returns the result tree and its request, which
     records the collective as ``op_name`` at ``wait()``."""
     record = None
-    if _instrumentation_on():
+    instrumented = _instrumentation_on()
+    if instrumented:
         nbytes = _tree_nbytes(x)
         record = (op_name, nbytes, _begin_op(op_name, "device", nbytes))
     packed = _Packed(x, _state.device)
     try:
         works = [w for w in (_run(flat, fn) for flat in packed.flats) if w is not None]
     except BaseException:
-        if record is not None:
+        if instrumented:
             _abort_op(record[2])
         raise
     value = pytree.tree_unflatten(packed.out, packed.spec)

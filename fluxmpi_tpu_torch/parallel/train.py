@@ -64,8 +64,13 @@ is not gathered either: the stacked stages (``pipeline_rules``) stay this
 worker's block, the loss calls ``make_pipeline_fn`` (or
 ``pipeline_apply``) over the axis, every ``pp`` worker computes the same
 loss, and a stage block's gradient is summed over the workers holding
-it. A plan with ``sp`` and ``tp``, ``ep`` or ``pp``, or with ``pp`` and
-``tp`` or ``ep``, raises ``NotImplementedError``. ``style="shard_map"`` is the
+it. Under ``sp`` with ``tp`` each tp worker runs its heads
+(:mod:`~fluxmpi_tpu_torch._tensor_parallel`) and the ring (or Ulysses,
+whose worker's heads must divide by ``sp``) runs over the sp group on
+those heads; the exchanges of both are issued in the same program order
+on every worker, so their backward passes line up. A plan with ``sp`` and
+``ep`` or ``pp``, or with ``pp`` and ``tp`` or ``ep``, raises
+``NotImplementedError``. ``style="shard_map"`` is the
 explicit per-worker step, its gradients reduced over the ``axis_name``
 axis of the mesh. ``donate=False`` copies the state before the update,
 so the caller's stays valid.
@@ -79,6 +84,7 @@ import time
 from collections import Counter
 from typing import Any, Callable
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils import _pytree as pytree
@@ -90,7 +96,7 @@ from ..optim import GradientTransformation, apply_updates
 from ..optimizer import allreduce_gradients
 
 __all__ = ["TrainState", "make_eval_step", "make_train_step",
-           "make_window_program"]
+           "make_window_program", "replicate", "shard_batch"]
 
 # Step arguments of the JAX package not ported yet: none left.
 _WAITING: tuple = ()
@@ -120,6 +126,53 @@ class TrainState:
             params = dict(params.named_parameters())
         return cls(step=0, params=dict(params),
                    opt_state=optimizer.init(params), model_state=model_state)
+
+
+def _worker_tensor(x: Any) -> Any:
+    """An array leaf as a tensor on this worker's device; other leaves
+    as they are."""
+    if not isinstance(x, (torch.Tensor, np.ndarray, np.generic)):
+        return x
+    return torch.as_tensor(x).to(runtime.worker_device())
+
+
+def replicate(tree: Any, mesh: Any = None) -> Any:
+    """The whole value on this worker's device, each array leaf a tensor
+    (the JAX package's replicated layout: every device holds the full
+    value). A :class:`TrainState` stays one, its leaves moved."""
+    del mesh  # every worker holds the whole value, whatever the mesh
+    if isinstance(tree, TrainState):
+        return TrainState(step=tree.step, params=replicate(tree.params),
+                          opt_state=replicate(tree.opt_state),
+                          model_state=replicate(tree.model_state))
+    return pytree.tree_map(_worker_tensor, tree)
+
+
+def shard_batch(batch: Any, mesh: Any = None, axis_name: str | None = None, *,
+                spec: Any = None) -> Any:
+    """This worker's block of a host global batch, on its device: each
+    leaf cut by ``spec`` over the mesh coordinates (default: the leading
+    dimension over the data-parallel axis; ``P("dp", "sp")`` also cuts
+    the sequence), as the loader's ``mesh=`` rows cut it
+    (:meth:`~fluxmpi_tpu_torch.parallel.sharding.NamedSharding.local_block`,
+    by :meth:`~fluxmpi_tpu_torch.parallel.sharding.Mesh.block_index`).
+    Each block carries its layout."""
+    from .sharding import NamedSharding, P, with_sharding
+
+    mesh = mesh or runtime.global_mesh()
+    if spec is not None and axis_name is not None:
+        raise ValueError("pass either axis_name or spec, not both")
+    if spec is None:
+        spec = P(axis_name or config.DP_AXIS_NAME)
+    sharding = NamedSharding(mesh, P(*spec))
+
+    def cut(x):
+        x = _worker_tensor(x)
+        if not torch.is_tensor(x):
+            return x
+        return with_sharding(sharding.local_block(x), sharding)
+
+    return pytree.tree_map(cut, batch)
 
 
 def _split(batch: Any, k: int) -> list[Any]:
@@ -203,7 +256,17 @@ def _with_policy_and_remat(loss_fn, policy, remat, watch):
         plain = loss_fn
 
         def loss_fn(p, mstate, batch):  # noqa: F811 - deliberate rewrap
-            return _checkpoint.checkpoint(plain, p, mstate, batch,
+            # The recompute runs where the backward runs: on the card,
+            # autograd's device thread, which sees none of this thread's
+            # contexts; it re-enters the tensor- and sequence-parallel
+            # contexts of the forward (ROADMAP C.22).
+            tp, seq = _tensor_parallel.current(), _sequence_parallel.current()
+
+            def run(p, mstate, batch):
+                with _tensor_parallel.active(tp), _sequence_parallel.active(seq):
+                    return plain(p, mstate, batch)
+
+            return _checkpoint.checkpoint(run, p, mstate, batch,
                                           use_reentrant=False, **opts)
 
     return loss_fn
@@ -379,7 +442,10 @@ class _Layout:
     def local_batch(self, batch: Any, batch_spec: Any) -> Any:
         """This worker's sequence block of each batch leaf, along the dims
         ``batch_spec`` shards over the sp axis (the loader's rows are the
-        same on workers that differ only in sp)."""
+        same on workers that differ only in sp). A leaf that
+        :func:`shard_batch` already cut over the sp axis is its block."""
+        from .sharding import sharding_of
+
         if self.sp_axis is None:
             return batch
         dims = [d for d, names in _spec_axes(batch_spec) if self.sp_axis in names]
@@ -388,6 +454,10 @@ class _Layout:
 
         def cut(x):
             if not torch.is_tensor(x):
+                return x
+            sh = sharding_of(x)
+            if sh is not None and any(self.sp_axis in names
+                                      for _, names in _spec_axes(sh.spec)):
                 return x
             for d in dims:
                 if d < x.ndim:
@@ -600,7 +670,7 @@ def _installed_plan_defaults(mesh: Any, axis_name: str | None, batch_spec: Any):
 
 
 # Plan axes a step over sp or pp is not composed with yet.
-_NOT_COMPOSED = {"sp": ("tp", "ep", "pp"), "pp": ("tp", "ep")}
+_NOT_COMPOSED = {"sp": ("ep", "pp"), "pp": ("tp", "ep")}
 
 
 def _make_layout(plan: Any, mesh: Any, state_sharding: Any) -> _Layout:
@@ -613,7 +683,8 @@ def _make_layout(plan: Any, mesh: Any, state_sharding: Any) -> _Layout:
                 raise NotImplementedError(
                     f"a step over a plan with {kind}={plan.sizes[kind]} and "
                     f"{other}={plan.sizes[other]} is not ported: the port runs "
-                    f"{kind} with dp and fsdp only (ROADMAP A.6, left open)")
+                    f"{kind} with dp, fsdp" + (" and tp" if kind == "sp" else "")
+                    + " only (ROADMAP A.6, left open)")
     specs = {}
     params = getattr(state_sharding, "params", None) or {}
     for k, sh in params.items():
@@ -745,8 +816,9 @@ def make_train_step(
     valid. ``grad_reduce`` applies to the step without a plan and to
     ``"shard_map"``; under a plan the reduction is the layout's (the
     global mean). Under ``sp`` and ``pp`` the step runs as the module
-    docstring says; their compositions with ``tp`` and ``ep`` (and of
-    ``sp`` with ``pp``) raise ``NotImplementedError``.
+    docstring says, ``sp`` also with ``tp``; their other compositions
+    (``sp`` with ``ep`` or ``pp``, ``pp`` with ``tp`` or ``ep``) raise
+    ``NotImplementedError``.
 
     ``model_stats``: build the model-internals plane's per-layer stats
     into the step (``None``, the default, follows the installed

@@ -25,6 +25,7 @@ import torch.distributed as dist
 import torch.distributed.nn.functional as dfn
 
 from .. import _sequence_parallel as _sp
+from .. import _tensor_parallel
 from .plan import plan_axis_name
 from .ring import _adapter_dropout, _fold_seed, _local_attend, _sharded_call
 
@@ -124,6 +125,16 @@ def ulysses_attention(
         )
     n = axis.size
     h, h_kv = q.shape[2], k.shape[2]
+    tp = _tensor_parallel.current()
+    if tp is not None and tp.names is not None and (h // tp.size) % n:
+        # The step's first update computes on whole heads; from the next
+        # on each tp worker may hold h/tp of them, and Ulysses shards a
+        # worker's heads over the sp axis.
+        raise ValueError(
+            f"Ulysses over '{name}' of size {n} under tp={tp.size}: each tp "
+            f"worker holds {h // tp.size} of the {h} heads, which {n} does not "
+            f"divide (use ring_attention, or a head count divisible by "
+            f"tp x {name} = {tp.size * n})")
     if h % n:
         raise ValueError(
             f"head count {h} must be divisible by the '{name}' axis size "

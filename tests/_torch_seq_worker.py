@@ -1,14 +1,16 @@
 """One rank of the sequence- and pipeline-parallel tests' gloo worlds (run
-by ``tests/test_torch_ring.py``, ``tests/test_torch_pipeline.py`` and
-``tests/test_torch_sequence_step.py``): ``python _torch_seq_worker.py GROUP
-RANK WORLD STORE OUT DATA``. ``GROUP`` is ``ring``, ``pipeline`` or
-``step``; ``DATA`` is an npz the test writes (the global inputs, the flax
+by ``tests/test_torch_ring.py``, ``tests/test_torch_pipeline.py``,
+``tests/test_torch_sequence_step.py``, ``tests/test_torch_sp_tp.py`` and
+``tests/test_torch_surface_c19_c20.py``): ``python _torch_seq_worker.py
+GROUP RANK WORLD STORE OUT DATA``. ``GROUP`` is ``ring``, ``pipeline``,
+``step``, ``surface`` or ``zigzag``; ``DATA`` is an npz the test writes (the global inputs, the flax
 weights, and ``cases``: the JSON table of this world's cases). Runs every
 case of the group in this world and writes this rank's results to ``OUT``
 (an npz keyed ``case/name``)."""
 
 import json
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -251,16 +253,17 @@ def step_group():
         state = TrainState.create(params, opt)
         if plan.shards_parameters:
             state, _ = plan.shard_state(state)
+        remat = spec.get("remat", False)
         if spec.get("refused"):
             def run():
-                step = make_train_step(loss_fn, opt, parallel=plan)
+                step = make_train_step(loss_fn, opt, parallel=plan, remat=remat)
                 loader = DistributedDataLoader(ArrayDataset(data), 8, mesh=plan.mesh,
                                                axis_name=plan.data_axes, device="cpu")
                 step(state, next(iter(loader)))
 
             catch(case, run)
             continue
-        step = make_train_step(loss_fn, opt, parallel=plan)
+        step = make_train_step(loss_fn, opt, parallel=plan, remat=remat)
         loader = DistributedDataLoader(ArrayDataset(data), 8, mesh=plan.mesh,
                                        axis_name=plan.data_axes, device="cpu")
         losses = []
@@ -273,7 +276,68 @@ def step_group():
         res[f"{case}/tp_blocks"] = np.array(sorted(layout.tp_blocks or ()), dtype=str)
 
 
-{"ring": ring_group, "pipeline": pipeline_group, "step": step_group}[group]()
+def surface_group():
+    """C.19 and C.20: ``shard_ranks``/``unshard_ranks`` and the laid-out
+    collectives, ``replicate`` and ``shard_batch`` over the cases' meshes."""
+    from fluxmpi_tpu_torch.parallel import ParallelConfig
+    from fluxmpi_tpu_torch.parallel.sharding import P
+    from fluxmpi_tpu_torch.parallel.train import replicate, shard_batch
+
+    fm.init(device="cpu")
+    for case, spec in CASES.items():
+        if spec["kind"] == "ranks":
+            x = fm.shard_ranks(D["stacked"])
+            put(case, block=x, whole=fm.unshard_ranks(x),
+                allreduce=fm.allreduce(x), bcast=fm.bcast(x, root=1),
+                allreduce_whole=fm.unshard_ranks(fm.allreduce(x, op="max")),
+                same=np.array(fm.shard_ranks(x) is x))
+            catch(case, lambda: fm.shard_ranks(D["stacked"][:1]))
+        elif spec["kind"] == "replicate":
+            out = replicate({"a": D["stacked"], "b": {"c": D["batch"]}})
+            put(case, a=out["a"], c=out["b"]["c"])
+        elif spec["kind"] == "batch":
+            if spec["spec"] == "plan":
+                plan = ParallelConfig(**spec["plan"]).resolve()
+                mesh, bspec = plan.mesh, plan.batch_spec
+            else:
+                mesh = Mesh(np.arange(world).reshape(spec["shape"]), spec["axes"])
+                bspec = P(*spec["spec"]) if spec["spec"] else None
+            out = shard_batch({"x": D["batch"], "y": D["batch"][..., 0]}, mesh, spec=bspec)
+            put(case, x=out["x"], y=out["y"])
+            catch(case, lambda: shard_batch(D["batch"], mesh, "dp", spec=P("dp")))
+
+
+def zigzag_group():
+    """The zigzag LM of ``examples_torch/long_context_zigzag.py`` over
+    ``dp=1, sp=WORLD``: 3 updates of its loss from the flax weights."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples_torch"))
+    import long_context_zigzag as ex
+    from fluxmpi_tpu_torch.models import load_flax_params
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step
+    from fluxmpi_tpu_torch.parallel.sharding import P
+    from fluxmpi_tpu_torch.parallel.train import shard_batch
+
+    fm.init(device="cpu", mesh_shape={"dp": 1, "sp": world})
+    for case, spec in CASES.items():
+        model = ex.zigzag_lm("cpu", **spec["lm"])
+        load_flax_params(model, {k[len("lm/"):]: v for k, v in D.items()
+                                 if k.startswith("lm/")})
+        params = dict(model.named_parameters())
+        opt = optim.sgd(0.1)
+        b, s = D["zz_tokens"].shape[1:]
+        step = make_train_step(ex.make_loss(model, b * (s - 1), world), opt)
+        state = TrainState.create(params, opt)
+        losses = []
+        for toks in D["zz_tokens"]:
+            batch = shard_batch(ex.zigzag_batch(toks, spec["sp"]), spec=P("dp", "sp"))
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+        res[f"{case}/losses"] = np.array(losses)
+        put(f"{case}/param", **state.params)
+
+
+{"ring": ring_group, "pipeline": pipeline_group, "step": step_group,
+ "surface": surface_group, "zigzag": zigzag_group}[group]()
 np.savez(out, **res)
 fm.shutdown()
 # No rank tears its group down while a peer's last collective is in flight

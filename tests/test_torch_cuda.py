@@ -33,6 +33,7 @@ import socket
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import numpy as np
@@ -1649,3 +1650,113 @@ def test_nccl_sequence_and_pipeline_parallel_train_like_one_card(tmp_path):
         # Every card runs its stage's blocks on each of the 8 microbatches.
         for res_r in ranks:
             assert res_r["cases"][name]["launches"]["flash_fwd"] == 4 * 3 * 8
+
+
+SP_TP_WORKER = textwrap.dedent(r'''
+    import json
+    import sys
+    import time
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.ops import device_launches
+    from fluxmpi_tpu_torch.parallel import ParallelConfig, TrainState, make_train_step
+
+    out = sys.argv[1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = fm.init(timeout=1800.0)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    GPT2 = dict(vocab_size=50257, num_layers=12, d_model=768, num_heads=12, d_ff=3072,
+                ln_eps=1e-5, max_len=8192)
+    UPDATES, BATCH = 4, 4
+    res = dict(card=torch.cuda.get_device_name(dev), world=world, cases={})
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, GPT2["vocab_size"], (UPDATES * BATCH, 8193))).to(dev)
+
+    def train(plan):
+        """UPDATES sgd(0.1) updates of the bf16 flash LM; (losses, device
+        launches per kernel, ms per update after the first)."""
+        model = TransformerLM(**GPT2, attention="flash", dtype=torch.bfloat16, device=dev,
+                              generator=torch.Generator().manual_seed(0))
+        opt = optim.sgd(0.1)
+        state = TrainState.create(dict(model.named_parameters()), opt)
+        if plan is not None:
+            state, _ = plan.shard_state(state)
+
+        def loss_fn(p, ms, batch):
+            return torch.func.functional_call(model, p, (batch["x"],),
+                                              {"targets": batch["y"]}).mean(), ms
+
+        step = (make_train_step(loss_fn, opt, parallel=plan) if plan is not None
+                else make_train_step(loss_fn, opt, grad_reduce=None))
+        losses, times = [], []
+        device_launches(reset=True)
+        for u in range(UPDATES):
+            b = tokens[u * BATCH:(u + 1) * BATCH]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, {"x": b[:, :-1], "y": b[:, 1:]})
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+        launches = device_launches()
+        del model, state, step
+        torch.cuda.empty_cache()
+        return losses, launches, 1e3 * float(np.median(times[1:]))
+
+    plan = ParallelConfig(sp=2, tp=2).resolve()
+    losses, launches, ms = train(plan)
+    res["cases"]["sp2_tp2"] = dict(losses=losses, launches=launches, ms_per_update=ms,
+                                   sp_index=plan.mesh.coords(rank)["sp"])
+    dist.barrier()
+    if rank == 0:
+        losses, launches, ms = train(None)
+        res["cases"]["one_card"] = dict(losses=losses, launches=launches, ms_per_update=ms)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    fm.shutdown()
+''')
+
+
+def test_nccl_sp_tp_step_and_the_multi_rank_examples(tmp_path):
+    """``make_train_step`` over ``ParallelConfig(sp=2, tp=2)`` on four
+    cards over NCCL: bf16 GPT-2 small at 4 x 8192, ``attention="flash"``,
+    ``sgd(0.1)``, 4 updates, each loss within 2**-7 relative of the same
+    run on one card (PERF.md section 2's gate); prints ms per update and
+    each card's kernel launches (card at sp index i attends i + 1 blocks
+    per layer: 12 x (i + 1) forward launches an update). Then the
+    multi-rank examples at four workers: ``transformer_ring.py`` and
+    ``long_context_zigzag.py`` over ``dp=1, sp=4`` and
+    ``parallelism_3d.py --dp 1``, each printing its sentinel."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    import json
+
+    ranks = _launch_world(tmp_path, SP_TP_WORKER, 4, [], "sptp")
+    cases = ranks[0]["cases"]
+    print(f"\nsp=2 x tp=2 on 4 x {ranks[0]['card']}:")
+    for r, res_r in enumerate(ranks):
+        print(f"  rank {r}: {json.dumps(res_r['cases'])}")
+    one = cases["one_card"]["losses"]
+    np.testing.assert_allclose(cases["sp2_tp2"]["losses"], one, rtol=2 ** -7, atol=0)
+    for res_r in ranks:
+        case = res_r["cases"]["sp2_tp2"]
+        assert case["launches"]["flash_fwd"] == 4 * 12 * (case["sp_index"] + 1), case
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for name, argv, sentinel in (
+            ("transformer_ring.py", ["--dp", "1", "--sp", "4"], "TRANSFORMER_RING_OK"),
+            ("long_context_zigzag.py", ["--dp", "1", "--sp", "4"], "LONG_CONTEXT_ZIGZAG_OK"),
+            ("parallelism_3d.py", ["--dp", "1"], "PARALLELISM_3D_OK")):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(root / "examples_torch" / name), *argv],
+                              capture_output=True, text=True, timeout=600, cwd=root, env=env)
+        print(f"  {name} {' '.join(argv)}: rc {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s; " + " | ".join(proc.stdout.splitlines()[-4:]))
+        assert proc.returncode == 0 and sentinel in proc.stdout, proc.stdout[-3000:] + proc.stderr[-3000:]

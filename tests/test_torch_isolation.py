@@ -87,19 +87,35 @@ def test_importing_telemetry_initializes_neither_cuda_nor_a_group():
     assert [m for m in loaded if _forbidden(m)] == []
 
 
+def _imported(path: Path) -> list[str]:
+    """The absolute module names ``path`` imports."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
 def test_sources_import_no_jax_flax_or_reference_package():
-    offenders = []
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    for path in files:
-        tree = ast.parse(path.read_text(), filename=str(path))
-        for node in ast.walk(tree):
-            names = []
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            offenders += [f"{path.name}: {n}" for n in names if _forbidden(n)]
+    """The package (its fluxlint included), the card script and the
+    examples (``examples_torch/``)."""
+    files = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples_torch").glob("*.py")))
+    offenders = [f"{path.name}: {n}" for path in files for n in _imported(path)
+                 if _forbidden(n)]
     assert len(files) > 10 and offenders == []
+    assert len(list((ROOT / "examples_torch").glob("*.py"))) == 10
+
+
+def test_the_port_fluxlint_imports_no_torch_either():
+    """``fluxmpi_tpu_torch/analysis/`` and its CLI are stdlib-only, as the
+    JAX package's fluxlint is: a lint run never initialises CUDA."""
+    files = sorted((PKG / "analysis").glob("*.py")) + [ROOT / "scripts" / "fluxlint_torch.py"]
+    offenders = [f"{path.name}: {n}" for path in files for n in _imported(path)
+                 if _forbidden(n) or n.split(".")[0] in ("torch", "numpy", "fluxmpi_tpu_torch")]
+    assert len(files) == 6 and offenders == []
 
 
 def test_the_native_loader_is_the_ports_own_copy():

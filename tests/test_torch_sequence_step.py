@@ -19,7 +19,8 @@ global batches, 3 updates of ``sgd(0.1)`` each:
   gathered);
 - the refusals: a loss that enters no sequence-parallel layer, an
   ``attention_fn`` that is not sequence-parallel, the MoE LM's routed
-  feed-forward under sp, and sp with tp.
+  feed-forward under sp, sp with ep and pp with tp (sp with tp trains
+  since slice 15, the ``sp_tp`` case).
 
 Every update's loss and every parameter block (shape and values, against
 JAX's addressable shard on the same mesh coordinate) within 2e-5.
@@ -59,7 +60,9 @@ CASES = {
         "lm_dp_sp_flash": _lm(dict(dp=2, sp=2), attention="flash"),
         "c18_dp_tp": _lm(dict(dp=2, tp=2), penalty="all"),
         "pp_dp": _pp(dict(dp=2, pp=2)),
-        "sp_tp_refused": _lm(dict(sp=2, tp=2), refused=True),
+        "sp_tp": _lm(dict(sp=2, tp=2)),
+        "sp_ep_refused": _lm(dict(sp=2, ep=2), refused=True),
+        "pp_tp_refused": _pp(dict(pp=2, tp=2)) | dict(refused=True),
     },
     2: {
         "lm_sp_ring_fn": _lm(dict(sp=2), fn="ring_fn"),
@@ -222,13 +225,18 @@ def test_c18_every_claimed_leaf_with_an_outside_reader_stays_gathered(world, wor
 def test_sequence_parallel_refusals_name_their_gap(world, worlds):
     """A loss that no sequence-parallel layer enters, and an attention_fn
     that is not sequence-parallel, raise at the first update naming sp;
-    sp with tp raises when the step is built, naming the open gap."""
+    sp with ep and pp with tp raise when the step is built, naming the
+    open gap."""
     msg = str(worlds[2][0]["sp_no_layer_refused/raised"])
     assert msg.startswith("ValueError: under a plan with sp=2") and "sequence block" in msg
     msg = str(worlds[2][0]["sp_fn_refused/raised"])
     assert msg.startswith("ValueError:") and "not sequence-parallel over 'sp'" in msg
-    msg = str(worlds[4][0]["sp_tp_refused/raised"])
-    assert msg.startswith("NotImplementedError:") and "sp=2 and tp=2" in msg
+    # sp with tp trains (the sp_tp case); sp with ep and pp with tp still
+    # raise naming the gap.
+    msg = str(worlds[4][0]["sp_ep_refused/raised"])
+    assert msg.startswith("NotImplementedError:") and "sp=2 and ep=2" in msg, msg
+    msg = str(worlds[4][0]["pp_tp_refused/raised"])
+    assert msg.startswith("NotImplementedError:") and "pp=2 and tp=2" in msg, msg
     # The MoE layers route each whole sequence as one group.
     msg = str(worlds[2][0]["sp_moe_refused/raised"])
     assert msg.startswith("NotImplementedError: the feed-forward sublayer 'moe'"), msg
