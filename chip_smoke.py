@@ -259,6 +259,25 @@
    its launches read by the kernels' device counters around the run (and
    around its ``generate`` alone) and held equal to the wrappers' counts;
    then ``python scripts/fluxlint_torch.py`` must exit 0.
+18. Compose phase (``compose_phase``): the pieces of every plan
+   composition that one card can hold. (a) The MoE layer at
+   Switch-Base-8 widths (d 768, d_ff 3072, 8 experts, capacity factor
+   1.25, f32) over b 4 x 8192 tokens routed as 4 sequence blocks through
+   the sp path's own routing (``block_layout``, ``route_block``,
+   ``choose_block``; the whole groups' router probabilities passed in as
+   the sp path gathers them), top-1, top-2 and expert choice: each
+   block's dispatch and combine (picks and gates) equal to the whole
+   sequence's rows bit for bit, the output and the balance loss within
+   1e-5 of the whole sequence's. (b) The dense ring with dropout 0.1 (b 2,
+   8192 tokens, 12 heads of 64, 8 positions on the card): every tick's
+   keep mask equal to the slice of the whole-sequence draw bit for bit,
+   the output within 1e-3 (max|diff| / max|ref|) of flax's dense
+   whole-sequence attend with that mask. (c) ViT-B/16 in bf16 (batch 128,
+   dropout 0.1: the embeddings drop, the flash attention does not, as
+   under flax's keyword filter) trained 16 updates through the three
+   kernels with ``fuse="auto"`` (windows of 4) and ``fuse=False``, the same
+   dropout generator: every leaf bit for bit, the launches by the device
+   counters equal to the wrappers' (with the graphs') and to 12 per update.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -5807,6 +5826,310 @@ def examples_phase(device):
     return stats, failures
 
 
+# Compose phase: the MoE layer at Switch-Base-8 widths over b 4 x 8192
+# tokens as 4 sequence blocks; the dense ring at GPT-2-small attention
+# widths as 8 positions with dropout 0.1; ViT-B/16 trained with dropout 0.1.
+COMPOSE_MOE = dict(batch=4, seq=8192, blocks=4)
+COMPOSE_RING = dict(batch=2, seq=8192, heads=12, head_dim=64, positions=8, rate=0.1)
+COMPOSE_VIT = dict(updates=16, flush_every=4, dropout=0.1)
+# The blocks' MoE output and balance loss against the whole sequence's:
+# max|diff| / max|ref| (f32, the same routing).
+COMPOSE_MOE_TOL = 1e-5
+
+
+def moe_blocks_against_whole(layer, x, n: int) -> dict:
+    """Route ``x [b, S, d]`` as ``n`` sequence blocks through ``layer``'s
+    own sequence-parallel routing (``block_layout``, ``route_block`` or
+    ``choose_block``, with the whole groups' router probabilities passed
+    in as the sp path gathers them), as ``sequence_ring`` simulates ring
+    positions, beside routing the whole sequence from the same
+    probabilities: whether each block's dispatch and combine (expert
+    choice: its picks and gates) equal the whole one's rows bit for bit,
+    and the blocks' output and balance loss against the whole ones
+    (max|diff| / max|ref|)."""
+    import torch
+
+    from fluxmpi_tpu_torch.models.moe import _local, _one_hot, _own, _top_k, block_layout
+
+    b, S, d = x.shape
+    s_l, e, dt = S // n, layer.num_experts, layer.dtype
+    with torch.no_grad():
+        tokens = [x[:, i * s_l:(i + 1) * s_l].reshape(b * s_l, d).to(dt) for i in range(n)]
+        probs = [torch.softmax(torch.einsum("nd,de->ne", t.float(), layer.router.float()), -1)
+                 for t in tokens]
+        lay0 = block_layout(b, s_l, n, 0, layer.n_groups, x.device)
+        whole = torch.cat([p.reshape(b, s_l, e) for p in probs], 1).reshape(
+            lay0.groups, lay0.gs, e)
+        tok = torch.cat([t.reshape(b, s_l, d) for t in tokens], 1).reshape(
+            lay0.groups, lay0.gs, d)
+        if layer.routing == "tokens":
+            disp, comb, _, first = layer.route(whole)
+            out = layer._apply_experts(torch.einsum("gsec,gsd->gecd", disp.to(dt), tok))
+            y = torch.einsum("gsec,gecd->gsd", comb.to(dt), out)
+            aux = e * torch.mean(torch.sum(first.mean(dim=1) * whole.mean(dim=1), dim=-1))
+        else:
+            # The top tokens and their probabilities, as routing the whole
+            # sequence without blocks picks them.
+            gates, idx = _top_k(whole.transpose(1, 2), layer.expert_capacity(lay0.gs))
+            pick = _one_hot(idx, lay0.gs)  # [G, E, C, S]
+            out = layer._apply_experts(torch.einsum("gecs,gsd->gecd", pick.to(dt), tok))
+            y = torch.einsum("gecs,gec,gecd->gsd", pick.to(dt), gates.to(dt), out)
+            aux = torch.zeros((), device=x.device)
+        equal, frac, ys = True, 0.0, []
+        for i in range(n):
+            lay = block_layout(b, s_l, n, i, layer.n_groups, x.device)
+            p_own, t_own = _own(probs[i], lay), _own(tokens[i], lay)
+            live = lay.valid[..., None, None]
+            if layer.routing == "tokens":
+                d_i, c_i, _, first_i = layer.route_block(whole, p_own, lay.pos, lay.valid)
+                at = lay.pos[..., None, None].expand(-1, -1, *disp.shape[2:])
+                equal &= (torch.equal(d_i, torch.gather(disp, 1, at) * live)
+                          and torch.equal(c_i, torch.gather(comb, 1, at) * live)
+                          and torch.equal(first_i, first))
+                frac = frac + p_own.sum(dim=1)
+                o_i = layer._apply_experts(torch.einsum("gmec,gmd->gecd", d_i.to(dt), t_own))
+                y_i = torch.einsum("gmec,gecd->gmd", c_i.to(dt), o_i)
+            else:
+                own, g_i = layer.choose_block(whole, p_own, lay.pos, lay.valid)
+                at = lay.pos[:, None, None, :].expand(*pick.shape[:3], -1)
+                want = torch.gather(pick, 3, at) * lay.valid[:, None, None, :]
+                equal &= (torch.equal(own, want)
+                          and torch.equal(g_i, gates * (own.sum(-1) > 0)))
+                o_i = layer._apply_experts(torch.einsum("gecm,gmd->gecd", own.to(dt), t_own))
+                y_i = torch.einsum("gecm,gec,gecd->gmd", own.to(dt), g_i.to(dt), o_i)
+            ys.append(_local(y_i, lay).reshape(b, s_l, d))
+        aux_blocks = (e * torch.mean(torch.sum(first.mean(dim=1) * frac / lay0.gs, dim=-1))
+                      if layer.routing == "tokens" else torch.zeros((), device=x.device))
+    return dict(equal=bool(equal), out_rel=_rel_max(torch.cat(ys, 1), y.reshape(b, S, d)),
+                aux=float(aux), aux_rel=abs(float(aux_blocks) - float(aux))
+                / max(abs(float(aux)), 1e-30))
+
+
+def dense_ring_dropout(q, k, v, n: int, rate: float, seed):
+    """The dense ring with dropout (``parallel/ring.py`` ``_ring_dense``, as
+    a transformer layer runs it under sp) for every one of ``n`` positions
+    on this card, the resident blocks handed over in memory. Returns the
+    output and each tick's ``(q_pos, k_pos, keep)`` as the ring drew it."""
+    import torch
+
+    from fluxmpi_tpu_torch.models import _layers
+    from fluxmpi_tpu_torch.parallel import ring
+
+    ticks = []
+    draw = _layers.dense_dropout_keep
+
+    def recording(seed, q_pos, k_pos, keep_prob, bh=0):
+        keep = draw(seed, q_pos, k_pos, keep_prob, bh)
+        ticks.append((q_pos, k_pos, keep))
+        return keep
+
+    _layers.dense_dropout_keep = recording
+    try:
+        qs, ks, vs = (t.chunk(n, 1) for t in (q, k, v))
+        outs = []
+        for i in range(n):
+            tick = [0]
+
+            def rotate(blocks, i=i, tick=tick):
+                tick[0] += 1
+                j = (i - tick[0]) % n
+                return (ks[j], vs[j])
+
+            outs.append(ring._ring_dense(qs[i], ks[i], vs[i], causal=True, n=n, idx=i,
+                                         qseg=None, kseg=None, rotate=rotate,
+                                         dropout_rate=rate, dropout_seed=seed))
+    finally:
+        _layers.dense_dropout_keep = draw
+    return torch.cat(outs, 1), ticks
+
+
+def dense_dropout_reference(q, k, v, keep, rate: float, chunk: int = 1024):
+    """flax's dense causal attend in f32 with the broadcast keep mask
+    ``keep [S, S]`` (the weights normalized, then times ``keep /
+    keep_prob``), a chunk of query rows at a time."""
+    import torch
+
+    S, d = q.shape[1], q.shape[-1]
+    kf, vf = k.float(), v.float()
+    outs = []
+    for q0 in range(0, S, chunk):
+        q1 = min(q0 + chunk, S)
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, q0:q1].float() / math.sqrt(d), kf)
+        causal = (torch.arange(q0, q1, device=q.device)[:, None]
+                  >= torch.arange(S, device=q.device)[None, :])
+        s = torch.where(causal, s, torch.finfo(torch.float32).min)
+        w = torch.softmax(s, dim=-1) * (keep[q0:q1].float() / (1.0 - rate))
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", w, vf))
+        del s, w
+    return torch.cat(outs, 1)
+
+
+def compose_phase(device):
+    """The plan compositions' pieces on one card (module docstring, item
+    18). Returns its stats and failures."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import MoEMLP, ViT
+    from fluxmpi_tpu_torch.models._layers import dense_dropout_keep
+    from fluxmpi_tpu_torch.ops import flash_attention_fn, flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.ops.flash_attention import _draw_dropout_seed
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+
+    failures = []
+    card = card_line()
+    t_phase = time.perf_counter()
+    stats = dict(card=card, moe=dict(COMPOSE_MOE), ring=dict(COMPOSE_RING),
+                 vit=dict(COMPOSE_VIT))
+    paths = stats["launches_by_path"] = {}
+    gen = torch.Generator(device=device).manual_seed(18)
+
+    # (a) The MoE layer's routing over 4 sequence blocks against the whole
+    #     sequence: Switch-Base-8 widths, f32.
+    cfg = SWITCH_BASE_8
+    b, S, n = COMPOSE_MOE["batch"], COMPOSE_MOE["seq"], COMPOSE_MOE["blocks"]
+    x = torch.randn((b, S, cfg["d_model"]), generator=gen, device=device)
+    stats["moe"]["routes"] = {}
+    for label, kw in (("top1", dict(top_k=1)), ("top2", dict(top_k=2)),
+                      ("experts", dict(routing="experts"))):
+        layer = MoEMLP(cfg["num_experts"], cfg["d_ff"], cfg["capacity_factor"],
+                       d_model=cfg["d_model"], device=device,
+                       generator=torch.Generator().manual_seed(0), **kw)
+        t0 = time.perf_counter()
+        got = moe_blocks_against_whole(layer, x, n)
+        torch.cuda.synchronize()
+        got["seconds"] = time.perf_counter() - t0
+        stats["moe"]["routes"][label] = got
+        ok = (got["equal"] and got["out_rel"] <= COMPOSE_MOE_TOL
+              and got["aux_rel"] <= COMPOSE_MOE_TOL)
+        print(f"compose moe {label}: b {b} x {S} tokens as {n} sequence blocks, d "
+              f"{cfg['d_model']}, d_ff {cfg['d_ff']}, {cfg['num_experts']} experts, capacity "
+              f"factor {cfg['capacity_factor']}: dispatch and combine equal to the whole "
+              f"sequence's bit for bit {got['equal']}; output max|diff|/max|ref| "
+              f"{got['out_rel']:.3e}, balance loss {got['aux']:.6f} rel {got['aux_rel']:.3e} "
+              f"(limit {COMPOSE_MOE_TOL}) in {got['seconds']:.2f} s: "
+              f"{'ok' if ok else 'FAILED'}; {card}", flush=True)
+        if not ok:
+            failures.append(f"compose moe {label}: {got}")
+        del layer
+    del x
+    torch.cuda.empty_cache()
+
+    # (b) The dense ring with dropout 0.1 over 8 positions against the
+    #     whole-sequence draw and the dense whole-sequence attend.
+    b, S, h, d, n, rate = (COMPOSE_RING[k] for k in ("batch", "seq", "heads", "head_dim",
+                                                     "positions", "rate"))
+    q, k, v = (torch.randn((b, S, h, d), generator=gen, device=device) for _ in range(3))
+    seed = _draw_dropout_seed(torch.Generator(device=device).manual_seed(5))
+    t0 = time.perf_counter()
+    out, ticks = dense_ring_dropout(q, k, v, n, rate, seed)
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    rows = torch.arange(S, device=device)
+    whole = dense_dropout_keep(seed, rows, rows, 1.0 - rate)
+    equal = all(torch.equal(keep, whole[qp][:, kp]) for qp, kp, keep in ticks)
+    ref = dense_dropout_reference(q, k, v, whole, rate)
+    err = _rel_max(out, ref)
+    live = torch.tril(torch.ones(S, S, dtype=torch.bool, device=device))
+    kept = float(whole[live].float().mean())
+    ok = equal and err <= SEQ_F32_TOL and len(ticks) == n * (n + 1) // 2
+    stats["ring"].update(ticks=len(ticks), masks_equal=equal, out_rel=err, keep_fraction=kept,
+                         seconds=ring_s)
+    print(f"compose dense ring dropout: b {b}, {S} tokens, {h} heads of {d}, rate {rate}, "
+          f"{n} positions: {len(ticks)} ticks (need {n * (n + 1) // 2}), every tick's mask "
+          f"the slice of the whole-sequence draw bit for bit {equal}; keep fraction "
+          f"{kept:.5f} of the causal pairs; output max|diff|/max|ref| {err:.3e} against the "
+          f"dense whole-sequence attend with that mask (limit {SEQ_F32_TOL}); ring "
+          f"{ring_s:.2f} s: {'ok' if ok else 'FAILED'}; {card}", flush=True)
+    if not ok:
+        failures.append(f"compose dense ring dropout: {stats['ring']}")
+    del q, k, v, out, ref, whole, live, ticks
+    torch.cuda.empty_cache()
+
+    # (c) ViT-B/16 in bf16 with dropout 0.1 through the three kernels:
+    #     fused windows against fuse=False, the same generators.
+    if fm.is_initialized():
+        fm.shutdown()
+    dev = fm.init()
+    corpus = image_corpus(VIT_IMAGES, VIT_HW, RESNET_CLASSES)
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    updates, flush_every = COMPOSE_VIT["updates"], COMPOSE_VIT["flush_every"]
+    runs = {}
+    for fuse in (False, "auto"):
+        model = ViT(**VIT_B16, dropout=COMPOSE_VIT["dropout"], dtype=torch.bfloat16,
+                    attention_fn=flash_attention_fn(), image_size=VIT_HW, device=dev,
+                    generator=torch.Generator().manual_seed(0))
+        drops = torch.Generator(device=dev).manual_seed(7)
+
+        def loss_fn(params, model_state, batch, model=model, drops=drops):
+            xb, yb = batch
+            return F.cross_entropy(model(xb.to(torch.float32) / 255.0, dropout_rng=drops),
+                                   yb), model_state
+
+        opt = optim.adamw(1e-3)
+        loader = fm.DistributedDataLoader(fm.DistributedDataContainer(fm.ArrayDataset(corpus)),
+                                          global_batch_size=VIT_BATCH, shuffle=True,
+                                          device=dev)
+        step = make_train_step(loss_fn, opt)
+        state = TrainState.create(model, opt)
+        torch.cuda.synchronize()
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        (state, summ), launches = kernel_launches(
+            lambda: train_loop(step, state, loader, steps=updates, flush_every=flush_every,
+                               fuse=fuse))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counted = {kern.__name__: kern.launches for kern in kernels}
+        extra = graph_launches(step)
+        accounted = {name: counted[name] + extra[name] for name in counted}
+        leaves = {f"params/{key}": val.detach().clone() for key, val in state.params.items()}
+        for m in ("mu", "nu"):
+            leaves.update({f"{m}/{key}": val.clone() for key, val in state.opt_state[m].items()})
+        name = "fused" if fuse else "pipelined"
+        runs[name] = dict(leaves=leaves, launches=launches, accounted=accounted,
+                          flushes=[f["loss_mean"] for f in summ["flushes"]],
+                          seconds=seconds, fused_window=summ["fused_window"],
+                          replays=sum(g["replays"] for g in graph_stats(step)))
+        paths[f"compose_vit_dropout_{name}"] = launches
+        del model, step, state, loader
+        torch.cuda.empty_cache()
+    fused, pipe = runs["fused"], runs["pipelined"]
+    same = sum(torch.equal(fused["leaves"][key], pipe["leaves"][key]) for key in pipe["leaves"])
+    need = {kern: VIT_B16["num_layers"] * updates for kern in MMA_KERNELS}
+    for name, run in runs.items():
+        ok = run["launches"] == need and run["accounted"] == run["launches"]
+        print(f"compose vit dropout [{name}]: ViT-B/16 bf16, batch {VIT_BATCH}, dropout "
+              f"{COMPOSE_VIT['dropout']}, {updates} updates (fused_window "
+              f"{run['fused_window']}, {run['replays']} replays) in {run['seconds']:.2f} s; "
+              f"flush losses {[round(v, 6) for v in run['flushes']]}; launches by the device "
+              f"counters {run['launches']}, the wrappers' with the graphs' {run['accounted']} "
+              f"(need {need}): {'ok' if ok else 'FAILED'}; {card}", flush=True)
+        if not ok:
+            failures.append(f"compose vit dropout [{name}]: launches {run['launches']}, "
+                            f"accounted {run['accounted']}, need {need}")
+    bitwise = same == len(pipe["leaves"]) and fused["flushes"] == pipe["flushes"]
+    print(f"compose vit dropout: fused against fuse=False {same}/{len(pipe['leaves'])} leaves "
+          f"bit for bit, flush losses equal {fused['flushes'] == pipe['flushes']}: "
+          f"{'ok' if bitwise else 'FAILED'}", flush=True)
+    if not bitwise:
+        failures.append(f"compose vit dropout: fused {same}/{len(pipe['leaves'])} leaves "
+                        f"equal to fuse=False")
+    if fused["replays"] < 1:
+        failures.append("compose vit dropout: the fused run replayed no graph")
+    stats["vit"].update({name: {key: val for key, val in run.items() if key != "leaves"}
+                         for name, run in runs.items()}, same_leaves=same,
+                        leaves=len(pipe["leaves"]))
+    fm.shutdown()
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"compose phase: {stats['seconds']:.2f} s", flush=True)
+    return stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -5926,10 +6249,14 @@ def run_phases(device):
     settle("examples_phase")
     ex, ex_failures = examples_phase(device)
     failures += ex_failures
+    settle("compose_phase")
+    comp, comp_failures = compose_phase(device)
+    failures += comp_failures
     par_paths = {**par.get("launches_by_path", {}),
                  **tune_auto.get("launches_by_path", {}),
                  **elastic.get("launches_by_path", {}),
                  **seq.get("launches_by_path", {}),
+                 **comp.get("launches_by_path", {}),
                  **{f"example_{n[:-3]}": r["launches"] for n, r in ex["examples"].items()
                     if r["launches"] and any(r["launches"].values())}}
     health_paths = {f"health_planes_{name}": health[f"planes_{name}"]["launches"]
@@ -6066,7 +6393,8 @@ def run_phases(device):
                      "train_bf16_fused": fused, "train_bf16_telemetry": telem,
                      "vision": vision, "zoo": zoo, "finetune": tune,
                      "health": health, "parallel": par, "autotune": tune_auto,
-                     "elastic": elastic, "sequence": seq, "examples": ex}, failures
+                     "elastic": elastic, "sequence": seq, "examples": ex,
+                     "compose": comp}, failures
 
 
 if __name__ == "__main__":

@@ -112,9 +112,6 @@ def main():
             if (i + 1) % 5 == 0:
                 mgr.save(i + 1, state)
         mgr.wait_until_finished()
-        # Rank 0 writes a replicated state; the others see its commit
-        # once it has waited for it (ROADMAP C.21).
-        fm.barrier()
         assert mgr.latest_step() == 10
     fm.fluxmpi_println(
         f"zigzag LM: loss {losses[0]:.3f} -> {losses[-1]:.3f} over "

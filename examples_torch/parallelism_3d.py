@@ -11,10 +11,10 @@ in one script, one process per worker (started by
   and a ``rules=`` row that shards the one big leaf the tp table leaves
   replicated (``pos_embed``) over dp; ``remat=True``;
 - ``dp`` x ``ep``: the MoE LM with its experts over ``ep`` (a second
-  mesh over the same workers, from its own ``ParallelConfig``);
-- ``pp``: a 4-stage GPipe schedule (a third mesh, ``dp`` x ``pp``: the
-  JAX example runs it on 4 of its devices, here each dp row of workers
-  runs the same pipeline).
+  mesh: ``shutdown()``, then ``init(mesh_shape=...)`` again);
+- ``pp``: a 4-stage GPipe schedule (a third mesh, ``dp`` x ``pp``, after
+  another ``shutdown()``: the JAX example runs it on 4 of its devices,
+  here each dp row of workers runs the same pipeline).
 
 ``--dp 1`` runs the same script on four workers. On the card, or on the
 CPU with ``--cpu``.
@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 import fluxmpi_tpu_torch as fm
-from fluxmpi_tpu_torch import launch, optim
+from fluxmpi_tpu_torch import launch, optim, runtime
 from fluxmpi_tpu_torch.models import (MoETransformerLM, TransformerLM, collect_moe_losses,
                                       expert_parallel_rules)
 from fluxmpi_tpu_torch.parallel import (TrainState, combine_rules, fsdp_rule,
@@ -85,7 +85,9 @@ def main():
     fm.fluxmpi_println(f"dp×sp×tp TransformerLM: loss {float(loss):.4f}")
 
     # --------------------------------------------------------------- dp x ep
-    mesh_ep = fm.ParallelConfig(dp=args.dp, ep=4).resolve().mesh
+    runtime.shutdown()
+    dev = fm.init(mesh_shape={"dp": args.dp, "ep": 4}, device=device)
+    mesh_ep = runtime.global_mesh()
     moe = MoETransformerLM(vocab_size=256, max_len=64, num_layers=2, d_model=64,
                            num_heads=4, d_ff=128, num_experts=4, mesh=mesh_ep, device=dev,
                            generator=torch.Generator().manual_seed(1))
@@ -110,7 +112,9 @@ def main():
     fm.fluxmpi_println(f"dp×ep MoE LM:           loss {float(loss_ep):.4f}")
 
     # ------------------------------------------------------------- pp stages
-    mesh_pp = fm.ParallelConfig(dp=args.dp, pp=4).resolve().mesh
+    runtime.shutdown()
+    dev = fm.init(mesh_shape={"dp": args.dp, "pp": 4}, device=device)
+    mesh_pp = runtime.global_mesh()
 
     def stage_fn(p, h):
         return F.gelu(h @ p["w"] + p["b"], approximate="tanh")

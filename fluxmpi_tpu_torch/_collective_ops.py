@@ -27,7 +27,7 @@ import torch.distributed.nn.functional as dfn
 from torch.utils import _pytree as pytree
 
 __all__ = ["Exchanges", "MeshAxis", "allreduce_by_op", "masked_psum_bcast",
-           "shard_along", "unshard_along"]
+           "shard_along", "sum_shared", "unshard_along"]
 
 _EXTREMA = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
 
@@ -292,6 +292,32 @@ class _Unshard(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.chunk(ctx.axis.size, ctx.dim)[ctx.axis.index].contiguous(), None, None
+
+
+class _SumShared(torch.autograd.Function):
+    """The sum over an axis of every member's ``x``, for a sum that every
+    member's loss reads alike (the MoE layers' group statistics under
+    sequence parallelism): the forward all-reduces; the backward hands
+    each member ``size`` times its own cotangent, which is what the
+    all-reduce's backward (a sum of the members' cotangents) gives when
+    they are equal, with no collective in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.size = axis.size
+        out = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=axis.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.size, None
+
+
+def sum_shared(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """``x`` summed over ``axis``, differentiable for a sum that every
+    member's loss reads alike (see :class:`_SumShared`)."""
+    return _SumShared.apply(x, axis) if axis.size > 1 else x
 
 
 def shard_along(xs: Any, axis: MeshAxis, dims: Any) -> tuple:

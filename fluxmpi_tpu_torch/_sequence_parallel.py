@@ -15,7 +15,9 @@ Under the step's context with an ``sp`` axis the port's transformer layers
 run their attention as a ring over it with global positions, and the step
 checks that the loss entered a sequence-parallel attention: ``entered``
 counts the ring and Ulysses attends that bound the context's ``sp``
-axis.
+axis. A pipeline stage runs under a context of its own (``stage=True``,
+no ``sp``): the pipeline replicates every axis but ``pp``, as the JAX
+package's ``shard_map`` over ``pp`` does.
 """
 
 from __future__ import annotations
@@ -33,11 +35,13 @@ _local = threading.local()
 class SequenceParallel:
     """The mesh of the running computation, and its axis ``sp`` (or None)
     over which the sequences are sharded; ``entered`` counts the
-    sequence-parallel attends that ran over ``sp``."""
+    sequence-parallel attends that ran over ``sp``; ``stage``: the
+    computation is a pipeline stage."""
 
-    def __init__(self, mesh: Any, sp: str | None = None):
+    def __init__(self, mesh: Any, sp: str | None = None, stage: bool = False):
         self.mesh = mesh
         self.sp = sp
+        self.stage = stage
         self.entered = 0
         self._axes: dict[str, MeshAxis] = {}
 

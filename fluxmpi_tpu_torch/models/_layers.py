@@ -56,7 +56,7 @@ from .. import runtime
 
 __all__ = ["BatchNorm", "Conv", "Dense", "GroupNorm", "LayerNorm",
            "MultiHeadDotProductAttention", "StatsContext", "at_least_f32",
-           "dot_product_attention", "init_batch_stats", "lecun_normal", "max_pool",
+           "dense_dropout_keep", "dot_product_attention", "init_batch_stats", "lecun_normal", "max_pool",
            "name_norms", "same_pads", "zeros_init"]
 
 
@@ -344,9 +344,28 @@ class GroupNorm(nn.Module):
         return y + at_least_f32(self.bias).reshape(1, c, *shape[2:])
 
 
+def dense_dropout_keep(seed, q_pos, k_pos, keep_prob: float, bh=0) -> torch.Tensor:
+    """The keep mask (True = keep) of the dense attend's dropout at query
+    positions ``q_pos`` and key positions ``k_pos`` (integer tensors):
+    ``[len(q_pos), len(k_pos)]``, or with ``bh`` (a ``[b * h]`` tensor of
+    folded batch-head rows) ``[b * h, len(q_pos), len(k_pos)]``. A
+    counter-based draw: the flash kernels' murmur3 hash of ``(seed, bh,
+    q_pos, k_pos)`` against the keep threshold
+    (:func:`~fluxmpi_tpu_torch.ops.flash_attention.dropout_keep_reference`),
+    so any block of the mask is drawn alone, by its global positions: a
+    sequence-parallel ring drops exactly what the whole-sequence attend
+    drops with the same seed."""
+    from ..ops.flash_attention import dropout_keep_reference
+
+    q_pos, k_pos = q_pos[:, None], k_pos[None, :]
+    if torch.is_tensor(bh):
+        bh, q_pos, k_pos = bh[:, None, None], q_pos[None], k_pos[None]
+    return dropout_keep_reference(seed, bh, q_pos, k_pos, keep_prob)
+
+
 def dot_product_attention(query, key, value, mask=None, *, dropout_rng=None,
-                          dropout_rate: float = 0.0, deterministic: bool = False,
-                          dtype=None):
+                          dropout_rate: float = 0.0, broadcast_dropout: bool = True,
+                          deterministic: bool = False, dtype=None):
     """flax's ``nn.dot_product_attention`` over ``(b, s, h, d)`` tensors:
     ``softmax(q / sqrt(d) . k^T)`` in ``dtype`` (default the query's),
     where ``mask`` (broadcastable to ``[b, h, sq, sk]``, True = attend) is
@@ -354,12 +373,13 @@ def dot_product_attention(query, key, value, mask=None, *, dropout_rng=None,
     (rounded to ``dtype``) times the values.
 
     Dropout (``dropout_rate > 0`` and not ``deterministic``), as flax's
-    ``dot_product_attention_weights`` with its default
-    ``broadcast_dropout=True``: one Bernoulli(``1 - dropout_rate``) keep
-    mask of shape ``[sq, sk]``, shared by every batch row and head, drawn
-    from the ``torch.Generator`` ``dropout_rng`` (on the weights' device;
-    required, as flax requires a ``"dropout"`` rng), and the weights times
-    ``keep / keep_prob`` in ``dtype``. flax draws its mask from its own
+    ``dot_product_attention_weights``: with ``broadcast_dropout=True`` (its
+    default) one Bernoulli(``1 - dropout_rate``) keep mask of shape ``[sq,
+    sk]``, shared by every batch row and head, else one per batch row and
+    head; the weights times ``keep / keep_prob`` in ``dtype``. The mask is
+    :func:`dense_dropout_keep` under one uint32 seed drawn from the
+    ``torch.Generator`` ``dropout_rng`` (on the weights' device; required,
+    as flax requires a ``"dropout"`` rng). flax draws its mask from its own
     random stream, which the port cannot reproduce: the two agree in law
     (the keep rate, the scaling, the shared shape), not bit for bit. A CUDA
     generator is noted for CUDA-graph windows
@@ -377,12 +397,19 @@ def dot_product_attention(query, key, value, mask=None, *, dropout_rng=None,
             raise ValueError("dropout_rate > 0 with deterministic=False needs a "
                              "dropout_rng (a torch.Generator on the weights' "
                              "device), as flax needs a 'dropout' rng")
-        from ..runtime import note_graph_generator
+        from ..ops.flash_attention import _draw_dropout_seed
 
-        note_graph_generator(dropout_rng)
         keep_prob = 1.0 - dropout_rate
-        keep = torch.rand(w.shape[-2:], generator=dropout_rng, device=w.device) < keep_prob
-        w = w * (keep.to(dtype) / torch.tensor(keep_prob, dtype=dtype, device=w.device))
+        seed = _draw_dropout_seed(dropout_rng).to(w.device)
+        b, h, sq, sk = w.shape
+        rows = torch.arange(sq, device=w.device)
+        cols = torch.arange(sk, device=w.device)
+        if broadcast_dropout:
+            keep = dense_dropout_keep(seed, rows, cols, keep_prob)
+        else:
+            bh = torch.arange(b * h, device=w.device)
+            keep = dense_dropout_keep(seed, rows, cols, keep_prob, bh).reshape(b, h, sq, sk)
+        w = w * (keep.to(dtype) / torch.full((), keep_prob, dtype=dtype, device=w.device))
     return torch.einsum("bhqk,bkhd->bqhd", w, value.to(dtype))
 
 

@@ -28,19 +28,44 @@ differentiable ``all_to_all_single``, the local experts run on every
 worker's tokens, and the result is exchanged back before the combine,
 where in JAX the sharding pins let the partitioner insert the same
 all-to-alls. With ``mesh=None`` the layer is dense.
+
+Sequence parallelism: under a layout step over a plan with ``sp > 1``
+(:mod:`fluxmpi_tpu_torch._sequence_parallel`) the layer gets this
+worker's block of each sequence, and it routes each group as a whole, as
+the JAX package's partitioned step does: the router probabilities of the
+sp group's tokens are all-gathered (detached, ``[N, E]`` per worker), so
+every worker picks each token's experts, its slot in an expert's capacity
+(the cumulative count over the whole group, first choices first) and,
+under expert choice, each expert's top tokens over the whole group, then
+builds the dispatch and combine of its own tokens only
+(:meth:`MoEMLP.route_block`). A capacity slot belongs to one token, so a
+worker's expert inputs hold its own tokens' slots and its combine reads
+only those: no sum of expert inputs over sp. The capacity comes from the
+whole group's size; the balance loss's router-probability factor and the
+z-loss sum over sp (:func:`~fluxmpi_tpu_torch._collective_ops.sum_shared`),
+so every worker sows the group's values. Groups (``n_groups``) may cut
+across the sequence blocks; a worker's tokens of one group are then
+padded to the largest count. Under ``ep`` the all-to-all runs in the ep
+group at the worker's own sp index. Inside a pipeline stage a layer built
+with ``mesh=`` raises ``ValueError``, as the JAX package's sharding pins do
+there.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import warnings
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from .. import _sequence_parallel as _sp
 from .. import config
+from .._collective_ops import sum_shared
 from ..runtime import resolve_device
 from ._layers import _Init, lecun_normal
 from .transformer import EncoderBlock, TransformerEncoder, TransformerLM
@@ -90,6 +115,75 @@ def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     ties to the lower index (a stable sort)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+class BlockLayout(NamedTuple):
+    """Where this worker's tokens sit in their routing groups under
+    sequence parallelism: ``groups`` groups of ``gs`` tokens over the sp
+    group's sequences; this worker's tokens of group ``g`` are local tokens
+    ``index[g, :count]`` (a contiguous run; padded to ``m`` with the index
+    ``n_local``, a zero row) at group positions ``pos[g]``; ``valid`` marks
+    the real ones and ``back[t]`` is local token ``t``'s flat ``g * m +
+    j``. ``regular``: the runs are ``reshape(groups, m)`` of the local
+    tokens (one group per row, the default)."""
+
+    groups: int
+    gs: int
+    m: int
+    index: torch.Tensor
+    pos: torch.Tensor
+    valid: torch.Tensor
+    back: torch.Tensor
+    regular: bool
+
+
+@functools.lru_cache(maxsize=64)
+def block_layout(b: int, s_local: int, n: int, i: int, n_groups: int | None,
+                 device: torch.device) -> BlockLayout:
+    """The :class:`BlockLayout` of sequence block ``i`` of ``n`` (``b``
+    rows of ``s_local`` tokens each, row ``r``'s block at ``r * S + i *
+    s_local`` of the sp group's flattened tokens, ``S = n * s_local``),
+    grouped as the JAX package groups the whole batch: ``n_groups`` groups,
+    or one per row. Made once per shape (host lists, then one copy)."""
+    seq = n * s_local
+    total = b * seq
+    groups = b if n_groups is None else n_groups
+    if total % groups:
+        raise ValueError(f"n_groups {groups} must divide token count {total}")
+    gs = total // groups
+    rows: list[list[tuple[int, int]]] = [[] for _ in range(groups)]
+    for t in range(b * s_local):
+        f = (t // s_local) * seq + i * s_local + t % s_local
+        rows[f // gs].append((t, f % gs))
+    m = max(1, max(len(r) for r in rows))
+    n_local = b * s_local
+    index = [[t for t, _ in r] + [n_local] * (m - len(r)) for r in rows]
+    pos = [[q for _, q in r] + [0] * (m - len(r)) for r in rows]
+    valid = [[True] * len(r) + [False] * (m - len(r)) for r in rows]
+    back = [0] * n_local
+    for g, r in enumerate(rows):
+        for j, (t, _) in enumerate(r):
+            back[t] = g * m + j
+    regular = groups * m == n_local and back == list(range(n_local))
+    as_long = functools.partial(torch.tensor, dtype=torch.int64, device=device)
+    return BlockLayout(groups, gs, m, as_long(index), as_long(pos),
+                       torch.tensor(valid, dtype=torch.bool, device=device),
+                       as_long(back), regular)
+
+
+def _own(x: torch.Tensor, lay: BlockLayout) -> torch.Tensor:
+    """Local rows ``x [n_local, ...]`` as ``[groups, m, ...]`` by the
+    layout (padding rows zero)."""
+    if lay.regular:
+        return x.reshape(lay.groups, lay.m, *x.shape[1:])
+    padded = torch.cat([x, x.new_zeros((1, *x.shape[1:]))])
+    return padded[lay.index]
+
+
+def _local(y: torch.Tensor, lay: BlockLayout) -> torch.Tensor:
+    """``y [groups, m, ...]`` back to the local rows ``[n_local, ...]``."""
+    flat = y.reshape(lay.groups * lay.m, *y.shape[2:])
+    return flat if lay.regular else flat[lay.back]
 
 
 class MoEMLP(nn.Module):
@@ -145,8 +239,36 @@ class MoEMLP(nn.Module):
         index, _ = self.mesh.block_index(self.mesh.my_rank(), name)
         return self.mesh.group((name,)), size, index
 
+    def _sequence_axis(self, x: torch.Tensor):
+        """The bound sp axis when this worker holds a block of each
+        sequence (a layout step over a plan with sp), else None; inside a
+        pipeline stage a layer built with ``mesh=`` raises."""
+        seq = _sp.current()
+        if seq is None:
+            return None
+        if seq.stage and self.mesh is not None:
+            raise ValueError(
+                "an MoEMLP built with mesh= cannot run inside a pipeline stage: "
+                "the pipeline replicates every mesh axis but pp, so the expert "
+                "layout's sharding pins have no axis to bind there (the JAX "
+                "package's pins raise there too); build the stage's MoE layer "
+                "with mesh=None")
+        if seq.sp is None:
+            return None
+        axis = seq.axis(seq.sp)
+        if axis.size == 1:
+            return None
+        if x.ndim < 3:
+            raise ValueError(
+                f"under a plan with sp the MoE layer takes [batch, sequence block, "
+                f"d_model] inputs, got shape {tuple(x.shape)}")
+        return axis
+
     def forward(self, x: torch.Tensor, *, train: bool = True,
                 rng: torch.Generator | None = None, losses: dict | None = None):
+        axis = self._sequence_axis(x)
+        if axis is not None:
+            return self._block_forward(x, axis, train, rng, losses)
         *lead, d_model = x.shape
         n_tokens = math.prod(lead)
         if self.n_groups is not None:
@@ -177,7 +299,7 @@ class MoEMLP(nn.Module):
                 raise ValueError(
                     "expert-choice routing has no top_k (capacity_factor "
                     "sets each expert's token budget); leave top_k=1")
-            return self._expert_choice(x, tokens, probs, logits, gs, losses)
+            return self._expert_choice(x, tokens, probs, logits, losses)
         if not 1 <= self.top_k <= e:
             raise ValueError(
                 f"top_k={self.top_k} must be in [1, num_experts={e}]")
@@ -195,46 +317,140 @@ class MoEMLP(nn.Module):
         return max(1, int(-(-group_size * self.capacity_factor * self.top_k
                             // self.num_experts)))
 
+    def expert_capacity(self, group_size: int) -> int:
+        """Per-expert capacity of a group (expert choice)."""
+        return min(group_size, max(1, int(-(-group_size * self.capacity_factor
+                                              // self.num_experts))))
+
     def route(self, probs: torch.Tensor):
         """Token-choice routing of router probabilities ``[G, S, E]``:
         ``(dispatch, combine, topk_idx, first_onehot)``, dispatch and
-        combine ``[G, S, E, C]`` f32. Every first choice claims expert
-        capacity before any second choice."""
+        combine ``[G, S, E, C]`` f32 (:meth:`route_block` of every token).
+        Every first choice claims expert capacity before any second
+        choice."""
+        every = _every_position(probs)
+        return self.route_block(probs, probs, every, torch.ones_like(every, dtype=torch.bool))
+
+    def route_block(self, probs: torch.Tensor, probs_own: torch.Tensor,
+                    pos: torch.Tensor, valid: torch.Tensor):
+        """:meth:`route` of a sequence block: ``probs`` ``[G, S, E]`` are the
+        whole groups' router probabilities (gathered over sp; they pick the
+        experts and the capacity slots), ``probs_own`` ``[G, M, E]`` this
+        worker's tokens' (the gates, differentiable) at group positions
+        ``pos`` ``[G, M]``, ``valid`` marking real tokens. Returns
+        ``(dispatch, combine, topk_idx, first_onehot)``: dispatch and
+        combine ``[G, M, E, C]`` of this worker's tokens, equal to those
+        rows of the whole groups' routing, and the whole groups' chosen
+        experts ``[G, S, K]`` and first-choice one-hot ``[G, S, E]``."""
         groups, gs, e = probs.shape
         capacity = self.capacity(gs)
         _, topk_idx = _top_k(probs, self.top_k)  # [G, S, K]
-        gates = torch.gather(probs, -1, topk_idx)
+        at = pos[..., None]
+        idx_own = torch.gather(topk_idx, 1, at.expand(-1, -1, self.top_k))
+        gates = torch.gather(probs_own, -1, idx_own)
         if self.top_k > 1:
-            # GShard: the kept gates renormalized over the chosen experts.
             gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
         dispatch = combine = onehot1 = None
         counts = torch.zeros((groups, 1, e), dtype=torch.float32, device=probs.device)
+        live = valid[..., None].float()
         for choice in range(self.top_k):
             onehot = _one_hot(topk_idx[..., choice], e)  # [G, S, E]
             if onehot1 is None:
                 onehot1 = onehot
             # Position in the expert's buffer: earlier choices' totals
-            # offset this choice's group-local cumsum.
-            pos = (torch.cumsum(onehot, dim=1) - 1.0 + counts) * onehot
-            kept = (pos < capacity) & (onehot > 0)
-            d = _one_hot(pos.to(torch.int32), capacity) * kept[..., None].float()
+            # offset this choice's group-wide cumsum.
+            slot = (torch.cumsum(onehot, dim=1) - 1.0 + counts) * onehot
+            pick = at.expand(-1, -1, e)
+            slot_own = torch.gather(slot, 1, pick)
+            chosen = torch.gather(onehot, 1, pick) * live
+            kept = (slot_own < capacity) & (chosen > 0)
+            d = _one_hot(slot_own.to(torch.int32), capacity) * kept[..., None].float()
             dispatch = d if dispatch is None else dispatch + d
             dc = d * gates[..., choice, None, None]
             combine = dc if combine is None else combine + dc
             counts = counts + onehot.sum(dim=1, keepdim=True)
         return dispatch, combine, topk_idx, onehot1
 
+    def choose_block(self, probs: torch.Tensor, probs_own: torch.Tensor,
+                     pos: torch.Tensor, valid: torch.Tensor):
+        """Expert choice for a sequence block (arguments as
+        :meth:`route_block`): each expert's top-capacity tokens over the
+        whole groups; returns ``(own, gates)``, ``own`` ``[G, E, C, M]``
+        the one-hot of the picks that are this worker's tokens (the rows
+        of the whole one-hot ``[G, E, C, S]`` at ``pos``) and ``gates``
+        ``[G, E, C]`` their router probabilities (zero for others')."""
+        _, idx = _top_k(probs.transpose(1, 2), self.expert_capacity(probs.shape[1]))
+        own = ((idx[..., None] == pos[:, None, None, :])
+               & valid[:, None, None, :]).float()  # [G, E, C, M]
+        return own, torch.einsum("gecm,gme->gec", own, probs_own)
+
+    def _block_forward(self, x, axis, train, rng, losses):
+        """:meth:`forward` on this worker's sequence block of each row
+        under sp (module docstring)."""
+        b, d_model = x.shape[0], x.shape[-1]
+        s_local = math.prod(x.shape[1:-1])
+        n_local = b * s_local
+        e = self.num_experts
+        lay = block_layout(b, s_local, axis.size, axis.index, self.n_groups, x.device)
+        tokens = x.reshape(n_local, d_model).to(self.dtype)
+        logits = torch.einsum("nd,de->ne", tokens.float(), self.router.float())
+        if self.router_noise > 0.0 and train:
+            if rng is None:
+                raise ValueError("router_noise > 0 in training needs rng (a "
+                                 "torch.Generator), as flax needs the "
+                                 "'router' rng")
+            logits = logits + self.router_noise * torch.randn(
+                logits.shape, generator=rng, device=logits.device)
+        probs = torch.softmax(logits, dim=-1)  # [n_local, E]
+        if self.routing not in ("tokens", "experts"):
+            raise ValueError(
+                f"routing={self.routing!r} must be 'tokens' or 'experts'")
+        whole = _gather_blocks(probs.detach(), axis, b, s_local).reshape(
+            lay.groups, lay.gs, e)
+        probs_own = _own(probs, lay)
+        tokens_own = _own(tokens, lay)
+        z = None
+        if losses is not None:
+            lse2 = (torch.logsumexp(logits, dim=-1) ** 2).sum()
+            z = sum_shared(lse2, axis) / (n_local * axis.size)
+        if self.routing == "experts":
+            if self.top_k != 1:
+                raise ValueError(
+                    "expert-choice routing has no top_k (capacity_factor "
+                    "sets each expert's token budget); leave top_k=1")
+            own, gates = self.choose_block(whole, probs_own, lay.pos, lay.valid)
+            self._sow(losses, torch.zeros((), dtype=torch.float32, device=x.device), z=z)
+            expert_in = torch.einsum("gecm,gmd->gecd", own.to(self.dtype), tokens_own)
+            out = self._apply_experts(expert_in)
+            y = torch.einsum("gecm,gec,gecd->gmd", own.to(self.dtype),
+                             gates.to(self.dtype), out)
+        else:
+            if not 1 <= self.top_k <= e:
+                raise ValueError(
+                    f"top_k={self.top_k} must be in [1, num_experts={e}]")
+            dispatch, combine, _, onehot1 = self.route_block(whole, probs_own, lay.pos,
+                                                             lay.valid)
+            if losses is not None:
+                frac = sum_shared(probs_own.sum(dim=1), axis) / lay.gs
+                aux = e * torch.mean(torch.sum(onehot1.mean(dim=1) * frac, dim=-1))
+                self._sow(losses, aux, z=z)
+            expert_in = torch.einsum("gmec,gmd->gecd", dispatch.to(self.dtype), tokens_own)
+            out = self._apply_experts(expert_in)
+            y = torch.einsum("gmec,gecd->gmd", combine.to(self.dtype), out)
+        return _local(y, lay).reshape(x.shape).to(x.dtype)
+
     @staticmethod
     def _z_loss(logits: torch.Tensor) -> torch.Tensor:
         """ST-MoE router z-loss: mean squared logsumexp of the logits."""
         return torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
-    def _sow(self, losses: dict | None, aux: torch.Tensor, logits: torch.Tensor):
+    def _sow(self, losses: dict | None, aux: torch.Tensor, logits: torch.Tensor = None,
+             z: torch.Tensor | None = None):
         if losses is None:
             return
         losses["moe_aux_loss"] = losses.get("moe_aux_loss", ()) + (aux,)
         losses["moe_router_z_loss"] = losses.get("moe_router_z_loss", ()) + (
-            self._z_loss(logits),)
+            self._z_loss(logits) if z is None else z,)
 
     def _local_experts(self, index: int, size: int) -> tuple[torch.Tensor, ...]:
         """This worker's expert weights: the parameters as they are when
@@ -273,21 +489,37 @@ class MoEMLP(nn.Module):
             out = out.transpose(0, 1).reshape(g, e, c, d)
         return out
 
-    def _expert_choice(self, x, tokens, probs, logits, gs, losses):
+    def _expert_choice(self, x, tokens, probs, logits, losses):
         """Expert-choice routing (Zhou et al. 2022): each expert takes its
         top-capacity tokens by router probability; the aux loss is sowed
         as 0, the z-loss on the raw logits."""
-        e = self.num_experts
-        capacity = min(gs, max(1, int(-(-gs * self.capacity_factor // e))))
-        scores = probs.transpose(1, 2)  # [G, E, S]
-        gates, idx = _top_k(scores, capacity)  # [G, E, C]
-        onehot = _one_hot(idx, gs)  # [G, E, C, S]
+        every = _every_position(probs)
+        onehot, gates = self.choose_block(probs, probs, every,
+                                          torch.ones_like(every, dtype=torch.bool))
         self._sow(losses, torch.zeros((), dtype=torch.float32, device=x.device), logits)
         expert_in = torch.einsum("gecs,gsd->gecd", onehot.to(self.dtype), tokens)
         out = self._apply_experts(expert_in)
         y = torch.einsum("gecs,gec,gecd->gsd", onehot.to(self.dtype),
                          gates.to(self.dtype), out)
         return y.reshape(*x.shape[:-1], x.shape[-1]).to(x.dtype)
+
+
+def _every_position(probs: torch.Tensor) -> torch.Tensor:
+    """``[G, S]``: each token's position in its group, for the block
+    routing of whole groups."""
+    groups, gs = probs.shape[:2]
+    return torch.arange(gs, device=probs.device).expand(groups, gs)
+
+
+def _gather_blocks(x: torch.Tensor, axis, b: int, s_local: int) -> torch.Tensor:
+    """The sp group's rows ``[b, n * s_local, ...]`` from every worker's
+    ``x [b * s_local, ...]`` (forward only: ``x`` is detached), in
+    sequence order."""
+    parts = [torch.empty_like(x) for _ in range(axis.size)]
+    dist.all_gather(parts, x.contiguous(), group=axis.group)
+    order = dist.get_process_group_ranks(axis.group)
+    blocks = [parts[order.index(r)].reshape(b, s_local, *x.shape[1:]) for r in axis.ranks]
+    return torch.cat(blocks, dim=1)
 
 
 class MoEEncoderBlock(EncoderBlock):

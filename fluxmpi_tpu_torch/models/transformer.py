@@ -32,7 +32,10 @@ block's attention is a ring over the sp axis
 (:func:`~fluxmpi_tpu_torch.parallel.ring.ring_attention`, through the
 flash kernels under ``attention="flash"``), or its ``attention_fn``, which
 must itself be sequence-parallel (``ring_attention_fn``,
-``ulysses_attention_fn``).
+``ulysses_attention_fn``). The dense ring's dropout drops, at each tick,
+the slice of the mask the unsharded dense attend draws from the same
+generator; a feed-forward sublayer gets the block (the MoE layers route
+each group whole themselves).
 
 Cached decoding: :meth:`TransformerLM.forward` with ``kv_cache=(k, v)``
 (``[layers, batch, max_len, heads, head_dim]`` each) feeds one token per
@@ -152,13 +155,17 @@ class EncoderBlock(nn.Module):
             raise ValueError(
                 "under a plan with sp the attention mask comes from the ring's "
                 "global positions; an explicit mask is not sequence-parallel")
-        if mode == "naive" and train and self.dropout > 0 and dropout_rng is not None:
-            raise NotImplementedError(
-                "attention dropout on the dense path under a plan with sp is not "
-                "ported: JAX drops with flax's random stream over the global "
-                "attention, which a ring cannot draw (ROADMAP A.6, left open)")
-        from ..parallel.ring import ring_attention
+        from ..parallel.ring import _dense_dropout_ring, ring_attention
 
+        if mode == "naive" and train and self.dropout > 0 and dropout_rng is not None:
+            # The dense attend's draw (one seed per layer, from the same
+            # generator), each tick dropping its slice of the whole mask.
+            from ..ops.flash_attention import _draw_dropout_seed
+
+            return _dense_dropout_ring(
+                q, k, v, axis_name=seq.sp, causal=self.attention_causal,
+                dropout_rate=self.dropout,
+                dropout_seed=_draw_dropout_seed(dropout_rng).to(q.device))
         return ring_attention(q, k, v, axis_name=seq.sp, causal=self.attention_causal,
                               use_flash=mode == "flash")
 
@@ -229,14 +236,8 @@ class EncoderBlock(nn.Module):
             x = x + attn.out(o, self.dtype)
         h = self.ln2(x, self.dtype)
         if self.ff_name is not None:
-            if (seq := _sp.current()) is not None and seq.sp is not None:
-                # A sublayer such as the MoE's routes each sequence as one
-                # group, which a sequence block is not.
-                raise NotImplementedError(
-                    f"the feed-forward sublayer {self.ff_name!r} under a plan with "
-                    f"sp is not ported: it may compute across the sequence (the "
-                    f"MoE layers route each sequence as one group), and this "
-                    f"worker holds a block of it (ROADMAP A.6, left open)")
+            # Under sp the sublayer gets this worker's sequence block (the
+            # MoE layers route each group as a whole themselves).
             ff = getattr(self, self.ff_name)
             if losses is None:
                 return x + ff(h, train=train), k, v

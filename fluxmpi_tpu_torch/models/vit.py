@@ -20,11 +20,24 @@ from typing import Callable
 import torch
 from torch import nn
 
-from ..runtime import resolve_device
+from ..runtime import note_graph_generator, resolve_device
 from ._layers import Conv, Dense, _Init
 from .transformer import TransformerEncoder
 
 __all__ = ["ViT"]
+
+
+def _dropout(x: torch.Tensor, rate: float, rng: torch.Generator) -> torch.Tensor:
+    """flax's ``nn.Dropout(rate)`` in training: each element kept with
+    probability ``1 - rate`` (an independent draw from ``rng``, a
+    ``torch.Generator`` on ``x``'s device) and divided by it, the rest
+    zero. The generator is noted for CUDA-graph windows."""
+    note_graph_generator(rng)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=rng, device=x.device) < keep_prob
+    # Device fills, not host copies: a CUDA-graph capture takes no copy.
+    return torch.where(keep, x / torch.full((), keep_prob, dtype=x.dtype, device=x.device),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class ViT(nn.Module):
@@ -34,10 +47,17 @@ class ViT(nn.Module):
     first call: ``in_features`` (image channels) and ``image_size`` (the
     side of the square images, which sets the position table's length,
     ``(image_size / patch)**2 + 1``). ``forward(x, *, train=True)`` returns
-    f32 logits ``[b, num_classes]``. ``dropout > 0`` in training raises:
-    flax drops the embeddings (and, in its dense attend, the attention
-    weights) with its own random stream, which the port cannot reproduce.
-    Weights from the CPU ``generator`` (default seeded with 0) on
+    f32 logits ``[b, num_classes]``. ``dropout > 0`` in training needs
+    ``dropout_rng``, a ``torch.Generator`` on the model's device (flax's
+    ``rngs={"dropout": key}``), and drops as flax does: the embeddings
+    (``nn.Dropout``: every element kept with probability ``1 - dropout``
+    and scaled by its inverse) and, in the encoder's dense attend, the
+    attention weights (:func:`~fluxmpi_tpu_torch.models._layers.dot_product_attention`;
+    an ``attention_fn`` such as ``flash_attention_fn`` gets the mask alone
+    under flax's keyword filter and does not drop). Equal to flax in law,
+    not bit for bit: flax's random stream cannot be reproduced. A CUDA
+    generator is noted for CUDA-graph windows, so each replay draws fresh
+    masks. Weights from the CPU ``generator`` (default seeded with 0) on
     ``device`` (default CUDA; ``"cpu"`` only when asked)."""
 
     def __init__(self, num_classes: int = 1000, patch: int = 16, num_layers: int = 12,
@@ -65,21 +85,25 @@ class ViT(nn.Module):
                                           generator=generator)
         self.head = Dense((d_model, num_classes), (num_classes,), init, d_model)
 
-    def forward(self, x, *, train: bool = True) -> torch.Tensor:
+    def forward(self, x, *, train: bool = True,
+                dropout_rng: torch.Generator | None = None) -> torch.Tensor:
         x = torch.as_tensor(x, device=self.device)
         b, h, w, _ = x.shape
         if (h, w) != (self.image_size, self.image_size):
             raise ValueError(f"this ViT was built for {self.image_size}x"
                              f"{self.image_size} images, got {h}x{w}")
-        if train and self.dropout:
-            raise NotImplementedError(
-                "training ViT with dropout > 0 is not ported: flax drops the "
-                "embeddings with its own random stream, which the port cannot "
-                "reproduce; train with dropout=0.0, or call with train=False")
+        drop = train and self.dropout > 0
+        if drop and dropout_rng is None:
+            raise ValueError(
+                "training ViT with dropout > 0 needs dropout_rng (a "
+                "torch.Generator on the model's device), as the JAX ViT needs "
+                "rngs={'dropout': key}; or call with train=False")
         x = self.patch_embed(x.permute(0, 3, 1, 2).to(self.dtype))
         x = x.permute(0, 2, 3, 1).reshape(b, -1, self.d_model)  # [b, tokens, d]
         cls = self.cls.expand(b, 1, self.d_model).to(self.dtype)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
-        x = self.encoder(x, train=train)
+        if drop:
+            x = _dropout(x, self.dropout, dropout_rng)
+        x = self.encoder(x, train=train, dropout_rng=dropout_rng)
         # CLS-token head in f32.
         return self.head(x[:, 0], torch.float32)

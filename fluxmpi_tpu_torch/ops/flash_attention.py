@@ -686,6 +686,36 @@ def _draw_dropout_seed(dropout_rng) -> torch.Tensor:
                          device=dropout_rng.device)
 
 
+def _dense_dropout_attention(q, k, v, mask, causal, window, dropout_rng, dropout_rate,
+                             broadcast_dropout):
+    """The dense attention with dropout that ``flash_attention_fn(
+    dropout_impl="dense")`` takes in training (the JAX package's
+    ``_dense_dropout_attention``): causal and window folded into the mask,
+    grouped K/V heads repeated, flax's dense attend in f32."""
+    from ..models._layers import dot_product_attention
+
+    sq, sk, h, h_kv = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
+    if h_kv != h:
+        k = k.repeat_interleave(h // h_kv, dim=2)
+        v = v.repeat_interleave(h // h_kv, dim=2)
+    full = None
+    if causal:
+        qp = torch.arange(sq, device=q.device)[:, None]
+        kp = torch.arange(sk, device=q.device)[None, :]
+        pos = qp >= kp
+        if window is not None:
+            pos = pos & (qp - kp < window)
+        full = pos[None, None]
+    if mask is not None:
+        m = torch.as_tensor(mask, device=q.device)
+        m = m if m.dtype == torch.bool else m > 0
+        full = m if full is None else full & m
+    return dot_product_attention(q, k, v, mask=full, dropout_rng=dropout_rng,
+                                 dropout_rate=dropout_rate,
+                                 broadcast_dropout=broadcast_dropout,
+                                 deterministic=False, dtype=torch.float32)
+
+
 def flash_attention_fn(causal: bool = False, *, window: int | None = None,
                        mask_check: bool = True, dropout_impl: str = "dense"):
     """An ``attention_fn`` drop-in for the models' multi-head attention
@@ -710,11 +740,15 @@ def flash_attention_fn(causal: bool = False, *, window: int | None = None,
     ``torch.Generator`` on the query's device) on that device and drops
     inside the kernels with the reference's hash; no host read, so it runs
     under CUDA-graph capture, and a window captured by ``train_loop`` draws
-    a fresh seed on every replay. ``dropout_impl="dense"`` (JAX's
-    flax-exact fallback) raises ``NotImplementedError``: flax's random
-    stream cannot be reproduced. Under the models' attention modules flax's
-    keyword filter passes ``mask`` alone to this function, so they never
-    drop here."""
+    a fresh seed on every replay. ``dropout_impl="dense"`` (the default,
+    the JAX package's fallback) runs flax's dense attention in f32 with
+    causality and the window folded into the mask and grouped K/V heads
+    repeated (:func:`~fluxmpi_tpu_torch.models._layers.dot_product_attention`,
+    ``broadcast_dropout`` from the keywords, default True): O(s²) memory,
+    the same law as flax's mask (keep rate, scaling, shared shape), not
+    its bits, which the port cannot reproduce. Under the models' attention
+    modules flax's keyword filter passes ``mask`` alone to this function,
+    so they never drop here."""
     if dropout_impl not in ("dense", "kernel"):
         raise ValueError("dropout_impl must be 'dense' or 'kernel'")
 
@@ -731,11 +765,9 @@ def flash_attention_fn(causal: bool = False, *, window: int | None = None,
                 raise ValueError("dropout_rate > 0 with deterministic=False requires "
                                  "a dropout_rng (a torch.Generator)")
             if dropout_impl == "dense":
-                raise NotImplementedError(
-                    "flash_attention_fn(dropout_impl='dense') is not ported: JAX "
-                    "then takes flax's dense attention with flax's random stream "
-                    "(dropout_rng), which the port cannot reproduce; pass "
-                    "dropout_impl='kernel', or dropout_rate=0.0")
+                return _dense_dropout_attention(
+                    query, key, value, mask, causal, window, dropout_rng, dropout_rate,
+                    kwargs.get("broadcast_dropout", True)).to(query.dtype)
             dropout_seed = _draw_dropout_seed(dropout_rng)
         else:
             dropout_rate = 0.0

@@ -28,6 +28,15 @@ its worker at tick ``q·P + m + d``; a sweep's captured outputs are
 re-injected on the feed exchange for the next. Total ticks:
 :func:`pipeline_tick_count`.
 
+Every mesh axis but ``pp`` replicates the pipeline, as the JAX package's
+``shard_map`` over ``pp`` does: a stage runs under a context of its own
+that binds no sequence-parallel axis and no tensor-parallel context (its
+transformer layers compute on whole sequences and whole weights), and a
+step over a plan with ``pp`` hands the loss whole sequences and gathers
+the stage leaves that its rules lay out over ``tp`` or ``ep``
+(:mod:`~fluxmpi_tpu_torch.parallel.train`). An ``MoEMLP`` built with
+``mesh=`` raises inside a stage, as the JAX package's does.
+
 The worker knows its stage and the tick on the host, so the JAX package's
 ``jnp.where`` selections become host branches, and a bubble tick (no
 microbatch of the schedule at this stage) computes nothing. The exchanges
@@ -45,6 +54,7 @@ from torch.utils import _pytree as pytree
 from torch.utils import checkpoint as _checkpoint
 
 from .. import _sequence_parallel as _sp
+from .. import _tensor_parallel as _tp
 from .._collective_ops import Exchanges, MeshAxis, shard_along, unshard_along
 from .plan import plan_axis_name
 from .sharding import P
@@ -192,10 +202,17 @@ def pipeline_apply(
         f"local leading dim (the '{axis_name}'-axis shard of "
         f"{v}·n_stages chunks)",
     )
-    fn = stage_fn
+    stage_ctx = _sp.SequenceParallel(axis.mesh, stage=True)
+
+    def staged(p, inp):
+        # Every axis but pp replicates the pipeline (module docstring).
+        with _sp.active(stage_ctx), _tp.active(None):
+            return stage_fn(p, inp)
+
+    fn = staged
     if remat_stages:
         def fn(p, inp):
-            return _checkpoint.checkpoint(stage_fn, p, inp, use_reentrant=False)
+            return _checkpoint.checkpoint(staged, p, inp, use_reentrant=False)
 
     chunks = [pytree.tree_map(lambda p, q=q: p[q], stacked_params) for q in range(v)]
 

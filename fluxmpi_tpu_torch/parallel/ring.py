@@ -82,12 +82,15 @@ def _expand_kv(t, h):
     return t.repeat_interleave(h // h_kv, dim=2)
 
 
-def _block_attend(q, k, v, o, m, l, mask):
+def _block_attend(q, k, v, o, m, l, mask, keep=None, keep_prob=1.0):
     """One blockwise online-softmax update.
 
     q: [b, sq, h, d]; k/v: [b, sk, h, d]; o: [b, sq, h, d];
     m/l: [b, sq, h]; mask: bool broadcastable to [b, h, sq, sk]
-    (True = attend) or None.
+    (True = attend) or None. ``keep`` (broadcastable to the scores, True =
+    keep): flax's dropout of the normalized weights, which scales only
+    the numerator, by ``keep / keep_prob``; the normalizer ``l`` sums the
+    undropped weights.
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
@@ -100,6 +103,8 @@ def _block_attend(q, k, v, o, m, l, mask):
     if mask is not None:
         p = torch.where(mask, p, torch.zeros_like(p))
     l_new = l * alpha + p.sum(dim=-1).movedim(1, -1)
+    if keep is not None:
+        p = p * (keep.to(p.dtype) / keep_prob)
     o_new = o * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, v).movedim(1, 2)
     return o_new, m_new, l_new
 
@@ -238,10 +243,17 @@ def _ring_flash(q, k, v, *, causal: bool, n: int, idx: int, qseg, kseg,
 
 
 def _ring_dense(q, k, v, *, causal: bool, n: int, idx: int, qseg, kseg,
-                window: int | None = None, rotate=None):
+                window: int | None = None, rotate=None, dropout_rate: float = 0.0,
+                dropout_seed=None):
     """The dense ring of position ``idx`` of ``n``: an online softmax in
     f32 over the resident blocks, masked on global positions. Returns
-    the output in q's dtype."""
+    the output in q's dtype. ``dropout_rate`` with ``dropout_seed`` (the
+    uint32 seed of a dense attend's draw) drops as the whole-sequence
+    dense attend with that seed does: each tick the ``[q block, key
+    block]`` slice, by global positions, of its mask
+    (:func:`~fluxmpi_tpu_torch.models._layers.dense_dropout_keep`)."""
+    from ..models._layers import dense_dropout_keep
+
     b, sq, h, d = q.shape
     o = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
     m = torch.full((b, sq, h), _NEG_INF, dtype=torch.float32, device=q.device)
@@ -264,10 +276,12 @@ def _ring_dense(q, k, v, *, causal: bool, n: int, idx: int, qseg, kseg,
                 continue
         kf = _expand_kv(blocks[0], h).float()
         vf = _expand_kv(blocks[1], h).float()
-        mask = None
+        mask = keep = None
+        q_pos = idx * sq + torch.arange(sq, device=q.device)
+        k_pos = src * sk + torch.arange(sk, device=q.device)
+        if dropout_rate:
+            keep = dense_dropout_keep(dropout_seed, q_pos, k_pos, 1.0 - dropout_rate)
         if causal:
-            q_pos = idx * sq + torch.arange(sq, device=q.device)
-            k_pos = src * sk + torch.arange(sk, device=q.device)
             pos = q_pos[:, None] >= k_pos[None, :]
             if window is not None:
                 pos = pos & (q_pos[:, None] - k_pos[None, :] < window)
@@ -275,10 +289,25 @@ def _ring_dense(q, k, v, *, causal: bool, n: int, idx: int, qseg, kseg,
         if has_seg:
             smask = _seg_mask4(qseg, blocks[2])
             mask = smask if mask is None else mask & smask
-        o, m, l = _block_attend(qf, kf, vf, o, m, l, mask)
+        o, m, l = _block_attend(qf, kf, vf, o, m, l, mask, keep, 1.0 - dropout_rate)
     # Guard fully-masked rows (l == 0) against 0/0.
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     return (o / l[..., None]).to(q.dtype)
+
+
+def _dense_dropout_ring(q, k, v, *, axis_name: str, causal: bool, dropout_rate: float,
+                        dropout_seed):
+    """The dense ring over the bound ``axis_name`` with the dense attend's
+    dropout (a transformer layer's ``"naive"`` attention under a
+    sequence-parallel step): each tick drops the slice of the mask the
+    whole-sequence attend draws with ``dropout_seed``, so the sp run drops
+    exactly what the unsharded run drops. The public ring functions keep
+    the JAX package's refusal of dropout on their dense path."""
+    axis = _sp.bound(axis_name)
+    xs, rotate = _rotation(axis, (q, k, v))
+    return xs.attach(_ring_dense(q, k, v, causal=causal, n=axis.size, idx=axis.index,
+                                 qseg=None, kseg=None, rotate=rotate,
+                                 dropout_rate=dropout_rate, dropout_seed=dropout_seed))
 
 
 def _local_attend(q, k, v, *, causal, segment_ids=None, use_flash=False,

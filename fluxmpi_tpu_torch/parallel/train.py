@@ -64,13 +64,21 @@ is not gathered either: the stacked stages (``pipeline_rules``) stay this
 worker's block, the loss calls ``make_pipeline_fn`` (or
 ``pipeline_apply``) over the axis, every ``pp`` worker computes the same
 loss, and a stage block's gradient is summed over the workers holding
-it. Under ``sp`` with ``tp`` each tp worker runs its heads
+it. Every other axis replicates the pipeline, as the JAX package's
+``shard_map`` over ``pp`` does: under ``pp`` with ``sp`` the loss gets
+whole sequences (a batch leaf already cut over ``sp`` is all-gathered)
+and computes on them, under ``pp`` with ``tp`` or ``ep`` the stage leaves
+the rules lay out over those axes are gathered before the forward (their
+gradients cut back to the blocks), and every worker of those axes
+computes the same loss, which the reduction counts once. Under ``sp``
+with ``tp`` each tp worker runs its heads
 (:mod:`~fluxmpi_tpu_torch._tensor_parallel`) and the ring (or Ulysses,
 whose worker's heads must divide by ``sp``) runs over the sp group on
 those heads; the exchanges of both are issued in the same program order
-on every worker, so their backward passes line up. A plan with ``sp`` and
-``ep`` or ``pp``, or with ``pp`` and ``tp`` or ``ep``, raises
-``NotImplementedError``. ``style="shard_map"`` is the
+on every worker, so their backward passes line up. Under ``sp`` with
+``ep`` the MoE layers route each group as a whole over the sp group and
+exchange tokens over the ep group at their own sp index
+(:mod:`~fluxmpi_tpu_torch.models.moe`). ``style="shard_map"`` is the
 explicit per-worker step, its gradients reduced over the ``axis_name``
 axis of the mesh. ``donate=False`` copies the state before the update,
 so the caller's stays valid.
@@ -407,14 +415,23 @@ class _Layout:
         self.mesh = mesh
         self.sp_axis = sp_axis if mesh.shape.get(sp_axis, 1) > 1 else None
         self.pp_axis = pp_axis if mesh.shape.get(pp_axis, 1) > 1 else None
+        # The pipeline replicates every axis but pp (JAX's shard_map over
+        # pp): under pp the loss computes on whole sequences.
+        self.whole_sp = None
+        if self.pp_axis is not None and self.sp_axis is not None:
+            self.whole_sp, self.sp_axis = self.sp_axis, None
         self.world = mesh.size
         self.native = set(native)
         self.plans: dict[str, tuple] = {}
         for name, spec in specs.items():
             dims = _spec_axes(spec)
+            # A stage leaf (sharded over pp) runs inside the pipeline, which
+            # replicates the expert axis too: its ep dims are gathered.
+            stage = self.pp_axis is not None and any(self.pp_axis in n for _, n in dims)
+            native_here = {self.pp_axis} if stage else self.native
             gathered, local = [], []
             for d, names in dims:
-                kinds = {n in self.native for n in names}
+                kinds = {n in native_here for n in names}
                 if len(kinds) > 1:
                     raise NotImplementedError(
                         f"{name}: dim {d} is sharded over {names}, which mixes "
@@ -434,7 +451,8 @@ class _Layout:
         """The sequence-parallel context of one update's loss (None
         without an sp or pp axis): the mesh, which binds both axes, and
         the sp axis, over which the transformer layers run their
-        attention as a ring."""
+        attention as a ring (none under pp, whose pipeline replicates
+        it)."""
         if self.sp_axis is None and self.pp_axis is None:
             return None
         return _sequence_parallel.SequenceParallel(self.mesh, self.sp_axis)
@@ -443,9 +461,13 @@ class _Layout:
         """This worker's sequence block of each batch leaf, along the dims
         ``batch_spec`` shards over the sp axis (the loader's rows are the
         same on workers that differ only in sp). A leaf that
-        :func:`shard_batch` already cut over the sp axis is its block."""
+        :func:`shard_batch` already cut over the sp axis is its block;
+        under pp, whose pipeline replicates sp, such a leaf is all-gathered
+        and the others stay whole."""
         from .sharding import sharding_of
 
+        if self.whole_sp is not None:
+            return pytree.tree_map(self._whole_sequence, batch)
         if self.sp_axis is None:
             return batch
         dims = [d for d, names in _spec_axes(batch_spec) if self.sp_axis in names]
@@ -469,6 +491,24 @@ class _Layout:
             return x
 
         return pytree.tree_map(cut, batch)
+
+    def _whole_sequence(self, x: Any) -> Any:
+        """``x`` gathered along every dim its layout cuts over the
+        replicated sp axis (a leaf cut by :func:`shard_batch`)."""
+        from .._collective_ops import MeshAxis, unshard_along
+        from .sharding import sharding_of
+
+        sh = sharding_of(x) if torch.is_tensor(x) else None
+        if sh is None:
+            return x
+        for d, names in _spec_axes(sh.spec):
+            if self.whole_sp in names:
+                if names != (self.whole_sp,):
+                    raise ValueError(
+                        f"batch dim {d} is sharded over {names}; under pp the "
+                        f"sequence axis '{self.whole_sp}' must shard a dim alone")
+                x = unshard_along(x, MeshAxis(self.mesh, self.whole_sp), d)
+        return x
 
     def dims(self, name: str) -> tuple[list, list]:
         """``(gathered, local)`` sharded dims of leaf ``name`` as the
@@ -669,22 +709,8 @@ def _installed_plan_defaults(mesh: Any, axis_name: str | None, batch_spec: Any):
     return plan, mesh, plan.dp_axis_name, plan.batch_spec
 
 
-# Plan axes a step over sp or pp is not composed with yet.
-_NOT_COMPOSED = {"sp": ("ep", "pp"), "pp": ("tp", "ep")}
-
-
 def _make_layout(plan: Any, mesh: Any, state_sharding: Any) -> _Layout:
     """The step's :class:`_Layout` from the banked or given shardings."""
-    for kind, others in _NOT_COMPOSED.items():
-        if plan is None or plan.axis_name(kind) is None:
-            continue
-        for other in others:
-            if plan.axis_name(other) is not None:
-                raise NotImplementedError(
-                    f"a step over a plan with {kind}={plan.sizes[kind]} and "
-                    f"{other}={plan.sizes[other]} is not ported: the port runs "
-                    f"{kind} with dp, fsdp" + (" and tp" if kind == "sp" else "")
-                    + " only (ROADMAP A.6, left open)")
     specs = {}
     params = getattr(state_sharding, "params", None) or {}
     for k, sh in params.items():
@@ -801,7 +827,8 @@ def make_train_step(
     its mesh, data axis, batch spec and the state sharding that
     :meth:`~fluxmpi_tpu_torch.parallel.plan.ResolvedPlan.shard_state`
     banked (a plan that shards parameters raises without one), and runs
-    the layout as the module docstring says; ``style="auto"`` only.
+    the layout as the module docstring says (every composition of its
+    axes); ``style="auto"`` only.
     Without ``parallel=``, ``style="auto"`` follows a plan installed by
     ``init(parallel=)``. ``mesh``/``axis_name``: the mesh and data axis
     (default the plan's, else the runtime's and ``dp``).
@@ -816,9 +843,7 @@ def make_train_step(
     valid. ``grad_reduce`` applies to the step without a plan and to
     ``"shard_map"``; under a plan the reduction is the layout's (the
     global mean). Under ``sp`` and ``pp`` the step runs as the module
-    docstring says, ``sp`` also with ``tp``; their other compositions
-    (``sp`` with ``ep`` or ``pp``, ``pp`` with ``tp`` or ``ep``) raise
-    ``NotImplementedError``.
+    docstring says, with any of the other axes.
 
     ``model_stats``: build the model-internals plane's per-layer stats
     into the step (``None``, the default, follows the installed

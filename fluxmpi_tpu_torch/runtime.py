@@ -434,9 +434,17 @@ def init(*, devices: Sequence[int] | int | None = None,
                       world_size=world,
                       timeout=datetime.timedelta(seconds=timeout))
         if coordinator_address is not None:
-            kwargs["init_method"] = f"tcp://{coordinator_address}"
+            host, _, port = coordinator_address.rpartition(":")
+            kwargs["store"] = _rendezvous_store(host, int(port), rank, world,
+                                                kwargs["timeout"])
         elif world > 1 or (launcher and "MASTER_ADDR" in os.environ):
-            kwargs["init_method"] = "env://"
+            if "MASTER_ADDR" not in os.environ or "MASTER_PORT" not in os.environ:
+                raise ValueError(
+                    f"init over {world} processes needs the launcher's "
+                    f"MASTER_ADDR and MASTER_PORT, or coordinator_address")
+            kwargs["store"] = _rendezvous_store(
+                os.environ["MASTER_ADDR"], int(os.environ["MASTER_PORT"]), rank, world,
+                kwargs["timeout"])
         else:
             # A single process needs no launcher: a store on an ephemeral
             # localhost port, never a fixed one.
@@ -625,6 +633,30 @@ def is_initialized() -> bool:
 
 # Reference-spelling alias (``FluxMPI.Initialized``).
 Initialized = is_initialized
+
+
+# The launcher world's rendezvous stores, kept for the process's life:
+# (host, port, world) -> [store, inits so far].
+_STORES: dict = {}
+
+
+def _rendezvous_store(host: str, port: int, rank: int, world: int,
+                      timeout: datetime.timedelta) -> Any:
+    """The store an :func:`init` in a launcher's world rendezvouses on:
+    one ``TCPStore`` per address for the process's life (rank 0 serves
+    it), under a fresh key prefix per :func:`init`. A worker that has shut
+    down and initializes again while a slower peer still holds the
+    previous group then meets its peers under the new prefix instead of
+    the old group's keys, or a server that is about to go away (C.24).
+    Every worker counts its inits alike: they are collective."""
+    key = (host, port, world)
+    entry = _STORES.get(key)
+    if entry is None:
+        entry = _STORES[key] = [dist.TCPStore(host, port, world, is_master=rank == 0,
+                                              timeout=timeout), 0]
+    entry[1] += 1
+    entry[0].set_timeout(timeout)
+    return dist.PrefixStore(f"fluxmpi_init_{entry[1]}/", entry[0])
 
 
 def shutdown() -> None:

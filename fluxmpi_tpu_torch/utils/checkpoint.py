@@ -531,19 +531,29 @@ def save_checkpoint(path: str, state: Any, *, force: bool = True,
         if _is_sharded_tree(state):
             _commit(path, _snapshot(state), step=step)
             return
-        err = None
-        if _is_lead():
-            try:
-                _commit(path, _snapshot(state), step=step)
-            except BaseException as exc:  # re-raised after telling the peers
-                err = exc
-        # No worker returns before the step is committed (a restore right
-        # after must find it), nor succeeds when the lead's write failed.
-        if _process_barrier(f"ckpt_save:{path}", failed=err is not None) and err is None:
-            raise OSError(f"checkpoint save to {path} failed on the lead worker "
-                          f"(see its log); the previous committed step is intact")
-        if err is not None:
-            raise err
+        _lead_writes(path, lambda: _commit(path, _snapshot(state), step=step))
+
+
+def _lead_writes(path: str, write) -> None:
+    """A replicated save on every worker: the lead runs ``write``, and
+    then every worker meets at the ``ckpt_save`` barrier, so no worker
+    returns before the step is committed (a restore or ``latest_step()``
+    right after must find it), nor succeeds when the lead's write failed.
+    Alone in its world the worker just writes."""
+    if _world()[1] == 1:
+        write()
+        return
+    err = None
+    if _is_lead():
+        try:
+            write()
+        except BaseException as exc:  # re-raised after telling the peers
+            err = exc
+    if _process_barrier(f"ckpt_save:{path}", failed=err is not None) and err is None:
+        raise OSError(f"checkpoint save to {path} failed on the lead worker "
+                      f"(see its log); the previous committed step is intact")
+    if err is not None:
+        raise err
 
 
 # ---------------------------------------------------------------------------
@@ -1020,20 +1030,20 @@ class CheckpointManager:
         with _goodput.segment("checkpoint_save"):
             self._raise_async_error()
             self._check_step_agreement(step)
-            sharded = _is_sharded_tree(state)
-            if not sharded and not _is_lead():
-                return
+            # A replicated state is written by the lead; every worker runs
+            # the commit's barrier (C.23), so every worker's wait covers it.
+            writes = _is_sharded_tree(state) or _is_lead()
             use_async = self._async if async_ is None else bool(async_)
             if not use_async:
                 self.wait_until_finished()
-                self._save_and_retain(step, _snapshot(state), force)
+                self._save_and_retain(step, _snapshot(state) if writes else None, force)
                 self._note_board()
                 return
-            if sharded and _world()[1] > 1:
+            if _world()[1] > 1:
                 # Every worker's writer runs the same barriers: no worker
                 # may supersede a request another has started.
                 self.wait_until_finished()
-            snap = _snapshot(state)
+            snap = _snapshot(state) if writes else None
             with self._lock:
                 if self._executor is None:
                     self._executor = ThreadPoolExecutor(
@@ -1089,7 +1099,21 @@ class CheckpointManager:
             if s not in keep:
                 _decommit(self._step_path(s, directory))
 
-    def _save_and_retain(self, step: int, snap: _Snapshot, force: bool) -> None:
+    def _save_and_retain(self, step: int, snap: _Snapshot | None, force: bool) -> None:
+        """Commit ``snap`` as ``step`` and apply the retention. A
+        replicated state in a world of several workers: the lead writes
+        (``snap`` is None on the others) and every worker returns after the
+        lead's commit (:func:`_lead_writes`)."""
+        if snap is not None and snap.offsets is not None:
+            self._write(step, snap, force)
+            return
+        tier = "durable" if self.local_dir is None else "local"
+        _lead_writes(self._step_path(step, self.local_dir),
+                     lambda: self._write(step, snap, force))
+        if snap is None:
+            self._set_committed(step, tier)
+
+    def _write(self, step: int, snap: _Snapshot, force: bool) -> None:
         t0 = time.perf_counter()
         target = self._step_path(step, self.local_dir)
         _refuse_overwrite(target, force)

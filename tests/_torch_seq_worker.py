@@ -185,6 +185,41 @@ def pipeline_group():
         put(case, out=y, gw=gw, gb=gb, gx=gx)
 
 
+def _dropout_runs(case, LM, lm_params, plan):
+    """The dense LM at dropout 0.1 under ``plan`` (sp) and with no plan on
+    the global batches, each with a dropout generator seeded alike."""
+    from fluxmpi_tpu_torch.data import ArrayDataset, DistributedDataLoader
+    from fluxmpi_tpu_torch.models import TransformerLM, load_flax_params
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step
+
+    data = {"x": D["tokens"], "y": D["targets"]}
+    for name in ("sp", "none"):
+        model = TransformerLM(**LM, dropout=0.1, attention="naive", device="cpu")
+        load_flax_params(model, lm_params)
+        gen = torch.Generator().manual_seed(11)
+
+        def loss_fn(p, ms, batch, model=model, gen=gen):
+            return torch.func.functional_call(model, p, (batch["x"],), {
+                "targets": batch["y"], "dropout_rng": gen}).mean(), ms
+
+        opt = optim.sgd(0.1)
+        state = TrainState.create(dict(model.named_parameters()), opt)
+        if name == "sp":
+            step = make_train_step(loss_fn, opt, parallel=plan)
+            batches = DistributedDataLoader(ArrayDataset(data), 8, mesh=plan.mesh,
+                                            axis_name=plan.data_axes, device="cpu")
+        else:
+            step = make_train_step(loss_fn, opt)
+            batches = [{k: torch.from_numpy(v[8 * b:8 * b + 8]) for k, v in data.items()}
+                       for b in range(3)]
+        losses = []
+        for _, batch in zip(range(3), batches):
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+        res[f"{case}/{name}/losses"] = np.array(losses)
+        put(f"{case}/{name}/param", **state.params)
+
+
 def step_group():
     from fluxmpi_tpu_torch.data import ArrayDataset, DistributedDataLoader
     from fluxmpi_tpu_torch.models import TransformerLM, load_flax_params
@@ -195,6 +230,7 @@ def step_group():
 
     fm.init(device="cpu")
     lm_params = {k[len("lm/"):]: v for k, v in D.items() if k.startswith("lm/")}
+    moe_params = {k[len("moe/"):]: v for k, v in D.items() if k.startswith("moe/")}
     LM = dict(vocab_size=32, max_len=16, num_layers=2, d_model=16, num_heads=2, d_ff=32)
     from fluxmpi_tpu_torch.models._layers import dot_product_attention
 
@@ -211,7 +247,14 @@ def step_group():
         if spec["kind"] == "pp":
             rule = pipeline_rules("pp")
             kw["rules"] = lambda path, shape: rule(path, shape) if "stages" in path else P()
+        if spec["kind"] == "moe" and "ep" in kw:
+            from fluxmpi_tpu_torch.models import expert_parallel_rules
+
+            kw["rules"] = expert_parallel_rules()
         plan = ParallelConfig(**kw).resolve()
+        if spec["kind"] == "dropout":
+            _dropout_runs(case, LM, lm_params, plan)
+            continue
         if spec["kind"] == "pp":
             w = spec["w"]
             params = {k: t(name).clone().requires_grad_() for k, name in (
@@ -229,7 +272,11 @@ def step_group():
             if spec["kind"] == "moe":
                 from fluxmpi_tpu_torch.models import MoETransformerLM
 
-                model = MoETransformerLM(**LM, num_experts=2, device="cpu")
+                model = MoETransformerLM(**LM, num_experts=4, **spec.get("moe", {}),
+                                         mesh=plan.mesh if "ep" in spec["plan"] else None,
+                                         attention=spec.get("attention", "naive"),
+                                         device="cpu")
+                load_flax_params(model, moe_params)
             else:
                 model = TransformerLM(**LM, attention=spec.get("attention", "naive"),
                                       attention_fn=attention_fn, device="cpu")
@@ -240,6 +287,14 @@ def step_group():
             def loss_fn(p, ms, batch, model=model, reg=reg, spec=spec):
                 if spec.get("no_layer"):  # a loss that enters no sp-aware layer
                     return (p["embed.embedding"][batch["x"]] ** 2).mean(), ms
+                if spec["kind"] == "moe":
+                    from fluxmpi_tpu_torch.models import collect_moe_losses
+
+                    sown = {}
+                    ce = torch.func.functional_call(model, p, (batch["x"],), {
+                        "targets": batch["y"], "losses": sown}).mean()
+                    aux, z = collect_moe_losses(sown)
+                    return ce + 0.1 * aux + 0.01 * z, ms
                 ce = torch.func.functional_call(model, p, (batch["x"],),
                                                 {"targets": batch["y"]}).mean()
                 if reg == "all":
@@ -268,6 +323,13 @@ def step_group():
                                        axis_name=plan.data_axes, device="cpu")
         losses = []
         for _, batch in zip(range(3), loader):
+            if spec.get("shard_batch"):
+                # Cut over sp by the plan's batch spec: the step gathers it
+                # back (the pipeline replicates sp).
+                from fluxmpi_tpu_torch.parallel.train import shard_batch
+
+                batch = shard_batch({k: v.numpy() for k, v in batch.items()}, plan.mesh,
+                                    spec=plan.batch_spec)
             state, loss = step(state, batch)
             losses.append(float(loss))
         res[f"{case}/losses"] = np.array(losses)

@@ -5,8 +5,9 @@ contiguous packed documents, causal with padding and causal with packing:
 the same recovered segment ids (exactly), outputs within atol 1e-5 and
 q/k/v gradients within atol 1e-5 (f32 sums in other orders; values and
 gradients are O(1)); unrepresentable masks raise the same ``ValueError``;
-``bias`` raises; dense dropout is refused (JAX's flax-random fallback),
-kernel dropout equals ``flash_attention`` with the drawn seed; while a
+``bias`` raises; dense dropout (JAX's flax fallback) is the dense
+attend with the generator's draw, kernel dropout equals
+``flash_attention`` with the drawn seed; while a
 CUDA graph is captured (simulated here) an unrepresentable mask
 NaN-poisons its rows instead of raising and kernel dropout is refused; and
 ``TransformerLM(attention_fn=flash_attention_fn(causal=True))`` against
@@ -28,6 +29,7 @@ import jax.numpy as jnp
 
 from fluxmpi_tpu.models import TransformerLM as JaxLM
 from fluxmpi_tpu_torch.models import TransformerLM, load_flax_params, to_flax_params
+from fluxmpi_tpu_torch.models._layers import dot_product_attention
 from fluxmpi_tpu_torch.ops import flash_attention as port_flash
 from fluxmpi_tpu_torch.ops import flash_attention_fn
 
@@ -145,10 +147,19 @@ def test_bias_raises():
 
 
 def test_dense_dropout_is_refused_and_kernel_dropout_uses_the_drawn_seed():
+    """``dropout_impl="dense"`` (the default) runs the dense attend in f32
+    with the same generator's draw (its law against flax's:
+    ``tests/test_torch_vit_dropout.py``); ``"kernel"`` drops in the kernels
+    with the drawn seed."""
     q, k, v = map(torch.from_numpy, _qkv(5))
     drop = dict(dropout_rate=0.25, deterministic=False)
-    with pytest.raises(NotImplementedError, match="random stream"):
-        flash_attention_fn()(q, k, v, dropout_rng=torch.Generator().manual_seed(0), **drop)
+    dense = flash_attention_fn(causal=True)(
+        q, k, v, dropout_rng=torch.Generator().manual_seed(0), **drop)
+    mask = torch.ones(S, S, dtype=torch.bool).tril()[None, None]
+    want = dot_product_attention(q, k, v, mask=mask, dtype=torch.float32,
+                                 dropout_rng=torch.Generator().manual_seed(0), **drop)
+    assert torch.equal(dense, want.to(q.dtype))
+    assert not torch.equal(dense, dot_product_attention(q, k, v, mask=mask).to(q.dtype))
     with pytest.raises(ValueError, match="dropout_rng"):
         flash_attention_fn(dropout_impl="kernel")(q, k, v, **drop)
     with pytest.raises(ValueError, match="dropout_impl"):

@@ -1760,3 +1760,238 @@ def test_nccl_sp_tp_step_and_the_multi_rank_examples(tmp_path):
         print(f"  {name} {' '.join(argv)}: rc {proc.returncode} in "
               f"{time.perf_counter() - t0:.1f} s; " + " | ".join(proc.stdout.splitlines()[-4:]))
         assert proc.returncode == 0 and sentinel in proc.stdout, proc.stdout[-3000:] + proc.stderr[-3000:]
+
+
+COMPOSE_WORKER = textwrap.dedent(r'''
+    import json
+    import sys
+    import time
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import (MoETransformerLM, TransformerLM,
+                                          expert_parallel_rules)
+    from fluxmpi_tpu_torch.models import moe as moe_module
+    from fluxmpi_tpu_torch.ops import device_launches
+    from fluxmpi_tpu_torch.ops.fused_ce import unembed_cross_entropy
+    from fluxmpi_tpu_torch.parallel import (ParallelConfig, TrainState, make_pipeline_fn,
+                                            make_train_step, stack_stage_params)
+    from fluxmpi_tpu_torch.parallel.sharding import P
+    from fluxmpi_tpu_torch.utils import get_policy
+
+    out = sys.argv[1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = fm.init(timeout=1800.0)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    SWITCH = dict(vocab_size=50257, max_len=8192, num_layers=12, d_model=768, num_heads=12,
+                  d_ff=3072, num_experts=8, capacity_factor=1.25, top_k=1)
+    GPT2 = dict(vocab_size=50257, max_len=1024, num_layers=12, d_model=768, num_heads=12,
+                d_ff=3072, ln_eps=1e-5)
+    UPDATES = 4
+    res = dict(card=torch.cuda.get_device_name(dev), world=world, cases={})
+    policy = get_policy("bf16")
+
+    def rows(batch, seq, seed=0, vocab=50257):
+        t = np.random.default_rng(seed).integers(0, vocab, (UPDATES * batch, seq + 1))
+        return torch.from_numpy(t).to(dev)
+
+    def train(params, loss_fn, plan, t, batch, routes=None):
+        """UPDATES sgd(0.1) updates; (losses, device launches per kernel,
+        ms per update after the first). ``routes``: a list that collects the
+        first update's token-choice expert indices, layer by layer."""
+        opt = optim.sgd(0.1)
+        state = TrainState.create(params, opt)
+        if plan is not None and plan.shards_parameters:
+            state, _ = plan.shard_state(state)
+        kw = dict(policy=policy) if routes is not None else {}
+        step = (make_train_step(loss_fn, opt, parallel=plan, **kw) if plan is not None
+                else make_train_step(loss_fn, opt, grad_reduce=None, **kw))
+        top_k = moe_module._top_k
+
+        def recording(x, k):
+            vals, idx = top_k(x, k)
+            if routes is not None and k <= 2 and x.shape[-1] == SWITCH["num_experts"]:
+                routes.append(idx[..., 0].detach().cpu())
+            return vals, idx
+
+        losses, times = [], []
+        device_launches(reset=True)
+        for u in range(UPDATES):
+            b = t[u * batch:(u + 1) * batch]
+            moe_module._top_k = recording if u == 0 else top_k
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, {"x": b[:, :-1], "y": b[:, 1:]})
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+        moe_module._top_k = top_k
+        launches = device_launches()
+        del state, step
+        torch.cuda.empty_cache()
+        return losses, launches, 1e3 * float(np.median(times[1:]))
+
+    def moe_model(plan):
+        return MoETransformerLM(**SWITCH, attention="flash", dtype=torch.bfloat16, device=dev,
+                                mesh=None if plan is None else plan.mesh,
+                                generator=torch.Generator().manual_seed(0))
+
+    def moe_loss(model):
+        def fn(p, ms, batch):
+            return torch.func.functional_call(model, p, (batch["x"],),
+                                              {"targets": batch["y"]}).mean(), ms
+        return fn
+
+    # 1. The MoE LM on one card first (rank 0): batch 4 x 8192, or 2 x 8192
+    #    when 4 does not fit; every run takes that batch.
+    batch = torch.zeros((), dtype=torch.int64, device=dev)
+    if rank == 0:
+        for b in (4, 2):
+            routes = []
+            try:
+                model = moe_model(None)
+                losses, launches, ms = train(dict(model.named_parameters()), moe_loss(model),
+                                             None, rows(b, 8192), b, routes)
+            except torch.cuda.OutOfMemoryError as exc:
+                res["cases"][f"moe_one_card_batch{b}_oom"] = str(exc)[:200]
+                del model
+                torch.cuda.empty_cache()
+                continue
+            res["cases"]["moe_one_card"] = dict(batch=b, losses=losses, launches=launches,
+                                                ms_per_update=ms)
+            one_routes = routes
+            batch.fill_(b)
+            del model
+            torch.cuda.empty_cache()
+            break
+    dist.broadcast(batch, 0)
+    b = int(batch)
+    tokens = rows(b, 8192)
+    for name, kw in (("moe_sp4", dict(sp=4)), ("moe_sp2_ep2", dict(sp=2, ep=2))):
+        if "ep" in kw:
+            kw["rules"] = expert_parallel_rules()
+        plan = ParallelConfig(**kw).resolve()
+        model = moe_model(plan if "ep" in kw else None)
+        routes = []
+        losses, launches, ms = train(dict(model.named_parameters()), moe_loss(model), plan,
+                                     tokens, b, routes)
+        case = dict(batch=b, losses=losses, launches=launches, ms_per_update=ms,
+                    sp_index=plan.mesh.coords(rank)["sp"])
+        if rank == 0:
+            # Every layer's first choice of every token at update 1 (the
+            # sp path routes the whole groups on every worker).
+            case["rerouted_tokens"] = int(sum(int((a.reshape(-1) != c.reshape(-1)).sum())
+                                              for a, c in zip(routes, one_routes)))
+            case["routed_tokens"] = int(sum(a.numel() for a in one_routes))
+        res["cases"][name] = case
+        del model
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+    # 2. GPT-2 small's 12 bf16 blocks as 2 stages of 6 (GPipe, 8
+    #    microbatches of 16 x 1024) under pp=2 x tp=2 and pp=2 x sp=2.
+    pp_tokens = rows(16, 1024, seed=1)
+    base = TransformerLM(**GPT2, attention="flash", dtype=torch.bfloat16, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    blocks = [getattr(base.encoder, f"block_{i}") for i in range(12)]
+    names = [k_ for k_, _ in blocks[0].named_parameters()]
+    template = blocks[0]
+
+    def stage_fn(p, x):
+        for j in range(len(p) // len(names)):
+            x = torch.func.functional_call(template, {k_: p[f"{j}.{k_}"] for k_ in names}, (x,))
+        return x
+
+    def pp_params(chunks):
+        own = {k_: t.detach().clone().requires_grad_() for k_, t in base.named_parameters()
+               if not k_.startswith("encoder.block_")}
+        return {**own, **{f"stages.{k_}": t.clone().requires_grad_()
+                          for k_, t in chunks.items()}}
+
+    def pp_loss(pipe):
+        def fn(p, ms, batch):
+            s = batch["x"].shape[1]
+            x = (p["embed.embedding"][batch["x"]] + p["pos_embed"][:s]).to(torch.bfloat16)
+            y = pipe({k_[7:]: t for k_, t in p.items() if k_.startswith("stages.")}, x)
+            h = torch.func.functional_call(base.encoder.ln_out,
+                                           {"scale": p["encoder.ln_out.scale"],
+                                            "bias": p["encoder.ln_out.bias"]},
+                                           (y, torch.float32))
+            return unembed_cross_entropy(h.to(torch.bfloat16), p["embed.embedding"],
+                                         batch["y"]).mean(), ms
+        return fn
+
+    rule = lambda path, shape: (P("pp", *([None] * (len(shape) - 1)))  # noqa: E731
+                                if "stages" in path else P())
+    gpipe = stack_stage_params([{f"{j}.{k_}": dict(blocks[6 * s + j].named_parameters())[k_]
+                                 .detach() for j in range(6) for k_ in names}
+                                for s in range(2)])
+    for name, kw in (("pp2_tp2", dict(pp=2, tp=2)), ("pp2_sp2", dict(pp=2, sp=2))):
+        plan = ParallelConfig(**kw, rules=rule).resolve()
+        pipe = make_pipeline_fn(stage_fn, plan.mesh, n_microbatches=8, axis_name="pp")
+        losses, launches, ms = train(pp_params(gpipe), pp_loss(pipe), plan, pp_tokens, 16)
+        res["cases"][name] = dict(losses=losses, launches=launches, ms_per_update=ms)
+        dist.barrier()
+    if rank == 0:
+        def seq_pipe(p, x):
+            for i in range(12):
+                x = stage_fn({f"0.{k_}": p[f"{i}.{k_}"] for k_ in names}, x)
+            return x
+
+        natural = {f"{i}.{k_}": t.detach()
+                   for i in range(12) for k_, t in blocks[i].named_parameters()}
+        losses, launches, ms = train(pp_params(natural), pp_loss(seq_pipe), None, pp_tokens, 16)
+        res["cases"]["pp_one_card"] = dict(losses=losses, launches=launches, ms_per_update=ms)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    fm.shutdown()
+''')
+
+
+def test_nccl_every_plan_composes_like_one_card(tmp_path):
+    """The plan compositions on four cards over NCCL, one worker per card,
+    TF32 off, 4 updates of ``sgd(0.1)`` each, held to the same run with no
+    plan on one card:
+
+    - ``MoETransformerLM`` at Switch-Base-8 widths with ``max_len=8192``
+      (bf16 by ``policy=``, ``attention="flash"``), batch 4 x 8192 (2 x 8192
+      when the one-card run does not fit; the worker says which), under
+      ``sp=4`` and under ``sp=2, ep=2``: each group routed whole on every
+      worker, the tokens that went to another expert than on one card at
+      update 1 counted;
+    - GPT-2 small's 12 bf16 blocks as 2 stages of 6 (GPipe, 8 microbatches
+      of a batch of 16 x 1024; embedding, final LayerNorm and tied head
+      outside the pipeline) under ``pp=2, tp=2`` and ``pp=2, sp=2``: every
+      axis but pp replicates the pipeline.
+
+    Gates (PERF.md section 2): each loss within 2**-7 of the one-card loss,
+    relatively; each card's forward launches match the schedule (the ring's
+    card at sp index i attends i + 1 blocks a layer; a stage card runs its
+    6 blocks on each of 8 microbatches). Prints each run's losses, ms per
+    update, launches and rerouted tokens."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    import json
+
+    ranks = _launch_world(tmp_path, COMPOSE_WORKER, 4, [], "compose")
+    cases = ranks[0]["cases"]
+    print(f"\nplan compositions on 4 x {ranks[0]['card']}:")
+    for r, res_r in enumerate(ranks):
+        print(f"  rank {r}: {json.dumps(res_r['cases'])}")
+    one = cases["moe_one_card"]
+    for name in ("moe_sp4", "moe_sp2_ep2"):
+        np.testing.assert_allclose(cases[name]["losses"], one["losses"], rtol=2 ** -7, atol=0,
+                                   err_msg=name)
+        for res_r in ranks:
+            case = res_r["cases"][name]
+            assert case["launches"]["flash_fwd"] == 4 * 12 * (case["sp_index"] + 1), case
+    for name in ("pp2_tp2", "pp2_sp2"):
+        np.testing.assert_allclose(cases[name]["losses"], cases["pp_one_card"]["losses"],
+                                   rtol=2 ** -7, atol=0, err_msg=name)
+        for res_r in ranks:
+            assert res_r["cases"][name]["launches"]["flash_fwd"] == 4 * 6 * 8

@@ -117,7 +117,10 @@ def test_quickstart_losses_match_the_jax_example(world):
     quickstart = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(quickstart)
     fm.init(device="cpu")
-    model = load_flax_params(MLP(device="cpu"), flat)
-    _, losses = quickstart.train(model, quickstart.squares_loader(), 2)
+    try:
+        model = load_flax_params(MLP(device="cpu"), flat)
+        _, losses = quickstart.train(model, quickstart.squares_loader(), 2)
+    finally:
+        fm.shutdown()  # the next test file on this worker starts uninitialized
     assert len(losses) == len(ref) == 16
     np.testing.assert_allclose(losses, ref, rtol=1e-5, atol=0)

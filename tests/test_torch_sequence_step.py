@@ -17,13 +17,23 @@ global batches, 3 updates of ``sgd(0.1)`` each:
   reader outside the layers, so none is handed over as a block), and plus
   block 0's ff1 kernel's norm alone (only that layer's group stays
   gathered);
-- the refusals: a loss that enters no sequence-parallel layer, an
-  ``attention_fn`` that is not sequence-parallel, the MoE LM's routed
-  feed-forward under sp, sp with ep and pp with tp (sp with tp trains
-  since slice 15, the ``sp_tp`` case).
+- the MoE LM (``tests/_torch_compose.py``: CE plus the balance and z
+  losses) under ``sp=2`` with top-1, top-2, expert choice and
+  ``n_groups=4`` (each group two rows, cut across both sequence blocks),
+  under ``sp=2, ep=2`` (with ``remat=True``) and ``dp=2, sp=2`` (the flash
+  ring through the kernels' plain versions): each group routes as a whole;
+- a ``make_pipeline_fn`` loss under ``pp=2`` with ``tp=2``, ``ep=2`` and
+  ``sp=2`` (its batch cut over sp by ``shard_batch``): every other axis
+  replicates the pipeline, as JAX's ``shard_map`` over ``pp`` does;
+- the refusals: a loss that enters no sequence-parallel layer, and an
+  ``attention_fn`` that is not sequence-parallel; an ``MoEMLP`` built with
+  ``mesh=`` inside a pipeline stage, refused by both packages.
 
 Every update's loss and every parameter block (shape and values, against
-JAX's addressable shard on the same mesh coordinate) within 2e-5.
+JAX's addressable shard on the same mesh coordinate) within 2e-5. And the
+LM's dense attention dropout under ``sp=2`` (the ring drops each tick's
+slice of the whole-sequence mask) equals the port's no-plan run with the
+same dropout generator, within 2e-5.
 """
 
 import json
@@ -36,6 +46,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import _torch_compose as compose
 from _torch_worlds import join_world, start_world
 
 ATOL = 2e-5
@@ -61,8 +72,12 @@ CASES = {
         "c18_dp_tp": _lm(dict(dp=2, tp=2), penalty="all"),
         "pp_dp": _pp(dict(dp=2, pp=2)),
         "sp_tp": _lm(dict(sp=2, tp=2)),
-        "sp_ep_refused": _lm(dict(sp=2, ep=2), refused=True),
-        "pp_tp_refused": _pp(dict(pp=2, tp=2)) | dict(refused=True),
+        "moe_sp_ep": dict(kind="moe", plan=dict(sp=2, ep=2), remat=True),
+        "moe_dp_sp_top2": dict(kind="moe", plan=dict(dp=2, sp=2), moe=dict(top_k=2),
+                               attention="flash"),
+        "pp_tp": _pp(dict(pp=2, tp=2)),
+        "pp_ep": _pp(dict(pp=2, ep=2)),
+        "pp_sp": _pp(dict(pp=2, sp=2)) | dict(shard_batch=True),
     },
     2: {
         "lm_sp_ring_fn": _lm(dict(sp=2), fn="ring_fn"),
@@ -73,10 +88,15 @@ CASES = {
         "pp_interleave": _pp(dict(pp=2), w="pp2", interleave=2),
         "sp_no_layer_refused": _lm(dict(sp=2), no_layer=True, refused=True),
         "sp_fn_refused": _lm(dict(sp=2), fn="not_sp_fn", refused=True),
-        "sp_moe_refused": dict(kind="moe", plan=dict(sp=2), refused=True),
+        "moe_sp": dict(kind="moe", plan=dict(sp=2)),
+        "moe_sp_top2": dict(kind="moe", plan=dict(sp=2), moe=dict(top_k=2)),
+        "moe_sp_experts": dict(kind="moe", plan=dict(sp=2), moe=dict(routing="experts")),
+        "moe_sp_groups": dict(kind="moe", plan=dict(sp=2), moe=dict(n_groups=4)),
+        "dropout_sp": dict(kind="dropout", plan=dict(sp=2)),
     },
 }
-TRAINED = [(n, c) for n in (4, 2) for c, s in CASES[n].items() if not s.get("refused")]
+TRAINED = [(n, c) for n in (4, 2) for c, s in CASES[n].items()
+           if not s.get("refused") and s["kind"] != "dropout"]
 
 
 def _flat(tree):
@@ -92,7 +112,6 @@ def _shard(arr, device_id):
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
     from fluxmpi_tpu.models import TransformerLM as JaxLM
-    from fluxmpi_tpu.parallel.pipeline import stack_stage_params
 
     rng = np.random.default_rng(0)
     lm = JaxLM(**LM).init(jax.random.PRNGKey(1), jnp.zeros((2, 8), jnp.int32),
@@ -101,23 +120,17 @@ def data(tmp_path_factory):
     lm = jax.tree_util.tree_map(
         lambda x: np.asarray(x) + 0.1 * rng.normal(size=x.shape).astype(np.float32), lm)
     d = dict(tokens=rng.integers(0, 32, (40, 16)).astype(np.int32),
-             targets=rng.integers(0, 32, (40, 16)).astype(np.int32),
-             pp_x=rng.normal(size=(40, 8)).astype(np.float32),
-             pp_y=rng.normal(size=(40, 8)).astype(np.float32),
-             pp_head=(0.3 * rng.normal(size=(8, 8))).astype(np.float32))
-    for name, chunks, v in (("pp", 2, 1), ("pp2", 4, 2)):
-        ws = [(0.5 * rng.normal(size=(8, 8))).astype(np.float32) for _ in range(chunks)]
-        bs = [rng.normal(size=(8,)).astype(np.float32) for _ in range(chunks)]
-        st = stack_stage_params([{"w": w, "b": b} for w, b in zip(ws, bs)],
-                                n_stages=2, interleave=v)
-        d[f"{name}_w"], d[f"{name}_b"] = np.asarray(st["w"]), np.asarray(st["b"])
+             targets=rng.integers(0, 32, (40, 16)).astype(np.int32))
+    d.update(compose.pp_data(rng))
+    moe = compose.moe_weights(rng)
     paths = {}
     for n in (2, 4):
         path = tmp_path_factory.mktemp(f"step{n}") / "data.npz"
         np.savez(path, **d, **{f"lm/{k}": v for k, v in _flat(lm).items()},
+                 **{f"moe/{k}": v for k, v in _flat(moe).items()},
                  cases=np.array(json.dumps(CASES[n])))
         paths[n] = path
-    return dict(d, lm=lm, paths=paths)
+    return dict(d, lm=lm, moe=moe, paths=paths)
 
 
 @pytest.fixture(scope="module")
@@ -125,10 +138,6 @@ def worlds(tmp_path_factory, data):
     started = {n: start_world("step", tmp_path_factory.mktemp(f"stepworld{n}"), n,
                               data["paths"][n]) for n in (4, 2)}
     return {n: join_world(*started[n]) for n in (4, 2)}
-
-
-def _stage_fn(p, x):
-    return jax.nn.gelu(x @ p["w"] + p["b"])
 
 
 _JAX: dict = {}
@@ -139,56 +148,37 @@ def _jax_train(data, n, case):
     cases that differ only in the port's attention path share one run."""
     from fluxmpi_tpu.models import TransformerLM as JaxLM
     from fluxmpi_tpu.parallel import ParallelConfig, TrainState, make_train_step
-    from fluxmpi_tpu.parallel.pipeline import make_pipeline_fn, pipeline_rules
 
     spec = CASES[n][case]
-    key = (n, json.dumps(spec["plan"], sort_keys=True), spec["kind"], spec.get("penalty"),
-           spec.get("w"))
+    if spec["kind"] == "moe":
+        return compose.jax_moe_train(data, n, spec)
+    if spec["kind"] == "pp":
+        return compose.jax_pp_train(data, n, {k: spec[k] for k in ("plan", "w", "interleave")})
+    key = (n, json.dumps(spec["plan"], sort_keys=True), spec.get("penalty"))
     if key in _JAX:
         return _JAX[key]
-    devs = jax.devices()[:n]
-    kw = dict(spec["plan"])
-    if spec["kind"] == "pp":
-        rule = pipeline_rules("pp")
-        kw["rules"] = lambda path, shape: (rule(path, shape) if "stages" in path
-                                           else jax.sharding.PartitionSpec())
-    plan = ParallelConfig(**kw).resolve(devs)
-    if spec["kind"] == "pp":
-        pipe = make_pipeline_fn(_stage_fn, plan.mesh, n_microbatches=4, axis_name="pp",
-                                interleave=spec["interleave"])
-        params = {"stages": {"w": data[f"{spec['w']}_w"], "b": data[f"{spec['w']}_b"]},
-                  "head": data["pp_head"]}
+    plan = ParallelConfig(**spec["plan"]).resolve(jax.devices()[:n])
+    model = JaxLM(**LM)
+    penalty = spec.get("penalty")
 
-        def loss_fn(p, ms, batch):
-            y = pipe(p["stages"], batch["x"])
-            return jnp.mean((y @ p["head"] - batch["y"]) ** 2), ms
+    def loss_fn(p, ms, batch):
+        ce = jnp.mean(model.apply({"params": p["params"]}, batch["x"], train=False,
+                                  targets=batch["y"]))
+        if penalty == "all":
+            ce = ce + 0.1 * sum(jnp.linalg.norm(w) for w in jax.tree_util.tree_leaves(p))
+        elif penalty is not None:
+            ce = ce + 0.1 * jnp.linalg.norm(_flat(p["params"])[penalty.replace(".", "/")])
+        return ce, ms
 
-        xs, ys = data["pp_x"], data["pp_y"]
-    else:
-        model = JaxLM(**LM)
-        params = data["lm"]
-        penalty = spec.get("penalty")
-
-        def loss_fn(p, ms, batch):
-            ce = jnp.mean(model.apply({"params": p["params"]}, batch["x"], train=False,
-                                      targets=batch["y"]))
-            if penalty == "all":
-                ce = ce + 0.1 * sum(jnp.linalg.norm(w) for w in jax.tree_util.tree_leaves(p))
-            elif penalty is not None:
-                ce = ce + 0.1 * jnp.linalg.norm(_flat(p["params"])[penalty.replace(".", "/")])
-            return ce, ms
-
-        xs, ys = data["tokens"], data["targets"]
     opt = optax.sgd(LR)
-    state = TrainState.create({"params": params} if spec["kind"] == "lm" else params, opt)
-    state, _ = plan.shard_state(state)
+    state, _ = plan.shard_state(TrainState.create({"params": data["lm"]}, opt))
     step = make_train_step(loss_fn, opt, parallel=plan)
     losses = []
     for b in range(3):
-        state, loss = step(state, {"x": xs[8 * b:8 * b + 8], "y": ys[8 * b:8 * b + 8]})
+        sl = slice(8 * b, 8 * b + 8)
+        state, loss = step(state, {"x": data["tokens"][sl], "y": data["targets"][sl]})
         losses.append(float(loss))
-    tree = state.params["params"] if spec["kind"] == "lm" else state.params
-    _JAX[key] = (np.array(losses), tree)
+    _JAX[key] = (np.array(losses), state.params["params"])
     return _JAX[key]
 
 
@@ -224,19 +214,62 @@ def test_c18_every_claimed_leaf_with_an_outside_reader_stays_gathered(world, wor
 
 def test_sequence_parallel_refusals_name_their_gap(world, worlds):
     """A loss that no sequence-parallel layer enters, and an attention_fn
-    that is not sequence-parallel, raise at the first update naming sp;
-    sp with ep and pp with tp raise when the step is built, naming the
-    open gap."""
+    that is not sequence-parallel, raise at the first update naming sp.
+    Every composition of the plan's axes trains (sp with ep, pp with tp,
+    ep and sp, the MoE LM under sp: the cases above), so no step refuses
+    a plan any more."""
     msg = str(worlds[2][0]["sp_no_layer_refused/raised"])
     assert msg.startswith("ValueError: under a plan with sp=2") and "sequence block" in msg
     msg = str(worlds[2][0]["sp_fn_refused/raised"])
     assert msg.startswith("ValueError:") and "not sequence-parallel over 'sp'" in msg
-    # sp with tp trains (the sp_tp case); sp with ep and pp with tp still
-    # raise naming the gap.
-    msg = str(worlds[4][0]["sp_ep_refused/raised"])
-    assert msg.startswith("NotImplementedError:") and "sp=2 and ep=2" in msg, msg
-    msg = str(worlds[4][0]["pp_tp_refused/raised"])
-    assert msg.startswith("NotImplementedError:") and "pp=2 and tp=2" in msg, msg
-    # The MoE layers route each whole sequence as one group.
-    msg = str(worlds[2][0]["sp_moe_refused/raised"])
-    assert msg.startswith("NotImplementedError: the feed-forward sublayer 'moe'"), msg
+    for n in (2, 4):
+        for r, res in enumerate(worlds[n]):
+            assert not any(k.endswith("/raised") and "NotImplementedError" in str(v)
+                           for k, v in res.items()), (n, r)
+
+
+def test_dense_dropout_under_sp_equals_the_no_plan_run(world, worlds):
+    """The LM's dense attention dropout under ``sp=2``: each ring tick
+    drops its slice of the mask the whole-sequence attend draws from the
+    same generator, so losses and parameters equal the port's no-plan run
+    on the global batches (within the f32 rounding of the ring's online
+    softmax)."""
+    for r, res in enumerate(worlds[2]):
+        np.testing.assert_allclose(res["dropout_sp/sp/losses"], res["dropout_sp/none/losses"],
+                                   atol=ATOL, rtol=0, err_msg=f"rank {r}")
+        names = [k for k in res if k.startswith("dropout_sp/none/param/")]
+        assert names
+        for k in names:
+            np.testing.assert_allclose(res[k.replace("/none/", "/sp/")], res[k], atol=ATOL,
+                                       rtol=0, err_msg=f"rank {r} {k}")
+    # It drops: the first update's loss differs from the dropout-free LM's.
+    assert abs(float(worlds[2][0]["dropout_sp/sp/losses"][0])
+               - float(worlds[2][0]["lm_sp_ring_fn/losses"][0])) > 1e-4
+
+
+def test_a_moe_layer_built_with_a_mesh_is_refused_in_a_pipeline_stage(world):
+    """Both packages refuse an ``MoEMLP`` built with ``mesh=`` inside a
+    pipeline stage (pp=2 x ep=2): JAX's sharding pins inside its
+    ``shard_map`` over pp, the port before any exchange, naming the
+    reason."""
+    from fluxmpi_tpu.models import MoEMLP as JaxMoE
+    from fluxmpi_tpu.parallel import ParallelConfig as JaxConfig
+    from fluxmpi_tpu.parallel.pipeline import make_pipeline_fn as jax_pipe
+    from fluxmpi_tpu_torch.models import MoEMLP
+    from fluxmpi_tpu_torch.parallel import make_pipeline_fn
+    from fluxmpi_tpu_torch.parallel.sharding import Mesh
+
+    jmesh = JaxConfig(pp=2, ep=2).resolve(jax.devices()[:4]).mesh
+    jlayer = JaxMoE(num_experts=4, d_ff=8, mesh=jmesh)
+    jp = jlayer.init(jax.random.PRNGKey(0), jnp.zeros((1, 2, 8)))["params"]
+    stacked = jax.tree_util.tree_map(lambda x: jnp.stack([x, x]), jp)
+    pipe = jax_pipe(lambda p, h: h + jlayer.apply({"params": p}, h), jmesh,
+                    n_microbatches=2, axis_name="pp")
+    with pytest.raises(ValueError):
+        pipe(stacked, jnp.ones((4, 2, 8)))
+    layer = MoEMLP(num_experts=4, d_ff=8, d_model=8, mesh=Mesh(np.arange(4).reshape(2, 2),
+                                                             ("pp", "ep")), device="cpu")
+    tpipe = make_pipeline_fn(lambda p, h: h + p["w"] * layer(h), layer.mesh,
+                             n_microbatches=2, axis_name="pp")
+    with pytest.raises(ValueError, match="pipeline stage.*mesh="):
+        tpipe({"w": torch.ones(2, 8)}, torch.ones(4, 2, 8))

@@ -14,6 +14,11 @@ global batches, 3 updates each:
   step computes global attention;
 - a Ulysses plan whose worker's heads do not divide by sp is refused,
   naming the sizes;
+- at 8 ranks, two more compositions (``tests/_torch_compose.py``): the
+  MoE LM under ``dp=2, sp=2, ep=2`` (each group routed whole over the sp
+  group, tokens exchanged over the ep group at the worker's sp index) and
+  a ``make_pipeline_fn`` loss under ``dp=2, pp=2, tp=2`` (tp replicates
+  the pipeline);
 - the zigzag LM at 4 ranks (dp=1, sp=4): the example's per-block LM
   (local positions, zigzag ring attention over the kernels' plain
   versions) and its global next-token loss, against the JAX example's
@@ -37,6 +42,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import _torch_compose as compose
 from _torch_worlds import join_world, start_world
 
 ATOL = 2e-5
@@ -61,6 +67,8 @@ CASES = {
         "dp_sp_tp": _lm(dict(dp=2, sp=2, tp=2)),
         "dp_sp_tp_flash": _lm(dict(dp=2, sp=2, tp=2), attention="flash", remat=True),
         "dp_sp_tp_c18": _lm(dict(dp=2, sp=2, tp=2), penalty="all", remat=True),
+        "moe_dp_sp_ep": dict(kind="moe", plan=dict(dp=2, sp=2, ep=2)),
+        "pp_dp_tp": dict(kind="pp", plan=dict(dp=2, pp=2, tp=2), w="pp", interleave=1),
     },
 }
 TRAINED = [(n, c) for n in (4, 8) for c, s in CASES[n].items() if not s.get("refused")]
@@ -96,17 +104,20 @@ def data(tmp_path_factory):
     d = dict(tokens=rng.integers(0, 32, (40, 16)).astype(np.int32),
              targets=rng.integers(0, 32, (40, 16)).astype(np.int32),
              zz_tokens=rng.integers(0, 32, (3, 2, 16)).astype(np.int32))
+    d.update(compose.pp_data(rng))
+    moe = compose.moe_weights(rng)
     paths = {}
     for n in (4, 8):
         path = tmp_path_factory.mktemp(f"sptp{n}") / "data.npz"
         np.savez(path, **d, **{f"lm/{k}": v for k, v in _flat(lm).items()},
+                 **{f"moe/{k}": v for k, v in _flat(moe).items()},
                  cases=np.array(json.dumps(CASES[n])))
         paths[n] = path
     path = tmp_path_factory.mktemp("zigzag") / "data.npz"
     np.savez(path, **d, **{f"lm/{k}": v for k, v in _flat(zz).items()},
              cases=np.array(json.dumps({"zigzag": dict(lm=ZZ, sp=4)})))
     paths["zigzag"] = path
-    return dict(d, lm=lm, zz=zz, paths=paths)
+    return dict(d, lm=lm, zz=zz, moe=moe, paths=paths)
 
 
 @pytest.fixture(scope="module")
@@ -128,6 +139,10 @@ def _jax_train(data, n, case):
     from fluxmpi_tpu.parallel import ParallelConfig, TrainState, make_train_step
 
     spec = CASES[n][case]
+    if spec["kind"] == "moe":
+        return compose.jax_moe_train(data, n, spec)
+    if spec["kind"] == "pp":
+        return compose.jax_pp_train(data, n, {k: spec[k] for k in ("plan", "w", "interleave")})
     key = (n, json.dumps(spec["plan"], sort_keys=True), spec.get("penalty"))
     if key in _JAX:
         return _JAX[key]

@@ -201,15 +201,21 @@ def test_vit_logits_and_every_gradient_match_jax(flash):
 
 
 def test_vit_refuses_wrong_images_and_dropout():
+    """Wrong image sizes are refused; training with dropout needs a
+    dropout generator, as flax needs a "dropout" rng, and then drops (its
+    law: ``tests/test_torch_vit_dropout.py``)."""
     tm = ViT(**VIT, image_size=24, device="cpu")
     with pytest.raises(ValueError, match="built for 24x24"):
         tm(torch.zeros(1, 32, 32, 3))
     with pytest.raises(ValueError, match="must divide"):
         ViT(**VIT, image_size=20, device="cpu")
     drop = ViT(**dict(VIT, dropout=0.1), image_size=24, device="cpu")
-    with pytest.raises(NotImplementedError, match="random stream"):
-        drop(torch.zeros(1, 24, 24, 3))
-    drop(torch.zeros(1, 24, 24, 3), train=False)
+    x = torch.ones(1, 24, 24, 3)
+    with pytest.raises(ValueError, match="dropout_rng"):
+        drop(x)
+    eval_out = drop(x, train=False)
+    trained = drop(x, dropout_rng=torch.Generator().manual_seed(0))
+    assert trained.shape == eval_out.shape and not torch.equal(trained, eval_out)
 
 
 # ---- GroupNorm, the UNet's parts, the schedule ----
