@@ -278,6 +278,23 @@
    kernels with ``fuse="auto"`` (windows of 4) and ``fuse=False``, the same
    dropout generator: every leaf bit for bit, the launches by the device
    counters equal to the wrappers' (with the graphs') and to 12 per update.
+19. Decode phase (``decode_phase``): the JAX package's cached decoding as
+   a user calls it, through the port's decode twin: GPT-2-small widths,
+   ``attention="flash"``, f32 and bf16, 8 prompts of 513 tokens, ``twin =
+   _decode_twin(lm)``, ``cache, _ = prefill_cache(lm, prompt[:, :512],
+   577)`` and 64 greedy ticks ``twin(tok, pos_offset=pos, cache=cache)``
+   from the last prompt token. Gates: the tokens equal ``generate()``'s and
+   those of the same ticks through ``forward(kv_cache=)`` (exactly in f32;
+   in bf16 each difference a near-tie, within 4 x the largest |bf16 - f32|
+   logit of the two models on the prompts); the bytes requested from the
+   allocator grow by the cache and the last logits alone (the twin holds
+   the model's parameter tensors); ``flash_fwd``'s device counter equals the wrappers' count,
+   12 x 64 for the ticks. The ms per tick of the twin and of
+   ``forward(kv_cache=)`` by CUDA events, beside the card. Then the MoE LM
+   at Switch-Base-8 widths (bf16, flash), as ``parallel_phase`` builds it,
+   decodes 16 tokens of 2 prompts of 16 through its twin, teacher-forcing
+   the prompt tick by tick: equal to its own ``generate()``, launches
+   12 per tick.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -1170,7 +1187,8 @@ def replay_scores(model, prompt, tokens, *, temperature: float = 0.0, top_k=None
     vocab]``."""
     import torch
 
-    from fluxmpi_tpu_torch.models.generate import _filter_logits, _gumbel, prefill_cache
+    from fluxmpi_tpu_torch.models.generate import (_decode_twin, _filter_logits, _gumbel,
+                                                   prefill_cache)
 
     dev = model.device
     prompt = torch.as_tensor(prompt, device=dev).long()
@@ -1185,10 +1203,11 @@ def replay_scores(model, prompt, tokens, *, temperature: float = 0.0, top_k=None
             for _ in range(plen - 1):
                 _gumbel(b, model.vocab_size, rng, dev)
         tok = prompt[:, plen - 1:]
+        twin = _decode_twin(model)
         out = []
         for j in range(new):
-            pos = torch.full((b,), plen - 1 + j, dtype=torch.long, device=dev)
-            logits = model(tok, pos_offset=pos, kv_cache=cache)[:, -1]
+            logits, cache = twin(tok, train=False, pos_offset=plen - 1 + j, cache=cache)
+            logits = logits[:, -1]
             if rng is None:
                 out.append(logits.float())
             else:
@@ -6129,6 +6148,183 @@ def compose_phase(device):
     print(f"compose phase: {stats['seconds']:.2f} s", flush=True)
     return stats, failures
 
+DECODE = dict(batch=8, prompt=513, ticks=64, moe_batch=2, moe_prompt=16, moe_new=16)
+
+
+def decode_ticks(step, tok, start: int, ticks: int):
+    """``ticks`` greedy ticks of ``step(tok, pos) -> logits [b, 1, vocab]``
+    from ``tok [b, 1]`` at position ``start``: the tokens ``[b, ticks]``
+    and the ms per tick by CUDA events (the host's eager launches
+    included)."""
+    import torch
+
+    out = []
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    begin.record()
+    with torch.no_grad():
+        for j in range(ticks):
+            tok = step(tok, start + j)[:, -1].argmax(dim=-1, keepdim=True)
+            out.append(tok)
+    end.record()
+    torch.cuda.synchronize()
+    return torch.cat(out, dim=1), begin.elapsed_time(end) / ticks
+
+
+def decode_phase(device):
+    """Slice 17's path on one card (module docstring, item 19). Returns
+    its stats and failures."""
+    import numpy as np
+    import torch
+
+    from fluxmpi_tpu_torch.models import MoETransformerLM, TransformerLM, generate
+    from fluxmpi_tpu_torch.models.generate import _decode_twin, prefill_cache, prefill_kv
+    from fluxmpi_tpu_torch.ops import flash_fwd
+
+    failures = []
+    card = card_line()
+    cfg, b, plen, ticks = GPT2_SMALL, DECODE["batch"], DECODE["prompt"], DECODE["ticks"]
+    total = plen + ticks
+    prompt = torch.from_numpy(lm_corpus(cfg["vocab_size"], n=b, seq=plen - 1, seed=7)
+                              .astype(np.int64)).to(device)
+    stats, launches, runs, firsts = {}, {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        model = TransformerLM(**cfg, attention="flash", dtype=dtype, device=device,
+                              generator=torch.Generator().manual_seed(0))
+        # Warm-up: the libraries' first calls at these shapes (workspaces,
+        # heuristics) land outside the timed and measured runs.
+        generate(model, prompt, 2)
+        gen = generate(model, prompt, ticks)[:, plen:]
+
+        def twin_run(count=False):
+            """prefill_cache, then the ticks through the twin: ``(tokens,
+            ms per tick, device launches, wrapper launches, growth, held,
+            shared, last logits)``."""
+            # The bytes the program asked the allocator for (its blocks
+            # round up and may keep a segment's tail).
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+            twin = _decode_twin(model)
+            cache, last = prefill_cache(model, prompt[:, :plen - 1], total)
+            torch.cuda.synchronize()
+            grown = torch.cuda.memory_stats()["requested_bytes.all.current"] - before
+            held = sum(t.numel() * t.element_size() for t in [*cache.values(), last])
+            shared = all(p is q for p, q in zip(twin.parameters(), model.parameters()))
+
+            def step(tok, pos):
+                return twin(tok, train=False, pos_offset=pos, cache=cache)[0]
+
+            flash_fwd.launches = 0
+            (toks, ms), dev = kernel_launches(
+                lambda: decode_ticks(step, prompt[:, plen - 1:], plen - 1, ticks))
+            return toks, ms, dev, flash_fwd.launches, grown, held, shared, last.float()
+
+        def kv_run():
+            """The same ticks through ``forward(kv_cache=)`` from the same
+            prefill: ``(tokens, ms per tick)``."""
+            k, v, _ = prefill_kv(model, prompt[:, :plen - 1])
+            kv = tuple(torch.zeros(model.cache_shape(b, total), dtype=dtype, device=device)
+                       for _ in range(2))
+            kv[0][:, :, :plen - 1], kv[1][:, :, :plen - 1] = k, v
+            del k, v
+
+            def step(tok, pos):
+                at = torch.full((b,), pos, dtype=torch.long, device=device)
+                return model(tok, pos_offset=at, kv_cache=kv)
+
+            return decode_ticks(step, prompt[:, plen - 1:], plen - 1, ticks)
+
+        # Twin, kv_cache, kv_cache, twin: the two compared in turns.
+        toks, twin_ms, dev_launches, counted, grown, held, shared, firsts[name] = twin_run()
+        kv_toks, kv_ms = kv_run()
+        kv_ms2 = kv_run()[1]
+        twin_ms2 = twin_run()[1]
+        runs[name] = dict(twin=toks, kv_cache=kv_toks, generate=gen, model=model)
+        launches[f"decode_twin_{name}"] = dev_launches["flash_fwd"]
+        stats[name] = dict(twin_ms_per_tick=[twin_ms, twin_ms2],
+                           kv_cache_ms_per_tick=[kv_ms, kv_ms2],
+                           allocator_growth_bytes=grown, cache_and_logits_bytes=held,
+                           parameters_shared=shared, flash_fwd_launches=dev_launches,
+                           wrapper_launches=counted)
+        print(f"decode {name}: {card}: ms per tick (b {b}, {cfg['num_layers']} layers, cache "
+              f"{total}, in turns) twin {twin_ms:.3f}, forward(kv_cache=) {kv_ms:.3f}, "
+              f"{kv_ms2:.3f}, twin {twin_ms2:.3f}; allocator grew {grown} B for the cache "
+              f"and the last logits ({held} B), parameters shared {shared}; flash_fwd "
+              f"launches {dev_launches} (wrappers {counted}, need "
+              f"{cfg['num_layers'] * ticks})", flush=True)
+        if grown > held or not shared:
+            failures.append(f"decode_phase {name}: the twin does not share the model's "
+                            f"storage (grew {grown} B, held {held} B)")
+        if not (dev_launches["flash_fwd"] == counted == cfg["num_layers"] * ticks):
+            failures.append(f"decode_phase {name}: flash_fwd launched "
+                            f"{dev_launches['flash_fwd']} (wrappers {counted})")
+
+    delta = 4 * float((firsts["bfloat16"] - firsts["float32"]).abs().max())
+    for name, run in runs.items():
+        for other in ("generate", "kv_cache"):
+            ref, got = run["twin"].tolist(), run[other].tolist()
+            if ref == got:
+                verdict = "equal"
+            elif name == "float32":
+                verdict = "DIFFER"
+                failures.append(f"decode_phase f32: the twin's tokens differ from {other}")
+            else:
+                # The twin's scores: a difference must be a near-tie there.
+                scores = replay_scores(run["model"], prompt, run["twin"])
+                gaps = [g for g in first_gaps(ref, got, scores) if g is not None]
+                verdict = [dict(position=p, gap=g) for p, g in gaps]
+                if any(g > delta for _, g in gaps):
+                    failures.append(f"decode_phase bf16: the twin differs from {other} "
+                                    f"by more than delta {delta}")
+            stats[name][f"tokens_vs_{other}"] = verdict
+            print(f"decode {name}: {b} x {ticks} twin tokens vs {other}: {verdict}"
+                  + (f" (delta {delta:.4f})" if name == "bfloat16" else ""), flush=True)
+    del runs
+    torch.cuda.empty_cache()
+
+    # The MoE LM's twin, teacher-forcing the prompt as generate()'s scan does.
+    mb, mplen, new = DECODE["moe_batch"], DECODE["moe_prompt"], DECODE["moe_new"]
+    moe = MoETransformerLM(**SWITCH_BASE_8, attention="flash", dtype=torch.bfloat16,
+                           device=device, generator=torch.Generator().manual_seed(0))
+    mprompt = torch.from_numpy(lm_corpus(SWITCH_BASE_8["vocab_size"], n=mb, seq=mplen - 1,
+                                         seed=8).astype(np.int64)).to(device)
+
+    def moe_twin():
+        from fluxmpi_tpu_torch.models.generate import _sized_cache
+
+        twin = _decode_twin(moe)
+        cache = _sized_cache(twin, mb, mplen + new)
+        out = []
+        with torch.no_grad():
+            for pos in range(mplen + new - 1):
+                tok = mprompt[:, pos:pos + 1] if pos < mplen else out[-1]
+                logits, cache = twin(tok, train=False, pos_offset=pos, cache=cache)
+                if pos >= mplen - 1:
+                    out.append(logits[:, -1].argmax(dim=-1, keepdim=True))
+        return torch.cat(out, dim=1)
+
+    flash_fwd.launches = 0
+    moe_toks, moe_launches = kernel_launches(moe_twin)
+    counted = flash_fwd.launches
+    moe_gen = generate(moe, mprompt, new)[:, mplen:]
+    need = SWITCH_BASE_8["num_layers"] * (mplen + new - 1)
+    same = torch.equal(moe_toks, moe_gen)
+    launches["decode_moe_twin"] = moe_launches["flash_fwd"]
+    stats["moe"] = dict(tokens_equal_generate=same, flash_fwd_launches=moe_launches,
+                        wrapper_launches=counted)
+    print(f"decode moe: Switch-Base-8 widths, bf16: {mb} x {new} twin tokens "
+          f"{'equal' if same else 'DIFFER FROM'} its generate(); flash_fwd launches "
+          f"{moe_launches} (wrappers {counted}, need {need})", flush=True)
+    if not same:
+        failures.append("decode_phase moe: the twin's tokens differ from generate()")
+    if not (moe_launches["flash_fwd"] == counted == need):
+        failures.append(f"decode_phase moe: flash_fwd launched {moe_launches['flash_fwd']}")
+    del moe
+    torch.cuda.empty_cache()
+    stats["launches_by_path"] = {p: {"flash_fwd": n, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                                 for p, n in launches.items()}
+    return stats, failures
+
 
 def main() -> int:
     import torch
@@ -6252,11 +6448,15 @@ def run_phases(device):
     settle("compose_phase")
     comp, comp_failures = compose_phase(device)
     failures += comp_failures
+    settle("decode_phase")
+    dec, dec_failures = decode_phase(device)
+    failures += dec_failures
     par_paths = {**par.get("launches_by_path", {}),
                  **tune_auto.get("launches_by_path", {}),
                  **elastic.get("launches_by_path", {}),
                  **seq.get("launches_by_path", {}),
                  **comp.get("launches_by_path", {}),
+                 **dec.get("launches_by_path", {}),
                  **{f"example_{n[:-3]}": r["launches"] for n, r in ex["examples"].items()
                     if r["launches"] and any(r["launches"].values())}}
     health_paths = {f"health_planes_{name}": health[f"planes_{name}"]["launches"]
@@ -6394,7 +6594,7 @@ def run_phases(device):
                      "vision": vision, "zoo": zoo, "finetune": tune,
                      "health": health, "parallel": par, "autotune": tune_auto,
                      "elastic": elastic, "sequence": seq, "examples": ex,
-                     "compose": comp}, failures
+                     "compose": comp, "decode": dec}, failures
 
 
 if __name__ == "__main__":

@@ -52,7 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import runtime
+from .. import _batch_parallel, runtime
 
 __all__ = ["BatchNorm", "Conv", "Dense", "GroupNorm", "LayerNorm",
            "MultiHeadDotProductAttention", "StatsContext", "at_least_f32",
@@ -240,7 +240,11 @@ class BatchNorm(nn.Module):
     the features of ``[N, C]``). Parameters ``scale`` (ones, or
     ``scale_init``) and ``bias`` (zeros); the statistics live in the
     :class:`StatsContext` under ``<path>.mean`` and ``<path>.var``, where
-    ``path`` is the module's name in its model (:func:`name_norms`)."""
+    ``path`` is the module's name in its model (:func:`name_norms`).
+    Training statistics: with ``axis_name``, over the world (sync-BN);
+    else inside the ``style="auto"`` step over the global batch
+    (:mod:`~fluxmpi_tpu_torch._batch_parallel`), as flax's BatchNorm sees
+    it under JAX's partitioned step; else over ``x``'s rows."""
 
     def __init__(self, features: int, *, init: _Init, dtype=torch.float32,
                  axis_name: str | None = None, momentum: float = 0.9,
@@ -268,6 +272,9 @@ class BatchNorm(nn.Module):
             mean, mean2 = xf.mean(axes), (xf * xf).mean(axes)
             if self.axis_name is not None:
                 mean, mean2 = _pmean(torch.stack([mean, mean2])).unbind(0)
+            elif (rows := _batch_parallel.current()) is not None:
+                # The global batch's statistics under the style="auto" step.
+                mean, mean2 = rows.mean(torch.stack([mean, mean2])).unbind(0)
             var = torch.clamp_min(mean2 - mean * mean, 0.0)
             m = self.momentum
             for key, batch in zip(keys, (mean, var)):

@@ -9,12 +9,12 @@ running statistics are the model state, a dict keyed by flax path
 (``bn_{i}.mean``/``var``; :meth:`CNN.init_batch_stats`), passed in and
 returned by a training forward as flax's ``mutable=["batch_stats"]`` does.
 
-``axis_name`` set: a training forward computes the batch statistics over
-the whole data-parallel world (sync-BN). The port's train step is one
-worker's step (the JAX package's ``style="shard_map"``), so without it
-each worker normalizes by its own batch; the JAX package's default
-``style="auto"`` step normalizes by the global batch whatever
-``axis_name`` is.
+Batch statistics in training: with ``axis_name`` set, over the whole
+data-parallel world (sync-BN); without it, inside the default
+``style="auto"`` train step over the global batch (every worker's rows,
+as the JAX package's ``"auto"`` step normalizes whatever ``axis_name``
+is), and under ``style="shard_map"`` or a bare forward over the worker's
+own batch.
 """
 
 from __future__ import annotations

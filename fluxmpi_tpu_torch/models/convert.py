@@ -17,6 +17,12 @@ the BatchNorm ``scale``/``bias`` are parameters, and ``batch_stats``
 "batch_stats"}`` and gives the model (its parameters copied in) and its
 model state; :func:`to_flax_variables` is its inverse. Conv kernels keep
 flax's HWIO layout, so they copy as they are.
+
+The decode twin's ``"cache"`` collection (flax's ``cached_key``,
+``cached_value`` and ``cache_index`` per attention) is the flat dict
+:func:`~fluxmpi_tpu_torch.models.generate.cache_template` describes:
+:func:`load_flax_cache` carries a flax cache tree in, :func:`to_flax_cache`
+gives it back as numpy.
 """
 
 from __future__ import annotations
@@ -26,8 +32,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_flax_params", "load_flax_variables", "to_flax_params",
-           "to_flax_variables"]
+__all__ = ["load_flax_cache", "load_flax_params", "load_flax_variables",
+           "to_flax_cache", "to_flax_params", "to_flax_variables"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict:
@@ -110,3 +116,52 @@ def to_flax_variables(model: torch.nn.Module, model_state: Mapping[str, Any]) ->
     numpy copies keyed by flax path."""
     return {"params": to_flax_params(model),
             "batch_stats": to_flax_params(dict(model_state))}
+
+
+def _tensor(arr: Any) -> torch.Tensor:
+    """A numpy array as a tensor; bfloat16 (ml_dtypes) through its bits."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def load_flax_cache(twin: torch.nn.Module, cache: Mapping[str, Any]) -> dict:
+    """A flax ``"cache"`` collection (``{"cache": ...}`` or the tree itself,
+    any array leaves) as the decode twin's cache dict: tensors on the
+    twin's device in its template's dtypes, keyed by flax path joined with
+    ``.``. Any missing, extra or mis-shaped leaf raises."""
+    from .generate import cache_template
+
+    if set(cache) == {"cache"}:
+        cache = cache["cache"]
+    flat = {p.replace("/", "."): a for p, a in _flatten(cache).items()}
+    some = next((a for k, a in flat.items() if k.endswith("cached_key")), None)
+    if some is None:
+        raise ValueError("the cache tree holds no cached_key")
+    want = cache_template(twin, some.shape[0], some.shape[1])
+    if set(flat) != set(want):
+        raise ValueError(f"cache trees differ: missing {sorted(set(want) - set(flat))}, "
+                         f"unexpected {sorted(set(flat) - set(want))}")
+    out = {}
+    for key, ref in want.items():
+        if tuple(flat[key].shape) != tuple(ref.shape):
+            raise ValueError(f"mis-shaped cache leaf {key}: {tuple(flat[key].shape)} "
+                             f"vs {tuple(ref.shape)}")
+        out[key] = _tensor(flat[key]).to(device=twin.device, dtype=ref.dtype)
+    return out
+
+
+def to_flax_cache(cache: Mapping[str, torch.Tensor]) -> dict:
+    """The decode twin's cache dict as flax's nested ``"cache"`` tree of
+    numpy arrays (``cache_index`` int32; bfloat16 leaves as float32, which
+    holds them exactly)."""
+    tree: dict = {}
+    for key, t in cache.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        t = t.detach().cpu()
+        node[leaf] = (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+    return tree

@@ -12,7 +12,14 @@ solve is one node whatever the number of iterations.
 
 **Stopping on the device.** The JAX solvers are ``lax.while_loop``s that
 stop once the batch-global residual ``max|z - prev|`` (Broyden:
-``max|f(z) - z|``) is at most ``tol``. Here each solver runs its full
+``max|f(z) - z|``) is at most ``tol``; under JAX's default ``style="auto"``
+step that batch is the global one. Here the residual is the MAX over this
+worker's rows and, inside the port's ``style="auto"`` step, over every
+worker of the batch axes (one all-reduce per iteration, on the device;
+:mod:`~fluxmpi_tpu_torch._batch_parallel`), so every worker freezes at the
+same iteration as the global solve; the backward's adjoint solve reduces
+over the forward's group, for the cotangent of the step's global loss
+(the mean of the workers' losses). Here each solver runs its full
 ``max_iter`` trip on the device and, once the residual is at most ``tol``,
 freezes its iterate with ``torch.where``: the same ``z*`` as the early
 exit, and no value is read back to the host, so a DEQ step can run inside
@@ -33,6 +40,8 @@ import torch
 from torch import nn
 from torch.utils import _pytree as pytree
 
+from .. import _batch_parallel
+from .._batch_parallel import reduce_max
 from ..runtime import resolve_device
 from ._layers import lecun_normal
 from .transformer import Dense, _Init
@@ -41,14 +50,16 @@ __all__ = ["DEQ", "fixed_point_solve"]
 
 
 def _damped_iteration(g: Callable, z0: torch.Tensor, tol: float, max_iter: int,
-                      damping: float) -> tuple[torch.Tensor, torch.Tensor]:
+                      damping: float, rows=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``z <- (1 - damping) z + damping g(z)`` until ``max|z - prev| <=
-    tol`` or ``max_iter`` evaluations. Returns ``(z*, iterations)``."""
+    tol`` or ``max_iter`` evaluations (the max over ``rows``' members too,
+    a :class:`~fluxmpi_tpu_torch._batch_parallel.BatchAxes`). Returns
+    ``(z*, iterations)``."""
     z = (1.0 - damping) * z0 + damping * g(z0)
     prev = z0
     iters = torch.ones((), dtype=torch.int64, device=z0.device)
     for _ in range(max_iter - 1):
-        active = (z - prev).abs().max() > tol
+        active = reduce_max((z - prev).abs().max(), rows) > tol
         z_new = (1.0 - damping) * z + damping * g(z)
         z, prev = torch.where(active, z_new, z), torch.where(active, z, prev)
         iters = iters + active
@@ -71,7 +82,7 @@ def _flatten_batched(g: Callable, z0: torch.Tensor):
 
 
 def _anderson_iteration(g: Callable, z0: torch.Tensor, tol: float, max_iter: int,
-                        m: int = 5, beta: float = 1.0, ridge: float = 1e-8):
+                        m: int = 5, beta: float = 1.0, ridge: float = 1e-8, rows=None):
     """Anderson acceleration (type II) of ``g``: the last ``m`` iterates and
     residuals, extrapolation weights from a regularized per-sample least
     squares (one batched ``[n, m, m]`` solve). The history is seeded with
@@ -94,7 +105,8 @@ def _anderson_iteration(g: Callable, z0: torch.Tensor, tol: float, max_iter: int
         f = gz - z
         Z[it], F[it] = z, f
         # A plain step: |z_new - z| is the fixed-point residual |f|.
-        z, res = torch.where(active, gz, z), torch.where(active, f.abs().max(), res)
+        z, res = torch.where(active, gz, z), torch.where(
+            active, reduce_max(f.abs().max(), rows), res)
         iters = iters + active
     eye = torch.eye(m, device=dev)
     ones = torch.ones((n, m, 1), device=dev)
@@ -112,14 +124,14 @@ def _anderson_iteration(g: Callable, z0: torch.Tensor, tol: float, max_iter: int
         alpha = torch.linalg.solve_ex(G, ones, check_errors=False)[0][..., 0]
         alpha = alpha / alpha.sum(1, keepdim=True)
         z_new = torch.einsum("nm,nmd->nd", alpha, Z.transpose(0, 1) + beta * Fs)
-        res = torch.where(active, (z_new - z).abs().max(), res)
+        res = torch.where(active, reduce_max((z_new - z).abs().max(), rows), res)
         z = torch.where(active, z_new, z)
         iters = iters + active
     return unflatten(z), iters
 
 
 def _broyden_iteration(g: Callable, z0: torch.Tensor, tol: float, max_iter: int,
-                       m: int = 8):
+                       m: int = 8, rows=None):
     """Limited-memory good-Broyden root solve of ``g(z) - z = 0``: the
     inverse-Jacobian estimate ``B = -I + sum u_i v_i^T`` held as two
     ``[m, n, d]`` histories, reset to ``B = -I`` when the window fills
@@ -140,7 +152,7 @@ def _broyden_iteration(g: Callable, z0: torch.Tensor, tol: float, max_iter: int,
     V = torch.zeros((m, n, d), device=z.device)
     iters = torch.ones((), dtype=torch.int64, device=z.device)
     for it in range(1, int(max_iter)):
-        active = F.abs().max() > tol
+        active = reduce_max(F.abs().max(), rows) > tol
         dz = -b_apply(U, V, F)
         z_new = z + dz
         F_new = gf(z_new) - z_new
@@ -160,13 +172,16 @@ def _broyden_iteration(g: Callable, z0: torch.Tensor, tol: float, max_iter: int,
     return unflatten(z), iters
 
 
-def _solve(g, z0, tol, max_iter, damping, solver, anderson_m, anderson_beta):
+def _solve(g, z0, tol, max_iter, damping, solver, anderson_m, anderson_beta, rows=None):
+    """The solver's ``(z*, iterations)``; its residuals are reduced over
+    ``rows``' members (the batch axes of the step it runs in)."""
     if solver == "damped":
-        return _damped_iteration(g, z0, tol, max_iter, damping)
+        return _damped_iteration(g, z0, tol, max_iter, damping, rows)
     if solver == "anderson":
-        return _anderson_iteration(g, z0, tol, max_iter, m=anderson_m, beta=anderson_beta)
+        return _anderson_iteration(g, z0, tol, max_iter, m=anderson_m, beta=anderson_beta,
+                                   rows=rows)
     if solver == "broyden":
-        return _broyden_iteration(g, z0, tol, max_iter, m=anderson_m)
+        return _broyden_iteration(g, z0, tol, max_iter, m=anderson_m, rows=rows)
     raise ValueError(f"unknown solver {solver!r} (damped | anderson | broyden)")
 
 
@@ -177,9 +192,12 @@ class _FixedPoint(torch.autograd.Function):
     @staticmethod
     def forward(ctx, f, spec, opts, x, z0, *leaves):
         params = pytree.tree_unflatten(list(leaves), spec)
+        # The backward runs on autograd's device thread on the card: it
+        # reduces over the group the forward saw.
+        rows = _batch_parallel.current()
         with torch.no_grad():
-            z, _ = _solve(lambda z: f(params, x, z), z0, *opts)
-        ctx.f, ctx.spec, ctx.opts = f, spec, opts
+            z, _ = _solve(lambda z: f(params, x, z), z0, *opts, rows)
+        ctx.f, ctx.spec, ctx.opts, ctx.rows = f, spec, opts, rows
         ctx.save_for_backward(x, z, *leaves)
         return z
 
@@ -194,13 +212,21 @@ class _FixedPoint(torch.autograd.Function):
             params = pytree.tree_unflatten(ps, spec)
             fz = f(params, xx, zz)
 
+            # Inside the style="auto" step the global loss is the mean of
+            # the workers' losses, so its cotangent is v / W: the adjoint
+            # is solved for that, as JAX solves it for the global batch's
+            # loss (the freeze test is not scale-free), and scaled back.
+            share = 1 if ctx.rows is None else ctx.rows.size
+            vg = v / share
+
             def adjoint_map(u):
-                # u = v + (df/dz)^T u: one vector-Jacobian product per step.
+                # u = vg + (df/dz)^T u: one vector-Jacobian product per step.
                 vjp = torch.autograd.grad(fz, zz, u.to(fz.dtype), retain_graph=True)[0]
-                return v + vjp
+                return vg + vjp
 
             with torch.no_grad():
-                u, _ = _solve(adjoint_map, v, *opts)
+                u, _ = _solve(adjoint_map, vg, *opts, ctx.rows)
+                u = u * share
             wrt = [t for t in [xx, *ps] if t.requires_grad]
             grads = iter(torch.autograd.grad(fz, wrt, u.to(fz.dtype), allow_unused=True))
         gx, *gps = [next(grads) if t.requires_grad else None for t in [xx, *ps]]

@@ -2,15 +2,22 @@
 :class:`~fluxmpi_tpu_torch.models.TransformerLM`: greedy and sampled
 :func:`generate` and :func:`beam_search`.
 
-Counterpart of :mod:`fluxmpi_tpu.models.generate`. With
-``prefill="batched"`` the prompt fills the cache through ONE causal
-forward (:func:`prefill_kv`, :func:`prefill_cache`) and the ticks start at
-the last prompt token; with ``prefill="scan"`` every prompt token is fed
-through the cached decode path one tick at a time from position 0,
-teacher-forced. Each tick feeds one token per row. The arithmetic of a row
-does not depend on the cache length, so
+Counterpart of :mod:`fluxmpi_tpu.models.generate`. Decoding runs the
+model's decode twin (:func:`_decode_twin`: the same configuration with
+``decode=True``, sharing the model's parameters) on flax's cache
+collection, a flat dict keyed by flax path (:func:`cache_template`,
+:func:`_sized_cache`, :func:`prefill_cache`;
+:mod:`~fluxmpi_tpu_torch.models.transformer` describes it): one
+``twin(tok, pos_offset=pos, cache=cache)`` per tick, as the JAX package
+applies the twin with ``mutable=["cache"]``. With ``prefill="batched"``
+the prompt fills the cache through ONE causal forward (:func:`prefill_kv`,
+:func:`prefill_cache`) and the ticks start at the last prompt token; with
+``prefill="scan"`` every prompt token is fed through the twin one tick at a
+time from position 0, teacher-forced. Each tick feeds one token per row.
+The arithmetic of a row does not depend on the cache length, so
 :class:`~fluxmpi_tpu_torch.serving.InferenceEngine` (caches ``max_len``
-long) produces the same greedy tokens.
+long, ``forward(kv_cache=)``, the same code) produces the same greedy
+tokens.
 
 Sampling draws Gumbel noise for the whole ``[batch, vocab]`` row on every
 tick, teacher-forced prompt ticks included, from the caller's
@@ -22,9 +29,41 @@ split per prompt tick. The filters and the draw run in float32.
 
 from __future__ import annotations
 
+import copy
+import re
+
 import torch
 
+from .transformer import (EncoderBlock, TransformerEncoder, TransformerLM,
+                          _resolve_attention_mode)
+
 __all__ = ["generate", "beam_search", "prefill_kv", "prefill_cache"]
+
+
+def _share(module: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``module``'s tree of modules holding the same parameter
+    and buffer tensors (no storage copied)."""
+    twin = copy.copy(module)
+    twin._parameters = dict(module._parameters)
+    twin._buffers = dict(module._buffers)
+    twin._modules = {name: None if child is None else _share(child)
+                     for name, child in module._modules.items()}
+    return twin
+
+
+def _decode_twin(model):
+    """The same model configured for cached single-position decoding:
+    ``decode=True``, ``attention_fn=None``, ``dropout=0.0``, the same class
+    and every other field, sharing the model's parameter tensors (training
+    the model moves the twin)."""
+    twin = _share(model)
+    for m in twin.modules():
+        if isinstance(m, (EncoderBlock, TransformerEncoder, TransformerLM)):
+            m.decode, m.attention_fn, m.dropout = True, None, 0.0
+        if isinstance(m, EncoderBlock):
+            m.mode = _resolve_attention_mode(m.attention, m.device)
+            m.attn.dropout_rate = 0.0
+    return twin
 
 
 def _validate_lengths(model, plen: int, max_new_tokens: int) -> int:
@@ -47,35 +86,82 @@ def _validate_eos(model, eos_token: int | None) -> None:
         )
 
 
+def cache_template(twin, rows: int, total: int) -> dict:
+    """The skeleton of the decode twin's cache for ``rows`` sequences of
+    length ``total``: ``meta`` tensors (shapes and dtypes, no storage, no
+    forward), keyed by flax path joined with ``.``: per attention
+    ``cache_index`` (int32 scalar), ``cached_key`` and ``cached_value``
+    (``[rows, total, heads, head_dim]`` in the model's dtype)."""
+    out = {}
+    for name, m in twin.named_modules():
+        if isinstance(m, EncoderBlock):
+            path = f"{name}.attn." if name else "attn."
+            kv = (rows, total, m.num_heads, m.d_model // m.num_heads)
+            out[path + "cache_index"] = torch.empty((), dtype=torch.int32, device="meta")
+            for leaf in ("cached_key", "cached_value"):
+                out[path + leaf] = torch.empty(kv, dtype=m.dtype, device="meta")
+    return out
+
+
+def _sized_cache(twin, rows: int, total: int) -> dict:
+    """Zero caches for ``rows`` sequences of length ``total`` on the
+    twin's device (flax's decode caches initialize to zeros)."""
+    return {k: torch.zeros(t.shape, dtype=t.dtype, device=twin.device)
+            for k, t in cache_template(twin, rows, total).items()}
+
+
+_BLOCK_RE = re.compile(r"block_(\d+)$")
+
+
+def layer_index(path) -> int:
+    """Encoder-layer index of a cache or parameter path: a dotted key
+    (``"encoder.block_10.attn.cached_key"``) or a tuple of keys (or of
+    JAX-style entries with a ``.key``). Sorting by it puts ``block_10``
+    after ``block_2``."""
+    keys = path.split(".") if isinstance(path, str) else [getattr(e, "key", e)
+                                                           for e in path]
+    for key in keys:
+        if isinstance(key, str) and (m := _BLOCK_RE.match(key)):
+            return int(m.group(1))
+    where = "".join(f"[{k!r}]" for k in keys)
+    raise ValueError(
+        f"no block_<i> component in cache path {where!r}"
+        " — the model's encoder layers are not TransformerLM-shaped"
+    )
+
+
 @torch.no_grad()
 def prefill_kv(model, tokens):
     """K/V for every position of ``tokens [b, plen]`` from one causal
-    forward. Returns ``(k, v, logits)``: ``k``/``v`` are
-    ``[layers, b, plen, heads, head_dim]``, ``logits`` ``[b, plen, vocab]``.
-    Right-padding is safe: the causal mask keeps a row's first positions
-    independent of what follows them."""
+    forward (of the training configuration, a twin's too). Returns ``(k,
+    v, logits)``: ``k``/``v`` are ``[layers, b, plen, heads, head_dim]`` in
+    layer order, ``logits`` ``[b, plen, vocab]``. Right-padding is safe: the
+    causal mask keeps a row's first positions independent of what follows
+    them."""
     logits, k, v = model(tokens, train=False, return_kv=True)
     return k, v, logits
 
 
-def _zero_cache(model, batch: int, total: int):
-    shape = model.cache_shape(batch, total)
-    return (torch.zeros(shape, dtype=model.dtype, device=model.device),
-            torch.zeros(shape, dtype=model.dtype, device=model.device))
-
-
 @torch.no_grad()
 def prefill_cache(model, prompt, total: int):
-    """Zero caches sized for ``total`` positions with the prompt's K/V
-    written at ``0..plen-1``. Returns ``((k_cache, v_cache), last_logits)``
-    with ``last_logits [b, vocab]`` the distribution after the prompt."""
+    """Batched prefill into a fresh decode cache: one causal forward
+    (:func:`prefill_kv`) writes the prompt's K/V at positions ``0..plen-1``
+    of zero caches sized for ``total`` positions (the decode twin's layout,
+    :func:`cache_template`), with every ``cache_index`` at ``plen``: the
+    state ``plen`` one-token ticks reach, in one pass. Returns ``(cache,
+    last_logits)``, ``last_logits [b, vocab]`` the distribution after the
+    prompt."""
     prompt = torch.as_tensor(prompt, device=model.device).long()
     b, plen = prompt.shape
     k, v, logits = prefill_kv(model, prompt)
-    k_cache, v_cache = _zero_cache(model, b, total)
-    k_cache[:, :, :plen] = k
-    v_cache[:, :, :plen] = v
-    return (k_cache, v_cache), logits[:, plen - 1]
+    cache = _sized_cache(_decode_twin(model), b, total)
+    for key, leaf in cache.items():
+        name = key.rsplit(".", 1)[1]
+        if name == "cache_index":
+            leaf.fill_(plen)
+        else:
+            leaf[:, :plen] = (k if name == "cached_key" else v)[layer_index(key)]
+    return cache, logits[:, plen - 1].clone()  # not a view holding every position
 
 
 def _filter_logits(logits, temperature: float, top_k: int | None,
@@ -149,6 +235,7 @@ def generate(model, prompt, max_new_tokens: int, *,
         prefill = "batched" if getattr(model, "batched_prefill_safe", False) else "scan"
     sample = temperature > 0
     vocab = model.vocab_size
+    twin = _decode_twin(model)
     if prefill == "batched" and plen > 1:
         cache, _ = prefill_cache(model, prompt[:, : plen - 1], total)
         if sample:
@@ -156,14 +243,14 @@ def generate(model, prompt, max_new_tokens: int, *,
                 _gumbel(b, vocab, rng, model.device)
         start = plen - 1
     else:
-        cache = _zero_cache(model, b, total)
+        cache = _sized_cache(twin, b, total)
         start = 0
     tok = prompt[:, start:start + 1]
-    pos = torch.full((b,), start, dtype=torch.long, device=model.device)
     done = torch.zeros((b,), dtype=torch.bool, device=model.device)
     out = []
     for p in range(start, total - 1):
-        logits = model(tok, pos_offset=pos, kv_cache=cache)[:, -1]
+        logits, cache = twin(tok, train=False, pos_offset=p, cache=cache)
+        logits = logits[:, -1]
         noise = _gumbel(b, vocab, rng, model.device) if sample else None
         if p + 1 < plen:  # still inside the prompt: teacher-force it
             nxt = prompt[:, p + 1]
@@ -178,7 +265,6 @@ def generate(model, prompt, max_new_tokens: int, *,
                 done = done | (nxt == eos_token)
         out.append(nxt)
         tok = nxt[:, None]
-        pos = pos + 1
     gen = torch.stack(out, dim=1)[:, plen - 1 - start:]
     return torch.cat([prompt, gen], dim=1)
 
@@ -192,8 +278,9 @@ def beam_search(model, prompt, max_new_tokens: int, *, beam_size: int,
     The prompt fills the cache on ``b`` rows (one causal forward), which
     then repeats into ``b * beam_size`` rows, beams contiguous per batch
     row; only beam 0 is live at the start. Every tick is ONE batched
-    forward over all beams; the tokens, scores and every cache tensor are
-    reordered by the selected parents (a gather along the rows). A beam
+    forward of the decode twin over all beams; the tokens, scores and every
+    cache tensor with a leading rows dim are reordered by the selected
+    parents (a gather along the rows; ``cache_index`` passes through). A beam
     that emits ``eos_token`` is absorbed: its only continuation is ``eos``
     at zero added log-probability, so its score freezes. Candidates are
     ranked by the GNMT-penalised score ``cum_logp / ((5 + L) / 6) **
@@ -219,11 +306,13 @@ def beam_search(model, prompt, max_new_tokens: int, *, beam_size: int,
     def lp(length):
         return ((5.0 + length.float()) / 6.0) ** alpha
 
+    twin = _decode_twin(model)
     if plen > 1:
         cache, _ = prefill_cache(model, prompt[:, : plen - 1], total)
     else:
-        cache = _zero_cache(model, b, total)
-    cache = tuple(c.repeat_interleave(beam, dim=1) for c in cache)
+        cache = _sized_cache(twin, b, total)
+    cache = {k: c.repeat_interleave(beam, dim=0) if c.ndim else c
+             for k, c in cache.items()}
     toks = torch.zeros((b, beam, total), dtype=torch.long, device=dev)
     toks[:, :, :plen] = prompt[:, None, :]
     # Only beam 0 is live: identical hypotheses must not fill the beam.
@@ -237,8 +326,8 @@ def beam_search(model, prompt, max_new_tokens: int, *, beam_size: int,
         eos_row[int(eos_token)] = 0.0
     for pos in range(plen - 1, total - 1):
         tok = toks.reshape(rows, total)[:, pos:pos + 1]
-        posv = torch.full((rows,), pos, dtype=torch.long, device=dev)
-        logits = model(tok, pos_offset=posv, kv_cache=cache)[:, -1]
+        logits, cache = twin(tok, train=False, pos_offset=pos, cache=cache)
+        logits = logits[:, -1]
         logp = torch.log_softmax(logits.float(), dim=-1).reshape(b, beam, vocab)
         if eos_token is not None:
             logp = torch.where(done[:, :, None], eos_row, logp)
@@ -262,7 +351,7 @@ def beam_search(model, prompt, max_new_tokens: int, *, beam_size: int,
             flen = torch.where(ends_now, torch.full_like(flen, gen_count), flen)
             done = done | (token == eos_token)
         flat = (parent + base).reshape(rows)
-        cache = tuple(c.index_select(1, flat) for c in cache)
+        cache = {k: c.index_select(0, flat) if c.ndim else c for k, c in cache.items()}
     scored = cum / lp(flen)
     best = scored.argmax(dim=1)
     out = toks[torch.arange(b, device=dev), best]

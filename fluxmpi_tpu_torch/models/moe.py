@@ -49,6 +49,16 @@ padded to the largest count. Under ``ep`` the all-to-all runs in the ep
 group at the worker's own sp index. Inside a pipeline stage a layer built
 with ``mesh=`` raises ``ValueError``, as the JAX package's sharding pins do
 there.
+
+Explicit ``n_groups`` under the ``style="auto"`` step: JAX cuts the global
+batch's token order into ``n_groups`` groups, so the port's layer routes
+this worker's share of that grouping
+(:mod:`~fluxmpi_tpu_torch._batch_parallel`). Where the groups fall whole
+inside each of the ``W`` workers' rows it routes ``n_groups / W`` groups
+of its own tokens and no data moves; where a group spans workers, each
+group is routed whole as under sp, the router probabilities gathered over
+the batch axes (with sp, over both) and the group statistics summed over
+them. The default grouping (one group per row) needs neither.
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from .. import _batch_parallel
 from .. import _sequence_parallel as _sp
 from .. import config
 from .._collective_ops import sum_shared
@@ -117,6 +128,19 @@ def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+class TokenShare(NamedTuple):
+    """This worker's share of the global token order: sequence block ``i``
+    of ``n`` of row block ``d`` of ``D``; ``axis`` the members that share
+    its groups (size ``n * D``, ``ranks`` row block first), over which the
+    router probabilities are gathered and the group statistics summed."""
+
+    axis: Any
+    n: int
+    i: int
+    d: int
+    D: int
+
+
 class BlockLayout(NamedTuple):
     """Where this worker's tokens sit in their routing groups under
     sequence parallelism: ``groups`` groups of ``gs`` tokens over the sp
@@ -139,21 +163,22 @@ class BlockLayout(NamedTuple):
 
 @functools.lru_cache(maxsize=64)
 def block_layout(b: int, s_local: int, n: int, i: int, n_groups: int | None,
-                 device: torch.device) -> BlockLayout:
-    """The :class:`BlockLayout` of sequence block ``i`` of ``n`` (``b``
-    rows of ``s_local`` tokens each, row ``r``'s block at ``r * S + i *
-    s_local`` of the sp group's flattened tokens, ``S = n * s_local``),
-    grouped as the JAX package groups the whole batch: ``n_groups`` groups,
-    or one per row. Made once per shape (host lists, then one copy)."""
+                 device: torch.device, d: int = 0, D: int = 1) -> BlockLayout:
+    """The :class:`BlockLayout` of sequence block ``i`` of ``n`` of the
+    ``d``-th of ``D`` row blocks (``b`` rows of ``s_local`` tokens each,
+    row ``r``'s block at ``(d * b + r) * S + i * s_local`` of the global
+    batch's flattened tokens, ``S = n * s_local``), grouped as the JAX
+    package groups the whole batch: ``n_groups`` groups, or one per row.
+    Made once per shape (host lists, then one copy)."""
     seq = n * s_local
-    total = b * seq
-    groups = b if n_groups is None else n_groups
+    total = D * b * seq
+    groups = D * b if n_groups is None else n_groups
     if total % groups:
         raise ValueError(f"n_groups {groups} must divide token count {total}")
     gs = total // groups
     rows: list[list[tuple[int, int]]] = [[] for _ in range(groups)]
     for t in range(b * s_local):
-        f = (t // s_local) * seq + i * s_local + t % s_local
+        f = (d * b + t // s_local) * seq + i * s_local + t % s_local
         rows[f // gs].append((t, f % gs))
     m = max(1, max(len(r) for r in rows))
     n_local = b * s_local
@@ -264,18 +289,42 @@ class MoEMLP(nn.Module):
                 f"d_model] inputs, got shape {tuple(x.shape)}")
         return axis
 
+    def _token_share(self, x: torch.Tensor):
+        """Where this worker's tokens sit in the global grouping: ``(share,
+        n_groups)``, ``share`` a :class:`TokenShare` when a group can span
+        workers (sp blocks, or ``n_groups`` that cut across the batch
+        axes' rows), else None; ``n_groups`` the groups to route here
+        (``n_groups / W`` when the groups fall whole inside each of the
+        ``W`` workers' rows, so no data moves)."""
+        axis = self._sequence_axis(x)
+        n_groups = self.n_groups
+        if n_groups is None and x.ndim < 3:
+            n_groups = 1  # every token in one group, as JAX groups 2-D inputs
+        rows = _batch_parallel.current() if n_groups is not None else None
+        if rows is not None and n_groups % rows.size == 0:
+            n_groups, rows = n_groups // rows.size, None
+        if rows is None:
+            if axis is None:
+                return None, n_groups
+            return TokenShare(axis, axis.size, axis.index, 0, 1), n_groups
+        if axis is None:
+            return TokenShare(rows, 1, 0, rows.index, rows.size), n_groups
+        both = rows.with_axis(axis.name)
+        return TokenShare(both, axis.size, axis.index, rows.index, rows.size), n_groups
+
     def forward(self, x: torch.Tensor, *, train: bool = True,
                 rng: torch.Generator | None = None, losses: dict | None = None):
-        axis = self._sequence_axis(x)
-        if axis is not None:
-            return self._block_forward(x, axis, train, rng, losses)
+        share, n_groups = self._token_share(x)
+        if share is not None:
+            return self._block_forward(x, share, n_groups, train, rng, losses)
         *lead, d_model = x.shape
         n_tokens = math.prod(lead)
-        if self.n_groups is not None:
-            groups = self.n_groups
+        if n_groups is not None:
+            groups = n_groups
             if n_tokens % groups:
                 raise ValueError(
-                    f"n_groups {groups} must divide token count {n_tokens}")
+                    f"n_groups {self.n_groups or groups} must divide token count "
+                    f"{n_tokens * (self.n_groups or groups) // groups}")
         else:
             groups = lead[0] if len(lead) >= 2 else 1
         gs = n_tokens // groups
@@ -384,14 +433,17 @@ class MoEMLP(nn.Module):
                & valid[:, None, None, :]).float()  # [G, E, C, M]
         return own, torch.einsum("gecm,gme->gec", own, probs_own)
 
-    def _block_forward(self, x, axis, train, rng, losses):
-        """:meth:`forward` on this worker's sequence block of each row
-        under sp (module docstring)."""
+    def _block_forward(self, x, share, n_groups, train, rng, losses):
+        """:meth:`forward` on this worker's tokens where a group spans
+        workers: its sequence block of each row under sp, its rows of the
+        global batch under the batch axes, or both (module docstring)."""
+        axis = share.axis
         b, d_model = x.shape[0], x.shape[-1]
         s_local = math.prod(x.shape[1:-1])
         n_local = b * s_local
         e = self.num_experts
-        lay = block_layout(b, s_local, axis.size, axis.index, self.n_groups, x.device)
+        lay = block_layout(b, s_local, share.n, share.i, n_groups, x.device, share.d,
+                           share.D)
         tokens = x.reshape(n_local, d_model).to(self.dtype)
         logits = torch.einsum("nd,de->ne", tokens.float(), self.router.float())
         if self.router_noise > 0.0 and train:
@@ -405,7 +457,7 @@ class MoEMLP(nn.Module):
         if self.routing not in ("tokens", "experts"):
             raise ValueError(
                 f"routing={self.routing!r} must be 'tokens' or 'experts'")
-        whole = _gather_blocks(probs.detach(), axis, b, s_local).reshape(
+        whole = _gather_blocks(probs.detach(), axis, b, s_local, share.D).reshape(
             lay.groups, lay.gs, e)
         probs_own = _own(probs, lay)
         tokens_own = _own(tokens, lay)
@@ -511,20 +563,24 @@ def _every_position(probs: torch.Tensor) -> torch.Tensor:
     return torch.arange(gs, device=probs.device).expand(groups, gs)
 
 
-def _gather_blocks(x: torch.Tensor, axis, b: int, s_local: int) -> torch.Tensor:
-    """The sp group's rows ``[b, n * s_local, ...]`` from every worker's
-    ``x [b * s_local, ...]`` (forward only: ``x`` is detached), in
-    sequence order."""
+def _gather_blocks(x: torch.Tensor, axis, b: int, s_local: int, D: int = 1) -> torch.Tensor:
+    """The group's rows ``[D * b, n * s_local, ...]`` from every member's
+    ``x [b * s_local, ...]`` (forward only: ``x`` is detached), in the
+    global batch's order: ``axis.ranks`` lists the members row block
+    first, sequence block innermost."""
     parts = [torch.empty_like(x) for _ in range(axis.size)]
     dist.all_gather(parts, x.contiguous(), group=axis.group)
     order = dist.get_process_group_ranks(axis.group)
     blocks = [parts[order.index(r)].reshape(b, s_local, *x.shape[1:]) for r in axis.ranks]
-    return torch.cat(blocks, dim=1)
+    n = len(blocks) // D
+    return torch.cat([torch.cat(blocks[k * n:(k + 1) * n], dim=1) for k in range(D)])
 
 
 class MoEEncoderBlock(EncoderBlock):
     """Pre-LN encoder block whose feed-forward sublayer is a
-    :class:`MoEMLP` named ``moe``."""
+    :class:`MoEMLP` named ``moe``; ``decode=True`` decodes as
+    :class:`~fluxmpi_tpu_torch.models.transformer.EncoderBlock` does (by
+    default each decoded token is a group of its own)."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout: float,
                  dtype: torch.dtype, attention_fn=None, decode: bool = False,
@@ -577,7 +633,7 @@ class MoEEncoder(TransformerEncoder):
     def make_block(self, i: int) -> nn.Module:
         return MoEEncoderBlock(
             self.d_model, self.num_heads, self.d_ff, self.dropout, self.dtype,
-            self.attention_fn, False, self.attention, self.attention_causal,
+            self.attention_fn, self.decode, self.attention, self.attention_causal,
             self.ln_eps, **{f: getattr(self, f) for f in _MOE_FIELDS},
             device=self.device, generator=self._generator)
 
@@ -624,7 +680,7 @@ class MoETransformerLM(TransformerLM):
             )
         return MoEEncoder(
             self.num_layers, self.d_model, self.num_heads, self.d_ff, self.dropout,
-            self.dtype, self.attention_fn, attention=self.attention,
+            self.dtype, self.attention_fn, self.decode, attention=self.attention,
             attention_causal=True, ln_eps=self.ln_eps,
             **{f: getattr(self, f) for f in _MOE_FIELDS},
             device=self.device, generator=self._generator)

@@ -9,7 +9,9 @@ last BatchNorm of every block zero-initialised, the 7x7/2 stem and 3x3/2
 max pool with flax's ``"SAME"`` padding, the global mean and an f32 head.
 ``dtype=torch.bfloat16`` computes in bf16 with f32 parameters and
 statistics. Names, layouts and the BatchNorm state as in :mod:`.cnn`
-(``stage{i}_block{j}.conv1.kernel``, ``stage{i}_block{j}.bn1.mean``, ...).
+(``stage{i}_block{j}.conv1.kernel``, ``stage{i}_block{j}.bn1.mean``, ...),
+and so are the batch statistics: over the global batch inside the default
+``style="auto"`` train step, over the world with ``axis_name``.
 """
 
 from __future__ import annotations

@@ -37,12 +37,33 @@ the slice of the mask the unsharded dense attend draws from the same
 generator; a feed-forward sublayer gets the block (the MoE layers route
 each group whole themselves).
 
-Cached decoding: :meth:`TransformerLM.forward` with ``kv_cache=(k, v)``
-(``[layers, batch, max_len, heads, head_dim]`` each) feeds one token per
-row at that row's own position ``pos_offset`` (``[batch]``), writes the
-new K/V into the cache in place, and attends to positions
-``<= pos_offset`` of its row. Decoding is inference: it runs without
-autograd.
+Cached decoding, two spellings of one implementation (both run
+:meth:`TransformerEncoder.run` with each layer's cache passed by
+reference; nothing copies or stacks a cache per position):
+
+- the JAX package's decode twin: a module built with ``decode=True``
+  (``EncoderBlock``, ``TransformerEncoder``, ``TransformerLM`` and the MoE
+  models; :func:`~fluxmpi_tpu_torch.models.generate._decode_twin` makes one
+  that shares a trained model's parameters) takes ``forward(..., cache=)``
+  and returns ``(out, cache)``, as flax's ``apply(..., mutable=["cache"])``
+  returns ``(out, {"cache": ...})``. ``cache`` is flax's cache collection
+  as a flat dict keyed by flax path joined with ``.``
+  (``"encoder.block_0.attn.cached_key"``): per attention,
+  ``cached_key``/``cached_value`` ``[batch, total, heads, head_dim]`` in the
+  model's dtype and ``cache_index``, an int32 scalar on the device. Each
+  call feeds one position: the token's K/V are written at ``cache_index``
+  (clamped to the cache, as flax's ``dynamic_update_slice``), it attends to
+  the positions ``<= cache_index``, and ``cache_index`` goes up by one, all
+  in place on the device (flax's MHA decode);
+- :meth:`TransformerLM.forward` with ``kv_cache=(k, v)``
+  (``[layers, batch, max_len, heads, head_dim]`` each) feeds one token per
+  row at that row's own position ``pos_offset`` (``[batch]``), writes the
+  new K/V into the cache in place, and attends to positions
+  ``<= pos_offset`` of its row (the serving engine's paged pool).
+
+At decode ``attention="flash"`` attends through the kernels with the
+valid prefix as segment ids (no mask check); an ``attention_fn`` is
+ignored, as in JAX. Decoding is inference: it runs without autograd.
 """
 
 from __future__ import annotations
@@ -56,7 +77,6 @@ from torch import nn
 
 from .. import _sequence_parallel as _sp
 from .. import _tensor_parallel as _tp
-from ..errors import refuse_unported
 from ..ops.flash_attention import flash_attention, flash_attention_fn
 from ..ops.fused_ce import _FusedCETP, _mm_f32, unembed_cross_entropy
 from ..runtime import resolve_device
@@ -76,9 +96,44 @@ def _resolve_attention_mode(mode: str, device: torch.device) -> str:
     return mode
 
 
-def _refuse_decode(name: str, decode: bool) -> None:
-    refuse_unported(name, {"decode": bool(decode)},
-                    "cached decoding is TransformerLM.forward(kv_cache=...)")
+_CACHE_LEAVES = ("cache_index", "cached_key", "cached_value")
+
+
+def _cache_layers(cache: dict, prefixes: list[str], x: torch.Tensor):
+    """flax's decode caches of the attentions under ``prefixes`` (each
+    ``"<path>."``, ``""`` for a block's own) as :meth:`EncoderBlock.run`
+    takes a layer's cache, ``(k, v, pos, segments)``, for one position of
+    ``x [b, 1, ...]``: each layer writes at its own ``cache_index``
+    (clamped to the cache) and attends to positions ``<= cache_index``.
+    Returns ``(layers, indices)``, the indices to advance after the run.
+    A few launches for all the layers together, and no host read."""
+    missing = [p + "attn." + n for p in prefixes for n in _CACHE_LEAVES
+               if p + "attn." + n not in cache]
+    if missing:
+        raise ValueError(f"the decode cache lacks {missing[:3]} (make it with "
+                         f"cache_template, _sized_cache or prefill_cache)")
+    ks = [cache[p + "attn.cached_key"] for p in prefixes]
+    vs = [cache[p + "attn.cached_value"] for p in prefixes]
+    idx = [cache[p + "attn.cache_index"] for p in prefixes]
+    b = x.shape[0]
+    want = (b, 1, *ks[0].shape[2:])
+    if (x.shape[1], ks[0].shape[0]) != (1, b):
+        raise ValueError(f"Autoregressive cache shape error, expected query shape "
+                         f"{want} instead got {(*x.shape[:2], *ks[0].shape[2:])}.")
+    total = ks[0].shape[1]
+    at = torch.stack(idx)
+    pos = at.clamp(max=total - 1).long()[:, None].expand(-1, b)
+    valid = (torch.arange(total, device=at.device) <= at[:, None]).to(torch.int32)
+    valid = valid[:, None].expand(-1, b, -1).contiguous()
+    q_seg = torch.ones((b, 1), dtype=torch.int32, device=at.device)
+    return [(k, v, pos[i], (q_seg, valid[i]))
+            for i, (k, v) in enumerate(zip(ks, vs))], idx
+
+
+def _refuse_decode_training(train: bool, dropout: float) -> None:
+    if train and dropout > 0:
+        raise ValueError("decoding is inference and does not drop: call with "
+                         "train=False, or decode the twin (dropout=0.0)")
 
 
 class EncoderBlock(nn.Module):
@@ -95,10 +150,11 @@ class EncoderBlock(nn.Module):
     ``"ff"``) and called as ``ff(h, train=train)``, or with
     ``losses=`` (its sub-dict of the sowed-losses collection, see
     :meth:`TransformerLM.forward`) when the caller collects them.
-    ``decode=True`` is refused: the
-    port decodes through :meth:`TransformerLM.forward`'s ``kv_cache=``.
-    Weights from the CPU ``generator`` (default seeded with 0) on
-    ``device`` (default CUDA)."""
+    ``decode=True``: ``forward(x, cache=)`` feeds one position ``x [b, 1,
+    d_model]`` through flax's cache of ``attn`` (keys ``attn.cached_key``,
+    ``attn.cached_value``, ``attn.cache_index``; the module docstring) and
+    returns ``(y, cache)``. Weights from the CPU ``generator`` (default
+    seeded with 0) on ``device`` (default CUDA)."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout: float,
                  dtype: torch.dtype, attention_fn: Callable | None = None,
@@ -106,8 +162,8 @@ class EncoderBlock(nn.Module):
                  attention_causal: bool = False, ln_eps: float = 1e-6, *,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
-        _refuse_decode("EncoderBlock", decode)
         self.device = resolve_device(device)
+        self.decode, self.attention = bool(decode), attention
         self.mode = _resolve_attention_mode(attention, self.device)
         if self.mode == "flash" and attention_fn is not None:
             raise ValueError("attention='flash' conflicts with an explicit "
@@ -176,19 +232,29 @@ class EncoderBlock(nn.Module):
         return None
 
     def forward(self, x, *, train: bool = True, mask=None, dropout_rng=None,
-                losses=None):
+                losses=None, cache=None):
+        if self.decode:
+            _refuse_decode_training(train, self.dropout)
+            layers, idx = _cache_layers(cache or {}, [""], x)
+            with torch.no_grad():
+                y = self.run(x, train=False, cache=layers[0])[0]
+                torch._foreach_add_(idx, 1)
+            return y, cache
+        if cache is not None:
+            raise ValueError("cache= is the decode=True block's")
         return self.run(x, train=train, mask=mask, dropout_rng=dropout_rng,
                         losses=losses)[0]
 
     @_tp.owning
-    def run(self, x, *, train=True, mask=None, mode=None, cache=None, pos=None,
-            segments=None, dropout_rng=None, losses=None):
+    def run(self, x, *, train=True, mask=None, mode=None, cache=None,
+            dropout_rng=None, losses=None):
         """The block with the attention ``mode`` (default the block's own:
         ``"flash"``, ``"fn"`` for its ``attention_fn``, ``"naive"``).
-        With ``cache`` (this layer's ``(k, v)`` ``[b, T, h, hd]``), one
-        decode position per row at ``pos [b]``, written into the cache in
-        place, attending where ``segments = (q_seg [b, 1], kv_seg [b, T])``
-        allow. Returns ``(y, k, v)`` with the new K/V.
+        With ``cache = (k, v, pos, segments)`` (this layer's K/V cache
+        ``[b, T, h, hd]``), one decode position per row at ``pos [b]``,
+        written into the cache in place, attending where ``segments =
+        (q_seg [b, 1], kv_seg [b, T])`` allow (an ``attention_fn`` is
+        ignored there). Returns ``(y, k, v)`` with the new K/V.
 
         Attention dropout in training (``dropout > 0``, ``train=True``)
         draws from the ``torch.Generator`` ``dropout_rng`` (flax's
@@ -213,7 +279,7 @@ class EncoderBlock(nn.Module):
             h = tp.enter(h)
         q, k, v = attn.project(h)
         if cache is not None:
-            kc, vc = cache
+            kc, vc, pos, segments = cache
             rows = torch.arange(x.shape[0], device=x.device)
             kc[rows, pos] = k[:, 0].to(kc.dtype)
             vc[rows, pos] = v[:, 0].to(vc.dtype)
@@ -263,6 +329,9 @@ class TransformerEncoder(nn.Module):
     broadcastable to ``[b, heads, s, s]``; ``dropout_rng`` as
     :meth:`EncoderBlock.run` takes it) and returns the final LayerNorm in
     f32.
+    ``decode=True``: ``forward(x, cache=)`` feeds one position through
+    flax's caches (keys ``block_<i>.attn.*``) and returns ``(hidden,
+    cache)``, as :class:`EncoderBlock`.
     ``make_block(i)`` is the hook for another block type. Weights from the
     CPU ``generator`` (default seeded with 0) on ``device`` (default
     CUDA)."""
@@ -275,8 +344,8 @@ class TransformerEncoder(nn.Module):
                  ln_eps: float = 1e-6, *, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        _refuse_decode("TransformerEncoder", decode)
         self.device = resolve_device(device)
+        self.decode = bool(decode)
         self.num_layers, self.d_model, self.num_heads = num_layers, d_model, num_heads
         self.d_ff, self.dropout, self.dtype = d_ff, float(dropout), dtype
         self.attention_fn, self.attention = attention_fn, attention
@@ -292,27 +361,36 @@ class TransformerEncoder(nn.Module):
     def make_block(self, i: int) -> nn.Module:
         """Hook: build encoder block ``i``."""
         return EncoderBlock(self.d_model, self.num_heads, self.d_ff, self.dropout,
-                            self.dtype, self.attention_fn, False, self.attention,
+                            self.dtype, self.attention_fn, self.decode, self.attention,
                             self.attention_causal, self.ln_eps, device=self.device,
                             generator=self._generator)
 
     def forward(self, x, *, train: bool = True, mask=None, dropout_rng=None,
-                losses=None):
+                losses=None, cache=None):
+        if self.decode:
+            _refuse_decode_training(train, self.dropout)
+            layers, idx = _cache_layers(
+                cache or {}, [f"block_{i}." for i in range(self.num_layers)], x)
+            with torch.no_grad():
+                h = self.run(x.to(self.dtype), train=False, cache=layers)[0]
+                torch._foreach_add_(idx, 1)
+            return h, cache
+        if cache is not None:
+            raise ValueError("cache= is the decode=True encoder's")
         return self.run(x.to(self.dtype), train=train, mask=mask,
                         dropout_rng=dropout_rng, losses=losses)[0]
 
-    def run(self, x, *, train=True, mask=None, mode=None, cache=None, pos=None,
-            segments=None, dropout_rng=None, losses=None):
-        """The stack (arguments as :meth:`EncoderBlock.run`, ``cache`` the
-        ``(k, v)`` of every layer, ``losses`` the stack's sub-dict of the
-        sowed-losses collection). Returns ``(hidden, ks, vs)``: the
+    def run(self, x, *, train=True, mask=None, mode=None, cache=None,
+            dropout_rng=None, losses=None):
+        """The stack (arguments as :meth:`EncoderBlock.run`, ``cache`` every
+        layer's ``(k, v, pos, segments)``, ``losses`` the stack's sub-dict
+        of the sowed-losses collection). Returns ``(hidden, ks, vs)``: the
         final-LN output (f32) and each layer's new K/V."""
         ks, vs = [], []
         for i in range(self.num_layers):
-            layer_cache = None if cache is None else (cache[0][i], cache[1][i])
             x, k, v = getattr(self, f"block_{i}").run(
-                x, train=train, mask=mask, mode=mode, cache=layer_cache, pos=pos,
-                segments=segments, dropout_rng=dropout_rng,
+                x, train=train, mask=mask, mode=mode,
+                cache=None if cache is None else cache[i], dropout_rng=dropout_rng,
                 losses=None if losses is None else losses.setdefault(f"block_{i}", {}))
             ks.append(k)
             vs.append(v)
@@ -330,7 +408,8 @@ class TransformerLM(nn.Module):
     :func:`~fluxmpi_tpu_torch.ops.flash_attention_fn` with ``causal=True``)
     takes the training forward's attention under flax's causal mask, as in
     JAX; cached decoding bypasses it, and ``attention="flash"`` beside it
-    raises."""
+    raises. ``decode=True`` makes the decode twin (the module docstring;
+    :meth:`forward`'s ``cache=``)."""
 
     # A batched causal forward over a prompt computes the same per-token
     # function as one-position decoding (the gate generate() and the
@@ -345,7 +424,6 @@ class TransformerLM(nn.Module):
                  ln_eps: float = 1e-6, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        _refuse_decode("TransformerLM", decode)
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} not divisible by num_heads "
                              f"{num_heads}")
@@ -361,6 +439,7 @@ class TransformerLM(nn.Module):
         self.dropout = float(dropout)
         self.attention = attention
         self.attention_fn = attention_fn
+        self.decode = bool(decode)
         self.ln_eps = ln_eps
         self.dtype = dtype
         if generator is None:
@@ -381,7 +460,7 @@ class TransformerLM(nn.Module):
         # kernels fold causality in (attention_causal=True).
         return TransformerEncoder(
             self.num_layers, self.d_model, self.num_heads, self.d_ff, self.dropout,
-            self.dtype, self.attention_fn, attention=self.attention,
+            self.dtype, self.attention_fn, self.decode, attention=self.attention,
             attention_causal=True, ln_eps=self.ln_eps, device=self.device,
             generator=self._generator)
 
@@ -392,7 +471,7 @@ class TransformerLM(nn.Module):
     def forward(self, tokens, *, train: bool = True, targets=None,
                 loss_chunk: int = 8192, hidden: bool = False,
                 pos_offset=None, kv_cache=None, attention: str | None = None,
-                return_kv: bool = False, dropout_rng=None, losses=None):
+                return_kv: bool = False, dropout_rng=None, losses=None, cache=None):
         """Logits ``[b, s, vocab]`` for int tokens ``[b, s]``: f32, or bf16
         in a bf16 model (bf16 operands, f32 accumulation, bf16 logits, as
         flax's ``Embed.attend`` gives them).
@@ -426,17 +505,39 @@ class TransformerLM(nn.Module):
         in place, and it attends to cache positions ``<= pos_offset[i]``.
         ``attention`` overrides the model's switch for this call.
 
+        ``decode=True`` (the decode twin): ``forward(tokens [b, 1], pos_offset=p,
+        cache=cache)`` returns ``(logits, cache)``: ``pos_offset`` (an int or
+        a 0-d tensor, default 0; clamped into the table as flax's
+        ``dynamic_slice``) picks the position embedding, and every layer
+        writes, attends and advances at its own ``cache_index`` (the module
+        docstring); ``hidden=True`` gives ``((hidden, embedding), cache)``;
+        ``targets`` raises, as in JAX. ``return_kv=True`` runs the causal
+        forward over ``tokens`` instead, as the JAX package's ``prefill_kv``
+        runs the training configuration.
+
         ``losses``: a dict that collects what the layers sow (flax's
         ``mutable=["losses"]``), nested as flax nests the collection:
         ``losses["encoder"]["block_0"]["moe"]["moe_aux_loss"] = (x,)``
         (the MoE models; see
         :func:`~fluxmpi_tpu_torch.models.collect_moe_losses`)."""
+        if self.decode and not return_kv:
+            if targets is not None:
+                raise ValueError("targets (fused loss) is a training path; "
+                                 "decode=True is inference")
+            _refuse_decode_training(train, self.dropout)
+            with torch.no_grad():
+                h = self._decode(tokens, pos_offset, attention, cache=cache or {})
+                return ((h, self.embed.embedding) if hidden else self._head(h)), cache
+        if cache is not None:
+            raise ValueError("cache= is the decode=True model's (kv_cache= decodes "
+                             "a training model)")
         if kv_cache is not None:
             if targets is not None or hidden:
                 raise ValueError("targets/hidden are training paths; "
                                  "kv_cache is inference")
             with torch.no_grad():
-                return self._decode(tokens, pos_offset, kv_cache, attention)
+                return self._head(self._decode(tokens, pos_offset, attention,
+                                               kv_cache=kv_cache))
         if train and self.dropout > 0 and dropout_rng is None:
             raise ValueError(
                 "training TransformerLM with dropout > 0 needs dropout_rng (a "
@@ -522,14 +623,31 @@ class TransformerLM(nn.Module):
             return logits, torch.stack(ks), torch.stack(vs)
         return logits
 
-    def _decode(self, tokens, pos_offset, kv_cache, attention):
+    def _decode(self, tokens, pos_offset, attention, kv_cache=None, cache=None):
+        """One cached position through the stack: the final-LN output.
+        ``cache``: flax's caches (the decode twin), read and advanced at
+        each layer's ``cache_index``; else ``kv_cache=(k, v)`` at each
+        row's ``pos_offset``."""
         mode = self.attention_mode(attention)
         tokens = torch.as_tensor(tokens, device=self.device).long()
         b, s = tokens.shape
+        x = self.embed.embedding[tokens].to(self.dtype)
+        if cache is not None:
+            if isinstance(pos_offset, torch.Tensor):
+                at = pos_offset.to(self.device).long().clamp(0, self.max_len - s)
+                table = self.pos_embed[at + torch.arange(s, device=self.device)]
+            else:
+                at = min(max(int(pos_offset or 0), 0), self.max_len - s)
+                table = self.pos_embed[at:at + s]
+            x = x + table[None].to(self.dtype)
+            layers, idx = _cache_layers(
+                cache, [f"encoder.block_{i}." for i in range(self.num_layers)], x)
+            h = self.encoder.run(x, train=False, mode=mode, cache=layers)[0]
+            torch._foreach_add_(idx, 1)
+            return h
         if s != 1:
             raise ValueError(f"cached decoding feeds one token per row, "
                              f"got {s}")
-        x = self.embed.embedding[tokens].to(self.dtype)
         pos = torch.as_tensor(pos_offset, device=self.device).long()
         pos = pos.expand(b) if pos.ndim == 0 else pos
         x = x + self.pos_embed[pos][:, None].to(self.dtype)
@@ -541,9 +659,9 @@ class TransformerLM(nn.Module):
             (torch.arange(t_total, device=self.device)[None, :]
              <= pos[:, None]).to(torch.int32),
         )
-        h, _, _ = self.encoder.run(x, train=False, mode=mode, cache=kv_cache,
-                                   pos=pos, segments=segments)
-        return self._head(h)
+        layers = [(kv_cache[0][i], kv_cache[1][i], pos, segments)
+                  for i in range(self.num_layers)]
+        return self.encoder.run(x, train=False, mode=mode, cache=layers)[0]
 
     def _head(self, h):
         """The tied head's logits from the final-LN activations (f32)."""

@@ -6,10 +6,14 @@ training loop): each worker runs forward and backward on its local shard
 of the batch, the gradients are all-reduced across the workers in one
 flat collective per dtype (``grad_reduce="mean"`` by default, ``"sum"``,
 or ``None`` when a :func:`~fluxmpi_tpu_torch.DistributedOptimizer`
-reduces them), the floating leaves of the new model state (BatchNorm's
-running statistics) are averaged across the workers
-(``state_reduce="mean"`` by default, or kept per worker with
-``"local"``), and the optimizer rule updates the parameters in place.
+reduces them), and the optimizer rule updates the parameters in place.
+Under the default ``style="auto"`` the layers that couple the rows of a
+batch couple the global batch, as in JAX's partitioned step, whose loss
+sees the global batch (:mod:`~fluxmpi_tpu_torch._batch_parallel`);
+under ``style="shard_map"`` each worker's batch is its own, and the
+floating leaves of the new model state (BatchNorm's running statistics)
+are averaged across the workers (``state_reduce="mean"`` by default, or
+kept per worker with ``"local"``).
 PyTorch runs eagerly, so the step is a plain Python function; its
 kernels launch asynchronously and the returned loss stays on the device.
 ``policy=`` casts the parameters to a compute dtype entering the loss
@@ -49,7 +53,11 @@ gathers them too while the layers note which leaves they take, and a
 leaf no layer takes stays gathered.
 Each worker's ``loss_fn`` sees its own rows of the global batch (the
 loader's ``mesh=`` rows), and the step's loss and gradients are those of
-the mean over the global batch, as JAX's partitioned step computes them.
+the mean over the global batch, as JAX's partitioned step computes them;
+the loss runs inside the batch axes' context (the plan's ``dp`` and
+``fsdp``, or the whole world without a plan), so BatchNorm's statistics,
+the DEQ solvers' stopping test and the MoE layer's ``n_groups`` couple
+every row of the global batch, as they do in JAX.
 The ``ep`` axis is not gathered: the MoE layers built with ``mesh=`` run
 their local experts and exchange tokens with an all-to-all
 (:mod:`~fluxmpi_tpu_torch.models.moe`). Under ``sp`` each worker's
@@ -98,7 +106,7 @@ from torch import nn
 from torch.utils import _pytree as pytree
 from torch.utils import checkpoint as _checkpoint
 
-from .. import _sequence_parallel, _tensor_parallel, config, runtime
+from .. import _batch_parallel, _sequence_parallel, _tensor_parallel, config, runtime
 from ..data import _gather_batch
 from ..optim import GradientTransformation, apply_updates
 from ..optimizer import allreduce_gradients
@@ -266,12 +274,14 @@ def _with_policy_and_remat(loss_fn, policy, remat, watch):
         def loss_fn(p, mstate, batch):  # noqa: F811 - deliberate rewrap
             # The recompute runs where the backward runs: on the card,
             # autograd's device thread, which sees none of this thread's
-            # contexts; it re-enters the tensor- and sequence-parallel
-            # contexts of the forward (ROADMAP C.22).
+            # contexts; it re-enters the tensor-, sequence- and
+            # batch-parallel contexts of the forward (ROADMAP C.22, C.25).
             tp, seq = _tensor_parallel.current(), _sequence_parallel.current()
+            rows = _batch_parallel.current()
 
             def run(p, mstate, batch):
-                with _tensor_parallel.active(tp), _sequence_parallel.active(seq):
+                with (_tensor_parallel.active(tp), _sequence_parallel.active(seq),
+                      _batch_parallel.active(rows)):
                     return plain(p, mstate, batch)
 
             return _checkpoint.checkpoint(run, p, mstate, batch,
@@ -709,6 +719,24 @@ def _installed_plan_defaults(mesh: Any, axis_name: str | None, batch_spec: Any):
     return plan, mesh, plan.dp_axis_name, plan.batch_spec
 
 
+def _batch_group(mesh: Any, plan: Any, batch_spec: Any) -> Any:
+    """The ``style="auto"`` step's batch axes: the axes the batch spec
+    cuts the rows over (a plan's ``dp`` and ``fsdp``), or the whole world
+    without a plan; None when this worker's rows are the whole batch."""
+    if not runtime.is_initialized() or runtime.total_workers() < 2:
+        return None
+    lead = batch_spec[0] if batch_spec is not None and len(batch_spec) else None
+    if isinstance(lead, str):
+        lead = (lead,)
+    if not isinstance(lead, tuple) and plan is not None:
+        lead = plan.data_axes
+    if isinstance(lead, tuple) and mesh is not None:
+        rows = _batch_parallel.BatchAxes(mesh, lead)
+    else:
+        rows = _batch_parallel.BatchAxes()
+    return rows if rows.size > 1 else None
+
+
 def _make_layout(plan: Any, mesh: Any, state_sharding: Any) -> _Layout:
     """The step's :class:`_Layout` from the banked or given shardings."""
     specs = {}
@@ -767,11 +795,14 @@ def make_train_step(
     models return ``None``).
     ``grad_reduce``: ``"mean"`` averages the gradients and the loss over
     the workers, ``"sum"`` sums them, ``None`` leaves them local.
-    ``state_reduce``: ``"mean"`` averages every floating leaf of the new
-    model state over the workers (BatchNorm's running statistics; integer
-    leaves are kept), in one flat collective per dtype, as the JAX
-    package's ``style="shard_map"`` step does; ``"local"`` keeps each
-    worker's own. Before :func:`~fluxmpi_tpu_torch.init` there is one
+    ``state_reduce``: how to combine the per-worker model state under
+    ``style="shard_map"`` (as in JAX, it matters only there):
+    ``"mean"`` averages every floating leaf of the new model state over
+    the workers (BatchNorm's running statistics; integer leaves are kept),
+    in one flat collective per dtype; ``"local"`` keeps each worker's own.
+    Under ``style="auto"`` the loss runs inside the batch axes' context
+    (module docstring), so the statistics are the global batch's on every
+    worker already. Before :func:`~fluxmpi_tpu_torch.init` there is one
     worker and nothing to average.
     ``grad_accum_steps=k`` splits each batch into ``k`` micro-batches and
     averages their gradients before the one update. ``scan_steps=K`` takes
@@ -950,6 +981,16 @@ def make_train_step(
         raise ValueError("scan_steps must be >= 1")
 
     unused_checked = []
+    batch_group: list = []
+
+    def batch_axes():
+        """The workers whose rows make up the global batch (made at the
+        first update): under ``style="auto"`` the layers that couple rows
+        couple theirs; ``"shard_map"`` binds none."""
+        if not batch_group:
+            batch_group.append(_batch_group(mesh, plan, batch_spec)
+                               if style == "auto" else None)
+        return batch_group[0]
 
     def grads_of(ts: TrainState, batch):
         keys = list(ts.params)
@@ -961,9 +1002,11 @@ def make_train_step(
         axes = layout.axes_context() if layout is not None else None
         if axes is not None:
             batch = layout.local_batch(batch, batch_spec)
+        rows = batch_axes()
         loss_sum, acc, mstate = None, None, ts.model_state
         for mb in _split(batch, grad_accum_steps) if grad_accum_steps > 1 else [batch]:
-            with _tensor_parallel.active(tp), _sequence_parallel.active(axes):
+            with (_tensor_parallel.active(tp), _sequence_parallel.active(axes),
+                  _batch_parallel.active(rows)):
                 if tp is not None and tp.names is not None:
                     with tp.watch():
                         loss, mstate = loss_fn(params, mstate, mb)
@@ -1019,7 +1062,8 @@ def make_train_step(
                 # The loss rides in the gradients' flat f32 collective.
                 grads, loss = _reduce((grads, loss), grad_reduce, axis_group)
             gnorm = _global_norm(grads) if carry_norm else None
-        if state_reduce == "mean" and mstate is not None and runtime.is_initialized():
+        if (style == "shard_map" and state_reduce == "mean" and mstate is not None
+                and runtime.is_initialized()):
             mstate = _mean_floating(mstate, axis_group)
         updates, ts.opt_state = optimizer.update(grads, ts.opt_state, ts.params)
         stats = None

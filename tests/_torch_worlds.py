@@ -15,8 +15,9 @@ WORKER = Path(__file__).resolve().parent / "_torch_seq_worker.py"
 JOIN_TIMEOUT = 300
 
 
-def start_world(group, tmp, world, data_path):
-    """Start the ranks of one world; :func:`join_world` joins them."""
+def start_world(group, tmp, world, data_path, worker=WORKER):
+    """Start the ranks of one world of ``worker`` (a script taking ``GROUP
+    RANK WORLD STORE OUT DATA``); :func:`join_world` joins them."""
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT) + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     env.pop("CUDA_VISIBLE_DEVICES", None)
@@ -25,7 +26,7 @@ def start_world(group, tmp, world, data_path):
         log = open(tmp / f"rank{rank}.log", "w")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, str(WORKER), group, str(rank), str(world),
+            [sys.executable, str(worker), group, str(rank), str(world),
              str(tmp / "store"), str(tmp / f"rank{rank}.npz"), str(data_path)],
             cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
     return tmp, world, procs, logs

@@ -18,7 +18,9 @@ pipelined run's, every parameter bit for bit, a capture as a compile
 event), a ``torch.profiler`` capture beside a captured window, on a
 machine with two or more cards one data-parallel step over NCCL against
 the single-process step, and on four cards the layout autotuner's search
-over dp x fsdp x tp with its winner trained against pure dp.
+over dp x fsdp x tp with its winner trained against pure dp, and ROADMAP
+C.25: ResNet-50's and the DEQ's default-step update at dp=4 against one
+card's on the same rows.
 
 Marked ``cuda``: each test skips where CUDA is absent. On a machine with a
 card (this file imports no JAX, so the JAX-pinning conftest can be left
@@ -1995,3 +1997,187 @@ def test_nccl_every_plan_composes_like_one_card(tmp_path):
                                    rtol=2 ** -7, atol=0, err_msg=name)
         for res_r in ranks:
             assert res_r["cases"][name]["launches"]["flash_fwd"] == 4 * 6 * 8
+
+
+C25_WORKER = textwrap.dedent(r'''
+    import json
+    import sys
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import DEQ, ResNet50
+    from fluxmpi_tpu_torch.models import deq as deq_module
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step
+
+    out = sys.argv[1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = fm.init(timeout=1800.0)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    ROWS = 32
+    res = dict(card=torch.cuda.get_device_name(dev), world=world, cases={})
+
+    def recording(lr):
+        """sgd(lr) that keeps the reduced gradients it is handed."""
+        seen, sgd = {}, optim.sgd(lr)
+
+        def update(grads, state, params=None):
+            seen.update({k: g.detach().clone() for k, g in grads.items()})
+            return sgd.update(grads, state, params)
+
+        return optim.GradientTransformation(sgd.init, update), seen
+
+    def one_card(model, loss_fn, batch, ms):
+        """The whole batch's loss, gradients and new state on this card
+        alone (no step, no collective)."""
+        params = dict(model.named_parameters())
+        loss, new = loss_fn(params, ms, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return float(loss), dict(zip(params, grads)), new
+
+    def dp_update(model, loss_fn, batch, ms, lr):
+        """One update of the default style="auto" step on this card's rows."""
+        opt, seen = recording(lr)
+        st = TrainState.create(model, opt, model_state=ms)
+        rows = tuple(t[rank * ROWS:(rank + 1) * ROWS] for t in batch)
+        st, loss = make_train_step(loss_fn, opt)(st, rows)
+        return float(loss), seen, st.model_state
+
+    def rel(got, want):
+        """Per leaf ``[max|d| / max|ref|, ||d|| / ||ref||]``."""
+        out = {}
+        for k in want:
+            d, w = (got[k] - want[k]).double(), want[k].double()
+            out[k] = [float(d.abs().max() / w.abs().max().clamp_min(1e-30)),
+                      float(d.norm() / w.norm().clamp_min(1e-30))]
+        return out
+
+    def case(name, build, loss_fn, batch, ms, lr):
+        ref = floor = None
+        if rank == 0:
+            model = build()
+            ref = one_card(model, loss_fn(model), batch, ms)
+            # f32's own spread: the same rows in reverse order on one card.
+            back = tuple(t.flip(0) for t in batch)
+            floor = rel(one_card(model, loss_fn(model), back, ms)[1], ref[1])
+            del model
+        torch.cuda.empty_cache()
+        model = build()
+        loss, grads, new = dp_update(model, loss_fn(model), batch, ms, lr)
+        entry = dict(loss=loss)
+        if ref is not None:
+            entry.update(one_card_loss=ref[0], grad_rel=rel(grads, ref[1]),
+                         stats_rel=rel(new, ref[2]) if new else {}, f32_floor=floor)
+        res["cases"][name] = entry
+        del model
+        torch.cuda.empty_cache()
+
+    # ResNet-50 in f32 at 224 x 224: 32 rows a card, 128 in all.
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((world * ROWS, 224, 224, 3), generator=gen).to(dev)
+    y = torch.randint(0, 1000, (world * ROWS,), generator=gen).to(dev)
+
+    def resnet():
+        return ResNet50(num_classes=1000, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+
+    def bn_loss(model):
+        def loss_fn(params, ms, batch):
+            logits, new = torch.func.functional_call(model, params, (batch[0], ms))
+            return F.cross_entropy(logits, batch[1]), new
+
+        return loss_fn
+
+    stats = resnet().init_batch_stats()
+    case("resnet50", resnet, bn_loss, (x, y), stats, 0.1)
+
+    # The DEQ: rows of growing size stop at different iterations alone.
+    opts = dict(hidden=64, out=2, tol=1e-2, max_iter=60, damping=0.7)
+    dx = (torch.randn((world * ROWS, 16), generator=gen)
+          * torch.linspace(0.2, 3.0, world * ROWS)[:, None]).to(dev)
+    dy = torch.randn((world * ROWS, 2), generator=gen).to(dev)
+    for solver in ("damped", "anderson", "broyden"):
+        def deq(solver=solver):
+            model = DEQ(**opts, solver=solver, in_features=16, device=dev,
+                        generator=torch.Generator().manual_seed(1))
+            with torch.no_grad():
+                model.W.mul_(3.2)  # a slower contraction: more iterations
+            return model
+
+        def mse(model):
+            def loss_fn(params, ms, batch):
+                pred = torch.func.functional_call(model, params, (batch[0],))
+                return ((pred - batch[1]) ** 2).mean(), ms
+
+            return loss_fn
+
+        if rank == 0:
+            m = deq()
+            cell = (m.W.detach(), m.U.detach(), m.b.detach())
+            z0 = torch.zeros((world * ROWS, opts["hidden"]), device=dev)
+            iters = lambda sl: int(deq_module._solve(
+                lambda z: deq_module._cell(cell, dx[sl], z), z0[sl], opts["tol"],
+                opts["max_iter"], opts["damping"], solver, 5, 1.0)[1])
+            res["cases"].setdefault("deq_iterations", {})[solver] = dict(
+                whole=iters(slice(None)),
+                alone=[iters(slice(r * ROWS, (r + 1) * ROWS)) for r in range(world)])
+        case(f"deq_{solver}", deq, mse, (dx, dy), None, 0.1)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    fm.shutdown()
+''')
+
+
+def test_nccl_c25_batch_coupled_layers_see_the_global_batch(tmp_path):
+    """ROADMAP C.25 on four cards over NCCL, f32, TF32 off: one update of
+    the default ``style="auto"`` step at dp = 4, 32 rows a card, held to one
+    card's update on the same 128 rows (no step, no collective):
+
+    - ResNet-50 (224 x 224, 1000 classes, ``axis_name=None``, cuDNN
+      deterministic): every gradient leaf within 1e-3 relatively
+      (``||diff|| / ||ref||``), or within twice f32's own spread on that
+      leaf where that is larger, and every BatchNorm statistic within 1e-5
+      (``max|diff| / max|ref|``): the statistics are the global batch's on
+      every card;
+    - the DEQ (hidden 64, ``tol=1e-2``) with each solver, at rows that stop
+      at different iterations alone (checked): every gradient within 1e-3.
+
+    f32's spread is the one-card update on the same rows in reverse order
+    against the reference: in f32 a pre-activation within rounding of 0
+    flips a relu's mask when a sum runs in another order, which moves a few
+    terms of a leaf's gradient (its largest entry by up to a few percent;
+    the first four-card run, nondeterministic cuDNN, read 0.0403 on one
+    leaf both for dp=4 and for the reversed rows). On the parent each card
+    normalised and stopped on its own rows, which no spread covers. Prints
+    each case's largest relative differences."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    import json
+
+    ranks = _launch_world(tmp_path, C25_WORKER, 4, [], "c25")
+    cases = ranks[0]["cases"]
+    out = Path(__file__).resolve().parents[1] / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "c25_four_cards.json").write_text(json.dumps(cases))
+    print(f"\nC.25 on 4 x {ranks[0]['card']} (every leaf: chiprun_out/c25_four_cards.json); "
+          f"DEQ iterations {cases['deq_iterations']}")
+    for solver, it in cases["deq_iterations"].items():
+        assert set(it["alone"]) != {it["whole"]}, (solver, it)
+    for name in ("resnet50", "deq_damped", "deq_anderson", "deq_broyden"):
+        c = cases[name]
+        worst = {what: max(r[i] for r in c[key].values()) if c[key] else 0.0
+                 for key in ("grad_rel", "stats_rel", "f32_floor")
+                 for i, what in ((0, f"{key} max"), (1, f"{key} norm"))}
+        print(f"  {name}: loss {c['loss']} (one card {c['one_card_loss']}); {worst}")
+        over = {k: (r[1], c["f32_floor"][k][1]) for k, r in c["grad_rel"].items()
+                if r[1] > max(1e-3, 2 * c["f32_floor"][k][1])}
+        assert not over, (name, over)
+        assert worst["stats_rel max"] <= 1e-5, (name, c["stats_rel"])
+        assert abs(c["loss"] - c["one_card_loss"]) <= 1e-4 * abs(c["one_card_loss"]), c
+    assert len(cases["resnet50"]["stats_rel"]) == 2 * 53

@@ -15,10 +15,12 @@ Two BatchNorm steps in each world, against the JAX package on as many of
 its 8 CPU devices, from the same converted weights and the same global
 batch of 8 (each rank its share):
 
-- C.5: ``make_train_step``'s default ``state_reduce="mean"`` averages the
-  new running statistics over the ranks, as the JAX ``style="shard_map"``
-  step does; ``"local"`` keeps each rank's own (the parent's behaviour,
-  which this comparison refused).
+- C.5: under ``style="shard_map"`` (each rank normalises by its own
+  batch), ``make_train_step``'s default ``state_reduce="mean"`` averages
+  the new running statistics over the ranks, as the JAX
+  ``style="shard_map"`` step does; ``"local"`` keeps each rank's own. (The
+  default ``style="auto"`` normalises by the global batch, as JAX's
+  ``"auto"`` does: ``tests/test_torch_c25.py``.)
 - sync-BN: ``CNN(axis_name="dp")`` on 2 ranks of 4 samples (4 of 2) gives
   the loss, every gradient and the statistics of the JAX ``style="auto"``
   step and of the port in one process on all 8 samples.
@@ -206,7 +208,7 @@ WORKER = textwrap.dedent('''
                 node = node.setdefault(p, {})
             node[path[-1]] = z[key]
 
-    def bn_step(axis_name, lr, state_reduce="mean"):
+    def bn_step(axis_name, lr, state_reduce="mean", style="auto"):
         model, ms = load_flax_variables(CNN(4, (4, 8), axis_name=axis_name,
                                             device="cpu"), variables)
 
@@ -217,12 +219,12 @@ WORKER = textwrap.dedent('''
         opt = optim.sgd(lr)
         st = TrainState.create(model, opt, model_state=ms)
         before = {k: v.detach().clone() for k, v in st.params.items()}
-        st, loss = make_train_step(loss_fn, opt, state_reduce=state_reduce)(
+        st, loss = make_train_step(loss_fn, opt, state_reduce=state_reduce, style=style)(
             st, (torch.from_numpy(x[half]), torch.from_numpy(y[half])))
         return st, loss, before
 
     for mode in ("mean", "local"):
-        st, _, _ = bn_step(None, 0.1, mode)
+        st, _, _ = bn_step(None, 0.1, mode, style="shard_map")
         for k, v in st.model_state.items():
             res[f"c5_{mode}/{k}"] = v.numpy()
     st, loss, before = bn_step("dp", 1.0)
@@ -403,9 +405,10 @@ def _jax_bn_step(bn_data, style, lr, n):
 
 
 def test_c5_state_reduce_mean_matches_jax_shard_map(world, ranks, bn_data):
-    """C.5: the port's step averages the new BatchNorm statistics over the
-    ranks, as JAX's ``style="shard_map"`` step with its default
-    ``state_reduce="mean"``; ``"local"`` keeps each rank's own."""
+    """C.5: the port's ``style="shard_map"`` step averages the new
+    BatchNorm statistics over the ranks, as JAX's ``style="shard_map"``
+    step with its default ``state_reduce="mean"``; ``"local"`` keeps each
+    rank's own."""
     nranks, rs = ranks
     _, _, want = _jax_bn_step(bn_data, "shard_map", LR_C5, nranks)
     for r in rs:

@@ -89,7 +89,11 @@ REFUSED = {
 }
 # Parameters the port spells as the JAX package does but refuses with
 # NotImplementedError when set: (module, callable) -> {argument: a value}.
-REFUSED_WHEN_SET = {
+# None left.
+REFUSED_WHEN_SET: dict = {}
+# Parameters the port refused before it implemented them, each now held to
+# its behaviour: (module, callable) -> {argument: a value}.
+ONCE_REFUSED = {
     (".models.transformer", "TransformerLM"): {"decode": True},
     (".models.transformer", "TransformerEncoder"): {"decode": True},
     (".models.transformer", "EncoderBlock"): {"decode": True},
@@ -317,19 +321,39 @@ def test_the_two_spellings_that_differed():
 
 
 @pytest.mark.parametrize("where,name,arg", [
-    (where, name, arg) for (where, name), args in REFUSED_WHEN_SET.items()
+    (where, name, arg) for (where, name), args in {**ONCE_REFUSED, **REFUSED_WHEN_SET}.items()
     for arg in args])
 def test_parameters_refused_when_set(where, name, arg):
     """Each argument of ``REFUSED_WHEN_SET`` is a parameter of the port's
     callable with the JAX package's default, and setting it raises
     ``NotImplementedError`` naming it (before any other work: no world,
-    model or device is needed)."""
+    model or device is needed). Each of ``ONCE_REFUSED`` is such a
+    parameter too, and is now honoured: ``decode=True`` builds the decode
+    twin, whose ``forward(..., cache=)`` advances flax's cache by one
+    position and returns ``(out, cache)``."""
+    import torch
+
+    from fluxmpi_tpu_torch.models.generate import _sized_cache
+
     fn = getattr(importlib.import_module("fluxmpi_tpu_torch" + where), name)
     ref = getattr(importlib.import_module("fluxmpi_tpu" + where), name)
     assert arg in inspect.signature(fn).parameters
     assert arg in inspect.signature(ref).parameters
-    with pytest.raises(NotImplementedError, match=arg):
-        fn(*_REFUSED_ARGS[name], **{arg: REFUSED_WHEN_SET[(where, name)][arg]})
+    value = {**ONCE_REFUSED, **REFUSED_WHEN_SET}[(where, name)][arg]
+    if (where, name) in REFUSED_WHEN_SET:
+        with pytest.raises(NotImplementedError, match=arg):
+            fn(*_REFUSED_ARGS[name], **{arg: value})
+        return
+    model = fn(*_REFUSED_ARGS[name], **{arg: value}, device="cpu")
+    assert model.decode is True
+    cache = _sized_cache(model, 2, 8)
+    if name == "TransformerLM":
+        x = torch.zeros((2, 1), dtype=torch.long)
+    else:
+        x = torch.zeros((2, 1, model.d_model))
+    out, after = model(x, train=False, cache=cache)
+    assert after is cache and out.shape[:2] == (2, 1) and torch.isfinite(out).all()
+    assert {int(v) for k, v in cache.items() if k.endswith("cache_index")} == {1}
 
 
 def _tiny_lm():

@@ -172,11 +172,23 @@ def test_encoder_matches_jax(attention, mask, causal):
 
 
 def test_encoder_refuses_flash_beside_attention_fn_and_decode():
+    """``attention="flash"`` beside an ``attention_fn`` raises; ``decode=True``
+    (refused until the decode twin was ported) builds an encoder that
+    decodes one position through flax's cache and bypasses its
+    ``attention_fn``, as JAX's does."""
+    from fluxmpi_tpu_torch.models.generate import _sized_cache
+
     with pytest.raises(ValueError, match="conflicts"):
         TransformerEncoder(**ENC, attention="flash", attention_fn=flash_attention_fn(),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="decode"):
-        TransformerEncoder(**ENC, decode=True, device="cpu")
+    enc = TransformerEncoder(**ENC, decode=True, attention_fn=flash_attention_fn(),
+                             device="cpu")
+    plain = TransformerEncoder(**ENC, decode=True, device="cpu")
+    x = torch.randn((2, 1, ENC["d_model"]), generator=torch.Generator().manual_seed(0))
+    got, cache = enc(x, train=False, cache=_sized_cache(enc, 2, 4))
+    want, _ = plain(x, train=False, cache=_sized_cache(plain, 2, 4))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(cache["block_0.attn.cache_index"]) == 1
 
 
 # ---- ViT ----
