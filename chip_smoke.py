@@ -295,6 +295,19 @@
    decodes 16 tokens of 2 prompts of 16 through its twin, teacher-forcing
    the prompt tick by tick: equal to its own ``generate()``, launches
    12 per tick.
+20. Multi-card fused phase (``multicard_fused_phase``; on a machine with
+   one card it prints one line saying it did not run, which is no pass):
+   one worker per card through ``fluxmpi_tpu_torch.launch`` (at most four),
+   the bf16 GPT-2-small run of the fused phase data-parallel (8 x 1024 per
+   card, a ``DistributedDataContainer``, adamw(3e-4), 32 updates,
+   ``flush_every=8``) with ``fuse="auto"``, each window one CUDA graph per
+   card holding the gradient all-reduce, beside ``fuse=False`` in the same
+   world. Gates on every card: every leaf and flush bit for bit, the same
+   leaves on every card, 4 windows of 8, each kernel's launches by its
+   device counter equal to 12 per update and to the wrappers' count less
+   captures plus replays; it prints ms per update, host launch calls per
+   update and capture seconds of both paths, and whether one all-reduce
+   captured in a graph gives the eager call's bits.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -3727,7 +3740,7 @@ def _tree_digest(tree) -> str:
         t = tree[name].detach().contiguous().cpu()
         h.update(name.encode())
         h.update(str(t.dtype).encode())
-        h.update(t.view(torch.uint8).numpy().tobytes())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
 
 
@@ -6326,6 +6339,411 @@ def decode_phase(device):
     return stats, failures
 
 
+# Multi-card fused phase: one worker per card, GPT-2 small data-parallel
+# in fused windows beside the pipelined run (tests/test_torch_cuda.py adds
+# ResNet-50 and the quick-start MLP through the same child).
+MULTICARD_MODELS = ("gpt2",)
+MULTICARD_TIMEOUT = 900
+
+
+def _nccl_capture_probe(dev, reps: int = 5) -> dict:
+    """One sum all-reduce of the same buffers eagerly and captured in a
+    CUDA graph (then replayed): per buffer size (a small one, and GPT-2
+    small's f32 gradient), whether the two give the same bits, and the
+    median ms of ``reps`` eager calls and of ``reps`` replays (CUDA
+    events on the calling stream)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    def ms_of(fn):
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    out = {}
+    for numel in (1 << 20, 124_439_808):
+        gen = torch.Generator(device=dev).manual_seed(1 + dist.get_rank())
+        src = torch.randn(numel, device=dev, generator=gen)
+        eager = src.clone()
+        dist.all_reduce(eager)
+        buf = src.clone()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            dist.all_reduce(buf)
+        buf.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        same = bool(torch.equal(buf, eager))
+        out[str(numel)] = dict(equal=same, eager_ms=ms_of(lambda: dist.all_reduce(eager)),
+                               graph_ms=ms_of(graph.replay))
+        del graph, buf, eager, src
+    return out
+
+
+def _multicard_gpt2(dev, rank: int, world: int, updates: int = 32,
+                    flush_every: int = 8) -> dict:
+    """The fused phase's bf16 GPT-2-small run, data-parallel over the
+    world (8 x 1024 per card, each card's shard of 256 sequences):
+    ``fuse=False`` then ``fuse="auto"``, each path's main run counted by
+    the kernels' device counters, a second run timed and one window's
+    host launch calls counted."""
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    corpus = lm_corpus(GPT2_SMALL["vocab_size"], n=256 * world, seq=GPT2_SMALL["max_len"])
+
+    def build():
+        model = TransformerLM(**GPT2_SMALL, attention="flash", dropout=0.0,
+                              dtype=torch.bfloat16, device=dev,
+                              generator=torch.Generator().manual_seed(0))
+        fm.synchronize(model)
+        loader = fm.DistributedDataLoader(
+            fm.DistributedDataContainer(fm.ArrayDataset((corpus[:, :-1], corpus[:, 1:]))),
+            global_batch_size=8 * world, shuffle=True)
+
+        def loss_fn(params, model_state, batch):
+            x, y = batch
+            return model(x, targets=y).mean(), model_state
+
+        opt = optim.adamw(3e-4)
+        return model, loader, make_train_step(loss_fn, opt), TrainState.create(model, opt)
+
+    def leaves(state):
+        out = {f"params/{k}": v for k, v in state.params.items()}
+        for m in ("mu", "nu"):
+            out.update({f"{m}/{k}": v for k, v in state.opt_state[m].items()})
+        out["count"] = state.opt_state["count"]
+        return out
+
+    runs, bits = {}, {}
+    for fuse in (False, "auto"):
+        model, loader, step, state = build()
+        torch.cuda.synchronize()
+        for kern in kernels:
+            kern.launches = 0
+        (state, summ), launches = kernel_launches(
+            lambda: train_loop(step, state, loader, steps=updates,
+                               flush_every=flush_every, fuse=fuse))
+        counted = {k.__name__: k.launches for k in kernels}
+        extra = graph_launches(step)
+        bits[fuse] = {k: v.detach().clone() for k, v in leaves(state).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, timed = train_loop(step, state, loader, steps=updates,
+                                  flush_every=flush_every, fuse=fuse)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_update = ([ms / flush_every for ms in timed["step_ms"]] if fuse
+                      else timed["step_ms"])
+        (_, hsum), calls, nk = host_launches(
+            lambda: train_loop(step, state, loader, steps=flush_every,
+                               flush_every=flush_every, fuse=fuse))
+        (_, tsum), busy_ms, wall_ms, nk_traced, groups = traced(
+            lambda: train_loop(step, state, loader, steps=flush_every,
+                               flush_every=flush_every, fuse=fuse))
+        graphs = graph_stats(step)
+        runs["fused" if fuse else "pipelined"] = dict(
+            profile=dict(updates=tsum["updates"], wall_ms=wall_ms, device_busy_ms=busy_ms,
+                         kernels=nk_traced,
+                         idle_share=(1 - busy_ms / wall_ms) if nk_traced else None,
+                         device_ms_by_group_per_update={
+                             g: ms / tsum["updates"] for g, ms in groups.items()}),
+            updates=summ["updates"], dispatches=summ["dispatches"],
+            fused_window=summ["fused_window"],
+            flushes=[(f["updates"], f["loss"], f["loss_mean"], f["loss_max"])
+                     for f in summ["flushes"]],
+            launches=launches, counted_launches=counted,
+            accounted_launches={n: counted[n] + extra[n] for n in counted},
+            median_update_ms=float(np.median(per_update)), wall_seconds=wall,
+            tokens_per_sec_per_card=timed["updates"] * 8 * GPT2_SMALL["max_len"] / wall,
+            host_launches_per_update=calls / hsum["updates"],
+            device_kernels_per_update=nk / hsum["updates"],
+            capture_seconds=sum(g["capture_seconds"] for g in graphs),
+            replays=sum(g["replays"] for g in graphs), graphs=graphs)
+        if fuse:
+            evaluation = _multicard_eval(model, state, loader)
+        del model, loader, step, state
+        torch.cuda.empty_cache()
+    want, got = bits[False], bits["auto"]
+    same = [k for k in want if torch.equal(got[k], want[k])]
+    return dict(runs=runs, leaves=len(want), bit_identical=len(same),
+                differing=[k for k in want if k not in same][:10],
+                digest=_tree_digest(got), need=GPT2_SMALL["num_layers"] * updates,
+                flush_every=flush_every, updates=updates, eval=evaluation)
+
+
+def _multicard_eval(model, state, loader, reps: int = 5) -> dict:
+    """``make_eval_step``'s mean loss on this card's first batch: the
+    global batch's (the rows gathered from every card, ROADMAP C.26), its
+    ms beside ``metric_fn`` on this card's rows alone (one card's share),
+    each the median of ``reps`` calls timed by CUDA events."""
+    import numpy as np
+    import torch
+
+    from fluxmpi_tpu_torch.parallel import make_eval_step
+
+    def metric(params, model_state, batch):
+        return torch.func.functional_call(model, params, (batch[0],),
+                                          {"targets": batch[1]}).mean()
+
+    batch = next(iter(loader))
+    evaluate = make_eval_step(metric)
+
+    def timed(fn):
+        out, ms = None, []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        return out, float(np.median(ms))
+
+    value, global_ms = timed(lambda: evaluate(state, batch))
+    with torch.no_grad():
+        local, local_ms = timed(lambda: metric(state.params, None, batch))
+    return dict(value=float(value), local_value=float(local), global_ms=global_ms,
+                local_ms=local_ms, rows=int(batch[0].shape[0]))
+
+
+def _multicard_resnet(dev, rank: int, world: int, updates: int = 16,
+                      flush_every: int = 4) -> dict:
+    """The vision phase's ResNet-50 run (bf16 compute, f32 parameters,
+    ``RESNET_BATCH`` images globally: 32 a card on four) data-parallel,
+    fused beside pipelined: BatchNorm's statistics averaged over the cards
+    inside each window's graph."""
+    import torch
+
+    corpus = image_corpus(RESNET_IMAGES, RESNET_HW, RESNET_CLASSES)
+    runs, bits = {}, {}
+    for fuse in (False, "auto"):
+        run, summ, leaves, _ = resnet_run(dev, corpus, fuse, updates, flush_every)
+        run["flushes"] = [(f["updates"], f["loss"], f["loss_mean"], f["loss_max"])
+                          for f in summ["flushes"]]
+        run["replays"] = sum(g["replays"] for g in run["graphs"])
+        run.pop("profile", None)
+        runs["fused" if fuse else "pipelined"] = run
+        bits[fuse] = leaves
+    want, got = bits[False], bits["auto"]
+    same = [k for k in want if torch.equal(got[k], want[k])]
+    return dict(runs=runs, leaves=len(want), bit_identical=len(same),
+                differing=[k for k in want if k not in same][:10],
+                digest=_tree_digest(got), flush_every=flush_every, updates=updates)
+
+
+def _multicard_mlp(dev, rank: int, world: int, epochs: int = 4,
+                   flush_every: int = 2) -> dict:
+    """The quick-start MLP (16, 16, 1; adam(1e-3); 256 samples of y = x^2,
+    global batch 64) in the mesh view, fused beside pipelined."""
+    import numpy as np
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import MLP
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-2, 2, size=(256, 1)).astype(np.float32)
+    runs, bits = {}, {}
+    for fuse in (False, "auto"):
+        model = MLP(features=(16, 16, 1), device=dev,
+                    generator=torch.Generator().manual_seed(0))
+        opt = optim.adam(1e-3)
+
+        def loss_fn(p, ms, batch, model=model):
+            bx, by = batch
+            return ((torch.func.functional_call(model, p, (bx,)) - by) ** 2).mean(), ms
+
+        step = make_train_step(loss_fn, opt)
+        loader = fm.DistributedDataLoader(fm.ArrayDataset((x, x ** 2)), 64,
+                                          mesh=fm.global_mesh(), shuffle=True, seed=11)
+        state, summ = train_loop(step, TrainState.create(model, opt), loader,
+                                 epochs=epochs, flush_every=flush_every, fuse=fuse)
+        graphs = graph_stats(step)
+        runs["fused" if fuse else "pipelined"] = dict(
+            updates=summ["updates"], dispatches=summ["dispatches"],
+            fused_window=summ["fused_window"],
+            flushes=[(f["updates"], f["loss"], f["loss_mean"], f["loss_max"])
+                     for f in summ["flushes"]],
+            replays=sum(g["replays"] for g in graphs))
+        bits[fuse] = {f"params/{k}": v.detach().clone() for k, v in state.params.items()}
+        bits[fuse].update({f"{m}/{k}": v.clone() for m in ("mu", "nu")
+                           for k, v in state.opt_state[m].items()})
+    want, got = bits[False], bits["auto"]
+    same = [k for k in want if torch.equal(got[k], want[k])]
+    return dict(runs=runs, leaves=len(want), bit_identical=len(same),
+                differing=[k for k in want if k not in same][:10],
+                digest=_tree_digest(got), flush_every=flush_every)
+
+
+def multicard_child(outdir: str, models: str) -> int:
+    """One worker of ``multicard_fused_phase`` (started by the launcher,
+    its environment naming the world): each of ``models`` (comma-separated:
+    ``gpt2``, ``resnet50``, ``mlp``), then the results to
+    ``outdir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    import fluxmpi_tpu_torch as fm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = fm.init(timeout=1200.0)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    res = dict(rank=rank, world=world, card=torch.cuda.get_device_name(dev),
+               nccl=".".join(map(str, torch.cuda.nccl.version())),
+               nccl_env={k: v for k, v in os.environ.items() if k.startswith("NCCL_")},
+               capture_probe=_nccl_capture_probe(dev))
+    runners = {"gpt2": _multicard_gpt2, "resnet50": _multicard_resnet,
+               "mlp": _multicard_mlp}
+    for name in models.split(","):
+        t0 = time.perf_counter()
+        res[name] = runners[name](dev, rank, world)
+        res[name]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    fm.shutdown()
+    return 0
+
+
+def _multicard_gates(name: str, ranks: list, failures: list) -> None:
+    """The bit-for-bit, window and launch gates of one model over every
+    card's results."""
+    for r in ranks:
+        m, tag = r[name], f"multicard_fused_phase [{name}, card {r['rank']}]"
+        fused, pipe = m["runs"]["fused"], m["runs"]["pipelined"]
+        if m["bit_identical"] != m["leaves"]:
+            failures.append(f"{tag}: {m['bit_identical']} of {m['leaves']} leaves "
+                            f"bit-identical to fuse=False (differing: {m['differing']})")
+        if fused["flushes"] != pipe["flushes"]:
+            failures.append(f"{tag}: the flushes differ from fuse=False")
+        n_windows = fused["updates"] // m["flush_every"]
+        if (fused["fused_window"], fused["dispatches"]) != (m["flush_every"], n_windows):
+            failures.append(f"{tag}: fused_window {fused['fused_window']}, dispatches "
+                            f"{fused['dispatches']}, not {m['flush_every']} and {n_windows}")
+        if pipe["fused_window"] is not None:
+            failures.append(f"{tag}: the fuse=False run fused")
+        if fused["replays"] < n_windows - 1:
+            failures.append(f"{tag}: {fused['replays']} graph replays, fewer than "
+                            f"{n_windows - 1}")
+        if "need" in m:
+            for run in (fused, pipe):
+                if set(run["launches"].values()) != {m["need"]}:
+                    failures.append(f"{tag}: launches {run['launches']}, not "
+                                    f"{m['need']} each")
+                if run["accounted_launches"] != run["launches"]:
+                    failures.append(f"{tag}: the wrappers' counts with the graphs' "
+                                    f"{run['accounted_launches']} differ from the "
+                                    f"device's {run['launches']}")
+    if len({r[name]["digest"] for r in ranks}) != 1:
+        failures.append(f"multicard_fused_phase [{name}]: the cards' fused states differ")
+    if "eval" in ranks[0][name] and len({r[name]["eval"]["value"] for r in ranks}) != 1:
+        failures.append(f"multicard_fused_phase [{name}]: make_eval_step returned "
+                        f"{[r[name]['eval']['value'] for r in ranks]}, not one value")
+
+
+def multicard_fused_phase(device, models=MULTICARD_MODELS, world: int | None = None):
+    """Fused windows across cards (item 20 of the module docstring): the
+    workers' results and the failures. Runs only with two or more cards."""
+    import tempfile
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        line = (f"multicard_fused_phase: did not run: {n} card on this machine, and "
+                f"the phase needs two or more (one worker per card); this is not a pass")
+        print(line, flush=True)
+        return {"ran": False, "reason": line}, []
+    world = world or min(n, 4)
+    failures: list = []
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                 "--multicard-launch", out, str(world), ",".join(models)])
+        try:
+            code = proc.wait(timeout=MULTICARD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.terminate()  # the launcher stops its workers on SIGTERM
+            code = proc.wait()
+            failures.append(f"multicard_fused_phase: the {world} workers ran past "
+                            f"{MULTICARD_TIMEOUT}s")
+        seconds = time.perf_counter() - t0
+        paths = [Path(out) / f"rank{r}.json" for r in range(world)]
+        if code or not all(p.exists() for p in paths):
+            failures.append(f"multicard_fused_phase: the launcher exited {code}")
+            return {"ran": True, "world": world, "exit": code}, failures
+        ranks = [json.loads(p.read_text()) for p in paths]
+    stats = {"ran": True, "world": world, "seconds": seconds, "card": ranks[0]["card"],
+             "nccl": ranks[0]["nccl"], "nccl_env": ranks[0]["nccl_env"],
+             "capture_probe": [r["capture_probe"] for r in ranks]}
+    print(f"multicard_fused_phase: {world} x {ranks[0]['card']}, NCCL {ranks[0]['nccl']} "
+          f"(env {ranks[0]['nccl_env']}), {seconds:.1f}s; one all-reduce eager and "
+          f"captured in a graph, by buffer size (bits equal; median ms eager, replayed): "
+          f"{stats['capture_probe']}", flush=True)
+    for r in ranks:
+        if not all(v["equal"] for v in r["capture_probe"].values()):
+            failures.append(f"multicard_fused_phase: on card {r['rank']} an all-reduce "
+                            f"captured in a graph differs from the eager call")
+    for name in models:
+        _multicard_gates(name, ranks, failures)
+        stats[name] = {r["rank"]: r[name] for r in ranks}
+        m = ranks[0][name]
+        for which in ("pipelined", "fused"):
+            run = m["runs"][which]
+            print(f"multicard_fused_phase [{name}, {which}, card 0 of {world}]: "
+                  f"{run['updates']} updates in {run['dispatches']} dispatches "
+                  f"(fused_window {run['fused_window']}); median "
+                  f"{run['median_update_ms'] if 'median_update_ms' in run else 'n/a'} ms "
+                  f"per update; host launch calls per update "
+                  f"{run.get('host_launches_per_update', 'n/a')}; capture seconds "
+                  f"{run.get('capture_seconds', 'n/a')}; graph replays "
+                  f"{run['replays']}; launches by the device counters "
+                  f"{run.get('launches', 'n/a')} (wrappers with the graphs' "
+                  f"{run.get('accounted_launches', 'n/a')})"
+                  + (f"; traced window: device busy {run['profile']['device_busy_ms']:.3f} "
+                     f"of {run['profile']['wall_ms']:.3f} ms wall (idle share "
+                     f"{run['profile']['idle_share']}), device ms per update by group "
+                     f"{run['profile']['device_ms_by_group_per_update']}"
+                     if "profile" in run else ""), flush=True)
+        print(f"multicard_fused_phase [{name}]: fused vs pipelined, per card: "
+              + ", ".join(f"card {r['rank']} {r[name]['bit_identical']} of "
+                          f"{r[name]['leaves']} leaves bit-identical, flushes "
+                          f"{'equal' if r[name]['runs']['fused']['flushes'] == r[name]['runs']['pipelined']['flushes'] else 'DIFFER'}"
+                          for r in ranks)
+              + f"; fused state digests {'equal' if len({r[name]['digest'] for r in ranks}) == 1 else 'DIFFER'} across cards",
+              flush=True)
+        if "eval" in m:
+            print(f"multicard_fused_phase [{name}]: make_eval_step over the global batch "
+                  f"(C.26): {[r[name]['eval']['value'] for r in ranks]} on the cards "
+                  f"(each card's rows alone: "
+                  f"{[r[name]['eval']['local_value'] for r in ranks]}); "
+                  f"{m['eval']['global_ms']:.3f} ms against {m['eval']['local_ms']:.3f} ms "
+                  f"for one card's {m['eval']['rows']} rows", flush=True)
+    return stats, failures
+
+
 def main() -> int:
     import torch
 
@@ -6451,6 +6869,9 @@ def run_phases(device):
     settle("decode_phase")
     dec, dec_failures = decode_phase(device)
     failures += dec_failures
+    settle("multicard_fused_phase")
+    multi, multi_failures = multicard_fused_phase(device)
+    failures += multi_failures
     par_paths = {**par.get("launches_by_path", {}),
                  **tune_auto.get("launches_by_path", {}),
                  **elastic.get("launches_by_path", {}),
@@ -6594,13 +7015,23 @@ def run_phases(device):
                      "vision": vision, "zoo": zoo, "finetune": tune,
                      "health": health, "parallel": par, "autotune": tune_auto,
                      "elastic": elastic, "sequence": seq, "examples": ex,
-                     "compose": comp, "decode": dec}, failures
+                     "compose": comp, "decode": dec, "multicard_fused": multi}, failures
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--staging-child"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(staging_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--multicard-launch"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        from fluxmpi_tpu_torch.launch import run_workers
+
+        sys.exit(run_workers(int(sys.argv[3]), [sys.executable, str(Path(__file__).resolve()),
+                                                "--multicard-child", sys.argv[2],
+                                                sys.argv[4]]))
+    if sys.argv[1:2] == ["--multicard-child"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(multicard_child(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--shard-child"]:
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         sys.exit(shard_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4])))

@@ -14,8 +14,14 @@ device memory once (cached across epochs), copies each epoch's
 permutation once, and takes each batch as an index slice of the
 permutation and a gather per leaf on the device (:func:`_gather_batch`,
 the one copy of that math, which the fused training window runs too):
-no per-batch host work. Otherwise batches are assembled on the host: an
-array-backed dataset's whole batches by the C++ prefetcher
+no per-batch host work. In a world of several workers each worker stages
+on its own card what its batches read: its shard of a
+:class:`DistributedDataContainer` in the per-worker view, the whole
+dataset in the mesh view, under ``elastic_order=True`` and under
+``global_shuffle`` (as the JAX package stages it replicated on every
+device), and the permutation lists this worker's rows, batch by batch.
+Otherwise batches are assembled on the host: an array-backed dataset's
+whole batches by the C++ prefetcher
 (:class:`fluxmpi_tpu_torch.io.NativePrefetcher`, one per array leaf,
 building the next batches on its own threads; the ragged tail by
 :func:`fluxmpi_tpu_torch.io.gather_rows`), any other dataset's sample by
@@ -265,12 +271,13 @@ class DistributedDataLoader:
 
     ``device_gather``: ``"auto"`` (default) gathers batches on the device
     when the dataset is array-backed (an :class:`ArrayDataset`, optionally
-    inside a :class:`DistributedDataContainer`), the world has one worker
-    and the staged bytes fit ``FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES``
-    (default 256 MiB); ``True`` forces it (raises for a dataset that is
-    not array-backed; falls back to the host path in a world of several
-    workers); ``False`` keeps the host path. A ragged trailing batch
-    (``drop_last=False``) is always assembled on the host.
+    inside a :class:`DistributedDataContainer`) and the bytes this worker
+    stages on its card (its shard in the per-worker view, the whole
+    dataset in the mesh view; the module docstring) fit
+    ``FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES`` (default 256 MiB); ``True``
+    forces it (raises for a dataset that is not array-backed); ``False``
+    keeps the host path. A ragged trailing batch (``drop_last=False``) is
+    always assembled on the host.
 
     ``transform``: an optional host-side hook applied to each assembled
     local batch (a tree of numpy arrays) before it moves to the device:
@@ -364,6 +371,9 @@ class DistributedDataLoader:
         if prefetch < 0:
             raise ValueError(f"prefetch must be >= 0, got {prefetch}")
         self.data = data
+        # A container's shard as the per-worker view stages it (made on
+        # first use).
+        self._shard_arrays: Any = None
         self.global_batch_size = global_batch_size
         self.local_batch_size = global_batch_size // world
         if self._mesh_view is not None:
@@ -609,27 +619,39 @@ class DistributedDataLoader:
             return data.arrays, 0
         if isinstance(data, DistributedDataContainer) and isinstance(
                 data.data, ArrayDataset):
-            return data.data.arrays, data.idxs.start
+            # The per-worker view reads this worker's shard alone: it
+            # stages those rows (views of the dataset's arrays, made once),
+            # and the epoch order indexes them from 0.
+            if self._shard_arrays is None:
+                lo, hi = data.idxs.start, data.idxs.stop
+                self._shard_arrays = pytree.tree_map(lambda a: a[lo:hi],
+                                                     data.data.arrays)
+            return self._shard_arrays, 0
+        return None
+
+    def _device_gather_declined(self, backing: tuple[Any, int] | None) -> str | None:
+        """Why this epoch does not gather on the device (policy in the
+        class docstring), or None when it does."""
+        if self.device_gather is False:
+            return "device_gather=False"
+        if backing is None:
+            return "the dataset is not array-backed"
+        if self.transform is not None:
+            return "transform= runs on host batches"
+        if self.device_gather == "auto":
+            # What this worker stages on its card.
+            nbytes = sum(np.asarray(leaf).nbytes
+                         for leaf in pytree.tree_leaves(backing[0]))
+            budget = _device_gather_budget()
+            if nbytes > budget:
+                return (f"this worker stages {nbytes} bytes, over "
+                        f"FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES={budget}")
         return None
 
     def _use_device_gather(self, backing: tuple[Any, int] | None) -> bool:
         """Whether this epoch gathers on the device (policy in the class
         docstring)."""
-        if self.device_gather is False or backing is None:
-            return False
-        if self.transform is not None:
-            return False
-        if self.world > 1:
-            # Each worker's batch is its own shard's: the device-gather
-            # path (and the fused window on it) is single-process, as in
-            # the JAX package.
-            return False
-        if self.device_gather == "auto":
-            nbytes = sum(np.asarray(leaf).nbytes
-                         for leaf in pytree.tree_leaves(backing[0]))
-            if nbytes > _device_gather_budget():
-                return False
-        return True
+        return self._device_gather_declined(backing) is None
 
     def _staged(self, arrays: Any) -> Any:
         """``arrays`` in device memory, staged once and cached across
@@ -691,10 +713,10 @@ class DistributedDataLoader:
         full = self._common_len // lbs
         backing = self._array_backing()
         if backing is not None and self._use_device_gather(backing):
-            arrays, offset = backing
+            arrays, staged_offset = backing
             if full > start:
                 staged = self._staged(arrays)
-                perm = self._device_perm(order, offset, full * lbs)
+                perm = self._device_perm(order, staged_offset, full * lbs)
                 for b in range(start, full):
                     at = torch.full((), b * lbs, dtype=torch.int64, device=self.device)
                     yield True, _gather_batch(staged, perm, at, lbs)
@@ -733,13 +755,21 @@ class DistributedDataLoader:
 
     def fusible(self) -> bool:
         """Can the fused-window loop run over this loader? The device-gather
-        path must be active (array-backed, one worker, within the staging
-        budget) and the epoch must be whole full batches (a ragged tail
-        would need the host path mid-window)."""
-        backing = self._array_backing()
-        if backing is None or not self._use_device_gather(backing):
-            return False
-        return len(self) * self.local_batch_size <= self._common_len
+        path must be active (array-backed, without ``transform=``, what
+        this worker stages within the staging budget) and the epoch must be
+        whole full batches (a ragged tail would need the host path
+        mid-window)."""
+        return self.fusible_declined() is None
+
+    def fusible_declined(self) -> str | None:
+        """Why :meth:`fusible` is False (the first failing condition), or
+        None when it is True."""
+        why = self._device_gather_declined(self._array_backing())
+        if why is not None:
+            return f"the loader's device-gather path is not active: {why}"
+        if len(self) * self.local_batch_size > self._common_len:
+            return "the epoch ends in a ragged batch (drop_last=False)"
+        return None
 
     def device_epoch(self) -> tuple[Any, torch.Tensor, int]:
         """Begin one fused-window pass: resolve this epoch's order (the
@@ -749,13 +779,17 @@ class DistributedDataLoader:
         of dataset rows, and the batch to start from (a pending mid-epoch
         resume cursor, else 0). Advances the same epoch/cursor bookkeeping
         as ``iter()``; the caller reports consumption with
-        :meth:`note_consumed`."""
-        if not self.fusible():
+        :meth:`note_consumed`. In a world of several workers ``perm`` lists
+        this worker's rows of every batch (its shard's, or its slice of the
+        global batch in the mesh view), so batch ``b`` is
+        ``perm[b * local_batch_size:]`` on every view."""
+        why = self.fusible_declined()
+        if why is not None:
             raise ValueError(
-                "device_epoch() needs the device-gather path: an "
-                "array-backed single-process dataset within "
-                "FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES, and a whole number "
-                "of full batches per epoch")
+                f"device_epoch() needs the device-gather path: an "
+                f"array-backed dataset without transform=, staged within "
+                f"FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES, and a whole number "
+                f"of full batches per epoch ({why})")
         order, _, _, start = self._begin_pass()
         arrays, offset = self._array_backing()
         staged = self._staged(arrays)

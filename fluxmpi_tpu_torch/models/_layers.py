@@ -372,7 +372,8 @@ def dense_dropout_keep(seed, q_pos, k_pos, keep_prob: float, bh=0) -> torch.Tens
 
 def dot_product_attention(query, key, value, mask=None, *, dropout_rng=None,
                           dropout_rate: float = 0.0, broadcast_dropout: bool = True,
-                          deterministic: bool = False, dtype=None):
+                          deterministic: bool = False, dtype=None,
+                          dropout_positions=None):
     """flax's ``nn.dot_product_attention`` over ``(b, s, h, d)`` tensors:
     ``softmax(q / sqrt(d) . k^T)`` in ``dtype`` (default the query's),
     where ``mask`` (broadcastable to ``[b, h, sq, sk]``, True = attend) is
@@ -391,7 +392,11 @@ def dot_product_attention(query, key, value, mask=None, *, dropout_rng=None,
     (the keep rate, the scaling, the shared shape), not bit for bit. A CUDA
     generator is noted for CUDA-graph windows
     (:func:`~fluxmpi_tpu_torch.runtime.note_graph_generator`), so each
-    replay draws a fresh mask."""
+    replay draws a fresh mask. ``dropout_positions`` (a ``[b]`` integer
+    tensor; one query per row; the shared mask only) places each row's
+    query at that position of the mask, so a cached decode step drops what
+    the whole-sequence attend drops at the same position under the same
+    seed."""
     dtype = dtype or query.dtype
     q = query.to(dtype) / math.sqrt(query.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q, key.to(dtype))
@@ -411,7 +416,14 @@ def dot_product_attention(query, key, value, mask=None, *, dropout_rng=None,
         b, h, sq, sk = w.shape
         rows = torch.arange(sq, device=w.device)
         cols = torch.arange(sk, device=w.device)
-        if broadcast_dropout:
+        if dropout_positions is not None:
+            # One query per row, each at its own position of the shared mask.
+            if not broadcast_dropout:
+                raise ValueError("dropout_positions places rows of the shared "
+                                 "(broadcast_dropout=True) mask")
+            pos = torch.as_tensor(dropout_positions, device=w.device).long().reshape(b)
+            keep = dense_dropout_keep(seed, pos, cols, keep_prob)[:, None, None, :]
+        elif broadcast_dropout:
             keep = dense_dropout_keep(seed, rows, cols, keep_prob)
         else:
             bh = torch.arange(b * h, device=w.device)

@@ -63,7 +63,13 @@ reference; nothing copies or stacks a cache per position):
 
 At decode ``attention="flash"`` attends through the kernels with the
 valid prefix as segment ids (no mask check); an ``attention_fn`` is
-ignored, as in JAX. Decoding is inference: it runs without autograd.
+ignored, as in JAX. Decoding runs without autograd. A ``decode=True``
+module called with ``train=True`` and ``dropout > 0`` drops as flax's
+decode does (its attention's ``deterministic=not train``): the dense
+attend drops, at each layer and position, what the training forward
+drops there with the same ``dropout_rng`` draws (one seed per layer,
+:func:`~fluxmpi_tpu_torch.models._layers.dense_dropout_keep` keyed by
+the cache position), and the flash attend does not drop, as in training.
 """
 
 from __future__ import annotations
@@ -128,12 +134,6 @@ def _cache_layers(cache: dict, prefixes: list[str], x: torch.Tensor):
     q_seg = torch.ones((b, 1), dtype=torch.int32, device=at.device)
     return [(k, v, pos[i], (q_seg, valid[i]))
             for i, (k, v) in enumerate(zip(ks, vs))], idx
-
-
-def _refuse_decode_training(train: bool, dropout: float) -> None:
-    if train and dropout > 0:
-        raise ValueError("decoding is inference and does not drop: call with "
-                         "train=False, or decode the twin (dropout=0.0)")
 
 
 class EncoderBlock(nn.Module):
@@ -234,10 +234,9 @@ class EncoderBlock(nn.Module):
     def forward(self, x, *, train: bool = True, mask=None, dropout_rng=None,
                 losses=None, cache=None):
         if self.decode:
-            _refuse_decode_training(train, self.dropout)
             layers, idx = _cache_layers(cache or {}, [""], x)
             with torch.no_grad():
-                y = self.run(x, train=False, cache=layers[0])[0]
+                y = self.run(x, train=train, cache=layers[0], dropout_rng=dropout_rng)[0]
                 torch._foreach_add_(idx, 1)
             return y, cache
         if cache is not None:
@@ -285,8 +284,12 @@ class EncoderBlock(nn.Module):
             vc[rows, pos] = v[:, 0].to(vc.dtype)
             if mode == "flash":
                 o = flash_attention(q, kc, vc, segment_ids=segments)
-            else:  # the row's valid cache prefix
-                o = dot_product_attention(q, kc, vc, mask=(segments[1] != 0)[:, None, None, :])
+            else:  # the row's valid cache prefix; drops at the row's position
+                drop = train and self.dropout > 0
+                o = dot_product_attention(
+                    q, kc, vc, mask=(segments[1] != 0)[:, None, None, :],
+                    dropout_rng=dropout_rng, dropout_rate=self.dropout if drop else 0.0,
+                    deterministic=not drop, dropout_positions=pos)
         elif (seq := _sp.current()) is not None and seq.sp is not None:
             o = self._sequence_parallel_attend(seq, mode, q, k, v, mask, train, dropout_rng)
         elif mode == "flash":
@@ -368,11 +371,11 @@ class TransformerEncoder(nn.Module):
     def forward(self, x, *, train: bool = True, mask=None, dropout_rng=None,
                 losses=None, cache=None):
         if self.decode:
-            _refuse_decode_training(train, self.dropout)
             layers, idx = _cache_layers(
                 cache or {}, [f"block_{i}." for i in range(self.num_layers)], x)
             with torch.no_grad():
-                h = self.run(x.to(self.dtype), train=False, cache=layers)[0]
+                h = self.run(x.to(self.dtype), train=train, cache=layers,
+                             dropout_rng=dropout_rng)[0]
                 torch._foreach_add_(idx, 1)
             return h, cache
         if cache is not None:
@@ -520,13 +523,18 @@ class TransformerLM(nn.Module):
         ``losses["encoder"]["block_0"]["moe"]["moe_aux_loss"] = (x,)``
         (the MoE models; see
         :func:`~fluxmpi_tpu_torch.models.collect_moe_losses`)."""
+        if train and self.dropout > 0 and dropout_rng is None and kv_cache is None:
+            raise ValueError(
+                "training TransformerLM with dropout > 0 needs dropout_rng (a "
+                "torch.Generator on the model's device), as the JAX LM needs "
+                "rngs={'dropout': key}; or call with train=False")
         if self.decode and not return_kv:
             if targets is not None:
                 raise ValueError("targets (fused loss) is a training path; "
                                  "decode=True is inference")
-            _refuse_decode_training(train, self.dropout)
             with torch.no_grad():
-                h = self._decode(tokens, pos_offset, attention, cache=cache or {})
+                h = self._decode(tokens, pos_offset, attention, cache=cache or {},
+                                 train=train, dropout_rng=dropout_rng)
                 return ((h, self.embed.embedding) if hidden else self._head(h)), cache
         if cache is not None:
             raise ValueError("cache= is the decode=True model's (kv_cache= decodes "
@@ -538,11 +546,6 @@ class TransformerLM(nn.Module):
             with torch.no_grad():
                 return self._head(self._decode(tokens, pos_offset, attention,
                                                kv_cache=kv_cache))
-        if train and self.dropout > 0 and dropout_rng is None:
-            raise ValueError(
-                "training TransformerLM with dropout > 0 needs dropout_rng (a "
-                "torch.Generator on the model's device), as the JAX LM needs "
-                "rngs={'dropout': key}; or call with train=False")
         if hidden and targets is not None:
             raise ValueError("pass either targets or hidden, not both")
         mode = self.attention_mode(attention)
@@ -623,10 +626,12 @@ class TransformerLM(nn.Module):
             return logits, torch.stack(ks), torch.stack(vs)
         return logits
 
-    def _decode(self, tokens, pos_offset, attention, kv_cache=None, cache=None):
+    def _decode(self, tokens, pos_offset, attention, kv_cache=None, cache=None,
+                train=False, dropout_rng=None):
         """One cached position through the stack: the final-LN output.
         ``cache``: flax's caches (the decode twin), read and advanced at
-        each layer's ``cache_index``; else ``kv_cache=(k, v)`` at each
+        each layer's ``cache_index`` (``train``/``dropout_rng`` as the
+        training forward takes them); else ``kv_cache=(k, v)`` at each
         row's ``pos_offset``."""
         mode = self.attention_mode(attention)
         tokens = torch.as_tensor(tokens, device=self.device).long()
@@ -642,7 +647,8 @@ class TransformerLM(nn.Module):
             x = x + table[None].to(self.dtype)
             layers, idx = _cache_layers(
                 cache, [f"encoder.block_{i}." for i in range(self.num_layers)], x)
-            h = self.encoder.run(x, train=False, mode=mode, cache=layers)[0]
+            h = self.encoder.run(x, train=train, mode=mode, cache=layers,
+                                 dropout_rng=dropout_rng)[0]
             torch._foreach_add_(idx, 1)
             return h
         if s != 1:

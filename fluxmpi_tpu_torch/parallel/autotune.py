@@ -479,7 +479,10 @@ def _run_trial(loss_fn: Any, optimizer: Any, host_params: Any, model_state: Any,
     cp = get_compile_monitor()
     if cp is not None:
         cp.reset_run()
-    state, warm = train_loop(step, state, loader, epochs=2, fuse="auto",
+    # Across workers only the dp candidates could fuse: every candidate's
+    # trial runs pipelined there, so all are timed on one path.
+    fuse = "auto" if _world() == 1 else False
+    state, warm = train_loop(step, state, loader, epochs=2, fuse=fuse,
                              flush_every=window, metrics=False)
     # The timed run starts from a fresh state held in the warm run's
     # tensors: a captured window replays against the same addresses.
@@ -489,7 +492,7 @@ def _run_trial(loss_fn: Any, optimizer: Any, host_params: Any, model_state: Any,
     state.step = 0
     if cp is not None:
         cp.reset_run()
-    _, timed = train_loop(step, state, loader, epochs=epochs, fuse="auto",
+    _, timed = train_loop(step, state, loader, epochs=epochs, fuse=fuse,
                           flush_every=window, metrics=False)
     cache = timed.get("window_cache") or {}
     programs = (getattr(step, "__fluxmpi_window_cache__", None) or {}).values()

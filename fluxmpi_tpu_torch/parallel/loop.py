@@ -16,7 +16,8 @@ One-program flush windows (``fuse="auto"``, the default, or
 flush window (its batch gathers and its updates) runs as one program from
 :func:`~fluxmpi_tpu_torch.parallel.train.make_window_program`, on the card
 one CUDA-graph replay: one host dispatch per window instead of thousands
-of kernel launches per update. A replay runs no Python: a ``loss_fn``
+of kernel launches per update; with several data-parallel workers, one
+graph per card, its collectives inside. A replay runs no Python: a ``loss_fn``
 with host-side state that changes between updates needs ``fuse=False``
 (see :func:`train_loop`).
 
@@ -59,7 +60,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from .. import runtime
+from .. import config, runtime
 from ..comm import WORLD, allreduce
 from ..data import DistributedDataLoader, scan_batches
 from ..telemetry import anomaly as _anomaly
@@ -146,53 +147,78 @@ def _epoch_len(batches: Any, scan_steps: int) -> int | None:
 
 
 def _fused_window_width(step: Any, batches: Any, flush_every: int,
-                        steps: int | None, scan_k: int, forced: bool) -> int:
-    """The fused-window width for ``train_loop(fuse=...)``: the updates one
-    window program drives, or 0 when the fused path cannot drive this
-    (step, loader) pair. ``forced`` (``fuse="window"``) raises naming the
-    failing condition instead of falling back.
+                        steps: int | None, scan_k: int, forced: bool,
+                        workers: int = 1) -> tuple[int, str | None]:
+    """This worker's fused-window width for ``train_loop(fuse=...)``: the
+    updates one window program drives, or 0 when the fused path cannot
+    drive this (step, loader) pair, with the failing condition (None when
+    ``"auto"`` keeps the pipelined path only to keep what a budget
+    means). :func:`_agreed_window_width` makes it the world's.
 
     The width is ``flush_every`` clamped to the epoch length (an epoch
     shorter than the flush interval fuses as one window per pass), and the
-    epoch must divide into whole windows."""
-
-    def fail(reason: str) -> int:
-        if forced:
-            raise ValueError(f'fuse="window" unavailable: {reason}')
-        return 0
-
+    epoch must divide into whole windows. Across ``workers > 1`` the
+    window runs data parallelism only, over device collectives."""
     if not isinstance(batches, DistributedDataLoader):
-        return fail("batches is not a DistributedDataLoader")
-    if getattr(step, "__fluxmpi_window_meta__", None) is None:
-        return fail("the step carries no fused-window metadata — build it "
-                    "with make_train_step")
-    if not batches.fusible():
-        return fail(
-            "the loader's device-gather path is not active (needs an "
-            "array-backed single-process dataset without transform=, "
-            "within FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES, whole full "
-            "batches per epoch)")
+        return 0, "batches is not a DistributedDataLoader"
+    meta = getattr(step, "__fluxmpi_window_meta__", None)
+    if meta is None:
+        return 0, ("the step carries no fused-window metadata — build it "
+                   "with make_train_step")
+    if workers > 1:
+        if meta.get("across_workers") is not None:
+            return 0, meta["across_workers"]
+        if config.DEVICE_COLLECTIVES_DISABLED:
+            return 0, ("the host-staged collectives (disable_device_collectives) "
+                       "cannot run inside a window's CUDA graph")
+    why = batches.fusible_declined()
+    if why is not None:
+        return 0, (f"{why} (the window needs an array-backed dataset without "
+                   f"transform=, staged within FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES, "
+                   f"whole full batches per epoch)")
     nb = len(batches)
     if nb < 1:
-        return fail("the loader has no full batches")
+        return 0, "the loader has no full batches"
     width = min(flush_every, nb)
     if nb % width:
-        return fail(
-            f"epoch of {nb} batches does not divide into flush_every="
-            f"{flush_every} windows (width {width}) — pick a flush_every "
-            f"that divides the epoch")
+        return 0, (f"epoch of {nb} batches does not divide into flush_every="
+                   f"{flush_every} windows (width {width}) — pick a flush_every "
+                   f"that divides the epoch")
     if not forced and steps is not None and steps % width:
         # Windows round a steps budget up to whole windows; "auto" must not
         # change how many updates `steps` means, so it keeps the pipelined
         # path (fuse="window" opts into the rounding).
-        return 0
+        return 0, None
     if not forced and scan_k > 1 and (
             nb % scan_k or (steps is not None and steps % scan_k)):
         # The pipelined path's scan_batches drops a ragged trailing scan
         # group and rounds a steps budget up to whole groups, while the
         # window sequences single updates over every batch: "auto" keeps
         # what an epoch and a budget mean for a scan_steps step.
-        return 0
+        return 0, None
+    return width, None
+
+
+def _agreed_window_width(width: int, reason: str | None, forced: bool,
+                         workers: int) -> int:
+    """The width every worker runs: in a world of several, the MIN of the
+    workers' widths over the runtime's host group (one exchange per
+    ``train_loop``, before the first window), so no worker replays a
+    window's collectives while another runs an eager step. ``forced``
+    (``fuse="window"``) raises on every worker, naming the first worker
+    that declined and its reason."""
+    who = None
+    if workers > 1:
+        import torch.distributed as dist
+
+        views: list = [None] * workers
+        dist.all_gather_object(views, (width, reason), group=runtime._state.host_group)
+        width = min(w for w, _ in views)
+        who, reason = next(((r, why) for r, (w, why) in enumerate(views)
+                            if not w and why is not None), (None, reason))
+    if forced and not width:
+        where = f" on worker {who}" if who is not None else ""
+        raise ValueError(f'fuse="window" unavailable{where}: {reason}')
     return width
 
 
@@ -337,14 +363,22 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     the CPU) without a per-step synchronization.
 
     ``fuse``: ``"auto"`` (default) engages one-program flush windows when
-    the loader's device-gather path is active (array-backed, one worker,
-    within ``FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES``) and the epoch divides
-    into ``flush_every``-update windows (``flush_every`` clamped to the
-    epoch): each window's gathers and updates run as one program (on the
-    card a CUDA graph: the first window of each width runs eagerly, the
-    later ones replay it), one dispatch per window. ``"window"`` forces it
-    (raises naming the failing condition); ``False``/``None`` keeps the
-    pipelined path. Under the fused path every window boundary is a flush
+    the loader's device-gather path is active (array-backed, without
+    ``transform=``, what the worker stages within
+    ``FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES``) and the epoch divides into
+    ``flush_every``-update windows (``flush_every`` clamped to the epoch):
+    each window's gathers and updates run as one program (on the card a
+    CUDA graph: the first window of each width runs eagerly, the later ones
+    replay it), one dispatch per window. In a world of several workers
+    (one per card) each worker's window holds the step's collectives (the
+    gradient all-reduce, the batch axes' statistics) and every card
+    replays its graph in lockstep; it runs data parallelism only (no plan,
+    or a plan whose only axis above 1 is ``dp``, with the default
+    ``style="auto"``) over device collectives, and the workers agree on
+    one width before the first window (one host exchange), so a window any
+    worker cannot fuse runs pipelined on every worker. ``"window"`` forces
+    it (raises on every worker, naming the failing condition and, across
+    workers, the worker); ``False``/``None`` keeps the pipelined path. Under the fused path every window boundary is a flush
     boundary (metrics, saves and preemption move to window granularity), a
     ``scan_steps`` step is subsumed (the window sequences single updates),
     and a ``steps`` budget rounds up to whole windows, so ``"auto"`` keeps
@@ -480,9 +514,12 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     halt_rule: str | None = None
 
     fused_w = 0
+    workers = runtime.process_count() if runtime.is_initialized() else 1
     if fuse not in (False, None):
-        fused_w = _fused_window_width(step, batches, flush_every, steps, k,
-                                      forced=fuse == "window")
+        forced = fuse == "window"
+        fused_w = _agreed_window_width(
+            *_fused_window_width(step, batches, flush_every, steps, k, forced, workers),
+            forced, workers)
     orig_k = k
     if fused_w:
         # The window sequences single updates itself: the step's scan tag
@@ -507,7 +544,6 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     t_start = t_flush = time.perf_counter()
     # Several workers agree on a preemption at flush boundaries, and only
     # when it can matter (a checkpoint to bank, or a handler on any worker).
-    workers = runtime.process_count() if runtime.is_initialized() else 1
     multi = workers > 1
     coordinate = multi and (checkpoint is not None or bool(int(allreduce(
         torch.tensor(int(runtime.preemption_handlers_installed())), op="max",

@@ -1145,8 +1145,21 @@ def make_train_step(
             "depth": stats_depth, "workers": stats_workers, "plans": plans}
     # What make_window_program needs to fuse this step's math into a flush
     # window: the single-update body (the window sequences updates itself,
-    # so a scan_steps wrapper is irrelevant there) and the aux it carries.
-    step.__fluxmpi_window_meta__ = {"single": single, "aux": aux_names}
+    # so a scan_steps wrapper is irrelevant there) and the aux it carries;
+    # and why train_loop keeps this step pipelined across workers (None:
+    # it fuses there too).
+    across = None
+    if style == "shard_map":
+        across = ('fused windows across workers run the default style="auto" '
+                  'step; a style="shard_map" step runs pipelined there, as the '
+                  'JAX package declines it')
+    elif layout is not None:
+        above = [f"{a}={n}" for a, n in layout.mesh.shape.items() if n > 1 and a != name]
+        if above:
+            across = ("fused windows across workers run data parallelism only: "
+                      + ", ".join(above))
+    step.__fluxmpi_window_meta__ = {"single": single, "aux": aux_names,
+                                    "across_workers": across}
     return step
 
 
@@ -1188,6 +1201,18 @@ def _state_tensors(ts: TrainState) -> list[torch.Tensor]:
             if torch.is_tensor(t)]
 
 
+def _any_worker(flag: bool) -> bool:
+    """``flag`` OR-ed over the runtime's workers, in one exchange over its
+    host (gloo) group; ``flag`` itself in a world of one."""
+    if not runtime.is_initialized() or runtime.process_count() < 2:
+        return flag
+    import torch.distributed as dist
+
+    t = torch.tensor([int(flag)])
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=runtime._state.host_group)
+    return bool(t.item())
+
+
 def _launch_counts() -> dict[str, int]:
     """The attention kernels' launch counters (one increment per launch
     their wrappers make, captured launches included)."""
@@ -1222,6 +1247,14 @@ class WindowProgram:
     fresh ``TrainState``, a restaged dataset; ``recaptures`` counts them,
     ``captures`` every capture). A capture or replay that fails raises;
     nothing falls back to eager windows.
+
+    In a world of several workers (one per card) the window holds the
+    step's collectives (NCCL's, on the device): the eager first window runs
+    them for real, so their communicators exist before the capture records
+    them, and every card replays its graph in lockstep with its peers'. A
+    recapture is agreed over the runtime's host group before each replay
+    (one exchange per window): when any worker must capture, every worker
+    does, so no card waits in a collective another card never issues.
 
     Launch accounting per attention kernel: ``captured_launches`` are the
     launches inside the current graph. The wrappers' counters rise while a
@@ -1319,7 +1352,7 @@ class WindowProgram:
             return ts, metrics
         bound = tuple(t.data_ptr() for t in
                       _state_tensors(ts) + pytree.tree_leaves(data))
-        if self.graph is None or bound != self._bound:
+        if _any_worker(self.graph is None or bound != self._bound):
             self.recaptures += self.graph is not None
             before = self.capture_seconds
             self._capture(ts, data, perm)
@@ -1415,15 +1448,48 @@ def make_window_program(step: Any, *, width: int, lbs: int) -> WindowProgram:
     return WindowProgram(meta["single"], width, lbs, meta["aux"])
 
 
+def _gathered_rows(batch: Any, rows: Any) -> Any:
+    """The global batch on every member of the batch axes ``rows``: each
+    tensor leaf of this worker's rows all-gathered over their group and
+    concatenated in block order (the loader's rows of block ``k`` are the
+    ``k``-th slice of the global batch); other leaves as they are."""
+    import torch.distributed as dist
+
+    group = rows.group
+    members = dist.get_process_group_ranks(group)
+    at = [members.index(r) for r in rows.ranks]
+
+    def gather(x):
+        if not torch.is_tensor(x):
+            return x
+        parts = [torch.empty_like(x) for _ in members]
+        dist.all_gather(parts, x.detach().contiguous(), group=group)
+        return torch.cat([parts[i] for i in at])
+
+    return pytree.tree_map(gather, batch)
+
+
 def make_eval_step(metric_fn: Callable[[dict, Any, Any], Any], *,
                    parallel: Any = None, mesh: Any = None,
                    axis_name: str | None = None, state_sharding: Any = None,
                    batch_spec: Any = None, policy: Any = None):
-    """Build ``eval_step(state, batch) -> metrics``:
-    ``metric_fn(params, model_state, batch)`` without autograd, on this
-    worker's batch (reduce across workers with
-    :func:`~fluxmpi_tpu_torch.allreduce` where a global value is
-    wanted). ``parallel``/``state_sharding``/``batch_spec`` as in
+    """Build ``eval_step(state, batch) -> metrics``.
+
+    ``metric_fn(params, model_state, batch)`` returns any pytree of
+    metrics, without autograd; reductions written over the global batch
+    (a mean, a sum, a max, a count) see every worker's rows, so the
+    returned metrics are already globally correct, and replicated: every
+    worker returns the same value, the JAX package's (no separate
+    collective pass). ``batch`` is this worker's rows, as the train step
+    takes them (the loader's); in a world of several workers the step
+    all-gathers the rows over the batch axes (a plan's ``dp`` and
+    ``fsdp``, or the whole world without a plan) and runs ``metric_fn``
+    once on the global batch on every worker, which costs the batch axes'
+    size times one worker's share of the eval compute. Under ``sp`` the
+    rows are gathered and each worker's sequence block is cut as in
+    training.
+
+    ``parallel``/``state_sharding``/``batch_spec`` as in
     :func:`make_train_step`: a state laid out by a plan evaluates in its
     training layout (its sharded parameters gathered first). ``policy``
     casts the parameters to its compute dtype entering ``metric_fn``, as
@@ -1440,18 +1506,23 @@ def make_eval_step(metric_fn: Callable[[dict, Any, Any], Any], *,
     layout = None
     if plan is not None or state_sharding is not None:
         layout = _make_layout(plan, mesh, state_sharding)
+    batch_group: list = []
 
     def step(ts: TrainState, batch):
-        params = ts.params
-        axes = None
-        if layout is not None:
-            with torch.no_grad():
+        if not batch_group:
+            batch_group.append(_batch_group(mesh, plan, batch_spec))
+        with torch.no_grad():
+            if batch_group[0] is not None:
+                batch = _gathered_rows(batch, batch_group[0])
+            params = ts.params
+            axes = None
+            if layout is not None:
                 params = layout.gather(params)
-            axes = layout.axes_context()
-            if axes is not None:
-                batch = layout.local_batch(batch, batch_spec)
-        params = params if policy is None else policy.cast_to_compute(params)
-        with torch.no_grad(), _sequence_parallel.active(axes):
-            return metric_fn(params, ts.model_state, batch)
+                axes = layout.axes_context()
+                if axes is not None:
+                    batch = layout.local_batch(batch, batch_spec)
+            params = params if policy is None else policy.cast_to_compute(params)
+            with _sequence_parallel.active(axes):
+                return metric_fn(params, ts.model_state, batch)
 
     return step

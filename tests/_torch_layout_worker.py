@@ -131,9 +131,10 @@ for case, kw in CASES[world].items():
     res[f"{case}/heads"] = np.array(sorted(set(SEEN["heads"])))
     res[f"{case}/gathers"] = np.array(SEEN["gathers"])
     res[f"{case}/tp_blocks"] = np.array(sorted(step.__fluxmpi_layout__.tp_blocks), dtype=str)
-    # The eval step evaluates the blocks in their training layout.
+    # The eval step evaluates the blocks in their training layout, over the
+    # global batch (ROADMAP C.26): its raw result is JAX's on every rank.
     evaluate = make_eval_step(lambda p, ms, b: loss_fn(model)(p, ms, b)[0], parallel=plan)
-    res[f"{case}/eval"] = fm.allreduce(evaluate(state, batch), "mean").numpy()
+    res[f"{case}/eval"] = evaluate(state, batch).numpy()
 
 # The explicit per-worker step over the dp axis of the world's mesh.
 if world == 2:

@@ -6,6 +6,7 @@ modules."""
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -32,12 +33,13 @@ def start_world(group, tmp, world, data_path, worker=WORKER):
     return tmp, world, procs, logs
 
 
-def join_world(tmp, world, procs, logs):
+def join_world(tmp, world, procs, logs, timeout=JOIN_TIMEOUT):
     """Each rank's results (a dict per rank); fails with every rank's log
-    when a rank failed or hung."""
+    when a rank failed or hung (past ``timeout`` seconds)."""
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
-            p.wait(timeout=JOIN_TIMEOUT)
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
     except subprocess.TimeoutExpired:
         pass
     finally:
@@ -48,6 +50,6 @@ def join_world(tmp, world, procs, logs):
         for log in logs:
             log.close()
     text = "\n".join((tmp / f"rank{r}.log").read_text() for r in range(world))
-    assert not hung, f"a rank hung past {JOIN_TIMEOUT}s:\n{text}"
+    assert not hung, f"a rank hung past {timeout}s:\n{text}"
     assert all(p.returncode == 0 for p in procs), text
     return [dict(np.load(tmp / f"rank{r}.npz", allow_pickle=False)) for r in range(world)]

@@ -18,9 +18,11 @@ pipelined run's, every parameter bit for bit, a capture as a compile
 event), a ``torch.profiler`` capture beside a captured window, on a
 machine with two or more cards one data-parallel step over NCCL against
 the single-process step, and on four cards the layout autotuner's search
-over dp x fsdp x tp with its winner trained against pure dp, and ROADMAP
+over dp x fsdp x tp with its winner trained against pure dp, ROADMAP
 C.25: ResNet-50's and the DEQ's default-step update at dp=4 against one
-card's on the same rows.
+card's on the same rows, and fused windows across cards (one CUDA graph
+per window per card, NCCL inside) against ``fuse=False`` for GPT-2 small
+and ResNet-50 at dp=4 and the quick-start MLP at dp=4 and dp=2.
 
 Marked ``cuda``: each test skips where CUDA is absent. On a machine with a
 card (this file imports no JAX, so the JAX-pinning conftest can be left
@@ -2181,3 +2183,42 @@ def test_nccl_c25_batch_coupled_layers_see_the_global_batch(tmp_path):
         assert worst["stats_rel max"] <= 1e-5, (name, c["stats_rel"])
         assert abs(c["loss"] - c["one_card_loss"]) <= 1e-4 * abs(c["one_card_loss"]), c
     assert len(cases["resnet50"]["stats_rel"]) == 2 * 53
+
+
+def test_nccl_fused_windows_across_cards_match_pipelined():
+    """Fused windows across cards (``train_loop(fuse="auto")``, one CUDA
+    graph per window per card, NCCL's collectives inside) against
+    ``fuse=False`` in the same world, through ``chip_smoke.py``'s
+    ``multicard_fused_phase`` (one worker per card by the launcher): on
+    four cards GPT-2 small in bf16 (8 x 1024 per card, 32 updates in
+    windows of 8; each flash kernel's device-counter launches equal to the
+    wrappers' count less captures plus replays, 12 per update), ResNet-50
+    in bf16 (32 images of 224 x 224 per card, 16 updates in windows of 4;
+    BatchNorm's statistics all-reduced inside the graph) and the
+    quick-start MLP in the mesh view; on two cards the MLP again. Every
+    leaf and flush bit for bit on every card, the same state on every
+    card, and ``make_eval_step``'s loss one value on every card (C.26).
+    Prints ms per update, host launch calls per update and capture seconds
+    of both paths; every worker's numbers go to
+    ``chiprun_out/multicard_fused.json``."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    import importlib.util
+    import json
+
+    from fluxmpi_tpu_torch.ops import _build
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    _build.build_all()  # once, before the workers start
+    device = torch.device("cuda", 0)
+    four, failures = smoke.multicard_fused_phase(device, models=("gpt2", "resnet50", "mlp"),
+                                                 world=4)
+    two, failures_two = smoke.multicard_fused_phase(device, models=("mlp",), world=2)
+    out = root / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "multicard_fused.json").write_text(json.dumps({"four": four, "two": two}))
+    assert not failures + failures_two, failures + failures_two
+    assert four["ran"] and two["ran"]

@@ -204,15 +204,21 @@ def test_fuse_auto_engages_and_falls_back_where_jax_does(port_world, jax_params,
     s = _Run(jax_params).loop(epochs=1)[1]
     assert (s["fused_window"], s["updates"]) == (None, 4)
     monkeypatch.delenv("FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES")
-    # Several workers: the device-gather path (and the window) is
-    # single-process, so auto falls back and a forced window raises.
+    # Several workers: each stages its own shard, and the budget counts
+    # what this worker stages. Of 255 rows over 2 workers worker 0 holds
+    # 128 (1024 bytes) and worker 1 127 (1016): under a budget of 1020
+    # worker 0 declines, so auto falls back and a forced window raises.
     monkeypatch.setattr(tdata, "_world", lambda: (0, 2))
-    cont = tfm.DistributedDataContainer(tfm.ArrayDataset(_data()), rank=0, world=2)
+    monkeypatch.setenv("FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES", "1020")
+    cont = tfm.DistributedDataContainer(tfm.ArrayDataset(_data(255)), rank=0, world=2)
     run = _Run(jax_params)
     run.loader = tfm.DistributedDataLoader(cont, 128, device="cpu")
     assert not run.loader.fusible()
+    assert "1024 bytes" in run.loader.fusible_declined()
     with pytest.raises(ValueError, match="device-gather"):
         run.loop(epochs=1, fuse="window")
+    cont = tfm.DistributedDataContainer(tfm.ArrayDataset(_data(255)), rank=1, world=2)
+    assert tfm.DistributedDataLoader(cont, 128, device="cpu").fusible()
 
 
 def test_fuse_window_forced_raises_naming_the_reason(port_world, jax_params):
