@@ -307,7 +307,16 @@
    device counter equal to 12 per update and to the wrappers' count less
    captures plus replays; it prints ms per update, host launch calls per
    update and capture seconds of both paths, and whether one all-reduce
-   captured in a graph gives the eager call's bits.
+   captured in a graph gives the eager call's bits. The same GPT-2 small
+   (vocabulary padded to 50304, the loader's mesh view, a global batch of
+   8 x 1024 per card) under ``ParallelConfig(fsdp=4)``, ``(tp=4)`` and
+   ``(fsdp=2, tp=2)``: the fsdp gathers, the bucketed gradient sums over
+   subgroups and the tensor-parallel all-reduces inside each card's
+   graph. Gates: every block, moment and flush bit for bit with the
+   card's own ``fuse=False`` run, one digest of the state gathered whole
+   on every card, the launch accounting above; and an all-gather and an
+   all-reduce over a subgroup captured in a graph give the eager bits. It
+   prints the NCCL ms per update of one traced fused window too.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -316,6 +325,7 @@ package is missing, or any phase fails.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -6340,10 +6350,16 @@ def decode_phase(device):
 
 
 # Multi-card fused phase: one worker per card, GPT-2 small data-parallel
-# in fused windows beside the pipelined run (tests/test_torch_cuda.py adds
-# ResNet-50 and the quick-start MLP through the same child).
-MULTICARD_MODELS = ("gpt2",)
+# and under the fsdp=4, tp=4 and fsdp=2 x tp=2 plans in fused windows
+# beside the pipelined run (tests/test_torch_cuda.py adds ResNet-50 and the
+# quick-start MLP through the same child).
+MULTICARD_PLANS = {"gpt2_fsdp4": dict(fsdp=4), "gpt2_tp4": dict(tp=4),
+                   "gpt2_fsdp2_tp2": dict(fsdp=2, tp=2)}
+MULTICARD_MODELS = ("gpt2",) + tuple(MULTICARD_PLANS)
 MULTICARD_TIMEOUT = 900
+# GPT-2's padded vocabulary under a plan: the tp rules cut the vocabulary
+# over tp, which 50257 does not divide.
+GPT2_PADDED_VOCAB = 50304
 
 
 def _nccl_capture_probe(dev, reps: int = 5) -> dict:
@@ -6351,7 +6367,10 @@ def _nccl_capture_probe(dev, reps: int = 5) -> dict:
     CUDA graph (then replayed): per buffer size (a small one, and GPT-2
     small's f32 gradient), whether the two give the same bits, and the
     median ms of ``reps`` eager calls and of ``reps`` replays (CUDA
-    events on the calling stream)."""
+    events on the calling stream); then the same over a subgroup of half
+    the world (the fsdp or tp group of a 2 x 2 plan): an all-gather and an
+    all-reduce of 16 MiB, eager against captured
+    (:func:`_nccl_subgroup_probe`)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -6387,16 +6406,123 @@ def _nccl_capture_probe(dev, reps: int = 5) -> dict:
         out[str(numel)] = dict(equal=same, eager_ms=ms_of(lambda: dist.all_reduce(eager)),
                                graph_ms=ms_of(graph.replay))
         del graph, buf, eager, src
+    if dist.get_world_size() >= 4:
+        out.update(_nccl_subgroup_probe(dev, ms_of))
     return out
 
 
+def _nccl_subgroup_probe(dev, ms_of, numel: int = 1 << 22) -> dict:
+    """Over the subgroup of this worker's half of the world (ranks
+    ``[0, 1]`` and ``[2, 3]`` of four, made by every worker in one order):
+    an all-gather and a sum all-reduce of ``numel`` f32, eager and captured
+    in one CUDA graph (then replayed), whether the two give the same bits,
+    and the median ms of the eager calls and of the replays."""
+    import torch
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    half = world // 2
+    groups = [dist.new_group(list(range(i, i + half))) for i in (0, half)]
+    group = groups[rank // half]
+    gen = torch.Generator(device=dev).manual_seed(11 + rank)
+    src = torch.randn(numel, device=dev, generator=gen)
+    # Eager first: the subgroup's communicator comes up outside the capture.
+    parts = [torch.empty_like(src) for _ in range(half)]
+    dist.all_gather(parts, src, group=group)
+    eager_gather = torch.cat(parts)
+    eager_sum = src.clone()
+    dist.all_reduce(eager_sum, group=group)
+    buf = src.clone()
+    cap_parts = [torch.empty_like(src) for _ in range(half)]
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        dist.all_gather(cap_parts, buf, group=group)
+        dist.all_reduce(buf, group=group)
+    buf.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    out = {f"subgroup_all_gather_{numel}": dict(
+               equal=bool(torch.equal(torch.cat(cap_parts), eager_gather)),
+               eager_ms=ms_of(lambda: dist.all_gather(parts, src, group=group))),
+           f"subgroup_all_reduce_{numel}": dict(
+               equal=bool(torch.equal(buf, eager_sum)),
+               eager_ms=ms_of(lambda: dist.all_reduce(eager_sum, group=group)))}
+    replay_ms = ms_of(graph.replay)
+    for v in out.values():
+        v["graph_ms"] = replay_ms  # one graph holds both collectives
+    del graph, buf, cap_parts, parts
+    return out
+
+
+def _gathered_digest(state) -> str:
+    """SHA-256 over every tensor leaf of ``state`` gathered to its whole
+    shape (each block all-gathered over the world and put at its mesh
+    coordinate), in path order: one digest on every worker iff the
+    workers' blocks make up one state. The copies of a block that several
+    workers hold (over the axes the leaf is not sharded along) must be
+    bit-identical, and so must a leaf no axis shards, or the digests
+    part."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from fluxmpi_tpu_torch.parallel.sharding import P, sharding_of
+    from fluxmpi_tpu_torch.utils.manifest import named_leaves
+
+    world = dist.get_world_size()
+    h = hashlib.sha256()
+    for name, t in sorted(named_leaves(state), key=lambda kv: kv[0]):
+        if not torch.is_tensor(t):
+            continue
+        sh = sharding_of(t)  # read before detach(), whose tensor has no tag
+        t = t.detach().contiguous()
+        dims = [] if sh is None else [
+            (d, (n,) if isinstance(n, str) else tuple(n)) for d, n in enumerate(sh.spec)
+            if n is not None and n is not P.UNCONSTRAINED]
+        full = t
+        if dims and world > 1:
+            parts = [torch.empty_like(t) for _ in range(world)]
+            dist.all_gather(parts, t)
+            shape = list(t.shape)
+            for d, names in dims:
+                shape[d] *= sh.mesh.group_size(names)
+            full = t.new_empty(shape)
+            held: dict = {}
+            for r, part in enumerate(parts):
+                index = [slice(None)] * t.ndim
+                at = []
+                for d, names in dims:
+                    i, _ = sh.mesh.block_index(r, names)
+                    index[d] = slice(i * t.shape[d], (i + 1) * t.shape[d])
+                    at.append(i)
+                if tuple(at) in held and not torch.equal(held[tuple(at)], part):
+                    # Two workers hold different bits for one block: this
+                    # card's digest says so (and differs from its peers').
+                    h.update(f"{name}: block {at} differs on {r}, seen by "
+                             f"{dist.get_rank()}".encode())
+                held.setdefault(tuple(at), part)
+                full[tuple(index)] = part
+            del parts, held
+        cpu = full.cpu()
+        h.update(name.encode())
+        h.update(str(cpu.dtype).encode())
+        h.update(cpu.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def _multicard_gpt2(dev, rank: int, world: int, updates: int = 32,
-                    flush_every: int = 8) -> dict:
-    """The fused phase's bf16 GPT-2-small run, data-parallel over the
-    world (8 x 1024 per card, each card's shard of 256 sequences):
-    ``fuse=False`` then ``fuse="auto"``, each path's main run counted by
-    the kernels' device counters, a second run timed and one window's
-    host launch calls counted."""
+                    flush_every: int = 8, plan: dict | None = None) -> dict:
+    """The fused phase's bf16 GPT-2-small run over the world, 8 x 1024
+    per card's share of a global batch of 8 x world sequences:
+    data-parallel (each card's shard of 256 sequences), or under ``plan``
+    (``ParallelConfig`` sizes; the vocabulary padded to 50304; the loader's
+    mesh view, tp peers reading the same rows; the state placed by the
+    plan): ``fuse=False`` then ``fuse="auto"``, each path's main run
+    counted by the kernels' device counters, a second run timed, one
+    window's host launch calls counted and one traced."""
     import numpy as np
     import torch
 
@@ -6404,26 +6530,40 @@ def _multicard_gpt2(dev, rank: int, world: int, updates: int = 32,
     from fluxmpi_tpu_torch import optim
     from fluxmpi_tpu_torch.models import TransformerLM
     from fluxmpi_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
-    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step, train_loop
+    from fluxmpi_tpu_torch.parallel import (ParallelConfig, TrainState, make_train_step,
+                                            train_loop)
 
     kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
-    corpus = lm_corpus(GPT2_SMALL["vocab_size"], n=256 * world, seq=GPT2_SMALL["max_len"])
+    cfg = dict(GPT2_SMALL, vocab_size=GPT2_PADDED_VOCAB if plan else GPT2_SMALL["vocab_size"])
+    corpus = lm_corpus(cfg["vocab_size"], n=256 * world, seq=cfg["max_len"])
 
     def build():
-        model = TransformerLM(**GPT2_SMALL, attention="flash", dropout=0.0,
+        model = TransformerLM(**cfg, attention="flash", dropout=0.0,
                               dtype=torch.bfloat16, device=dev,
                               generator=torch.Generator().manual_seed(0))
         fm.synchronize(model)
-        loader = fm.DistributedDataLoader(
-            fm.DistributedDataContainer(fm.ArrayDataset((corpus[:, :-1], corpus[:, 1:]))),
-            global_batch_size=8 * world, shuffle=True)
+        opt = optim.adamw(3e-4)
+        data = fm.ArrayDataset((corpus[:, :-1], corpus[:, 1:]))
+        if plan is None:
+            loader = fm.DistributedDataLoader(fm.DistributedDataContainer(data),
+                                              global_batch_size=8 * world, shuffle=True)
+
+            def loss_fn(params, model_state, batch):
+                x, y = batch
+                return model(x, targets=y).mean(), model_state
+
+            return model, loader, make_train_step(loss_fn, opt), TrainState.create(model, opt)
+        resolved = ParallelConfig(**plan).resolve()
+        state, _ = resolved.shard_state(TrainState.create(model, opt))
+        loader = fm.DistributedDataLoader(data, global_batch_size=8 * world, shuffle=True,
+                                          mesh=resolved.mesh, axis_name=resolved.data_axes)
 
         def loss_fn(params, model_state, batch):
             x, y = batch
-            return model(x, targets=y).mean(), model_state
+            out = torch.func.functional_call(model, params, (x,), {"targets": y})
+            return out.mean(), model_state
 
-        opt = optim.adamw(3e-4)
-        return model, loader, make_train_step(loss_fn, opt), TrainState.create(model, opt)
+        return model, loader, make_train_step(loss_fn, opt, parallel=resolved), state
 
     def leaves(state):
         out = {f"params/{k}": v for k, v in state.params.items()}
@@ -6459,6 +6599,8 @@ def _multicard_gpt2(dev, rank: int, world: int, updates: int = 32,
             lambda: train_loop(step, state, loader, steps=flush_every,
                                flush_every=flush_every, fuse=fuse))
         graphs = graph_stats(step)
+        if fuse and plan is not None:
+            gathered = _gathered_digest(state)
         runs["fused" if fuse else "pipelined"] = dict(
             profile=dict(updates=tsum["updates"], wall_ms=wall_ms, device_busy_ms=busy_ms,
                          kernels=nk_traced,
@@ -6472,21 +6614,27 @@ def _multicard_gpt2(dev, rank: int, world: int, updates: int = 32,
             launches=launches, counted_launches=counted,
             accounted_launches={n: counted[n] + extra[n] for n in counted},
             median_update_ms=float(np.median(per_update)), wall_seconds=wall,
-            tokens_per_sec_per_card=timed["updates"] * 8 * GPT2_SMALL["max_len"] / wall,
+            tokens_per_sec_per_card=timed["updates"] * 8 * cfg["max_len"] / wall,
             host_launches_per_update=calls / hsum["updates"],
             device_kernels_per_update=nk / hsum["updates"],
             capture_seconds=sum(g["capture_seconds"] for g in graphs),
             replays=sum(g["replays"] for g in graphs), graphs=graphs)
-        if fuse:
+        if fuse and plan is None:
             evaluation = _multicard_eval(model, state, loader)
         del model, loader, step, state
         torch.cuda.empty_cache()
     want, got = bits[False], bits["auto"]
     same = [k for k in want if torch.equal(got[k], want[k])]
-    return dict(runs=runs, leaves=len(want), bit_identical=len(same),
-                differing=[k for k in want if k not in same][:10],
-                digest=_tree_digest(got), need=GPT2_SMALL["num_layers"] * updates,
-                flush_every=flush_every, updates=updates, eval=evaluation)
+    out = dict(runs=runs, leaves=len(want), bit_identical=len(same),
+               differing=[k for k in want if k not in same][:10],
+               need=cfg["num_layers"] * updates, flush_every=flush_every, updates=updates)
+    if plan is None:
+        out.update(digest=_tree_digest(got), eval=evaluation)
+    else:
+        # Blocks differ between cards: the whole state they make up has one
+        # digest on every card.
+        out.update(plan=plan, digest=gathered)
+    return out
 
 
 def _multicard_eval(model, state, loader, reps: int = 5) -> dict:
@@ -6616,6 +6764,8 @@ def multicard_child(outdir: str, models: str) -> int:
                capture_probe=_nccl_capture_probe(dev))
     runners = {"gpt2": _multicard_gpt2, "resnet50": _multicard_resnet,
                "mlp": _multicard_mlp}
+    for name, plan in MULTICARD_PLANS.items():
+        runners[name] = functools.partial(_multicard_gpt2, plan=plan)
     for name in models.split(","):
         t0 = time.perf_counter()
         res[name] = runners[name](dev, rank, world)
@@ -6724,7 +6874,9 @@ def multicard_fused_phase(device, models=MULTICARD_MODELS, world: int | None = N
                   f"{run.get('accounted_launches', 'n/a')})"
                   + (f"; traced window: device busy {run['profile']['device_busy_ms']:.3f} "
                      f"of {run['profile']['wall_ms']:.3f} ms wall (idle share "
-                     f"{run['profile']['idle_share']}), device ms per update by group "
+                     f"{run['profile']['idle_share']}), NCCL ms per update "
+                     f"{run['profile']['device_ms_by_group_per_update'].get('collectives (NCCL)', 0.0)}, "
+                     f"device ms per update by group "
                      f"{run['profile']['device_ms_by_group_per_update']}"
                      if "profile" in run else ""), flush=True)
         print(f"multicard_fused_phase [{name}]: fused vs pipelined, per card: "
@@ -6732,7 +6884,8 @@ def multicard_fused_phase(device, models=MULTICARD_MODELS, world: int | None = N
                           f"{r[name]['leaves']} leaves bit-identical, flushes "
                           f"{'equal' if r[name]['runs']['fused']['flushes'] == r[name]['runs']['pipelined']['flushes'] else 'DIFFER'}"
                           for r in ranks)
-              + f"; fused state digests {'equal' if len({r[name]['digest'] for r in ranks}) == 1 else 'DIFFER'} across cards",
+              + f"; fused state digests{' (each gathered whole, plan ' + str(m['plan']) + ')' if 'plan' in m else ''} "
+              + f"{'equal' if len({r[name]['digest'] for r in ranks}) == 1 else 'DIFFER'} across cards",
               flush=True)
         if "eval" in m:
             print(f"multicard_fused_phase [{name}]: make_eval_step over the global batch "

@@ -26,12 +26,13 @@ die first (``pruned="memory"``), then everything past the trial budget
 Stage 3 — **profile** (:func:`_run_trial`): each survivor trains on
 seeded shuffles of the sample batch through the real
 ``make_train_step(parallel=plan)`` and ``train_loop``: a warmup run that
-builds the step (on the card, in a world of one: the eager first window
-and the CUDA-graph capture of the second), then a timed run from a fresh
-state copied into the warm run's tensors, so the captured graph replays
-without a re-capture (a re-capture counts as a steady compile). Across
-processes the loop runs pipelined (the port's loader gathers on the
-device in a single process only).
+builds the step (on the card, in any world: the eager first window and
+the CUDA-graph capture of the second, one graph per card), then a timed
+run from a fresh state copied into the warm run's tensors, so the
+captured graph replays without a re-capture (a re-capture counts as a
+steady compile). Every trial runs fused windows (``fuse="auto"``, which
+fuses every dp x fsdp x tp candidate across workers); a trial that did
+not fuse raises, naming its layout.
 
 Stage 4 — **bank**: the winner and the candidate table as a
 ``fluxmpi_tpu.autotune/v1`` record, validated, kept in-process, in the
@@ -447,7 +448,8 @@ def _run_trial(loss_fn: Any, optimizer: Any, host_params: Any, model_state: Any,
     must replay the captured window: zero new programs, zero re-captures,
     zero retraces. ``examples_per_sec`` is the global batch's rate (this
     worker's rows times the plan's data shards), ``captures`` the run's
-    CUDA-graph captures (0 on the CPU and across processes). This is the
+    CUDA-graph captures (0 on the CPU), ``fused_window`` the timed run's
+    window width (a run that did not fuse raises). This is the
     module's one trial entry point, which tests replace."""
     from .. import runtime
     from ..data import ArrayDataset, DistributedDataLoader
@@ -479,11 +481,11 @@ def _run_trial(loss_fn: Any, optimizer: Any, host_params: Any, model_state: Any,
     cp = get_compile_monitor()
     if cp is not None:
         cp.reset_run()
-    # Across workers only the dp candidates could fuse: every candidate's
-    # trial runs pipelined there, so all are timed on one path.
-    fuse = "auto" if _world() == 1 else False
-    state, warm = train_loop(step, state, loader, epochs=2, fuse=fuse,
+    # Every candidate is timed on the fused path, as the JAX package times
+    # its trials with fuse="window": one that did not fuse raises.
+    state, warm = train_loop(step, state, loader, epochs=2, fuse="auto",
                              flush_every=window, metrics=False)
+    _require_fused(warm, plan)
     # The timed run starts from a fresh state held in the warm run's
     # tensors: a captured window replays against the same addresses.
     with torch.no_grad():
@@ -492,8 +494,9 @@ def _run_trial(loss_fn: Any, optimizer: Any, host_params: Any, model_state: Any,
     state.step = 0
     if cp is not None:
         cp.reset_run()
-    _, timed = train_loop(step, state, loader, epochs=epochs, fuse=fuse,
+    _, timed = train_loop(step, state, loader, epochs=epochs, fuse="auto",
                           flush_every=window, metrics=False)
+    _require_fused(timed, plan)
     cache = timed.get("window_cache") or {}
     programs = (getattr(step, "__fluxmpi_window_cache__", None) or {}).values()
     # The loop counts this worker's rows; the layouts are ranked by the
@@ -507,8 +510,19 @@ def _run_trial(loss_fn: Any, optimizer: Any, host_params: Any, model_state: Any,
         "steady_compiles": int(cache.get("misses", 0)),
         "retraces": len(cp.retraces) if cp is not None else None,
         "captures": sum(p.captures for p in programs),
+        "fused_window": int(timed["fused_window"]),
         "seconds": round(time.perf_counter() - t0, 3),
     }
+
+
+def _require_fused(summary: dict[str, Any], plan: ResolvedPlan) -> None:
+    """Raise unless the trial run ``summary`` reports ran fused windows, so
+    no candidate is timed on another path than its peers."""
+    if not summary.get("fused_window"):
+        raise RuntimeError(
+            f"the trial of layout {dict(plan.sizes)} ran pipelined, not in fused "
+            f"windows (train_loop(fuse=\"auto\") declined it), so it cannot be "
+            f"ranked beside the other candidates")
 
 
 def _agree(trial: dict[str, Any]) -> dict[str, Any]:

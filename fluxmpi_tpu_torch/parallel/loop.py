@@ -16,8 +16,9 @@ One-program flush windows (``fuse="auto"``, the default, or
 flush window (its batch gathers and its updates) runs as one program from
 :func:`~fluxmpi_tpu_torch.parallel.train.make_window_program`, on the card
 one CUDA-graph replay: one host dispatch per window instead of thousands
-of kernel launches per update; with several data-parallel workers, one
-graph per card, its collectives inside. A replay runs no Python: a ``loss_fn``
+of kernel launches per update; with several workers (data-parallel, or
+under a dp x fsdp x tp plan), one graph per card, its collectives inside.
+A replay runs no Python: a ``loss_fn``
 with host-side state that changes between updates needs ``fuse=False``
 (see :func:`train_loop`).
 
@@ -158,7 +159,8 @@ def _fused_window_width(step: Any, batches: Any, flush_every: int,
     The width is ``flush_every`` clamped to the epoch length (an epoch
     shorter than the flush interval fuses as one window per pass), and the
     epoch must divide into whole windows. Across ``workers > 1`` the
-    window runs data parallelism only, over device collectives."""
+    window runs the dp, fsdp and tp axes of a plan, over device
+    collectives."""
     if not isinstance(batches, DistributedDataLoader):
         return 0, "batches is not a DistributedDataLoader"
     meta = getattr(step, "__fluxmpi_window_meta__", None)
@@ -372,9 +374,12 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     replay it), one dispatch per window. In a world of several workers
     (one per card) each worker's window holds the step's collectives (the
     gradient all-reduce, the batch axes' statistics) and every card
-    replays its graph in lockstep; it runs data parallelism only (no plan,
-    or a plan whose only axis above 1 is ``dp``, with the default
-    ``style="auto"``) over device collectives, and the workers agree on
+    replays its graph in lockstep; it runs the default ``style="auto"``
+    step with no plan or a plan whose axes above 1 are among ``dp``,
+    ``fsdp`` and ``tp`` (the fsdp gathers, the bucketed gradient sums over
+    subgroups and the tensor-parallel all-reduces inside the graph; ``ep``,
+    ``sp`` and ``pp`` decline, each under a named reason) over device
+    collectives, and the workers agree on
     one width before the first window (one host exchange), so a window any
     worker cannot fuse runs pipelined on every worker. ``"window"`` forces
     it (raises on every worker, naming the failing condition and, across

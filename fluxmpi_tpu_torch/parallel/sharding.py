@@ -172,7 +172,8 @@ class Mesh:
         coordinates on every axis but ``axes``; ``None`` when that is
         this worker alone, ``torch.distributed.group.WORLD`` when it is
         the world. Every worker must ask for the same axes in the same
-        order: group creation is collective."""
+        order: group creation is collective. A new subgroup asked for while
+        a CUDA graph is being captured raises, naming the axes."""
         import torch.distributed as dist
 
         axes = tuple(a for a in self.axis_names if a in set(axes))
@@ -180,6 +181,8 @@ class Mesh:
         if key in self._groups:
             return self._groups[key]
         span = math.prod(self.shape[a] for a in axes)
+        if 1 < span < self.size:
+            _refuse_under_capture(axes)
         if span == 1:
             group = None
         elif span == self.size:
@@ -225,11 +228,30 @@ class Mesh:
         axes = tuple(a for a in self.axis_names if a in set(axes))
         key = ("host",) + axes
         if key not in self._groups:
+            _refuse_under_capture(axes)
             self._groups[key] = self._new_groups(axes, backend="gloo")
         return self._groups[key]
 
     def group_size(self, axes: Sequence[str]) -> int:
         return math.prod(self.shape[a] for a in self.axis_names if a in set(axes))
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def _refuse_under_capture(axes: tuple) -> None:
+    """Raise when a process group over ``axes`` is first asked for while
+    this thread's CUDA stream is capturing a graph: making a group is a
+    collective of the whole world (and NCCL makes its communicator at the
+    group's first collective), neither of which a capture can hold, and a
+    worker that went on would wait for peers that never come."""
+    if _capturing():
+        raise RuntimeError(
+            f"the process group over mesh axes {axes} was first requested while "
+            f"a CUDA graph was being captured; every group a fused window uses "
+            f"must be made, and its communicator used once, in the window "
+            f"program's eager first window")
 
 
 class NamedSharding:

@@ -625,18 +625,7 @@ class _Layout:
             return grads, loss
         world = self.world
         every = tuple(self.mesh.axis_names)
-        buckets: dict[tuple, list[str]] = {(every, world): []}
-        for k in grads:
-            keep = {n for _, names in self.dims(k)[1] for n in names}
-            axes = tuple(a for a in every if a not in keep)
-            div = world
-            if self.tp_blocks and k in self.tp_blocks:
-                div = world // self.mesh.shape[self.tp_axis]
-            elif self.pp_axis in keep:
-                # Every pp worker computes the same loss, and the stage
-                # blocks' gradients each once (make_pipeline_fn).
-                div = world // self.mesh.shape[self.pp_axis]
-            buckets.setdefault((axes, div), []).append(k)
+        buckets = self._buckets(list(grads))
         out = dict(grads)
         for axes, div in sorted(buckets):
             keys = buckets[(axes, div)]
@@ -662,6 +651,40 @@ class _Layout:
                 g = g.narrow(d, i * size, size)
             out[k] = g.contiguous()
         return out, loss
+
+    def _buckets(self, keys: list) -> dict[tuple, list[str]]:
+        """``{(axes, divisor): leaves}``: the gradients :meth:`reduce` sums
+        together, over the workers that differ only along ``axes``."""
+        world = self.world
+        every = tuple(self.mesh.axis_names)
+        buckets: dict[tuple, list[str]] = {(every, world): []}
+        for k in keys:
+            keep = {n for _, names in self.dims(k)[1] for n in names}
+            axes = tuple(a for a in every if a not in keep)
+            div = world
+            if self.tp_blocks and k in self.tp_blocks:
+                div = world // self.mesh.shape[self.tp_axis]
+            elif self.pp_axis in keep:
+                # Every pp worker computes the same loss, and the stage
+                # blocks' gradients each once (make_pipeline_fn).
+                div = world // self.mesh.shape[self.pp_axis]
+            buckets.setdefault((axes, div), []).append(k)
+        return buckets
+
+    def used_axes(self, keys: list) -> list[tuple]:
+        """The axes of every process group an update of the settled layout
+        runs a collective over (each gathered leaf's, each reduce bucket's,
+        the whole mesh's among them, and the tp axis's), in one order on
+        every worker."""
+        out: list[tuple] = []
+        for k in keys:
+            gathered = self.dims(k)[0]
+            if gathered:
+                out.append(tuple(n for _, names in gathered for n in names))
+        out += [axes for axes, _ in sorted(self._buckets(keys))]
+        if self.tp_axis is not None:
+            out.append((self.tp_axis,))
+        return list(dict.fromkeys(out))
 
     def global_norm(self, grads: dict) -> torch.Tensor:
         """The 2-norm of the whole gradient, each block counted once."""
@@ -1143,23 +1166,52 @@ def make_train_step(
         # worker count the noise scale divides by.
         core.__fluxmpi_model_stats_meta__ = {
             "depth": stats_depth, "workers": stats_workers, "plans": plans}
+    def prepare(ts: TrainState, device: Any) -> None:
+        """Every process group an update of this step runs a collective
+        over, made and used once (a one-element all-reduce each, in one
+        order on every worker), so that a CUDA graph captured next makes
+        no group and finds every NCCL communicator up. Called by the
+        window program after its eager first window, by which the first
+        update has settled the layout's tensor-parallel blocks."""
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() < 2:
+            return
+        groups = [dist.group.WORLD]
+        if layout is not None and layout.world > 1:
+            groups += [layout.mesh.group(a) for a in layout.used_axes(list(ts.params))]
+        rows = batch_axes()
+        if rows is not None:
+            groups.append(rows.group)
+        if axis_group is not None:
+            groups.append(axis_group[0])
+        seen: list = []
+        for g in groups:
+            if g is not None and not any(g is h for h in seen):
+                seen.append(g)
+                dist.all_reduce(torch.zeros(1, device=device), group=g)
+
     # What make_window_program needs to fuse this step's math into a flush
     # window: the single-update body (the window sequences updates itself,
-    # so a scan_steps wrapper is irrelevant there) and the aux it carries;
-    # and why train_loop keeps this step pipelined across workers (None:
-    # it fuses there too).
+    # so a scan_steps wrapper is irrelevant there), the aux it carries and
+    # the groups it warms; and why train_loop keeps this step pipelined
+    # across workers (None: it fuses there too).
     across = None
     if style == "shard_map":
         across = ('fused windows across workers run the default style="auto" '
                   'step; a style="shard_map" step runs pipelined there, as the '
                   'JAX package declines it')
     elif layout is not None:
-        above = [f"{a}={n}" for a, n in layout.mesh.shape.items() if n > 1 and a != name]
+        fusing = {name, layout.tp_axis,
+                  (plan.axis_name("fsdp") if plan is not None else None)
+                  or config.FSDP_AXIS_NAME}
+        above = [f"{a}={n}" for a, n in layout.mesh.shape.items()
+                 if n > 1 and a not in fusing]
         if above:
-            across = ("fused windows across workers run data parallelism only: "
+            across = ("fused windows across workers run dp, fsdp and tp only: "
                       + ", ".join(above))
     step.__fluxmpi_window_meta__ = {"single": single, "aux": aux_names,
-                                    "across_workers": across}
+                                    "prepare": prepare, "across_workers": across}
     return step
 
 
@@ -1213,6 +1265,25 @@ def _any_worker(flag: bool) -> bool:
     return bool(t.item())
 
 
+def _agree_outcome(error: str | None, what: str) -> None:
+    """Raise on every worker when ``error`` (this worker's failure of
+    ``what``, None when it succeeded) is set on any worker, naming those
+    workers: one exchange over the runtime's host (gloo) group; nothing in
+    a world of one, where the caller raises its own error."""
+    if not runtime.is_initialized() or runtime.process_count() < 2:
+        return
+    import torch.distributed as dist
+
+    views: list = [None] * runtime.process_count()
+    dist.all_gather_object(views, error, group=runtime._state.host_group)
+    failed = [(r, e) for r, e in enumerate(views) if e is not None]
+    if failed:
+        who = ", ".join(str(r) for r, _ in failed)
+        raise RuntimeError(
+            f"{what} failed on worker {who} ({failed[0][1]}); every worker "
+            f"raises, none replays")
+
+
 def _launch_counts() -> dict[str, int]:
     """The attention kernels' launch counters (one increment per launch
     their wrappers make, captured launches included)."""
@@ -1249,12 +1320,17 @@ class WindowProgram:
     nothing falls back to eager windows.
 
     In a world of several workers (one per card) the window holds the
-    step's collectives (NCCL's, on the device): the eager first window runs
-    them for real, so their communicators exist before the capture records
-    them, and every card replays its graph in lockstep with its peers'. A
-    recapture is agreed over the runtime's host group before each replay
-    (one exchange per window): when any worker must capture, every worker
-    does, so no card waits in a collective another card never issues.
+    step's collectives (NCCL's, on the device; under a dp x fsdp x tp plan
+    over the world and its subgroups): the eager first window runs them for
+    real, and then ``prepare`` (the step's) makes every process group the
+    settled layout uses and runs one collective over each, so their
+    communicators exist before the capture records them, and every card
+    replays its graph in lockstep with its peers'. A recapture is agreed
+    over the runtime's host group before each replay (one exchange per
+    window): when any worker must capture, every worker does, so no card
+    waits in a collective another card never issues; and the capture's
+    outcome is agreed before the first replay: a capture that failed on
+    one worker raises on every worker, naming it.
 
     Launch accounting per attention kernel: ``captured_launches`` are the
     launches inside the current graph. The wrappers' counters rise while a
@@ -1269,9 +1345,10 @@ class WindowProgram:
     reads for the compile plane's warmup boundary. Every capture is
     reported to the compile plane as a compile event."""
 
-    def __init__(self, single: Callable, width: int, lbs: int,
-                 aux: tuple = ("loss",)):
+    def __init__(self, single: Callable, width: int, lbs: int, aux: tuple,
+                 prepare: Callable):
         self.single = single
+        self.prepare = prepare
         self.width = width
         # The scalar metric names, in the order of the captured output's
         # rows; the model stats are outputs of their own.
@@ -1336,9 +1413,13 @@ class WindowProgram:
         dev = perm.device
         self.last_compile_seconds = 0.0
         if dev.type != "cuda":
+            first = not self._warm
             self._warm = self._cpu = True
             at = torch.full((), int(start), dtype=torch.int64, device=dev)
-            return self._run(ts, data, perm, at)
+            ts, metrics = self._run(ts, data, perm, at)
+            if first:
+                self.prepare(ts, dev)
+            return ts, metrics
         if not self._warm:
             self._stream = torch.cuda.Stream(dev)
             self._stream.wait_stream(torch.cuda.current_stream(dev))
@@ -1348,6 +1429,7 @@ class WindowProgram:
                 ts, metrics = self._run(ts, data, perm, at)
             self._generators = drawn
             torch.cuda.current_stream(dev).wait_stream(self._stream)
+            self.prepare(ts, dev)
             self._warm = True
             return ts, metrics
         bound = tuple(t.data_ptr() for t in
@@ -1355,7 +1437,7 @@ class WindowProgram:
         if _any_worker(self.graph is None or bound != self._bound):
             self.recaptures += self.graph is not None
             before = self.capture_seconds
-            self._capture(ts, data, perm)
+            self._capture_agreed(ts, data, perm)
             self._bound = bound
             self.last_compile_seconds = self.capture_seconds - before
         self._perm.copy_(perm)
@@ -1368,6 +1450,26 @@ class WindowProgram:
         for name, buf in self._extra.items():
             metrics[name] = buf.clone()
         return ts, metrics
+
+    def _capture_agreed(self, ts: TrainState, data: Any, perm: torch.Tensor) -> None:
+        """:meth:`_capture`, its outcome agreed over the runtime's host
+        group before any worker replays: when the capture failed on any
+        worker, every worker drops its graph and raises, naming the
+        workers that failed, so no card waits in a collective of a graph
+        a peer never replays."""
+        error = None
+        try:
+            self._capture(ts, data, perm)
+        except Exception as exc:
+            error = exc
+        try:
+            _agree_outcome(None if error is None else str(error),
+                           f"capturing the {self.width}-update window as a CUDA graph")
+        except RuntimeError as agreed:
+            self.release_graph()
+            raise agreed from error
+        if error is not None:
+            raise error
 
     def _capture(self, ts: TrainState, data: Any, perm: torch.Tensor) -> None:
         dev = perm.device
@@ -1422,6 +1524,13 @@ class WindowProgram:
         self.captured_launches = {k: after[k] - before[k] for k in after}
         self.capture_counted.update(self.captured_launches)
         self.graph = graph
+        runtime.note_captured_graph(self)
+
+    def release_graph(self) -> None:
+        """Drop the captured graph (:func:`~fluxmpi_tpu_torch.runtime.shutdown`
+        calls this before the process groups its collectives ran on go);
+        the next call captures anew."""
+        self.graph, self._bound = None, ()
 
 
 def make_window_program(step: Any, *, width: int, lbs: int) -> WindowProgram:
@@ -1445,7 +1554,7 @@ def make_window_program(step: Any, *, width: int, lbs: int) -> WindowProgram:
             "foreign steps carry no fused-window metadata")
     if width < 1:
         raise ValueError(f"width must be >= 1, got {width}")
-    return WindowProgram(meta["single"], width, lbs, meta["aux"])
+    return WindowProgram(meta["single"], width, lbs, meta["aux"], meta["prepare"])
 
 
 def _gathered_rows(batch: Any, rows: Any) -> Any:

@@ -23,6 +23,7 @@ import datetime
 import os
 import signal
 import warnings
+import weakref
 from typing import Any, Sequence
 
 import torch
@@ -668,7 +669,8 @@ def shutdown() -> None:
     uninstalled and the flag cleared: left armed, the next run would inject
     faults, resize or "preempt" at its first boundary), then
     destroy the process group if :func:`init` created it (one the caller
-    brought up stays)."""
+    brought up stays), after releasing every CUDA graph captured since
+    (:func:`release_captured_graphs`)."""
     try:
         from .telemetry import shutdown as _telemetry_shutdown
 
@@ -683,6 +685,7 @@ def shutdown() -> None:
     # flush boundary.
     _resize.shutdown()
     uninstall_preemption_handlers()
+    release_captured_graphs()
     if _state.initialized and dist.is_initialized():
         if _state.owns_group:
             dist.destroy_process_group()  # every group made over it too
@@ -848,6 +851,30 @@ def uninstall_preemption_handlers() -> None:
 # The CUDA generators a step drew from while a window program watched it
 # (None: nobody watches).
 _graph_generators: list | None = None
+# The objects holding CUDA graphs whose captured collectives run on this
+# process's communicators (note_captured_graph).
+_captured_graphs: weakref.WeakSet = weakref.WeakSet()
+
+
+def note_captured_graph(owner: Any) -> None:
+    """Record that ``owner`` (an object with a ``release_graph()`` method,
+    such as a fused window program) holds a CUDA graph that captured
+    collectives: :func:`shutdown` releases it before it destroys the
+    process groups, because a communicator torn down while a live graph
+    still holds its collectives can wait for that graph forever."""
+    _captured_graphs.add(owner)
+
+
+def release_captured_graphs() -> None:
+    """Release the CUDA graph of every owner noted by
+    :func:`note_captured_graph` and still alive, once the device has run
+    everything queued (a later call of such an owner captures anew)."""
+    owners = list(_captured_graphs)
+    if owners and torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for owner in owners:
+        owner.release_graph()
+    _captured_graphs.clear()
 
 
 def note_graph_generator(generator: torch.Generator) -> None:

@@ -229,6 +229,29 @@ def _batch(gbs=16, seq=8):
             "y": rng.integers(0, LM["vocab_size"], (gbs, seq)).astype(np.int64)}
 
 
+def test_trial_that_does_not_fuse_raises_naming_its_layout(monkeypatch):
+    """Every candidate is timed on the fused path: a trial whose run did not
+    fuse (here a staging budget too small for the loader's device gather)
+    raises, naming the candidate, instead of timing it pipelined."""
+    from fluxmpi_tpu_torch.parallel import ParallelConfig
+
+    model, loss_fn = _tiny_lm()
+    plan = ParallelConfig().resolve([0])
+    tfm.init(device="cpu")
+    try:
+        monkeypatch.setenv("FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES", "1")
+        with pytest.raises(RuntimeError,
+                           match=r"the trial of layout \{.*'dp': 1.*\} ran pipelined"):
+            tat._run_trial(loss_fn, optim.adamw(1e-3), model, None, _batch(), plan,
+                           window=2, epochs=1, seed=0)
+        monkeypatch.delenv("FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES")
+        trial = tat._run_trial(loss_fn, optim.adamw(1e-3), model, None, _batch(), plan,
+                               window=2, epochs=1, seed=0)
+    finally:
+        tfm.shutdown()
+    assert trial["fused_window"] == 2 and trial["updates"] == 2
+
+
 def test_static_cost_counts_kernel_work_and_ranks_bytes():
     """The kernels' FLOPs count (a flash-attention loss costs more than
     its twin without it, as ``test_static_cost_folds_pallas_kernel_work``
@@ -548,6 +571,11 @@ def test_world_e2e_search_same_winner_on_every_rank(world4):
     for c in trialed:
         assert c["trial"]["steady_compiles"] == 0 and c["trial"]["retraces"] == 0
         assert c["trial"]["examples_per_sec"] > 0
+        # Every trial ran fused windows across the workers (width: the
+        # search's window of 2), whatever its layout.
+        assert c["trial"]["fused_window"] == 2, c
+    # The search trials a sharded layout too, on the fused path.
+    assert any(c["axes"]["fsdp"] > 1 or c["axes"]["tp"] > 1 for c in trialed)
     best = max(trialed, key=lambda c: c["trial"]["examples_per_sec"])
     assert first["record"]["winner"]["axes"] == best["axes"]
     for res in world4:

@@ -1141,7 +1141,8 @@ def test_nccl_autotune_searches_four_cards_and_trains_the_winner(tmp_path):
     GPT-2 small's widths (vocabulary 50304, f32, TF32 off,
     ``attention="flash"``, adamw, a global batch of 32 x 1024): every
     dp x fsdp x tp factorization of 4 is a candidate and scored, every
-    candidate is trialed (the budget covers them), every rank ends with the
+    candidate is trialed in fused windows (one CUDA graph per card, the
+    plan's collectives inside; the budget covers them), every rank ends with the
     same winner, the second search is answered by the bank, and the winner
     trains 8 updates through ``make_train_step(parallel="auto")`` with the
     losses of the same updates under ``ParallelConfig(dp=4)`` within 2e-5;
@@ -1188,9 +1189,13 @@ def test_nccl_autotune_searches_four_cards_and_trains_the_winner(tmp_path):
         print(f"  {c['axes']}: {c['mem_bytes_per_device']} bytes/device, flops "
               f"{c['flops']}, bytes {c['bytes_accessed']}, score {c['score']}, "
               f"{trial.get('examples_per_sec')} examples/s "
-              f"({trial.get('updates')} updates, {trial.get('seconds')} s)")
+              f"({trial.get('updates')} updates fused in windows of "
+              f"{trial.get('fused_window')}, {trial.get('captures')} captures, "
+              f"{trial.get('seconds')} s)")
         assert c["score"] is not None and c["pruned"] is None
         assert trial["examples_per_sec"] > 0 and trial["steady_compiles"] == 0
+        # Every candidate is timed fused: one CUDA graph per card per window.
+        assert trial["fused_window"] > 0 and trial["captures"] >= 1, c
     for res in ranks:
         assert res["record"]["winner"] == rec["winner"]
         assert res["bank_hit"] and res["winner_installed"]
@@ -1205,11 +1210,16 @@ def test_nccl_autotune_searches_four_cards_and_trains_the_winner(tmp_path):
 
 
 RESIZE_WORKER = textwrap.dedent(r'''
+    import faulthandler
     import json
     import math
     import os
     import sys
     import time
+
+    # A worker stuck past the world's join limit prints every thread's
+    # stack and exits, so the test shows where instead of a bare timeout.
+    faulthandler.dump_traceback_later(540, exit=True)
 
     import numpy as np
     import torch
@@ -1237,12 +1247,18 @@ RESIZE_WORKER = textwrap.dedent(r'''
                           generator=torch.Generator().manual_seed(0))
     tokens = np.random.default_rng(0).integers(0, cfg["vocab_size"], (128, 1025))
     ids = np.arange(128, dtype=np.int32)
-    consumed = []
+    # The ids each update consumed, logged on the card (a replayed window
+    # runs no Python): row `at` of `log`, then `at` advances.
+    log = torch.full((8, 16 // world), -1, dtype=torch.int32, device=dev)
+    at = torch.zeros(1, dtype=torch.int64, device=dev)
     calls = [0]
 
     def loss_fn(p, ms, batch):
         x, y, rows = batch
-        consumed.append(rows.tolist())  # the ids this update consumed
+        log.index_copy_(0, at, rows.reshape(1, -1))
+        at.add_(1)
+        # Python runs in the eager first window and at the capture: the
+        # request lands in the capture of the second window (updates 3-4).
         calls[0] += 1
         if phase == "drain" and rank == 0 and calls[0] == 3:
             resize.request_resize(2, reason="four-to-two")
@@ -1269,11 +1285,12 @@ RESIZE_WORKER = textwrap.dedent(r'''
 
         mgr.save = timed_save
         kw = dict(checkpoint=mgr, save_every=100, resume=phase == "resume")
-    state, summary = train_loop(step, state, loader, epochs=1, flush_every=2, fuse=False,
+    state, summary = train_loop(step, state, loader, epochs=1, flush_every=2, fuse="auto",
                                 **kw)
     res.update(updates=summary["updates"], resized_to=summary["resized_to"],
                resumed_from=summary["resumed_from"], loss=summary["loss"],
-               consumed=consumed)
+               fused_window=summary["fused_window"], dispatches=summary["dispatches"],
+               consumed=log[:int(at)].tolist())
     if phase != "ref":
         mgr.close()
         res.update(blocking_seconds=blocking, background_seconds=mgr.write_seconds,
@@ -1326,11 +1343,14 @@ def test_nccl_resize_four_to_two_is_sample_exact(tmp_path):
     rank 0 drains the four-card world at a flush boundary (update 4); each
     worker writes its ``shard_<rank>.pt``, about a quarter of the state's
     bytes; a two-card world under ``ParallelConfig(fsdp=2)`` resumes from
-    the manifest's specs and finishes the epoch. The ids both worlds
-    consumed are the uninterrupted four-card run's (as a multiset, and
-    batch by batch), the final loss is its within ``rtol=5e-3``, and one
-    valid record from 4 to 2 workers is banked. Prints the save's blocking
-    and background seconds and the record's phase seconds."""
+    the manifest's specs and finishes the epoch. Every world trains in
+    fused windows (``fuse="auto"``: one CUDA graph per card per window of
+    2, its fsdp gathers and gradient sums inside), the ids each update
+    consumed logged on the card. The ids both worlds consumed are the
+    uninterrupted four-card run's (as a multiset, and batch by batch), the
+    final loss is its within ``rtol=5e-3``, and one valid record from 4 to
+    2 workers is banked. Prints the save's blocking and background seconds
+    and the record's phase seconds."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
         pytest.skip("needs four NVIDIA GPUs")
     import json
@@ -1352,6 +1372,10 @@ def test_nccl_resize_four_to_two_is_sample_exact(tmp_path):
     assert all(r["updates"] == 8 and r["resized_to"] is None for r in ref)
     assert all(r["updates"] == 4 and r["resized_to"] == 2 for r in four)
     assert all(r["resumed_from"] == 4 and r["updates"] == 8 for r in two)
+    # Every world ran fused windows of 2 (CUDA graphs holding the fsdp
+    # gathers and the gradient sums), one dispatch a window.
+    for r, n in [(r, 4) for r in ref] + [(r, 2) for r in four] + [(r, 2) for r in two]:
+        assert (r["fused_window"], r["dispatches"]) == (2, n), r
     assert all(0.2 < s / total < 0.35 for s in sizes), (sizes, total)
     want = [sum((r["consumed"][u] for r in ref), []) for u in range(8)]
     got = ([sum((r["consumed"][u] for r in four), []) for u in range(4)]
@@ -2195,7 +2219,15 @@ def test_nccl_fused_windows_across_cards_match_pipelined():
     wrappers' count less captures plus replays, 12 per update), ResNet-50
     in bf16 (32 images of 224 x 224 per card, 16 updates in windows of 4;
     BatchNorm's statistics all-reduced inside the graph) and the
-    quick-start MLP in the mesh view; on two cards the MLP again. Every
+    quick-start MLP in the mesh view; then GPT-2 small (vocabulary 50304)
+    under ``ParallelConfig(fsdp=4)``, ``(tp=4)`` and ``(fsdp=2, tp=2)`` at
+    the same global batch of 32 x 1024, the fsdp gathers, the bucketed
+    gradient sums over subgroups and the tensor-parallel all-reduces in
+    each card's graph (every block and flush bit for bit with the card's
+    own ``fuse=False`` run, one digest of the state gathered whole on
+    every card, 384 launches of each kernel a card by the device
+    counters); an all-gather and an all-reduce over a subgroup captured
+    in a graph give the eager bits; on two cards the MLP again. Every
     leaf and flush bit for bit on every card, the same state on every
     card, and ``make_eval_step``'s loss one value on every card (C.26).
     Prints ms per update, host launch calls per update and capture seconds
@@ -2216,9 +2248,16 @@ def test_nccl_fused_windows_across_cards_match_pipelined():
     device = torch.device("cuda", 0)
     four, failures = smoke.multicard_fused_phase(device, models=("gpt2", "resnet50", "mlp"),
                                                  world=4)
+    plans, failures_plans = smoke.multicard_fused_phase(
+        device, models=tuple(smoke.MULTICARD_PLANS), world=4)
     two, failures_two = smoke.multicard_fused_phase(device, models=("mlp",), world=2)
     out = root / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "multicard_fused.json").write_text(json.dumps({"four": four, "two": two}))
-    assert not failures + failures_two, failures + failures_two
-    assert four["ran"] and two["ran"]
+    (out / "multicard_fused.json").write_text(json.dumps({"four": four, "plans": plans,
+                                                          "two": two}))
+    failures = failures + failures_plans + failures_two
+    assert not failures, failures
+    assert four["ran"] and plans["ran"] and two["ran"]
+    for name in smoke.MULTICARD_PLANS:
+        for m in plans[name].values():
+            assert m["bit_identical"] == m["leaves"] and m["runs"]["fused"]["fused_window"] == 8
