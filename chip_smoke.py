@@ -314,9 +314,24 @@
    subgroups and the tensor-parallel all-reduces inside each card's
    graph. Gates: every block, moment and flush bit for bit with the
    card's own ``fuse=False`` run, one digest of the state gathered whole
-   on every card, the launch accounting above; and an all-gather and an
-   all-reduce over a subgroup captured in a graph give the eager bits. It
-   prints the NCCL ms per update of one traced fused window too.
+   on every card, the launch accounting above, at most 8 host launch
+   calls a fused window; and an all-gather and an all-reduce over a
+   subgroup captured in a graph give the eager bits. It prints the NCCL ms
+   per update of one traced fused window too. Under ep and sp
+   (``MULTICARD_PLANS``, 16 updates in windows of 4, each group of
+   ``MULTICARD_PLAN_LAUNCHES`` one launch of the workers): the MoE LM at
+   Switch-Base-8 widths (bf16 by ``policy=``, f32 masters, its balance and
+   z-losses) at 32 x 1024 under ``dp=2 x ep=2`` and ``ep=4``, and at
+   4 x 8192 under ``sp=2 x ep=2``; GPT-2 small at 4 x 8192 under ``sp=4``
+   (the flash ring), ``sp=4`` with ``ulysses_attention_fn`` and ``sp=2 x
+   tp=2``, and at 16 x 1024 under ``dp=2 x sp=2`` with the dense ring's
+   dropout 0.1 from a CUDA generator (fresh masks every replay): the
+   all-to-alls, the ring's point-to-point exchanges, the router
+   probabilities' all-gather and ``sum_shared`` inside each card's graph,
+   with the same gates (the ring's card at sp index i launches each
+   kernel 12 x (i + 1) times an update); an all-to-all and a ring
+   rotation with its backward over a subgroup captured in a graph give
+   the eager bits.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -6350,12 +6365,46 @@ def decode_phase(device):
 
 
 # Multi-card fused phase: one worker per card, GPT-2 small data-parallel
-# and under the fsdp=4, tp=4 and fsdp=2 x tp=2 plans in fused windows
-# beside the pipelined run (tests/test_torch_cuda.py adds ResNet-50 and the
-# quick-start MLP through the same child).
-MULTICARD_PLANS = {"gpt2_fsdp4": dict(fsdp=4), "gpt2_tp4": dict(tp=4),
-                   "gpt2_fsdp2_tp2": dict(fsdp=2, tp=2)}
-MULTICARD_MODELS = ("gpt2",) + tuple(MULTICARD_PLANS)
+# and under plans in fused windows beside the pipelined run
+# (tests/test_torch_cuda.py adds ResNet-50 and the quick-start MLP through
+# the same child). Each plan case: its ParallelConfig sizes (``plan``),
+# the model (``gpt2``: GPT-2 small bf16; ``moe``: the MoE LM at
+# Switch-Base-8 widths, bf16 by policy=, f32 masters), the global batch
+# (``rows`` x ``seq``), the attention (``flash``, its ring under sp;
+# ``ulysses``: ulysses_attention_fn through the flash kernel; ``naive``:
+# the dense attend, its ring under sp) with ``dropout`` from a CUDA
+# generator, and the updates in windows of ``flush_every``.
+_PLAN_CASE = dict(model="gpt2", rows=32, seq=1024, attention="flash", dropout=0.0,
+                  updates=32, flush_every=8)
+MULTICARD_PLANS = {
+    # dp x fsdp x tp (slice 19)
+    "gpt2_fsdp4": dict(_PLAN_CASE, plan=dict(fsdp=4)),
+    "gpt2_tp4": dict(_PLAN_CASE, plan=dict(tp=4)),
+    "gpt2_fsdp2_tp2": dict(_PLAN_CASE, plan=dict(fsdp=2, tp=2)),
+    # ep and sp (slice 20): the MoE layers' all-to-alls, the ring's
+    # point-to-point exchanges and Ulysses' all-to-alls in the graph.
+    "moe_dp2_ep2": dict(_PLAN_CASE, model="moe", plan=dict(dp=2, ep=2), updates=16,
+                        flush_every=4),
+    "moe_ep4": dict(_PLAN_CASE, model="moe", plan=dict(ep=4), updates=16, flush_every=4),
+    "gpt2_sp4": dict(_PLAN_CASE, plan=dict(sp=4), rows=4, seq=8192, updates=16,
+                     flush_every=4),
+    "gpt2_sp4_ulysses": dict(_PLAN_CASE, plan=dict(sp=4), rows=4, seq=8192,
+                             attention="ulysses", updates=16, flush_every=4),
+    "gpt2_sp2_tp2": dict(_PLAN_CASE, plan=dict(sp=2, tp=2), rows=4, seq=8192, updates=16,
+                         flush_every=4),
+    "moe_sp2_ep2": dict(_PLAN_CASE, model="moe", plan=dict(sp=2, ep=2), rows=4, seq=8192,
+                        updates=16, flush_every=4),
+    # The dense ring's dropout under sp: every replay must draw fresh masks.
+    "gpt2_dp2_sp2_dropout": dict(_PLAN_CASE, plan=dict(dp=2, sp=2), rows=16,
+                                 attention="naive", dropout=0.1, updates=16, flush_every=4),
+}
+# The plan cases of each launch of tests/test_torch_cuda.py's four-card
+# test (each launch under its own MULTICARD_TIMEOUT).
+MULTICARD_PLAN_LAUNCHES = (("gpt2_fsdp4", "gpt2_tp4", "gpt2_fsdp2_tp2"),
+                           ("gpt2_sp4", "gpt2_sp4_ulysses", "gpt2_sp2_tp2",
+                            "gpt2_dp2_sp2_dropout"),
+                           ("moe_dp2_ep2", "moe_ep4", "moe_sp2_ep2"))
+MULTICARD_MODELS = ("gpt2",)
 MULTICARD_TIMEOUT = 900
 # GPT-2's padded vocabulary under a plan: the tp rules cut the vocabulary
 # over tp, which 50257 does not divide.
@@ -6369,7 +6418,9 @@ def _nccl_capture_probe(dev, reps: int = 5) -> dict:
     median ms of ``reps`` eager calls and of ``reps`` replays (CUDA
     events on the calling stream); then the same over a subgroup of half
     the world (the fsdp or tp group of a 2 x 2 plan): an all-gather and an
-    all-reduce of 16 MiB, eager against captured
+    all-reduce of 16 MiB, an all-to-all of 16 MiB (the MoE layers' and
+    Ulysses' exchange) and one ``Exchanges`` rotation with its reversed
+    backward (the ring's tick), eager against captured
     (:func:`_nccl_subgroup_probe`)."""
     import numpy as np
     import torch
@@ -6415,10 +6466,18 @@ def _nccl_subgroup_probe(dev, ms_of, numel: int = 1 << 22) -> dict:
     """Over the subgroup of this worker's half of the world (ranks
     ``[0, 1]`` and ``[2, 3]`` of four, made by every worker in one order):
     an all-gather and a sum all-reduce of ``numel`` f32, eager and captured
-    in one CUDA graph (then replayed), whether the two give the same bits,
-    and the median ms of the eager calls and of the replays."""
+    in one CUDA graph (then replayed); an all-to-all of ``numel`` f32 in a
+    graph of its own; and one rotation of ``numel`` f32 along the half as
+    the ring's ``Exchanges`` sends it (one ``batch_isend_irecv``), with the
+    backward that sends a cotangent along the reversed rotation, in a
+    graph of its own. Per collective whether eager and captured give the
+    same bits, and the median ms of the eager calls and of the replays."""
+    import numpy as np
     import torch
     import torch.distributed as dist
+
+    from fluxmpi_tpu_torch._collective_ops import Exchanges, MeshAxis
+    from fluxmpi_tpu_torch.parallel.sharding import Mesh
 
     world, rank = dist.get_world_size(), dist.get_rank()
     half = world // 2
@@ -6453,6 +6512,48 @@ def _nccl_subgroup_probe(dev, ms_of, numel: int = 1 << 22) -> dict:
     for v in out.values():
         v["graph_ms"] = replay_ms  # one graph holds both collectives
     del graph, buf, cap_parts, parts
+
+    def captured(fn):
+        """``fn()`` captured in a CUDA graph and replayed once: (its
+        outputs, the graph)."""
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=stream, capture_error_mode="thread_local"):
+            result = fn()
+        g.replay()
+        torch.cuda.synchronize(dev)
+        return result, g
+
+    def exchange():
+        got = torch.empty_like(src)
+        dist.all_to_all_single(got, src, group=group)
+        return got
+
+    eager = exchange()
+    got, graph = captured(exchange)
+    out[f"subgroup_all_to_all_{numel}"] = dict(
+        equal=bool(torch.equal(got, eager)), eager_ms=ms_of(exchange),
+        graph_ms=ms_of(graph.replay))
+    del graph, got, eager
+    # The ring's tick: the half as one axis of a (2, world / 2) mesh, each
+    # member sending to the next; the backward sends the cotangent back.
+    axis = MeshAxis(Mesh(np.arange(world).reshape(2, half), ("pair", "ring")), "ring")
+    rotation = [(j, (j + 1) % half) for j in range(half)]
+    x = src.clone().requires_grad_()
+    cot = torch.randn(numel, device=dev, generator=gen)
+
+    def rotate():
+        ex = Exchanges(axis, (x,))
+        (y,) = ex((x,), [rotation])
+        y = ex.attach(y)
+        (dx,) = torch.autograd.grad(y, x, cot)
+        return y.detach(), dx
+
+    eager = rotate()
+    got, graph = captured(rotate)
+    out[f"ring_rotation_{numel}"] = dict(
+        equal=bool(torch.equal(got[0], eager[0]) and torch.equal(got[1], eager[1])),
+        eager_ms=ms_of(rotate), graph_ms=ms_of(graph.replay))
+    del graph, got, eager, x
     return out
 
 
@@ -6513,14 +6614,16 @@ def _gathered_digest(state) -> str:
     return h.hexdigest()
 
 
-def _multicard_gpt2(dev, rank: int, world: int, updates: int = 32,
-                    flush_every: int = 8, plan: dict | None = None) -> dict:
-    """The fused phase's bf16 GPT-2-small run over the world, 8 x 1024
-    per card's share of a global batch of 8 x world sequences:
-    data-parallel (each card's shard of 256 sequences), or under ``plan``
-    (``ParallelConfig`` sizes; the vocabulary padded to 50304; the loader's
-    mesh view, tp peers reading the same rows; the state placed by the
-    plan): ``fuse=False`` then ``fuse="auto"``, each path's main run
+def _multicard_lm(dev, rank: int, world: int, case: dict | None = None) -> dict:
+    """The fused phase's bf16 GPT-2-small run over the world, fused beside
+    pipelined. ``case`` None: data-parallel, 8 x 1024 per card's share of
+    a global batch of 8 x world sequences (each card's shard of 256 x world
+    sequences), 32 updates in windows of 8. Else a :data:`MULTICARD_PLANS`
+    case: its model (GPT-2's vocabulary padded to 50304) under its
+    ``ParallelConfig`` (the loader's mesh view, workers sharing a data block
+    reading the same rows; the state placed by the plan; the experts over
+    ``ep`` by ``expert_parallel_rules``), its global batch, attention and
+    dropout. ``fuse=False`` then ``fuse="auto"``, each path's main run
     counted by the kernels' device counters, a second run timed, one
     window's host launch calls counted and one traced."""
     import numpy as np
@@ -6528,42 +6631,78 @@ def _multicard_gpt2(dev, rank: int, world: int, updates: int = 32,
 
     import fluxmpi_tpu_torch as fm
     from fluxmpi_tpu_torch import optim
-    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.models import (MoETransformerLM, TransformerLM,
+                                          collect_moe_losses, expert_parallel_rules)
     from fluxmpi_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
     from fluxmpi_tpu_torch.parallel import (ParallelConfig, TrainState, make_train_step,
-                                            train_loop)
+                                            train_loop, ulysses_attention_fn)
+    from fluxmpi_tpu_torch.utils import get_policy
 
     kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
-    cfg = dict(GPT2_SMALL, vocab_size=GPT2_PADDED_VOCAB if plan else GPT2_SMALL["vocab_size"])
-    corpus = lm_corpus(cfg["vocab_size"], n=256 * world, seq=cfg["max_len"])
+    case = dict(_PLAN_CASE, plan=None, rows=8 * world) if case is None else case
+    plan, moe = case["plan"], case["model"] == "moe"
+    updates, flush_every = case["updates"], case["flush_every"]
+    if moe:
+        cfg = dict(SWITCH_BASE_8, max_len=case["seq"])
+    else:
+        cfg = dict(GPT2_SMALL, max_len=case["seq"],
+                   vocab_size=GPT2_PADDED_VOCAB if plan else GPT2_SMALL["vocab_size"])
+    # Epochs of whole windows: 256 x world sequences at 1024 tokens, 4
+    # global batches at 8192.
+    n_seqs = 256 * world if case["seq"] <= 1024 else case["rows"] * 4
+    corpus = lm_corpus(cfg["vocab_size"], n=n_seqs, seq=cfg["max_len"])
+    resolved = None
+    if plan is not None:
+        kw = dict(plan, rules=expert_parallel_rules()) if "ep" in plan else dict(plan)
+        resolved = ParallelConfig(**kw).resolve()
 
     def build():
-        model = TransformerLM(**cfg, attention="flash", dropout=0.0,
-                              dtype=torch.bfloat16, device=dev,
-                              generator=torch.Generator().manual_seed(0))
+        gen = torch.Generator().manual_seed(0)
+        if moe:
+            model = MoETransformerLM(**cfg, attention="flash", dtype=torch.bfloat16,
+                                     device=dev, generator=gen,
+                                     mesh=resolved.mesh if "ep" in plan else None)
+        else:
+            model = TransformerLM(
+                **cfg, attention="flash" if case["attention"] == "flash" else "naive",
+                attention_fn=(ulysses_attention_fn(causal=True, use_flash=True)
+                              if case["attention"] == "ulysses" else None),
+                dropout=case["dropout"], dtype=torch.bfloat16, device=dev, generator=gen)
         fm.synchronize(model)
         opt = optim.adamw(3e-4)
         data = fm.ArrayDataset((corpus[:, :-1], corpus[:, 1:]))
         if plan is None:
             loader = fm.DistributedDataLoader(fm.DistributedDataContainer(data),
-                                              global_batch_size=8 * world, shuffle=True)
+                                              global_batch_size=case["rows"], shuffle=True)
 
             def loss_fn(params, model_state, batch):
                 x, y = batch
                 return model(x, targets=y).mean(), model_state
 
             return model, loader, make_train_step(loss_fn, opt), TrainState.create(model, opt)
-        resolved = ParallelConfig(**plan).resolve()
         state, _ = resolved.shard_state(TrainState.create(model, opt))
-        loader = fm.DistributedDataLoader(data, global_batch_size=8 * world, shuffle=True,
+        loader = fm.DistributedDataLoader(data, global_batch_size=case["rows"], shuffle=True,
                                           mesh=resolved.mesh, axis_name=resolved.data_axes)
+        # The dropout masks' generator, on the card: a captured window
+        # registers it, so every replay draws afresh.
+        drop = torch.Generator(device=dev).manual_seed(7) if case["dropout"] else None
 
         def loss_fn(params, model_state, batch):
             x, y = batch
-            out = torch.func.functional_call(model, params, (x,), {"targets": y})
-            return out.mean(), model_state
+            kw = {"targets": y}
+            if drop is not None:
+                kw["dropout_rng"] = drop
+            if not moe:
+                return torch.func.functional_call(model, params, (x,), kw).mean(), model_state
+            # Switch's balance loss (0.01) and ST-MoE's router z-loss (0.001).
+            sown = {}
+            ce = torch.func.functional_call(model, params, (x,), dict(kw, losses=sown))
+            aux, z = collect_moe_losses(sown)
+            return ce.mean() + 0.01 * aux + 0.001 * z, model_state
 
-        return model, loader, make_train_step(loss_fn, opt, parallel=resolved), state
+        step = make_train_step(loss_fn, opt, parallel=resolved,
+                               **(dict(policy=get_policy("bf16")) if moe else {}))
+        return model, loader, step, state
 
     def leaves(state):
         out = {f"params/{k}": v for k, v in state.params.items()}
@@ -6572,6 +6711,14 @@ def _multicard_gpt2(dev, rank: int, world: int, updates: int = 32,
         out["count"] = state.opt_state["count"]
         return out
 
+    # Attends a layer per update on this card: the flash ring's card at sp
+    # index i attends i + 1 blocks (causal); the dense ring none through
+    # the kernels.
+    attends = 1
+    if case["attention"] == "naive":
+        attends = 0
+    elif plan is not None and plan.get("sp", 1) > 1 and case["attention"] == "flash":
+        attends = resolved.mesh.coords(rank)["sp"] + 1
     runs, bits = {}, {}
     for fuse in (False, "auto"):
         model, loader, step, state = build()
@@ -6614,7 +6761,8 @@ def _multicard_gpt2(dev, rank: int, world: int, updates: int = 32,
             launches=launches, counted_launches=counted,
             accounted_launches={n: counted[n] + extra[n] for n in counted},
             median_update_ms=float(np.median(per_update)), wall_seconds=wall,
-            tokens_per_sec_per_card=timed["updates"] * 8 * cfg["max_len"] / wall,
+            tokens_per_sec_per_card=timed["updates"] * case["rows"] * case["seq"]
+            / world / wall,
             host_launches_per_update=calls / hsum["updates"],
             device_kernels_per_update=nk / hsum["updates"],
             capture_seconds=sum(g["capture_seconds"] for g in graphs),
@@ -6627,7 +6775,8 @@ def _multicard_gpt2(dev, rank: int, world: int, updates: int = 32,
     same = [k for k in want if torch.equal(got[k], want[k])]
     out = dict(runs=runs, leaves=len(want), bit_identical=len(same),
                differing=[k for k in want if k not in same][:10],
-               need=cfg["num_layers"] * updates, flush_every=flush_every, updates=updates)
+               need=cfg["num_layers"] * updates * attends, flush_every=flush_every,
+               updates=updates)
     if plan is None:
         out.update(digest=_tree_digest(got), eval=evaluation)
     else:
@@ -6762,10 +6911,10 @@ def multicard_child(outdir: str, models: str) -> int:
                nccl=".".join(map(str, torch.cuda.nccl.version())),
                nccl_env={k: v for k, v in os.environ.items() if k.startswith("NCCL_")},
                capture_probe=_nccl_capture_probe(dev))
-    runners = {"gpt2": _multicard_gpt2, "resnet50": _multicard_resnet,
+    runners = {"gpt2": _multicard_lm, "resnet50": _multicard_resnet,
                "mlp": _multicard_mlp}
-    for name, plan in MULTICARD_PLANS.items():
-        runners[name] = functools.partial(_multicard_gpt2, plan=plan)
+    for name, case in MULTICARD_PLANS.items():
+        runners[name] = functools.partial(_multicard_lm, case=case)
     for name in models.split(","):
         t0 = time.perf_counter()
         res[name] = runners[name](dev, rank, world)
@@ -6806,6 +6955,12 @@ def _multicard_gates(name: str, ranks: list, failures: list) -> None:
                     failures.append(f"{tag}: the wrappers' counts with the graphs' "
                                     f"{run['accounted_launches']} differ from the "
                                     f"device's {run['launches']}")
+        # One replay a window: a few host launch calls (the start offset, the
+        # replay, the metrics' copies), against thousands an update pipelined.
+        calls = fused.get("host_launches_per_update")
+        if "plan" in m and calls is not None and calls * m["flush_every"] > 8:
+            failures.append(f"{tag}: {calls} host launch calls per fused update, more "
+                            f"than 8 a window of {m['flush_every']}")
     if len({r[name]["digest"] for r in ranks}) != 1:
         failures.append(f"multicard_fused_phase [{name}]: the cards' fused states differ")
     if "eval" in ranks[0][name] and len({r[name]["eval"]["value"] for r in ranks}) != 1:
@@ -6849,13 +7004,16 @@ def multicard_fused_phase(device, models=MULTICARD_MODELS, world: int | None = N
              "nccl": ranks[0]["nccl"], "nccl_env": ranks[0]["nccl_env"],
              "capture_probe": [r["capture_probe"] for r in ranks]}
     print(f"multicard_fused_phase: {world} x {ranks[0]['card']}, NCCL {ranks[0]['nccl']} "
-          f"(env {ranks[0]['nccl_env']}), {seconds:.1f}s; one all-reduce eager and "
-          f"captured in a graph, by buffer size (bits equal; median ms eager, replayed): "
+          f"(env {ranks[0]['nccl_env']}), {seconds:.1f}s; collectives eager and "
+          f"captured in a graph (an all-reduce by buffer size; over a 2-card "
+          f"subgroup an all-gather, an all-reduce, an all-to-all and a ring "
+          f"rotation with its backward) (bits equal; median ms eager, replayed): "
           f"{stats['capture_probe']}", flush=True)
     for r in ranks:
-        if not all(v["equal"] for v in r["capture_probe"].values()):
-            failures.append(f"multicard_fused_phase: on card {r['rank']} an all-reduce "
-                            f"captured in a graph differs from the eager call")
+        differ = [k for k, v in r["capture_probe"].items() if not v["equal"]]
+        if differ:
+            failures.append(f"multicard_fused_phase: on card {r['rank']} {differ} "
+                            f"captured in a graph differ from the eager call")
     for name in models:
         _multicard_gates(name, ranks, failures)
         stats[name] = {r["rank"]: r[name] for r in ranks}
@@ -6870,7 +7028,8 @@ def multicard_fused_phase(device, models=MULTICARD_MODELS, world: int | None = N
                   f"{run.get('host_launches_per_update', 'n/a')}; capture seconds "
                   f"{run.get('capture_seconds', 'n/a')}; graph replays "
                   f"{run['replays']}; launches by the device counters "
-                  f"{run.get('launches', 'n/a')} (wrappers with the graphs' "
+                  f"{run.get('launches', 'n/a')} (need {m.get('need', 'n/a')}; wrappers "
+                  f"with the graphs' "
                   f"{run.get('accounted_launches', 'n/a')})"
                   + (f"; traced window: device busy {run['profile']['device_busy_ms']:.3f} "
                      f"of {run['profile']['wall_ms']:.3f} ms wall (idle share "
@@ -6895,6 +7054,25 @@ def multicard_fused_phase(device, models=MULTICARD_MODELS, world: int | None = N
                   f"{m['eval']['global_ms']:.3f} ms against {m['eval']['local_ms']:.3f} ms "
                   f"for one card's {m['eval']['rows']} rows", flush=True)
     return stats, failures
+
+
+def multicard_fused_launches(device, launches=((MULTICARD_MODELS,) + MULTICARD_PLAN_LAUNCHES),
+                             world: int | None = None):
+    """:func:`multicard_fused_phase` once per group of ``launches`` (each
+    launch of the workers under its own ``MULTICARD_TIMEOUT``): each
+    launch's stats under ``"launches"`` and every model's results at the
+    top, and the failures of all. On one card it says once that it did
+    not run."""
+    merged: dict = {"ran": True, "launches": []}
+    failures: list = []
+    for models in launches:
+        stats, failed = multicard_fused_phase(device, models=models, world=world)
+        failures += failed
+        if not stats["ran"]:
+            return stats, failures
+        merged["launches"].append({k: v for k, v in stats.items() if k not in models})
+        merged.update({name: stats[name] for name in models if name in stats})
+    return merged, failures
 
 
 def main() -> int:
@@ -7023,7 +7201,7 @@ def run_phases(device):
     dec, dec_failures = decode_phase(device)
     failures += dec_failures
     settle("multicard_fused_phase")
-    multi, multi_failures = multicard_fused_phase(device)
+    multi, multi_failures = multicard_fused_launches(device)
     failures += multi_failures
     par_paths = {**par.get("launches_by_path", {}),
                  **tune_auto.get("launches_by_path", {}),

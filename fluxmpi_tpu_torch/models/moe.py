@@ -75,7 +75,7 @@ from torch import nn
 
 from .. import _batch_parallel
 from .. import _sequence_parallel as _sp
-from .. import config
+from .. import config, runtime
 from .._collective_ops import sum_shared
 from ..runtime import resolve_device
 from ._layers import _Init, lecun_normal
@@ -337,8 +337,7 @@ class MoEMLP(nn.Module):
                 raise ValueError("router_noise > 0 in training needs rng (a "
                                  "torch.Generator), as flax needs the "
                                  "'router' rng")
-            logits = logits + self.router_noise * torch.randn(
-                logits.shape, generator=rng, device=logits.device)
+            logits = logits + self.router_noise * _router_noise(logits, rng)
         probs = torch.softmax(logits, dim=-1)  # [G, S, E]
         if self.routing not in ("tokens", "experts"):
             raise ValueError(
@@ -451,8 +450,7 @@ class MoEMLP(nn.Module):
                 raise ValueError("router_noise > 0 in training needs rng (a "
                                  "torch.Generator), as flax needs the "
                                  "'router' rng")
-            logits = logits + self.router_noise * torch.randn(
-                logits.shape, generator=rng, device=logits.device)
+            logits = logits + self.router_noise * _router_noise(logits, rng)
         probs = torch.softmax(logits, dim=-1)  # [n_local, E]
         if self.routing not in ("tokens", "experts"):
             raise ValueError(
@@ -554,6 +552,15 @@ class MoEMLP(nn.Module):
         y = torch.einsum("gecs,gec,gecd->gsd", onehot.to(self.dtype),
                          gates.to(self.dtype), out)
         return y.reshape(*x.shape[:-1], x.shape[-1]).to(x.dtype)
+
+
+def _router_noise(logits: torch.Tensor, rng: torch.Generator) -> torch.Tensor:
+    """Standard normal noise of the logits' shape from ``rng``, which is
+    noted for CUDA-graph windows
+    (:func:`~fluxmpi_tpu_torch.runtime.note_graph_generator`), so every
+    replay of a captured window draws afresh."""
+    runtime.note_graph_generator(rng)
+    return torch.randn(logits.shape, generator=rng, device=logits.device)
 
 
 def _every_position(probs: torch.Tensor) -> torch.Tensor:

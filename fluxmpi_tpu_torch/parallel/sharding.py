@@ -23,6 +23,7 @@ axes) and its ``torch.distributed`` ``DeviceMesh`` come up on first use.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -106,6 +107,9 @@ class Mesh:
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, (int(s) for s in devs.shape)))
         self._groups: dict[tuple, Any] = {}
+        # The subgroups a window program warmed (made, and ran one
+        # collective over): the only ones a CUDA-graph capture may use.
+        self._warm: set[tuple] = set()
         self._device_mesh = None
 
     @property
@@ -172,17 +176,21 @@ class Mesh:
         coordinates on every axis but ``axes``; ``None`` when that is
         this worker alone, ``torch.distributed.group.WORLD`` when it is
         the world. Every worker must ask for the same axes in the same
-        order: group creation is collective. A new subgroup asked for while
-        a CUDA graph is being captured raises, naming the axes."""
+        order: group creation is collective. A subgroup (neither one
+        worker nor the world) asked for inside :func:`noting_groups` is
+        noted; one asked for while a CUDA graph is being captured raises,
+        naming the axes, unless :meth:`warm` ran over it before."""
         import torch.distributed as dist
 
         axes = tuple(a for a in self.axis_names if a in set(axes))
-        key = axes
-        if key in self._groups:
-            return self._groups[key]
         span = math.prod(self.shape[a] for a in axes)
         if 1 < span < self.size:
-            _refuse_under_capture(axes)
+            if axes not in self._warm:
+                _refuse_under_capture(axes, made=axes in self._groups)
+            if _noted is not None:
+                _noted.setdefault((id(self), axes), (self, axes))
+        if axes in self._groups:
+            return self._groups[axes]
         if span == 1:
             group = None
         elif span == self.size:
@@ -192,8 +200,20 @@ class Mesh:
             group = self.device_mesh.get_group(axes[0])
         else:
             group = self._new_groups(axes)
-        self._groups[key] = group
+        self._groups[axes] = group
         return group
+
+    def warm(self, axes: Sequence[str], device: Any) -> None:
+        """Make the group over ``axes`` (:meth:`group`) and run one
+        one-element all-reduce over it on ``device``, so that its NCCL
+        communicator is up; a CUDA graph captured afterwards may then use
+        the group. Collective over the group's workers."""
+        import torch.distributed as dist
+
+        group = self.group(axes)
+        if group is not None:
+            dist.all_reduce(torch.zeros(1, device=device), group=group)
+        self._warm.add(tuple(a for a in self.axis_names if a in set(axes)))
 
     def _new_groups(self, axes: tuple, **kwargs: Any) -> Any:
         """One ``dist.new_group`` (``kwargs`` its options) per slice of
@@ -240,18 +260,51 @@ def _capturing() -> bool:
     return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
-def _refuse_under_capture(axes: tuple) -> None:
-    """Raise when a process group over ``axes`` is first asked for while
-    this thread's CUDA stream is capturing a graph: making a group is a
-    collective of the whole world (and NCCL makes its communicator at the
-    group's first collective), neither of which a capture can hold, and a
-    worker that went on would wait for peers that never come."""
-    if _capturing():
+# (id(mesh), axes) -> (mesh, axes) of every subgroup Mesh.group handed out
+# inside noting_groups(), in the order first asked for; None outside. One
+# record for the process: autograd's device thread asks for the backward's
+# groups.
+_noted: dict | None = None
+
+
+@contextlib.contextmanager
+def noting_groups():
+    """Note every subgroup :meth:`Mesh.group` hands out inside the block
+    (on any thread); yields the ``[(mesh, axes)]`` list, filled in the
+    order the groups were first asked for, when the block ends. The same
+    code run on every worker asks for its groups in one order, so
+    :meth:`Mesh.warm` over the list is collective in one order too."""
+    global _noted
+    outer, _noted = _noted, {}
+    out: list = []
+    try:
+        yield out
+    finally:
+        out.extend(_noted.values())
+        _noted = outer
+
+
+def _refuse_under_capture(axes: tuple, made: bool = False) -> None:
+    """Raise when a process group over ``axes`` is asked for while this
+    thread's CUDA stream is capturing a graph and no window program warmed
+    it: making a group is a collective of the whole world, and NCCL makes
+    its communicator at the group's first collective, neither of which a
+    capture can hold, and a worker that went on would wait for peers that
+    never come."""
+    if not _capturing():
+        return
+    if made:
         raise RuntimeError(
-            f"the process group over mesh axes {axes} was first requested while "
-            f"a CUDA graph was being captured; every group a fused window uses "
-            f"must be made, and its communicator used once, in the window "
-            f"program's eager first window")
+            f"the process group over mesh axes {axes} was asked for while a CUDA "
+            f"graph was being captured, but no window program warmed it (made it "
+            f"and ran one collective over it) before the capture; every group a "
+            f"fused window uses must be warmed after the program's eager first "
+            f"window")
+    raise RuntimeError(
+        f"the process group over mesh axes {axes} was first requested while "
+        f"a CUDA graph was being captured; every group a fused window uses "
+        f"must be made, and its communicator used once, in the window "
+        f"program's eager first window")
 
 
 class NamedSharding:

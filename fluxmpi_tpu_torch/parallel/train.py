@@ -110,6 +110,7 @@ from .. import _batch_parallel, _sequence_parallel, _tensor_parallel, config, ru
 from ..data import _gather_batch
 from ..optim import GradientTransformation, apply_updates
 from ..optimizer import allreduce_gradients
+from . import sharding as _sharding
 
 __all__ = ["TrainState", "make_eval_step", "make_train_step",
            "make_window_program", "replicate", "shard_batch"]
@@ -1166,30 +1167,30 @@ def make_train_step(
         # worker count the noise scale divides by.
         core.__fluxmpi_model_stats_meta__ = {
             "depth": stats_depth, "workers": stats_workers, "plans": plans}
-    def prepare(ts: TrainState, device: Any) -> None:
+    def prepare(ts: TrainState, device: Any, noted: list) -> None:
         """Every process group an update of this step runs a collective
-        over, made and used once (a one-element all-reduce each, in one
+        over, made and warmed once (a one-element all-reduce each, in one
         order on every worker), so that a CUDA graph captured next makes
-        no group and finds every NCCL communicator up. Called by the
-        window program after its eager first window, by which the first
-        update has settled the layout's tensor-parallel blocks."""
+        no group and finds every NCCL communicator up: the world, the
+        subgroups ``noted`` (``[(mesh, axes)]``: those the eager first
+        window asked :meth:`~fluxmpi_tpu_torch.parallel.sharding.Mesh.group`
+        for, the model's own among them: the MoE layers' ep exchanges and sp
+        gathers, Ulysses' all-to-alls, the batch axes'; the ring's exchanges
+        run point to point over the world's communicator), and those of the
+        settled layout,
+        whose tensor-parallel blocks the first update settles, so that a
+        1-update first window has not yet run its later updates'
+        gathers and reductions. Called by the window program after its
+        eager first window."""
         import torch.distributed as dist
 
         if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() < 2:
             return
-        groups = [dist.group.WORLD]
+        dist.all_reduce(torch.zeros(1, device=device))
         if layout is not None and layout.world > 1:
-            groups += [layout.mesh.group(a) for a in layout.used_axes(list(ts.params))]
-        rows = batch_axes()
-        if rows is not None:
-            groups.append(rows.group)
-        if axis_group is not None:
-            groups.append(axis_group[0])
-        seen: list = []
-        for g in groups:
-            if g is not None and not any(g is h for h in seen):
-                seen.append(g)
-                dist.all_reduce(torch.zeros(1, device=device), group=g)
+            noted = noted + [(layout.mesh, a) for a in layout.used_axes(list(ts.params))]
+        for mesh, axes in {(id(m), a): (m, a) for m, a in noted}.values():
+            mesh.warm(axes, device)
 
     # What make_window_program needs to fuse this step's math into a flush
     # window: the single-update body (the window sequences updates itself,
@@ -1202,13 +1203,15 @@ def make_train_step(
                   'step; a style="shard_map" step runs pipelined there, as the '
                   'JAX package declines it')
     elif layout is not None:
-        fusing = {name, layout.tp_axis,
-                  (plan.axis_name("fsdp") if plan is not None else None)
-                  or config.FSDP_AXIS_NAME}
+        fusing = {name, layout.tp_axis} | {
+            (plan.axis_name(kind) if plan is not None else None) or default
+            for kind, default in (("fsdp", config.FSDP_AXIS_NAME),
+                                  ("ep", config.EP_AXIS_NAME),
+                                  ("sp", config.SP_AXIS_NAME))}
         above = [f"{a}={n}" for a, n in layout.mesh.shape.items()
                  if n > 1 and a not in fusing]
         if above:
-            across = ("fused windows across workers run dp, fsdp and tp only: "
+            across = ("fused windows across workers run dp, fsdp, tp, ep and sp only: "
                       + ", ".join(above))
     step.__fluxmpi_window_meta__ = {"single": single, "aux": aux_names,
                                     "prepare": prepare, "across_workers": across}
@@ -1320,11 +1323,13 @@ class WindowProgram:
     nothing falls back to eager windows.
 
     In a world of several workers (one per card) the window holds the
-    step's collectives (NCCL's, on the device; under a dp x fsdp x tp plan
-    over the world and its subgroups): the eager first window runs them for
-    real, and then ``prepare`` (the step's) makes every process group the
-    settled layout uses and runs one collective over each, so their
-    communicators exist before the capture records them, and every card
+    step's collectives (NCCL's, on the device; under a plan over the world
+    and its subgroups, the model's own exchanges among them): the eager
+    first window runs them for real, noting every subgroup it asks a mesh
+    for, and then ``prepare`` (the step's) warms those and every group the
+    settled layout uses with one collective each, so their communicators
+    exist before the capture records them (a capture that asks for a
+    subgroup nobody warmed raises), and every card
     replays its graph in lockstep with its peers'. A recapture is agreed
     over the runtime's host group before each replay (one exchange per
     window): when any worker must capture, every worker does, so no card
@@ -1416,20 +1421,22 @@ class WindowProgram:
             first = not self._warm
             self._warm = self._cpu = True
             at = torch.full((), int(start), dtype=torch.int64, device=dev)
-            ts, metrics = self._run(ts, data, perm, at)
+            with _sharding.noting_groups() as noted:
+                ts, metrics = self._run(ts, data, perm, at)
             if first:
-                self.prepare(ts, dev)
+                self.prepare(ts, dev, noted)
             return ts, metrics
         if not self._warm:
             self._stream = torch.cuda.Stream(dev)
             self._stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(self._stream), \
-                    runtime.watch_graph_generators() as drawn:
+                    runtime.watch_graph_generators() as drawn, \
+                    _sharding.noting_groups() as noted:
                 at = torch.full((), int(start), dtype=torch.int64, device=dev)
                 ts, metrics = self._run(ts, data, perm, at)
             self._generators = drawn
             torch.cuda.current_stream(dev).wait_stream(self._stream)
-            self.prepare(ts, dev)
+            self.prepare(ts, dev, noted)
             self._warm = True
             return ts, metrics
         bound = tuple(t.data_ptr() for t in

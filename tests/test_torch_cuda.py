@@ -2226,8 +2226,17 @@ def test_nccl_fused_windows_across_cards_match_pipelined():
     each card's graph (every block and flush bit for bit with the card's
     own ``fuse=False`` run, one digest of the state gathered whole on
     every card, 384 launches of each kernel a card by the device
-    counters); an all-gather and an all-reduce over a subgroup captured
-    in a graph give the eager bits; on two cards the MLP again. Every
+    counters); then, each group of ``MULTICARD_PLAN_LAUNCHES`` in a launch
+    of its own, the ep and sp cases of ``MULTICARD_PLANS`` (the MoE LM at
+    Switch-Base-8 widths under ``dp=2 x ep=2`` and ``ep=4`` at 32 x 1024
+    and under ``sp=2 x ep=2`` at 4 x 8192; GPT-2 small at 4 x 8192 under
+    the flash ring over ``sp=4``, Ulysses over ``sp=4`` and ``sp=2 x
+    tp=2``, and under ``dp=2 x sp=2`` with the dense ring's dropout; 16
+    updates in windows of 4), the all-to-alls and the ring's exchanges in
+    each card's graph, with the same gates and at most 8 host launch calls
+    a fused window; an all-gather, an all-reduce, an all-to-all and a ring
+    rotation with its backward over a subgroup captured in a graph give
+    the eager bits; on two cards the MLP again. Every
     leaf and flush bit for bit on every card, the same state on every
     card, and ``make_eval_step``'s loss one value on every card (C.26).
     Prints ms per update, host launch calls per update and capture seconds
@@ -2248,8 +2257,8 @@ def test_nccl_fused_windows_across_cards_match_pipelined():
     device = torch.device("cuda", 0)
     four, failures = smoke.multicard_fused_phase(device, models=("gpt2", "resnet50", "mlp"),
                                                  world=4)
-    plans, failures_plans = smoke.multicard_fused_phase(
-        device, models=tuple(smoke.MULTICARD_PLANS), world=4)
+    plans, failures_plans = smoke.multicard_fused_launches(
+        device, smoke.MULTICARD_PLAN_LAUNCHES, world=4)
     two, failures_two = smoke.multicard_fused_phase(device, models=("mlp",), world=2)
     out = root / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -2258,6 +2267,7 @@ def test_nccl_fused_windows_across_cards_match_pipelined():
     failures = failures + failures_plans + failures_two
     assert not failures, failures
     assert four["ran"] and plans["ran"] and two["ran"]
-    for name in smoke.MULTICARD_PLANS:
+    for name, case in smoke.MULTICARD_PLANS.items():
         for m in plans[name].values():
-            assert m["bit_identical"] == m["leaves"] and m["runs"]["fused"]["fused_window"] == 8
+            assert m["bit_identical"] == m["leaves"]
+            assert m["runs"]["fused"]["fused_window"] == case["flush_every"]
