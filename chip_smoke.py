@@ -331,7 +331,17 @@
    with the same gates (the ring's card at sp index i launches each
    kernel 12 x (i + 1) times an update); an all-to-all and a ring
    rotation with its backward over a subgroup captured in a graph give
-   the eager bits.
+   the eager bits. Under pp (the fourth launch): GPT-2 small's 12 blocks
+   as stacked stages of ``make_pipeline_fn`` over 8 microbatches, the
+   embedding, the final LayerNorm and the tied head outside the pipeline,
+   under ``pp=4`` (GPipe; ``interleave=3`` with ``remat_stages=True``) at
+   16 x 1024, ``dp=2 x pp=2`` at 32 x 1024, ``pp=2 x tp=2`` (the stage
+   leaves laid over tp too) and ``pp=2 x sp=2`` at 16 x 1024: every tick's
+   exchanges and their backward, the pp gathers and the stage blocks'
+   gradient sums inside each card's graph, with the same gates (each
+   card launches each kernel 8 x 12 / pp times an update, ``flash_fwd``
+   twice that under ``remat_stages``); a 2-stage pipeline tick with its
+   backward over each pp pair captured in a graph gives the eager bits.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -6373,9 +6383,16 @@ def decode_phase(device):
 # (``rows`` x ``seq``), the attention (``flash``, its ring under sp;
 # ``ulysses``: ulysses_attention_fn through the flash kernel; ``naive``:
 # the dense attend, its ring under sp) with ``dropout`` from a CUDA
-# generator, and the updates in windows of ``flush_every``.
+# generator, and the updates in windows of ``flush_every``. Under a plan
+# with ``pp``: GPT-2's 12 blocks as stacked stages of ``make_pipeline_fn``
+# over ``microbatches`` (``interleave`` chunks a worker, ``remat`` for
+# ``remat_stages``), the embedding, the final LayerNorm and the tied head
+# outside the pipeline; ``stage_axis`` also lays each stage leaf's last
+# dim over that axis, so the step gathers the stage leaves over it.
 _PLAN_CASE = dict(model="gpt2", rows=32, seq=1024, attention="flash", dropout=0.0,
                   updates=32, flush_every=8)
+_PP_CASE = dict(_PLAN_CASE, rows=16, updates=16, flush_every=4, microbatches=8,
+                interleave=1, remat=False)
 MULTICARD_PLANS = {
     # dp x fsdp x tp (slice 19)
     "gpt2_fsdp4": dict(_PLAN_CASE, plan=dict(fsdp=4)),
@@ -6397,13 +6414,23 @@ MULTICARD_PLANS = {
     # The dense ring's dropout under sp: every replay must draw fresh masks.
     "gpt2_dp2_sp2_dropout": dict(_PLAN_CASE, plan=dict(dp=2, sp=2), rows=16,
                                  attention="naive", dropout=0.1, updates=16, flush_every=4),
+    # pp (slice 21): every tick of the schedule, its exchanges and their
+    # backward, the pp gathers and the stage blocks' gradient sums in the
+    # graph.
+    "gpt2_pp4": dict(_PP_CASE, plan=dict(pp=4)),
+    "gpt2_pp4_interleave3_remat": dict(_PP_CASE, plan=dict(pp=4), interleave=3, remat=True),
+    "gpt2_dp2_pp2": dict(_PP_CASE, plan=dict(dp=2, pp=2), rows=32),
+    "gpt2_pp2_tp2": dict(_PP_CASE, plan=dict(pp=2, tp=2), stage_axis="tp"),
+    "gpt2_pp2_sp2": dict(_PP_CASE, plan=dict(pp=2, sp=2)),
 }
 # The plan cases of each launch of tests/test_torch_cuda.py's four-card
 # test (each launch under its own MULTICARD_TIMEOUT).
 MULTICARD_PLAN_LAUNCHES = (("gpt2_fsdp4", "gpt2_tp4", "gpt2_fsdp2_tp2"),
                            ("gpt2_sp4", "gpt2_sp4_ulysses", "gpt2_sp2_tp2",
                             "gpt2_dp2_sp2_dropout"),
-                           ("moe_dp2_ep2", "moe_ep4", "moe_sp2_ep2"))
+                           ("moe_dp2_ep2", "moe_ep4", "moe_sp2_ep2"),
+                           ("gpt2_pp4", "gpt2_pp4_interleave3_remat", "gpt2_dp2_pp2",
+                            "gpt2_pp2_tp2", "gpt2_pp2_sp2"))
 MULTICARD_MODELS = ("gpt2",)
 MULTICARD_TIMEOUT = 900
 # GPT-2's padded vocabulary under a plan: the tp rules cut the vocabulary
@@ -6419,8 +6446,9 @@ def _nccl_capture_probe(dev, reps: int = 5) -> dict:
     events on the calling stream); then the same over a subgroup of half
     the world (the fsdp or tp group of a 2 x 2 plan): an all-gather and an
     all-reduce of 16 MiB, an all-to-all of 16 MiB (the MoE layers' and
-    Ulysses' exchange) and one ``Exchanges`` rotation with its reversed
-    backward (the ring's tick), eager against captured
+    Ulysses' exchange), one ``Exchanges`` rotation with its reversed
+    backward (the ring's tick) and one tick of a 2-stage pipeline over
+    each pp pair with its backward, eager against captured
     (:func:`_nccl_subgroup_probe`)."""
     import numpy as np
     import torch
@@ -6467,11 +6495,16 @@ def _nccl_subgroup_probe(dev, ms_of, numel: int = 1 << 22) -> dict:
     ``[0, 1]`` and ``[2, 3]`` of four, made by every worker in one order):
     an all-gather and a sum all-reduce of ``numel`` f32, eager and captured
     in one CUDA graph (then replayed); an all-to-all of ``numel`` f32 in a
-    graph of its own; and one rotation of ``numel`` f32 along the half as
+    graph of its own; one rotation of ``numel`` f32 along the half as
     the ring's ``Exchanges`` sends it (one ``batch_isend_irecv``), with the
     backward that sends a cotangent along the reversed rotation, in a
-    graph of its own. Per collective whether eager and captured give the
-    same bits, and the median ms of the eager calls and of the replays."""
+    graph of its own; and one tick of a 2-stage pipeline over each pp pair
+    of a ``(world / 2, 2)`` mesh (the forward, conveyor and feed
+    permutations of ``numel`` f32 each in one exchange, as
+    ``pipeline_apply`` sends them; the two pipelines over the world's
+    communicator at once), with its backward, in a graph of its own. Per
+    collective whether eager and captured give the same bits, and the
+    median ms of the eager calls and of the replays."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -6554,6 +6587,25 @@ def _nccl_subgroup_probe(dev, ms_of, numel: int = 1 << 22) -> dict:
         equal=bool(torch.equal(got[0], eager[0]) and torch.equal(got[1], eager[1])),
         eager_ms=ms_of(rotate), graph_ms=ms_of(graph.replay))
     del graph, got, eager, x
+    # A pipeline's tick: stage 0 sends forward, both stages send on the
+    # conveyor and the feed; the backward sends each cotangent back.
+    pp = MeshAxis(Mesh(np.arange(world).reshape(world // 2, 2), ("dp", "pp")), "pp")
+    perms = [[(0, 1)], [(0, 1), (1, 0)], [(0, 1), (1, 0)]]
+    xs = [torch.randn(numel, device=dev, generator=gen).requires_grad_() for _ in perms]
+    cot = torch.randn(len(perms) * numel, device=dev, generator=gen)
+
+    def tick():
+        ex = Exchanges(pp, xs)
+        y = ex.attach(torch.cat(ex(tuple(xs), perms)))
+        grads = torch.autograd.grad(y, xs, cot)
+        return y.detach(), torch.cat(grads)
+
+    eager = tick()
+    got, graph = captured(tick)
+    out[f"pipeline_tick_{numel}"] = dict(
+        equal=bool(torch.equal(got[0], eager[0]) and torch.equal(got[1], eager[1])),
+        eager_ms=ms_of(tick), graph_ms=ms_of(graph.replay))
+    del graph, got, eager, xs
     return out
 
 
@@ -6614,6 +6666,73 @@ def _gathered_digest(state) -> str:
     return h.hexdigest()
 
 
+def _stage_rule(extra: str | None):
+    """The partition rule of a pipeline case: every stage leaf over pp
+    (its leading, stacked dim) and, with ``extra``, its last dim over that
+    axis too; every other leaf replicated."""
+    from fluxmpi_tpu_torch.parallel.sharding import P
+
+    def rule(path, shape):
+        if "stages" not in path:
+            return P()
+        tail = [None] * (len(shape) - 1)
+        if extra is not None:
+            tail[-1] = extra
+        return P("pp", *tail)
+
+    return rule
+
+
+def _pipeline_lm(model, mesh, case: dict):
+    """GPT-2's blocks of ``model`` as the stacked stages of
+    ``make_pipeline_fn`` over the mesh's pp axis (``case``'s
+    ``microbatches``, ``interleave`` and ``remat``): ``(params, loss_fn)``,
+    the parameters of the embedding, the final LayerNorm and the tied head
+    (outside the pipeline) beside ``stages.<block>.<name>`` of leading dim
+    pp x interleave in the round-robin order, and the mean cross-entropy
+    of the pipelined forward (the fused head in bf16, as in
+    ``tests/test_torch_cuda.py``'s pipeline cases)."""
+    import torch
+
+    from fluxmpi_tpu_torch.ops.fused_ce import unembed_cross_entropy
+    from fluxmpi_tpu_torch.parallel import make_pipeline_fn, stack_stage_params
+
+    stages, v = mesh.shape["pp"], case["interleave"]
+    n = sum(1 for name, _ in model.encoder.named_children() if name.startswith("block_"))
+    per = n // (stages * v)
+    blocks = [getattr(model.encoder, f"block_{i}") for i in range(n)]
+    names = [k for k, _ in blocks[0].named_parameters()]
+    template = blocks[0]
+
+    def stage_fn(p, x):
+        for j in range(per):
+            x = torch.func.functional_call(template, {k: p[f"{j}.{k}"] for k in names}, (x,))
+        return x
+
+    stacked = stack_stage_params(
+        [{f"{j}.{k}": dict(blocks[c * per + j].named_parameters())[k].detach()
+          for j in range(per) for k in names} for c in range(stages * v)],
+        n_stages=stages, interleave=v)
+    params = {k: t.detach().clone().requires_grad_() for k, t in model.named_parameters()
+              if not k.startswith("encoder.block_")}
+    params.update({f"stages.{k}": t.clone().requires_grad_() for k, t in stacked.items()})
+    pipe = make_pipeline_fn(stage_fn, mesh, n_microbatches=case["microbatches"],
+                            axis_name="pp", remat_stages=case["remat"], interleave=v)
+    ln_out = model.encoder.ln_out
+
+    def loss_fn(p, model_state, batch):
+        x, y = batch
+        h = (p["embed.embedding"][x] + p["pos_embed"][:x.shape[1]]).to(torch.bfloat16)
+        h = pipe({k[len("stages."):]: t for k, t in p.items() if k.startswith("stages.")}, h)
+        h = torch.func.functional_call(ln_out, {"scale": p["encoder.ln_out.scale"],
+                                                "bias": p["encoder.ln_out.bias"]},
+                                       (h, torch.float32))
+        return unembed_cross_entropy(h.to(torch.bfloat16), p["embed.embedding"],
+                                     y).mean(), model_state
+
+    return params, loss_fn
+
+
 def _multicard_lm(dev, rank: int, world: int, case: dict | None = None) -> dict:
     """The fused phase's bf16 GPT-2-small run over the world, fused beside
     pipelined. ``case`` None: data-parallel, 8 x 1024 per card's share of
@@ -6622,7 +6741,8 @@ def _multicard_lm(dev, rank: int, world: int, case: dict | None = None) -> dict:
     case: its model (GPT-2's vocabulary padded to 50304) under its
     ``ParallelConfig`` (the loader's mesh view, workers sharing a data block
     reading the same rows; the state placed by the plan; the experts over
-    ``ep`` by ``expert_parallel_rules``), its global batch, attention and
+    ``ep`` by ``expert_parallel_rules``; under ``pp`` the blocks as stacked
+    stages, :func:`_pipeline_lm`), its global batch, attention and
     dropout. ``fuse=False`` then ``fuse="auto"``, each path's main run
     counted by the kernels' device counters, a second run timed, one
     window's host launch calls counted and one traced."""
@@ -6641,6 +6761,7 @@ def _multicard_lm(dev, rank: int, world: int, case: dict | None = None) -> dict:
     kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
     case = dict(_PLAN_CASE, plan=None, rows=8 * world) if case is None else case
     plan, moe = case["plan"], case["model"] == "moe"
+    pp = (plan or {}).get("pp", 1)
     updates, flush_every = case["updates"], case["flush_every"]
     if moe:
         cfg = dict(SWITCH_BASE_8, max_len=case["seq"])
@@ -6653,7 +6774,11 @@ def _multicard_lm(dev, rank: int, world: int, case: dict | None = None) -> dict:
     corpus = lm_corpus(cfg["vocab_size"], n=n_seqs, seq=cfg["max_len"])
     resolved = None
     if plan is not None:
-        kw = dict(plan, rules=expert_parallel_rules()) if "ep" in plan else dict(plan)
+        kw = dict(plan)
+        if pp > 1:
+            kw["rules"] = _stage_rule(case.get("stage_axis"))
+        elif "ep" in plan:
+            kw["rules"] = expert_parallel_rules()
         resolved = ParallelConfig(**kw).resolve()
 
     def build():
@@ -6680,6 +6805,13 @@ def _multicard_lm(dev, rank: int, world: int, case: dict | None = None) -> dict:
                 return model(x, targets=y).mean(), model_state
 
             return model, loader, make_train_step(loss_fn, opt), TrainState.create(model, opt)
+        if pp > 1:
+            params, loss_fn = _pipeline_lm(model, resolved.mesh, case)
+            state, _ = resolved.shard_state(TrainState.create(params, opt))
+            loader = fm.DistributedDataLoader(data, global_batch_size=case["rows"],
+                                              shuffle=True, mesh=resolved.mesh,
+                                              axis_name=resolved.data_axes)
+            return model, loader, make_train_step(loss_fn, opt, parallel=resolved), state
         state, _ = resolved.shard_state(TrainState.create(model, opt))
         loader = fm.DistributedDataLoader(data, global_batch_size=case["rows"], shuffle=True,
                                           mesh=resolved.mesh, axis_name=resolved.data_axes)
@@ -6713,12 +6845,19 @@ def _multicard_lm(dev, rank: int, world: int, case: dict | None = None) -> dict:
 
     # Attends a layer per update on this card: the flash ring's card at sp
     # index i attends i + 1 blocks (causal); the dense ring none through
-    # the kernels.
+    # the kernels. A pipeline's card runs its 12 / pp blocks once a
+    # microbatch (bubble ticks compute nothing; the stages replicate sp and
+    # tp), the forward's again in the backward under remat_stages.
     attends = 1
     if case["attention"] == "naive":
         attends = 0
+    elif pp > 1:
+        attends = case["microbatches"] / pp
     elif plan is not None and plan.get("sp", 1) > 1 and case["attention"] == "flash":
         attends = resolved.mesh.coords(rank)["sp"] + 1
+    need = {k.__name__: int(cfg["num_layers"] * updates * attends) for k in kernels}
+    if pp > 1 and case["remat"]:
+        need["flash_fwd"] *= 2
     runs, bits = {}, {}
     for fuse in (False, "auto"):
         model, loader, step, state = build()
@@ -6775,7 +6914,7 @@ def _multicard_lm(dev, rank: int, world: int, case: dict | None = None) -> dict:
     same = [k for k in want if torch.equal(got[k], want[k])]
     out = dict(runs=runs, leaves=len(want), bit_identical=len(same),
                differing=[k for k in want if k not in same][:10],
-               need=cfg["num_layers"] * updates * attends, flush_every=flush_every,
+               need=need, flush_every=flush_every,
                updates=updates)
     if plan is None:
         out.update(digest=_tree_digest(got), eval=evaluation)
@@ -6948,9 +7087,9 @@ def _multicard_gates(name: str, ranks: list, failures: list) -> None:
                             f"{n_windows - 1}")
         if "need" in m:
             for run in (fused, pipe):
-                if set(run["launches"].values()) != {m["need"]}:
+                if run["launches"] != m["need"]:
                     failures.append(f"{tag}: launches {run['launches']}, not "
-                                    f"{m['need']} each")
+                                    f"{m['need']}")
                 if run["accounted_launches"] != run["launches"]:
                     failures.append(f"{tag}: the wrappers' counts with the graphs' "
                                     f"{run['accounted_launches']} differ from the "
@@ -7007,7 +7146,8 @@ def multicard_fused_phase(device, models=MULTICARD_MODELS, world: int | None = N
           f"(env {ranks[0]['nccl_env']}), {seconds:.1f}s; collectives eager and "
           f"captured in a graph (an all-reduce by buffer size; over a 2-card "
           f"subgroup an all-gather, an all-reduce, an all-to-all and a ring "
-          f"rotation with its backward) (bits equal; median ms eager, replayed): "
+          f"rotation with its backward; a 2-stage pipeline tick with its "
+          f"backward over each pp pair) (bits equal; median ms eager, replayed): "
           f"{stats['capture_probe']}", flush=True)
     for r in ranks:
         differ = [k for k, v in r["capture_probe"].items() if not v["equal"]]

@@ -17,8 +17,8 @@ flush window (its batch gathers and its updates) runs as one program from
 :func:`~fluxmpi_tpu_torch.parallel.train.make_window_program`, on the card
 one CUDA-graph replay: one host dispatch per window instead of thousands
 of kernel launches per update; with several workers (data-parallel, or
-under a plan over dp, fsdp, tp, ep and sp), one graph per card, its
-collectives inside.
+under a plan over any of dp, fsdp, tp, ep, sp and pp), one graph per
+card, its collectives inside.
 A replay runs no Python: a ``loss_fn``
 with host-side state that changes between updates needs ``fuse=False``
 (see :func:`train_loop`).
@@ -160,8 +160,9 @@ def _fused_window_width(step: Any, batches: Any, flush_every: int,
     The width is ``flush_every`` clamped to the epoch length (an epoch
     shorter than the flush interval fuses as one window per pass), and the
     epoch must divide into whole windows. Across ``workers > 1`` the
-    window runs the dp, fsdp, tp, ep and sp axes of a plan, over device
-    collectives."""
+    window runs every axis of a plan (dp, fsdp, tp, ep, sp and pp) over
+    device collectives; a ``style="shard_map"`` step and the host-staged
+    collectives decline."""
     if not isinstance(batches, DistributedDataLoader):
         return 0, "batches is not a DistributedDataLoader"
     meta = getattr(step, "__fluxmpi_window_meta__", None)
@@ -376,11 +377,12 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     (one per card) each worker's window holds the step's collectives (the
     gradient all-reduce, the batch axes' statistics) and every card
     replays its graph in lockstep; it runs the default ``style="auto"``
-    step with no plan or a plan whose axes above 1 are among ``dp``,
-    ``fsdp``, ``tp``, ``ep`` and ``sp`` (the fsdp gathers, the bucketed
+    step with no plan or under any plan (the fsdp gathers, the bucketed
     gradient sums over subgroups, the tensor-parallel all-reduces, the MoE
-    layers' all-to-alls, the ring's point-to-point exchanges and Ulysses'
-    all-to-alls inside the graph; ``pp`` declines under a named reason)
+    layers' all-to-alls, the ring's point-to-point exchanges, Ulysses'
+    all-to-alls and a pipeline's ticks with their exchanges inside the
+    graph; a ``style="shard_map"`` step and the host-staged collectives
+    decline under named reasons)
     over device collectives, and the workers agree on
     one width before the first window (one host exchange), so a window any
     worker cannot fuse runs pipelined on every worker. ``"window"`` forces

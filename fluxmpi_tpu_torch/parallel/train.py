@@ -861,7 +861,11 @@ def make_train_step(
     ``train_loop`` for such a ``loss_fn``. Draws from the default CUDA
     generator, or from a CUDA generator the loss notes with
     :func:`~fluxmpi_tpu_torch.runtime.note_graph_generator` (as
-    ``ddpm_loss`` does), advance on every replay.
+    ``ddpm_loss`` does), advance on every replay. In a world of several
+    workers the window fuses under every plan of the default
+    ``style="auto"`` step, ``pp`` included (a pipeline's ticks, its
+    exchanges and their backward are a static schedule per worker, which
+    the graph records); a ``style="shard_map"`` step runs pipelined there.
 
     ``metrics``: ``None``/``False`` (off), ``True`` (the default
     registry), a :class:`~fluxmpi_tpu_torch.telemetry.MetricsRegistry`, a
@@ -1196,23 +1200,12 @@ def make_train_step(
     # window: the single-update body (the window sequences updates itself,
     # so a scan_steps wrapper is irrelevant there), the aux it carries and
     # the groups it warms; and why train_loop keeps this step pipelined
-    # across workers (None: it fuses there too).
+    # across workers (None: it fuses there too, under every plan axis).
     across = None
     if style == "shard_map":
         across = ('fused windows across workers run the default style="auto" '
                   'step; a style="shard_map" step runs pipelined there, as the '
                   'JAX package declines it')
-    elif layout is not None:
-        fusing = {name, layout.tp_axis} | {
-            (plan.axis_name(kind) if plan is not None else None) or default
-            for kind, default in (("fsdp", config.FSDP_AXIS_NAME),
-                                  ("ep", config.EP_AXIS_NAME),
-                                  ("sp", config.SP_AXIS_NAME))}
-        above = [f"{a}={n}" for a, n in layout.mesh.shape.items()
-                 if n > 1 and a not in fusing]
-        if above:
-            across = ("fused windows across workers run dp, fsdp, tp, ep and sp only: "
-                      + ", ".join(above))
     step.__fluxmpi_window_meta__ = {"single": single, "aux": aux_names,
                                     "prepare": prepare, "across_workers": across}
     return step
@@ -1324,9 +1317,12 @@ class WindowProgram:
 
     In a world of several workers (one per card) the window holds the
     step's collectives (NCCL's, on the device; under a plan over the world
-    and its subgroups, the model's own exchanges among them): the eager
-    first window runs them for real, noting every subgroup it asks a mesh
-    for, and then ``prepare`` (the step's) warms those and every group the
+    and its subgroups, the model's own exchanges among them, and under
+    ``pp`` every tick of the pipeline's schedule: its point-to-point
+    exchanges over the world's communicator, bubble ticks' included, and
+    their backward): the eager first window runs them for real, noting
+    every subgroup it asks a mesh for, and then ``prepare`` (the step's)
+    warms those and every group the
     settled layout uses with one collective each, so their communicators
     exist before the capture records them (a capture that asks for a
     subgroup nobody warmed raises), and every card

@@ -17,7 +17,7 @@ tokens and targets. ``GROUP`` picks the cases:
   checkpoint;
 - ``agree``: a capture that fails on worker 1 alone, agreed through the
   window program's outcome exchange; the ep, sp and pp plans'
-  ``across_workers`` (None for ep and sp, pp's named decline).
+  ``across_workers`` (None for each: every plan axis fuses).
 
 Each rank writes its results to ``OUT`` (an npz keyed ``case/name``)."""
 
@@ -250,7 +250,7 @@ elif group == "agree":
     except RuntimeError as exc:
         put("capture", "error", str(exc))
     put("capture", "graph", program.graph is None)
-    # Each plan axis's across_workers: ep and sp fuse, pp declines.
+    # Each plan axis's across_workers: ep, sp and pp fuse.
     for case, kw in (("ep", dict(ep=2)), ("sp", dict(sp=2)), ("pp", dict(pp=2))):
         plan = ParallelConfig(**kw).resolve()
         mlp = MLP(features=(16, 16, 1), device="cpu")

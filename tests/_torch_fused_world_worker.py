@@ -14,9 +14,9 @@ test writes: the MLP's data (``x``, ``y``) and flax weights
 - ``resume``: a pipelined run killed mid-window resumed fused, and a
   preemption requested on worker 0 alone drained at a window boundary;
 - ``agree``: what one worker alone cannot fuse (a shard over the staging
-  budget), a dp x pp plan, a ``style="shard_map"`` step and host-staged
-  collectives are declined on every worker, and ``fuse="window"`` raises
-  the reason on every worker.
+  budget), a ``style="shard_map"`` step and host-staged collectives are
+  declined on every worker, and ``fuse="window"`` raises the reason on
+  every worker; a dp x pp plan fuses on every worker.
 
 Each rank writes its results to ``OUT`` (an npz keyed ``case/name``)."""
 
@@ -245,8 +245,8 @@ elif group == "agree":
     attempt("budget", step, state, loader, epochs=1, flush_every=3)
     del os.environ["FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES"]
     x, y = D["x"], D["y"]
-    # A dp x pp plan (fused windows across workers run dp, fsdp, tp, ep and
-    # sp only): its loader and step over the plan's mesh.
+    # A dp x pp plan (fused windows across workers run every plan axis):
+    # its loader and step over the plan's mesh.
     plan = ParallelConfig(dp=world // 2, pp=2).resolve()
     model = load_flax_params(MLP(features=FEATURES, device="cpu"), MLP_PARAMS)
     opt = optim.adam(1e-3)

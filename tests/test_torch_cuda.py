@@ -2233,10 +2233,19 @@ def test_nccl_fused_windows_across_cards_match_pipelined():
     the flash ring over ``sp=4``, Ulysses over ``sp=4`` and ``sp=2 x
     tp=2``, and under ``dp=2 x sp=2`` with the dense ring's dropout; 16
     updates in windows of 4), the all-to-alls and the ring's exchanges in
-    each card's graph, with the same gates and at most 8 host launch calls
-    a fused window; an all-gather, an all-reduce, an all-to-all and a ring
-    rotation with its backward over a subgroup captured in a graph give
-    the eager bits; on two cards the MLP again. Every
+    each card's graph, and the pp cases (GPT-2 small's 12 blocks as
+    stacked stages of ``make_pipeline_fn`` over 8 microbatches: ``pp=4``
+    GPipe and ``interleave=3`` with ``remat_stages=True`` at 16 x 1024,
+    ``dp=2 x pp=2`` at 32 x 1024, ``pp=2 x tp=2`` with the stage leaves
+    laid over tp too and ``pp=2 x sp=2`` at 16 x 1024; 16 updates in
+    windows of 4; every tick's exchanges and their backward in each card's
+    graph; launches a card equal to the schedule's 8 x 12 / pp per update,
+    twice that of ``flash_fwd`` under remat), with the same gates and at
+    most 8 host launch calls a fused window; an all-gather, an all-reduce,
+    an all-to-all and a ring rotation with its backward over a subgroup,
+    and a 2-stage pipeline tick with its backward over each pp pair,
+    captured in a graph give the eager bits; on two cards the MLP again.
+    Every
     leaf and flush bit for bit on every card, the same state on every
     card, and ``make_eval_step``'s loss one value on every card (C.26).
     Prints ms per update, host launch calls per update and capture seconds

@@ -35,8 +35,8 @@ windows of 2. Plans: ``fsdp=2`` on 2 ranks; ``dp=2 x fsdp=2``,
   mid-window, resume fused from their sharded checkpoints
   (``shard_<rank>.pt``) to the uninterrupted run's bits.
 - A capture that fails on worker 1 alone raises on every worker, naming
-  worker 1, within the world's own join limit; ep and sp fuse across
-  workers, and pp still declines under a named reason.
+  worker 1, within the world's own join limit; ep, sp and pp fuse across
+  workers.
 - ``shutdown()`` releases every captured graph before the process groups.
 """
 
@@ -260,11 +260,9 @@ def test_failed_capture_raises_on_every_worker(tmp_path, data):
         assert "failed on worker 1 (" in err and "none replays" in err, err
         assert "stream is capturing" in err, err
         assert bool(res["capture/graph"])  # no worker keeps its graph
-        # ep and sp fuse across workers now; pp is the last plan axis that
-        # declines.
+        # ep, sp and pp fuse across workers now: every plan axis does.
         assert str(res["ep/across"]) == str(res["sp/across"]) == "None"
-        assert str(res["pp/across"]) == (
-            "fused windows across workers run dp, fsdp, tp, ep and sp only: pp=2")
+        assert str(res["pp/across"]) == "None"
 
 
 def test_shutdown_releases_captured_graphs_before_the_groups():

@@ -24,10 +24,10 @@ eagerly (on the cards each window is one CUDA graph per card:
   (async saves), and the resume ends on the uninterrupted fused run's
   bits.
 - Agreement, in a world with its own time limit, so a hang fails it: a
-  shard over the staging budget on one worker alone, a dp x pp plan, a
+  shard over the staging budget on one worker alone, a
   ``style="shard_map"`` step and host-staged collectives leave every
   worker pipelined, and ``fuse="window"`` raises the reason on every
-  worker.
+  worker; a dp x pp plan fuses on every worker.
 """
 
 from pathlib import Path
@@ -205,7 +205,6 @@ def test_declines_are_agreed_on_every_worker(tmp_path, data):
     # Worker 0's shard (128 rows) is over the budget, worker 1's (127) not.
     assert [bool(r["budget/fusible"]) for r in ranks] == [False, True]
     reasons = {"budget": ("on worker 0", "over FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES"),
-               "plan": ("on worker 0", "dp, fsdp, tp, ep and sp only: pp=2"),
                "shard_map": ("on worker 0", 'style="shard_map"'),
                "staged": ("on worker 0", "host-staged collectives")}
     for res in ranks:
@@ -215,4 +214,7 @@ def test_declines_are_agreed_on_every_worker(tmp_path, data):
             assert err.startswith('fuse="window" unavailable'), (case, err)
             assert all(w in err for w in words), (case, err)
         assert int(res["budget/dispatches"]) == 3
-        assert int(res["plan/dispatches"]) == 4
+        # The dp x pp plan fuses on every worker (every plan axis does):
+        # 4 batches in 2 windows, and fuse="window" raises nothing.
+        assert (int(res["plan/fused_window"]), int(res["plan/dispatches"])) == (2, 2)
+        assert str(res["plan/error"]) == ""
