@@ -35,17 +35,24 @@
    ``TransformerLM`` (12 layers, d_model 768, 12 heads, d_ff 3072, vocab
    50257, max_len 1024, float32, TF32 off, weights from
    ``torch.Generator().manual_seed(0)``) through
-   ``InferenceEngine(slots=8, block_size=16, continuous=True)``, checks
-   every stream against the port's own ``generate()`` token for token and
-   that the prefills and decode steps went through ``flash_fwd``; then
-   serves the same requests once more under ``torch.profiler`` (device
-   activity only): device busy time against wall time (idle share) and
-   device time by kernel group from that one traced run.
+   ``InferenceEngine(slots=8, block_size=16, continuous=True)`` with its
+   decode step and prefill buckets as CUDA graphs (captured by
+   ``warmup``), checks every stream against the port's own ``generate()``
+   token for token, that no capture and no compile event happened after
+   the warmup while requests joined and left, and that the prefills and
+   decode steps went through ``flash_fwd`` (launches by the device
+   counter equal to the wrapper's less captures plus replays); then serves
+   the same requests once more under ``torch.profiler`` (device activity
+   only): device busy time against wall time (idle share) and device time
+   by kernel group from that one traced run. The same engine running
+   eager steps serves the same requests beside it (tokens/s, TTFT,
+   per-token time, idle share; its streams equal the graphed ones).
    Serving plane phase (``serving_plane_phase``): GPT-2 small from an
    HF-layout state dict through ``lm_from_gpt2``, served through
    ``init(serving=..., request_log=..., telemetry=...)`` by a background
    ``InferenceEngine`` with SLOs in float32 and bfloat16 (f32 streams equal
-   ``generate()`` token for token; bf16 streams bit-identical across
+   ``generate()`` token for token and the eager engine's; no capture
+   after ``warmup``; bf16 streams bit-identical across
    admission orders and, where they differ from ``generate()``, first
    differing at a near-tie within delta = 4 x the largest |bf16 - f32|
    logit), a preemption drain, a ``serving.decode`` fault on the
@@ -294,7 +301,18 @@
    at Switch-Base-8 widths (bf16, flash), as ``parallel_phase`` builds it,
    decodes 16 tokens of 2 prompts of 16 through its twin, teacher-forcing
    the prompt tick by tick: equal to its own ``generate()``, launches
-   12 per tick.
+   12 per tick. Graphed decode (``graphed_decode``, per dtype, same
+   shapes): ``generate`` (greedy with the batched prefill and the scan,
+   sampled at temperature 0.8 with ``top_k=50``, ``top_p=0.9`` from two
+   CUDA generators, with ``eos_token``) and ``beam_search`` (beam 4,
+   length penalty 0.6), each tick one CUDA-graph replay, against the
+   private eager ticks bit for bit; a repeat call at the same key
+   captures nothing; launches by the device counter equal the wrappers'
+   less captures plus replays; ms per tick graphed and eager in turns (3
+   runs each: median and spread), host launch calls and device kernels
+   per tick, capture seconds, the graph pool's bytes, and the same ticks
+   through ``forward(kv_cache=)`` captured as one graph. The MoE LM's
+   ``generate`` graphed against its eager ticks too.
 20. Multi-card fused phase (``multicard_fused_phase``; on a machine with
    one card it prints one line saying it did not run, which is no pass):
    one worker per card through ``fluxmpi_tpu_torch.launch`` (at most four),
@@ -1038,6 +1056,31 @@ def kernel_launches(run):
     return result, device_launches()
 
 
+def step_graph_launches(run):
+    """Run ``run()`` and count the attention kernels' launches three ways:
+    by the device counters (:func:`kernel_launches`), by the wrappers, and
+    what the decode paths' step graphs (``generate``'s and
+    ``beam_search``'s ticks, the engine's steps) add to the wrappers'
+    counts: their replays' launches less their captures'. Returns ``(run's
+    result, device, wrappers, graphs)``; the device ran ``wrappers +
+    graphs`` when the accounting holds."""
+    from fluxmpi_tpu_torch.ops.flash_attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.utils._step_graph import graph_launches as step_graphs
+
+    wrappers = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    w0, g0 = {f.__name__: f.launches for f in wrappers}, step_graphs()
+    result, dev = kernel_launches(run)
+    g1 = step_graphs()
+    return (result, dev, {f.__name__: f.launches - w0[f.__name__] for f in wrappers},
+            {k: g1[k] - g0[k] for k in g1})
+
+
+def launches_agree(dev: dict, wrapped: dict, graphs: dict) -> bool:
+    """The device counters equal the wrappers' counts plus the step graphs'
+    replays less their captures, for every kernel."""
+    return all(dev[k] == wrapped[k] + graphs.get(k, 0) for k in dev)
+
+
 def graph_launches(step) -> dict:
     """Per kernel, what the CUDA graphs of ``step``'s fused windows add to
     the wrappers' counters to give the launches the device ran: each
@@ -1090,13 +1133,47 @@ def profile_phase(engine, specs, steps_before: int, untraced_ms: float):
     return out, reqs
 
 
+def serve_specs(vocab: int, n: int, seed: int = 0) -> list:
+    """``n`` requests: prompts of 8-200 tokens from ``default_rng(seed)``,
+    16 new tokens, 64 for every 8th."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    specs = []
+    for i in range(n):
+        plen = int(rng.integers(8, 201))
+        specs.append((rng.integers(0, vocab, plen).astype(np.int32),
+                      64 if i % 8 == 7 else 16))
+    return specs
+
+
+def request_latency(reqs) -> dict:
+    """TTFT p50/max/mean and per-token p50 (ms) of finished requests."""
+    import numpy as np
+
+    ttft = np.array([r.ttft_s for r in reqs if r.ttft_s is not None])
+    per_tok = np.array([r.per_token_s for r in reqs if r.per_token_s is not None])
+    return dict(ttft_p50_ms=float(np.median(ttft) * 1e3), ttft_max_ms=float(ttft.max() * 1e3),
+                ttft_mean_ms=float(ttft.mean() * 1e3),
+                per_token_p50_ms=float(np.median(per_tok) * 1e3) if len(per_tok) else None)
+
+
 def slice_phase(device):
+    """Serving at GPT-2-small widths, f32: the engine with its decode step
+    and prefill buckets as CUDA graphs (the main path) beside the same
+    engine running eager steps, on the same 16 requests in this run. Gates:
+    every request served; after ``warmup`` no capture and no compile event
+    while requests join and leave; launches by the device counters equal
+    to the wrappers' less captures plus replays and at least layers x
+    (prefills + decode steps); the graphed streams equal ``generate()``
+    and the eager engine's; a traced rerun of each gives the same streams
+    and its idle share."""
     import numpy as np
     import torch
 
     from fluxmpi_tpu_torch.models import TransformerLM, generate
-    from fluxmpi_tpu_torch.ops.flash_attention import flash_fwd
     from fluxmpi_tpu_torch.serving import InferenceEngine
+    from fluxmpi_tpu_torch.telemetry import MetricsRegistry, compileplane
 
     failures = []
     vocab = GPT2_SMALL["vocab_size"]
@@ -1120,61 +1197,96 @@ def slice_phase(device):
     if not fwd_ok:
         failures.append("slice forward")
 
-    engine = InferenceEngine(model, slots=8, block_size=16, continuous=True)
-    rng = np.random.default_rng(0)
-    specs = []
-    for i in range(16):
-        plen = int(rng.integers(8, 201))
-        specs.append((rng.integers(0, vocab, plen).astype(np.int32),
-                      64 if i % 8 == 7 else 16))
-    engine.warmup(prompt_lengths=tuple(len(p) for p, _ in specs))
-    torch.cuda.synchronize()
+    specs = serve_specs(vocab, 16)
+    runs, streams = {}, {}
+    for mode in ("graphed", "eager"):
+        mon = compileplane.CompileMonitor(registry=MetricsRegistry())
+        prev = compileplane.set_compile_monitor(mon)
+        try:
+            engine = InferenceEngine(model, slots=8, block_size=16, continuous=True)
+            engine._eager = mode == "eager"
+            t0 = time.perf_counter()
+            engine.warmup(prompt_lengths=tuple(len(p) for p, _ in specs))
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            built = {n: g.captures for n, g in engine._graphs.items()}
+            mon.observe_flush()  # the warmup boundary
 
-    flash_fwd.launches = 0
-    t0 = time.perf_counter()
-    reqs = [engine.submit(p, n) for p, n in specs]
-    summary = engine.run()
-    torch.cuda.synchronize()
-    untraced_ms = (time.perf_counter() - t0) * 1e3
-    launches = flash_fwd.launches
-    ttft = np.array([r.ttft_s for r in reqs])
-    need = model.num_layers * (engine.prefills + summary["decode_steps"])
-    print(f"slice: served {summary['completed']}/16 requests, "
-          f"{summary['tokens']} tokens in {summary['wall_seconds']:.3f}s = "
-          f"{summary['tokens_per_sec']:.1f} tokens/s; decode_steps="
-          f"{summary['decode_steps']} prefills={engine.prefills}; TTFT "
-          f"p50={np.median(ttft) * 1e3:.1f}ms max={ttft.max() * 1e3:.1f}ms "
-          f"mean={ttft.mean() * 1e3:.1f}ms; flash_fwd launches={launches} "
-          f"(need >= {need})", flush=True)
-    if summary["completed"] != 16:
-        failures.append("slice: not every request completed")
-    if launches < need or launches == 0:
-        failures.append(f"slice: flash_fwd launched {launches} < {need}")
+            def serve():
+                reqs = [engine.submit(p, n) for p, n in specs]
+                return reqs, engine.run()
+
+            t0 = time.perf_counter()
+            (reqs, summary), dev, wrapped, graphs = step_graph_launches(serve)
+            untraced_ms = (time.perf_counter() - t0) * 1e3
+            info = mon.observe_flush()
+        finally:
+            compileplane.set_compile_monitor(prev)
+        captured = {n: g.captures - built.get(n, 0) for n, g in engine._graphs.items()}
+        launches = dev["flash_fwd"]
+        need = model.num_layers * (engine.prefills + summary["decode_steps"])
+        lat = request_latency(reqs)
+        run = dict(tokens_per_sec=summary["tokens_per_sec"], **lat,
+                   decode_steps=summary["decode_steps"], prefills=engine.prefills,
+                   launches=launches, wrapper_launches=wrapped["flash_fwd"],
+                   graph_launches=graphs["flash_fwd"], tokens=summary["tokens"],
+                   wall_seconds=summary["wall_seconds"], warmup_seconds=warm_s,
+                   captures_after_warmup=sum(captured.values()),
+                   compile_events_after_warmup=info["events"],
+                   capture_seconds={n: g.capture_seconds for n, g in engine._graphs.items()
+                                    if g.captures},
+                   graph_pool_bytes={n: g.pool_bytes for n, g in engine._graphs.items()
+                                     if g.captures})
+        print(f"slice {mode}: served {summary['completed']}/16 requests, "
+              f"{summary['tokens']} tokens in {summary['wall_seconds']:.3f}s = "
+              f"{summary['tokens_per_sec']:.1f} tokens/s; decode_steps="
+              f"{summary['decode_steps']} prefills={engine.prefills}; TTFT "
+              f"p50={lat['ttft_p50_ms']:.1f}ms max={lat['ttft_max_ms']:.1f}ms "
+              f"mean={lat['ttft_mean_ms']:.1f}ms; per-token p50 "
+              f"{lat['per_token_p50_ms']:.2f}ms; warmup {warm_s:.2f}s; flash_fwd "
+              f"launches {launches} by the device counter (wrapper {wrapped['flash_fwd']}"
+              f" + step graphs {graphs['flash_fwd']}; need >= {need}); captures at warmup "
+              f"{sum(built.values())} of {len(built)} programs, after it "
+              f"{sum(captured.values())}; compile events after it {info['events']}",
+              flush=True)
+        if mode == "graphed":
+            print(f"slice graphed: capture s {run['capture_seconds']}; graph pool bytes "
+                  f"{run['graph_pool_bytes']}", flush=True)
+        if summary["completed"] != 16:
+            failures.append(f"slice {mode}: not every request completed")
+        if launches < need or not launches_agree(dev, wrapped, graphs):
+            failures.append(f"slice {mode}: flash_fwd launched {launches} (need >= {need}; "
+                            f"wrappers {wrapped}, graphs {graphs})")
+        if mode == "graphed" and (sum(captured.values()) or info["events"]
+                                  or set(built.values()) != {1}):
+            failures.append(f"slice graphed: captures {built} at warmup, "
+                            f"{sum(captured.values())} and {info['events']} compile events "
+                            f"after it")
+        run["profile"], traced = profile_phase(engine, specs, summary["decode_steps"],
+                                               untraced_ms)
+        if run["profile"]["idle_share"] is None:
+            failures.append(f"profile {mode}: the trace holds no device time")
+        if [r.tokens for r in traced] != [r.tokens for r in reqs]:
+            failures.append(f"profile {mode}: the traced run's streams differ from the "
+                            f"first run's")
+        engine.close()
+        runs[mode], streams[mode] = run, [list(r.tokens) for r in reqs]
 
     mismatched = 0
-    for r, (p, n) in zip(reqs, specs):
-        ref = generate(model, p[None], n)[0, len(p):].cpu().numpy()
-        if not np.array_equal(np.asarray(r.tokens), ref):
+    for i, (p, n) in enumerate(specs):
+        ref = generate(model, p[None], n)[0, len(p):].tolist()
+        if streams["graphed"][i] != ref:
             mismatched += 1
-            print(f"slice: request {r.id} differs from generate(): "
-                  f"{r.tokens} vs {ref.tolist()}", flush=True)
-    print(f"slice: {16 - mismatched}/16 streams equal generate() token for token",
-          flush=True)
+            print(f"slice: request {i} differs from generate(): "
+                  f"{streams['graphed'][i]} vs {ref}", flush=True)
+    same = streams["graphed"] == streams["eager"]
+    print(f"slice: {16 - mismatched}/16 graphed streams equal generate() token for token; "
+          f"graphed streams equal the eager engine's {same}", flush=True)
     if mismatched:
         failures.append(f"slice: {mismatched} streams differ from generate()")
-    stats = dict(tokens_per_sec=summary["tokens_per_sec"],
-                 ttft_p50_ms=float(np.median(ttft) * 1e3),
-                 ttft_max_ms=float(ttft.max() * 1e3),
-                 decode_steps=summary["decode_steps"], prefills=engine.prefills,
-                 launches=launches, tokens=summary["tokens"],
-                 wall_seconds=summary["wall_seconds"])
-    stats["profile"], traced = profile_phase(engine, specs, summary["decode_steps"],
-                                             untraced_ms)
-    if stats["profile"]["idle_share"] is None:
-        failures.append("profile: the trace holds no device time")
-    if [r.tokens for r in traced] != [r.tokens for r in reqs]:
-        failures.append("profile: the traced run's streams differ from the first run's")
-    engine.close()
+    if not same:
+        failures.append("slice: the graphed engine's streams differ from the eager engine's")
+    stats = dict(runs["graphed"], eager=runs["eager"])
     return stats, failures
 
 
@@ -1348,7 +1460,6 @@ def serving_plane_phase(device, slo_ttft_s: float = SLO_TTFT_S):
     from fluxmpi_tpu_torch.errors import FaultInjectedError
     from fluxmpi_tpu_torch.models import (TransformerLM, beam_search, generate,
                                           lm_from_gpt2, load_flax_params)
-    from fluxmpi_tpu_torch.ops.flash_attention import flash_fwd
     from fluxmpi_tpu_torch.serving import InferenceEngine
 
     failures = []
@@ -1406,16 +1517,24 @@ def serving_plane_phase(device, slo_ttft_s: float = SLO_TTFT_S):
     all_ids = []  # every request the phase submits: each must be logged
 
     def counted(path, fn):
-        flash_fwd.launches = 0
-        out = fn()
-        launches[path] = flash_fwd.launches
+        """``fn()``, its ``flash_fwd`` launches by the device counter under
+        ``path``; the counter must equal the wrapper's count less the step
+        graphs' captures plus their replays."""
+        out, dev, wrapped, graphs = step_graph_launches(fn)
+        launches[path] = dev["flash_fwd"]
+        if not launches_agree(dev, wrapped, graphs):
+            failures.append(f"serving_plane {path}: launches {dev} by the device counters, "
+                            f"wrappers {wrapped}, step graphs {graphs}")
         return out
 
-    def serve_background(name):
+    def serve_background(name, eager=False):
         model = models[name]
         eng = InferenceEngine(model, slo_ttft_s=slo_ttft_s, slo_token_s=SLO_TOKEN_S)
+        eng._eager = eager
         eng.warmup(prompt_lengths=lengths)
         torch.cuda.synchronize()
+        built = {n: g.captures for n, g in eng._graphs.items()}
+        name = f"{name}_eager" if eager else name
 
         def drive():
             t0 = time.perf_counter()
@@ -1429,11 +1548,13 @@ def serving_plane_phase(device, slo_ttft_s: float = SLO_TTFT_S):
         reqs, streamed, done, wall, stopped = counted(f"serve_plane_{name}", drive)
         all_ids.extend(r.id for r in reqs)
         summary = eng.run()  # run() inline after stop(): the totals, a flush
+        captured = sum(g.captures for g in eng._graphs.values()) - sum(built.values())
         n = launches[f"serve_plane_{name}"]
         need = layers * (eng.prefills + summary["decode_steps"])
         ttft = np.array([r.ttft_s for r in reqs if r.ttft_s is not None])
         per_tok = np.array([r.per_token_s for r in reqs if r.per_token_s is not None])
         run = dict(slots=eng.slots, block_size=eng.block_size, wall_seconds=wall,
+                   captures_after_warmup=captured,
                    tokens=summary["tokens"], tokens_per_sec=summary["tokens"] / wall,
                    completed=summary["completed"], decode_steps=summary["decode_steps"],
                    prefills=eng.prefills, slo_violations=summary["slo_violations"],
@@ -1452,7 +1573,8 @@ def serving_plane_phase(device, slo_ttft_s: float = SLO_TTFT_S):
               f"within both, TTFT {slo_ttft_s * 1e3:.1f} ms, per token "
               f"{SLO_TOKEN_S * 1e3:.0f} ms); decode_steps={run['decode_steps']} prefills="
               f"{run['prefills']}; flash_fwd launches={n} (need >= {need}); "
-              f"serve_error={eng.serve_error!r}", flush=True)
+              f"captures after warmup {captured}; serve_error={eng.serve_error!r}",
+              flush=True)
         if not (done and stopped and eng.serve_error is None
                 and all(r.status == "finished" for r in reqs)):
             failures.append(f"serving_plane {name}: background run did not finish "
@@ -1461,7 +1583,10 @@ def serving_plane_phase(device, slo_ttft_s: float = SLO_TTFT_S):
             failures.append(f"serving_plane {name}: stream() differs from the tokens")
         if n < need or n == 0:
             failures.append(f"serving_plane {name}: flash_fwd launched {n} < {need}")
-        if not (0 < run["slo_violations"] and 0 < run["slo_ok"]):
+        if not eager and (captured or set(built.values()) != {1}):
+            failures.append(f"serving_plane {name}: {sum(built.values())} captures at "
+                            f"warmup for {len(built)} programs, {captured} after it")
+        if not eager and not (0 < run["slo_violations"] and 0 < run["slo_ok"]):
             failures.append(f"serving_plane {name}: SLOs broken by none or by all")
         eng.close()
         return run, [list(r.tokens) for r in reqs]
@@ -1491,7 +1616,16 @@ def serving_plane_phase(device, slo_ttft_s: float = SLO_TTFT_S):
         runs, streams = {}, {}
         for name in ("f32", "bf16"):
             runs[name], streams[name] = serve_background(name)
+        # The same requests through eager steps: the graphed engine's
+        # yardstick in this run.
+        runs["f32_eager"], streams["f32_eager"] = serve_background("f32", eager=True)
         stats["runs"] = runs
+        same = streams["f32_eager"] == streams["f32"]
+        print(f"serving_plane f32: the graphed engine's streams equal the eager "
+              f"engine's {same}; tokens/s graphed {runs['f32']['tokens_per_sec']:.1f}, "
+              f"eager {runs['f32_eager']['tokens_per_sec']:.1f}", flush=True)
+        if not same:
+            failures.append("serving_plane f32: graphed streams differ from eager ones")
 
         f32_ref = references("f32")
         same = sum(a == b for a, b in zip(streams["f32"], f32_ref))
@@ -4617,13 +4751,12 @@ def health_phase(device, updates: int = 32, flush_every: int = 8,
                                   attention="flash")
             rng = np.random.default_rng(0)
             before = len(detector.triggered)
-            flash_fwd.launches = 0
             for _ in range(8):
                 eng.submit(rng.integers(0, GPT2_SMALL["vocab_size"], 48).tolist(), 8)
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")
-                ssum = eng.run()
-            serve_launches = flash_fwd.launches
+                ssum, serve_dev, serve_wrapped, serve_graphs = step_graph_launches(eng.run)
+            serve_launches = serve_dev["flash_fwd"]
             burn = [e for e in detector.triggered[before:] if e["rule"] == "slo_burn"]
             code, body = _http_get(exporter.port, "/status")
             board = json.loads(body).get("serving") if code == 200 else None
@@ -4640,9 +4773,11 @@ def health_phase(device, updates: int = 32, flush_every: int = 8,
                   f"({burn[:1]}); flash_fwd launches {serve_launches}; serving board "
                   f"phase {(board or {}).get('phase')}, burn {(board or {}).get('burn_rate')}; "
                   f"fluxmpi_top rc {stop_top.returncode}", flush=True)
-            if not burn or serve_launches <= 0:
+            if not burn or serve_launches <= 0 or not launches_agree(
+                    serve_dev, serve_wrapped, serve_graphs):
                 failures.append(f"health_phase: serving slo_burn events {len(burn)}, "
-                                f"flash_fwd launches {serve_launches}")
+                                f"flash_fwd launches {serve_launches} (wrappers "
+                                f"{serve_wrapped}, step graphs {serve_graphs})")
             if (board or {}).get("phase") != "finished" or stop_top.returncode != 0 \
                     or "SERVING" not in stop_top.stdout:
                 failures.append(f"health_phase: serving board {board}, fluxmpi_top "
@@ -4900,10 +5035,10 @@ def parallel_phase(device, updates: int = 8, fused_updates: int = 12,
 
     # Greedy generate: the "auto" prefill is the scan for MoE.
     prompt = torch.from_numpy(corpus[:2, :16].astype(np.int64)).to(dev)
-    flash_fwd.launches = 0
     with torch.no_grad():
-        toks, launches = kernel_launches(lambda: generate(model, prompt, new_tokens))
-        counted = flash_fwd.launches
+        toks, launches, wrapped, graphs = step_graph_launches(
+            lambda: generate(model, prompt, new_tokens))
+        counted = wrapped["flash_fwd"] + graphs["flash_fwd"]
         scan = generate(model, prompt, new_tokens, prefill="scan")
     torch.cuda.synchronize()
     gen_same = torch.equal(toks, scan)
@@ -4911,7 +5046,8 @@ def parallel_phase(device, updates: int = 8, fused_updates: int = 12,
                              flash_fwd_launches=launches["flash_fwd"], counted=counted)
     print(f"parallel generate: {new_tokens} greedy tokens, 'auto' "
           f"{'equals' if gen_same else 'DIFFERS FROM'} 'scan'; flash_fwd launches "
-          f"{launches['flash_fwd']} (wrappers {counted})", flush=True)
+          f"{launches['flash_fwd']} (wrappers less captures plus replays {counted})",
+          flush=True)
     if not gen_same:
         failures.append("parallel_phase: generate's auto prefill differs from scan")
     if launches["flash_fwd"] != counted or not counted:
@@ -5812,6 +5948,7 @@ def examples_phase(device):
     import fluxmpi_tpu_torch as fm
     import fluxmpi_tpu_torch.models as models
     from fluxmpi_tpu_torch.ops import device_launches, flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.utils._step_graph import graph_launches as step_graphs
 
     del device  # each example picks the card itself (init(device=None))
     root = Path(__file__).resolve().parent
@@ -5838,6 +5975,7 @@ def examples_phase(device):
         sys.argv = [str(root / "examples_torch" / name)]
         models.generate = counted_generate
         before = {f.__name__: f.launches for f in wrappers}
+        graphs_before = step_graphs()
         out = io.StringIO()
         t0 = time.perf_counter()
         error = None
@@ -5856,7 +5994,11 @@ def examples_phase(device):
             models.generate = real_generate
             fm.shutdown()
         seconds = time.perf_counter() - t0
-        wrapped = {f.__name__: f.launches - before[f.__name__] for f in wrappers}
+        # The wrappers' counts, with what the step graphs (generate's
+        # ticks) add: their replays less their captures.
+        graphs_after = step_graphs()
+        wrapped = {f.__name__: f.launches - before[f.__name__]
+                   + graphs_after[f.__name__] - graphs_before[f.__name__] for f in wrappers}
         text = out.getvalue()
         for line in text.splitlines()[-3:]:
             print(f"  {name}: {line}", flush=True)
@@ -6218,16 +6360,216 @@ def decode_ticks(step, tok, start: int, ticks: int):
     return torch.cat(out, dim=1), begin.elapsed_time(end) / ticks
 
 
+DECODE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
+
+
+def graphed_decode(model, prompt, ticks: int, tag: str, failures: list,
+                   eos_at: int = 8) -> dict:
+    """``generate``'s and ``beam_search``'s ticks replayed as CUDA graphs
+    (the entry points as a user calls them) against the private eager
+    ticks (``_generate`` / ``_beam_search`` with ``graphed=False``) on the
+    same inputs, bit for bit: greedy with the batched prefill and with the
+    scan, sampled (``DECODE_SAMPLING``) with two CUDA generators, with an
+    ``eos_token`` the greedy run emits, and beam 4 with length penalty 0.6.
+    Each graphed path runs twice: the second call at the same key must
+    capture nothing; launches by the device counters must equal the
+    wrappers' less captures plus replays. Then the greedy loop's ticks
+    alone, graphed and eager in turns (3 each, CUDA events), their host
+    launch calls and device kernels per tick (one traced run each), the
+    capture seconds and the graph pool's bytes; and the same ticks through
+    ``forward(kv_cache=)`` captured as one graph, timed the same way."""
+    import importlib
+
+    import torch
+
+    from fluxmpi_tpu_torch.models import beam_search, generate
+    from fluxmpi_tpu_torch.utils._step_graph import StepGraph
+
+    gen_mod = importlib.import_module("fluxmpi_tpu_torch.models.generate")
+    dev = torch.device(model.device)
+    b, plen = prompt.shape
+    total = plen + ticks
+    stats, paths = {}, {}
+
+    seen = {}  # every loop met so far: the cache keeps 4 and drops the oldest
+
+    def captures():
+        for _, loop in gen_mod._loops.get(model, {}).values():
+            seen[id(loop)] = loop
+        return sum(loop.graph.captures for loop in seen.values())
+
+    def rng(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def same(got, want):
+        if isinstance(want, tuple):
+            return all(torch.equal(g, w) for g, w in zip(got, want))
+        return torch.equal(got, want)
+
+    def check(path, graphed, eager):
+        c0 = captures()
+        t0 = time.perf_counter()
+        got, dev_n, wrapped, graphs = step_graph_launches(graphed)
+        first_s = time.perf_counter() - t0
+        c1 = captures()
+        t0 = time.perf_counter()
+        again, dev_2, wrapped_2, graphs_2 = step_graph_launches(graphed)
+        again_s = time.perf_counter() - t0
+        c2 = captures()
+        want = eager()
+        equal = same(got, want) and same(again, want)
+        agree = launches_agree(dev_n, wrapped, graphs) and launches_agree(dev_2, wrapped_2,
+                                                                           graphs_2)
+        row = dict(equal=equal, captures=c1 - c0, repeat_captures=c2 - c1,
+                   flash_fwd=dev_n["flash_fwd"] + dev_2["flash_fwd"],
+                   wrappers=wrapped["flash_fwd"] + wrapped_2["flash_fwd"],
+                   graphs=graphs["flash_fwd"] + graphs_2["flash_fwd"],
+                   first_call_s=first_s, repeat_call_s=again_s)
+        paths[path] = row
+        print(f"decode graphed {tag} {path}: equal to the eager ticks {equal}; captures "
+              f"{row['captures']}, at the repeat {row['repeat_captures']}; flash_fwd "
+              f"launches {row['flash_fwd']} by the device counter (wrappers "
+              f"{row['wrappers']} + step graphs {row['graphs']}); calls {first_s:.3f} s, "
+              f"{again_s:.3f} s", flush=True)
+        if not equal:
+            failures.append(f"decode_phase {tag} {path}: graphed ticks differ from eager")
+        if c2 != c1 or not agree:
+            failures.append(f"decode_phase {tag} {path}: a repeat call captured "
+                            f"{c2 - c1}, or launches disagree ({dev_n}, {wrapped}, {graphs})")
+        return got
+
+    greedy = check("greedy", lambda: generate(model, prompt, ticks),
+                   lambda: gen_mod._generate(model, prompt, ticks, graphed=False))
+    check("scan", lambda: generate(model, prompt, ticks, prefill="scan"),
+          lambda: gen_mod._generate(model, prompt, ticks, graphed=False, prefill="scan"))
+    for seed in (1, 2):
+        check(f"sampled_seed{seed}",
+              lambda: generate(model, prompt, ticks, rng=rng(seed), **DECODE_SAMPLING),
+              lambda: gen_mod._generate(model, prompt, ticks, graphed=False, rng=rng(seed),
+                                        **DECODE_SAMPLING))
+    eos = int(greedy[0, plen + min(eos_at, ticks // 2)])
+    check("eos", lambda: generate(model, prompt, ticks, eos_token=eos),
+          lambda: gen_mod._generate(model, prompt, ticks, graphed=False, eos_token=eos))
+    check("beam4_lp0.6", lambda: beam_search(model, prompt, ticks, beam_size=4,
+                                             length_penalty=0.6),
+          lambda: gen_mod._beam_search(model, prompt, ticks, graphed=False, beam_size=4,
+                                       length_penalty=0.6))
+    stats["paths"] = paths
+
+    # The greedy loop's ticks alone: graphed and eager in turns.
+    key = ("generate", b, total, 0.0, None, None, None, model.dtype,
+           getattr(model, "attention", None))
+    loop = gen_mod._loops[model][key][1]
+
+    def load():
+        gen_mod._generate_load(model, loop.state, prompt, "batched")
+
+    def run_ticks(graphed):
+        with torch.no_grad():
+            for _ in range(ticks):
+                loop.graph() if graphed else loop.graph.body()
+
+    def tick_ms(reset, run):
+        """ms per tick of ``run()`` by CUDA events, ``reset()`` (the
+        loop's inputs) outside the timed span."""
+        reset()
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        begin.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        return begin.elapsed_time(end) / ticks
+
+    times = {"graphed": [], "eager": []}
+    for mode in ("graphed", "eager", "eager", "graphed", "graphed", "eager"):
+        times[mode].append(tick_ms(load, lambda: run_ticks(mode == "graphed")))
+    traced = {}
+    for mode in ("graphed", "eager"):
+        load()
+        torch.cuda.synchronize()
+        _, calls, kernels = host_launches(lambda: run_ticks(mode == "graphed"))
+        traced[mode] = dict(host_launch_calls_per_tick=calls / ticks,
+                            device_kernels_per_tick=kernels / ticks)
+
+    # The same ticks through forward(kv_cache=), captured as one graph.
+    k, v, _ = gen_mod.prefill_kv(model, prompt[:, :plen - 1])
+    kv = tuple(torch.zeros(model.cache_shape(b, total), dtype=model.dtype, device=dev)
+               for _ in range(2))
+    kv[0][:, :, :plen - 1], kv[1][:, :, :plen - 1] = k, v
+    del k, v
+    kv_tok = torch.zeros((b, 1), dtype=torch.long, device=dev)
+    kv_pos = torch.zeros((b,), dtype=torch.long, device=dev)
+
+    def kv_body():
+        logits = model(kv_tok, pos_offset=kv_pos, kv_cache=kv)
+        kv_tok.copy_(logits[:, -1].argmax(dim=-1, keepdim=True))
+        kv_pos.add_(1)
+
+    kv_graph = StepGraph("kv_cache tick", kv_body, dev)
+
+    def kv_reset():
+        kv_tok.copy_(prompt[:, plen - 1:])
+        kv_pos.fill_(plen - 1)
+
+    def kv_ticks():
+        for _ in range(ticks):
+            kv_graph()
+
+    kv_reset()
+    kv_ticks()  # eager first tick, then the capture
+    kv_ms = [tick_ms(kv_reset, kv_ticks) for _ in range(3)]
+    del kv, kv_graph
+
+    def summary(xs):
+        xs = sorted(xs)
+        return dict(median=xs[len(xs) // 2], spread=xs[-1] - xs[0], runs=xs)
+
+    stats["loops"] = [dict(kind=k[0], rows=k[1], captures=lp.graph.captures, replays=lp.graph.replays,
+                           capture_seconds=lp.graph.capture_seconds,
+                           graph_pool_bytes=lp.graph.pool_bytes)
+                      for k, (_, lp) in gen_mod._loops[model].items()]
+    print(f"decode graphed {tag}: the model's cached loops (the last 4 keys): "
+          + "; ".join(f"{r['kind']} rows {r['rows']}: {r['captures']} captures "
+                      f"{r['capture_seconds']:.3f} s, {r['replays']} replays, pool "
+                      f"{r['graph_pool_bytes']} B" for r in stats["loops"]), flush=True)
+    stats.update(ms_per_tick_graphed=summary(times["graphed"]),
+                 ms_per_tick_eager=summary(times["eager"]),
+                 kv_cache_graphed_ms_per_tick=summary(kv_ms), traced=traced,
+                 capture_seconds=loop.graph.capture_seconds / max(1, loop.graph.captures),
+                 graph_pool_bytes=loop.graph.pool_bytes,
+                 flash_fwd_launches=sum(r["flash_fwd"] for r in paths.values()))
+    g, e, kvs = stats["ms_per_tick_graphed"], stats["ms_per_tick_eager"], \
+        stats["kv_cache_graphed_ms_per_tick"]
+    print(f"decode graphed {tag}: {card_line()}: ms per tick (b {b}, cache {total}, 3 runs "
+          f"of {ticks} ticks each, in turns) graphed median {g['median']:.4f} (spread "
+          f"{g['spread']:.4f}; {g['runs']}), eager median {e['median']:.4f} (spread "
+          f"{e['spread']:.4f}; {e['runs']}); forward(kv_cache=) graphed median "
+          f"{kvs['median']:.4f} (spread {kvs['spread']:.4f}); host launch calls per tick "
+          f"graphed {traced['graphed']['host_launch_calls_per_tick']:.2f}, eager "
+          f"{traced['eager']['host_launch_calls_per_tick']:.2f}; device kernels per tick "
+          f"{traced['graphed']['device_kernels_per_tick']:.2f} / "
+          f"{traced['eager']['device_kernels_per_tick']:.2f}; capture "
+          f"{stats['capture_seconds']:.3f} s; graph pool {stats['graph_pool_bytes']} B",
+          flush=True)
+    return stats
+
+
 def decode_phase(device):
-    """Slice 17's path on one card (module docstring, item 19). Returns
-    its stats and failures."""
+    """Slice 17's path on one card (module docstring, item 19), and slice
+    22's graphed decode loops (:func:`graphed_decode`). Returns its stats
+    and failures."""
     import numpy as np
     import torch
+
+    import importlib
 
     from fluxmpi_tpu_torch.models import MoETransformerLM, TransformerLM, generate
     from fluxmpi_tpu_torch.models.generate import _decode_twin, prefill_cache, prefill_kv
     from fluxmpi_tpu_torch.ops import flash_fwd
 
+    gen_mod = importlib.import_module("fluxmpi_tpu_torch.models.generate")
     failures = []
     card = card_line()
     cfg, b, plen, ticks = GPT2_SMALL, DECODE["batch"], DECODE["prompt"], DECODE["ticks"]
@@ -6306,6 +6648,8 @@ def decode_phase(device):
         if not (dev_launches["flash_fwd"] == counted == cfg["num_layers"] * ticks):
             failures.append(f"decode_phase {name}: flash_fwd launched "
                             f"{dev_launches['flash_fwd']} (wrappers {counted})")
+        stats[name]["graphed"] = graphed_decode(model, prompt, ticks, name, failures)
+        launches[f"decode_graphed_{name}"] = stats[name]["graphed"]["flash_fwd_launches"]
 
     delta = 4 * float((firsts["bfloat16"] - firsts["float32"]).abs().max())
     for name, run in runs.items():
@@ -6354,19 +6698,35 @@ def decode_phase(device):
     flash_fwd.launches = 0
     moe_toks, moe_launches = kernel_launches(moe_twin)
     counted = flash_fwd.launches
-    moe_gen = generate(moe, mprompt, new)[:, mplen:]
+    moe_gen, gen_dev, gen_wrapped, gen_graphs = step_graph_launches(
+        lambda: generate(moe, mprompt, new))
+    moe_gen = moe_gen[:, mplen:]
+    moe_again = generate(moe, mprompt, new)[:, mplen:]
+    moe_eager = gen_mod._generate(moe, mprompt, new, graphed=False)[:, mplen:]
     need = SWITCH_BASE_8["num_layers"] * (mplen + new - 1)
     same = torch.equal(moe_toks, moe_gen)
+    graphed_same = torch.equal(moe_gen, moe_eager) and torch.equal(moe_again, moe_eager)
     launches["decode_moe_twin"] = moe_launches["flash_fwd"]
+    launches["decode_moe_generate_graphed"] = gen_dev["flash_fwd"]
     stats["moe"] = dict(tokens_equal_generate=same, flash_fwd_launches=moe_launches,
-                        wrapper_launches=counted)
+                        wrapper_launches=counted, graphed_equal_eager=graphed_same,
+                        generate_launches=gen_dev, generate_wrappers=gen_wrapped,
+                        generate_graphs=gen_graphs)
     print(f"decode moe: Switch-Base-8 widths, bf16: {mb} x {new} twin tokens "
           f"{'equal' if same else 'DIFFER FROM'} its generate(); flash_fwd launches "
-          f"{moe_launches} (wrappers {counted}, need {need})", flush=True)
+          f"{moe_launches} (wrappers {counted}, need {need}); generate's graphed ticks "
+          f"equal its eager ticks {graphed_same}, launches {gen_dev['flash_fwd']} by the "
+          f"device counter (wrappers {gen_wrapped['flash_fwd']} + step graphs "
+          f"{gen_graphs['flash_fwd']}, need {need})", flush=True)
     if not same:
         failures.append("decode_phase moe: the twin's tokens differ from generate()")
+    if not graphed_same:
+        failures.append("decode_phase moe: generate's graphed ticks differ from eager")
     if not (moe_launches["flash_fwd"] == counted == need):
         failures.append(f"decode_phase moe: flash_fwd launched {moe_launches['flash_fwd']}")
+    if not (launches_agree(gen_dev, gen_wrapped, gen_graphs) and gen_dev["flash_fwd"] == need):
+        failures.append(f"decode_phase moe: generate launched {gen_dev} (wrappers "
+                        f"{gen_wrapped}, step graphs {gen_graphs}, need {need})")
     del moe
     torch.cuda.empty_cache()
     stats["launches_by_path"] = {p: {"flash_fwd": n, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -7378,7 +7738,8 @@ def run_phases(device):
         "name": "flash_fwd", "route": "cuda",
         "source": "fluxmpi_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "fluxmpi_tpu/ops/flash_attention.py:185",
-        "launches": (stats["launches"] + train["launches"]["flash_fwd"]
+        "launches": (stats["launches"] + stats["eager"]["launches"]
+                     + train["launches"]["flash_fwd"]
                      + bf16["launches"]["flash_fwd"]
                      + bf16["remat"]["remat"]["launches"]["flash_fwd"]
                      + bf16["remat"]["dots"]["launches"]["flash_fwd"]
@@ -7390,7 +7751,8 @@ def run_phases(device):
                      + sum(n["flash_fwd"] for n in par_paths.values())
                      + health.get("serving", {}).get("flash_fwd_launches", 0)
                      + sum(plane["launches"].values())),
-        "launches_by_path": {"serve": stats["launches"], **plane["launches"],
+        "launches_by_path": {"serve": stats["launches"],
+                             "serve_eager": stats["eager"]["launches"], **plane["launches"],
                              "train": train["launches"]["flash_fwd"],
                              "train_bf16": bf16["launches"]["flash_fwd"],
                              "train_bf16_remat":

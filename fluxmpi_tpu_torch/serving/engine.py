@@ -25,17 +25,33 @@ Counterpart of :mod:`fluxmpi_tpu.serving.engine`. Each iteration:
   histograms and counters and the request observer's terminal record are
   booked here.
 
-The loop is host-driven: one forward and one small device-to-host token
-copy per iteration, with admission, delivery, eviction and the
-preemption poll between iterations. :meth:`InferenceEngine.run` drives it
-inline; :meth:`InferenceEngine.start` on a background thread. The
+The loop is host-driven: one decode step and one small device-to-host
+token copy per iteration, with admission, delivery, eviction and the
+preemption poll between iterations. As the JAX package jits ONE
+fixed-shape decode step and one prefill per prompt bucket, the engine runs
+each as a program of static device buffers
+(:class:`~fluxmpi_tpu_torch.utils._step_graph.StepGraph`): on the card the
+tables, positions and tokens are copied into the decode step's buffers
+from pinned host memory and the step is ONE CUDA graph replay (the
+gather, the forward with ``kv_cache=``, the scatter into the pools, the
+argmax); a prefill bucket's program reads the padded prompt, its length
+and its table the same way and leaves the first token on the device, read
+once per admission. A program's first call runs eagerly, its second
+captures (:meth:`InferenceEngine.warmup` does both for the decode step and
+every bucket it is given), so requests joining and leaving later capture
+nothing. :meth:`InferenceEngine.close` releases the graphs before the
+pools go. On the CPU the steps run eagerly. :meth:`InferenceEngine.run`
+drives the loop inline; :meth:`InferenceEngine.start` on a background
+thread. The
 registry, the request observer and the live exporter are resolved once per
 run: with all off, an iteration reads a few booleans. At each flush the
 engine posts its board to the exporter's ``/status`` ``serving`` section
 and feeds the request observer's multi-window SLO burn rate to the anomaly
 detector's ``slo_burn`` rule. The decode step and each prefill bucket are
-tracked by the compile monitor (eager callables: untracked, so only the
-kernel builds they set off count). The ``serving.admit`` and
+tracked by the compile monitor as AOT programs: each capture counts as
+one of their builds (``note_aot_compile``), so a capture after the warmup
+boundary reads as a retrace of ``serving.decode_step`` or
+``serving.prefill_<bucket>``. The ``serving.admit`` and
 ``serving.decode`` fault sites sit in :meth:`InferenceEngine.submit` and
 the decode tick.
 
@@ -51,6 +67,7 @@ same prompt token for token.
 
 from __future__ import annotations
 
+import functools
 import inspect
 import os
 import queue as queue_mod
@@ -66,6 +83,7 @@ import torch
 from ..config import env_int
 from ..errors import RequestRejectedError
 from ..telemetry.registry import MetricsRegistry, get_registry
+from ..utils._step_graph import StepGraph
 from . import observe as _observe_mod
 from .cache import TRASH_BLOCK, BlockKVCache, blocks_for_tokens
 
@@ -416,7 +434,7 @@ class InferenceEngine:
                     f"no such argument")
         self.attention = mode
         self.model = model
-        self.device = model.device
+        self.device = torch.device(model.device)
         self.slots = _resolve(slots, cfg.slots, _ENV_SLOTS, _DEFAULT_SLOTS)
         self.block_size = _resolve(block_size, cfg.block_size, _ENV_BLOCK_SIZE,
                                    _DEFAULT_BLOCK_SIZE)
@@ -484,9 +502,16 @@ class InferenceEngine:
         self._counted_tokens = 0
         self._counted_records = 0
         self._buckets: set[int] = set()
+        # The step programs (serving.decode_step, serving.prefill_<bucket>),
+        # their static device buffers and pinned host twins; eager steps on
+        # the CPU.
+        self._graphs: dict[str, StepGraph] = {}
+        self._buffers: dict[str, tuple] = {}
+        self._eager = self.device.type != "cuda"
         mon = self._compile_monitor()
         if mon is not None:
             mon.track("serving.decode_step", self._decode_step)
+            mon.track_aot("serving.decode_step")
         self._resolve_run()
         set_engine(self)
 
@@ -502,43 +527,125 @@ class InferenceEngine:
 
     # -- device steps --------------------------------------------------
 
+    def _graph(self, name: str, body: Callable[[], None]) -> StepGraph:
+        """The step program ``name`` (made on first use; a compile-plane
+        AOT program: each capture is one of its builds)."""
+        graph = self._graphs.get(name)
+        if graph is None:
+            graph = self._graphs[name] = StepGraph(name, body, self.device, track=True)
+            mon = self._compile_monitor()
+            if mon is not None:
+                mon.track_aot(name)
+        return graph
+
+    def _run_step(self, graph: StepGraph) -> None:
+        """One call of a step program: eager on the CPU (and when the
+        engine runs eager steps), else its CUDA graph, captured against
+        the current pools and parameters."""
+        if self._eager:
+            with torch.no_grad():
+                graph.body()
+            return
+        pools = (self.cache.k_pool, self.cache.v_pool)  # made before any capture
+        graph(tuple(t.data_ptr() for t in (*pools, *self.model.parameters())))
+
+    def _stage(self, name: str, arr: np.ndarray) -> torch.Tensor:
+        """The static device buffer ``name`` (int64, ``arr``'s shape), filled
+        from ``arr``: on the card through a pinned host buffer, without
+        blocking (each step ends with a blocking read, so the host buffer
+        is free again by the next step's fill)."""
+        buf = self._buffers.get(name)
+        if buf is None:
+            dev = torch.zeros(arr.shape, dtype=torch.long, device=self.device)
+            host = (torch.zeros(arr.shape, dtype=torch.long, pin_memory=True)
+                    if self.device.type == "cuda" else None)
+            buf = self._buffers[name] = (dev, host)
+        dev, host = buf
+        if host is None:
+            dev.copy_(torch.from_numpy(np.asarray(arr, np.int64)))
+        else:
+            host.numpy()[...] = arr
+            dev.copy_(host, non_blocking=True)
+        return dev
+
+    def _out(self, name: str, shape: tuple) -> torch.Tensor:
+        """The static int64 device output ``name``."""
+        buf = self._buffers.get(name)
+        if buf is None:
+            buf = self._buffers[name] = (torch.zeros(shape, dtype=torch.long,
+                                                     device=self.device), None)
+        return buf[0]
+
     @torch.no_grad()
     def _prefill_step(self, tokens: np.ndarray, length: int,
                       table: np.ndarray) -> int:
         """One causal forward over the padded prompt; K/V scattered into
         the table's blocks (positions past ``length`` into the trash
-        block); returns the first generated token."""
-        dev = self.device
-        bs = self.block_size
-        if tokens.shape[0] not in self._buckets:
-            self._buckets.add(tokens.shape[0])
+        block); returns the first generated token. The program of the
+        prompt's bucket (``serving.prefill_<bucket>``) reads the prompt,
+        the length and the table from static device buffers; the first
+        token is its device output, read once."""
+        bucket = tokens.shape[0]
+        name = f"serving.prefill_{bucket}"
+        if bucket not in self._buckets:
+            self._buckets.add(bucket)
             mon = self._compile_monitor()
             if mon is not None:
-                mon.track(f"serving.prefill_{tokens.shape[0]}", self._prefill_step)
-        toks = torch.from_numpy(tokens).to(dev).long()[None]
-        logits, k, v = self.model(toks, train=False, return_kv=True,
+                mon.track(name, self._prefill_step)
+        graph = self._graph(name, functools.partial(self._prefill_body, bucket))
+        self._stage(f"prefill_{bucket}.tokens", tokens)
+        self._stage(f"prefill_{bucket}.length", np.asarray(length))
+        self._stage(f"prefill_{bucket}.table", table)
+        first = self._out(f"prefill_{bucket}.first", ())
+        self._run_step(graph)
+        self._prefills += 1
+        return int(first.cpu().numpy())
+
+    def _prefill_body(self, bucket: int) -> None:
+        """The prefill program of ``bucket``: static buffers in, the pools
+        and the first token out; no host read."""
+        bufs = self._buffers
+        toks = bufs[f"prefill_{bucket}.tokens"][0]
+        length = bufs[f"prefill_{bucket}.length"][0]
+        tab = bufs[f"prefill_{bucket}.table"][0]
+        bs = self.block_size
+        logits, k, v = self.model(toks[None], train=False, return_kv=True,
                                   attention=self.attention)
-        pos = torch.arange(tokens.shape[0], device=dev)
-        tab = torch.from_numpy(table).to(dev).long()
+        pos = torch.arange(bucket, device=self.device)
         blk = torch.where(pos < length, tab[pos // bs],
                           torch.full_like(pos, TRASH_BLOCK))
         off = pos % bs
         pool_k, pool_v = self.cache.k_pool, self.cache.v_pool
         pool_k[:, blk, off] = k[:, 0].to(pool_k.dtype)
         pool_v[:, blk, off] = v[:, 0].to(pool_v.dtype)
-        self._prefills += 1
-        return int(logits[0, length - 1].argmax())
+        last = logits[0].index_select(0, (length - 1).reshape(1))[0]
+        self._out(f"prefill_{bucket}.first", ()).copy_(last.argmax())
 
     @torch.no_grad()
     def _decode_step(self, tables: np.ndarray, positions: np.ndarray,
                      tokens: np.ndarray) -> np.ndarray:
         """Advance every slot one token: gather, one batched forward at
-        per-slot positions, scatter the new K/V back, argmax."""
-        dev = self.device
+        per-slot positions, scatter the new K/V back, argmax. The program
+        (``serving.decode_step``) reads the tables, positions and tokens
+        from static device buffers; one device-to-host copy brings the
+        next tokens back."""
+        graph = self._graph("serving.decode_step", self._decode_body)
+        self._stage("decode.tables", tables)
+        self._stage("decode.positions", positions)
+        self._stage("decode.tokens", tokens)
+        nxt = self._out("decode.next", (self.slots,))
+        self._run_step(graph)
+        return nxt.cpu().numpy()
+
+    def _decode_body(self) -> None:
+        """The decode program: static buffers in, the pools and the next
+        tokens out; no host read, the same shapes whichever slots are
+        active."""
+        bufs = self._buffers
+        tab = bufs["decode.tables"][0]        # [slots, MB]
+        pos = bufs["decode.positions"][0]     # [slots]
+        tok = bufs["decode.tokens"][0][:, None]
         bs = self.block_size
-        tab = torch.from_numpy(tables).to(dev).long()        # [slots, MB]
-        pos = torch.from_numpy(positions).to(dev).long()     # [slots]
-        tok = torch.from_numpy(tokens).to(dev).long()[:, None]
         pool_k, pool_v = self.cache.k_pool, self.cache.v_pool
         n_l, _, _, h, hd = pool_k.shape
         shape = (n_l, self.slots, self.max_len, h, hd)
@@ -546,19 +653,29 @@ class InferenceEngine:
         v_g = pool_v[:, tab].reshape(shape)
         logits = self.model(tok, pos_offset=pos, kv_cache=(k_g, v_g),
                             attention=self.attention)
-        rows = torch.arange(self.slots, device=dev)
+        rows = torch.arange(self.slots, device=self.device)
         blk = tab[rows, pos // bs]
         off = pos % bs
         pool_k[:, blk, off] = k_g[:, rows, pos]
         pool_v[:, blk, off] = v_g[:, rows, pos]
-        return logits[:, -1].argmax(dim=-1).cpu().numpy()
+        self._out("decode.next", (self.slots,)).copy_(logits[:, -1].argmax(dim=-1))
+
+    def release_graph(self) -> None:
+        """Drop the step programs' CUDA graphs (:meth:`close` and
+        :func:`~fluxmpi_tpu_torch.runtime.shutdown` call this before the
+        pools go); the next step captures anew."""
+        for graph in self._graphs.values():
+            graph.release_graph()
 
     def warmup(self, prompt_lengths: tuple[int, ...] = ()) -> None:
-        """Run the prefill buckets covering ``prompt_lengths`` and one
-        decode step before traffic arrives (kernel builds, library
-        handles). Every write lands in the trash block, so the allocator
-        is untouched; the writes still race a serving thread, so call it
-        before :meth:`start` or after :meth:`stop`."""
+        """Build the prefill programs of the buckets covering
+        ``prompt_lengths`` and the decode step's before traffic arrives: on
+        the card each runs once eagerly (kernel builds, library handles),
+        then is captured as a CUDA graph and replayed, so requests joining
+        and leaving later capture nothing. Every write lands in the trash
+        block, so the allocator is untouched; the writes still race a
+        serving thread, so call it before :meth:`start` or after
+        :meth:`stop`."""
         if self._thread is not None and self._thread.is_alive():
             raise RuntimeError(
                 "engine is serving on its background thread; warmup writes "
@@ -568,12 +685,15 @@ class InferenceEngine:
         buckets.add(self.block_size)
         trash = np.zeros((self.max_blocks_per_seq,), np.int32)
         prefills = self._prefills
+        runs = 1 if self._eager else 2  # eager, then the capture
         for bucket in sorted(buckets):
-            self._prefill_step(np.zeros((bucket,), np.int32), 1, trash)
-        self._decode_step(
-            np.zeros((self.slots, self.max_blocks_per_seq), np.int32),
-            np.zeros((self.slots,), np.int32), np.zeros((self.slots,), np.int32),
-        )
+            for _ in range(runs):
+                self._prefill_step(np.zeros((bucket,), np.int32), 1, trash)
+        for _ in range(runs):
+            self._decode_step(
+                np.zeros((self.slots, self.max_blocks_per_seq), np.int32),
+                np.zeros((self.slots,), np.int32), np.zeros((self.slots,), np.int32),
+            )
         self._prefills = prefills
 
     # -- admission -----------------------------------------------------
@@ -1018,6 +1138,7 @@ class InferenceEngine:
         stopped = self.stop()
         self._fail_pending("shutdown", include_active=stopped)
         if stopped:
+            self.release_graph()
             self.cache.drop_pools()
         if get_engine() is self:
             set_engine(None)

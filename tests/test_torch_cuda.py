@@ -8,7 +8,10 @@ one CUDA graph against the pipelined run bit for bit (with and without
 remat) and with a loss_fn whose host-side state the graph fixes at
 capture, BatchNorm's statistics carried by a captured window (with the
 step's statistics all-reduce and a sync-BN model at world 1 over NCCL), a
-ResNet on the card against the CPU, the kernels at the zoo's shapes (ViT's
+ResNet on the card against the CPU, the decode loops and the engine's
+steps as CUDA graphs (``generate`` and ``beam_search`` against their
+eager ticks bit for bit, the engine's zero captures after ``warmup`` as
+requests join and leave, its graphs released before its pools), the kernels at the zoo's shapes (ViT's
 197 tokens, the UNet's head dim 128), ``flash_attention_fn``'s mask inside
 a captured graph, a DDPM window whose CUDA generator draws afresh on every
 replay, the dropout seed read from device memory (a tensor seed against
@@ -132,7 +135,26 @@ def test_row_bits_independent_of_cache_length_and_prefill(device, dtype, d):
             assert torch.equal(row[:, 0], prefill[:, pos]), (pos, total)
 
 
+def _graph_counted(run):
+    """``run()``'s result and ``flash_fwd``'s launches by the device
+    counter, and by the wrapper plus what the step graphs' replays less
+    their captures add to it (the two must agree)."""
+    from fluxmpi_tpu_torch.utils._step_graph import graph_launches
+
+    torch.cuda.synchronize()
+    fa.device_launches(reset=True)
+    wrapped, graphed = fa.flash_fwd.launches, graph_launches()["flash_fwd"]
+    out = run()
+    torch.cuda.synchronize()
+    return out, fa.device_launches()["flash_fwd"], (
+        fa.flash_fwd.launches - wrapped + graph_launches()["flash_fwd"] - graphed)
+
+
 def test_engine_flash_streams_equal_generate_on_card(device):
+    """The engine's decode step and prefill buckets as CUDA graphs: every
+    stream equals ``generate()``, the decode step captured once and
+    replayed every later step, launches by the device counter equal to the
+    wrapper's less captures plus replays."""
     from fluxmpi_tpu_torch.models import TransformerLM, generate
     from fluxmpi_tpu_torch.serving import InferenceEngine
 
@@ -142,12 +164,146 @@ def test_engine_flash_streams_equal_generate_on_card(device):
     rng = np.random.default_rng(0)
     reqs = [eng.submit(rng.integers(0, 97, p), n)
             for p, n in ((5, 9), (40, 20), (70, 3), (1, 30))]
-    before = fa.flash_fwd.launches
-    summary = eng.run()
-    assert fa.flash_fwd.launches - before >= 2 * (eng.prefills + summary["decode_steps"])
+    summary, dev, counted = _graph_counted(eng.run)
+    assert dev == counted >= 2 * (eng.prefills + summary["decode_steps"])
+    step = eng._graphs["serving.decode_step"]
+    assert step.captures == 1 and step.replays == summary["decode_steps"] - 1
     for r in reqs:
         ref = generate(lm, r.prompt[None], r.max_new_tokens)[0, len(r.prompt):]
         assert r.tokens == ref.tolist()
+    eng.close()
+
+
+@pytest.mark.parametrize("attention", ["naive", "flash"])
+def test_engine_midflight_join_zero_retrace_on_card(device, attention):
+    """The port's counterpart of the JAX package's
+    ``test_midflight_join_zero_retrace`` and
+    ``test_flash_decode_bit_identical_with_midflight_join``: after
+    ``warmup`` (each program run eagerly, then captured) and the compile
+    plane's warmup boundary, a request that joins mid-flight and another of
+    another length in the same buckets cost zero compile events; the decode
+    step holds one graph; every stream equals ``generate()``."""
+    from fluxmpi_tpu_torch.models import TransformerLM, generate
+    from fluxmpi_tpu_torch.serving import InferenceEngine
+    from fluxmpi_tpu_torch.telemetry import MetricsRegistry, compileplane
+
+    lm = TransformerLM(vocab_size=97, max_len=64, num_layers=2, d_model=64,
+                       num_heads=4, d_ff=128, device=device,
+                       generator=torch.Generator().manual_seed(0))
+    mon = compileplane.CompileMonitor(registry=MetricsRegistry())
+    compileplane.set_compile_monitor(mon)
+    try:
+        eng = InferenceEngine(lm, slots=2, block_size=8, attention=attention)
+        eng.warmup(prompt_lengths=(5, 9, 16))
+        captured = {n: g.captures for n, g in eng._graphs.items()}
+        assert set(captured) == {"serving.decode_step", "serving.prefill_8",
+                                 "serving.prefill_16"} and set(captured.values()) == {1}
+        mon.observe_flush()  # warmup boundary
+        rng = np.random.default_rng(1)
+        first = eng.submit(rng.integers(1, 97, 9), 20)
+        for _ in range(3):
+            eng.step()
+        late = eng.submit(rng.integers(1, 97, 5), 8)    # joins mid-flight
+        later = eng.submit(rng.integers(1, 97, 12), 6)  # another length, same buckets
+        summary = eng.run()
+        assert summary["completed"] == 3
+        info = mon.observe_flush()
+        assert info["events"] == 0, f"steady-state captures: {info}"
+        assert mon.retraces == []
+        assert {n: g.captures for n, g in eng._graphs.items()} == captured
+        for req in (first, late, later):
+            ref = generate(lm, req.prompt[None], req.max_new_tokens)[0, len(req.prompt):]
+            assert req.tokens == ref.tolist()
+        eng.close()
+    finally:
+        compileplane.set_compile_monitor(None)
+
+
+def test_engine_close_and_shutdown_release_graphs_before_the_pools(device):
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.serving import BlockKVCache, InferenceEngine
+    from fluxmpi_tpu_torch.utils._step_graph import StepGraph
+
+    order = []
+    real_release, real_drop = StepGraph.release_graph, BlockKVCache.drop_pools
+
+    def release(self):
+        order.append(("release", self.name, self.graph is not None))
+        real_release(self)
+
+    def drop(self):
+        order.append(("drop", None, self._k_pool is not None))
+        real_drop(self)
+
+    lm = TransformerLM(vocab_size=97, max_len=64, num_layers=2, d_model=64,
+                       num_heads=4, d_ff=128, attention="flash", device=device)
+    StepGraph.release_graph, BlockKVCache.drop_pools = release, drop
+    try:
+        for how in ("close", "shutdown"):
+            order.clear()
+            if how == "shutdown":
+                fm.init(device=device)
+            eng = InferenceEngine(lm, slots=2, block_size=16)
+            eng.warmup(prompt_lengths=(5,))
+            eng.submit(np.arange(5), 4)
+            eng.run()
+            if how == "close":
+                eng.close()
+            else:
+                fm.shutdown()  # the serving plane's teardown closes the engine
+            # The engine's two programs (a shutdown releases every noted
+            # graph of the process, generate's loops too).
+            graphs = [e for e in order if e[0] == "release" and e[2]
+                      and e[1].startswith("serving.")]
+            drops = [i for i, e in enumerate(order) if e[0] == "drop" and e[2]]
+            assert len(graphs) == 2 and drops, (how, order)
+            assert max(order.index(e) for e in graphs) < drops[0], (how, order)
+            assert all(g.graph is None for g in eng._graphs.values())
+    finally:
+        StepGraph.release_graph, BlockKVCache.drop_pools = real_release, real_drop
+
+
+def test_generate_and_beam_search_graphs_equal_eager_on_card(device):
+    """``generate``'s and ``beam_search``'s ticks replayed as CUDA graphs
+    give the eager ticks' tokens and scores bit for bit (greedy batched
+    and scan, sampled with two generators, eos, beam with a length
+    penalty); a repeat call at the same key captures nothing; launches by
+    the device counter equal the wrapper's less captures plus replays."""
+    from fluxmpi_tpu_torch.models import TransformerLM, beam_search, generate
+
+    gen_mod = importlib.import_module("fluxmpi_tpu_torch.models.generate")
+    lm = TransformerLM(vocab_size=97, max_len=96, num_layers=2, d_model=64,
+                       num_heads=4, d_ff=128, attention="flash", device=device,
+                       generator=torch.Generator().manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(0, 97, (3, 20))).to(device)
+
+    def captures():
+        return sum(l.graph.captures for _, l in gen_mod._loops.get(lm, {}).values())
+
+    def rng(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    greedy = generate(lm, prompt, 24)
+    eos = int(greedy[0, 26])
+    cases = {"greedy": {}, "scan": dict(prefill="scan"), "eos": dict(eos_token=eos)}
+    for name, kw in cases.items():
+        want = gen_mod._generate(lm, prompt, 24, graphed=False, **kw)
+        got, dev, counted = _graph_counted(lambda: generate(lm, prompt, 24, **kw))
+        assert torch.equal(got, want) and dev == counted, name
+        before = captures()
+        assert torch.equal(generate(lm, prompt, 24, **kw), want) and captures() == before
+    samp = dict(temperature=0.8, top_k=50, top_p=0.9)
+    for seed in (1, 2):
+        a, b = rng(seed), rng(seed)
+        want = gen_mod._generate(lm, prompt, 24, graphed=False, rng=a, **samp)
+        got = generate(lm, prompt, 24, rng=b, **samp)
+        assert torch.equal(got, want) and torch.equal(a.get_state(), b.get_state()), seed
+    want_t, want_s = gen_mod._beam_search(lm, prompt, 24, graphed=False, beam_size=4,
+                                          length_penalty=0.6)
+    (got_t, got_s), dev, counted = _graph_counted(
+        lambda: beam_search(lm, prompt, 24, beam_size=4, length_penalty=0.6))
+    assert torch.equal(got_t, want_t) and torch.equal(got_s, want_s) and dev == counted
 
 
 # Gradients: both sides start from the same inputs, lse and dterm, and sum
