@@ -360,6 +360,18 @@
    card launches each kernel 8 x 12 / pp times an update, ``flash_fwd``
    twice that under ``remat_stages``); a 2-stage pipeline tick with its
    backward over each pp pair captured in a graph gives the eager bits.
+   Slice 23's launch (``MULTICARD_ZOO``): ViT-B/16 in bf16 (32 images of
+   224 x 224 a card) and ``_bench_unet`` in bf16 (16 images of 32 x 32 a
+   card through ``ddpm_loss``, one CUDA generator seeded alike on every
+   card) at dp=4 from ``zoo_build``/``zoo_run``, 16 updates in windows of
+   4, and GPT-2 small at dp=4 with ``config.DEVICE_COLLECTIVES_DISABLED``
+   set (the eager collectives staged through the host; the gradient
+   all-reduce on the card inside the graph), with the same gates; and the
+   random draws of ROADMAP C.32: the UNet's timesteps and noise of two
+   updates over the cards against one card's over the global batch, and
+   the three kernels with dropout over each card's quarter of ViT's
+   attention batch against one launch over the whole batch (row digests
+   across cards).
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -798,37 +810,43 @@ def dropout_mask_check(device):
     copy the dropped probabilities into the output, so an entry is nonzero
     iff the kernel kept it. The seed goes through the wrappers once as an
     int and once as a tensor on the card (the kernels read it from device
-    memory either way); both must give the reference's mask. Returns
-    {kernel: masks equal}."""
+    memory either way); both must give the reference's mask. Then again as
+    a worker's share of a whole batch (rows 3.. and heads 12.. of 24, the
+    hash keyed by ``hash_rows``, ROADMAP C.32): ``share_<kernel>``.
+    Returns {kernel: masks equal}."""
     import torch
 
     from fluxmpi_tpu_torch.ops.flash_attention import (dropout_keep_reference,
                                                        flash_bwd_dkv, flash_bwd_dq,
-                                                       flash_fwd)
+                                                       flash_fwd, hash_rows)
 
     b, h, s, d, rate = 2, 12, 128, 128, 0.1
     eye = torch.eye(s, device=device).expand(b, h, s, d).permute(0, 2, 1, 3).contiguous()
     zeros = torch.zeros(b, s, h, d, device=device)
-    keep = dropout_keep_reference(
-        DROPOUT_SEED, torch.arange(b * h, device=device).reshape(b, h, 1, 1),
-        torch.arange(s, device=device).reshape(1, 1, s, 1),
-        torch.arange(s, device=device).reshape(1, 1, 1, s), 1 - rate)
     lse = torch.zeros(b, h, s, device=device)
     dterm = torch.zeros(b, h, s, device=device)
     ones = torch.zeros(b, s, h, d, device=device)
     ones[..., 0] = 1.0
-    equal = {"flash_fwd": True, "flash_bwd_dq": True, "flash_bwd_dkv": True}
-    for seed in (DROPOUT_SEED, torch.tensor(DROPOUT_SEED, device=device)):
-        opts = dict(dropout_rate=rate, seed=seed)
-        out, _ = flash_fwd(zeros, zeros, eye, **opts)
-        dq = flash_bwd_dq(zeros, eye, ones, None, None, ones, lse, dterm, **opts)
-        _, dv = flash_bwd_dkv(zeros, zeros, zeros, None, None, eye, lse, dterm, **opts)
-        torch.cuda.synchronize()
-        for name, got in (("flash_fwd", out.permute(0, 2, 1, 3)),
-                          ("flash_bwd_dq", dq.permute(0, 2, 1, 3)),
-                          ("flash_bwd_dkv", dv.permute(0, 2, 3, 1))):
-            equal[name] = equal[name] and bool(torch.equal(got != 0, keep))
-    return {**equal, "keep_fraction": keep.float().mean().item()}
+    equal = {}
+    for tag, rows in (("", dict(b0=0, h0=0, heads=None)),
+                      ("share_", dict(b0=3, h0=12, heads=24))):
+        keep = dropout_keep_reference(
+            DROPOUT_SEED, hash_rows(b, h, device=device, **rows).reshape(b, h, 1, 1),
+            torch.arange(s, device=device).reshape(1, 1, s, 1),
+            torch.arange(s, device=device).reshape(1, 1, 1, s), 1 - rate)
+        for seed in (DROPOUT_SEED, torch.tensor(DROPOUT_SEED, device=device)):
+            opts = dict(dropout_rate=rate, seed=seed, **rows)
+            out, _ = flash_fwd(zeros, zeros, eye, **opts)
+            dq = flash_bwd_dq(zeros, eye, ones, None, None, ones, lse, dterm, **opts)
+            _, dv = flash_bwd_dkv(zeros, zeros, zeros, None, None, eye, lse, dterm, **opts)
+            torch.cuda.synchronize()
+            for name, got in (("flash_fwd", out.permute(0, 2, 1, 3)),
+                              ("flash_bwd_dq", dq.permute(0, 2, 1, 3)),
+                              ("flash_bwd_dkv", dv.permute(0, 2, 3, 1))):
+                equal[tag + name] = equal.get(tag + name, True) and bool(
+                    torch.equal(got != 0, keep))
+        equal[tag + "keep_fraction"] = keep.float().mean().item()
+    return equal
 
 
 def backward_phase(device):
@@ -923,8 +941,10 @@ def backward_phase(device):
     print(f"kernel dropout keep masks equal dropout_keep_reference bit for bit: "
           f"{masks}", flush=True)
     for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        if not masks[kname]:
-            failures.append(f"{kname}: dropout keep mask differs from the reference")
+        for tag, what in (("", ""), ("share_", " as a share of a whole batch")):
+            if not masks[tag + kname]:
+                failures.append(f"{kname}: dropout keep mask{what} differs from the "
+                                f"reference")
     return rows, masks, failures
 
 
@@ -3364,6 +3384,9 @@ UNET_HW = 32
 UNET_BATCH = 64
 UNET_IMAGES = 512
 UNET_STEPS = 1000
+# The seed of the UNet's ddpm_loss generator (a CUDA generator, alike on
+# every card of a multi-card run).
+ZOO_DRAW_SEED = 42
 # Attention layers each update crosses (launches of each kernel per update).
 ZOO_ATTN = {"vit": VIT_B16["num_layers"], "unet": 6}
 
@@ -3435,7 +3458,7 @@ def zoo_build(kind: str, dev, dtype, data):
         model = UNet(**UNET_BENCH, dtype=dtype, attention_fn=flash_attention_fn(),
                      image_size=UNET_HW, device=dev, generator=gen)
         betas = cosine_beta_schedule(UNET_STEPS, device=dev)
-        draws = torch.Generator(device=dev).manual_seed(42)
+        draws = torch.Generator(device=dev).manual_seed(ZOO_DRAW_SEED)
 
         def loss_fn(params, model_state, b):
             return ddpm_loss(model, params, b[0], draws, betas), model_state
@@ -6783,6 +6806,10 @@ MULTICARD_PLANS = {
     "gpt2_pp2_tp2": dict(_PP_CASE, plan=dict(pp=2, tp=2), stage_axis="tp"),
     "gpt2_pp2_sp2": dict(_PP_CASE, plan=dict(pp=2, sp=2)),
 }
+# Slice 23's launch: ViT-B/16 and the DDPM UNet data-parallel (their random
+# draws the global batch's, ROADMAP C.32), and GPT-2 small data-parallel
+# under host staging (C.33).
+MULTICARD_ZOO = ("vit", "unet", "gpt2_dp4_staged")
 # The plan cases of each launch of tests/test_torch_cuda.py's four-card
 # test (each launch under its own MULTICARD_TIMEOUT).
 MULTICARD_PLAN_LAUNCHES = (("gpt2_fsdp4", "gpt2_tp4", "gpt2_fsdp2_tp2"),
@@ -6790,7 +6817,8 @@ MULTICARD_PLAN_LAUNCHES = (("gpt2_fsdp4", "gpt2_tp4", "gpt2_fsdp2_tp2"),
                             "gpt2_dp2_sp2_dropout"),
                            ("moe_dp2_ep2", "moe_ep4", "moe_sp2_ep2"),
                            ("gpt2_pp4", "gpt2_pp4_interleave3_remat", "gpt2_dp2_pp2",
-                            "gpt2_pp2_tp2", "gpt2_pp2_sp2"))
+                            "gpt2_pp2_tp2", "gpt2_pp2_sp2"),
+                           MULTICARD_ZOO)
 MULTICARD_MODELS = ("gpt2",)
 MULTICARD_TIMEOUT = 900
 # GPT-2's padded vocabulary under a plan: the tp rules cut the vocabulary
@@ -7392,10 +7420,161 @@ def _multicard_mlp(dev, rank: int, world: int, epochs: int = 4,
                 digest=_tree_digest(got), flush_every=flush_every)
 
 
+def _row_digests(t) -> list:
+    """SHA-256 of each row (leading index) of ``t``, bytes as stored."""
+    import hashlib
+
+    import torch
+
+    rows = t.detach().contiguous().cpu()
+    return [hashlib.sha256(r.reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
+            for r in rows]
+
+
+def _kernel_share_check(dev, rank: int, world: int) -> dict:
+    """The three kernels with dropout 0.1 at ViT-B/16's attention shape in
+    bf16 (a global batch of ``VIT_BATCH`` x 197 x 12 x 64 made alike on
+    every card): this card's rows as a share (``b0 = rank x rows``, the
+    hash keyed by the whole batch's rows, ROADMAP C.32) against one launch
+    over the whole batch on this card, bit for bit, and each output's row
+    digests (the share's rows; card 0 also the whole batch's)."""
+    import torch
+
+    from fluxmpi_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+
+    b, s, h, d = VIT_BATCH, (VIT_HW // VIT_B16["patch"]) ** 2 + 1, VIT_B16["num_heads"], \
+        VIT_B16["d_model"] // VIT_B16["num_heads"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    opts = dict(dropout_rate=0.1, seed=DROPOUT_SEED)
+
+    def run(q, k, v, g, b0):
+        out, lse = flash_fwd(q, k, v, b0=b0, **opts)
+        dterm = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+        dq = flash_bwd_dq(q, k, v, None, None, g, lse, dterm, b0=b0, **opts)
+        dk, dv = flash_bwd_dkv(q, k, v, None, None, g, lse, dterm, b0=b0, **opts)
+        return {"out": out, "dq": dq, "dk": dk, "dv": dv}
+
+    n = b // world
+    rows = slice(rank * n, (rank + 1) * n)
+    whole = run(q, k, v, g, 0)
+    share = run(*(t[rows].contiguous() for t in (q, k, v, g)), rank * n)
+    torch.cuda.synchronize()
+    out = dict(shape=[b, s, h, d], rows=[rank * n, (rank + 1) * n],
+               equal={name: bool(torch.equal(share[name], whole[name][rows]))
+                      for name in share},
+               share={name: _row_digests(t) for name, t in share.items()})
+    if rank == 0:
+        out["whole"] = {name: _row_digests(t) for name, t in whole.items()}
+    return out
+
+
+def _multicard_zoo(dev, rank: int, world: int, kind: str, updates: int = 16,
+                   flush_every: int = 4) -> dict:
+    """The zoo phase's ``kind`` data-parallel (``zoo_build``/``zoo_run``:
+    ``"vit"`` ViT-B/16 in bf16, ``VIT_BATCH`` images of 224 x 224 globally;
+    ``"unet"`` ``_bench_unet`` in bf16, ``UNET_BATCH`` images of 32 x 32
+    globally through ``ddpm_loss``, its CUDA generator seeded alike on every
+    card), fused beside pipelined. The draws of C.32: the UNet's first two
+    updates' timesteps and noise (each row's digest, this card's rows of
+    the pipelined run) beside one card's draws over the whole global batch
+    from the same seed; for ViT the kernels' dropout over a share
+    (:func:`_kernel_share_check`)."""
+    import torch
+
+    from fluxmpi_tpu_torch.models import unet as unet_mod
+
+    data = (image_corpus(VIT_IMAGES, VIT_HW, RESNET_CLASSES) if kind == "vit"
+            else (unet_images(UNET_IMAGES, UNET_HW),))
+    runs, bits, got = {}, {}, []
+    draws = unet_mod._ddpm_draws
+
+    def recording(*a, **kw):
+        tsteps, eps = draws(*a, **kw)
+        if len(got) < 2:
+            got.append({"tsteps": _row_digests(tsteps), "eps": _row_digests(eps)})
+        return tsteps, eps
+
+    for fuse in (False, "auto"):
+        unet_mod._ddpm_draws = recording if not fuse else draws
+        try:
+            run, summ, leaves, rest = zoo_run(kind, dev, data, fuse, updates, flush_every)
+        finally:
+            unet_mod._ddpm_draws = draws
+        del rest
+        torch.cuda.empty_cache()
+        run["flushes"] = [(f["updates"], f["loss"], f["loss_mean"], f["loss_max"])
+                          for f in summ["flushes"]]
+        run["replays"] = sum(g["replays"] for g in run["graphs"])
+        run.pop("step_ms", None)
+        runs["fused" if fuse else "pipelined"] = run
+        bits[fuse] = leaves
+    want, have = bits[False], bits["auto"]
+    same = [k for k in want if torch.equal(have[k], want[k])]
+    out = dict(runs=runs, leaves=len(want), bit_identical=len(same),
+               differing=[k for k in want if k not in same][:10],
+               need={k: ZOO_ATTN[kind] * updates for k in MMA_KERNELS},
+               flush_every=flush_every, updates=updates, digest=_tree_digest(have),
+               host_calls_gate=True)
+    if kind == "unet":
+        # One card's draws over the whole global batch, from the same seed.
+        gen = torch.Generator(device=dev).manual_seed(ZOO_DRAW_SEED)
+        ref = []
+        for _ in range(2):
+            tsteps, eps = draws(gen, UNET_BATCH, UNET_STEPS,
+                                (UNET_BATCH, UNET_HW, UNET_HW, 3), dev)
+            ref.append({"tsteps": _row_digests(tsteps), "eps": _row_digests(eps)})
+        out["draws"] = dict(got=got, whole=ref)
+        shape = (UNET_HW, UNET_HW, 3)
+
+        def draw(n):
+            return lambda: draws(None, n, UNET_STEPS, (n,) + shape, dev)
+    else:
+        out["kernel_share"] = _kernel_share_check(dev, rank, world)
+        shape = ((VIT_HW // VIT_B16["patch"]) ** 2 + 1, VIT_B16["d_model"])
+
+        def draw(n):  # ViT's embedding dropout at rate > 0 draws this
+            return lambda: torch.rand((n,) + shape, device=dev)
+    # What drawing the whole global batch costs beside this card's rows:
+    # device ms of one draw (the default generator, so a graph may hold it).
+    n = (UNET_BATCH if kind == "unet" else VIT_BATCH)
+    out["draw_ms"] = {"global": device_ms(draw(n)), "share": device_ms(draw(n // world)),
+                      "rows": [n, n // world]}
+    return out
+
+
+def _multicard_staged(dev, rank: int, world: int) -> dict:
+    """GPT-2 small data-parallel (8 x 1024 a card, 16 updates in windows of
+    4) with ``config.DEVICE_COLLECTIVES_DISABLED`` set, as
+    ``FLUXMPI_TPU_DISABLE_DEVICE_COLLECTIVES=1`` sets it at import (ROADMAP
+    C.33): the eager collectives (the replicas' broadcast, the loop's
+    agreements, the evaluation) stage through host memory, counted in
+    ``staged_calls``; the step's gradient all-reduce stays on the card,
+    inside each window's graph."""
+    from fluxmpi_tpu_torch import comm, config
+
+    staged, calls = comm.staged, []
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return staged(*a, **kw)
+
+    config.DEVICE_COLLECTIVES_DISABLED, comm.staged = True, counting
+    try:
+        out = _multicard_lm(dev, rank, world, case=dict(
+            _PLAN_CASE, plan=None, rows=8 * world, updates=16, flush_every=4))
+    finally:
+        config.DEVICE_COLLECTIVES_DISABLED, comm.staged = False, staged
+    out.update(staged_calls=len(calls), host_calls_gate=True)
+    return out
+
+
 def multicard_child(outdir: str, models: str) -> int:
     """One worker of ``multicard_fused_phase`` (started by the launcher,
     its environment naming the world): each of ``models`` (comma-separated:
-    ``gpt2``, ``resnet50``, ``mlp``), then the results to
+    ``gpt2``, ``resnet50``, ``mlp``, a :data:`MULTICARD_PLANS` case or one
+    of :data:`MULTICARD_ZOO`), then the results to
     ``outdir/rank<r>.json``."""
     import torch
     import torch.distributed as dist
@@ -7411,7 +7590,9 @@ def multicard_child(outdir: str, models: str) -> int:
                nccl_env={k: v for k, v in os.environ.items() if k.startswith("NCCL_")},
                capture_probe=_nccl_capture_probe(dev))
     runners = {"gpt2": _multicard_lm, "resnet50": _multicard_resnet,
-               "mlp": _multicard_mlp}
+               "mlp": _multicard_mlp, "gpt2_dp4_staged": _multicard_staged,
+               "vit": functools.partial(_multicard_zoo, kind="vit"),
+               "unet": functools.partial(_multicard_zoo, kind="unet")}
     for name, case in MULTICARD_PLANS.items():
         runners[name] = functools.partial(_multicard_lm, case=case)
     for name in models.split(","):
@@ -7457,14 +7638,48 @@ def _multicard_gates(name: str, ranks: list, failures: list) -> None:
         # One replay a window: a few host launch calls (the start offset, the
         # replay, the metrics' copies), against thousands an update pipelined.
         calls = fused.get("host_launches_per_update")
-        if "plan" in m and calls is not None and calls * m["flush_every"] > 8:
+        if (("plan" in m or m.get("host_calls_gate")) and calls is not None
+                and calls * m["flush_every"] > 8):
             failures.append(f"{tag}: {calls} host launch calls per fused update, more "
                             f"than 8 a window of {m['flush_every']}")
+        if m.get("staged_calls") == 0:
+            failures.append(f"{tag}: no collective staged through the host")
     if len({r[name]["digest"] for r in ranks}) != 1:
         failures.append(f"multicard_fused_phase [{name}]: the cards' fused states differ")
+    failures += _c32_gates(name, ranks)
     if "eval" in ranks[0][name] and len({r[name]["eval"]["value"] for r in ranks}) != 1:
         failures.append(f"multicard_fused_phase [{name}]: make_eval_step returned "
                         f"{[r[name]['eval']['value'] for r in ranks]}, not one value")
+
+
+def _c32_gates(name: str, ranks: list) -> list:
+    """ROADMAP C.32 on the cards: the DDPM draws of the first two updates,
+    every card's rows put together, equal card 0's draws over the whole
+    global batch from the same seed; the kernels' outputs with dropout over
+    each card's share equal one launch over the whole batch, on each card
+    and across cards (row digests). Returns the failures."""
+    failures, tag = [], f"multicard_fused_phase [{name}] C.32"
+    first = ranks[0][name]
+    if "draws" in first:
+        for i, whole in enumerate(first["draws"]["whole"]):
+            for key in ("tsteps", "eps"):
+                glued = [d for r in ranks for d in r[name]["draws"]["got"][i][key]]
+                if glued != whole[key]:
+                    failures.append(f"{tag}: update {i}'s {key} over the cards differ "
+                                    f"from one card's draws over the global batch")
+    if "kernel_share" in first:
+        whole = first["kernel_share"]["whole"]
+        for r in ranks:
+            ks = r[name]["kernel_share"]
+            if not all(ks["equal"].values()):
+                failures.append(f"{tag}: card {r['rank']}'s share differs from its whole-"
+                                f"batch launch: {ks['equal']}")
+        for out in whole:
+            glued = [d for r in ranks for d in r[name]["kernel_share"]["share"][out]]
+            if glued != whole[out]:
+                failures.append(f"{tag}: the cards' {out} rows differ from card 0's "
+                                f"whole-batch launch")
+    return failures
 
 
 def multicard_fused_phase(device, models=MULTICARD_MODELS, world: int | None = None):
@@ -7546,6 +7761,19 @@ def multicard_fused_phase(device, models=MULTICARD_MODELS, world: int | None = N
               + f"; fused state digests{' (each gathered whole, plan ' + str(m['plan']) + ')' if 'plan' in m else ''} "
               + f"{'equal' if len({r[name]['digest'] for r in ranks}) == 1 else 'DIFFER'} across cards",
               flush=True)
+        if "draws" in m or "kernel_share" in m:
+            c32 = _c32_gates(name, ranks)
+            what = ("the UNet's timesteps and noise of 2 updates" if "draws" in m else
+                    f"the kernels' outputs with dropout over each card's share of "
+                    f"{m['kernel_share']['shape']}, against its own whole-batch launch "
+                    f"{[r[name]['kernel_share']['equal'] for r in ranks]}")
+            print(f"multicard_fused_phase [{name}]: C.32, {what}, every card's rows "
+                  f"against one card's over the global batch: "
+                  f"{'equal' if not c32 else c32}; device ms of one draw over the global "
+                  f"batch's rows and over card 0's {m['draw_ms']}", flush=True)
+        if "staged_calls" in m:
+            print(f"multicard_fused_phase [{name}]: C.33, collectives staged through the "
+                  f"host per card {[r[name]['staged_calls'] for r in ranks]}", flush=True)
         if "eval" in m:
             print(f"multicard_fused_phase [{name}]: make_eval_step over the global batch "
                   f"(C.26): {[r[name]['eval']['value'] for r in ranks]} on the cards "

@@ -17,6 +17,24 @@ hold:
 - :class:`~fluxmpi_tpu_torch.models.MoEMLP` with ``n_groups`` routes its
   share of the global grouping.
 
+The JAX step's random draws are the global batch's too: a key draws one
+value per global row whatever the device count. Under the batch axes the
+port's draws are made so (ROADMAP C.32):
+
+- a generator draw (the DDPM loss's timesteps and noise, the MoE router's
+  noise, ViT's embedding dropout) is drawn whole, at the global batch's
+  shape, and each worker keeps its rows (:func:`draw`): a worker draws what
+  one worker holding the whole batch draws;
+- the counter-based dropout hash of the flash kernels and of the dense
+  attend keys each row and head by its place in the whole batch
+  (:func:`place`): the first row is this worker's block index times
+  its rows, and under a tensor-parallel head split (:class:`heads`) the
+  first head is this worker's.
+
+A pipeline stage keeps its own draws (JAX's pipeline runs in a
+``shard_map`` body over ``pp``), as do the ring and Ulysses attends, which
+call the kernels themselves.
+
 ``style="shard_map"`` enters none: JAX's ``shard_map`` body is per device.
 Under ``remat=`` the recompute re-enters the forward's context (it runs
 on autograd's device thread on the card), and the DEQ's backward carries
@@ -26,13 +44,13 @@ the forward's group itself.
 from __future__ import annotations
 
 import threading
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import torch
 import torch.distributed as dist
 import torch.distributed.nn.functional as dfn
 
-__all__ = ["BatchAxes", "active", "current", "reduce_max"]
+__all__ = ["BatchAxes", "active", "current", "draw", "heads", "place", "reduce_max"]
 
 _local = threading.local()
 
@@ -108,4 +126,65 @@ class active:
 
     def __exit__(self, *exc):
         _local.batch = self.prev
+        return False
+
+
+def _drawing() -> BatchAxes | None:
+    """The batch axes whose global draws this worker takes its block of:
+    the active ones, but none inside a pipeline stage."""
+    from . import _sequence_parallel
+
+    seq = _sequence_parallel.current()
+    return None if seq is not None and seq.stage else current()
+
+
+def draw(make: Callable[[tuple], torch.Tensor], shape: Sequence[int],
+         cuts: Sequence[tuple[int, int, int]] = ()) -> torch.Tensor:
+    """This worker's block ``shape`` of a random draw over the global
+    batch: ``make(whole)`` draws the whole (``shape``'s leading axis times
+    the batch axes' size, and each ``(dim, index, count)`` of ``cuts``
+    another axis cut into ``count`` blocks, this worker's the ``index``-th),
+    and the block is sliced out of it. Without batch axes or cuts it is
+    ``make(shape)``."""
+    shape, cuts = tuple(shape), list(cuts)
+    rows = _drawing()
+    if rows is not None:
+        cuts.insert(0, (0, rows.index, rows.size))
+    if not cuts:
+        return make(shape)
+    whole = list(shape)
+    for dim, _, count in cuts:
+        whole[dim] *= count
+    out = make(tuple(whole))
+    for dim, index, _ in cuts:
+        out = out.narrow(dim, index * shape[dim], shape[dim])
+    return out
+
+
+def place(b: int, h: int) -> tuple[int, int, int]:
+    """``(b0, h0, heads)`` of an attention over ``b`` rows and ``h`` heads
+    of this worker: its first row, its first head and the head count in
+    the whole batch's grid of the counter-based dropout hash
+    (:func:`~fluxmpi_tpu_torch.ops.flash_attention.hash_rows`). ``(0, 0,
+    h)`` without batch axes or a head split."""
+    rows = _drawing()
+    h0, heads_ = getattr(_local, "heads", None) or (0, h)
+    return (rows.index * b if rows is not None else 0), h0, heads_
+
+
+class heads:
+    """``with heads(h0, total):`` the attention inside computes heads
+    ``h0 ..`` of ``total``: a tensor-parallel worker's head block, whose
+    dropout hash keys the whole batch's heads (:func:`place`)."""
+
+    def __init__(self, h0: int, total: int):
+        self.block = (int(h0), int(total))
+
+    def __enter__(self):
+        self.prev = getattr(_local, "heads", None)
+        _local.heads = self.block
+        return self
+
+    def __exit__(self, *exc):
+        _local.heads = self.prev
         return False

@@ -54,6 +54,7 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import functools
 import time
 import warnings
 
@@ -126,9 +127,12 @@ class _Axis:
     """The mesh axis an eager collective runs over, as this worker sees
     it: its ``size``, this worker's ``index`` along it, the ``members``
     (their world ranks, by index), and the process groups: ``group`` on
-    the worker's device, ``host_group`` over gloo for host staging."""
+    the worker's device, ``host_group`` over gloo for host staging (made
+    when a staged collective first asks: the step's device reductions
+    over an axis never do)."""
 
     def __init__(self, mesh: Any, name: str):
+        self.mesh, self.name = mesh, name
         self.size = int(mesh.shape[name])
         coords = mesh.coords(mesh.my_rank())
         self.index = coords[name]
@@ -136,8 +140,10 @@ class _Axis:
             int(mesh.devices[tuple(i if a == name else coords[a] for a in mesh.axis_names)])
             for i in range(self.size)]
         self.group = mesh.group((name,)) if self.size > 1 else None
-        self.host_group = (mesh.host_group((name,))
-                           if self.size > 1 and _staging() else None)
+
+    @functools.cached_property
+    def host_group(self) -> Any:
+        return self.mesh.host_group((self.name,)) if self.size > 1 else None
 
 
 def _axis_and_size(mesh: Any, axis_name: str | None) -> tuple[str, int]:

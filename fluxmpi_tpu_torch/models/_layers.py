@@ -384,9 +384,11 @@ def dot_product_attention(query, key, value, mask=None, *, dropout_rng=None,
     ``dot_product_attention_weights``: with ``broadcast_dropout=True`` (its
     default) one Bernoulli(``1 - dropout_rate``) keep mask of shape ``[sq,
     sk]``, shared by every batch row and head, else one per batch row and
-    head; the weights times ``keep / keep_prob`` in ``dtype``. The mask is
-    :func:`dense_dropout_keep` under one uint32 seed drawn from the
-    ``torch.Generator`` ``dropout_rng`` (on the weights' device; required,
+    head (each keyed by its place in the whole batch,
+    :func:`~fluxmpi_tpu_torch._batch_parallel.place`); the weights times
+    ``keep / keep_prob`` in ``dtype``. The mask is :func:`dense_dropout_keep`
+    under one uint32 seed drawn from the ``torch.Generator``
+    ``dropout_rng`` (on the weights' device; required,
     as flax requires a ``"dropout"`` rng). flax draws its mask from its own
     random stream, which the port cannot reproduce: the two agree in law
     (the keep rate, the scaling, the shared shape), not bit for bit. A CUDA
@@ -409,7 +411,7 @@ def dot_product_attention(query, key, value, mask=None, *, dropout_rng=None,
             raise ValueError("dropout_rate > 0 with deterministic=False needs a "
                              "dropout_rng (a torch.Generator on the weights' "
                              "device), as flax needs a 'dropout' rng")
-        from ..ops.flash_attention import _draw_dropout_seed
+        from ..ops.flash_attention import _draw_dropout_seed, hash_rows
 
         keep_prob = 1.0 - dropout_rate
         seed = _draw_dropout_seed(dropout_rng).to(w.device)
@@ -426,7 +428,9 @@ def dot_product_attention(query, key, value, mask=None, *, dropout_rng=None,
         elif broadcast_dropout:
             keep = dense_dropout_keep(seed, rows, cols, keep_prob)
         else:
-            bh = torch.arange(b * h, device=w.device)
+            # Each row and head keyed by its place in the whole batch.
+            b0, h0, heads = _batch_parallel.place(b, h)
+            bh = hash_rows(b, h, b0=b0, h0=h0, heads=heads, device=w.device).reshape(b * h)
             keep = dense_dropout_keep(seed, rows, cols, keep_prob, bh).reshape(b, h, sq, sk)
         w = w * (keep.to(dtype) / torch.full((), keep_prob, dtype=dtype, device=w.device))
     return torch.einsum("bhqk,bkhd->bqhd", w, value.to(dtype))

@@ -450,7 +450,9 @@ class MoEMLP(nn.Module):
                 raise ValueError("router_noise > 0 in training needs rng (a "
                                  "torch.Generator), as flax needs the "
                                  "'router' rng")
-            logits = logits + self.router_noise * _router_noise(logits, rng)
+            # The noise of this worker's rows and sequence block.
+            logits = logits + self.router_noise * _router_noise(
+                logits, rng, (b, s_local, e), [(1, share.i, share.n)] if share.n > 1 else ())
         probs = torch.softmax(logits, dim=-1)  # [n_local, E]
         if self.routing not in ("tokens", "experts"):
             raise ValueError(
@@ -554,13 +556,21 @@ class MoEMLP(nn.Module):
         return y.reshape(*x.shape[:-1], x.shape[-1]).to(x.dtype)
 
 
-def _router_noise(logits: torch.Tensor, rng: torch.Generator) -> torch.Tensor:
+def _router_noise(logits: torch.Tensor, rng: torch.Generator, shape=None,
+                  cuts=()) -> torch.Tensor:
     """Standard normal noise of the logits' shape from ``rng``, which is
     noted for CUDA-graph windows
     (:func:`~fluxmpi_tpu_torch.runtime.note_graph_generator`), so every
-    replay of a captured window draws afresh."""
+    replay of a captured window draws afresh. The noise is the global
+    batch's, drawn whole, of which this worker keeps its block
+    (:func:`~fluxmpi_tpu_torch._batch_parallel.draw`: its rows under the
+    step's batch axes, its sequence block of ``shape``, the logits'
+    ``[rows, tokens, experts]``, by ``cuts``)."""
     runtime.note_graph_generator(rng)
-    return torch.randn(logits.shape, generator=rng, device=logits.device)
+    noise = _batch_parallel.draw(
+        lambda s: torch.randn(s, generator=rng, device=logits.device),
+        logits.shape if shape is None else shape, cuts)
+    return noise.reshape(logits.shape)
 
 
 def _every_position(probs: torch.Tensor) -> torch.Tensor:

@@ -74,6 +74,7 @@ the cache position), and the flash attend does not drop, as in training.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable
 
@@ -81,6 +82,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import _batch_parallel
 from .. import _sequence_parallel as _sp
 from .. import _tensor_parallel as _tp
 from ..ops.flash_attention import flash_attention, flash_attention_fn
@@ -296,8 +298,11 @@ class EncoderBlock(nn.Module):
             o = flash_attention_fn(causal=self.attention_causal)(q, k, v, mask=mask)
         else:
             fn = self.attention_fn if mode == "fn" else dot_product_attention
-            o = self.attn.attend(fn, q, k, v, mask=mask, deterministic=not train,
-                                 dropout_rng=dropout_rng)
+            # A head block's dropout keys the whole batch's heads.
+            with (_batch_parallel.heads(tp.index * q.shape[2], self.num_heads)
+                  if heads_split else contextlib.nullcontext()):
+                o = self.attn.attend(fn, q, k, v, mask=mask, deterministic=not train,
+                                     dropout_rng=dropout_rng)
         if heads_split:
             x = x + (tp.reduce(attn.out(o, self.dtype, bias=False))
                      + attn.out.bias.to(self.dtype))

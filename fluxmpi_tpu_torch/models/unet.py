@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
-from .. import runtime
+from .. import _batch_parallel, runtime
 from ..runtime import resolve_device
 from ._layers import Conv, Dense, GroupNorm, MultiHeadDotProductAttention, _Init, zeros_init
 
@@ -251,9 +251,14 @@ def _check_generator(rng: torch.Generator, device: torch.device) -> None:
 
 def _ddpm_draws(rng: torch.Generator, b: int, timesteps: int, shape, device):
     """The loss's random draws: timesteps ``[b]`` uniform in ``[0, T)``
-    (int64) and the noise ``shape`` (f32 standard normal)."""
-    tsteps = torch.randint(0, timesteps, (b,), generator=rng, device=device)
-    eps = torch.randn(shape, generator=rng, dtype=torch.float32, device=device)
+    (int64) and the noise ``shape`` (f32 standard normal). Under the
+    step's batch axes both are the global batch's, drawn whole in that
+    order, and this worker keeps its rows
+    (:func:`~fluxmpi_tpu_torch._batch_parallel.draw`)."""
+    tsteps = _batch_parallel.draw(
+        lambda s: torch.randint(0, timesteps, s, generator=rng, device=device), (b,))
+    eps = _batch_parallel.draw(
+        lambda s: torch.randn(s, generator=rng, dtype=torch.float32, device=device), shape)
     return tsteps, eps
 
 

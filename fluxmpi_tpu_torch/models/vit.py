@@ -20,6 +20,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from .. import _batch_parallel
 from ..runtime import note_graph_generator, resolve_device
 from ._layers import Conv, Dense, _Init
 from .transformer import TransformerEncoder
@@ -31,10 +32,13 @@ def _dropout(x: torch.Tensor, rate: float, rng: torch.Generator) -> torch.Tensor
     """flax's ``nn.Dropout(rate)`` in training: each element kept with
     probability ``1 - rate`` (an independent draw from ``rng``, a
     ``torch.Generator`` on ``x``'s device) and divided by it, the rest
-    zero. The generator is noted for CUDA-graph windows."""
+    zero. The generator is noted for CUDA-graph windows. Under the step's
+    batch axes the draw is the global batch's, and this worker keeps its
+    rows (:func:`~fluxmpi_tpu_torch._batch_parallel.draw`)."""
     note_graph_generator(rng)
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=rng, device=x.device) < keep_prob
+    keep = _batch_parallel.draw(
+        lambda s: torch.rand(s, generator=rng, device=x.device), x.shape) < keep_prob
     # Device fills, not host copies: a CUDA-graph capture takes no copy.
     return torch.where(keep, x / torch.full((), keep_prob, dtype=x.dtype, device=x.device),
                        torch.zeros((), dtype=x.dtype, device=x.device))

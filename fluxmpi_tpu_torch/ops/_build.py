@@ -39,10 +39,11 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 # The mask, dropout and launch arguments every flash kernel entry ends with:
 # b sq sk h hkv d, causal has_window window, dropout seed threshold
-# keep_prob, dtype, stream.
+# keep_prob, the dropout hash's rows b0 h0 hg, dtype, stream.
 _FLASH_TAIL = [_I, _I, _I, _I, _I, _I,
                _I, _I, _I,
                _I, _P, _U, _F,
+               _I, _I, _I,
                _I, _P]
 # The C signature of every kernel entry: pointers (the dropout seed's
 # device address among them) and the stream as c_void_p (a bare Python int

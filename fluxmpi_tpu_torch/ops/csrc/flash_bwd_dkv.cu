@@ -12,13 +12,13 @@
 //   dK    += p * (dp - dterm) / sqrt(d) * q
 // with dterm = rowsum(dO * O) - dlse computed by the caller, f32
 // accumulation, dK and dV cast once at the end. The dropout hash is keyed
-// by the QUERY row b*h + head, rebuilt here for each query head of the
-// group (as the TPU kernel does), and by the absolute positions, so the
-// bits equal the forward's whatever the tiling. Masking as in the
-// forward: causal frontier, window band (band only when causal == 0),
-// segment ids, grouped-query heads. Masked pairs are selected to 0 before
-// they enter any product (a row with no attendable key has lse = -1e30,
-// where exp overflows).
+// by the QUERY row b*h + head (of the whole batch: hash_row), rebuilt here
+// for each query head of the group (as the TPU kernel does), and by the
+// absolute positions, so the bits equal the forward's whatever the tiling.
+// Masking as in the forward: causal frontier, window band (band only when
+// causal == 0), segment ids, grouped-query heads. Masked pairs are
+// selected to 0 before they enter any product (a row with no attendable
+// key has lse = -1e30, where exp overflows).
 //
 // What bounds it on the card: at the training shape (b 8, s 1024, h 12,
 // d 64, causal) its four products (K Q^T, V dO^T, P^T dO, dS^T Q) are 25.8
@@ -106,6 +106,7 @@ struct Params {
   const uint32_t* seed;  // dropout seed: one uint32 in device memory
   uint32_t threshold;
   float keep_prob;
+  int b0, h0, hg;        // the dropout hash's rows: (b0 + b) * hg + h0 + head
   int vec;             // Q, K, V and dO rows are 16-byte aligned: cp.async copies
 };
 
@@ -343,7 +344,8 @@ __global__ void __launch_bounds__(Layout<T, DP, BQ, G, NS, S>::kThreads, 1)
     cp_async_wait<S - 1>();
     stream_sync(w, 32 * G);  // the current tile is in shared memory
 
-    const int bh_q = bi * p.h + hk * group + it / sw.per_head;  // keys the dropout hash
+    // The query head's row keys the dropout hash.
+    const uint32_t hrow = hash_row(p.b0, p.h0, p.hg, bi, hk * group + it / sw.per_head);
     const int q0 = (sw.t_lo + it % sw.per_head) * BQ;
     const T* q_s = reinterpret_cast<const T*>(slot_at(stage));
     const T* do_s = q_s + L::kTile;
@@ -401,8 +403,8 @@ __global__ void __launch_bounds__(Layout<T, DP, BQ, G, NS, S>::kThreads, 1)
               float gr = dp[j][e];
               pd = pr;
               if (p.dropout) {
-                const bool keep = dropout_keep(seed, (uint32_t)bh_q, (uint32_t)qp,
-                                               (uint32_t)kp, p.threshold);
+                const bool keep = dropout_keep(seed, hrow, (uint32_t)qp, (uint32_t)kp,
+                                               p.threshold);
                 pd = keep ? pr / p.keep_prob : 0.f;
                 gr = keep ? gr / p.keep_prob : 0.f;
               }
@@ -497,8 +499,10 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int b, int sq, int sk, int h, int hkv, int d,
                              int causal, int has_window, int window,
                              int dropout, const void* seed, unsigned int threshold,
-                             float keep_prob, int dtype, void* stream) {
-  if (d < 1 || d > kMaxD || hkv < 1 || h % hkv != 0 || (dropout && !seed))
+                             float keep_prob, int b0, int h0, int hg, int dtype,
+                             void* stream) {
+  if (d < 1 || d > kMaxD || hkv < 1 || h % hkv != 0 || (dropout && !seed) || b0 < 0 ||
+      h0 < 0 || h0 + h > hg)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sk == 0 || hkv == 0) return (int)cudaSuccess;
   Params p;
@@ -526,6 +530,9 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_prob = keep_prob;
+  p.b0 = b0;
+  p.h0 = h0;
+  p.hg = hg;
   p.vec = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? dispatch<float>(p, st)

@@ -63,6 +63,7 @@ struct Params {
   const uint32_t* seed;  // dropout seed: one uint32 in device memory
   uint32_t threshold;
   float keep_prob;
+  int b0, h0, hg;        // the dropout hash's rows: (b0 + b) * hg + h0 + head
   int vec;             // K/V rows are 16-byte aligned: cp.async copies
 };
 
@@ -115,6 +116,7 @@ __global__ void __launch_bounds__(Layout<T, DP, G, S>::kThreads) flash_bwd_dq_ke
   const int bi = bh / p.h;
   const int hi = bh % p.h;
   const int hk = hi / (p.h / p.hkv);
+  const uint32_t hrow = hash_row(p.b0, p.h0, p.hg, bi, hi);  // keys the dropout hash
   const int nq = min(BQ, p.sq - q0);
   const int r0 = q0 + rg * kRows;  // this warp's first query row
   const bool has_seg = p.qseg != nullptr;
@@ -203,7 +205,7 @@ __global__ void __launch_bounds__(Layout<T, DP, G, S>::kThreads) flash_bwd_dq_ke
             const float pr = expf(s[j][e] * p.scale - lse_r[e >> 1]);
             float gr = dp[j][e];
             if (p.dropout)
-              gr = dropout_keep(seed, (uint32_t)bh, (uint32_t)qp, (uint32_t)kp, p.threshold)
+              gr = dropout_keep(seed, hrow, (uint32_t)qp, (uint32_t)kp, p.threshold)
                        ? gr / p.keep_prob : 0.f;
             ds = pr * (gr - dterm_r[e >> 1]) * p.scale;
           }
@@ -285,8 +287,10 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             int b, int sq, int sk, int h, int hkv, int d,
                             int causal, int has_window, int window,
                             int dropout, const void* seed, unsigned int threshold,
-                            float keep_prob, int dtype, void* stream) {
-  if (d < 1 || d > kMaxD || hkv < 1 || h % hkv != 0 || (dropout && !seed))
+                            float keep_prob, int b0, int h0, int hg, int dtype,
+                            void* stream) {
+  if (d < 1 || d > kMaxD || hkv < 1 || h % hkv != 0 || (dropout && !seed) || b0 < 0 ||
+      h0 < 0 || h0 + h > hg)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0 || h == 0) return (int)cudaSuccess;
   Params p;
@@ -313,6 +317,9 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   p.seed = static_cast<const uint32_t*>(seed);
   p.threshold = threshold;
   p.keep_prob = keep_prob;
+  p.b0 = b0;
+  p.h0 = h0;
+  p.hg = hg;
   p.vec = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? dispatch<float>(p, st)

@@ -7,7 +7,8 @@
 // The keep mask is the TPU kernels' counter-based hash
 // (fluxmpi_tpu/ops/flash_attention.py::_dropout_keep, _hash_mix,
 // _hash_final): three murmur3 mixing rounds over (seed, b*h + head,
-// q_pos, k_pos) and the murmur3 finalizer, all in uint32 arithmetic, then
+// q_pos, k_pos), b and head counted in the whole batch (hash_row), and the
+// murmur3 finalizer, all in uint32 arithmetic, then
 // keep iff the bits are below threshold = min(floor(keep_prob * 2^32),
 // 2^32 - 1). The forward and both backward kernels rebuild the same bits
 // for a (row, query, key) whatever their tiling, so no mask is stored.
@@ -125,6 +126,15 @@ __device__ unsigned long long g_device_launches;
 __device__ __forceinline__ void count_launch() {
   if ((blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x) == 0)
     atomicAdd(&g_device_launches, 1ull);
+}
+
+// The hash's row key of local batch row bi and head hi: the row of the
+// whole batch's grid, (b0 + bi) * hg + h0 + hi, where b0 is the launch's
+// first batch row and h0 its first head of hg in the whole batch (a
+// worker's share of a data- or tensor-parallel batch). b0 = h0 = 0 and
+// hg = h give the local bi * h + hi.
+__device__ __forceinline__ uint32_t hash_row(int b0, int h0, int hg, int bi, int hi) {
+  return (uint32_t)(b0 + bi) * (uint32_t)hg + (uint32_t)(h0 + hi);
 }
 
 __device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t bh, uint32_t q_pos,

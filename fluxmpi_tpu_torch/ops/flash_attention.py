@@ -20,7 +20,11 @@ probabilities on the value path are dropped and rescaled by
 ``1/keep_prob``, the softmax sum is not; the keep mask is the JAX
 package's counter-based murmur3 hash of ``(seed, b*h + head, q_pos,
 k_pos)`` (:func:`dropout_keep_reference`), so the port and the TPU
-kernels drop the same entries. The seed is an ``int`` or a one-element
+kernels drop the same entries. ``b`` and ``head`` count in the whole
+batch (:func:`hash_rows`): a call on a worker's share of a data- or
+tensor-parallel batch passes its first row ``b0``, its first head ``h0``
+and the whole batch's head count ``heads``, and drops what one call on
+the whole batch drops there, as the JAX package's jitted step does. The seed is an ``int`` or a one-element
 integer tensor holding a uint32; the kernels read it from device memory
 (as the JAX kernels read a ``[1, 128]`` uint32 operand), so a seed drawn on
 the card needs no host read and a CUDA graph that captured the call drops
@@ -47,6 +51,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import _batch_parallel
 from ..utils.flops import attention_flops, kernel_flops
 
 __all__ = [
@@ -61,6 +66,7 @@ __all__ = [
     "flash_bwd_dkv",
     "flash_bwd_dq",
     "flash_fwd",
+    "hash_rows",
     "padding_to_segment_ids",
 ]
 
@@ -184,7 +190,9 @@ def _hash_final(h):
 def dropout_keep_reference(seed, bh, q_pos, k_pos, keep_prob: float):
     """The dropout keep mask (True = keep) of the JAX package's
     ``_dropout_keep``: murmur3 rounds over ``(seed, bh, q_pos, k_pos)``
-    and the finalizer, in int64 arithmetic masked to 32 bits. ``seed`` is
+    and the finalizer, in int64 arithmetic masked to 32 bits. ``bh`` is
+    the row key, :func:`hash_rows` of a row and head in the whole batch.
+    ``seed`` is
     an int or a one-element integer tensor (its low 32 bits; read on its
     device); ``bh``, ``q_pos`` and ``k_pos`` are integer tensors (or ints)
     that broadcast."""
@@ -197,10 +205,34 @@ def dropout_keep_reference(seed, bh, q_pos, k_pos, keep_prob: float):
     return _hash_final(h) < dropout_threshold(keep_prob)
 
 
-def _keep_mask(b, h, sq, sk, seed, keep_prob, device):
+def _check_rows(h: int, b0: int, h0: int, heads: int | None) -> int:
+    """The whole batch's head count (default ``h``), after checking that
+    heads ``h0 ..`` of a call on ``h`` lie in it."""
+    heads = h if heads is None else int(heads)
+    if b0 < 0 or h0 < 0 or h0 + h > heads:
+        raise ValueError(f"heads {h0}..{h0 + h - 1} do not lie in a batch of {heads} "
+                         f"heads (b0 {b0})")
+    return heads
+
+
+def hash_rows(b: int, h: int, *, b0: int = 0, h0: int = 0, heads: int | None = None,
+              device=None) -> torch.Tensor:
+    """The dropout hash's row keys ``[b, h]`` (int64) of a call on ``b``
+    batch rows and ``h`` heads that sit at rows ``b0 ..`` and heads ``h0
+    ..`` of a whole batch of ``heads`` heads (default ``h``): ``(b0 + i) *
+    heads + h0 + j``, the JAX kernels' ``bh`` of that row and head in a
+    call on the whole batch. ``b0 = h0 = 0`` gives the local ``i * h +
+    j``."""
+    heads = _check_rows(h, b0, h0, heads)
+    rows = (torch.arange(b, device=device, dtype=torch.int64) + int(b0)) * heads
+    return rows[:, None] + (torch.arange(h, device=device, dtype=torch.int64)
+                            + int(h0))[None, :]
+
+
+def _keep_mask(b, h, sq, sk, seed, keep_prob, device, b0=0, h0=0, heads=None):
     """``[b, h, sq, sk]`` keep mask, the hash keyed by the folded query
-    row ``b_idx * h + head``."""
-    bh = torch.arange(b * h, device=device).reshape(b, h, 1, 1)
+    row ``b_idx * h + head`` of the whole batch (:func:`hash_rows`)."""
+    bh = hash_rows(b, h, b0=b0, h0=h0, heads=heads, device=device).reshape(b, h, 1, 1)
     q_pos = torch.arange(sq, device=device).reshape(1, 1, sq, 1)
     k_pos = torch.arange(sk, device=device).reshape(1, 1, 1, sk)
     return dropout_keep_reference(seed, bh, q_pos, k_pos, keep_prob)
@@ -233,9 +265,11 @@ def _acc_dtype(x):
 
 def flash_attention_reference(q, k, v, *, causal=False, window=None,
                               q_seg=None, kv_seg=None, dropout_rate=0.0,
-                              seed=0):
+                              seed=0, b0=0, h0=0, heads=None):
     """The plain PyTorch version of the forward kernel: the same function,
-    materializing the ``[b, h, sq, sk]`` scores. Returns ``(out, lse)``."""
+    materializing the ``[b, h, sq, sk]`` scores. Returns ``(out, lse)``.
+    ``b0``, ``h0``, ``heads``: where the call's rows and heads sit in the
+    whole batch, for the dropout hash (:func:`hash_rows`)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     acc = _acc_dtype(q)
@@ -249,7 +283,7 @@ def flash_attention_reference(q, k, v, *, causal=False, window=None,
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
     if dropout_rate:
         keep_prob = 1.0 - dropout_rate
-        keep = _keep_mask(b, h, sq, sk, seed, keep_prob, q.device)
+        keep = _keep_mask(b, h, sq, sk, seed, keep_prob, q.device, b0, h0, heads)
         p = torch.where(keep, p / keep_prob, torch.zeros_like(p))
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(acc)) / l_safe.permute(0, 2, 1, 3)
     lse = (m + torch.log(l_safe))[..., 0]
@@ -258,14 +292,14 @@ def flash_attention_reference(q, k, v, *, causal=False, window=None,
 
 def flash_attention_bwd_reference(q, k, v, dout, lse, dterm, *, causal=False,
                                   window=None, q_seg=None, kv_seg=None,
-                                  dropout_rate=0.0, seed=0):
+                                  dropout_rate=0.0, seed=0, b0=0, h0=0, heads=None):
     """The plain PyTorch version of the two backward kernels, written out
     as formulas (not autograd of the forward): with ``p = exp(s - lse)``
     on attendable pairs, ``dp = dO V^T`` (dropped and rescaled like the
     forward's value path) and ``ds = p * (dp - dterm) / sqrt(d)``, returns
     ``dQ = ds K``, ``dK = ds^T Q`` and ``dV = p_drop^T dO``, the last two
     summed over each kv head's query-head group. ``lse`` and ``dterm`` are
-    f32 ``[b, h, sq]``."""
+    f32 ``[b, h, sq]``; ``b0``, ``h0``, ``heads`` as for the forward."""
     b, sq, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
     scale = d ** -0.5
@@ -280,7 +314,7 @@ def flash_attention_bwd_reference(q, k, v, dout, lse, dterm, *, causal=False,
     p_drop = p
     if dropout_rate:
         keep_prob = 1.0 - dropout_rate
-        keep = _keep_mask(b, h, sq, sk, seed, keep_prob, q.device)
+        keep = _keep_mask(b, h, sq, sk, seed, keep_prob, q.device, b0, h0, heads)
         p_drop = torch.where(keep, p / keep_prob, torch.zeros_like(p))
         dp = torch.where(keep, dp / keep_prob, torch.zeros_like(dp))
     ds = p * (dp - dterm[..., None]) * scale
@@ -336,14 +370,18 @@ def _seed_tensor(seed, device) -> torch.Tensor:
     return s.to(device)
 
 
-def _mask_args(causal, window, dropout_rate, seed):
+def _mask_args(causal, window, dropout_rate, seed, h, b0, h0, heads):
     """The C entries' trailing mask and dropout arguments; ``seed`` is the
-    int32 tensor of :func:`_seed_tensor` (its device address is passed)."""
+    int32 tensor of :func:`_seed_tensor` (its device address is passed);
+    ``b0``, ``h0``, ``heads`` place the call's rows in the whole batch's
+    hash grid (:func:`hash_rows`)."""
+    heads = _check_rows(h, b0, h0, heads)
     keep_prob = 1.0 - float(dropout_rate)
     return (int(bool(causal)), int(window is not None),
             int(window) if window is not None else 0,
             int(bool(dropout_rate)), _ptr(seed) if dropout_rate else None,
-            dropout_threshold(keep_prob) if dropout_rate else 0, keep_prob)
+            dropout_threshold(keep_prob) if dropout_rate else 0, keep_prob,
+            int(b0), int(h0), heads)
 
 
 def _kernel_seed(dropout_rate, seed, q):
@@ -369,7 +407,7 @@ def _ptr(t):
 
 
 def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal=False, window=None,
-              dropout_rate=0.0, seed=0):
+              dropout_rate=0.0, seed=0, b0=0, h0=0, heads=None):
     """Launch the forward kernel (``csrc/flash_fwd.cu``) on the current
     stream.
 
@@ -377,8 +415,10 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal=False, window=None,
     [b, sk, h_kv, d]`` of one dtype (float32 or bfloat16, ``d <= 128``) and
     optional int32 ``q_seg [b, sq]`` / ``kv_seg [b, sk]``; raises on
     anything else. ``seed`` (read only with ``dropout_rate``): an int, or a
-    one-element integer tensor that the kernel reads on the card. Returns
-    ``(out, lse)``. ``flash_fwd.launches`` counts the launches.
+    one-element integer tensor that the kernel reads on the card. ``b0``,
+    ``h0``, ``heads``: where the call's rows and heads sit in the whole
+    batch, for the dropout hash (:func:`hash_rows`). Returns ``(out,
+    lse)``. ``flash_fwd.launches`` counts the launches.
     """
     _check_kernel_inputs("flash_fwd", [q, k, v], q, k, v, q_seg, kv_seg)
     b, sq, h, d = q.shape
@@ -388,7 +428,8 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal=False, window=None,
     _launch("flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(q_seg), _ptr(kv_seg), out.data_ptr(), lse.data_ptr(),
             b, sq, sk, h, h_kv, d,
-            *_mask_args(causal, window, dropout_rate, _kernel_seed(dropout_rate, seed, q)))
+            *_mask_args(causal, window, dropout_rate, _kernel_seed(dropout_rate, seed, q),
+                        h, b0, h0, heads))
     flash_fwd.launches += 1
     return out, lse
 
@@ -403,7 +444,7 @@ def _check_bwd_inputs(name, q, dout, lse, dterm):
 
 
 def flash_bwd_dq(q, k, v, q_seg, kv_seg, dout, lse, dterm, *, causal=False,
-                 window=None, dropout_rate=0.0, seed=0):
+                 window=None, dropout_rate=0.0, seed=0, b0=0, h0=0, heads=None):
     """Launch the dQ kernel (``csrc/flash_bwd_dq.cu``) on the current
     stream. Tensors as for :func:`flash_fwd`, plus ``dout`` (q's shape and
     dtype) and f32 ``lse``/``dterm [b, h, sq]``, all contiguous on one CUDA
@@ -419,13 +460,14 @@ def flash_bwd_dq(q, k, v, q_seg, kv_seg, dout, lse, dterm, *, causal=False,
             _ptr(q_seg), _ptr(kv_seg), dout.data_ptr(), lse.data_ptr(),
             dterm.data_ptr(), dq.data_ptr(),
             b, sq, sk, h, h_kv, d,
-            *_mask_args(causal, window, dropout_rate, _kernel_seed(dropout_rate, seed, q)))
+            *_mask_args(causal, window, dropout_rate, _kernel_seed(dropout_rate, seed, q),
+                        h, b0, h0, heads))
     flash_bwd_dq.launches += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, q_seg, kv_seg, dout, lse, dterm, *, causal=False,
-                  window=None, dropout_rate=0.0, seed=0):
+                  window=None, dropout_rate=0.0, seed=0, b0=0, h0=0, heads=None):
     """Launch the dK/dV kernel (``csrc/flash_bwd_dkv.cu``) on the current
     stream. Arguments as for :func:`flash_bwd_dq`. Returns ``(dk, dv)`` in
     k's and v's dtype, each summed over its kv head's query-head group.
@@ -441,7 +483,8 @@ def flash_bwd_dkv(q, k, v, q_seg, kv_seg, dout, lse, dterm, *, causal=False,
             _ptr(q_seg), _ptr(kv_seg), dout.data_ptr(), lse.data_ptr(),
             dterm.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, sq, sk, h, h_kv, d,
-            *_mask_args(causal, window, dropout_rate, _kernel_seed(dropout_rate, seed, q)))
+            *_mask_args(causal, window, dropout_rate, _kernel_seed(dropout_rate, seed, q),
+                        h, b0, h0, heads))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -495,12 +538,15 @@ class _Flash(torch.autograd.Function):
     the backward reads the forward's draw); the backward takes
     ``(dO, dlse)``, honours the lse cotangent through ``dterm = rowsum(dO *
     O) - dlse`` and launches the dQ and the dK/dV kernels (their plain
-    versions on CPU tensors)."""
+    versions on CPU tensors). ``rows``: the dropout hash's ``(b0, h0,
+    heads)`` (:func:`hash_rows`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_seg, kv_seg, seed, causal, window,
-                dropout_rate):
-        opts = dict(causal=causal, window=window, dropout_rate=dropout_rate)
+                dropout_rate, rows):
+        b0, h0, heads = rows
+        opts = dict(causal=causal, window=window, dropout_rate=dropout_rate, b0=b0,
+                    h0=h0, heads=heads)
         with kernel_flops("flash_fwd", attention_flops(q, k)["flash_fwd"]):
             if _on_cpu(q):
                 out, lse = flash_attention_reference(q, k, v, q_seg=q_seg,
@@ -538,7 +584,7 @@ class _Flash(torch.autograd.Function):
             with kernel_flops("flash_bwd_dkv", cost["flash_bwd_dkv"]):
                 dk, dv = flash_bwd_dkv(q, k, v, q_seg, kv_seg, dout, lse,
                                        dterm, **opts)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def _check_dropout(dropout_rate, dropout_seed, device):
@@ -562,7 +608,8 @@ def _check_dropout(dropout_rate, dropout_seed, device):
     return rate, _seed_tensor(dropout_seed, device)
 
 
-def _attend(q, k, v, causal, window, segment_ids, dropout_rate, dropout_seed):
+def _attend(q, k, v, causal, window, segment_ids, dropout_rate, dropout_seed,
+            rows=(0, 0, None)):
     rate, seed = _check_dropout(dropout_rate, dropout_seed, q.device)
     _check_shapes(q, k, v)
     qseg, kseg = _normalize_segments(
@@ -570,7 +617,7 @@ def _attend(q, k, v, causal, window, segment_ids, dropout_rate, dropout_seed):
     )
     if not _on_cpu(q):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    return _Flash.apply(q, k, v, qseg, kseg, seed, bool(causal), window, rate)
+    return _Flash.apply(q, k, v, qseg, kseg, seed, bool(causal), window, rate, rows)
 
 
 def flash_attention(q, k, v, *, causal: bool = False, window: int | None = None,
@@ -740,7 +787,10 @@ def flash_attention_fn(causal: bool = False, *, window: int | None = None,
     ``torch.Generator`` on the query's device) on that device and drops
     inside the kernels with the reference's hash; no host read, so it runs
     under CUDA-graph capture, and a window captured by ``train_loop`` draws
-    a fresh seed on every replay. ``dropout_impl="dense"`` (the default,
+    a fresh seed on every replay. The hash keys each row and head by its
+    place in the whole batch (:func:`hash_rows` at
+    :func:`~fluxmpi_tpu_torch._batch_parallel.place`), so a worker's
+    share of a ``style="auto"`` step drops what the whole batch drops. ``dropout_impl="dense"`` (the default,
     the JAX package's fallback) runs flax's dense attention in f32 with
     causality and the window folded into the mask and grouped K/V heads
     repeated (:func:`~fluxmpi_tpu_torch.models._layers.dot_product_attention`,
@@ -788,9 +838,12 @@ def flash_attention_fn(causal: bool = False, *, window: int | None = None,
                         f"attention_fn")
             elif mask_check:
                 fidelity = _mask_fidelity(mask, *segment_ids, causal)
-        out = flash_attention(query, key, value, causal=causal, window=window,
-                              segment_ids=segment_ids, dropout_rate=dropout_rate,
-                              dropout_seed=dropout_seed).to(query.dtype)
+        # The hash keys each row and head by its place in the whole batch
+        # (this worker's share under the step's batch axes or a head split).
+        rows = _batch_parallel.place(query.shape[0], query.shape[2])
+        out, _ = _attend(query, key, value, causal, window, segment_ids, dropout_rate,
+                         dropout_seed, rows)
+        out = out.to(query.dtype)
         if fidelity is not None:
             out = torch.where(fidelity[:, None, None, None], out,
                               torch.full((), float("nan"), dtype=out.dtype,

@@ -62,7 +62,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from .. import config, runtime
+from .. import runtime
 from ..comm import WORLD, allreduce
 from ..data import DistributedDataLoader, scan_batches
 from ..telemetry import anomaly as _anomaly
@@ -161,8 +161,9 @@ def _fused_window_width(step: Any, batches: Any, flush_every: int,
     shorter than the flush interval fuses as one window per pass), and the
     epoch must divide into whole windows. Across ``workers > 1`` the
     window runs every axis of a plan (dp, fsdp, tp, ep, sp and pp) over
-    device collectives; a ``style="shard_map"`` step and the host-staged
-    collectives decline."""
+    device collectives, with host staging too (it stages the eager
+    collectives only; the step's reductions stay on the device, as in the
+    JAX package's jitted step); a ``style="shard_map"`` step declines."""
     if not isinstance(batches, DistributedDataLoader):
         return 0, "batches is not a DistributedDataLoader"
     meta = getattr(step, "__fluxmpi_window_meta__", None)
@@ -172,9 +173,6 @@ def _fused_window_width(step: Any, batches: Any, flush_every: int,
     if workers > 1:
         if meta.get("across_workers") is not None:
             return 0, meta["across_workers"]
-        if config.DEVICE_COLLECTIVES_DISABLED:
-            return 0, ("the host-staged collectives (disable_device_collectives) "
-                       "cannot run inside a window's CUDA graph")
     why = batches.fusible_declined()
     if why is not None:
         return 0, (f"{why} (the window needs an array-backed dataset without "
@@ -381,9 +379,9 @@ def train_loop(step: Any, state: Any, batches: Any, *,
     gradient sums over subgroups, the tensor-parallel all-reduces, the MoE
     layers' all-to-alls, the ring's point-to-point exchanges, Ulysses'
     all-to-alls and a pipeline's ticks with their exchanges inside the
-    graph; a ``style="shard_map"`` step and the host-staged collectives
-    decline under named reasons)
-    over device collectives, and the workers agree on
+    graph; a ``style="shard_map"`` step declines under a named reason)
+    over device collectives (host staging, ``disable_device_collectives``,
+    stages only the eager collectives, outside the graph), and the workers agree on
     one width before the first window (one host exchange), so a window any
     worker cannot fuse runs pipelined on every worker. ``"window"`` forces
     it (raises on every worker, naming the failing condition and, across

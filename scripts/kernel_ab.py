@@ -23,10 +23,11 @@ sources in turn, then in reverse order, for ``--rounds`` rounds (default
 2: A B B A), so that a drift of the card's clock falls on both. Each
 source's outputs are also taken with dropout (rate 0.1, seed
 ``DROPOUT_SEED``) and compared, with and without dropout, bit for bit with
-the first source's (``equal_to_first``). Sources from before the kernels
-read their dropout seed from device memory (their C entries take it as
-an ``unsigned int``) are called through a shim that passes the seed's
-value. Prints the card, ptxas's register and spill lines per source, and
+the first source's (``equal_to_first``). Sources from before the C
+entries took the dropout hash's rows (``b0, h0, hg``) are called through a
+shim that drops them; of those, sources from before the kernels read
+their dropout seed from device memory (their C entries take it as an
+``unsigned int``) get the seed's value. Prints the card, ptxas's register and spill lines per source, and
 one JSON line per source, kernel and type with each round's time. Exits
 non-zero if a library fails to build, a kernel exceeds ``chip_smoke.py``'s
 tolerances, or, with ``--expect-equal``, an output differs from the first
@@ -51,8 +52,10 @@ SHAPE = (8, 1024, 12, 64)  # b, s, h, d
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 DROPOUT_RATE, DROPOUT_SEED = 0.1, 0xC0FFEE11
 # Position of the dropout seed among a C entry's arguments, from the end:
-# ... dropout, seed, threshold, keep_prob, dtype, stream.
-_SEED_FROM_END = 5
+# ... dropout, seed, threshold, keep_prob, b0, h0, hg, dtype, stream.
+_SEED_FROM_END = 8
+# The dropout hash's row arguments b0, h0, hg, from the end.
+_ROWS_FROM_END = slice(-5, -2)
 
 
 def _host_seed_abi(src, name) -> bool:
@@ -60,21 +63,33 @@ def _host_seed_abi(src, name) -> bool:
     return "unsigned int seed" in (Path(src) / f"{name}.cu").read_text()
 
 
-def _host_seed_shim(lib, name):
-    """``lib`` with its entry ``name`` taking the wrappers' arguments: the
-    seed's device address is swapped for ``DROPOUT_SEED``'s value."""
+def _rows_abi(src, name) -> bool:
+    """Does ``src``'s entry take the dropout hash's rows (b0, h0, hg)?"""
+    return "int b0, int h0, int hg" in (Path(src) / f"{name}.cu").read_text()
+
+
+def _old_abi_shim(lib, name, host_seed: bool):
+    """``lib`` with its entry ``name`` taking the wrappers' arguments, for
+    a source from before the entries took the dropout hash's rows (always
+    the local ``b * h + head`` there: the wrappers here pass b0 = h0 = 0):
+    those are dropped, and with ``host_seed`` the seed's device address is
+    swapped for ``DROPOUT_SEED``'s value."""
     import ctypes as c
 
     from fluxmpi_tpu_torch.ops import _build
 
     raw = getattr(lib, name)
     argtypes = list(_build.SOURCES[name])
-    argtypes[-_SEED_FROM_END] = c.c_uint
+    if host_seed:
+        argtypes[-_SEED_FROM_END] = c.c_uint
+    del argtypes[_ROWS_FROM_END]
     raw.argtypes = argtypes
 
     def entry(*args):
         args = list(args)
-        args[-_SEED_FROM_END] = DROPOUT_SEED if args[-_SEED_FROM_END - 1] else 0
+        if host_seed:
+            args[-_SEED_FROM_END] = DROPOUT_SEED if args[-_SEED_FROM_END - 1] else 0
+        del args[_ROWS_FROM_END]
         return raw(*args)
 
     return types.SimpleNamespace(**{name: entry, "device_launches": lib.device_launches})
@@ -108,8 +123,8 @@ def build(sources):
         getattr(lib, name).argtypes = _build.SOURCES[name]
         getattr(lib, name).restype = ctypes.c_int
         lib.device_launches.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
-        if _host_seed_abi(src, name):
-            lib = _host_seed_shim(lib, name)
+        if not _rows_abi(src, name):
+            lib = _old_abi_shim(lib, name, _host_seed_abi(src, name))
         libs.setdefault(src, {})[name] = lib
     return libs, failed
 

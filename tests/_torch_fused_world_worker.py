@@ -14,9 +14,11 @@ test writes: the MLP's data (``x``, ``y``) and flax weights
 - ``resume``: a pipelined run killed mid-window resumed fused, and a
   preemption requested on worker 0 alone drained at a window boundary;
 - ``agree``: what one worker alone cannot fuse (a shard over the staging
-  budget), a ``style="shard_map"`` step and host-staged collectives are
-  declined on every worker, and ``fuse="window"`` raises the reason on
-  every worker; a dp x pp plan fuses on every worker.
+  budget) and a ``style="shard_map"`` step are declined on every worker,
+  and ``fuse="window"`` raises the reason on every worker; a dp x pp plan
+  fuses on every worker, and so does the MLP under host-staged collectives
+  (bit for bit with ``fuse=False``; the flushes' agreement collectives go
+  through the host, ``comm.calls`` path ``"host"``).
 
 Each rank writes its results to ``OUT`` (an npz keyed ``case/name``)."""
 
@@ -37,7 +39,7 @@ dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                         rank=rank, world_size=world)
 
 import fluxmpi_tpu_torch as fm  # noqa: E402
-from fluxmpi_tpu_torch import config, faults, optim  # noqa: E402
+from fluxmpi_tpu_torch import config, faults, optim, telemetry  # noqa: E402
 from fluxmpi_tpu_torch.models import CNN, MLP, load_flax_params  # noqa: E402
 from fluxmpi_tpu_torch.parallel import (ParallelConfig, TrainState,  # noqa: E402
                                         make_train_step, train_loop)
@@ -264,10 +266,36 @@ elif group == "agree":
     step = make_train_step(lambda p, ms, b: loss_fn(p, ms, b), optim.adam(1e-3),
                            style="shard_map")
     attempt("shard_map", step, state, loader_for("mesh", x, y, 64), epochs=1, flush_every=2)
-    # Host-staged collectives.
+    # Host-staged collectives stage the eager collectives only: the step's
+    # reductions stay on the device, so the windows fuse on every worker.
     config.DEVICE_COLLECTIVES_DISABLED = True
     _, step, state = mlp_run()
     attempt("staged", step, state, loader_for("shard", x, y, 64), epochs=1, flush_every=2)
+    reg = telemetry.MetricsRegistry()
+    telemetry.set_registry(reg)
+    ck = Path(out).parent / "ckpt_staged"
+    bits, summaries = {}, {}
+    for fuse in (False, "window"):
+        # A checkpoint manager makes every flush agree on a preemption
+        # (an eager all-reduce over the world).
+        mgr = CheckpointManager(str(ck / str(fuse)), async_save=False)
+        _, step, state = mlp_run()
+        state, summaries[fuse] = train_loop(step, state, loader_for("shard", x, y, 64),
+                                            epochs=2, flush_every=2, fuse=fuse,
+                                            checkpoint=mgr)
+        mgr.close()
+        bits[fuse] = leaves(state)
+    put("staged", "run_fused_window", summaries["window"]["fused_window"] or 0)
+    put("staged", "same", sum(torch.equal(bits["window"][k], bits[False][k])
+                              for k in bits[False]))
+    put("staged", "leaves", len(bits[False]))
+    put("staged", "flushes_equal", np.array_equal(flushes(summaries["window"]),
+                                                  flushes(summaries[False])))
+    calls = {(m["labels"]["op"], m["labels"]["path"]): m["value"]
+             for m in reg.snapshot() if m["name"] == "comm.calls"}
+    put("staged", "paths", ",".join(sorted({path for _, path in calls})))
+    put("staged", "allreduce_calls", calls.get(("allreduce", "host"), 0))
+    put("staged", "flushes", len(summaries["window"]["flushes"]))
     config.DEVICE_COLLECTIVES_DISABLED = False
 
 np.savez(out, **res)

@@ -2400,8 +2400,11 @@ def test_nccl_fused_windows_across_cards_match_pipelined():
     most 8 host launch calls a fused window; an all-gather, an all-reduce,
     an all-to-all and a ring rotation with its backward over a subgroup,
     and a 2-stage pipeline tick with its backward over each pp pair,
-    captured in a graph give the eager bits; on two cards the MLP again.
-    Every
+    captured in a graph give the eager bits; then slice 23's launch
+    (``MULTICARD_ZOO``: ViT-B/16 and the DDPM UNet at dp=4 with their
+    draws held to one card's over the global batch, GPT-2 small at dp=4
+    under host staging; :func:`_check_zoo_launch`); on two cards the MLP
+    again. Every
     leaf and flush bit for bit on every card, the same state on every
     card, and ``make_eval_step``'s loss one value on every card (C.26).
     Prints ms per update, host launch calls per update and capture seconds
@@ -2436,3 +2439,56 @@ def test_nccl_fused_windows_across_cards_match_pipelined():
         for m in plans[name].values():
             assert m["bit_identical"] == m["leaves"]
             assert m["runs"]["fused"]["fused_window"] == case["flush_every"]
+    _check_zoo_launch(plans, smoke)
+
+
+def _check_zoo_launch(results, smoke):
+    """Slice 23's launch (``MULTICARD_ZOO``) in ``multicard_fused_launches``'
+    results: every case fused (windows of 4) bit for bit on every card;
+    the UNet's draws and the kernels' dropout over each card's share equal
+    one card's over the global batch (ROADMAP C.32); GPT-2 staged some
+    collectives through the host (C.33)."""
+    for name in smoke.MULTICARD_ZOO:
+        for m in results[name].values():
+            assert m["bit_identical"] == m["leaves"], name
+            assert m["runs"]["fused"]["fused_window"] == m["flush_every"] == 4, name
+    for name in ("unet", "vit"):
+        ranks = [{"rank": r, name: results[name][r]} for r in sorted(results[name])]
+        assert len(ranks) == 4 and smoke._c32_gates(name, ranks) == []
+    assert all(m["staged_calls"] > 0 for m in results["gpt2_dp4_staged"].values())
+
+
+def test_nccl_zoo_draws_and_host_staging_fused_on_four_cards():
+    """Slice 23's launch alone (``chip_smoke.MULTICARD_ZOO``, one launch of
+    four workers): ViT-B/16 in bf16 (32 images of 224 x 224 a card) and the
+    DDPM UNet of ``_bench_unet`` in bf16 (16 images of 32 x 32 a card,
+    ``ddpm_loss`` with one CUDA generator seeded alike on every card) at
+    dp=4, and GPT-2 small at dp=4 with the collectives staged through the
+    host, each ``train_loop(fuse="auto")`` in windows of 4 beside
+    ``fuse=False`` under ``_multicard_gates`` (every leaf and flush bit for
+    bit, one digest, launches by the device counters, at most 8 host
+    launch calls a window); the UNet's timesteps and noise of two updates
+    over the four cards equal one card's over the global batch, and the
+    three kernels with dropout over each card's quarter of ViT's attention
+    batch equal one launch over the whole batch, row by row (ROADMAP
+    C.32). The whole four-card test runs this launch too."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    import importlib.util
+    import json
+
+    from fluxmpi_tpu_torch.ops import _build
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    _build.build_all()
+    results, failures = smoke.multicard_fused_launches(
+        torch.device("cuda", 0), (smoke.MULTICARD_ZOO,), world=4)
+    out = root / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "multicard_zoo.json").write_text(json.dumps(results))
+    assert not failures, failures
+    assert results["ran"]
+    _check_zoo_launch(results, smoke)

@@ -205,8 +205,8 @@ class _FakeLib:
 
         def entry(*args):
             self.calls.append((name, args))
-            self.seeds.append(ctypes.c_uint32.from_address(args[-5]).value
-                              if args[-6] else None)
+            self.seeds.append(ctypes.c_uint32.from_address(args[-8]).value
+                              if args[-9] else None)
             return 0
 
         return entry
@@ -250,16 +250,18 @@ def test_backward_launches_both_kernels_and_counts(fake_cuda):
     assert [name for name, _ in fake_cuda.calls] == ["flash_fwd", "flash_bwd_dq",
                                                      "flash_bwd_dkv"]
     # The C entries' trailing arguments: b sq sk h hkv d, causal has_window
-    # window, dropout, the seed's device address, threshold, keep_prob,
+    # window, dropout, the seed's device address, threshold, keep_prob, the
+    # dropout hash's rows b0 h0 hg (a whole batch of one call: 0, 0, h),
     # dtype, stream. The three kernels read one seed buffer (the forward's,
     # saved for the backward), holding the seed's low 32 bits.
     for name, args in fake_cuda.calls:
-        assert args[-15:-9] == (2, 8, 8, 4, 2, 32)
-        assert args[-9:-6] == (1, 1, 5)
-        assert args[-6] == 1 and args[-4:-2] == (tfa.dropout_threshold(0.9),
+        assert args[-18:-12] == (2, 8, 8, 4, 2, 32)
+        assert args[-12:-9] == (1, 1, 5)
+        assert args[-9] == 1 and args[-7:-5] == (tfa.dropout_threshold(0.9),
                                                  pytest.approx(0.9))
+        assert args[-5:-2] == (0, 0, 4)
         assert args[-2:] == (0, 0)
-    assert len({args[-5] for _, args in fake_cuda.calls}) == 1
+    assert len({args[-8] for _, args in fake_cuda.calls}) == 1
     assert fake_cuda.seeds == [3, 3, 3]
     assert q.grad.shape == q.shape and k.grad.shape == k.shape
 

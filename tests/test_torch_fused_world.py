@@ -24,10 +24,13 @@ eagerly (on the cards each window is one CUDA graph per card:
   (async saves), and the resume ends on the uninterrupted fused run's
   bits.
 - Agreement, in a world with its own time limit, so a hang fails it: a
-  shard over the staging budget on one worker alone, a
-  ``style="shard_map"`` step and host-staged collectives leave every
-  worker pipelined, and ``fuse="window"`` raises the reason on every
-  worker; a dp x pp plan fuses on every worker.
+  shard over the staging budget on one worker alone and a
+  ``style="shard_map"`` step leave every worker pipelined, and
+  ``fuse="window"`` raises the reason on every worker; a dp x pp plan
+  fuses on every worker, and so does a step under host-staged collectives
+  (bit for bit with ``fuse=False``, the flushes' agreement through the
+  host), as JAX's ``train_loop(fuse="window")`` fuses over two CPU devices
+  with ``disable_device_collectives`` set.
 """
 
 from pathlib import Path
@@ -41,6 +44,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh
 
 import fluxmpi_tpu as jfm
+from fluxmpi_tpu import config as jconfig
 from fluxmpi_tpu.models import MLP as JaxMLP
 from fluxmpi_tpu.parallel import TrainState as JaxTrainState
 from fluxmpi_tpu.parallel import make_train_step as jax_make_train_step
@@ -179,6 +183,23 @@ def test_mesh_view_fused_matches_jax_fused_window(world, worlds, data, n):
                                        atol=ATOL, rtol=0, err_msg=name)
 
 
+def test_jax_fuses_across_devices_under_host_staging(world, data, monkeypatch):
+    """The JAX package reads ``disable_device_collectives`` in its eager
+    collectives only: its ``train_loop(fuse="window")`` fuses over two CPU
+    devices with the flag set, to the bits it reaches without it (the
+    port follows, ROADMAP C.33)."""
+    want, wsum, wrec, _ = _jax_fused(data, 2)
+    monkeypatch.setattr(jconfig, "DEVICE_COLLECTIVES_DISABLED", True)
+    got, gsum, grec, _ = _jax_fused(data, 2)
+    for key in ("fused_window", "dispatches", "updates"):
+        assert gsum[key] == wsum[key], key
+    assert gsum["fused_window"] == 2
+    assert [r["loss"] for r in grec] == [r["loss"] for r in wrec]
+    for name, w in _flat(jax.device_get(want.params)["params"]).items():
+        np.testing.assert_array_equal(
+            _flat(jax.device_get(got.params)["params"])[name], w, err_msg=name)
+
+
 def test_fused_resume_and_preemption_across_workers(worlds):
     for res in worlds["resume2"]:
         assert bool(res["kill/raised"]) and int(res["kill/banked"]) == 3
@@ -205,8 +226,7 @@ def test_declines_are_agreed_on_every_worker(tmp_path, data):
     # Worker 0's shard (128 rows) is over the budget, worker 1's (127) not.
     assert [bool(r["budget/fusible"]) for r in ranks] == [False, True]
     reasons = {"budget": ("on worker 0", "over FLUXMPI_TPU_DEVICE_GATHER_MAX_BYTES"),
-               "shard_map": ("on worker 0", 'style="shard_map"'),
-               "staged": ("on worker 0", "host-staged collectives")}
+               "shard_map": ("on worker 0", 'style="shard_map"')}
     for res in ranks:
         for case, words in reasons.items():
             assert int(res[f"{case}/fused_window"]) == 0, case
@@ -218,3 +238,14 @@ def test_declines_are_agreed_on_every_worker(tmp_path, data):
         # 4 batches in 2 windows, and fuse="window" raises nothing.
         assert (int(res["plan/fused_window"]), int(res["plan/dispatches"])) == (2, 2)
         assert str(res["plan/error"]) == ""
+        # Host staging stages the eager collectives only (ROADMAP C.33): the
+        # MLP fuses on every worker, bit for bit with fuse=False, and the
+        # flushes agree over the host (one all-reduce each, and the loop's
+        # first).
+        assert (int(res["staged/fused_window"]), int(res["staged/dispatches"])) == (2, 2)
+        assert str(res["staged/error"]) == ""
+        assert int(res["staged/run_fused_window"]) == 2
+        assert int(res["staged/same"]) == int(res["staged/leaves"])
+        assert bool(res["staged/flushes_equal"])
+        assert str(res["staged/paths"]) == "host"
+        assert int(res["staged/allreduce_calls"]) >= 2 * int(res["staged/flushes"])
