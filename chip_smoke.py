@@ -371,7 +371,33 @@
    updates over the cards against one card's over the global batch, and
    the three kernels with dropout over each card's quarter of ViT's
    attention batch against one launch over the whole batch (row digests
-   across cards).
+   across cards). Slice 24's launch (``MULTICARD_ACCUM``): gradient
+   accumulation over the global batch (ROADMAP C.34), ``grad_accum_steps=2``
+   (each card's rows exchanged over the batch axes so that its share of
+   microbatch j is its block of the global batch's j-th half): ResNet-50
+   and ViT-B/16 (dropout 0.1) in bf16 at dp=4, 32 images a card, and GPT-2
+   small under ``dp=2 x tp=2`` at 32 x 1024, 16 updates in windows of 4,
+   fused beside ``fuse=False`` with the same gates (ViT and GPT-2 launch
+   each kernel 24 times an update); the fused path at k = 1 for its ms per
+   update; the row exchange's ms from a traced window; and one f32 update
+   (TF32 off) on every card against one card's accumulated update on the
+   same rows (its two halves forward and backward by hand): every
+   gradient leaf within C.25's bound (1e-3 of its norm, or twice f32's own
+   spread for ResNet), BatchNorm's statistics within 1e-5, the loss within
+   1e-4, ViT's embedding dropout masks of each microbatch, every card's
+   rows put together, equal to one card's bit for bit.
+21. Accumulation phase (``accum_phase``): ViT-B/16 (dropout 0.1, the three
+   kernels' dropout) and ResNet-50 in bf16 at batch 128 with
+   ``grad_accum_steps=2``, 16 updates in windows of 4, ``fuse="auto"``
+   against ``fuse=False`` bit for bit (parameters, optimizer state,
+   statistics, flushes), ViT's launches by the device counters equal to
+   the wrappers' with the graphs' and to 24 per update, ms per update
+   against the fused path at k = 1; ViT-B/16 in f32 (TF32 off, dropout 0,
+   ``sgd(0.1)``): one accumulated update against one on the whole batch
+   within the JAX package's accumulation tolerance (loss rtol 1e-5,
+   parameters rtol 1e-4 and atol 1e-6, or twice f32's own spread: the
+   rows reversed); ResNet-50's statistics after one accumulated update
+   against the two microbatches' forwards by hand (1e-5).
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Exits non-zero, without the last line, if CUDA is absent, the
@@ -6810,6 +6836,12 @@ MULTICARD_PLANS = {
 # draws the global batch's, ROADMAP C.32), and GPT-2 small data-parallel
 # under host staging (C.33).
 MULTICARD_ZOO = ("vit", "unet", "gpt2_dp4_staged")
+# Slice 24's launch: gradient accumulation over the global batch (ROADMAP
+# C.34), ResNet-50 and ViT-B/16 (dropout on) at dp=4 and GPT-2 small under
+# dp=2 x tp=2, each with grad_accum_steps=2.
+MULTICARD_ACCUM = ("resnet_accum", "vit_accum", "gpt2_dp2_tp2_accum")
+MULTICARD_ACCUM_LM = dict(_PLAN_CASE, plan=dict(dp=2, tp=2), updates=16, flush_every=4,
+                          accum=2)
 # The plan cases of each launch of tests/test_torch_cuda.py's four-card
 # test (each launch under its own MULTICARD_TIMEOUT).
 MULTICARD_PLAN_LAUNCHES = (("gpt2_fsdp4", "gpt2_tp4", "gpt2_fsdp2_tp2"),
@@ -6818,7 +6850,7 @@ MULTICARD_PLAN_LAUNCHES = (("gpt2_fsdp4", "gpt2_tp4", "gpt2_fsdp2_tp2"),
                            ("moe_dp2_ep2", "moe_ep4", "moe_sp2_ep2"),
                            ("gpt2_pp4", "gpt2_pp4_interleave3_remat", "gpt2_dp2_pp2",
                             "gpt2_pp2_tp2", "gpt2_pp2_sp2"),
-                           MULTICARD_ZOO)
+                           MULTICARD_ZOO, MULTICARD_ACCUM)
 MULTICARD_MODELS = ("gpt2",)
 MULTICARD_TIMEOUT = 900
 # GPT-2's padded vocabulary under a plan: the tp rules cut the vocabulary
@@ -7149,6 +7181,7 @@ def _multicard_lm(dev, rank: int, world: int, case: dict | None = None) -> dict:
     kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
     case = dict(_PLAN_CASE, plan=None, rows=8 * world) if case is None else case
     plan, moe = case["plan"], case["model"] == "moe"
+    accum = case.get("accum", 1)
     pp = (plan or {}).get("pp", 1)
     updates, flush_every = case["updates"], case["flush_every"]
     if moe:
@@ -7169,7 +7202,7 @@ def _multicard_lm(dev, rank: int, world: int, case: dict | None = None) -> dict:
             kw["rules"] = expert_parallel_rules()
         resolved = ParallelConfig(**kw).resolve()
 
-    def build():
+    def build(k=accum):
         gen = torch.Generator().manual_seed(0)
         if moe:
             model = MoETransformerLM(**cfg, attention="flash", dtype=torch.bfloat16,
@@ -7192,14 +7225,16 @@ def _multicard_lm(dev, rank: int, world: int, case: dict | None = None) -> dict:
                 x, y = batch
                 return model(x, targets=y).mean(), model_state
 
-            return model, loader, make_train_step(loss_fn, opt), TrainState.create(model, opt)
+            return (model, loader, make_train_step(loss_fn, opt, grad_accum_steps=k),
+                    TrainState.create(model, opt))
         if pp > 1:
             params, loss_fn = _pipeline_lm(model, resolved.mesh, case)
             state, _ = resolved.shard_state(TrainState.create(params, opt))
             loader = fm.DistributedDataLoader(data, global_batch_size=case["rows"],
                                               shuffle=True, mesh=resolved.mesh,
                                               axis_name=resolved.data_axes)
-            return model, loader, make_train_step(loss_fn, opt, parallel=resolved), state
+            return (model, loader,
+                    make_train_step(loss_fn, opt, parallel=resolved, grad_accum_steps=k), state)
         state, _ = resolved.shard_state(TrainState.create(model, opt))
         loader = fm.DistributedDataLoader(data, global_batch_size=case["rows"], shuffle=True,
                                           mesh=resolved.mesh, axis_name=resolved.data_axes)
@@ -7220,7 +7255,7 @@ def _multicard_lm(dev, rank: int, world: int, case: dict | None = None) -> dict:
             aux, z = collect_moe_losses(sown)
             return ce.mean() + 0.01 * aux + 0.001 * z, model_state
 
-        step = make_train_step(loss_fn, opt, parallel=resolved,
+        step = make_train_step(loss_fn, opt, parallel=resolved, grad_accum_steps=k,
                                **(dict(policy=get_policy("bf16")) if moe else {}))
         return model, loader, step, state
 
@@ -7243,7 +7278,7 @@ def _multicard_lm(dev, rank: int, world: int, case: dict | None = None) -> dict:
         attends = case["microbatches"] / pp
     elif plan is not None and plan.get("sp", 1) > 1 and case["attention"] == "flash":
         attends = resolved.mesh.coords(rank)["sp"] + 1
-    need = {k.__name__: int(cfg["num_layers"] * updates * attends) for k in kernels}
+    need = {k.__name__: int(cfg["num_layers"] * updates * attends * accum) for k in kernels}
     if pp > 1 and case["remat"]:
         need["flash_fwd"] *= 2
     runs, bits = {}, {}
@@ -7271,7 +7306,8 @@ def _multicard_lm(dev, rank: int, world: int, case: dict | None = None) -> dict:
                                flush_every=flush_every, fuse=fuse))
         (_, tsum), busy_ms, wall_ms, nk_traced, groups = traced(
             lambda: train_loop(step, state, loader, steps=flush_every,
-                               flush_every=flush_every, fuse=fuse))
+                               flush_every=flush_every, fuse=fuse),
+            group=_accum_group if accum > 1 else _kernel_group)
         graphs = graph_stats(step)
         if fuse and plan is not None:
             gathered = _gathered_digest(state)
@@ -7304,6 +7340,28 @@ def _multicard_lm(dev, rank: int, world: int, case: dict | None = None) -> dict:
                differing=[k for k in want if k not in same][:10],
                need=need, flush_every=flush_every,
                updates=updates)
+    if accum > 1:
+        # The fused path without accumulation, for its ms per update.
+        model, loader, step, state = build(1)
+
+        def window(n):
+            return train_loop(step, state, loader, steps=n, flush_every=flush_every,
+                              fuse="auto")
+
+        state, _ = window(updates)
+        torch.cuda.synchronize()
+        state, timed = window(updates)
+        torch.cuda.synchronize()
+        (_, tsum), busy_ms, wall_ms, nk_traced, groups = traced(lambda: window(flush_every),
+                                                                group=_accum_group)
+        out.update(k=accum, k1=dict(
+            median_update_ms=float(np.median([ms / flush_every for ms in timed["step_ms"]])),
+            profile=dict(updates=tsum["updates"], wall_ms=wall_ms, device_busy_ms=busy_ms,
+                         kernels=nk_traced,
+                         device_ms_by_group_per_update={
+                             g: ms / tsum["updates"] for g, ms in groups.items()})))
+        del model, loader, step, state
+        torch.cuda.empty_cache()
     if plan is None:
         out.update(digest=_tree_digest(got), eval=evaluation)
     else:
@@ -7570,6 +7628,579 @@ def _multicard_staged(dev, rank: int, world: int) -> dict:
     return out
 
 
+# Slice 24 (ROADMAP C.34): gradient accumulation over the global batch. One
+# card: ``accum_phase``; four cards: the launch ``MULTICARD_ACCUM``.
+ACCUM_K = 2
+ACCUM_DROPOUT = 0.1
+ACCUM_UPDATES, ACCUM_FLUSH = 16, 4
+# The JAX package's own tolerance for an accumulated update against one
+# update on the whole batch (its test of grad_accum_steps): the loss rtol
+# 1e-5, the parameters rtol 1e-4 and atol 1e-6.
+ACCUM_LOSS_RTOL, ACCUM_PARAM_RTOL, ACCUM_PARAM_ATOL = 1e-5, 1e-4, 1e-6
+# ROADMAP C.25's bounds on four cards (tests/test_torch_cuda.py): each
+# gradient leaf ||diff|| / ||ref|| <= 1e-3, or twice f32's own spread on the
+# leaf where that is larger; each statistic max|diff| / max|ref| <= 1e-5;
+# the loss within 1e-4 relatively.
+C25_GRAD_TOL, C25_STATS_TOL, C25_LOSS_TOL = 1e-3, 1e-5, 1e-4
+
+
+def _accum_group(name: str) -> str:
+    """Kernel groups of a traced accumulation window: the row exchange's
+    all-to-all (NCCL's send/receive kernels) apart from the other
+    collectives, the rest as the zoo phase groups them."""
+    n = name.lower()
+    if "sendrecv" in n or "alltoall" in n:
+        return "row exchange (all-to-all)"
+    return _zoo_group(name)
+
+
+def _recording_sgd(lr: float):
+    """``sgd(lr)`` that keeps the reduced gradients it is handed."""
+    from fluxmpi_tpu_torch import optim
+
+    seen, sgd = {}, optim.sgd(lr)
+
+    def update(grads, state, params=None):
+        seen.update({k: g.detach().clone() for k, g in grads.items()})
+        return sgd.update(grads, state, params)
+
+    return optim.GradientTransformation(sgd.init, update), seen
+
+
+def _state_leaves(state) -> dict:
+    """Copies of every tensor of a ``TrainState`` by name: the parameters,
+    the optimizer state and the model state."""
+    import torch
+
+    out = {f"params/{k}": v.detach().clone() for k, v in state.params.items()}
+    for k, v in (state.opt_state or {}).items():
+        if isinstance(v, dict):
+            out.update({f"{k}/{n}": t.clone() for n, t in v.items()})
+        elif torch.is_tensor(v):
+            out[k] = v.clone()
+    out.update({f"stats/{k}": v.clone() for k, v in (state.model_state or {}).items()})
+    return out
+
+
+def _rel(got: dict, want: dict) -> dict:
+    """Per leaf ``[max|d| / max|ref|, ||d|| / ||ref||]``; an attention key
+    bias (its gradient zero in exact arithmetic: the softmax's row sums
+    cancel it, so both sides hold rounding) against the largest leaf's
+    ``max|ref|`` and ``||ref||``, as :func:`leaf_max_rel` holds it."""
+    top = (max((float(w.double().abs().max()) for w in want.values()), default=0.0),
+           max((float(w.double().norm()) for w in want.values()), default=0.0))
+    out = {}
+    for k in want:
+        d, w = (got[k].double() - want[k].double()), want[k].double()
+        scale = top if k.endswith("attn.key.bias") else (float(w.abs().max()),
+                                                         float(w.norm()))
+        out[k] = [float(d.abs().max()) / max(scale[0], 1e-30),
+                  float(d.norm()) / max(scale[1], 1e-30)]
+    return out
+
+
+def accum_build(kind: str, dev, dtype, data, k: int, dropout: float = 0.0, opt=None):
+    """The user's script for ``kind`` with ``grad_accum_steps=k``: ``"vit"``
+    ViT-B/16 through ``flash_attention_fn()`` at ``dropout`` (its masks
+    from a CUDA generator seeded 7), ``adamw(1e-3)``; ``"resnet"`` ResNet-50
+    carrying its statistics, ``sgd(0.1, momentum=0.9)``. Weights from
+    ``manual_seed(0)``, ``dtype`` compute, the device-gather loader over
+    ``data`` (``VIT_BATCH`` / ``RESNET_BATCH`` images globally); ``opt``
+    replaces the optimizer. Returns ``(model, loader, step, state,
+    loss_fn)``."""
+    import torch
+    import torch.nn.functional as F
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch import optim
+    from fluxmpi_tpu_torch.models import ResNet50, ViT
+    from fluxmpi_tpu_torch.ops import flash_attention_fn
+    from fluxmpi_tpu_torch.parallel import TrainState, make_train_step
+
+    gen = torch.Generator().manual_seed(0)
+    if kind == "vit":
+        model = ViT(**VIT_B16, dropout=dropout, dtype=dtype, attention_fn=flash_attention_fn(),
+                    image_size=VIT_HW, device=dev, generator=gen)
+        drops = torch.Generator(device=dev).manual_seed(7)
+
+        def loss_fn(params, model_state, batch):
+            x, y = batch
+            kw = {"dropout_rng": drops} if dropout else {}
+            return F.cross_entropy(model(x.to(torch.float32) / 255.0, **kw), y), model_state
+
+        batch, ms, opt = VIT_BATCH, None, opt or optim.adamw(1e-3)
+    else:
+        model = ResNet50(num_classes=1000, dtype=dtype, device=dev, generator=gen)
+        loss_fn, batch, ms = _bn_loss(model), RESNET_BATCH, model.init_batch_stats()
+        opt = opt or optim.sgd(0.1, momentum=0.9)
+    fm.synchronize(model)
+    loader = fm.DistributedDataLoader(fm.DistributedDataContainer(fm.ArrayDataset(data)),
+                                      global_batch_size=batch, shuffle=True, device=dev)
+    step = make_train_step(loss_fn, opt, grad_accum_steps=k)
+    return model, loader, step, TrainState.create(model, opt, model_state=ms), loss_fn
+
+
+def accum_run(kind: str, dev, data, fuse, k: int, dropout: float = 0.0,
+              updates: int = ACCUM_UPDATES, flush_every: int = ACCUM_FLUSH,
+              profile: bool = False):
+    """``kind``'s main path in bf16 with ``grad_accum_steps=k``
+    (:func:`accum_build`): ``train_loop(steps=updates, fuse=fuse)`` with the
+    kernels' device counters set to 0 just before and read just after,
+    then a second run of as many updates timed; with ``profile``, one
+    window traced (device ms by group, the row exchange apart) and one
+    counted for the host's launch calls. Returns the run's numbers and the
+    state's leaves after the first run."""
+    import numpy as np
+    import torch
+
+    from fluxmpi_tpu_torch.ops import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from fluxmpi_tpu_torch.parallel import train_loop
+
+    kernels = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+    model, loader, step, state, _ = accum_build(kind, dev, torch.bfloat16, data, k, dropout)
+
+    def loop(n):
+        return train_loop(step, state, loader, steps=n, flush_every=flush_every, fuse=fuse)
+
+    torch.cuda.synchronize()
+    for kern in kernels:
+        kern.launches = 0
+    (state, summ), launches = kernel_launches(lambda: loop(updates))
+    counted = {kern.__name__: kern.launches for kern in kernels}
+    extra = graph_launches(step)
+    leaves = _state_leaves(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, timed = loop(updates)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    width = summ["fused_window"] or 1
+    run = dict(fuse=fuse, k=k, updates=summ["updates"], dispatches=summ["dispatches"],
+               fused_window=summ["fused_window"],
+               flushes=[(f["updates"], f["loss"], f["loss_mean"], f["loss_max"])
+                        for f in summ["flushes"]],
+               launches=launches, counted_launches=counted,
+               accounted_launches={n: counted[n] + extra[n] for n in counted},
+               median_update_ms=float(np.median([ms / width for ms in timed["step_ms"]])),
+               wall_seconds=wall)
+    if profile:
+        (_, tsum), busy_ms, wall_ms, nk, groups = traced(lambda: loop(width),
+                                                         group=_accum_group)
+        n = tsum["updates"]
+        run["profile"] = dict(updates=n, wall_ms=wall_ms, device_busy_ms=busy_ms, kernels=nk,
+                              idle_share=(1 - busy_ms / wall_ms) if nk else None,
+                              device_ms_by_group_per_update={
+                                  g: ms / n for g, ms in groups.items()})
+        (_, hsum), calls, _ = host_launches(lambda: loop(width))
+        run["host_launches_per_update"] = calls / hsum["updates"]
+    graphs = graph_stats(step)
+    run.update(replays=sum(g["replays"] for g in graphs),
+               capture_seconds=sum(g["capture_seconds"] for g in graphs))
+    del model, loader, step, state
+    torch.cuda.empty_cache()
+    return run, leaves
+
+
+def _param_ratio(got: dict, want: dict) -> tuple:
+    """The largest ``|got - want| / (atol + rtol |want|)`` over every
+    element of every leaf (``assert_allclose`` passes at <= 1), and its
+    leaf."""
+    worst = (0.0, None)
+    for k, w in want.items():
+        r = float(((got[k].double() - w.double()).abs()
+                   / (ACCUM_PARAM_ATOL + ACCUM_PARAM_RTOL * w.double().abs())).max())
+        worst = max(worst, (r, k), key=lambda t: t[0])
+    return worst
+
+
+def accum_f32_gate(dev, corpus) -> dict:
+    """ViT-B/16 in f32 (TF32 off), dropout 0, ``sgd(0.1)``: one update with
+    ``grad_accum_steps=2`` on the first ``VIT_BATCH`` images against one
+    update on the whole batch from the same weights, within the JAX
+    package's accumulation tolerance; and f32's own spread on the card: the
+    whole-batch update on the rows in reverse order against it."""
+    import torch
+
+    from fluxmpi_tpu_torch import optim
+
+    x = torch.from_numpy(corpus[0][:VIT_BATCH]).to(dev)
+    y = torch.from_numpy(corpus[1][:VIT_BATCH]).to(dev)
+    got = {}
+    for name, k, batch in (("whole", 1, (x, y)), ("accum", ACCUM_K, (x, y)),
+                           ("reversed", 1, (x.flip(0), y.flip(0)))):
+        model, _, step, state, _ = accum_build("vit", dev, torch.float32, corpus, k,
+                                               opt=optim.sgd(0.1))
+        state, loss = step(state, batch)
+        got[name] = (float(loss), {key: v.detach().clone() for key, v in state.params.items()})
+        del model, step, state
+        torch.cuda.empty_cache()
+    ref_loss, ref = got["whole"]
+    out = {}
+    for name in ("accum", "reversed"):
+        ratio, leaf = _param_ratio(got[name][1], ref)
+        out[name] = dict(loss=got[name][0], loss_rel=abs(got[name][0] - ref_loss) / abs(ref_loss),
+                         param_ratio=ratio, param_leaf=leaf)
+    out["whole_loss"] = ref_loss
+    spread = out["reversed"]
+    out["limits"] = dict(loss_rel=max(ACCUM_LOSS_RTOL, 2 * spread["loss_rel"]),
+                         param_ratio=max(1.0, 2 * spread["param_ratio"]))
+    out["ok"] = (out["accum"]["loss_rel"] <= out["limits"]["loss_rel"]
+                 and out["accum"]["param_ratio"] <= out["limits"]["param_ratio"])
+    return out
+
+
+def accum_bn_carry(dev, corpus) -> dict:
+    """ResNet-50 in bf16 from the seeded weights, one update with
+    ``grad_accum_steps=2`` on the first ``RESNET_BATCH`` images: its new
+    statistics against the two microbatches' forwards run by hand, the
+    second from the first's statistics (within C.25's 1e-5, max|diff| /
+    max|ref|), and how far they stand from the second microbatch's alone
+    (both microbatches must show)."""
+    import torch
+
+    model, _, step, state, _ = accum_build("resnet", dev, torch.bfloat16, corpus, ACCUM_K)
+    x = torch.from_numpy(corpus[0][:RESNET_BATCH]).to(dev)
+    y = torch.from_numpy(corpus[1][:RESNET_BATCH]).to(dev)
+    half = RESNET_BATCH // ACCUM_K
+    _, first = model(x[:half], state.model_state, train=True)
+    _, both = model(x[half:], first, train=True)
+    _, alone = model(x[half:], state.model_state, train=True)
+    state, _ = step(state, (x, y))
+    new = state.model_state
+    carried = max(r[0] for r in _rel(new, both).values())
+    apart = max(r[0] for r in _rel(alone, both).values())
+    del model, step, state
+    torch.cuda.empty_cache()
+    return dict(stats=len(new), carried_rel=carried, second_alone_rel=apart,
+                ok=carried <= C25_STATS_TOL and apart > C25_STATS_TOL)
+
+
+def accum_phase(device):
+    """Gradient accumulation on one card (module docstring, item 21):
+    ViT-B/16 with dropout and ResNet-50, bf16, ``grad_accum_steps=2``,
+    fused against ``fuse=False`` bit for bit, launches by the device
+    counters, ms per update beside ``k = 1``; the f32 gate and the carried
+    statistics. Returns its stats and failures."""
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+
+    failures = []
+    card = card_line()
+    t_phase = time.perf_counter()
+    if fm.is_initialized():
+        fm.shutdown()
+    dev = fm.init()
+    corpus = image_corpus(VIT_IMAGES, VIT_HW, RESNET_CLASSES)
+    stats = dict(card=card, k=ACCUM_K, updates=ACCUM_UPDATES, flush_every=ACCUM_FLUSH)
+    paths = stats["launches_by_path"] = {}
+    for kind, dropout in (("vit", ACCUM_DROPOUT), ("resnet", 0.0)):
+        runs, bits = {}, {}
+        for name, fuse, k in (("pipelined", False, ACCUM_K), ("fused", "auto", ACCUM_K),
+                              ("fused_k1", "auto", 1)):
+            runs[name], bits[name] = accum_run(kind, dev, corpus, fuse, k, dropout)
+        fused, pipe = runs["fused"], runs["pipelined"]
+        want, got = bits["pipelined"], bits["fused"]
+        same = sum(torch.equal(got[key], want[key]) for key in want)
+        bitwise = same == len(want) and fused["flushes"] == pipe["flushes"]
+        entry = stats[kind] = dict(runs=runs, leaves=len(want), bit_identical=same,
+                                   flushes_equal=fused["flushes"] == pipe["flushes"])
+        tag = f"accum {kind}"
+        for name, run in runs.items():
+            line = (f"{tag} [{name}, k={run['k']}]: bf16, batch "
+                    f"{VIT_BATCH if kind == 'vit' else RESNET_BATCH}, {run['updates']} updates "
+                    f"(fused_window {run['fused_window']}, {run['replays']} replays, capture "
+                    f"{run['capture_seconds']:.3f} s); median {run['median_update_ms']:.3f} ms "
+                    f"per update; flush mean losses {[round(f[2], 6) for f in run['flushes']]}")
+            if kind == "vit":
+                need = {n: VIT_B16["num_layers"] * run["updates"] * run["k"]
+                        for n in MMA_KERNELS}
+                ok = run["launches"] == need and run["accounted_launches"] == run["launches"]
+                line += (f"; launches by the device counters {run['launches']}, the "
+                         f"wrappers' with the graphs' {run['accounted_launches']} (need "
+                         f"{need}): {'ok' if ok else 'FAILED'}")
+                paths[f"accum_vit_{name}"] = run["launches"]
+                if not ok:
+                    failures.append(f"{tag} [{name}]: launches {run['launches']}, accounted "
+                                    f"{run['accounted_launches']}, need {need}")
+            print(f"{line}; {card}", flush=True)
+            if run["fuse"] and (run["fused_window"] != ACCUM_FLUSH or run["replays"] < 1):
+                failures.append(f"{tag} [{name}]: fused_window {run['fused_window']}, "
+                                f"{run['replays']} replays")
+        losses = [f[2] for r in runs.values() for f in r["flushes"]]
+        if not all(map(math.isfinite, losses)):
+            failures.append(f"{tag}: flush mean losses {losses} not finite")
+        if kind == "resnet":
+            moved = sum(not torch.equal(v, torch.zeros_like(v) if k.endswith(".mean")
+                                        else torch.ones_like(v))
+                        for k, v in got.items() if k.startswith("stats/"))
+            entry["stats_moved"] = moved
+            if moved != sum(k.startswith("stats/") for k in got):
+                failures.append(f"{tag}: some BatchNorm statistics did not move")
+        print(f"{tag}: fused against fuse=False {same}/{len(want)} leaves (parameters, "
+              f"optimizer state{', statistics' if kind == 'resnet' else ''}) bit for bit, "
+              f"flush losses equal {entry['flushes_equal']}: {'ok' if bitwise else 'FAILED'}; "
+              f"ms per update fused k={ACCUM_K} {fused['median_update_ms']:.3f} against k=1 "
+              f"{runs['fused_k1']['median_update_ms']:.3f} (x"
+              f"{fused['median_update_ms'] / runs['fused_k1']['median_update_ms']:.3f}); "
+              f"{card}", flush=True)
+        if not bitwise:
+            differ = [key for key in want if not torch.equal(got[key], want[key])]
+            failures.append(f"{tag}: fused {same}/{len(want)} leaves equal to fuse=False "
+                            f"(differing: {differ[:10]})")
+        del bits, want, got
+        torch.cuda.empty_cache()
+    gate = stats["vit_f32"] = accum_f32_gate(dev, corpus)
+    print(f"accum vit f32 (TF32 off, dropout 0, sgd(0.1), batch {VIT_BATCH}): one update with "
+          f"grad_accum_steps={ACCUM_K} against one on the whole batch: loss rel "
+          f"{gate['accum']['loss_rel']:.3e}, parameters |diff| / ({ACCUM_PARAM_ATOL:g} + "
+          f"{ACCUM_PARAM_RTOL:g} |ref|) {gate['accum']['param_ratio']:.3e} at "
+          f"{gate['accum']['param_leaf']}; f32's own spread (the rows reversed): loss rel "
+          f"{gate['reversed']['loss_rel']:.3e}, parameters {gate['reversed']['param_ratio']:.3e}"
+          f"; limits {gate['limits']} (the JAX package's rtol {ACCUM_LOSS_RTOL:g} and 1, or "
+          f"twice the spread): {'ok' if gate['ok'] else 'FAILED'}; {card}", flush=True)
+    if not gate["ok"]:
+        failures.append(f"accum vit f32: {gate}")
+    carry = stats["resnet_bn_carry"] = accum_bn_carry(dev, corpus)
+    print(f"accum resnet statistics: one update with grad_accum_steps={ACCUM_K} carries "
+          f"{carry['stats']} statistics through both microbatches: max|diff|/max|ref| "
+          f"{carry['carried_rel']:.3e} against the two forwards by hand (limit "
+          f"{C25_STATS_TOL:g}), {carry['second_alone_rel']:.3e} from the second microbatch's "
+          f"alone: {'ok' if carry['ok'] else 'FAILED'}", flush=True)
+    if not carry["ok"]:
+        failures.append(f"accum resnet statistics: {carry}")
+    fm.shutdown()
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"accum phase: {stats['seconds']:.2f} s", flush=True)
+    return stats, failures
+
+
+def _accum_one_card(kind: str, dev, rank: int, world: int, corpus) -> dict:
+    """ROADMAP C.34 on the cards in f32 (TF32 off): one update of the
+    default step with ``grad_accum_steps=2`` at dp = ``world``, each card
+    its share of the global batch (the first ``VIT_BATCH`` /
+    ``RESNET_BATCH`` images), against one card's accumulated update on the
+    same rows, run on this card alone (each half of the global batch
+    forward and backward by hand, the statistics carried, no step, no
+    collective; cuDNN deterministic, as C.25's comparison runs): the loss,
+    each gradient leaf ``[max, norm]`` relatively, with f32's own spread
+    for ResNet (per leaf the largest of three reorderings of each half's
+    rows against the reference: reversed, its world-sized blocks in
+    reverse order, and interleaved across those blocks; ViT's masks key
+    rows by place, so it has none), the statistics; for ViT at
+    ``ACCUM_DROPOUT`` the embedding dropout's keep masks of each
+    microbatch as row digests (this card's rows in the step, the whole
+    microbatch in the reference)."""
+    import torch
+
+    from fluxmpi_tpu_torch.models import vit as vit_mod
+
+    b = VIT_BATCH if kind == "vit" else RESNET_BATCH
+    dropout = ACCUM_DROPOUT if kind == "vit" else 0.0
+    x = torch.from_numpy(corpus[0][:b]).to(dev)
+    y = torch.from_numpy(corpus[1][:b]).to(dev)
+    n, half = b // world, b // ACCUM_K
+    drawn, dropout_fn = [], vit_mod._dropout
+
+    def recording(*a, **kw):
+        out = dropout_fn(*a, **kw)
+        drawn.append(_row_digests(out != 0))
+        return out
+
+    def one_card(order):
+        model, _, _, state, loss_fn = accum_build(kind, dev, torch.float32, corpus, 1, dropout)
+        params = dict(model.named_parameters())
+        ms, loss_sum, grads = state.model_state, 0.0, None
+        for j in range(ACCUM_K):
+            rows = order[j * half:(j + 1) * half]
+            loss, ms = loss_fn(params, ms, (x[rows], y[rows]))
+            g = torch.autograd.grad(loss, list(params.values()))
+            grads = g if grads is None else [a + c for a, c in zip(grads, g)]
+            loss_sum += float(loss.detach()) / ACCUM_K
+        out = (loss_sum, {k: g / ACCUM_K for k, g in zip(params, grads)}, ms or {})
+        del model, state, params, grads
+        torch.cuda.empty_cache()
+        return out
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    vit_mod._dropout = recording
+    try:
+        ref = one_card(torch.arange(b, device=dev))
+        whole, drawn[:] = list(drawn), []
+        opt, seen = _recording_sgd(0.1)
+        model, _, step, state, _ = accum_build(kind, dev, torch.float32, corpus, ACCUM_K,
+                                               dropout, opt=opt)
+        state, loss = step(state, (x[rank * n:(rank + 1) * n], y[rank * n:(rank + 1) * n]))
+        got = list(drawn)
+        new = state.model_state or {}
+        del model, step, state
+        torch.cuda.empty_cache()
+        out = dict(loss=float(loss), one_card_loss=ref[0], grad_rel=_rel(seen, ref[1]),
+                   stats_rel=_rel(new, ref[2]) if new else {}, f32_floor=None)
+        if kind == "resnet":
+            blk = half // world
+            within = [list(range(half - 1, -1, -1)),
+                      [c * blk + r for c in range(world - 1, -1, -1) for r in range(blk)],
+                      [c * blk + r for r in range(blk) for c in range(world)]]
+            floors = [_rel(one_card(torch.tensor([j * half + i for j in range(ACCUM_K)
+                                                  for i in order], device=dev))[1], ref[1])
+                      for order in within]
+            out["f32_floor"] = {k: [max(f[k][i] for f in floors) for i in (0, 1)]
+                                for k in ref[1]}
+    finally:
+        vit_mod._dropout = dropout_fn
+        torch.backends.cudnn.deterministic = deterministic
+    if kind == "vit":
+        out["draws"] = dict(got=[{"embed_keep": d} for d in got],
+                            whole=[{"embed_keep": d} for d in whole])
+    return out
+
+
+def _multicard_accum(dev, rank: int, world: int, kind: str) -> dict:
+    """Slice 24's case ``kind`` (``"resnet"``: ResNet-50; ``"vit"``:
+    ViT-B/16 at dropout ``ACCUM_DROPOUT``) data-parallel with
+    ``grad_accum_steps=2`` (:func:`accum_run`, bf16, ``RESNET_BATCH`` /
+    ``VIT_BATCH`` images globally), fused beside pipelined, the fused
+    window traced (the row exchange's ms apart); the fused path at ``k = 1``
+    for its ms per update; and :func:`_accum_one_card`."""
+    import torch
+
+    corpus = image_corpus(VIT_IMAGES, VIT_HW, RESNET_CLASSES)
+    dropout = ACCUM_DROPOUT if kind == "vit" else 0.0
+    runs, bits = {}, {}
+    for fuse in (False, "auto"):
+        runs["fused" if fuse else "pipelined"], bits[fuse] = accum_run(
+            kind, dev, corpus, fuse, ACCUM_K, dropout, profile=bool(fuse))
+    k1, _ = accum_run(kind, dev, corpus, "auto", 1, dropout, profile=True)
+    want, got = bits[False], bits["auto"]
+    same = [key for key in want if torch.equal(got[key], want[key])]
+    out = dict(runs=runs, leaves=len(want), bit_identical=len(same),
+               differing=[key for key in want if key not in same][:10],
+               digest=_tree_digest(got), flush_every=ACCUM_FLUSH, updates=ACCUM_UPDATES,
+               host_calls_gate=True, k=ACCUM_K, k1=k1)
+    if kind == "vit":
+        out["need"] = {n: VIT_B16["num_layers"] * ACCUM_UPDATES * ACCUM_K for n in MMA_KERNELS}
+    del bits, want, got
+    torch.cuda.empty_cache()
+    out["one_card"] = _accum_one_card(kind, dev, rank, world, corpus)
+    return out
+
+
+def _block_of(full, like, rank: int):
+    """``full`` cut to the block of ``like``'s layout that worker ``rank``
+    holds (the whole of it for a leaf no axis shards)."""
+    from fluxmpi_tpu_torch.parallel.sharding import P, sharding_of
+
+    sh = sharding_of(like)
+    if sh is None:
+        return full
+    for d, names in enumerate(sh.spec):
+        if names is None or names is P.UNCONSTRAINED:
+            continue
+        i, count = sh.mesh.block_index(rank, (names,) if isinstance(names, str) else names)
+        size = full.shape[d] // count
+        full = full.narrow(d, i * size, size)
+    return full
+
+
+def _accum_lm_one_card(dev, rank: int, case: dict) -> dict:
+    """GPT-2 small in f32 (TF32 off, the vocabulary padded, flash attention)
+    under the case's plan with ``grad_accum_steps=2``: one update, each
+    card the rows of its dp block of the first ``case["rows"]`` sequences
+    of the corpus, against one card's accumulated update on the same rows
+    (each half forward and backward by hand on this card): the loss and
+    this card's block of every gradient."""
+    import torch
+
+    import fluxmpi_tpu_torch as fm
+    from fluxmpi_tpu_torch.models import TransformerLM
+    from fluxmpi_tpu_torch.parallel import ParallelConfig, TrainState, make_train_step
+
+    cfg = dict(GPT2_SMALL, vocab_size=GPT2_PADDED_VOCAB)
+    corpus = torch.from_numpy(lm_corpus(cfg["vocab_size"], n=case["rows"],
+                                        seq=cfg["max_len"])).to(dev)
+    x, y = corpus[:, :-1].long(), corpus[:, 1:].long()
+    half = case["rows"] // ACCUM_K
+
+    def build():
+        model = TransformerLM(**cfg, attention="flash", device=dev,
+                              generator=torch.Generator().manual_seed(0))
+        fm.synchronize(model)
+        return model
+
+    model = build()
+    params = dict(model.named_parameters())
+    loss_sum, grads = 0.0, None
+    for j in range(ACCUM_K):
+        rows = slice(j * half, (j + 1) * half)
+        loss = torch.func.functional_call(model, params, (x[rows],),
+                                          {"targets": y[rows]}).mean()
+        g = torch.autograd.grad(loss, list(params.values()))
+        grads = g if grads is None else [a + c for a, c in zip(grads, g)]
+        loss_sum += float(loss.detach()) / ACCUM_K
+    ref = {k: g / ACCUM_K for k, g in zip(params, grads)}
+    del model, params, grads
+    torch.cuda.empty_cache()
+    plan = ParallelConfig(**case["plan"]).resolve()
+    model = build()
+    opt, seen = _recording_sgd(0.1)
+    state, _ = plan.shard_state(TrainState.create(model, opt))
+    blocks = {k: _block_of(ref[k], v, rank) for k, v in state.params.items()}
+    del ref
+
+    def loss_fn(params, model_state, batch):
+        return torch.func.functional_call(model, params, (batch[0],),
+                                          {"targets": batch[1]}).mean(), model_state
+
+    step = make_train_step(loss_fn, opt, parallel=plan, grad_accum_steps=ACCUM_K)
+    i, n = plan.mesh.block_index(rank, plan.data_axes)
+    share = case["rows"] // n
+    state, loss = step(state, (x[i * share:(i + 1) * share], y[i * share:(i + 1) * share]))
+    out = dict(loss=float(loss), one_card_loss=loss_sum, grad_rel=_rel(seen, blocks),
+               stats_rel={}, f32_floor=None)
+    del model, state, step, blocks, seen
+    torch.cuda.empty_cache()
+    return out
+
+
+def _multicard_accum_lm(dev, rank: int, world: int) -> dict:
+    """GPT-2 small under ``dp=2 x tp=2`` with ``grad_accum_steps=2``: the
+    plan case's fused and pipelined runs and the fused path at ``k = 1``
+    (:func:`_multicard_lm`), and :func:`_accum_lm_one_card`."""
+    case = MULTICARD_ACCUM_LM
+    out = _multicard_lm(dev, rank, world, case=case)
+    out["one_card"] = _accum_lm_one_card(dev, rank, case)
+    return out
+
+
+def _accum_gates(name: str, ranks: list) -> list:
+    """ROADMAP C.34 on the cards: every card's accumulated update against
+    one card's (:func:`_accum_one_card`): the loss within C.25's 1e-4,
+    every gradient leaf within C.25's bound (or twice f32's own spread
+    there), every statistic within 1e-5; the draws through
+    :func:`_c32_gates`. Returns the failures."""
+    failures, tag = [], f"multicard_fused_phase [{name}] C.34"
+    for r in ranks:
+        c = r[name]["one_card"]
+        floor = c["f32_floor"] or {}
+        over = {k: (v[1], floor.get(k, [0.0, 0.0])[1]) for k, v in c["grad_rel"].items()
+                if v[1] > max(C25_GRAD_TOL, 2 * floor.get(k, [0.0, 0.0])[1])}
+        if over:
+            failures.append(f"{tag}: card {r['rank']}'s gradients past the bound: "
+                            f"{dict(list(over.items())[:5])}")
+        worst = max((v[0] for v in c["stats_rel"].values()), default=0.0)
+        if worst > C25_STATS_TOL:
+            failures.append(f"{tag}: card {r['rank']}'s statistics {worst:.3e} from one card's")
+        if abs(c["loss"] - c["one_card_loss"]) > C25_LOSS_TOL * abs(c["one_card_loss"]):
+            failures.append(f"{tag}: card {r['rank']}'s loss {c['loss']} against one card's "
+                            f"{c['one_card_loss']}")
+    views = [{"rank": r["rank"], name: r[name]["one_card"]} for r in ranks]
+    if "draws" in views[0][name]:
+        failures += [f"{tag}: {f}" for f in _c32_gates(name, views)]
+    return failures
+
+
 def multicard_child(outdir: str, models: str) -> int:
     """One worker of ``multicard_fused_phase`` (started by the launcher,
     its environment naming the world): each of ``models`` (comma-separated:
@@ -7595,6 +8226,9 @@ def multicard_child(outdir: str, models: str) -> int:
                "unet": functools.partial(_multicard_zoo, kind="unet")}
     for name, case in MULTICARD_PLANS.items():
         runners[name] = functools.partial(_multicard_lm, case=case)
+    runners.update(resnet_accum=functools.partial(_multicard_accum, kind="resnet"),
+                   vit_accum=functools.partial(_multicard_accum, kind="vit"),
+                   gpt2_dp2_tp2_accum=_multicard_accum_lm)
     for name in models.split(","):
         t0 = time.perf_counter()
         res[name] = runners[name](dev, rank, world)
@@ -7647,6 +8281,8 @@ def _multicard_gates(name: str, ranks: list, failures: list) -> None:
     if len({r[name]["digest"] for r in ranks}) != 1:
         failures.append(f"multicard_fused_phase [{name}]: the cards' fused states differ")
     failures += _c32_gates(name, ranks)
+    if "one_card" in ranks[0][name]:
+        failures += _accum_gates(name, ranks)
     if "eval" in ranks[0][name] and len({r[name]["eval"]["value"] for r in ranks}) != 1:
         failures.append(f"multicard_fused_phase [{name}]: make_eval_step returned "
                         f"{[r[name]['eval']['value'] for r in ranks]}, not one value")
@@ -7662,10 +8298,10 @@ def _c32_gates(name: str, ranks: list) -> list:
     first = ranks[0][name]
     if "draws" in first:
         for i, whole in enumerate(first["draws"]["whole"]):
-            for key in ("tsteps", "eps"):
+            for key in whole:
                 glued = [d for r in ranks for d in r[name]["draws"]["got"][i][key]]
                 if glued != whole[key]:
-                    failures.append(f"{tag}: update {i}'s {key} over the cards differ "
+                    failures.append(f"{tag}: draw {i}'s {key} over the cards differ "
                                     f"from one card's draws over the global batch")
     if "kernel_share" in first:
         whole = first["kernel_share"]["whole"]
@@ -7771,6 +8407,28 @@ def multicard_fused_phase(device, models=MULTICARD_MODELS, world: int | None = N
                   f"against one card's over the global batch: "
                   f"{'equal' if not c32 else c32}; device ms of one draw over the global "
                   f"batch's rows and over card 0's {m['draw_ms']}", flush=True)
+        if "one_card" in m:
+            prof = m["runs"]["fused"]["profile"]["device_ms_by_group_per_update"]
+            k1 = m["k1"]["profile"]["device_ms_by_group_per_update"]
+            c = m["one_card"]
+            worst = max(c["grad_rel"].items(), key=lambda kv: kv[1][1])
+            print(f"multicard_fused_phase [{name}]: grad_accum_steps={m['k']}, fused ms per "
+                  f"update {m['runs']['fused']['median_update_ms']:.3f} against k=1 "
+                  f"{m['k1']['median_update_ms']:.3f} (card 0); the row exchange "
+                  f"{prof.get('row exchange (all-to-all)', 0.0):.4f} ms per update, the other "
+                  f"collectives {prof.get('collectives (NCCL)', 0.0):.3f} (k=1: "
+                  f"{k1.get('collectives (NCCL)', 0.0):.3f}) from the traced window; "
+                  f"{card_line()}",
+                  flush=True)
+            print(f"multicard_fused_phase [{name}]: C.34, one f32 update (TF32 off) against "
+                  f"one card's accumulated update on the same rows: loss "
+                  f"{[r[name]['one_card']['loss'] for r in ranks]} against "
+                  f"{c['one_card_loss']}; worst gradient on card 0 {worst[0]} "
+                  f"[max, norm] {worst[1]} (bound {C25_GRAD_TOL:g} or twice f32's spread); "
+                  f"statistics {max((v[0] for v in c['stats_rel'].values()), default=None)} "
+                  f"(bound {C25_STATS_TOL:g}); draws "
+                  f"{'equal' if 'draws' in c and not _accum_gates(name, ranks) else 'none' if 'draws' not in c else 'DIFFER'}",
+                  flush=True)
         if "staged_calls" in m:
             print(f"multicard_fused_phase [{name}]: C.33, collectives staged through the "
                   f"host per card {[r[name]['staged_calls'] for r in ranks]}", flush=True)
@@ -7925,6 +8583,9 @@ def run_phases(device):
     settle("compose_phase")
     comp, comp_failures = compose_phase(device)
     failures += comp_failures
+    settle("accum_phase")
+    accum, accum_failures = accum_phase(device)
+    failures += accum_failures
     settle("decode_phase")
     dec, dec_failures = decode_phase(device)
     failures += dec_failures
@@ -7936,6 +8597,7 @@ def run_phases(device):
                  **elastic.get("launches_by_path", {}),
                  **seq.get("launches_by_path", {}),
                  **comp.get("launches_by_path", {}),
+                 **accum.get("launches_by_path", {}),
                  **dec.get("launches_by_path", {}),
                  **{f"example_{n[:-3]}": r["launches"] for n, r in ex["examples"].items()
                     if r["launches"] and any(r["launches"].values())}}
@@ -8076,7 +8738,8 @@ def run_phases(device):
                      "vision": vision, "zoo": zoo, "finetune": tune,
                      "health": health, "parallel": par, "autotune": tune_auto,
                      "elastic": elastic, "sequence": seq, "examples": ex,
-                     "compose": comp, "decode": dec, "multicard_fused": multi}, failures
+                     "compose": comp, "accum": accum, "decode": dec,
+                     "multicard_fused": multi}, failures
 
 
 if __name__ == "__main__":

@@ -203,6 +203,57 @@ def _split(batch: Any, k: int) -> list[Any]:
     return [pytree.tree_unflatten([p[i] for p in parts], spec) for i in range(k)]
 
 
+def _microbatch_rows(batch: Any, rows: Any, k: int) -> Any:
+    """This worker's rows of the global batch exchanged over the batch
+    axes ``rows`` (N members, this one ``rows.index``) so that its ``j``-th
+    of ``k`` chunks is its block of the JAX package's microbatch ``j``, the
+    global batch's ``j``-th slice: global rows ``j * B/k + index * m`` on,
+    ``m = B / (N * k)``. In blocks of ``m`` global rows, block ``q`` lives
+    on member ``q // k`` as its chunk ``q % k`` and goes to member ``q % N``
+    as its chunk ``q // N``: one ``all_to_all_single`` a tensor leaf over
+    the group, its split sizes known on the host (so a CUDA graph records
+    it), no gradient through it. Raises ``ValueError`` where the rows do
+    not divide (ROADMAP C.35)."""
+    import torch.distributed as dist
+
+    n, me, group = rows.size, rows.index, rows.group
+    members = dist.get_process_group_ranks(group)
+    # The batch-axes index of the member at each place of the group.
+    index_at = [rows.ranks.index(r) for r in members]
+
+    def exchange(x):
+        if not torch.is_tensor(x):
+            return x
+        local = x.shape[0]
+        if (local * n) % k:
+            raise ValueError(f"batch dim {local * n} not divisible by "
+                             f"grad_accum_steps {k}")
+        if local % k:
+            raise ValueError(
+                f"grad_accum_steps={k} over {n} batch workers of {local} rows each: "
+                f"each microbatch of {local * n // k} global rows would spread unevenly "
+                f"over the workers, which the port does not run (ROADMAP C.35); the "
+                f"JAX package runs this case")
+        m = local // k
+        send = {d: [c for c in range(k) if (me * k + c) % n == d] for d in range(n)}
+        recv = {s: [j for j in range(k) if (j * n + me) // k == s] for s in range(n)}
+        order = [c for d in index_at for c in send[d]]
+        arrived = [j for s in index_at for j in recv[s]]
+        x = x.detach()
+        if order != list(range(k)):
+            x = torch.cat([x.narrow(0, c * m, m) for c in order])
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, [m * len(recv[s]) for s in index_at],
+                               [m * len(send[d]) for d in index_at], group=group)
+        if arrived != list(range(k)):
+            at = {j: i for i, j in enumerate(arrived)}
+            out = torch.cat([out.narrow(0, at[j] * m, m) for j in range(k)])
+        return out
+
+    return pytree.tree_map(exchange, batch)
+
+
 # The matrix products whose outputs remat="dots" keeps (the analogue of
 # jax.checkpoint_policies.checkpoint_dots); everything else recomputes.
 _DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
@@ -829,7 +880,14 @@ def make_train_step(
     worker already. Before :func:`~fluxmpi_tpu_torch.init` there is one
     worker and nothing to average.
     ``grad_accum_steps=k`` splits each batch into ``k`` micro-batches and
-    averages their gradients before the one update. ``scan_steps=K`` takes
+    averages their gradients before the one update. Micro-batch ``j`` is
+    the global batch's ``j``-th slice, as in JAX: under ``style="auto"``
+    with batch axes of ``N > 1`` workers, the step first exchanges rows
+    over them (one all-to-all a batch leaf), so that this worker's share
+    of micro-batch ``j`` is its block of that slice, and the layers that
+    couple rows (BatchNorm, the DEQ's stopping test, ``n_groups``, the
+    random draws) see the JAX package's micro-batches. Each worker's rows
+    must divide into ``k`` blocks. ``scan_steps=K`` takes
     ``K`` batches stacked on a leading axis, runs ``K`` updates and returns
     the ``[K]`` losses. The parameters and optimizer state update in place;
     the returned loss is a detached tensor on the device (reading it
@@ -1031,6 +1089,8 @@ def make_train_step(
         if axes is not None:
             batch = layout.local_batch(batch, batch_spec)
         rows = batch_axes()
+        if grad_accum_steps > 1 and rows is not None:
+            batch = _microbatch_rows(batch, rows, grad_accum_steps)
         loss_sum, acc, mstate = None, None, ts.model_state
         for mb in _split(batch, grad_accum_steps) if grad_accum_steps > 1 else [batch]:
             with (_tensor_parallel.active(tp), _sequence_parallel.active(axes),

@@ -2403,8 +2403,9 @@ def test_nccl_fused_windows_across_cards_match_pipelined():
     captured in a graph give the eager bits; then slice 23's launch
     (``MULTICARD_ZOO``: ViT-B/16 and the DDPM UNet at dp=4 with their
     draws held to one card's over the global batch, GPT-2 small at dp=4
-    under host staging; :func:`_check_zoo_launch`); on two cards the MLP
-    again. Every
+    under host staging; :func:`_check_zoo_launch`) and slice 24's
+    (``MULTICARD_ACCUM``, :func:`_check_accum_launch`); on two cards the
+    MLP again. Every
     leaf and flush bit for bit on every card, the same state on every
     card, and ``make_eval_step``'s loss one value on every card (C.26).
     Prints ms per update, host launch calls per update and capture seconds
@@ -2440,6 +2441,7 @@ def test_nccl_fused_windows_across_cards_match_pipelined():
             assert m["bit_identical"] == m["leaves"]
             assert m["runs"]["fused"]["fused_window"] == case["flush_every"]
     _check_zoo_launch(plans, smoke)
+    _check_accum_launch(plans, smoke)
 
 
 def _check_zoo_launch(results, smoke):
@@ -2492,3 +2494,59 @@ def test_nccl_zoo_draws_and_host_staging_fused_on_four_cards():
     assert not failures, failures
     assert results["ran"]
     _check_zoo_launch(results, smoke)
+
+
+def _check_accum_launch(results, smoke):
+    """Slice 24's launch (``MULTICARD_ACCUM``) in ``multicard_fused_launches``'
+    results: every case with ``grad_accum_steps=2`` fused (windows of 4)
+    bit for bit on every card, its k = 1 run beside it, and every card's
+    f32 update held to one card's accumulated update (ROADMAP C.34)."""
+    for name in smoke.MULTICARD_ACCUM:
+        assert len(results[name]) == 4, name
+        for m in results[name].values():
+            assert m["bit_identical"] == m["leaves"], name
+            assert m["runs"]["fused"]["fused_window"] == m["flush_every"] == 4, name
+            assert m["k"] == 2 and m["k1"]["median_update_ms"] > 0, name
+        ranks = [{"rank": r, name: results[name][r]} for r in sorted(results[name])]
+        assert smoke._accum_gates(name, ranks) == [], name
+    assert all("draws" in m["one_card"] for m in results["vit_accum"].values())
+    assert all(m["one_card"]["stats_rel"] for m in results["resnet_accum"].values())
+
+
+def test_nccl_accumulation_over_the_global_batch_on_four_cards():
+    """Slice 24's launch alone (``chip_smoke.MULTICARD_ACCUM``, one launch of
+    four workers), ``grad_accum_steps=2`` over the global batch (ROADMAP
+    C.34: each card's rows exchanged over the batch axes, so its share of
+    microbatch j is its block of the global batch's j-th half): ResNet-50
+    and ViT-B/16 (dropout 0.1) in bf16 at dp=4, 32 images of 224 x 224 a
+    card, and GPT-2 small under ``dp=2 x tp=2`` at 32 x 1024, each
+    ``train_loop(fuse="auto")`` in windows of 4 beside ``fuse=False`` under
+    ``_multicard_gates`` (every leaf and flush bit for bit, one digest,
+    ViT's and GPT-2's launches by the device counters at 24 of each kernel
+    an update, at most 8 host launch calls a window); the fused path at
+    k = 1 beside it and the row exchange's ms from a traced window; and one
+    f32 update (TF32 off) on every card against one card's accumulated
+    update on the same rows: every gradient leaf within C.25's bound, the
+    statistics within 1e-5, the loss within 1e-4, ViT's embedding dropout
+    masks of each microbatch over the cards equal to one card's bit for
+    bit. The whole four-card test runs this launch too."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    import importlib.util
+    import json
+
+    from fluxmpi_tpu_torch.ops import _build
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    _build.build_all()
+    results, failures = smoke.multicard_fused_launches(
+        torch.device("cuda", 0), (smoke.MULTICARD_ACCUM,), world=4)
+    out = root / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "multicard_accum.json").write_text(json.dumps(results))
+    assert not failures, failures
+    assert results["ran"]
+    _check_accum_launch(results, smoke)
